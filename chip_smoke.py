@@ -2,22 +2,34 @@
 
     python3 chip_smoke.py
 
-Drives ``elegantrl_tpu_torch``'s main path, PPO on Pendulum-v1, on the
-card, and holds each hand-written kernel against its plain PyTorch version:
+Drives ``elegantrl_tpu_torch``'s main paths on the card, PPO on Pendulum-v1
+and discrete PPO on CartPole-v1, and holds each hand-written kernel against
+its plain PyTorch version:
 
 1. device: name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` for ``sm_90a`` on every ``ops/csrc/*.cu``, all at once;
-3. fused rollout (K1) against ``rollout_reference`` at full width
-   (4096 envs, H=64, (128, 128)), injected noise and Philox noise;
-4. K1's Philox draws, statistically (262,144 normals, reset ranges);
-5. fused PPO update (K2) against ``ppo_update_reference`` at U=1 and
-   U=32, B=512;
-6. the main path: ``build_training`` at the bench config (4096 envs,
-   H=64, B=512, repeat 8, (128, 128)), one small round against the same
-   round on the CPU, then 10 timed rounds with the launch counts reset
-   just before them;
-7. the entry point: ``train_agent`` for two evaluation periods;
-8. the kernels line and the device line.
+3. fused rollout, Pendulum + Gaussian head, against ``rollout_reference`` at
+   full width (4096 envs, H=64, (128, 128)), injected noise and Philox noise;
+4. its Philox draws, statistically (262,144 normals, reset ranges);
+5. fused PPO update, continuous head, against ``ppo_update_reference`` at
+   U=1 and U=32, B=512;
+6. fused rollout for CartPole + categorical, HopperSlip + Gaussian,
+   PointChasing + Gaussian and PointChasingDiscrete + categorical, each
+   against ``rollout_reference`` at full width, both noise modes, with a
+   one-step check on every state the rollout visits; the Gumbel-max sample
+   and the chasing reset's normals, statistically;
+7. fused PPO update, discrete head, at U=1 and U=32, B=512, A=2 and A=9;
+8. the Pendulum main path: ``build_training`` at the bench config (4096
+   envs, H=64, B=512, repeat 8, (128, 128)), one small round against the
+   same round on the CPU, then 10 timed rounds with the launch counts reset
+   just before them; the card refuses every plain path;
+9. the CartPole main path, ``AgentDiscretePPO`` at the same sizes, likewise;
+10. the entry point: ``train_agent`` for PPO on Pendulum and discrete PPO on
+    CartPole (two evaluation periods each) and, shorter, A2C on Pendulum,
+    PPO on HopperSlip, PPO on PointChasing and discrete A2C on
+    PointChasingDiscrete, so every agent class and env body has run on the
+    card through the entry point;
+11. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -70,12 +82,16 @@ def cuda_ms(torch, fn, reps, warmup=1):
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
-    from elegantrl_tpu_torch.agents import AgentPPO
+    from elegantrl_tpu_torch.agents import (AgentA2C, AgentDiscreteA2C, AgentDiscretePPO,
+                                            AgentPPO)
     from elegantrl_tpu_torch.agents.ppo import make_ppo, norm_state
-    from elegantrl_tpu_torch.envs import PendulumEnv
+    from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
+                                          PointChasingDiscreteEnv, PointChasingVecEnv)
     from elegantrl_tpu_torch.ops import _cuda_build
-    from elegantrl_tpu_torch.ops.fused_rollout import (PENDULUM_BODY, rollout, rollout_reference,
-                                                       _library as fr_lib, smem_bytes as fr_smem)
+    from elegantrl_tpu_torch.ops.fused_rollout import (
+        CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
+        PENDULUM_BODY, noise_rows, rollout, rollout_reference, _library as fr_lib,
+        smem_bytes as fr_smem)
     from elegantrl_tpu_torch.ops.fused_update import (ppo_update, ppo_update_reference,
                                                       _library as fu_lib, smem_bytes as fu_smem)
     from elegantrl_tpu_torch.utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
@@ -108,11 +124,14 @@ def main():
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that
-    # judge eligibility on the CPU must agree with them
-    smem = {'fused_rollout': (fr_lib().fused_rollout_smem_bytes(*NET_DIMS),
-                              fr_smem(3, NET_DIMS, 1)),
-            'ppo_update': (fu_lib().ppo_update_smem_bytes(3, 1, *NET_DIMS),
-                           fu_smem(3, 1, *NET_DIMS))}
+    # judge eligibility on the CPU must agree with them, for every body
+    smem = {}
+    for body in KERNEL_ENV_BODIES.values():
+        S, A = body.state_dim, body.action_dim
+        smem[f'fused_rollout[{body.env_name}]'] = (
+            fr_lib().fused_rollout_smem_bytes(S, A, *NET_DIMS), fr_smem(S, NET_DIMS, A))
+        smem[f'ppo_update[S={S},A={A}]'] = (fu_lib().ppo_update_smem_bytes(S, A, *NET_DIMS),
+                                            fu_smem(S, A, *NET_DIMS))
     assert all(a == b for a, b in smem.values()), smem
     emit(phase='build', seconds=round(time.time() - t0, 3), ptxas=ptxas,
          smem_bytes={k: v[0] for k, v in smem.items()})
@@ -136,8 +155,18 @@ def main():
     seed = torch.tensor([20260, -77], dtype=torch.int32, device=dev)
     kw = dict(net_dims=NET_DIMS, horizon_len=H, reward_scale=1.0)
     roll_args = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std, env_f, env_i)
+    D1, D2 = NET_DIMS
 
-    # ---- 3. K1 against its plain version
+    def rollout_bound(body, n_params):
+        """Both nets per env-step; every input read and output written once."""
+        S, A = body.state_dim, body.action_dim
+        flop = 2 * (2 * (S * D1 + D1 * D2) + D2 * (A + 1)) * N * H
+        rows_in = body.n_f32 + body.n_i32
+        nbytes = 4 * (n_params + rows_in * N + 2 + 2 * S
+                      + N * H * (S + (1 if body.discrete else A) + 5) + rows_in * N)
+        return bound(flop, nbytes)
+
+    # ---- 3. fused rollout (Pendulum) against its plain version
     # Tolerance: values, logprobs and the one-step dynamics recomputed by
     # the plain version from the kernel's own stored states and actions
     # (teacher-forced) agree to 1e-4 (f32 sums in another order, FMA
@@ -179,13 +208,9 @@ def main():
              tolerance={'trajectory': 2e-2, 'teacher_forced': 1e-4})
     k1_ms = cuda_ms(torch, lambda: rollout(*roll_args, **kw, seed=seed), reps=20, warmup=2)
     k1_plain_ms = cuda_ms(torch, lambda: rollout_reference(*roll_args, **kw, seed=seed), reps=3)
-    D1, D2 = NET_DIMS
-    k1_flop = 2 * 2 * (3 * D1 + D1 * D2 + D2) * N * H        # both nets, per env-step
-    k1_bytes = 4 * (st.act_flat.numel() + st.cri_flat.numel() + 3 * N + 2 + 6
-                    + N * H * (3 + 1 + 5) + 3 * N)
-    k1_bound, k1_by = bound(k1_flop, k1_bytes)
+    k1_bound, k1_by = rollout_bound(PENDULUM_BODY, st.act_flat.numel() + st.cri_flat.numel())
 
-    # ---- 4. K1's Philox draws
+    # ---- 4. the Pendulum rollout's Philox draws
     z = k1['philox']['z'].reshape(-1)
     zm, zs = float(z.mean()), float(z.std())
     out = rollout(*roll_args, **kw, seed=seed)
@@ -196,27 +221,35 @@ def main():
     emit(phase='k1_philox', draws=z.numel(), z_mean=zm, z_std=zs, bounds='|mean|<0.01, |std-1|<0.01',
          resets=int(reset.sum()), max_abs_reset_thdot=float(thdot_next.abs().max()))
 
-    # ---- 5. K2 against its plain version
+    # ---- 5. fused PPO update against its plain version
     # Tolerance: per buffer, the kernel's update (new - old) is within
     # 5e-3 of the largest plain update of that buffer; objectives within
     # 1e-4 relative at U=1 and 1e-3 at U=32 (32 steps compound rounding).
-    k2 = {}
     hp = dict(net_dims=NET_DIMS, ratio_clip=0.25, lambda_entropy=0.001, lr=6e-5,
               clip_grad=3.0)
-    for U in (1, 32):
+
+    def update_vs_plain(state, S, A, discrete, U, phase, **hyper):
         g2 = torch.Generator(device=dev).manual_seed(100 + U)
-        block = [torch.randn((U, 3, BATCH), generator=g2, device=dev),
-                 torch.randn((U, 1, BATCH), generator=g2, device=dev),
-                 torch.randn((U, BATCH), generator=g2, device=dev) * 0.3 - 1.2,
+        sb = torch.randn((U, S, BATCH), generator=g2, device=dev)
+        if discrete:   # one-hot rows of uniformly drawn actions; logprobs near -log A
+            index = torch.randint(0, A, (U, BATCH), generator=g2, device=dev)
+            ab = torch.nn.functional.one_hot(index, A).float().transpose(1, 2).contiguous()
+            lpb = torch.randn((U, BATCH), generator=g2, device=dev) * 0.3 - math.log(A)
+        else:
+            ab = torch.randn((U, A, BATCH), generator=g2, device=dev)
+            lpb = torch.randn((U, BATCH), generator=g2, device=dev) * 0.3 - 1.2
+        block = [sb, ab, lpb,
                  torch.randn((U, BATCH), generator=g2, device=dev),
                  torch.randn((U, BATCH), generator=g2, device=dev),
                  (torch.rand((U, BATCH), generator=g2, device=dev) > 0.05).float()]
-        base = [st.act_flat, st.cri_flat, st.act_opt.mu + 1e-4, st.act_opt.nu + 1e-8,
-                st.cri_opt.mu + 1e-4, st.cri_opt.nu + 1e-8]
+        base = [state.act_flat, state.cri_flat, state.act_opt.mu + 1e-4,
+                state.act_opt.nu + 1e-8, state.cri_opt.mu + 1e-4, state.cri_opt.nu + 1e-8]
+        norm = (state.norm_avg, state.norm_std)
+        hyper = dict(hp, discrete=discrete, **hyper)
         runs = {}
         for fn in (ppo_update, ppo_update_reference):
             bufs = [b.clone() for b in base]
-            objs = fn(*bufs, 5, 5, st.norm_avg, st.norm_std, *block, **hp)
+            objs = fn(*bufs, 5, 5, *norm, *block, **hyper)
             torch.cuda.synchronize()
             runs[fn.__name__] = (bufs, objs)
         (kb, ko), (pb, po) = runs['ppo_update'], runs['ppo_update_reference']
@@ -227,139 +260,395 @@ def main():
         assert all(r <= 5e-3 for r in rel), rel
         assert obj_rel <= (1e-4 if U == 1 else 1e-3), obj_rel
         bufs = [b.clone() for b in base]
-        ms = cuda_ms(torch, lambda: ppo_update(*bufs, 5, 5, st.norm_avg, st.norm_std,
-                                               *block, **hp), reps=20, warmup=2)
-        plain = cuda_ms(torch, lambda: ppo_update_reference(
-            *bufs, 5, 5, st.norm_avg, st.norm_std, *block, **hp), reps=3)
-        P = st.act_flat.numel() + st.cri_flat.numel()
-        flop = 2 * 3 * 2 * (3 * D1 + D1 * D2 + D2) * BATCH * U   # 2 nets, fwd + bwd
-        nbytes = 4 * (2 * 3 * P + U * BATCH * (3 + 1 + 4) + 6 + U * 3)
+        ms = cuda_ms(torch, lambda: ppo_update(*bufs, 5, 5, *norm, *block, **hyper),
+                     reps=20, warmup=2)
+        plain = cuda_ms(torch, lambda: ppo_update_reference(*bufs, 5, 5, *norm, *block, **hyper),
+                        reps=3)
+        P = state.act_flat.numel() + state.cri_flat.numel()
+        # 2 nets, forward + backward (2x), 2 FLOP per multiply-add
+        flop = 3 * 2 * (2 * (S * D1 + D1 * D2) + D2 * (A + 1)) * BATCH * U
+        nbytes = 4 * (2 * 3 * P + U * BATCH * (S + A + 4) + 2 * S + U * 3)
         b_ms, b_by = bound(flop, nbytes)
-        k2[U] = dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
-        emit(phase='k2_vs_plain', U=U, B=BATCH, rel_update_diff=rel, max_abs_err=err,
+        emit(phase=phase, U=U, B=BATCH, S=S, A=A, rel_update_diff=rel, max_abs_err=err,
              objective_rel_diff=obj_rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
 
-    # ---- 6. the main path
-    def bench_args(num_envs, horizon, batch):
-        a = Config(AgentPPO, PendulumEnv,
-                   {'env_name': 'Pendulum-v1', 'num_envs': num_envs, 'max_step': 200,
-                    'state_dim': 3, 'action_dim': 1, 'if_discrete': False})
+    k2 = {U: update_vs_plain(st, 3, 1, False, U, 'k2_vs_plain') for U in (1, 32)}
+
+    # ---- 6. fused rollout, the other bodies and the categorical head
+    # One-step check (injected noise): the kernel and the plain version each
+    # take ONE step from every (env rows, noise) pair that the plain rollout
+    # visits, 262,144 at once, so nothing is amplified: values, logprobs,
+    # rewards, stored states, continuous actions and next env rows (after
+    # the masked reset) agree to 1e-4 (f32 sums in another order, FMA
+    # contraction, the libraries' sin/cos/exp/log); flags, step counters and
+    # discrete actions are equal, but for at most 8 samples that sit within
+    # rounding of a hard threshold (|x| > 2.4, z < 0.25, distance < 2, a
+    # touchdown, a Gumbel-max near-tie), which are counted and left out of
+    # the rest.
+    # Whole trajectories: CartPole, the hopper (touchdown, liftoff) and the
+    # argmax have hard thresholds, so one last-bit difference parts a lane
+    # from its twin for good.  A lane counts as parted from the first step
+    # where any output differs by more than 2e-2 or a flag or discrete action
+    # differs; at most 1% of the 4096 lanes may part in 64 steps, and every
+    # other lane agrees everywhere, final env rows included.
+    def body_state(body):
+        S, A = body.state_dim, body.action_dim
+        a = Config()
+        a.net_dims = NET_DIMS
+        s = make_ppo(NET_DIMS, S, A, a, discrete=body.discrete).init(0, dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        s = s._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
+                       norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
+        if not body.discrete:
+            with torch.no_grad():
+                s.act.std_log.fill_(-0.5)
+        return s
+
+    def body_noise(body, g, h, n):
+        A, n_env = body.action_dim, body.n_step + body.n_reset
+        head = (torch.rand if body.discrete else torch.randn)((h, A, n), generator=g, device=dev)
+        return torch.cat([head, torch.rand((h, n_env, n), generator=g, device=dev)], 1).contiguous()
+
+    def fields_differ(got, want, tol):
+        """(H, N) bool: a flag or discrete action differs, or a float output
+        differs by more than ``tol``; and the largest float difference."""
+        bad = torch.zeros_like(got.logprobs, dtype=torch.bool)
+        worst = got.logprobs.new_zeros(got.logprobs.shape)
+        for f in got._fields[:7]:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dim() == 3:
+                a, b = a.transpose(0, 1), b.transpose(0, 1)          # (rows, H, N)
+            else:
+                a, b = a[None], b[None]
+            if f in ('terminals', 'truncates') or not a.dtype.is_floating_point:
+                bad |= (a != b).any(0)
+            else:
+                worst = torch.maximum(worst, (a - b).abs().amax(0))
+        return bad | (worst > tol), worst
+
+    def check_body(body, env_class):
+        S, A = body.state_dim, body.action_dim
+        tag = f'fused_rollout[{body.env_name},{"categorical" if body.discrete else "gaussian"}]'
+        s = body_state(body)
+        g = torch.Generator(device=dev).manual_seed(21)
+        env_def = env_class(num_envs=1)._def
+        f0, i0 = body.pack(env_def.init(g, N, dev))
+        # stagger the step counters so that the time limit fires in some lanes
+        i0 = (torch.arange(N, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        if body is HOPPER_BODY:   # a random policy rarely falls within 64 steps:
+            f0[1, :64], f0[3, :64] = 0.27, -3.0      # drop some lanes below 0.25
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        nz = body_noise(body, g, H, N)
+        net = (s.act_flat, s.cri_flat, s.norm_avg, s.norm_std)
+        bkw = dict(net_dims=NET_DIMS, reward_scale=1.0, body=body)
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = rollout(*net, f0, i0, horizon_len=H, **bkw, **extra)
+            want = rollout_reference(*net, f0, i0, horizon_len=H, env_trace=trace, **bkw, **extra)
+            torch.cuda.synchronize()
+            differ, worst = fields_differ(got, want, 2e-2)
+            parted = differ.any(0)                                     # (N,)
+            end_diff = torch.maximum((got.env_f - want.env_f).abs().amax(0),
+                                     (got.env_i != want.env_i).any(0).float())
+            share = float(parted.float().mean())
+            kept = ~parted
+            assert share <= 0.01, (tag, mode, share)
+            assert float(end_diff[kept].max()) <= 2e-2, (tag, mode, float(end_diff[kept].max()))
+            assert all(bool(torch.isfinite(getattr(got, f).float()).all()) for f in got._fields)
+            flags = {'terminals': int(got.terminals.sum()), 'truncates': int(got.truncates.sum())}
+            assert flags['terminals'] > 0, (tag, flags)
+            report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share,
+                                max_abs_diff_kept=float(worst[:, kept].max()), **flags)
+        # the one-step check, on the injected-noise trajectory's visited rows
+        f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()        # (F, H*N)
+        i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
+        nz_all = nz.transpose(0, 1).reshape(1, noise_rows(body), H * N).contiguous()
+        got = rollout(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        want = rollout_reference(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        torch.cuda.synchronize()
+        flip, _ = fields_differ(got, want, float('inf'))
+        # a next env row that is off by more than 0.25 after ONE step is a
+        # branch taken the other way (the hopper's touchdown or liftoff)
+        flip = (flip[0] | (got.env_i != want.env_i).any(0)
+                | ((got.env_f - want.env_f).abs().amax(0) > 0.25))
+        n_flip = int(flip.sum())
+        assert n_flip <= 8, (tag, n_flip)
+        ok = ~flip
+        one = {}
+        for f in got._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dtype.is_floating_point:
+                one[f] = float((a - b).abs()[..., ok].max())
+        assert all(d <= 1e-4 for d in one.values()), (tag, one)
+        ms = cuda_ms(torch, lambda: rollout(*net, f0, i0, horizon_len=H, seed=seed, **bkw),
+                     reps=20, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: rollout_reference(*net, f0, i0, horizon_len=H,
+                                                            seed=seed, **bkw), reps=2)
+        b_ms, b_by = rollout_bound(body, s.act_flat.numel() + s.cri_flat.numel())
+        emit(phase='k3_vs_plain', kernel=tag, trajectory=report, one_step=one,
+             one_step_threshold_flips=n_flip, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, tolerance={'trajectory': 2e-2, 'share_parted': 0.01,
+                                       'one_step': 1e-4, 'threshold_flips': 8})
+        return dict(name=tag, ms=ms, plain_ms=plain_ms, max_abs_err=max(one.values()),
+                    bound_ms=b_ms, bound_by=b_by)
+
+    k3 = {body.env_name: check_body(body, env_class) for body, env_class in (
+        (CARTPOLE_BODY, CartPoleEnv), (HOPPER_BODY, HopperEnv),
+        (CHASING_BODY, PointChasingVecEnv), (CHASING_DISCRETE_BODY, PointChasingDiscreteEnv))}
+
+    # the Gumbel-max sample on fixed logits (zero actor weights, the logits
+    # as the output bias): action frequencies over 262,144 Philox draws are
+    # within 0.005 of softmax(logits) (three standard errors are 0.003)
+    gumbel = {}
+    for body in (CARTPOLE_BODY, CHASING_DISCRETE_BODY):
+        s = body_state(body)
+        logits = torch.linspace(-1.0, 1.0, body.action_dim, device=dev)
+        with torch.no_grad():
+            s.act_flat.zero_()
+            s.act.mlp.layers[-1].bias.copy_(logits)
+        f0 = torch.zeros((body.n_f32, N), device=dev)
+        if body is CHASING_DISCRETE_BODY:   # the walker far away: no lane terminates
+            f0[4:6], f0[8] = -16.0, 22.6
+        out = rollout(s.act_flat, s.cri_flat, s.norm_avg, s.norm_std, f0,
+                      torch.zeros((1, N), dtype=torch.int32, device=dev), net_dims=NET_DIMS,
+                      horizon_len=H, reward_scale=1.0, body=body, seed=seed)
+        freq = torch.bincount(out.actions.reshape(-1).long(), minlength=body.action_dim) / (H * N)
+        dfreq = float((freq - torch.softmax(logits, 0)).abs().max())
+        dlp = float((out.logprobs - torch.log_softmax(logits, 0)[out.actions.long()]).abs().max())
+        assert dfreq <= 0.005 and dlp <= 1e-5, (body.env_name, dfreq, dlp)
+        gumbel[body.env_name] = dict(max_freq_diff=dfreq, max_logp_diff=dlp)
+    # the chasing reset's Box-Muller normals: every lane starts at t = 1023,
+    # terminates at step 0 and shows its fresh p0 and p1 + 8 at step 1
+    s = body_state(CHASING_BODY)
+    f0 = torch.zeros((CHASING_BODY.n_f32, 16 * N), device=dev)
+    f0[4:6], f0[8] = -8.0, 11.3
+    out = rollout(s.act_flat, s.cri_flat, s.norm_avg, s.norm_std, f0,
+                  torch.full((1, 16 * N), 1023, dtype=torch.int32, device=dev),
+                  net_dims=NET_DIMS, horizon_len=2, reward_scale=1.0, body=CHASING_BODY, seed=seed)
+    assert bool(out.terminals[0].all()) and not bool(out.truncates.any())
+    fresh = torch.cat([out.states[1, 0:2].reshape(-1), out.states[1, 4:6].reshape(-1) + 8.0])
+    fm, fs = float(fresh.mean()), float(fresh.std())
+    walker = out.env_f[2:4]
+    assert abs(fm) < 0.01 and abs(fs - 1) < 0.01, (fm, fs)
+    assert 0.0 <= float(walker.min()) and float(walker.max()) < 1.0
+    emit(phase='k3_sampling', gumbel_max=gumbel, bounds='freq 0.005, logp 1e-5',
+         chasing_reset_normals=dict(draws=fresh.numel(), mean=fm, std=fs,
+                                    bounds='|mean|<0.01, |std-1|<0.01'))
+
+    # ---- 7. fused PPO update, discrete head, against its plain version
+    # (tolerances as for the continuous head; lambda_entropy 0.01 is the
+    # discrete agents' default)
+    k5 = {}
+    for body in (CARTPOLE_BODY, CHASING_DISCRETE_BODY):
+        s = body_state(body)
+        for U in (1, 32):
+            k5[(body.action_dim, U)] = update_vs_plain(
+                s, body.state_dim, body.action_dim, True, U, 'k5_vs_plain', lambda_entropy=0.01)
+
+    # ---- 8 and 9. the main paths
+    pendulum = (AgentPPO, PendulumEnv, 'Pendulum-v1', 3, 1, False, 200)
+    cartpole = (AgentDiscretePPO, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
+
+    def bench_args(task, num_envs, horizon, batch):
+        agent_class, env_class, env_name, S, A, discrete, max_step = task
+        a = Config(agent_class, env_class,
+                   {'env_name': env_name, 'num_envs': num_envs, 'max_step': max_step,
+                    'state_dim': S, 'action_dim': A, 'if_discrete': discrete})
         a.horizon_len, a.batch_size, a.repeat_times = horizon, batch, REPEAT
         a.net_dims, a.random_seed = NET_DIMS, 0
         return a
 
-    # a small round on the card (both kernels) against the same round on
-    # the CPU (both plain versions), same weights, noise and ids.
-    # Tolerance: objectives 1e-3 relative, updates 2e-2 of each buffer's
-    # largest (the rollout's f32 rounding reaches the advantages)
-    g3 = torch.Generator(device='cpu').manual_seed(3)
-    small_noise = torch.cat([torch.randn((32, 1, 256), generator=g3),
-                             torch.rand((32, 2, 256), generator=g3)], 1)
-    small_ids = torch.randint(0, 32 * 256, (2, 128), generator=g3)
-    small, start_state = {}, None
-    for device in ('cuda', 'cpu'):
-        a = bench_args(256, 32, 128)
-        a.device = device
+    def reset_counts():
+        rollout.launches = ppo_update.launches = 0
+        rollout.launches_by_body.clear()
+        for k in ppo_update.launches_by_head:
+            ppo_update.launches_by_head[k] = 0
+
+    def read_counts():
+        return dict(rollout.launches_by_body), dict(ppo_update.launches_by_head)
+
+    def small_round_vs_cpu(task, body, phase):
+        """A small round on the card (both kernels) against the same round
+        on the CPU (both plain versions), same weights, noise and ids.
+        Tolerance: objectives 1e-3 relative, updates 2e-2 of each buffer's
+        largest (the rollout's f32 rounding reaches the advantages)."""
+        g3 = torch.Generator(device='cpu').manual_seed(3)
+        A, n_env = body.action_dim, body.n_step + body.n_reset
+        head = (torch.rand if body.discrete else torch.randn)((32, A, 256), generator=g3)
+        small_noise = torch.cat([head, torch.rand((32, n_env, 256), generator=g3)], 1)
+        small_ids = torch.randint(0, 32 * 256, (2, 128), generator=g3)
+        small, start_state = {}, None
+        for device in ('cuda', 'cpu'):
+            a = bench_args(task, 256, 32, 128)
+            a.device = device
+            ctx = build_training(a)
+            assert ctx.fused_rollout
+            carry0 = ctx.carry
+            if start_state is None:   # snapshot: the round updates params in place
+                start_state = (ppo_state_to_numpy(carry0.agent_state),
+                               [x.cpu() for x in carry0.env_state], carry0.obs.cpu())
+            else:                     # the CPU round starts where the card's did
+                carry0 = carry0._replace(
+                    agent_state=ppo_state_from_numpy(start_state[0], device),
+                    env_state=type(carry0.env_state)(*start_state[1]), obs=start_state[2])
+            before = [carry0.agent_state.act_flat.clone(), carry0.agent_state.cri_flat.clone()]
+            c, m = ctx.round_fn(carry0, noise=small_noise.to(device).contiguous(),
+                                ids=small_ids.to(device))
+            small[device] = ({k: float(v) for k, v in m.items()},
+                             [(c.agent_state.act_flat - before[0]).cpu(),
+                              (c.agent_state.cri_flat - before[1]).cpu()])
+        (mg, dg), (mc, dc) = small['cuda'], small['cpu']
+        obj_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc}
+        upd_rel = [float((g - p).abs().max() / p.abs().max()) for g, p in zip(dg, dc)]
+        assert all(r <= 1e-3 for r in obj_rel.values()), obj_rel
+        assert all(r <= 2e-2 for r in upd_rel), upd_rel
+        emit(phase=phase, envs=256, horizon=32, batch=128,
+             objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
+
+    def timed_rounds(task, body, head, phase, kernel_ms):
+        a = bench_args(task, NUM_ENVS, HORIZON, BATCH)
         ctx = build_training(a)
-        assert ctx.fused_rollout
-        carry0 = ctx.carry
-        if start_state is None:   # snapshot: the round updates params in place
-            start_state = (ppo_state_to_numpy(carry0.agent_state),
-                           [x.cpu() for x in carry0.env_state], carry0.obs.cpu())
-        else:                     # the CPU round starts where the card's did
-            carry0 = carry0._replace(
-                agent_state=ppo_state_from_numpy(start_state[0], device),
-                env_state=type(carry0.env_state)(*start_state[1]), obs=start_state[2])
-        before = [carry0.agent_state.act_flat.clone(), carry0.agent_state.cri_flat.clone()]
-        c, m = ctx.round_fn(carry0, noise=small_noise.to(device).contiguous(),
-                            ids=small_ids.to(device))
-        small[device] = ({k: float(v) for k, v in m.items()},
-                         [(c.agent_state.act_flat - before[0]).cpu(),
-                          (c.agent_state.cri_flat - before[1]).cpu()])
-    (mg, dg), (mc, dc) = small['cuda'], small['cpu']
-    obj_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc}
-    upd_rel = [float((g - p).abs().max() / p.abs().max()) for g, p in zip(dg, dc)]
-    assert all(r <= 1e-3 for r in obj_rel.values()), obj_rel
-    assert all(r <= 2e-2 for r in upd_rel), upd_rel
-    emit(phase='main_path_small_vs_cpu', envs=256, horizon=32, batch=128,
-         objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
+        carry, _ = ctx.round_fn(ctx.carry)                      # warm-up round
+        p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = []
+        for _ in range(ROUNDS):
+            carry, m = ctx.round_fn(carry)
+            metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
+        end.record()
+        torch.cuda.synchronize()
+        by_body, by_head = read_counts()
+        launches = {'fused_rollout': by_body.get(body.env_name, 0), 'ppo_update': by_head[head]}
+        round_ms = start.elapsed_time(end) / ROUNDS
+        mvals = torch.stack(metrics).cpu()
+        moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
+                    float((carry.agent_state.cri_flat - p0[1]).abs().max()))
+        assert launches == {'fused_rollout': ROUNDS, 'ppo_update': ROUNDS}, launches
+        assert rollout.launches == ROUNDS and ppo_update.launches == ROUNDS
+        assert bool(torch.isfinite(mvals).all()), mvals
+        assert moved > 0.0
+        emit(phase=phase, agent=task[0].__name__, env=task[2], envs=NUM_ENVS, horizon=HORIZON,
+             batch=BATCH, repeat=REPEAT, net_dims=NET_DIMS, rounds=ROUNDS, launches=launches,
+             round_ms=round_ms, env_steps_per_s=NUM_ENVS * HORIZON / (round_ms / 1e3),
+             **kernel_ms, metrics=dict(zip(sorted(m), mvals[-1].tolist())),
+             max_param_change=moved, device=name, nvidia_smi=smi)
+        return launches
+
+    small_round_vs_cpu(pendulum, PENDULUM_BODY, 'main_path_small_vs_cpu')
 
     # on the card nothing falls back to a plain version: asking for it, or
-    # a workload outside a kernel's scope, raises (K1's weights at
-    # (256, 256) exceed one block; K2 takes 2 hidden layers)
+    # a workload outside a kernel's scope, raises (the rollout's weights at
+    # (256, 256) exceed one block; the update takes 2 hidden layers).  A2C's
+    # update has no kernel in either package, so A2C builds: its rollout is
+    # the kernel and its update is autograd.
     refused = {}
-    for flag, dims in (('use_fused_rollout', (256, 256)), ('use_fused_update', (16,) * 3)):
-        for setting in ((flag, False), ('net_dims', dims)):
-            a = bench_args(256, 32, 128)
-            setattr(a, *setting)
-            try:
-                build_training(a)
-                raise AssertionError(f'build_training took a plain path on the card: {setting}')
-            except ValueError as e:
-                assert str(e).startswith(flag), e
-                refused[f'{setting}'] = str(e)[:80]
-    emit(phase='no_plain_path_on_card', refused=refused)
+    for task in (pendulum, cartpole):
+        for flag, dims in (('use_fused_rollout', (256, 256)), ('use_fused_update', (16,) * 3)):
+            for setting in ((flag, False), ('net_dims', dims)):
+                a = bench_args(task, 256, 32, 128)
+                setattr(a, *setting)
+                try:
+                    build_training(a)
+                    raise AssertionError(f'build_training took a plain path on the card: {setting}')
+                except ValueError as e:
+                    assert str(e).startswith(flag), e
+                    refused[f'{task[0].__name__} {setting}'] = str(e)[:80]
+    a2c = bench_args((AgentA2C,) + pendulum[1:], 256, 32, 128)
+    a2c.use_fused_update = False
+    ctx = build_training(a2c)
+    reset_counts()
+    _, m = ctx.round_fn(ctx.carry)
+    assert ctx.fused_rollout and math.isfinite(float(m['obj_actor']))
+    assert read_counts() == ({'Pendulum-v1': 1}, {'continuous': 0, 'discrete': 0})
+    emit(phase='no_plain_path_on_card', refused=refused, a2c_builds=True)
 
-    a = bench_args(NUM_ENVS, HORIZON, BATCH)
-    ctx = build_training(a)
-    carry, _ = ctx.round_fn(ctx.carry)                      # warm-up round
-    p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
-    torch.cuda.synchronize()
-    rollout.launches = 0
-    ppo_update.launches = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    metrics = []
-    for _ in range(ROUNDS):
-        carry, m = ctx.round_fn(carry)
-        metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
-    end.record()
-    torch.cuda.synchronize()
-    launches = {'fused_rollout': rollout.launches, 'ppo_update': ppo_update.launches}
-    round_ms = start.elapsed_time(end) / ROUNDS
-    mvals = torch.stack(metrics).cpu()
-    moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
-                float((carry.agent_state.cri_flat - p0[1]).abs().max()))
-    assert launches == {'fused_rollout': ROUNDS, 'ppo_update': ROUNDS}, launches
-    assert bool(torch.isfinite(mvals).all()), mvals
-    assert moved > 0.0
-    emit(phase='main_path', envs=NUM_ENVS, horizon=HORIZON, batch=BATCH, repeat=REPEAT,
-         net_dims=NET_DIMS, rounds=ROUNDS, launches=launches, round_ms=round_ms,
-         env_steps_per_s=NUM_ENVS * HORIZON / (round_ms / 1e3),
-         fused_rollout_ms=k1_ms, fused_rollout_plain_ms=k1_plain_ms,
-         ppo_update_ms=k2[1]['ms'], ppo_update_plain_ms=k2[1]['plain_ms'],
-         metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
-         device=name, nvidia_smi=smi)
+    launches = timed_rounds(pendulum, PENDULUM_BODY, 'continuous', 'main_path', dict(
+        fused_rollout_ms=k1_ms, fused_rollout_plain_ms=k1_plain_ms,
+        ppo_update_ms=k2[1]['ms'], ppo_update_plain_ms=k2[1]['plain_ms']))
 
-    # ---- 7. the entry point
-    with tempfile.TemporaryDirectory() as cwd:
-        a = bench_args(NUM_ENVS, HORIZON, BATCH)
-        a.cwd = cwd
-        a.eval_per_step = a.break_step = NUM_ENVS * HORIZON
-        t0 = time.time()
-        res = train_agent(a)
-        assert res['recorder'].shape[0] == 2 and math.isfinite(res['max_r'])
-        emit(phase='train_agent', evaluations=int(res['recorder'].shape[0]),
-             total_step=int(res['total_step']), max_r=float(res['max_r']),
-             seconds=round(time.time() - t0, 3))
+    small_round_vs_cpu(cartpole, CARTPOLE_BODY, 'main_path_cartpole_small_vs_cpu')
+    cart = k3['CartPole-v1']
+    launches_cart = timed_rounds(cartpole, CARTPOLE_BODY, 'discrete', 'main_path_cartpole', dict(
+        fused_rollout_ms=cart['ms'], fused_rollout_plain_ms=cart['plain_ms'],
+        ppo_update_ms=k5[(2, 1)]['ms'], ppo_update_plain_ms=k5[(2, 1)]['plain_ms']))
 
-    # ---- 8. kernels line and device line
+    # ---- 10. the entry point
+    def run_train_agent(task, num_envs, horizon, batch, periods, rounds_per_period=1, **hyper):
+        with tempfile.TemporaryDirectory() as cwd:
+            a = bench_args(task, num_envs, horizon, batch)
+            a.cwd = cwd
+            a.eval_per_step = num_envs * horizon * rounds_per_period
+            a.break_step = a.eval_per_step * (periods - 1)
+            for k, v in hyper.items():
+                setattr(a, k, v)
+            reset_counts()
+            t0 = time.time()
+            res = train_agent(a)
+            by_body, by_head = read_counts()
+            assert res['recorder'].shape[0] == periods and math.isfinite(res['max_r'])
+            emit(phase='train_agent', agent=task[0].__name__, env=task[2], envs=num_envs,
+                 evaluations=int(res['recorder'].shape[0]), total_step=int(res['total_step']),
+                 max_r=float(res['max_r']), seconds=round(time.time() - t0, 3),
+                 rollout_launches=by_body, update_launches=by_head)
+            return by_body, by_head
+
+    run_train_agent(pendulum, NUM_ENVS, HORIZON, BATCH, 2)
+    by_body, by_head = run_train_agent(cartpole, NUM_ENVS, HORIZON, BATCH, 2)
+    assert by_body == {'CartPole-v1': 2} and by_head['discrete'] == 2, (by_body, by_head)
+    entry = {}
+    hopper = (AgentPPO, HopperEnv, 'HopperSlip-v0', 6, 2, False, 1000)
+    chasing = (AgentPPO, PointChasingVecEnv, 'PointChasingVecEnv', 8, 2, False, 1024)
+    chasing_disc = (AgentDiscreteA2C, PointChasingDiscreteEnv, 'PointChasingDiscreteEnv',
+                    8, 9, True, 1024)
+    for task, batch in (((AgentA2C,) + pendulum[1:], 16), (hopper, BATCH), (chasing, BATCH),
+                        (chasing_disc, 16)):
+        by_body, by_head = run_train_agent(task, 1024, HORIZON, batch, 2, rounds_per_period=2,
+                                           eval_times=2)
+        a2c_task = 'A2C' in task[0].__name__
+        assert by_body == {task[2]: 4}, (task[2], by_body)
+        assert sum(by_head.values()) == (0 if a2c_task else 4), (task[2], by_head)
+        entry[task[2]] = by_body[task[2]]
+
+    # ---- 11. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
-    print(json.dumps({'kernels': [
-        {'name': 'fused_rollout', 'route': 'cuda',
-         'source': 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu',
+    rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
+    update_src = 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu'
+    kernels = [
+        {'name': 'fused_rollout', 'route': 'cuda', 'source': rollout_src,
          'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
          'launches': launches['fused_rollout'], 'max_abs_err': k1_err, 'ms': k1_ms,
          'plain_ms': k1_plain_ms, 'bound_ms': k1_bound, 'bound_by': k1_by,
          'library_ms': None},
-        {'name': 'ppo_update', 'route': 'cuda',
-         'source': 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu',
+        {'name': 'ppo_update', 'route': 'cuda', 'source': update_src,
          'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',
          'launches': launches['ppo_update'], 'max_abs_err': k2[1]['max_abs_err'],
          'ms': k2[1]['ms'], 'plain_ms': k2[1]['plain_ms'], 'bound_ms': k2[1]['bound_ms'],
          'bound_by': k2[1]['bound_by'], 'library_ms': None,
          'u32': k2[32]},
-    ]}), flush=True)
+    ]
+    # the CartPole instantiation's launches are the CartPole main path's 10
+    # rounds; the other bodies' are their train_agent runs above
+    for env_name, k in k3.items():
+        n = launches_cart['fused_rollout'] if env_name == 'CartPole-v1' else entry[env_name]
+        kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
+                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
+                        'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+                        'bound_by': k['bound_by'], 'library_ms': None})
+    d = k5[(2, 1)]
+    kernels.append({'name': 'ppo_update[discrete]', 'route': 'cuda', 'source': update_src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',
+                    'launches': launches_cart['ppo_update'], 'max_abs_err': d['max_abs_err'],
+                    'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
+                    'bound_by': d['bound_by'], 'library_ms': None,
+                    'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
+    assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}), flush=True)
 

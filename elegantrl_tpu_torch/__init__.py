@@ -6,12 +6,16 @@ ported path is a hand-written CUDA kernel for Hopper (``ops/csrc``), with
 a plain PyTorch version beside it that the CPU path and the tests use.
 Entry points run on the CUDA card unless ``Config.device='cpu'``.
 
-Ported so far: PPO on Pendulum-v1 (``Config``, ``build_training``,
-``train_agent``), with the fused rollout and the fused PPO update.
+Ported so far: the on-policy family (``AgentPPO``, ``AgentDiscretePPO``,
+``AgentA2C``, ``AgentDiscreteA2C``) on Pendulum, CartPole, HopperSlip and
+PointChasing (continuous and discrete), through ``Config``,
+``build_training`` and ``train_agent``, with the fused rollout (all five
+env bodies, Gaussian and categorical heads) and the fused PPO update
+(continuous and discrete heads).
 """
 
 __version__ = "0.1.0"
 
-from .config import Config, kwargs_filter  # noqa: F401
+from .config import Config, build_env, get_gym_env_args, kwargs_filter  # noqa: F401
 from .train.runner import TrainCarry, build_training, train_agent  # noqa: F401
 from . import agents, envs, ops, train, utils  # noqa: F401

@@ -108,7 +108,8 @@ def collect_rollout(env: EnvDef, agent_state: Any, explore_action: Callable,
                     extras_fn: Optional[Callable] = None,
                     ) -> Tuple[Rollout, Any, torch.Tensor]:
     """Actor inference + env step, ``horizon_len`` times.  Stores the raw
-    sampled action (pre-tanh for PPO).  Returns (rollout, env_state, obs)."""
+    sampled action (pre-tanh for PPO; the int32 index, without a feature
+    axis, for a discrete agent).  Returns (rollout, env_state, obs)."""
     states, actions, logprobs, rewards, undones, unmasks, extras = ([] for _ in range(7))
     with torch.no_grad():
         for _ in range(horizon_len):

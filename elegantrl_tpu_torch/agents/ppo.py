@@ -1,8 +1,11 @@
-"""PPO, continuous head (counterpart of ``elegantrl_tpu/agents/ppo.py``).
+"""PPO and A2C, continuous and discrete (counterpart of
+``elegantrl_tpu/agents/ppo.py``).
 
 - actor: MLP -> Normal(mean, exp(std_log)) with a learned global
   ``std_log``; the env acts on ``tanh(sample)`` while the raw sample is
-  stored for the ratio;
+  stored for the ratio.  Discrete: MLP -> logits, no ``std_log``; the action
+  is a categorical sample (greedy: argmax) stored as an int32 index without
+  a feature axis, ``(H, N)`` in both rollout layouts;
 - state normalisation ``(obs - avg) / (std + 1e-4)`` shared by actor and
   critic, updated with tau ``state_value_tau`` after each update;
 - truncation bootstrap, V-trace (or plain) GAE, strided-std advantage
@@ -12,11 +15,17 @@
   (``(H, N, S)`` or the kernel-native ``(H, S, N)`` 'tsn' layout);
 - the double-sided clipped surrogate by default, the single-sided
   reference form with ``args.if_single_sided_clip``; the entropy term has
-  the reference's sign (``surrogate - lambda * entropy`` is maximised).
+  the reference's sign (``surrogate - lambda * entropy`` is maximised);
+- A2C: each minibatch is ``batch_size`` whole time-slices ``ids0 ~ U[0, H)``,
+  the objective is the unclipped ``mean(adv * logp * unmask)`` with the
+  entropy as a bonus, and no stored logprob is used.  The JAX package runs
+  this update as XLA autodiff and has no kernel for it, so here it is
+  ``torch.autograd`` over the losses of ``ops/fused_update.py`` followed by
+  ``grad_step``, on either device.
 
 Actor and critic are ``nn.Module`` views of two flat parameter buffers
 (``ops/nets.py:bind_flat``); the update changes the buffers in place.
-H-term, A2C and discrete variants are not ported: ``make_ppo`` raises.
+The H-term variant is not ported: ``make_ppo`` raises for it.
 """
 
 from __future__ import annotations
@@ -29,9 +38,10 @@ from torch import nn
 
 from ..config import select_kernel
 from ..ops import dists, gae
-from ..ops.fused_update import SMEM_LIMIT, make_ppo_fused_update, smem_bytes
+from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, critic_loss,
+                                make_ppo_fused_update, smem_bytes, value_and_grad_flat)
 from ..ops.nets import MLP, bind_flat, mlp_init, ppo_param_shapes, split_flat
-from .base import (AdamState, AgentDef, Rollout, make_optimizer,
+from .base import (AdamState, AgentDef, Rollout, grad_step, make_optimizer,
                    sample_flat_ids, split_flat_ids)
 
 # hidden width from which the JAX package's compute_dtype='auto' picks bf16
@@ -39,19 +49,21 @@ BF16_AUTO_MIN_WIDTH = 512
 
 
 class Actor(nn.Module):
-    """Gaussian policy: ``mean = mlp(x)``, ``std = exp(std_log)``."""
+    """Gaussian policy: ``mean = mlp(x)``, ``std = exp(std_log)``; with
+    ``discrete`` a categorical policy: ``logits = mlp(x)``, no ``std_log``."""
 
-    def __init__(self, mlp: MLP, action_dim: int):
+    def __init__(self, mlp: MLP, action_dim: int, discrete: bool = False):
         super().__init__()
         self.mlp = mlp
-        self.std_log = nn.Parameter(torch.zeros(1, action_dim))
+        self.std_log = None if discrete else nn.Parameter(torch.zeros(1, action_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mlp(x)
 
     def leaves(self):
         """Parameters in the flat-buffer order: the MLP's, then std_log."""
-        return [*self.mlp.leaves(), self.std_log]
+        leaves = self.mlp.leaves()
+        return leaves if self.std_log is None else [*leaves, self.std_log]
 
 
 class PPOState(NamedTuple):
@@ -66,7 +78,7 @@ class PPOState(NamedTuple):
 
 
 def modules_from_flat(act_flat: torch.Tensor, cri_flat: torch.Tensor,
-                      state_dim: int, net_dims, action_dim: int):
+                      state_dim: int, net_dims, action_dim: int, discrete: bool = False):
     """Actor and critic modules whose parameters are views of the given
     flat buffers (layout ``ops/nets.py:ppo_param_shapes``)."""
     dims = (state_dim, *net_dims)
@@ -75,8 +87,8 @@ def modules_from_flat(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         return MLP([nn.utils.skip_init(nn.Linear, i, o)
                     for i, o in zip(dims, (*dims[1:], out_dim))])
 
-    act, cri = Actor(mlp(action_dim), action_dim), mlp(1)
-    act_shapes, cri_shapes = ppo_param_shapes(state_dim, net_dims, action_dim)
+    act, cri = Actor(mlp(action_dim), action_dim, discrete), mlp(1)
+    act_shapes, cri_shapes = ppo_param_shapes(state_dim, net_dims, action_dim, discrete)
     for module, flat, shapes in ((act, act_flat, act_shapes), (cri, cri_flat, cri_shapes)):
         for p, view in zip(module.leaves(), split_flat(flat, shapes)):
             p.data = view
@@ -106,9 +118,8 @@ def fused_update_eligible(net_dims, state_dim: int, action_dim: int) -> bool:
 def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
              discrete: bool = False, a2c: bool = False, hterm: bool = False) -> AgentDef:
     """Factory; ``args`` is read with ``getattr``, as in the JAX package."""
-    if discrete or a2c or hterm:
-        raise NotImplementedError('the PyTorch port has continuous PPO only '
-                                  '(discrete, A2C and H-term variants are not ported)')
+    if hterm:
+        raise NotImplementedError('the PyTorch port has no H-term variant of PPO yet')
     if resolve_compute_dtype(args, net_dims) != 'float32' \
             or str(getattr(args, 'storage_dtype', 'float32')) != 'float32':
         raise NotImplementedError('the PyTorch port computes and stores in float32 only; '
@@ -118,7 +129,7 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     clip_grad = float(getattr(args, 'clip_grad_norm', 3.0))
     ratio_clip = float(getattr(args, 'ratio_clip', 0.25))
     lambda_gae_adv = float(getattr(args, 'lambda_gae_adv', 0.95))
-    lambda_entropy = float(getattr(args, 'lambda_entropy', 0.001))
+    lambda_entropy = float(getattr(args, 'lambda_entropy', 0.01 if discrete else 0.001))
     if_use_vtrace = bool(getattr(args, 'if_use_vtrace', getattr(args, 'if_use_v_trace', True)))
     if_single_sided_clip = bool(getattr(args, 'if_single_sided_clip', False))
     state_value_tau = float(getattr(args, 'state_value_tau', 0.0))
@@ -128,22 +139,30 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     optimizer = make_optimizer(lr, clip_grad)
     hypers = dict(net_dims=net_dims, ratio_clip=ratio_clip,
                   lambda_entropy=lambda_entropy, lr=lr, clip_grad=clip_grad,
-                  single_sided=if_single_sided_clip)
+                  single_sided=if_single_sided_clip, discrete=discrete)
+    act_shapes, cri_shapes = ppo_param_shapes(state_dim, net_dims, action_dim, discrete)
 
-    # args.use_fused_update only decides whether this workload may be built
-    # (config.py:select_kernel); the update always goes through
-    # ops/fused_update.py:ppo_update, which runs the CUDA kernel on a card
-    # and its plain version on the CPU.
-    select_kernel(args, 'use_fused_update',
-                  fused_update_eligible(net_dims, state_dim, action_dim),
-                  getattr(args, 'device', 'cuda'),
-                  'a 2-hidden-layer MLP whose activation tiles fit one block; '
-                  f'got net_dims={net_dims}')
+    if a2c:
+        # no kernel exists for A2C's update in either package: it is autograd
+        # on both devices, so only an explicit request for the kernel is refused
+        if getattr(args, 'use_fused_update', 'auto') is True:
+            raise ValueError('use_fused_update=True requires (Discrete)PPO: the A2C '
+                             'update has no fused kernel')
+    else:
+        # args.use_fused_update only decides whether this workload may be built
+        # (config.py:select_kernel); the update always goes through
+        # ops/fused_update.py:ppo_update, which runs the CUDA kernel on a card
+        # and its plain version on the CPU.
+        select_kernel(args, 'use_fused_update',
+                      fused_update_eligible(net_dims, state_dim, action_dim),
+                      getattr(args, 'device', 'cuda'),
+                      'a 2-hidden-layer MLP whose activation tiles fit one block; '
+                      f'got net_dims={net_dims}')
 
     def init(seed: int, device) -> PPOState:
         gen = torch.Generator().manual_seed(int(seed))
         act = Actor(mlp_init(gen, (state_dim, *net_dims, action_dim), out_std=0.1),
-                    action_dim)
+                    action_dim, discrete)
         cri = mlp_init(gen, (state_dim, *net_dims, 1), out_std=0.5)
         act.requires_grad_(False)
         cri.requires_grad_(False)
@@ -158,21 +177,61 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         return s.cri(norm_state(obs, s.norm_avg, s.norm_std))[..., 0]
 
     def explore_action(s: PPOState, obs, gen):
-        mean = s.act(norm_state(obs, s.norm_avg, s.norm_std))
+        out = s.act(norm_state(obs, s.norm_avg, s.norm_std))
+        if discrete:
+            action = dists.categorical_sample(gen, out)
+            return action.to(torch.int32), dists.categorical_logprob(out, action)
         std = torch.exp(s.act.std_log)
-        action = dists.normal_sample(gen, mean, std.expand_as(mean))
-        logprob = torch.sum(dists.normal_logprob(action, mean, std), dim=-1)
+        action = dists.normal_sample(gen, out, std.expand_as(out))
+        logprob = torch.sum(dists.normal_logprob(action, out, std), dim=-1)
         return action, logprob
 
     def greedy_action(s: PPOState, obs):
-        return torch.tanh(s.act(norm_state(obs, s.norm_avg, s.norm_std)))
+        out = s.act(norm_state(obs, s.norm_avg, s.norm_std))
+        if discrete:
+            return torch.argmax(out, dim=-1).to(torch.int32)
+        return torch.tanh(out)
+
+    def env_action(action):
+        return action if discrete else torch.tanh(action)
 
     def rollout_values(s: PPOState, obs):
         return {'values': critic_value(s, obs)}
 
+    def one_hot(index):
+        return torch.nn.functional.one_hot(index.long(), action_dim).float()
+
+    def a2c_minibatches(s: PPOState, states, actions, advantages, reward_sums, unmasks,
+                        tsn, ids):
+        """``ids (U, B)`` time-slice ids; each minibatch is the ``(B, N)``
+        block of whole slices.  Critic step, then actor step, as the JAX
+        scan body."""
+        act_opt, cri_opt = s.act_opt, s.cri_opt
+        objs = []
+        for ids0 in ids:
+            state = torch.movedim(states[ids0], 1, 2) if tsn else states[ids0]
+            if discrete:
+                action = one_hot(actions[ids0])                       # (B, N, A)
+            else:
+                action = torch.movedim(actions[ids0], 1, 2) if tsn else actions[ids0]
+            xn = norm_state(state.float(), s.norm_avg, s.norm_std)
+            adv, rs, um = advantages[ids0], reward_sums[ids0], unmasks[ids0]
+            obj_c, g_cri = value_and_grad_flat(
+                lambda leaves: critic_loss(leaves, xn, rs, um), s.cri_flat, cri_shapes)
+            (_, obj_s, obj_e), g_act = value_and_grad_flat(
+                lambda leaves: a2c_actor_loss(leaves, xn, action, adv, um, lambda_entropy,
+                                              discrete), s.act_flat, act_shapes)
+            cri_opt = grad_step(optimizer, s.cri_flat, cri_opt, g_cri)
+            act_opt = grad_step(optimizer, s.act_flat, act_opt, g_act)
+            objs.append(torch.stack([obj_c, obj_s, obj_e]).detach())
+        objs = torch.stack(objs).mean(0)
+        metrics = {'obj_critic': objs[0], 'obj_actor': objs[1], 'obj_entropy': objs[2]}
+        return s._replace(act_opt=act_opt, cri_opt=cri_opt), metrics
+
     def update(s: PPOState, rollout: Rollout, last_obs, gen, ids=None):
-        """``ids``: optional ``(U, B)`` flat minibatch ids (tests inject the
-        JAX package's); drawn from ``gen`` otherwise."""
+        """``ids``: optional ``(U, B)`` minibatch ids (tests inject the JAX
+        package's): flat (t, env) ids for PPO, time-slice ids for A2C; drawn
+        from ``gen`` otherwise."""
         horizon_len, num_envs = rollout.rewards.shape
         states, actions = rollout.states, rollout.actions
         tsn = rollout.extras is not None and 'tsn' in rollout.extras
@@ -195,22 +254,30 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             advantages = gae.normalize_advantages(advantages)
 
             update_times = max(1, int(horizon_len * repeat_times / batch_size))
-            if ids is None:
-                ids = sample_flat_ids(gen, horizon_len, num_envs, batch_size,
-                                      update_times, states.device)
-            ids0, ids1 = split_flat_ids(ids, horizon_len)
-            if tsn:   # (H, S, N)[ids0, :, ids1] -> (U, B, S)
-                sb, ab = states[ids0, :, ids1], actions[ids0, :, ids1]
+            if a2c:
+                if ids is None:
+                    ids = torch.randint(0, horizon_len, (update_times, batch_size),
+                                        generator=gen, device=states.device)
+                s, metrics = a2c_minibatches(s, states, actions, advantages, reward_sums,
+                                             rollout.unmasks, tsn, ids)
             else:
-                sb, ab = states[ids0, ids1], actions[ids0, ids1]
-            sb = sb.transpose(1, 2).float().contiguous()          # (U, S, B)
-            ab = ab.transpose(1, 2).float().contiguous()          # (U, A, B)
-            blocks = [t[ids0, ids1].contiguous() for t in
-                      (rollout.logprobs, advantages, reward_sums, rollout.unmasks)]
-
-            fused = make_ppo_fused_update(state_dim, action_dim, batch_size,
-                                          update_times, **hypers)
-            s, metrics = fused(s, sb, ab, *blocks)
+                if ids is None:
+                    ids = sample_flat_ids(gen, horizon_len, num_envs, batch_size,
+                                          update_times, states.device)
+                ids0, ids1 = split_flat_ids(ids, horizon_len)
+                # (H, S, N)[ids0, :, ids1] or (H, N, S)[ids0, ids1] -> (U, B, S)
+                sb = states[ids0, :, ids1] if tsn else states[ids0, ids1]
+                if discrete:      # (H, N) indices in both layouts -> one-hot (U, B, A)
+                    ab = one_hot(actions[ids0, ids1])
+                else:
+                    ab = actions[ids0, :, ids1] if tsn else actions[ids0, ids1]
+                sb = sb.transpose(1, 2).float().contiguous()          # (U, S, B)
+                ab = ab.transpose(1, 2).float().contiguous()          # (U, A, B)
+                blocks = [t[ids0, ids1].contiguous() for t in
+                          (rollout.logprobs, advantages, reward_sums, rollout.unmasks)]
+                fused = make_ppo_fused_update(state_dim, action_dim, batch_size,
+                                              update_times, **hypers)
+                s, metrics = fused(s, sb, ab, *blocks)
 
             if state_value_tau > 0:
                 flat = (torch.movedim(states, 1, 2) if tsn else states)
@@ -222,13 +289,28 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                 s = s._replace(norm_avg=norm_avg, norm_std=norm_std)
         return s, metrics
 
-    return AgentDef(name='AgentPPO', if_off_policy=False, if_discrete=False,
+    name = ('AgentDiscreteA2C' if (discrete and a2c) else
+            'AgentDiscretePPO' if discrete else
+            'AgentA2C' if a2c else 'AgentPPO')
+    return AgentDef(name=name, if_off_policy=False, if_discrete=discrete,
                     init=init, explore_action=explore_action,
                     greedy_action=greedy_action,
-                    env_action=torch.tanh, update=update,
+                    env_action=env_action, update=update,
                     rollout_extras=rollout_values)
 
 
+# Class-style markers for ``Config(agent_class=...)``.
 class AgentPPO:
-    """Class-style marker for ``Config(agent_class=AgentPPO)``."""
     make = staticmethod(partial(make_ppo, discrete=False, a2c=False))
+
+
+class AgentA2C:
+    make = staticmethod(partial(make_ppo, discrete=False, a2c=True))
+
+
+class AgentDiscretePPO:
+    make = staticmethod(partial(make_ppo, discrete=True, a2c=False))
+
+
+class AgentDiscreteA2C:
+    make = staticmethod(partial(make_ppo, discrete=True, a2c=True))

@@ -141,7 +141,15 @@ def resolve_device(args) -> torch.device:
 
 def select_kernel(args, flag: str, eligible: bool, device, scope: str) -> bool:
     """Resolve the switch ``args.<flag>`` ('auto' | True | False) for a
-    workload; returns whether the kernel's path is taken.
+    workload that has a kernel; returns whether the kernel's path is taken.
+
+    The rule: wherever the JAX package on a TPU would take a Pallas kernel,
+    the port on a card takes its kernel or raises; where the JAX package
+    runs XLA ops, the port runs PyTorch ops.  So callers ask this function
+    only for work that has a kernel (the rollout of the on-policy agents, the
+    (Discrete)PPO update).  A2C's update has none in either package
+    (``agents/ppo.py``): it is autograd on both devices and is never asked
+    about here.
 
     On a CUDA device the kernel is the only path: ``False``, or a workload
     outside the kernel's ``scope``, raises; nothing falls back to the plain
@@ -166,3 +174,44 @@ def kwargs_filter(function: Callable, kwargs: Dict[str, Any]) -> Dict[str, Any]:
     """Keep only the kwargs that ``function`` accepts."""
     sign = {p.name for p in inspect.signature(function).parameters.values()}
     return {k: kwargs[k] for k in sign.intersection(kwargs.keys())}
+
+
+def build_env(env_class=None, env_args: Optional[Dict[str, Any]] = None, gpu_id: int = -1):
+    """Instantiate an env from its class and kwargs and stamp the six
+    protocol attributes onto it.  Vectorisation is the env's own batch
+    axis; ``env_args['device']``, when given, places the env's tensors."""
+    env_args = dict(env_args or {})
+    env_args.setdefault('num_envs', 1)
+    env_args.setdefault('max_step', 12345)
+    env = env_class(**kwargs_filter(env_class.__init__, env_args.copy()))
+    for attr in ('env_name', 'num_envs', 'max_step', 'state_dim', 'action_dim', 'if_discrete'):
+        if env_args.get(attr) is not None:
+            setattr(env, attr, env_args[attr])
+    return env
+
+
+def get_gym_env_args(env, if_print: bool = True) -> Dict[str, Any]:
+    """The env-protocol dict of an env instance: one of the port's envs, or
+    any gymnasium env."""
+    if {'env_name', 'state_dim', 'action_dim', 'if_discrete'}.issubset(dir(env)):
+        env_args = {'env_name': env.env_name,
+                    'num_envs': getattr(env, 'num_envs', 1),
+                    'max_step': getattr(env, 'max_step', 12345),
+                    'state_dim': env.state_dim,
+                    'action_dim': env.action_dim,
+                    'if_discrete': env.if_discrete}
+    else:  # gymnasium-style
+        import gymnasium as gym
+        env_name = getattr(env.unwrapped, 'spec').id
+        max_step = getattr(env, '_max_episode_steps', 12345)
+        state_shape = env.observation_space.shape
+        state_dim = state_shape[0] if len(state_shape) == 1 else state_shape
+        if_discrete = isinstance(env.action_space, gym.spaces.Discrete)
+        action_dim = (env.action_space.n if if_discrete
+                      else env.action_space.shape[0])
+        env_args = {'env_name': env_name, 'num_envs': 1, 'max_step': max_step,
+                    'state_dim': state_dim, 'action_dim': action_dim,
+                    'if_discrete': if_discrete}
+    if if_print:
+        print(f"env_args = {repr(env_args)}")
+    return env_args

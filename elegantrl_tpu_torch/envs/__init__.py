@@ -1,2 +1,7 @@
 from .base import EnvSpec, EnvDef, VecEnv, vec_reset, vec_step  # noqa: F401
 from .pendulum import PendulumEnv, PendulumState, make_pendulum  # noqa: F401
+from .cartpole import CartPoleEnv, CartPoleState, make_cartpole  # noqa: F401
+from .hopper import HopperEnv, HopperState, make_hopper  # noqa: F401
+from .point_chasing import (ChasingState, PointChasingDiscreteEnv, PointChasingEnv,  # noqa: F401
+                            PointChasingVecEnv, make_point_chasing,
+                            make_point_chasing_discrete)

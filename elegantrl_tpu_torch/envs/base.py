@@ -31,14 +31,16 @@ class EnvDef(NamedTuple):
 
     init: (gen, num_envs, device) -> env_state
     obs:  env_state -> (N, state_dim) observation
-    step: (env_state, action (N, A)) -> (env_state', reward, terminal, truncate)
+    step: (env_state, action, gen) -> (env_state', reward, terminal, truncate);
+          ``action`` is ``(N, A)`` floats, or ``(N,)`` indices when discrete;
+          ``gen`` feeds the env's own randomness (PointChasing's walker)
 
     ``step`` does not reset; :func:`vec_step` applies the auto-reset.
     """
     spec: EnvSpec
     init: Callable[[torch.Generator, int, torch.device], EnvState]
     obs: Callable[[EnvState], torch.Tensor]
-    step: Callable[[EnvState, torch.Tensor], Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]]
+    step: Callable[..., Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def vec_reset(env: EnvDef, gen: torch.Generator, num_envs: int,
@@ -56,7 +58,7 @@ def vec_step(env: EnvDef, state: EnvState, actions: torch.Tensor,
     Returns ``(state', obs', rewards, terminals, truncates)``; ``obs'``
     observes the post-reset state for done instances."""
     num_envs = state[0].shape[0]
-    s2, reward, terminal, truncate = env.step(state, actions)
+    s2, reward, terminal, truncate = env.step(state, actions, gen)
     done = terminal | truncate
     fresh = env.init(gen, num_envs, s2[0].device)
     s3 = type(s2)(*[torch.where(done.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
@@ -91,7 +93,8 @@ class VecEnv:
         return obs, {}
 
     def step(self, actions):
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+        actions = torch.as_tensor(actions, device=self.device)
+        actions = actions.to(torch.int32 if self.if_discrete else torch.float32)
         self._state, obs, rewards, terminals, truncates = vec_step(
             self._def, self._state, actions, self._gen)
         return obs, rewards, terminals, truncates, {}

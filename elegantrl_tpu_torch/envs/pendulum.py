@@ -50,7 +50,7 @@ def _obs(s: PendulumState) -> torch.Tensor:
     return torch.stack([torch.cos(s.theta), torch.sin(s.theta), s.theta_dot], dim=-1)
 
 
-def _step(s: PendulumState, action: torch.Tensor):
+def _step(s: PendulumState, action: torch.Tensor, gen=None):
     u = torch.clamp(action[..., 0] * 2.0, -_MAX_TORQUE, _MAX_TORQUE)
     cost = (torch.square(_wrap_angle(s.theta))
             + 0.1 * torch.square(s.theta_dot)

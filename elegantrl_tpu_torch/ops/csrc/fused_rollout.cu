@@ -1,14 +1,18 @@
-// Fused whole-rollout kernel: PPO actor + critic MLPs, Gaussian head and the
-// Pendulum-v1 step, for every env lane and all H steps in one launch.
+// Fused whole-rollout kernel: actor + critic MLPs, the Gaussian or the
+// categorical head and an inlined env step, for every env lane and all H
+// steps in one launch.  One instantiation per env body: Pendulum-v1,
+// CartPole-v1, HopperSlip-v0, PointChasing (continuous and discrete).
 //
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_kernel (built by
-// make_fused_rollout with PENDULUM_BODY and the Gaussian head).
+// make_fused_rollout with PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY,
+// CHASING_BODY or CHASING_DISCRETE_BODY, and either head).
 //
 // Bound on this card: operations.  Each env-step runs both MLPs,
-// 2 x 2 x (S*D1 + D1*D2 + D2) FLOP (67,584 at S=3, D1=D2=128); the outputs
-// are 9 floats per env-step.  At 4096 envs x 64 steps that is 17.7 GFLOP
-// against 9.4 MB written, far on the compute side of the roofline, and the
-// FLOP run on the FP32 CUDA cores (no tensor cores in this version).
+// 2 x 2 x (S*D1 + D1*D2 + D2) FLOP plus the head (67,584 at S=3,
+// D1=D2=128); the outputs are S + 6 or S + A + 5 floats per env-step.  At
+// 4096 envs x 64 steps that is about 18 GFLOP against about 10 MB written,
+// far on the compute side of the roofline, and the FLOP run on the FP32
+// CUDA cores (no tensor cores in this version).
 //
 // Design:
 // - One block owns TE = 32 env lanes and loops over all H steps itself.  On
@@ -22,12 +26,20 @@
 //   the activation reads are conflict-free and each weight read is one
 //   broadcast for the warp.  Each warp computes RJ output rows at a time,
 //   holding RJ sums in registers.
-// - Env state lives in registers of the env's thread; the env step, the
+// - The env body and the head are template parameters: a body is a struct
+//   with its dimensions and obs/step/reset functions over a register array
+//   of its F float rows and one step counter, so each instantiation keeps
+//   its env state in registers of the env's thread; the env step, the
 //   sampling and the output stores run on warp 0 (one thread per env).
-// - Noise: either injected (a (H, 3, N) tensor: normal, then the two reset
-//   uniforms) or drawn in-kernel with Philox4x32-10, counter (lane, step),
-//   key = seed; uniforms keep the top 24 bits, u in [0, 1), and Box-Muller
-//   takes log(1 - u), so log(0) never occurs.
+// - Noise: either injected, a (H, A + N_STEP + N_RESET, N) tensor (Gaussian
+//   head: A normals, then the env's uniforms; categorical head: all
+//   uniforms), or drawn in-kernel with Philox4x32-10, key = seed: uniform j
+//   of a (lane, step) is word j % 4 of the block with counter
+//   (lane, step, j / 4, 0).  Uniforms keep the top 24 bits, u in [0, 1), and
+//   Box-Muller takes log(1 - u), so log(0) never occurs.
+// - Categorical head: Gumbel-max, g = -log(-log(max(u, 1e-12)) + 1e-12), the
+//   first maximum wins a tie, logp = logits[a] - logsumexp(logits); the
+//   action index is stored as int32 and handed to the env as a float.
 // - GELU is the tanh form, matching jax.nn.gelu's default.
 
 #include <cuda_runtime.h>
@@ -38,8 +50,6 @@ namespace {
 constexpr int TE = 32;        // env lanes per block
 constexpr int THREADS = 256;  // threads per block
 constexpr int RJ = 8;         // output rows per warp pass
-constexpr int S = 3;          // Pendulum obs dim
-constexpr int A = 1;          // Pendulum action dim
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr float LOG_SQRT_2PI = 0.91893853320467274178f;
@@ -64,6 +74,235 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 __device__ __forceinline__ float uniform24(uint32_t bits) {
   return (float)(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
 }
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// ------------------------------------------------------------- env bodies
+// f holds the body's F float rows of one env, tc its step counter.  step
+// does not reset; reset re-initialises from N_RESET uniforms.  `a` is the
+// env's action: A values for a continuous body (already through tanh), the
+// action index as one float for a discrete one.
+
+struct PendulumBody {
+  static constexpr int S = 3, A = 1, F = 2, N_STEP = 0, N_RESET = 2;
+  static constexpr bool DISCRETE = false;
+  __device__ static void obs(const float* f, float* x) {
+    x[0] = cosf(f[0]);
+    x[1] = sinf(f[0]);
+    x[2] = f[1];
+  }
+  __device__ static void step(float* f, int& tc, const float* a, const float*,
+                              float& reward, bool& terminal, bool& trunc) {
+    const float th = f[0], thdot = f[1];
+    const float u_trq = clampf(a[0] * 2.0f, -2.0f, 2.0f);
+    const float y = th + PI_F;  // floor-form angle wrap
+    const float wrapped = y - floorf(y / TWO_PI_F) * TWO_PI_F - PI_F;
+    const float cost = wrapped * wrapped + 0.1f * thdot * thdot + 0.001f * u_trq * u_trq;
+    reward = -0.5f * cost;
+    const float thdot2 =
+        clampf(thdot + (15.0f * sinf(th) + 3.0f * u_trq) * 0.05f, -8.0f, 8.0f);
+    f[0] = th + thdot2 * 0.05f;
+    f[1] = thdot2;
+    tc += 1;
+    terminal = false;
+    trunc = tc >= 200;
+  }
+  __device__ static void reset(float* f, const float* u) {
+    f[0] = -PI_F + TWO_PI_F * u[0];
+    f[1] = -1.0f + 2.0f * u[1];
+  }
+};
+
+struct CartPoleBody {
+  static constexpr int S = 4, A = 2, F = 4, N_STEP = 0, N_RESET = 4;
+  static constexpr bool DISCRETE = true;
+  __device__ static void obs(const float* f, float* x) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = f[k];
+  }
+  __device__ static void step(float* f, int& tc, const float* a, const float*,
+                              float& reward, bool& terminal, bool& trunc) {
+    const float x = f[0], x_dot = f[1], theta = f[2], theta_dot = f[3];
+    const float force = a[0] > 0.5f ? 10.0f : -10.0f;
+    const float cos_t = cosf(theta), sin_t = sinf(theta);
+    const float temp = (force + 0.05f * (theta_dot * theta_dot) * sin_t) / 1.1f;
+    const float theta_acc =
+        (9.8f * sin_t - cos_t * temp) /
+        (0.5f * (4.0f / 3.0f - 0.1f * (cos_t * cos_t) / 1.1f));
+    const float x_acc = temp - 0.05f * theta_acc * cos_t / 1.1f;
+    f[0] = x + 0.02f * x_dot;
+    f[1] = x_dot + 0.02f * x_acc;
+    f[2] = theta + 0.02f * theta_dot;
+    f[3] = theta_dot + 0.02f * theta_acc;
+    tc += 1;
+    const float theta_limit = 0.20943951023931953f;  // 12 degrees
+    terminal = fabsf(f[0]) > 2.4f || fabsf(f[2]) > theta_limit;
+    trunc = tc >= 500 && !terminal;
+    reward = 1.0f;
+  }
+  __device__ static void reset(float* f, const float* u) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[k] = -0.05f + 0.1f * u[k];
+  }
+};
+
+// atan2 by the JAX hopper body's 9-term odd polynomial, so that kernel,
+// plain version and JAX agree to rounding.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float t = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float t2 = t * t;
+  float p = 2.4682466247e-03f;
+  p = p * t2 + -1.4458697067e-02f;
+  p = p * t2 + 3.9899560039e-02f;
+  p = p * t2 + -7.2479506621e-02f;
+  p = p * t2 + 1.0507319787e-01f;
+  p = p * t2 + -1.4164333375e-01f;
+  p = p * t2 + 1.9986537489e-01f;
+  p = p * t2 + -3.3332657853e-01f;
+  p = p * t2 + 9.9999990555e-01f;
+  float r = p * t;
+  r = ay > ax ? 0.5f * PI_F - r : r;
+  r = x < 0.f ? PI_F - r : r;
+  return y < 0.f ? -r : r;
+}
+
+struct HopperBody {
+  // rows: x, z, vx, vz, leg_angle, leg_len, foot_x, stance (0/1)
+  static constexpr int S = 6, A = 2, F = 8, N_STEP = 0, N_RESET = 2;
+  static constexpr bool DISCRETE = false;
+  __device__ static void obs(const float* f, float* x) {
+    x[0] = f[1];
+    x[1] = f[2];
+    x[2] = f[3];
+    x[3] = f[4];
+    x[4] = f[5] / 0.55f;
+    x[5] = f[7];
+  }
+  __device__ static void step(float* f, int& tc, const float* a, const float*,
+                              float& reward, bool& terminal, bool& trunc) {
+    const float DT = 0.01f, G = 9.8f, LEG = 0.55f, K = 300.0f, THR = 60.0f;
+    const float x = f[0], z = f[1], vx = f[2], vz = f[3];
+    const float leg_angle = f[4], foot_x = f[6];
+    const bool in_st = f[7] > 0.5f;
+    const float target_angle = clampf(a[0], -1.0f, 1.0f) * 0.5f;
+    const float thrust = clampf(a[1], -1.0f, 1.0f) * 0.5f + 0.5f;
+    // flight branch
+    const float fl_angle = leg_angle + 10.0f * (target_angle - leg_angle) * DT;
+    const float fl_vz = vz - G * DT;
+    const float fl_z = z + fl_vz * DT;
+    const float fl_x = x + vx * DT;
+    const float foot_z = fl_z - LEG * cosf(fl_angle);
+    const bool touchdown = foot_z <= 0.0f && fl_vz < 0.f;
+    const float fl_foot_x = touchdown ? fl_x + LEG * sinf(fl_angle) : foot_x;
+    // stance branch
+    const float dx = x - foot_x;
+    const float st_len = sqrtf(dx * dx + z * z);
+    const float compress = fmaxf(LEG - st_len, 0.0f);
+    const float force = K * compress + THR * thrust;
+    const float ux = dx / (st_len + 1e-6f), uz = z / (st_len + 1e-6f);
+    const float st_vx = vx + force * ux * DT;
+    const float st_vz = vz + (force * uz - G) * DT;
+    const float st_x = x + st_vx * DT;
+    const float st_z = z + st_vz * DT;
+    const float ddx = st_x - foot_x;
+    const float new_len = sqrtf(ddx * ddx + st_z * st_z);
+    const bool liftoff = new_len >= LEG && st_vz > 0.f;
+    const float st_angle = atan2_poly(ddx, st_z);
+    f[0] = in_st ? st_x : fl_x;
+    f[1] = in_st ? st_z : fl_z;
+    f[2] = in_st ? st_vx : vx;
+    f[3] = in_st ? st_vz : fl_vz;
+    f[4] = in_st ? st_angle : fl_angle;
+    f[5] = in_st ? new_len : LEG;
+    f[6] = in_st ? foot_x : fl_foot_x;
+    f[7] = in_st ? (liftoff ? 0.0f : 1.0f) : (touchdown ? 1.0f : 0.0f);
+    tc += 1;
+    reward = f[2] + 0.5f - 0.05f * (a[0] * a[0] + a[1] * a[1]);
+    terminal = f[1] < 0.25f;
+    trunc = tc >= 1000 && !terminal;
+  }
+  __device__ static void reset(float* f, const float* u) {
+    f[0] = 0.f;
+    f[1] = 0.9f + (-0.05f + 0.1f * u[0]);
+    f[2] = -0.1f + 0.2f * u[1];
+    f[3] = 0.f;
+    f[4] = 0.f;
+    f[5] = 0.55f;
+    f[6] = 0.f;
+    f[7] = 0.f;
+  }
+};
+
+// PointChasing at dim 2; rows: p0 (2), v0 (2), p1 (2), v1 (2), distance.
+struct ChasingBase {
+  static constexpr int S = 8, F = 9, N_STEP = 2, N_RESET = 4;
+  __device__ static void obs(const float* f, float* x) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = f[k];
+  }
+  __device__ static void chase(float* f, int& tc, float a0, float a1, const float* u,
+                               float& reward, bool& terminal, bool& trunc) {
+    const float action_l2 = fmaxf(sqrtf(a0 * a0 + a1 * a1), 1.0f);
+    const float an0 = a0 / action_l2, an1 = a1 / action_l2;
+    const float v1x = f[6] * 0.75f + an0, v1y = f[7] * 0.75f + an1;
+    const float p1x = f[4] + v1x * 0.01f, p1y = f[5] + v1y * 0.01f;
+    const float v0x = f[2] * 0.50f + u[0], v0y = f[3] * 0.50f + u[1];
+    const float p0x = f[0] + v0x * 0.01f, p0y = f[1] + v0y * 0.01f;
+    const float ex = p0x - p1x, ey = p0y - p1y;
+    const float dist = sqrtf(ex * ex + ey * ey);
+    reward = f[8] - dist - action_l2 * 0.02f;
+    f[0] = p0x; f[1] = p0y; f[2] = v0x; f[3] = v0y;
+    f[4] = p1x; f[5] = p1y; f[6] = v1x; f[7] = v1y;
+    f[8] = dist;
+    tc += 1;
+    terminal = dist < 2.0f || tc >= 1024;
+    trunc = false;
+  }
+  // normals by Box-Muller from the 4 reset uniforms: cos row to p0, sin row
+  // to p1 - 8
+  __device__ static void reset(float* f, const float* u) {
+    float p0[2], p1[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float r = sqrtf(-2.0f * logf(1.0f - u[k]));
+      const float ang = TWO_PI_F * u[2 + k];
+      p0[k] = r * cosf(ang);
+      p1[k] = r * sinf(ang) - 8.0f;
+    }
+    const float ex = p0[0] - p1[0], ey = p0[1] - p1[1];
+    f[0] = p0[0]; f[1] = p0[1]; f[2] = 0.f; f[3] = 0.f;
+    f[4] = p1[0]; f[5] = p1[1]; f[6] = 0.f; f[7] = 0.f;
+    f[8] = sqrtf(ex * ex + ey * ey);
+  }
+};
+
+struct ChasingBody : ChasingBase {
+  static constexpr int A = 2;
+  static constexpr bool DISCRETE = false;
+  __device__ static void step(float* f, int& tc, const float* a, const float* u,
+                              float& reward, bool& terminal, bool& trunc) {
+    chase(f, tc, a[0], a[1], u, reward, terminal, trunc);
+  }
+};
+
+struct ChasingDiscreteBody : ChasingBase {
+  static constexpr int A = 9;
+  static constexpr bool DISCRETE = true;
+  __device__ static void step(float* f, int& tc, const float* a, const float* u,
+                              float& reward, bool& terminal, bool& trunc) {
+    // base-3 digits of the index by the floor form, each mapped to -1, 0, +1
+    const float idx = a[0];
+    const float q1 = floorf(idx / 3.0f);
+    const float d0 = idx - 3.0f * floorf(idx / 3.0f) - 1.0f;
+    const float d1 = q1 - 3.0f * floorf(q1 / 3.0f) - 1.0f;
+    chase(f, tc, d0, d1, u, reward, terminal, trunc);
+  }
+};
+
+// -------------------------------------------------------------------- MLP
 
 // out[j][e] = act(sum_k W[j][k] * in[k][e] + b[j]) for j < J, e < TE.
 // Tiles are (rows, TE) in shared memory; W is row-major (J, K).
@@ -98,8 +337,8 @@ struct Net {
 };
 
 // Copy one net's leaves from the flat buffer into shared memory.
-__device__ Net load_net(const float* __restrict__ flat, float* smem, int D1,
-                        int D2, int O) {
+__device__ Net load_net(const float* __restrict__ flat, float* smem, int S,
+                        int D1, int D2, int O) {
   const int n = D1 * S + D1 + D2 * D1 + D2 + O * D2 + O;
   for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = flat[i];
   Net net;
@@ -113,7 +352,7 @@ __device__ Net load_net(const float* __restrict__ flat, float* smem, int D1,
 }
 
 __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
-                    float* out, int D1, int D2, int O) {
+                    float* out, int S, int D1, int D2, int O) {
   dense<true>(net.W1, net.b1, xn, h1, D1, S);
   __syncthreads();
   dense<true>(net.W2, net.b2, h1, h2, D2, D1);
@@ -121,6 +360,9 @@ __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
   dense<false>(net.Wo, net.bo, h2, out, O, D2);
 }
 
+// ----------------------------------------------------------------- kernel
+
+template <class Body>
 __global__ void __launch_bounds__(THREADS)
 fused_rollout_kernel(const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
@@ -130,16 +372,24 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
                      const int* __restrict__ env_i,
                      const float* __restrict__ noise,
                      const int* __restrict__ seed,
-                     float* __restrict__ states_o, float* __restrict__ actions_o,
+                     float* __restrict__ states_o, void* __restrict__ actions_o,
                      float* __restrict__ logp_o, float* __restrict__ rew_o,
                      float* __restrict__ term_o, float* __restrict__ trunc_o,
                      float* __restrict__ val_o, float* __restrict__ env_f_o,
                      int* __restrict__ env_i_o, int N, int H, int D1, int D2,
                      float reward_scale) {
+  constexpr int S = Body::S, A = Body::A, F = Body::F;
+  constexpr bool DISCRETE = Body::DISCRETE;
+  constexpr int N_ENV = Body::N_STEP + Body::N_RESET;  // the env's uniforms
+  constexpr int NZ = A + N_ENV;                        // injected rows
+  constexpr int N_HEAD = DISCRETE ? A : 2 * A;         // internal head uniforms
+  constexpr int NB = (N_HEAD + N_ENV + 3) / 4;         // Philox blocks per step
+  constexpr int AE = DISCRETE ? 1 : A;                 // values of the env's action
+
   extern __shared__ float smem[];
   const int net_floats = D1 * S + D1 + D2 * D1 + D2;
-  const Net actor = load_net(act_flat, smem, D1, D2, A);
-  const Net critic = load_net(cri_flat, smem + net_floats + A * D2 + A, D1, D2, 1);
+  const Net actor = load_net(act_flat, smem, S, D1, D2, A);
+  const Net critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
   float* xn = smem + 2 * net_floats + A * D2 + A + D2 + 1;  // (S, TE)
   float* h1 = xn + S * TE;                                  // (D1, TE)
   float* h2 = h1 + D1 * TE;                                 // (D2, TE)
@@ -150,17 +400,25 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
   const bool owner = e < TE;
   const bool live = owner && n < N;
 
-  float th = 0.f, thdot = 0.f;
+  float f[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) f[k] = 0.f;
   int tc = 0;
-  float std_a = 1.f, log_std = 0.f, avg[S], nstd[S];
+  float std_a[A], log_std_sum = 0.f, avg[S], nstd[S];
   if (owner) {
     if (live) {
-      th = env_f[n];
-      thdot = env_f[N + n];
+#pragma unroll
+      for (int k = 0; k < F; ++k) f[k] = env_f[(size_t)k * N + n];
       tc = env_i[n];
     }
-    std_a = expf(act_flat[net_floats + A * D2 + A]);  // std_log, A = 1
-    log_std = logf(std_a);
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      std_a[a] = 1.f;
+      if constexpr (!DISCRETE) {  // std_log is the actor's last leaf
+        std_a[a] = expf(act_flat[net_floats + A * D2 + A + a]);
+        log_std_sum += logf(std_a[a]);
+      }
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       avg[s] = norm_avg[s];
@@ -173,7 +431,8 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
 
   for (int t = 0; t < H; ++t) {
     if (owner) {
-      const float x[S] = {cosf(th), sinf(th), thdot};
+      float x[S];
+      Body::obs(f, x);
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         xn[s * TE + e] = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
@@ -181,91 +440,157 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
       }
     }
     __syncthreads();
-    mlp(actor, xn, h1, h2, out, D1, D2, A);
+    mlp(actor, xn, h1, h2, out, S, D1, D2, A);
     __syncthreads();
-    mlp(critic, xn, h1, h2, out + A * TE, D1, D2, 1);
+    mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
     __syncthreads();
     if (live) {
-      const float mean = out[e];
-      const float value = out[A * TE + e];
-      float z, ur0, ur1;
+      // head[0:A]: normals (Gaussian, injected), or uniforms; u_env: the
+      // env's N_STEP step uniforms, then its N_RESET reset uniforms
+      float head[N_HEAD], u_env[N_ENV > 0 ? N_ENV : 1];
       if (noise != nullptr) {
-        z = noise[((size_t)t * 3 + 0) * N + n];
-        ur0 = noise[((size_t)t * 3 + 1) * N + n];
-        ur1 = noise[((size_t)t * 3 + 2) * N + n];
+        const float* nz = noise + (size_t)t * NZ * N + n;
+#pragma unroll
+        for (int a = 0; a < A; ++a) head[a] = nz[(size_t)a * N];
+#pragma unroll
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = nz[(size_t)(A + k) * N];
       } else {
-        const uint4 r = philox4x32_10(make_uint4((uint32_t)n, (uint32_t)t, 0u, 0u), key);
-        const float u0 = uniform24(r.x), u1 = uniform24(r.y);
-        z = sqrtf(-2.0f * logf(1.0f - u0)) * cosf(TWO_PI_F * u1);
-        ur0 = uniform24(r.z);
-        ur1 = uniform24(r.w);
+        float u[4 * NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const uint4 r = philox4x32_10(
+              make_uint4((uint32_t)n, (uint32_t)t, (uint32_t)b, 0u), key);
+          u[4 * b + 0] = uniform24(r.x);
+          u[4 * b + 1] = uniform24(r.y);
+          u[4 * b + 2] = uniform24(r.z);
+          u[4 * b + 3] = uniform24(r.w);
+        }
+#pragma unroll
+        for (int a = 0; a < N_HEAD; ++a) head[a] = u[a];
+#pragma unroll
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = u[N_HEAD + k];
       }
-      const float action = mean + std_a * z;
-      const float logp = -0.5f * z * z - log_std - LOG_SQRT_2PI;
-      // Pendulum step on tanh(action) (envs/pendulum.py; floor-form wrap)
-      const float u_trq = fminf(fmaxf(tanhf(action) * 2.0f, -2.0f), 2.0f);
-      const float y = th + PI_F;
-      const float wrapped = y - floorf(y / TWO_PI_F) * TWO_PI_F - PI_F;
-      const float cost = wrapped * wrapped + 0.1f * thdot * thdot + 0.001f * u_trq * u_trq;
-      const float reward = -0.5f * cost;
-      float thdot2 = thdot + (15.0f * sinf(th) + 3.0f * u_trq) * 0.05f;
-      thdot2 = fminf(fmaxf(thdot2, -8.0f), 8.0f);
-      float th2 = th + thdot2 * 0.05f;
-      int tc2 = tc + 1;
-      const bool trunc = tc2 >= 200;
       const size_t o = (size_t)t * N + n;
-      actions_o[o] = action;  // A = 1: (H, 1, N) == (H, N)
+      float env_a[AE], logp;
+      if constexpr (DISCRETE) {
+        float best = 0.f, m = 0.f;
+        int index = 0;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float logit = out[a * TE + e];
+          const float g = -logf(-logf(fmaxf(head[a], 1e-12f)) + 1e-12f);
+          const float p = logit + g;
+          if (a == 0 || p > best) {  // strict: the first maximum wins a tie
+            best = p;
+            index = a;
+          }
+          m = a == 0 ? logit : fmaxf(m, logit);
+        }
+        float sum = 0.f, chosen = 0.f;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float logit = out[a * TE + e];
+          sum += expf(logit - m);
+          if (a == index) chosen = logit;
+        }
+        logp = chosen - (m + logf(sum));
+        ((int*)actions_o)[o] = index;
+        env_a[0] = (float)index;
+      } else {
+        logp = -log_std_sum;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          float z;
+          if (noise != nullptr) {
+            z = head[a];
+          } else {
+            z = sqrtf(-2.0f * logf(1.0f - head[a])) * cosf(TWO_PI_F * head[A + a]);
+          }
+          const float action = out[a * TE + e] + std_a[a] * z;
+          logp += -0.5f * z * z - LOG_SQRT_2PI;
+          ((float*)actions_o)[((size_t)t * A + a) * N + n] = action;
+          env_a[a] = tanhf(action);
+        }
+      }
+      const float value = out[A * TE + e];
+      float reward;
+      bool terminal, trunc;
+      Body::step(f, tc, env_a, u_env, reward, terminal, trunc);
       logp_o[o] = logp;
       rew_o[o] = reward * reward_scale;
-      term_o[o] = 0.0f;
+      term_o[o] = terminal ? 1.0f : 0.0f;
       trunc_o[o] = trunc ? 1.0f : 0.0f;
       val_o[o] = value;
-      if (trunc) {  // masked reset from the two reset uniforms
-        th2 = -PI_F + TWO_PI_F * ur0;
-        thdot2 = -1.0f + 2.0f * ur1;
-        tc2 = 0;
+      if (terminal || trunc) {  // masked reset from the reset uniforms
+        Body::reset(f, u_env + Body::N_STEP);
+        tc = 0;
       }
-      th = th2;
-      thdot = thdot2;
-      tc = tc2;
     }
     // the next step's xn write and dense passes reuse the shared tiles
     __syncthreads();
   }
   if (live) {
-    env_f_o[n] = th;
-    env_f_o[N + n] = thdot;
+#pragma unroll
+    for (int k = 0; k < F; ++k) env_f_o[(size_t)k * N + n] = f[k];
     env_i_o[n] = tc;
   }
 }
 
+template <class Body>
+int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
+           const void* norm_std, const void* env_f, const void* env_i,
+           const void* noise, const void* seed, void* states, void* actions,
+           void* logp, void* rew, void* term, void* trunc, void* val,
+           void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
+           float reward_scale, int smem_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (N + TE - 1) / TE;
+  fused_rollout_kernel<Body><<<blocks, THREADS, smem_bytes, stream>>>(
+      (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
+      (const float*)norm_std, (const float*)env_f, (const int*)env_i,
+      (const float*)noise, (const int*)seed, (float*)states, actions,
+      (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)val,
+      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes: both nets' weights, then
-// the xn, h1, h2 and out tiles (the layout of fused_rollout_kernel).
-extern "C" int fused_rollout_smem_bytes(int D1, int D2) {
+// Dynamic shared memory of one block, in bytes: both nets' weights (the
+// actor's without std_log), then the xn, h1, h2 and out tiles (the layout
+// of fused_rollout_kernel).
+extern "C" int fused_rollout_smem_bytes(int S, int A, int D1, int D2) {
   const int net_floats = D1 * S + D1 + D2 * D1 + D2;
   return (int)sizeof(float) *
          (2 * net_floats + A * D2 + A + D2 + 1 + (S + D1 + D2 + A + 1) * TE);
 }
 
-extern "C" int fused_rollout_pendulum(
-    const void* act_flat, const void* cri_flat, const void* norm_avg,
+// body: 0 Pendulum-v1, 1 CartPole-v1, 2 HopperSlip-v0, 3 PointChasingVecEnv,
+// 4 PointChasingDiscreteEnv (KernelEnvBody.kernel_id of ops/fused_rollout.py).
+// Returns the CUDA error of the launch, or -1 for an unknown body.
+extern "C" int fused_rollout(
+    int body, const void* act_flat, const void* cri_flat, const void* norm_avg,
     const void* norm_std, const void* env_f, const void* env_i,
     const void* noise, const void* seed, void* states, void* actions,
     void* logp, void* rew, void* term, void* trunc, void* val, void* env_f_o,
     void* env_i_o, int N, int H, int D1, int D2, float reward_scale,
     void* stream) {
-  const int smem_bytes = fused_rollout_smem_bytes(D1, D2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + TE - 1) / TE;
-  fused_rollout_kernel<<<blocks, THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
-      (const float*)norm_std, (const float*)env_f, (const int*)env_i,
-      (const float*)noise, (const int*)seed, (float*)states, (float*)actions,
-      (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)val,
-      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
-  return (int)cudaGetLastError();
+#define ELEGANTRL_LAUNCH(BODY)                                                  \
+  return launch<BODY>(act_flat, cri_flat, norm_avg, norm_std, env_f, env_i,     \
+                      noise, seed, states, actions, logp, rew, term, trunc,     \
+                      val, env_f_o, env_i_o, N, H, D1, D2, reward_scale,        \
+                      fused_rollout_smem_bytes(BODY::S, BODY::A, D1, D2),       \
+                      (cudaStream_t)stream)
+  switch (body) {
+    case 0: ELEGANTRL_LAUNCH(PendulumBody);
+    case 1: ELEGANTRL_LAUNCH(CartPoleBody);
+    case 2: ELEGANTRL_LAUNCH(HopperBody);
+    case 3: ELEGANTRL_LAUNCH(ChasingBody);
+    case 4: ELEGANTRL_LAUNCH(ChasingDiscreteBody);
+    default: return -1;
+  }
+#undef ELEGANTRL_LAUNCH
 }

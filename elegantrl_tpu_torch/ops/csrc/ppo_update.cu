@@ -3,7 +3,7 @@
 // and Adam, in place on flat parameter and moment buffers.
 //
 // Replaces: elegantrl_tpu/ops/pallas_update.py, _make_kernel (built by
-// make_ppo_fused_update, continuous head).
+// make_ppo_fused_update, continuous and discrete heads).
 //
 // Bound on this card: launches and latency at the main shape.  One
 // minibatch of B = 512 at (128, 128) is about 104 MFLOP of forward and
@@ -36,6 +36,13 @@
 //   smooth: jnp.minimum and jnp.maximum split the gradient evenly at a tie,
 //   so the clipped surrogate's derivative at ratio == 1 +- clip is taken as
 //   JAX takes it.  The mean runs over the full B.
+// - Discrete head: the actor's A outputs are logits and the action block is
+//   one-hot, (A, B) per step, as in the TPU kernel.  With logp =
+//   log_softmax(logits) and p = exp(logp): new_lp = sum(logp * onehot),
+//   entropy = -sum(p * logp), d new_lp / d logits = onehot - p * sum(onehot)
+//   and d entropy / d logits = -p * (logp + entropy).  The actor's flat
+//   buffer then has no std_log leaf.  Ratio, clip and everything after the
+//   head are shared with the continuous head.
 // - GELU is the tanh form, matching jax.nn.gelu's default.
 
 #include <cuda_runtime.h>
@@ -200,7 +207,7 @@ fwd_bwd_kernel(const float* __restrict__ act, const float* __restrict__ cri,
                const float* __restrict__ rs, const float* __restrict__ um,
                float* __restrict__ partial, float* __restrict__ objpart, int B,
                int S, int A, int D1, int D2, int P, int Pa, float ratio_clip,
-               float lambda_entropy, int single_sided) {
+               float lambda_entropy, int single_sided, int discrete) {
   extern __shared__ float smem[];
   Tiles t;
   t.lds = ld(S);
@@ -246,17 +253,33 @@ fwd_bwd_kernel(const float* __restrict__ act, const float* __restrict__ cri,
   net_backward(cri, g + Pa, t, S, D1, D2, 1);
 
   // ---- actor: -(mean(surrogate * um) - lambda * mean(entropy * um))
-  const float* std_log = act + (Pa - A);
+  const float* std_log = act + (Pa - A);  // continuous head only
   net_forward(act, t, S, D1, D2, A);
   if (e < TB) {
-    float new_lp = 0.f, ent = 0.f;
+    float new_lp = 0.f, ent = 0.f, lse = 0.f, soh = 0.f;
     const float w = live ? um[b] : 0.f;
-    for (int a = 0; a < A; ++a) {
-      const float sd = expf(std_log[a]);
-      const float lsd = logf(sd);
-      const float z = live ? (ab[(size_t)a * B + b] - t.head[e * t.ldh + a]) / sd : 0.f;
-      new_lp += -0.5f * z * z - lsd - LOG_SQRT_2PI;
-      ent += 0.5f + LOG_SQRT_2PI + lsd;
+    float* head = t.head + e * t.ldh;  // A means, or A logits
+    if (discrete) {
+      float m = head[0];
+      for (int a = 1; a < A; ++a) m = fmaxf(m, head[a]);
+      float sum = 0.f;
+      for (int a = 0; a < A; ++a) sum += expf(head[a] - m);
+      lse = m + logf(sum);
+      for (int a = 0; a < A; ++a) {
+        const float logp = head[a] - lse;
+        const float oh = live ? ab[(size_t)a * B + b] : 0.f;
+        new_lp += logp * oh;
+        soh += oh;
+        ent -= expf(logp) * logp;
+      }
+    } else {
+      for (int a = 0; a < A; ++a) {
+        const float sd = expf(std_log[a]);
+        const float lsd = logf(sd);
+        const float z = live ? (ab[(size_t)a * B + b] - head[a]) / sd : 0.f;
+        new_lp += -0.5f * z * z - lsd - LOG_SQRT_2PI;
+        ent += 0.5f + LOG_SQRT_2PI + lsd;
+      }
     }
     float surr = 0.f, g_lp = 0.f;
     if (live) {
@@ -287,12 +310,22 @@ fwd_bwd_kernel(const float* __restrict__ act, const float* __restrict__ cri,
       objpart[blockIdx.x * 3 + 1] = obj_s;
       objpart[blockIdx.x * 3 + 2] = obj_e;
     }
-    for (int a = 0; a < A; ++a) {
-      const float sd = expf(std_log[a]);
-      const float z = live ? (ab[(size_t)a * B + b] - t.head[e * t.ldh + a]) / sd : 0.f;
-      const float d_sl = warp_sum(g_lp * (z * z - 1.0f) + lambda_entropy * w * inv_B);
-      if (e == 0) g[Pa - A + a] = d_sl;
-      t.head[e * t.ldh + a] = g_lp * z / sd;  // d loss / d mean
+    if (discrete) {
+      const float g_ent = lambda_entropy * w * inv_B;  // d loss / d entropy
+      for (int a = 0; a < A; ++a) {
+        const float logp = head[a] - lse;
+        const float p = expf(logp);
+        const float oh = live ? ab[(size_t)a * B + b] : 0.f;
+        head[a] = g_lp * (oh - p * soh) - g_ent * p * (logp + ent);  // d loss / d logit
+      }
+    } else {
+      for (int a = 0; a < A; ++a) {
+        const float sd = expf(std_log[a]);
+        const float z = live ? (ab[(size_t)a * B + b] - head[a]) / sd : 0.f;
+        const float d_sl = warp_sum(g_lp * (z * z - 1.0f) + lambda_entropy * w * inv_B);
+        if (e == 0) g[Pa - A + a] = d_sl;
+        head[a] = g_lp * z / sd;  // d loss / d mean
+      }
     }
   }
   __syncthreads();
@@ -388,13 +421,14 @@ extern "C" int ppo_update(
     const void* lp, const void* adv, const void* rs, const void* um, void* partial,
     void* objpart, void* grad, void* normpart, void* objs, int U, int B, int S,
     int A, int D1, int D2, int count_a, int count_c, int single_sided,
-    float ratio_clip, float lambda_entropy, float lr, float clip_grad, float b1,
+    int discrete, float ratio_clip, float lambda_entropy, float lr, float clip_grad, float b1,
     float b2, float eps, void* stream) {
   const int smem = ppo_update_smem_bytes(S, A, D1, D2);
   cudaError_t err = cudaFuncSetAttribute(
       fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int Pa = D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + A;
+  // the actor's leaves: the MLP's, then std_log (A) for the continuous head
+  const int Pa = D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (discrete ? 0 : A);
   const int P = Pa + D1 * S + D1 + D2 * D1 + D2 + D2 + 1;
   const int nb = ppo_update_blocks(B), nr = ppo_update_reduce_blocks(P);
   cudaStream_t st = (cudaStream_t)stream;
@@ -405,7 +439,7 @@ extern "C" int ppo_update(
         (const float*)norm_std, (const float*)sb + o * S, (const float*)ab + o * A,
         (const float*)lp + o, (const float*)adv + o, (const float*)rs + o,
         (const float*)um + o, (float*)partial, (float*)objpart, B, S, A, D1, D2, P,
-        Pa, ratio_clip, lambda_entropy, single_sided);
+        Pa, ratio_clip, lambda_entropy, single_sided, discrete);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     reduce_kernel<<<nr, THREADS, 0, st>>>((const float*)partial, nb, P, Pa,
                                           (float*)grad, (float*)normpart);

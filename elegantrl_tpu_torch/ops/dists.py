@@ -39,3 +39,24 @@ def categorical_logprob(logits: torch.Tensor, action: torch.Tensor) -> torch.Ten
 def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+
+def tanh_normal_logprob_simple(mean: torch.Tensor, std: torch.Tensor,
+                               pre_tanh: torch.Tensor) -> torch.Tensor:
+    """The reference ``ActorSAC`` form: the Gaussian density evaluated at the
+    mean (its quirk, kept) with the ``log(1 - tanh(x)^2 + 1e-6)`` correction,
+    summed over the action axis."""
+    logprob = normal_logprob(mean, mean, std)
+    logprob = logprob - torch.log(1.000001 - torch.square(torch.tanh(pre_tanh)))
+    return torch.sum(logprob, dim=-1)
+
+
+def tanh_normal_logprob(log_std: torch.Tensor, noise: torch.Tensor,
+                        pre_tanh: torch.Tensor) -> torch.Tensor:
+    """The reference ``ActorFixSAC`` softplus form, stable for large ``|x|``:
+    ``-log_std - noise^2/2 - log(sqrt(2 pi)) - 2 (log 2 - x - softplus(-2x))``
+    with x the pre-tanh action, summed over the action axis."""
+    logprob = -log_std - 0.5 * torch.square(noise) - LOG_SQRT_2PI
+    logprob = logprob - 2.0 * (math.log(2.0) - pre_tanh
+                               - torch.nn.functional.softplus(-2.0 * pre_tanh))
+    return torch.sum(logprob, dim=-1)

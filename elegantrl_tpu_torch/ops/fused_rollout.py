@@ -1,31 +1,42 @@
-"""Fused whole-rollout kernel for PPO on Pendulum (counterpart of
-``elegantrl_tpu/ops/pallas_rollout.py``, kernel K1 = ``_make_kernel`` with
-``PENDULUM_BODY`` and the Gaussian head).
+"""Fused whole-rollout kernel for the on-policy agents (counterpart of
+``elegantrl_tpu/ops/pallas_rollout.py``: ``_make_kernel`` with the Pendulum,
+CartPole, HopperSlip and PointChasing bodies and the Gaussian and
+categorical heads).
 
 For every env lane and each of H steps: normalise the obs, run the actor
-and critic MLPs (two tanh-GELU hidden layers), sample ``z ~ N(0, 1)``, store
-the raw action ``mean + std*z`` with ``logp = sum(-z^2/2 - log std -
-log sqrt(2 pi))`` and the critic value, step Pendulum on ``tanh(action)``,
-scale the reward, record terminal/truncate and reset the done lanes from
-uniforms.  Outputs keep the kernel-native ``(H, S, N)`` layout, flagged by
-the ``'tsn'`` extras marker all the way into the PPO update.
+and critic MLPs (two tanh-GELU hidden layers), sample an action, store it
+with its logprob and the critic value, step the env, scale the reward,
+record terminal/truncate and reset the done lanes from uniforms.
+
+- Gaussian head: ``z ~ N(0, 1)``, the raw action ``mean + std*z`` is stored
+  with ``logp = sum(-z^2/2 - log std - log sqrt(2 pi))`` and the env acts on
+  ``tanh(action)``.
+- Categorical head: Gumbel-max, ``g = -log(-log(max(u, 1e-12)) + 1e-12)``,
+  ``action = argmax(logits + g)`` (first maximum on a tie), ``logp =
+  logits[action] - logsumexp(logits)``; the action index is stored as int32
+  ``(H, N)`` and the env receives it as a float row.
+
+Outputs keep the kernel-native ``(H, S, N)`` layout, flagged by the
+``'tsn'`` extras marker all the way into the update.
 
 Three pieces, as for every kernel of the port:
 
 - :func:`rollout_reference`, the plain PyTorch version;
 - :func:`rollout`, the wrapper: for CPU tensors it runs the plain version,
   for CUDA tensors it launches ``csrc/fused_rollout.cu`` (or raises);
-- ``rollout.launches``, the count of kernel launches.
+- ``rollout.launches``, the count of kernel launches (``rollout.launches_by_body``
+  splits it by env body).
 
 Noise has two modes, as in the JAX package: *injected*, a ``(H, A +
-n_step + n_reset, N)`` tensor of normals then uniforms (tests and the
-kernel-versus-plain check use it), and *internal*, a Philox4x32-10
-counter-based generator keyed by a ``(2,)`` int32 seed tensor and counted
-by (env lane, step).  The plain version implements the same Philox, so
-both modes give the same bits on either side.  Internal mode draws four
-32-bit words per (lane, step): two uniforms for Box-Muller
-(``z = sqrt(-2 log(1-u0)) cos(2 pi u1)``, with u in [0, 1) so the log never
-sees 0) and the two reset uniforms.
+n_step + n_reset, N)`` tensor (Gaussian head: A normals, then the env's
+step and reset uniforms; categorical head: all uniforms), and *internal*, a
+Philox4x32-10 counter-based generator keyed by a ``(2,)`` int32 seed tensor.
+Internal mode needs ``2A`` (Gaussian, Box-Muller: ``z = sqrt(-2 log(1-u))
+cos(2 pi u')`` with u in [0, 1), so the log never sees 0) or ``A``
+(categorical) uniforms plus ``n_step + n_reset`` per (lane, step); uniform
+``j`` is word ``j % 4`` of the Philox block with counter ``(lane, step,
+j // 4, 0)``.  The plain version implements the same Philox, so both modes
+give the same bits on either side.
 """
 
 from __future__ import annotations
@@ -50,7 +61,8 @@ _TE = 32
 class KernelEnvBody(NamedTuple):
     """An env inlined into the fused rollout, on ``(rows, N)`` tensors.
     ``step`` does not reset; ``reset`` applies the masked re-init from
-    ``n_reset`` uniform rows."""
+    ``n_reset`` uniform rows.  ``action_dim`` is the env's action dim, or
+    the number of actions when ``discrete`` (the categorical head)."""
     env_name: str
     state_dim: int
     action_dim: int
@@ -60,10 +72,17 @@ class KernelEnvBody(NamedTuple):
     pack: Callable      # env_state -> (f32 (n_f32, N), int32 (n_i32, N))
     unpack: Callable    # (f32, int32) -> env_state
     obs: Callable       # (f32, int32) -> (S, N)
-    step: Callable      # (f32, int32, env_action (A, N)) ->
-    #                     (f32', int32', reward (1, N), terminal, truncate)
+    step: Callable      # (f32, int32, env_action, u (n_step, N)) ->
+    #                     (f32', int32', reward (1, N), terminal, truncate);
+    #                     env_action is (A, N), or the (1, N) index row
     reset: Callable     # (f32', int32', u (n_reset, N), done (1, N)) -> (f32, int32)
-    n_step: int = 0
+    n_step: int = 0     # uniforms the step itself consumes (env randomness)
+    discrete: bool = False
+    kernel_id: int = 0  # the body's number in csrc/fused_rollout.cu
+
+
+def _masked_reset(f, i, fresh, done):
+    return torch.where(done, fresh, f), torch.where(done, torch.zeros_like(i[0:1]), i[0:1])
 
 
 # ---------------------------------------------------------------- Pendulum
@@ -88,7 +107,7 @@ def _wrap_angle(x):
     return y - torch.floor(y / _TWO_PI) * _TWO_PI - math.pi
 
 
-def _pend_step(f, i, a):
+def _pend_step(f, i, a, u=None):
     th, thdot = f[0:1], f[1:2]
     u_trq = torch.clamp(a[0:1] * 2.0, -2.0, 2.0)
     cost = (torch.square(_wrap_angle(th)) + 0.1 * torch.square(thdot)
@@ -102,18 +121,258 @@ def _pend_step(f, i, a):
 
 
 def _pend_reset(f, i, u, done):
-    th = torch.where(done, -math.pi + _TWO_PI * u[0:1], f[0:1])
-    thdot = torch.where(done, -1.0 + 2.0 * u[1:2], f[1:2])
-    tc = torch.where(done, torch.zeros_like(i[0:1]), i[0:1])
-    return torch.cat([th, thdot], dim=0), tc
+    fresh = torch.cat([-math.pi + _TWO_PI * u[0:1], -1.0 + 2.0 * u[1:2]], dim=0)
+    return _masked_reset(f, i, fresh, done)
 
 
 PENDULUM_BODY = KernelEnvBody(
     env_name='Pendulum-v1', state_dim=3, action_dim=1, n_f32=2, n_i32=1,
     n_reset=2, pack=_pend_pack, unpack=_pend_unpack, obs=_pend_obs,
-    step=_pend_step, reset=_pend_reset)
+    step=_pend_step, reset=_pend_reset, kernel_id=0)
 
-KERNEL_ENV_BODIES = {PENDULUM_BODY.env_name: PENDULUM_BODY}
+
+# ---------------------------------------------------------------- CartPole
+
+def _cp_pack(s):
+    return (torch.stack([s.x, s.x_dot, s.theta, s.theta_dot]),
+            s.t.reshape(1, -1).to(torch.int32))
+
+
+def _cp_unpack(f, i):
+    from ..envs.cartpole import CartPoleState
+    return CartPoleState(x=f[0], x_dot=f[1], theta=f[2], theta_dot=f[3], t=i[0])
+
+
+def _cp_obs(f, i):
+    return f   # the obs is the 4 state rows
+
+
+_CP_THETA_LIMIT = 12.0 * 2.0 * math.pi / 360.0
+
+
+def _cp_step(f, i, a, u=None):
+    """Euler dt = 0.02, force +-10 N (the action row carries 0/1), terminal
+    on |x| > 2.4 or |theta| > 12 deg, truncation at 500, reward 1."""
+    x, x_dot, theta, theta_dot = f[0:1], f[1:2], f[2:3], f[3:4]
+    force = torch.where(a[0:1] > 0.5, 10.0, -10.0)
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    temp = (force + 0.05 * torch.square(theta_dot) * sin_t) / 1.1
+    theta_acc = (9.8 * sin_t - cos_t * temp) / (
+        0.5 * (4.0 / 3.0 - 0.1 * torch.square(cos_t) / 1.1))
+    x_acc = temp - 0.05 * theta_acc * cos_t / 1.1
+    x2 = x + 0.02 * x_dot
+    x_dot2 = x_dot + 0.02 * x_acc
+    theta2 = theta + 0.02 * theta_dot
+    theta_dot2 = theta_dot + 0.02 * theta_acc
+    t2 = i[0:1] + 1
+    terminal = (torch.abs(x2) > 2.4) | (torch.abs(theta2) > _CP_THETA_LIMIT)
+    trunc = (t2 >= 500) & ~terminal
+    return (torch.cat([x2, x_dot2, theta2, theta_dot2], dim=0), t2,
+            torch.ones_like(x2), terminal, trunc)
+
+
+def _cp_reset(f, i, u, done):
+    return _masked_reset(f, i, -0.05 + 0.1 * u, done)   # 4 rows in [-0.05, 0.05)
+
+
+CARTPOLE_BODY = KernelEnvBody(
+    env_name='CartPole-v1', state_dim=4, action_dim=2, n_f32=4, n_i32=1,
+    n_reset=4, pack=_cp_pack, unpack=_cp_unpack, obs=_cp_obs,
+    step=_cp_step, reset=_cp_reset, discrete=True, kernel_id=1)
+
+
+# ------------------------------------------------------------------ Hopper
+
+_ATAN_C = (9.9999990555e-01, -3.3332657853e-01, 1.9986537489e-01,
+           -1.4164333375e-01, 1.0507319787e-01, -7.2479506621e-02,
+           3.9899560039e-02, -1.4458697067e-02, 2.4682466247e-03)
+
+
+def _atan2(y, x):
+    """The JAX hopper body's atan2: a 9-term odd polynomial in
+    ``t = min(|x|, |y|) / max(|x|, |y|)`` (Horner), ``pi/2 - r`` where
+    ``|y| > |x|``, then the quadrant from the signs.  The kernel evaluates
+    the same polynomial, so the three agree to rounding."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    t = torch.minimum(ax, ay) / torch.clamp(torch.maximum(ax, ay), min=1e-30)
+    t2 = t * t
+    p = torch.full_like(t, _ATAN_C[-1])
+    for c in _ATAN_C[-2::-1]:
+        p = p * t2 + c
+    r = p * t
+    r = torch.where(ay > ax, 0.5 * math.pi - r, r)
+    r = torch.where(x < 0, math.pi - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def _hop_pack(s):
+    return (torch.stack([s.x, s.z, s.vx, s.vz, s.leg_angle, s.leg_len, s.foot_x,
+                         s.stance.float()]), s.t.reshape(1, -1).to(torch.int32))
+
+
+def _hop_unpack(f, i):
+    from ..envs.hopper import HopperState
+    return HopperState(x=f[0], z=f[1], vx=f[2], vz=f[3], leg_angle=f[4], leg_len=f[5],
+                       foot_x=f[6], stance=f[7] > 0.5, t=i[0])
+
+
+def _hop_obs(f, i):
+    return torch.cat([f[1:2], f[2:3], f[3:4], f[4:5], f[5:6] / 0.55, f[7:8]], dim=0)
+
+
+def _hop_step(f, i, a, u=None):
+    """The SLIP step of ``envs/hopper.py``: flight and stance branches are
+    both computed and blended; the stance flag is a float row."""
+    x, z, vx, vz = f[0:1], f[1:2], f[2:3], f[3:4]
+    leg_angle, foot_x, stance = f[4:5], f[6:7], f[7:8]
+    target_angle = torch.clamp(a[0:1], -1.0, 1.0) * 0.5
+    thrust = torch.clamp(a[1:2], -1.0, 1.0) * 0.5 + 0.5
+    DT, G, LEG, K, THR = 0.01, 9.8, 0.55, 300.0, 60.0
+
+    fl_angle = leg_angle + 10.0 * (target_angle - leg_angle) * DT
+    fl_vz = vz - G * DT
+    fl_z = z + fl_vz * DT
+    fl_x = x + vx * DT
+    foot_z = fl_z - LEG * torch.cos(fl_angle)
+    touchdown = (foot_z <= 0.0) & (fl_vz < 0)
+    fl_foot_x = torch.where(touchdown, fl_x + LEG * torch.sin(fl_angle), foot_x)
+
+    dx = x - foot_x
+    st_len = torch.sqrt(dx * dx + z * z)
+    compress = torch.clamp(LEG - st_len, min=0.0)
+    force = K * compress + THR * thrust
+    ux, uz = dx / (st_len + 1e-6), z / (st_len + 1e-6)
+    st_vx = vx + force * ux * DT
+    st_vz = vz + (force * uz - G) * DT
+    st_x = x + st_vx * DT
+    st_z = z + st_vz * DT
+    new_len = torch.sqrt(torch.square(st_x - foot_x) + torch.square(st_z))
+    liftoff = (new_len >= LEG) & (st_vz > 0)
+    st_angle = _atan2(st_x - foot_x, st_z)
+
+    in_st = stance > 0.5
+    x2 = torch.where(in_st, st_x, fl_x)
+    z2 = torch.where(in_st, st_z, fl_z)
+    vx2 = torch.where(in_st, st_vx, vx)
+    vz2 = torch.where(in_st, st_vz, fl_vz)
+    angle2 = torch.where(in_st, st_angle, fl_angle)
+    len2 = torch.where(in_st, new_len, torch.full_like(new_len, LEG))
+    foot2 = torch.where(in_st, foot_x, fl_foot_x)
+    stance2 = torch.where(in_st, 1.0 - liftoff.float(), touchdown.float())
+    t2 = i[0:1] + 1
+    reward = vx2 + 0.5 - 0.05 * (torch.square(a[0:1]) + torch.square(a[1:2]))
+    terminal = z2 < 0.25
+    trunc = (t2 >= 1000) & ~terminal
+    f2 = torch.cat([x2, z2, vx2, vz2, angle2, len2, foot2, stance2], dim=0)
+    return f2, t2, reward, terminal, trunc
+
+
+def _hop_reset(f, i, u, done):
+    z0 = 0.9 + (-0.05 + 0.1 * u[0:1])
+    vx0 = -0.1 + 0.2 * u[1:2]
+    zero = torch.zeros_like(z0)
+    fresh = torch.cat([zero, z0, vx0, zero, zero, torch.full_like(z0, 0.55), zero, zero],
+                      dim=0)
+    return _masked_reset(f, i, fresh, done)
+
+
+HOPPER_BODY = KernelEnvBody(
+    env_name='HopperSlip-v0', state_dim=6, action_dim=2, n_f32=8, n_i32=1,
+    n_reset=2, pack=_hop_pack, unpack=_hop_unpack, obs=_hop_obs,
+    step=_hop_step, reset=_hop_reset, kernel_id=2)
+
+
+# ------------------------------------------------------------ PointChasing
+
+_CHASE_DIM = 2   # the body is fixed to the env's default dim; rows are
+#                  [p0 (dim), v0 (dim), p1 (dim), v1 (dim), distance (1)]
+_INIT_DIST = 8.0
+
+
+def _chase_pack(s):
+    return (torch.cat([s.p0.T, s.v0.T, s.p1.T, s.v1.T, s.distance[None]], dim=0),
+            s.t.reshape(1, -1).to(torch.int32))
+
+
+def _chase_unpack(f, i):
+    from ..envs.point_chasing import ChasingState
+    d = _CHASE_DIM
+    return ChasingState(p0=f[0:d].T, v0=f[d:2 * d].T, p1=f[2 * d:3 * d].T,
+                        v1=f[3 * d:4 * d].T, distance=f[4 * d], t=i[0])
+
+
+def _chase_obs(f, i):
+    return f[0:4 * _CHASE_DIM]   # the obs is [p0, v0, p1, v1]
+
+
+def _chase_cont_step(f, i, a, u):
+    """L2-capped chase action, leaky-integrator velocities, the walker fed
+    by the ``n_step`` uniform rows ``u``; terminal on ``distance < dim`` or
+    at 1024 steps, never truncates."""
+    d = _CHASE_DIM
+    action_l2 = torch.clamp(torch.sqrt(torch.sum(torch.square(a), dim=0, keepdim=True)),
+                            min=1.0)
+    an = a / action_l2
+    v1 = f[3 * d:4 * d] * 0.75 + an
+    p1 = f[2 * d:3 * d] + v1 * 0.01
+    v0 = f[d:2 * d] * 0.50 + u
+    p0 = f[0:d] + v0 * 0.01
+    dist = torch.sqrt(torch.sum(torch.square(p0 - p1), dim=0, keepdim=True))
+    reward = f[4 * d:4 * d + 1] - dist - action_l2 * 0.02
+    t2 = i[0:1] + 1
+    terminal = (dist < float(d)) | (t2 >= 1024)
+    f2 = torch.cat([p0, v0, p1, v1, dist], dim=0)
+    return f2, t2, reward, terminal, torch.zeros_like(terminal)
+
+
+def _chase_disc_step(f, i, a, u):
+    """Base-3 digit decode of the action index (a float row) by the floor
+    form, each digit mapped to {-1, 0, +1}, then the continuous step."""
+    idx = a[0:1]
+    rows = []
+    for k in range(_CHASE_DIM):
+        q = torch.floor(idx / float(3 ** k))
+        rows.append(q - 3.0 * torch.floor(q / 3.0) - 1.0)
+    return _chase_cont_step(f, i, torch.cat(rows, dim=0), u)
+
+
+def _chase_reset(f, i, u, done):
+    """p0 ~ N(0, 1)^dim, p1 ~ N(0, 1)^dim - 8, v = 0: normals by Box-Muller
+    from the 2*dim reset uniforms (cos row to p0, sin row to p1)."""
+    d = _CHASE_DIM
+    r = torch.sqrt(-2.0 * torch.log(1.0 - u[0:d]))
+    ang = _TWO_PI * u[d:2 * d]
+    p0 = r * torch.cos(ang)
+    p1 = r * torch.sin(ang) - _INIT_DIST
+    dist = torch.sqrt(torch.sum(torch.square(p0 - p1), dim=0, keepdim=True))
+    zero = torch.zeros_like(p0)
+    return _masked_reset(f, i, torch.cat([p0, zero, p1, zero, dist], dim=0), done)
+
+
+CHASING_BODY = KernelEnvBody(
+    env_name='PointChasingVecEnv', state_dim=4 * _CHASE_DIM, action_dim=_CHASE_DIM,
+    n_f32=4 * _CHASE_DIM + 1, n_i32=1, n_reset=2 * _CHASE_DIM, n_step=_CHASE_DIM,
+    pack=_chase_pack, unpack=_chase_unpack, obs=_chase_obs,
+    step=_chase_cont_step, reset=_chase_reset, kernel_id=3)
+
+CHASING_DISCRETE_BODY = CHASING_BODY._replace(
+    env_name='PointChasingDiscreteEnv', action_dim=3 ** _CHASE_DIM,
+    step=_chase_disc_step, discrete=True, kernel_id=4)
+
+KERNEL_ENV_BODIES = {b.env_name: b for b in
+                     (PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY, CHASING_BODY,
+                      CHASING_DISCRETE_BODY)}
+
+
+def noise_rows(body: KernelEnvBody) -> int:
+    """Rows of the injected-noise tensor: A, then the env's uniforms."""
+    return body.action_dim + body.n_step + body.n_reset
+
+
+def uniforms_per_step(body: KernelEnvBody) -> int:
+    """Uniforms the internal generator draws per (lane, step)."""
+    head = body.action_dim if body.discrete else 2 * body.action_dim
+    return head + body.n_step + body.n_reset
 
 
 # ------------------------------------------------------------------ Philox
@@ -142,9 +401,11 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed: torch.Tensor, horizon: int, num_envs: int) -> torch.Tensor:
-    """The kernel's internal draws: ``(H, 4, N)`` uniforms in [0, 1) with
-    24-bit resolution, counter ``(lane, step, 0, 0)``, key ``seed``."""
+def philox_uniforms(seed: torch.Tensor, horizon: int, num_envs: int,
+                    count: int = 4) -> torch.Tensor:
+    """The kernel's internal draws: ``(H, count, N)`` uniforms in [0, 1) with
+    24-bit resolution; uniform ``j`` is word ``j % 4`` of the block with
+    counter ``(lane, step, j // 4, 0)`` and key ``seed``."""
     dev = seed.device
     k = seed.to(torch.int64) & _MASK
     lane = torch.arange(num_envs, device=dev, dtype=torch.int64)[None, :]
@@ -152,15 +413,18 @@ def philox_uniforms(seed: torch.Tensor, horizon: int, num_envs: int) -> torch.Te
     c0 = lane.expand(horizon, num_envs)
     c1 = step.expand(horizon, num_envs)
     zero = torch.zeros_like(c0)
-    words = philox4x32(c0, c1, zero, zero, k[0], k[1])
-    return torch.stack([(w >> 8).to(torch.float32) * 2.0 ** -24 for w in words], dim=1)
+    words = []
+    for block in range((count + 3) // 4):
+        words += philox4x32(c0, c1, zero + block, zero, k[0], k[1])
+    return torch.stack([(w >> 8).to(torch.float32) * 2.0 ** -24 for w in words[:count]],
+                       dim=1)
 
 
 # --------------------------------------------------------- plain version
 
 class RolloutOutputs(NamedTuple):
     states: torch.Tensor     # (H, S, N)
-    actions: torch.Tensor    # (H, A, N) raw (pre-tanh)
+    actions: torch.Tensor    # (H, A, N) raw (pre-tanh); int32 (H, N) when discrete
     logprobs: torch.Tensor   # (H, N)
     rewards: torch.Tensor    # (H, N), times reward_scale
     terminals: torch.Tensor  # (H, N) float
@@ -170,43 +434,64 @@ class RolloutOutputs(NamedTuple):
     env_i: torch.Tensor      # (n_i32, N)
 
 
+def _check_noise_mode(noise, seed):
+    if (noise is None) == (seed is None):
+        raise ValueError('give exactly one of noise (injected) and seed (internal)')
+
+
 def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                       norm_avg: torch.Tensor, norm_std: torch.Tensor,
                       env_f: torch.Tensor, env_i: torch.Tensor, *,
                       net_dims: Sequence[int], horizon_len: int,
                       reward_scale: float, noise: Optional[torch.Tensor] = None,
                       seed: Optional[torch.Tensor] = None,
-                      body: KernelEnvBody = PENDULUM_BODY) -> RolloutOutputs:
-    """Plain PyTorch version of the fused rollout kernel."""
+                      body: KernelEnvBody = PENDULUM_BODY,
+                      env_trace: Optional[list] = None) -> RolloutOutputs:
+    """Plain PyTorch version of the fused rollout kernel.  ``env_trace``, a
+    list, receives the ``(env_f, env_i)`` rows each step starts from."""
     S, A = body.state_dim, body.action_dim
-    act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A)
+    act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A, body.discrete)
     act = split_flat(act_flat, act_shapes)
     cri = split_flat(cri_flat, cri_shapes)
-    std = torch.exp(act[-1]).reshape(A, 1)
-    log_std = torch.log(std)
+    if not body.discrete:
+        std = torch.exp(act[-1]).reshape(A, 1)
+        log_std = torch.log(std)
+        act = act[:-1]
     nstd = norm_std.reshape(S, 1) + 1e-4
     avg = norm_avg.reshape(S, 1)
-    if (noise is None) == (seed is None):
-        raise ValueError('give exactly one of noise (injected) and seed (internal)')
+    _check_noise_mode(noise, seed)
     if seed is not None:
-        u_all = philox_uniforms(seed, horizon_len, env_f.shape[1])
+        u_all = philox_uniforms(seed, horizon_len, env_f.shape[1], uniforms_per_step(body))
     f, i = env_f, env_i
     outs = {k: [] for k in RolloutOutputs._fields[:7]}
     for t in range(horizon_len):
+        if env_trace is not None:
+            env_trace.append((f, i))
         x = body.obs(f, i)                                   # (S, N)
         xn = ((x - avg) / nstd).T                            # (N, S)
-        mean = mlp_apply_leaves(act[:-1], xn).T              # (A, N)
+        out = mlp_apply_leaves(act, xn).T                    # (A, N) mean or logits
         value = mlp_apply_leaves(cri, xn)[:, 0]              # (N,)
-        if seed is None:
-            z = noise[t, :A]
-            u_env = noise[t, A:]
+        if body.discrete:
+            u = noise[t] if seed is None else u_all[t]
+            g = -torch.log(-torch.log(torch.clamp(u[0:A], min=1e-12)) + 1e-12)
+            index = torch.argmax(out + g, dim=0, keepdim=True)       # first max on a tie
+            m = torch.max(out, dim=0, keepdim=True).values
+            lse = m + torch.log(torch.sum(torch.exp(out - m), dim=0, keepdim=True))
+            logp = (torch.gather(out, 0, index) - lse)[0]
+            action = index[0].to(torch.int32)
+            env_a = index.float()
+            u_env = u[A:]
         else:
-            u = u_all[t]
-            z = torch.sqrt(-2.0 * torch.log(1.0 - u[0:A])) * torch.cos(_TWO_PI * u[A:2 * A])
-            u_env = u[2 * A:]
-        action = mean + std * z
-        logp = torch.sum(-0.5 * torch.square(z) - log_std - LOG_SQRT_2PI, dim=0)
-        f2, i2, reward, terminal, trunc = body.step(f, i, torch.tanh(action))
+            if seed is None:
+                z, u_env = noise[t, :A], noise[t, A:]
+            else:
+                u = u_all[t]
+                z = torch.sqrt(-2.0 * torch.log(1.0 - u[0:A])) * torch.cos(_TWO_PI * u[A:2 * A])
+                u_env = u[2 * A:]
+            action = out + std * z
+            logp = torch.sum(-0.5 * torch.square(z) - log_std - LOG_SQRT_2PI, dim=0)
+            env_a = torch.tanh(action)
+        f2, i2, reward, terminal, trunc = body.step(f, i, env_a, u_env[0:body.n_step])
         f, i = body.reset(f2, i2, u_env[body.n_step:body.n_step + body.n_reset],
                           terminal | trunc)
         outs['states'].append(x)
@@ -250,25 +535,24 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                                  env_f, env_i, **kw)
     if act_flat.device.type != 'cuda':
         raise ValueError(f'rollout: unsupported device {act_flat.device}')
-    if body is not PENDULUM_BODY:
-        raise ValueError(f'rollout: the CUDA kernel implements {PENDULUM_BODY.env_name} '
-                         f'only, not {body.env_name}')
+    if KERNEL_ENV_BODIES.get(body.env_name) is not body:
+        raise ValueError(f'rollout: the CUDA kernel implements the bodies of '
+                         f'{sorted(KERNEL_ENV_BODIES)}, not {body.env_name}')
     if len(net_dims) != 2:
         raise ValueError(f'rollout: the CUDA kernel takes 2 hidden layers, got {net_dims}')
-    if (noise is None) == (seed is None):
-        raise ValueError('give exactly one of noise (injected) and seed (internal)')
+    _check_noise_mode(noise, seed)
     D1, D2 = (int(d) for d in net_dims)
     S, A = body.state_dim, body.action_dim
     H, N = int(horizon_len), env_f.shape[1]
     from ._cuda_build import check, check_tensor, ptr
     lib = _library()
-    smem = lib.fused_rollout_smem_bytes(D1, D2)
+    smem = lib.fused_rollout_smem_bytes(S, A, D1, D2)
     if smem > SMEM_LIMIT:
         raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
                          f'shared memory per block, more than the {SMEM_LIMIT} a '
                          'Hopper block can hold')
     dev = act_flat.device
-    act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A)
+    act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A, body.discrete)
     f32 = torch.float32
 
     def _check(name, t, shape, dtype, device):
@@ -281,13 +565,17 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     _check('env_f', env_f, (body.n_f32, N), f32, dev)
     _check('env_i', env_i, (body.n_i32, N), torch.int32, dev)
     if noise is not None:
-        _check('noise', noise, (H, A + body.n_step + body.n_reset, N), f32, dev)
+        _check('noise', noise, (H, noise_rows(body), N), f32, dev)
     else:
         _check('seed', seed, (2,), torch.int32, dev)
 
+    if body.discrete:
+        actions = torch.empty((H, N), dtype=torch.int32, device=dev)
+    else:
+        actions = torch.empty((H, A, N), dtype=f32, device=dev)
     out = RolloutOutputs(
         states=torch.empty((H, S, N), dtype=f32, device=dev),
-        actions=torch.empty((H, A, N), dtype=f32, device=dev),
+        actions=actions,
         logprobs=torch.empty((H, N), dtype=f32, device=dev),
         rewards=torch.empty((H, N), dtype=f32, device=dev),
         terminals=torch.empty((H, N), dtype=f32, device=dev),
@@ -295,28 +583,31 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         values=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.fused_rollout_pendulum(
+    status = lib.fused_rollout(
+        body.kernel_id,
         ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
         ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
         *[ptr(t) for t in out],
         N, H, D1, D2, ctypes.c_float(reward_scale), ctypes.c_void_p(stream))
-    check(status, 'fused_rollout_pendulum')
+    check(status, f'fused_rollout[{body.env_name}]')
     rollout.launches += 1
+    rollout.launches_by_body[body.env_name] = rollout.launches_by_body.get(body.env_name, 0) + 1
     return out
 
 
 rollout.launches = 0
+rollout.launches_by_body = {}
 
 
 def _library():
     from ._cuda_build import load
     lib = load('fused_rollout')
-    fn = lib.fused_rollout_pendulum
+    fn = lib.fused_rollout
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -326,9 +617,9 @@ def _library():
 def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
                        num_envs: int, reward_scale: float):
     """``rollout_fn(agent_state, env_state, gen, noise=None) -> (Rollout,
-    env_state', last_obs)``: the fast path for ``collect_rollout`` on PPO
-    with a kernel-body env.  Without ``noise`` the kernel's internal Philox
-    draws are keyed by a seed taken from ``gen``."""
+    env_state', last_obs)``: the fast path for ``collect_rollout`` on the
+    on-policy agents with a kernel-body env.  Without ``noise`` the kernel's
+    internal Philox draws are keyed by a seed taken from ``gen``."""
     from ..agents.base import Rollout
     H = int(horizon_len)
     net_dims = tuple(int(d) for d in net_dims)

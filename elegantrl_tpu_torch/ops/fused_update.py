@@ -1,5 +1,5 @@
 """Fused PPO update (counterpart of ``elegantrl_tpu/ops/pallas_update.py``,
-kernel K2 = ``_make_kernel`` of ``make_ppo_fused_update``, continuous head).
+``_make_kernel`` of ``make_ppo_fused_update``, continuous and discrete heads).
 
 U sequential minibatch steps over pre-gathered ``(U, ., B)`` blocks: a
 critic step on ``mean((v - rs)^2 * um)`` and an actor step on
@@ -9,6 +9,11 @@ Parameters and moments are flat buffers updated in place; the bias
 corrections of step u are ``1 - beta**(count + u + 1)``, so each count
 rises by U.
 
+With ``discrete=True`` the actor's outputs are logits, the action block
+``ab`` is the one-hot ``(U, A, B)`` (A = number of actions), ``new_lp =
+sum(log_softmax * onehot)``, the entropy is the categorical one and the
+actor's buffer has no ``std_log`` leaf.
+
 - :func:`ppo_update_reference`: the plain version; gradients from
   ``torch.autograd``.  ``torch.minimum``/``torch.maximum`` split the
   gradient evenly at a tie, as JAX's do, so the clip is written with them
@@ -16,7 +21,12 @@ rises by U.
 - :func:`ppo_update`: the wrapper; plain version for CPU tensors, the
   hand-written CUDA kernel ``csrc/ppo_update.cu`` for CUDA tensors.
 - ``ppo_update.launches``: the count of wrapper calls that launched the
-  kernel (one call issues 3 CUDA launches per minibatch step).
+  kernel (one call makes 3 CUDA launches per minibatch step);
+  ``ppo_update.launches_by_head`` splits it by head.
+
+The losses (:func:`actor_loss`, :func:`a2c_actor_loss`, :func:`critic_loss`)
+are also what the A2C update differentiates with ``torch.autograd``
+(``agents/ppo.py``): the JAX package has no kernel for A2C either.
 """
 
 from __future__ import annotations
@@ -52,11 +62,24 @@ def with_adam_parts(opt_state, count, mu, nu):
     return opt_state._replace(count=count, mu=mu, nu=nu)
 
 
-def _actor_loss(leaves, xn, a, lp, adv, um, ratio_clip, lambda_entropy, single_sided):
-    mean = mlp_apply_leaves(leaves[:-1], xn)             # (B, A)
+def logprob_entropy(leaves, xn, a, discrete: bool):
+    """``(new_logprob, entropy)`` of actions ``a`` under the actor given by
+    ``leaves``; ``a`` is ``(..., A)``: raw actions, or one-hot rows when
+    ``discrete``."""
+    if discrete:
+        logp = torch.log_softmax(mlp_apply_leaves(leaves, xn), dim=-1)
+        return torch.sum(logp * a, dim=-1), -torch.sum(torch.exp(logp) * logp, dim=-1)
+    mean = mlp_apply_leaves(leaves[:-1], xn)             # (..., A)
     std = torch.exp(leaves[-1])                          # (1, A)
     new_lp = torch.sum(dists.normal_logprob(a, mean, std), dim=-1)
     entropy = torch.sum(dists.normal_entropy(std.expand_as(mean)), dim=-1)
+    return new_lp, entropy
+
+
+def actor_loss(leaves, xn, a, lp, adv, um, ratio_clip, lambda_entropy, single_sided,
+               discrete: bool = False):
+    """PPO: ``-(mean(surrogate * um) - lambda * mean(entropy * um))``."""
+    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete)
     ratio = torch.exp(new_lp - lp)
     if single_sided:
         surrogate = adv * ratio * torch.where(adv > 0, 1.0 - ratio_clip, 1.0 + ratio_clip)
@@ -70,9 +93,42 @@ def _actor_loss(leaves, xn, a, lp, adv, um, ratio_clip, lambda_entropy, single_s
     return -(obj_surrogate - obj_entropy * lambda_entropy), obj_surrogate, obj_entropy
 
 
-def _critic_loss(leaves, xn, rs, um):
-    v = mlp_apply_leaves(leaves, xn)[:, 0]
+def a2c_actor_loss(leaves, xn, a, adv, um, lambda_entropy, discrete: bool = False):
+    """A2C: the unclipped policy gradient with a true entropy bonus,
+    ``-(mean(adv * logp * um) + lambda * mean(entropy * um))``."""
+    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete)
+    obj_surrogate = torch.mean(adv * new_lp * um)
+    obj_entropy = torch.mean(entropy * um)
+    return -(obj_surrogate + obj_entropy * lambda_entropy), obj_surrogate, obj_entropy
+
+
+def discrete_head_backward(logits, onehot, g_lp, g_ent):
+    """``d loss / d logits`` as ``csrc/ppo_update.cu`` writes it by hand, from
+    ``g_lp = d loss / d new_lp`` and ``g_ent = d loss / d entropy`` per
+    sample: ``g_lp * (onehot - p * sum(onehot)) - g_ent * p * (logp +
+    entropy)``.  The tests hold it against autograd of
+    :func:`logprob_entropy`."""
+    logp = torch.log_softmax(logits, dim=-1)
+    p = torch.exp(logp)
+    entropy = -torch.sum(p * logp, dim=-1, keepdim=True)
+    soh = torch.sum(onehot, dim=-1, keepdim=True)
+    return g_lp[..., None] * (onehot - p * soh) - g_ent[..., None] * p * (logp + entropy)
+
+
+def critic_loss(leaves, xn, rs, um):
+    v = mlp_apply_leaves(leaves, xn)[..., 0]
     return torch.mean(torch.square(v - rs) * um)
+
+
+def value_and_grad_flat(loss_fn, flat, shapes):
+    """``loss_fn(leaves)`` on the leaves of a copy of ``flat``: its output
+    and the gradient of the loss (the output, or its first element) with
+    respect to the flat buffer, by ``torch.autograd``."""
+    with torch.enable_grad():
+        p = flat.detach().clone().requires_grad_(True)
+        out = loss_fn(split_flat(p, shapes))
+        grad, = torch.autograd.grad(out[0] if isinstance(out, tuple) else out, p)
+    return out, grad
 
 
 def ppo_update_reference(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
@@ -80,6 +136,7 @@ def ppo_update_reference(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
                          sb, ab, lpb, advb, rsb, umb, *, net_dims: Sequence[int],
                          ratio_clip: float, lambda_entropy: float, lr: float,
                          clip_grad: float, single_sided: bool = False,
+                         discrete: bool = False,
                          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
                          ) -> torch.Tensor:
     """Plain PyTorch version; updates params and moments in place and
@@ -88,19 +145,16 @@ def ppo_update_reference(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
     U, S, B = sb.shape
     A = ab.shape[1]
     opt = ClipAdam(lr, clip_grad, b1, b2, eps)
-    act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A)
+    act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A, discrete)
     objs = torch.empty((U, 3), dtype=torch.float32, device=sb.device)
     for u in range(U):
         xn = ((sb[u] - norm_avg[:, None]) / (norm_std[:, None] + 1e-4)).T   # (B, S)
-        with torch.enable_grad():
-            cp = cri_flat.detach().clone().requires_grad_(True)
-            obj_c = _critic_loss(split_flat(cp, cri_shapes), xn, rsb[u], umb[u])
-            g_cri, = torch.autograd.grad(obj_c, cp)
-            ap = act_flat.detach().clone().requires_grad_(True)
-            loss, obj_s, obj_e = _actor_loss(
-                split_flat(ap, act_shapes), xn, ab[u].T, lpb[u], advb[u], umb[u],
-                ratio_clip, lambda_entropy, single_sided)
-            g_act, = torch.autograd.grad(loss, ap)
+        obj_c, g_cri = value_and_grad_flat(
+            lambda leaves: critic_loss(leaves, xn, rsb[u], umb[u]), cri_flat, cri_shapes)
+        (_, obj_s, obj_e), g_act = value_and_grad_flat(
+            lambda leaves: actor_loss(leaves, xn, ab[u].T, lpb[u], advb[u], umb[u], ratio_clip,
+                                      lambda_entropy, single_sided, discrete),
+            act_flat, act_shapes)
         with torch.no_grad():
             clip_adam_(opt, cri_flat, cri_mu, cri_nu, g_cri, cri_count + u + 1)
             clip_adam_(opt, act_flat, act_mu, act_nu, g_act, act_count + u + 1)
@@ -112,12 +166,13 @@ def ppo_update(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
                act_count: int, cri_count: int, norm_avg, norm_std,
                sb, ab, lpb, advb, rsb, umb, *, net_dims: Sequence[int],
                ratio_clip: float, lambda_entropy: float, lr: float,
-               clip_grad: float, single_sided: bool = False,
+               clip_grad: float, single_sided: bool = False, discrete: bool = False,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
     """The fused update: CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  In place; returns the ``(U, 3)`` objectives."""
     kw = dict(net_dims=net_dims, ratio_clip=ratio_clip, lambda_entropy=lambda_entropy,
-              lr=lr, clip_grad=clip_grad, single_sided=single_sided, b1=b1, b2=b2, eps=eps)
+              lr=lr, clip_grad=clip_grad, single_sided=single_sided, discrete=discrete,
+              b1=b1, b2=b2, eps=eps)
     args = (act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu, act_count, cri_count,
             norm_avg, norm_std, sb, ab, lpb, advb, rsb, umb)
     if act_flat.device.type == 'cpu':
@@ -135,7 +190,7 @@ def ppo_update(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
     def _check(name, t, shape, device):
         check_tensor('ppo_update', name, t, shape, torch.float32, device)
 
-    act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A)
+    act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A, discrete)
     Pa = sum(math.prod(s) for s in act_shapes)
     Pc = sum(math.prod(s) for s in cri_shapes)
     for name, t in (('act_flat', act_flat), ('act_mu', act_mu), ('act_nu', act_nu)):
@@ -169,21 +224,24 @@ def ppo_update(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
                            norm_avg, norm_std, sb, ab, lpb, advb, rsb, umb,
                            partial, objpart, grad, normpart, objs)],
         U, B, S, A, D1, D2, int(act_count), int(cri_count), int(bool(single_sided)),
+        int(bool(discrete)),
         f(ratio_clip), f(lambda_entropy), f(lr), f(clip_grad), f(b1), f(b2), f(eps),
         ctypes.c_void_p(stream))
     check(status, 'ppo_update')
     ppo_update.launches += 1
+    ppo_update.launches_by_head['discrete' if discrete else 'continuous'] += 1
     return objs
 
 
 ppo_update.launches = 0
+ppo_update.launches_by_head = {'continuous': 0, 'discrete': 0}
 
 
 def _library():
     from ._cuda_build import load
     lib = load('ppo_update')
     if lib.ppo_update.argtypes is None:
-        lib.ppo_update.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+        lib.ppo_update.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
                                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
         lib.ppo_update.restype = ctypes.c_int
         lib.ppo_update_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -199,15 +257,16 @@ def make_ppo_fused_update(state_dim: int, action_dim: int, batch_size: int,
                           update_times: int, *, net_dims: Sequence[int],
                           ratio_clip: float, lambda_entropy: float, lr: float,
                           clip_grad: float, single_sided: bool = False,
+                          discrete: bool = False,
                           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """``fused(agent_state, sb, ab, lpb, advb, rsb, umb) -> (agent_state,
     metrics)``: the drop-in for the PPO minibatch loop, through
-    :func:`ppo_update`.  ``sb (U, S, B)``, ``ab (U, A, B)``, the rest
-    ``(U, B)``."""
+    :func:`ppo_update`.  ``sb (U, S, B)``, ``ab (U, A, B)`` (one-hot when
+    ``discrete``), the rest ``(U, B)``."""
     U = int(update_times)
     kw = dict(net_dims=tuple(net_dims), ratio_clip=ratio_clip,
               lambda_entropy=lambda_entropy, lr=lr, clip_grad=clip_grad,
-              single_sided=single_sided, b1=b1, b2=b2, eps=eps)
+              single_sided=single_sided, discrete=discrete, b1=b1, b2=b2, eps=eps)
 
     def fused(s, sb, ab, lpb, advb, rsb, umb):
         a_count, a_mu, a_nu = adam_parts(s.act_opt)

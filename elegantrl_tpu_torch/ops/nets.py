@@ -94,15 +94,19 @@ def bind_flat(params: Sequence[nn.Parameter], device: torch.device) -> torch.Ten
     return flat
 
 
-def ppo_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int):
+def ppo_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                     discrete: bool = False):
     """Leaf shapes of the flat actor and critic buffers, in order.  Actor:
-    ``W1 (D1,S), b1, W2 (D2,D1), b2, Wa (A,D2), ba, std_log (1,A)``; critic
+    ``W1 (D1,S), b1, W2 (D2,D1), b2, Wa (A,D2), ba, std_log (1,A)``, without
+    the std_log leaf when ``discrete`` (the head is then A logits); critic
     the same with a ``(1, D2)`` value head and no std_log."""
     dims = (state_dim, *net_dims)
     hidden = []
     for i in range(len(dims) - 1):
         hidden += [(dims[i + 1], dims[i]), (dims[i + 1],)]
-    act = hidden + [(action_dim, dims[-1]), (action_dim,), (1, action_dim)]
+    act = hidden + [(action_dim, dims[-1]), (action_dim,)]
+    if not discrete:
+        act.append((1, action_dim))
     cri = hidden + [(1, dims[-1]), (1,)]
     return act, cri
 

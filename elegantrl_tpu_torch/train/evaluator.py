@@ -33,13 +33,15 @@ def make_eval_fn(env: EnvDef, greedy_action: Callable, num_episodes: int,
         ret = torch.zeros(num_episodes, device=device)
         steps = torch.zeros(num_episodes, dtype=torch.int32, device=device)
         for _ in range(max_step):
-            action = greedy_action(agent_state, obs)
-            new_state, reward, terminal, truncate = env.step(state, action)
+            action = greedy_action(agent_state, obs)     # (N, A), or (N,) indices
+            new_state, reward, terminal, truncate = env.step(state, action, gen)
             alive = ~done
             ret += reward * alive
             steps += alive.to(torch.int32)
-            state = type(state)(*[torch.where(done, old, new)
-                                  for new, old in zip(new_state, state)])
+            # an episode that is done keeps its state; fields may be (N, dim)
+            state = type(state)(*[
+                torch.where(done.reshape((-1,) + (1,) * (old.dim() - 1)), old, new)
+                for new, old in zip(new_state, state)])
             done = done | terminal | truncate
             obs = env.obs(state)
         both = torch.stack([ret, steps.float()]).cpu().numpy()

@@ -2,8 +2,9 @@
 
 One round is: rollout (the fused rollout kernel; on the CPU its plain
 version, or the generic ``collect_rollout`` loop outside the kernel's
-scope) -> truncation bootstrap and GAE -> minibatch gather -> PPO update
-(the fused update kernel; its plain version on the CPU).
+scope) -> truncation bootstrap and GAE -> minibatch gather -> update (PPO:
+the fused update kernel, its plain version on the CPU; A2C: autograd, as
+the JAX package has no kernel for it).
 ``train_agent`` runs rounds on the host, evaluates every
 ``eval_per_step`` env steps, stops at ``break_step``, ``break_score`` or a
 ``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz``.
@@ -70,21 +71,29 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                          num_envs: int, horizon_len: int, reward_scale: float):
     """The fused rollout (``ops/fused_rollout.py``) when ``select_kernel``
     takes it, else None (the generic ``collect_rollout``, CPU only).  Its
-    scope: AgentPPO with a 2-hidden-layer MLP on an env with a kernel body,
-    at widths whose weights fit one block's shared memory."""
+    scope, as in the JAX runner: an env with a registered body that matches
+    the env's spec (PointChasing with ``dim != 2`` does not), a
+    2-hidden-layer MLP whose weights fit one block's shared memory, and
+    (Discrete)PPO or (Discrete)A2C as the env is discrete or not (A2C
+    explores exactly as PPO does; only its update differs)."""
     from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT,
                                      make_fused_rollout, smem_bytes)
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = KERNEL_ENV_BODIES.get(spec.env_name)
-    eligible = (body is not None and agent.name == 'AgentPPO'
-                and body.state_dim == spec.state_dim
-                and body.action_dim == spec.action_dim
+    if body is not None and (body.state_dim != spec.state_dim
+                             or body.action_dim != spec.action_dim):
+        body = None
+    want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
+                   else ('AgentPPO', 'AgentA2C'))
+    eligible = (body is not None and agent.name in want_agents
                 and len(net_dims) == 2
                 and smem_bytes(body.state_dim, net_dims, body.action_dim) <= SMEM_LIMIT)
-    scope = (f'AgentPPO with a 2-hidden-layer MLP whose weights fit one block, on '
-             f'{sorted(KERNEL_ENV_BODIES)}; got agent={agent.name}, '
-             f'env={spec.env_name}, net_dims={net_dims}')
+    scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
+             f'weights fit one block, on an env of {sorted(KERNEL_ENV_BODIES)} at its '
+             f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
+             f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
+             f'net_dims={net_dims}')
     if not select_kernel(args, 'use_fused_rollout', eligible, device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '

@@ -4,7 +4,8 @@ and the port's, through numpy.
 The JAX ``PPOState`` after ``jax.tree.map(np.asarray, state)`` is
 
 - ``act = {'mlp': [(w, b), (w, b), (w, b)], 'std_log': (1, A)}``, ``w`` as
-  ``(in, out)``; ``cri = [(w, b), (w, b), (w, b)]``;
+  ``(in, out)``, without ``std_log`` for a discrete agent;
+  ``cri = [(w, b), (w, b), (w, b)]``;
 - ``act_opt``/``cri_opt``: optax chain states whose ``[1][0]`` is
   ``ScaleByAdamState(count, mu, nu)`` with ``mu``/``nu`` shaped like the
   params;
@@ -14,7 +15,8 @@ It is read by field name where there is one and by position otherwise,
 so nothing of JAX or optax is imported.  :func:`ppo_state_to_numpy`
 returns the same nesting with local NamedTuples, leaf for leaf in JAX's
 flatten order (dict keys sorted), so tests compare the two trees leaf by
-leaf.
+leaf.  :func:`env_state_from_numpy` carries an env state (any NamedTuple
+of arrays with the port's field names) across the same way.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def _field(tree, name: str, index: int):
 
 def _flat_act(act) -> np.ndarray:
     parts = [p for w, b in act['mlp'] for p in (np.asarray(w).T, np.asarray(b))]
-    parts.append(np.asarray(act['std_log']))
+    if 'std_log' in act:
+        parts.append(np.asarray(act['std_log']))
     return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
 
 
@@ -67,7 +70,8 @@ def ppo_state_from_numpy(tree, device) -> PPOState:
     action_dim = np.asarray(mlp[-1][0]).shape[1]
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
     act_flat, cri_flat = t(_flat_act(act)), t(_flat_cri(cri))
-    a_mod, c_mod = modules_from_flat(act_flat, cri_flat, state_dim, net_dims, action_dim)
+    a_mod, c_mod = modules_from_flat(act_flat, cri_flat, state_dim, net_dims, action_dim,
+                                     discrete='std_log' not in act)
 
     def adam(opt, flatten):
         st = opt[1][0]
@@ -92,6 +96,8 @@ def _unflat_act(flat: torch.Tensor, act_module) -> dict:
         b = flat[off:off + o]
         off += o
         leaves.append((w.copy(), b))
+    if act_module.std_log is None:
+        return {'mlp': leaves}
     a = layers[-1].weight.shape[0]
     return {'mlp': leaves, 'std_log': flat[off:off + a].reshape(1, a)}
 
@@ -122,3 +128,10 @@ def ppo_state_to_numpy(state: PPOState) -> NumpyPPOState:
         cri_opt=opt(state.cri_opt, _unflat_cri, state.cri),
         norm_avg=state.norm_avg.detach().cpu().numpy().copy(),
         norm_std=state.norm_std.detach().cpu().numpy().copy())
+
+
+def env_state_from_numpy(state_class, tree, device):
+    """The port's env state ``state_class`` from a JAX env state whose fields
+    carry the same names, as tensors on ``device`` (dtypes kept)."""
+    return state_class(*[torch.tensor(np.asarray(getattr(tree, name)), device=device)
+                         for name in state_class._fields])

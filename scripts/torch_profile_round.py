@@ -1,9 +1,11 @@
 """Where a training round of the PyTorch port spends its time on the card.
 
-    python scripts/torch_profile_round.py [--rounds 5]
+    python scripts/torch_profile_round.py [--rounds 5] [--env pendulum|cartpole|hopper|
+        chasing|chasing_discrete] [--agent AgentPPO|AgentDiscretePPO|AgentA2C|AgentDiscreteA2C]
 
-Builds the main path (PPO on Pendulum-v1, 4096 envs, horizon 64, batch
-512, repeat 8, net (128, 128)), warms it up, then runs ``--rounds`` rounds
+Builds a main path (by default PPO on Pendulum-v1; ``--env cartpole --agent
+AgentDiscretePPO`` is the discrete one) at 4096 envs, horizon 64, batch
+512, repeat 8, net (128, 128), warms it up, then runs ``--rounds`` rounds
 under ``torch.profiler`` and prints one JSON line: the host-clock round
 time, the device-busy time per round (the sum of kernel durations; one
 stream, so kernels do not overlap), the idle share, and the kernels
@@ -21,25 +23,36 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+# env key -> (class in elegantrl_tpu_torch.envs, env_name, max_step, S, A, discrete)
+ENVS = {'pendulum': ('PendulumEnv', 'Pendulum-v1', 200, 3, 1, False),
+        'cartpole': ('CartPoleEnv', 'CartPole-v1', 500, 4, 2, True),
+        'hopper': ('HopperEnv', 'HopperSlip-v0', 1000, 6, 2, False),
+        'chasing': ('PointChasingVecEnv', 'PointChasingVecEnv', 1024, 8, 2, False),
+        'chasing_discrete': ('PointChasingDiscreteEnv', 'PointChasingDiscreteEnv', 1024, 8, 9,
+                             True)}
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--rounds', type=int, default=5)
+    parser.add_argument('--env', default='pendulum', choices=sorted(ENVS))
+    parser.add_argument('--agent', default='AgentPPO')
     opts = parser.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from elegantrl_tpu_torch import Config, build_training
-    from elegantrl_tpu_torch.agents import AgentPPO
-    from elegantrl_tpu_torch.envs import PendulumEnv
+    from elegantrl_tpu_torch import Config, agents, build_training, envs
 
     if not torch.cuda.is_available():
         sys.exit('torch_profile_round: needs a CUDA card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    args = Config(AgentPPO, PendulumEnv,
-                  {'env_name': 'Pendulum-v1', 'num_envs': 4096, 'max_step': 200,
-                   'state_dim': 3, 'action_dim': 1, 'if_discrete': False})
+    env_class, env_name, max_step, state_dim, action_dim, if_discrete = ENVS[opts.env]
+    args = Config(getattr(agents, opts.agent), getattr(envs, env_class),
+                  {'env_name': env_name, 'num_envs': 4096, 'max_step': max_step,
+                   'state_dim': state_dim, 'action_dim': action_dim,
+                   'if_discrete': if_discrete})
     args.horizon_len, args.batch_size, args.repeat_times = 64, 512, 8.0
     args.net_dims, args.random_seed = (128, 128), 0
     ctx = build_training(args)
@@ -63,7 +76,7 @@ def main():
     busy_ms = sum(v[1] for v in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(json.dumps({
-        'device': smi, 'rounds': opts.rounds,
+        'device': smi, 'env': env_name, 'agent': opts.agent, 'rounds': opts.rounds,
         'round_ms_host': wall_ms / opts.rounds,
         'device_busy_ms_per_round': busy_ms / opts.rounds,
         'idle_share': 1.0 - busy_ms / wall_ms,

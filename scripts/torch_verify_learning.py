@@ -1,0 +1,108 @@
+"""Learning checks of the PyTorch port's on-policy agents: recipes of
+``scripts/verify_learning.py`` trained through
+``elegantrl_tpu_torch.train_agent``.
+
+    python scripts/torch_verify_learning.py [--only NAME ...] [--seeds 0 1 2]
+                                            [--device cuda|cpu]
+
+- ``discreteppo_cartpole``: AgentDiscretePPO on CartPole-v1, 16 envs, net
+  (64, 64), horizon 128, repeat 16, lr 6e-4, batch 256, 4e5 steps, stops at
+  450; target max avgR >= 400;
+- ``ppo_hopper``: AgentPPO on HopperSlip-v0, 1024 envs, net (128, 128),
+  horizon 128, repeat 128, lr 3e-4, batch 2048, 1.5e7 steps; target 2000;
+- ``a2c_pendulum``: AgentA2C on Pendulum-v1, 16 envs, net (64, 64), gamma
+  0.9, horizon 8, one pass, lr 7e-4, batch 8, lambda_gae_adv 1, no entropy
+  term, 5e5 steps; target -250.  The JAX recipe pins seed 2 because
+  unclipped A2C at this recipe is seed-bimodal; here every seed asked for is
+  run and reported as it falls.
+
+Evaluation is over 16 greedy episodes, as the JAX script's.  On the card the
+rollouts run the fused rollout kernel and the PPO updates the fused update
+kernel; A2C's update is autograd.  Prints one JSON line per (recipe, seed)
+with the result, the device and the kernel launches.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def recipes():
+    from elegantrl_tpu_torch.agents import AgentA2C, AgentDiscretePPO, AgentPPO
+    from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv
+    return {
+        'discreteppo_cartpole': (
+            AgentDiscretePPO, CartPoleEnv,
+            {'env_name': 'CartPole-v1', 'num_envs': 16, 'max_step': 500, 'state_dim': 4,
+             'action_dim': 2, 'if_discrete': True}, 400.0,
+            dict(net_dims=(64, 64), horizon_len=128, repeat_times=16, learning_rate=6e-4,
+                 batch_size=256, eval_per_step=int(2e4), break_step=int(4e5),
+                 break_score=450.0)),
+        'ppo_hopper': (
+            AgentPPO, HopperEnv,
+            {'env_name': 'HopperSlip-v0', 'num_envs': 1024, 'max_step': 1000, 'state_dim': 6,
+             'action_dim': 2, 'if_discrete': False}, 2000.0,
+            dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=128,
+                 learning_rate=3e-4, batch_size=2048, eval_per_step=int(1e6),
+                 break_step=int(1.5e7))),
+        'a2c_pendulum': (
+            AgentA2C, PendulumEnv,
+            {'env_name': 'Pendulum-v1', 'num_envs': 16, 'max_step': 200, 'state_dim': 3,
+             'action_dim': 1, 'if_discrete': False}, -250.0,
+            dict(net_dims=(64, 64), gamma=0.9, horizon_len=8, repeat_times=1,
+                 learning_rate=7e-4, batch_size=8, lambda_gae_adv=1.0, lambda_entropy=0.0,
+                 eval_per_step=int(5e4), break_step=int(5e5))),
+    }
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--device', default='cuda')
+    parser.add_argument('--only', nargs='*', default=None)
+    parser.add_argument('--seeds', nargs='*', type=int, default=[0, 1, 2])
+    opts = parser.parse_args()
+
+    import torch
+    from elegantrl_tpu_torch import Config, train_agent
+    from elegantrl_tpu_torch.ops.fused_rollout import rollout
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+
+    if opts.device == 'cuda':
+        device = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                                 '--format=csv,noheader'], capture_output=True,
+                                text=True, check=True).stdout.strip().splitlines()[0]
+    else:
+        device = f'cpu ({torch.get_num_threads()} threads)'
+    table = recipes()
+    for name in (opts.only or list(table)):
+        agent_class, env_class, env_args, target, hypers = table[name]
+        for seed in opts.seeds:
+            args = Config(agent_class, env_class, dict(env_args))
+            for k, v in hypers.items():
+                setattr(args, k, v)
+            args.device, args.random_seed, args.eval_times = opts.device, seed, 16
+            before = rollout.launches, ppo_update.launches
+            with tempfile.TemporaryDirectory() as cwd:
+                args.cwd = cwd
+                t0 = time.time()
+                res = train_agent(args)
+                seconds = time.time() - t0
+            print(json.dumps({
+                'config': name, 'agent': agent_class.__name__, 'env': env_args['env_name'],
+                'device': device, 'seed': seed, 'max_r': float(res['max_r']),
+                'target': target, 'pass': bool(res['max_r'] >= target),
+                'curve': [[int(r[0]), round(float(r[1]), 1)] for r in res['recorder']],
+                'steps': int(res['total_step']), 'seconds': round(seconds, 1),
+                'kernel_launches': {'fused_rollout': rollout.launches - before[0],
+                                    'ppo_update': ppo_update.launches - before[1]}}),
+                flush=True)
+
+
+if __name__ == '__main__':
+    main()

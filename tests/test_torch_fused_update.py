@@ -25,7 +25,7 @@ from elegantrl_tpu.ops.pallas_update import (_adam_parts, _with_adam_parts,
 from elegantrl_tpu_torch.agents.base import Rollout
 from elegantrl_tpu_torch.agents.ppo import make_ppo
 from elegantrl_tpu_torch.config import Config
-from elegantrl_tpu_torch.ops.fused_update import (_actor_loss, _critic_loss, ppo_update,
+from elegantrl_tpu_torch.ops.fused_update import (actor_loss, critic_loss, ppo_update,
                                                   ppo_update_reference)
 from elegantrl_tpu_torch.ops.nets import ppo_param_shapes, split_flat
 from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
@@ -206,7 +206,7 @@ def test_loss_gradients_gradcheck(single_sided):
         lp = lp_new - torch.log(torch.tensor([0.5, 0.9, 1.1, 1.6, 0.95, 1.05],
                                              dtype=torch.float64))
     assert torch.autograd.gradcheck(
-        lambda p: _actor_loss(split_flat(p, act_shapes), xn, a, lp, adv, um,
+        lambda p: actor_loss(split_flat(p, act_shapes), xn, a, lp, adv, um,
                               0.25, 0.01, single_sided)[0], (act0,))
     assert torch.autograd.gradcheck(
-        lambda p: _critic_loss(split_flat(p, cri_shapes), xn, rs, um), (cri0,))
+        lambda p: critic_loss(split_flat(p, cri_shapes), xn, rs, um), (cri0,))

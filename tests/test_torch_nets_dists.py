@@ -106,3 +106,30 @@ def test_bind_flat_makes_params_views():
     flat.add_(1.0)
     for p, b in zip(mlp.leaves(), before):
         assert torch.allclose(p, b + 1.0)
+
+
+@pytest.mark.parametrize('form', ['simple', 'softplus'])
+def test_tanh_normal_logprobs_match_jax(form):
+    """The two squashed-Gaussian logprobs (the ``ActorSAC`` form at the mean
+    and the stable softplus form), rtol 1e-5; the softplus form also at
+    |x| = 9, where ``1 - tanh(x)^2`` underflows in f32 and the simple form
+    is left with the rounding of its 1e-6 guard."""
+    rng = np.random.default_rng(4)
+    mean = rng.standard_normal((32, 3)).astype(np.float32)
+    log_std = rng.uniform(-2, 0.5, (32, 3)).astype(np.float32)
+    noise = rng.standard_normal((32, 3)).astype(np.float32)
+    pre = (mean + np.exp(log_std) * noise).astype(np.float32)
+    pre[0] = [2.0, -2.0, 0.0] if form == 'simple' else [9.0, -9.0, 0.0]
+    if form == 'simple':
+        got = dists.tanh_normal_logprob_simple(torch.from_numpy(mean),
+                                               torch.from_numpy(np.exp(log_std)),
+                                               torch.from_numpy(pre))
+        want = jdists.tanh_normal_logprob_simple(jnp.asarray(mean), jnp.asarray(np.exp(log_std)),
+                                                 jnp.asarray(pre))
+    else:
+        got = dists.tanh_normal_logprob(torch.from_numpy(log_std), torch.from_numpy(noise),
+                                        torch.from_numpy(pre))
+        want = jdists.tanh_normal_logprob(jnp.asarray(log_std), jnp.asarray(noise),
+                                          jnp.asarray(pre))
+    assert got.shape == (32,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

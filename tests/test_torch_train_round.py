@@ -210,7 +210,7 @@ def test_plain_path_is_refused_on_a_card(flag, monkeypatch):
         build_training(args)
 
 
-@pytest.mark.parametrize('variant', ['discrete', 'a2c', 'hterm'])
+@pytest.mark.parametrize('variant', ['hterm'])
 def test_unported_variants_raise(variant):
     from elegantrl_tpu_torch.agents.ppo import make_ppo
     args = _configure(Config())
