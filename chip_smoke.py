@@ -29,7 +29,17 @@ its plain PyTorch version:
     PPO on HopperSlip, PPO on PointChasing and discrete A2C on
     PointChasingDiscrete, so every agent class and env body has run on the
     card through the entry point;
-11. the kernels line and the device line.
+11. the off-policy family (``offpolicy_phases``): the off-policy rollout
+    kernel's nine (body, head) instantiations against their plain version
+    (``k6_vs_plain``), the DQN-family update chunk's four variants
+    (``k9_vs_plain``) and the DDPG/TD3 chunk (``k7_vs_plain``) against theirs;
+    the two off-policy main paths at full width, TD3 on HopperSlip (1024
+    envs, H=32, ring 4000 rows, batch 1024, repeat 4) and DQN on CartPole (64
+    envs, H=64, ring 20,000 rows, batch 128, repeat 1), each with a small
+    round against the CPU, the ring filled by kernel rollouts inserted
+    without updates, then 10 timed rounds; ``train_agent`` for every
+    off-policy agent class; the card refusing the plain update;
+12. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -79,6 +89,548 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+# ---------------------------------------------------------------- off-policy
+
+OFF_NET = (128, 128)
+# the two off-policy main paths, the JAX package's profiled round shapes
+# (scripts/profile_sol.py: td3_hopper_shape, dqn_cartpole_shape)
+PATH_A = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-4,
+              updates=15)
+PATH_B = dict(envs=64, horizon=64, buffer=20000, batch=128, repeat=1.0, lr=1e-3,
+              updates=156)
+K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVecEnv', 'ddpg'),
+            ('CartPole-v1', 'dqn'), ('CartPole-v1', 'dqn_enc'), ('CartPole-v1', 'dqn_duel'),
+            ('PointChasingDiscreteEnv', 'dqn'), ('PointChasingDiscreteEnv', 'dqn_enc'),
+            ('PointChasingDiscreteEnv', 'dqn_duel'))
+
+
+def offpolicy_smem_pairs():
+    """The off-policy kernels' shared memory as each .cu computes it and as
+    the Python copy that judges eligibility on the CPU does."""
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
+    out = {}
+    for env_name, head in K6_PAIRS:
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        S, A = body.state_dim, body.action_dim
+        out[f'offpolicy_rollout[{env_name},{head}]'] = (
+            fr._library().offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
+            fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
+    for S, A in ((4, 2), (8, 9)):
+        out[f'dqn_update[S={S},A={A}]'] = (fo._dqn_library().dqn_update_smem_bytes(S, A, *OFF_NET),
+                                           fo.dqn_smem_bytes(S, A, *OFF_NET))
+    for S, A, E in ((6, 2, 8), (3, 1, 1), (8, 2, 8)):
+        out[f'ddpg_update[S={S},A={A},E={E}]'] = (
+            fo._ddpg_library().ddpg_update_smem_bytes(S, A, *OFF_NET, E),
+            fo.ddpg_smem_bytes(S, A, *OFF_NET, E))
+    return out
+
+
+def offpolicy_phases(torch, dev, name, smi, bound, seed):
+    """The off-policy phases; returns their entries of the kernels line."""
+    import contextlib
+    import io
+    from elegantrl_tpu_torch import Config, build_training, train_agent
+    from elegantrl_tpu_torch.agents import (AgentD3QN, AgentDDPG, AgentDoubleDQN, AgentDQN,
+                                            AgentDuelingDQN, AgentTD3)
+    from elegantrl_tpu_torch.agents.off_policy import offpolicy_update_times
+    from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
+                                          PointChasingDiscreteEnv, PointChasingVecEnv)
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
+    from elegantrl_tpu_torch.ops.nets import (ddpg_param_shapes, dqn_param_shapes, init_flat,
+                                              split_flat)
+    D1, D2 = OFF_NET
+    env_classes = {'Pendulum-v1': PendulumEnv, 'HopperSlip-v0': HopperEnv,
+                   'PointChasingVecEnv': PointChasingVecEnv, 'CartPole-v1': CartPoleEnv,
+                   'PointChasingDiscreteEnv': PointChasingDiscreteEnv}
+    rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
+    counters = (fr.offpolicy_rollout, fo.dqn_chunk, fo.ddpg_chunk)
+
+    def reset_counts():
+        for fn in counters:
+            fn.launches = 0
+        fr.offpolicy_rollout.launches_by_kernel.clear()
+        for fn in counters[1:]:
+            for k in fn.launches_by_variant:
+                fn.launches_by_variant[k] = 0
+
+    def read_counts():
+        return (dict(fr.offpolicy_rollout.launches_by_kernel),
+                dict(fo.dqn_chunk.launches_by_variant), dict(fo.ddpg_chunk.launches_by_variant))
+
+    def cuda_ms_(fn, reps, warmup=1):
+        return cuda_ms(torch, fn, reps, warmup)
+
+    def flat_for(body, head, seed_):
+        """The head's net as the agents initialise it, from a seed."""
+        S, A = body.state_dim, body.action_dim
+        nets = ([((S, D1, D2, A), 0.1)] if head in ('ddpg', 'dqn')
+                else [((S, D1, D2), None), ((D2, A), 0.1)]
+                + ([((D2, 1), 0.1)] if head == 'dqn_duel' else []))
+        return init_flat(torch.Generator().manual_seed(seed_), nets, dev)
+
+    def k6_noise(body, head, gen, h, n):
+        A, n_env = body.action_dim, body.n_step + body.n_reset
+        if head == 'ddpg':
+            return torch.cat([torch.randn((h, A, n), generator=gen, device=dev),
+                              torch.rand((h, n_env, n), generator=gen, device=dev)], 1).contiguous()
+        return torch.rand((h, 2 + n_env, n), generator=gen, device=dev)
+
+    def k6_fields_differ(got, want, tol):
+        """(H, N): a flag or discrete action differs, or a float output by more
+        than ``tol``; and the largest float difference."""
+        bad = torch.zeros_like(got.rewards, dtype=torch.bool)
+        worst = torch.zeros_like(got.rewards)
+        for f in got._fields[:5]:
+            a, b = getattr(got, f), getattr(want, f)
+            if f in ('terminals', 'truncates') or not a.dtype.is_floating_point:
+                bad |= a != b
+            else:
+                d = (a - b).abs()
+                worst = torch.maximum(worst, d.amax(-1) if d.dim() == 3 else d)
+        return bad | (worst > tol), worst
+
+    def k6_bound(body, head, n, h, n_params):
+        S, A = body.state_dim, body.action_dim
+        flop = 2 * (S * D1 + D1 * D2 + D2 * A + (D2 if head == 'dqn_duel' else 0)) * n * h
+        rows = body.n_f32 + body.n_i32
+        a_out = A if head == 'ddpg' else 1
+        nbytes = 4 * (n_params + 2 + 2 * rows * n + n * h * (S + a_out + 3))
+        return bound(flop, nbytes)
+
+    # ---- k6_vs_plain: each instantiation at its main path's envs and horizon
+    # Tolerances as for the on-policy bodies (k3_vs_plain): whole trajectories
+    # in both noise modes, a lane parts from its twin at the first step where
+    # an output differs by more than 2e-2 or a flag or discrete action
+    # differs, at most 1% of lanes part (at least one lane may: path B has
+    # only 64); one step from every visited state
+    # (injected noise) agrees to 1e-4 with discrete actions and flags equal,
+    # but for at most 8 samples within rounding of a hard threshold (an argmax
+    # near-tie, CartPole's limits, a touchdown), counted and left out.
+    k6 = {}
+    for env_name, head in K6_PAIRS:
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        path = PATH_A if head == 'ddpg' else PATH_B
+        n, h = path['envs'], path['horizon']
+        tag = f'fused_rollout[{env_name},{head}]'
+        g = torch.Generator(device=dev).manual_seed(31)
+        flat = flat_for(body, head, 7)
+        env_def = env_classes[env_name](num_envs=1)._def
+        f0, i0 = body.pack(env_def.init(g, n, dev))
+        i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        if body is fr.HOPPER_BODY:
+            f0[1, :16], f0[3, :16] = 0.27, -3.0
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        nz = k6_noise(body, head, g, h, n)
+        kw = dict(body=body, head=head, net_dims=OFF_NET, reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25)
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, env_trace=trace,
+                                                  **kw, **extra)
+            torch.cuda.synchronize()
+            differ, worst = k6_fields_differ(got, want, 2e-2)
+            parted = differ.any(0)
+            share = float(parted.float().mean())
+            kept = ~parted
+            end = torch.maximum((got.env_f - want.env_f).abs().amax(0),
+                                (got.env_i != want.env_i).any(0).float())
+            assert int(parted.sum()) <= max(1, int(0.01 * n)), (tag, mode, share)
+            assert float(end[kept].max()) <= 2e-2, (tag, mode, float(end[kept].max()))
+            assert all(bool(torch.isfinite(getattr(got, f).float()).all()) for f in got._fields)
+            report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share,
+                                max_abs_diff_kept=float(worst[:, kept].max()),
+                                terminals=int(got.terminals.sum()),
+                                truncates=int(got.truncates.sum()))
+            if mode == 'injected':
+                inj_trace = trace
+        f_all = torch.cat([f for f, _ in inj_trace], dim=1).contiguous()
+        i_all = torch.cat([i for _, i in inj_trace], dim=1).contiguous()
+        nz_all = nz.transpose(0, 1).reshape(1, nz.shape[1], h * n).contiguous()
+        got = fr.offpolicy_rollout(flat, f_all, i_all, horizon_len=1, noise=nz_all, **kw)
+        want = fr.offpolicy_rollout_reference(flat, f_all, i_all, horizon_len=1, noise=nz_all,
+                                              **kw)
+        torch.cuda.synchronize()
+        flip, _ = k6_fields_differ(got, want, float('inf'))
+        flip = (flip[0] | (got.env_i != want.env_i).any(0)
+                | ((got.env_f - want.env_f).abs().amax(0) > 0.25))
+        n_flip = int(flip.sum())
+        assert n_flip <= 8, (tag, n_flip)
+        one = {}
+        for f in got._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dtype.is_floating_point:
+                d = (a - b).abs()
+                one[f] = float((d[:, ~flip] if f == 'env_f' else d[0][~flip]).max())
+        assert all(v <= 1e-4 for v in one.values()), (tag, one)
+        ms = cuda_ms_(lambda: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, seed=seed, **kw),
+                      reps=20, warmup=2)
+        plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
+                                                                   seed=seed, **kw), reps=2)
+        b_ms, b_by = k6_bound(body, head, n, h, flat.numel())
+        emit(phase='k6_vs_plain', kernel=tag, envs=n, horizon=h, trajectory=report,
+             one_step=one, one_step_threshold_flips=n_flip, ms=ms, plain_ms=plain_ms,
+             bound_ms=b_ms, bound_by=b_by,
+             tolerance={'trajectory': 2e-2, 'lanes_parted': max(1, int(0.01 * n)),
+                        'one_step': 1e-4, 'threshold_flips': 8})
+        k6[(env_name, head)] = dict(name=tag, ms=ms, plain_ms=plain_ms,
+                                    max_abs_err=max(one.values()), bound_ms=b_ms, bound_by=b_by)
+
+    # the DQN heads' exploration: with zero weights and the bias favouring
+    # action 0, an action other than 0 comes only from exploring; over
+    # 1,048,576 Philox draws the exploring share is within 0.01 of
+    # explore_rate and each action's frequency within 0.005 of its share
+    explore = {}
+    for env_name in ('CartPole-v1', 'PointChasingDiscreteEnv'):
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        A = body.action_dim
+        n_w = sum(math.prod(x) for x in fr.offpolicy_head_shapes(body.state_dim, OFF_NET, A,
+                                                                  'dqn'))
+        flat = torch.zeros(n_w, device=dev)
+        flat[n_w - A] = 1.0                                   # bo[0]: greedy action 0
+        n, h = 16384, 64
+        f0 = torch.zeros((body.n_f32, n), device=dev)
+        if body is fr.CHASING_DISCRETE_BODY:
+            f0[4:6], f0[8] = -16.0, 22.6
+        out = fr.offpolicy_rollout(flat, f0, torch.zeros((1, n), dtype=torch.int32, device=dev),
+                                   body=body, head='dqn', net_dims=OFF_NET, horizon_len=h,
+                                   reward_scale=1.0, explore_rate=0.25, seed=seed)
+        freq = torch.bincount(out.actions.reshape(-1).long(), minlength=A).float() / (n * h)
+        share = float((1.0 - freq[0]) * A / (A - 1))
+        want = torch.full((A,), 0.25 / A, device=dev)
+        want[0] += 0.75
+        dfreq = float((freq - want).abs().max())
+        assert abs(share - 0.25) <= 0.01 and dfreq <= 0.005, (env_name, share, dfreq)
+        explore[env_name] = dict(explore_share=share, max_freq_diff=dfreq)
+    emit(phase='k6_exploration', draws=16384 * 64, explore_rate=0.25, heads=explore,
+         bounds='share 0.01, frequency 0.005')
+
+    # ---- k9_vs_plain and k7_vs_plain: one chunk of C = 16, the last 4 steps
+    # invalid.  Tolerance: per buffer, the kernel's update (new - old) within
+    # 5e-3 of the largest plain update of that buffer; objectives within 1e-3
+    # relative on the valid steps (16 steps of f32 rounding in another order);
+    # the invalid steps leave every buffer bit-identical (the same chunk
+    # without them, on the card).
+    C, VALID = 16, 12
+
+    def chunk_check(fn, ref, base, blocks, bcv_of, hyper, shapes):
+        runs = {}
+        for f in (fn, ref):
+            bufs = [b.clone() for b in base]
+            objs = f(*bufs, *blocks, bcv_of(VALID), **hyper)
+            torch.cuda.synchronize()
+            runs[f.__name__] = (bufs, objs)
+        (kb, ko), (pb, po) = runs[fn.__name__], runs[ref.__name__]
+        rel = [float(((k - b) - (p - b)).abs().max() / (p - b).abs().max().clamp_min(1e-30))
+               for k, p, b in zip(kb, pb, base)]
+        leaf_rel = [[float((dk - dp).abs().max() / dp.abs().max().clamp_min(1e-30))
+                     for dk, dp in zip(split_flat(k - b, sh), split_flat(p - b, sh))]
+                    for k, p, b, sh in zip(kb, pb, base, shapes)]
+        err = max(float(((k - b) - (p - b)).abs().max()) for k, p, b in zip(kb, pb, base))
+        obj_rel = float(((ko - po).abs() / po.abs().clamp_min(1e-6))[:VALID].max())
+        short = [b.clone() for b in base]
+        fn(*short, *[x[:VALID] for x in blocks], bcv_of(VALID)[:VALID], **hyper)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(short, kb))
+        assert all(r <= 5e-3 for r in rel), rel
+        assert obj_rel <= 1e-3, obj_rel
+        assert identical
+        bufs = [b.clone() for b in base]
+        ms = cuda_ms_(lambda: fn(*bufs, *blocks, bcv_of(C), **hyper), reps=10, warmup=2)
+        plain = cuda_ms_(lambda: ref(*bufs, *blocks, bcv_of(C), **hyper), reps=2)
+        return dict(rel_update_diff=rel, leaf_rel_update_diff=leaf_rel, max_abs_err=err,
+                    objective_rel_diff=obj_rel,
+                    invalid_steps_bit_identical=identical, ms=ms, plain_ms=plain)
+
+    def warm_buffers(gen, n, count):
+        p = torch.randn(n, generator=gen, device=dev) * 0.05
+        return [p, p + 0.01 * torch.randn(n, generator=gen, device=dev),
+                1e-3 * torch.randn(n, generator=gen, device=dev),
+                1e-6 * torch.rand(n, generator=gen, device=dev)][:count]
+
+    k9 = {}
+    S, A, B = 4, 2, PATH_B['batch']
+    for twin, duel in ((False, False), (True, False), (False, True), (True, True)):
+        variant = fo.dqn_variant(twin, duel)
+        g = torch.Generator(device=dev).manual_seed(41)
+        P = sum(math.prod(x) for x in dqn_param_shapes(S, OFF_NET, A, twin, duel))
+        base = warm_buffers(g, P, 4)
+        index = torch.randint(0, A, (C, B), generator=g, device=dev)
+        blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                  torch.randn((C, S, B), generator=g, device=dev),
+                  torch.nn.functional.one_hot(index, A).float().transpose(1, 2).contiguous(),
+                  torch.randn((C, B), generator=g, device=dev),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.05).float(),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.02).float()]
+        idx = torch.arange(C, device=dev)
+        res = chunk_check(fo.dqn_chunk, fo.dqn_chunk_reference, base, blocks,
+                          lambda valid: fo.dqn_bcv(5, idx, valid),
+                          dict(net_dims=OFF_NET, twin=twin, duel=duel, gamma=0.99, tau=5e-3,
+                               lr=1e-3, clip_grad=3.0),
+                          [dqn_param_shapes(S, OFF_NET, A, twin, duel)] * 4)
+        nh = A * (1 + twin) + (1 + twin) * duel
+        fwd = 2 * B * (S * D1 + D1 * D2 + D2 * nh)
+        b_ms, b_by = bound(4 * fwd * C, 4 * (8 * P + C * B * (2 * S + A + 3) + 3 * C + 2 * C))
+        res.update(bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k9_vs_plain', variant=variant, C=C, valid=VALID, B=B, S=S, A=A, **res,
+             tolerance={'update': 5e-3, 'objectives': 1e-3})
+        k9[variant] = res
+
+    k7 = {}
+    S, A, B = 6, 2, PATH_A['batch']
+    for td3 in (False, True):
+        variant = 'td3' if td3 else 'ddpg'
+        E = 8 if td3 else 1
+        g = torch.Generator(device=dev).manual_seed(43)
+        act_shapes, cri_shapes = ddpg_param_shapes(S, OFF_NET, A, E)
+        Pa, Pc = (sum(math.prod(x) for x in sh) for sh in (act_shapes, cri_shapes))
+        pa, ta, mua, nua = warm_buffers(g, Pa, 4)
+        pc, tc, muc, nuc = warm_buffers(g, Pc, 4)
+        base = [pa, pc, ta, tc, mua, muc, nua, nuc]
+        blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                  torch.randn((C, S, B), generator=g, device=dev),
+                  torch.rand((C, A, B), generator=g, device=dev) * 2 - 1,
+                  torch.randn((C, B), generator=g, device=dev),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.05).float(),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.02).float(),
+                  0.1 * torch.randn((C, A, B), generator=g, device=dev)]
+        idx = torch.arange(C, device=dev)
+        res = chunk_check(fo.ddpg_chunk, fo.ddpg_chunk_reference, base, blocks,
+                          lambda valid: fo.ddpg_bcv(9, 4, idx, valid, idx % 2 == 0,
+                                                    (idx + 1) // 2 + 1),
+                          dict(net_dims=OFF_NET, td3=td3, num_ensembles=E, gamma=0.99,
+                               tau=5e-3, lr=3e-4, clip_grad=3.0),
+                          [act_shapes, cri_shapes] * 4)
+        f_a = 2 * B * (S * D1 + D1 * D2 + D2 * A)
+        f_c = 2 * B * ((S + A) * D1 + D1 * D2 + D2 * E)
+        b_ms, b_by = bound((4 * f_a + 5 * f_c) * C,
+                           4 * (8 * (Pa + Pc) + C * B * (2 * S + 2 * A + 3) + 7 * C + 2 * C))
+        res.update(bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k7_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A,
+             do_act='alternating', **res, tolerance={'update': 5e-3, 'objectives': 1e-3})
+        k7[variant] = res
+
+    # ---- the main paths
+    td3_hopper = (AgentTD3, HopperEnv, 'HopperSlip-v0', 6, 2, False, 1000)
+    dqn_cartpole = (AgentDQN, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
+
+    def off_args(task, num_envs, horizon, batch, repeat, buffer_size, lr, **hyper):
+        agent_class, env_class, env_name, S_, A_, discrete, max_step = task
+        a = Config(agent_class, env_class,
+                   {'env_name': env_name, 'num_envs': num_envs, 'max_step': max_step,
+                    'state_dim': S_, 'action_dim': A_, 'if_discrete': discrete})
+        a.horizon_len, a.batch_size, a.repeat_times = horizon, batch, repeat
+        a.buffer_size, a.learning_rate, a.net_dims, a.random_seed = buffer_size, lr, OFF_NET, 0
+        for k, v in hyper.items():
+            setattr(a, k, v)
+        return a
+
+    def small_round_vs_cpu(task, head, num_envs, horizon, batch, repeat, phase, **hyper):
+        """A small round on the card (the rollout kernel, the update chunk)
+        against the same round on the CPU (their plain versions): the same
+        weights, env state, rollout noise, minibatch rows and smoothing noise.
+        Tolerance: objectives 1e-3 relative, updates 2e-2 of each buffer's
+        largest."""
+        body = fr.KERNEL_ENV_BODIES[task[2]]
+        A_ = body.action_dim
+        g3 = torch.Generator().manual_seed(3)
+        nz = k6_noise_cpu(body, head, g3, horizon, num_envs)
+        U = offpolicy_update_times(horizon, repeat, batch)
+        rows = torch.randint(0, horizon - 1, (U, batch // num_envs), generator=g3)
+        unoise = 0.1 * torch.randn((U, batch, A_), generator=g3) if head == 'ddpg' else None
+        small, start = {}, None
+        for device in ('card', 'cpu'):
+            a = off_args(task, num_envs, horizon, batch, repeat, 4 * horizon, 1e-3, **hyper)
+            device = str(dev) if device == 'card' else device
+            a.device = device
+            ctx = build_training(a)
+            assert ctx.fused_rollout
+            carry0 = ctx.carry
+            if start is None:
+                start = (ctx.agent.state_to_numpy(carry0.agent_state),
+                         [x.cpu() for x in carry0.env_state])
+            else:
+                carry0 = carry0._replace(
+                    agent_state=ctx.agent.state_from_numpy(start[0], device),
+                    env_state=type(carry0.env_state)(*start[1]))
+            before = [x.clone() for x in carry0.agent_state if isinstance(x, torch.Tensor)]
+            c, m = ctx.round_fn(carry0, noise=nz.to(device).contiguous(), ids=rows.to(device),
+                                update_noise=None if unoise is None else unoise.to(device))
+            after = [x for x in c.agent_state if isinstance(x, torch.Tensor)]
+            small[device] = ({k: float(v) for k, v in m.items()},
+                             [(x - b).cpu() for x, b in zip(after, before)])
+        (mg, dg), (mc, dc) = small[str(dev)], small['cpu']
+        obj_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc}
+        upd_rel = [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(dg, dc)]
+        assert all(r <= 1e-3 for r in obj_rel.values()), obj_rel
+        assert all(r <= 2e-2 for r in upd_rel), upd_rel
+        emit(phase=phase, envs=num_envs, horizon=horizon, batch=batch, updates=U,
+             objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
+
+    def k6_noise_cpu(body, head, gen, h, n):
+        A_, n_env = body.action_dim, body.n_step + body.n_reset
+        if head == 'ddpg':
+            return torch.cat([torch.randn((h, A_, n), generator=gen),
+                              torch.rand((h, n_env, n), generator=gen)], 1)
+        return torch.rand((h, 2 + n_env, n), generator=gen)
+
+    def timed_rounds(task, head, path, phase, kernel_ms, **hyper):
+        a = off_args(task, path['envs'], path['horizon'], path['batch'], path['repeat'],
+                     path['buffer'], path['lr'], **hyper)
+        ctx = build_training(a)
+        body = fr.KERNEL_ENV_BODIES[task[2]]
+        carry, rb = ctx.carry, ctx.rb
+        # fill the ring: kernel rollouts inserted without updates
+        flat = carry.agent_state.act if head == 'ddpg' else carry.agent_state.q
+        f, i = (x.contiguous() for x in body.pack(carry.env_state))
+        buf, fills, t0 = carry.buf_state, 0, time.time()
+        while buf.size < rb.max_size:
+            s_ = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=carry.gen, device=dev,
+                               dtype=torch.int32)
+            out = fr.offpolicy_rollout(flat, f, i, body=body, head=head, net_dims=OFF_NET,
+                                       horizon_len=path['horizon'], reward_scale=1.0,
+                                       noise_std=0.05, explore_rate=0.25, seed=s_)
+            buf = rb.update(buf, (out.states, out.actions, out.rewards, 1.0 - out.terminals,
+                                  1.0 - out.truncates))
+            f, i, fills = out.env_f, out.env_i, fills + 1
+        torch.cuda.synchronize()
+        fill_s = time.time() - t0
+        U = offpolicy_update_times(buf.size, path['repeat'], path['batch'])
+        assert U == path['updates'], (U, path['updates'])
+        carry = carry._replace(buf_state=buf, env_state=body.unpack(f, i),
+                               obs=body.obs(f, i).T)
+        carry, _ = ctx.round_fn(carry)                        # warm-up round
+        p0 = [x.clone() for x in carry.agent_state if isinstance(x, torch.Tensor)]
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = []
+        for _ in range(ROUNDS):
+            carry, m = ctx.round_fn(carry)
+            metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
+        end.record()
+        torch.cuda.synchronize()
+        by_kernel, by_dqn, by_ddpg = read_counts()
+        round_ms = start.elapsed_time(end) / ROUNDS
+        mvals = torch.stack(metrics).cpu()
+        moved = max(float((x - y).abs().max()) for x, y in zip(
+            [x for x in carry.agent_state if isinstance(x, torch.Tensor)], p0))
+        chunks = -(-U // 16)
+        update_counts = by_ddpg if head == 'ddpg' else by_dqn
+        want_update = {('td3' if head == 'ddpg' else 'dqn'): ROUNDS * chunks}
+        assert by_kernel == {f'{task[2]},{head}': ROUNDS}, by_kernel
+        assert {k: v for k, v in update_counts.items() if v} == want_update, update_counts
+        assert fr.offpolicy_rollout.launches == ROUNDS
+        assert bool(torch.isfinite(mvals).all()), mvals
+        assert moved > 0.0
+        emit(phase=phase, agent=task[0].__name__, env=task[2], envs=path['envs'],
+             horizon=path['horizon'], ring_rows=rb.max_size, batch=path['batch'],
+             repeat=path['repeat'], net_dims=OFF_NET, updates_per_round=U,
+             ring_filled_by=f'{fills} kernel rollouts inserted without updates ({fill_s:.3f} s)',
+             rounds=ROUNDS, launches={'fused_rollout': by_kernel, 'update_chunks': update_counts},
+             round_ms=round_ms,
+             env_steps_per_s=path['envs'] * path['horizon'] / (round_ms / 1e3),
+             updates_per_s=U / (round_ms / 1e3), **kernel_ms,
+             metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
+             device=name, nvidia_smi=smi)
+        return by_kernel, update_counts
+
+    small_round_vs_cpu(td3_hopper, 'ddpg', 256, 16, 1024, 128.0, 'main_path_td3_hopper_small_vs_cpu',
+                       gamma=0.99)
+    launches_a = timed_rounds(td3_hopper, 'ddpg', PATH_A, 'main_path_td3_hopper', dict(
+        fused_rollout_ms=k6[('HopperSlip-v0', 'ddpg')]['ms'],
+        ddpg_update_ms=k7['td3']['ms'], ddpg_update_plain_ms=k7['td3']['plain_ms']), gamma=0.99)
+    small_round_vs_cpu(dqn_cartpole, 'dqn', 64, 16, 128, 16.0,
+                       'main_path_dqn_cartpole_small_vs_cpu')
+    launches_b = timed_rounds(dqn_cartpole, 'dqn', PATH_B, 'main_path_dqn_cartpole', dict(
+        fused_rollout_ms=k6[('CartPole-v1', 'dqn')]['ms'],
+        dqn_update_ms=k9['dqn']['ms'], dqn_update_plain_ms=k9['dqn']['plain_ms']),
+        explore_rate=0.25)
+
+    # ---- no plain update on the card: the kernel-eligible batch with the
+    # kernel refused raises, for TD3 and for DQN
+    refused = {}
+    for task, batch in ((td3_hopper, 1024), (dqn_cartpole, 128)):
+        a = off_args(task, 256, 16, batch, 1.0, 64, 1e-3, use_fused_update=False)
+        try:
+            build_training(a)
+            raise AssertionError(f'build_training took the plain update on the card: {task[0]}')
+        except ValueError as e:
+            assert str(e).startswith('use_fused_update=False'), e
+            refused[task[0].__name__] = str(e)[:80]
+    emit(phase='no_plain_path_on_card', offpolicy_refused=refused)
+
+    # ---- the entry point for every off-policy agent class
+    pendulum = (AgentTD3, PendulumEnv, 'Pendulum-v1', 3, 1, False, 200)
+    chasing = (AgentDDPG, PointChasingVecEnv, 'PointChasingVecEnv', 8, 2, False, 1024)
+    cart = (None, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
+    chasing_disc = (None, PointChasingDiscreteEnv, 'PointChasingDiscreteEnv', 8, 9, True, 1024)
+    runs = [(pendulum, 128), (chasing, 128), ((AgentDQN,) + cart[1:], 64),
+            ((AgentDQN,) + chasing_disc[1:], 128), ((AgentDoubleDQN,) + cart[1:], 128),
+            ((AgentDoubleDQN,) + chasing_disc[1:], 128), ((AgentDuelingDQN,) + cart[1:], 128),
+            ((AgentD3QN,) + chasing_disc[1:], 128)]
+    entry_rollout, entry_update = {}, {}
+    for task, batch in runs:
+        with tempfile.TemporaryDirectory() as cwd:
+            a = off_args(task, 128, 32, batch, 1.0, 4096, 1e-3, cwd=cwd, eval_times=2)
+            a.eval_per_step = 128 * 32 * 2
+            a.break_step = a.eval_per_step
+            reset_counts()
+            text = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(text):
+                res = train_agent(a)
+            by_kernel, by_dqn, by_ddpg = read_counts()
+            pytorch_update = 'use_fused_update: PyTorch path' in text.getvalue()
+            assert res['recorder'].shape[0] == 2 and math.isfinite(res['max_r'])
+            assert pytorch_update == (batch == 64), (task[0].__name__, batch)
+            n_chunks = sum(by_dqn.values()) + sum(by_ddpg.values())
+            assert (n_chunks == 0) == (batch == 64), (task[0].__name__, by_dqn, by_ddpg)
+            for k, v in by_kernel.items():
+                entry_rollout[k] = entry_rollout.get(k, 0) + v
+            for k, v in list(by_dqn.items()) + list(by_ddpg.items()):
+                entry_update[k] = entry_update.get(k, 0) + v
+            emit(phase='train_agent', agent=task[0].__name__, env=task[2], envs=128, batch=batch,
+                 evaluations=int(res['recorder'].shape[0]), total_step=int(res['total_step']),
+                 max_r=float(res['max_r']), seconds=round(time.time() - t0, 3),
+                 update_path='pytorch (the JAX package runs this batch as XLA ops)'
+                 if pytorch_update else 'kernel', rollout_launches=by_kernel,
+                 update_chunks={k: v for k, v in list(by_dqn.items()) + list(by_ddpg.items())
+                                if v})
+
+    # ---- the kernels line's entries
+    kernels = []
+    for (env_name, head), k in k6.items():
+        tag = f'{env_name},{head}'
+        main = (launches_a[0] if head == 'ddpg' else launches_b[0]).get(tag)
+        kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
+                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:1006',
+                        'launches': main if main else entry_rollout.get(tag, 0),
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
+                        'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+                        'bound_by': k['bound_by'], 'library_ms': None})
+    for variant, k in k9.items():
+        n = launches_b[1].get(variant, 0) or entry_update.get(variant, 0)
+        kernels.append({'name': f'dqn_update[{variant}]', 'route': 'cuda',
+                        'source': 'elegantrl_tpu_torch/ops/csrc/dqn_update.cu',
+                        'replaces': 'elegantrl_tpu/ops/pallas_update.py:387', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+                        'library_ms': None})
+    for variant, k in k7.items():
+        n = launches_a[1].get(variant, 0) or entry_update.get(variant, 0)
+        kernels.append({'name': f'ddpg_update[{variant}]', 'route': 'cuda',
+                        'source': 'elegantrl_tpu_torch/ops/csrc/ddpg_update.cu',
+                        'replaces': 'elegantrl_tpu/ops/pallas_update.py:585', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+                        'library_ms': None})
+    return kernels
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -120,7 +672,7 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    logs = _cuda_build.build(['fused_rollout', 'ppo_update'])
+    logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that
@@ -132,6 +684,7 @@ def main():
             fr_lib().fused_rollout_smem_bytes(S, A, *NET_DIMS), fr_smem(S, NET_DIMS, A))
         smem[f'ppo_update[S={S},A={A}]'] = (fu_lib().ppo_update_smem_bytes(S, A, *NET_DIMS),
                                             fu_smem(S, A, *NET_DIMS))
+    smem.update(offpolicy_smem_pairs())
     assert all(a == b for a, b in smem.values()), smem
     emit(phase='build', seconds=round(time.time() - t0, 3), ptxas=ptxas,
          smem_bytes={k: v[0] for k, v in smem.items()})
@@ -614,7 +1167,10 @@ def main():
         assert sum(by_head.values()) == (0 if a2c_task else 4), (task[2], by_head)
         entry[task[2]] = by_body[task[2]]
 
-    # ---- 11. kernels line and device line
+    # ---- 11. the off-policy family
+    offpolicy_kernels = offpolicy_phases(torch, dev, name, smi, bound, seed)
+
+    # ---- 12. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
     update_src = 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu'
@@ -647,6 +1203,7 @@ def main():
                     'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
                     'bound_by': d['bound_by'], 'library_ms': None,
                     'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
+    kernels += offpolicy_kernels
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

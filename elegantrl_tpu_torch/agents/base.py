@@ -43,17 +43,28 @@ class Rollout(NamedTuple):
 
 
 class AgentDef(NamedTuple):
-    """An on-policy agent: ``update(agent_state, rollout, last_obs, gen,
-    ids=None) -> (agent_state, metrics)``."""
+    """An agent.  ``update`` differs by family:
+
+    on-policy:  ``update(agent_state, rollout, last_obs, gen, ids=None)
+                -> (agent_state, metrics)``
+    off-policy: ``update(agent_state, buf_state, gen, ids=None, noise=None)
+                -> (agent_state, buf_state, metrics)``
+
+    ``state_to_numpy``/``state_from_numpy(tree, device)`` carry the agent
+    state to and from the JAX package's nesting (``utils/jax_params.py``),
+    which the checkpoints keep."""
     name: str
     if_off_policy: bool
     if_discrete: bool
     init: Callable[[int, torch.device], Any]   # (seed, device) -> state
-    explore_action: Callable[[Any, torch.Tensor, torch.Generator], Tuple[torch.Tensor, torch.Tensor]]
+    explore_action: Callable[[Any, torch.Tensor, torch.Generator],
+                             Tuple[torch.Tensor, Optional[torch.Tensor]]]
     greedy_action: Callable[[Any, torch.Tensor], torch.Tensor]
     env_action: Callable[[torch.Tensor], torch.Tensor]
-    update: Callable[..., Tuple[Any, dict]]
+    update: Callable[..., Tuple[Any, ...]]
     rollout_extras: Any = None
+    state_to_numpy: Callable[[Any], Any] = None
+    state_from_numpy: Callable[[Any, Any], Any] = None
 
 
 class AdamState(NamedTuple):
@@ -83,14 +94,20 @@ def clip_adam_(opt: ClipAdam, params: torch.Tensor, mu: torch.Tensor,
                nu: torch.Tensor, grads: torch.Tensor, count: int) -> None:
     """One optax clip-by-global-norm + Adam step, in place on flat
     buffers; ``count`` is the step number after increment (>= 1)."""
+    clip_adam_bc_(opt, params, mu, nu, grads, 1.0 - opt.b1 ** count, 1.0 - opt.b2 ** count)
+
+
+def clip_adam_bc_(opt: ClipAdam, params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                  grads: torch.Tensor, bc1, bc2) -> None:
+    """:func:`clip_adam_` with the bias corrections ``bc1 = 1 - b1**count``
+    and ``bc2 = 1 - b2**count`` given (the off-policy chunks take them from
+    a per-step table)."""
     gn = torch.sqrt(torch.sum(torch.square(grads)))
     scale = torch.where(gn < opt.clip_grad_norm, torch.ones_like(gn),
                         opt.clip_grad_norm / gn)
     g = grads * scale
     mu.mul_(opt.b1).add_((1.0 - opt.b1) * g)
     nu.mul_(opt.b2).add_((1.0 - opt.b2) * torch.square(g))
-    bc1 = 1.0 - opt.b1 ** count
-    bc2 = 1.0 - opt.b2 ** count
     params.sub_(opt.lr * (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps))
 
 
@@ -109,7 +126,9 @@ def collect_rollout(env: EnvDef, agent_state: Any, explore_action: Callable,
                     ) -> Tuple[Rollout, Any, torch.Tensor]:
     """Actor inference + env step, ``horizon_len`` times.  Stores the raw
     sampled action (pre-tanh for PPO; the int32 index, without a feature
-    axis, for a discrete agent).  Returns (rollout, env_state, obs)."""
+    axis, for a discrete agent) and its logprob (None for an off-policy
+    agent, whose ``explore_action`` returns none).  Returns (rollout,
+    env_state, obs)."""
     states, actions, logprobs, rewards, undones, unmasks, extras = ([] for _ in range(7))
     with torch.no_grad():
         for _ in range(horizon_len):
@@ -130,7 +149,7 @@ def collect_rollout(env: EnvDef, agent_state: Any, explore_action: Callable,
         extra = {k: torch.stack([e[k] for e in extras]) for k in extras[0]}
     rollout = Rollout(
         states=torch.stack(states), actions=torch.stack(actions),
-        logprobs=torch.stack(logprobs),
+        logprobs=None if logprobs[0] is None else torch.stack(logprobs),
         rewards=torch.stack(rewards) * reward_scale,
         undones=torch.stack(undones).float(), unmasks=torch.stack(unmasks).float(),
         extras=extra)

@@ -153,7 +153,8 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         # (config.py:select_kernel); the update always goes through
         # ops/fused_update.py:ppo_update, which runs the CUDA kernel on a card
         # and its plain version on the CPU.
-        select_kernel(args, 'use_fused_update',
+        # no PyTorch-ops PPO update runs on a card, so jax_takes_kernel is True
+        select_kernel(args, 'use_fused_update', True,
                       fused_update_eligible(net_dims, state_dim, action_dim),
                       getattr(args, 'device', 'cuda'),
                       'a 2-hidden-layer MLP whose activation tiles fit one block; '
@@ -296,7 +297,18 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                     init=init, explore_action=explore_action,
                     greedy_action=greedy_action,
                     env_action=env_action, update=update,
-                    rollout_extras=rollout_values)
+                    rollout_extras=rollout_values,
+                    state_to_numpy=_ppo_to_numpy, state_from_numpy=_ppo_from_numpy)
+
+
+def _ppo_to_numpy(s):
+    from ..utils.jax_params import ppo_state_to_numpy
+    return ppo_state_to_numpy(s)
+
+
+def _ppo_from_numpy(tree, device):
+    from ..utils.jax_params import ppo_state_from_numpy
+    return ppo_state_from_numpy(tree, device)
 
 
 # Class-style markers for ``Config(agent_class=...)``.

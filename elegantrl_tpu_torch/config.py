@@ -82,8 +82,8 @@ class Config:
         self.compute_dtype = 'auto'
         self.storage_dtype = 'float32'
         # kernel selection: 'auto' | True | False (see select_kernel).  On a
-        # CUDA device the kernels are the only path; the plain versions run
-        # on the CPU only
+        # CUDA device a workload that the JAX package sends to a kernel takes
+        # the port's kernel or raises; the plain versions run on the CPU only
         self.use_fused_rollout = 'auto'
         self.use_fused_update = 'auto'
 
@@ -139,35 +139,51 @@ def resolve_device(args) -> torch.device:
     return device
 
 
-def select_kernel(args, flag: str, eligible: bool, device, scope: str) -> bool:
-    """Resolve the switch ``args.<flag>`` ('auto' | True | False) for a
-    workload that has a kernel; returns whether the kernel's path is taken.
+def select_kernel(args, flag: str, jax_takes_kernel: bool, port_fits: bool, device,
+                  scope: str) -> bool:
+    """Resolve the switch ``args.<flag>`` ('auto' | True | False) for one
+    workload; returns whether the kernel's path is taken.
 
     The rule: wherever the JAX package on a TPU would take a Pallas kernel,
     the port on a card takes its kernel or raises; where the JAX package
-    runs XLA ops, the port runs PyTorch ops.  So callers ask this function
-    only for work that has a kernel (the rollout of the on-policy agents, the
-    (Discrete)PPO update).  A2C's update has none in either package
-    (``agents/ppo.py``): it is autograd on both devices and is never asked
-    about here.
+    runs XLA ops, the port runs PyTorch ops.  So each caller passes two
+    predicates: ``jax_takes_kernel``, the JAX package's own eligibility for
+    this workload copied term by term, and ``port_fits``, whether the port's
+    kernel takes these shapes (``scope`` says what it takes).
 
-    On a CUDA device the kernel is the only path: ``False``, or a workload
-    outside the kernel's ``scope``, raises; nothing falls back to the plain
-    version there.  On the CPU the wrappers run the plain versions; ``True``
-    still raises for a workload outside the scope, as in the JAX package."""
+    - On a CUDA device, a workload the JAX package sends to a kernel takes
+      the port's kernel; ``False``, or a workload the port's kernel does not
+      fit, raises: nothing falls back to a plain version there.
+    - A workload the JAX package runs as XLA ops runs PyTorch ops on either
+      device, and the choice is printed; ``True`` asks for a kernel the JAX
+      package would not take and raises, as in the JAX package.
+    - On the CPU the wrappers run the plain versions when the kernel's path
+      is taken.
+
+    The on-policy callers (the PPO rollout and update) have no PyTorch-ops
+    path on a card: their plain versions are CPU twins of the kernels.  They
+    pass ``jax_takes_kernel=True`` and keep raising there for anything outside
+    the kernel's scope.  A2C's update has no kernel in either package
+    (``agents/ppo.py``) and is never asked about here."""
     mode = getattr(args, flag, 'auto')
     off = mode in (False, 'false', '0')
+    if not jax_takes_kernel:
+        if mode is True:
+            raise ValueError(f'{flag}=True requires {scope}')
+        print(f'| {flag}: PyTorch path (the JAX package runs this workload as XLA ops; '
+              f'the kernel takes {scope})', flush=True)
+        return False
     if torch.device(device).type == 'cuda':
         if off:
             raise ValueError(f'{flag}=False asks for the plain PyTorch path, which runs on '
                              f'the CPU only; on {device} the kernel is the path')
-        if not eligible:
+        if not port_fits:
             raise ValueError(f'{flag}: on {device} the workload must fit the kernel '
                              f'({scope}); the plain version runs on the CPU only')
         return True
-    if mode is True and not eligible:
+    if mode is True and not port_fits:
         raise ValueError(f'{flag}=True requires {scope}')
-    return eligible and not off
+    return port_fits and not off
 
 
 def kwargs_filter(function: Callable, kwargs: Dict[str, Any]) -> Dict[str, Any]:

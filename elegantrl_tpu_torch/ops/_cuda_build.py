@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 land in ``build/kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing here runs at import time: the first kernel launch builds
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing here runs at import time: the first kernel launch builds
 its library.
 """
 
@@ -37,7 +37,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src + headers + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 

@@ -2,6 +2,8 @@
 // categorical head and an inlined env step, for every env lane and all H
 // steps in one launch.  One instantiation per env body: Pendulum-v1,
 // CartPole-v1, HopperSlip-v0, PointChasing (continuous and discrete).
+// Below it, offpolicy_rollout_kernel: the same template for the off-policy
+// agents' exploration (one net, the ddpg and DQN heads).
 //
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_kernel (built by
 // make_fused_rollout with PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY,
@@ -557,6 +559,207 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- off-policy exploration
+// Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_offpolicy_kernel
+// (built by make_fused_offpolicy_rollout) with the heads ddpg, dqn, dqn_enc
+// and dqn_duel.  One net, no critic, no logprob and no observation
+// normalisation; the trunk is l2 = W2 gelu(W1 x + b1) + b2 and the heads
+//   HEAD_DDPG     a = clip(tanh(Wo gelu(l2) + bo) + noise_std z, -1, 1)
+//   HEAD_DQN      q = Wo gelu(l2) + bo
+//   HEAD_DQN_ENC  q = Wo l2 + bo
+//   HEAD_DQN_DUEL q = val - mean(val) + adv, val = Wo l2 + bo, adv = W4 l2 + b4
+// with the DQN heads acting epsilon-greedily: u0 < explore_rate ?
+// min(floor(u1 A), A - 1) : argmax q (the first maximum on a tie).  The
+// weights, the tiles and the step loop are those of the on-policy kernel;
+// the outputs are written in the (H, N, dim) layout the replay buffer takes.
+// Noise: injected (H, NZ, N) with A normals (ddpg) or the coin and the
+// random-action uniform (DQN) first, then the env's uniforms; internal
+// Philox draws 2A (ddpg, Box-Muller) or 2 head uniforms per (lane, step).
+// Bound: operations, one net's 2 (S D1 + D1 D2 + D2 A) FLOP per env-step;
+// at 1024 envs only 32 blocks run, and at 64 envs 2, so the kernel is
+// latency-bound at the off-policy shapes.
+
+constexpr int HEAD_DDPG = 0, HEAD_DQN = 1, HEAD_DQN_ENC = 2, HEAD_DQN_DUEL = 3;
+
+__host__ __device__ inline int offpolicy_net_floats(int S, int A, int D1, int D2, int head) {
+  return D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (head == HEAD_DQN_DUEL ? D2 + 1 : 0);
+}
+
+template <class Body, int HEAD>
+__global__ void __launch_bounds__(THREADS)
+offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict__ env_f,
+                         const int* __restrict__ env_i, const float* __restrict__ noise,
+                         const int* __restrict__ seed, float* __restrict__ states_o,
+                         void* __restrict__ actions_o, float* __restrict__ rew_o,
+                         float* __restrict__ term_o, float* __restrict__ trunc_o,
+                         float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N,
+                         int H, int D1, int D2, float reward_scale, float noise_std,
+                         float explore_rate) {
+  constexpr int S = Body::S, A = Body::A, F = Body::F;
+  constexpr bool DISCRETE = HEAD != HEAD_DDPG;
+  static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
+  constexpr int N_ENV = Body::N_STEP + Body::N_RESET;
+  constexpr int N_HEAD_INJ = DISCRETE ? 2 : A;      // injected head rows
+  constexpr int NZ = N_HEAD_INJ + N_ENV;
+  constexpr int N_HEAD = DISCRETE ? 2 : 2 * A;      // internal head uniforms
+  constexpr int NB = (N_HEAD + N_ENV + 3) / 4;
+
+  extern __shared__ float smem[];
+  const int n_w = offpolicy_net_floats(S, A, D1, D2, HEAD);
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) smem[i] = flat[i];
+  const float* W1 = smem;
+  const float* b1 = W1 + D1 * S;
+  const float* W2 = b1 + D1;
+  const float* b2 = W2 + D2 * D1;
+  const float* Wo = b2 + D2;
+  const float* bo = Wo + A * D2;
+  const float* W4 = bo + A;  // the advantage head (HEAD_DQN_DUEL)
+  const float* b4 = W4 + D2;
+  float* xn = smem + n_w;    // (S, TE)
+  float* h1 = xn + S * TE;   // (D1, TE)
+  float* h2 = h1 + D1 * TE;  // (D2, TE)
+  float* out = h2 + D2 * TE; // (A + 1, TE)
+
+  const int e = threadIdx.x;
+  const int n = blockIdx.x * TE + e;
+  const bool owner = e < TE;
+  const bool live = owner && n < N;
+  float f[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) f[k] = 0.f;
+  int tc = 0;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) f[k] = env_f[(size_t)k * N + n];
+    tc = env_i[n];
+  }
+  uint2 key = make_uint2(0u, 0u);
+  if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
+  __syncthreads();
+
+  for (int t = 0; t < H; ++t) {
+    if (owner) {
+      float x[S];
+      Body::obs(f, x);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        xn[s * TE + e] = live ? x[s] : 0.f;
+        if (live) states_o[((size_t)t * N + n) * S + s] = x[s];
+      }
+    }
+    __syncthreads();
+    dense<true>(W1, b1, xn, h1, D1, S);
+    __syncthreads();
+    dense<HEAD == HEAD_DDPG || HEAD == HEAD_DQN>(W2, b2, h1, h2, D2, D1);
+    __syncthreads();
+    dense<false>(Wo, bo, h2, out, A, D2);
+    if (HEAD == HEAD_DQN_DUEL) dense<false>(W4, b4, h2, out + A * TE, 1, D2);
+    __syncthreads();
+    if (live) {
+      float head[N_HEAD], u_env[N_ENV > 0 ? N_ENV : 1];
+      if (noise != nullptr) {
+        const float* nz = noise + (size_t)t * NZ * N + n;
+#pragma unroll
+        for (int a = 0; a < N_HEAD_INJ; ++a) head[a] = nz[(size_t)a * N];
+#pragma unroll
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = nz[(size_t)(N_HEAD_INJ + k) * N];
+      } else {
+        float u[4 * NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const uint4 r = philox4x32_10(
+              make_uint4((uint32_t)n, (uint32_t)t, (uint32_t)b, 0u), key);
+          u[4 * b + 0] = uniform24(r.x);
+          u[4 * b + 1] = uniform24(r.y);
+          u[4 * b + 2] = uniform24(r.z);
+          u[4 * b + 3] = uniform24(r.w);
+        }
+#pragma unroll
+        for (int a = 0; a < N_HEAD; ++a) head[a] = u[a];
+#pragma unroll
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = u[N_HEAD + k];
+      }
+      const size_t o = (size_t)t * N + n;
+      float env_a[DISCRETE ? 1 : A];
+      if constexpr (DISCRETE) {
+        float mean = 0.f, adv = 0.f;
+        if (HEAD == HEAD_DQN_DUEL) {
+#pragma unroll
+          for (int a = 0; a < A; ++a) mean += out[a * TE + e];
+          mean /= (float)A;
+          adv = out[A * TE + e];
+        }
+        float best = 0.f;
+        int greedy = 0;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          float q = out[a * TE + e];
+          if (HEAD == HEAD_DQN_DUEL) q = q - mean + adv;
+          if (a == 0 || q > best) {  // strict: the first maximum wins a tie
+            best = q;
+            greedy = a;
+          }
+        }
+        const int rnd = min((int)floorf(head[1] * (float)A), A - 1);
+        const int index = head[0] < explore_rate ? rnd : greedy;
+        ((int*)actions_o)[o] = index;
+        env_a[0] = (float)index;
+      } else {
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float z = noise != nullptr
+                              ? head[a]
+                              : sqrtf(-2.0f * logf(1.0f - head[a])) *
+                                    cosf(TWO_PI_F * head[A + a]);
+          const float act = clampf(tanhf(out[a * TE + e]) + noise_std * z, -1.0f, 1.0f);
+          ((float*)actions_o)[o * A + a] = act;
+          env_a[a] = act;
+        }
+      }
+      float reward;
+      bool terminal, trunc;
+      Body::step(f, tc, env_a, u_env, reward, terminal, trunc);
+      rew_o[o] = reward * reward_scale;
+      term_o[o] = terminal ? 1.0f : 0.0f;
+      trunc_o[o] = trunc ? 1.0f : 0.0f;
+      if (terminal || trunc) {
+        Body::reset(f, u_env + Body::N_STEP);
+        tc = 0;
+      }
+    }
+    __syncthreads();
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) env_f_o[(size_t)k * N + n] = f[k];
+    env_i_o[n] = tc;
+  }
+}
+
+__host__ __device__ inline int offpolicy_smem(int S, int A, int D1, int D2, int head) {
+  return (int)sizeof(float) *
+         (offpolicy_net_floats(S, A, D1, D2, head) + (S + D1 + D2 + A + 1) * TE);
+}
+
+template <class Body, int HEAD>
+int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
+                     const void* noise, const void* seed, void* states, void* actions,
+                     void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
+                     int H, int D1, int D2, float reward_scale, float noise_std,
+                     float explore_rate, cudaStream_t stream) {
+  const int smem_bytes = offpolicy_smem(Body::S, Body::A, D1, D2, HEAD);
+  cudaError_t err = cudaFuncSetAttribute(offpolicy_rollout_kernel<Body, HEAD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (N + TE - 1) / TE;
+  offpolicy_rollout_kernel<Body, HEAD><<<blocks, THREADS, smem_bytes, stream>>>(
+      (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
+      (const int*)seed, (float*)states, actions, (float*)rew, (float*)term, (float*)trunc,
+      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes: both nets' weights (the
@@ -593,4 +796,41 @@ extern "C" int fused_rollout(
     default: return -1;
   }
 #undef ELEGANTRL_LAUNCH
+}
+
+// Dynamic shared memory of one off-policy block, in bytes: the head's
+// weights, then the xn, h1, h2 and out tiles.  head: 0 ddpg, 1 dqn,
+// 2 dqn_enc, 3 dqn_duel (OFFPOLICY_HEADS of ops/fused_rollout.py).
+extern "C" int offpolicy_rollout_smem_bytes(int S, int A, int D1, int D2, int head) {
+  return offpolicy_smem(S, A, D1, D2, head);
+}
+
+// The off-policy exploration rollout for the nine (body, head) pairs: ddpg
+// on Pendulum-v1 (0), HopperSlip-v0 (2) and PointChasingVecEnv (3); dqn,
+// dqn_enc and dqn_duel on CartPole-v1 (1) and PointChasingDiscreteEnv (4).
+// Returns the CUDA error of the launch, or -1 for a pair it does not have.
+extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
+                                 const void* env_i, const void* noise, const void* seed,
+                                 void* states, void* actions, void* rew, void* term,
+                                 void* trunc, void* env_f_o, void* env_i_o, int N, int H,
+                                 int D1, int D2, float reward_scale, float noise_std,
+                                 float explore_rate, void* stream) {
+#define ELEGANTRL_OFF(BODY, HEAD)                                                     \
+  return launch_offpolicy<BODY, HEAD>(flat, env_f, env_i, noise, seed, states,        \
+                                      actions, rew, term, trunc, env_f_o, env_i_o, N, \
+                                      H, D1, D2, reward_scale, noise_std,             \
+                                      explore_rate, (cudaStream_t)stream)
+  switch (body * 4 + head) {
+    case 0 * 4 + HEAD_DDPG: ELEGANTRL_OFF(PendulumBody, HEAD_DDPG);
+    case 2 * 4 + HEAD_DDPG: ELEGANTRL_OFF(HopperBody, HEAD_DDPG);
+    case 3 * 4 + HEAD_DDPG: ELEGANTRL_OFF(ChasingBody, HEAD_DDPG);
+    case 1 * 4 + HEAD_DQN: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN);
+    case 1 * 4 + HEAD_DQN_ENC: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_ENC);
+    case 1 * 4 + HEAD_DQN_DUEL: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_DUEL);
+    case 4 * 4 + HEAD_DQN: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN);
+    case 4 * 4 + HEAD_DQN_ENC: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_ENC);
+    case 4 * 4 + HEAD_DQN_DUEL: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_DUEL);
+    default: return -1;
+  }
+#undef ELEGANTRL_OFF
 }

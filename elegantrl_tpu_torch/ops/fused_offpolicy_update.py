@@ -1,0 +1,465 @@
+"""Fused off-policy update chunks (counterpart of
+``elegantrl_tpu/ops/pallas_update.py``: ``make_dqn_fused_chunk`` and
+``make_ddpg_fused_chunk`` with ``per=False``).
+
+A chunk is C sequential minibatch updates over pre-gathered blocks; steps
+past the round's update count are masked by the per-step table ``bcv``.
+
+- DQN family (``dqn_chunk``): per step, ``q_label = r + ud * gamma * max_a
+  Q_target(nx)`` (plain max; DoubleDQN the min of the twin heads; Dueling's
+  TD path reads the value head alone, D3QN combines), the TD loss
+  ``mean(td)`` with ``td = (q_a - label)^2 * um`` (twin: both heads' terms),
+  optax clip-by-global-norm + Adam over the whole net with the table's bias
+  corrections, then Polyak ``t = t * (1 - tau) + p * tau``.  ``bcv`` is
+  ``(C, 3)``: ``(bc1, bc2, valid)``.
+- DDPG/TD3 (``ddpg_chunk``): per step, the TD target from the *online*
+  actor on ``nx`` (TD3: plus the pre-drawn smoothing noise, clipped to
+  [-1, 1]) and the target critic (TD3: min over the E heads, DDPG: their
+  mean); the critic loss (TD3: ``mean_E((q - label)^2) * um``; DDPG:
+  ``(mean_E(q) * um - label)^2 * um``, the unmask twice as the reference
+  writes it); critic Adam + Polyak; then the actor loss ``-mean(Q_new(x,
+  tanh(actor(x))))`` through the *updated* critic, actor Adam + Polyak.
+  ``bcv`` is ``(C, 7)``: ``(bc1_c, bc2_c, bc1_a, bc2_a, valid, do_act, 0)``;
+  the critic step is masked by ``valid``, the actor step (computed every
+  step) by ``valid * do_act``.
+
+Blocks: ``sb, nsb (C, S, B)``, one-hot ``oh (C, A, B)`` (DQN) or actions
+``ab (C, A, B)`` and smoothing noise ``nz (C, A, B)`` (DDPG/TD3), ``rb, ud,
+um (C, B)``.  Parameters, targets and Adam moments are flat buffers in the
+leaf order of ``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``,
+updated in place; each function returns the ``(C, 2)`` objectives (TD loss,
+mean ``q_a`` of the first head; or critic loss, mean Q of the actor step).
+A step with ``valid = 0`` leaves every buffer bit-identical.
+
+As for every kernel of the port: ``*_chunk_reference`` is the plain version
+(gradients by ``torch.autograd``), ``*_chunk`` the wrapper (the plain
+version for CPU tensors, the hand-written CUDA kernel of
+``csrc/dqn_update.cu`` or ``csrc/ddpg_update.cu`` for CUDA tensors), and
+``*_chunk.launches`` the count of chunks launched (``launches_by_variant``
+splits it).  The functions below the chunks (Q values of the four DQN nets,
+the dueling combine) are also what the agents' scan updates differentiate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .fused_update import value_and_grad_flat
+from .nets import (ddpg_param_shapes, dqn_param_shapes, mlp_apply_leaves, soft_update_,
+                   split_flat)
+
+SMEM_LIMIT = 232448
+_TB = 32   # samples per fwd_bwd block (csrc/dqn_update.cu, csrc/ddpg_update.cu)
+
+
+# ------------------------------------------------------------ DQN nets
+
+def dueling_combine(val: torch.Tensor, adv: torch.Tensor) -> torch.Tensor:
+    """``val - mean(val) + adv`` over the action axis (the last)."""
+    return val - torch.mean(val, dim=-1, keepdim=True) + adv
+
+
+def dqn_head_outputs(leaves, x, twin: bool, duel: bool) -> list:
+    """The outputs of every head of the net for ``x (..., S)``: one ``(..., A)``
+    for the plain MLP; else the heads after the encoder, in leaf order."""
+    if not (twin or duel):
+        return [mlp_apply_leaves(leaves, x)]
+    h = mlp_apply_leaves(leaves[:4], x)          # the encoder: GELU after layer 1 only
+    return [F.linear(h, leaves[i], leaves[i + 1]) for i in range(4, len(leaves), 2)]
+
+
+def dqn_q_greedy(leaves, x, twin: bool, duel: bool) -> torch.Tensor:
+    """Q of the greedy policy: the plain net's output, or head 1, combined
+    with its advantage head where the net is dueling."""
+    outs = dqn_head_outputs(leaves, x, twin, duel)
+    return dueling_combine(outs[0], outs[1]) if duel else outs[0]
+
+
+def dqn_q_td(leaves, x, twin: bool, duel: bool):
+    """``(q1, q2)`` of the TD path (``q2`` None unless twin).  The dueling
+    net without a twin reads its value head alone (the reference's
+    ``QNetDuel.get_q_value``); D3QN combines both heads."""
+    outs = dqn_head_outputs(leaves, x, twin, duel)
+    if not twin:
+        return outs[0], None
+    if duel:
+        return dueling_combine(outs[0], outs[1]), dueling_combine(outs[2], outs[3])
+    return outs[0], outs[1]
+
+
+def dqn_next_q(leaves, nx, twin: bool, duel: bool) -> torch.Tensor:
+    """``max_a`` of the target's TD-path Q (twin: of the min of both heads)."""
+    q1, q2 = dqn_q_td(leaves, nx, twin, duel)
+    return torch.amax(q1 if q2 is None else torch.minimum(q1, q2), dim=-1)
+
+
+def dqn_td_loss(leaves, x, onehot, label, um, twin: bool, duel: bool):
+    """``(mean(td), q_a of head 1)``, ``td = (q_a - label)^2 * um`` summed over
+    the twin heads; ``onehot (B, A)``."""
+    q1, q2 = dqn_q_td(leaves, x, twin, duel)
+    q1a = torch.sum(q1 * onehot, dim=-1)
+    td = torch.square(q1a - label)
+    if q2 is not None:
+        td = td + torch.square(torch.sum(q2 * onehot, dim=-1) - label)
+    return torch.mean(td * um), q1a
+
+
+def dueling_combine_backward(g: torch.Tensor):
+    """Gradients of :func:`dueling_combine` at ``d loss / d combined = g``:
+    ``g - mean(g)`` into the value head, ``sum(g)`` into the advantage, as
+    ``csrc/dqn_update.cu`` writes them by hand."""
+    return g - torch.mean(g, dim=-1, keepdim=True), torch.sum(g, dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------- DDPG nets
+
+def ddpg_actor(leaves, x) -> torch.Tensor:
+    return torch.tanh(mlp_apply_leaves(leaves, x))
+
+
+def ddpg_q_values(leaves, x, a) -> torch.Tensor:
+    """The critic's E heads on ``[x, a]``, ``(..., E)``."""
+    return mlp_apply_leaves(leaves, torch.cat([x, a], dim=-1))
+
+
+def ddpg_critic_loss(leaves, x, a, label, um, td3: bool):
+    qs = ddpg_q_values(leaves, x, a)
+    if td3:
+        td = torch.mean(torch.square(qs - label[..., None]), dim=-1) * um
+    else:
+        q = torch.mean(qs, dim=-1) * um
+        td = torch.square(q - label) * um
+    return torch.mean(td)
+
+
+def ddpg_actor_loss(act_leaves, cri_leaves, x):
+    return -torch.mean(ddpg_q_values(cri_leaves, x, ddpg_actor(act_leaves, x)))
+
+
+def ddpg_td_label(act_leaves, tcri_leaves, nx, r, ud, z, gamma: float, td3: bool):
+    """``r + ud * gamma * Q_target(nx, a')`` with ``a'`` from the online actor
+    (TD3: ``clip(a' + z, -1, 1)``, min over E; DDPG: mean over E)."""
+    na = ddpg_actor(act_leaves, nx)
+    if td3:
+        na = torch.clamp(na + z, -1.0, 1.0)
+    nq_all = ddpg_q_values(tcri_leaves, nx, na)
+    nq = torch.amin(nq_all, dim=-1) if td3 else torch.mean(nq_all, dim=-1)
+    return r + ud * gamma * nq
+
+
+def tanh_backward(y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``d loss / d pre`` of ``y = tanh(pre)`` at ``d loss / d y = g``."""
+    return g * (1.0 - y * y)
+
+
+# The backward formulas that the CUDA kernels write by hand, in PyTorch, so
+# that the tests hold them against autograd.
+
+def td_head_grad(q: torch.Tensor, onehot: torch.Tensor, label: torch.Tensor,
+                 um: torch.Tensor) -> torch.Tensor:
+    """``d mean((q_a - label)^2 * um) / d q`` for ``q (B, A)``, ``q_a = sum(q *
+    onehot)``: ``onehot * 2 (q_a - label) um / B``."""
+    qa = torch.sum(q * onehot, dim=-1, keepdim=True)
+    return onehot * (2.0 * (qa - label[:, None]) * um[:, None] / q.shape[0])
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """The derivative of the tanh-form GELU."""
+    k = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(k * (x + 0.044715 * x ** 3))
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * k * (1.0 + 3.0 * 0.044715 * x * x)
+
+
+def mlp_input_grad(leaves, x: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
+    """``d loss / d x`` of a GELU MLP (``mlp_apply_leaves``) at ``d loss / d
+    output = g_out``, layer by layer as ``csrc/ddpg_update.cu`` runs the critic
+    back to its action inputs."""
+    n = len(leaves) // 2
+    pre = []
+    h = x
+    for i in range(n):
+        z = F.linear(h, leaves[2 * i], leaves[2 * i + 1])
+        pre.append(z)
+        h = F.gelu(z, approximate='tanh') if i < n - 1 else z
+    g = g_out
+    for i in range(n - 1, -1, -1):
+        if i < n - 1:
+            g = g * gelu_grad(pre[i])
+        g = g @ leaves[2 * i]
+    return g
+
+
+# ------------------------------------------------------ plain versions
+
+def _opt(lr, clip_grad, b1, b2, eps):
+    from ..agents.base import ClipAdam
+    return ClipAdam(lr, clip_grad, b1, b2, eps)
+
+
+def dqn_chunk_reference(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *,
+                        net_dims: Sequence[int], twin: bool, duel: bool, gamma: float,
+                        tau: float, lr: float, clip_grad: float, b1: float = 0.9,
+                        b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
+    """Plain PyTorch version of the DQN-family chunk; in place, returns the
+    ``(C, 2)`` objectives."""
+    from ..agents.base import clip_adam_bc_
+    C, S, B = sb.shape
+    A = oh.shape[1]
+    shapes = dqn_param_shapes(S, net_dims, A, twin, duel)
+    opt = _opt(lr, clip_grad, b1, b2, eps)
+    objs = torch.empty((C, 2), dtype=torch.float32, device=sb.device)
+    for u in range(C):
+        x, nx, onehot = sb[u].T, nsb[u].T, oh[u].T
+        with torch.no_grad():
+            label = rb[u] + ud[u] * gamma * dqn_next_q(split_flat(t, shapes), nx, twin, duel)
+        (obj, q1a), g = value_and_grad_flat(
+            lambda leaves: dqn_td_loss(leaves, x, onehot, label, um[u], twin, duel), p, shapes)
+        with torch.no_grad():
+            objs[u] = torch.stack([obj, torch.mean(q1a)]).detach()
+            if float(bcv[u, 2]) > 0:
+                clip_adam_bc_(opt, p, mu, nu, g, bcv[u, 0], bcv[u, 1])
+                soft_update_(t, p, tau)
+    return objs
+
+
+def ddpg_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz,
+                         bcv, *, net_dims: Sequence[int], td3: bool, num_ensembles: int,
+                         gamma: float, tau: float, lr: float, clip_grad: float,
+                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the DDPG/TD3 chunk; in place, returns the
+    ``(C, 2)`` objectives."""
+    from ..agents.base import clip_adam_bc_
+    C, S, B = sb.shape
+    A = ab.shape[1]
+    act_shapes, cri_shapes = ddpg_param_shapes(S, net_dims, A, num_ensembles)
+    opt = _opt(lr, clip_grad, b1, b2, eps)
+    objs = torch.empty((C, 2), dtype=torch.float32, device=sb.device)
+    for u in range(C):
+        x, nx, a, z = sb[u].T, nsb[u].T, ab[u].T, nz[u].T
+        valid, do_act = float(bcv[u, 4]) > 0, float(bcv[u, 5]) > 0
+        with torch.no_grad():
+            label = ddpg_td_label(split_flat(pa, act_shapes), split_flat(tc, cri_shapes), nx,
+                                  rb[u], ud[u], z, gamma, td3)
+        obj_c, g_c = value_and_grad_flat(
+            lambda leaves: ddpg_critic_loss(leaves, x, a, label, um[u], td3), pc, cri_shapes)
+        with torch.no_grad():
+            if valid:
+                clip_adam_bc_(opt, pc, muc, nuc, g_c, bcv[u, 0], bcv[u, 1])
+                soft_update_(tc, pc, tau)
+        cri_leaves = split_flat(pc.detach(), cri_shapes)
+        obj_neg, g_a = value_and_grad_flat(
+            lambda leaves: ddpg_actor_loss(leaves, cri_leaves, x), pa, act_shapes)
+        with torch.no_grad():
+            if valid and do_act:
+                clip_adam_bc_(opt, pa, mua, nua, g_a, bcv[u, 2], bcv[u, 3])
+                soft_update_(ta, pa, tau)
+            objs[u] = torch.stack([obj_c, -obj_neg]).detach()
+    return objs
+
+
+# ------------------------------------------------------------ wrappers
+
+def dqn_variant(twin: bool, duel: bool) -> str:
+    return {(False, False): 'dqn', (True, False): 'doubledqn', (False, True): 'duelingdqn',
+            (True, True): 'd3qn'}[(bool(twin), bool(duel))]
+
+
+def dqn_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int) -> int:
+    """Dynamic shared memory of one DQN fwd_bwd block.  ``csrc/dqn_update.cu``
+    owns the layout (``dqn_update_smem_bytes``, which the wrapper uses); this
+    copy only judges eligibility where the library is not built (the CPU)."""
+    ld = lambda k: k | 1  # noqa: E731
+    return 4 * _TB * (ld(state_dim) + 2 * ld(d1) + 2 * ld(d2) + ld(2 * action_dim + 2) + 1)
+
+
+def ddpg_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
+                    num_ensembles: int) -> int:
+    """Dynamic shared memory of one DDPG/TD3 fwd_bwd block (the layout of
+    ``ddpg_update_smem_bytes`` in ``csrc/ddpg_update.cu``)."""
+    ld = lambda k: k | 1  # noqa: E731
+    return 4 * _TB * (2 * ld(state_dim + action_dim) + 4 * ld(d1) + 4 * ld(d2)
+                      + ld(max(num_ensembles, action_dim)) + ld(action_dim) + 1)
+
+
+def _scratch(lib, nb_fn, nr_fn, B, P, dev):
+    nb, nr = nb_fn(B), nr_fn(P)
+    f32 = torch.float32
+    return (torch.empty((nb, P), dtype=f32, device=dev), torch.empty((nb, 2), dtype=f32, device=dev),
+            torch.empty((P,), dtype=f32, device=dev), torch.empty((nr,), dtype=f32, device=dev))
+
+
+def _check_blocks(what, dev, C, S, A, B, blocks, bcv, bcv_cols):
+    from ._cuda_build import check_tensor
+    for name, t, shape in blocks:
+        check_tensor(what, name, t, shape, torch.float32, dev)
+    check_tensor(what, 'bcv', bcv, (C, bcv_cols), torch.float32, dev)
+
+
+def dqn_chunk(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *, net_dims: Sequence[int],
+              twin: bool, duel: bool, gamma: float, tau: float, lr: float, clip_grad: float,
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
+    """The DQN-family chunk: CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  In place; returns the ``(C, 2)`` objectives."""
+    kw = dict(net_dims=net_dims, twin=twin, duel=duel, gamma=gamma, tau=tau, lr=lr,
+              clip_grad=clip_grad, b1=b1, b2=b2, eps=eps)
+    args = (p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv)
+    if p.device.type == 'cpu':
+        return dqn_chunk_reference(*args, **kw)
+    if p.device.type != 'cuda':
+        raise ValueError(f'dqn_chunk: unsupported device {p.device}')
+    if len(net_dims) != 2:
+        raise ValueError(f'dqn_chunk: the CUDA kernel takes 2 hidden layers, got {net_dims}')
+    from ._cuda_build import check, check_tensor, ptr
+    D1, D2 = (int(d) for d in net_dims)
+    C, S, B = sb.shape
+    A = oh.shape[1]
+    dev = p.device
+    P = sum(math.prod(s) for s in dqn_param_shapes(S, (D1, D2), A, twin, duel))
+    for name, buf in (('p', p), ('t', t), ('mu', mu), ('nu', nu)):
+        check_tensor('dqn_chunk', name, buf, (P,), torch.float32, dev)
+    _check_blocks('dqn_chunk', dev, C, S, A, B,
+                  (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('oh', oh, (C, A, B)),
+                   ('rb', rb, (C, B)), ('ud', ud, (C, B)), ('um', um, (C, B))), bcv, 3)
+    lib = _dqn_library()
+    smem = lib.dqn_update_smem_bytes(S, A, D1, D2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'dqn_chunk: net_dims={(D1, D2)} needs {smem} bytes of shared memory '
+                         f'per block, more than the {SMEM_LIMIT} a Hopper block can hold')
+    partial, objpart, grad, normpart = _scratch(lib, lib.dqn_update_blocks,
+                                                lib.dqn_update_reduce_blocks, B, P, dev)
+    objs = torch.empty((C, 2), dtype=torch.float32, device=dev)
+    f = ctypes.c_float
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.dqn_update(
+        *[ptr(x) for x in (p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv,
+                           partial, objpart, grad, normpart, objs)],
+        C, B, S, A, D1, D2, int(bool(twin)), int(bool(duel)),
+        f(gamma), f(tau), f(lr), f(clip_grad), f(b1), f(b2), f(eps), ctypes.c_void_p(stream))
+    variant = dqn_variant(twin, duel)
+    check(status, f'dqn_update[{variant}]')
+    dqn_chunk.launches += 1
+    dqn_chunk.launches_by_variant[variant] += 1
+    return objs
+
+
+dqn_chunk.launches = 0
+dqn_chunk.launches_by_variant = {v: 0 for v in ('dqn', 'doubledqn', 'duelingdqn', 'd3qn')}
+
+
+def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv, *,
+               net_dims: Sequence[int], td3: bool, num_ensembles: int, gamma: float,
+               tau: float, lr: float, clip_grad: float, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8) -> torch.Tensor:
+    """The DDPG/TD3 chunk: CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  In place; returns the ``(C, 2)`` objectives."""
+    kw = dict(net_dims=net_dims, td3=td3, num_ensembles=num_ensembles, gamma=gamma, tau=tau,
+              lr=lr, clip_grad=clip_grad, b1=b1, b2=b2, eps=eps)
+    args = (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv)
+    if pa.device.type == 'cpu':
+        return ddpg_chunk_reference(*args, **kw)
+    if pa.device.type != 'cuda':
+        raise ValueError(f'ddpg_chunk: unsupported device {pa.device}')
+    if len(net_dims) != 2:
+        raise ValueError(f'ddpg_chunk: the CUDA kernel takes 2 hidden layers, got {net_dims}')
+    from ._cuda_build import check, check_tensor, ptr
+    D1, D2 = (int(d) for d in net_dims)
+    C, S, B = sb.shape
+    A, E = ab.shape[1], int(num_ensembles)
+    dev = pa.device
+    act_shapes, cri_shapes = ddpg_param_shapes(S, (D1, D2), A, E)
+    Pa = sum(math.prod(s) for s in act_shapes)
+    Pc = sum(math.prod(s) for s in cri_shapes)
+    for name, buf in (('pa', pa), ('ta', ta), ('mua', mua), ('nua', nua)):
+        check_tensor('ddpg_chunk', name, buf, (Pa,), torch.float32, dev)
+    for name, buf in (('pc', pc), ('tc', tc), ('muc', muc), ('nuc', nuc)):
+        check_tensor('ddpg_chunk', name, buf, (Pc,), torch.float32, dev)
+    _check_blocks('ddpg_chunk', dev, C, S, A, B,
+                  (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('ab', ab, (C, A, B)),
+                   ('nz', nz, (C, A, B)), ('rb', rb, (C, B)), ('ud', ud, (C, B)),
+                   ('um', um, (C, B))), bcv, 7)
+    lib = _ddpg_library()
+    smem = lib.ddpg_update_smem_bytes(S, A, D1, D2, E)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'ddpg_chunk: net_dims={(D1, D2)} needs {smem} bytes of shared memory '
+                         f'per block, more than the {SMEM_LIMIT} a Hopper block can hold')
+    partial, objpart, grad, normpart = _scratch(lib, lib.ddpg_update_blocks,
+                                                lib.ddpg_update_reduce_blocks, B,
+                                                max(Pa, Pc), dev)
+    objs = torch.empty((C, 2), dtype=torch.float32, device=dev)
+    f = ctypes.c_float
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.ddpg_update(
+        *[ptr(x) for x in (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv,
+                           partial, objpart, grad, normpart, objs)],
+        C, B, S, A, D1, D2, E, int(bool(td3)),
+        f(gamma), f(tau), f(lr), f(clip_grad), f(b1), f(b2), f(eps), ctypes.c_void_p(stream))
+    variant = 'td3' if td3 else 'ddpg'
+    check(status, f'ddpg_update[{variant}]')
+    ddpg_chunk.launches += 1
+    ddpg_chunk.launches_by_variant[variant] += 1
+    return objs
+
+
+ddpg_chunk.launches = 0
+ddpg_chunk.launches_by_variant = {'ddpg': 0, 'td3': 0}
+
+
+def _bind(lib, fn_name, n_ptr, n_int, sizes):
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+            + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name, n_args in sizes:
+            g = getattr(lib, name)
+            g.argtypes = [ctypes.c_int] * n_args
+            g.restype = ctypes.c_int
+    return lib
+
+
+def _dqn_library():
+    from ._cuda_build import load
+    return _bind(load('dqn_update'), 'dqn_update', 16, 8,
+                 (('dqn_update_smem_bytes', 4), ('dqn_update_blocks', 1),
+                  ('dqn_update_reduce_blocks', 1)))
+
+
+def _ddpg_library():
+    from ._cuda_build import load
+    return _bind(load('ddpg_update'), 'ddpg_update', 21, 8,
+                 (('ddpg_update_smem_bytes', 5), ('ddpg_update_blocks', 1),
+                  ('ddpg_update_reduce_blocks', 1)))
+
+
+# ------------------------------------------------- the per-step tables
+
+def dqn_bcv(count0: int, idx: torch.Tensor, update_times: int, b1: float = 0.9,
+            b2: float = 0.999) -> torch.Tensor:
+    """``(C, 3)`` float32 ``(1 - b1**step, 1 - b2**step, valid)`` for the chunk
+    of update indices ``idx``, ``step = count0 + idx + 1``, as the JAX agents
+    build it (``agents/dqn.py:_fused_update``)."""
+    steps = float(count0) + idx.float() + 1.0
+    valid = (idx < update_times).float()
+    return torch.stack([1.0 - torch.pow(torch.tensor(b1, device=idx.device), steps),
+                        1.0 - torch.pow(torch.tensor(b2, device=idx.device), steps),
+                        valid], dim=1)
+
+
+def ddpg_bcv(cc0: int, ca0: int, idx: torch.Tensor, update_times: int, do_act: torch.Tensor,
+             act_steps: torch.Tensor, b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
+    """``(C, 7)`` float32 ``(bc1_c, bc2_c, bc1_a, bc2_a, valid, do_act, 0)``:
+    the critic's step is ``cc0 + idx + 1``, the actor's ``ca0 + act_steps``
+    (``agents/ddpg_td3.py:_fused_update``)."""
+    dev = idx.device
+    pw = lambda beta, s: 1.0 - torch.pow(torch.tensor(beta, device=dev), s)  # noqa: E731
+    cri_step = float(cc0) + idx.float() + 1.0
+    act_step = float(ca0) + act_steps.float()
+    valid = (idx < update_times).float()
+    return torch.stack([pw(b1, cri_step), pw(b2, cri_step), pw(b1, act_step), pw(b2, act_step),
+                        valid, do_act.float(), torch.zeros_like(valid)], dim=1)

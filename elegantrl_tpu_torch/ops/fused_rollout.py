@@ -609,6 +609,12 @@ def _library():
         fn.restype = ctypes.c_int
         lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
+        lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                                          + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                                          + [ctypes.c_void_p])
+        lib.offpolicy_rollout.restype = ctypes.c_int
+        lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -639,6 +645,236 @@ def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
                      rewards=out.rewards, undones=1.0 - out.terminals,
                      unmasks=1.0 - out.truncates,
                      extras={'values': out.values, 'tsn': True})
+        last_obs = body.obs(out.env_f, out.env_i).T
+        return ro, body.unpack(out.env_f, out.env_i), last_obs
+
+    return rollout_fn
+
+
+# ====================================================== off-policy heads
+# The same kernel family for the off-policy agents' exploration
+# (``elegantrl_tpu/ops/pallas_rollout.py:_make_offpolicy_kernel``): one net,
+# no critic, no logprob, no observation normalisation, and one of four heads
+# on the trunk ``l2 = W2 gelu(W1 x + b1) + b2``:
+#   'ddpg'     clip(tanh(Wo gelu(l2) + bo) + noise_std * z, -1, 1), stored and
+#              stepped as is (DDPG, TD3);
+#   'dqn'      q = Wo gelu(l2) + bo                       (DQN)
+#   'dqn_enc'  q = Wo l2 + bo, the raw encoding           (DoubleDQN: head val1)
+#   'dqn_duel' q = val - mean(val) + adv over the raw encoding, adv = W4 l2 + b4
+#              (DuelingDQN, D3QN: heads val1 and adv1)
+# and the DQN heads act epsilon-greedily, ``u0 < explore_rate ?
+# min(floor(u1 * A), A - 1) : argmax q`` (the first maximum on a tie; the min
+# only guards an injected u1 of exactly 1), the index stored as int32
+# ``(H, N)`` and stepped as a float row.  The kernel reads the head's leaves
+# from the front of the agent's flat buffer: the DQN nets' flat layout
+# (``ops/nets.py:dqn_param_shapes``) keeps enc, val1 and adv1 first.
+# Outputs are the ``(H, N, dim)`` layout the replay buffer takes.
+# Noise: injected ``(H, NZ, N)``, continuous: A normals then the env's
+# uniforms; discrete: the coin, the random-action uniform, then the env's
+# uniforms.  Internal Philox: ``2A + n_env`` (ddpg, Box-Muller) or ``2 +
+# n_env`` uniforms per (lane, step), in the scheme of the on-policy heads.
+
+OFFPOLICY_HEADS = {'ddpg': 0, 'dqn': 1, 'dqn_enc': 2, 'dqn_duel': 3}
+
+
+def offpolicy_head_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                          head: str) -> list:
+    """Leaf shapes of the head's net: the prefix of the agent's flat buffer
+    that the kernel reads."""
+    from .nets import dqn_param_shapes, mlp_shapes
+    if head == 'dqn_duel':
+        return dqn_param_shapes(state_dim, net_dims, action_dim, twin=False, duel=True)
+    # ddpg and dqn: one MLP; dqn_enc: the encoder and val1, the same leaf shapes
+    return mlp_shapes((state_dim, *net_dims, action_dim))
+
+
+def offpolicy_noise_rows(body: KernelEnvBody, head: str) -> int:
+    """Rows of the injected-noise tensor."""
+    return (2 if head != 'ddpg' else body.action_dim) + body.n_step + body.n_reset
+
+
+def offpolicy_uniforms_per_step(body: KernelEnvBody, head: str) -> int:
+    return (2 if head != 'ddpg' else 2 * body.action_dim) + body.n_step + body.n_reset
+
+
+def offpolicy_pair_fits(body: KernelEnvBody, head: str) -> bool:
+    """Whether the kernel has this (body, head) instantiation: the ddpg head
+    on the continuous bodies, the DQN heads on the discrete ones."""
+    return (KERNEL_ENV_BODIES.get(body.env_name) is body and head in OFFPOLICY_HEADS
+            and body.discrete == (head != 'ddpg'))
+
+
+class OffPolicyRolloutOutputs(NamedTuple):
+    states: torch.Tensor     # (H, N, S)
+    actions: torch.Tensor    # (H, N, A) float32; int32 (H, N) for the DQN heads
+    rewards: torch.Tensor    # (H, N), times reward_scale
+    terminals: torch.Tensor  # (H, N) float
+    truncates: torch.Tensor  # (H, N) float
+    env_f: torch.Tensor      # (n_f32, N) final env rows
+    env_i: torch.Tensor      # (n_i32, N)
+
+
+def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor,
+                                *, body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                                horizon_len: int, reward_scale: float, noise_std: float = 0.05,
+                                explore_rate: float = 0.25,
+                                noise: Optional[torch.Tensor] = None,
+                                seed: Optional[torch.Tensor] = None,
+                                env_trace: Optional[list] = None) -> OffPolicyRolloutOutputs:
+    """Plain PyTorch version of the off-policy rollout kernel.  ``flat`` is
+    the agent's flat actor (ddpg) or Q buffer; ``env_trace`` as in
+    :func:`rollout_reference`."""
+    from .fused_offpolicy_update import dqn_q_greedy
+    S, A = body.state_dim, body.action_dim
+    shapes = offpolicy_head_shapes(S, net_dims, A, head)
+    n = sum(math.prod(s) for s in shapes)
+    leaves = split_flat(flat[:n], shapes)
+    _check_noise_mode(noise, seed)
+    if seed is not None:
+        u_all = philox_uniforms(seed, horizon_len, env_f.shape[1],
+                                offpolicy_uniforms_per_step(body, head))
+    f, i = env_f, env_i
+    outs = {k: [] for k in OffPolicyRolloutOutputs._fields[:5]}
+    for t in range(horizon_len):
+        if env_trace is not None:
+            env_trace.append((f, i))
+        x = body.obs(f, i)                                   # (S, N)
+        u = noise[t] if seed is None else u_all[t]
+        if head == 'ddpg':
+            if seed is None:
+                z, u_env = u[:A], u[A:]
+            else:
+                z = torch.sqrt(-2.0 * torch.log(1.0 - u[0:A])) * torch.cos(_TWO_PI * u[A:2 * A])
+                u_env = u[2 * A:]
+            out = mlp_apply_leaves(leaves, x.T).T            # (A, N)
+            action = torch.clamp(torch.tanh(out) + noise_std * z, -1.0, 1.0)
+            env_a, stored = action, action.T
+        else:
+            q = dqn_q_greedy(leaves, x.T, head == 'dqn_enc', head == 'dqn_duel')  # (N, A)
+            greedy = torch.argmax(q, dim=1)                  # first max on a tie
+            rand = torch.clamp(torch.floor(u[1] * A), max=A - 1).long()
+            index = torch.where(u[0] < explore_rate, rand, greedy)
+            env_a, stored = index[None].float(), index.to(torch.int32)
+            u_env = u[2:]
+        f2, i2, reward, terminal, trunc = body.step(f, i, env_a, u_env[0:body.n_step])
+        f, i = body.reset(f2, i2, u_env[body.n_step:body.n_step + body.n_reset],
+                          terminal | trunc)
+        outs['states'].append(x.T)
+        outs['actions'].append(stored)
+        outs['rewards'].append(reward[0] * reward_scale)
+        outs['terminals'].append(terminal[0].float())
+        outs['truncates'].append(trunc[0].float())
+    return OffPolicyRolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
+
+
+def offpolicy_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                         head: str) -> int:
+    """Dynamic shared memory of one off-policy kernel block: the head's
+    weights plus the activation tiles (``offpolicy_rollout_smem_bytes`` of
+    ``csrc/fused_rollout.cu`` owns the layout; this copy judges eligibility
+    where the library is not built)."""
+    D1, D2 = net_dims
+    S, A = state_dim, action_dim
+    duel = head == 'dqn_duel'
+    floats = (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (D2 + 1 if duel else 0)
+              + (S + D1 + D2 + A + 1) * _TE)
+    return 4 * floats
+
+
+def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor, *,
+                      body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                      horizon_len: int, reward_scale: float, noise_std: float = 0.05,
+                      explore_rate: float = 0.25, noise: Optional[torch.Tensor] = None,
+                      seed: Optional[torch.Tensor] = None) -> OffPolicyRolloutOutputs:
+    """The off-policy fused rollout: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    kw = dict(body=body, head=head, net_dims=net_dims, horizon_len=horizon_len,
+              reward_scale=reward_scale, noise_std=noise_std, explore_rate=explore_rate,
+              noise=noise, seed=seed)
+    if flat.device.type == 'cpu':
+        return offpolicy_rollout_reference(flat, env_f, env_i, **kw)
+    if flat.device.type != 'cuda':
+        raise ValueError(f'offpolicy_rollout: unsupported device {flat.device}')
+    if not offpolicy_pair_fits(body, head):
+        raise ValueError(f'offpolicy_rollout: the CUDA kernel has no instantiation for head '
+                         f'{head!r} on {body.env_name}')
+    if len(net_dims) != 2:
+        raise ValueError(f'offpolicy_rollout: the CUDA kernel takes 2 hidden layers, '
+                         f'got {net_dims}')
+    _check_noise_mode(noise, seed)
+    D1, D2 = (int(d) for d in net_dims)
+    S, A = body.state_dim, body.action_dim
+    H, N = int(horizon_len), env_f.shape[1]
+    from ._cuda_build import check, check_tensor, ptr
+    lib = _library()
+    smem = lib.offpolicy_rollout_smem_bytes(S, A, D1, D2, OFFPOLICY_HEADS[head])
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'offpolicy_rollout: net_dims={tuple(net_dims)} needs {smem} bytes '
+                         f'of shared memory per block, more than the {SMEM_LIMIT} a Hopper '
+                         'block can hold')
+    dev = flat.device
+    f32 = torch.float32
+    n_head = sum(math.prod(s) for s in offpolicy_head_shapes(S, (D1, D2), A, head))
+    if flat.dtype != f32 or not flat.is_contiguous() or flat.dim() != 1 \
+            or flat.numel() < n_head:
+        raise ValueError(f'offpolicy_rollout: flat must be a contiguous float32 vector of at '
+                         f'least {n_head} values; got {flat.dtype} {tuple(flat.shape)}')
+    check_tensor('offpolicy_rollout', 'env_f', env_f, (body.n_f32, N), f32, dev)
+    check_tensor('offpolicy_rollout', 'env_i', env_i, (body.n_i32, N), torch.int32, dev)
+    if noise is not None:
+        check_tensor('offpolicy_rollout', 'noise', noise,
+                     (H, offpolicy_noise_rows(body, head), N), f32, dev)
+    else:
+        check_tensor('offpolicy_rollout', 'seed', seed, (2,), torch.int32, dev)
+    actions = (torch.empty((H, N, A), dtype=f32, device=dev) if head == 'ddpg'
+               else torch.empty((H, N), dtype=torch.int32, device=dev))
+    out = OffPolicyRolloutOutputs(
+        states=torch.empty((H, N, S), dtype=f32, device=dev), actions=actions,
+        rewards=torch.empty((H, N), dtype=f32, device=dev),
+        terminals=torch.empty((H, N), dtype=f32, device=dev),
+        truncates=torch.empty((H, N), dtype=f32, device=dev),
+        env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.offpolicy_rollout(
+        body.kernel_id, OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i), ptr(noise),
+        ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, ctypes.c_float(reward_scale),
+        ctypes.c_float(noise_std), ctypes.c_float(explore_rate), ctypes.c_void_p(stream))
+    tag = f'{body.env_name},{head}'
+    check(status, f'offpolicy_rollout[{tag}]')
+    offpolicy_rollout.launches += 1
+    offpolicy_rollout.launches_by_kernel[tag] = offpolicy_rollout.launches_by_kernel.get(tag, 0) + 1
+    return out
+
+
+offpolicy_rollout.launches = 0
+offpolicy_rollout.launches_by_kernel = {}
+
+
+def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horizon_len: int,
+                                 num_envs: int, reward_scale: float, noise_std: float,
+                                 explore_rate: float):
+    """``rollout_fn(agent_state, env_state, gen, noise=None) -> (Rollout,
+    env_state', last_obs)`` for the off-policy agents: the flat buffer is the
+    agent state's ``act`` (ddpg) or ``q``; without ``noise`` the kernel's
+    Philox draws are keyed by a seed taken from ``gen``."""
+    from ..agents.base import Rollout
+    H = int(horizon_len)
+    net_dims = tuple(int(d) for d in net_dims)
+
+    def rollout_fn(agent_state, env_state, gen, noise=None):
+        f0, i0 = body.pack(env_state)
+        seed = None
+        if noise is None:
+            seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gen,
+                                 device=f0.device, dtype=torch.int32)
+        flat = agent_state.act if head == 'ddpg' else agent_state.q
+        out = offpolicy_rollout(flat, f0.contiguous(), i0.contiguous(), body=body, head=head,
+                                net_dims=net_dims, horizon_len=H, reward_scale=reward_scale,
+                                noise_std=noise_std, explore_rate=explore_rate, noise=noise,
+                                seed=seed)
+        ro = Rollout(states=out.states, actions=out.actions, logprobs=None,
+                     rewards=out.rewards, undones=1.0 - out.terminals,
+                     unmasks=1.0 - out.truncates)
         last_obs = body.obs(out.env_f, out.env_i).T
         return ro, body.unpack(out.env_f, out.env_i), last_obs
 

@@ -100,15 +100,10 @@ def ppo_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
     ``W1 (D1,S), b1, W2 (D2,D1), b2, Wa (A,D2), ba, std_log (1,A)``, without
     the std_log leaf when ``discrete`` (the head is then A logits); critic
     the same with a ``(1, D2)`` value head and no std_log."""
-    dims = (state_dim, *net_dims)
-    hidden = []
-    for i in range(len(dims) - 1):
-        hidden += [(dims[i + 1], dims[i]), (dims[i + 1],)]
-    act = hidden + [(action_dim, dims[-1]), (action_dim,)]
+    act = mlp_shapes((state_dim, *net_dims, action_dim))
     if not discrete:
         act.append((1, action_dim))
-    cri = hidden + [(1, dims[-1]), (1,)]
-    return act, cri
+    return act, mlp_shapes((state_dim, *net_dims, 1))
 
 
 def split_flat(flat: torch.Tensor, shapes) -> list:
@@ -131,3 +126,56 @@ def mlp_apply_leaves(leaves: Sequence[torch.Tensor], x: torch.Tensor) -> torch.T
         if i < n - 1:
             x = gelu(x)
     return x
+
+
+def soft_update_(target: torch.Tensor, online: torch.Tensor, tau: float) -> None:
+    """Polyak averaging in place on flat buffers, ``target = target * (1 - tau)
+    + online * tau`` (``elegantrl_tpu/ops/nets.py:soft_update``)."""
+    target.mul_(1.0 - tau).add_(online * tau)
+
+
+def mlp_shapes(dims: Sequence[int]) -> list:
+    """Leaf shapes ``W (out, in), b (out,)`` of an MLP ``dims[0] -> ... ->
+    dims[-1]``, in the flat-buffer order."""
+    shapes = []
+    for i in range(len(dims) - 1):
+        shapes += [(dims[i + 1], dims[i]), (dims[i + 1],)]
+    return shapes
+
+
+def dqn_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                     twin: bool, duel: bool) -> list:
+    """Leaf shapes of the DQN family's flat Q buffer, in the kernel leaf order
+    of ``elegantrl_tpu/ops/pallas_update.py:dqn_flatten``: the plain net is
+    one MLP ``S -> net_dims -> A``; the twin or dueling nets are an encoder
+    ``S -> net_dims`` (no activation after its last layer) followed by the
+    heads ``val1 (A)``, ``adv1 (1)`` when ``duel``, ``val2 (A)`` and ``adv2
+    (1)`` when ``twin`` (``agents/dqn.py:init``)."""
+    if not (twin or duel):
+        return mlp_shapes((state_dim, *net_dims, action_dim))
+    d = net_dims[-1]
+    shapes = mlp_shapes((state_dim, *net_dims)) + mlp_shapes((d, action_dim))
+    if duel:
+        shapes += mlp_shapes((d, 1))
+    if twin:
+        shapes += mlp_shapes((d, action_dim))
+        if duel:
+            shapes += mlp_shapes((d, 1))
+    return shapes
+
+
+def ddpg_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                      num_ensembles: int):
+    """Leaf shapes of the DDPG/TD3 actor ``S -> net_dims -> A`` and of the
+    critic ``S + A -> net_dims -> E``, whose E outputs are the ensemble's
+    heads on one shared trunk (``agents/ddpg_td3.py:init``)."""
+    return (mlp_shapes((state_dim, *net_dims, action_dim)),
+            mlp_shapes((state_dim + action_dim, *net_dims, num_ensembles)))
+
+
+def init_flat(gen: torch.Generator, nets, device) -> torch.Tensor:
+    """One flat float32 buffer on ``device`` holding the leaves of the MLPs
+    ``nets = [(dims, out_std), ...]`` in order (:func:`mlp_init`)."""
+    leaves = [p.detach().reshape(-1) for dims, out_std in nets
+              for p in mlp_init(gen, dims, out_std).leaves()]
+    return torch.cat(leaves).float().to(device)

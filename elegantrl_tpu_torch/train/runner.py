@@ -1,10 +1,15 @@
 """Training loop (counterpart of ``elegantrl_tpu/train/runner.py``).
 
-One round is: rollout (the fused rollout kernel; on the CPU its plain
-version, or the generic ``collect_rollout`` loop outside the kernel's
+One on-policy round is: rollout (the fused rollout kernel; on the CPU its
+plain version, or the generic ``collect_rollout`` loop outside the kernel's
 scope) -> truncation bootstrap and GAE -> minibatch gather -> update (PPO:
 the fused update kernel, its plain version on the CPU; A2C: autograd, as
-the JAX package has no kernel for it).
+the JAX package has no kernel for it).  One off-policy round is: rollout
+(the off-policy heads of the fused rollout kernel, or ``collect_rollout``
+where the JAX package runs its scan) -> insert into the replay ring buffer
+(``train/replay_buffer.py``, on the run's device) -> ``agent.update`` on the
+buffer (the fused update chunks or the scan path, ``agents/dqn.py`` and
+``agents/ddpg_td3.py``).
 ``train_agent`` runs rounds on the host, evaluates every
 ``eval_per_step`` env steps, stops at ``break_step``, ``break_score`` or a
 ``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz``.
@@ -27,13 +32,14 @@ from ..agents.base import AgentDef, collect_rollout
 from ..config import Config, kwargs_filter, resolve_device, select_kernel
 from ..envs.base import EnvDef, vec_reset
 from ..utils.checkpoint import load_tree, save_tree, tree_unflatten
-from ..utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
+from ..utils.jax_params import buffer_state_from_numpy, buffer_state_to_numpy
 from .evaluator import Evaluator
+from .replay_buffer import ReplayBuffer
 
 
 class TrainCarry(NamedTuple):
     agent_state: Any
-    buf_state: Any          # None (on-policy)
+    buf_state: Any          # the replay buffer's BufferState; None on-policy
     env_state: Any
     obs: torch.Tensor
     gen: torch.Generator    # the run's random stream, on the run's device
@@ -42,11 +48,12 @@ class TrainCarry(NamedTuple):
 class TrainContext(NamedTuple):
     env: EnvDef
     agent: AgentDef
-    round_fn: Any           # (carry, noise=None, ids=None) -> (carry, metrics)
+    round_fn: Any           # (carry, noise=None, ids=None, update_noise=None) -> (carry, metrics)
     carry: TrainCarry
     steps_per_round: int
     device: torch.device
     fused_rollout: bool
+    rb: Any = None          # the ReplayBuffer (off-policy)
 
 
 def _resolve_env_def(args: Config) -> EnvDef:
@@ -62,28 +69,61 @@ def _resolve_env_def(args: Config) -> EnvDef:
     raise TypeError(f'{env_class} is not a batched tensor env (no EnvDef)')
 
 
-def _make_agent(args: Config) -> AgentDef:
+def _make_agent(args: Config, buffer) -> AgentDef:
     make = getattr(args.agent_class, 'make', None) or args.agent_class
-    return make(args.net_dims, args.state_dim, args.action_dim, args)
+    return make(args.net_dims, args.state_dim, args.action_dim, args, buffer=buffer)
+
+
+# agent name -> off-policy head of the fused rollout (ops/fused_rollout.py),
+# as the JAX runner's _OFFPOLICY_KERNEL_HEADS without the SAC entries
+_OFFPOLICY_KERNEL_HEADS = {
+    'AgentDDPG': 'ddpg', 'AgentTD3': 'ddpg',
+    'AgentDQN': 'dqn', 'AgentDoubleDQN': 'dqn_enc',
+    'AgentDuelingDQN': 'dqn_duel', 'AgentD3QN': 'dqn_duel',
+}
 
 
 def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.device,
                          num_envs: int, horizon_len: int, reward_scale: float):
     """The fused rollout (``ops/fused_rollout.py``) when ``select_kernel``
-    takes it, else None (the generic ``collect_rollout``, CPU only).  Its
-    scope, as in the JAX runner: an env with a registered body that matches
-    the env's spec (PointChasing with ``dim != 2`` does not), a
-    2-hidden-layer MLP whose weights fit one block's shared memory, and
-    (Discrete)PPO or (Discrete)A2C as the env is discrete or not (A2C
-    explores exactly as PPO does; only its update differs)."""
+    takes it, else None (the generic ``collect_rollout``).  The JAX runner
+    takes its kernel (``elegantrl_tpu/train/runner.py:144-148``) for an env
+    with a registered body that matches the env's spec (PointChasing with
+    ``dim != 2`` does not), a 2-hidden-layer MLP, and (Discrete)PPO or
+    (Discrete)A2C as the env is discrete or not (A2C explores exactly as PPO
+    does), or an off-policy agent with a kernel head.  The port's kernel fits
+    when the weights fit one block and, off-policy, when it has the (body,
+    head) pair.  The on-policy agents have no PyTorch-ops rollout on a card,
+    so for them the JAX eligibility counts as taken (``select_kernel``)."""
     from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT,
-                                     make_fused_rollout, smem_bytes)
+                                     make_fused_offpolicy_rollout, make_fused_rollout,
+                                     offpolicy_pair_fits, offpolicy_smem_bytes, smem_bytes)
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = KERNEL_ENV_BODIES.get(spec.env_name)
     if body is not None and (body.state_dim != spec.state_dim
                              or body.action_dim != spec.action_dim):
         body = None
+    off_head = _OFFPOLICY_KERNEL_HEADS.get(agent.name)
+    if agent.if_off_policy:
+        jax_takes = body is not None and len(net_dims) == 2 and off_head is not None
+        fits = (jax_takes and offpolicy_pair_fits(body, off_head)
+                and offpolicy_smem_bytes(body.state_dim, net_dims, body.action_dim,
+                                         off_head) <= SMEM_LIMIT)
+        scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
+                 f'2-hidden-layer MLP whose weights fit one block, on an env of '
+                 f'{sorted(KERNEL_ENV_BODIES)} at its body\'s dimensions whose action space '
+                 f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
+                 f'net_dims={net_dims}')
+        if not select_kernel(args, 'use_fused_rollout', jax_takes, fits, device, scope):
+            return None
+        print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
+              f'head={off_head}, net_dims={net_dims})', flush=True)
+        return make_fused_offpolicy_rollout(
+            body, off_head, net_dims, horizon_len, num_envs, reward_scale,
+            noise_std=float(getattr(args, 'explore_noise_std',
+                                    getattr(args, 'explore_noise', 0.05))),
+            explore_rate=float(getattr(args, 'explore_rate', 0.25)))
     want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
                    else ('AgentPPO', 'AgentA2C'))
     eligible = (body is not None and agent.name in want_agents
@@ -94,7 +134,7 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
-    if not select_kernel(args, 'use_fused_rollout', eligible, device, scope):
+    if not select_kernel(args, 'use_fused_rollout', True, eligible, device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
           f'net_dims={net_dims})', flush=True)
@@ -118,7 +158,13 @@ def build_training(args: Config) -> TrainContext:
     horizon_len = int(args.horizon_len)
     reward_scale = float(args.reward_scale)
 
-    agent = _make_agent(args)
+    rb = None
+    if args.if_off_policy:   # the replay buffer lives on the run's device
+        rb = ReplayBuffer(max_size=args.buffer_size, state_dim=args.state_dim,
+                          action_dim=args.action_dim, num_seqs=num_envs,
+                          if_use_per=bool(getattr(args, 'if_use_per', False)),
+                          if_discrete=bool(args.if_discrete), args=args, device=device)
+    agent = _make_agent(args, rb)
     fast_rollout = _maybe_fused_rollout(args, env, agent, device, num_envs, horizon_len,
                                         reward_scale)
     if args.random_seed is None:
@@ -130,15 +176,18 @@ def build_training(args: Config) -> TrainContext:
     if args.continue_train:
         ckpt = os.path.join(args.cwd, 'agent.npz')
         if os.path.isfile(ckpt):
-            agent_state = ppo_state_from_numpy(
-                load_tree(ckpt, ppo_state_to_numpy(agent_state)), device)
+            agent_state = agent.state_from_numpy(
+                load_tree(ckpt, agent.state_to_numpy(agent_state)), device)
             print(f'| train_agent: loaded {ckpt}', flush=True)
     env_state, obs = vec_reset(env, gen, num_envs, device)
+    buf_state = rb.init() if rb is not None else None
 
-    def round_fn(carry: TrainCarry, noise=None, ids=None):
-        """One round.  ``noise`` (the fused rollout's injected-noise tensor)
-        and ``ids`` (``(U, B)`` flat minibatch ids) replace the draws from
-        ``carry.gen``; tests use them to replay the JAX package's round."""
+    def round_fn(carry: TrainCarry, noise=None, ids=None, update_noise=None):
+        """One round.  ``noise`` (the fused rollout's injected-noise tensor),
+        ``ids`` (minibatch ids: ``(U, B)`` flat ids, time slices for A2C, or
+        ``(U, R)`` time rows off-policy) and ``update_noise`` (TD3's ``(U, B,
+        A)`` smoothing noise) replace the draws from ``carry.gen``; tests use
+        them to replay the JAX package's round."""
         if fast_rollout is not None:
             rollout, env_state, obs = fast_rollout(carry.agent_state, carry.env_state,
                                                    carry.gen, noise=noise)
@@ -149,35 +198,49 @@ def build_training(args: Config) -> TrainContext:
                 env, carry.agent_state, agent.explore_action, agent.env_action,
                 carry.env_state, carry.obs, carry.gen, horizon_len, reward_scale,
                 extras_fn=agent.rollout_extras)
-        agent_state, metrics = agent.update(carry.agent_state, rollout, obs, carry.gen,
-                                            ids=ids)
+        buf_state = carry.buf_state
+        if agent.if_off_policy:
+            buf_state = rb.update(buf_state, (rollout.states, rollout.actions, rollout.rewards,
+                                              rollout.undones, rollout.unmasks))
+            agent_state, buf_state, metrics = agent.update(
+                carry.agent_state, buf_state, carry.gen, ids=ids, noise=update_noise)
+        else:
+            agent_state, metrics = agent.update(carry.agent_state, rollout, obs, carry.gen,
+                                                ids=ids)
         metrics = dict(metrics, exp_r=rollout.rewards.mean())
-        return TrainCarry(agent_state, None, env_state, obs, carry.gen), metrics
+        return TrainCarry(agent_state, buf_state, env_state, obs, carry.gen), metrics
 
-    carry = TrainCarry(agent_state, None, env_state, obs, gen)
+    carry = TrainCarry(agent_state, buf_state, env_state, obs, gen)
     if args.continue_train:
         full = os.path.join(args.cwd, 'train_carry.npz')
         if os.path.isfile(full):
-            carry = _load_carry(full, carry, device)
+            carry = _load_carry(full, carry, agent, device)
             print(f'| train_agent: resumed full carry from {full}', flush=True)
     return TrainContext(env=env, agent=agent, round_fn=round_fn, carry=carry,
                         steps_per_round=horizon_len * num_envs, device=device,
-                        fused_rollout=fast_rollout is not None)
+                        fused_rollout=fast_rollout is not None, rb=rb)
 
 
-def _carry_tree(carry: TrainCarry) -> dict:
-    return {'agent_state': ppo_state_to_numpy(carry.agent_state),
-            'env_state': carry.env_state, 'obs': carry.obs,
-            'gen': carry.gen.get_state()}
+def _carry_tree(carry: TrainCarry, agent: AgentDef) -> dict:
+    """The carry as a tree in the JAX package's leaf order (dict keys
+    sorted): agent state, buffer (off-policy), env state, obs and the
+    generator's state."""
+    tree = {'agent_state': agent.state_to_numpy(carry.agent_state),
+            'env_state': carry.env_state, 'obs': carry.obs, 'gen': carry.gen.get_state()}
+    if carry.buf_state is not None:
+        tree['buf_state'] = buffer_state_to_numpy(carry.buf_state)
+    return tree
 
 
-def _load_carry(path: str, carry: TrainCarry, device) -> TrainCarry:
-    tree = load_tree(path, _carry_tree(carry))
+def _load_carry(path: str, carry: TrainCarry, agent: AgentDef, device) -> TrainCarry:
+    tree = load_tree(path, _carry_tree(carry, agent))
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     env_state = tree_unflatten(carry.env_state, iter(
         [t(x) for x in tree['env_state']]))
     carry.gen.set_state(torch.as_tensor(tree['gen']))
-    return TrainCarry(ppo_state_from_numpy(tree['agent_state'], device), None,
+    buf_state = (buffer_state_from_numpy(tree['buf_state'], device)
+                 if 'buf_state' in tree else None)
+    return TrainCarry(agent.state_from_numpy(tree['agent_state'], device), buf_state,
                       env_state, t(tree['obs']), carry.gen)
 
 
@@ -204,7 +267,7 @@ def train_agent(args: Config) -> dict:
         obj_c, obj_a, exp_r = torch.stack(packs).mean(0).tolist()
         steps = ctx.steps_per_round * rounds_per_eval
         evaluator.evaluate_and_save(carry.agent_state, steps, exp_r, (obj_c, obj_a),
-                                    ppo_state_to_numpy)
+                                    ctx.agent.state_to_numpy)
         total_step += steps
         if_train = (total_step <= args.break_step
                     and evaluator.max_r < args.break_score
@@ -213,8 +276,8 @@ def train_agent(args: Config) -> dict:
     used_time = time.time() - t_start
     print(f'| UsedTime: {used_time:>7.0f} | SavedDir: {args.cwd}', flush=True)
     evaluator.save_or_load_recorder(if_save=True)
-    save_tree(os.path.join(args.cwd, 'agent.npz'), ppo_state_to_numpy(carry.agent_state))
-    save_tree(os.path.join(args.cwd, 'train_carry.npz'), _carry_tree(carry))
+    save_tree(os.path.join(args.cwd, 'agent.npz'), ctx.agent.state_to_numpy(carry.agent_state))
+    save_tree(os.path.join(args.cwd, 'train_carry.npz'), _carry_tree(carry, ctx.agent))
     return {
         'recorder': np.array(evaluator.recorder, dtype=np.float64),
         'agent_state': carry.agent_state,

@@ -17,6 +17,13 @@ returns the same nesting with local NamedTuples, leaf for leaf in JAX's
 flatten order (dict keys sorted), so tests compare the two trees leaf by
 leaf.  :func:`env_state_from_numpy` carries an env state (any NamedTuple
 of arrays with the port's field names) across the same way.
+
+The off-policy states are carried the same way: the JAX ``DQNState(q,
+q_target, opt)`` with its Q dict (``{'mlp': ...}`` or ``enc``/``val1``/
+``adv1``/``val2``/``adv2``), ``DDPGState(act, act_target, cri, cri_target,
+act_opt, cri_opt)`` and the replay ``BufferState`` (without the PER tree and
+the cumulative-return column, which are None there); the port's flat
+buffers follow ``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``.
 """
 
 from __future__ import annotations
@@ -49,16 +56,17 @@ def _field(tree, name: str, index: int):
     return getattr(tree, name) if hasattr(tree, name) else tree[index]
 
 
+def _flat_pairs(pairs) -> np.ndarray:
+    """One flat float32 vector of ``[(w (in, out), b), ...]`` as ``W (out, in), b``."""
+    parts = [p for w, b in pairs for p in (np.asarray(w).T, np.asarray(b))]
+    return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
+
+
 def _flat_act(act) -> np.ndarray:
-    parts = [p for w, b in act['mlp'] for p in (np.asarray(w).T, np.asarray(b))]
+    flat = _flat_pairs(act['mlp'])
     if 'std_log' in act:
-        parts.append(np.asarray(act['std_log']))
-    return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
-
-
-def _flat_cri(cri) -> np.ndarray:
-    parts = [p for w, b in cri for p in (np.asarray(w).T, np.asarray(b))]
-    return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
+        flat = np.concatenate([flat, np.asarray(act['std_log'], np.float32).reshape(-1)])
+    return flat
 
 
 def ppo_state_from_numpy(tree, device) -> PPOState:
@@ -69,19 +77,13 @@ def ppo_state_from_numpy(tree, device) -> PPOState:
     net_dims = tuple(np.asarray(w).shape[1] for w, _ in mlp[:-1])
     action_dim = np.asarray(mlp[-1][0]).shape[1]
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
-    act_flat, cri_flat = t(_flat_act(act)), t(_flat_cri(cri))
+    act_flat, cri_flat = t(_flat_act(act)), t(_flat_pairs(cri))
     a_mod, c_mod = modules_from_flat(act_flat, cri_flat, state_dim, net_dims, action_dim,
                                      discrete='std_log' not in act)
 
-    def adam(opt, flatten):
-        st = opt[1][0]
-        mu, nu = _field(st, 'mu', 1), _field(st, 'nu', 2)
-        return AdamState(int(np.asarray(_field(st, 'count', 0))),
-                         t(flatten(mu)), t(flatten(nu)))
-
     return PPOState(a_mod, c_mod, act_flat, cri_flat,
-                    adam(_field(tree, 'act_opt', 2), _flat_act),
-                    adam(_field(tree, 'cri_opt', 3), _flat_cri),
+                    _adam_from(_field(tree, 'act_opt', 2), _flat_act, t),
+                    _adam_from(_field(tree, 'cri_opt', 3), _flat_pairs, t),
                     t(_field(tree, 'norm_avg', 4)), t(_field(tree, 'norm_std', 5)))
 
 
@@ -135,3 +137,125 @@ def env_state_from_numpy(state_class, tree, device):
     carry the same names, as tensors on ``device`` (dtypes kept)."""
     return state_class(*[torch.tensor(np.asarray(getattr(tree, name)), device=device)
                          for name in state_class._fields])
+
+
+# ------------------------------------------------------------ off-policy
+
+class NumpyDQNState(NamedTuple):
+    q: dict
+    q_target: dict
+    opt: tuple
+
+
+class NumpyDDPGState(NamedTuple):
+    act: list
+    act_target: list
+    cri: list
+    cri_target: list
+    act_opt: tuple
+    cri_opt: tuple
+
+
+class NumpyBufferState(NamedTuple):
+    states: np.ndarray
+    actions: np.ndarray
+    rewards: np.ndarray
+    undones: np.ndarray
+    unmasks: np.ndarray
+    ptr: np.ndarray
+    size: np.ndarray
+
+
+def _pairs(flat: torch.Tensor, shapes) -> list:
+    """``[(w (in, out), b), ...]`` numpy snapshots of a flat buffer whose leaf
+    shapes are ``W (out, in), b (out,)`` pairs."""
+    from ..ops.nets import split_flat
+    leaves = [x.detach().cpu().numpy().copy() for x in split_flat(flat, shapes)]
+    return [(leaves[i].T.copy(), leaves[i + 1]) for i in range(0, len(leaves), 2)]
+
+
+def _dqn_groups(twin: bool, duel: bool) -> list:
+    """The JAX Q dict's keys in the kernel leaf order (``dqn_flatten``)."""
+    if not (twin or duel):
+        return ['mlp']
+    keys = ['enc', 'val1'] + (['adv1'] if duel else [])
+    if twin:
+        keys += ['val2'] + (['adv2'] if duel else [])
+    return keys
+
+
+def _dqn_q_flat(q: dict, twin: bool, duel: bool) -> np.ndarray:
+    return _flat_pairs([pair for key in _dqn_groups(twin, duel) for pair in q[key]])
+
+
+def _dqn_q_tree(flat: torch.Tensor, twin: bool, duel: bool, shapes) -> dict:
+    pairs = _pairs(flat, shapes)
+    if not (twin or duel):
+        return {'mlp': pairs}
+    out, i = {}, 0
+    for key in _dqn_groups(twin, duel):
+        n = 2 if key == 'enc' else 1
+        out[key] = pairs[i:i + n]
+        i += n
+    return out
+
+
+def _adam_tree(opt, unflat) -> tuple:
+    return ((), (NumpyAdamState(np.asarray(opt.count, np.int32), unflat(opt.mu),
+                                unflat(opt.nu)), ()))
+
+
+def _adam_from(opt, flatten, t) -> AdamState:
+    st = opt[1][0]
+    return AdamState(int(np.asarray(_field(st, 'count', 0))),
+                     t(flatten(_field(st, 'mu', 1))), t(flatten(_field(st, 'nu', 2))))
+
+
+def dqn_state_from_numpy(tree, device, twin: bool, duel: bool):
+    """The port's ``DQNState`` from a numpy JAX ``DQNState``."""
+    from ..agents.dqn import DQNState
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    flat = lambda q: _dqn_q_flat(q, twin, duel)  # noqa: E731
+    return DQNState(t(flat(_field(tree, 'q', 0))), t(flat(_field(tree, 'q_target', 1))),
+                    _adam_from(_field(tree, 'opt', 2), flat, t))
+
+
+def dqn_state_to_numpy(state, shapes, twin: bool, duel: bool) -> NumpyDQNState:
+    """The JAX package's nesting of a port ``DQNState`` whose flat buffers have
+    the leaf ``shapes`` (``ops/nets.py:dqn_param_shapes``), as numpy."""
+    unflat = lambda flat: _dqn_q_tree(flat, twin, duel, shapes)  # noqa: E731
+    return NumpyDQNState(unflat(state.q), unflat(state.q_target), _adam_tree(state.opt, unflat))
+
+
+def ddpg_state_from_numpy(tree, device):
+    """The port's ``DDPGState`` from a numpy JAX ``DDPGState``."""
+    from ..agents.ddpg_td3 import DDPGState
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    f = lambda name, i: t(_flat_pairs(_field(tree, name, i)))  # noqa: E731
+    return DDPGState(f('act', 0), f('act_target', 1), f('cri', 2), f('cri_target', 3),
+                     _adam_from(_field(tree, 'act_opt', 4), _flat_pairs, t),
+                     _adam_from(_field(tree, 'cri_opt', 5), _flat_pairs, t))
+
+
+def ddpg_state_to_numpy(state, act_shapes, cri_shapes) -> NumpyDDPGState:
+    """The JAX package's nesting of a port ``DDPGState``, as numpy."""
+    ua = lambda flat: _pairs(flat, act_shapes)  # noqa: E731
+    uc = lambda flat: _pairs(flat, cri_shapes)  # noqa: E731
+    return NumpyDDPGState(ua(state.act), ua(state.act_target), uc(state.cri),
+                          uc(state.cri_target), _adam_tree(state.act_opt, ua),
+                          _adam_tree(state.cri_opt, uc))
+
+
+def buffer_state_from_numpy(tree, device):
+    """The port's ``BufferState`` from a numpy JAX ``BufferState`` (whose
+    ``per_tree`` and ``cum_rewards`` are None)."""
+    from ..train.replay_buffer import BufferState
+    t = lambda name: torch.tensor(np.asarray(getattr(tree, name)), device=device)  # noqa: E731
+    return BufferState(*[t(name) for name in BufferState._fields[:5]],
+                       ptr=int(np.asarray(tree.ptr)), size=int(np.asarray(tree.size)))
+
+
+def buffer_state_to_numpy(buf) -> NumpyBufferState:
+    """The JAX package's leaves of a port ``BufferState``, as numpy."""
+    return NumpyBufferState(*[x.detach().cpu().numpy().copy() for x in buf[:5]],
+                            ptr=np.asarray(buf.ptr, np.int32), size=np.asarray(buf.size, np.int32))

@@ -2,6 +2,7 @@
 
     python scripts/torch_profile_round.py [--rounds 5] [--env pendulum|cartpole|hopper|
         chasing|chasing_discrete] [--agent AgentPPO|AgentDiscretePPO|AgentA2C|AgentDiscreteA2C]
+    python scripts/torch_profile_round.py --path td3_hopper|dqn_cartpole [--rounds 5]
 
 Builds a main path (by default PPO on Pendulum-v1; ``--env cartpole --agent
 AgentDiscretePPO`` is the discrete one) at 4096 envs, horizon 64, batch
@@ -10,6 +11,13 @@ under ``torch.profiler`` and prints one JSON line: the host-clock round
 time, the device-busy time per round (the sum of kernel durations; one
 stream, so kernels do not overlap), the idle share, and the kernels
 grouped by name with their count and total time.
+
+``--path`` builds an off-policy main path instead: ``td3_hopper`` (TD3 on
+HopperSlip-v0, 1024 envs, horizon 32, ring 4000 rows, batch 1024, repeat 4,
+15 updates per round at a full ring) or ``dqn_cartpole`` (DQN on CartPole-v1,
+64 envs, horizon 64, ring 20,000 rows, batch 128, repeat 1, 156 updates per
+round), net (128, 128), and runs rounds until the ring is full before the
+profiled ones.
 """
 
 import argparse
@@ -30,6 +38,9 @@ ENVS = {'pendulum': ('PendulumEnv', 'Pendulum-v1', 200, 3, 1, False),
         'chasing': ('PointChasingVecEnv', 'PointChasingVecEnv', 1024, 8, 2, False),
         'chasing_discrete': ('PointChasingDiscreteEnv', 'PointChasingDiscreteEnv', 1024, 8, 9,
                              True)}
+# off-policy main path -> (agent, env key, envs, horizon, ring rows, batch, repeat, lr, gamma)
+PATHS = {'td3_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
+         'dqn_cartpole': ('AgentDQN', 'cartpole', 64, 64, 20000, 128, 1.0, 1e-3, 0.99)}
 
 
 def main():
@@ -37,7 +48,12 @@ def main():
     parser.add_argument('--rounds', type=int, default=5)
     parser.add_argument('--env', default='pendulum', choices=sorted(ENVS))
     parser.add_argument('--agent', default='AgentPPO')
+    parser.add_argument('--path', default=None, choices=sorted(PATHS))
     opts = parser.parse_args()
+    if opts.path:
+        opts.agent, opts.env, num_envs, horizon, ring, batch, repeat, lr, gamma = PATHS[opts.path]
+    else:
+        num_envs, horizon, ring, batch, repeat, lr, gamma = 4096, 64, None, 512, 8.0, None, None
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -50,16 +66,21 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     env_class, env_name, max_step, state_dim, action_dim, if_discrete = ENVS[opts.env]
     args = Config(getattr(agents, opts.agent), getattr(envs, env_class),
-                  {'env_name': env_name, 'num_envs': 4096, 'max_step': max_step,
+                  {'env_name': env_name, 'num_envs': num_envs, 'max_step': max_step,
                    'state_dim': state_dim, 'action_dim': action_dim,
                    'if_discrete': if_discrete})
-    args.horizon_len, args.batch_size, args.repeat_times = 64, 512, 8.0
+    args.horizon_len, args.batch_size, args.repeat_times = horizon, batch, repeat
     args.net_dims, args.random_seed = (128, 128), 0
+    if opts.path:
+        args.buffer_size, args.learning_rate, args.gamma = ring, lr, gamma
     ctx = build_training(args)
     carry = ctx.carry
-    for _ in range(3):
+    warmup = 3 if ctx.rb is None else -(-ctx.rb.max_size // horizon) + 1
+    t0 = time.perf_counter()
+    for _ in range(warmup):
         carry, _ = ctx.round_fn(carry)
     torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -76,7 +97,10 @@ def main():
     busy_ms = sum(v[1] for v in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(json.dumps({
-        'device': smi, 'env': env_name, 'agent': opts.agent, 'rounds': opts.rounds,
+        'device': smi, 'env': env_name, 'agent': opts.agent, 'path': opts.path,
+        'envs': num_envs, 'horizon': horizon, 'batch': batch,
+        'ring_rows': None if ctx.rb is None else carry.buf_state.size,
+        'warmup_rounds': warmup, 'warmup_s': warmup_s, 'rounds': opts.rounds,
         'round_ms_host': wall_ms / opts.rounds,
         'device_busy_ms_per_round': busy_ms / opts.rounds,
         'idle_share': 1.0 - busy_ms / wall_ms,
