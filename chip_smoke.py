@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives ``elegantrl_tpu_torch``'s main paths on the card, PPO on Pendulum-v1
-and discrete PPO on CartPole-v1, and holds each hand-written kernel against
-its plain PyTorch version:
+Drives ``elegantrl_tpu_torch``'s main paths on the card (PPO on Pendulum-v1,
+discrete PPO on CartPole-v1, TD3 and SAC on HopperSlip-v0, DQN on
+CartPole-v1) and holds each hand-written kernel against its plain PyTorch
+version:
 
 1. device: name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` for ``sm_90a`` on every ``ops/csrc/*.cu``, all at once;
@@ -30,15 +31,20 @@ its plain PyTorch version:
     PointChasingDiscrete, so every agent class and env body has run on the
     card through the entry point;
 11. the off-policy family (``offpolicy_phases``): the off-policy rollout
-    kernel's nine (body, head) instantiations against their plain version
-    (``k6_vs_plain``), the DQN-family update chunk's four variants
-    (``k9_vs_plain``) and the DDPG/TD3 chunk (``k7_vs_plain``) against theirs;
-    the two off-policy main paths at full width, TD3 on HopperSlip (1024
-    envs, H=32, ring 4000 rows, batch 1024, repeat 4) and DQN on CartPole (64
-    envs, H=64, ring 20,000 rows, batch 128, repeat 1), each with a small
-    round against the CPU, the ring filled by kernel rollouts inserted
+    kernel's fifteen (body, head) instantiations, the ddpg, sac and modsac
+    heads on the three continuous bodies and the DQN heads on the two
+    discrete ones, against their plain version (``k6_vs_plain``, both noise
+    modes), the DQN-family update chunk's four variants (``k9_vs_plain``),
+    the DDPG/TD3 chunk (``k7_vs_plain``) and the SAC/ModSAC chunk
+    (``k8_vs_plain``) against theirs; the three off-policy main paths at full
+    width, TD3 on HopperSlip (1024 envs, H=32, ring 4000 rows, batch 1024,
+    repeat 4), DQN on CartPole (64 envs, H=64, ring 20,000 rows, batch 128,
+    repeat 1) and SAC on HopperSlip (path A's sizes, E = 4), each with a
+    small round against the CPU, the ring filled by kernel rollouts inserted
     without updates, then 10 timed rounds; ``train_agent`` for every
-    off-policy agent class; the card refusing the plain update;
+    off-policy agent class (SAC and ModSAC on all three continuous bodies,
+    SAC on Pendulum at batch 64 through the PyTorch update); the card
+    refusing the plain update;
 12. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -98,10 +104,23 @@ PATH_A = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-
               updates=15)
 PATH_B = dict(envs=64, horizon=64, buffer=20000, batch=128, repeat=1.0, lr=1e-3,
               updates=156)
+# path C, SAC on HopperSlip: the JAX package's sac_hopper_shape (E = 4)
+PATH_C = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-4,
+              updates=15)
 K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVecEnv', 'ddpg'),
             ('CartPole-v1', 'dqn'), ('CartPole-v1', 'dqn_enc'), ('CartPole-v1', 'dqn_duel'),
             ('PointChasingDiscreteEnv', 'dqn'), ('PointChasingDiscreteEnv', 'dqn_enc'),
-            ('PointChasingDiscreteEnv', 'dqn_duel'))
+            ('PointChasingDiscreteEnv', 'dqn_duel'),
+            ('Pendulum-v1', 'sac'), ('HopperSlip-v0', 'sac'), ('PointChasingVecEnv', 'sac'),
+            ('Pendulum-v1', 'modsac'), ('HopperSlip-v0', 'modsac'),
+            ('PointChasingVecEnv', 'modsac'))
+# the update chunks' main-path variant for each rollout head
+CHUNK_VARIANT = {'ddpg': 'td3', 'dqn': 'dqn', 'sac': 'sac'}
+
+
+def std_clip(head):
+    """The runner's log_std clip of the rollout's SAC heads."""
+    return (-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0)
 
 
 def offpolicy_smem_pairs():
@@ -122,6 +141,11 @@ def offpolicy_smem_pairs():
         out[f'ddpg_update[S={S},A={A},E={E}]'] = (
             fo._ddpg_library().ddpg_update_smem_bytes(S, A, *OFF_NET, E),
             fo.ddpg_smem_bytes(S, A, *OFF_NET, E))
+    for S, A in ((6, 2), (3, 1), (8, 2)):
+        for E in (4, 8):
+            out[f'sac_update[S={S},A={A},E={E}]'] = (
+                fo._sac_library().sac_update_smem_bytes(S, A, *OFF_NET, E),
+                fo.sac_smem_bytes(S, A, *OFF_NET, E))
     return out
 
 
@@ -131,19 +155,19 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     import io
     from elegantrl_tpu_torch import Config, build_training, train_agent
     from elegantrl_tpu_torch.agents import (AgentD3QN, AgentDDPG, AgentDoubleDQN, AgentDQN,
-                                            AgentDuelingDQN, AgentTD3)
+                                            AgentDuelingDQN, AgentModSAC, AgentSAC, AgentTD3)
     from elegantrl_tpu_torch.agents.off_policy import offpolicy_update_times
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
                                           PointChasingDiscreteEnv, PointChasingVecEnv)
     from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
     from elegantrl_tpu_torch.ops.nets import (ddpg_param_shapes, dqn_param_shapes, init_flat,
-                                              split_flat)
+                                              sac_act_shapes, sac_cri_shapes, split_flat)
     D1, D2 = OFF_NET
     env_classes = {'Pendulum-v1': PendulumEnv, 'HopperSlip-v0': HopperEnv,
                    'PointChasingVecEnv': PointChasingVecEnv, 'CartPole-v1': CartPoleEnv,
                    'PointChasingDiscreteEnv': PointChasingDiscreteEnv}
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
-    counters = (fr.offpolicy_rollout, fo.dqn_chunk, fo.ddpg_chunk)
+    counters = (fr.offpolicy_rollout, fo.dqn_chunk, fo.ddpg_chunk, fo.sac_chunk)
 
     def reset_counts():
         for fn in counters:
@@ -154,8 +178,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                 fn.launches_by_variant[k] = 0
 
     def read_counts():
-        return (dict(fr.offpolicy_rollout.launches_by_kernel),
-                dict(fo.dqn_chunk.launches_by_variant), dict(fo.ddpg_chunk.launches_by_variant))
+        """The rollout launches by (env, head), and the chunks of every update
+        variant."""
+        chunks = {}
+        for fn in counters[1:]:
+            chunks.update(fn.launches_by_variant)
+        return dict(fr.offpolicy_rollout.launches_by_kernel), chunks
 
     def cuda_ms_(fn, reps, warmup=1):
         return cuda_ms(torch, fn, reps, warmup)
@@ -163,14 +191,15 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     def flat_for(body, head, seed_):
         """The head's net as the agents initialise it, from a seed."""
         S, A = body.state_dim, body.action_dim
+        heads = {'sac': [((D2, 2 * A), 0.1)], 'modsac': [((D2, A), 0.1)] * 2,
+                 'dqn_duel': [((D2, A), 0.1), ((D2, 1), 0.1)]}.get(head, [((D2, A), 0.1)])
         nets = ([((S, D1, D2, A), 0.1)] if head in ('ddpg', 'dqn')
-                else [((S, D1, D2), None), ((D2, A), 0.1)]
-                + ([((D2, 1), 0.1)] if head == 'dqn_duel' else []))
+                else [((S, D1, D2), None)] + heads)
         return init_flat(torch.Generator().manual_seed(seed_), nets, dev)
 
     def k6_noise(body, head, gen, h, n):
         A, n_env = body.action_dim, body.n_step + body.n_reset
-        if head == 'ddpg':
+        if head in fr.CONTINUOUS_HEADS:
             return torch.cat([torch.randn((h, A, n), generator=gen, device=dev),
                               torch.rand((h, n_env, n), generator=gen, device=dev)], 1).contiguous()
         return torch.rand((h, 2 + n_env, n), generator=gen, device=dev)
@@ -191,9 +220,10 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
 
     def k6_bound(body, head, n, h, n_params):
         S, A = body.state_dim, body.action_dim
-        flop = 2 * (S * D1 + D1 * D2 + D2 * A + (D2 if head == 'dqn_duel' else 0)) * n * h
+        out_rows = {'dqn_duel': A + 1, 'sac': 2 * A, 'modsac': 2 * A}.get(head, A)
+        flop = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
         rows = body.n_f32 + body.n_i32
-        a_out = A if head == 'ddpg' else 1
+        a_out = A if head in fr.CONTINUOUS_HEADS else 1
         nbytes = 4 * (n_params + 2 + 2 * rows * n + n * h * (S + a_out + 3))
         return bound(flop, nbytes)
 
@@ -209,7 +239,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     k6 = {}
     for env_name, head in K6_PAIRS:
         body = fr.KERNEL_ENV_BODIES[env_name]
-        path = PATH_A if head == 'ddpg' else PATH_B
+        path = PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B
         n, h = path['envs'], path['horizon']
         tag = f'fused_rollout[{env_name},{head}]'
         g = torch.Generator(device=dev).manual_seed(31)
@@ -222,7 +252,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         f0, i0 = f0.contiguous(), i0.contiguous()
         nz = k6_noise(body, head, g, h, n)
         kw = dict(body=body, head=head, net_dims=OFF_NET, reward_scale=1.0, noise_std=0.1,
-                  explore_rate=0.25)
+                  explore_rate=0.25, std_clip=std_clip(head))
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
@@ -411,9 +441,93 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
              do_act='alternating', **res, tolerance={'update': 5e-3, 'objectives': 1e-3})
         k7[variant] = res
 
+    # ---- k8_vs_plain: SAC (E = 4) and ModSAC (E = 8) at path C's shapes, one
+    # chunk from update 0 (ModSAC's gate skips some steps), the last 4 steps
+    # invalid.  Tolerances as k7: buffers, leaves and the temperature's state
+    # within 5e-3 of the largest plain update, objectives 1e-3 relative on
+    # the valid steps; the counts and the gate column exactly; the invalid
+    # steps leave every buffer bit-identical.
+    k8 = {}
+    S, A, B = 6, 2, PATH_C['batch']
+    for modsac, E in ((False, 4), (True, 8)):
+        variant = 'modsac' if modsac else 'sac'
+        g = torch.Generator(device=dev).manual_seed(47)
+        act_shapes, cri_shapes = sac_act_shapes(S, OFF_NET, A, modsac), sac_cri_shapes(
+            S, A, OFF_NET, E)
+        Pa, Pc = (sum(math.prod(x) for x in sh) for sh in (act_shapes, cri_shapes))
+        pa, ta, mua, nua = warm_buffers(g, Pa, 4)
+        pc, tc, muc, nuc = warm_buffers(g, Pc, 4)
+        misc = torch.tensor([-1.0, 1e-3, 1e-6, 9.0, 5.0], device=dev)
+        base = [pa, pc, ta if modsac else None, tc, mua, muc, nua, nuc, misc]
+        blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                  torch.randn((C, S, B), generator=g, device=dev),
+                  torch.rand((C, A, B), generator=g, device=dev) * 2 - 1,
+                  torch.randn((C, B), generator=g, device=dev),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.05).float(),
+                  (torch.rand((C, B), generator=g, device=dev) > 0.02).float(),
+                  torch.randn((C, A, B), generator=g, device=dev),
+                  torch.randn((C, A, B), generator=g, device=dev)]
+        idx = torch.arange(C, device=dev)
+        hyper = dict(net_dims=OFF_NET, modsac=modsac, num_ensembles=E, gamma=0.99, tau=5e-3,
+                     lr=3e-4, clip_grad=3.0,
+                     target_entropy=-math.log(A) if modsac else math.log(A),
+                     std_clip=std_clip('modsac' if modsac else 'sac'))
+        runs = {}
+        for fn in (fo.sac_chunk, fo.sac_chunk_reference):
+            bufs = [None if b is None else b.clone() for b in base]
+            objs = fn(*bufs, *blocks, fo.sac_bcv(9, 9, idx, VALID), **hyper)
+            torch.cuda.synchronize()
+            runs[fn.__name__] = (bufs, objs)
+        (kb, ko), (pb, po) = runs['sac_chunk'], runs['sac_chunk_reference']
+        pairs = [(k, p, b, sh) for k, p, b, sh in zip(kb, pb, base, [act_shapes, cri_shapes] * 4)
+                 if b is not None]
+        rel = [float(((k - b) - (p - b)).abs().max() / (p - b).abs().max().clamp_min(1e-30))
+               for k, p, b, _ in pairs]
+        leaf_rel = [[float((dk - dp).abs().max() / dp.abs().max().clamp_min(1e-30))
+                     for dk, dp in zip(split_flat(k - b, sh), split_flat(p - b, sh))]
+                    for k, p, b, sh in pairs]
+        err = max(float(((k - b) - (p - b)).abs().max()) for k, p, b, _ in pairs)
+        dm = (kb[8] - misc)[:3] - (pb[8] - misc)[:3]
+        temp_rel = [float(dm[i].abs() / (pb[8][i] - misc[i]).abs().clamp_min(1e-30))
+                    for i in range(3)]
+        obj_rel = float(((ko - po).abs() / po.abs().clamp_min(1e-6))[:VALID, :2].max())
+        counts = dict(kernel=kb[8][3:].tolist(), plain=pb[8][3:].tolist())
+        gate = ko[:, 2].tolist()
+        short = [None if b is None else b.clone() for b in base]
+        fo.sac_chunk(*short, *[x[:VALID] for x in blocks], fo.sac_bcv(9, 9, idx, VALID)[:VALID],
+                     **hyper)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(short, kb) if a is not None)
+        assert all(r <= 5e-3 for r in rel + temp_rel), (variant, rel, temp_rel)
+        assert obj_rel <= 1e-3, (variant, obj_rel)
+        assert counts['kernel'] == counts['plain'] and torch.equal(ko[:, 2], po[:, 2]), (
+            variant, counts, gate, po[:, 2].tolist())
+        assert (0.0 in gate[:VALID]) == modsac and gate[VALID:] == [0.0] * (C - VALID), gate
+        assert identical
+        bufs = [None if b is None else b.clone() for b in base]
+        bcv_c = fo.sac_bcv(9, 9, idx, C)
+        ms = cuda_ms_(lambda: fo.sac_chunk(*bufs, *blocks, bcv_c, **hyper), reps=5, warmup=1)
+        plain = cuda_ms_(lambda: fo.sac_chunk_reference(*bufs, *blocks, bcv_c, **hyper), reps=1)
+        # per sample: 5 actor and 6 ensemble forward-equivalents (two actor
+        # forwards and the target ensemble for the label and alpha; the online
+        # ensemble forward and backward; the actor forward, the fresh target
+        # ensemble forward and backward to its inputs, the actor backward)
+        f_a = 2 * B * (S * D1 + D1 * D2 + D2 * 2 * A)
+        f_c = 2 * B * ((S + A) * D1 + E * (D1 * D2 + D2))
+        b_ms, b_by = bound((5 * f_a + 6 * f_c) * C,
+                           4 * (8 * (Pa + Pc) + C * B * (2 * S + 3 * A + 3) + 7 * C + 3 * C + 10))
+        res = dict(rel_update_diff=rel, leaf_rel_update_diff=leaf_rel, max_abs_err=err,
+                   temperature_rel_diff=temp_rel, objective_rel_diff=obj_rel, counts=counts,
+                   do_act=gate, invalid_steps_bit_identical=identical, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k8_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A, **res,
+             tolerance={'update': 5e-3, 'temperature': 5e-3, 'objectives': 1e-3})
+        k8[variant] = res
+
     # ---- the main paths
     td3_hopper = (AgentTD3, HopperEnv, 'HopperSlip-v0', 6, 2, False, 1000)
     dqn_cartpole = (AgentDQN, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
+    sac_hopper = (AgentSAC,) + td3_hopper[1:]
 
     def off_args(task, num_envs, horizon, batch, repeat, buffer_size, lr, **hyper):
         agent_class, env_class, env_name, S_, A_, discrete, max_step = task
@@ -429,7 +543,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     def small_round_vs_cpu(task, head, num_envs, horizon, batch, repeat, phase, **hyper):
         """A small round on the card (the rollout kernel, the update chunk)
         against the same round on the CPU (their plain versions): the same
-        weights, env state, rollout noise, minibatch rows and smoothing noise.
+        weights, env state, rollout noise, minibatch rows and the update's noise
+        (TD3's smoothing noise; SAC's next-action and policy-gradient noise).
         Tolerance: objectives 1e-3 relative, updates 2e-2 of each buffer's
         largest."""
         body = fr.KERNEL_ENV_BODIES[task[2]]
@@ -438,7 +553,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         nz = k6_noise_cpu(body, head, g3, horizon, num_envs)
         U = offpolicy_update_times(horizon, repeat, batch)
         rows = torch.randint(0, horizon - 1, (U, batch // num_envs), generator=g3)
-        unoise = 0.1 * torch.randn((U, batch, A_), generator=g3) if head == 'ddpg' else None
+        unoise = {'ddpg': 0.1 * torch.randn((U, batch, A_), generator=g3),
+                  'sac': torch.randn((U, 2, batch, A_), generator=g3)}.get(head)
         small, start = {}, None
         for device in ('card', 'cpu'):
             a = off_args(task, num_envs, horizon, batch, repeat, 4 * horizon, 1e-3, **hyper)
@@ -471,7 +587,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
 
     def k6_noise_cpu(body, head, gen, h, n):
         A_, n_env = body.action_dim, body.n_step + body.n_reset
-        if head == 'ddpg':
+        if head in fr.CONTINUOUS_HEADS:
             return torch.cat([torch.randn((h, A_, n), generator=gen),
                               torch.rand((h, n_env, n), generator=gen)], 1)
         return torch.rand((h, 2 + n_env, n), generator=gen)
@@ -483,7 +599,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         body = fr.KERNEL_ENV_BODIES[task[2]]
         carry, rb = ctx.carry, ctx.rb
         # fill the ring: kernel rollouts inserted without updates
-        flat = carry.agent_state.act if head == 'ddpg' else carry.agent_state.q
+        flat = carry.agent_state.act if head in fr.CONTINUOUS_HEADS else carry.agent_state.q
         f, i = (x.contiguous() for x in body.pack(carry.env_state))
         buf, fills, t0 = carry.buf_state, 0, time.time()
         while buf.size < rb.max_size:
@@ -513,16 +629,15 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
         end.record()
         torch.cuda.synchronize()
-        by_kernel, by_dqn, by_ddpg = read_counts()
+        by_kernel, by_chunk = read_counts()
         round_ms = start.elapsed_time(end) / ROUNDS
         mvals = torch.stack(metrics).cpu()
         moved = max(float((x - y).abs().max()) for x, y in zip(
             [x for x in carry.agent_state if isinstance(x, torch.Tensor)], p0))
         chunks = -(-U // 16)
-        update_counts = by_ddpg if head == 'ddpg' else by_dqn
-        want_update = {('td3' if head == 'ddpg' else 'dqn'): ROUNDS * chunks}
+        update_counts = {k: v for k, v in by_chunk.items() if v}
         assert by_kernel == {f'{task[2]},{head}': ROUNDS}, by_kernel
-        assert {k: v for k, v in update_counts.items() if v} == want_update, update_counts
+        assert update_counts == {CHUNK_VARIANT[head]: ROUNDS * chunks}, update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
@@ -549,11 +664,16 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         fused_rollout_ms=k6[('CartPole-v1', 'dqn')]['ms'],
         dqn_update_ms=k9['dqn']['ms'], dqn_update_plain_ms=k9['dqn']['plain_ms']),
         explore_rate=0.25)
+    small_round_vs_cpu(sac_hopper, 'sac', 256, 16, 1024, 128.0, 'main_path_sac_hopper_small_vs_cpu',
+                       gamma=0.99)
+    launches_c = timed_rounds(sac_hopper, 'sac', PATH_C, 'main_path_sac_hopper', dict(
+        fused_rollout_ms=k6[('HopperSlip-v0', 'sac')]['ms'],
+        sac_update_ms=k8['sac']['ms'], sac_update_plain_ms=k8['sac']['plain_ms']), gamma=0.99)
 
     # ---- no plain update on the card: the kernel-eligible batch with the
-    # kernel refused raises, for TD3 and for DQN
+    # kernel refused raises, for TD3, DQN and SAC
     refused = {}
-    for task, batch in ((td3_hopper, 1024), (dqn_cartpole, 128)):
+    for task, batch in ((td3_hopper, 1024), (dqn_cartpole, 128), (sac_hopper, 1024)):
         a = off_args(task, 256, 16, batch, 1.0, 64, 1e-3, use_fused_update=False)
         try:
             build_training(a)
@@ -563,7 +683,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             refused[task[0].__name__] = str(e)[:80]
     emit(phase='no_plain_path_on_card', offpolicy_refused=refused)
 
-    # ---- the entry point for every off-policy agent class
+    # ---- the entry point for every off-policy agent class; SAC at batch 64
+    # runs the PyTorch update, and every SAC and ModSAC rollout pair runs
     pendulum = (AgentTD3, PendulumEnv, 'Pendulum-v1', 3, 1, False, 200)
     chasing = (AgentDDPG, PointChasingVecEnv, 'PointChasingVecEnv', 8, 2, False, 1024)
     cart = (None, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
@@ -571,7 +692,10 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     runs = [(pendulum, 128), (chasing, 128), ((AgentDQN,) + cart[1:], 64),
             ((AgentDQN,) + chasing_disc[1:], 128), ((AgentDoubleDQN,) + cart[1:], 128),
             ((AgentDoubleDQN,) + chasing_disc[1:], 128), ((AgentDuelingDQN,) + cart[1:], 128),
-            ((AgentD3QN,) + chasing_disc[1:], 128)]
+            ((AgentD3QN,) + chasing_disc[1:], 128),
+            ((AgentSAC,) + pendulum[1:], 64), ((AgentSAC,) + td3_hopper[1:], 128),
+            ((AgentSAC,) + chasing[1:], 128), ((AgentModSAC,) + pendulum[1:], 128),
+            ((AgentModSAC,) + td3_hopper[1:], 128), ((AgentModSAC,) + chasing[1:], 128)]
     entry_rollout, entry_update = {}, {}
     for task, batch in runs:
         with tempfile.TemporaryDirectory() as cwd:
@@ -583,31 +707,33 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             t0 = time.time()
             with contextlib.redirect_stdout(text):
                 res = train_agent(a)
-            by_kernel, by_dqn, by_ddpg = read_counts()
+            by_kernel, by_chunk = read_counts()
             pytorch_update = 'use_fused_update: PyTorch path' in text.getvalue()
             assert res['recorder'].shape[0] == 2 and math.isfinite(res['max_r'])
             assert pytorch_update == (batch == 64), (task[0].__name__, batch)
-            n_chunks = sum(by_dqn.values()) + sum(by_ddpg.values())
-            assert (n_chunks == 0) == (batch == 64), (task[0].__name__, by_dqn, by_ddpg)
+            assert (sum(by_chunk.values()) == 0) == (batch == 64), (task[0].__name__, by_chunk)
+            assert sum(by_kernel.values()) > 0, (task[0].__name__, by_kernel)
             for k, v in by_kernel.items():
                 entry_rollout[k] = entry_rollout.get(k, 0) + v
-            for k, v in list(by_dqn.items()) + list(by_ddpg.items()):
+            for k, v in by_chunk.items():
                 entry_update[k] = entry_update.get(k, 0) + v
             emit(phase='train_agent', agent=task[0].__name__, env=task[2], envs=128, batch=batch,
                  evaluations=int(res['recorder'].shape[0]), total_step=int(res['total_step']),
                  max_r=float(res['max_r']), seconds=round(time.time() - t0, 3),
                  update_path='pytorch (the JAX package runs this batch as XLA ops)'
                  if pytorch_update else 'kernel', rollout_launches=by_kernel,
-                 update_chunks={k: v for k, v in list(by_dqn.items()) + list(by_ddpg.items())
-                                if v})
+                 update_chunks={k: v for k, v in by_chunk.items() if v})
 
     # ---- the kernels line's entries
     kernels = []
+    main_rollouts = {**launches_a[0], **launches_b[0], **launches_c[0]}
     for (env_name, head), k in k6.items():
         tag = f'{env_name},{head}'
-        main = (launches_a[0] if head == 'ddpg' else launches_b[0]).get(tag)
+        main = main_rollouts.get(tag)
         kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
-                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:1006',
+                        'replaces': ('elegantrl_tpu/ops/pallas_rollout.py:1060'
+                                     if head in ('sac', 'modsac')
+                                     else 'elegantrl_tpu/ops/pallas_rollout.py:1006'),
                         'launches': main if main else entry_rollout.get(tag, 0),
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
                         'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
@@ -625,6 +751,14 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         kernels.append({'name': f'ddpg_update[{variant}]', 'route': 'cuda',
                         'source': 'elegantrl_tpu_torch/ops/csrc/ddpg_update.cu',
                         'replaces': 'elegantrl_tpu/ops/pallas_update.py:585', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+                        'library_ms': None})
+    for variant, k in k8.items():
+        n = launches_c[1].get(variant, 0) or entry_update.get(variant, 0)
+        kernels.append({'name': f'sac_update[{variant}]', 'route': 'cuda',
+                        'source': 'elegantrl_tpu_torch/ops/csrc/sac_update.cu',
+                        'replaces': 'elegantrl_tpu/ops/pallas_update.py:800', 'launches': n,
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
                         'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
                         'library_ms': None})
@@ -672,7 +806,8 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update'])
+    logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update',
+                              'sac_update'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that

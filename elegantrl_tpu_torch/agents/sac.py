@@ -1,0 +1,245 @@
+"""SAC and ModSAC (counterpart of ``elegantrl_tpu/agents/sac.py``, without
+the H-term variants, PER and ``cum_returns``).
+
+- SAC: the actor's encoder ``S -> net_dims`` with a trailing GELU feeds one
+  head emitting ``(mean, log_std)``, ``log_std`` clipped to (-16, 2); the
+  stored and stepped action is ``tanh(mean + exp(log_std) z)``; the logprob
+  is the reference's density at the mean with the ``log(1.000001 - a^2)``
+  correction;
+- ModSAC: the raw encoding feeds separate ``avg`` and ``std`` heads,
+  ``log_std`` clipped to (-20, 2), the softplus-form logprob, an actor
+  target, and the gate ``upd_a / (t + 1) < 1 / (2 - e^-1)`` on the actor
+  step (``upd_a`` restarts at update 0 of every round);
+- critic: an ensemble of Q heads (E = ``num_ensembles``, 4 for SAC, 8 for
+  ModSAC) over one linear encoder of ``[s, a]``; the TD target takes the
+  min over the target heads;
+- temperature: ``alpha_log`` (initially -1) with its own clip + Adam on
+  ``mean(alpha_log (te - logp))``, clipped to [-16, 2] after each step;
+  ``te = +log(A)`` for SAC and ``-log(A)`` for ModSAC, the reference's
+  quirks kept.
+
+The actor, critic and targets are flat buffers (``ops/nets.py:
+sac_act_shapes``, ``sac_cri_shapes``).  The update is the fused chunk
+(``ops/fused_offpolicy_update.py:sac_chunk``: the CUDA kernel on a card, its
+plain version on the CPU) wherever the JAX package takes its Pallas chunk,
+else the scan path of ``agents/off_policy.py`` (``torch.autograd``) on
+either device.  Both consume the same draws, made once per round: the
+minibatch ids and, per update, a next-action and a policy-gradient noise
+block, ``(U, 2, B, A)``.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import select_kernel
+from ..ops.fused_offpolicy_update import (SMEM_LIMIT, modsac_do_actor, sac_action_logprob,
+                                          sac_actor_dist, sac_actor_loss, sac_bcv, sac_chunk,
+                                          sac_critic_loss, sac_smem_bytes, sac_td_label)
+from ..ops.fused_update import value_and_grad_flat
+from ..ops.nets import init_flat, sac_act_shapes, sac_cri_shapes, soft_update_, split_flat
+from .base import AdamState, AgentDef, grad_step, make_optimizer
+from .dqn import FUSED_CHUNK, gather_chunk, row_sampling
+from .off_policy import make_offpolicy_update, offpolicy_update_times
+
+
+class SACState(NamedTuple):
+    act: torch.Tensor                  # flat actor (ops/nets.py:sac_act_shapes)
+    act_target: Optional[torch.Tensor]  # ModSAC only
+    cri: torch.Tensor                  # flat critic ensemble (sac_cri_shapes)
+    cri_target: torch.Tensor
+    act_opt: AdamState
+    cri_opt: AdamState
+    alpha_log: torch.Tensor            # () float32, updated in place
+    alpha_opt: AdamState               # over alpha_log: () moments
+    update_a: int                      # ModSAC's actor-update counter
+
+
+def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
+             modsac: bool = False, hterm: bool = False) -> AgentDef:
+    if hterm:
+        raise NotImplementedError('the PyTorch port has no H-term variant of SAC/ModSAC yet')
+    if bool(getattr(args, 'if_use_per', False)):
+        raise NotImplementedError('the PyTorch port has no prioritised replay yet')
+    if float(getattr(args, 'lambda_fit_cum_r', 0.0)) != 0.0:
+        raise NotImplementedError('lambda_fit_cum_r != 0 is not ported yet')
+    gamma = float(getattr(args, 'gamma', 0.99))
+    lr = float(getattr(args, 'learning_rate', 6e-5))
+    clip_grad = float(getattr(args, 'clip_grad_norm', 3.0))
+    tau = float(getattr(args, 'soft_update_tau', 5e-3))
+    batch_size = int(getattr(args, 'batch_size', 64))
+    repeat_times = float(getattr(args, 'repeat_times', 1.0))
+    row_sample = row_sampling(args, buffer, batch_size)
+    num_ensembles = int(getattr(args, 'num_ensembles', 8 if modsac else 4))
+    if modsac:
+        target_entropy = float(getattr(args, 'target_entropy', -math.log(action_dim)))
+    else:
+        target_entropy = math.log(action_dim)
+    std_clip = (-20.0, 2.0) if modsac else (-16.0, 2.0)
+    net_dims = tuple(int(d) for d in net_dims)
+    S, A, E = state_dim, action_dim, num_ensembles
+    act_shapes = sac_act_shapes(S, net_dims, A, modsac)
+    cri_shapes = sac_cri_shapes(S, A, net_dims, E)
+    optimizer = make_optimizer(lr, clip_grad)
+    sac = dict(modsac=modsac, std_clip=std_clip)
+    hypers = dict(net_dims=net_dims, num_ensembles=E, gamma=gamma, tau=tau, lr=lr,
+                  clip_grad=clip_grad, target_entropy=target_entropy, **sac)
+
+    def init(seed: int, device) -> SACState:
+        gen = torch.Generator().manual_seed(int(seed))
+        d = net_dims[-1]
+        heads = [((d, A), 0.1), ((d, A), 0.1)] if modsac else [((d, 2 * A), 0.1)]
+        act = init_flat(gen, [((S, *net_dims), None)] + heads, device)
+        cri = init_flat(gen, [((S + A, net_dims[0]), None)] + [((*net_dims, 1), 0.5)] * E,
+                        device)
+        alpha_log = torch.full((), -1.0, device=device)
+        return SACState(act, act.clone() if modsac else None, cri, cri.clone(),
+                        optimizer.init(act), optimizer.init(cri), alpha_log,
+                        optimizer.init(alpha_log), 0)
+
+    def explore_action(s: SACState, obs, gen):
+        mean, log_std = sac_actor_dist(split_flat(s.act, act_shapes), obs, **sac)
+        z = torch.randn(mean.shape, generator=gen, device=mean.device)
+        return torch.tanh(mean + torch.exp(log_std) * z), None
+
+    def greedy_action(s: SACState, obs):
+        return torch.tanh(sac_actor_dist(split_flat(s.act, act_shapes), obs, **sac)[0])
+
+    def update_noise(gen, count):
+        """Per update, the next-action and the policy-gradient noise blocks,
+        ``(count, 2, B, A)``."""
+        return torch.randn((count, 2, batch_size, A), generator=gen, device=gen.device)
+
+    def objectives(s: SACState, batch, noise, update_t):
+        state, action, reward, undone, unmask, next_state = batch
+        act_leaves = split_flat(s.act, act_shapes)
+        with torch.no_grad():
+            label = sac_td_label(act_leaves, split_flat(s.cri_target, cri_shapes), next_state,
+                                 reward, undone, noise[0], torch.exp(s.alpha_log), gamma,
+                                 num_ensembles=E, **sac)
+        obj_c, g_c = value_and_grad_flat(
+            lambda lv: sac_critic_loss(lv, state, action, label, unmask, E), s.cri, cri_shapes)
+        with torch.no_grad():
+            cri_opt = grad_step(optimizer, s.cri, s.cri_opt, g_c)
+            soft_update_(s.cri_target, s.cri, tau)
+            # the temperature: d mean(alpha_log (te - logp)) / d alpha_log, logp of
+            # the pre-update actor
+            lp_now = sac_action_logprob(act_leaves, state, noise[1], **sac)[1]
+            alpha_opt = grad_step(optimizer, s.alpha_log, s.alpha_opt,
+                                  target_entropy - torch.mean(lp_now))
+            s.alpha_log.clamp_(-16.0, 2.0)
+        do_act, update_a = modsac_do_actor(s.update_a, update_t) if modsac else (True, s.update_a)
+        s = s._replace(cri_opt=cri_opt, alpha_opt=alpha_opt, update_a=update_a)
+        if not do_act:
+            return s, (obj_c.detach(), torch.zeros_like(obj_c.detach()), 0.0)
+        cri_leaves = split_flat(s.cri_target, cri_shapes)
+        alpha = torch.exp(s.alpha_log)
+        obj_neg, g_a = value_and_grad_flat(
+            lambda lv: sac_actor_loss(lv, cri_leaves, state, noise[1], alpha, num_ensembles=E,
+                                      **sac), s.act, act_shapes)
+        with torch.no_grad():
+            act_opt = grad_step(optimizer, s.act, s.act_opt, g_a)
+            if modsac:
+                soft_update_(s.act_target, s.act, tau)
+        return s._replace(act_opt=act_opt), (obj_c.detach(), -obj_neg.detach(), 1.0)
+
+    scan_update = make_offpolicy_update(batch_size, repeat_times, buffer, row_sample, objectives,
+                                        update_noise)
+
+    # the JAX package's eligibility for its Pallas chunk, term by term
+    # (elegantrl_tpu/agents/sac.py:313-332; H-term, PER and lambda_fit_cum_r
+    # raise above, the storage is float32, no mesh): a lane chunk must exist
+    lane_chunk = any(lc <= batch_size and batch_size % lc == 0 and max(net_dims) * lc <= 131072
+                     and max(net_dims) <= 128 for lc in (2048, 1024, 512, 256, 128))
+    jax_takes = (buffer is not None and len(net_dims) == 2 and batch_size % 128 == 0
+                 and batch_size <= 2048 and lane_chunk)
+    port_fits = len(net_dims) == 2 and sac_smem_bytes(S, A, *net_dims, E) <= SMEM_LIMIT
+    fused = buffer is not None and select_kernel(
+        args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
+        f'a batch that is a multiple of 128 and at most 2048 with a lane chunk (some lc of '
+        f'2048, ..., 128 dividing it with max(net_dims) * lc <= 131072), max(net_dims) <= 128 '
+        f'and a 2-hidden-layer net whose tiles fit one block (the SAC chunk); got '
+        f'batch_size={batch_size}, net_dims={net_dims}')
+
+    def fused_update(s: SACState, buf_state, gen, ids=None, noise=None):
+        """The chunked update, ``FUSED_CHUNK`` updates per call of
+        ``sac_chunk`` over minibatches gathered with the scan path's draws.
+        The temperature and the gate live on the device in ``misc`` through
+        the round; the counts are known on the host."""
+        U = offpolicy_update_times(buf_state.size, repeat_times, batch_size)
+        n_chunks = -(-U // FUSED_CHUNK)
+        dev = buf_state.states.device
+        if ids is None:
+            ids = buffer.draw(buf_state, gen, U, batch_size, row_sample)
+        if noise is None:
+            noise = update_noise(gen, U)
+        pad = n_chunks * FUSED_CHUNK - U
+        if pad:   # padded steps are masked invalid; their draws are never used
+            ids = torch.cat([ids, ids[:1].expand(pad, -1)])
+            noise = torch.cat([noise, noise[:1].expand(pad, -1, -1, -1)])
+        ca0, cc0, cl0 = s.act_opt.count, s.cri_opt.count, s.alpha_opt.count
+        misc = torch.empty((5,), device=dev)
+        misc[0:3] = torch.stack([s.alpha_log, s.alpha_opt.mu, s.alpha_opt.nu])
+        misc[3] = float(ca0)
+        misc[4] = float(s.update_a)
+        sums = torch.zeros(3, device=dev)
+        for c in range(n_chunks):
+            idx = torch.arange(c * FUSED_CHUNK, (c + 1) * FUSED_CHUNK, device=dev)
+            sb, nsb, ab, rb, ud, um = gather_chunk(buffer, buf_state, ids[idx], batch_size,
+                                                   row_sample)
+            nz = noise[idx].transpose(2, 3)                             # (C, 2, A, B)
+            objs = sac_chunk(s.act, s.cri, s.act_target, s.cri_target, s.act_opt.mu,
+                             s.cri_opt.mu, s.act_opt.nu, s.cri_opt.nu, misc, sb, nsb,
+                             ab.transpose(1, 2).contiguous(), rb, ud, um,
+                             nz[:, 0].contiguous(), nz[:, 1].contiguous(),
+                             sac_bcv(cc0, cl0, idx, U), **hypers)
+            valid = (idx < U).float()
+            sums += torch.stack([torch.sum(objs[:, 0] * valid), torch.sum(objs[:, 1] * objs[:, 2]),
+                                 torch.sum(objs[:, 2])])
+        n_act, update_a = U, s.update_a
+        if modsac:   # the kernel's gate, replayed on the host for the counts
+            n_act = 0
+            for t in range(U):
+                do_act, update_a = modsac_do_actor(update_a, t)
+                n_act += int(do_act)
+        with torch.no_grad():
+            s.alpha_log.copy_(misc[0])
+            s.alpha_opt.mu.copy_(misc[1])
+            s.alpha_opt.nu.copy_(misc[2])
+        metrics = {'obj_critic': sums[0] / U,
+                   'obj_actor': sums[1] / torch.clamp(sums[2], min=1.0)}
+        s = s._replace(act_opt=s.act_opt._replace(count=ca0 + n_act),
+                       cri_opt=s.cri_opt._replace(count=cc0 + U),
+                       alpha_opt=s.alpha_opt._replace(count=cl0 + U), update_a=update_a)
+        return s, buf_state, metrics
+
+    name = 'AgentModSAC' if modsac else 'AgentSAC'
+    return AgentDef(name=name, if_off_policy=True, if_discrete=False, init=init,
+                    explore_action=explore_action, greedy_action=greedy_action,
+                    env_action=lambda a: a, update=fused_update if fused else scan_update,
+                    state_to_numpy=partial(_sac_to_numpy, act_shapes=act_shapes,
+                                           cri_shapes=cri_shapes, modsac=modsac,
+                                           num_ensembles=E),
+                    state_from_numpy=partial(_sac_from_numpy, modsac=modsac))
+
+
+def _sac_to_numpy(s, act_shapes, cri_shapes, modsac, num_ensembles):
+    from ..utils.jax_params import sac_state_to_numpy
+    return sac_state_to_numpy(s, act_shapes, cri_shapes, modsac, num_ensembles)
+
+
+def _sac_from_numpy(tree, device, modsac):
+    from ..utils.jax_params import sac_state_from_numpy
+    return sac_state_from_numpy(tree, device, modsac)
+
+
+class AgentSAC:
+    make = staticmethod(partial(make_sac, modsac=False))
+
+
+class AgentModSAC:
+    make = staticmethod(partial(make_sac, modsac=True))

@@ -561,28 +561,47 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
 
 // ------------------------------------------------- off-policy exploration
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_offpolicy_kernel
-// (built by make_fused_offpolicy_rollout) with the heads ddpg, dqn, dqn_enc
-// and dqn_duel.  One net, no critic, no logprob and no observation
-// normalisation; the trunk is l2 = W2 gelu(W1 x + b1) + b2 and the heads
+// (built by make_fused_offpolicy_rollout) with the heads ddpg, dqn, dqn_enc,
+// dqn_duel, sac and modsac (pallas_rollout.py:1059-1069).  One net, no
+// critic, no logprob and no observation normalisation; the trunk is l2 = W2
+// gelu(W1 x + b1) + b2 and the heads
 //   HEAD_DDPG     a = clip(tanh(Wo gelu(l2) + bo) + noise_std z, -1, 1)
 //   HEAD_DQN      q = Wo gelu(l2) + bo
 //   HEAD_DQN_ENC  q = Wo l2 + bo
 //   HEAD_DQN_DUEL q = val - mean(val) + adv, val = Wo l2 + bo, adv = W4 l2 + b4
+//   HEAD_SAC      a = tanh(mean + exp(clip(log_std, lo, hi)) z),
+//                 [mean, log_std] = Wo gelu(l2) + bo (2A rows)
+//   HEAD_MODSAC   the same with mean = Wa l2 + ba, log_std = Ws l2 + bs
 // with the DQN heads acting epsilon-greedily: u0 < explore_rate ?
 // min(floor(u1 A), A - 1) : argmax q (the first maximum on a tie).  The
 // weights, the tiles and the step loop are those of the on-policy kernel;
 // the outputs are written in the (H, N, dim) layout the replay buffer takes.
-// Noise: injected (H, NZ, N) with A normals (ddpg) or the coin and the
-// random-action uniform (DQN) first, then the env's uniforms; internal
-// Philox draws 2A (ddpg, Box-Muller) or 2 head uniforms per (lane, step).
+// Noise: injected (H, NZ, N) with A normals (ddpg, sac, modsac) or the coin
+// and the random-action uniform (DQN) first, then the env's uniforms;
+// internal Philox draws 2A (the continuous heads, Box-Muller) or 2 head
+// uniforms per (lane, step).
 // Bound: operations, one net's 2 (S D1 + D1 D2 + D2 A) FLOP per env-step;
 // at 1024 envs only 32 blocks run, and at 64 envs 2, so the kernel is
 // latency-bound at the off-policy shapes.
 
-constexpr int HEAD_DDPG = 0, HEAD_DQN = 1, HEAD_DQN_ENC = 2, HEAD_DQN_DUEL = 3;
+constexpr int HEAD_DDPG = 0, HEAD_DQN = 1, HEAD_DQN_ENC = 2, HEAD_DQN_DUEL = 3,
+              HEAD_SAC = 4, HEAD_MODSAC = 5;
 
+__host__ __device__ inline bool sac_head(int head) {
+  return head == HEAD_SAC || head == HEAD_MODSAC;
+}
+
+// The head's weights: the trunk, then A rows (ddpg, DQN; dqn_duel adds the
+// advantage row) or 2A rows (SAC's head; ModSAC's avg and std heads).
 __host__ __device__ inline int offpolicy_net_floats(int S, int A, int D1, int D2, int head) {
-  return D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (head == HEAD_DQN_DUEL ? D2 + 1 : 0);
+  const int heads = sac_head(head) ? 2 * (A * D2 + A)
+                                   : A * D2 + A + (head == HEAD_DQN_DUEL ? D2 + 1 : 0);
+  return D1 * S + D1 + D2 * D1 + D2 + heads;
+}
+
+// Rows of the out tile: the 2A SAC outputs, or A (+ the advantage).
+__host__ __device__ inline int offpolicy_out_rows(int A, int head) {
+  return sac_head(head) ? 2 * A : A + 1;
 }
 
 template <class Body, int HEAD>
@@ -594,9 +613,10 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
                          float* __restrict__ term_o, float* __restrict__ trunc_o,
                          float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N,
                          int H, int D1, int D2, float reward_scale, float noise_std,
-                         float explore_rate) {
+                         float explore_rate, float std_lo, float std_hi) {
   constexpr int S = Body::S, A = Body::A, F = Body::F;
-  constexpr bool DISCRETE = HEAD != HEAD_DDPG;
+  constexpr bool SAC = HEAD == HEAD_SAC || HEAD == HEAD_MODSAC;
+  constexpr bool DISCRETE = HEAD != HEAD_DDPG && !SAC;
   static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
   constexpr int N_ENV = Body::N_STEP + Body::N_RESET;
   constexpr int N_HEAD_INJ = DISCRETE ? 2 : A;      // injected head rows
@@ -613,12 +633,12 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
   const float* b2 = W2 + D2 * D1;
   const float* Wo = b2 + D2;
   const float* bo = Wo + A * D2;
-  const float* W4 = bo + A;  // the advantage head (HEAD_DQN_DUEL)
-  const float* b4 = W4 + D2;
+  const float* W4 = bo + A;  // the advantage head (HEAD_DQN_DUEL), ModSAC's std head
+  const float* b4 = W4 + (HEAD == HEAD_MODSAC ? A * D2 : D2);
   float* xn = smem + n_w;    // (S, TE)
   float* h1 = xn + S * TE;   // (D1, TE)
   float* h2 = h1 + D1 * TE;  // (D2, TE)
-  float* out = h2 + D2 * TE; // (A + 1, TE)
+  float* out = h2 + D2 * TE; // (A + 1, TE), or (2A, TE) for the SAC heads
 
   const int e = threadIdx.x;
   const int n = blockIdx.x * TE + e;
@@ -650,10 +670,15 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
     __syncthreads();
     dense<true>(W1, b1, xn, h1, D1, S);
     __syncthreads();
-    dense<HEAD == HEAD_DDPG || HEAD == HEAD_DQN>(W2, b2, h1, h2, D2, D1);
+    dense<HEAD == HEAD_DDPG || HEAD == HEAD_DQN || HEAD == HEAD_SAC>(W2, b2, h1, h2, D2, D1);
     __syncthreads();
-    dense<false>(Wo, bo, h2, out, A, D2);
-    if (HEAD == HEAD_DQN_DUEL) dense<false>(W4, b4, h2, out + A * TE, 1, D2);
+    if (HEAD == HEAD_SAC) {
+      dense<false>(Wo, Wo + 2 * A * D2, h2, out, 2 * A, D2);  // [mean, log_std]
+    } else {
+      dense<false>(Wo, bo, h2, out, A, D2);
+      if (HEAD == HEAD_DQN_DUEL) dense<false>(W4, b4, h2, out + A * TE, 1, D2);
+      if (HEAD == HEAD_MODSAC) dense<false>(W4, b4, h2, out + A * TE, A, D2);
+    }
     __syncthreads();
     if (live) {
       float head[N_HEAD], u_env[N_ENV > 0 ? N_ENV : 1];
@@ -711,7 +736,13 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
                               ? head[a]
                               : sqrtf(-2.0f * logf(1.0f - head[a])) *
                                     cosf(TWO_PI_F * head[A + a]);
-          const float act = clampf(tanhf(out[a * TE + e]) + noise_std * z, -1.0f, 1.0f);
+          float act;
+          if constexpr (SAC) {
+            const float log_std = clampf(out[(A + a) * TE + e], std_lo, std_hi);
+            act = tanhf(out[a * TE + e] + expf(log_std) * z);
+          } else {
+            act = clampf(tanhf(out[a * TE + e]) + noise_std * z, -1.0f, 1.0f);
+          }
           ((float*)actions_o)[o * A + a] = act;
           env_a[a] = act;
         }
@@ -737,8 +768,8 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
 }
 
 __host__ __device__ inline int offpolicy_smem(int S, int A, int D1, int D2, int head) {
-  return (int)sizeof(float) *
-         (offpolicy_net_floats(S, A, D1, D2, head) + (S + D1 + D2 + A + 1) * TE);
+  return (int)sizeof(float) * (offpolicy_net_floats(S, A, D1, D2, head) +
+                               (S + D1 + D2 + offpolicy_out_rows(A, head)) * TE);
 }
 
 template <class Body, int HEAD>
@@ -746,7 +777,7 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
                      int H, int D1, int D2, float reward_scale, float noise_std,
-                     float explore_rate, cudaStream_t stream) {
+                     float explore_rate, float std_lo, float std_hi, cudaStream_t stream) {
   const int smem_bytes = offpolicy_smem(Body::S, Body::A, D1, D2, HEAD);
   cudaError_t err = cudaFuncSetAttribute(offpolicy_rollout_kernel<Body, HEAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -756,7 +787,8 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
   offpolicy_rollout_kernel<Body, HEAD><<<blocks, THREADS, smem_bytes, stream>>>(
       (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
       (const int*)seed, (float*)states, actions, (float*)rew, (float*)term, (float*)trunc,
-      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate);
+      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate,
+      std_lo, std_hi);
   return (int)cudaGetLastError();
 }
 
@@ -800,36 +832,46 @@ extern "C" int fused_rollout(
 
 // Dynamic shared memory of one off-policy block, in bytes: the head's
 // weights, then the xn, h1, h2 and out tiles.  head: 0 ddpg, 1 dqn,
-// 2 dqn_enc, 3 dqn_duel (OFFPOLICY_HEADS of ops/fused_rollout.py).
+// 2 dqn_enc, 3 dqn_duel, 4 sac, 5 modsac (OFFPOLICY_HEADS of
+// ops/fused_rollout.py).
 extern "C" int offpolicy_rollout_smem_bytes(int S, int A, int D1, int D2, int head) {
   return offpolicy_smem(S, A, D1, D2, head);
 }
 
-// The off-policy exploration rollout for the nine (body, head) pairs: ddpg
-// on Pendulum-v1 (0), HopperSlip-v0 (2) and PointChasingVecEnv (3); dqn,
-// dqn_enc and dqn_duel on CartPole-v1 (1) and PointChasingDiscreteEnv (4).
-// Returns the CUDA error of the launch, or -1 for a pair it does not have.
+// The off-policy exploration rollout for the fifteen (body, head) pairs:
+// ddpg, sac and modsac on Pendulum-v1 (0), HopperSlip-v0 (2) and
+// PointChasingVecEnv (3); dqn, dqn_enc and dqn_duel on CartPole-v1 (1) and
+// PointChasingDiscreteEnv (4).  std_lo and std_hi clip the SAC heads'
+// log_std.  Returns the CUDA error of the launch, or -1 for a pair it does
+// not have.
 extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
                                  const void* env_i, const void* noise, const void* seed,
                                  void* states, void* actions, void* rew, void* term,
                                  void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                  int D1, int D2, float reward_scale, float noise_std,
-                                 float explore_rate, void* stream) {
+                                 float explore_rate, float std_lo, float std_hi,
+                                 void* stream) {
 #define ELEGANTRL_OFF(BODY, HEAD)                                                     \
   return launch_offpolicy<BODY, HEAD>(flat, env_f, env_i, noise, seed, states,        \
                                       actions, rew, term, trunc, env_f_o, env_i_o, N, \
                                       H, D1, D2, reward_scale, noise_std,             \
-                                      explore_rate, (cudaStream_t)stream)
-  switch (body * 4 + head) {
-    case 0 * 4 + HEAD_DDPG: ELEGANTRL_OFF(PendulumBody, HEAD_DDPG);
-    case 2 * 4 + HEAD_DDPG: ELEGANTRL_OFF(HopperBody, HEAD_DDPG);
-    case 3 * 4 + HEAD_DDPG: ELEGANTRL_OFF(ChasingBody, HEAD_DDPG);
-    case 1 * 4 + HEAD_DQN: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN);
-    case 1 * 4 + HEAD_DQN_ENC: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_ENC);
-    case 1 * 4 + HEAD_DQN_DUEL: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_DUEL);
-    case 4 * 4 + HEAD_DQN: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN);
-    case 4 * 4 + HEAD_DQN_ENC: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_ENC);
-    case 4 * 4 + HEAD_DQN_DUEL: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_DUEL);
+                                      explore_rate, std_lo, std_hi, (cudaStream_t)stream)
+  switch (body * 8 + head) {
+    case 0 * 8 + HEAD_DDPG: ELEGANTRL_OFF(PendulumBody, HEAD_DDPG);
+    case 2 * 8 + HEAD_DDPG: ELEGANTRL_OFF(HopperBody, HEAD_DDPG);
+    case 3 * 8 + HEAD_DDPG: ELEGANTRL_OFF(ChasingBody, HEAD_DDPG);
+    case 0 * 8 + HEAD_SAC: ELEGANTRL_OFF(PendulumBody, HEAD_SAC);
+    case 2 * 8 + HEAD_SAC: ELEGANTRL_OFF(HopperBody, HEAD_SAC);
+    case 3 * 8 + HEAD_SAC: ELEGANTRL_OFF(ChasingBody, HEAD_SAC);
+    case 0 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(PendulumBody, HEAD_MODSAC);
+    case 2 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(HopperBody, HEAD_MODSAC);
+    case 3 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(ChasingBody, HEAD_MODSAC);
+    case 1 * 8 + HEAD_DQN: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN);
+    case 1 * 8 + HEAD_DQN_ENC: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_ENC);
+    case 1 * 8 + HEAD_DQN_DUEL: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_DUEL);
+    case 4 * 8 + HEAD_DQN: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN);
+    case 4 * 8 + HEAD_DQN_ENC: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_ENC);
+    case 4 * 8 + HEAD_DQN_DUEL: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_DUEL);
     default: return -1;
   }
 #undef ELEGANTRL_OFF

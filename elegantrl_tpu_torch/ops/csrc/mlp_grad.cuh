@@ -1,5 +1,5 @@
 // Device pieces shared by the hand-written update kernels (ppo_update.cu,
-// dqn_update.cu, ddpg_update.cu): dense forward passes, hand-written
+// dqn_update.cu, ddpg_update.cu, sac_update.cu): dense forward passes, hand-written
 // backward passes and the reduce / clip + Adam (+ Polyak) steps of optax's
 // chain(clip_by_global_norm, adam).
 //
@@ -210,7 +210,8 @@ inline int reduce_blocks(int P) {
 // One masked step of clip-by-global-norm + Adam + Polyak over one net:
 // with s = sum(normpart), g *= (sqrt(s) < clip ? 1 : clip / sqrt(s)),
 // mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2,
-// p -= lr (mu / bc1) / (sqrt(nu / bc2) + eps), t = t (1 - tau) + p tau.
+// p -= lr (mu / bc1) / (sqrt(nu / bc2) + eps), t = t (1 - tau) + p tau
+// (no Polyak step when t is null).
 // The bias corrections and the masks come from the step's row of the
 // per-step table (columns bc1_col, bc2_col; mask_col, and mask2_col when
 // >= 0); a masked step writes nothing, so every buffer stays bit-identical.
@@ -251,7 +252,7 @@ __global__ void clip_adam_polyak_kernel(float* __restrict__ p, float* __restrict
     nu[i] = v;
     const float pn = p[i] - lr * (m / bc1) / (sqrtf(v / bc2) + eps);
     p[i] = pn;
-    t[i] = t[i] * (1.0f - tau) + pn * tau;
+    if (t != nullptr) t[i] = t[i] * (1.0f - tau) + pn * tau;
   }
 }
 

@@ -1,6 +1,6 @@
 """Fused off-policy update chunks (counterpart of
-``elegantrl_tpu/ops/pallas_update.py``: ``make_dqn_fused_chunk`` and
-``make_ddpg_fused_chunk`` with ``per=False``).
+``elegantrl_tpu/ops/pallas_update.py``: ``make_dqn_fused_chunk``,
+``make_ddpg_fused_chunk`` with ``per=False`` and ``make_sac_fused_chunk``).
 
 A chunk is C sequential minibatch updates over pre-gathered blocks; steps
 past the round's update count are masked by the per-step table ``bcv``.
@@ -22,22 +22,42 @@ past the round's update count are masked by the per-step table ``bcv``.
   ``bcv`` is ``(C, 7)``: ``(bc1_c, bc2_c, bc1_a, bc2_a, valid, do_act, 0)``;
   the critic step is masked by ``valid``, the actor step (computed every
   step) by ``valid * do_act``.
+- SAC/ModSAC (``sac_chunk``): per step, ``alpha = exp(alpha_log)``; the
+  label ``r + ud * gamma * (min_E Q_target(nx, a') - alpha * logp(a'))``
+  with ``a'`` the pre-update actor's tanh-Gaussian draw on ``nx`` from the
+  next-action noise ``nzn``; the critic loss ``mean(mean_E((q - label)^2) *
+  um)``, critic Adam + Polyak; the temperature step on the gradient ``te -
+  mean(logp)`` of the pre-update actor on ``x`` with the policy noise
+  ``nzp`` (clip-by-norm, Adam with its own moments and bias corrections,
+  ``alpha_log`` clipped to [-16, 2]); ModSAC's gate ``do_act = upd_a / (t +
+  1) < 1 / (2 - e^-1)`` (``upd_a`` restarts at update 0); then the actor
+  loss ``-(mean(Q_target'(x, a)) - alpha' * mean(logp))`` against the
+  *fresh* target critic and the post-step alpha, with ``a`` drawn from
+  ``nzp``, actor Adam (bias corrections from its own count) and, ModSAC,
+  the actor target's Polyak step.  ``bcv`` is ``(C, 7)``: ``(bc1_c, bc2_c,
+  bc1_alpha, bc2_alpha, valid, update_t, 0)``; ``misc`` is the ``(5,)``
+  float vector ``(alpha_log, alpha_mu, alpha_nu, act_count, update_a)``.
+  The critic, alpha and gate are masked by ``valid``, the actor by ``valid
+  * do_act``.
 
 Blocks: ``sb, nsb (C, S, B)``, one-hot ``oh (C, A, B)`` (DQN) or actions
-``ab (C, A, B)`` and smoothing noise ``nz (C, A, B)`` (DDPG/TD3), ``rb, ud,
-um (C, B)``.  Parameters, targets and Adam moments are flat buffers in the
-leaf order of ``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``,
-updated in place; each function returns the ``(C, 2)`` objectives (TD loss,
-mean ``q_a`` of the first head; or critic loss, mean Q of the actor step).
-A step with ``valid = 0`` leaves every buffer bit-identical.
+``ab (C, A, B)`` and noise ``nz (C, A, B)`` (DDPG/TD3; SAC: ``nzn`` and
+``nzp``), ``rb, ud, um (C, B)``.  Parameters, targets and Adam moments are
+flat buffers in the leaf order of ``ops/nets.py:dqn_param_shapes``/
+``ddpg_param_shapes``/``sac_act_shapes``/``sac_cri_shapes``, updated in
+place; each function returns the objectives, ``(C, 2)`` (TD loss, mean
+``q_a`` of the first head; or critic loss, mean Q of the actor step) or, SAC,
+``(C, 3)`` (critic loss, actor objective, ``valid * do_act``).  A step with
+``valid = 0`` leaves every buffer bit-identical.
 
 As for every kernel of the port: ``*_chunk_reference`` is the plain version
 (gradients by ``torch.autograd``), ``*_chunk`` the wrapper (the plain
 version for CPU tensors, the hand-written CUDA kernel of
-``csrc/dqn_update.cu`` or ``csrc/ddpg_update.cu`` for CUDA tensors), and
-``*_chunk.launches`` the count of chunks launched (``launches_by_variant``
-splits it).  The functions below the chunks (Q values of the four DQN nets,
-the dueling combine) are also what the agents' scan updates differentiate.
+``csrc/dqn_update.cu``, ``csrc/ddpg_update.cu`` or ``csrc/sac_update.cu`` for
+CUDA tensors), and ``*_chunk.launches`` the count of chunks launched
+(``launches_by_variant`` splits it).  The functions below the chunks (Q
+values of the four DQN nets, the dueling combine, the SAC actor and critic
+ensemble) are also what the agents' scan updates differentiate.
 """
 
 from __future__ import annotations
@@ -46,15 +66,17 @@ import ctypes
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .dists import tanh_normal_logprob, tanh_normal_logprob_simple
 from .fused_update import value_and_grad_flat
-from .nets import (ddpg_param_shapes, dqn_param_shapes, mlp_apply_leaves, soft_update_,
-                   split_flat)
+from .nets import (ddpg_param_shapes, dqn_param_shapes, gelu, mlp_apply_leaves,
+                   sac_act_shapes, sac_cri_shapes, soft_update_, split_flat)
 
 SMEM_LIMIT = 232448
-_TB = 32   # samples per fwd_bwd block (csrc/dqn_update.cu, csrc/ddpg_update.cu)
+_TB = 32   # samples per fwd_bwd block (csrc/dqn_update.cu, ddpg_update.cu, sac_update.cu)
 
 
 # ------------------------------------------------------------ DQN nets
@@ -194,6 +216,140 @@ def mlp_input_grad(leaves, x: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor
     return g
 
 
+# ----------------------------------------------------------- SAC nets
+
+# ModSAC's gate ratio 1 / (2 - e^-1), as the float32 the kernels compare with
+SAC_RELIABLE = float(np.float32(1.0 / (2.0 - math.exp(-1.0))))
+
+
+def sac_actor_dist(leaves, x, modsac: bool, std_clip) -> tuple:
+    """``(mean, log_std)`` of the actor on ``x (..., S)``: SAC reads ``[mean,
+    log_std] = head(gelu(enc(x)))``, ModSAC the raw encoding into its ``avg``
+    and ``std`` heads; ``log_std`` is clipped to ``std_clip``."""
+    n = len(leaves) - (4 if modsac else 2)
+    enc = mlp_apply_leaves(leaves[:n], x)      # GELU between the encoder's layers only
+    if modsac:
+        mean = F.linear(enc, leaves[n], leaves[n + 1])
+        log_std = F.linear(enc, leaves[n + 2], leaves[n + 3])
+    else:
+        mean, log_std = F.linear(gelu(enc), leaves[n], leaves[n + 1]).chunk(2, dim=-1)
+    return mean, torch.clamp(log_std, *std_clip)
+
+
+def sac_action_logprob(leaves, x, noise, modsac: bool, std_clip) -> tuple:
+    """``(tanh(pre), logprob)`` with ``pre = mean + exp(log_std) * noise``:
+    ModSAC's softplus form (``ops/dists.py:tanh_normal_logprob``), SAC's
+    density at the mean (``tanh_normal_logprob_simple``); logprob ``(...,)``."""
+    mean, log_std = sac_actor_dist(leaves, x, modsac, std_clip)
+    std = torch.exp(log_std)
+    pre = mean + std * noise
+    lp = (tanh_normal_logprob(log_std, noise, pre) if modsac
+          else tanh_normal_logprob_simple(mean, std, pre))
+    return torch.tanh(pre), lp
+
+
+def sac_q_values(leaves, x, a, num_ensembles: int) -> torch.Tensor:
+    """The critic ensemble on ``[x, a]``, ``(..., E)``: the linear encoder,
+    then each head's MLP."""
+    enc = F.linear(torch.cat([x, a], dim=-1), leaves[0], leaves[1])
+    nh = (len(leaves) - 2) // num_ensembles
+    return torch.stack([mlp_apply_leaves(leaves[2 + nh * e:2 + nh * (e + 1)], enc)[..., 0]
+                        for e in range(num_ensembles)], dim=-1)
+
+
+def sac_td_label(act_leaves, tcri_leaves, nx, r, ud, nz_next, alpha, gamma: float,
+                 modsac: bool, std_clip, num_ensembles: int) -> torch.Tensor:
+    """``r + ud * gamma * (min_E Q_target(nx, a') - alpha * logp(a'))``, ``a'``
+    the actor's draw on ``nx`` from ``nz_next``."""
+    na, nlp = sac_action_logprob(act_leaves, nx, nz_next, modsac, std_clip)
+    nq = torch.amin(sac_q_values(tcri_leaves, nx, na, num_ensembles), dim=-1)
+    return r + ud * gamma * (nq - nlp * alpha)
+
+
+def sac_critic_loss(leaves, x, a, label, um, num_ensembles: int) -> torch.Tensor:
+    qs = sac_q_values(leaves, x, a, num_ensembles)
+    return torch.mean(torch.mean(torch.square(qs - label[..., None]), dim=-1) * um)
+
+
+def sac_actor_loss(act_leaves, cri_leaves, x, noise, alpha, modsac: bool, std_clip,
+                   num_ensembles: int) -> torch.Tensor:
+    """``-(mean(Q(x, a)) - mean(alpha * logp(a)))`` over the batch and the heads."""
+    a_pg, lp = sac_action_logprob(act_leaves, x, noise, modsac, std_clip)
+    return -(torch.mean(sac_q_values(cri_leaves, x, a_pg, num_ensembles))
+             - torch.mean(lp * alpha))
+
+
+def sac_alpha_step(alpha_log, mu, nu, lp_mean, target_entropy: float, bc1, bc2, lr: float,
+                   clip_grad: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """The temperature's step on ``mean(alpha_log * (te - lp))``: its gradient
+    ``te - mean(lp)`` clipped by its norm, Adam, then the [-16, 2] clip.
+    Returns ``(alpha_log, mu, nu)``."""
+    g = target_entropy - lp_mean
+    gn = torch.sqrt(g * g)
+    g = g * torch.where(gn < clip_grad, torch.ones_like(gn), clip_grad / gn)
+    mu = b1 * mu + (1.0 - b1) * g
+    nu = b2 * nu + (1.0 - b2) * g * g
+    return torch.clamp(alpha_log - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps), -16.0, 2.0), mu, nu
+
+
+def modsac_do_actor(update_a: int, update_t: int) -> tuple:
+    """ModSAC's gate at update ``update_t`` of a round: ``(do_act, update_a
+    after it)``, in float32 as the JAX package and the kernel compute it."""
+    upd = 0 if update_t == 0 else int(update_a)
+    do = bool(np.float32(upd) / np.float32(update_t + 1.0) < np.float32(SAC_RELIABLE))
+    return do, upd + int(do)
+
+
+# The SAC backward formulas that csrc/sac_update.cu writes by hand, in
+# PyTorch, so that the tests hold them against autograd.
+
+def sac_td_head_grad(qs: torch.Tensor, label: torch.Tensor, um: torch.Tensor) -> torch.Tensor:
+    """``d mean(mean_E((q - label)^2) * um) / d q`` for ``qs (B, E)``:
+    ``2 (q - label) um / (E B)``, one head's column needing only its own q."""
+    B, E = qs.shape
+    return 2.0 * (qs - label[:, None]) * um[:, None] / (E * B)
+
+
+def sac_head_backward(out: torch.Tensor, noise: torch.Tensor, g_act: torch.Tensor,
+                      w_lp, modsac: bool, std_clip) -> torch.Tensor:
+    """The gradient at the actor's raw head outputs ``out = [mean, log_std
+    before the clip] (B, 2A)`` of ``sum(g_act * a) + w_lp * sum(logp)``, with
+    ``a = tanh(pre)``, ``pre = mean + exp(clip(log_std)) * noise``:
+    ``G = g_act (1 - a^2) + w_lp dlogp/dpre`` into the mean, and ``(G std z -
+    w_lp) [lo <= log_std <= hi]`` into log_std.  ``dlogp/dpre`` is ``2 - 4
+    sigmoid(-2 pre)`` for ModSAC's softplus form and ``2 a (1 - a^2) /
+    (1.000001 - a^2)`` for SAC's."""
+    A = noise.shape[-1]
+    mean, raw = out[..., :A], out[..., A:]
+    log_std = torch.clamp(raw, *std_clip)
+    std = torch.exp(log_std)
+    pre = mean + std * noise
+    a = torch.tanh(pre)
+    if modsac:
+        dlp = 2.0 - 4.0 * torch.sigmoid(-2.0 * pre)
+    else:
+        dlp = 2.0 * a * (1.0 - a * a) / (1.000001 - a * a)
+    G = g_act * (1.0 - a * a) + w_lp * dlp
+    inside = ((raw >= std_clip[0]) & (raw <= std_clip[1])).to(out.dtype)
+    return torch.cat([G, (G * std * noise - w_lp) * inside], dim=-1)
+
+
+def sac_q_input_grad(leaves, x, a, g_q: torch.Tensor, num_ensembles: int) -> torch.Tensor:
+    """``d sum(g_q * Q(x, a)) / d [x, a]`` of the ensemble, head by head as
+    ``csrc/sac_update.cu`` runs it: each head's gradient at its hidden
+    pre-activation, ``w2 g gelu'(z)``, back through its first layer into the
+    encoding, summed over the heads, then through the linear encoder."""
+    xin = torch.cat([x, a], dim=-1)
+    enc = F.linear(xin, leaves[0], leaves[1])
+    nh = (len(leaves) - 2) // num_ensembles
+    denc = torch.zeros_like(enc)
+    for e in range(num_ensembles):
+        w1, b1, w2 = leaves[2 + nh * e:5 + nh * e]
+        z = F.linear(enc, w1, b1)
+        denc = denc + (g_q[:, e:e + 1] * w2 * gelu_grad(z)) @ w1
+    return denc @ leaves[0]
+
+
 # ------------------------------------------------------ plain versions
 
 def _opt(lr, clip_grad, b1, b2, eps):
@@ -260,6 +416,60 @@ def ddpg_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud
                 clip_adam_bc_(opt, pa, mua, nua, g_a, bcv[u, 2], bcv[u, 3])
                 soft_update_(ta, pa, tau)
             objs[u] = torch.stack([obj_c, -obj_neg]).detach()
+    return objs
+
+
+def sac_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
+                        nzn, nzp, bcv, *, net_dims: Sequence[int], modsac: bool,
+                        num_ensembles: int, gamma: float, tau: float, lr: float,
+                        clip_grad: float, target_entropy: float, std_clip,
+                        b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the SAC/ModSAC chunk; in place (``ta`` is None
+    for SAC), returns the ``(C, 3)`` objectives."""
+    from ..agents.base import clip_adam_bc_
+    C, S, B = sb.shape
+    A, E = ab.shape[1], int(num_ensembles)
+    act_shapes = sac_act_shapes(S, net_dims, A, modsac)
+    cri_shapes = sac_cri_shapes(S, A, net_dims, E)
+    opt = _opt(lr, clip_grad, b1, b2, eps)
+    sac = dict(modsac=modsac, std_clip=std_clip)
+    objs = torch.empty((C, 3), dtype=torch.float32, device=sb.device)
+    for u in range(C):
+        x, nx, a, zn, zp = sb[u].T, nsb[u].T, ab[u].T, nzn[u].T, nzp[u].T
+        valid = float(bcv[u, 4]) > 0
+        act_leaves = split_flat(pa, act_shapes)
+        with torch.no_grad():
+            label = sac_td_label(act_leaves, split_flat(tc, cri_shapes), nx, rb[u], ud[u], zn,
+                                 torch.exp(misc[0]), gamma, num_ensembles=E, **sac)
+        obj_c, g_c = value_and_grad_flat(
+            lambda lv: sac_critic_loss(lv, x, a, label, um[u], E), pc, cri_shapes)
+        with torch.no_grad():
+            lp_mean = torch.mean(sac_action_logprob(act_leaves, x, zp, **sac)[1])
+            al2, mu2, nu2 = sac_alpha_step(misc[0], misc[1], misc[2], lp_mean, target_entropy,
+                                           bcv[u, 2], bcv[u, 3], lr, clip_grad, b1, b2, eps)
+            do_act, update_a = (modsac_do_actor(int(misc[4]), int(bcv[u, 5])) if modsac
+                                else (True, None))
+            if valid:
+                clip_adam_bc_(opt, pc, muc, nuc, g_c, bcv[u, 0], bcv[u, 1])
+                soft_update_(tc, pc, tau)
+                misc[0], misc[1], misc[2] = al2, mu2, nu2
+                if modsac:
+                    misc[4] = float(update_a)
+        cri_leaves = split_flat(tc.detach(), cri_shapes)
+        obj_neg, g_a = value_and_grad_flat(
+            lambda lv: sac_actor_loss(lv, cri_leaves, x, zp, torch.exp(al2),
+                                      num_ensembles=E, **sac), pa, act_shapes)
+        with torch.no_grad():
+            if valid and do_act:
+                count = misc[3] + 1.0
+                clip_adam_bc_(opt, pa, mua, nua, g_a, 1.0 - torch.exp(count * math.log(b1)),
+                              1.0 - torch.exp(count * math.log(b2)))
+                if modsac:
+                    soft_update_(ta, pa, tau)
+                misc[3] = count
+            objs[u] = torch.stack([obj_c.detach(), -obj_neg.detach(),
+                                   obj_c.new_tensor(float(valid and do_act))])
     return objs
 
 
@@ -410,11 +620,86 @@ ddpg_chunk.launches = 0
 ddpg_chunk.launches_by_variant = {'ddpg': 0, 'td3': 0}
 
 
-def _bind(lib, fn_name, n_ptr, n_int, sizes):
+def sac_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
+                   num_ensembles: int) -> int:
+    """Dynamic shared memory of one SAC fwd_bwd block (the layout of
+    ``sac_update_smem_bytes`` in ``csrc/sac_update.cu``)."""
+    ld = lambda k: k | 1  # noqa: E731
+    return 4 * _TB * (2 * ld(state_dim + action_dim) + 4 * ld(d1) + 4 * ld(d2)
+                      + ld(2 * action_dim) + ld(num_ensembles) + 2)
+
+
+def sac_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um, nzn, nzp,
+              bcv, *, net_dims: Sequence[int], modsac: bool, num_ensembles: int, gamma: float,
+              tau: float, lr: float, clip_grad: float, target_entropy: float, std_clip,
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
+    """The SAC/ModSAC chunk: CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  In place (``ta`` is None for SAC); returns the ``(C,
+    3)`` objectives."""
+    kw = dict(net_dims=net_dims, modsac=modsac, num_ensembles=num_ensembles, gamma=gamma,
+              tau=tau, lr=lr, clip_grad=clip_grad, target_entropy=target_entropy,
+              std_clip=std_clip, b1=b1, b2=b2, eps=eps)
+    args = (pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um, nzn, nzp, bcv)
+    if pa.device.type == 'cpu':
+        return sac_chunk_reference(*args, **kw)
+    if pa.device.type != 'cuda':
+        raise ValueError(f'sac_chunk: unsupported device {pa.device}')
+    if len(net_dims) != 2:
+        raise ValueError(f'sac_chunk: the CUDA kernel takes 2 hidden layers, got {net_dims}')
+    if (ta is None) == bool(modsac):
+        raise ValueError('sac_chunk: ModSAC takes an actor target, SAC none')
+    from ._cuda_build import check, check_tensor, ptr
+    D1, D2 = (int(d) for d in net_dims)
+    C, S, B = sb.shape
+    A, E = ab.shape[1], int(num_ensembles)
+    dev = pa.device
+    Pa = sum(math.prod(s) for s in sac_act_shapes(S, (D1, D2), A, modsac))
+    Pc = sum(math.prod(s) for s in sac_cri_shapes(S, A, (D1, D2), E))
+    for name, buf in (('pa', pa), ('ta', ta), ('mua', mua), ('nua', nua)):
+        if buf is not None:
+            check_tensor('sac_chunk', name, buf, (Pa,), torch.float32, dev)
+    for name, buf in (('pc', pc), ('tc', tc), ('muc', muc), ('nuc', nuc)):
+        check_tensor('sac_chunk', name, buf, (Pc,), torch.float32, dev)
+    check_tensor('sac_chunk', 'misc', misc, (5,), torch.float32, dev)
+    _check_blocks('sac_chunk', dev, C, S, A, B,
+                  (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('ab', ab, (C, A, B)),
+                   ('nzn', nzn, (C, A, B)), ('nzp', nzp, (C, A, B)), ('rb', rb, (C, B)),
+                   ('ud', ud, (C, B)), ('um', um, (C, B))), bcv, 7)
+    lib = _sac_library()
+    smem = lib.sac_update_smem_bytes(S, A, D1, D2, E)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'sac_chunk: net_dims={(D1, D2)} with {E} heads needs {smem} bytes of '
+                         f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
+                         'can hold')
+    partial, objpart, grad, normpart = _scratch(lib, lib.sac_update_blocks,
+                                                lib.sac_update_reduce_blocks, B,
+                                                max(Pa, Pc), dev)
+    step = torch.empty((8,), dtype=torch.float32, device=dev)
+    objs = torch.empty((C, 3), dtype=torch.float32, device=dev)
+    f = ctypes.c_float
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.sac_update(
+        *[ptr(x) for x in (pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
+                           nzn, nzp, bcv, partial, objpart, grad, normpart, step, objs)],
+        C, B, S, A, D1, D2, E, int(bool(modsac)),
+        *[f(v) for v in (gamma, tau, lr, clip_grad, b1, b2, eps, target_entropy, std_clip[0],
+                         std_clip[1], SAC_RELIABLE)], ctypes.c_void_p(stream))
+    variant = 'modsac' if modsac else 'sac'
+    check(status, f'sac_update[{variant}]')
+    sac_chunk.launches += 1
+    sac_chunk.launches_by_variant[variant] += 1
+    return objs
+
+
+sac_chunk.launches = 0
+sac_chunk.launches_by_variant = {'sac': 0, 'modsac': 0}
+
+
+def _bind(lib, fn_name, n_ptr, n_int, sizes, n_float=7):
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-            + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_float] * n_float + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         for name, n_args in sizes:
             g = getattr(lib, name)
@@ -435,6 +720,13 @@ def _ddpg_library():
     return _bind(load('ddpg_update'), 'ddpg_update', 21, 8,
                  (('ddpg_update_smem_bytes', 5), ('ddpg_update_blocks', 1),
                   ('ddpg_update_reduce_blocks', 1)))
+
+
+def _sac_library():
+    from ._cuda_build import load
+    return _bind(load('sac_update'), 'sac_update', 24, 8,
+                 (('sac_update_smem_bytes', 5), ('sac_update_blocks', 1),
+                  ('sac_update_reduce_blocks', 1)), n_float=11)
 
 
 # ------------------------------------------------- the per-step tables
@@ -463,3 +755,18 @@ def ddpg_bcv(cc0: int, ca0: int, idx: torch.Tensor, update_times: int, do_act: t
     valid = (idx < update_times).float()
     return torch.stack([pw(b1, cri_step), pw(b2, cri_step), pw(b1, act_step), pw(b2, act_step),
                         valid, do_act.float(), torch.zeros_like(valid)], dim=1)
+
+
+def sac_bcv(cc0: int, cl0: int, idx: torch.Tensor, update_times: int, b1: float = 0.9,
+            b2: float = 0.999) -> torch.Tensor:
+    """``(C, 7)`` float32 ``(bc1_c, bc2_c, bc1_alpha, bc2_alpha, valid,
+    update_t, 0)``: the critic's step is ``cc0 + idx + 1``, the temperature's
+    ``cl0 + idx + 1`` (``elegantrl_tpu/agents/sac.py:_fused_update``); the
+    actor's bias corrections come from its count in ``misc``."""
+    dev = idx.device
+    pw = lambda beta, s: 1.0 - torch.pow(torch.tensor(beta, device=dev), s)  # noqa: E731
+    cri_step = float(cc0) + idx.float() + 1.0
+    al_step = float(cl0) + idx.float() + 1.0
+    valid = (idx < update_times).float()
+    return torch.stack([pw(b1, cri_step), pw(b2, cri_step), pw(b1, al_step), pw(b2, al_step),
+                        valid, idx.float(), torch.zeros_like(valid)], dim=1)

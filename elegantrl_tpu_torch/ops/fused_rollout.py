@@ -610,7 +610,7 @@ def _library():
         lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
         lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                                          + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                                          + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
                                           + [ctypes.c_void_p])
         lib.offpolicy_rollout.restype = ctypes.c_int
         lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
@@ -654,10 +654,14 @@ def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
 # ====================================================== off-policy heads
 # The same kernel family for the off-policy agents' exploration
 # (``elegantrl_tpu/ops/pallas_rollout.py:_make_offpolicy_kernel``): one net,
-# no critic, no logprob, no observation normalisation, and one of four heads
+# no critic, no logprob, no observation normalisation, and one of six heads
 # on the trunk ``l2 = W2 gelu(W1 x + b1) + b2``:
 #   'ddpg'     clip(tanh(Wo gelu(l2) + bo) + noise_std * z, -1, 1), stored and
 #              stepped as is (DDPG, TD3);
+#   'sac'      tanh(mean + exp(clip(log_std)) * z), [mean, log_std] = Wo
+#              gelu(l2) + bo (SAC; std_clip (-16, 2));
+#   'modsac'   the same with mean = Wa l2 + ba, log_std = Ws l2 + bs over the
+#              raw trunk (ModSAC; std_clip (-20, 2));
 #   'dqn'      q = Wo gelu(l2) + bo                       (DQN)
 #   'dqn_enc'  q = Wo l2 + bo, the raw encoding           (DoubleDQN: head val1)
 #   'dqn_duel' q = val - mean(val) + adv over the raw encoding, adv = W4 l2 + b4
@@ -667,21 +671,26 @@ def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
 # only guards an injected u1 of exactly 1), the index stored as int32
 # ``(H, N)`` and stepped as a float row.  The kernel reads the head's leaves
 # from the front of the agent's flat buffer: the DQN nets' flat layout
-# (``ops/nets.py:dqn_param_shapes``) keeps enc, val1 and adv1 first.
+# (``ops/nets.py:dqn_param_shapes``) keeps enc, val1 and adv1 first, and the
+# SAC actors' (``sac_act_shapes``) are the head's net.
 # Outputs are the ``(H, N, dim)`` layout the replay buffer takes.
 # Noise: injected ``(H, NZ, N)``, continuous: A normals then the env's
 # uniforms; discrete: the coin, the random-action uniform, then the env's
-# uniforms.  Internal Philox: ``2A + n_env`` (ddpg, Box-Muller) or ``2 +
-# n_env`` uniforms per (lane, step), in the scheme of the on-policy heads.
+# uniforms.  Internal Philox: ``2A + n_env`` (the continuous heads,
+# Box-Muller) or ``2 + n_env`` uniforms per (lane, step), in the scheme of
+# the on-policy heads.
 
-OFFPOLICY_HEADS = {'ddpg': 0, 'dqn': 1, 'dqn_enc': 2, 'dqn_duel': 3}
+OFFPOLICY_HEADS = {'ddpg': 0, 'dqn': 1, 'dqn_enc': 2, 'dqn_duel': 3, 'sac': 4, 'modsac': 5}
+CONTINUOUS_HEADS = ('ddpg', 'sac', 'modsac')
 
 
 def offpolicy_head_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
                           head: str) -> list:
     """Leaf shapes of the head's net: the prefix of the agent's flat buffer
     that the kernel reads."""
-    from .nets import dqn_param_shapes, mlp_shapes
+    from .nets import dqn_param_shapes, mlp_shapes, sac_act_shapes
+    if head in ('sac', 'modsac'):
+        return sac_act_shapes(state_dim, net_dims, action_dim, head == 'modsac')
     if head == 'dqn_duel':
         return dqn_param_shapes(state_dim, net_dims, action_dim, twin=False, duel=True)
     # ddpg and dqn: one MLP; dqn_enc: the encoder and val1, the same leaf shapes
@@ -690,18 +699,21 @@ def offpolicy_head_shapes(state_dim: int, net_dims: Sequence[int], action_dim: i
 
 def offpolicy_noise_rows(body: KernelEnvBody, head: str) -> int:
     """Rows of the injected-noise tensor."""
-    return (2 if head != 'ddpg' else body.action_dim) + body.n_step + body.n_reset
+    cont = head in CONTINUOUS_HEADS
+    return (body.action_dim if cont else 2) + body.n_step + body.n_reset
 
 
 def offpolicy_uniforms_per_step(body: KernelEnvBody, head: str) -> int:
-    return (2 if head != 'ddpg' else 2 * body.action_dim) + body.n_step + body.n_reset
+    cont = head in CONTINUOUS_HEADS
+    return (2 * body.action_dim if cont else 2) + body.n_step + body.n_reset
 
 
 def offpolicy_pair_fits(body: KernelEnvBody, head: str) -> bool:
-    """Whether the kernel has this (body, head) instantiation: the ddpg head
-    on the continuous bodies, the DQN heads on the discrete ones."""
+    """Whether the kernel has this (body, head) instantiation: the ddpg, sac
+    and modsac heads on the continuous bodies, the DQN heads on the discrete
+    ones."""
     return (KERNEL_ENV_BODIES.get(body.env_name) is body and head in OFFPOLICY_HEADS
-            and body.discrete == (head != 'ddpg'))
+            and body.discrete == (head not in CONTINUOUS_HEADS))
 
 
 class OffPolicyRolloutOutputs(NamedTuple):
@@ -717,14 +729,14 @@ class OffPolicyRolloutOutputs(NamedTuple):
 def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor,
                                 *, body: KernelEnvBody, head: str, net_dims: Sequence[int],
                                 horizon_len: int, reward_scale: float, noise_std: float = 0.05,
-                                explore_rate: float = 0.25,
+                                explore_rate: float = 0.25, std_clip=(-16.0, 2.0),
                                 noise: Optional[torch.Tensor] = None,
                                 seed: Optional[torch.Tensor] = None,
                                 env_trace: Optional[list] = None) -> OffPolicyRolloutOutputs:
     """Plain PyTorch version of the off-policy rollout kernel.  ``flat`` is
-    the agent's flat actor (ddpg) or Q buffer; ``env_trace`` as in
-    :func:`rollout_reference`."""
-    from .fused_offpolicy_update import dqn_q_greedy
+    the agent's flat actor (ddpg, sac, modsac) or Q buffer; ``env_trace`` as
+    in :func:`rollout_reference`."""
+    from .fused_offpolicy_update import dqn_q_greedy, sac_actor_dist
     S, A = body.state_dim, body.action_dim
     shapes = offpolicy_head_shapes(S, net_dims, A, head)
     n = sum(math.prod(s) for s in shapes)
@@ -740,14 +752,18 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
             env_trace.append((f, i))
         x = body.obs(f, i)                                   # (S, N)
         u = noise[t] if seed is None else u_all[t]
-        if head == 'ddpg':
+        if head in CONTINUOUS_HEADS:
             if seed is None:
                 z, u_env = u[:A], u[A:]
             else:
                 z = torch.sqrt(-2.0 * torch.log(1.0 - u[0:A])) * torch.cos(_TWO_PI * u[A:2 * A])
                 u_env = u[2 * A:]
-            out = mlp_apply_leaves(leaves, x.T).T            # (A, N)
-            action = torch.clamp(torch.tanh(out) + noise_std * z, -1.0, 1.0)
+            if head == 'ddpg':
+                out = mlp_apply_leaves(leaves, x.T).T        # (A, N)
+                action = torch.clamp(torch.tanh(out) + noise_std * z, -1.0, 1.0)
+            else:
+                mean, log_std = sac_actor_dist(leaves, x.T, head == 'modsac', std_clip)
+                action = torch.tanh(mean.T + torch.exp(log_std.T) * z)
             env_a, stored = action, action.T
         else:
             q = dqn_q_greedy(leaves, x.T, head == 'dqn_enc', head == 'dqn_duel')  # (N, A)
@@ -775,22 +791,24 @@ def offpolicy_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: in
     where the library is not built)."""
     D1, D2 = net_dims
     S, A = state_dim, action_dim
-    duel = head == 'dqn_duel'
-    floats = (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (D2 + 1 if duel else 0)
-              + (S + D1 + D2 + A + 1) * _TE)
+    sac = head in ('sac', 'modsac')
+    heads = 2 * (A * D2 + A) if sac else A * D2 + A + (D2 + 1 if head == 'dqn_duel' else 0)
+    floats = (D1 * S + D1 + D2 * D1 + D2 + heads
+              + (S + D1 + D2 + (2 * A if sac else A + 1)) * _TE)
     return 4 * floats
 
 
 def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor, *,
                       body: KernelEnvBody, head: str, net_dims: Sequence[int],
                       horizon_len: int, reward_scale: float, noise_std: float = 0.05,
-                      explore_rate: float = 0.25, noise: Optional[torch.Tensor] = None,
+                      explore_rate: float = 0.25, std_clip=(-16.0, 2.0),
+                      noise: Optional[torch.Tensor] = None,
                       seed: Optional[torch.Tensor] = None) -> OffPolicyRolloutOutputs:
     """The off-policy fused rollout: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     kw = dict(body=body, head=head, net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise_std=noise_std, explore_rate=explore_rate,
-              noise=noise, seed=seed)
+              std_clip=std_clip, noise=noise, seed=seed)
     if flat.device.type == 'cpu':
         return offpolicy_rollout_reference(flat, env_f, env_i, **kw)
     if flat.device.type != 'cuda':
@@ -826,7 +844,7 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
                      (H, offpolicy_noise_rows(body, head), N), f32, dev)
     else:
         check_tensor('offpolicy_rollout', 'seed', seed, (2,), torch.int32, dev)
-    actions = (torch.empty((H, N, A), dtype=f32, device=dev) if head == 'ddpg'
+    actions = (torch.empty((H, N, A), dtype=f32, device=dev) if head in CONTINUOUS_HEADS
                else torch.empty((H, N), dtype=torch.int32, device=dev))
     out = OffPolicyRolloutOutputs(
         states=torch.empty((H, N, S), dtype=f32, device=dev), actions=actions,
@@ -837,8 +855,9 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.offpolicy_rollout(
         body.kernel_id, OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i), ptr(noise),
-        ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, ctypes.c_float(reward_scale),
-        ctypes.c_float(noise_std), ctypes.c_float(explore_rate), ctypes.c_void_p(stream))
+        ptr(seed), *[ptr(x) for x in out], N, H, D1, D2,
+        *[ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)],
+        ctypes.c_void_p(stream))
     tag = f'{body.env_name},{head}'
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1
@@ -852,11 +871,11 @@ offpolicy_rollout.launches_by_kernel = {}
 
 def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horizon_len: int,
                                  num_envs: int, reward_scale: float, noise_std: float,
-                                 explore_rate: float):
+                                 explore_rate: float, std_clip=(-16.0, 2.0)):
     """``rollout_fn(agent_state, env_state, gen, noise=None) -> (Rollout,
     env_state', last_obs)`` for the off-policy agents: the flat buffer is the
-    agent state's ``act`` (ddpg) or ``q``; without ``noise`` the kernel's
-    Philox draws are keyed by a seed taken from ``gen``."""
+    agent state's ``act`` (ddpg, sac, modsac) or ``q``; without ``noise`` the
+    kernel's Philox draws are keyed by a seed taken from ``gen``."""
     from ..agents.base import Rollout
     H = int(horizon_len)
     net_dims = tuple(int(d) for d in net_dims)
@@ -867,11 +886,11 @@ def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horiz
         if noise is None:
             seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gen,
                                  device=f0.device, dtype=torch.int32)
-        flat = agent_state.act if head == 'ddpg' else agent_state.q
+        flat = agent_state.act if head in CONTINUOUS_HEADS else agent_state.q
         out = offpolicy_rollout(flat, f0.contiguous(), i0.contiguous(), body=body, head=head,
                                 net_dims=net_dims, horizon_len=H, reward_scale=reward_scale,
-                                noise_std=noise_std, explore_rate=explore_rate, noise=noise,
-                                seed=seed)
+                                noise_std=noise_std, explore_rate=explore_rate,
+                                std_clip=std_clip, noise=noise, seed=seed)
         ro = Rollout(states=out.states, actions=out.actions, logprobs=None,
                      rewards=out.rewards, undones=1.0 - out.terminals,
                      unmasks=1.0 - out.truncates)

@@ -173,9 +173,32 @@ def ddpg_param_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
             mlp_shapes((state_dim + action_dim, *net_dims, num_ensembles)))
 
 
+def sac_act_shapes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                   modsac: bool) -> list:
+    """Leaf shapes of the SAC/ModSAC actor, in the kernel leaf order of
+    ``elegantrl_tpu/ops/pallas_update.py:sac_act_flatten``: the encoder ``S ->
+    net_dims`` (no activation after its last layer), then SAC's head ``(2A)``
+    (mean, then log_std) or ModSAC's ``avg (A)`` and ``std (A)`` heads."""
+    d = net_dims[-1]
+    shapes = mlp_shapes((state_dim, *net_dims))
+    if modsac:
+        return shapes + mlp_shapes((d, action_dim)) + mlp_shapes((d, action_dim))
+    return shapes + mlp_shapes((d, 2 * action_dim))
+
+
+def sac_cri_shapes(state_dim: int, action_dim: int, net_dims: Sequence[int],
+                   num_ensembles: int) -> list:
+    """Leaf shapes of the SAC critic ensemble (``sac_cri_flatten``): the
+    encoder, one linear layer ``S + A -> net_dims[0]`` without activation,
+    then per head an MLP ``net_dims -> 1``."""
+    return (mlp_shapes((state_dim + action_dim, net_dims[0]))
+            + mlp_shapes((*net_dims, 1)) * int(num_ensembles))
+
+
 def init_flat(gen: torch.Generator, nets, device) -> torch.Tensor:
     """One flat float32 buffer on ``device`` holding the leaves of the MLPs
-    ``nets = [(dims, out_std), ...]`` in order (:func:`mlp_init`)."""
+    ``nets = [(dims, out_std), ...]`` in order (:func:`mlp_init`; an MLP of
+    one layer is that layer alone, without activation)."""
     leaves = [p.detach().reshape(-1) for dims, out_std in nets
               for p in mlp_init(gen, dims, out_std).leaves()]
     return torch.cat(leaves).float().to(device)

@@ -9,7 +9,7 @@ the JAX package has no kernel for it).  One off-policy round is: rollout
 where the JAX package runs its scan) -> insert into the replay ring buffer
 (``train/replay_buffer.py``, on the run's device) -> ``agent.update`` on the
 buffer (the fused update chunks or the scan path, ``agents/dqn.py`` and
-``agents/ddpg_td3.py``).
+``agents/ddpg_td3.py``, ``agents/sac.py``).
 ``train_agent`` runs rounds on the host, evaluates every
 ``eval_per_step`` env steps, stops at ``break_step``, ``break_score`` or a
 ``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz``.
@@ -75,9 +75,10 @@ def _make_agent(args: Config, buffer) -> AgentDef:
 
 
 # agent name -> off-policy head of the fused rollout (ops/fused_rollout.py),
-# as the JAX runner's _OFFPOLICY_KERNEL_HEADS without the SAC entries
+# as the JAX runner's _OFFPOLICY_KERNEL_HEADS without the H-term variants
 _OFFPOLICY_KERNEL_HEADS = {
     'AgentDDPG': 'ddpg', 'AgentTD3': 'ddpg',
+    'AgentSAC': 'sac', 'AgentModSAC': 'modsac',
     'AgentDQN': 'dqn', 'AgentDoubleDQN': 'dqn_enc',
     'AgentDuelingDQN': 'dqn_duel', 'AgentD3QN': 'dqn_duel',
 }
@@ -119,11 +120,13 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
             return None
         print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
               f'head={off_head}, net_dims={net_dims})', flush=True)
+        # the agents' own hyper defaults (the JAX runner's head_cfg)
         return make_fused_offpolicy_rollout(
             body, off_head, net_dims, horizon_len, num_envs, reward_scale,
             noise_std=float(getattr(args, 'explore_noise_std',
                                     getattr(args, 'explore_noise', 0.05))),
-            explore_rate=float(getattr(args, 'explore_rate', 0.25)))
+            explore_rate=float(getattr(args, 'explore_rate', 0.25)),
+            std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0))
     want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
                    else ('AgentPPO', 'AgentA2C'))
     eligible = (body is not None and agent.name in want_agents
@@ -186,7 +189,8 @@ def build_training(args: Config) -> TrainContext:
         """One round.  ``noise`` (the fused rollout's injected-noise tensor),
         ``ids`` (minibatch ids: ``(U, B)`` flat ids, time slices for A2C, or
         ``(U, R)`` time rows off-policy) and ``update_noise`` (TD3's ``(U, B,
-        A)`` smoothing noise) replace the draws from ``carry.gen``; tests use
+        A)`` smoothing noise; SAC's ``(U, 2, B, A)`` next-action and
+        policy-gradient noise) replace the draws from ``carry.gen``; tests use
         them to replay the JAX package's round."""
         if fast_rollout is not None:
             rollout, env_state, obs = fast_rollout(carry.agent_state, carry.env_state,

@@ -24,6 +24,11 @@ q_target, opt)`` with its Q dict (``{'mlp': ...}`` or ``enc``/``val1``/
 act_opt, cri_opt)`` and the replay ``BufferState`` (without the PER tree and
 the cumulative-return column, which are None there); the port's flat
 buffers follow ``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``.
+``SACState(act, act_target, cri, cri_target, act_opt, cri_opt, alpha_log,
+alpha_opt, update_a)`` has the actor dict ``enc``/``head`` (ModSAC ``enc``/
+``avg``/``std``), the critic ``{'enc', 'heads'}`` whose heads are stacked
+along a leading ensemble axis (the port keeps them head by head,
+``sac_cri_shapes``), ``act_target`` None for SAC, and int32 ``update_a``.
 """
 
 from __future__ import annotations
@@ -259,3 +264,77 @@ def buffer_state_to_numpy(buf) -> NumpyBufferState:
     """The JAX package's leaves of a port ``BufferState``, as numpy."""
     return NumpyBufferState(*[x.detach().cpu().numpy().copy() for x in buf[:5]],
                             ptr=np.asarray(buf.ptr, np.int32), size=np.asarray(buf.size, np.int32))
+
+
+class NumpySACState(NamedTuple):
+    act: dict
+    act_target: Any          # None for SAC
+    cri: dict
+    cri_target: dict
+    act_opt: tuple
+    cri_opt: tuple
+    alpha_log: np.ndarray
+    alpha_opt: tuple
+    update_a: np.ndarray
+
+
+def _sac_act_flat(act: dict, modsac: bool) -> np.ndarray:
+    """The JAX actor dict in the kernel leaf order: enc, then head or avg, std."""
+    keys = ('enc', 'avg', 'std') if modsac else ('enc', 'head')
+    return _flat_pairs([pair for key in keys for pair in act[key]])
+
+
+def _sac_act_tree(flat: torch.Tensor, shapes, modsac: bool) -> dict:
+    pairs = _pairs(flat, shapes)
+    if modsac:
+        return {'enc': pairs[:-2], 'avg': pairs[-2:-1], 'std': pairs[-1:]}
+    return {'enc': pairs[:-1], 'head': pairs[-1:]}
+
+
+def _sac_cri_flat(cri: dict) -> np.ndarray:
+    """The encoder, then head by head: the stacked ``ensemble_init`` layers
+    ``[(w (E, in, out), b (E, out)), ...]`` unstacked."""
+    heads = [(np.asarray(w), np.asarray(b)) for w, b in cri['heads']]
+    E = heads[0][0].shape[0]
+    return np.concatenate([_flat_pairs(cri['enc'])]
+                          + [_flat_pairs([(w[e], b[e]) for w, b in heads]) for e in range(E)])
+
+
+def _sac_cri_tree(flat: torch.Tensor, shapes, num_ensembles: int) -> dict:
+    pairs = _pairs(flat, shapes)
+    nl = (len(pairs) - 1) // num_ensembles
+    heads = [pairs[1 + e * nl:1 + (e + 1) * nl] for e in range(num_ensembles)]
+    return {'enc': pairs[:1],
+            'heads': [(np.stack([h[i][0] for h in heads]), np.stack([h[i][1] for h in heads]))
+                      for i in range(nl)]}
+
+
+def sac_state_from_numpy(tree, device, modsac: bool):
+    """The port's ``SACState`` from a numpy JAX ``SACState``."""
+    from ..agents.sac import SACState
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    fa = lambda act: _sac_act_flat(act, modsac)  # noqa: E731
+    act_target = _field(tree, 'act_target', 1)
+    return SACState(t(fa(_field(tree, 'act', 0))),
+                    None if act_target is None else t(fa(act_target)),
+                    t(_sac_cri_flat(_field(tree, 'cri', 2))),
+                    t(_sac_cri_flat(_field(tree, 'cri_target', 3))),
+                    _adam_from(_field(tree, 'act_opt', 4), fa, t),
+                    _adam_from(_field(tree, 'cri_opt', 5), _sac_cri_flat, t),
+                    t(_field(tree, 'alpha_log', 6)),
+                    _adam_from(_field(tree, 'alpha_opt', 7), np.asarray, t),
+                    int(np.asarray(_field(tree, 'update_a', 8))))
+
+
+def sac_state_to_numpy(state, act_shapes, cri_shapes, modsac: bool,
+                       num_ensembles: int) -> NumpySACState:
+    """The JAX package's nesting of a port ``SACState`` (dict keys sorted as
+    JAX flattens them), as numpy."""
+    ua = lambda flat: _sac_act_tree(flat, act_shapes, modsac)  # noqa: E731
+    uc = lambda flat: _sac_cri_tree(flat, cri_shapes, num_ensembles)  # noqa: E731
+    scalar = lambda x: x.detach().cpu().numpy().copy()  # noqa: E731
+    return NumpySACState(
+        ua(state.act), None if state.act_target is None else ua(state.act_target),
+        uc(state.cri), uc(state.cri_target), _adam_tree(state.act_opt, ua),
+        _adam_tree(state.cri_opt, uc), scalar(state.alpha_log),
+        _adam_tree(state.alpha_opt, scalar), np.asarray(state.update_a, np.int32))

@@ -32,7 +32,11 @@ Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
   package's DQN chunk, so the update is PyTorch autograd; the rollout is the
   fused kernel;
 - ``dqn_cartpole_b128``: the DQN recipe at batch 128, where the update is
-  the fused DQN chunk.
+  the fused DQN chunk;
+- ``sac_pendulum`` and ``modsac_pendulum`` (-200): the Pendulum recipe above
+  (batch 256 at (64, 64): the fused SAC chunk; E = 4 for SAC, 8 for
+  ModSAC); ``sac_hopper`` (1000): the Hopper recipe above with SAC (E = 4)
+  (``scripts/verify_learning.py:97-100,132-133,257-266``).
 
 Evaluation is over 16 greedy episodes, as the JAX script's.  Prints one JSON
 line per (recipe, seed) with the result, the device and the kernel launches.
@@ -68,13 +72,16 @@ DQN_CART = dict(net_dims=(128, 128), horizon_len=64, buffer_size=int(2e5), batch
 def recipes():
     from elegantrl_tpu_torch.agents import (AgentA2C, AgentD3QN, AgentDDPG, AgentDiscretePPO,
                                             AgentDoubleDQN, AgentDQN, AgentDuelingDQN,
-                                            AgentPPO, AgentTD3)
+                                            AgentModSAC, AgentPPO, AgentSAC, AgentTD3)
     from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv
     return {
         'td3_pendulum': (AgentTD3, PendulumEnv, PENDULUM, -150.0, OFFPOL_PEND),
         'ddpg_pendulum': (AgentDDPG, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
         'td3_hopper': (AgentTD3, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
         'ddpg_hopper': (AgentDDPG, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
+        'sac_pendulum': (AgentSAC, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
+        'modsac_pendulum': (AgentModSAC, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
+        'sac_hopper': (AgentSAC, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
         'dqn_cartpole': (AgentDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),
         'doubledqn_cartpole': (AgentDoubleDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),
         'duelingdqn_cartpole': (AgentDuelingDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),
@@ -114,11 +121,12 @@ def main():
 
     import torch
     from elegantrl_tpu_torch import Config, train_agent
-    from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk
+    from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk, sac_chunk
     from elegantrl_tpu_torch.ops.fused_rollout import offpolicy_rollout, rollout
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
     counted = {'fused_rollout': rollout, 'offpolicy_rollout': offpolicy_rollout,
-               'ppo_update': ppo_update, 'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk}
+               'ppo_update': ppo_update, 'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk,
+               'sac_update': sac_chunk}
 
     if opts.device == 'cuda':
         device = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -36,7 +36,7 @@ def test_imports_load_no_jax():
 
 def test_off_policy_modules_are_probed():
     names = {'agents.dqn', 'agents.ddpg_td3', 'agents.off_policy', 'train.replay_buffer',
-             'ops.fused_offpolicy_update'}
+             'ops.fused_offpolicy_update', 'agents.sac'}
     for name in names:
         assert os.path.isfile(os.path.join(PKG, *name.split('.')) + '.py'), name
 

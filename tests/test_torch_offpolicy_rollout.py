@@ -2,15 +2,16 @@
 (``elegantrl_tpu_torch/ops/fused_rollout.py:offpolicy_rollout_reference``)
 with the JAX package's off-policy Pallas rollout in interpret mode
 (``make_fused_offpolicy_rollout(..., interpret=True)``) for every head the
-port has: ``ddpg`` on Pendulum (TD3) and HopperSlip (DDPG), ``dqn``,
-``dqn_enc`` (DoubleDQN) and ``dqn_duel`` (DuelingDQN, D3QN) on CartPole;
-16 envs x 8 steps, net (16, 16), the same weights (carried through numpy)
-and the same injected noise.
+port has: ``ddpg`` on Pendulum (TD3) and HopperSlip (DDPG), ``sac`` on
+HopperSlip (SAC), ``modsac`` on Pendulum (ModSAC), ``dqn``, ``dqn_enc``
+(DoubleDQN) and ``dqn_duel`` (DuelingDQN, D3QN) on CartPole; 16 envs x 8
+steps, net (16, 16), the same weights (carried through numpy) and the same
+injected noise.
 
 The JAX wrapper draws its noise from the key: uniforms ``(H, 2 + n_env,
 N)`` for the DQN heads (the coin, the random-action uniform, then the
 env's uniforms); ``kz, ku = split(key)``, normals ``(H, A, N)`` then the
-env's uniforms for the ddpg head.  The tests recompute it and hand it to
+env's uniforms for the continuous heads (ddpg, sac, modsac).  The tests recompute it and hand it to
 the port in injected-noise mode.
 
 Tolerances: states, continuous actions, rewards and final env rows 1e-5
@@ -25,6 +26,7 @@ import torch
 
 from elegantrl_tpu.agents.ddpg_td3 import _make as jmake_ddpg_td3
 from elegantrl_tpu.agents.dqn import make_dqn as jmake_dqn
+from elegantrl_tpu.agents.sac import make_sac as jmake_sac
 from elegantrl_tpu.config import Config as JConfig
 from elegantrl_tpu.envs.cartpole import make_cartpole as jmake_cartpole
 from elegantrl_tpu.envs.hopper import make_hopper as jmake_hopper
@@ -33,7 +35,7 @@ from elegantrl_tpu.ops import pallas_rollout as jpr
 from elegantrl_tpu_torch.envs import CartPoleState, HopperState, PendulumState
 from elegantrl_tpu_torch.ops import fused_rollout as fr
 from elegantrl_tpu_torch.utils.jax_params import (ddpg_state_from_numpy, dqn_state_from_numpy,
-                                                  env_state_from_numpy)
+                                                  env_state_from_numpy, sac_state_from_numpy)
 
 torch.set_num_threads(1)
 NET_DIMS = (16, 16)
@@ -58,6 +60,9 @@ def _stagger(name, s):
 CASES = {
     'td3_pendulum': ('pendulum', jpr.PENDULUM_BODY, fr.PENDULUM_BODY, PendulumState, 'ddpg', 'td3'),
     'ddpg_hopper': ('hopper', jpr.HOPPER_BODY, fr.HOPPER_BODY, HopperState, 'ddpg', 'ddpg'),
+    'sac_hopper': ('hopper', jpr.HOPPER_BODY, fr.HOPPER_BODY, HopperState, 'sac', 'sac'),
+    'modsac_pendulum': ('pendulum', jpr.PENDULUM_BODY, fr.PENDULUM_BODY, PendulumState, 'modsac',
+                        'modsac'),
     'dqn_cartpole': ('cartpole', jpr.CARTPOLE_BODY, fr.CARTPOLE_BODY, CartPoleState, 'dqn',
                      (False, False)),
     'doubledqn_cartpole': ('cartpole', jpr.CARTPOLE_BODY, fr.CARTPOLE_BODY, CartPoleState,
@@ -70,6 +75,11 @@ CASES = {
 ENVS = {'pendulum': jmake_pendulum, 'hopper': jmake_hopper, 'cartpole': jmake_cartpole}
 
 
+def _std_clip(head):
+    """The runners' head_cfg: ModSAC's clip, else SAC's (unused by the rest)."""
+    return (-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0)
+
+
 def _agent_state(body, kind, seed):
     """The JAX agent's initial state and the port's flat buffer of it."""
     args = JConfig()
@@ -78,6 +88,10 @@ def _agent_state(body, kind, seed):
         s = jmake_ddpg_td3(NET_DIMS, S, A, args, None, td3=kind == 'td3').init(
             jax.random.PRNGKey(seed))
         return s, ddpg_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu').act
+    if kind in ('sac', 'modsac'):
+        s = jmake_sac(NET_DIMS, S, A, args, None, modsac=kind == 'modsac').init(
+            jax.random.PRNGKey(seed))
+        return s, sac_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu', kind == 'modsac').act
     twin, duel = kind
     s = jmake_dqn(NET_DIMS, S, A, args, twin=twin, duel=duel).init(jax.random.PRNGKey(seed))
     return s, dqn_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu', twin, duel).q
@@ -85,7 +99,7 @@ def _agent_state(body, kind, seed):
 
 def _noise(body, head, key):
     n_env = body.n_step + body.n_reset
-    if head != 'ddpg':
+    if head not in fr.CONTINUOUS_HEADS:
         return jax.random.uniform(key, (H, 2 + n_env, N), jnp.float32)
     kz, ku = jax.random.split(key)
     return jnp.concatenate([jax.random.normal(kz, (H, body.action_dim, N), jnp.float32),
@@ -102,7 +116,8 @@ def pair(request):
     obs = jax.vmap(env.obs)(env_state)
     fast = jpr.make_fused_offpolicy_rollout(
         jbody, NET_DIMS, H, N, REWARD_SCALE, head=head,
-        head_cfg={'noise_std': NOISE_STD, 'explore_rate': EXPLORE_RATE}, block=8, interpret=True)
+        head_cfg={'noise_std': NOISE_STD, 'explore_rate': EXPLORE_RATE,
+                  'std_clip': _std_clip(head)}, block=8, interpret=True)
     key = jax.random.PRNGKey(3)
     jro, jenv2, _ = fast(js, env_state, obs, key)
     f0, i0 = body.pack(env_state_from_numpy(state_class, jax.tree.map(np.asarray, env_state),
@@ -110,7 +125,7 @@ def pair(request):
     noise = torch.tensor(np.asarray(_noise(jbody, head, key)))
     got = fr.offpolicy_rollout(flat, f0, i0, body=body, head=head, net_dims=NET_DIMS,
                                horizon_len=H, reward_scale=REWARD_SCALE, noise_std=NOISE_STD,
-                               explore_rate=EXPLORE_RATE, noise=noise)
+                               explore_rate=EXPLORE_RATE, std_clip=_std_clip(head), noise=noise)
     jf, ji = jbody.pack(jenv2)
     return (request.param, jax.tree.map(np.asarray, jro), np.asarray(jf), np.asarray(ji), got,
             body, head, flat, f0, i0)
@@ -124,7 +139,7 @@ def test_states_and_rewards(pair):
 
 def test_actions(pair):
     _, jro, _, _, got, _, head, *_ = pair
-    if head == 'ddpg':
+    if head in fr.CONTINUOUS_HEADS:
         np.testing.assert_allclose(got.actions.numpy(), jro.actions, rtol=0, atol=1e-5)
     else:
         assert got.actions.dtype == torch.int32 and got.actions.shape == (H, N)
@@ -137,15 +152,16 @@ def test_flags_and_final_env_rows(pair):
     np.testing.assert_array_equal(1.0 - got.truncates.numpy(), jro.unmasks)
     np.testing.assert_allclose(got.env_f.numpy(), jf, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got.env_i.numpy(), ji.reshape(got.env_i.shape))
-    if name != 'td3_pendulum':      # the staggered lanes end an episode within 8 steps
+    if not name.endswith('pendulum'):   # the staggered lanes end an episode within 8 steps
         assert float((got.terminals + got.truncates).sum()) > 0
 
 
-@pytest.mark.parametrize('case', ['td3_pendulum', 'dqn_cartpole'])
+@pytest.mark.parametrize('case', ['td3_pendulum', 'dqn_cartpole', 'sac_hopper',
+                                  'modsac_pendulum'])
 def test_philox_mode_is_injected_mode_on_its_draws(case):
     """Internal mode draws ``philox_uniforms(seed, H, N, count)``: the DQN
-    heads take them as their injected rows; the ddpg head turns its first 2A
-    into A normals by Box-Muller."""
+    heads take them as their injected rows; the continuous heads turn their
+    first 2A into A normals by Box-Muller."""
     _, jbody, body, _, head, kind = CASES[case]
     _, flat = _agent_state(jbody, kind, seed=1)
     gen = torch.Generator().manual_seed(0)
@@ -154,13 +170,13 @@ def test_philox_mode_is_injected_mode_on_its_draws(case):
     seed = torch.tensor([12, -5], dtype=torch.int32)
     u = fr.philox_uniforms(seed, H, N, fr.offpolicy_uniforms_per_step(body, head))
     A = body.action_dim
-    if head == 'ddpg':
+    if head in fr.CONTINUOUS_HEADS:
         z = torch.sqrt(-2.0 * torch.log(1.0 - u[:, :A])) * torch.cos(2 * np.pi * u[:, A:2 * A])
         noise = torch.cat([z, u[:, 2 * A:]], dim=1)
     else:
         noise = u
     kw = dict(body=body, head=head, net_dims=NET_DIMS, horizon_len=H, reward_scale=1.0,
-              noise_std=NOISE_STD, explore_rate=EXPLORE_RATE)
+              noise_std=NOISE_STD, explore_rate=EXPLORE_RATE, std_clip=_std_clip(head))
     a = fr.offpolicy_rollout(flat, env_f, env_i, seed=seed, **kw)
     b = fr.offpolicy_rollout(flat, env_f, env_i, noise=noise, **kw)
     for x, y in zip(a, b):
@@ -171,7 +187,10 @@ def test_philox_mode_is_injected_mode_on_its_draws(case):
     (fr.PENDULUM_BODY, 'ddpg', True), (fr.HOPPER_BODY, 'ddpg', True),
     (fr.CHASING_BODY, 'ddpg', True), (fr.CARTPOLE_BODY, 'dqn_duel', True),
     (fr.CHASING_DISCRETE_BODY, 'dqn_enc', True), (fr.CARTPOLE_BODY, 'ddpg', False),
-    (fr.PENDULUM_BODY, 'dqn', False), (fr.CARTPOLE_BODY, 'sac', False)])
+    (fr.PENDULUM_BODY, 'dqn', False), (fr.CARTPOLE_BODY, 'sac', False),
+    (fr.HOPPER_BODY, 'sac', True), (fr.CHASING_BODY, 'sac', True),
+    (fr.PENDULUM_BODY, 'modsac', True), (fr.HOPPER_BODY, 'modsac', True),
+    (fr.CHASING_DISCRETE_BODY, 'modsac', False)])
 def test_kernel_pairs(body, head, fits):
-    """The kernel has the nine (body, head) pairs whose action spaces match."""
+    """The kernel has the fifteen (body, head) pairs whose action spaces match."""
     assert fr.offpolicy_pair_fits(body, head) == fits
