@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Drives ``elegantrl_tpu_torch``'s main paths on the card (PPO on Pendulum-v1,
-discrete PPO on CartPole-v1, TD3 and SAC on HopperSlip-v0, DQN on
-CartPole-v1) and holds each hand-written kernel against its plain PyTorch
-version:
+discrete PPO on CartPole-v1, TD3, SAC and TD3 with prioritised replay on
+HopperSlip-v0, DQN on CartPole-v1) and holds each hand-written kernel against
+its plain PyTorch version:
 
 1. device: name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` for ``sm_90a`` on every ``ops/csrc/*.cu``, all at once;
@@ -45,7 +45,17 @@ version:
     off-policy agent class (SAC and ModSAC on all three continuous bodies,
     SAC on Pendulum at batch 64 through the PyTorch update); the card
     refusing the plain update;
-12. the kernels line and the device line.
+12. prioritised replay and the rest of the off-policy family: the PER
+    variant of the DDPG/TD3 chunk (K7') against its plain version for TD3 and
+    DDPG on a real PER draw (``k7per_vs_plain``); the priority tree on the
+    card against the CPU with duplicate ids (``per_tree_vs_cpu``); path D,
+    TD3 with PER on HopperSlip at path A's sizes, a small round against the
+    CPU and 10 timed rounds; ``train_agent`` for TD3 and DDPG with PER at
+    ``td3_pendulum_per``'s shape (K7'), DQN and SAC with PER, TD3 with
+    ``lambda_fit_cum_r``, EmbedDQN, EnsembleDQN and the five H-term agents
+    (each PyTorch path said so), and an ``if_save_buffer`` run resumed with
+    ``continue_train``;
+13. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -107,6 +117,8 @@ PATH_B = dict(envs=64, horizon=64, buffer=20000, batch=128, repeat=1.0, lr=1e-3,
 # path C, SAC on HopperSlip: the JAX package's sac_hopper_shape (E = 4)
 PATH_C = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-4,
               updates=15)
+# path D, TD3 with prioritised replay on HopperSlip at path A's sizes (K7')
+PATH_D = dict(PATH_A)
 K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVecEnv', 'ddpg'),
             ('CartPole-v1', 'dqn'), ('CartPole-v1', 'dqn_enc'), ('CartPole-v1', 'dqn_duel'),
             ('PointChasingDiscreteEnv', 'dqn'), ('PointChasingDiscreteEnv', 'dqn_enc'),
@@ -153,15 +165,21 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     """The off-policy phases; returns their entries of the kernels line."""
     import contextlib
     import io
+    import numpy as np
     from elegantrl_tpu_torch import Config, build_training, train_agent
-    from elegantrl_tpu_torch.agents import (AgentD3QN, AgentDDPG, AgentDoubleDQN, AgentDQN,
-                                            AgentDuelingDQN, AgentModSAC, AgentSAC, AgentTD3)
+    from elegantrl_tpu_torch.agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm,
+                                            AgentDoubleDQN, AgentDQN, AgentDuelingDQN,
+                                            AgentEmbedDQN, AgentEnsembleDQN, AgentModSAC,
+                                            AgentModSACHterm, AgentPPOHterm, AgentSAC,
+                                            AgentSACHterm, AgentTD3, AgentTD3Hterm)
     from elegantrl_tpu_torch.agents.off_policy import offpolicy_update_times
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
                                           PointChasingDiscreteEnv, PointChasingVecEnv)
     from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
     from elegantrl_tpu_torch.ops.nets import (ddpg_param_shapes, dqn_param_shapes, init_flat,
                                               sac_act_shapes, sac_cri_shapes, split_flat)
+    from elegantrl_tpu_torch.ops.per import SegmentTree
+    from elegantrl_tpu_torch.train.replay_buffer import ReplayBuffer
     D1, D2 = OFF_NET
     env_classes = {'Pendulum-v1': PendulumEnv, 'HopperSlip-v0': HopperEnv,
                    'PointChasingVecEnv': PointChasingVecEnv, 'CartPole-v1': CartPoleEnv,
@@ -441,6 +459,87 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
              do_act='alternating', **res, tolerance={'update': 5e-3, 'objectives': 1e-3})
         k7[variant] = res
 
+    # ---- k7per_vs_plain: K7', the PER variant of the DDPG/TD3 chunk, against
+    # its plain version at path A's shapes, TD3 (E = 8) and DDPG (E = 1), the
+    # last 4 steps invalid; the blocks and the importance weights are a real
+    # PER draw (ReplayBuffer.per_ids, as sample_for_per draws) from a filled
+    # ring of 1024 envs x 64 rows with priorities 0.5 ... 7.5.  Tolerances as
+    # k7_vs_plain; the per-sample TD errors of every step within 1e-5 of the
+    # largest plain |td|; the invalid steps leave every buffer bit-identical.
+    k7per = {}
+    S, A, B, NE = 6, 2, PATH_A['batch'], PATH_A['envs']
+    g = torch.Generator(device=dev).manual_seed(53)
+    prb = ReplayBuffer(64, S, A, num_seqs=NE, if_use_per=True, device=dev)
+    pbuf = prb.update(prb.init(), (
+        torch.randn((64, NE, S), generator=g, device=dev),
+        torch.rand((64, NE, A), generator=g, device=dev) * 2 - 1,
+        torch.randn((64, NE), generator=g, device=dev),
+        (torch.rand((64, NE), generator=g, device=dev) > 0.05).float(),
+        (torch.rand((64, NE), generator=g, device=dev) > 0.02).float()))
+    prb.tree.update(pbuf.per_tree, torch.arange(64, device=dev),
+                    torch.randint(1, 16, (64, NE), generator=g, device=dev) * 0.5)
+    ids0, ids1, iw = prb.per_ids(pbuf, B, torch.rand((C, NE, B // NE), generator=g, device=dev))
+    x_, a_, r_, ud_, um_, nx_, _ = prb.gather(pbuf, ids0, ids1)
+    per_blocks = [x_.transpose(1, 2).contiguous(), nx_.transpose(1, 2).contiguous(),
+                  a_.transpose(1, 2).contiguous(), r_.contiguous(), ud_.contiguous(),
+                  um_.contiguous(), 0.1 * torch.randn((C, A, B), generator=g, device=dev)]
+    iw = iw.contiguous()
+    for td3 in (False, True):
+        variant = 'td3_per' if td3 else 'ddpg_per'
+        E = 8 if td3 else 1
+        act_shapes, cri_shapes = ddpg_param_shapes(S, OFF_NET, A, E)
+        Pa, Pc = (sum(math.prod(x) for x in sh) for sh in (act_shapes, cri_shapes))
+        pa, ta, mua, nua = warm_buffers(g, Pa, 4)
+        pc, tc, muc, nuc = warm_buffers(g, Pc, 4)
+        base = [pa, pc, ta, tc, mua, muc, nua, nuc]
+        idx = torch.arange(C, device=dev)
+        bcv_of = lambda valid: fo.ddpg_bcv(9, 4, idx, valid, idx % 2 == 0,  # noqa: E731
+                                           (idx + 1) // 2 + 1)
+        hyper = dict(net_dims=OFF_NET, td3=td3, num_ensembles=E, gamma=0.99, tau=5e-3, lr=3e-4,
+                     clip_grad=3.0, iw=iw)
+        runs = {}
+        for fn in (fo.ddpg_chunk, fo.ddpg_chunk_reference):
+            bufs = [b.clone() for b in base]
+            objs, td = fn(*bufs, *per_blocks, bcv_of(VALID), **hyper)
+            torch.cuda.synchronize()
+            runs[fn.__name__] = (bufs, objs, td)
+        (kb, ko, kt), (pb, po, pt) = runs['ddpg_chunk'], runs['ddpg_chunk_reference']
+        rel = [float(((k - b) - (p - b)).abs().max() / (p - b).abs().max().clamp_min(1e-30))
+               for k, p, b in zip(kb, pb, base)]
+        err = max(float(((k - b) - (p - b)).abs().max()) for k, p, b in zip(kb, pb, base))
+        obj_rel = float(((ko - po).abs() / po.abs().clamp_min(1e-6))[:VALID].max())
+        td_rel = float((kt - pt).abs().max() / pt.abs().max())
+        short = [b.clone() for b in base]
+        fo.ddpg_chunk(*short, *[x[:VALID] for x in per_blocks], bcv_of(VALID)[:VALID],
+                      **dict(hyper, iw=iw[:VALID].contiguous()))
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(short, kb))
+        assert all(r <= 5e-3 for r in rel), (variant, rel)
+        assert obj_rel <= 1e-3, (variant, obj_rel)
+        assert td_rel <= 1e-5, (variant, td_rel)
+        assert identical, variant
+        bufs = [b.clone() for b in base]
+        ms = cuda_ms_(lambda: fo.ddpg_chunk(*bufs, *per_blocks, bcv_of(C), **hyper), reps=10,
+                      warmup=2)
+        plain = cuda_ms_(lambda: fo.ddpg_chunk_reference(*bufs, *per_blocks, bcv_of(C), **hyper),
+                         reps=2)
+        f_a = 2 * B * (S * D1 + D1 * D2 + D2 * A)
+        f_c = 2 * B * ((S + A) * D1 + D1 * D2 + D2 * E)
+        # K7's operations and bytes, plus the importance weights in and the
+        # TD errors out
+        b_ms, b_by = bound((4 * f_a + 5 * f_c) * C,
+                           4 * (8 * (Pa + Pc) + C * B * (2 * S + 2 * A + 3) + 7 * C + 2 * C
+                                + 2 * C * B))
+        res = dict(rel_update_diff=rel, max_abs_err=max(err, float((kt - pt).abs().max())),
+                   objective_rel_diff=obj_rel, td_rel_diff=td_rel,
+                   invalid_steps_bit_identical=identical, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by)
+        emit(phase='k7per_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A,
+             iw_from=f'ReplayBuffer.per_ids on a filled ring of {NE} envs x 64 rows',
+             iw_range=[float(iw.min()), float(iw.max())], do_act='alternating', **res,
+             tolerance={'update': 5e-3, 'objectives': 1e-3, 'td': 1e-5})
+        k7per[variant] = res
+
     # ---- k8_vs_plain: SAC (E = 4) and ModSAC (E = 8) at path C's shapes, one
     # chunk from update 0 (ModSAC's gate skips some steps), the last 4 steps
     # invalid.  Tolerances as k7: buffers, leaves and the temperature's state
@@ -543,16 +642,18 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     def small_round_vs_cpu(task, head, num_envs, horizon, batch, repeat, phase, **hyper):
         """A small round on the card (the rollout kernel, the update chunk)
         against the same round on the CPU (their plain versions): the same
-        weights, env state, rollout noise, minibatch rows and the update's noise
-        (TD3's smoothing noise; SAC's next-action and policy-gradient noise).
-        Tolerance: objectives 1e-3 relative, updates 2e-2 of each buffer's
-        largest."""
+        weights, env state, rollout noise, minibatch rows (under PER the
+        stratified uniforms) and the update's noise (TD3's smoothing noise;
+        SAC's next-action and policy-gradient noise).  Tolerance: objectives
+        1e-3 relative, updates 2e-2 of each buffer's largest."""
         body = fr.KERNEL_ENV_BODIES[task[2]]
         A_ = body.action_dim
         g3 = torch.Generator().manual_seed(3)
         nz = k6_noise_cpu(body, head, g3, horizon, num_envs)
         U = offpolicy_update_times(horizon, repeat, batch)
-        rows = torch.randint(0, horizon - 1, (U, batch // num_envs), generator=g3)
+        rows = (torch.rand((U, num_envs, batch // num_envs), generator=g3)
+                if hyper.get('if_use_per') else
+                torch.randint(0, horizon - 1, (U, batch // num_envs), generator=g3))
         unoise = {'ddpg': 0.1 * torch.randn((U, batch, A_), generator=g3),
                   'sac': torch.randn((U, 2, batch, A_), generator=g3)}.get(head)
         small, start = {}, None
@@ -592,7 +693,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                               torch.rand((h, n_env, n), generator=gen)], 1)
         return torch.rand((h, 2 + n_env, n), generator=gen)
 
-    def timed_rounds(task, head, path, phase, kernel_ms, **hyper):
+    def timed_rounds(task, head, path, phase, kernel_ms, variant=None, **hyper):
         a = off_args(task, path['envs'], path['horizon'], path['batch'], path['repeat'],
                      path['buffer'], path['lr'], **hyper)
         ctx = build_training(a)
@@ -637,7 +738,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         chunks = -(-U // 16)
         update_counts = {k: v for k, v in by_chunk.items() if v}
         assert by_kernel == {f'{task[2]},{head}': ROUNDS}, by_kernel
-        assert update_counts == {CHUNK_VARIANT[head]: ROUNDS * chunks}, update_counts
+        assert update_counts == {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}, update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
@@ -669,6 +770,60 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     launches_c = timed_rounds(sac_hopper, 'sac', PATH_C, 'main_path_sac_hopper', dict(
         fused_rollout_ms=k6[('HopperSlip-v0', 'sac')]['ms'],
         sac_update_ms=k8['sac']['ms'], sac_update_plain_ms=k8['sac']['plain_ms']), gamma=0.99)
+
+    # ---- per_tree_vs_cpu: the priority tree on the card against the CPU at
+    # path D's sizes (4000 rows x 1024 sequences), on priorities that float32
+    # sums exactly (0.5 ... 7.5): the insert's priority 10, a scattered update
+    # of 1024 pairs, 64 of them one (seq, id) pair, a stratified sample, min_leaf,
+    # then the fused path's chunk: 16 minibatches drawn at once against the
+    # tree at its start (ReplayBuffer.per_ids) and the fold of 12 valid steps'
+    # priorities, step by step.  Ids, leaves and sums must be equal.
+    M_, N_ = PATH_D['buffer'], PATH_D['envs']
+    gc = torch.Generator().manual_seed(59)
+    fresh = torch.randint(1, 16, (M_, N_), generator=gc) * 0.5
+    d0, d1 = torch.randint(0, M_, (N_,), generator=gc), torch.randint(0, N_, (N_,), generator=gc)
+    lo, hi = N_ // 4, N_ // 4 + N_ // 16           # duplicates of pair 7 (64 at full size)
+    d0[lo:hi], d1[lo:hi] = d0[7], d1[7]
+    dprob = torch.randint(1, 16, (N_,), generator=gc) * 0.5
+    u1, uc = torch.rand((N_, 1), generator=gc), torch.rand((C, N_, 1), generator=gc)
+    fold = torch.randint(1, 16, (C, N_), generator=gc) * 0.5
+    trees = []
+    for where in (dev, torch.device('cpu')):
+        rb_ = ReplayBuffer(M_, 1, 1, num_seqs=N_, if_use_per=True, device=where)
+        t_ = rb_.tree
+        tree = t_.update(t_.init(where), torch.arange(M_, device=where), fresh.to(where))
+        tree = t_.update_scattered(tree, d0.to(where), d1.to(where), dprob.to(where))
+        winner = float(tree[1][int(d1[7]), int(d0[7])])
+        ids, prios = t_.sample(tree, 1, u1.to(where))
+        mn = t_.min_leaf(tree, M_ - 7)
+        buf_ = rb_.init()._replace(per_tree=tree, size=M_)
+        c0, c1, cw = rb_.per_ids(buf_, N_, uc.to(where))
+        for u in range(VALID):
+            t_.update_scattered(tree, c0[u], c1[u], fold[u].to(where))
+        trees.append([x.cpu() for x in (ids, prios, mn, c0, c1, cw, *tree)] + [winner])
+    kt_, ct_ = trees
+    names = ('sample_ids', 'sample_prios', 'min_leaf', 'chunk_ids0', 'chunk_ids1', 'chunk_iw',
+             'sums', 'leaves')
+    equal = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, kt_, ct_)}
+    iw_rel = float(((kt_[5] - ct_[5]).abs() / ct_[5]).max())
+    assert all(v for n, v in equal.items() if n != 'chunk_iw'), equal
+    assert kt_[-1] == ct_[-1] == float(dprob[hi - 1]), (kt_[-1], ct_[-1])
+    assert iw_rel <= 1e-6, iw_rel
+    emit(phase='per_tree_vs_cpu', rows=M_, seqs=N_, duplicates=hi - lo, chunk=C, valid=VALID,
+         equal=equal, duplicate_winner=kt_[-1], last_duplicate=float(dprob[hi - 1]),
+         importance_weight_rel_diff=iw_rel, tolerance={'ids, leaves, sums': 'equal',
+                                                        'importance weights': 1e-6})
+
+    # ---- path D: TD3 with prioritised replay on HopperSlip at path A's sizes,
+    # through K7' (one chunk of 15 valid updates per round) and the tree's ops
+    small_round_vs_cpu(td3_hopper, 'ddpg', 256, 16, 1024, 128.0,
+                       'main_path_td3_per_hopper_small_vs_cpu', gamma=0.99, if_use_per=True)
+    launches_d = timed_rounds(td3_hopper, 'ddpg', PATH_D, 'main_path_td3_per_hopper', dict(
+        fused_rollout_ms=k6[('HopperSlip-v0', 'ddpg')]['ms'],
+        ddpg_update_ms=k7per['td3_per']['ms'], ddpg_update_plain_ms=k7per['td3_per']['plain_ms'],
+        tree_leaves_mb=PATH_D['envs'] * SegmentTree(PATH_D['buffer'], 1).cap * 4 / 1e6),
+        variant='td3_per', gamma=0.99,
+        if_use_per=True)
 
     # ---- no plain update on the card: the kernel-eligible batch with the
     # kernel refused raises, for TD3, DQN and SAC
@@ -724,6 +879,85 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                  if pytorch_update else 'kernel', rollout_launches=by_kernel,
                  update_chunks={k: v for k, v in by_chunk.items() if v})
 
+    # ---- the entry point for this slice's switches and agents: TD3 and DDPG
+    # with PER at td3_pendulum_per's shape (8 envs, (64, 64), batch 256, K7'),
+    # DQN and SAC with PER and TD3 with lambda_fit_cum_r (PyTorch updates, as
+    # the JAX package runs them), EmbedDQN and EnsembleDQN (PyTorch rollout
+    # and update), the five H-term agents (off-policy: the rollout kernel's
+    # heads and a PyTorch update; PPO-H: PyTorch rollout and update); then
+    # an if_save_buffer run and a continue_train that resumes its carry with
+    # the PER tree as saved
+    pend64 = dict(net_dims=(64, 64), gamma=0.97)
+    ppo_pend = (AgentPPOHterm,) + pendulum[1:]
+    slice_runs = [
+        ((AgentTD3,) + pendulum[1:], 8, 100, 256, dict(if_use_per=True, **pend64), 'td3_per'),
+        ((AgentDDPG,) + pendulum[1:], 8, 100, 256, dict(if_use_per=True, **pend64), 'ddpg_per'),
+        ((AgentDQN,) + cart[1:], 128, 32, 128, dict(if_use_per=True), None),
+        ((AgentSAC,) + pendulum[1:], 8, 100, 256, dict(if_use_per=True, **pend64), None),
+        (td3_hopper, 128, 32, 128, dict(lambda_fit_cum_r=0.1), None),
+        ((AgentEmbedDQN,) + cart[1:], 128, 32, 128, {}, None),
+        ((AgentEnsembleDQN,) + cart[1:], 128, 32, 128, {}, None),
+        ((AgentDDPGHterm,) + td3_hopper[1:], 128, 32, 128, {}, None),
+        ((AgentTD3Hterm,) + td3_hopper[1:], 128, 32, 128, {}, None),
+        ((AgentSACHterm,) + td3_hopper[1:], 128, 32, 128, {}, None),
+        ((AgentModSACHterm,) + td3_hopper[1:], 128, 32, 128, {}, None),
+        (ppo_pend, 128, 32, 128, {}, None)]
+    slice_update = {}
+    for task, envs_, horizon_, batch, hyper, variant in slice_runs:
+        with tempfile.TemporaryDirectory() as cwd:
+            a = off_args(task, envs_, horizon_, batch, 1.0, 4096, 1e-3, cwd=cwd, eval_times=2,
+                         **hyper)
+            a.eval_per_step = envs_ * horizon_ * 2
+            a.break_step = a.eval_per_step
+            reset_counts()
+            text = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(text):
+                res = train_agent(a)
+            by_kernel, by_chunk = read_counts()
+            out = text.getvalue()
+            name_ = task[0].__name__
+            kernel_rollout = name_ not in ('AgentEmbedDQN', 'AgentEnsembleDQN', 'AgentPPOHterm')
+            assert res['recorder'].shape[0] == 2 and math.isfinite(res['max_r']), name_
+            assert (sum(by_kernel.values()) > 0) == kernel_rollout, (name_, by_kernel)
+            assert ('use_fused_rollout: PyTorch path' in out) != kernel_rollout, name_
+            if variant is None:
+                assert sum(by_chunk.values()) == 0, (name_, by_chunk)
+                assert 'use_fused_update: PyTorch path' in out, name_
+            else:
+                assert by_chunk[variant] > 0 and sum(by_chunk.values()) == by_chunk[variant], (
+                    name_, by_chunk)
+            for k, v in by_chunk.items():
+                slice_update[k] = slice_update.get(k, 0) + v
+            emit(phase='train_agent', agent=name_, env=task[2], envs=envs_, batch=batch,
+                 switches={k: v for k, v in hyper.items() if k != 'net_dims'},
+                 net_dims=hyper.get('net_dims', OFF_NET),
+                 evaluations=int(res['recorder'].shape[0]), total_step=int(res['total_step']),
+                 max_r=float(res['max_r']), seconds=round(time.time() - t0, 3),
+                 rollout_path='kernel' if kernel_rollout else 'pytorch (said so)',
+                 update_path=variant or 'pytorch (said so)', rollout_launches=by_kernel,
+                 update_chunks={k: v for k, v in by_chunk.items() if v})
+
+    with tempfile.TemporaryDirectory() as cwd:
+        def resumable(resume):
+            a = off_args((AgentTD3,) + pendulum[1:], 8, 100, 256, 1.0, 4096, 1e-3, cwd=cwd,
+                         eval_times=1, if_use_per=True, if_save_buffer=True,
+                         continue_train=resume, **pend64)
+            a.eval_per_step = a.break_step = 800
+            return a
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_agent(resumable(False))
+        with np.load(f'{cwd}/replay_buffer.npz') as d:
+            saved_leaves, saved_size = d['per_leaves'], int(d['size'])
+        with contextlib.redirect_stdout(io.StringIO()):
+            ctx = build_training(resumable(True))
+        buf = ctx.carry.buf_state
+        resumed = ctx.rb.tree.leaves(buf.per_tree).cpu().numpy()
+        assert buf.size == saved_size and np.array_equal(resumed, saved_leaves)
+        assert np.any(saved_leaves[:, :saved_size] != 10.0)
+        emit(phase='save_buffer_and_resume', agent='AgentTD3', if_use_per=True, rows=saved_size,
+             per_tree_resumed_unchanged=True)
+
     # ---- the kernels line's entries
     kernels = []
     main_rollouts = {**launches_a[0], **launches_b[0], **launches_c[0]}
@@ -748,6 +982,14 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                         'library_ms': None})
     for variant, k in k7.items():
         n = launches_a[1].get(variant, 0) or entry_update.get(variant, 0)
+        kernels.append({'name': f'ddpg_update[{variant}]', 'route': 'cuda',
+                        'source': 'elegantrl_tpu_torch/ops/csrc/ddpg_update.cu',
+                        'replaces': 'elegantrl_tpu/ops/pallas_update.py:585', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+                        'library_ms': None})
+    for variant, k in k7per.items():
+        n = launches_d[1].get(variant, 0) or slice_update.get(variant, 0)
         kernels.append({'name': f'ddpg_update[{variant}]', 'route': 'cuda',
                         'source': 'elegantrl_tpu_torch/ops/csrc/ddpg_update.cu',
                         'replaces': 'elegantrl_tpu/ops/pallas_update.py:585', 'launches': n,

@@ -7,21 +7,27 @@ a plain PyTorch version beside it that the CPU path and the tests use.
 Entry points run on the CUDA card unless ``Config.device='cpu'``.
 
 Ported so far: the on-policy family (``AgentPPO``, ``AgentDiscretePPO``,
-``AgentA2C``, ``AgentDiscreteA2C``) and the off-policy core (``AgentDQN``,
-``AgentDoubleDQN``, ``AgentDuelingDQN``, ``AgentD3QN``, ``AgentDDPG``,
-``AgentTD3``, ``AgentSAC``, ``AgentModSAC``, with the replay buffer of
-``train/replay_buffer.py``) on Pendulum, CartPole, HopperSlip and
-PointChasing (continuous and discrete), through ``Config``,
-``build_training`` and ``train_agent``, with the fused rollout (all five
-env bodies; Gaussian, categorical, ddpg, sac, modsac and DQN heads), the
-fused PPO update (continuous and discrete heads) and the fused DQN-family,
-DDPG/TD3 and SAC/ModSAC update chunks.
+``AgentA2C``, ``AgentDiscreteA2C``, ``AgentPPOHterm``) and the off-policy
+family (``AgentDQN``, ``AgentDoubleDQN``, ``AgentDuelingDQN``,
+``AgentD3QN``, ``AgentEmbedDQN``, ``AgentEnsembleDQN``, ``AgentDDPG``,
+``AgentTD3``, ``AgentSAC``, ``AgentModSAC`` and the H-term variants
+``AgentDDPGHterm``, ``AgentTD3Hterm``, ``AgentSACHterm``,
+``AgentModSACHterm``, with the replay buffer of ``train/replay_buffer.py``,
+prioritised replay (``ops/per.py``), the cumulative-return fit and buffer
+save and load) on Pendulum, CartPole, HopperSlip and PointChasing
+(continuous and discrete), through ``Config``, ``build_training`` and
+``train_agent``, with the fused rollout (all five env bodies; Gaussian,
+categorical, ddpg, sac, modsac and DQN heads), the fused PPO update
+(continuous and discrete heads) and the fused DQN-family, DDPG/TD3 (also
+under PER) and SAC/ModSAC update chunks.
 """
 
 __version__ = "0.1.0"
 
 from .config import Config, build_env, get_gym_env_args, kwargs_filter  # noqa: F401
 from .train.runner import TrainCarry, build_training, train_agent  # noqa: F401
-from .agents import (AgentD3QN, AgentDDPG, AgentDoubleDQN, AgentDQN,  # noqa: F401
-                     AgentDuelingDQN, AgentModSAC, AgentSAC, AgentTD3)
+from .agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm, AgentDoubleDQN,  # noqa: F401
+                     AgentDQN, AgentDuelingDQN, AgentEmbedDQN, AgentEnsembleDQN,
+                     AgentModSAC, AgentModSACHterm, AgentPPOHterm, AgentSAC, AgentSACHterm,
+                     AgentTD3, AgentTD3Hterm)
 from . import agents, envs, ops, train, utils  # noqa: F401

@@ -52,7 +52,11 @@ class AgentDef(NamedTuple):
 
     ``state_to_numpy``/``state_from_numpy(tree, device)`` carry the agent
     state to and from the JAX package's nesting (``utils/jax_params.py``),
-    which the checkpoints keep."""
+    which the checkpoints keep.  Off-policy only: ``cum_returns(agent_state,
+    rollout, last_obs) -> (H, N)`` the rollout's discounted returns for the
+    buffer's cumulative-return column, ``pre_update(agent_state, rollout,
+    last_obs) -> agent_state`` a hook the runner calls before the insert
+    (the H-term window harvest)."""
     name: str
     if_off_policy: bool
     if_discrete: bool
@@ -65,6 +69,8 @@ class AgentDef(NamedTuple):
     rollout_extras: Any = None
     state_to_numpy: Callable[[Any], Any] = None
     state_from_numpy: Callable[[Any, Any], Any] = None
+    cum_returns: Any = None
+    pre_update: Any = None
 
 
 class AdamState(NamedTuple):

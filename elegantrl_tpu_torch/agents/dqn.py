@@ -1,5 +1,5 @@
 """DQN family: DQN, DoubleDQN, DuelingDQN, D3QN (counterpart of
-``elegantrl_tpu/agents/dqn.py``, without PER and ``cum_returns``).
+``elegantrl_tpu/agents/dqn.py``).
 
 - epsilon-greedy exploration with ``explore_rate`` (default 0.25);
 - TD target ``r + undone * gamma * max_a Q_target(s')``; DoubleDQN takes
@@ -7,15 +7,20 @@
 - Dueling: ``val - mean(val) + adv`` on the greedy path; the TD path of the
   dueling net without a twin reads the value head alone (the reference's
   ``QNetDuel.get_q_value``), D3QN combines;
-- one Q-network, one optimizer, one target, Polyak-averaged every step.
+- one Q-network, one optimizer, one target, Polyak-averaged every step;
+- prioritised replay (``if_use_per``): the TD loss ``mean(td * is_weight)``
+  and the per-sample ``td`` written back as priorities; ``lambda_fit_cum_r``
+  adds the cumulative-return term on head 1's ``q_a``; ``cum_returns``
+  bootstraps with ``max_a Q_target(last_obs)`` of the TD path.
 
 The Q-network is one flat buffer in the leaf order of
 ``ops/nets.py:dqn_param_shapes``.  The update is the fused chunk
 (``ops/fused_offpolicy_update.py:dqn_chunk``: the CUDA kernel on a card,
 its plain version on the CPU) wherever the JAX package takes its Pallas
 chunk (``batch_size % 128 == 0``, at most 2048, ``max(net_dims) *
-batch_size <= 131072``, 2 hidden layers); otherwise the scan path of
-``agents/off_policy.py``, ``torch.autograd`` on either device.
+batch_size <= 131072``, 2 hidden layers, no PER, no ``lambda_fit_cum_r``);
+otherwise the scan path of ``agents/off_policy.py``, ``torch.autograd`` on
+either device.
 """
 
 from __future__ import annotations
@@ -27,11 +32,13 @@ import torch
 
 from ..config import select_kernel
 from ..ops.fused_offpolicy_update import (dqn_bcv, dqn_chunk, dqn_next_q, dqn_q_greedy,
-                                          dqn_smem_bytes, dqn_td_loss, SMEM_LIMIT)
+                                          dqn_q_td, dqn_smem_bytes, dqn_td_errors, SMEM_LIMIT)
 from ..ops.fused_update import value_and_grad_flat
+from ..ops.gae import cumulative_returns
 from ..ops.nets import dqn_param_shapes, init_flat, soft_update_, split_flat
 from .base import AdamState, AgentDef, grad_step, make_optimizer
-from .off_policy import epsilon_greedy, make_offpolicy_update, offpolicy_update_times
+from .off_policy import (cum_fit_term, epsilon_greedy, make_offpolicy_update,
+                         offpolicy_update_times)
 
 FUSED_CHUNK = 16   # updates per fused chunk, as the JAX package's
 
@@ -44,10 +51,11 @@ class DQNState(NamedTuple):
 
 def row_sampling(args, buffer, batch_size: int) -> bool:
     """``args.replay_row_sample`` ('auto' | True | False) resolved as the JAX
-    agents resolve it (PER, which rules rows out there, is not ported): whole
-    time rows whenever the batch tiles the env axis."""
+    agents resolve it: whole time rows whenever the batch tiles the env axis
+    and PER is off."""
     row_mode = getattr(args, 'replay_row_sample', 'auto')
     rows = (row_mode not in (False, 'false', '0') and buffer is not None
+            and not bool(getattr(args, 'if_use_per', False))
             and batch_size % buffer.num_seqs == 0 and batch_size >= buffer.num_seqs)
     if row_mode is True and not rows:
         raise ValueError('replay_row_sample=True needs uniform sampling (no PER) and batch_size '
@@ -68,10 +76,6 @@ def gather_chunk(buffer, buf_state, draws, batch_size: int, row_sample: bool):
 
 def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False,
              duel: bool = False, buffer=None) -> AgentDef:
-    if bool(getattr(args, 'if_use_per', False)):
-        raise NotImplementedError('the PyTorch port has no prioritised replay yet')
-    if float(getattr(args, 'lambda_fit_cum_r', 0.0)) != 0.0:
-        raise NotImplementedError('lambda_fit_cum_r != 0 is not ported yet')
     gamma = float(getattr(args, 'gamma', 0.99))
     lr = float(getattr(args, 'learning_rate', 6e-5))
     clip_grad = float(getattr(args, 'clip_grad_norm', 3.0))
@@ -79,6 +83,8 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
     explore_rate = float(getattr(args, 'explore_rate', 0.25))
     batch_size = int(getattr(args, 'batch_size', 64))
     repeat_times = float(getattr(args, 'repeat_times', 1.0))
+    if_use_per = bool(getattr(args, 'if_use_per', False))
+    lambda_fit_cum_r = float(getattr(args, 'lambda_fit_cum_r', 0.0))
     row_sample = row_sampling(args, buffer, batch_size)
     net_dims = tuple(int(d) for d in net_dims)
     shapes = dqn_param_shapes(state_dim, net_dims, action_dim, twin, duel)
@@ -112,31 +118,38 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
     def one_hot(action):
         return torch.nn.functional.one_hot(action.long(), action_dim).float()
 
-    def objectives(s: DQNState, batch, _noise, _update_t):
-        state, action, reward, undone, unmask, next_state = batch
+    def loss(lv, b, label):
+        td, q1a = dqn_td_errors(lv, b.state, one_hot(b.action), label, b.unmask, twin, duel)
+        obj = torch.mean(td * b.is_weight) if if_use_per else torch.mean(td)
+        if lambda_fit_cum_r != 0.0:
+            obj = obj + cum_fit_term(b.cum_r, q1a, lambda_fit_cum_r)
+        return obj, q1a, td
+
+    def objectives(s: DQNState, b, _noise, _update_t):
         with torch.no_grad():
-            label = reward + undone * gamma * dqn_next_q(leaves(s.q_target), next_state,
-                                                         twin, duel)
-        (obj, q1a), g = value_and_grad_flat(
-            lambda lv: dqn_td_loss(lv, state, one_hot(action), label, unmask, twin, duel),
-            s.q, shapes)
+            label = b.reward + b.undone * gamma * dqn_next_q(leaves(s.q_target), b.next_state,
+                                                             twin, duel)
+        (obj, q1a, td), g = value_and_grad_flat(lambda lv: loss(lv, b, label), s.q, shapes)
         with torch.no_grad():
             opt = grad_step(optimizer, s.q, s.opt, g)
             soft_update_(s.q_target, s.q, tau)
-        return DQNState(s.q, s.q_target, opt), (obj.detach(), torch.mean(q1a).detach(), 1.0)
+        return (DQNState(s.q, s.q_target, opt), (obj.detach(), torch.mean(q1a).detach(), 1.0),
+                td.detach() if if_use_per else None)
 
     # the JAX package's eligibility for its Pallas chunk, term by term
-    # (elegantrl_tpu/agents/dqn.py:_fused_update; PER and lambda_fit_cum_r
-    # raise above, the storage is float32 and the port has no mesh)
-    jax_takes = (buffer is not None and len(net_dims) == 2 and batch_size % 128 == 0
+    # (elegantrl_tpu/agents/dqn.py:_fused_update; the storage is float32 and
+    # the port has no mesh)
+    jax_takes = (buffer is not None and not if_use_per and lambda_fit_cum_r == 0.0
+                 and len(net_dims) == 2 and batch_size % 128 == 0
                  and batch_size <= 2048 and max(net_dims) * batch_size <= 131072)
     port_fits = len(net_dims) == 2 and dqn_smem_bytes(state_dim, action_dim,
                                                       *net_dims) <= SMEM_LIMIT
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'a batch that is a multiple of 128 and at most 2048 with max(net_dims) * batch <= '
-        f'131072 and a 2-hidden-layer net whose tiles fit one block (the DQN chunk); got '
-        f'batch_size={batch_size}, net_dims={net_dims}')
+        f'131072, a 2-hidden-layer net whose tiles fit one block, uniform sampling (no PER) '
+        f'and lambda_fit_cum_r=0 (the DQN chunk); got batch_size={batch_size}, '
+        f'net_dims={net_dims}, if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')
 
     def fused_update(s: DQNState, buf_state, gen, ids=None, noise=None):
         """The chunked update, ``FUSED_CHUNK`` updates per call of
@@ -165,11 +178,19 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
     update = fused_update if fused else make_offpolicy_update(
         batch_size, repeat_times, buffer, row_sample, objectives)
 
+    def cum_returns(s: DQNState, rollout, last_obs):
+        """Discounted returns of the rollout bootstrapped with ``max_a``
+        of the target's TD-path Q at ``last_obs`` (the JAX package's choice)."""
+        with torch.no_grad():
+            q1, _ = dqn_q_td(leaves(s.q_target), last_obs, twin, duel)
+            return cumulative_returns(rollout.rewards, rollout.undones,
+                                      torch.amax(q1, dim=-1), gamma)
+
     name = ('AgentD3QN' if (twin and duel) else 'AgentDoubleDQN' if twin
             else 'AgentDuelingDQN' if duel else 'AgentDQN')
     return AgentDef(name=name, if_off_policy=True, if_discrete=True, init=init,
                     explore_action=explore_action, greedy_action=greedy_action,
-                    env_action=lambda a: a, update=update,
+                    env_action=lambda a: a, update=update, cum_returns=cum_returns,
                     state_to_numpy=partial(_dqn_to_numpy, shapes=shapes, twin=twin, duel=duel),
                     state_from_numpy=partial(_dqn_from_numpy, twin=twin, duel=duel))
 

@@ -21,11 +21,17 @@
   entropy as a bonus, and no stored logprob is used.  The JAX package runs
   this update as XLA autodiff and has no kernel for it, so here it is
   ``torch.autograd`` over the losses of ``ops/fused_update.py`` followed by
-  ``grad_step``, on either device.
+  ``grad_step``, on either device;
+- ``AgentPPOHterm`` (continuous PPO only): each update first inserts every
+  env's best k-step window (quality: the GAE target at the window start)
+  into the ring of ``agents/hterm.py``; the actor loss subtracts
+  ``h_term_lambda`` times the return-weighted log-likelihood of rehearsed
+  windows' actions.  The JAX package runs it on XLA ops, without either
+  kernel, so here its rollout is ``collect_rollout`` and its update
+  ``torch.autograd``, on either device.
 
 Actor and critic are ``nn.Module`` views of two flat parameter buffers
 (``ops/nets.py:bind_flat``); the update changes the buffers in place.
-The H-term variant is not ported: ``make_ppo`` raises for it.
 """
 
 from __future__ import annotations
@@ -38,11 +44,13 @@ from torch import nn
 
 from ..config import select_kernel
 from ..ops import dists, gae
-from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, critic_loss,
+from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, actor_loss, critic_loss,
                                 make_ppo_fused_update, smem_bytes, value_and_grad_flat)
-from ..ops.nets import MLP, bind_flat, mlp_init, ppo_param_shapes, split_flat
+from ..ops.nets import MLP, bind_flat, mlp_apply_leaves, mlp_init, ppo_param_shapes, split_flat
 from .base import (AdamState, AgentDef, Rollout, grad_step, make_optimizer,
                    sample_flat_ids, split_flat_ids)
+from .hterm import (HtermBuffer, init_hterm_buffer, insert_best_windows, masked_window_mean,
+                    rehearsal_sample, return_bounds)
 
 # hidden width from which the JAX package's compute_dtype='auto' picks bf16
 BF16_AUTO_MIN_WIDTH = 512
@@ -75,6 +83,18 @@ class PPOState(NamedTuple):
     cri_opt: AdamState
     norm_avg: torch.Tensor   # (S,)
     norm_std: torch.Tensor   # (S,)
+
+
+class PPOHtermState(NamedTuple):
+    act: Actor
+    cri: MLP
+    act_flat: torch.Tensor
+    cri_flat: torch.Tensor
+    act_opt: AdamState
+    cri_opt: AdamState
+    norm_avg: torch.Tensor
+    norm_std: torch.Tensor
+    h_buf: HtermBuffer
 
 
 def modules_from_flat(act_flat: torch.Tensor, cri_flat: torch.Tensor,
@@ -118,8 +138,8 @@ def fused_update_eligible(net_dims, state_dim: int, action_dim: int) -> bool:
 def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
              discrete: bool = False, a2c: bool = False, hterm: bool = False) -> AgentDef:
     """Factory; ``args`` is read with ``getattr``, as in the JAX package."""
-    if hterm:
-        raise NotImplementedError('the PyTorch port has no H-term variant of PPO yet')
+    if hterm and (discrete or a2c):
+        raise ValueError('H-term is supported for continuous PPO only')
     if resolve_compute_dtype(args, net_dims) != 'float32' \
             or str(getattr(args, 'storage_dtype', 'float32')) != 'float32':
         raise NotImplementedError('the PyTorch port computes and stores in float32 only; '
@@ -135,6 +155,11 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     state_value_tau = float(getattr(args, 'state_value_tau', 0.0))
     batch_size = int(getattr(args, 'batch_size', 128))
     repeat_times = float(getattr(args, 'repeat_times', 8.0))
+    h_term_lambda = float(getattr(args, 'h_term_lambda', 2 ** -3))
+    h_term_drop_rate = float(getattr(args, 'h_term_drop_rate', 2 ** -2))
+    h_term_k_step = int(getattr(args, 'h_term_k_step', 16))
+    h_term_buffer_size = int(getattr(args, 'h_term_buffer_size', 2 ** 12))
+    h_batch = max(1, int(batch_size * h_term_drop_rate))
     net_dims = tuple(int(d) for d in net_dims)
     optimizer = make_optimizer(lr, clip_grad)
     hypers = dict(net_dims=net_dims, ratio_clip=ratio_clip,
@@ -148,6 +173,11 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         if getattr(args, 'use_fused_update', 'auto') is True:
             raise ValueError('use_fused_update=True requires (Discrete)PPO: the A2C '
                              'update has no fused kernel')
+    elif hterm:
+        # the JAX package runs the H-term update as XLA autodiff
+        # (elegantrl_tpu/agents/ppo.py:118): PyTorch ops on either device
+        select_kernel(args, 'use_fused_update', False, False, getattr(args, 'device', 'cuda'),
+                      '(Discrete)PPO without the H-term')
     else:
         # args.use_fused_update only decides whether this workload may be built
         # (config.py:select_kernel); the update always goes through
@@ -169,10 +199,13 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         cri.requires_grad_(False)
         act_flat = bind_flat(act.leaves(), device)
         cri_flat = bind_flat(cri.leaves(), device)
-        return PPOState(act, cri, act_flat, cri_flat,
-                        optimizer.init(act_flat), optimizer.init(cri_flat),
-                        torch.zeros(state_dim, device=device),
-                        torch.ones(state_dim, device=device))
+        base = (act, cri, act_flat, cri_flat, optimizer.init(act_flat),
+                optimizer.init(cri_flat), torch.zeros(state_dim, device=device),
+                torch.ones(state_dim, device=device))
+        if not hterm:
+            return PPOState(*base)
+        return PPOHtermState(*base, init_hterm_buffer(h_term_buffer_size, h_term_k_step,
+                                                      state_dim, action_dim, device))
 
     def critic_value(s: PPOState, obs):
         return s.cri(norm_state(obs, s.norm_avg, s.norm_std))[..., 0]
@@ -229,10 +262,46 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         metrics = {'obj_critic': objs[0], 'obj_actor': objs[1], 'obj_entropy': objs[2]}
         return s._replace(act_opt=act_opt, cri_opt=cri_opt), metrics
 
-    def update(s: PPOState, rollout: Rollout, last_obs, gen, ids=None):
+    def hterm_minibatches(s, states, actions, logprobs, advantages, reward_sums, unmasks,
+                          ids, h_ids):
+        """The H-term agent's minibatch loop, ``torch.autograd``: per
+        minibatch a critic step, then an actor step on the PPO loss minus
+        ``h_term_lambda`` times the rehearsal objective over slots ``h_ids``."""
+        r_min, r_max = return_bounds(s.h_buf)
+        ids0, ids1 = split_flat_ids(ids, states.shape[0])
+        act_opt, cri_opt = s.act_opt, s.cri_opt
+        objs = []
+        for u in range(ids.shape[0]):
+            i0, i1 = ids0[u], ids1[u]
+            xn = norm_state(states[i0, i1].float(), s.norm_avg, s.norm_std)
+            obj_c, g_cri = value_and_grad_flat(
+                lambda lv: critic_loss(lv, xn, reward_sums[i0, i1], unmasks[i0, i1]),
+                s.cri_flat, cri_shapes)
+            cri_opt = grad_step(optimizer, s.cri_flat, cri_opt, g_cri)
+            hs, ha, hm, w, valid = rehearsal_sample(s.h_buf, h_ids[u], r_min, r_max)
+            hxn = norm_state(hs, s.norm_avg, s.norm_std)
+
+            def loss(lv):
+                out = actor_loss(lv, xn, actions[i0, i1], logprobs[i0, i1], advantages[i0, i1],
+                                 unmasks[i0, i1], ratio_clip, lambda_entropy,
+                                 if_single_sided_clip)
+                mean_h = mlp_apply_leaves(lv[:-1], hxn)
+                lp = torch.sum(dists.normal_logprob(ha, mean_h, torch.exp(lv[-1])), dim=-1)
+                return (out[0] - h_term_lambda * masked_window_mean(lp, hm, w, valid),
+                        *out[1:])
+
+            (_, obj_s, obj_e), g_act = value_and_grad_flat(loss, s.act_flat, act_shapes)
+            act_opt = grad_step(optimizer, s.act_flat, act_opt, g_act)
+            objs.append(torch.stack([obj_c, obj_s, obj_e]).detach())
+        objs = torch.stack(objs).mean(0)
+        metrics = {'obj_critic': objs[0], 'obj_actor': objs[1], 'obj_entropy': objs[2]}
+        return s._replace(act_opt=act_opt, cri_opt=cri_opt), metrics
+
+    def update(s: PPOState, rollout: Rollout, last_obs, gen, ids=None, h_ids=None):
         """``ids``: optional ``(U, B)`` minibatch ids (tests inject the JAX
         package's): flat (t, env) ids for PPO, time-slice ids for A2C; drawn
-        from ``gen`` otherwise."""
+        from ``gen`` otherwise.  ``h_ids``: the H-term agent's ``(U,
+        h_batch)`` rehearsal slot ids, likewise."""
         horizon_len, num_envs = rollout.rewards.shape
         states, actions = rollout.states, rollout.actions
         tsn = rollout.extras is not None and 'tsn' in rollout.extras
@@ -255,7 +324,20 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             advantages = gae.normalize_advantages(advantages)
 
             update_times = max(1, int(horizon_len * repeat_times / batch_size))
-            if a2c:
+            if hterm:   # the window quality is the GAE target at the window start
+                k_step = min(h_term_k_step, horizon_len)
+                s = s._replace(h_buf=insert_best_windows(
+                    s.h_buf, states, actions, rollout.undones, rollout.unmasks,
+                    reward_sums[:horizon_len - k_step + 1], h_term_k_step))
+                if ids is None:
+                    ids = sample_flat_ids(gen, horizon_len, num_envs, batch_size,
+                                          update_times, states.device)
+                if h_ids is None:
+                    h_ids = torch.randint(0, max(s.h_buf.count, 1), (update_times, h_batch),
+                                          generator=gen, device=states.device)
+                s, metrics = hterm_minibatches(s, states, actions, rollout.logprobs, advantages,
+                                               reward_sums, rollout.unmasks, ids, h_ids)
+            elif a2c:
                 if ids is None:
                     ids = torch.randint(0, horizon_len, (update_times, batch_size),
                                         generator=gen, device=states.device)
@@ -292,7 +374,7 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
 
     name = ('AgentDiscreteA2C' if (discrete and a2c) else
             'AgentDiscretePPO' if discrete else
-            'AgentA2C' if a2c else 'AgentPPO')
+            'AgentA2C' if a2c else 'AgentPPOHterm' if hterm else 'AgentPPO')
     return AgentDef(name=name, if_off_policy=False, if_discrete=discrete,
                     init=init, explore_action=explore_action,
                     greedy_action=greedy_action,
@@ -326,3 +408,10 @@ class AgentDiscretePPO:
 
 class AgentDiscreteA2C:
     make = staticmethod(partial(make_ppo, discrete=True, a2c=True))
+
+
+class AgentPPOHterm:
+    """Continuous PPO with the H-term (hypers ``h_term_lambda`` 2**-3,
+    ``h_term_drop_rate`` 2**-2, ``h_term_k_step`` 16, ``h_term_buffer_size``
+    2**12)."""
+    make = staticmethod(partial(make_ppo, discrete=False, a2c=False, hterm=True))

@@ -4,7 +4,9 @@
 // place on flat parameter, target and moment buffers.
 //
 // Replaces: elegantrl_tpu/ops/pallas_update.py, make_ddpg_fused_chunk with
-// per=False (kernel at :640, step body :657-722, pallas_call at :747).
+// per=False (kernel at :640, step body :657-722, pallas_call at :747) and,
+// with the importance weights given, per=True (K7': :604-615, 641-653, 666,
+// 689-696, 730-757).
 //
 // Bound on this card: operations at the main shape.  One update at B =
 // 1024, S = 6, A = 2, E = 8 and (128, 128) is about 0.36 GFLOP (target
@@ -37,6 +39,12 @@
 // - Per-sample work (labels, losses, head gradients) runs on warp 0, lane =
 //   sample.  Partial gradients are per block, without atomics, so results
 //   are deterministic.
+// - Prioritised replay (K7'): the critic fwd_bwd takes the importance weights
+//   iw (C, B) and weighs sample b's loss summand and head gradient by iw[b],
+//   the gradient of mean(td * iw); it stores the unweighted td (after the
+//   unmask) of every step, valid or not, to td_out (C, B) for the caller's
+//   priority fold.  Both pointers are null without PER; the launches stay
+//   six per update.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +117,7 @@ critic_kernel(const float* __restrict__ pa, const float* __restrict__ pc,
               const float* __restrict__ nsb, const float* __restrict__ ab,
               const float* __restrict__ rb, const float* __restrict__ ud,
               const float* __restrict__ um, const float* __restrict__ nz,
+              const float* __restrict__ iw, float* __restrict__ td_out,
               float* __restrict__ partial, float* __restrict__ objpart, int B, int S, int A,
               int D1, int D2, int E, int Pc, int td3, float gamma) {
   extern __shared__ float smem[];
@@ -148,13 +157,14 @@ critic_kernel(const float* __restrict__ pa, const float* __restrict__ pc,
   if (e < TB) {
     float* q = t.head + e * t.ldh;
     const float w = live ? um[b] : 0.f;
+    const float is_w = (live && iw != nullptr) ? iw[b] : 1.0f;  // PER's weight, else 1
     const float l = m.label[e];
     float td = 0.f;
     if (td3) {
       for (int k = 0; k < E; ++k) {
         const float diff = q[k] - l;
         td += diff * diff;
-        q[k] = 2.0f * diff / (float)E * w * inv_B;
+        q[k] = 2.0f * diff / (float)E * w * is_w * inv_B;
       }
       td = td / (float)E * w;
     } else {
@@ -163,9 +173,10 @@ critic_kernel(const float* __restrict__ pa, const float* __restrict__ pc,
       qm = qm / (float)E * w;
       const float diff = qm - l;
       td = diff * diff * w;
-      for (int k = 0; k < E; ++k) q[k] = 2.0f * diff * w * w / (float)E * inv_B;
+      for (int k = 0; k < E; ++k) q[k] = 2.0f * diff * w * w / (float)E * is_w * inv_B;
     }
-    const float obj = warp_sum(live ? td : 0.f);
+    if (live && td_out != nullptr) td_out[b] = td;
+    const float obj = warp_sum(live ? td * is_w : 0.f);
     if (e == 0) {
       objpart[blockIdx.x * 2 + 0] = obj;
       objpart[blockIdx.x * 2 + 1] = 0.f;
@@ -250,12 +261,15 @@ extern "C" int ddpg_update_reduce_blocks(int P) { return reduce_blocks(P); }
 
 // bcv: (C, 7) float rows (bc1_c, bc2_c, bc1_a, bc2_a, valid, do_act, 0).
 // Blocks: sb, nsb (C, S, B), ab, nz (C, A, B), rb, ud, um (C, B).  objs:
-// (C, 2), the critic loss and the actor step's mean Q.
+// (C, 2), the critic loss and the actor step's mean Q.  iw and td_out:
+// (C, B) PER importance weights in and per-sample TD errors out, or both
+// null.
 extern "C" int ddpg_update(void* pa, void* pc, void* ta, void* tc, void* mua, void* muc,
                            void* nua, void* nuc, const void* sb, const void* nsb,
                            const void* ab, const void* rb, const void* ud, const void* um,
                            const void* nz, const void* bcv, void* partial, void* objpart,
-                           void* grad, void* normpart, void* objs, int C, int B, int S,
+                           void* grad, void* normpart, void* objs, const void* iw,
+                           void* td_out, int C, int B, int S,
                            int A, int D1, int D2, int E, int td3, float gamma, float tau,
                            float lr, float clip_grad, float b1, float b2, float eps,
                            void* stream) {
@@ -278,6 +292,8 @@ extern "C" int ddpg_update(void* pa, void* pc, void* ta, void* tc, void* mua, vo
         (const float*)pa, (const float*)pc, (const float*)tc, (const float*)sb + o * S,
         (const float*)nsb + o * S, (const float*)ab + o * A, (const float*)rb + o,
         (const float*)ud + o, (const float*)um + o, (const float*)nz + o * A,
+        iw != nullptr ? (const float*)iw + o : nullptr,
+        td_out != nullptr ? (float*)td_out + o : nullptr,
         (float*)partial, (float*)objpart, B, S, A, D1, D2, E, Pc, td3, gamma);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     reduce_one_kernel<<<nrc, THREADS, 0, st>>>((const float*)partial, nb, Pc, (float*)grad,

@@ -1,6 +1,7 @@
 """Fused off-policy update chunks (counterpart of
 ``elegantrl_tpu/ops/pallas_update.py``: ``make_dqn_fused_chunk``,
-``make_ddpg_fused_chunk`` with ``per=False`` and ``make_sac_fused_chunk``).
+``make_ddpg_fused_chunk`` with ``per=False`` and ``per=True`` and
+``make_sac_fused_chunk``).
 
 A chunk is C sequential minibatch updates over pre-gathered blocks; steps
 past the round's update count are masked by the per-step table ``bcv``.
@@ -21,7 +22,9 @@ past the round's update count are masked by the per-step table ``bcv``.
   tanh(actor(x))))`` through the *updated* critic, actor Adam + Polyak.
   ``bcv`` is ``(C, 7)``: ``(bc1_c, bc2_c, bc1_a, bc2_a, valid, do_act, 0)``;
   the critic step is masked by ``valid``, the actor step (computed every
-  step) by ``valid * do_act``.
+  step) by ``valid * do_act``.  With prioritised replay (``iw``, the PER
+  variant) the critic loss is ``mean(td * iw)`` and the chunk also returns
+  every step's per-sample ``td``, valid or not.
 - SAC/ModSAC (``sac_chunk``): per step, ``alpha = exp(alpha_log)``; the
   label ``r + ud * gamma * (min_E Q_target(nx, a') - alpha * logp(a'))``
   with ``a'`` the pre-update actor's tanh-Gaussian draw on ``nx`` from the
@@ -120,15 +123,21 @@ def dqn_next_q(leaves, nx, twin: bool, duel: bool) -> torch.Tensor:
     return torch.amax(q1 if q2 is None else torch.minimum(q1, q2), dim=-1)
 
 
-def dqn_td_loss(leaves, x, onehot, label, um, twin: bool, duel: bool):
-    """``(mean(td), q_a of head 1)``, ``td = (q_a - label)^2 * um`` summed over
-    the twin heads; ``onehot (B, A)``."""
+def dqn_td_errors(leaves, x, onehot, label, um, twin: bool, duel: bool):
+    """``(td, q_a of head 1)``, ``td = (q_a - label)^2 * um`` summed over the
+    twin heads, per sample; ``onehot (B, A)``."""
     q1, q2 = dqn_q_td(leaves, x, twin, duel)
     q1a = torch.sum(q1 * onehot, dim=-1)
     td = torch.square(q1a - label)
     if q2 is not None:
         td = td + torch.square(torch.sum(q2 * onehot, dim=-1) - label)
-    return torch.mean(td * um), q1a
+    return td * um, q1a
+
+
+def dqn_td_loss(leaves, x, onehot, label, um, twin: bool, duel: bool):
+    """``(mean(td), q_a of head 1)`` of :func:`dqn_td_errors`."""
+    td, q1a = dqn_td_errors(leaves, x, onehot, label, um, twin, duel)
+    return torch.mean(td), q1a
 
 
 def dueling_combine_backward(g: torch.Tensor):
@@ -149,14 +158,23 @@ def ddpg_q_values(leaves, x, a) -> torch.Tensor:
     return mlp_apply_leaves(leaves, torch.cat([x, a], dim=-1))
 
 
-def ddpg_critic_loss(leaves, x, a, label, um, td3: bool):
+def ddpg_critic_td(leaves, x, a, label, um, td3: bool):
+    """``(td, qs)``: the per-sample TD error after the unmask (TD3:
+    ``mean_E((q - label)^2) um``; DDPG: ``(mean_E(q) um - label)^2 um``) and
+    the E heads' values."""
     qs = ddpg_q_values(leaves, x, a)
     if td3:
         td = torch.mean(torch.square(qs - label[..., None]), dim=-1) * um
     else:
         q = torch.mean(qs, dim=-1) * um
         td = torch.square(q - label) * um
-    return torch.mean(td)
+    return td, qs
+
+
+def ddpg_critic_loss(leaves, x, a, label, um, td3: bool, iw=None):
+    """``mean(td)``, or under PER the weighted ``mean(td * iw)``."""
+    td = ddpg_critic_td(leaves, x, a, label, um, td3)[0]
+    return torch.mean(td) if iw is None else torch.mean(td * iw)
 
 
 def ddpg_actor_loss(act_leaves, cri_leaves, x):
@@ -188,6 +206,20 @@ def td_head_grad(q: torch.Tensor, onehot: torch.Tensor, label: torch.Tensor,
     onehot)``: ``onehot * 2 (q_a - label) um / B``."""
     qa = torch.sum(q * onehot, dim=-1, keepdim=True)
     return onehot * (2.0 * (qa - label[:, None]) * um[:, None] / q.shape[0])
+
+
+def ddpg_td_head_grad(qs: torch.Tensor, label: torch.Tensor, um: torch.Tensor, td3: bool,
+                      iw=None) -> torch.Tensor:
+    """``d mean(td * iw) / d q`` for the critic's heads ``qs (B, E)``, as
+    ``csrc/ddpg_update.cu`` writes it: TD3 ``2 (q_e - label) um iw / (E B)``;
+    DDPG ``2 (mean_E(q) um - label) um^2 iw / (E B)`` (``iw`` 1 without
+    PER)."""
+    B, E = qs.shape
+    w = torch.ones_like(um) if iw is None else iw
+    if td3:
+        return 2.0 * (qs - label[:, None]) / E * (um * w)[:, None] / B
+    diff = torch.mean(qs, dim=-1) * um - label
+    return (2.0 * diff * um * um / E * w / B)[:, None].expand(B, E)
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -386,24 +418,33 @@ def dqn_chunk_reference(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *,
 def ddpg_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz,
                          bcv, *, net_dims: Sequence[int], td3: bool, num_ensembles: int,
                          gamma: float, tau: float, lr: float, clip_grad: float,
-                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
-                         ) -> torch.Tensor:
+                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, iw=None):
     """Plain PyTorch version of the DDPG/TD3 chunk; in place, returns the
-    ``(C, 2)`` objectives."""
+    ``(C, 2)`` objectives, and with the PER importance weights ``iw (C, B)``
+    ``(objs, td)``: the critic loss is then ``mean(td * iw)`` and ``td (C, B)``
+    the per-sample TD errors of every step, valid or not."""
     from ..agents.base import clip_adam_bc_
     C, S, B = sb.shape
     A = ab.shape[1]
     act_shapes, cri_shapes = ddpg_param_shapes(S, net_dims, A, num_ensembles)
     opt = _opt(lr, clip_grad, b1, b2, eps)
     objs = torch.empty((C, 2), dtype=torch.float32, device=sb.device)
+    tds = None if iw is None else torch.empty((C, B), dtype=torch.float32, device=sb.device)
+
+    def critic(leaves, x, a, label, u):
+        td = ddpg_critic_td(leaves, x, a, label, um[u], td3)[0]
+        return (torch.mean(td) if iw is None else torch.mean(td * iw[u])), td
+
     for u in range(C):
         x, nx, a, z = sb[u].T, nsb[u].T, ab[u].T, nz[u].T
         valid, do_act = float(bcv[u, 4]) > 0, float(bcv[u, 5]) > 0
         with torch.no_grad():
             label = ddpg_td_label(split_flat(pa, act_shapes), split_flat(tc, cri_shapes), nx,
                                   rb[u], ud[u], z, gamma, td3)
-        obj_c, g_c = value_and_grad_flat(
-            lambda leaves: ddpg_critic_loss(leaves, x, a, label, um[u], td3), pc, cri_shapes)
+        (obj_c, td), g_c = value_and_grad_flat(
+            lambda leaves: critic(leaves, x, a, label, u), pc, cri_shapes)
+        if tds is not None:
+            tds[u] = td.detach()
         with torch.no_grad():
             if valid:
                 clip_adam_bc_(opt, pc, muc, nuc, g_c, bcv[u, 0], bcv[u, 1])
@@ -416,7 +457,7 @@ def ddpg_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud
                 clip_adam_bc_(opt, pa, mua, nua, g_a, bcv[u, 2], bcv[u, 3])
                 soft_update_(ta, pa, tau)
             objs[u] = torch.stack([obj_c, -obj_neg]).detach()
-    return objs
+    return objs if tds is None else (objs, tds)
 
 
 def sac_chunk_reference(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
@@ -565,11 +606,12 @@ dqn_chunk.launches_by_variant = {v: 0 for v in ('dqn', 'doubledqn', 'duelingdqn'
 def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv, *,
                net_dims: Sequence[int], td3: bool, num_ensembles: int, gamma: float,
                tau: float, lr: float, clip_grad: float, b1: float = 0.9, b2: float = 0.999,
-               eps: float = 1e-8) -> torch.Tensor:
+               eps: float = 1e-8, iw=None):
     """The DDPG/TD3 chunk: CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  In place; returns the ``(C, 2)`` objectives."""
+    for CPU tensors.  In place; returns the ``(C, 2)`` objectives, or with
+    PER's importance weights ``iw (C, B)`` (K7') ``(objs, td (C, B))``."""
     kw = dict(net_dims=net_dims, td3=td3, num_ensembles=num_ensembles, gamma=gamma, tau=tau,
-              lr=lr, clip_grad=clip_grad, b1=b1, b2=b2, eps=eps)
+              lr=lr, clip_grad=clip_grad, b1=b1, b2=b2, eps=eps, iw=iw)
     args = (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv)
     if pa.device.type == 'cpu':
         return ddpg_chunk_reference(*args, **kw)
@@ -593,6 +635,8 @@ def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, 
                   (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('ab', ab, (C, A, B)),
                    ('nz', nz, (C, A, B)), ('rb', rb, (C, B)), ('ud', ud, (C, B)),
                    ('um', um, (C, B))), bcv, 7)
+    if iw is not None:
+        check_tensor('ddpg_chunk', 'iw', iw, (C, B), torch.float32, dev)
     lib = _ddpg_library()
     smem = lib.ddpg_update_smem_bytes(S, A, D1, D2, E)
     if smem > SMEM_LIMIT:
@@ -602,22 +646,23 @@ def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, 
                                                 lib.ddpg_update_reduce_blocks, B,
                                                 max(Pa, Pc), dev)
     objs = torch.empty((C, 2), dtype=torch.float32, device=dev)
+    td = None if iw is None else torch.empty((C, B), dtype=torch.float32, device=dev)
     f = ctypes.c_float
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.ddpg_update(
         *[ptr(x) for x in (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv,
-                           partial, objpart, grad, normpart, objs)],
+                           partial, objpart, grad, normpart, objs, iw, td)],
         C, B, S, A, D1, D2, E, int(bool(td3)),
         f(gamma), f(tau), f(lr), f(clip_grad), f(b1), f(b2), f(eps), ctypes.c_void_p(stream))
-    variant = 'td3' if td3 else 'ddpg'
+    variant = ('td3' if td3 else 'ddpg') + ('' if iw is None else '_per')
     check(status, f'ddpg_update[{variant}]')
     ddpg_chunk.launches += 1
     ddpg_chunk.launches_by_variant[variant] += 1
-    return objs
+    return objs if td is None else (objs, td)
 
 
 ddpg_chunk.launches = 0
-ddpg_chunk.launches_by_variant = {'ddpg': 0, 'td3': 0}
+ddpg_chunk.launches_by_variant = {'ddpg': 0, 'td3': 0, 'ddpg_per': 0, 'td3_per': 0}
 
 
 def sac_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
@@ -717,7 +762,7 @@ def _dqn_library():
 
 def _ddpg_library():
     from ._cuda_build import load
-    return _bind(load('ddpg_update'), 'ddpg_update', 21, 8,
+    return _bind(load('ddpg_update'), 'ddpg_update', 23, 8,
                  (('ddpg_update_smem_bytes', 5), ('ddpg_update_blocks', 1),
                   ('ddpg_update_reduce_blocks', 1)))
 

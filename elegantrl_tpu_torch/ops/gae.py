@@ -60,3 +60,16 @@ def normalize_advantages(advantages: torch.Tensor, eps: float = 1e-5) -> torch.T
     sub_mean = torch.sum(sub) / n
     std = torch.sqrt(torch.sum(torch.square(sub - sub_mean)) / max(n - 1, 1))
     return (advantages - mean) / (std + eps)
+
+
+def cumulative_returns(rewards: torch.Tensor, undones: torch.Tensor, next_value: torch.Tensor,
+                       gamma: float) -> torch.Tensor:
+    """Backward discounted returns ``ret[t] = r[t] + gamma * undone[t] *
+    ret[t+1]`` seeded with ``ret[H] = next_value``."""
+    masks = undones * gamma
+    returns = torch.empty_like(rewards)
+    ret = next_value
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        ret = rewards[t] + masks[t] * ret
+        returns[t] = ret
+    return returns

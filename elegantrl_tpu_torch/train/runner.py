@@ -7,12 +7,18 @@ the fused update kernel, its plain version on the CPU; A2C: autograd, as
 the JAX package has no kernel for it).  One off-policy round is: rollout
 (the off-policy heads of the fused rollout kernel, or ``collect_rollout``
 where the JAX package runs its scan) -> insert into the replay ring buffer
-(``train/replay_buffer.py``, on the run's device) -> ``agent.update`` on the
-buffer (the fused update chunks or the scan path, ``agents/dqn.py`` and
-``agents/ddpg_td3.py``, ``agents/sac.py``).
+(``train/replay_buffer.py``, on the run's device; before it the agent's
+``pre_update`` hook, the H-term window harvest; after it the
+cumulative-return column when ``lambda_fit_cum_r != 0``) -> ``agent.update``
+on the buffer (the fused update chunks or the scan path, ``agents/dqn.py``,
+``agents/ddpg_td3.py``, ``agents/sac.py``, ``agents/embed_dqn.py``).
 ``train_agent`` runs rounds on the host, evaluates every
 ``eval_per_step`` env steps, stops at ``break_step``, ``break_score`` or a
-``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz``.
+``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz`` (the
+whole carry: agent state with its H-term ring, replay buffer with its PER
+tree and cumulative-return column, env state, observations and generator;
+``continue_train`` resumes it) and, with ``if_save_buffer``,
+``replay_buffer.npz``.
 
 The agent state's parameters are updated in place (flat buffers), so a
 carry handed to ``round_fn`` shares its parameters with the one returned.
@@ -75,10 +81,13 @@ def _make_agent(args: Config, buffer) -> AgentDef:
 
 
 # agent name -> off-policy head of the fused rollout (ops/fused_rollout.py),
-# as the JAX runner's _OFFPOLICY_KERNEL_HEADS without the H-term variants
+# as the JAX runner's _OFFPOLICY_KERNEL_HEADS: the H-term variants explore as
+# their base agents do; EmbedDQN/EnsembleDQN have no head
 _OFFPOLICY_KERNEL_HEADS = {
-    'AgentDDPG': 'ddpg', 'AgentTD3': 'ddpg',
-    'AgentSAC': 'sac', 'AgentModSAC': 'modsac',
+    'AgentDDPG': 'ddpg', 'AgentDDPGHterm': 'ddpg',
+    'AgentTD3': 'ddpg', 'AgentTD3Hterm': 'ddpg',
+    'AgentSAC': 'sac', 'AgentSACHterm': 'sac',
+    'AgentModSAC': 'modsac', 'AgentModSACHterm': 'modsac',
     'AgentDQN': 'dqn', 'AgentDoubleDQN': 'dqn_enc',
     'AgentDuelingDQN': 'dqn_duel', 'AgentD3QN': 'dqn_duel',
 }
@@ -95,7 +104,9 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     does), or an off-policy agent with a kernel head.  The port's kernel fits
     when the weights fit one block and, off-policy, when it has the (body,
     head) pair.  The on-policy agents have no PyTorch-ops rollout on a card,
-    so for them the JAX eligibility counts as taken (``select_kernel``)."""
+    so for them the JAX eligibility counts as taken (``select_kernel``), but
+    for ``AgentPPOHterm``, which the JAX runner keeps off its kernel: its
+    rollout is ``collect_rollout`` on either device."""
     from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
                                      offpolicy_pair_fits, offpolicy_smem_bytes, smem_bytes)
@@ -137,7 +148,8 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
-    if not select_kernel(args, 'use_fused_rollout', True, eligible, device, scope):
+    if not select_kernel(args, 'use_fused_rollout', agent.name != 'AgentPPOHterm', eligible,
+                         device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
           f'net_dims={net_dims})', flush=True)
@@ -204,10 +216,16 @@ def build_training(args: Config) -> TrainContext:
                 extras_fn=agent.rollout_extras)
         buf_state = carry.buf_state
         if agent.if_off_policy:
+            agent_state = carry.agent_state
+            if agent.pre_update is not None:      # the H-term window harvest
+                agent_state = agent.pre_update(agent_state, rollout, obs)
             buf_state = rb.update(buf_state, (rollout.states, rollout.actions, rollout.rewards,
                                               rollout.undones, rollout.unmasks))
+            if rb.if_use_cum_rewards and agent.cum_returns is not None:
+                buf_state = rb.update_cum_rewards(buf_state, horizon_len,
+                                                  agent.cum_returns(agent_state, rollout, obs))
             agent_state, buf_state, metrics = agent.update(
-                carry.agent_state, buf_state, carry.gen, ids=ids, noise=update_noise)
+                agent_state, buf_state, carry.gen, ids=ids, noise=update_noise)
         else:
             agent_state, metrics = agent.update(carry.agent_state, rollout, obs, carry.gen,
                                                 ids=ids)
@@ -282,6 +300,8 @@ def train_agent(args: Config) -> dict:
     evaluator.save_or_load_recorder(if_save=True)
     save_tree(os.path.join(args.cwd, 'agent.npz'), ctx.agent.state_to_numpy(carry.agent_state))
     save_tree(os.path.join(args.cwd, 'train_carry.npz'), _carry_tree(carry, ctx.agent))
+    if args.if_save_buffer and ctx.rb is not None:
+        ctx.rb.save_or_load_history(carry.buf_state, args.cwd, if_save=True)
     return {
         'recorder': np.array(evaluator.recorder, dtype=np.float64),
         'agent_state': carry.agent_state,

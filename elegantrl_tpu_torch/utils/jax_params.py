@@ -21,9 +21,15 @@ of arrays with the port's field names) across the same way.
 The off-policy states are carried the same way: the JAX ``DQNState(q,
 q_target, opt)`` with its Q dict (``{'mlp': ...}`` or ``enc``/``val1``/
 ``adv1``/``val2``/``adv2``), ``DDPGState(act, act_target, cri, cri_target,
-act_opt, cri_opt)`` and the replay ``BufferState`` (without the PER tree and
-the cumulative-return column, which are None there); the port's flat
-buffers follow ``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``.
+act_opt, cri_opt)`` and the replay ``BufferState`` with its PER tree
+``(sums, leaves)`` and cumulative-return column (each None when unused, and
+then no leaf); the port's flat buffers follow
+``ops/nets.py:dqn_param_shapes``/``ddpg_param_shapes``.  The H-term states
+(``PPOHtermState``, ``DDPGHtermState``, ``SACHtermState``) add the ring
+``h_buf = HtermBuffer(states, actions, masks, returns, ptr, count)`` as their
+last field; ``EmbedDQNState(q, q_target, opt)`` has the Q dict ``{'emb',
+'mlp'}`` (``AgentEmbedDQN``) or ``{'emb', 'enc', 'heads'}`` with stacked
+heads (``AgentEnsembleDQN``).
 ``SACState(act, act_target, cri, cri_target, act_opt, cri_opt, alpha_log,
 alpha_opt, update_a)`` has the actor dict ``enc``/``head`` (ModSAC ``enc``/
 ``avg``/``std``), the critic ``{'enc', 'heads'}`` whose heads are stacked
@@ -51,6 +57,41 @@ class NumpyPPOState(NamedTuple):
     norm_std: np.ndarray
 
 
+class NumpyHtermBuffer(NamedTuple):
+    states: np.ndarray
+    actions: np.ndarray
+    masks: np.ndarray
+    returns: np.ndarray
+    ptr: np.ndarray
+    count: np.ndarray
+
+
+def hterm_to_numpy(h_buf) -> NumpyHtermBuffer:
+    return NumpyHtermBuffer(*[x.detach().cpu().numpy().copy() for x in h_buf[:4]],
+                            ptr=np.asarray(h_buf.ptr, np.int32),
+                            count=np.asarray(h_buf.count, np.int32))
+
+
+def hterm_from_numpy(tree, device):
+    from ..agents.hterm import HtermBuffer
+    t = lambda name: torch.tensor(np.asarray(getattr(tree, name)), dtype=torch.float32,  # noqa: E731
+                                  device=device)
+    return HtermBuffer(*[t(name) for name in HtermBuffer._fields[:4]],
+                       ptr=int(np.asarray(tree.ptr)), count=int(np.asarray(tree.count)))
+
+
+def _with_h_buf(numpy_state, state, tree_class):
+    """The numpy state of an H-term agent: the base fields and ``h_buf``."""
+    if not hasattr(state, 'h_buf'):
+        return numpy_state
+    return tree_class(*numpy_state, hterm_to_numpy(state.h_buf))
+
+
+def _h_buf_of(tree, device) -> dict:
+    h = getattr(tree, 'h_buf', None)
+    return {} if h is None else {'h_buf': hterm_from_numpy(h, device)}
+
+
 class NumpyAdamState(NamedTuple):
     count: np.ndarray
     mu: Any
@@ -74,8 +115,9 @@ def _flat_act(act) -> np.ndarray:
     return flat
 
 
-def ppo_state_from_numpy(tree, device) -> PPOState:
-    """The port's agent state from a numpy JAX ``PPOState``."""
+def ppo_state_from_numpy(tree, device):
+    """The port's agent state from a numpy JAX ``PPOState`` (or
+    ``PPOHtermState``)."""
     act, cri = _field(tree, 'act', 0), _field(tree, 'cri', 1)
     mlp = act['mlp']
     state_dim = np.asarray(mlp[0][0]).shape[0]
@@ -86,10 +128,15 @@ def ppo_state_from_numpy(tree, device) -> PPOState:
     a_mod, c_mod = modules_from_flat(act_flat, cri_flat, state_dim, net_dims, action_dim,
                                      discrete='std_log' not in act)
 
-    return PPOState(a_mod, c_mod, act_flat, cri_flat,
-                    _adam_from(_field(tree, 'act_opt', 2), _flat_act, t),
-                    _adam_from(_field(tree, 'cri_opt', 3), _flat_pairs, t),
-                    t(_field(tree, 'norm_avg', 4)), t(_field(tree, 'norm_std', 5)))
+    base = (a_mod, c_mod, act_flat, cri_flat,
+            _adam_from(_field(tree, 'act_opt', 2), _flat_act, t),
+            _adam_from(_field(tree, 'cri_opt', 3), _flat_pairs, t),
+            t(_field(tree, 'norm_avg', 4)), t(_field(tree, 'norm_std', 5)))
+    h = _h_buf_of(tree, device)
+    if h:
+        from ..agents.ppo import PPOHtermState
+        return PPOHtermState(*base, **h)
+    return PPOState(*base)
 
 
 def _unflat_act(flat: torch.Tensor, act_module) -> dict:
@@ -121,20 +168,30 @@ def _unflat_cri(flat: torch.Tensor, cri_module) -> list:
     return leaves
 
 
-def ppo_state_to_numpy(state: PPOState) -> NumpyPPOState:
+class NumpyPPOHtermState(NamedTuple):
+    act: dict
+    cri: list
+    act_opt: tuple
+    cri_opt: tuple
+    norm_avg: np.ndarray
+    norm_std: np.ndarray
+    h_buf: NumpyHtermBuffer
+
+
+def ppo_state_to_numpy(state: PPOState):
     """The JAX package's nesting of the port's agent state, as numpy."""
     def opt(o, unflat, module):
         adam = NumpyAdamState(np.asarray(o.count, np.int32), unflat(o.mu, module),
                               unflat(o.nu, module))
         return ((), (adam, ()))
 
-    return NumpyPPOState(
+    return _with_h_buf(NumpyPPOState(
         act=_unflat_act(state.act_flat, state.act),
         cri=_unflat_cri(state.cri_flat, state.cri),
         act_opt=opt(state.act_opt, _unflat_act, state.act),
         cri_opt=opt(state.cri_opt, _unflat_cri, state.cri),
         norm_avg=state.norm_avg.detach().cpu().numpy().copy(),
-        norm_std=state.norm_std.detach().cpu().numpy().copy())
+        norm_std=state.norm_std.detach().cpu().numpy().copy()), state, NumpyPPOHtermState)
 
 
 def env_state_from_numpy(state_class, tree, device):
@@ -161,6 +218,16 @@ class NumpyDDPGState(NamedTuple):
     cri_opt: tuple
 
 
+class NumpyDDPGHtermState(NamedTuple):
+    act: list
+    act_target: list
+    cri: list
+    cri_target: list
+    act_opt: tuple
+    cri_opt: tuple
+    h_buf: NumpyHtermBuffer
+
+
 class NumpyBufferState(NamedTuple):
     states: np.ndarray
     actions: np.ndarray
@@ -169,6 +236,8 @@ class NumpyBufferState(NamedTuple):
     unmasks: np.ndarray
     ptr: np.ndarray
     size: np.ndarray
+    per_tree: Any = None
+    cum_rewards: Any = None
 
 
 def _pairs(flat: torch.Tensor, shapes) -> list:
@@ -233,37 +302,46 @@ def dqn_state_to_numpy(state, shapes, twin: bool, duel: bool) -> NumpyDQNState:
 
 
 def ddpg_state_from_numpy(tree, device):
-    """The port's ``DDPGState`` from a numpy JAX ``DDPGState``."""
-    from ..agents.ddpg_td3 import DDPGState
+    """The port's ``DDPGState`` (or ``DDPGHtermState``) from a numpy JAX one."""
+    from ..agents.ddpg_td3 import DDPGHtermState, DDPGState
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
     f = lambda name, i: t(_flat_pairs(_field(tree, name, i)))  # noqa: E731
-    return DDPGState(f('act', 0), f('act_target', 1), f('cri', 2), f('cri_target', 3),
-                     _adam_from(_field(tree, 'act_opt', 4), _flat_pairs, t),
-                     _adam_from(_field(tree, 'cri_opt', 5), _flat_pairs, t))
+    base = (f('act', 0), f('act_target', 1), f('cri', 2), f('cri_target', 3),
+            _adam_from(_field(tree, 'act_opt', 4), _flat_pairs, t),
+            _adam_from(_field(tree, 'cri_opt', 5), _flat_pairs, t))
+    h = _h_buf_of(tree, device)
+    return DDPGHtermState(*base, **h) if h else DDPGState(*base)
 
 
-def ddpg_state_to_numpy(state, act_shapes, cri_shapes) -> NumpyDDPGState:
+def ddpg_state_to_numpy(state, act_shapes, cri_shapes):
     """The JAX package's nesting of a port ``DDPGState``, as numpy."""
     ua = lambda flat: _pairs(flat, act_shapes)  # noqa: E731
     uc = lambda flat: _pairs(flat, cri_shapes)  # noqa: E731
-    return NumpyDDPGState(ua(state.act), ua(state.act_target), uc(state.cri),
-                          uc(state.cri_target), _adam_tree(state.act_opt, ua),
-                          _adam_tree(state.cri_opt, uc))
+    return _with_h_buf(NumpyDDPGState(ua(state.act), ua(state.act_target), uc(state.cri),
+                                      uc(state.cri_target), _adam_tree(state.act_opt, ua),
+                                      _adam_tree(state.cri_opt, uc)), state, NumpyDDPGHtermState)
 
 
 def buffer_state_from_numpy(tree, device):
-    """The port's ``BufferState`` from a numpy JAX ``BufferState`` (whose
-    ``per_tree`` and ``cum_rewards`` are None)."""
+    """The port's ``BufferState`` from a numpy JAX ``BufferState``."""
     from ..train.replay_buffer import BufferState
-    t = lambda name: torch.tensor(np.asarray(getattr(tree, name)), device=device)  # noqa: E731
-    return BufferState(*[t(name) for name in BufferState._fields[:5]],
-                       ptr=int(np.asarray(tree.ptr)), size=int(np.asarray(tree.size)))
+    t = lambda a: torch.tensor(np.asarray(a), device=device)  # noqa: E731
+    per_tree = getattr(tree, 'per_tree', None)
+    cum = getattr(tree, 'cum_rewards', None)
+    return BufferState(*[t(getattr(tree, name)) for name in BufferState._fields[:5]],
+                       ptr=int(np.asarray(tree.ptr)), size=int(np.asarray(tree.size)),
+                       per_tree=None if per_tree is None else tuple(t(x) for x in per_tree),
+                       cum_rewards=None if cum is None else t(cum))
 
 
 def buffer_state_to_numpy(buf) -> NumpyBufferState:
     """The JAX package's leaves of a port ``BufferState``, as numpy."""
-    return NumpyBufferState(*[x.detach().cpu().numpy().copy() for x in buf[:5]],
-                            ptr=np.asarray(buf.ptr, np.int32), size=np.asarray(buf.size, np.int32))
+    a = lambda x: None if x is None else x.detach().cpu().numpy().copy()  # noqa: E731
+    return NumpyBufferState(*[a(x) for x in buf[:5]],
+                            ptr=np.asarray(buf.ptr, np.int32), size=np.asarray(buf.size, np.int32),
+                            per_tree=None if buf.per_tree is None else tuple(
+                                a(x) for x in buf.per_tree),
+                            cum_rewards=a(buf.cum_rewards))
 
 
 class NumpySACState(NamedTuple):
@@ -276,6 +354,19 @@ class NumpySACState(NamedTuple):
     alpha_log: np.ndarray
     alpha_opt: tuple
     update_a: np.ndarray
+
+
+class NumpySACHtermState(NamedTuple):
+    act: dict
+    act_target: Any
+    cri: dict
+    cri_target: dict
+    act_opt: tuple
+    cri_opt: tuple
+    alpha_log: np.ndarray
+    alpha_opt: tuple
+    update_a: np.ndarray
+    h_buf: NumpyHtermBuffer
 
 
 def _sac_act_flat(act: dict, modsac: bool) -> np.ndarray:
@@ -310,12 +401,14 @@ def _sac_cri_tree(flat: torch.Tensor, shapes, num_ensembles: int) -> dict:
 
 
 def sac_state_from_numpy(tree, device, modsac: bool):
-    """The port's ``SACState`` from a numpy JAX ``SACState``."""
-    from ..agents.sac import SACState
+    """The port's ``SACState`` (or ``SACHtermState``) from a numpy JAX one."""
+    from ..agents.sac import SACHtermState, SACState
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
     fa = lambda act: _sac_act_flat(act, modsac)  # noqa: E731
     act_target = _field(tree, 'act_target', 1)
-    return SACState(t(fa(_field(tree, 'act', 0))),
+    h = _h_buf_of(tree, device)
+    return (SACHtermState if h else SACState)(
+                    t(fa(_field(tree, 'act', 0))),
                     None if act_target is None else t(fa(act_target)),
                     t(_sac_cri_flat(_field(tree, 'cri', 2))),
                     t(_sac_cri_flat(_field(tree, 'cri_target', 3))),
@@ -323,7 +416,7 @@ def sac_state_from_numpy(tree, device, modsac: bool):
                     _adam_from(_field(tree, 'cri_opt', 5), _sac_cri_flat, t),
                     t(_field(tree, 'alpha_log', 6)),
                     _adam_from(_field(tree, 'alpha_opt', 7), np.asarray, t),
-                    int(np.asarray(_field(tree, 'update_a', 8))))
+                    int(np.asarray(_field(tree, 'update_a', 8))), **h)
 
 
 def sac_state_to_numpy(state, act_shapes, cri_shapes, modsac: bool,
@@ -333,8 +426,42 @@ def sac_state_to_numpy(state, act_shapes, cri_shapes, modsac: bool,
     ua = lambda flat: _sac_act_tree(flat, act_shapes, modsac)  # noqa: E731
     uc = lambda flat: _sac_cri_tree(flat, cri_shapes, num_ensembles)  # noqa: E731
     scalar = lambda x: x.detach().cpu().numpy().copy()  # noqa: E731
-    return NumpySACState(
+    return _with_h_buf(NumpySACState(
         ua(state.act), None if state.act_target is None else ua(state.act_target),
         uc(state.cri), uc(state.cri_target), _adam_tree(state.act_opt, ua),
         _adam_tree(state.cri_opt, uc), scalar(state.alpha_log),
-        _adam_tree(state.alpha_opt, scalar), np.asarray(state.update_a, np.int32))
+        _adam_tree(state.alpha_opt, scalar), np.asarray(state.update_a, np.int32)),
+        state, NumpySACHtermState)
+
+
+# ------------------------------------------------------- Embed-DQN family
+
+def _embed_q_flat(q: dict, ensemble: bool) -> np.ndarray:
+    """The JAX Q dict in the port's flat order: the embedding, then the MLP
+    or the encoder and the unstacked heads."""
+    emb = np.asarray(q['emb'], np.float32).reshape(-1)
+    net = _sac_cri_flat(q) if ensemble else _flat_pairs(q['mlp'])
+    return np.concatenate([emb, net]).astype(np.float32)
+
+
+def _embed_q_tree(flat: torch.Tensor, shapes, ensemble: bool, num_ensembles: int) -> dict:
+    A, e = shapes[0]
+    emb = flat[:A * e].detach().cpu().numpy().copy().reshape(A, e)
+    if ensemble:
+        return {'emb': emb, **_sac_cri_tree(flat[A * e:], shapes[1:], num_ensembles)}
+    return {'emb': emb, 'mlp': _pairs(flat[A * e:], shapes[1:])}
+
+
+def embed_dqn_state_from_numpy(tree, device, ensemble: bool):
+    """The port's ``EmbedDQNState`` from a numpy JAX ``EmbedDQNState``."""
+    from ..agents.embed_dqn import EmbedDQNState
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    flat = lambda q: _embed_q_flat(q, ensemble)  # noqa: E731
+    return EmbedDQNState(t(flat(_field(tree, 'q', 0))), t(flat(_field(tree, 'q_target', 1))),
+                         _adam_from(_field(tree, 'opt', 2), flat, t))
+
+
+def embed_dqn_state_to_numpy(state, shapes, ensemble: bool, num_ensembles: int):
+    """The JAX package's nesting of a port ``EmbedDQNState``, as numpy."""
+    unflat = lambda flat: _embed_q_tree(flat, shapes, ensemble, num_ensembles)  # noqa: E731
+    return NumpyDQNState(unflat(state.q), unflat(state.q_target), _adam_tree(state.opt, unflat))

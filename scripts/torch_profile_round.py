@@ -2,7 +2,8 @@
 
     python scripts/torch_profile_round.py [--rounds 5] [--env pendulum|cartpole|hopper|
         chasing|chasing_discrete] [--agent AgentPPO|AgentDiscretePPO|AgentA2C|AgentDiscreteA2C]
-    python scripts/torch_profile_round.py --path td3_hopper|dqn_cartpole|sac_hopper [--rounds 5]
+    python scripts/torch_profile_round.py --path td3_hopper|dqn_cartpole|sac_hopper|
+        td3_per_hopper [--rounds 5]
 
 Builds a main path (by default PPO on Pendulum-v1; ``--env cartpole --agent
 AgentDiscretePPO`` is the discrete one) at 4096 envs, horizon 64, batch
@@ -16,9 +17,10 @@ grouped by name with their count and total time.
 HopperSlip-v0, 1024 envs, horizon 32, ring 4000 rows, batch 1024, repeat 4,
 15 updates per round at a full ring), ``dqn_cartpole`` (DQN on CartPole-v1,
 64 envs, horizon 64, ring 20,000 rows, batch 128, repeat 1, 156 updates per
-round) or ``sac_hopper`` (SAC on HopperSlip-v0 at td3_hopper's sizes, 4
-critic heads), net (128, 128), and runs rounds until the ring is full before
-the profiled ones.
+round), ``sac_hopper`` (SAC on HopperSlip-v0 at td3_hopper's sizes, 4
+critic heads) or ``td3_per_hopper`` (td3_hopper with prioritised replay: the
+PER variant of the DDPG/TD3 chunk and the priority tree's ops), net (128,
+128), and runs rounds until the ring is full before the profiled ones.
 """
 
 import argparse
@@ -42,7 +44,8 @@ ENVS = {'pendulum': ('PendulumEnv', 'Pendulum-v1', 200, 3, 1, False),
 # off-policy main path -> (agent, env key, envs, horizon, ring rows, batch, repeat, lr, gamma)
 PATHS = {'td3_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
          'dqn_cartpole': ('AgentDQN', 'cartpole', 64, 64, 20000, 128, 1.0, 1e-3, 0.99),
-         'sac_hopper': ('AgentSAC', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99)}
+         'sac_hopper': ('AgentSAC', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
+         'td3_per_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99)}
 
 
 def main():
@@ -75,6 +78,7 @@ def main():
     args.net_dims, args.random_seed = (128, 128), 0
     if opts.path:
         args.buffer_size, args.learning_rate, args.gamma = ring, lr, gamma
+        args.if_use_per = opts.path == 'td3_per_hopper'
     ctx = build_training(args)
     carry = ctx.carry
     warmup = 3 if ctx.rb is None else -(-ctx.rb.max_size // horizon) + 1

@@ -36,7 +36,16 @@ Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
 - ``sac_pendulum`` and ``modsac_pendulum`` (-200): the Pendulum recipe above
   (batch 256 at (64, 64): the fused SAC chunk; E = 4 for SAC, 8 for
   ModSAC); ``sac_hopper`` (1000): the Hopper recipe above with SAC (E = 4)
-  (``scripts/verify_learning.py:97-100,132-133,257-266``).
+  (``scripts/verify_learning.py:97-100,132-133,257-266``);
+- ``td3_pendulum_per`` (-150): ``td3_pendulum`` with prioritised replay,
+  ``per_alpha`` 0.6, ``per_beta`` 0.4 (the PER variant of the DDPG/TD3
+  chunk); ``embeddqn_cartpole`` (300): AgentEmbedDQN on the DQN recipe at lr
+  5e-4 and 5e5 steps (PyTorch rollout and update, as the JAX package runs
+  it on XLA ops); ``ddpgh_hopper`` and ``sach_hopper`` (1000): the Hopper
+  recipe with AgentDDPGHterm and AgentSACHterm (the rollout kernel, a
+  PyTorch update); ``ppohterm_hopper`` (2000): the ``ppo_hopper`` recipe
+  with AgentPPOHterm, ``h_term_k_step`` 16 (PyTorch rollout and update)
+  (``scripts/verify_learning.py:129-131,137-139,247-256,268-277,302-311``).
 
 Evaluation is over 16 greedy episodes, as the JAX script's.  Prints one JSON
 line per (recipe, seed) with the result, the device and the kernel launches.
@@ -70,9 +79,11 @@ DQN_CART = dict(net_dims=(128, 128), horizon_len=64, buffer_size=int(2e5), batch
 
 
 def recipes():
-    from elegantrl_tpu_torch.agents import (AgentA2C, AgentD3QN, AgentDDPG, AgentDiscretePPO,
-                                            AgentDoubleDQN, AgentDQN, AgentDuelingDQN,
-                                            AgentModSAC, AgentPPO, AgentSAC, AgentTD3)
+    from elegantrl_tpu_torch.agents import (AgentA2C, AgentD3QN, AgentDDPG, AgentDDPGHterm,
+                                            AgentDiscretePPO, AgentDoubleDQN, AgentDQN,
+                                            AgentDuelingDQN, AgentEmbedDQN, AgentModSAC,
+                                            AgentPPO, AgentPPOHterm, AgentSAC, AgentSACHterm,
+                                            AgentTD3)
     from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv
     return {
         'td3_pendulum': (AgentTD3, PendulumEnv, PENDULUM, -150.0, OFFPOL_PEND),
@@ -82,6 +93,17 @@ def recipes():
         'sac_pendulum': (AgentSAC, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
         'modsac_pendulum': (AgentModSAC, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
         'sac_hopper': (AgentSAC, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
+        'td3_pendulum_per': (AgentTD3, PendulumEnv, PENDULUM, -150.0,
+                             dict(OFFPOL_PEND, if_use_per=True, per_alpha=0.6, per_beta=0.4)),
+        'embeddqn_cartpole': (AgentEmbedDQN, CartPoleEnv, CARTPOLE, 300.0,
+                              dict(DQN_CART, learning_rate=5e-4, break_step=int(5e5))),
+        'ddpgh_hopper': (AgentDDPGHterm, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
+        'sach_hopper': (AgentSACHterm, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
+        'ppohterm_hopper': (
+            AgentPPOHterm, HopperEnv, HOPPER, 2000.0,
+            dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=128,
+                 learning_rate=3e-4, batch_size=2048, eval_per_step=int(1e6),
+                 break_step=int(1.5e7), h_term_k_step=16)),
         'dqn_cartpole': (AgentDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),
         'doubledqn_cartpole': (AgentDoubleDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),
         'duelingdqn_cartpole': (AgentDuelingDQN, CartPoleEnv, CARTPOLE, 300.0, DQN_CART),

@@ -30,13 +30,14 @@ print(len(names), bad)
 def test_imports_load_no_jax():
     out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 28, out    # the off-policy modules are among them
+    assert int(out[0]) >= 31, out    # the off-policy and prioritised-replay modules among them
     assert out[1:] == ['[]'], out
 
 
 def test_off_policy_modules_are_probed():
     names = {'agents.dqn', 'agents.ddpg_td3', 'agents.off_policy', 'train.replay_buffer',
-             'ops.fused_offpolicy_update', 'agents.sac'}
+             'ops.fused_offpolicy_update', 'agents.sac', 'ops.per', 'agents.hterm',
+             'agents.embed_dqn'}
     for name in names:
         assert os.path.isfile(os.path.join(PKG, *name.split('.')) + '.py'), name
 

@@ -3,7 +3,9 @@ against the JAX package's ``ReplayBuffer`` on the same inserts: a ring that
 wraps, then ``sample`` and ``sample_rows`` with the ids or rows the JAX
 buffer draws from its key, held equal exactly (both only copy and gather).
 Also the float32 update-count arithmetic of ``agents/off_policy.py`` against
-the JAX formula, and the methods that are not ported yet."""
+the JAX formula, and the PER, cumulative-return and save/load methods, which
+refuse a buffer built without the switch they need (their parity with the
+JAX package is ``tests/test_torch_per.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,7 +117,37 @@ def test_update_times_like_jax(size, repeat, batch):
 
 @pytest.mark.parametrize('method', ['sample_for_per', 'td_error_update_for_per',
                                     'update_cum_rewards', 'save_or_load_history'])
-def test_unported_methods_raise(method):
-    rb = ReplayBuffer(M, S, A, num_seqs=N)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        getattr(rb, method)(rb.init())
+def test_unported_methods_raise(method, tmp_path):
+    """Once unported, now each method runs on a buffer with its switch on
+    (``if_use_per``, ``lambda_fit_cum_r``) and raises on one without it;
+    ``save_or_load_history`` needs none and round-trips a plain buffer."""
+    from elegantrl_tpu_torch import Config
+    args = Config()
+    args.lambda_fit_cum_r = 0.5
+    rng = np.random.default_rng(1)
+    plain = ReplayBuffer(M, S, A, num_seqs=N)
+    full = ReplayBuffer(M, S, A, num_seqs=N, if_use_per=True, args=args)
+    buf = full.update(full.init(), tuple(torch.tensor(x) for x in _items(rng, False)))
+    ids = (torch.tensor([0, 3, 3]), torch.tensor([1, 2, 2]))
+    calls = {'sample_for_per': lambda rb, b: rb.sample_for_per(b, B, u=torch.rand(N, B // N)),
+             'td_error_update_for_per': lambda rb, b: rb.td_error_update_for_per(
+                 b, ids, torch.tensor([1.0, 2.0, 3.0])),
+             'update_cum_rewards': lambda rb, b: rb.update_cum_rewards(b, H, torch.ones(H, N)),
+             'save_or_load_history': lambda rb, b: rb.save_or_load_history(
+                 b, str(tmp_path), if_save=True)}
+    out = calls[method](full, buf)
+    if method == 'sample_for_per':
+        assert out[6].shape == (B,) and bool(torch.all(out[6] > 0))
+    elif method == 'td_error_update_for_per':
+        assert float(out.per_tree[1][2, 3]) == pytest.approx(3.0 ** 0.6)
+    elif method == 'update_cum_rewards':
+        assert float(out.cum_rewards[:H].sum()) == H * N
+    if method == 'save_or_load_history':
+        plain_buf = plain.update(plain.init(), tuple(torch.tensor(x) for x in _items(rng, False)))
+        plain.save_or_load_history(plain_buf, str(tmp_path), if_save=True)
+        back = plain.save_or_load_history(plain.init(), str(tmp_path), if_save=False)
+        assert all(torch.equal(a, b) for a, b in zip(back[:5], plain_buf[:5]))
+        assert (back.ptr, back.size) == (plain_buf.ptr, plain_buf.size)
+    else:
+        with pytest.raises(ValueError, match='if_use_per|lambda_fit_cum_r'):
+            calls[method](plain, plain.init())

@@ -259,11 +259,17 @@ def test_selection_rule(modsac, capsys):
 
 
 def test_unported_variants_raise():
-    for kw in (dict(if_use_per=True), dict(lambda_fit_cum_r=0.5)):
-        with pytest.raises(NotImplementedError):
-            make_sac(NET_DIMS, S, A, _args(Config, device='cpu', **kw), None)
-    with pytest.raises(NotImplementedError):
-        make_sac(NET_DIMS, S, A, _args(Config, device='cpu'), None, hterm=True)
+    """PER, ``lambda_fit_cum_r`` and the H-term, once unported, keep SAC off
+    its chunk as in the JAX package: they build on the scan path, and asking
+    for the kernel raises."""
+    rb = ReplayBuffer(256, S, A, num_seqs=NS)
+    for kw, hterm in ((dict(if_use_per=True), False), (dict(lambda_fit_cum_r=0.5), False),
+                      ({}, True)):
+        agent = make_sac(NET_DIMS, S, A, _args(Config, device='cpu', **kw), rb, hterm=hterm)
+        assert agent.update.__name__ == 'scan_update'
+        with pytest.raises(ValueError, match='use_fused_update=True requires'):
+            make_sac(NET_DIMS, S, A, _args(Config, device='cpu', use_fused_update=True, **kw),
+                     rb, hterm=hterm)
 
 
 # ------------------------------------------------------------- checkpoints

@@ -212,7 +212,13 @@ def test_plain_path_is_refused_on_a_card(flag, monkeypatch):
 
 @pytest.mark.parametrize('variant', ['hterm'])
 def test_unported_variants_raise(variant):
+    """The H-term, once unported, is continuous PPO only and has no kernel
+    (the JAX package runs its update as XLA ops): asking for one raises."""
     from elegantrl_tpu_torch.agents.ppo import make_ppo
     args = _configure(Config())
-    with pytest.raises(NotImplementedError):
+    assert make_ppo((16, 16), 3, 1, args, **{variant: True}).name == 'AgentPPOHterm'
+    with pytest.raises(ValueError, match='continuous PPO only'):
+        make_ppo((16, 16), 3, 2, args, discrete=True, **{variant: True})
+    args.use_fused_update = True
+    with pytest.raises(ValueError, match='use_fused_update=True requires'):
         make_ppo((16, 16), 3, 1, args, **{variant: True})
