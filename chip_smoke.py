@@ -4,8 +4,9 @@
 
 Drives ``elegantrl_tpu_torch``'s main paths on the card (PPO on Pendulum-v1,
 discrete PPO on CartPole-v1, TD3, SAC and TD3 with prioritised replay on
-HopperSlip-v0, DQN on CartPole-v1) and holds each hand-written kernel against
-its plain PyTorch version:
+HopperSlip-v0, DQN on CartPole-v1, PPO on StockTradingEnv-v2 at ``ppo_stock``
+and ``ppo_stock_4k``) and holds each hand-written kernel against its plain
+PyTorch version:
 
 1. device: name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` for ``sm_90a`` on every ``ops/csrc/*.cu``, all at once;
@@ -23,7 +24,8 @@ its plain PyTorch version:
 8. the Pendulum main path: ``build_training`` at the bench config (4096
    envs, H=64, B=512, repeat 8, (128, 128)), one small round against the
    same round on the CPU, then 10 timed rounds with the launch counts reset
-   just before them; the card refuses every plain path;
+   just before them; the card refuses every plain path where the JAX
+   package takes a kernel;
 9. the CartPole main path, ``AgentDiscretePPO`` at the same sizes, likewise;
 10. the entry point: ``train_agent`` for PPO on Pendulum and discrete PPO on
     CartPole (two evaluation periods each) and, shorter, A2C on Pendulum,
@@ -55,7 +57,19 @@ its plain PyTorch version:
     ``lambda_fit_cum_r``, EmbedDQN, EnsembleDQN and the five H-term agents
     (each PyTorch path said so), and an ``if_save_buffer`` run resumed with
     ``continue_train``;
-13. the kernels line and the device line.
+13. StockTradingEnv-v2 (``stock_phases``): K4, the stock body of both rollout
+    kernels (the on-policy one as an actor-only kernel plus a critic pass),
+    against its plain version at ``ppo_stock``'s 256 and ``ppo_stock_4k``'s
+    4096 envs, H = 128, both noise modes, with a one-step check from every
+    visited state whose lot flips must each sit at a lot edge
+    (``k4_vs_plain``); the ddpg, sac and modsac heads on the stock body
+    (``k4_offpolicy_vs_plain``); the reset's and the head's Philox draws
+    (``k4_philox``); the ``ppo_stock`` main path (a small round against the
+    CPU, then 10 timed rounds: 10 K4 rollouts, 10 critic passes, 10 K2
+    updates) and the ``ppo_stock_4k`` one (10 K4 rollouts and critic passes,
+    the autograd update, 0 K2); ``train_agent`` for PPO (the evaluator
+    reporting ``cumulative_returns``), TD3, SAC and ModSAC on the stock env;
+14. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -78,6 +92,12 @@ H100_SXM_PEAKS = (67.0, 3.35)
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def scalars(metrics):
+    """A round's scalar metrics (a discrete agent's also carry its action
+    histogram, a vector)."""
+    return {k: v for k, v in metrics.items() if v.dim() == 0}
 
 
 def peaks_for(name):
@@ -158,6 +178,22 @@ def offpolicy_smem_pairs():
             out[f'sac_update[S={S},A={A},E={E}]'] = (
                 fo._sac_library().sac_update_smem_bytes(S, A, *OFF_NET, E),
                 fo.sac_smem_bytes(S, A, *OFF_NET, E))
+    return out
+
+
+def stock_smem_pairs():
+    """The stock body's kernels' shared memory as the .cu computes it and as
+    the Python copies that judge eligibility on the CPU do."""
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    lib, S, A = fr._library(), 151, 15
+    out = {'stock_rollout': (lib.stock_rollout_smem_bytes(*OFF_NET),
+                             fr.actor_smem_bytes(S, OFF_NET, A)),
+           f'critic_values[S={S}]': (lib.critic_values_smem_bytes(S, *OFF_NET),
+                                     fr.critic_smem_bytes(S, OFF_NET))}
+    for head in fr.CONTINUOUS_HEADS:
+        out[f'offpolicy_rollout[StockTradingEnv-v2,{head}]'] = (
+            lib.offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
+            fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
     return out
 
 
@@ -674,6 +710,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             before = [x.clone() for x in carry0.agent_state if isinstance(x, torch.Tensor)]
             c, m = ctx.round_fn(carry0, noise=nz.to(device).contiguous(), ids=rows.to(device),
                                 update_noise=None if unoise is None else unoise.to(device))
+            m = scalars(m)
             after = [x for x in c.agent_state if isinstance(x, torch.Tensor)]
             small[device] = ({k: float(v) for k, v in m.items()},
                              [(x - b).cpu() for x, b in zip(after, before)])
@@ -727,6 +764,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         metrics = []
         for _ in range(ROUNDS):
             carry, m = ctx.round_fn(carry)
+            m = scalars(m)
             metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
         end.record()
         torch.cuda.synchronize()
@@ -1007,6 +1045,503 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     return kernels
 
 
+# ------------------------------------------------------------- StockTrading
+
+STOCK_NET = (128, 128)
+# the ppo_stock and ppo_stock_4k recipes (scripts/torch_verify_learning.py)
+PPO_STOCK = dict(envs=256, horizon=128, batch=512, repeat=8.0, lr=2e-4)
+PPO_STOCK_4K = dict(envs=4096, horizon=128, batch=4096, repeat=64.0, lr=2e-4)
+# the off-policy heads on the stock body at path A's envs and horizon
+STOCK_OFF = dict(envs=1024, horizon=32)
+
+
+def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
+    """The StockTradingEnv-v2 phases (K4: the stock body of both rollout
+    kernels); returns their entries of the kernels line, K2's at the stock
+    widths (``k2_stock``, checked in main) among them."""
+    import contextlib
+    import io
+    import numpy as np
+    from elegantrl_tpu_torch import Config, build_training, train_agent
+    from elegantrl_tpu_torch.agents import AgentModSAC, AgentPPO, AgentSAC, AgentTD3
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.ops.nets import init_flat
+    from elegantrl_tpu_torch.utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
+
+    env_def = StockTradingVecEnv(num_envs=1)._def
+    body = env_def.kernel_body
+    S, A, NR = body.state_dim, body.action_dim, body.n_reset
+    T = body.tables.close.shape[0]
+    D1, D2 = STOCK_NET
+    src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
+    task = (AgentPPO, StockTradingVecEnv, 'StockTradingEnv-v2', S, A, False, T - 1)
+
+    def start_rows(n, day, g):
+        """Reset rows (random cash and lots) with every lane at ``day``."""
+        f, _ = body.pack(env_def.init(g, n, dev))
+        return f.contiguous(), torch.full((1, n), day, dtype=torch.int32, device=dev)
+
+    def noise(g, h, n):
+        return torch.cat([torch.randn((h, A, n), generator=g, device=dev),
+                          torch.rand((h, NR, n), generator=g, device=dev)], 1).contiguous()
+
+    def lots_differ(a, b):
+        """(H, S, N) stored obs -> (H, N): the share rows tanh(shares 2^-10)
+        differ by more than 1e-6, which one lot moves them by below ~5000
+        shares (sech^2(x) / 1024) and a last-bit difference of tanh does not."""
+        return ((a[:, 1:1 + A] - b[:, 1:1 + A]).abs() > 1e-6).any(1)
+
+    def reset_z(u):
+        """The reset's S normals from its 17 uniform rows, as the body draws
+        them (the cos row of the 8 pairs, then the sin row)."""
+        p = (A + 1) // 2
+        r = torch.sqrt(-2.0 * torch.log(1.0 - u[1:1 + p]))
+        ang = 2 * math.pi * u[1 + p:1 + 2 * p]
+        return torch.cat([r * torch.cos(ang), r * torch.sin(ang)])[:A]
+
+    def explain_flips(got1, want1, env_a, u_reset):
+        """One step from the same rows: the samples whose lots differ, and
+        whether each is explained by a last-bit difference at a lot edge.  The
+        first stock whose lots differ (after it the cash differs too) must
+        have a * max_stock within 1e-3 of an integer or |a| within 1e-6 of
+        the 0.1 dead zone, or, where the step reset the lane, its normal
+        within 1e-4 of 1 or 2 (floor(|z|) decides the lots)."""
+        lots_g, lots_w = got1.env_f[1:1 + A], want1.env_f[1:1 + A]
+        flip = (lots_g != lots_w).any(0)
+        k = torch.argmax((lots_g != lots_w).int(), 0)                   # first differing stock
+        x = 100.0 * env_a
+        near_edge = (((x - torch.round(x)).abs() < 1e-3)
+                     | ((env_a.abs() - 0.1).abs() < 1e-6))
+        z = reset_z(u_reset).abs()
+        near_z = ((z - 1).abs() < 1e-4) | ((z - 2).abs() < 1e-4)
+        term = got1.terminals[0].bool()
+        pick = lambda m: m.gather(0, k[None])[0]  # noqa: E731
+        explained = torch.where(term, pick(near_z), pick(near_edge))
+        return flip, explained
+
+    def one_step(got1, want1, flip):
+        """Largest differences over the samples without a lot flip."""
+        ok = ~flip
+        out = {}
+        for f in got1._fields:
+            a, b = getattr(got1, f), getattr(want1, f)
+            if not a.dtype.is_floating_point or f in ('terminals', 'truncates'):
+                assert torch.equal(a, b), f
+                continue
+            if f == 'env_f':     # cash and totals near 1e6: relative to the value
+                out[f] = float(((a - b).abs() / b.abs().clamp_min(1.0))[:, ok].max())
+            elif f in ('states', 'actions'):
+                d = (a - b).abs()
+                out[f] = float((d[:, :, ok] if d.dim() == 3 and d.shape[-1] == ok.numel()
+                                else d[:, ok]).max())
+            else:
+                out[f] = float((a - b).abs()[..., ok].max())
+        return out
+
+    def onpolicy_bound(n, h, n_act, n_cri):
+        """K4 on-policy: the actor (rollout) and critic (pass) over every
+        env-step; bytes: weights, the env rows in and out, one market row of
+        each table per step, the stored outputs written once."""
+        flop_a = 2 * (S * D1 + D1 * D2 + D2 * A) * n * h
+        flop_c = 2 * (S * D1 + D1 * D2 + D2) * n * h
+        rows = body.n_f32 + body.n_i32
+        nbytes = 4 * (n_act + n_cri + 2 * S + 2 * rows * n + h * (S - 1 - A)
+                      + n * h * (S + A + 5))
+        return bound(flop_a + flop_c, nbytes), bound(
+            flop_c, 4 * (n_cri + 2 * S + n * h * (S + 1)))
+
+    # ---- k4_vs_plain: the on-policy stock rollout (the actor-only kernel and
+    # the critic pass) at ppo_stock's 256 envs and at ppo_stock_4k's 4096,
+    # H = 128, (128, 128), from day T - 61 so that every lane ends its
+    # episode and resets once.
+    # Tolerances.  One step from every state the plain rollout visits
+    # (injected noise), kernel and plain version on the same rows: lots are
+    # equal but where a last-bit difference of the action (the libraries'
+    # tanh, sums in another order) sits at a lot edge; every such flip must
+    # be explained (explain_flips) and is counted; elsewhere values,
+    # log-probabilities, actions and rewards agree to 1e-4, the env rows to
+    # 1e-6 of their value (cash near 1e6, one ulp ~6e-8 of it), stored
+    # states to 1e-5, flags and days exactly.  Whole trajectories: the flags
+    # and the market rows are the shared day's, equal on every lane; a lane
+    # parts from its twin at its first lot flip, and stays apart (a lot
+    # moves the cash); the lanes parted and their first steps are reported,
+    # at most a quarter may part (a wrong kernel parts nearly all), and the
+    # other lanes agree to 2e-2 and end with equal lots.
+    st = make_ppo(STOCK_NET, S, A, Config()).init(0, dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
+                     norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
+    with torch.no_grad():
+        st.act.std_log.fill_(-0.5)
+    net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+    k4 = {}
+    for recipe, path in (('ppo_stock', PPO_STOCK), ('ppo_stock_4k', PPO_STOCK_4K)):
+        n, h = path['envs'], path['horizon']
+        f0, i0 = start_rows(n, T - 61, g)
+        nz = noise(g, h, n)
+        bkw = dict(net_dims=STOCK_NET, reward_scale=2.0 ** -8, body=body)
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = fr.rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
+            want = fr.rollout_reference(*net, f0, i0, horizon_len=h, env_trace=trace, **bkw,
+                                        **extra)
+            torch.cuda.synchronize()
+            assert torch.equal(got.terminals, want.terminals) and torch.equal(
+                got.truncates, want.truncates), 'K4 flags differ'
+            assert int(got.terminals.sum()) == n
+            assert torch.equal(got.states[:, 1 + A:], want.states[:, 1 + A:]), 'market rows'
+            lot_diff = lots_differ(got.states, want.states)                      # (H, N)
+            out_diff = torch.maximum((got.actions - want.actions).abs().amax(1),
+                                     (got.logprobs - want.logprobs).abs()) > 2e-2
+            parted_at = torch.where((lot_diff | out_diff).any(0),
+                                    torch.argmax((lot_diff | out_diff).int(), 0), -1)
+            parted = parted_at >= 0
+            kept = ~parted
+            share = float(parted.float().mean())
+            assert share <= 0.25, (mode, share)
+            assert torch.equal(got.env_f[1:1 + A][:, kept], want.env_f[1:1 + A][:, kept])
+            rel_end = ((got.env_f - want.env_f).abs() / want.env_f.abs().clamp_min(1.0))
+            assert float(rel_end[:, kept].max()) <= 1e-5, float(rel_end[:, kept].max())
+            assert all(bool(torch.isfinite(getattr(got, f).float()).all()) for f in got._fields)
+            firsts = parted_at[parted].float()
+            report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share,
+                                first_parting_steps=(firsts.sort().values[:8].int().tolist()
+                                                     if parted.any() else []),
+                                cause='lot flips' if bool(lot_diff.any()) or not parted.any()
+                                else 'outputs', terminals=int(got.terminals.sum()))
+            if mode == 'injected':
+                inj = (trace, nz)
+        trace, nz_ = inj
+        f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()
+        i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
+        nz_all = nz_.transpose(0, 1).reshape(1, nz_.shape[1], h * n).contiguous()
+        got1 = fr.rollout(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        want1 = fr.rollout_reference(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        torch.cuda.synchronize()
+        flip, explained = explain_flips(got1, want1, torch.tanh(want1.actions[0]),
+                                        nz_all[0, A:])
+        assert bool(explained[flip].all()), ('unexplained lot flips', int((~explained[flip]).sum()))
+        one = one_step(got1, want1, flip)
+        tol = {'values': 1e-4, 'logprobs': 1e-4, 'actions': 1e-4, 'rewards': 1e-4,
+               'states': 1e-5, 'env_f': 1e-6}
+        assert all(one[f] <= t for f, t in tol.items()), one
+        # the critic pass alone against its plain version, on the stored states
+        v = fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, got.states,
+                             net_dims=STOCK_NET)
+        v_ref = fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, got.states,
+                                           net_dims=STOCK_NET)
+        # and on a slice whose H N (693) is no multiple of the 64-sample tile
+        odd = got.states[:7, :, :99].contiguous()
+        critic_err = max(float((v - v_ref).abs().max()), float((
+            fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, odd, net_dims=STOCK_NET)
+            - fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, odd,
+                                         net_dims=STOCK_NET)).abs().max()))
+        assert critic_err <= 1e-4, critic_err
+        ms = cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed, **bkw),
+                     reps=10, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: fr.rollout_reference(*net, f0, i0, horizon_len=h,
+                                                               seed=seed, **bkw), reps=1)
+        c_ms = cuda_ms(torch, lambda: fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std,
+                                                       got.states, net_dims=STOCK_NET),
+                       reps=10, warmup=2)
+        c_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
+            st.cri_flat, st.norm_avg, st.norm_std, got.states, net_dims=STOCK_NET), reps=2)
+        (b_ms, b_by), (cb_ms, cb_by) = onpolicy_bound(n, h, st.act_flat.numel(),
+                                                      st.cri_flat.numel())
+        emit(phase='k4_vs_plain', kernel='fused_rollout[StockTradingEnv-v2,gaussian]',
+             recipe=recipe, envs=n,
+             horizon=h, trajectory=report, one_step=one, one_step_samples=h * n,
+             one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
+             critic_pass_max_abs_err=critic_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, critic_ms=c_ms, critic_plain_ms=c_plain, critic_bound_ms=cb_ms,
+             critic_bound_by=cb_by, ms_covers='the actor-only rollout kernel and the critic pass',
+             tolerance=dict(tol, share_parted=0.25, kept_lanes=2e-2))
+        k4[recipe] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['values'], one['logprobs'],
+                                                                one['actions'], one['rewards']),
+                     bound_ms=b_ms, bound_by=b_by, critic=dict(
+                         ms=c_ms, plain_ms=c_plain, max_abs_err=critic_err, bound_ms=cb_ms,
+                         bound_by=cb_by))
+
+    # ---- k4_philox: the internal draws.  Every lane at the last day but one
+    # ends its episode at step 0 and resets from Philox uniforms: cash in
+    # [0.75, 1.25) x 1e6 with mean within 5e3 of 1e6 (four standard errors at
+    # 16,384 lanes), lots 0 / 128 / 256 with the probabilities of |z| < 1,
+    # < 2, >= 2 (0.6827, 0.2718, 0.0455) within 0.005 over 245,760 draws; the
+    # Gaussian head's normals, recovered from the stored actions of the 4096-
+    # lane Philox rollout, have mean and std within 0.01 of 0 and 1.
+    n = 16384
+    f0, i0 = start_rows(n, T - 2, g)
+    out = fr.rollout(*net, f0, i0, horizon_len=1, reward_scale=1.0, net_dims=STOCK_NET,
+                     body=body, seed=seed)
+    assert bool(out.terminals.all())
+    cash, lots = out.env_f[0], out.env_f[1:1 + A] / 128
+    freq = torch.stack([(lots == k).float().mean() for k in range(3)])
+    dfreq = float((freq - torch.tensor([0.6827, 0.2718, 0.0455], device=dev)).abs().max())
+    assert float(cash.min()) >= 7.5e5 and float(cash.max()) < 1.25e6
+    assert abs(float(cash.mean()) - 1e6) < 5e3 and dfreq < 0.005, (float(cash.mean()), dfreq)
+    f0, i0 = start_rows(4096, 0, g)
+    out = fr.rollout(*net, f0, i0, horizon_len=128, reward_scale=1.0, net_dims=STOCK_NET,
+                     body=body, seed=seed)
+    with torch.no_grad():
+        xs = out.states.transpose(1, 2)
+        mean = st.act((xs - st.norm_avg) / (st.norm_std + 1e-4))
+        z = ((out.actions.transpose(1, 2) - mean) / torch.exp(st.act.std_log)).reshape(-1)
+    zm, zs = float(z.mean()), float(z.std())
+    assert abs(zm) < 0.01 and abs(zs - 1) < 0.01, (zm, zs)
+    emit(phase='k4_philox', reset_lanes=n, cash_range=[float(cash.min()), float(cash.max())],
+         cash_mean=float(cash.mean()), lot_freq=freq.tolist(), max_lot_freq_diff=dfreq,
+         head_normals=dict(draws=z.numel(), mean=zm, std=zs),
+         bounds='cash mean 5e3, lot frequency 0.005, normals 0.01')
+
+    # ---- k4_offpolicy_vs_plain: the ddpg, sac and modsac heads on the stock
+    # body at 1024 envs x 32 steps from day T - 17 (every lane resets once);
+    # the tolerances of k4_vs_plain
+    k4_off = {}
+    for head in ('ddpg', 'sac', 'modsac'):
+        n, h = STOCK_OFF['envs'], STOCK_OFF['horizon']
+        heads = {'sac': [((D2, 2 * A), 0.1)], 'modsac': [((D2, A), 0.1)] * 2}.get(head)
+        nets = [((S, D1, D2, A), 0.1)] if head == 'ddpg' else [((S, D1, D2), None)] + heads
+        flat = init_flat(torch.Generator().manual_seed(7), nets, dev)
+        f0, i0 = start_rows(n, T - 17, g)
+        nz = noise(g, h, n)
+        kw = dict(body=body, head=head, net_dims=STOCK_NET, reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25, std_clip=(-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0))
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, env_trace=trace,
+                                                  **kw, **extra)
+            torch.cuda.synchronize()
+            assert torch.equal(got.terminals, want.terminals) and int(got.terminals.sum()) == n
+            assert torch.equal(got.states[..., 1 + A:], want.states[..., 1 + A:])
+            lot_diff = lots_differ(got.states.transpose(1, 2), want.states.transpose(1, 2))
+            out_diff = (got.actions - want.actions).abs().amax(-1) > 2e-2
+            bad = lot_diff | out_diff
+            parted = bad.any(0)
+            share = float(parted.float().mean())
+            assert share <= 0.25, (head, mode, share)
+            assert torch.equal(got.env_f[1:1 + A][:, ~parted], want.env_f[1:1 + A][:, ~parted])
+            report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share)
+            if mode == 'injected':
+                inj = trace
+        f_all = torch.cat([f for f, _ in inj], dim=1).contiguous()
+        i_all = torch.cat([i for _, i in inj], dim=1).contiguous()
+        nz_all = nz.transpose(0, 1).reshape(1, nz.shape[1], h * n).contiguous()
+        got1 = fr.offpolicy_rollout(flat, f_all, i_all, horizon_len=1, noise=nz_all, **kw)
+        want1 = fr.offpolicy_rollout_reference(flat, f_all, i_all, horizon_len=1, noise=nz_all,
+                                               **kw)
+        torch.cuda.synchronize()
+        flip, explained = explain_flips(got1, want1, want1.actions[0].T, nz_all[0, A:])
+        assert bool(explained[flip].all()), (head, int((~explained[flip]).sum()))
+        ok = ~flip
+        one = {'actions': float((got1.actions - want1.actions).abs()[0][ok].max()),
+               'rewards': float((got1.rewards - want1.rewards).abs()[0][ok].max()),
+               'states': float((got1.states - want1.states).abs().max()),
+               'env_f': float(((got1.env_f - want1.env_f).abs()
+                               / want1.env_f.abs().clamp_min(1.0))[:, ok].max())}
+        assert torch.equal(got1.env_i, want1.env_i)
+        assert all(one[f] <= t for f, t in (('actions', 1e-4), ('rewards', 1e-4),
+                                            ('states', 1e-5), ('env_f', 1e-6))), (head, one)
+        ms = cuda_ms(torch, lambda: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, seed=seed,
+                                                         **kw), reps=10, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: fr.offpolicy_rollout_reference(
+            flat, f0, i0, horizon_len=h, seed=seed, **kw), reps=1)
+        out_rows = 2 * A if head != 'ddpg' else A
+        flop = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
+        rows = body.n_f32 + body.n_i32
+        b_ms, b_by = bound(flop, 4 * (flat.numel() + 2 + 2 * rows * n + h * (S - 1 - A)
+                                      + n * h * (S + A + 3)))
+        emit(phase='k4_offpolicy_vs_plain', kernel=f'fused_rollout[StockTradingEnv-v2,{head}]',
+             envs=n, horizon=h, trajectory=report, one_step=one,
+             one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
+             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             tolerance={'actions': 1e-4, 'rewards': 1e-4, 'states': 1e-5, 'env_f': 1e-6,
+                        'share_parted': 0.25})
+        k4_off[head] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['actions'],
+                                                                       one['rewards']),
+                            bound_ms=b_ms, bound_by=b_by)
+
+    # ---- the stock main paths
+    def stock_args(path, device=None, agent_class=AgentPPO, **hyper):
+        a = Config(agent_class, StockTradingVecEnv,
+                   {'env_name': 'StockTradingEnv-v2', 'num_envs': path['envs'],
+                    'max_step': T - 1, 'state_dim': S, 'action_dim': A, 'if_discrete': False})
+        a.horizon_len, a.batch_size, a.repeat_times = path['horizon'], path['batch'], path['repeat']
+        a.learning_rate, a.net_dims, a.random_seed = path['lr'], STOCK_NET, 0
+        if device is not None:
+            a.device = device
+        for k, v in hyper.items():
+            setattr(a, k, v)
+        return a
+
+    def reset_counts():
+        fr.rollout.launches = fr.critic_values.launches = ppo_update.launches = 0
+        fr.rollout.launches_by_body.clear()
+        fr.offpolicy_rollout.launches_by_kernel.clear()
+        for k in ppo_update.launches_by_head:
+            ppo_update.launches_by_head[k] = 0
+
+    def read_counts():
+        return {'fused_rollout': fr.rollout.launches_by_body.get('StockTradingEnv-v2', 0),
+                'critic_values': fr.critic_values.launches,
+                'ppo_update': ppo_update.launches_by_head['continuous']}
+
+    # one small round at ppo_stock's hypers (256 envs, H = 32, batch 128: K4
+    # and K2 on the card) against the same round through the plain versions
+    # on the CPU; tolerance: objectives 1e-3 relative, updates 2e-2 of each
+    # buffer's largest
+    g3 = torch.Generator().manual_seed(3)
+    small = dict(PPO_STOCK, horizon=32, batch=128)
+    small_noise = torch.cat([torch.randn((32, A, 256), generator=g3),
+                             torch.rand((32, NR, 256), generator=g3)], 1)
+    small_ids = torch.randint(0, 32 * 256, (2, 128), generator=g3)
+    runs, start = {}, None
+    for device in ('cuda', 'cpu'):
+        ctx = build_training(stock_args(small, device))
+        assert ctx.fused_rollout
+        carry0 = ctx.carry
+        if start is None:
+            start = (ppo_state_to_numpy(carry0.agent_state), [x.cpu() for x in carry0.env_state],
+                     carry0.obs.cpu())
+        else:
+            carry0 = carry0._replace(agent_state=ppo_state_from_numpy(start[0], ctx.device),
+                                     env_state=type(carry0.env_state)(*start[1]), obs=start[2])
+        before = [carry0.agent_state.act_flat.clone(), carry0.agent_state.cri_flat.clone()]
+        reset_counts()
+        c, m = ctx.round_fn(carry0, noise=small_noise.to(ctx.device).contiguous(),
+                            ids=small_ids.to(ctx.device))
+        if device == 'cuda':
+            assert read_counts() == {'fused_rollout': 1, 'critic_values': 1, 'ppo_update': 1}
+        runs[device] = ({k: float(v) for k, v in m.items()},
+                        [(c.agent_state.act_flat - before[0]).cpu(),
+                         (c.agent_state.cri_flat - before[1]).cpu()])
+    (mg, dg), (mc, dc) = runs['cuda'], runs['cpu']
+    obj_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc}
+    upd_rel = [float((x - y).abs().max() / y.abs().max()) for x, y in zip(dg, dc)]
+    assert all(r <= 1e-3 for r in obj_rel.values()), obj_rel
+    assert all(r <= 2e-2 for r in upd_rel), upd_rel
+    emit(phase='main_path_stock_small_vs_cpu', envs=256, horizon=32, batch=128,
+         objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
+
+    def timed(path, phase, want, **extra):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            ctx = build_training(stock_args(path))
+        print(text.getvalue(), end='', flush=True)
+        assert ctx.fused_rollout
+        carry, _ = ctx.round_fn(ctx.carry)                       # warm-up round
+        p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
+        torch.cuda.synchronize()
+        reset_counts()
+        start_, end_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_.record()
+        metrics = []
+        for _ in range(ROUNDS):
+            carry, m = ctx.round_fn(carry)
+            m = scalars(m)
+            metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
+        end_.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        assert launches == want, (phase, launches)
+        round_ms = start_.elapsed_time(end_) / ROUNDS
+        mvals = torch.stack(metrics).cpu()
+        moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
+                    float((carry.agent_state.cri_flat - p0[1]).abs().max()))
+        assert bool(torch.isfinite(mvals).all()) and moved > 0.0
+        update = ('pytorch (the JAX package runs this batch as XLA ops)'
+                  if 'use_fused_update: PyTorch path' in text.getvalue() else 'kernel')
+        emit(phase=phase, agent='AgentPPO', env='StockTradingEnv-v2', envs=path['envs'],
+             horizon=path['horizon'], batch=path['batch'], repeat=path['repeat'],
+             net_dims=STOCK_NET, rounds=ROUNDS, launches=launches, update_path=update,
+             round_ms=round_ms, env_steps_per_s=path['envs'] * path['horizon'] / (round_ms / 1e3),
+             metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
+             device=name, nvidia_smi=smi, **extra)
+        return launches, update
+
+    stock_launches, _ = timed(PPO_STOCK, 'main_path_stock', {
+        'fused_rollout': ROUNDS, 'critic_values': ROUNDS, 'ppo_update': ROUNDS},
+        fused_rollout_ms=k4['ppo_stock']['ms'], critic_ms=k4['ppo_stock']['critic']['ms'])
+    stock4k_launches, update = timed(PPO_STOCK_4K, 'main_path_stock_4k', {
+        'fused_rollout': ROUNDS, 'critic_values': ROUNDS, 'ppo_update': 0},
+        fused_rollout_ms=k4['ppo_stock_4k']['ms'],
+        critic_ms=k4['ppo_stock_4k']['critic']['ms'])
+    assert update.startswith('pytorch'), update
+
+    # ---- the entry point: PPO on the stock env at ppo_stock's shape (two
+    # evaluation periods, the evaluator reporting cumulative_returns, 100 x
+    # the final asset over the initial cash), then TD3, SAC and ModSAC (the
+    # off-policy heads on K4)
+    off_runs = {}
+    for agent_class, path, periods, head in (
+            (AgentPPO, PPO_STOCK, 2, None),
+            (AgentTD3, dict(envs=256, horizon=32, batch=256, repeat=1.0, lr=3e-4), 2, 'ddpg'),
+            (AgentSAC, dict(envs=256, horizon=32, batch=256, repeat=1.0, lr=3e-4), 1, 'sac'),
+            (AgentModSAC, dict(envs=256, horizon=32, batch=256, repeat=1.0, lr=3e-4), 1,
+             'modsac')):
+        with tempfile.TemporaryDirectory() as cwd:
+            a = stock_args(path, agent_class=agent_class, cwd=cwd, eval_times=2)
+            if head is not None:
+                a.buffer_size, a.gamma = 8192, 0.99
+            a.eval_per_step = path['envs'] * path['horizon']
+            a.break_step = a.eval_per_step * (periods - 1)
+            reset_counts()
+            t0 = time.time()
+            res = train_agent(a)
+            counts = read_counts()
+            by_kernel = dict(fr.offpolicy_rollout.launches_by_kernel)
+            rec = res['recorder']
+            assert rec.shape[0] == periods and np.isfinite(rec).all()
+            assert bool(((rec[:, 1] > 10) & (rec[:, 1] < 1000)).all()), rec[:, 1]   # percent
+            if head is None:
+                assert counts['fused_rollout'] == periods and counts['critic_values'] == periods
+            else:
+                tag = f'StockTradingEnv-v2,{head}'
+                assert by_kernel.get(tag, 0) == periods, by_kernel
+                off_runs[head] = periods
+            emit(phase='train_agent', agent=agent_class.__name__, env='StockTradingEnv-v2',
+                 envs=path['envs'], evaluations=int(rec.shape[0]),
+                 total_step=int(res['total_step']),
+                 max_cumulative_return=float(res['max_r']), seconds=round(time.time() - t0, 3),
+                 rollout_launches=by_kernel if head else counts)
+
+    kernels = []
+    for recipe, path, launches in (('ppo_stock', PPO_STOCK, stock_launches),
+                                   ('ppo_stock_4k', PPO_STOCK_4K, stock4k_launches)):
+        k, n = k4[recipe], path['envs']
+        kernels.append({'name': f'fused_rollout[StockTradingEnv-v2,gaussian,{n} envs]',
+                        'route': 'cuda', 'source': src,
+                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
+                        'launches': launches['fused_rollout'], 'max_abs_err': k['max_abs_err'],
+                        'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+                        'bound_by': k['bound_by'], 'library_ms': None})
+        c = k['critic']
+        kernels.append({'name': f'critic_values[StockTradingEnv-v2,{n} envs]', 'route': 'cuda',
+                        'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+                        'launches': launches['critic_values'], 'max_abs_err': c['max_abs_err'],
+                        'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
+                        'bound_by': c['bound_by'], 'library_ms': None})
+    kernels.append({'name': 'ppo_update[StockTradingEnv-v2]', 'route': 'cuda',
+                    'source': 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu',
+                    'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',
+                    'launches': stock_launches['ppo_update'],
+                    'max_abs_err': k2_stock['max_abs_err'], 'ms': k2_stock['ms'],
+                    'plain_ms': k2_stock['plain_ms'], 'bound_ms': k2_stock['bound_ms'],
+                    'bound_by': k2_stock['bound_by'], 'library_ms': None})
+    for head, k in k4_off.items():
+        kernels.append({'name': f'fused_rollout[StockTradingEnv-v2,{head}]', 'route': 'cuda',
+                        'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
+                        'launches': off_runs[head], 'max_abs_err': k['max_abs_err'],
+                        'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+                        'bound_by': k['bound_by'], 'library_ms': None})
+    return kernels
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -1014,7 +1549,8 @@ def main():
                                             AgentPPO)
     from elegantrl_tpu_torch.agents.ppo import make_ppo, norm_state
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
-                                          PointChasingDiscreteEnv, PointChasingVecEnv)
+                                          PointChasingDiscreteEnv, PointChasingVecEnv,
+                                          StockTradingVecEnv)
     from elegantrl_tpu_torch.ops import _cuda_build
     from elegantrl_tpu_torch.ops.fused_rollout import (
         CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
@@ -1062,6 +1598,7 @@ def main():
         smem[f'ppo_update[S={S},A={A}]'] = (fu_lib().ppo_update_smem_bytes(S, A, *NET_DIMS),
                                             fu_smem(S, A, *NET_DIMS))
     smem.update(offpolicy_smem_pairs())
+    smem.update(stock_smem_pairs())
     assert all(a == b for a, b in smem.values()), smem
     emit(phase='build', seconds=round(time.time() - t0, 3), ptxas=ptxas,
          smem_bytes={k: v[0] for k, v in smem.items()})
@@ -1377,6 +1914,13 @@ def main():
             k5[(body.action_dim, U)] = update_vs_plain(
                 s, body.state_dim, body.action_dim, True, U, 'k5_vs_plain', lambda_entropy=0.01)
 
+    # ---- 7b. K2 at ppo_stock's widths (S = 151, A = 15, batch 512: the block
+    # count and reduce of the stock main path's update), U = 2; tolerances as
+    # at the other widths
+    stock_body = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    k2_stock = update_vs_plain(body_state(stock_body), stock_body.state_dim,
+                               stock_body.action_dim, False, 2, 'k2_vs_plain_stock')
+
     # ---- 8 and 9. the main paths
     pendulum = (AgentPPO, PendulumEnv, 'Pendulum-v1', 3, 1, False, 200)
     cartpole = (AgentDiscretePPO, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
@@ -1426,6 +1970,7 @@ def main():
             before = [carry0.agent_state.act_flat.clone(), carry0.agent_state.cri_flat.clone()]
             c, m = ctx.round_fn(carry0, noise=small_noise.to(device).contiguous(),
                                 ids=small_ids.to(device))
+            m = scalars(m)
             small[device] = ({k: float(v) for k, v in m.items()},
                              [(c.agent_state.act_flat - before[0]).cpu(),
                               (c.agent_state.cri_flat - before[1]).cpu()])
@@ -1449,6 +1994,7 @@ def main():
         metrics = []
         for _ in range(ROUNDS):
             carry, m = ctx.round_fn(carry)
+            m = scalars(m)
             metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
         end.record()
         torch.cuda.synchronize()
@@ -1471,23 +2017,28 @@ def main():
 
     small_round_vs_cpu(pendulum, PENDULUM_BODY, 'main_path_small_vs_cpu')
 
-    # on the card nothing falls back to a plain version: asking for it, or
-    # a workload outside a kernel's scope, raises (the rollout's weights at
-    # (256, 256) exceed one block; the update takes 2 hidden layers).  A2C's
-    # update has no kernel in either package, so A2C builds: its rollout is
-    # the kernel and its update is autograd.
+    # on the card nothing falls back to a plain version where the JAX package
+    # takes a kernel: asking for the plain version, or a workload that the
+    # JAX package sends to its kernel and this kernel does not fit, raises
+    # (the rollout's weights at (256, 256) exceed one block).  Where the JAX
+    # package runs XLA ops the card runs PyTorch ops and says so: A2C's update
+    # (no kernel in either package), and both halves of a 3-hidden-layer PPO
+    # (the generic rollout and the autograd update).
+    import contextlib
+    import io
     refused = {}
     for task in (pendulum, cartpole):
-        for flag, dims in (('use_fused_rollout', (256, 256)), ('use_fused_update', (16,) * 3)):
-            for setting in ((flag, False), ('net_dims', dims)):
-                a = bench_args(task, 256, 32, 128)
-                setattr(a, *setting)
-                try:
-                    build_training(a)
-                    raise AssertionError(f'build_training took a plain path on the card: {setting}')
-                except ValueError as e:
-                    assert str(e).startswith(flag), e
-                    refused[f'{task[0].__name__} {setting}'] = str(e)[:80]
+        for flag, setting in (('use_fused_rollout', ('use_fused_rollout', False)),
+                              ('use_fused_rollout', ('net_dims', (256, 256))),
+                              ('use_fused_update', ('use_fused_update', False))):
+            a = bench_args(task, 256, 32, 128)
+            setattr(a, *setting)
+            try:
+                build_training(a)
+                raise AssertionError(f'build_training took a plain path on the card: {setting}')
+            except ValueError as e:
+                assert str(e).startswith(flag), e
+                refused[f'{task[0].__name__} {setting}'] = str(e)[:80]
     a2c = bench_args((AgentA2C,) + pendulum[1:], 256, 32, 128)
     a2c.use_fused_update = False
     ctx = build_training(a2c)
@@ -1495,7 +2046,19 @@ def main():
     _, m = ctx.round_fn(ctx.carry)
     assert ctx.fused_rollout and math.isfinite(float(m['obj_actor']))
     assert read_counts() == ({'Pendulum-v1': 1}, {'continuous': 0, 'discrete': 0})
-    emit(phase='no_plain_path_on_card', refused=refused, a2c_builds=True)
+    deep = bench_args(pendulum, 256, 32, 128)
+    deep.net_dims = (16,) * 3
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        ctx = build_training(deep)
+    said = text.getvalue()
+    reset_counts()
+    _, m = ctx.round_fn(ctx.carry)
+    assert not ctx.fused_rollout and math.isfinite(float(m['obj_critic']))
+    assert ('use_fused_rollout: PyTorch path' in said and 'use_fused_update: PyTorch path' in said)
+    assert read_counts() == ({}, {'continuous': 0, 'discrete': 0})
+    emit(phase='no_plain_path_on_card', refused=refused, a2c_builds=True,
+         three_layers='the generic rollout and the autograd update on the card, said so')
 
     launches = timed_rounds(pendulum, PENDULUM_BODY, 'continuous', 'main_path', dict(
         fused_rollout_ms=k1_ms, fused_rollout_plain_ms=k1_plain_ms,
@@ -1547,7 +2110,10 @@ def main():
     # ---- 11. the off-policy family
     offpolicy_kernels = offpolicy_phases(torch, dev, name, smi, bound, seed)
 
-    # ---- 12. kernels line and device line
+    # ---- 13. StockTradingEnv-v2 (K4)
+    stock_kernels = stock_phases(torch, dev, name, smi, bound, seed, k2_stock)
+
+    # ---- 14. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
     update_src = 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu'
@@ -1580,7 +2146,7 @@ def main():
                     'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
                     'bound_by': d['bound_by'], 'library_ms': None,
                     'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
-    kernels += offpolicy_kernels
+    kernels += offpolicy_kernels + stock_kernels
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

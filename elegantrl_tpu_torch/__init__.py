@@ -14,12 +14,14 @@ family (``AgentDQN``, ``AgentDoubleDQN``, ``AgentDuelingDQN``,
 ``AgentDDPGHterm``, ``AgentTD3Hterm``, ``AgentSACHterm``,
 ``AgentModSACHterm``, with the replay buffer of ``train/replay_buffer.py``,
 prioritised replay (``ops/per.py``), the cumulative-return fit and buffer
-save and load) on Pendulum, CartPole, HopperSlip and PointChasing
-(continuous and discrete), through ``Config``, ``build_training`` and
-``train_agent``, with the fused rollout (all five env bodies; Gaussian,
-categorical, ddpg, sac, modsac and DQN heads), the fused PPO update
-(continuous and discrete heads) and the fused DQN-family, DDPG/TD3 (also
-under PER) and SAC/ModSAC update chunks.
+save and load) on Pendulum, CartPole, HopperSlip, PointChasing
+(continuous and discrete) and StockTradingEnv-v2, through ``Config``,
+``build_training`` and ``train_agent``, with the fused rollout (all six env
+bodies, the stock body's market tables included; Gaussian, categorical,
+ddpg, sac, modsac and DQN heads), the fused PPO update (continuous and
+discrete heads) and the fused DQN-family, DDPG/TD3 (also under PER) and
+SAC/ModSAC update chunks.  Where the JAX package runs XLA ops instead of a
+kernel, the port runs PyTorch ops, on a card too.
 """
 
 __version__ = "0.1.0"

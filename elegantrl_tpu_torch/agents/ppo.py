@@ -29,6 +29,13 @@
   windows' actions.  The JAX package runs it on XLA ops, without either
   kernel, so here its rollout is ``collect_rollout`` and its update
   ``torch.autograd``, on either device.
+- The PPO update takes the fused update kernel (``ops/fused_update.py``)
+  exactly where the JAX package takes its Pallas update: 2 hidden layers,
+  ``batch_size % 128 == 0``, ``batch_size <= 2048``, float32 compute and the
+  minibatch blocks within 8 MiB (:func:`jax_takes_fused_update`).  Elsewhere
+  (a 3-layer net, batch 4096) the JAX package runs its minibatch scan on XLA
+  autodiff, and here the same minibatch loop runs on ``torch.autograd``, on
+  either device.
 
 Actor and critic are ``nn.Module`` views of two flat parameter buffers
 (``ops/nets.py:bind_flat``); the update changes the buffers in place.
@@ -45,7 +52,8 @@ from torch import nn
 from ..config import select_kernel
 from ..ops import dists, gae
 from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, actor_loss, critic_loss,
-                                make_ppo_fused_update, smem_bytes, value_and_grad_flat)
+                                fused_update_bytes, make_ppo_fused_update, smem_bytes,
+                                value_and_grad_flat)
 from ..ops.nets import MLP, bind_flat, mlp_apply_leaves, mlp_init, ppo_param_shapes, split_flat
 from .base import (AdamState, AgentDef, Rollout, grad_step, make_optimizer,
                    sample_flat_ids, split_flat_ids)
@@ -131,8 +139,25 @@ def resolve_compute_dtype(args, net_dims) -> str:
 
 
 def fused_update_eligible(net_dims, state_dim: int, action_dim: int) -> bool:
+    """Whether the port's update kernel takes these widths."""
     return (len(tuple(net_dims)) == 2
             and smem_bytes(state_dim, action_dim, *net_dims) <= SMEM_LIMIT)
+
+
+def jax_takes_fused_update(net_dims, state_dim: int, action_dim: int, batch_size: int,
+                           update_times: int) -> bool:
+    """The JAX package's eligibility for its fused PPO update, term by term
+    (``elegantrl_tpu/agents/ppo.py:_fused_update``), for (Discrete)PPO
+    without the H-term in float32 (the only compute type here): 2 hidden
+    layers, a batch that is a multiple of 128 and at most 2048, and the
+    minibatch blocks with three copies of both nets within 8 MiB."""
+    net_dims = tuple(net_dims)
+    if not (len(net_dims) == 2 and batch_size % 128 == 0 and batch_size <= 2048):
+        return False
+    n_params = (state_dim * net_dims[0] + net_dims[0] + net_dims[0] * net_dims[1]
+                + net_dims[1] + net_dims[1] * (action_dim + 1) + action_dim + 1) * 2
+    return fused_update_bytes(update_times, batch_size, state_dim, action_dim,
+                              n_params) <= 8 * 2 ** 20
 
 
 def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
@@ -178,17 +203,30 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         # (elegantrl_tpu/agents/ppo.py:118): PyTorch ops on either device
         select_kernel(args, 'use_fused_update', False, False, getattr(args, 'device', 'cuda'),
                       '(Discrete)PPO without the H-term')
-    else:
-        # args.use_fused_update only decides whether this workload may be built
-        # (config.py:select_kernel); the update always goes through
-        # ops/fused_update.py:ppo_update, which runs the CUDA kernel on a card
-        # and its plain version on the CPU.
-        # no PyTorch-ops PPO update runs on a card, so jax_takes_kernel is True
-        select_kernel(args, 'use_fused_update', True,
-                      fused_update_eligible(net_dims, state_dim, action_dim),
-                      getattr(args, 'device', 'cuda'),
-                      'a 2-hidden-layer MLP whose activation tiles fit one block; '
-                      f'got net_dims={net_dims}')
+    kernel_choice = {}   # horizon_len -> whether the fused update runs
+
+    def use_fused_update(horizon_len: int) -> bool:
+        """``config.py:select_kernel`` for this horizon (decided once, at
+        build time for ``args.horizon_len``): the fused update
+        (``ops/fused_update.py:ppo_update``, the CUDA kernel on a card and
+        its plain version on the CPU) where the JAX package takes its kernel,
+        else the autograd minibatch loop."""
+        if horizon_len not in kernel_choice:
+            update_times = max(1, int(horizon_len * repeat_times / batch_size))
+            kernel_choice[horizon_len] = select_kernel(
+                args, 'use_fused_update',
+                jax_takes_fused_update(net_dims, state_dim, action_dim, batch_size,
+                                       update_times),
+                fused_update_eligible(net_dims, state_dim, action_dim),
+                getattr(args, 'device', 'cuda'),
+                '(Discrete)PPO with a 2-hidden-layer MLP whose activation tiles fit one '
+                'block, batch_size a multiple of 128 and <= 2048, and minibatch blocks '
+                f'within 8 MiB; got net_dims={net_dims}, batch_size={batch_size}, '
+                f'update_times={update_times}')
+        return kernel_choice[horizon_len]
+
+    if not (a2c or hterm):
+        use_fused_update(int(getattr(args, 'horizon_len', 2048)))
 
     def init(seed: int, device) -> PPOState:
         gen = torch.Generator().manual_seed(int(seed))
@@ -262,29 +300,40 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         metrics = {'obj_critic': objs[0], 'obj_actor': objs[1], 'obj_entropy': objs[2]}
         return s._replace(act_opt=act_opt, cri_opt=cri_opt), metrics
 
-    def hterm_minibatches(s, states, actions, logprobs, advantages, reward_sums, unmasks,
-                          ids, h_ids):
-        """The H-term agent's minibatch loop, ``torch.autograd``: per
-        minibatch a critic step, then an actor step on the PPO loss minus
-        ``h_term_lambda`` times the rehearsal objective over slots ``h_ids``."""
-        r_min, r_max = return_bounds(s.h_buf)
+    def ppo_minibatches(s, states, actions, logprobs, advantages, reward_sums, unmasks,
+                        tsn, ids, h_ids=None):
+        """The PPO minibatch loop on ``torch.autograd`` (the JAX package's
+        scan, ``elegantrl_tpu/agents/ppo.py:update``): per minibatch of flat
+        ids a critic step, then an actor step on the PPO loss, from which the
+        H-term agent subtracts ``h_term_lambda`` times the rehearsal objective
+        over slots ``h_ids``.  Gathers from either rollout layout."""
+        if hterm:
+            r_min, r_max = return_bounds(s.h_buf)
         ids0, ids1 = split_flat_ids(ids, states.shape[0])
         act_opt, cri_opt = s.act_opt, s.cri_opt
         objs = []
         for u in range(ids.shape[0]):
             i0, i1 = ids0[u], ids1[u]
-            xn = norm_state(states[i0, i1].float(), s.norm_avg, s.norm_std)
+            state = states[i0, :, i1] if tsn else states[i0, i1]
+            if discrete:
+                action = one_hot(actions[i0, i1])
+            else:
+                action = actions[i0, :, i1] if tsn else actions[i0, i1]
+            xn = norm_state(state.float(), s.norm_avg, s.norm_std)
             obj_c, g_cri = value_and_grad_flat(
                 lambda lv: critic_loss(lv, xn, reward_sums[i0, i1], unmasks[i0, i1]),
                 s.cri_flat, cri_shapes)
             cri_opt = grad_step(optimizer, s.cri_flat, cri_opt, g_cri)
-            hs, ha, hm, w, valid = rehearsal_sample(s.h_buf, h_ids[u], r_min, r_max)
-            hxn = norm_state(hs, s.norm_avg, s.norm_std)
+            if hterm:
+                hs, ha, hm, w, valid = rehearsal_sample(s.h_buf, h_ids[u], r_min, r_max)
+                hxn = norm_state(hs, s.norm_avg, s.norm_std)
 
             def loss(lv):
-                out = actor_loss(lv, xn, actions[i0, i1], logprobs[i0, i1], advantages[i0, i1],
+                out = actor_loss(lv, xn, action, logprobs[i0, i1], advantages[i0, i1],
                                  unmasks[i0, i1], ratio_clip, lambda_entropy,
-                                 if_single_sided_clip)
+                                 if_single_sided_clip, discrete)
+                if not hterm:
+                    return out
                 mean_h = mlp_apply_leaves(lv[:-1], hxn)
                 lp = torch.sum(dists.normal_logprob(ha, mean_h, torch.exp(lv[-1])), dim=-1)
                 return (out[0] - h_term_lambda * masked_window_mean(lp, hm, w, valid),
@@ -335,14 +384,20 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                 if h_ids is None:
                     h_ids = torch.randint(0, max(s.h_buf.count, 1), (update_times, h_batch),
                                           generator=gen, device=states.device)
-                s, metrics = hterm_minibatches(s, states, actions, rollout.logprobs, advantages,
-                                               reward_sums, rollout.unmasks, ids, h_ids)
+                s, metrics = ppo_minibatches(s, states, actions, rollout.logprobs, advantages,
+                                             reward_sums, rollout.unmasks, tsn, ids, h_ids)
             elif a2c:
                 if ids is None:
                     ids = torch.randint(0, horizon_len, (update_times, batch_size),
                                         generator=gen, device=states.device)
                 s, metrics = a2c_minibatches(s, states, actions, advantages, reward_sums,
                                              rollout.unmasks, tsn, ids)
+            elif not use_fused_update(horizon_len):
+                if ids is None:
+                    ids = sample_flat_ids(gen, horizon_len, num_envs, batch_size,
+                                          update_times, states.device)
+                s, metrics = ppo_minibatches(s, states, actions, rollout.logprobs, advantages,
+                                             reward_sums, rollout.unmasks, tsn, ids)
             else:
                 if ids is None:
                     ids = sample_flat_ids(gen, horizon_len, num_envs, batch_size,

@@ -160,11 +160,8 @@ def select_kernel(args, flag: str, jax_takes_kernel: bool, port_fits: bool, devi
     - On the CPU the wrappers run the plain versions when the kernel's path
       is taken.
 
-    The on-policy callers (the PPO rollout and update) have no PyTorch-ops
-    path on a card: their plain versions are CPU twins of the kernels.  They
-    pass ``jax_takes_kernel=True`` and keep raising there for anything outside
-    the kernel's scope.  A2C's update has no kernel in either package
-    (``agents/ppo.py``) and is never asked about here."""
+    A2C's update has no kernel in either package (``agents/ppo.py``) and is
+    never asked about here."""
     mode = getattr(args, flag, 'auto')
     off = mode in (False, 'false', '0')
     if not jax_takes_kernel:

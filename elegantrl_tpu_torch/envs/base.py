@@ -41,6 +41,14 @@ class EnvDef(NamedTuple):
     init: Callable[[torch.Generator, int, torch.device], EnvState]
     obs: Callable[[EnvState], torch.Tensor]
     step: Callable[..., Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]]
+    # optional: env_state -> (N,) episode return read at episode end in
+    # place of the summed reward (the stock env's cumulative return)
+    episode_return: Any = None
+    # optional: the env's own fused-rollout body (ops/fused_rollout.py
+    # KernelEnvBody), for an env whose body depends on its arguments and
+    # data (the stock env's market tables); parameter-free envs register in
+    # KERNEL_ENV_BODIES instead
+    kernel_body: Any = None
 
 
 def vec_reset(env: EnvDef, gen: torch.Generator, num_envs: int,

@@ -1,13 +1,15 @@
 // Fused whole-rollout kernel: actor + critic MLPs, the Gaussian or the
 // categorical head and an inlined env step, for every env lane and all H
 // steps in one launch.  One instantiation per env body: Pendulum-v1,
-// CartPole-v1, HopperSlip-v0, PointChasing (continuous and discrete).
+// CartPole-v1, HopperSlip-v0, PointChasing (continuous and discrete) and
+// StockTradingEnv-v2 (StockBody, actor only: see below).
 // Below it, offpolicy_rollout_kernel: the same template for the off-policy
 // agents' exploration (one net, the ddpg and DQN heads).
 //
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_kernel (built by
 // make_fused_rollout with PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY,
-// CHASING_BODY or CHASING_DISCRETE_BODY, and either head).
+// CHASING_BODY, CHASING_DISCRETE_BODY or make_stock_body's body, and either
+// head).
 //
 // Bound on this card: operations.  Each env-step runs both MLPs,
 // 2 x 2 x (S*D1 + D1*D2 + D2) FLOP plus the head (67,584 at S=3,
@@ -46,6 +48,16 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The stock body's tables and constants (ops/fused_rollout.py:_StockArgs),
+// passed by the host to stock_rollout and offpolicy_stock_rollout.
+struct StockArgs {
+  const float* close;  // (T, NS)
+  const float* tech;   // (T, 8 NS)
+  int T;
+  float initial_amount, max_stock, buy_cost, sell_cost, one_minus_gamma;
+  int random_reset;
+};
 
 namespace {
 
@@ -304,6 +316,126 @@ struct ChasingDiscreteBody : ChasingBase {
   }
 };
 
+// StockTradingEnv-v2 (replaces pallas_rollout.py:451 make_stock_body).
+// Rows: cash, NS share counts, total asset, the episode's reward sum, the
+// recorded cumulative return; the step counter is the lane's day.  The obs
+// is tanh(cash 2^-18), tanh(shares 2^-10) (the S_LANE per-lane rows), then
+// close[day] 2^-7 and tech[day] 2^-6: the day is the same on every lane of
+// a block (every env starts at day 0 and ends at the shared last day), so
+// the kernel reads it from the block's first lane, carries it as a scalar
+// and wraps it to 0 at the last day, and all threads fill the 135 market
+// rows together.  The tables stay in device memory (read through L2/L1:
+// one row of each per step, the same row for every lane of the block).
+//
+// Bound: operations.  The actor per env-step, 2 (S D1 + D1 D2 + D2 A) FLOP
+// (75,264 at S = 151, A = 15, (128, 128)), 2.5 GFLOP at 256 envs x 128
+// steps; with the critic pass 4.8 GFLOP (0.072 ms at 67 TFLOP/s FP32), while
+// the outputs are ~200 B per env-step.  Design against it: the actor alone
+// fits one block (205,756 B), so its weights stay in shared memory for all H
+// steps and the critic runs as its own kernel, parallel over (lanes, steps).
+//
+// Numbers: lots are floor(cash / price) with cash near 1e6, where one f32
+// ulp is 0.0625, so the trade loop and the total are written with _rn
+// intrinsics (IEEE division, no FMA contraction) in the plain version's
+// order: stock by stock, the cash moved by (price * buy) * (1 + c) and
+// (price * sell) * (1 - c), and total = sum_k price_k * shares_k (k in
+// order) + cash.
+struct StockBody {
+  static constexpr int NS = 15;                  // stocks the body is built for
+  static constexpr int NTECH = 8 * NS;
+  static constexpr int S = 1 + 2 * NS + NTECH, A = NS, F = 4 + NS;
+  static constexpr int S_LANE = 1 + NS;          // per-lane obs rows
+  static constexpr int N_PAIRS = (NS + 1) / 2;   // Box-Muller pairs of the reset
+  static constexpr int N_STEP = 0, N_RESET = 1 + 2 * N_PAIRS;
+  static constexpr bool DISCRETE = false;
+  StockArgs p;
+
+  __device__ void obs(const float* f, float* x) const {
+    x[0] = tanhf(f[0] * 3.814697265625e-06f);    // 2^-18
+#pragma unroll
+    for (int k = 0; k < NS; ++k) x[1 + k] = tanhf(f[1 + k] * 9.765625e-04f);  // 2^-10
+  }
+  // market row r (S_LANE <= r < S) of the obs on `day`
+  __device__ float market(int day, int r) const {
+    const int k = r - S_LANE;
+    return k < NS ? __ldg(p.close + (size_t)day * NS + k) * 7.8125e-03f            // 2^-7
+                  : __ldg(p.tech + (size_t)day * NTECH + (k - NS)) * 1.5625e-02f;  // 2^-6
+  }
+  __device__ float total(const float* prices, const float* shares, float cash) const {
+    float t = __fmul_rn(prices[0], shares[0]);
+#pragma unroll
+    for (int k = 1; k < NS; ++k) t = __fadd_rn(t, __fmul_rn(prices[k], shares[k]));
+    return __fadd_rn(t, cash);
+  }
+  __device__ void step(float* f, int& tc, int day, const float* a, float& reward,
+                       bool& terminal, bool& trunc) const {
+    float prices[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) prices[k] = __ldg(p.close + (size_t)(day + 1) * NS + k);
+    float cash = f[0];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {  // sequential: buys compete for the same cash
+      const float ak = fabsf(a[k]) < 0.1f ? 0.0f : a[k];
+      const float lots = truncf(__fmul_rn(ak, p.max_stock));
+      const float can_buy = floorf(__fdiv_rn(cash, prices[k]));
+      const float buy = lots > 0.f ? fminf(can_buy, lots) : 0.0f;
+      const float sell = lots > 0.f ? 0.0f : fminf(fmaxf(-lots, 0.0f), f[1 + k]);
+      cash = __fadd_rn(__fsub_rn(cash, __fmul_rn(__fmul_rn(prices[k], buy), p.buy_cost)),
+                       __fmul_rn(__fmul_rn(prices[k], sell), p.sell_cost));
+      f[1 + k] = __fsub_rn(__fadd_rn(f[1 + k], buy), sell);
+    }
+    const float tot = total(prices, f + 1, cash);
+    const float r = __fmul_rn(__fsub_rn(tot, f[1 + NS]), 2.44140625e-04f);  // 2^-12
+    const float rsum = __fadd_rn(f[2 + NS], r);
+    tc += 1;
+    terminal = tc >= p.T - 1;
+    const float bonus = __fdiv_rn(__fdiv_rn(rsum, (float)tc), p.one_minus_gamma);
+    reward = terminal ? __fadd_rn(r, bonus) : r;
+    if (terminal) f[3 + NS] = __fmul_rn(__fdiv_rn(tot, p.initial_amount), 100.0f);
+    f[0] = cash;
+    f[1 + NS] = tot;
+    f[2 + NS] = rsum;
+    trunc = false;
+  }
+  __device__ void reset(float* f, const float* u) const {
+    float prices[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) prices[k] = __ldg(p.close + k);   // day 0
+    if (p.random_reset) {
+      f[0] = __fmul_rn(p.initial_amount, __fadd_rn(__fmul_rn(u[0], 0.5f), 0.75f));
+#pragma unroll
+      for (int q = 0; q < N_PAIRS; ++q) {
+        const float r = sqrtf(-2.0f * logf(1.0f - u[1 + q]));
+        const float ang = TWO_PI_F * u[1 + N_PAIRS + q];
+        const float zc = r * cosf(ang), zs = r * sinf(ang);
+        f[1 + q] = floorf(fabsf(clampf(zc, -2.0f, 2.0f))) * 128.0f;
+        if (N_PAIRS + q < NS) f[1 + N_PAIRS + q] = floorf(fabsf(clampf(zs, -2.0f, 2.0f))) * 128.0f;
+      }
+    } else {
+      f[0] = p.initial_amount;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) f[1 + k] = 0.0f;
+    }
+    f[1 + NS] = total(prices, f + 1, f[0]);
+    f[2 + NS] = 0.0f;
+    f[3 + NS] = 0.0f;
+  }
+};
+
+// What the kernels need to know of a body beyond its dimensions: whether it
+// reads market tables (and carries the block's day), and how many obs rows
+// belong to the lane (the rest are the day's market rows).
+template <class Body>
+struct BodyInfo {
+  static constexpr bool TABLES = false;
+  static constexpr int S_LANE = Body::S;
+};
+template <>
+struct BodyInfo<StockBody> {
+  static constexpr bool TABLES = true;
+  static constexpr int S_LANE = StockBody::S_LANE;
+};
+
 // -------------------------------------------------------------------- MLP
 
 // out[j][e] = act(sum_k W[j][k] * in[k][e] + b[j]) for j < J, e < TE.
@@ -364,9 +496,11 @@ __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
 
 // ----------------------------------------------------------------- kernel
 
-template <class Body>
+// CRITIC = false runs the actor only (the stock body, whose two nets do not
+// fit one block together): `val_o` is left alone for critic_values_kernel.
+template <class Body, bool CRITIC>
 __global__ void __launch_bounds__(THREADS)
-fused_rollout_kernel(const float* __restrict__ act_flat,
+fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
                      const float* __restrict__ norm_avg,
                      const float* __restrict__ norm_std,
@@ -387,12 +521,16 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
   constexpr int N_HEAD = DISCRETE ? A : 2 * A;         // internal head uniforms
   constexpr int NB = (N_HEAD + N_ENV + 3) / 4;         // Philox blocks per step
   constexpr int AE = DISCRETE ? 1 : A;                 // values of the env's action
+  constexpr bool TABLES = BodyInfo<Body>::TABLES;
+  constexpr int L = BodyInfo<Body>::S_LANE;            // per-lane obs rows
 
   extern __shared__ float smem[];
   const int net_floats = D1 * S + D1 + D2 * D1 + D2;
   const Net actor = load_net(act_flat, smem, S, D1, D2, A);
-  const Net critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
-  float* xn = smem + 2 * net_floats + A * D2 + A + D2 + 1;  // (S, TE)
+  Net critic{};
+  if (CRITIC) critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
+  float* xn = smem + (CRITIC ? 2 * net_floats + A * D2 + A + D2 + 1  // (S, TE)
+                             : net_floats + A * D2 + A);
   float* h1 = xn + S * TE;                                  // (D1, TE)
   float* h2 = h1 + D1 * TE;                                 // (D2, TE)
   float* out = h2 + D2 * TE;                                // (A + 1, TE)
@@ -401,12 +539,14 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
   const int n = blockIdx.x * TE + e;
   const bool owner = e < TE;
   const bool live = owner && n < N;
+  int day = 0;                // the block's day (TABLES): its first lane's
+  if (TABLES) day = env_i[blockIdx.x * TE];
 
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
   int tc = 0;
-  float std_a[A], log_std_sum = 0.f, avg[S], nstd[S];
+  float std_a[A], log_std_sum = 0.f, avg[L], nstd[L];
   if (owner) {
     if (live) {
 #pragma unroll
@@ -422,7 +562,7 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
       }
     }
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < L; ++s) {
       avg[s] = norm_avg[s];
       nstd[s] = norm_std[s] + 1e-4f;
     }
@@ -432,11 +572,19 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
   __syncthreads();
 
   for (int t = 0; t < H; ++t) {
+    if constexpr (TABLES) {  // the day's market rows, the same on every lane
+      for (int idx = threadIdx.x; idx < (S - L) * TE; idx += blockDim.x) {
+        const int r = L + idx / TE, e2 = idx % TE, n2 = blockIdx.x * TE + e2;
+        const float x = body.market(day, r);
+        xn[r * TE + e2] = n2 < N ? (x - __ldg(norm_avg + r)) / (__ldg(norm_std + r) + 1e-4f) : 0.f;
+        if (n2 < N) states_o[((size_t)t * S + r) * N + n2] = x;
+      }
+    }
     if (owner) {
-      float x[S];
-      Body::obs(f, x);
+      float x[L];
+      body.obs(f, x);
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+      for (int s = 0; s < L; ++s) {
         xn[s * TE + e] = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
         if (live) states_o[((size_t)t * S + s) * N + n] = x[s];
       }
@@ -444,8 +592,10 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
     __syncthreads();
     mlp(actor, xn, h1, h2, out, S, D1, D2, A);
     __syncthreads();
-    mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
-    __syncthreads();
+    if (CRITIC) {
+      mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
+      __syncthreads();
+    }
     if (live) {
       // head[0:A]: normals (Gaussian, injected), or uniforms; u_env: the
       // env's N_STEP step uniforms, then its N_RESET reset uniforms
@@ -514,20 +664,24 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
           env_a[a] = tanhf(action);
         }
       }
-      const float value = out[A * TE + e];
       float reward;
       bool terminal, trunc;
-      Body::step(f, tc, env_a, u_env, reward, terminal, trunc);
+      if constexpr (TABLES) {
+        body.step(f, tc, day, env_a, reward, terminal, trunc);
+      } else {
+        body.step(f, tc, env_a, u_env, reward, terminal, trunc);
+      }
       logp_o[o] = logp;
       rew_o[o] = reward * reward_scale;
       term_o[o] = terminal ? 1.0f : 0.0f;
       trunc_o[o] = trunc ? 1.0f : 0.0f;
-      val_o[o] = value;
+      if (CRITIC) val_o[o] = out[A * TE + e];
       if (terminal || trunc) {  // masked reset from the reset uniforms
-        Body::reset(f, u_env + Body::N_STEP);
+        body.reset(f, u_env + Body::N_STEP);
         tc = 0;
       }
     }
+    if constexpr (TABLES) day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
     // the next step's xn write and dense passes reuse the shared tiles
     __syncthreads();
   }
@@ -538,20 +692,20 @@ fused_rollout_kernel(const float* __restrict__ act_flat,
   }
 }
 
-template <class Body>
+template <class Body, bool CRITIC = true>
 int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* norm_std, const void* env_f, const void* env_i,
            const void* noise, const void* seed, void* states, void* actions,
            void* logp, void* rew, void* term, void* trunc, void* val,
            void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
-           float reward_scale, int smem_bytes, cudaStream_t stream) {
+           float reward_scale, int smem_bytes, cudaStream_t stream, const Body body = Body{}) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_rollout_kernel<Body, CRITIC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TE - 1) / TE;
-  fused_rollout_kernel<Body><<<blocks, THREADS, smem_bytes, stream>>>(
-      (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
+  fused_rollout_kernel<Body, CRITIC><<<blocks, THREADS, smem_bytes, stream>>>(
+      body, (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
       (const float*)norm_std, (const float*)env_f, (const int*)env_i,
       (const float*)noise, (const int*)seed, (float*)states, actions,
       (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)val,
@@ -606,7 +760,8 @@ __host__ __device__ inline int offpolicy_out_rows(int A, int head) {
 
 template <class Body, int HEAD>
 __global__ void __launch_bounds__(THREADS)
-offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict__ env_f,
+offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
+                         const float* __restrict__ env_f,
                          const int* __restrict__ env_i, const float* __restrict__ noise,
                          const int* __restrict__ seed, float* __restrict__ states_o,
                          void* __restrict__ actions_o, float* __restrict__ rew_o,
@@ -623,6 +778,8 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
   constexpr int NZ = N_HEAD_INJ + N_ENV;
   constexpr int N_HEAD = DISCRETE ? 2 : 2 * A;      // internal head uniforms
   constexpr int NB = (N_HEAD + N_ENV + 3) / 4;
+  constexpr bool TABLES = BodyInfo<Body>::TABLES;
+  constexpr int L = BodyInfo<Body>::S_LANE;
 
   extern __shared__ float smem[];
   const int n_w = offpolicy_net_floats(S, A, D1, D2, HEAD);
@@ -644,6 +801,8 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
   const int n = blockIdx.x * TE + e;
   const bool owner = e < TE;
   const bool live = owner && n < N;
+  int day = 0;   // the block's day (TABLES): its first lane's
+  if (TABLES) day = env_i[blockIdx.x * TE];
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
@@ -658,11 +817,19 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
   __syncthreads();
 
   for (int t = 0; t < H; ++t) {
+    if constexpr (TABLES) {  // the day's market rows, the same on every lane
+      for (int idx = threadIdx.x; idx < (S - L) * TE; idx += blockDim.x) {
+        const int r = L + idx / TE, e2 = idx % TE, n2 = blockIdx.x * TE + e2;
+        const float x = body.market(day, r);
+        xn[r * TE + e2] = n2 < N ? x : 0.f;
+        if (n2 < N) states_o[((size_t)t * N + n2) * S + r] = x;
+      }
+    }
     if (owner) {
-      float x[S];
-      Body::obs(f, x);
+      float x[L];
+      body.obs(f, x);
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+      for (int s = 0; s < L; ++s) {
         xn[s * TE + e] = live ? x[s] : 0.f;
         if (live) states_o[((size_t)t * N + n) * S + s] = x[s];
       }
@@ -749,15 +916,20 @@ offpolicy_rollout_kernel(const float* __restrict__ flat, const float* __restrict
       }
       float reward;
       bool terminal, trunc;
-      Body::step(f, tc, env_a, u_env, reward, terminal, trunc);
+      if constexpr (TABLES) {
+        body.step(f, tc, day, env_a, reward, terminal, trunc);
+      } else {
+        body.step(f, tc, env_a, u_env, reward, terminal, trunc);
+      }
       rew_o[o] = reward * reward_scale;
       term_o[o] = terminal ? 1.0f : 0.0f;
       trunc_o[o] = trunc ? 1.0f : 0.0f;
       if (terminal || trunc) {
-        Body::reset(f, u_env + Body::N_STEP);
+        body.reset(f, u_env + Body::N_STEP);
         tc = 0;
       }
     }
+    if constexpr (TABLES) day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
     __syncthreads();
   }
   if (live) {
@@ -777,7 +949,8 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
                      int H, int D1, int D2, float reward_scale, float noise_std,
-                     float explore_rate, float std_lo, float std_hi, cudaStream_t stream) {
+                     float explore_rate, float std_lo, float std_hi, cudaStream_t stream,
+                     const Body body = Body{}) {
   const int smem_bytes = offpolicy_smem(Body::S, Body::A, D1, D2, HEAD);
   cudaError_t err = cudaFuncSetAttribute(offpolicy_rollout_kernel<Body, HEAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -785,11 +958,136 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TE - 1) / TE;
   offpolicy_rollout_kernel<Body, HEAD><<<blocks, THREADS, smem_bytes, stream>>>(
-      (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
+      body, (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
       (const int*)seed, (float*)states, actions, (float*)rew, (float*)term, (float*)trunc,
       (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate,
       std_lo, std_hi);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ critic pass
+// The stock body's second kernel: the critic over the rollout's stored
+// (H, S, N) states, val = mlp(cri, (x - avg) / (std + 1e-4)), the function
+// fused_rollout_kernel computes in-loop when both nets fit one block.
+// Nothing in it is sequential, so it runs as a chain of tiled products over
+// the M = H N samples: one block per SM holds the critic, transposed to
+// (K, J) per layer, in shared memory and loops over tiles of CM = 64
+// samples, so the weights are loaded once per block, not once per tile.  In
+// a layer each thread computes CR x CC = 8 x 4 outputs (rows x samples) from
+// two float4 weight reads and one float4 activation read per k: 32 FMA per 3
+// shared-memory reads, where `dense` (1 lane = 1 sample) does 8 per 9.
+// Bound: operations, 2 (S D1 + D1 D2 + D2) FLOP per sample.
+constexpr int CM = 64, CR = 8, CC = 4;
+constexpr int C_COLS = CM / CC;            // threads across the samples of a tile
+constexpr int C_ROWS = THREADS / C_COLS;   // threads across a layer's rows
+static_assert(THREADS % CM == 0 && CM <= THREADS, "a thread loads one sample of a tile");
+
+// floats of the critic's leaves in shared memory, padded to a float4
+__host__ __device__ inline int critic_weight_floats(int S, int D1, int D2) {
+  return (S * D1 + D1 + D1 * D2 + D2 + D2 + 1 + 3) / 4 * 4;
+}
+
+// the weights, then the (S, CM) input tile (the second layer's output in
+// its place) and the (D1, CM) first-layer tile
+__host__ __device__ inline int critic_smem(int S, int D1, int D2) {
+  return (int)sizeof(float) *
+         (critic_weight_floats(S, D1, D2) + ((S > D2 ? S : D2) + D1) * CM);
+}
+
+// dst[k * J + j] = src[j * K + k]: a row-major (J, K) leaf, transposed
+__device__ void load_transposed(const float* __restrict__ src, float* dst, int J, int K) {
+  for (int i = threadIdx.x; i < J * K; i += blockDim.x) {
+    const int k = i / J, j = i - k * J;
+    dst[i] = __ldg(src + (size_t)j * K + k);
+  }
+}
+
+// out[j][m] = gelu(sum_k WT[k][j] in[k][m] + b[j]) for j < J, m < CM: the
+// thread's rows j0 .. j0 + CR - 1 (J a multiple of CR) and samples
+// c0 .. c0 + CC - 1
+__device__ void dense_tile(const float* WT, const float* b, const float* in, float* out,
+                           int J, int K) {
+  const int c0 = (threadIdx.x % C_COLS) * CC;
+  for (int j0 = (threadIdx.x / C_COLS) * CR; j0 < J; j0 += C_ROWS * CR) {
+    float acc[CR][CC];
+#pragma unroll
+    for (int r = 0; r < CR; ++r)
+#pragma unroll
+      for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float4 x = *reinterpret_cast<const float4*>(in + k * CM + c0);
+      const float4 wa = *reinterpret_cast<const float4*>(WT + k * J + j0);
+      const float4 wb = *reinterpret_cast<const float4*>(WT + k * J + j0 + 4);
+      const float w[CR] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      const float xs[CC] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int r = 0; r < CR; ++r)
+#pragma unroll
+        for (int c = 0; c < CC; ++c) acc[r][c] = fmaf(w[r], xs[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+      const float bj = b[j0 + r];
+      float4 v;
+      v.x = gelu_tanh(acc[r][0] + bj);
+      v.y = gelu_tanh(acc[r][1] + bj);
+      v.z = gelu_tanh(acc[r][2] + bj);
+      v.w = gelu_tanh(acc[r][3] + bj);
+      *reinterpret_cast<float4*>(out + (j0 + r) * CM + c0) = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict__ norm_avg,
+                     const float* __restrict__ norm_std, const float* __restrict__ states,
+                     float* __restrict__ val, int S, int N, int H, int D1, int D2) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // the flat leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (1, D2), bo
+  float* W1T = smem;                 // (S, D1)
+  float* b1 = W1T + S * D1;
+  float* W2T = b1 + D1;              // (D1, D2)
+  float* b2 = W2T + D1 * D2;
+  float* wo = b2 + D2;
+  float* xn = smem + critic_weight_floats(S, D1, D2);   // (S, CM), then h2 (D2, CM)
+  float* h1 = xn + (S > D2 ? S : D2) * CM;              // (D1, CM)
+  load_transposed(cri_flat, W1T, D1, S);
+  const float* rest = cri_flat + D1 * S;
+  for (int i = threadIdx.x; i < D1; i += blockDim.x) b1[i] = rest[i];
+  load_transposed(rest + D1, W2T, D2, D1);
+  rest += D1 + D2 * D1;
+  for (int i = threadIdx.x; i < 2 * D2 + 1; i += blockDim.x) b2[i] = rest[i];  // b2, Wo, bo
+  const long long M = (long long)H * N;
+  // THREADS is a multiple of CM, so a thread loads one sample's rows of a tile
+  const int c = threadIdx.x % CM;
+  for (long long m0 = (long long)blockIdx.x * CM; m0 < M; m0 += (long long)gridDim.x * CM) {
+    __syncthreads();   // the weights, or the previous tile's reads of xn
+    const long long m = m0 + c;
+    const long long t = m / N;
+    const float* x = states + (t * S) * N + (m - t * N);   // row s at x[s * N]
+    for (int s = threadIdx.x / CM; s < S; s += THREADS / CM)
+      xn[s * CM + c] = m < M ? (x[(size_t)s * N] - __ldg(norm_avg + s)) /
+                                   (__ldg(norm_std + s) + 1e-4f)
+                             : 0.f;
+    __syncthreads();
+    dense_tile(W1T, b1, xn, h1, D1, S);
+    __syncthreads();
+    dense_tile(W2T, b2, h1, xn, D2, D1);   // h2 over the input tile
+    __syncthreads();
+    if (threadIdx.x < CM && m0 + threadIdx.x < M) {
+      float v = wo[D2];
+      for (int k = 0; k < D2; ++k) v = fmaf(wo[k], xn[k * CM + threadIdx.x], v);
+      val[m0 + threadIdx.x] = v;
+    }
+  }
+}
+
+// the actor-only rollout's shared memory: the actor's weights and the tiles
+__host__ __device__ inline int actor_smem(int S, int A, int D1, int D2) {
+  return (int)sizeof(float) *
+         (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (S + D1 + D2 + A + 1) * TE);
 }
 
 }  // namespace
@@ -875,4 +1173,70 @@ extern "C" int offpolicy_rollout(int body, int head, const void* flat, const voi
     default: return -1;
   }
 #undef ELEGANTRL_OFF
+}
+
+// StockTradingEnv-v2: the actor-only rollout (the Gaussian head on StockBody;
+// values are left to critic_values).  Returns the CUDA error of the launch.
+extern "C" int stock_rollout_smem_bytes(int D1, int D2) {
+  return actor_smem(StockBody::S, StockBody::A, D1, D2);
+}
+
+extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
+                             const void* env_f, const void* env_i, const void* noise,
+                             const void* seed, void* states, void* actions, void* logp,
+                             void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
+                             int N, int H, int D1, int D2, float reward_scale,
+                             const StockArgs* args, void* stream) {
+  const StockBody body{*args};
+  return launch<StockBody, false>(act_flat, nullptr, norm_avg, norm_std, env_f, env_i, noise,
+                                  seed, states, actions, logp, rew, term, trunc, nullptr,
+                                  env_f_o, env_i_o, N, H, D1, D2, reward_scale,
+                                  actor_smem(StockBody::S, StockBody::A, D1, D2),
+                                  (cudaStream_t)stream, body);
+}
+
+// The critic pass: val (H, N) from the stored states (H, S, N).
+extern "C" int critic_values_smem_bytes(int S, int D1, int D2) { return critic_smem(S, D1, D2); }
+
+extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const void* norm_std,
+                             const void* states, void* val, int S, int N, int H, int D1, int D2,
+                             void* stream) {
+  const int smem_bytes = critic_smem(S, D1, D2);
+  cudaError_t err = cudaFuncSetAttribute(
+      critic_values_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = ((long long)H * N + CM - 1) / CM;
+  const int blocks = (int)(tiles < sms ? tiles : sms);   // one block per SM, looping over tiles
+  critic_values_kernel<<<blocks, THREADS, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
+      (const float*)states, (float*)val, S, N, H, D1, D2);
+  return (int)cudaGetLastError();
+}
+
+// The off-policy exploration rollout on StockBody: the ddpg, sac and modsac
+// heads.  Returns the CUDA error of the launch, or -1 for another head.
+extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* env_f,
+                                       const void* env_i, const void* noise, const void* seed,
+                                       void* states, void* actions, void* rew, void* term,
+                                       void* trunc, void* env_f_o, void* env_i_o, int N, int H,
+                                       int D1, int D2, float reward_scale, float noise_std,
+                                       float explore_rate, float std_lo, float std_hi,
+                                       const StockArgs* args, void* stream) {
+  const StockBody body{*args};
+#define ELEGANTRL_STOCK(HEAD)                                                               \
+  return launch_offpolicy<StockBody, HEAD>(flat, env_f, env_i, noise, seed, states, actions, \
+                                           rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, \
+                                           reward_scale, noise_std, explore_rate, std_lo,    \
+                                           std_hi, (cudaStream_t)stream, body)
+  switch (head) {
+    case HEAD_DDPG: ELEGANTRL_STOCK(HEAD_DDPG);
+    case HEAD_SAC: ELEGANTRL_STOCK(HEAD_SAC);
+    case HEAD_MODSAC: ELEGANTRL_STOCK(HEAD_MODSAC);
+    default: return -1;
+  }
+#undef ELEGANTRL_STOCK
 }

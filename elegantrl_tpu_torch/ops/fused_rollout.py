@@ -1,7 +1,7 @@
 """Fused whole-rollout kernel for the on-policy agents (counterpart of
 ``elegantrl_tpu/ops/pallas_rollout.py``: ``_make_kernel`` with the Pendulum,
-CartPole, HopperSlip and PointChasing bodies and the Gaussian and
-categorical heads).
+CartPole, HopperSlip, PointChasing and StockTrading bodies and the Gaussian
+and categorical heads).
 
 For every env lane and each of H steps: normalise the obs, run the actor
 and critic MLPs (two tanh-GELU hidden layers), sample an action, store it
@@ -18,6 +18,18 @@ record terminal/truncate and reset the done lanes from uniforms.
 
 Outputs keep the kernel-native ``(H, S, N)`` layout, flagged by the
 ``'tsn'`` extras marker all the way into the update.
+
+The stock body (:func:`make_stock_body`, one instance per env, holding its
+market tables) has a 151-wide obs, and both nets with their tiles need
+350,144 bytes of shared memory, more than a Hopper block holds.  On the card
+its rollout is therefore two kernels: the rollout with only the actor in
+shared memory (205,756 bytes), which leaves the values alone, then
+:func:`critic_values`, the critic over the stored ``(H, S, N)`` states
+(215,824 bytes, tiles of 64 samples).  The outputs are those of the
+one-kernel route.  The body reads the day of its block's first lane
+(:func:`block_day`): every env starts at day 0 and ends at the shared last
+day, so the day is the same on every lane of a block, and its 135 market
+rows are filled for all lanes at once.
 
 Three pieces, as for every kernel of the port:
 
@@ -43,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -79,6 +91,11 @@ class KernelEnvBody(NamedTuple):
     n_step: int = 0     # uniforms the step itself consumes (env randomness)
     discrete: bool = False
     kernel_id: int = 0  # the body's number in csrc/fused_rollout.cu
+    # market-data bodies (the stock env, an instance per env): the tables
+    # (envs/stock_trading.py:MarketTables), which obs, step and reset read
+    # on the device of their rows, and the env's constants
+    tables: Any = None
+    params: Any = None
 
 
 def _masked_reset(f, i, fresh, done):
@@ -363,6 +380,115 @@ KERNEL_ENV_BODIES = {b.env_name: b for b in
                      (PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY, CHASING_BODY,
                       CHASING_DISCRETE_BODY)}
 
+STOCK_KERNEL_STOCKS = 15   # the stock count csrc/fused_rollout.cu's StockBody is built for
+
+
+def kernel_has_body(body: KernelEnvBody) -> bool:
+    """Whether csrc/fused_rollout.cu implements this body: a registered one,
+    or a market-data body of ``STOCK_KERNEL_STOCKS`` stocks (an env's own)."""
+    if body.tables is not None:
+        return body.action_dim == STOCK_KERNEL_STOCKS
+    return KERNEL_ENV_BODIES.get(body.env_name) is body
+
+
+def kernel_bodies_text(body: Optional[KernelEnvBody] = None) -> str:
+    """The bodies the kernels implement, for an error's scope text; says why
+    a market-data ``body`` of another stock count is not among them."""
+    text = (f'{sorted(KERNEL_ENV_BODIES)} and the market-data body of '
+            f'{STOCK_KERNEL_STOCKS} stocks')
+    if body is not None and body.tables is not None and not kernel_has_body(body):
+        text += (f' (the CUDA stock body is built for {STOCK_KERNEL_STOCKS} stocks; this '
+                 f'market has {body.action_dim})')
+    return text
+
+
+# --------------------------------------------------------------- StockTrading
+# The day is the same on every lane of a block: every env starts at day 0
+# and ends only at the shared last day, so the body reads the day row of its
+# block's first lane (``block_day``), as the CUDA kernel does per block.
+
+
+def block_day(i: torch.Tensor) -> torch.Tensor:
+    """(N,) day of each lane's block: the day row of the block's first lane
+    (blocks of ``_TE`` lanes, as the kernel's)."""
+    first = torch.div(torch.arange(i.shape[1], device=i.device), _TE,
+                      rounding_mode='floor') * _TE
+    return i[0, first].long()
+
+
+def make_stock_body(tables, initial_amount: float = 1e6, max_stock: float = 1e2,
+                    cost_pct: float = 1e-3, gamma: float = 0.99,
+                    if_random_reset: bool = True) -> KernelEnvBody:
+    """The fused-rollout body of ``envs/stock_trading.py:make_stock_trading``
+    (the JAX package's ``pallas_rollout.py:make_stock_body``).
+
+    Rows: cash, the S share counts, total asset, the episode's reward sum
+    and the recorded cumulative return (f32); the day (int32).  The obs is
+    ``tanh(cash 2^-18)``, ``tanh(shares 2^-10)``, ``close[day] 2^-7``,
+    ``tech[day] 2^-6``; the step is the env's sequential trade loop, reward
+    and terminal bonus; the reset jitters the cash by ``u0`` and draws the
+    share lots from ``S`` normals made by Box-Muller from ``(S + 1) // 2``
+    pairs of uniforms (``n_reset = 1 + 2 * pairs``)."""
+    from ..envs.stock_trading import StockState, action_lots, total_asset, trade
+    T, S = tables.close.shape
+    TECH = tables.tech.shape[1]
+    max_step = T - 1
+    n_pairs = (S + 1) // 2
+
+    def pack(s):
+        return (torch.cat([s.amount[None], s.shares.T, s.total_asset[None], s.reward_sum[None],
+                           s.cumulative_returns[None]]), s.day.reshape(1, -1).to(torch.int32))
+
+    def unpack(f, i):
+        return StockState(day=i[0], amount=f[0], shares=f[1:1 + S].T, total_asset=f[1 + S],
+                          reward_sum=f[2 + S], cumulative_returns=f[3 + S])
+
+    def obs(f, i):
+        close, tech = tables.on(f.device)
+        day = block_day(i)
+        return torch.cat([torch.tanh(f[0:1] * 2.0 ** -18), torch.tanh(f[1:1 + S] * 2.0 ** -10),
+                          close[day].T * 2.0 ** -7, tech[day].T * 2.0 ** -6])
+
+    def step(f, i, a, u):
+        close, _ = tables.on(f.device)
+        day2 = block_day(i) + 1
+        prices = close[day2].T                                  # (S, N)
+        amount, shares = trade(f[0], f[1:1 + S], action_lots(a, max_stock), prices, cost_pct)
+        total = total_asset(prices, shares, amount)
+        reward = (total - f[1 + S]) * 2.0 ** -12
+        reward_sum = f[2 + S] + reward
+        i2 = i[0:1] + 1
+        terminal = i2 >= max_step
+        bonus = (reward_sum / i2[0].float()) / (1.0 - gamma)
+        reward = torch.where(terminal[0], reward + bonus, reward)
+        cum = torch.where(terminal[0], total / initial_amount * 100.0, f[3 + S])
+        f2 = torch.cat([amount[None], shares, total[None], reward_sum[None], cum[None]])
+        return f2, i2, reward[None], terminal, torch.zeros_like(terminal)
+
+    def reset(f, i, u, done):
+        close, _ = tables.on(f.device)
+        if if_random_reset:
+            amount0 = initial_amount * (u[0] * 0.5 + 0.75)
+            r = torch.sqrt(-2.0 * torch.log(1.0 - u[1:1 + n_pairs]))
+            ang = _TWO_PI * u[1 + n_pairs:1 + 2 * n_pairs]
+            z = torch.cat([r * torch.cos(ang), r * torch.sin(ang)])[0:S]
+            shares0 = torch.floor(torch.abs(torch.clamp(z, -2.0, 2.0))) * 2.0 ** 7
+        else:
+            amount0 = torch.full_like(u[0], initial_amount)
+            shares0 = torch.zeros((S, u.shape[1]), device=u.device)
+        total0 = total_asset(close[0][:, None], shares0, amount0)
+        zero = torch.zeros_like(amount0)
+        fresh = torch.cat([amount0[None], shares0, total0[None], zero[None], zero[None]])
+        return _masked_reset(f, i, fresh, done)
+
+    return KernelEnvBody(
+        env_name='StockTradingEnv-v2', state_dim=1 + 2 * S + TECH, action_dim=S, n_f32=4 + S,
+        n_i32=1, n_reset=1 + 2 * n_pairs, pack=pack, unpack=unpack, obs=obs, step=step,
+        reset=reset, n_step=0, kernel_id=5, tables=tables,
+        params=dict(initial_amount=float(initial_amount), max_stock=float(max_stock),
+                    cost_pct=float(cost_pct), gamma=float(gamma),
+                    if_random_reset=bool(if_random_reset)))
+
 
 def noise_rows(body: KernelEnvBody) -> int:
     """Rows of the injected-noise tensor: A, then the env's uniforms."""
@@ -519,6 +645,125 @@ def smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int) -> int:
     return 4 * floats
 
 
+def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int) -> int:
+    """Shared memory of one block of the actor-only rollout (the stock
+    body's route, ``stock_rollout_smem_bytes``): the actor's weights and the
+    activation tiles; the critic runs afterwards in :func:`critic_values`."""
+    D1, D2 = net_dims
+    S, A = state_dim, action_dim
+    return 4 * (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (S + D1 + D2 + A + 1) * _TE)
+
+
+_CM, _CR = 64, 8   # the critic pass's samples per tile and rows per thread (csrc/fused_rollout.cu)
+
+
+def critic_smem_bytes(state_dim: int, net_dims: Sequence[int]) -> int:
+    """Shared memory of one block of the critic pass
+    (``critic_values_smem_bytes``): the critic's weights, padded to a
+    float4, then the input tile (the second layer's output in its place)
+    and the first layer's tile, ``_CM`` samples each."""
+    D1, D2 = net_dims
+    S = state_dim
+    weights = (S * D1 + D1 + D1 * D2 + D2 + D2 + 1 + 3) // 4 * 4
+    return 4 * (weights + (max(S, D2) + D1) * _CM)
+
+
+def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
+    """Whether the CUDA kernel takes this body at these widths: the
+    registered bodies with both nets in one block; a market-data body
+    (built for ``STOCK_KERNEL_STOCKS`` stocks) as the actor-only rollout
+    plus the critic pass, each fitting one block, the critic's widths
+    multiples of ``_CR``."""
+    if len(tuple(net_dims)) != 2:
+        return False
+    S, A = body.state_dim, body.action_dim
+    if not kernel_has_body(body):
+        return False
+    if body.tables is not None:
+        return (actor_smem_bytes(S, net_dims, A) <= SMEM_LIMIT
+                and critic_smem_bytes(S, net_dims) <= SMEM_LIMIT
+                and all(int(d) % _CR == 0 for d in net_dims))
+    return smem_bytes(S, net_dims, A) <= SMEM_LIMIT
+
+
+class _StockArgs(ctypes.Structure):
+    """``struct StockArgs`` of csrc/fused_rollout.cu."""
+    _fields_ = [('close', ctypes.c_void_p), ('tech', ctypes.c_void_p), ('T', ctypes.c_int),
+                ('initial_amount', ctypes.c_float), ('max_stock', ctypes.c_float),
+                ('buy_cost', ctypes.c_float), ('sell_cost', ctypes.c_float),
+                ('one_minus_gamma', ctypes.c_float), ('random_reset', ctypes.c_int)]
+
+
+def _stock_args(body: KernelEnvBody, device) -> _StockArgs:
+    """The stock body's kernel arguments (the tables on ``device``, which
+    ``MarketTables`` keeps) after checking the stock count it was built for."""
+    S, A = body.state_dim, body.action_dim
+    if A != STOCK_KERNEL_STOCKS or S != 1 + 2 * A + 8 * A:
+        raise ValueError(f'the CUDA stock body is built for {STOCK_KERNEL_STOCKS} stocks with 8 '
+                         f'factors each (state_dim {1 + 10 * STOCK_KERNEL_STOCKS}); this market '
+                         f'has {A} stocks and state_dim {S}')
+    close, tech = body.tables.on(device)
+    p = body.params
+    return _StockArgs(close.data_ptr(), tech.data_ptr(), close.shape[0], p['initial_amount'],
+                      p['max_stock'], 1.0 + p['cost_pct'], 1.0 - p['cost_pct'],
+                      1.0 - p['gamma'], int(p['if_random_reset']))
+
+
+def critic_values_reference(cri_flat: torch.Tensor, norm_avg: torch.Tensor,
+                            norm_std: torch.Tensor, states: torch.Tensor, *,
+                            net_dims: Sequence[int]) -> torch.Tensor:
+    """Plain version of the critic pass: ``(H, N)`` values of the stored
+    ``(H, S, N)`` states."""
+    S = states.shape[1]
+    shapes = ppo_param_shapes(S, net_dims, 1, True)[1]
+    xn = (states.transpose(1, 2) - norm_avg) / (norm_std + 1e-4)
+    return mlp_apply_leaves(split_flat(cri_flat, shapes), xn)[..., 0]
+
+
+def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torch.Tensor,
+                  states: torch.Tensor, values: Optional[torch.Tensor] = None, *,
+                  net_dims: Sequence[int]) -> torch.Tensor:
+    """The critic pass of the actor-only rollout: the CUDA kernel for CUDA
+    tensors (writing into ``values`` when given), the plain version for CPU
+    tensors."""
+    if cri_flat.device.type == 'cpu':
+        return critic_values_reference(cri_flat, norm_avg, norm_std, states, net_dims=net_dims)
+    if cri_flat.device.type != 'cuda':
+        raise ValueError(f'critic_values: unsupported device {cri_flat.device}')
+    if len(net_dims) != 2:
+        raise ValueError(f'critic_values: the CUDA kernel takes 2 hidden layers, got {net_dims}')
+    from ._cuda_build import check, check_tensor, ptr
+    D1, D2 = (int(d) for d in net_dims)
+    if D1 % _CR or D2 % _CR:
+        raise ValueError(f'critic_values: the CUDA kernel takes widths that are multiples of '
+                         f'{_CR}, got {tuple(net_dims)}')
+    H, S, N = states.shape
+    lib = _library()
+    smem = lib.critic_values_smem_bytes(S, D1, D2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'critic_values: net_dims={tuple(net_dims)} needs {smem} bytes of '
+                         f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
+                         'can hold')
+    dev, f32 = cri_flat.device, torch.float32
+    n_cri = sum(math.prod(sh) for sh in ppo_param_shapes(S, (D1, D2), 1, True)[1])
+    check_tensor('critic_values', 'cri_flat', cri_flat, (n_cri,), f32, dev)
+    check_tensor('critic_values', 'norm_avg', norm_avg, (S,), f32, dev)
+    check_tensor('critic_values', 'norm_std', norm_std, (S,), f32, dev)
+    check_tensor('critic_values', 'states', states, (H, S, N), f32, dev)
+    if values is None:
+        values = torch.empty((H, N), dtype=f32, device=dev)
+    check_tensor('critic_values', 'values', values, (H, N), f32, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.critic_values(ptr(cri_flat), ptr(norm_avg), ptr(norm_std), ptr(states),
+                            ptr(values), S, N, H, D1, D2, ctypes.c_void_p(stream)),
+          'critic_values')
+    critic_values.launches += 1
+    return values
+
+
+critic_values.launches = 0
+
+
 def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             norm_avg: torch.Tensor, norm_std: torch.Tensor,
             env_f: torch.Tensor, env_i: torch.Tensor, *,
@@ -535,9 +780,10 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                                  env_f, env_i, **kw)
     if act_flat.device.type != 'cuda':
         raise ValueError(f'rollout: unsupported device {act_flat.device}')
-    if KERNEL_ENV_BODIES.get(body.env_name) is not body:
+    stock = body.tables is not None
+    if not kernel_has_body(body):
         raise ValueError(f'rollout: the CUDA kernel implements the bodies of '
-                         f'{sorted(KERNEL_ENV_BODIES)}, not {body.env_name}')
+                         f'{kernel_bodies_text(body)}, not {body.env_name}')
     if len(net_dims) != 2:
         raise ValueError(f'rollout: the CUDA kernel takes 2 hidden layers, got {net_dims}')
     _check_noise_mode(noise, seed)
@@ -546,7 +792,11 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     H, N = int(horizon_len), env_f.shape[1]
     from ._cuda_build import check, check_tensor, ptr
     lib = _library()
-    smem = lib.fused_rollout_smem_bytes(S, A, D1, D2)
+    if stock:    # the actor-only rollout; the critic pass fills the values
+        stock_args = _stock_args(body, act_flat.device)
+        smem = lib.stock_rollout_smem_bytes(D1, D2)
+    else:
+        smem = lib.fused_rollout_smem_bytes(S, A, D1, D2)
     if smem > SMEM_LIMIT:
         raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
                          f'shared memory per block, more than the {SMEM_LIMIT} a '
@@ -583,15 +833,23 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         values=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.fused_rollout(
-        body.kernel_id,
-        ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
-        ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
-        *[ptr(t) for t in out],
-        N, H, D1, D2, ctypes.c_float(reward_scale), ctypes.c_void_p(stream))
+    if stock:
+        status = lib.stock_rollout(
+            ptr(act_flat), ptr(norm_avg), ptr(norm_std), ptr(env_f), ptr(env_i), ptr(noise),
+            ptr(seed), *[ptr(t) for t in out if t is not out.values], N, H, D1, D2,
+            ctypes.c_float(reward_scale), ctypes.byref(stock_args), ctypes.c_void_p(stream))
+    else:
+        status = lib.fused_rollout(
+            body.kernel_id,
+            ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
+            ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
+            *[ptr(t) for t in out],
+            N, H, D1, D2, ctypes.c_float(reward_scale), ctypes.c_void_p(stream))
     check(status, f'fused_rollout[{body.env_name}]')
     rollout.launches += 1
     rollout.launches_by_body[body.env_name] = rollout.launches_by_body.get(body.env_name, 0) + 1
+    if stock:
+        critic_values(cri_flat, norm_avg, norm_std, out.states, out.values, net_dims=(D1, D2))
     return out
 
 
@@ -615,6 +873,19 @@ def _library():
         lib.offpolicy_rollout.restype = ctypes.c_int
         lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
+        lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                                      + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        lib.stock_rollout.restype = ctypes.c_int
+        lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.stock_rollout_smem_bytes.restype = ctypes.c_int
+        lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.critic_values.restype = ctypes.c_int
+        lib.critic_values_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.critic_values_smem_bytes.restype = ctypes.c_int
+        lib.offpolicy_stock_rollout.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                                                + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
+                                                + [ctypes.c_void_p] * 2)
+        lib.offpolicy_stock_rollout.restype = ctypes.c_int
     return lib
 
 
@@ -710,9 +981,10 @@ def offpolicy_uniforms_per_step(body: KernelEnvBody, head: str) -> int:
 
 def offpolicy_pair_fits(body: KernelEnvBody, head: str) -> bool:
     """Whether the kernel has this (body, head) instantiation: the ddpg, sac
-    and modsac heads on the continuous bodies, the DQN heads on the discrete
-    ones."""
-    return (KERNEL_ENV_BODIES.get(body.env_name) is body and head in OFFPOLICY_HEADS
+    and modsac heads on the continuous bodies (the stock body built for
+    ``STOCK_KERNEL_STOCKS`` stocks among them), the DQN heads on the
+    discrete ones."""
+    return (kernel_has_body(body) and head in OFFPOLICY_HEADS
             and body.discrete == (head not in CONTINUOUS_HEADS))
 
 
@@ -813,6 +1085,9 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         return offpolicy_rollout_reference(flat, env_f, env_i, **kw)
     if flat.device.type != 'cuda':
         raise ValueError(f'offpolicy_rollout: unsupported device {flat.device}')
+    stock = body.tables is not None
+    if stock:
+        stock_args = _stock_args(body, flat.device)
     if not offpolicy_pair_fits(body, head):
         raise ValueError(f'offpolicy_rollout: the CUDA kernel has no instantiation for head '
                          f'{head!r} on {body.env_name}')
@@ -853,11 +1128,17 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         truncates=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.offpolicy_rollout(
-        body.kernel_id, OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i), ptr(noise),
-        ptr(seed), *[ptr(x) for x in out], N, H, D1, D2,
-        *[ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)],
-        ctypes.c_void_p(stream))
+    hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]
+    if stock:
+        status = lib.offpolicy_stock_rollout(
+            OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
+            *[ptr(x) for x in out], N, H, D1, D2, *hyper, ctypes.byref(stock_args),
+            ctypes.c_void_p(stream))
+    else:
+        status = lib.offpolicy_rollout(
+            body.kernel_id, OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i),
+            ptr(noise), ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, *hyper,
+            ctypes.c_void_p(stream))
     tag = f'{body.env_name},{head}'
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1

@@ -53,6 +53,16 @@ def smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int) -> int:
     return 4 * _TB * (ld(state_dim) + 2 * ld(d1) + 2 * ld(d2) + ld(action_dim))
 
 
+def fused_update_bytes(update_times: int, batch_size: int, state_dim: int,
+                       action_dim: int, n_params: int) -> int:
+    """The JAX package's reckoning of its fused update's VMEM residency
+    (``elegantrl_tpu/ops/pallas_update.py:fused_update_bytes``): the
+    minibatch blocks plus three copies of the parameters (p, mu, nu), f32.
+    Kept here only to copy that package's kernel eligibility."""
+    data = update_times * batch_size * (state_dim + action_dim + 4) * 4
+    return data + 3 * n_params * 4
+
+
 def adam_parts(opt_state):
     """(count, mu, nu) of an ``agents.base.AdamState``."""
     return opt_state.count, opt_state.mu, opt_state.nu

@@ -3,8 +3,12 @@
 
 Every ``eval_per_step`` training steps it runs ``eval_times`` greedy
 episodes side by side as one batch of envs (an episode is frozen once
-done), prints the ``ID Step Time | avgR stdR avgS stdS | expR objC objA``
-table, appends to ``recorder.npy`` and saves actor checkpoints.
+done; where the env has ``episode_return``, a finished episode reports that
+instead of its summed reward), prints the ``ID Step Time | avgR stdR avgS
+stdS | expR objC objA`` table (a trailing string in the logging tuple, the
+discrete action histogram, is printed after the numbers), appends to
+``recorder.npy``, saves actor checkpoints and, at the end of a run,
+``LearningCurve.jpg``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ def make_eval_fn(env: EnvDef, greedy_action: Callable, num_episodes: int,
                 for new, old in zip(new_state, state)])
             done = done | terminal | truncate
             obs = env.obs(state)
+        if env.episode_return is not None:   # e.g. the stock env's cumulative return
+            ret = torch.where(done, env.episode_return(state), ret)
         both = torch.stack([ret, steps.float()]).cpu().numpy()
         return both[0], both[1]
 
@@ -98,13 +104,17 @@ class Evaluator:
         avg_r, std_r = float(returns.mean()), float(returns.std())
         avg_s, std_s = float(ep_steps.mean()), float(ep_steps.std())
         used_time = int(time.time() - self.start_time)
-        self.recorder.append((self.total_step, avg_r, std_r, exp_r, *logging_tuple))
+        values = [v for v in logging_tuple if isinstance(v, (int, float))]
+        logging_str = logging_tuple[-1] if (logging_tuple and isinstance(
+            logging_tuple[-1], str)) else ''
+        self.recorder.append((self.total_step, avg_r, std_r, exp_r, *values))
         self.recorder_times.append(float(used_time))
         prev_max_r = self.max_r
         self.max_r = max(self.max_r, avg_r)
         print(f"{self.agent_id:<3}{self.total_step:8.2e}{used_time:8.0f} |"
               f"{avg_r:8.2f}{std_r:7.1f}{avg_s:7.0f}{std_s:6.0f} |"
-              f"{exp_r:8.2f}{''.join(f'{v:7.2f}' for v in logging_tuple)}", flush=True)
+              f"{exp_r:8.2f}{''.join(f'{v:7.2f}' for v in values)}{logging_str}",
+              flush=True)
 
         if not self.if_keep_save:
             return
@@ -130,3 +140,27 @@ class Evaluator:
             self.recorder = [tuple(r) for r in rec]
             if self.recorder:
                 self.total_step = int(self.recorder[-1][0])
+
+    def save_training_curve_jpg(self) -> None:
+        """Render ``LearningCurve.jpg``: avgR against the step, with the
+        band of one stdR.  Without matplotlib (not every machine has it)
+        nothing is drawn."""
+        if not self.recorder:
+            return
+        try:
+            import matplotlib
+            matplotlib.use('Agg')
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        rec = np.array(self.recorder, dtype=np.float64)
+        fig, ax = plt.subplots(figsize=(8, 5))
+        ax.plot(rec[:, 0], rec[:, 1], color='tab:blue', label='avgR')
+        ax.fill_between(rec[:, 0], rec[:, 1] - rec[:, 2], rec[:, 1] + rec[:, 2],
+                        color='tab:blue', alpha=0.25)
+        ax.set_xlabel('total step')
+        ax.set_ylabel('episode return')
+        ax.grid(alpha=0.4)
+        ax.legend()
+        fig.savefig(os.path.join(self.cwd, 'LearningCurve.jpg'), dpi=120)
+        plt.close(fig)

@@ -13,12 +13,14 @@ cumulative-return column when ``lambda_fit_cum_r != 0``) -> ``agent.update``
 on the buffer (the fused update chunks or the scan path, ``agents/dqn.py``,
 ``agents/ddpg_td3.py``, ``agents/sac.py``, ``agents/embed_dqn.py``).
 ``train_agent`` runs rounds on the host, evaluates every
-``eval_per_step`` env steps, stops at ``break_step``, ``break_score`` or a
-``{cwd}/stop`` file, and saves ``agent.npz`` and ``train_carry.npz`` (the
-whole carry: agent state with its H-term ring, replay buffer with its PER
-tree and cumulative-return column, env state, observations and generator;
-``continue_train`` resumes it) and, with ``if_save_buffer``,
-``replay_buffer.npz``.
+``eval_per_step`` env steps (on ``eval_env_class`` where given), stops at
+``break_step``, ``break_score`` or a ``{cwd}/stop`` file, and saves
+``agent.npz``, ``recorder.npy``, ``LearningCurve.jpg`` and
+``train_carry.npz`` (the whole carry: agent state with its H-term ring,
+replay buffer with its PER tree and cumulative-return column, env state,
+observations and generator; ``continue_train`` resumes it; off-policy only
+when the run is resumable, and then also every ``save_gap`` evaluation
+periods) and, with ``if_save_buffer``, ``replay_buffer.npz``.
 
 The agent state's parameters are updated in place (flat buffers), so a
 carry handed to ``round_fn`` shares its parameters with the one returned.
@@ -93,38 +95,67 @@ _OFFPOLICY_KERNEL_HEADS = {
 }
 
 
+def jax_rollout_block_chunk(body, discrete: bool, off_policy: bool, num_envs: int,
+                            horizon_len: int):
+    """The JAX runner's (block, chunk) for its rollout kernel on a TPU, or
+    None where no pair fits its VMEM budget and it runs the scan instead
+    (``elegantrl_tpu/train/runner.py:_maybe_pallas_rollout``, one chip, no
+    interpret mode): the rollout outputs of one (block, chunk) within 4 MiB
+    less the market tables; blocks of 2048 down to 128 envs (all envs below
+    128); chunks that divide the horizon and are multiples of 8 (or the
+    horizon itself); the first block that has a chunk wins.  A TPU figure
+    of that package, copied only to decide as it decides."""
+    S, A = body.state_dim, body.action_dim
+    rows = S + (1 if discrete else A) + (3 if off_policy else 5)
+    tab_bytes = body.tables.nbytes if body.tables is not None else 0
+    sizes = (num_envs,) if num_envs < 128 else (2048, 1024, 512, 256, 128)
+    cands = sorted({1024, 512, 256, 128, 64, 32, 16, 8, horizon_len}, reverse=True)
+    for b in sizes:
+        if num_envs % b or b > num_envs:
+            continue
+        ch = next((c for c in cands if c <= horizon_len and horizon_len % c == 0
+                   and rows * c * b * 4 <= 4 * 2 ** 20 - tab_bytes), None)
+        if ch is not None:
+            return b, ch
+    return None
+
+
 def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.device,
                          num_envs: int, horizon_len: int, reward_scale: float):
     """The fused rollout (``ops/fused_rollout.py``) when ``select_kernel``
-    takes it, else None (the generic ``collect_rollout``).  The JAX runner
-    takes its kernel (``elegantrl_tpu/train/runner.py:144-148``) for an env
-    with a registered body that matches the env's spec (PointChasing with
-    ``dim != 2`` does not), a 2-hidden-layer MLP, and (Discrete)PPO or
-    (Discrete)A2C as the env is discrete or not (A2C explores exactly as PPO
-    does), or an off-policy agent with a kernel head.  The port's kernel fits
-    when the weights fit one block and, off-policy, when it has the (body,
-    head) pair.  The on-policy agents have no PyTorch-ops rollout on a card,
-    so for them the JAX eligibility counts as taken (``select_kernel``), but
-    for ``AgentPPOHterm``, which the JAX runner keeps off its kernel: its
-    rollout is ``collect_rollout`` on either device."""
-    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT,
+    takes it, else None (the generic ``collect_rollout``, on either device).
+    The JAX runner takes its kernel (``elegantrl_tpu/train/runner.py:
+    _maybe_pallas_rollout``) for an env with a kernel body, its own
+    (``EnvDef.kernel_body``, the stock env) or a registered one, that matches
+    the env's spec (PointChasing with ``dim != 2`` does not), a 2-hidden-layer
+    MLP, and (Discrete)PPO or (Discrete)A2C as the env is discrete or not
+    (A2C explores exactly as PPO does; not ``AgentPPOHterm``), or an
+    off-policy agent with a kernel head, when a (block, chunk) fits its VMEM
+    budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
+    the weights fit one block (``rollout_fits``) and, off-policy, when it has
+    the (body, head) pair."""
+    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
-                                     offpolicy_pair_fits, offpolicy_smem_bytes, smem_bytes)
+                                     offpolicy_pair_fits, offpolicy_smem_bytes, rollout_fits)
     spec = env.spec
     net_dims = tuple(args.net_dims)
-    body = KERNEL_ENV_BODIES.get(spec.env_name)
+    body = env.kernel_body or KERNEL_ENV_BODIES.get(spec.env_name)
     if body is not None and (body.state_dim != spec.state_dim
                              or body.action_dim != spec.action_dim):
         body = None
     off_head = _OFFPOLICY_KERNEL_HEADS.get(agent.name)
+    bodies = kernel_bodies_text(body)
     if agent.if_off_policy:
-        jax_takes = body is not None and len(net_dims) == 2 and off_head is not None
+        jax_takes = (body is not None and len(net_dims) == 2 and off_head is not None
+                     and agent.rollout_extras is None
+                     and jax_rollout_block_chunk(body, spec.if_discrete, True, num_envs,
+                                                 horizon_len) is not None)
         fits = (jax_takes and offpolicy_pair_fits(body, off_head)
                 and offpolicy_smem_bytes(body.state_dim, net_dims, body.action_dim,
                                          off_head) <= SMEM_LIMIT)
         scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
                  f'2-hidden-layer MLP whose weights fit one block, on an env of '
-                 f'{sorted(KERNEL_ENV_BODIES)} at its body\'s dimensions whose action space '
+                 f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
                  f'net_dims={net_dims}')
         if not select_kernel(args, 'use_fused_rollout', jax_takes, fits, device, scope):
@@ -140,16 +171,16 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
             std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0))
     want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
                    else ('AgentPPO', 'AgentA2C'))
-    eligible = (body is not None and agent.name in want_agents
-                and len(net_dims) == 2
-                and smem_bytes(body.state_dim, net_dims, body.action_dim) <= SMEM_LIMIT)
+    jax_takes = (body is not None and agent.name in want_agents and len(net_dims) == 2
+                 and jax_rollout_block_chunk(body, spec.if_discrete, False, num_envs,
+                                             horizon_len) is not None)
     scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
-             f'weights fit one block, on an env of {sorted(KERNEL_ENV_BODIES)} at its '
+             f'weights fit one block, on an env of {bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
-    if not select_kernel(args, 'use_fused_rollout', agent.name != 'AgentPPOHterm', eligible,
-                         device, scope):
+    if not select_kernel(args, 'use_fused_rollout', jax_takes,
+                         jax_takes and rollout_fits(body, net_dims), device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
           f'net_dims={net_dims})', flush=True)
@@ -230,6 +261,9 @@ def build_training(args: Config) -> TrainContext:
             agent_state, metrics = agent.update(carry.agent_state, rollout, obs, carry.gen,
                                                 ids=ids)
         metrics = dict(metrics, exp_r=rollout.rewards.mean())
+        if agent.if_discrete:   # the action histogram of the eval line
+            metrics['action_hist'] = torch.bincount(rollout.actions.reshape(-1).long(),
+                                                    minlength=int(args.action_dim))
         return TrainCarry(agent_state, buf_state, env_state, obs, carry.gen), metrics
 
     carry = TrainCarry(agent_state, buf_state, env_state, obs, gen)
@@ -266,30 +300,62 @@ def _load_carry(path: str, carry: TrainCarry, agent: AgentDef, device) -> TrainC
                       env_state, t(tree['obs']), carry.gen)
 
 
+def _save_carry(path: str, carry: TrainCarry, agent: AgentDef) -> None:
+    """Write the carry through a temporary file, so no torn checkpoint is
+    ever left at ``path``."""
+    save_tree(path + '.tmp.npz', _carry_tree(carry, agent))
+    os.replace(path + '.tmp.npz', path)
+
+
 def train_agent(args: Config) -> dict:
-    """Train and evaluate; returns the recorder, final agent state and
-    throughput."""
+    """Train and evaluate; returns the recorder (with its wall times), final
+    agent state and throughput.  Evaluation runs on ``eval_env_class`` with
+    ``eval_env_args`` (default: the training env's args) where given, else on
+    the training env.  A resumable run (``continue_train`` or
+    ``if_save_buffer``) writes ``train_carry.npz`` every ``save_gap``
+    evaluation periods and at the end; an on-policy run always writes it at
+    the end, an off-policy one (whose carry holds the replay ring) only when
+    resumable."""
     args.init_before_training()
     ctx = build_training(args)
     carry, round_fn = ctx.carry, ctx.round_fn
-    evaluator = Evaluator(cwd=args.cwd, env=ctx.env, greedy_action=ctx.agent.greedy_action,
+    eval_env = ctx.env
+    if args.eval_env_class is not None:
+        eval_args = Config(args.agent_class, args.eval_env_class,
+                           args.eval_env_args or dict(args.env_args))
+        eval_env = _resolve_env_def(eval_args)
+    evaluator = Evaluator(cwd=args.cwd, env=eval_env, greedy_action=ctx.agent.greedy_action,
                           args=args, device=ctx.device)
     rounds_per_eval = max(1, int(args.eval_per_step) // ctx.steps_per_round)
     names = ('obj_critic', 'obj_actor', 'exp_r')
+    carry_path = os.path.join(args.cwd, 'train_carry.npz')
+    resumable = bool(args.continue_train or args.if_save_buffer)
+    carry_gap = max(1, int(getattr(args, 'save_gap', 8)))
 
     total_step = 0
+    periods = 0
     t_start = time.time()
     if_train = True
     while if_train:
-        packs = []
+        packs, hist = [], 0
         for _ in range(rounds_per_eval):
             carry, metrics = round_fn(carry)
             packs.append(torch.stack([metrics[k].float() for k in names]))
+            if 'action_hist' in metrics:
+                hist = hist + metrics['action_hist']
         # one host transfer per evaluation period
         obj_c, obj_a, exp_r = torch.stack(packs).mean(0).tolist()
+        logging_tuple = (obj_c, obj_a)
+        if ctx.agent.if_discrete:
+            counts = hist.cpu().numpy()
+            frac = counts / max(counts.sum(), 1)
+            logging_tuple += (' a:' + ' '.join(f'{f:.2f}' for f in frac),)
         steps = ctx.steps_per_round * rounds_per_eval
-        evaluator.evaluate_and_save(carry.agent_state, steps, exp_r, (obj_c, obj_a),
+        evaluator.evaluate_and_save(carry.agent_state, steps, exp_r, logging_tuple,
                                     ctx.agent.state_to_numpy)
+        periods += 1
+        if resumable and periods % carry_gap == 0:
+            _save_carry(carry_path, carry, ctx.agent)
         total_step += steps
         if_train = (total_step <= args.break_step
                     and evaluator.max_r < args.break_score
@@ -298,12 +364,15 @@ def train_agent(args: Config) -> dict:
     used_time = time.time() - t_start
     print(f'| UsedTime: {used_time:>7.0f} | SavedDir: {args.cwd}', flush=True)
     evaluator.save_or_load_recorder(if_save=True)
+    evaluator.save_training_curve_jpg()
     save_tree(os.path.join(args.cwd, 'agent.npz'), ctx.agent.state_to_numpy(carry.agent_state))
-    save_tree(os.path.join(args.cwd, 'train_carry.npz'), _carry_tree(carry, ctx.agent))
+    if ctx.rb is None or resumable:
+        _save_carry(carry_path, carry, ctx.agent)
     if args.if_save_buffer and ctx.rb is not None:
         ctx.rb.save_or_load_history(carry.buf_state, args.cwd, if_save=True)
     return {
         'recorder': np.array(evaluator.recorder, dtype=np.float64),
+        'recorder_times': np.array(evaluator.recorder_times, dtype=np.float64),
         'agent_state': carry.agent_state,
         'total_step': total_step,
         'used_time': used_time,

@@ -3,7 +3,7 @@
     python scripts/torch_profile_round.py [--rounds 5] [--env pendulum|cartpole|hopper|
         chasing|chasing_discrete] [--agent AgentPPO|AgentDiscretePPO|AgentA2C|AgentDiscreteA2C]
     python scripts/torch_profile_round.py --path td3_hopper|dqn_cartpole|sac_hopper|
-        td3_per_hopper [--rounds 5]
+        td3_per_hopper|ppo_stock|ppo_stock_4k [--rounds 5]
 
 Builds a main path (by default PPO on Pendulum-v1; ``--env cartpole --agent
 AgentDiscretePPO`` is the discrete one) at 4096 envs, horizon 64, batch
@@ -20,7 +20,11 @@ HopperSlip-v0, 1024 envs, horizon 32, ring 4000 rows, batch 1024, repeat 4,
 round), ``sac_hopper`` (SAC on HopperSlip-v0 at td3_hopper's sizes, 4
 critic heads) or ``td3_per_hopper`` (td3_hopper with prioritised replay: the
 PER variant of the DDPG/TD3 chunk and the priority tree's ops), net (128,
-128), and runs rounds until the ring is full before the profiled ones.
+128), and runs rounds until the ring is full before the profiled ones; or
+PPO on StockTradingEnv-v2 at the ``ppo_stock`` recipe's shape (256 envs,
+horizon 128, batch 512, repeat 8: the stock rollout kernel, its critic pass
+and the fused update) or ``ppo_stock_4k``'s (4096 envs, batch 4096, repeat
+64: the autograd update).
 """
 
 import argparse
@@ -40,12 +44,16 @@ ENVS = {'pendulum': ('PendulumEnv', 'Pendulum-v1', 200, 3, 1, False),
         'hopper': ('HopperEnv', 'HopperSlip-v0', 1000, 6, 2, False),
         'chasing': ('PointChasingVecEnv', 'PointChasingVecEnv', 1024, 8, 2, False),
         'chasing_discrete': ('PointChasingDiscreteEnv', 'PointChasingDiscreteEnv', 1024, 8, 9,
-                             True)}
+                             True),
+        'stock': ('StockTradingVecEnv', 'StockTradingEnv-v2', 1112, 151, 15, False)}
 # off-policy main path -> (agent, env key, envs, horizon, ring rows, batch, repeat, lr, gamma)
 PATHS = {'td3_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
          'dqn_cartpole': ('AgentDQN', 'cartpole', 64, 64, 20000, 128, 1.0, 1e-3, 0.99),
          'sac_hopper': ('AgentSAC', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
-         'td3_per_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99)}
+         'td3_per_hopper': ('AgentTD3', 'hopper', 1024, 32, 4000, 1024, 4.0, 3e-4, 0.99),
+         # on-policy (no ring): the ppo_stock and ppo_stock_4k recipes
+         'ppo_stock': ('AgentPPO', 'stock', 256, 128, None, 512, 8.0, 2e-4, 0.99),
+         'ppo_stock_4k': ('AgentPPO', 'stock', 4096, 128, None, 4096, 64.0, 2e-4, 0.99)}
 
 
 def main():
@@ -77,7 +85,9 @@ def main():
     args.horizon_len, args.batch_size, args.repeat_times = horizon, batch, repeat
     args.net_dims, args.random_seed = (128, 128), 0
     if opts.path:
-        args.buffer_size, args.learning_rate, args.gamma = ring, lr, gamma
+        args.learning_rate, args.gamma = lr, gamma
+        if ring is not None:
+            args.buffer_size = ring
         args.if_use_per = opts.path == 'td3_per_hopper'
     ctx = build_training(args)
     carry = ctx.carry

@@ -12,6 +12,15 @@ On-policy:
   450; target max avgR >= 400;
 - ``ppo_hopper``: AgentPPO on HopperSlip-v0, 1024 envs, net (128, 128),
   horizon 128, repeat 128, lr 3e-4, batch 2048, 1.5e7 steps; target 2000;
+- ``ppo_stock``: AgentPPO on StockTradingEnv-v2, 256 envs, net (128, 128),
+  gamma 0.99, horizon 128, repeat 8, lr 2e-4, batch 512, 2e6 steps; target
+  a max cumulative return of 100.0 (the evaluator reports the env's
+  ``cumulative_returns``, 100 x final asset over initial cash); the rollout
+  takes the stock body's kernel and the update the fused update kernel;
+- ``ppo_stock_4k``: the same at 4096 envs, repeat 64, batch 4096, 2e7
+  steps, eval every 4e6; the rollout kernel with an autograd update (batch
+  4096 is outside the JAX package's fused update)
+  (``scripts/verify_learning.py:170-178, 313-321``);
 - ``a2c_pendulum``: AgentA2C on Pendulum-v1, 16 envs, net (64, 64), gamma
   0.9, horizon 8, one pass, lr 7e-4, batch 8, lambda_gae_adv 1, no entropy
   term, 5e5 steps; target -250.  The JAX recipe pins seed 2 because
@@ -49,6 +58,11 @@ Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
 
 Evaluation is over 16 greedy episodes, as the JAX script's.  Prints one JSON
 line per (recipe, seed) with the result, the device and the kernel launches.
+The stock recipes' lines also hold ``market``: what every evaluation would
+have read for a holding policy (zero actions, all in the 0.1 dead zone, so
+no trade) on the same episodes, and the trained policy's return and share
+of actions outside the dead zone on the first evaluation's episodes; a
+policy that learned to trade beats holding there.
 """
 
 import argparse
@@ -84,7 +98,9 @@ def recipes():
                                             AgentDuelingDQN, AgentEmbedDQN, AgentModSAC,
                                             AgentPPO, AgentPPOHterm, AgentSAC, AgentSACHterm,
                                             AgentTD3)
-    from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv
+    from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv, StockTradingVecEnv
+    stock = {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 1112,
+             'state_dim': 151, 'action_dim': 15, 'if_discrete': False}
     return {
         'td3_pendulum': (AgentTD3, PendulumEnv, PENDULUM, -150.0, OFFPOL_PEND),
         'ddpg_pendulum': (AgentDDPG, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
@@ -124,6 +140,16 @@ def recipes():
             dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=128,
                  learning_rate=3e-4, batch_size=2048, eval_per_step=int(1e6),
                  break_step=int(1.5e7))),
+        'ppo_stock': (
+            AgentPPO, StockTradingVecEnv, stock, 100.0,
+            dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=8,
+                 learning_rate=2e-4, batch_size=512, eval_per_step=int(4e5),
+                 break_step=int(2e6))),
+        'ppo_stock_4k': (
+            AgentPPO, StockTradingVecEnv, dict(stock, num_envs=4096), 100.0,
+            dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=64,
+                 learning_rate=2e-4, batch_size=4096, eval_per_step=int(4e6),
+                 break_step=int(2e7))),
         'a2c_pendulum': (
             AgentA2C, PendulumEnv,
             {'env_name': 'Pendulum-v1', 'num_envs': 16, 'max_step': 200, 'state_dim': 3,
@@ -132,6 +158,41 @@ def recipes():
                  learning_rate=7e-4, batch_size=8, lambda_gae_adv=1.0, lambda_entropy=0.0,
                  eval_per_step=int(5e4), break_step=int(5e5))),
     }
+
+
+def market_check(args, agent_state, evaluations: int) -> dict:
+    """Holding against the trained greedy policy on the evaluator's episodes:
+    its generator, seeded as the evaluator seeds it, draws each evaluation's
+    episodes in turn (the stock env's draws do not depend on the actions)."""
+    import torch
+    from elegantrl_tpu_torch.config import build_env
+    from elegantrl_tpu_torch.train.evaluator import make_eval_fn
+    env = build_env(args.env_class, args.env_args)._def
+    make = getattr(args.agent_class, 'make', None) or args.agent_class
+    greedy = make(args.net_dims, args.state_dim, args.action_dim, args, buffer=None).greedy_action
+    device = agent_state.act_flat.device
+    counts = torch.zeros(2, device=device)      # actions outside the dead zone, all actions
+
+    def counted(s, obs):
+        a = greedy(s, obs)
+        counts[0] += (a.abs() >= 0.1).sum()
+        counts[1] += a.numel()
+        return a
+
+    def hold(s, obs):
+        return torch.zeros((obs.shape[0], args.action_dim), device=obs.device)
+
+    def runs(policy, n):
+        fn = make_eval_fn(env, policy, args.eval_times, args.max_step, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(args.random_seed) + 1943)
+        return [float(fn(agent_state, gen)[0].mean()) for _ in range(n)]
+
+    hold_curve = runs(hold, evaluations)
+    policy_first = runs(counted, 1)[0]
+    return {'hold_curve': [round(r, 2) for r in hold_curve], 'hold_max': max(hold_curve),
+            'first_episodes': {'hold': hold_curve[0], 'policy': policy_first,
+                               'policy_trade_share': float(counts[0] / counts[1])}}
 
 
 def main():
@@ -144,11 +205,11 @@ def main():
     import torch
     from elegantrl_tpu_torch import Config, train_agent
     from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk, sac_chunk
-    from elegantrl_tpu_torch.ops.fused_rollout import offpolicy_rollout, rollout
+    from elegantrl_tpu_torch.ops.fused_rollout import critic_values, offpolicy_rollout, rollout
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
-    counted = {'fused_rollout': rollout, 'offpolicy_rollout': offpolicy_rollout,
-               'ppo_update': ppo_update, 'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk,
-               'sac_update': sac_chunk}
+    counted = {'fused_rollout': rollout, 'critic_values': critic_values,
+               'offpolicy_rollout': offpolicy_rollout, 'ppo_update': ppo_update,
+               'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk, 'sac_update': sac_chunk}
 
     if opts.device == 'cuda':
         device = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -170,6 +231,9 @@ def main():
                 t0 = time.time()
                 res = train_agent(args)
                 seconds = time.time() - t0
+            extra = {}
+            if env_args['env_name'] == 'StockTradingEnv-v2':
+                extra['market'] = market_check(args, res['agent_state'], len(res['recorder']))
             print(json.dumps({
                 'config': name, 'agent': agent_class.__name__, 'env': env_args['env_name'],
                 'device': device, 'seed': seed, 'max_r': float(res['max_r']),
@@ -177,7 +241,7 @@ def main():
                 'curve': [[int(r[0]), round(float(r[1]), 1)] for r in res['recorder']],
                 'steps': int(res['total_step']), 'seconds': round(seconds, 1),
                 'kernel_launches': {k: fn.launches - before[k] for k, fn in counted.items()
-                                    if fn.launches > before[k]}}),
+                                    if fn.launches > before[k]}, **extra}),
                 flush=True)
 
 

@@ -139,7 +139,7 @@ def test_param_shapes_drop_std_log_when_discrete():
     for discrete, want in ((True, 0.01), (False, 0.001)):
         seen = {}
         args = Config()
-        args.device = 'cpu'
+        args.device, args.batch_size = 'cpu', 128   # a batch the fused update takes
         import elegantrl_tpu_torch.agents.ppo as ppo_mod
         orig = ppo_mod.make_ppo_fused_update
         ppo_mod.make_ppo_fused_update = lambda *a, **k: seen.update(k) or (lambda *x: (x[0], {}))

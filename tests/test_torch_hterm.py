@@ -292,8 +292,10 @@ def test_hterm_rollout_path_as_jax(agent_class, fused):
 
 
 def test_hterm_ring_resumes_with_the_carry(tmp_path):
-    """``train_agent`` saves the H-term ring in ``train_carry.npz``;
-    ``continue_train`` restores it, ``ptr`` and ``count`` included."""
+    """``train_agent`` saves the H-term ring in ``train_carry.npz`` (an
+    off-policy run writes the carry when it is resumable: here
+    ``if_save_buffer``); ``continue_train`` restores it, ``ptr`` and
+    ``count`` included."""
     from elegantrl_tpu_torch import train_agent
 
     def args_for(resume):
@@ -306,7 +308,9 @@ def test_hterm_ring_resumes_with_the_carry(tmp_path):
         a.cwd, a.continue_train = str(tmp_path), resume
         return a
 
-    out = train_agent(args_for(False))['agent_state'].h_buf
+    first = args_for(False)
+    first.if_save_buffer = True
+    out = train_agent(first)['agent_state'].h_buf
     assert out.count == 8 and out.ptr == 0              # two rounds of 4 windows
     resumed = build_training(args_for(True)).carry.agent_state.h_buf
     for a, b in zip(out, resumed):

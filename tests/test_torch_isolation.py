@@ -30,7 +30,7 @@ print(len(names), bad)
 def test_imports_load_no_jax():
     out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 31, out    # the off-policy and prioritised-replay modules among them
+    assert int(out[0]) >= 32, out    # the off-policy, PER and stock modules among them
     assert out[1:] == ['[]'], out
 
 
@@ -40,6 +40,10 @@ def test_off_policy_modules_are_probed():
              'agents.embed_dqn'}
     for name in names:
         assert os.path.isfile(os.path.join(PKG, *name.split('.')) + '.py'), name
+
+
+def test_stock_module_is_probed():
+    assert os.path.isfile(os.path.join(PKG, 'envs', 'stock_trading.py'))
 
 
 def _sources():

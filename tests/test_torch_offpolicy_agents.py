@@ -253,6 +253,7 @@ def test_train_agent_two_periods(agent_class, batch):
     with tempfile.TemporaryDirectory() as cwd:
         args = _round_args(Config, agent_class, env_class, env_args, {})
         args.device, args.cwd, args.batch_size, args.eval_times = 'cpu', cwd, batch, 2
+        args.if_save_buffer = True     # an off-policy run writes its carry when resumable
         args.eval_per_step = H * N
         args.break_step = H * N
         res = train_agent(args)

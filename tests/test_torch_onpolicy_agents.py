@@ -197,11 +197,16 @@ def test_greedy_cartpole_episodes_end_early(tmp_path):
 
 # -------------------------------------------------------- kernel selection
 
-def _as_if_on_a_card(monkeypatch):
-    """``build_training`` sees a CUDA device; the kernel selection raises
-    before any tensor is made there."""
+def _rollout_on_a_card(args):
+    """The rollout ``build_training`` would choose on a CUDA device (made
+    before any tensor is): the kernel's ``rollout_fn``, or None."""
     from elegantrl_tpu_torch.train import runner
-    monkeypatch.setattr(runner, 'resolve_device', lambda args: torch.device('cuda'))
+    env = runner._resolve_env_def(args)
+    for k in ('state_dim', 'action_dim', 'if_discrete'):
+        setattr(args, k, getattr(env.spec, k))
+    agent = runner._make_agent(args, None)
+    return runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
+                                       args.horizon_len, 1.0)
 
 
 @pytest.mark.parametrize('agent_class,env_key,fused', [
@@ -209,8 +214,7 @@ def _as_if_on_a_card(monkeypatch):
     (AgentA2C, 'hopper', True), (AgentPPO, 'chasing', True),
     (AgentPPO, 'cartpole', False),            # a continuous agent on a discrete env
     (AgentDiscretePPO, 'pendulum', False)])   # and the reverse
-def test_fused_rollout_eligibility_follows_agent_and_env(agent_class, env_key, fused,
-                                                         monkeypatch):
+def test_fused_rollout_eligibility_follows_agent_and_env(agent_class, env_key, fused):
     env_class, env_args = ENVS[env_key]
     args = _args(Config, agent_class, env_class, env_args, 128)
     args.device = 'cpu'
@@ -220,15 +224,14 @@ def test_fused_rollout_eligibility_follows_agent_and_env(agent_class, env_key, f
     args.use_fused_rollout = True
     with pytest.raises(ValueError, match='use_fused_rollout=True requires'):
         build_training(args)
+    # the JAX package runs this rollout as XLA ops: the generic rollout, on a card too
     args.use_fused_rollout, args.device = 'auto', 'cuda'
-    _as_if_on_a_card(monkeypatch)
-    with pytest.raises(ValueError, match='use_fused_rollout: on cuda'):
-        build_training(args)
+    assert _rollout_on_a_card(args) is None
 
 
-def test_point_chasing_other_dim_has_no_body(monkeypatch):
+def test_point_chasing_other_dim_has_no_body():
     """The chasing bodies are fixed to dim 2: dim 3 runs the generic
-    rollout on the CPU and is refused on a card."""
+    rollout, on the CPU and on a card, as the JAX package runs its scan."""
     env_args = dict(ENVS['chasing'][1], state_dim=12, action_dim=3, dim=3)
     args = _args(Config, AgentPPO, PointChasingVecEnv, env_args, 128)
     args.device = 'cpu'
@@ -237,9 +240,7 @@ def test_point_chasing_other_dim_has_no_body(monkeypatch):
     _, m = ctx.round_fn(ctx.carry)
     assert np.isfinite(float(m['obj_critic']))
     args.device = 'cuda'
-    _as_if_on_a_card(monkeypatch)
-    with pytest.raises(ValueError, match='use_fused_rollout: on cuda'):
-        build_training(args)
+    assert _rollout_on_a_card(args) is None
 
 
 @pytest.mark.parametrize('discrete', [False, True])
@@ -249,6 +250,7 @@ def test_update_kernel_selection_on_a_card(discrete):
     only an explicit request for the kernel is refused."""
     args = Config()
     args.device, args.net_dims, args.use_fused_update = 'cuda', (16, 16), False
+    args.batch_size = 128                  # a batch the JAX package's kernel takes
     with pytest.raises(ValueError, match='use_fused_update=False .* CPU only'):
         make_ppo((16, 16), 4, 2, args, discrete=discrete)
     agent = make_ppo((16, 16), 4, 2, args, discrete=discrete, a2c=True)

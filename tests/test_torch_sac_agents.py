@@ -224,6 +224,7 @@ def test_train_agent_two_periods(agent_class):
         args = _round_args(Config, agent_class, env_class, env_args)
         args.device, args.cwd, args.eval_times = 'cpu', cwd, 2
         args.batch_size = 64 if modsac else BATCH
+        args.if_save_buffer = True     # an off-policy run writes its carry when resumable
         args.eval_per_step = args.break_step = H * N
         res = train_agent(args)
         assert res['recorder'].shape[0] == 2 and np.isfinite(res['recorder'][:, 1:]).all()

@@ -179,7 +179,7 @@ def _as_if_on_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize('flag', ['use_fused_rollout', 'use_fused_update'])
-def test_explicit_kernel_request_raises_on_ineligible(flag, monkeypatch):
+def test_explicit_kernel_request_raises_on_ineligible(flag, monkeypatch, capsys):
     args = _configure(Config(AgentPPO, PendulumEnv, dict(ENV_ARGS)))
     args.device, args.net_dims = 'cpu', (16, 16, 16)      # 3 hidden layers
     setattr(args, flag, True)
@@ -189,13 +189,20 @@ def test_explicit_kernel_request_raises_on_ineligible(flag, monkeypatch):
     ctx = build_training(args)
     _, m = ctx.round_fn(ctx.carry)
     assert np.isfinite(float(m['obj_critic']))
-    # on a card 'auto' raises for a workload outside this kernel's scope
-    # (K1's weights at (256, 256) exceed one block; K2 takes 2 hidden layers)
     args.device = 'cuda'
-    args.net_dims = {'use_fused_rollout': (256, 256), 'use_fused_update': (16, 16, 16)}[flag]
     _as_if_on_a_card(monkeypatch)
-    with pytest.raises(ValueError, match=f'{flag}: on cuda'):
-        build_training(args)
+    if flag == 'use_fused_rollout':
+        # on a card 'auto' raises for a workload the JAX package sends to its
+        # kernel but this kernel does not fit: K1's weights at (256, 256)
+        # exceed one block
+        args.net_dims = (256, 256)
+        with pytest.raises(ValueError, match=f'{flag}: on cuda'):
+            build_training(args)
+    else:
+        # a 3-layer update is XLA ops in the JAX package: autograd on a card too
+        capsys.readouterr()
+        AgentPPO.make((16, 16, 16), 3, 1, args)
+        assert 'use_fused_update: PyTorch path' in capsys.readouterr().out
 
 
 @pytest.mark.parametrize('flag', ['use_fused_rollout', 'use_fused_update'])
