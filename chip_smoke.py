@@ -5,7 +5,8 @@
 Drives ``elegantrl_tpu_torch``'s main paths on the card (PPO on Pendulum-v1,
 discrete PPO on CartPole-v1, TD3, SAC and TD3 with prioritised replay on
 HopperSlip-v0, DQN on CartPole-v1, PPO on StockTradingEnv-v2 at ``ppo_stock``
-and ``ppo_stock_4k``) and holds each hand-written kernel against its plain
+and ``ppo_stock_4k``, PPO on LunarLanderContinuous-v2 and DQN on
+LunarLander-v2) and holds each hand-written kernel against its plain
 PyTorch version:
 
 1. device: name and power limit (``nvidia-smi``); TF32 off;
@@ -69,7 +70,24 @@ PyTorch version:
     updates) and the ``ppo_stock_4k`` one (10 K4 rollouts and critic passes,
     the autograd update, 0 K2); ``train_agent`` for PPO (the evaluator
     reporting ``cumulative_returns``), TD3, SAC and ModSAC on the stock env;
-14. the kernels line and the device line.
+14. LunarLander and the kernels of ``ops/kernels.py`` (``lunar_phases``):
+    K10, the V-trace recursion, bitwise against its plain loop at 256 x 64,
+    64 x 4096 and 37 x 1000 (``k10_vs_plain``); K11a, the replay gather,
+    bitwise against ``buf[ids0, ids1]`` at ``dqn_lunarlander``'s row gather
+    and path D's chunk gather, for f32 rows, int32 actions, dim-1 columns and
+    the next-state offset, with that call's time as the library yardstick
+    (``k11a_vs_plain``); K11b, the fused 3-layer MLP forward, within 1e-5 of
+    the largest plain output at (8, 128, 128, 2) for B = 64 and 16,384 and
+    at (8, 256, 256, 4) for B = 64 (``k11b_vs_plain``); K2 at S = 8, A = 2,
+    U = 8 (``k2_vs_plain_lunar``) and K9 at (256, 256), B = 256
+    (``k9_vs_plain_lunar``, with the other K9 checks); the
+    ``ppo_lunarlander_cont`` and ``dqn_lunarlander`` main paths, 10 rounds
+    each (the DQN ring filled with transitions drawn from a seed), with
+    every kernel's launches counted; ``train_agent`` for PPO (through
+    ``train_agent_single_process``), DQN and D3QN on LunarLander, and
+    ``valid_agent`` on the saved D3QN agent against the trained state's
+    greedy episodes;
+15. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -433,12 +451,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                 1e-3 * torch.randn(n, generator=gen, device=dev),
                 1e-6 * torch.rand(n, generator=gen, device=dev)][:count]
 
-    k9 = {}
-    S, A, B = 4, 2, PATH_B['batch']
-    for twin, duel in ((False, False), (True, False), (False, True), (True, True)):
+    def k9_check(S, A, B, net, twin, duel, phase):
+        """K9 against its plain version for one variant at (S, A, B, net)."""
+        n1, n2 = net
         variant = fo.dqn_variant(twin, duel)
         g = torch.Generator(device=dev).manual_seed(41)
-        P = sum(math.prod(x) for x in dqn_param_shapes(S, OFF_NET, A, twin, duel))
+        P = sum(math.prod(x) for x in dqn_param_shapes(S, net, A, twin, duel))
         base = warm_buffers(g, P, 4)
         index = torch.randint(0, A, (C, B), generator=g, device=dev)
         blocks = [torch.randn((C, S, B), generator=g, device=dev),
@@ -450,16 +468,22 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         idx = torch.arange(C, device=dev)
         res = chunk_check(fo.dqn_chunk, fo.dqn_chunk_reference, base, blocks,
                           lambda valid: fo.dqn_bcv(5, idx, valid),
-                          dict(net_dims=OFF_NET, twin=twin, duel=duel, gamma=0.99, tau=5e-3,
+                          dict(net_dims=net, twin=twin, duel=duel, gamma=0.99, tau=5e-3,
                                lr=1e-3, clip_grad=3.0),
-                          [dqn_param_shapes(S, OFF_NET, A, twin, duel)] * 4)
+                          [dqn_param_shapes(S, net, A, twin, duel)] * 4)
         nh = A * (1 + twin) + (1 + twin) * duel
-        fwd = 2 * B * (S * D1 + D1 * D2 + D2 * nh)
+        fwd = 2 * B * (S * n1 + n1 * n2 + n2 * nh)
         b_ms, b_by = bound(4 * fwd * C, 4 * (8 * P + C * B * (2 * S + A + 3) + 3 * C + 2 * C))
         res.update(bound_ms=b_ms, bound_by=b_by)
-        emit(phase='k9_vs_plain', variant=variant, C=C, valid=VALID, B=B, S=S, A=A, **res,
-             tolerance={'update': 5e-3, 'objectives': 1e-3})
-        k9[variant] = res
+        emit(phase=phase, variant=variant, C=C, valid=VALID, B=B, S=S, A=A, net_dims=net,
+             **res, tolerance={'update': 5e-3, 'objectives': 1e-3})
+        return variant, res
+
+    k9 = dict(k9_check(4, 2, PATH_B['batch'], OFF_NET, twin, duel, 'k9_vs_plain')
+              for twin, duel in ((False, False), (True, False), (False, True), (True, True)))
+    # dqn_lunarlander's and d3qn_lunarlander's chunk: (256, 256), B = 256, S = 8, A = 4
+    k9_lunar = dict(k9_check(8, 4, 256, (256, 256), twin, duel, 'k9_vs_plain_lunar')
+                    for twin, duel in ((False, False), (True, True)))
 
     k7 = {}
     S, A, B = 6, 2, PATH_A['batch']
@@ -1042,7 +1066,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
                         'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
                         'library_ms': None})
-    return kernels
+    return kernels, k9_lunar
 
 
 # ------------------------------------------------------------- StockTrading
@@ -1542,6 +1566,283 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     return kernels
 
 
+# ---------------------------------------------------------------- LunarLander
+
+LUNAR_PPO = dict(envs=64, horizon=256, batch=512, repeat=16.0, lr=3e-4, net=(128, 128))
+LUNAR_DQN = dict(envs=64, horizon=64, buffer=30000, batch=256, repeat=1.0, lr=5e-4,
+                 net=(256, 256), explore_rate=0.2, updates=117)
+
+
+def synthetic_ring(torch, rb, buf):
+    """A full ring of transitions drawn on the card from a seed (a round's
+    time does not depend on their values): states and rewards normal,
+    actions uniform over the discrete actions, 2% terminal."""
+    g = torch.Generator(device=buf.states.device).manual_seed(5)
+    buf.states.normal_(generator=g)
+    buf.rewards.normal_(generator=g)
+    buf.undones.copy_((torch.rand(buf.undones.shape, generator=g, device=g.device)
+                       > 0.02).float())
+    buf.unmasks.fill_(1.0)
+    buf.actions.copy_(torch.randint(0, rb.action_dim, buf.actions.shape, generator=g,
+                                    device=g.device, dtype=buf.actions.dtype))
+    return buf._replace(ptr=0, size=rb.max_size)
+
+
+def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
+    """K10, K11a and K11b against their plain versions, and the LunarLander
+    paths; returns their entries of the kernels line (with K2 at S = 8, A = 2,
+    U = 8 and K9 at (256, 256), whose checks ran with the other kernels')."""
+    from elegantrl_tpu_torch import (Config, build_training, train_agent,
+                                     train_agent_single_process, valid_agent)
+    from elegantrl_tpu_torch.agents import AgentD3QN, AgentDQN, AgentPPO
+    from elegantrl_tpu_torch.envs import LunarLanderContinuousEnv, LunarLanderEnv
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, kernels as kn
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.ops.nets import mlp_init
+    from elegantrl_tpu_torch.train.evaluator import make_eval_fn
+    src = 'elegantrl_tpu_torch/ops/csrc/kernels.cu'
+    replaces = 'elegantrl_tpu/ops/pallas_kernels.py:'
+
+    def cuda_ms_(fn, reps, warmup=1):
+        return cuda_ms(torch, fn, reps, warmup)
+
+    # ---- K10: bitwise equal to the plain loop (the same f32 operations in
+    # the same order, no FMA contraction)
+    k10 = {}
+    for H, N in ((LUNAR_PPO['horizon'], LUNAR_PPO['envs']), (64, 4096), (37, 1000)):
+        g = torch.Generator(device=dev).manual_seed(H * N)
+        r = torch.randn((H, N), generator=g, device=dev)
+        u = (torch.rand((H, N), generator=g, device=dev) > 0.02).float()
+        v = torch.randn((H, N), generator=g, device=dev)
+        nv = torch.randn(N, generator=g, device=dev)
+        got = kn.gae_vtrace_kernel(r, u, v, nv, 0.99, 0.95)
+        want = kn.gae_vtrace_reference(r, u, v, nv, 0.99, 0.95)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert torch.equal(got, want), ('K10 differs from its plain version', H, N, err)
+        ms = cuda_ms_(lambda: kn.gae_vtrace_kernel(r, u, v, nv, 0.99, 0.95), reps=50, warmup=3)
+        plain = cuda_ms_(lambda: kn.gae_vtrace_reference(r, u, v, nv, 0.99, 0.95), reps=5)
+        # r, u, v read and adv written once; 7 f32 operations a cell
+        b_ms, b_by = bound(7 * H * N, 4 * (4 * H * N + N))
+        k10[(H, N)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k10_vs_plain', H=H, N=N, bitwise_equal=True, **k10[(H, N)],
+             library_ms=None, tolerance='exact')
+
+    # ---- K11a: bitwise equal to buf[ids0, ids1]; the library yardstick is
+    # that one PyTorch call
+    k11a = {}
+    g = torch.Generator(device=dev).manual_seed(12)
+    ring_d = torch.randn((4000, 1024, 6), generator=g, device=dev)
+    rew_d = torch.randn((4000, 1024), generator=g, device=dev)
+    ids0_d = torch.randint(0, 3999, (16, 1024), generator=g, device=dev)
+    ids1_d = torch.randint(0, 1024, (16, 1024), generator=g, device=dev)
+    ring_l = torch.randn((30000, 64, 8), generator=g, device=dev)
+    act_l = torch.randint(0, 4, (30000, 64), generator=g, device=dev, dtype=torch.int32)
+    rows = torch.randint(0, 29999, (16, 4), generator=g, device=dev)
+    ids0_l = rows[..., None].expand(16, 4, 64).reshape(16, 256)
+    ids1_l = torch.arange(64, device=dev).expand(16, 4, 64).reshape(16, 256)
+    cases = {'dqn_lunarlander_rows': (ring_l, ids0_l, ids1_l, [(act_l, 0), (ring_l, 1)]),
+             'path_d_chunk': (ring_d, ids0_d, ids1_d, [(rew_d, 0), (ring_d, 1)])}
+    for case, (ring, i0, i1, others) in cases.items():
+        for buf, off in [(ring, 0)] + others:
+            got = kn.buffer_gather(buf, i0, i1, off)
+            want = buf[i0 + off, i1]
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ('K11a differs from buf[ids0, ids1]', case, off,
+                                            buf.dtype, tuple(buf.shape))
+        ms = cuda_ms_(lambda: kn.buffer_gather(ring, i0, i1), reps=50, warmup=3)
+        plain = cuda_ms_(lambda: kn.buffer_gather_reference(ring, i0, i1), reps=50, warmup=3)
+        library = cuda_ms_(lambda: ring[i0, i1], reps=50, warmup=3)
+        row_bytes = ring.shape[2] * 4
+        b_ms, b_by = bound(0, i0.numel() * (2 * row_bytes + 2 * 8))
+        k11a[case] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=library,
+                          bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k11a_vs_plain', case=case, ring=tuple(ring.shape), ids=tuple(i0.shape),
+             fields='states, next states (offset 1), and ' + (
+                 'int32 actions' if case.startswith('dqn') else 'rewards (dim 1)'),
+             bitwise_equal=True, **k11a[case], tolerance='exact')
+
+    # ---- K11b: within 1e-5 of the largest plain output (FP32 products
+    # summed in another order than cuBLAS's, TF32 off; tanhf of two libraries)
+    k11b = {}
+    for dims, B in (((8, 128, 128, 2), 64), ((8, 128, 128, 2), 16384), ((8, 256, 256, 4), 64)):
+        g = torch.Generator(device=dev).manual_seed(B)
+        leaves = [p.detach().to(dev).contiguous() for p in
+                  mlp_init(torch.Generator().manual_seed(B), dims, out_std=0.1).leaves()]
+        x = torch.randn((B, dims[0]), generator=g, device=dev)
+        got = kn.fused_mlp3(x, *leaves)
+        want = kn.fused_mlp3_reference(x, *leaves)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        assert math.isfinite(err) and err <= 1e-5 * scale, ('K11b', dims, B, err, scale)
+        ms = cuda_ms_(lambda: kn.fused_mlp3(x, *leaves), reps=50, warmup=3)
+        plain = cuda_ms_(lambda: kn.fused_mlp3_reference(x, *leaves), reps=50, warmup=3)
+        S, D1, D2, A = dims
+        n_params = sum(t.numel() for t in leaves)
+        b_ms, b_by = bound(2 * B * (S * D1 + D1 * D2 + D2 * A), 4 * (B * S + n_params + B * A))
+        k11b[(dims, B)] = dict(max_abs_err=err, max_abs_out=scale, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by)
+        emit(phase='k11b_vs_plain', dims=dims, B=B, **k11b[(dims, B)], library_ms=None,
+             tolerance='1e-5 x max|plain out|')
+
+    # ---- the main paths, 10 rounds each at full width
+    counters = {'gae_vtrace': kn.gae_vtrace_kernel, 'buffer_gather': kn.buffer_gather,
+                'fused_mlp3': kn.fused_mlp3, 'ppo_update': ppo_update, 'dqn_update': fo.dqn_chunk}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+        for k in ppo_update.launches_by_head:
+            ppo_update.launches_by_head[k] = 0
+        for k in fo.dqn_chunk.launches_by_variant:
+            fo.dqn_chunk.launches_by_variant[k] = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def lunar_args(agent_class, path, **hyper):
+        discrete = agent_class is not AgentPPO
+        a = Config(agent_class, LunarLanderEnv if discrete else LunarLanderContinuousEnv,
+                   {'env_name': 'LunarLander-v2' if discrete else 'LunarLanderContinuous-v2',
+                    'num_envs': path['envs'], 'max_step': 1000, 'state_dim': 8,
+                    'action_dim': 4 if discrete else 2, 'if_discrete': discrete})
+        a.horizon_len, a.batch_size, a.repeat_times = path['horizon'], path['batch'], path['repeat']
+        a.learning_rate, a.net_dims, a.random_seed = path['lr'], path['net'], 0
+        if discrete:
+            a.buffer_size, a.explore_rate = path['buffer'], path['explore_rate']
+        for k, v in hyper.items():
+            setattr(a, k, v)
+        return a
+
+    def timed(args, phase, want, prepare=None):
+        ctx = build_training(args)
+        carry = ctx.carry
+        if prepare is not None:
+            carry = prepare(ctx, carry)
+        carry, _ = ctx.round_fn(carry)                          # warm-up round
+        p0 = [x.clone() for x in carry.agent_state if isinstance(x, torch.Tensor)]
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = []
+        for _ in range(ROUNDS):
+            carry, m = ctx.round_fn(carry)
+            m = scalars(m)
+            metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
+        launches = read_counts()
+        round_ms = start.elapsed_time(end) / ROUNDS
+        mvals = torch.stack(metrics).cpu()
+        after = [x for x in carry.agent_state if isinstance(x, torch.Tensor)]
+        moved = max(float((x - y).abs().max()) for x, y in zip(after, p0))
+        assert launches == want, (phase, launches, want)
+        assert bool(torch.isfinite(mvals).all()), mvals
+        assert moved > 0.0
+        steps = args.num_envs * args.horizon_len
+        emit(phase=phase, agent=args.agent_class.__name__, env=args.env_name,
+             envs=args.num_envs, horizon=args.horizon_len, batch=args.batch_size,
+             repeat=args.repeat_times, net_dims=tuple(args.net_dims), rounds=ROUNDS,
+             launches=launches, round_ms=round_ms, round_ms_host=host_ms,
+             env_steps_per_s=steps / (round_ms / 1e3),
+             metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
+             device=name, nvidia_smi=smi)
+        return launches
+
+    H_p = LUNAR_PPO['horizon']
+    ppo_l = timed(lunar_args(AgentPPO, LUNAR_PPO), 'main_path_ppo_lunar',
+                  # per round: K10 once, K2 once, K11b for the actor and the
+                  # critic at every step and for the last observation's value
+                  {'gae_vtrace': ROUNDS, 'buffer_gather': 0,
+                   'fused_mlp3': ROUNDS * (2 * H_p + 1), 'ppo_update': ROUNDS, 'dqn_update': 0})
+
+    def fill_ring(ctx, carry):
+        return carry._replace(buf_state=synthetic_ring(torch, ctx.rb, carry.buf_state))
+
+    chunks = -(-LUNAR_DQN['updates'] // 16)
+    dqn_l = timed(lunar_args(AgentDQN, LUNAR_DQN), 'main_path_dqn_lunar',
+                  # per round: K11b at every step (the greedy Q), K9 per chunk of
+                  # 16 updates, K11a for each of a chunk's six fields
+                  {'gae_vtrace': 0, 'buffer_gather': ROUNDS * chunks * 6,
+                   'fused_mlp3': ROUNDS * LUNAR_DQN['horizon'], 'ppo_update': 0,
+                   'dqn_update': ROUNDS * chunks}, prepare=fill_ring)
+    assert fo.dqn_chunk.launches_by_variant['dqn'] == ROUNDS * chunks
+
+    # ---- the entry point: train_agent (and an alias) for PPO, DQN and D3QN,
+    # two evaluation periods each, then valid_agent on the saved D3QN agent
+    entry = {}
+    for agent_class, path, periods in ((AgentPPO, LUNAR_PPO, 2), (AgentDQN, LUNAR_DQN, 2),
+                                       (AgentD3QN, dict(LUNAR_DQN, buffer=8000), 2)):
+        with tempfile.TemporaryDirectory() as cwd:
+            a = lunar_args(agent_class, path, cwd=cwd, eval_times=2)
+            a.eval_per_step = a.num_envs * a.horizon_len * 2
+            a.break_step = a.eval_per_step * (periods - 1)
+            reset_counts()
+            t0 = time.time()
+            run = train_agent_single_process if agent_class is AgentPPO else train_agent
+            res = run(a)
+            counts = dict(read_counts(), dqn_variants={
+                k: v for k, v in fo.dqn_chunk.launches_by_variant.items() if v})
+            assert res['recorder'].shape[0] == periods and math.isfinite(res['max_r'])
+            if agent_class is AgentPPO:
+                assert counts['gae_vtrace'] == 2 * periods and counts['ppo_update'] == 2 * periods
+            else:
+                assert counts['buffer_gather'] >= 6 * 2 * periods and counts['dqn_update'] > 0
+            if agent_class is AgentD3QN:
+                # the encoder and heads run PyTorch ops, in the rollout and the evaluator
+                assert counts['fused_mlp3'] == 0 and counts['dqn_variants'].keys() == {'d3qn'}
+                pairs = valid_agent(LunarLanderEnv, dict(a.env_args), path['net'], AgentD3QN,
+                                    f'{cwd}/agent.npz', render_times=3)
+                ctx = build_training(a)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(1)
+                ret, stp = make_eval_fn(ctx.env, ctx.agent.greedy_action, 3, 1000, dev)(
+                    res['agent_state'], gen)
+                assert pairs == [(float(r), int(s)) for r, s in zip(ret, stp)], pairs
+                counts['valid_agent'] = pairs
+            else:
+                assert counts['fused_mlp3'] > 0
+            entry[agent_class.__name__] = counts
+            emit(phase='train_agent', agent=agent_class.__name__, env=a.env_name,
+                 envs=a.num_envs, evaluations=int(res['recorder'].shape[0]),
+                 total_step=int(res['total_step']), max_r=float(res['max_r']),
+                 seconds=round(time.time() - t0, 3), launches=counts)
+
+    # ---- kernels line entries
+    def entry_of(kname, route_src, repl, launches, main, **extra):
+        return {'name': kname, 'route': 'cuda', 'source': route_src, 'replaces': repl,
+                'launches': launches, 'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
+                'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
+                'bound_by': main['bound_by'], 'library_ms': main.get('library_ms'), **extra}
+
+    k10_main = k10[(H_p, LUNAR_PPO['envs'])]
+    kernels = [
+        entry_of('gae_vtrace[256x64]', src, replaces + '123', ppo_l['gae_vtrace'], k10_main,
+                 at_64x4096=k10[(64, 4096)], at_37x1000=k10[(37, 1000)]),
+        entry_of('buffer_gather[dqn_lunarlander rows]', src, replaces + '62',
+                 dqn_l['buffer_gather'], k11a['dqn_lunarlander_rows'],
+                 path_d_chunk=k11a['path_d_chunk']),
+        entry_of('fused_mlp3[8,128,128,2 B=64]', src, replaces + '172', ppo_l['fused_mlp3'],
+                 k11b[((8, 128, 128, 2), 64)], at_B16384=k11b[((8, 128, 128, 2), 16384)]),
+        entry_of('fused_mlp3[8,256,256,4 B=64]', src, replaces + '172', dqn_l['fused_mlp3'],
+                 k11b[((8, 256, 256, 4), 64)]),
+        entry_of('ppo_update[LunarLanderContinuous-v2, U=8]',
+                 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu',
+                 'elegantrl_tpu/ops/pallas_update.py:79', ppo_l['ppo_update'], k2_lunar),
+        entry_of('dqn_update[dqn,256x256,B=256]', 'elegantrl_tpu_torch/ops/csrc/dqn_update.cu',
+                 'elegantrl_tpu/ops/pallas_update.py:476', dqn_l['dqn_update'],
+                 k9_lunar['dqn']),
+        entry_of('dqn_update[d3qn,256x256,B=256]', 'elegantrl_tpu_torch/ops/csrc/dqn_update.cu',
+                 'elegantrl_tpu/ops/pallas_update.py:476',
+                 entry['AgentD3QN']['dqn_variants']['d3qn'], k9_lunar['d3qn']),
+    ]
+    return kernels
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -1558,6 +1859,7 @@ def main():
         smem_bytes as fr_smem)
     from elegantrl_tpu_torch.ops.fused_update import (ppo_update, ppo_update_reference,
                                                       _library as fu_lib, smem_bytes as fu_smem)
+    from elegantrl_tpu_torch.ops.kernels import _library as kn_lib, mlp3_smem_bytes
     from elegantrl_tpu_torch.utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
 
     # ---- 1. device
@@ -1585,7 +1887,7 @@ def main():
     # ---- 2. build
     t0 = time.time()
     logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update',
-                              'sac_update'])
+                              'sac_update', 'kernels'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that
@@ -1599,6 +1901,9 @@ def main():
                                             fu_smem(S, A, *NET_DIMS))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
+    for S, D1, D2 in ((8, 128, 128), (8, 256, 256), (151, 128, 128)):
+        smem[f'fused_mlp3[{S},{D1},{D2}]'] = (kn_lib().fused_mlp3_smem_bytes(S, D1, D2),
+                                              mlp3_smem_bytes(S, D1, D2))
     assert all(a == b for a, b in smem.values()), smem
     emit(phase='build', seconds=round(time.time() - t0, 3), ptxas=ptxas,
          smem_bytes={k: v[0] for k, v in smem.items()})
@@ -1741,6 +2046,13 @@ def main():
         return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
 
     k2 = {U: update_vs_plain(st, 3, 1, False, U, 'k2_vs_plain') for U in (1, 32)}
+    # ppo_lunarlander_cont's update: S = 8, A = 2, B = 512, U = 8
+    lunar_cfg = Config()
+    lunar_cfg.net_dims = NET_DIMS
+    st_lunar = make_ppo(NET_DIMS, 8, 2, lunar_cfg).init(0, dev)
+    with torch.no_grad():
+        st_lunar.act.std_log.fill_(-0.5)
+    k2_lunar = update_vs_plain(st_lunar, 8, 2, False, 8, 'k2_vs_plain_lunar')
 
     # ---- 6. fused rollout, the other bodies and the categorical head
     # One-step check (injected noise): the kernel and the plain version each
@@ -2108,12 +2420,15 @@ def main():
         entry[task[2]] = by_body[task[2]]
 
     # ---- 11. the off-policy family
-    offpolicy_kernels = offpolicy_phases(torch, dev, name, smi, bound, seed)
+    offpolicy_kernels, k9_lunar = offpolicy_phases(torch, dev, name, smi, bound, seed)
 
     # ---- 13. StockTradingEnv-v2 (K4)
     stock_kernels = stock_phases(torch, dev, name, smi, bound, seed, k2_stock)
 
-    # ---- 14. kernels line and device line
+    # ---- 14. LunarLander (K10, K11a, K11b; K2 and K9 at the slice's widths)
+    lunar_kernels = lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar)
+
+    # ---- 15. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
     update_src = 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu'
@@ -2146,7 +2461,7 @@ def main():
                     'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
                     'bound_by': d['bound_by'], 'library_ms': None,
                     'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
-    kernels += offpolicy_kernels + stock_kernels
+    kernels += offpolicy_kernels + stock_kernels + lunar_kernels
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -15,19 +15,24 @@ family (``AgentDQN``, ``AgentDoubleDQN``, ``AgentDuelingDQN``,
 ``AgentModSACHterm``, with the replay buffer of ``train/replay_buffer.py``,
 prioritised replay (``ops/per.py``), the cumulative-return fit and buffer
 save and load) on Pendulum, CartPole, HopperSlip, PointChasing
-(continuous and discrete) and StockTradingEnv-v2, through ``Config``,
-``build_training`` and ``train_agent``, with the fused rollout (all six env
-bodies, the stock body's market tables included; Gaussian, categorical,
-ddpg, sac, modsac and DQN heads), the fused PPO update (continuous and
-discrete heads) and the fused DQN-family, DDPG/TD3 (also under PER) and
-SAC/ModSAC update chunks.  Where the JAX package runs XLA ops instead of a
+(continuous and discrete), StockTradingEnv-v2 and LunarLander (discrete
+and continuous), through ``Config``, ``build_training``, ``train_agent``
+(and its three aliases) and ``valid_agent``/``render_agent``, with the
+fused rollout (all six kernel bodies, the stock body's market tables
+included; Gaussian, categorical, ddpg, sac, modsac and DQN heads), the
+fused PPO update (continuous and discrete heads), the fused DQN-family,
+DDPG/TD3 (also under PER) and SAC/ModSAC update chunks, and the V-trace
+recursion, the replay gather and the fused 3-layer MLP forward
+(``ops/kernels.py``).  Where the JAX package runs XLA ops instead of a
 kernel, the port runs PyTorch ops, on a card too.
 """
 
 __version__ = "0.1.0"
 
 from .config import Config, build_env, get_gym_env_args, kwargs_filter  # noqa: F401
-from .train.runner import TrainCarry, build_training, train_agent  # noqa: F401
+from .train.runner import (TrainCarry, build_training, render_agent, train_agent,  # noqa: F401
+                           train_agent_multiprocessing, train_agent_multiprocessing_multi_gpu,
+                           train_agent_single_process, valid_agent)
 from .agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm, AgentDoubleDQN,  # noqa: F401
                      AgentDQN, AgentDuelingDQN, AgentEmbedDQN, AgentEnsembleDQN,
                      AgentModSAC, AgentModSACHterm, AgentPPOHterm, AgentSAC, AgentSACHterm,

@@ -40,12 +40,13 @@ from typing import NamedTuple
 import torch
 
 from ..config import select_kernel
+from ..ops import kernels
 from ..ops.fused_offpolicy_update import (SMEM_LIMIT, ddpg_actor, ddpg_actor_loss, ddpg_bcv,
                                           ddpg_chunk, ddpg_critic_td, ddpg_q_values,
                                           ddpg_smem_bytes, ddpg_td_label)
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
-from ..ops.nets import ddpg_param_shapes, init_flat, soft_update_, split_flat
+from ..ops.nets import ddpg_param_shapes, init_flat, mlp3_forward, soft_update_, split_flat
 from .base import AdamState, AgentDef, grad_step, make_optimizer
 from .dqn import FUSED_CHUNK, gather_chunk, row_sampling
 from .hterm import (HtermBuffer, HtermDraws, draw_rehearsal_ids, init_hterm_buffer,
@@ -111,13 +112,20 @@ def _make(net_dims, state_dim: int, action_dim: int, args, buffer=None, td3: boo
         return DDPGHtermState(*base, init_hterm_buffer(h_term_buffer_size, h_term_k_step,
                                                        state_dim, action_dim, device))
 
-    def explore_action(s, obs, gen):
-        a = ddpg_actor(split_flat(s.act, act_shapes), obs)
-        z = torch.randn(a.shape, generator=gen, device=a.device)
-        return torch.clamp(a + explore_noise_std * z, -1.0, 1.0), None
+    # K11b (ops/kernels.py) takes the actor's no-grad forward (a 3-linear MLP)
+    use_mlp3 = kernels.select(
+        args, 'use_mlp3_kernel', kernels.mlp3_fits((state_dim, *net_dims, action_dim)),
+        getattr(args, 'device', 'cuda'),
+        f'the no-grad forward of a 3-linear f32 MLP whose tiles fit one block (the actor); '
+        f'got net_dims={net_dims}')
 
     def greedy_action(s, obs):
-        return ddpg_actor(split_flat(s.act, act_shapes), obs)
+        return torch.tanh(mlp3_forward(split_flat(s.act, act_shapes), obs, use_mlp3))
+
+    def explore_action(s, obs, gen):
+        a = greedy_action(s, obs)
+        z = torch.randn(a.shape, generator=gen, device=a.device)
+        return torch.clamp(a + explore_noise_std * z, -1.0, 1.0), None
 
     def smoothing_noise(gen, count):
         """TD3's target-policy smoothing noise, ``(count, B, A)``."""

@@ -13,6 +13,11 @@
   adds the cumulative-return term on head 1's ``q_a``; ``cum_returns``
   bootstraps with ``max_a Q_target(last_obs)`` of the TD path.
 
+On a card the plain net's no-grad forwards (exploration, evaluation) run
+K11b (``ops/kernels.py:fused_mlp3``) and the replay gathers K11a
+(``train/replay_buffer.py``); the twin and dueling nets' forwards run
+PyTorch ops.
+
 The Q-network is one flat buffer in the leaf order of
 ``ops/nets.py:dqn_param_shapes``.  The update is the fused chunk
 (``ops/fused_offpolicy_update.py:dqn_chunk``: the CUDA kernel on a card,
@@ -31,11 +36,12 @@ from typing import NamedTuple
 import torch
 
 from ..config import select_kernel
+from ..ops import kernels
 from ..ops.fused_offpolicy_update import (dqn_bcv, dqn_chunk, dqn_next_q, dqn_q_greedy,
                                           dqn_q_td, dqn_smem_bytes, dqn_td_errors, SMEM_LIMIT)
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
-from ..ops.nets import dqn_param_shapes, init_flat, soft_update_, split_flat
+from ..ops.nets import dqn_param_shapes, init_flat, mlp3_forward, soft_update_, split_flat
 from .base import AdamState, AgentDef, grad_step, make_optimizer
 from .off_policy import (cum_fit_term, epsilon_greedy, make_offpolicy_update,
                          offpolicy_update_times)
@@ -108,12 +114,27 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
     def leaves(flat):
         return split_flat(flat, shapes)
 
+    # K11b (ops/kernels.py) takes the plain Q net's no-grad forward; the twin
+    # and dueling nets (an encoder and heads) run PyTorch ops
+    plain_net = not (twin or duel)
+    use_mlp3 = kernels.select(
+        args, 'use_mlp3_kernel',
+        plain_net and kernels.mlp3_fits((state_dim, *net_dims, action_dim)),
+        getattr(args, 'device', 'cuda'),
+        f'the no-grad forward of a 3-linear f32 MLP whose tiles fit one block (the plain '
+        f'DQN net); got twin={twin}, duel={duel}, net_dims={net_dims}')
+
+    def q_greedy(s: DQNState, obs):
+        if use_mlp3:
+            return mlp3_forward(leaves(s.q), obs, True)
+        return dqn_q_greedy(leaves(s.q), obs, twin, duel)
+
     def explore_action(s: DQNState, obs, gen):
-        greedy = torch.argmax(dqn_q_greedy(leaves(s.q), obs, twin, duel), dim=-1)
+        greedy = torch.argmax(q_greedy(s, obs), dim=-1)
         return epsilon_greedy(gen, greedy, action_dim, explore_rate), None
 
     def greedy_action(s: DQNState, obs):
-        return torch.argmax(dqn_q_greedy(leaves(s.q), obs, twin, duel), dim=-1).to(torch.int32)
+        return torch.argmax(q_greedy(s, obs), dim=-1).to(torch.int32)
 
     def one_hot(action):
         return torch.nn.functional.one_hot(action.long(), action_dim).float()

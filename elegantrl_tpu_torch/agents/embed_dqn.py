@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import select_kernel
+from ..ops import kernels
 from ..ops.fused_offpolicy_update import sac_q_values
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
@@ -74,6 +75,8 @@ def make_embed_dqn(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     if buffer is not None:   # no kernel in either package: PyTorch ops, said so
         select_kernel(args, 'use_fused_update', False, False, getattr(args, 'device', 'cuda'),
                       'a DQN-family agent of agents/dqn.py (no kernel takes the Embed-DQN nets)')
+    kernels.select(args, 'use_mlp3_kernel', False, getattr(args, 'device', 'cuda'),
+                   'the no-grad forward of a 3-linear f32 MLP; got the Embed-DQN Q heads')
 
     def init(seed: int, device) -> EmbedDQNState:
         gen = torch.Generator().manual_seed(int(seed))

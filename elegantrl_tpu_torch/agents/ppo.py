@@ -37,6 +37,12 @@
   autodiff, and here the same minibatch loop runs on ``torch.autograd``, on
   either device.
 
+- The V-trace recursion runs K10 (``ops/kernels.py:gae_vtrace_kernel``,
+  ``use_gae_kernel``) and the no-grad actor and critic forwards (the
+  generic rollout's, the evaluator's, the value pass) run K11b
+  (``fused_mlp3``, ``use_mlp3_kernel``) on a card; gradient paths run
+  PyTorch ops.
+
 Actor and critic are ``nn.Module`` views of two flat parameter buffers
 (``ops/nets.py:bind_flat``); the update changes the buffers in place.
 """
@@ -50,11 +56,12 @@ import torch
 from torch import nn
 
 from ..config import select_kernel
-from ..ops import dists, gae
+from ..ops import dists, gae, kernels
 from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, actor_loss, critic_loss,
                                 fused_update_bytes, make_ppo_fused_update, smem_bytes,
                                 value_and_grad_flat)
-from ..ops.nets import MLP, bind_flat, mlp_apply_leaves, mlp_init, ppo_param_shapes, split_flat
+from ..ops.nets import (MLP, bind_flat, mlp3_forward, mlp_apply_leaves, mlp_init,
+                        ppo_param_shapes, split_flat)
 from .base import (AdamState, AgentDef, Rollout, grad_step, make_optimizer,
                    sample_flat_ids, split_flat_ids)
 from .hterm import (HtermBuffer, init_hterm_buffer, insert_best_windows, masked_window_mean,
@@ -227,6 +234,17 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
 
     if not (a2c or hterm):
         use_fused_update(int(getattr(args, 'horizon_len', 2048)))
+    device = getattr(args, 'device', 'cuda')
+    # K10 (ops/kernels.py) computes the V-trace recursion; K11b the no-grad
+    # forwards of the actor and the critic (the rollout's, the evaluator's and
+    # the value pass), both 3-linear MLPs of the same hidden widths
+    use_gae_kernel = kernels.select(
+        args, 'use_gae_kernel', if_use_vtrace, device,
+        f'V-trace advantages; got if_use_vtrace={if_use_vtrace}')
+    use_mlp3 = kernels.select(
+        args, 'use_mlp3_kernel', kernels.mlp3_fits((state_dim, *net_dims, action_dim)),
+        device, f'the no-grad forward of a 3-linear f32 MLP whose tiles fit one block; '
+                f'got net_dims={net_dims}')
 
     def init(seed: int, device) -> PPOState:
         gen = torch.Generator().manual_seed(int(seed))
@@ -246,10 +264,15 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                                                       state_dim, action_dim, device))
 
     def critic_value(s: PPOState, obs):
-        return s.cri(norm_state(obs, s.norm_avg, s.norm_std))[..., 0]
+        return mlp3_forward(s.cri.leaves(), norm_state(obs, s.norm_avg, s.norm_std),
+                            use_mlp3)[..., 0]
+
+    def actor_out(s: PPOState, obs):
+        return mlp3_forward(s.act.mlp.leaves(), norm_state(obs, s.norm_avg, s.norm_std),
+                            use_mlp3)
 
     def explore_action(s: PPOState, obs, gen):
-        out = s.act(norm_state(obs, s.norm_avg, s.norm_std))
+        out = actor_out(s, obs)
         if discrete:
             action = dists.categorical_sample(gen, out)
             return action.to(torch.int32), dists.categorical_logprob(out, action)
@@ -259,7 +282,7 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         return action, logprob
 
     def greedy_action(s: PPOState, obs):
-        out = s.act(norm_state(obs, s.norm_avg, s.norm_std))
+        out = actor_out(s, obs)
         if discrete:
             return torch.argmax(out, dim=-1).to(torch.int32)
         return torch.tanh(out)
@@ -365,7 +388,7 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             next_value = critic_value(s, last_obs)
             if if_use_vtrace:
                 advantages = gae.gae_vtrace(rewards_b, undones_b, values, next_value,
-                                            gamma, lambda_gae_adv)
+                                            gamma, lambda_gae_adv, use_kernel=use_gae_kernel)
             else:
                 advantages = gae.gae_plain(rewards_b, undones_b, values, gamma,
                                            lambda_gae_adv)

@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import select_kernel
+from ..ops import kernels
 from ..ops.fused_offpolicy_update import (SMEM_LIMIT, modsac_do_actor, sac_action_logprob,
                                           sac_actor_dist, sac_actor_loss, sac_bcv, sac_chunk,
                                           sac_q_values, sac_smem_bytes, sac_td_label)
@@ -129,6 +130,12 @@ def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             return SACState(*base)
         return SACHtermState(*base, init_hterm_buffer(h_term_buffer_size, h_term_k_step, S, A,
                                                       device))
+
+    # the actor is an encoder and heads, not a 3-linear MLP: K11b does not
+    # take its forward (PyTorch ops, said so)
+    kernels.select(args, 'use_mlp3_kernel', False, getattr(args, 'device', 'cuda'),
+                   'the no-grad forward of a 3-linear f32 MLP; got the '
+                   f'{"ModSAC" if modsac else "SAC"} actor (an encoder and heads)')
 
     def explore_action(s: SACState, obs, gen):
         mean, log_std = sac_actor_dist(split_flat(s.act, act_shapes), obs, **sac)

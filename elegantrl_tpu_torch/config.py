@@ -86,6 +86,11 @@ class Config:
         # the port's kernel or raises; the plain versions run on the CPU only
         self.use_fused_rollout = 'auto'
         self.use_fused_update = 'auto'
+        # the kernels of ops/kernels.py: the V-trace recursion (K10), the
+        # replay gather (K11a) and the no-grad 3-linear MLP forward (K11b)
+        self.use_gae_kernel = 'auto'
+        self.use_gather_kernel = 'auto'
+        self.use_mlp3_kernel = 'auto'
 
         '''evaluation'''
         self.cwd = None
@@ -161,7 +166,19 @@ def select_kernel(args, flag: str, jax_takes_kernel: bool, port_fits: bool, devi
       is taken.
 
     A2C's update has no kernel in either package (``agents/ppo.py``) and is
-    never asked about here."""
+    never asked about here.
+
+    The three kernels of ``elegantrl_tpu/ops/pallas_kernels.py`` (the
+    V-trace recursion, the replay gather, the 3-layer MLP forward;
+    ``use_gae_kernel``, ``use_gather_kernel``, ``use_mlp3_kernel``) are kept
+    by the JAX package beside XLA forms of the same functions, with XLA as
+    its default from a TPU measurement that says nothing of a card.  For
+    them the port takes its kernel on a card wherever the kernel fits, and
+    raises on ``False`` there, as for every other kernel: the caller passes
+    the kernel's fit as both predicates (``ops/kernels.py:select``).  The
+    fit is the only predicate: V-trace advantages (not plain GAE) for K10,
+    any replay field for K11a, a 3-linear f32 MLP whose forward needs no
+    gradient for K11b."""
     mode = getattr(args, flag, 'auto')
     off = mode in (False, 'false', '0')
     if not jax_takes_kernel:

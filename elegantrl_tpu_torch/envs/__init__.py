@@ -8,3 +8,5 @@ from .point_chasing import (ChasingState, PointChasingDiscreteEnv, PointChasingE
 from .stock_trading import (StockState, StockTradingEnv, StockTradingVecEnv,  # noqa: F401
                             StockTradingVmapEnv, dataframe_to_arrays, load_market_data,
                             make_stock_trading, synthetic_market_data)
+from .lunar_lander import (LanderState, LunarLanderContinuousEnv, LunarLanderEnv,  # noqa: F401
+                           make_lunar_lander)

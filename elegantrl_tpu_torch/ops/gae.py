@@ -1,9 +1,10 @@
 """Advantage estimation (counterpart of ``elegantrl_tpu/ops/gae.py``).
 
 All functions take time-major ``(H, N)`` tensors.  The recursions run as a
-plain reverse loop over H.  The JAX package evaluates them with
-``associative_scan`` at H >= 16, which reassociates the f32 sums: the two
-agree to about 1e-5 relative at the horizons of the tests.
+plain reverse loop over H; the V-trace one also as K10 on a card.  The
+JAX package evaluates them with ``associative_scan`` at H >= 16, which
+reassociates the f32 sums: the two agree to about 1e-5 relative at the
+horizons of the tests.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from .kernels import gae_vtrace_kernel, gae_vtrace_reference
 
 
 def apply_truncation_bootstrap(rewards: torch.Tensor, undones: torch.Tensor,
@@ -23,18 +26,18 @@ def apply_truncation_bootstrap(rewards: torch.Tensor, undones: torch.Tensor,
 
 
 def gae_vtrace(rewards: torch.Tensor, undones: torch.Tensor, values: torch.Tensor,
-               next_value: torch.Tensor, gamma: float, lam: float) -> torch.Tensor:
+               next_value: torch.Tensor, gamma: float, lam: float,
+               use_kernel: bool = False) -> torch.Tensor:
     """V-trace-style recursion:
     ``adv[t] = r[t] + m[t]*v[t+1] - v[t] + m[t]*lam*adv[t+1]`` with
-    ``m = gamma*undone`` and ``v[H] = next_value``."""
-    masks = undones * gamma
-    advantages = torch.empty_like(rewards)
-    next_v, adv = next_value, torch.zeros_like(next_value)
-    for t in range(rewards.shape[0] - 1, -1, -1):
-        adv = rewards[t] + masks[t] * next_v - values[t] + masks[t] * lam * adv
-        advantages[t] = adv
-        next_v = values[t]
-    return advantages
+    ``m = gamma*undone`` and ``v[H] = next_value``.  With ``use_kernel``
+    (``config.py:select_kernel`` on ``use_gae_kernel``) it runs K10,
+    ``ops/kernels.py:gae_vtrace_kernel``, in one launch on a card; else the
+    reverse loop, ``gae_vtrace_reference``.  The two are bitwise equal."""
+    if use_kernel:
+        return gae_vtrace_kernel(rewards.contiguous(), undones.contiguous(),
+                                 values.contiguous(), next_value.contiguous(), gamma, lam)
+    return gae_vtrace_reference(rewards, undones, values, next_value, gamma, lam)
 
 
 def gae_plain(rewards: torch.Tensor, undones: torch.Tensor, values: torch.Tensor,

@@ -128,6 +128,21 @@ def mlp_apply_leaves(leaves: Sequence[torch.Tensor], x: torch.Tensor) -> torch.T
     return x
 
 
+def mlp3_forward(leaves: Sequence[torch.Tensor], x: torch.Tensor, use_kernel: bool
+                 ) -> torch.Tensor:
+    """The no-grad forward of a 3-linear MLP ``[W0, b0, W1, b1, W2, b2]``
+    over the last axis of ``x``: K11b (``ops/kernels.py:fused_mlp3``, one
+    launch on a card) when ``use_kernel`` (``config.py:select_kernel`` on
+    ``use_mlp3_kernel``), else :func:`mlp_apply_leaves`.  No gradient path
+    calls it: K11b has no backward, in the JAX package either."""
+    if not use_kernel:
+        return mlp_apply_leaves(leaves, x)
+    from .kernels import fused_mlp3    # kernels.py builds on this module
+    lead = x.shape[:-1]
+    out = fused_mlp3(x.reshape(-1, x.shape[-1]).float().contiguous(), *leaves)
+    return out.reshape(*lead, out.shape[-1])
+
+
 def soft_update_(target: torch.Tensor, online: torch.Tensor, tau: float) -> None:
     """Polyak averaging in place on flat buffers, ``target = target * (1 - tau)
     + online * tau`` (``elegantrl_tpu/ops/nets.py:soft_update``)."""

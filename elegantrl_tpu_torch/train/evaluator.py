@@ -8,7 +8,9 @@ instead of its summed reward), prints the ``ID Step Time | avgR stdR avgS
 stdS | expR objC objA`` table (a trailing string in the logging tuple, the
 discrete action histogram, is printed after the numbers), appends to
 ``recorder.npy``, saves actor checkpoints and, at the end of a run,
-``LearningCurve.jpg``.
+``LearningCurve.jpg``.  The greedy forwards are the agents' own: a plain
+3-linear actor or Q net runs K11b (``ops/kernels.py:fused_mlp3``) on a
+card, so an evaluation there differs from the CPU's by f32 rounding.
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@
   sample_len``, with ``next_state = states[ids0 + 1]``, including the
   reference's seam artifact at the ring pointer, kept for parity;
 - :meth:`ReplayBuffer.sample_rows`: ``R = batch_size // num_seqs`` whole
-  time rows, sample ``b = r * num_seqs + n``.
+  time rows, sample ``b = r * num_seqs + n``;
+- the gathers of :meth:`ReplayBuffer.gather` and :meth:`ReplayBuffer.sample_rows`
+  run K11a (``ops/kernels.py:buffer_gather``, one launch per field) on a
+  card, bitwise equal to the indexing they replace;
 
 - prioritised replay (``if_use_per``): the batched segment tree of
   ``ops/per.py`` in ``per_tree``; fresh rows get priority 10;
@@ -36,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..ops.per import SegmentTree
 
 
@@ -70,6 +74,9 @@ class ReplayBuffer:
         self.per_beta = float(getattr(args, 'per_beta', 0.4))
         self.if_use_cum_rewards = float(getattr(args, 'lambda_fit_cum_r', 0.0)) != 0.0
         self.tree = SegmentTree(self.max_size, self.num_seqs) if if_use_per else None
+        # K11a (ops/kernels.py:buffer_gather) takes every field's gather
+        self.use_gather_kernel = kernels.select(args, 'use_gather_kernel', True, self.device,
+                                                'the gather of any replay field')
 
     def init(self) -> BufferState:
         M, N, S = self.max_size, self.num_seqs, self.state_dim
@@ -134,10 +141,12 @@ class ReplayBuffer:
     def gather(self, buf: BufferState, ids0: torch.Tensor, ids1: torch.Tensor
                ) -> Tuple[torch.Tensor, ...]:
         """The transitions at rows ``ids0`` of sequences ``ids1``: ``(state,
-        action, reward, undone, unmask, next_state, (ids0, ids1))``."""
-        return (buf.states[ids0, ids1], buf.actions[ids0, ids1], buf.rewards[ids0, ids1],
-                buf.undones[ids0, ids1], buf.unmasks[ids0, ids1],
-                buf.states[ids0 + 1, ids1], (ids0, ids1))
+        action, reward, undone, unmask, next_state, (ids0, ids1))``; each
+        field one K11a launch on a card (``use_gather_kernel``)."""
+        fn = kernels.buffer_gather if self.use_gather_kernel else kernels.buffer_gather_reference
+        return (fn(buf.states, ids0, ids1), fn(buf.actions, ids0, ids1),
+                fn(buf.rewards, ids0, ids1), fn(buf.undones, ids0, ids1),
+                fn(buf.unmasks, ids0, ids1), fn(buf.states, ids0, ids1, 1), (ids0, ids1))
 
     def sample_rows(self, buf: BufferState, batch_size: int,
                     gen: Optional[torch.Generator] = None,
@@ -150,16 +159,10 @@ class ReplayBuffer:
             rows = self.draw(buf, gen, 1, batch_size, rows=True)[0]
         N = self.num_seqs
         lead = rows.shape[:-1]
-
-        def take(arr, r):
-            return arr[r].reshape(lead + (r.shape[-1] * N,) + arr.shape[2:])
-
         cols = torch.arange(N, device=rows.device, dtype=rows.dtype)
         ids0 = rows[..., :, None].expand(lead + (rows.shape[-1], N)).reshape(lead + (-1,))
         ids1 = cols.expand(lead + (rows.shape[-1], N)).reshape(lead + (-1,))
-        return (take(buf.states, rows), take(buf.actions, rows), take(buf.rewards, rows),
-                take(buf.undones, rows), take(buf.unmasks, rows),
-                take(buf.states, rows + 1), (ids0, ids1))
+        return self.gather(buf, ids0, ids1)
 
     def per_ids(self, buf: BufferState, batch_size: int, u: torch.Tensor):
         """The PER draw for uniforms ``u (..., N, sub)``: ``(ids0, ids1,

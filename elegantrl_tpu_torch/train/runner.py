@@ -24,6 +24,9 @@ periods) and, with ``if_save_buffer``, ``replay_buffer.npz``.
 
 The agent state's parameters are updated in place (flat buffers), so a
 carry handed to ``round_fn`` shares its parameters with the one returned.
+``train_agent_single_process``, ``train_agent_multiprocessing`` and
+``train_agent_multiprocessing_multi_gpu`` are aliases of ``train_agent``;
+``valid_agent`` (``render_agent``) plays a saved agent's greedy episodes.
 Host-rollout and mesh modes of the JAX runner are not ported.
 """
 
@@ -307,8 +310,10 @@ def _save_carry(path: str, carry: TrainCarry, agent: AgentDef) -> None:
     os.replace(path + '.tmp.npz', path)
 
 
-def train_agent(args: Config) -> dict:
-    """Train and evaluate; returns the recorder (with its wall times), final
+def train_agent(args: Config, if_single_process: bool = True) -> dict:
+    """Train and evaluate (``if_single_process`` is kept for the JAX
+    package's signature: one process runs rollout, update and evaluation
+    either way); returns the recorder (with its wall times), final
     agent state and throughput.  Evaluation runs on ``eval_env_class`` with
     ``eval_env_args`` (default: the training env's args) where given, else on
     the training env.  A resumable run (``continue_train`` or
@@ -379,3 +384,54 @@ def train_agent(args: Config) -> dict:
         'steps_per_second': total_step / max(used_time, 1e-9),
         'max_r': evaluator.max_r,
     }
+
+
+def train_agent_single_process(args: Config) -> dict:
+    return train_agent(args)
+
+
+def train_agent_multiprocessing(args: Config) -> dict:
+    """The reference's worker/learner/evaluator processes are one loop
+    here, as in the JAX package; this alias keeps its name."""
+    return train_agent(args)
+
+
+def train_agent_multiprocessing_multi_gpu(args: Config) -> dict:
+    """One card: the JAX package's mesh mode is not ported, so this alias
+    trains on ``args.device`` alone."""
+    return train_agent(args)
+
+
+def valid_agent(env_class, env_args: dict, net_dims, agent_class, actor_path: str,
+                render_times: int = 8, device: str = 'cuda') -> list:
+    """Load a saved agent (``agent.npz`` or an evaluator's ``actor__*.npz``,
+    both the whole agent state) and play ``render_times`` greedy episodes
+    side by side on ``device``; prints and returns the ``(return, steps)``
+    pairs.  Envs have no window here, so to render is to print."""
+    from .evaluator import make_eval_fn
+
+    args = Config(agent_class, env_class, dict(env_args))
+    args.net_dims, args.device = net_dims, device
+    dev = resolve_device(args)
+    env = _resolve_env_def(args)
+    rb = None
+    if args.if_off_policy:
+        rb = ReplayBuffer(max_size=8, state_dim=args.state_dim, action_dim=args.action_dim,
+                          num_seqs=1, if_discrete=bool(args.if_discrete), args=args, device=dev)
+    agent = _make_agent(args, rb)
+    like = agent.state_to_numpy(agent.init(0, dev))
+    print(f"| valid_agent: load actor from: {actor_path}", flush=True)
+    agent_state = agent.state_from_numpy(load_tree(actor_path, like), dev)
+    eval_fn = make_eval_fn(env, agent.greedy_action, int(render_times), env.spec.max_step, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    returns, steps = eval_fn(agent_state, gen)
+    results = []
+    for i, (r, st) in enumerate(zip(returns, steps)):
+        print(f"|{i:4}  cumulative_reward {float(r):9.3f}  episode_step {int(st):5d}",
+              flush=True)
+        results.append((float(r), int(st)))
+    return results
+
+
+render_agent = valid_agent

@@ -27,6 +27,20 @@ On-policy:
   unclipped A2C at this recipe is seed-bimodal; here every seed asked for is
   run and reported as it falls.
 
+LunarLander (``scripts/verify_learning.py:161-168, 209-232``; target 150,
+the JAX rows ``RESULTS.md:23, 29, 30``):
+
+- ``ppo_lunarlander_cont``: AgentPPO on LunarLanderContinuous-v2, 64 envs,
+  net (128, 128), horizon 256, repeat 16, lr 3e-4, batch 512, 5e6 steps,
+  eval every 4e5: the generic rollout with K11b, K10 and the fused update
+  at U = 8;
+- ``dqn_lunarlander`` and ``d3qn_lunarlander``: AgentDQN and AgentD3QN on
+  LunarLander-v2, 64 envs, net (256, 256), horizon 64, ring 3e4 (DQN) or
+  8e3 (D3QN) rows, batch 256, lr 5e-4, explore rate 0.2, 8e6 steps, eval
+  every 2e5: the generic rollout (K11b for DQN's Q net; D3QN's encoder and
+  heads run PyTorch ops), K11a under row sampling and the DQN chunk at
+  (256, 256).
+
 Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
 
 - ``td3_pendulum`` (target -150) and ``ddpg_pendulum`` (-200): 8 envs, net
@@ -98,10 +112,26 @@ def recipes():
                                             AgentDuelingDQN, AgentEmbedDQN, AgentModSAC,
                                             AgentPPO, AgentPPOHterm, AgentSAC, AgentSACHterm,
                                             AgentTD3)
-    from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv, PendulumEnv, StockTradingVecEnv
+    from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, LunarLanderContinuousEnv,
+                                          LunarLanderEnv, PendulumEnv, StockTradingVecEnv)
     stock = {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 1112,
              'state_dim': 151, 'action_dim': 15, 'if_discrete': False}
+    lunar = {'env_name': 'LunarLander-v2', 'num_envs': 64, 'max_step': 1000, 'state_dim': 8,
+             'action_dim': 4, 'if_discrete': True}
+    lunar_dqn = dict(net_dims=(256, 256), horizon_len=64, batch_size=256, learning_rate=5e-4,
+                     explore_rate=0.2, eval_per_step=int(2e5), break_step=int(8e6))
     return {
+        'ppo_lunarlander_cont': (
+            AgentPPO, LunarLanderContinuousEnv,
+            dict(lunar, env_name='LunarLanderContinuous-v2', action_dim=2, if_discrete=False),
+            150.0,
+            dict(net_dims=(128, 128), gamma=0.99, horizon_len=256, repeat_times=16,
+                 learning_rate=3e-4, batch_size=512, eval_per_step=int(4e5),
+                 break_step=int(5e6))),
+        'dqn_lunarlander': (AgentDQN, LunarLanderEnv, lunar, 150.0,
+                            dict(lunar_dqn, buffer_size=int(3e4))),
+        'd3qn_lunarlander': (AgentD3QN, LunarLanderEnv, lunar, 150.0,
+                             dict(lunar_dqn, buffer_size=int(8e3))),
         'td3_pendulum': (AgentTD3, PendulumEnv, PENDULUM, -150.0, OFFPOL_PEND),
         'ddpg_pendulum': (AgentDDPG, PendulumEnv, PENDULUM, -200.0, OFFPOL_PEND),
         'td3_hopper': (AgentTD3, HopperEnv, HOPPER, 1000.0, OFFPOL_HOP),
@@ -207,9 +237,12 @@ def main():
     from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk, sac_chunk
     from elegantrl_tpu_torch.ops.fused_rollout import critic_values, offpolicy_rollout, rollout
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.ops.kernels import buffer_gather, fused_mlp3, gae_vtrace_kernel
     counted = {'fused_rollout': rollout, 'critic_values': critic_values,
                'offpolicy_rollout': offpolicy_rollout, 'ppo_update': ppo_update,
-               'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk, 'sac_update': sac_chunk}
+               'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk, 'sac_update': sac_chunk,
+               'gae_vtrace': gae_vtrace_kernel, 'buffer_gather': buffer_gather,
+               'fused_mlp3': fused_mlp3}
 
     if opts.device == 'cuda':
         device = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -46,6 +46,14 @@ def test_stock_module_is_probed():
     assert os.path.isfile(os.path.join(PKG, 'envs', 'stock_trading.py'))
 
 
+def test_lunar_lander_and_kernel_modules_are_probed():
+    """The LunarLander env and the module of K10, K11a and K11b, whose CUDA
+    source is read by the source scan below."""
+    for rel in (('envs', 'lunar_lander.py'), ('ops', 'kernels.py'),
+                ('ops', 'csrc', 'kernels.cu')):
+        assert os.path.isfile(os.path.join(PKG, *rel)), rel
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

@@ -31,6 +31,7 @@ from elegantrl_tpu.agents import AgentA2C as JAgentA2C, AgentPPO as JAgentPPO
 from elegantrl_tpu.agents import AgentPPOHterm as JAgentPPOHterm
 from elegantrl_tpu.agents.base import Rollout as JRollout
 from elegantrl_tpu.config import Config as JConfig
+from elegantrl_tpu.envs import LunarLanderContinuousEnv as JLanderCont
 from elegantrl_tpu.envs import PendulumEnv as JPendulumEnv
 from elegantrl_tpu.envs import PointChasingVecEnv as JChasingEnv
 from elegantrl_tpu.envs.stock_trading import StockTradingVecEnv as JStockEnv
@@ -39,7 +40,8 @@ from elegantrl_tpu_torch import Config, build_training, train_agent
 from elegantrl_tpu_torch.agents import AgentA2C, AgentPPO, AgentPPOHterm
 from elegantrl_tpu_torch.agents import ppo as pppo
 from elegantrl_tpu_torch.agents.base import Rollout
-from elegantrl_tpu_torch.envs import PendulumEnv, PointChasingVecEnv, StockTradingVecEnv
+from elegantrl_tpu_torch.envs import (LunarLanderContinuousEnv, PendulumEnv, PointChasingVecEnv,
+                                      StockTradingVecEnv)
 from elegantrl_tpu_torch.train import runner
 from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
 from elegantrl_tpu_torch.utils.jax_params import env_state_from_numpy
@@ -53,6 +55,10 @@ ENVS = {
     'stock': (StockTradingVecEnv, JStockEnv, {'env_name': 'StockTradingEnv-v2',
                                               'max_step': 1112, 'state_dim': 151,
                                               'action_dim': 15}),
+    # no kernel body in either package: the generic rollout
+    'lunar_cont': (LunarLanderContinuousEnv, JLanderCont,
+                   {'env_name': 'LunarLanderContinuous-v2', 'max_step': 1000, 'state_dim': 8,
+                    'action_dim': 2}),
     # dim 3: no kernel body in either package (the chasing body is built for dim 2)
     'chasing3': (PointChasingVecEnv, JChasingEnv, {'env_name': 'PointChasingVecEnv',
                                                    'max_step': 1024, 'state_dim': 12,
@@ -71,6 +77,8 @@ GRID = {
     'a2c_pendulum': ('a2c', 'pendulum', (128, 128), 1024, 64, 512, 8),
     'hterm_pendulum': ('hterm', 'pendulum', (128, 128), 1024, 64, 512, 8),
     'chasing_no_body': ('ppo', 'chasing3', (128, 128), 1024, 64, 512, 8),
+    # ppo_lunarlander_cont (RESULTS.md:23): the generic rollout and K2 at U = 8
+    'ppo_lunarlander_cont': ('ppo', 'lunar_cont', (128, 128), 64, 256, 512, 16),
 }
 
 
@@ -147,6 +155,8 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         assert jax_rollout and jax_update
     if case == 'ppo_stock_4k':
         assert jax_rollout and not jax_update
+    if case == 'ppo_lunarlander_cont':
+        assert not jax_rollout and jax_update
 
 
 def test_make_ppo_three_layers_on_cuda_builds():

@@ -252,7 +252,11 @@ def test_selection_rule(modsac, capsys):
         make(device=device, net_dims=(256, 256))
         assert 'use_fused_update: PyTorch path' in capsys.readouterr().out
     make(device='cuda')                                                  # takes the kernel
-    assert 'PyTorch path' not in capsys.readouterr().out
+    out = capsys.readouterr().out
+    # the update takes its kernel; the actor's no-grad forward (an encoder
+    # and heads) is no 3-linear MLP for K11b, which is said
+    assert 'use_fused_update: PyTorch path' not in out
+    assert 'use_mlp3_kernel: PyTorch path' in out
     with pytest.raises(ValueError, match='use_fused_update=False .* CPU only'):
         make(device='cuda', use_fused_update=False)
     with pytest.raises(ValueError, match='use_fused_update=True requires'):
