@@ -72,11 +72,12 @@ PyTorch version:
     reporting ``cumulative_returns``), TD3, SAC and ModSAC on the stock env;
 14. LunarLander and the kernels of ``ops/kernels.py`` (``lunar_phases``):
     K10, the V-trace recursion, bitwise against its plain loop at 256 x 64,
-    64 x 4096 and 37 x 1000 (``k10_vs_plain``); K11a, the replay gather,
-    bitwise against ``buf[ids0, ids1]`` at ``dqn_lunarlander``'s row gather
-    and path D's chunk gather, for f32 rows, int32 actions, dim-1 columns and
-    the next-state offset, with that call's time as the library yardstick
-    (``k11a_vs_plain``); K11b, the fused 3-layer MLP forward, within 1e-5 of
+    64 x 4096 and 37 x 1000 (``k10_vs_plain``); K11a, the replay gather, one
+    launch for all six fields of a chunk (states and next states in the
+    (C, S, B) layout), bitwise against ``buf[ids0, ids1]`` at
+    ``dqn_lunarlander``'s row chunk and path D's chunk, int64 and int32 ids,
+    with six such calls and the transposes as the library yardstick, and
+    its one-field case (``k11a_vs_plain``); K11b, the fused 3-layer MLP forward, within 1e-5 of
     the largest plain output at (8, 128, 128, 2) for B = 64 and 16,384 and
     at (8, 256, 256, 4) for B = 64 (``k11b_vs_plain``); K2 at S = 8, A = 2,
     U = 8 (``k2_vs_plain_lunar``) and K9 at (256, 256), B = 256
@@ -87,7 +88,12 @@ PyTorch version:
     ``train_agent_single_process``), DQN and D3QN on LunarLander, and
     ``valid_agent`` on the saved D3QN agent against the trained state's
     greedy episodes;
-15. the kernels line and the device line.
+15. the seven Mosaic probes (``probe_phases``): each kernel of
+    ``ops/probes.py`` exactly equal to the JAX script's values (888, 1400,
+    448, ...) and to its plain version at the script's inputs and at seeded
+    random integer-valued tables and days (``probes_vs_plain``), then the
+    probes' entry point ``scripts/torch_probe_ops.py`` with the counts reset;
+16. the kernels line and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -184,9 +190,7 @@ def offpolicy_smem_pairs():
         out[f'offpolicy_rollout[{env_name},{head}]'] = (
             fr._library().offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
             fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
-    for S, A in ((4, 2), (8, 9)):
-        out[f'dqn_update[S={S},A={A}]'] = (fo._dqn_library().dqn_update_smem_bytes(S, A, *OFF_NET),
-                                           fo.dqn_smem_bytes(S, A, *OFF_NET))
+    out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
     for S, A, E in ((6, 2, 8), (3, 1, 1), (8, 2, 8)):
         out[f'ddpg_update[S={S},A={A},E={E}]'] = (
             fo._ddpg_library().ddpg_update_smem_bytes(S, A, *OFF_NET, E),
@@ -230,6 +234,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, PendulumEnv,
                                           PointChasingDiscreteEnv, PointChasingVecEnv)
     from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
+    from elegantrl_tpu_torch.ops import kernels as kn
     from elegantrl_tpu_torch.ops.nets import (ddpg_param_shapes, dqn_param_shapes, init_flat,
                                               sac_act_shapes, sac_cri_shapes, split_flat)
     from elegantrl_tpu_torch.ops.per import SegmentTree
@@ -244,6 +249,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     def reset_counts():
         for fn in counters:
             fn.launches = 0
+        kn.buffer_gather_fields.launches = 0
         fr.offpolicy_rollout.launches_by_kernel.clear()
         for fn in counters[1:]:
             for k in fn.launches_by_variant:
@@ -466,11 +472,22 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                   (torch.rand((C, B), generator=g, device=dev) > 0.05).float(),
                   (torch.rand((C, B), generator=g, device=dev) > 0.02).float()]
         idx = torch.arange(C, device=dev)
+        hyper = dict(net_dims=net, twin=twin, duel=duel, gamma=0.99, tau=5e-3, lr=1e-3,
+                     clip_grad=3.0)
         res = chunk_check(fo.dqn_chunk, fo.dqn_chunk_reference, base, blocks,
-                          lambda valid: fo.dqn_bcv(5, idx, valid),
-                          dict(net_dims=net, twin=twin, duel=duel, gamma=0.99, tau=5e-3,
-                               lr=1e-3, clip_grad=3.0),
+                          lambda valid: fo.dqn_bcv(5, idx, valid), hyper,
                           [dqn_param_shapes(S, net, A, twin, duel)] * 4)
+        # one cooperative launch: two runs bitwise equal; block 0's phase stamps
+        runs, trace = [], torch.zeros((C, 8), dtype=torch.int64, device=dev)
+        for tr in (None, trace):
+            bufs = [b.clone() for b in base]
+            objs = fo.dqn_chunk(*bufs, *blocks, fo.dqn_bcv(5, idx, C), **hyper, trace=tr)
+            torch.cuda.synchronize()
+            runs.append(bufs + [objs])
+        det = all(torch.equal(a, b) for a, b in zip(*runs))
+        assert det, ('K9: two runs differ', variant, net)
+        res.update(two_runs_bitwise_equal=det, launches_per_chunk=1,
+                   phase_ms=fo.dqn_phase_ms(trace))
         nh = A * (1 + twin) + (1 + twin) * duel
         fwd = 2 * B * (S * n1 + n1 * n2 + n2 * nh)
         b_ms, b_by = bound(4 * fwd * C, 4 * (8 * P + C * B * (2 * S + A + 3) + 3 * C + 2 * C))
@@ -802,13 +819,17 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         assert by_kernel == {f'{task[2]},{head}': ROUNDS}, by_kernel
         assert update_counts == {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}, update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
+        # K11a: one launch gathers every field of a chunk
+        gathers = kn.buffer_gather_fields.launches
+        assert gathers == ROUNDS * chunks, (phase, gathers, ROUNDS * chunks)
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
         emit(phase=phase, agent=task[0].__name__, env=task[2], envs=path['envs'],
              horizon=path['horizon'], ring_rows=rb.max_size, batch=path['batch'],
              repeat=path['repeat'], net_dims=OFF_NET, updates_per_round=U,
              ring_filled_by=f'{fills} kernel rollouts inserted without updates ({fill_s:.3f} s)',
-             rounds=ROUNDS, launches={'fused_rollout': by_kernel, 'update_chunks': update_counts},
+             rounds=ROUNDS, launches={'fused_rollout': by_kernel, 'update_chunks': update_counts,
+                                      'buffer_gather_fields': gathers},
              round_ms=round_ms,
              env_steps_per_s=path['envs'] * path['horizon'] / (round_ms / 1e3),
              updates_per_s=U / (round_ms / 1e3), **kernel_ms,
@@ -1588,6 +1609,12 @@ def synthetic_ring(torch, rb, buf):
     return buf._replace(ptr=0, size=rb.max_size)
 
 
+def buffer_rows(out, feature_major):
+    """A feature-major (C, dim, B) gather as the (C, B, dim) rows of the
+    one-field gather."""
+    return out.transpose(1, 2) if feature_major else out
+
+
 def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
     """K10, K11a and K11b against their plain versions, and the LunarLander
     paths; returns their entries of the kernels line (with K2 at S = 8, A = 2,
@@ -1628,39 +1655,70 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
         emit(phase='k10_vs_plain', H=H, N=N, bitwise_equal=True, **k10[(H, N)],
              library_ms=None, tolerance='exact')
 
-    # ---- K11a: bitwise equal to buf[ids0, ids1]; the library yardstick is
-    # that one PyTorch call
+    # ---- K11a: bitwise equal to buf[ids0, ids1]; one launch gathers every
+    # field of a chunk (ReplayBuffer.gather with feature_major, as the update
+    # chunks read them).  The library yardstick is one buf[ids0, ids1] call
+    # per field plus the transposes to (C, dim, B) where the kernel writes
+    # that layout; the port never calls it.  The one-field case (the JAX
+    # package's function) is checked at the same ids.
     k11a = {}
     g = torch.Generator(device=dev).manual_seed(12)
     ring_d = torch.randn((4000, 1024, 6), generator=g, device=dev)
-    rew_d = torch.randn((4000, 1024), generator=g, device=dev)
+    act_d = torch.randn((4000, 1024, 2), generator=g, device=dev)
+    cols_d = [torch.randn((4000, 1024), generator=g, device=dev) for _ in range(3)]
     ids0_d = torch.randint(0, 3999, (16, 1024), generator=g, device=dev)
     ids1_d = torch.randint(0, 1024, (16, 1024), generator=g, device=dev)
     ring_l = torch.randn((30000, 64, 8), generator=g, device=dev)
     act_l = torch.randint(0, 4, (30000, 64), generator=g, device=dev, dtype=torch.int32)
+    cols_l = [torch.randn((30000, 64), generator=g, device=dev) for _ in range(3)]
     rows = torch.randint(0, 29999, (16, 4), generator=g, device=dev)
     ids0_l = rows[..., None].expand(16, 4, 64).reshape(16, 256)
     ids1_l = torch.arange(64, device=dev).expand(16, 4, 64).reshape(16, 256)
-    cases = {'dqn_lunarlander_rows': (ring_l, ids0_l, ids1_l, [(act_l, 0), (ring_l, 1)]),
-             'path_d_chunk': (ring_d, ids0_d, ids1_d, [(rew_d, 0), (ring_d, 1)])}
-    for case, (ring, i0, i1, others) in cases.items():
-        for buf, off in [(ring, 0)] + others:
-            got = kn.buffer_gather(buf, i0, i1, off)
-            want = buf[i0 + off, i1]
+
+    def chunk_fields(ring, act, cols):
+        return ([(ring, 0, True), (act, 0, act.dim() == 3)] + [(c, 0, False) for c in cols]
+                + [(ring, 1, True)])
+
+    def library(fields, i0, i1):
+        outs = []
+        for buf, off, fm in fields:
+            out = buf[i0 + off, i1] if off else buf[i0, i1]
+            outs.append(out.transpose(1, 2).contiguous() if fm else out)
+        return outs
+
+    cases = {'dqn_lunarlander_chunk': (chunk_fields(ring_l, act_l, cols_l), ids0_l, ids1_l),
+             'path_d_chunk': (chunk_fields(ring_d, act_d, cols_d), ids0_d, ids1_d)}
+    for case, (fields, i0, i1) in cases.items():
+        for ids in ((i0, i1), (i0.int(), i1.int())):
+            got = kn.buffer_gather_fields(fields, *ids)
+            want = kn.buffer_gather_fields_reference(fields, *ids)
+            lib_out = library(fields, *ids)
+            one = [kn.buffer_gather(buf, *ids, off) for buf, off, _ in fields]
             torch.cuda.synchronize()
-            assert torch.equal(got, want), ('K11a differs from buf[ids0, ids1]', case, off,
-                                            buf.dtype, tuple(buf.shape))
-        ms = cuda_ms_(lambda: kn.buffer_gather(ring, i0, i1), reps=50, warmup=3)
-        plain = cuda_ms_(lambda: kn.buffer_gather_reference(ring, i0, i1), reps=50, warmup=3)
-        library = cuda_ms_(lambda: ring[i0, i1], reps=50, warmup=3)
-        row_bytes = ring.shape[2] * 4
-        b_ms, b_by = bound(0, i0.numel() * (2 * row_bytes + 2 * 8))
-        k11a[case] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=library,
-                          bound_ms=b_ms, bound_by=b_by)
-        emit(phase='k11a_vs_plain', case=case, ring=tuple(ring.shape), ids=tuple(i0.shape),
-             fields='states, next states (offset 1), and ' + (
-                 'int32 actions' if case.startswith('dqn') else 'rewards (dim 1)'),
-             bitwise_equal=True, **k11a[case], tolerance='exact')
+            for k, (a, b, c, d) in enumerate(zip(got, want, lib_out, one)):
+                assert torch.equal(a, b) and torch.equal(a, c), ('K11a differs', case, k,
+                                                                  ids[0].dtype)
+                assert torch.equal(d, buffer_rows(b, fields[k][2])), ('K11a one field', case, k)
+        ms = cuda_ms_(lambda: kn.buffer_gather_fields(fields, i0, i1), reps=50, warmup=3)
+        plain = cuda_ms_(lambda: kn.buffer_gather_fields_reference(fields, i0, i1), reps=50,
+                         warmup=3)
+        lib_ms = cuda_ms_(lambda: library(fields, i0, i1), reps=50, warmup=3)
+        one_ms = cuda_ms_(lambda: kn.buffer_gather(ring_l if case.startswith('dqn') else ring_d,
+                                                   i0, i1), reps=50, warmup=3)
+        nbytes = sum(i0.numel() * 2 * buf[0, 0].numel() * buf.element_size()
+                     for buf, _, _ in fields) + 2 * i0.numel() * 8
+        b_ms, b_by = bound(0, nbytes)
+        k11a[case] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, n_fields=len(fields),
+                          one_field_ms=one_ms)
+        emit(phase='k11a_vs_plain', case=case, ring=tuple(fields[0][0].shape),
+             ids=tuple(i0.shape), launches_per_chunk=1,
+             fields='states and next states (C, S, B), actions ' + (
+                 'int32 (C, B)' if case.startswith('dqn') else '(C, A, B)')
+             + ', rewards, undones, unmasks (C, B)', ids_dtypes='int64 and int32',
+             bitwise_equal=True, **k11a[case],
+             library='one buf[ids0, ids1] per field + transpose(1, 2).contiguous() where '
+                     'feature-major', tolerance='exact')
 
     # ---- K11b: within 1e-5 of the largest plain output (FP32 products
     # summed in another order than cuBLAS's, TF32 off; tanhf of two libraries)
@@ -1687,7 +1745,7 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
              tolerance='1e-5 x max|plain out|')
 
     # ---- the main paths, 10 rounds each at full width
-    counters = {'gae_vtrace': kn.gae_vtrace_kernel, 'buffer_gather': kn.buffer_gather,
+    counters = {'gae_vtrace': kn.gae_vtrace_kernel, 'buffer_gather': kn.buffer_gather_fields,
                 'fused_mlp3': kn.fused_mlp3, 'ppo_update': ppo_update, 'dqn_update': fo.dqn_chunk}
 
     def reset_counts():
@@ -1766,8 +1824,8 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
     chunks = -(-LUNAR_DQN['updates'] // 16)
     dqn_l = timed(lunar_args(AgentDQN, LUNAR_DQN), 'main_path_dqn_lunar',
                   # per round: K11b at every step (the greedy Q), K9 per chunk of
-                  # 16 updates, K11a for each of a chunk's six fields
-                  {'gae_vtrace': 0, 'buffer_gather': ROUNDS * chunks * 6,
+                  # 16 updates, K11a once per chunk for all six fields
+                  {'gae_vtrace': 0, 'buffer_gather': ROUNDS * chunks,
                    'fused_mlp3': ROUNDS * LUNAR_DQN['horizon'], 'ppo_update': 0,
                    'dqn_update': ROUNDS * chunks}, prepare=fill_ring)
     assert fo.dqn_chunk.launches_by_variant['dqn'] == ROUNDS * chunks
@@ -1791,7 +1849,7 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
             if agent_class is AgentPPO:
                 assert counts['gae_vtrace'] == 2 * periods and counts['ppo_update'] == 2 * periods
             else:
-                assert counts['buffer_gather'] >= 6 * 2 * periods and counts['dqn_update'] > 0
+                assert counts['buffer_gather'] == counts['dqn_update'] > 0   # one per chunk
             if agent_class is AgentD3QN:
                 # the encoder and heads run PyTorch ops, in the rollout and the evaluator
                 assert counts['fused_mlp3'] == 0 and counts['dqn_variants'].keys() == {'d3qn'}
@@ -1823,8 +1881,8 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
     kernels = [
         entry_of('gae_vtrace[256x64]', src, replaces + '123', ppo_l['gae_vtrace'], k10_main,
                  at_64x4096=k10[(64, 4096)], at_37x1000=k10[(37, 1000)]),
-        entry_of('buffer_gather[dqn_lunarlander rows]', src, replaces + '62',
-                 dqn_l['buffer_gather'], k11a['dqn_lunarlander_rows'],
+        entry_of('buffer_gather_fields[dqn_lunarlander chunk, 6 fields]', src, replaces + '62',
+                 dqn_l['buffer_gather'], k11a['dqn_lunarlander_chunk'],
                  path_d_chunk=k11a['path_d_chunk']),
         entry_of('fused_mlp3[8,128,128,2 B=64]', src, replaces + '172', ppo_l['fused_mlp3'],
                  k11b[((8, 128, 128, 2), 64)], at_B16384=k11b[((8, 128, 128, 2), 16384)]),
@@ -1841,6 +1899,83 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
                  entry['AgentD3QN']['dqn_variants']['d3qn'], k9_lunar['d3qn']),
     ]
     return kernels
+
+
+# ------------------------------------------------------------ Mosaic probes
+
+# each probe's output at the JAX script's inputs (tab = arange(T * R), day 3,
+# i filled with 5): row r of an (R, 128) output, or every cell of an (8, 128) one
+PROBE_EXPECTED = {
+    'sublane_dynslice_value': lambda r: 888.0, 'sublane_dynslice_ref': lambda r: 888.0,
+    'transpose_1xN': lambda r: float(r), 'dynslice_then_transpose': lambda r: 48.0 + r,
+    'scalar_from_vmem': lambda r: 1400.0, 'lane_dynslice_ref': lambda r: 64.0 * r + 3,
+    'fori_scalar_carry': lambda r: 448.0 + 8 * r}
+
+
+def probe_phases(torch, dev, bound):
+    """The seven Mosaic probes (``ops/probes.py``): each kernel exactly equal
+    to the values the JAX script's probes give and to its plain version, at
+    the script's inputs and at seeded random integer-valued tables and days
+    (exact in any summation order); then the probes' entry point
+    (``scripts/torch_probe_ops.py``) with the launch counts reset just
+    before it.  Returns their entries of the kernels line."""
+    import importlib.util
+    from pathlib import Path
+    from elegantrl_tpu_torch.ops import probes
+    T, R, L = probes.T_DEFAULT, probes.R_DEFAULT, probes.LANES
+    results = {}
+    for name, (fn, ref) in probes.WRAPPERS.items():
+        inputs = probes.probe_inputs(name, dev)
+        got, want = fn(*inputs), ref(*inputs)
+        torch.cuda.synchronize()
+        rows = got.shape[0]
+        expected = torch.tensor([[PROBE_EXPECTED[name](r)] * L for r in range(rows)],
+                                device=dev)
+        assert torch.equal(got, want) and torch.equal(got, expected), (
+            'probe differs', name, got.flatten()[:4].tolist(), expected.flatten()[:4].tolist())
+        g = torch.Generator().manual_seed(PROBES_SEED)
+        random_cases = []
+        for T_, R_ in ((T, R), (200, 151)):
+            for _ in range(3):
+                rin = probes.probe_inputs(name, dev, T_, R_, gen=g)
+                a, b = fn(*rin), ref(*rin)
+                torch.cuda.synchronize()
+                assert torch.equal(a, b), ('probe differs on random inputs', name, T_, R_)
+                random_cases.append((T_, R_))
+        ms = cuda_ms(torch, lambda: fn(*inputs), reps=50, warmup=3)
+        plain = cuda_ms(torch, lambda: ref(*inputs), reps=20, warmup=2)
+        # bytes the function needs: the row(s) it reads, the index, the output
+        read = {'transpose_1xN': R, 'fori_scalar_carry': probes.STEPS * R}.get(name, R + 1)
+        b_ms, b_by = bound(0, 4 * (read + got.numel()))
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by, first=got.flatten()[:4].tolist(),
+                             random_cases=len(random_cases))
+        emit(phase='probes_vs_plain', probe=name, out=tuple(got.shape),
+             first_values=results[name]['first'], expected_at_script_inputs=True,
+             random_inputs=sorted(set(random_cases)), bitwise_equal=True,
+             **{k: v for k, v in results[name].items() if k != 'first'}, library_ms=None,
+             tolerance='exact (integer-valued f32)')
+    # the probes' entry point, as a user runs it
+    path = Path(__file__).resolve().parent / 'scripts' / 'torch_probe_ops.py'
+    spec = importlib.util.spec_from_file_location('torch_probe_ops', path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    for fn, _ in probes.WRAPPERS.values():
+        fn.launches = 0
+    script.main()
+    launches = {name: fn.launches for name, (fn, _) in probes.WRAPPERS.items()}
+    assert all(n == 1 for n in launches.values()), launches
+    emit(phase='probes_entry_point', script='scripts/torch_probe_ops.py', launches=launches)
+    return [{'name': f'mosaic_probe[{name}]', 'route': 'cuda',
+             'source': 'elegantrl_tpu_torch/ops/csrc/probes.cu',
+             'replaces': f'scripts/probe_mosaic_ops.py:{probes.PROBES[name][2]}',
+             'launches': launches[name], 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+             'library_ms': None, 'main_path': 'scripts/torch_probe_ops.py (no training path)'}
+            for name, r in results.items()]
+
+
+PROBES_SEED = 17
 
 
 def main():
@@ -1887,7 +2022,7 @@ def main():
     # ---- 2. build
     t0 = time.time()
     logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update',
-                              'sac_update', 'kernels'])
+                              'sac_update', 'kernels', 'probes'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that
@@ -2428,7 +2563,10 @@ def main():
     # ---- 14. LunarLander (K10, K11a, K11b; K2 and K9 at the slice's widths)
     lunar_kernels = lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar)
 
-    # ---- 15. kernels line and device line
+    # ---- 15. the Mosaic probes
+    probe_kernels = probe_phases(torch, dev, bound)
+
+    # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
     update_src = 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu'
@@ -2461,7 +2599,7 @@ def main():
                     'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
                     'bound_by': d['bound_by'], 'library_ms': None,
                     'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
-    kernels += offpolicy_kernels + stock_kernels + lunar_kernels
+    kernels += offpolicy_kernels + stock_kernels + lunar_kernels + probe_kernels
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

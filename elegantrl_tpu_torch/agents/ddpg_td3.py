@@ -212,14 +212,10 @@ def _make(net_dims, state_dim: int, action_dim: int, args, buffer=None, td3: boo
         """One chunk's blocks ``(sb, nsb, ab (C, A, B), rb, ud, um)``, and under
         PER the draw against the tree as it stands: ``(ids0, ids1, iw (C, B))``."""
         if not if_use_per:
-            sb, nsb, ab, rb, ud, um = gather_chunk(buffer, buf_state, draws, batch_size,
-                                                   row_sample)
-            return (sb, nsb, ab.transpose(1, 2).contiguous(), rb, ud, um), None
+            return gather_chunk(buffer, buf_state, draws, batch_size, row_sample), None
         ids0, ids1, iw = buffer.per_ids(buf_state, batch_size, draws)
-        s_, a_, r_, ud, um, ns_, _ = buffer.gather(buf_state, ids0, ids1)
-        return ((s_.transpose(1, 2).contiguous(), ns_.transpose(1, 2).contiguous(),
-                 a_.transpose(1, 2).contiguous(), r_.contiguous(), ud.contiguous(),
-                 um.contiguous()), (ids0, ids1, iw.contiguous()))
+        s_, a_, r_, ud, um, ns_, _ = buffer.gather(buf_state, ids0, ids1, feature_major=True)
+        return (s_, ns_, a_, r_, ud, um), (ids0, ids1, iw.contiguous())
 
     def fused_update(s: DDPGState, buf_state, gen, ids=None, noise=None):
         """The chunked update, ``FUSED_CHUNK`` updates per call of

@@ -15,8 +15,8 @@
 
 On a card the plain net's no-grad forwards (exploration, evaluation) run
 K11b (``ops/kernels.py:fused_mlp3``) and the replay gathers K11a
-(``train/replay_buffer.py``); the twin and dueling nets' forwards run
-PyTorch ops.
+(``train/replay_buffer.py``, one launch per chunk); the twin and dueling
+nets' forwards run PyTorch ops.
 
 The Q-network is one flat buffer in the leaf order of
 ``ops/nets.py:dqn_param_shapes``.  The update is the fused chunk
@@ -37,8 +37,8 @@ import torch
 
 from ..config import select_kernel
 from ..ops import kernels
-from ..ops.fused_offpolicy_update import (dqn_bcv, dqn_chunk, dqn_next_q, dqn_q_greedy,
-                                          dqn_q_td, dqn_smem_bytes, dqn_td_errors, SMEM_LIMIT)
+from ..ops.fused_offpolicy_update import (dqn_bcv, dqn_chunk, dqn_fits, dqn_next_q,
+                                          dqn_q_greedy, dqn_q_td, dqn_td_errors)
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
 from ..ops.nets import dqn_param_shapes, init_flat, mlp3_forward, soft_update_, split_flat
@@ -71,13 +71,13 @@ def row_sampling(args, buffer, batch_size: int) -> bool:
 
 
 def gather_chunk(buffer, buf_state, draws, batch_size: int, row_sample: bool):
-    """Pre-gathered ``(C, ...)`` blocks of C minibatches:
-    ``(sb (C, S, B), nsb (C, S, B), actions (C, B[, A]), rb, ud, um (C, B))``."""
+    """Pre-gathered ``(C, ...)`` blocks of C minibatches, one K11a launch on
+    a card: ``(sb (C, S, B), nsb (C, S, B), actions ((C, A, B) continuous,
+    (C, B) discrete), rb, ud, um (C, B))``."""
     sample = buffer.sample_rows if row_sample else buffer.sample
     key = 'rows' if row_sample else 'ids'
-    s, a, r, ud, um, ns, _ = sample(buf_state, batch_size, **{key: draws})
-    return (s.transpose(1, 2).contiguous(), ns.transpose(1, 2).contiguous(), a,
-            r.contiguous(), ud.contiguous(), um.contiguous())
+    s, a, r, ud, um, ns, _ = sample(buf_state, batch_size, feature_major=True, **{key: draws})
+    return s, ns, a, r, ud, um
 
 
 def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False,
@@ -163,14 +163,13 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
     jax_takes = (buffer is not None and not if_use_per and lambda_fit_cum_r == 0.0
                  and len(net_dims) == 2 and batch_size % 128 == 0
                  and batch_size <= 2048 and max(net_dims) * batch_size <= 131072)
-    port_fits = len(net_dims) == 2 and dqn_smem_bytes(state_dim, action_dim,
-                                                      *net_dims) <= SMEM_LIMIT
+    port_fits = dqn_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'a batch that is a multiple of 128 and at most 2048 with max(net_dims) * batch <= '
-        f'131072, a 2-hidden-layer net whose tiles fit one block, uniform sampling (no PER) '
-        f'and lambda_fit_cum_r=0 (the DQN chunk); got batch_size={batch_size}, '
-        f'net_dims={net_dims}, if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')
+        f'131072, a 2-hidden-layer net, uniform sampling (no PER) and lambda_fit_cum_r=0 (the '
+        f'DQN chunk); got batch_size={batch_size}, net_dims={net_dims}, '
+        f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')
 
     def fused_update(s: DQNState, buf_state, gen, ids=None, noise=None):
         """The chunked update, ``FUSED_CHUNK`` updates per call of

@@ -268,7 +268,7 @@ def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             nz = noise[idx].transpose(2, 3)                             # (C, 2, A, B)
             objs = sac_chunk(s.act, s.cri, s.act_target, s.cri_target, s.act_opt.mu,
                              s.cri_opt.mu, s.act_opt.nu, s.cri_opt.nu, misc, sb, nsb,
-                             ab.transpose(1, 2).contiguous(), rb, ud, um,
+                             ab, rb, ud, um,
                              nz[:, 0].contiguous(), nz[:, 1].contiguous(),
                              sac_bcv(cc0, cl0, idx, U), **hypers)
             valid = (idx < U).float()

@@ -7,56 +7,73 @@
 // Replaces: elegantrl_tpu/ops/pallas_update.py, make_dqn_fused_chunk
 // (kernel at :476, pallas_call at :560).
 //
-// Bound on this card: operations by the roofline, launches and latency in
-// practice.  One update at B = 128 and (128, 128) is about 17.6 MFLOP (the
-// target forward, the online forward and its backward), about 0.26 us of
-// FP32 CUDA-core time for the whole card, and moves about 0.5 MB (p, t, mu,
-// nu read and written once), about 0.15 us; the three launches of a step,
-// and the 4 blocks that B = 128 fills, cost far more than either.
+// Bound on this card: operations by the roofline (4 forward-equivalents an
+// update: about 17.6 MFLOP at B = 128 and (128, 128), 0.26 us of the card's
+// FP32 rate; 0.5 MB of p, t, mu, nu, 0.15 us), grid barriers and latency in
+// practice.
 //
-// Design:
-// - On the TPU one kernel kept p, t, mu and nu (279 KB at (128, 128)) and
-//   the minibatch block resident in VMEM for all C steps.  Here they do not
-//   fit one block's 227 KB of shared memory, so each step is three launches
-//   launched one after another on one stream (as the PPO update's):
-//   1. fwd_bwd: one block per TB = 32 samples computes the target net's
-//      forward on nx (the TD label), the online net's forward on x, the loss
-//      and the hand-written backward, and writes its partial gradients and
-//      objective sums (no atomics, so results are deterministic);
-//   2. reduce: sums the partials per parameter and the squared norm;
-//   3. clip + Adam + Polyak with the step's bias corrections from the
-//      (C, 3) table, skipped entirely when the step's valid flag is 0 (every
-//      buffer then stays bit-identical), and the step's objectives.
-// - The nets are a trunk and heads.  Plain DQN: the trunk is two GELU
-//   layers and the one head is the output layer (A).  The other nets: the
-//   trunk is the encoder, GELU after layer 1 only, and the heads are val1
-//   (A), adv1 (1) when duel, val2 (A) and adv2 (1) when twin, in the flat
-//   buffer's leaf order.  Head outputs share one tile, one column range per
-//   head.
-// - Per sample (warp 0, lane = sample): q = val - mean(val) + adv for the
-//   twin dueling net (D3QN); the dueling net without a twin reads its value
-//   head alone on the TD path, as the reference's QNetDuel.get_q_value, so
-//   its adv1 head gets a zero gradient; the label is r + ud gamma max_a of
-//   the target's q (twin: of the min of both heads).  With q_a = sum(q *
-//   onehot) and d = 2 (q_a - label) um / B, the gradient into head values is
-//   onehot * d, through the dueling combine g - mean(g) into val and sum(g)
-//   into adv.  The heads' gradients at the encoding are summed (no GELU
-//   after the encoder), then the trunk's backward as for any MLP.
-// - No gradient passes through the target net: the label is a constant.
+// Design: one cooperative launch per chunk, one persistent block per SM,
+// every phase of every update spread over all blocks with a grid barrier
+// (grid_gemm.cuh) between phases.  On the TPU one kernel kept p, t, mu, nu
+// and the minibatch block resident in VMEM for all C steps; here they stay
+// in the 50 MB L2 across the chunk (about 1.1 MB at (256, 256)), with the
+// activations of the update in a workspace beside them.  Per update, seven
+// phases:
+//   1. layer 1 of the target net on nx and of the online net on x;
+//   2. layer 2 of both;
+//   3. per sample (one warp each): every head's outputs of both nets, the
+//      TD label from the target's, the loss, the objectives and the
+//      gradient at the online heads' outputs;
+//   4. the heads' weight gradients, and the gradient at layer 2's output
+//      (through GELU for plain DQN);
+//   5. layer 2's weight gradient, and the gradient at layer 1's output;
+//   6. layer 1's weight gradient; each block's share of the squared norm;
+//   7. clip + Adam + Polyak, elementwise over P, with the step's bias
+//      corrections from the (C, 3) table, skipped entirely when the step's
+//      valid flag is 0 (every buffer then stays bit-identical); block 0
+//      writes the step's objectives.
+// Products are 32 x 32 output tiles over all blocks (samples x features
+// forward and for the data gradients, out x in for the weight gradients),
+// each tile summing its whole depth, all B samples for a weight gradient,
+// inside one block: no partial gradients are written and read back, and
+// with the norm's per-block partials summed in block order, two runs are
+// bitwise equal.  Shared memory is one pair of operand tiles and 64 head
+// rows a warp (the workspace holds wider head tables), whatever D1, D2 or
+// B.  With a trace buffer, block 0 stamps %globaltimer as it passes each
+// phase's barrier, eight stamps an update, to show what sets the time.
+//
+// The nets are a trunk and heads.  Plain DQN: the trunk is two GELU layers
+// and the one head is the output layer (A).  The other nets: the trunk is
+// the encoder, GELU after layer 1 only, and the heads are val1 (A), adv1 (1)
+// when duel, val2 (A) and adv2 (1) when twin, in the flat buffer's leaf
+// order, stacked as the rows of one head table.  Per sample: q = val -
+// mean(val) + adv for the twin dueling net (D3QN); the dueling net without a
+// twin reads its value head alone on the TD path, as the reference's
+// QNetDuel.get_q_value, so its adv1 head gets a zero gradient; the label is
+// r + ud gamma max_a of the target's q (twin: of the min of both heads).
+// With q_a = sum(q * onehot) and d = 2 (q_a - label) um / B, the gradient
+// into head values is onehot * d, through the dueling combine g - mean(g)
+// into val and sum(g) into adv.  No gradient passes through the target net:
+// the label is a constant.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_grad.cuh"
+#include "grid_gemm.cuh"
 
 namespace {
 
-using namespace mlp;
+using gg::EPI_DGRAD;
+using gg::EPI_FWD;
+using gg::EPI_WGRAD;
+using gg::Job;
+using gg::Mat;
+using gg::mat;
 
 struct Heads {
   int n;          // number of heads
   int width[4];   // outputs of each head
-  int col[4];     // first column of each head in the head tile
+  int col[4];     // first row of each head in the head table
   int off[4];     // offset of each head's W in the flat buffer
 };
 
@@ -83,31 +100,24 @@ __host__ __device__ inline Heads make_heads(int S, int A, int D1, int D2, int tw
   return h;
 }
 
-__host__ __device__ inline int head_cols(int A) { return 2 * A + 2; }
-
-// Forward of the trunk and every head for the input in t.xn; head outputs
-// land in t.head.  enc: the second trunk layer is raw.
-__device__ void q_forward(const float* flat, const Tiles& t, const Heads& hd, int S,
-                          int D1, int D2, bool enc) {
-  const float* W1 = flat;
-  const float* b1 = W1 + D1 * S;
-  const float* W2 = b1 + D1;
-  const float* b2 = W2 + D2 * D1;
-  fwd<true>(W1, b1, t.xn, t.lds, t.z1, t.h1, t.ld1, D1, S);
-  __syncthreads();
-  if (enc) fwd<false>(W2, b2, t.h1, t.ld1, nullptr, t.h2, t.ld2, D2, D1);
-  else fwd<true>(W2, b2, t.h1, t.ld1, t.z2, t.h2, t.ld2, D2, D1);
-  __syncthreads();
-  for (int k = 0; k < hd.n; ++k) {  // distinct columns: no barrier between heads
-    const float* W = flat + hd.off[k];
-    fwd<false>(W, W + hd.width[k] * D2, t.h2, t.ld2, nullptr, t.head + hd.col[k], t.ldh,
-               hd.width[k], D2);
-  }
-  __syncthreads();
+__host__ __device__ inline int head_rows(const Heads& h) {
+  return h.col[h.n - 1] + h.width[h.n - 1];
 }
 
-// The TD-path q of head pair 0 (head 0, and head 1 when twin) for action a
-// of one sample's head row; means are precomputed.
+struct Args {
+  float *p, *t, *mu, *nu;
+  const float *sb, *nsb, *oh, *rb, *ud, *um, *bcv;
+  float* objs;
+  // workspace: activations of one update, then the gradient and partials
+  float *h1t, *h2t, *z1, *h1, *z2, *h2, *qt, *qo, *g, *grad, *normpart, *objpart;
+  unsigned int* bar;
+  unsigned long long* trace;  // (C, 8) stamps, or null
+  int C, B, S, A, D1, D2, twin, duel, P;
+  float gamma, tau, lr, clip_grad, b1, b2, eps;
+};
+
+// The TD-path q of head pair `pair` (head 0, and head 1 when twin) for
+// action a of one sample's head row; means are precomputed.
 __device__ __forceinline__ float q_td(const float* row, const Heads& hd, int pair, int a,
                                       bool combine, float mean) {
   const int k = combine ? 2 * pair : pair;  // value head of the pair
@@ -115,182 +125,387 @@ __device__ __forceinline__ float q_td(const float* row, const Heads& hd, int pai
   return combine ? v - mean + row[hd.col[k + 1]] : v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fwd_bwd_kernel(const float* __restrict__ p, const float* __restrict__ t,
-               const float* __restrict__ sb, const float* __restrict__ nsb,
-               const float* __restrict__ oh, const float* __restrict__ rb,
-               const float* __restrict__ ud, const float* __restrict__ um,
-               float* __restrict__ partial, float* __restrict__ objpart, int B, int S,
-               int A, int D1, int D2, int P, int twin, int duel, float gamma) {
-  extern __shared__ float smem[];
-  Tiles tl;
-  tl.lds = ld(S);
-  tl.ld1 = ld(D1);
-  tl.ld2 = ld(D2);
-  tl.ldh = ld(head_cols(A));
-  tl.xn = smem;
-  tl.z1 = tl.xn + TB * tl.lds;
-  tl.h1 = tl.z1 + TB * tl.ld1;
-  tl.z2 = tl.h1 + TB * tl.ld1;
-  tl.h2 = tl.z2 + TB * tl.ld2;
-  tl.head = tl.h2 + TB * tl.ld2;
-  float* label = tl.head + TB * tl.ldh;
+// One layer's forward: out (B, J) = act(in (B, K) W^T + b), W (J, K) at w.
+__device__ __forceinline__ Job fwd_job(const Mat& in, const float* w, int J, int K, int B,
+                                       float* out, float* pre, int gelu) {
+  Job j;
+  j.A = in;
+  j.B = mat(w, 1, K, K, J);  // (k, n) = W[n][k]
+  j.M = B;
+  j.N = J;
+  j.K = K;
+  j.e.kind = EPI_FWD;
+  j.e.out = out;
+  j.e.pre = pre;
+  j.e.bias = w + (long long)J * K;
+  j.e.ld = J;
+  j.e.gelu = gelu;
+  j.e.off = 0;
+  j.e.kin = 0;
+  j.e.heads = 0;
+  return j;
+}
 
-  const Heads hd = make_heads(S, A, D1, D2, twin, duel);
-  const bool enc = twin || duel;
-  const bool combine = twin && duel;
-  const int b0 = blockIdx.x * TB;
-  const int e = threadIdx.x;  // sample slot when e < TB (warp 0)
-  const int b = b0 + e;
-  const bool live = e < TB && b < B;
-  const float inv_B = 1.0f / (float)B;
+constexpr int ROW_CAP = 64;  // head-table rows a warp keeps in shared memory
 
-  // ---- the TD label from the target net on nx
-  for (int idx = threadIdx.x; idx < TB * S; idx += blockDim.x) {
-    const int i = idx / S, s = idx - i * S;
-    tl.xn[i * tl.lds + s] = b0 + i < B ? nsb[(size_t)s * B + b0 + i] : 0.f;
-  }
-  __syncthreads();
-  q_forward(t, tl, hd, S, D1, D2, enc);
-  if (e < TB) {
-    const float* row = tl.head + e * tl.ldh;
+// Phase 3: the heads of both nets, the label and the loss, one warp per
+// sample.  The sample's head rows live in the warp's shared-memory slots
+// (in the workspace when the table has more than ROW_CAP rows).
+__device__ void heads_phase(const Args& a, const Heads& hd, const gg::HeadMap& hm, int u,
+                            gg::Smem& sm, float (*rows)[2][ROW_CAP]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = gridDim.x * (gg::THREADS / 32);
+  const int B = a.B, A = a.A, D2 = a.D2, nc = head_rows(hd);
+  const bool twin = a.twin != 0, duel = a.duel != 0, combine = twin && duel;
+  const float* oh = a.oh + (size_t)u * A * B;
+  const float* rb = a.rb + (size_t)u * B;
+  const float* ud = a.ud + (size_t)u * B;
+  const float* um = a.um + (size_t)u * B;
+  float td_sum = 0.f, q_sum = 0.f;
+  for (int b = blockIdx.x * (gg::THREADS / 32) + warp; b < B; b += nw) {
+    const float* ht = a.h2t + (size_t)b * D2;
+    const float* ho = a.h2 + (size_t)b * D2;
+    float* rowt = nc <= ROW_CAP ? rows[warp][0] : a.qt + (size_t)b * nc;
+    float* row = nc <= ROW_CAP ? rows[warp][1] : a.qo + (size_t)b * nc;
+    for (int r = 0; r < nc; ++r) {
+      const int k = gg::head_of(hm, r), j = r - hm.col[k];
+      const long long wo = hm.off[k] + (long long)j * D2;
+      float st = 0.f, so = 0.f;
+#pragma unroll 4
+      for (int i = lane; i < D2; i += 32) {
+        st = fmaf(__ldcg(a.t + wo + i), __ldcg(ht + i), st);
+        so = fmaf(__ldcg(a.p + wo + i), __ldcg(ho + i), so);
+      }
+      st = mlp::warp_sum(st);
+      so = mlp::warp_sum(so);
+      if (lane == 0) {
+        const long long bo = hm.off[k] + (long long)hm.width[k] * D2 + j;
+        rowt[r] = st + __ldcg(a.t + bo);
+        row[r] = so + __ldcg(a.p + bo);
+      }
+    }
+    if (lane != 0) continue;
+    // ---- the TD label from the target's heads
     float m1 = 0.f, m2 = 0.f;
     if (combine) {
-      for (int a = 0; a < A; ++a) {
-        m1 += row[hd.col[0] + a];
-        m2 += row[hd.col[2] + a];
+      for (int c = 0; c < A; ++c) {
+        m1 += rowt[hd.col[0] + c];
+        m2 += rowt[hd.col[2] + c];
       }
       m1 /= (float)A;
       m2 /= (float)A;
     }
     float best = 0.f;
-    for (int a = 0; a < A; ++a) {
-      float q = q_td(row, hd, 0, a, combine, m1);
-      if (twin) q = fminf(q, q_td(row, hd, 1, a, combine, m2));
-      best = a == 0 ? q : fmaxf(best, q);
+    for (int c = 0; c < A; ++c) {
+      float q = q_td(rowt, hd, 0, c, combine, m1);
+      if (twin) q = fminf(q, q_td(rowt, hd, 1, c, combine, m2));
+      best = c == 0 ? q : fmaxf(best, q);
     }
-    label[e] = live ? rb[b] + ud[b] * gamma * best : 0.f;
-  }
-  __syncthreads();
-
-  // ---- the online net on x: loss, objectives, gradients at the heads
-  for (int idx = threadIdx.x; idx < TB * S; idx += blockDim.x) {
-    const int i = idx / S, s = idx - i * S;
-    tl.xn[i * tl.lds + s] = b0 + i < B ? sb[(size_t)s * B + b0 + i] : 0.f;
-  }
-  __syncthreads();
-  q_forward(p, tl, hd, S, D1, D2, enc);
-  if (e < TB) {
-    float* row = tl.head + e * tl.ldh;
+    const float label = __ldg(rb + b) + __ldg(ud + b) * a.gamma * best;
+    // ---- the online heads: loss, objectives, gradient at the head values
     float m[2] = {0.f, 0.f};
     if (combine) {
-      for (int a = 0; a < A; ++a) {
-        m[0] += row[hd.col[0] + a];
-        m[1] += row[hd.col[2] + a];
+      for (int c = 0; c < A; ++c) {
+        m[0] += row[hd.col[0] + c];
+        m[1] += row[hd.col[2] + c];
       }
       m[0] /= (float)A;
       m[1] /= (float)A;
     }
     const int pairs = twin ? 2 : 1;
     float qa[2] = {0.f, 0.f};
-    for (int pr = 0; pr < pairs; ++pr)
-      for (int a = 0; a < A; ++a)
-        qa[pr] += q_td(row, hd, pr, a, combine, m[pr]) * (live ? oh[(size_t)a * B + b] : 0.f);
-    const float w = live ? um[b] : 0.f;
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr)
+      if (pr < pairs)
+        for (int c = 0; c < A; ++c)
+          qa[pr] += q_td(row, hd, pr, c, combine, m[pr]) * __ldg(oh + (size_t)c * B + b);
+    const float w = __ldg(um + b);
     float td = 0.f;
     float d[2] = {0.f, 0.f};
-    for (int pr = 0; pr < pairs; ++pr) {
-      const float diff = qa[pr] - label[e];
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      if (pr >= pairs) continue;
+      const float diff = qa[pr] - label;
       td += diff * diff * w;
-      d[pr] = 2.0f * diff * w * inv_B;
+      d[pr] = 2.0f * diff * w / (float)B;
     }
-    // gradients into the head values: onehot * d, through the combine
-    for (int pr = 0; pr < pairs; ++pr) {
+    float* grow = a.g + (size_t)b * nc;
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      if (pr >= pairs) continue;
       const int k = combine ? 2 * pr : pr;
       float gsum = 0.f;
-      for (int a = 0; a < A; ++a) gsum += (live ? oh[(size_t)a * B + b] : 0.f) * d[pr];
-      for (int a = 0; a < A; ++a) {
-        const float g = (live ? oh[(size_t)a * B + b] : 0.f) * d[pr];
-        row[hd.col[k] + a] = combine ? g - gsum / (float)A : g;
+      for (int c = 0; c < A; ++c) gsum += __ldg(oh + (size_t)c * B + b) * d[pr];
+      for (int c = 0; c < A; ++c) {
+        const float gv = __ldg(oh + (size_t)c * B + b) * d[pr];
+        grow[hd.col[k] + c] = combine ? gv - gsum / (float)A : gv;
       }
-      if (combine) row[hd.col[k + 1]] = gsum;
+      if (combine) grow[hd.col[k + 1]] = gsum;
     }
-    if (duel && !twin) row[hd.col[1]] = 0.f;  // the TD path does not read adv1
-    const float obj_td = warp_sum(td);
-    const float obj_q = warp_sum(live ? qa[0] : 0.f);
-    if (e == 0) {
-      objpart[blockIdx.x * 2 + 0] = obj_td;
-      objpart[blockIdx.x * 2 + 1] = obj_q;
-    }
+    if (duel && !twin) grow[hd.col[1]] = 0.f;  // the TD path does not read adv1
+    td_sum += td;
+    q_sum += qa[0];
   }
-  __syncthreads();
-
-  // ---- backward: heads, then the trunk
-  float* g = partial + (size_t)blockIdx.x * P;
-  for (int k = 0; k < hd.n; ++k) {
-    const float* W = p + hd.off[k];
-    const int J = hd.width[k];
-    wgrad(tl.head + hd.col[k], tl.ldh, tl.h2, tl.ld2, g + hd.off[k], g + hd.off[k] + J * D2,
-          J, D2);
-    if (!enc) bwd_in<0>(W, tl.head + hd.col[k], tl.ldh, tl.z2, tl.ld2, J, D2);
-    else if (k == 0) bwd_in<1>(W, tl.head + hd.col[k], tl.ldh, tl.z2, tl.ld2, J, D2);
-    else bwd_in<2>(W, tl.head + hd.col[k], tl.ldh, tl.z2, tl.ld2, J, D2);
+  const float2 s = gg::block_sum2(td_sum, q_sum, sm);
+  if (threadIdx.x == 0) {
+    a.objpart[blockIdx.x * 2 + 0] = s.x;
+    a.objpart[blockIdx.x * 2 + 1] = s.y;
   }
-  __syncthreads();  // z2 holds d loss / d (layer-2 pre-activation)
-  const float* W2 = p + D1 * S + D1;
-  wgrad(tl.z2, tl.ld2, tl.h1, tl.ld1, g + D1 * S + D1, g + D1 * S + D1 + D2 * D1, D2, D1);
-  bwd_data(W2, tl.z2, tl.ld2, tl.z1, tl.ld1, D2, D1);
-  __syncthreads();
-  wgrad(tl.z1, tl.ld1, tl.xn, tl.lds, g, g + D1 * S, D1, S);
 }
+
+// Phase 7: the objectives, then clip + Adam + Polyak unless the step is
+// invalid.  The per-block partials are summed by every block in one fixed
+// order, so every block scales by the same norm.
+__device__ void adam_phase(const Args& a, int u, gg::Smem& sm) {
+  const float* bcv = a.bcv + (size_t)u * 3;
+  if (blockIdx.x == 0) {
+    float o0 = 0.f, o1 = 0.f;
+    for (int k = threadIdx.x; k < (int)gridDim.x; k += blockDim.x) {
+      o0 += __ldcg(a.objpart + 2 * k);
+      o1 += __ldcg(a.objpart + 2 * k + 1);
+    }
+    const float2 o = gg::block_sum2(o0, o1, sm);
+    if (threadIdx.x == 0) {
+      a.objs[(size_t)u * 2] = o.x / (float)a.B;
+      a.objs[(size_t)u * 2 + 1] = o.y / (float)a.B;
+    }
+  }
+  if (!(__ldg(bcv + 2) > 0.f)) return;
+  float n = 0.f;
+  for (int k = threadIdx.x; k < (int)gridDim.x; k += blockDim.x) n += __ldcg(a.normpart + k);
+  const float gn = sqrtf(gg::block_sum2(n, 0.f, sm).x);
+  const float scale = gn < a.clip_grad ? 1.0f : a.clip_grad / gn;
+  const float bc1 = __ldg(bcv), bc2 = __ldg(bcv + 1);
+  const float b1 = a.b1, b2 = a.b2;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.P; i += gridDim.x * blockDim.x) {
+    const float g = __ldcg(a.grad + i) * scale;
+    const float m = b1 * __ldcg(a.mu + i) + (1.0f - b1) * g;
+    const float v = b2 * __ldcg(a.nu + i) + (1.0f - b2) * g * g;
+    a.mu[i] = m;
+    a.nu[i] = v;
+    const float pn = __ldcg(a.p + i) - a.lr * (m / bc1) / (sqrtf(v / bc2) + a.eps);
+    a.p[i] = pn;
+    a.t[i] = __ldcg(a.t + i) * (1.0f - a.tau) + pn * a.tau;
+  }
+}
+
+__device__ __forceinline__ void stamp(const Args& a, int u, int k) {
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    a.trace[u * 8 + k] = ns;
+  }
+}
+
+__global__ void __launch_bounds__(gg::THREADS, 1) dqn_chunk_kernel(const Args a) {
+  __shared__ gg::Smem sm;
+  __shared__ float rows[gg::THREADS / 32][2][ROW_CAP];
+  __shared__ Heads hd;       // indexed by computed heads: kept out of local memory
+  __shared__ gg::HeadMap hm;
+  const int B = a.B, S = a.S, D1 = a.D1, D2 = a.D2;
+  if (threadIdx.x == 0) {
+    hd = make_heads(S, a.A, D1, D2, a.twin, a.duel);
+    hm.n = hd.n;
+    hm.d = D2;
+    for (int k = 0; k < 4; ++k) {
+      hm.col[k] = hd.col[k];
+      hm.width[k] = hd.width[k];
+      hm.off[k] = hd.off[k];
+    }
+  }
+  __syncthreads();
+  const int nc = head_rows(hd);
+  const bool enc = a.twin || a.duel;
+  const long long oW2 = (long long)D1 * S + D1;  // layer 2's W in the flat buffer
+  for (int u = 0; u < a.C; ++u) {
+    const float* x = a.sb + (size_t)u * S * B;
+    const float* nx = a.nsb + (size_t)u * S * B;
+    float sq = 0.f;  // this thread's share of the squared gradient norm
+    stamp(a, u, 0);
+    // ---- 1. layer 1 of the target on nx and the online net on x
+    {
+      gg::run_jobs(fwd_job(mat(nx, 1, B, B, S), a.t, D1, S, B, a.h1t, nullptr, 1),
+                   fwd_job(mat(x, 1, B, B, S), a.p, D1, S, B, a.h1, a.z1, 1), hm, sm, sq);
+    }
+    gg::grid_sync(a.bar);
+    stamp(a, u, 1);
+    // ---- 2. layer 2 of both
+    {
+      gg::run_jobs(
+          fwd_job(mat(a.h1t, D1, 1, B, D1), a.t + oW2, D2, D1, B, a.h2t, nullptr, !enc),
+          fwd_job(mat(a.h1, D1, 1, B, D1), a.p + oW2, D2, D1, B, a.h2, a.z2, !enc), hm, sm, sq);
+    }
+    gg::grid_sync(a.bar);
+    stamp(a, u, 2);
+    // ---- 3. heads, label, loss, the gradient at the heads (g, (B, nc))
+    heads_phase(a, hd, hm, u, sm, rows);
+    gg::grid_sync(a.bar);
+    stamp(a, u, 3);
+    // ---- 4. the heads' weight gradients; the gradient at layer 2's output
+    {
+      Job jobs[2];
+      jobs[0].A = mat(a.g, 1, nc, nc, B);                // (r, b) = g[b][r]
+      jobs[0].B = mat(a.h2, D2, 1, B, D2 + 1, D2);       // [h2, 1]
+      jobs[0].M = nc;
+      jobs[0].N = D2 + 1;
+      jobs[0].K = B;
+      jobs[0].e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, 0, D2, 1};
+      jobs[1].A = mat(a.g, nc, 1, B, nc);                // (b, r)
+      jobs[1].B = mat(a.p, 0, 1, nc, D2, -1, 1);         // head rows of p
+      jobs[1].M = B;
+      jobs[1].N = D2;
+      jobs[1].K = nc;
+      jobs[1].e = {EPI_DGRAD, a.z2, nullptr, nullptr, D2, !enc, 0, 0, 0};
+      gg::run_jobs(jobs[0], jobs[1], hm, sm, sq);
+    }
+    gg::grid_sync(a.bar);
+    stamp(a, u, 4);
+    // ---- 5. layer 2's weight gradient; the gradient at layer 1's output
+    {
+      Job jobs[2];
+      jobs[0].A = mat(a.z2, 1, D2, D2, B);               // (j, b) = dz2[b][j]
+      jobs[0].B = mat(a.h1, D1, 1, B, D1 + 1, D1);       // [h1, 1]
+      jobs[0].M = D2;
+      jobs[0].N = D1 + 1;
+      jobs[0].K = B;
+      jobs[0].e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, oW2, D1, 0};
+      jobs[1].A = mat(a.z2, D2, 1, B, D2);               // (b, j)
+      jobs[1].B = mat(a.p + oW2, D1, 1, D2, D1);         // W2 (j, i)
+      jobs[1].M = B;
+      jobs[1].N = D1;
+      jobs[1].K = D2;
+      jobs[1].e = {EPI_DGRAD, a.z1, nullptr, nullptr, D1, 1, 0, 0, 0};
+      gg::run_jobs(jobs[0], jobs[1], hm, sm, sq);
+    }
+    gg::grid_sync(a.bar);
+    stamp(a, u, 5);
+    // ---- 6. layer 1's weight gradient, then this block's norm partial
+    {
+      Job job;
+      job.A = mat(a.z1, 1, D1, D1, B);                   // (j, b) = dz1[b][j]
+      job.B = mat(x, 1, B, B, S + 1, S);                 // [x, 1], x[b][s] = sb[s][b]
+      job.M = D1;
+      job.N = S + 1;
+      job.K = B;
+      job.e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, 0, S, 0};
+      gg::run_jobs(job, hm, sm, sq);
+      const float s = gg::block_sum2(sq, 0.f, sm).x;
+      if (threadIdx.x == 0) a.normpart[blockIdx.x] = s;
+    }
+    gg::grid_sync(a.bar);
+    stamp(a, u, 6);
+    // ---- 7. clip + Adam + Polyak
+    adam_phase(a, u, sm);
+    if (u + 1 < a.C) gg::grid_sync(a.bar);
+    stamp(a, u, 7);
+  }
+}
+
+inline int round4(long long n) { return (int)((n + 3) / 4 * 4); }
 
 }  // namespace
 
-// Dynamic shared memory of one fwd_bwd block, in bytes.
-extern "C" int dqn_update_smem_bytes(int S, int A, int D1, int D2) {
-  return (int)sizeof(float) * TB *
-         (ld(S) + 2 * ld(D1) + 2 * ld(D2) + ld(head_cols(A)) + 1);
+// Shared memory of one block's operand tiles, reduction slots and warps'
+// head rows, in bytes (the two head tables add 136), whatever the widths or
+// the batch.
+extern "C" int dqn_update_smem_bytes() {
+  return (int)(sizeof(gg::Smem) + sizeof(float) * (gg::THREADS / 32) * 2 * ROW_CAP);
 }
 
-// Scratch sizes: partial gradients (nb, P), objective partials (nb, 2),
-// gradient (P), norm partials (nr).
-extern "C" int dqn_update_blocks(int B) { return (B + TB - 1) / TB; }
-extern "C" int dqn_update_reduce_blocks(int P) { return reduce_blocks(P); }
+// Blocks of the cooperative launch: one per SM.  Negative (minus the CUDA
+// error) when the card cannot launch cooperatively or cannot hold a block
+// on every SM.
+extern "C" int dqn_update_grid() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  int coop = 0, sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return -(int)err;
+  if (!coop) return -(int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return -(int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dqn_chunk_kernel, gg::THREADS, 0);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  return sms;
+}
+
+// Floats of the workspace for a launch of `grid` blocks.
+extern "C" long long dqn_update_workspace_floats(int B, int S, int A, int D1, int D2, int twin,
+                                                 int duel, int grid) {
+  const Heads hd = make_heads(S, A, D1, D2, twin, duel);
+  const long long P = hd.off[hd.n - 1] + (long long)hd.width[hd.n - 1] * (D2 + 1);
+  const long long nc = head_rows(hd);
+  return 3LL * round4((long long)B * D1) + 3LL * round4((long long)B * D2) +
+         3LL * round4((long long)B * nc) + round4(P) + round4(grid) + round4(2LL * grid) + 4;
+}
 
 // bcv: (C, 3) float rows (1 - b1^step, 1 - b2^step, valid).  Blocks: sb,
-// nsb (C, S, B), oh (C, A, B), rb, ud, um (C, B).  objs: (C, 2).
+// nsb (C, S, B), oh (C, A, B), rb, ud, um (C, B).  objs: (C, 2).  ws: the
+// workspace, dqn_update_workspace_floats(...) floats; grid from
+// dqn_update_grid(); trace null or (C, 8) uint64 phase stamps.  One
+// cooperative launch; returns its CUDA status.
 extern "C" int dqn_update(void* p, void* t, void* mu, void* nu, const void* sb,
                           const void* nsb, const void* oh, const void* rb, const void* ud,
-                          const void* um, const void* bcv, void* partial, void* objpart,
-                          void* grad, void* normpart, void* objs, int C, int B, int S, int A,
-                          int D1, int D2, int twin, int duel, float gamma, float tau,
-                          float lr, float clip_grad, float b1, float b2, float eps,
-                          void* stream) {
-  const int smem = dqn_update_smem_bytes(S, A, D1, D2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+                          const void* um, const void* bcv, void* ws, void* objs, void* trace,
+                          int grid,
+                          int C, int B, int S, int A, int D1, int D2, int twin, int duel,
+                          float gamma, float tau, float lr, float clip_grad, float b1, float b2,
+                          float eps, void* stream) {
+  if (grid < 1 || C < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const Heads hd = make_heads(S, A, D1, D2, twin, duel);
-  const int P = hd.off[hd.n - 1] + hd.width[hd.n - 1] * (D2 + 1);
-  const int nb = dqn_update_blocks(B), nr = dqn_update_reduce_blocks(P);
+  Args a;
+  a.p = (float*)p;
+  a.t = (float*)t;
+  a.mu = (float*)mu;
+  a.nu = (float*)nu;
+  a.sb = (const float*)sb;
+  a.nsb = (const float*)nsb;
+  a.oh = (const float*)oh;
+  a.rb = (const float*)rb;
+  a.ud = (const float*)ud;
+  a.um = (const float*)um;
+  a.bcv = (const float*)bcv;
+  a.objs = (float*)objs;
+  const long long nc = head_rows(hd);
+  float* w = (float*)ws;
+  a.h1t = w; w += round4((long long)B * D1);
+  a.z1 = w; w += round4((long long)B * D1);
+  a.h1 = w; w += round4((long long)B * D1);
+  a.h2t = w; w += round4((long long)B * D2);
+  a.z2 = w; w += round4((long long)B * D2);
+  a.h2 = w; w += round4((long long)B * D2);
+  a.qt = w; w += round4((long long)B * nc);
+  a.qo = w; w += round4((long long)B * nc);
+  a.g = w; w += round4((long long)B * nc);
+  a.P = hd.off[hd.n - 1] + hd.width[hd.n - 1] * (D2 + 1);
+  a.grad = w; w += round4(a.P);
+  a.normpart = w; w += round4(grid);
+  a.objpart = w; w += round4(2LL * grid);
+  a.bar = (unsigned int*)w;
+  a.trace = (unsigned long long*)trace;
+  a.C = C;
+  a.B = B;
+  a.S = S;
+  a.A = A;
+  a.D1 = D1;
+  a.D2 = D2;
+  a.twin = twin;
+  a.duel = duel;
+  a.gamma = gamma;
+  a.tau = tau;
+  a.lr = lr;
+  a.clip_grad = clip_grad;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.eps = eps;
   cudaStream_t st = (cudaStream_t)stream;
-  for (int u = 0; u < C; ++u) {
-    const size_t o = (size_t)u * B;
-    fwd_bwd_kernel<<<nb, THREADS, smem, st>>>(
-        (const float*)p, (const float*)t, (const float*)sb + o * S,
-        (const float*)nsb + o * S, (const float*)oh + o * A, (const float*)rb + o,
-        (const float*)ud + o, (const float*)um + o, (float*)partial, (float*)objpart, B, S,
-        A, D1, D2, P, twin, duel, gamma);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    reduce_one_kernel<<<nr, THREADS, 0, st>>>((const float*)partial, nb, P, (float*)grad,
-                                              (float*)normpart);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    clip_adam_polyak_kernel<<<nr, THREADS, 0, st>>>(
-        (float*)p, (float*)mu, (float*)nu, (float*)t, (const float*)grad,
-        (const float*)normpart, nr, P, (const float*)bcv + (size_t)u * 3, 0, 1, 2, -1,
-        (const float*)objpart, nb, (float*)objs + (size_t)u * 2, 0, 2, B, lr, clip_grad, b1,
-        b2, eps, tau);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), st);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {(void*)&a};
+  err = cudaLaunchCooperativeKernel((const void*)dqn_chunk_kernel, dim3(grid),
+                                    dim3(gg::THREADS), params, 0, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -14,16 +14,27 @@
 //    would contract a*b+c into an FMA), so the result is bitwise the plain
 //    version's (ops/kernels.py:gae_vtrace_reference).
 //
-// 2. buffer_gather_kernel (K11a) replaces buffer_gather (:62; kernel
+// 2. gather_fields_kernel (K11a) replaces buffer_gather (:62; kernel
 //    _gather_kernel :48, pallas_call :84): out[b] = buf[ids0[b] + offset,
-//    ids1[b], :] for a (T, N, row) buffer of any dtype, int32 or int64 ids.
-//    Bound: bytes (the gathered rows read and written once, plus the ids).
-//    Design: rows are copied as 4-byte words where the row and the pointers
-//    allow it, else as bytes; consecutive threads take consecutive words, so
-//    a row is one coalesced segment.  The TPU kernel's per-row DMAs and its
-//    padding of B to 8 were its way to move rows into VMEM; a copy is bitwise
-//    buf[ids0, ids1] (negative ids wrap as in PyTorch; ids out of range are
-//    the caller's fault, as no check can raise from here).
+//    ids1[b], :] for a (T, N, row) buffer of any dtype, int32 or int64 ids,
+//    for up to eight fields of the replay ring in one launch.
+//    Bound: bytes (the gathered rows read and written once, plus the ids):
+//    about 0.1-0.4 us at a chunk's shapes, so launch and host time set the
+//    time.  Design: the wrapper sends a table of fields (base, row bytes,
+//    T, N, row offset, output and its byte strides), passed by value as one
+//    kernel parameter, so one launch gathers every field of a minibatch
+//    chunk (blockIdx.z = field, blockIdx.y = the leading index c of the
+//    ids, blockIdx.x = a tile of 256 samples).  Rows are copied as 16-byte
+//    vectors where the row bytes and both pointers allow it, else 4-byte
+//    words, else bytes; 2^k threads share one sample (k from the row's
+//    vector count), so the sample index comes from the thread coordinates
+//    by shifts, with no divide per word.  The output strides let a (T, N,
+//    dim) field come out feature-major, (..., dim, B), the layout the update
+//    chunks read: one thread per sample then writes its row's words B apart,
+//    so a warp's stores coalesce.  The TPU kernel's per-row DMAs and its
+//    padding of B to 8 were its way to move rows into VMEM; a copy is
+//    bitwise buf[ids0, ids1] (negative ids wrap as in PyTorch; ids out of
+//    range are the caller's fault, as no check can raise from here).
 //
 // 3. fused_mlp3_kernel (K11b) replaces fused_mlp3 (:172; kernel
 //    _mlp3_kernel :161, pallas_call :184): gelu(gelu(x W0^T + b0) W1^T + b1)
@@ -70,19 +81,53 @@ __global__ void gae_vtrace_kernel(const float* __restrict__ r, const float* __re
 
 // ---------------------------------------------------------- K11a gather
 
-template <typename W, typename I>
-__global__ void buffer_gather_kernel(const W* __restrict__ buf, const I* __restrict__ ids0,
-                                     const I* __restrict__ ids1, W* __restrict__ out,
-                                     long long B, long long T, long long N, long long words,
-                                     long long offset) {
-  const long long total = B * words;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long b = i / words, w = i - b * words;
-    long long t = (long long)ids0[b] + offset, n = (long long)ids1[b];
-    if (t < 0) t += T;
-    if (n < 0) n += N;
-    out[i] = buf[(t * N + n) * words + w];
+constexpr int GATHER_MAX_FIELDS = 8;
+constexpr int GATHER_SAMPLES = 256;  // samples per block (and threads per block)
+constexpr int GATHER_DESC = 11;      // int64 words per field in the host's table
+
+struct GatherField {
+  const uint8_t* buf;
+  uint8_t* out;
+  long long T, N, row_bytes, offset;
+  long long out_c, out_b, out_u;  // output byte strides of c, sample b, copy unit u
+  int unit;                       // bytes per copy: 16, 4 or 1
+  int tps_log2;                   // log2 of the threads that share one sample
+};
+
+struct GatherParams {
+  GatherField f[GATHER_MAX_FIELDS];
+  const void* ids0;
+  const void* ids1;
+  long long Bl;  // samples per leading index (the ids' last axis)
+};
+
+template <typename I>
+__global__ void __launch_bounds__(GATHER_SAMPLES) gather_fields_kernel(const GatherParams P) {
+  const GatherField F = P.f[blockIdx.z];
+  const long long c = blockIdx.y;
+  const I* i0 = (const I*)P.ids0 + c * P.Bl;
+  const I* i1 = (const I*)P.ids1 + c * P.Bl;
+  const int tps = 1 << F.tps_log2;
+  const int lane = threadIdx.x & (tps - 1);
+  const int units = (int)(F.row_bytes / F.unit);
+  uint8_t* out_c = F.out + c * F.out_c;
+  for (int j = threadIdx.x >> F.tps_log2; j < GATHER_SAMPLES; j += GATHER_SAMPLES >> F.tps_log2) {
+    const long long b = (long long)blockIdx.x * GATHER_SAMPLES + j;
+    if (b >= P.Bl) break;
+    long long t = (long long)__ldg(i0 + b) + F.offset, n = (long long)__ldg(i1 + b);
+    if (t < 0) t += F.T;
+    if (n < 0) n += F.N;
+    const uint8_t* src = F.buf + (t * F.N + n) * F.row_bytes;
+    uint8_t* dst = out_c + b * F.out_b;
+    if (F.unit == 16) {
+      for (int u = lane; u < units; u += tps)
+        *(uint4*)(dst + u * F.out_u) = __ldg((const uint4*)src + u);
+    } else if (F.unit == 4) {
+      for (int u = lane; u < units; u += tps)
+        *(uint32_t*)(dst + u * F.out_u) = __ldg((const uint32_t*)src + u);
+    } else {
+      for (int u = lane; u < units; u += tps) dst[u * F.out_u] = src[u];
+    }
   }
 }
 
@@ -213,27 +258,38 @@ extern "C" int gae_vtrace(const void* r, const void* u, const void* v, const voi
   return (int)cudaGetLastError();
 }
 
-// word_bytes: 4 or 1 (the wrapper picks 4 where the row and pointers allow);
-// idx64: the ids are int64, else int32.
-extern "C" int buffer_gather(const void* buf, const void* ids0, const void* ids1, void* out,
-                             long long B, long long T, long long N, long long row_bytes,
-                             long long offset, int word_bytes, int idx64, void* stream) {
-  const long long words = row_bytes / word_bytes;
-  const long long total = B * words;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 65535 * 32 ? want : 65535 * 32);
-  cudaStream_t s = (cudaStream_t)stream;
-#define GATHER(WT, IT)                                                                   \
-  buffer_gather_kernel<WT, IT><<<blocks, threads, 0, s>>>(                               \
-      (const WT*)buf, (const IT*)ids0, (const IT*)ids1, (WT*)out, B, T, N, words, offset)
-  if (word_bytes == 4) {
-    if (idx64) GATHER(uint32_t, int64_t); else GATHER(uint32_t, int32_t);
-  } else {
-    if (idx64) GATHER(uint8_t, int64_t); else GATHER(uint8_t, int32_t);
+// desc: nf rows of GATHER_DESC int64 words (buf, out, T, N, row_bytes,
+// offset, out_c, out_b, out_u, unit, tps_log2); the ids are (C, Bl),
+// int64 when idx64, else int32.
+extern "C" int buffer_gather_fields(const long long* desc, int nf, const void* ids0,
+                                    const void* ids1, long long C, long long Bl, int idx64,
+                                    void* stream) {
+  if (nf < 1 || nf > GATHER_MAX_FIELDS || C > 65535) return (int)cudaErrorInvalidValue;
+  if (C == 0 || Bl == 0) return 0;
+  GatherParams P;
+  for (int k = 0; k < nf; ++k) {
+    const long long* d = desc + (size_t)k * GATHER_DESC;
+    GatherField& F = P.f[k];
+    F.buf = (const uint8_t*)d[0];
+    F.out = (uint8_t*)d[1];
+    F.T = d[2];
+    F.N = d[3];
+    F.row_bytes = d[4];
+    F.offset = d[5];
+    F.out_c = d[6];
+    F.out_b = d[7];
+    F.out_u = d[8];
+    F.unit = (int)d[9];
+    F.tps_log2 = (int)d[10];
   }
-#undef GATHER
+  P.ids0 = ids0;
+  P.ids1 = ids1;
+  P.Bl = Bl;
+  const dim3 grid((unsigned)((Bl + GATHER_SAMPLES - 1) / GATHER_SAMPLES), (unsigned)C,
+                  (unsigned)nf);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (idx64) gather_fields_kernel<int64_t><<<grid, GATHER_SAMPLES, 0, s>>>(P);
+  else gather_fields_kernel<int32_t><<<grid, GATHER_SAMPLES, 0, s>>>(P);
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,7 @@ from .nets import (ddpg_param_shapes, dqn_param_shapes, gelu, mlp_apply_leaves,
                    sac_act_shapes, sac_cri_shapes, soft_update_, split_flat)
 
 SMEM_LIMIT = 232448
-_TB = 32   # samples per fwd_bwd block (csrc/dqn_update.cu, ddpg_update.cu, sac_update.cu)
+_TB = 32   # samples per fwd_bwd block (csrc/ddpg_update.cu, sac_update.cu)
 
 
 # ------------------------------------------------------------ DQN nets
@@ -521,12 +521,18 @@ def dqn_variant(twin: bool, duel: bool) -> str:
             (True, True): 'd3qn'}[(bool(twin), bool(duel))]
 
 
-def dqn_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int) -> int:
-    """Dynamic shared memory of one DQN fwd_bwd block.  ``csrc/dqn_update.cu``
-    owns the layout (``dqn_update_smem_bytes``, which the wrapper uses); this
-    copy only judges eligibility where the library is not built (the CPU)."""
-    ld = lambda k: k | 1  # noqa: E731
-    return 4 * _TB * (ld(state_dim) + 2 * ld(d1) + 2 * ld(d2) + ld(2 * action_dim + 2) + 1)
+# Shared memory of one block of the DQN chunk's persistent kernel, the same
+# for every width, batch and head: gg::Smem (two 32 x 33 operand tiles, 8 x 2
+# reduction slots) and 8 warps' 2 x 64 head rows.  csrc/dqn_update.cu owns
+# the layout (dqn_update_smem_bytes); chip_smoke.py checks this copy.
+DQN_SMEM_BYTES = 4 * (2 * 32 * 33 + 8 * 2) + 4 * 8 * 2 * 64
+
+
+def dqn_fits(net_dims: Sequence[int]) -> bool:
+    """Whether the DQN chunk's kernel takes a net: any of two hidden layers
+    (its shared memory, ``DQN_SMEM_BYTES``, does not grow with the widths,
+    the batch or the heads)."""
+    return len(net_dims) == 2
 
 
 def ddpg_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
@@ -554,9 +560,13 @@ def _check_blocks(what, dev, C, S, A, B, blocks, bcv, bcv_cols):
 
 def dqn_chunk(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *, net_dims: Sequence[int],
               twin: bool, duel: bool, gamma: float, tau: float, lr: float, clip_grad: float,
-              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
-    """The DQN-family chunk: CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  In place; returns the ``(C, 2)`` objectives."""
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+              trace=None) -> torch.Tensor:
+    """The DQN-family chunk: CUDA kernel for CUDA tensors (one cooperative
+    launch, one block per SM; a card that refuses the launch raises), the
+    plain version for CPU tensors.  In place; returns the ``(C, 2)``
+    objectives.  ``trace``, a ``(C, 8)`` int64 CUDA tensor, receives the
+    kernel's phase stamps (ns; ``dqn_phase_ms`` reads them)."""
     kw = dict(net_dims=net_dims, twin=twin, duel=duel, gamma=gamma, tau=tau, lr=lr,
               clip_grad=clip_grad, b1=b1, b2=b2, eps=eps)
     args = (p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv)
@@ -577,20 +587,19 @@ def dqn_chunk(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *, net_dims: Sequence[
     _check_blocks('dqn_chunk', dev, C, S, A, B,
                   (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('oh', oh, (C, A, B)),
                    ('rb', rb, (C, B)), ('ud', ud, (C, B)), ('um', um, (C, B))), bcv, 3)
+    if trace is not None:
+        check_tensor('dqn_chunk', 'trace', trace, (C, 8), torch.int64, dev)
     lib = _dqn_library()
-    smem = lib.dqn_update_smem_bytes(S, A, D1, D2)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'dqn_chunk: net_dims={(D1, D2)} needs {smem} bytes of shared memory '
-                         f'per block, more than the {SMEM_LIMIT} a Hopper block can hold')
-    partial, objpart, grad, normpart = _scratch(lib, lib.dqn_update_blocks,
-                                                lib.dqn_update_reduce_blocks, B, P, dev)
+    grid = _dqn_grid(lib, dev)
+    ws = torch.empty(lib.dqn_update_workspace_floats(B, S, A, D1, D2, int(bool(twin)),
+                                                     int(bool(duel)), grid),
+                     dtype=torch.float32, device=dev)
     objs = torch.empty((C, 2), dtype=torch.float32, device=dev)
     f = ctypes.c_float
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.dqn_update(
-        *[ptr(x) for x in (p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv,
-                           partial, objpart, grad, normpart, objs)],
-        C, B, S, A, D1, D2, int(bool(twin)), int(bool(duel)),
+        *[ptr(x) for x in (p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, ws, objs, trace)],
+        grid, C, B, S, A, D1, D2, int(bool(twin)), int(bool(duel)),
         f(gamma), f(tau), f(lr), f(clip_grad), f(b1), f(b2), f(eps), ctypes.c_void_p(stream))
     variant = dqn_variant(twin, duel)
     check(status, f'dqn_update[{variant}]')
@@ -755,9 +764,47 @@ def _bind(lib, fn_name, n_ptr, n_int, sizes, n_float=7):
 
 def _dqn_library():
     from ._cuda_build import load
-    return _bind(load('dqn_update'), 'dqn_update', 16, 8,
-                 (('dqn_update_smem_bytes', 4), ('dqn_update_blocks', 1),
-                  ('dqn_update_reduce_blocks', 1)))
+    lib = load('dqn_update')
+    if lib.dqn_update.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dqn_update.argtypes = [vp] * 14 + [i] * 9 + [f] * 7 + [vp]
+        lib.dqn_update_smem_bytes.argtypes = []
+        lib.dqn_update_grid.argtypes = []
+        lib.dqn_update_workspace_floats.argtypes = [i] * 8
+        lib.dqn_update_workspace_floats.restype = ctypes.c_longlong
+        for fn in (lib.dqn_update, lib.dqn_update_smem_bytes, lib.dqn_update_grid):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+_dqn_grids = {}
+
+DQN_PHASES = ('layer 1', 'layer 2', 'heads and loss', 'head grads', 'layer 2 grads',
+              'layer 1 grads', 'clip + Adam + Polyak')
+
+
+def dqn_phase_ms(trace: torch.Tensor) -> dict:
+    """Mean ms per update of each of the DQN chunk kernel's seven phases,
+    from a ``dqn_chunk(..., trace=)`` buffer (block 0's barrier stamps; the
+    last update's Adam phase is block 0's alone)."""
+    t = trace.detach().cpu().double()
+    d = (t[:, 1:] - t[:, :-1]) / 1e6
+    return {name: float(d[:, k].mean()) for k, name in enumerate(DQN_PHASES)}
+
+
+def _dqn_grid(lib, dev) -> int:
+    """Blocks of the chunk's cooperative launch on ``dev`` (one per SM);
+    raises where the card cannot launch it cooperatively."""
+    key = torch.device(dev).index if torch.device(dev).index is not None \
+        else torch.cuda.current_device()
+    if key not in _dqn_grids:
+        with torch.cuda.device(key):
+            grid = lib.dqn_update_grid()
+        if grid <= 0:
+            raise RuntimeError(f'dqn_chunk: the card refuses the cooperative launch of one '
+                               f'block per SM (CUDA error {-grid})')
+        _dqn_grids[key] = grid
+    return _dqn_grids[key]
 
 
 def _ddpg_library():

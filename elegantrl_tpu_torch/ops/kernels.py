@@ -5,8 +5,10 @@ Each kernel's wrapper stands beside its plain PyTorch version:
 
 - :func:`gae_vtrace_kernel` / :func:`gae_vtrace_reference` (K10): the
   reverse V-trace recursion of ``ops/gae.py:gae_vtrace``;
-- :func:`buffer_gather` / :func:`buffer_gather_reference` (K11a): the row
-  gather ``buf[ids0 + offset, ids1]`` of the replay ring;
+- :func:`buffer_gather_fields` / :func:`buffer_gather_fields_reference`
+  (K11a): the row gathers ``buf[ids0 + offset, ids1]`` of every field of the
+  replay ring in one launch, optionally feature-major; :func:`buffer_gather`
+  is its one-field case;
 - :func:`fused_mlp3` / :func:`fused_mlp3_reference` (K11b): ``gelu(gelu(x
   W0^T + b0) W1^T + b1) W2^T + b2``, tanh-GELU, weights ``(out, in)`` as the
   port's ``nn.Linear`` layers keep them (the JAX package's are ``(in,
@@ -92,43 +94,108 @@ gae_vtrace_kernel.launches = 0
 
 # ------------------------------------------------------------ K11a gather
 
+GATHER_MAX_FIELDS = 8   # fields per launch (csrc/kernels.cu)
+
+
 def buffer_gather_reference(buf: torch.Tensor, ids0: torch.Tensor, ids1: torch.Tensor,
                             offset: int = 0) -> torch.Tensor:
     """``buf[ids0 + offset, ids1]``: shape ``ids.shape + buf.shape[2:]``."""
     return buf[ids0 + offset if offset else ids0, ids1]
 
 
+def buffer_gather_fields_reference(fields, ids0: torch.Tensor, ids1: torch.Tensor) -> list:
+    """Every field's ``buf[ids0 + offset, ids1]``, for ``fields`` a sequence
+    of ``(buf, offset, feature_major)``; a feature-major field (a ``(T, N,
+    dim)`` buffer) comes out ``ids.shape[:-1] + (dim, ids.shape[-1])``,
+    contiguous, as the kernel writes it."""
+    outs = []
+    for buf, offset, feature_major in fields:
+        out = buffer_gather_reference(buf, ids0, ids1, offset)
+        outs.append(out.transpose(-1, -2).contiguous() if feature_major else out)
+    return outs
+
+
+def _gather_launch(what: str, fields, ids0: torch.Tensor, ids1: torch.Tensor) -> list:
+    """One K11a launch for every field; the caller counts it."""
+    from ._cuda_build import check
+    dev = ids0.device
+    if ids0.shape != ids1.shape or ids0.dtype != ids1.dtype \
+            or ids0.dtype not in (torch.int32, torch.int64) or ids0.dim() < 1:
+        raise ValueError(f'{what}: ids0 and ids1 must be int32 or int64 of one shape (at '
+                         f'least 1-d); got {ids0.dtype} {tuple(ids0.shape)} and {ids1.dtype} '
+                         f'{tuple(ids1.shape)}')
+    if ids1.device != dev:
+        raise ValueError(f'{what}: ids0 on {dev}, ids1 on {ids1.device}')
+    if not 1 <= len(fields) <= GATHER_MAX_FIELDS:
+        raise ValueError(f'{what}: 1 to {GATHER_MAX_FIELDS} fields per launch; got {len(fields)}')
+    ids0, ids1 = ids0.contiguous(), ids1.contiguous()
+    lead, Bl = ids0.shape[:-1], ids0.shape[-1]
+    C = math.prod(lead)
+    if C > 65535:
+        raise ValueError(f'{what}: at most 65535 leading rows of ids; got {C}')
+    desc, outs = [], []
+    for buf, offset, feature_major in fields:
+        if buf.device != dev or buf.dim() < 2 or not buf.is_contiguous():
+            raise ValueError(f'{what}: each buf must be a contiguous (T, N, ...) tensor on '
+                             f'{dev}; got {tuple(buf.shape)} on {buf.device}'
+                             f'{"" if buf.is_contiguous() else " (not contiguous)"}')
+        T, N = buf.shape[:2]
+        row = buf.shape[2:]
+        size = buf.element_size()
+        row_bytes = math.prod(row) * size
+        if feature_major:
+            if buf.dim() != 3 or size != 4:
+                raise ValueError(f'{what}: a feature-major field needs a (T, N, dim) buffer of '
+                                 f'4-byte elements; got {buf.dtype} {tuple(buf.shape)}')
+            out = torch.empty(lead + (row[0], Bl), dtype=buf.dtype, device=dev)
+            unit, tps_log2 = 4, 0
+            out_c, out_b, out_u = row_bytes * Bl, 4, 4 * Bl
+        else:
+            out = torch.empty(ids0.shape + row, dtype=buf.dtype, device=dev)
+            aligned = buf.data_ptr() | out.data_ptr()
+            unit = next(u for u in (16, 4, 1) if row_bytes % u == 0 and aligned % u == 0)
+            tps_log2 = min(5, max(0, (row_bytes // unit - 1).bit_length()))
+            out_c, out_b, out_u = row_bytes * Bl, row_bytes, unit
+        desc += [buf.data_ptr(), out.data_ptr(), T, N, row_bytes, int(offset), out_c, out_b,
+                 out_u, unit, tps_log2]
+        outs.append(out)
+    if ids0.numel() == 0:
+        return outs
+    lib = _library()
+    status = lib.buffer_gather_fields(
+        (ctypes.c_longlong * len(desc))(*desc), len(fields), ids0.data_ptr(), ids1.data_ptr(),
+        C, Bl, int(ids0.dtype == torch.int64), _stream(dev))
+    check(status, what)
+    return outs
+
+
+def buffer_gather_fields(fields, ids0: torch.Tensor, ids1: torch.Tensor) -> list:
+    """K11a for CUDA tensors: every field of ``fields``, a sequence of up to
+    eight ``(buf, offset, feature_major)``, gathered at the same ids in one
+    launch; the plain version for CPU tensors.  ``buf (T, N, ...)`` of any
+    dtype, contiguous; ``ids0``, ``ids1`` int32 or int64 of one shape,
+    ``0 <= ids0 + offset < T``.  A feature-major field (``(T, N, dim)``, 4-byte
+    elements) comes out ``ids.shape[:-1] + (dim, ids.shape[-1])``, the
+    layout the update chunks read; the others ``ids.shape + buf.shape[2:]``."""
+    if ids0.device.type == 'cpu':
+        return buffer_gather_fields_reference(fields, ids0, ids1)
+    _cuda_only('buffer_gather_fields', ids0)
+    outs = _gather_launch('buffer_gather_fields', fields, ids0, ids1)
+    buffer_gather_fields.launches += 1
+    return outs
+
+
+buffer_gather_fields.launches = 0
+
+
 def buffer_gather(buf: torch.Tensor, ids0: torch.Tensor, ids1: torch.Tensor,
                   offset: int = 0) -> torch.Tensor:
-    """K11a for CUDA tensors (one launch per call), the plain version for
-    CPU ones.  ``buf (T, N, ...)`` of any dtype, contiguous; ``ids0``,
-    ``ids1`` int32 or int64 of one shape, ``0 <= ids0 + offset < T``."""
+    """K11a for one field (the counterpart of the JAX package's function):
+    one launch for CUDA tensors, the plain version for CPU ones."""
     if buf.device.type == 'cpu':
         return buffer_gather_reference(buf, ids0, ids1, offset)
     _cuda_only('buffer_gather', buf)
-    from ._cuda_build import check
-    if buf.dim() < 2 or not buf.is_contiguous():
-        raise ValueError(f'buffer_gather: buf must be a contiguous (T, N, ...) tensor; got '
-                         f'{tuple(buf.shape)}{"" if buf.is_contiguous() else " (not contiguous)"}')
-    if ids0.shape != ids1.shape or ids0.dtype != ids1.dtype \
-            or ids0.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f'buffer_gather: ids0 and ids1 must be int32 or int64 of one shape; '
-                         f'got {ids0.dtype} {tuple(ids0.shape)} and {ids1.dtype} '
-                         f'{tuple(ids1.shape)}')
-    if ids0.device != buf.device or ids1.device != buf.device:
-        raise ValueError(f'buffer_gather: ids on {ids0.device}/{ids1.device}, buf on {buf.device}')
-    ids0, ids1 = ids0.contiguous(), ids1.contiguous()
-    T, N = buf.shape[:2]
-    row = buf.shape[2:]
-    out = torch.empty(ids0.shape + row, dtype=buf.dtype, device=buf.device)
-    row_bytes = math.prod(row) * buf.element_size()
-    word = 4 if row_bytes % 4 == 0 and buf.data_ptr() % 4 == 0 else 1
-    status = _library().buffer_gather(
-        ctypes.c_void_p(buf.data_ptr()), ctypes.c_void_p(ids0.data_ptr()),
-        ctypes.c_void_p(ids1.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ids0.numel(), T, N, row_bytes, int(offset), word, int(ids0.dtype == torch.int64),
-        _stream(buf.device))
-    check(status, 'buffer_gather')
+    out, = _gather_launch('buffer_gather', [(buf, offset, False)], ids0, ids1)
     buffer_gather.launches += 1
     return out
 
@@ -206,9 +273,10 @@ def _library():
     if lib.gae_vtrace.argtypes is None:
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.gae_vtrace.argtypes = [vp] * 5 + [i, i, f, f, vp]
-        lib.buffer_gather.argtypes = [vp] * 4 + [ll] * 5 + [i, i, vp]
+        lib.buffer_gather_fields.argtypes = [ctypes.POINTER(ll), i, vp, vp, ll, ll, i, vp]
         lib.fused_mlp3.argtypes = [vp] * 8 + [i] * 5 + [vp]
         lib.fused_mlp3_smem_bytes.argtypes = [i] * 3
-        for fn in (lib.gae_vtrace, lib.buffer_gather, lib.fused_mlp3, lib.fused_mlp3_smem_bytes):
+        for fn in (lib.gae_vtrace, lib.buffer_gather_fields, lib.fused_mlp3,
+                   lib.fused_mlp3_smem_bytes):
             fn.restype = ctypes.c_int
     return lib

@@ -12,9 +12,12 @@
   reference's seam artifact at the ring pointer, kept for parity;
 - :meth:`ReplayBuffer.sample_rows`: ``R = batch_size // num_seqs`` whole
   time rows, sample ``b = r * num_seqs + n``;
-- the gathers of :meth:`ReplayBuffer.gather` and :meth:`ReplayBuffer.sample_rows`
-  run K11a (``ops/kernels.py:buffer_gather``, one launch per field) on a
-  card, bitwise equal to the indexing they replace;
+- the gathers of :meth:`ReplayBuffer.gather` (and so of :meth:`sample`,
+  :meth:`sample_rows` and :meth:`sample_for_per`) run K11a
+  (``ops/kernels.py:buffer_gather_fields``, one launch for all six fields)
+  on a card, bitwise equal to the indexing they replace; with
+  ``feature_major`` the states, next states and continuous actions come out
+  ``(..., dim, B)``, the layout the update chunks read;
 
 - prioritised replay (``if_use_per``): the batched segment tree of
   ``ops/per.py`` in ``per_tree``; fresh rows get priority 10;
@@ -74,7 +77,7 @@ class ReplayBuffer:
         self.per_beta = float(getattr(args, 'per_beta', 0.4))
         self.if_use_cum_rewards = float(getattr(args, 'lambda_fit_cum_r', 0.0)) != 0.0
         self.tree = SegmentTree(self.max_size, self.num_seqs) if if_use_per else None
-        # K11a (ops/kernels.py:buffer_gather) takes every field's gather
+        # K11a (ops/kernels.py:buffer_gather_fields) takes every gather
         self.use_gather_kernel = kernels.select(args, 'use_gather_kernel', True, self.device,
                                                 'the gather of any replay field')
 
@@ -128,29 +131,38 @@ class ReplayBuffer:
                              device=gen.device)
 
     def sample(self, buf: BufferState, batch_size: int, gen: Optional[torch.Generator] = None,
-               ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+               ids: Optional[torch.Tensor] = None, feature_major: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
         """Uniform sample of ``batch_size`` transitions, from ``ids`` (flat
         ids below ``sample_len * num_seqs``) or drawn from ``gen``; returns
         ``(state, action, reward, undone, unmask, next_state, (ids0, ids1))``,
-        leading axis ``batch_size`` (any leading shape of ``ids``)."""
+        leading axis ``batch_size`` (any leading shape of ``ids``; see
+        :meth:`gather` for ``feature_major``)."""
         if ids is None:
             ids = self.draw(buf, gen, 1, batch_size, rows=False)[0]
         n = self.sample_len(buf)
-        return self.gather(buf, ids % n, ids // n)
+        return self.gather(buf, ids % n, ids // n, feature_major)
 
-    def gather(self, buf: BufferState, ids0: torch.Tensor, ids1: torch.Tensor
-               ) -> Tuple[torch.Tensor, ...]:
+    def gather(self, buf: BufferState, ids0: torch.Tensor, ids1: torch.Tensor,
+               feature_major: bool = False) -> Tuple[torch.Tensor, ...]:
         """The transitions at rows ``ids0`` of sequences ``ids1``: ``(state,
-        action, reward, undone, unmask, next_state, (ids0, ids1))``; each
-        field one K11a launch on a card (``use_gather_kernel``)."""
-        fn = kernels.buffer_gather if self.use_gather_kernel else kernels.buffer_gather_reference
-        return (fn(buf.states, ids0, ids1), fn(buf.actions, ids0, ids1),
-                fn(buf.rewards, ids0, ids1), fn(buf.undones, ids0, ids1),
-                fn(buf.unmasks, ids0, ids1), fn(buf.states, ids0, ids1, 1), (ids0, ids1))
+        action, reward, undone, unmask, next_state, (ids0, ids1))``, all six
+        fields in one K11a launch on a card (``use_gather_kernel``).  With
+        ``feature_major`` the state, next state and (continuous) action come
+        out ``ids.shape[:-1] + (dim, B)``, contiguous."""
+        fn = (kernels.buffer_gather_fields if self.use_gather_kernel
+              else kernels.buffer_gather_fields_reference)
+        fm = bool(feature_major)
+        fields = [(buf.states, 0, fm), (buf.actions, 0, fm and buf.actions.dim() == 3),
+                  (buf.rewards, 0, False), (buf.undones, 0, False), (buf.unmasks, 0, False),
+                  (buf.states, 1, fm)]
+        s, a, r, ud, um, ns = fn(fields, ids0, ids1)
+        return s, a, r, ud, um, ns, (ids0, ids1)
 
     def sample_rows(self, buf: BufferState, batch_size: int,
                     gen: Optional[torch.Generator] = None,
-                    rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                    rows: Optional[torch.Tensor] = None, feature_major: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
         """Row-stratified sample: ``R = batch_size // num_seqs`` whole time
         rows (``rows``, or drawn from ``gen``), every env column of them;
         sample ``b = r * num_seqs + n``.  Same return contract as
@@ -162,7 +174,7 @@ class ReplayBuffer:
         cols = torch.arange(N, device=rows.device, dtype=rows.dtype)
         ids0 = rows[..., :, None].expand(lead + (rows.shape[-1], N)).reshape(lead + (-1,))
         ids1 = cols.expand(lead + (rows.shape[-1], N)).reshape(lead + (-1,))
-        return self.gather(buf, ids0, ids1)
+        return self.gather(buf, ids0, ids1, feature_major)
 
     def per_ids(self, buf: BufferState, batch_size: int, u: torch.Tensor):
         """The PER draw for uniforms ``u (..., N, sub)``: ``(ids0, ids1,

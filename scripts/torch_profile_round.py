@@ -79,7 +79,8 @@ def launch_counters():
     return {'fused_rollout': fr.rollout, 'critic_values': fr.critic_values,
             'offpolicy_rollout': fr.offpolicy_rollout, 'ppo_update': ppo_update,
             'dqn_update': fo.dqn_chunk, 'ddpg_update': fo.ddpg_chunk, 'sac_update': fo.sac_chunk,
-            'gae_vtrace': kernels.gae_vtrace_kernel, 'buffer_gather': kernels.buffer_gather,
+            'gae_vtrace': kernels.gae_vtrace_kernel,
+            'buffer_gather_fields': kernels.buffer_gather_fields,
             'fused_mlp3': kernels.fused_mlp3}
 
 

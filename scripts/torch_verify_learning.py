@@ -237,11 +237,11 @@ def main():
     from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk, sac_chunk
     from elegantrl_tpu_torch.ops.fused_rollout import critic_values, offpolicy_rollout, rollout
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
-    from elegantrl_tpu_torch.ops.kernels import buffer_gather, fused_mlp3, gae_vtrace_kernel
+    from elegantrl_tpu_torch.ops.kernels import buffer_gather_fields, fused_mlp3, gae_vtrace_kernel
     counted = {'fused_rollout': rollout, 'critic_values': critic_values,
                'offpolicy_rollout': offpolicy_rollout, 'ppo_update': ppo_update,
                'dqn_update': dqn_chunk, 'ddpg_update': ddpg_chunk, 'sac_update': sac_chunk,
-               'gae_vtrace': gae_vtrace_kernel, 'buffer_gather': buffer_gather,
+               'gae_vtrace': gae_vtrace_kernel, 'buffer_gather_fields': buffer_gather_fields,
                'fused_mlp3': fused_mlp3}
 
     if opts.device == 'cuda':

@@ -54,6 +54,17 @@ def test_lunar_lander_and_kernel_modules_are_probed():
         assert os.path.isfile(os.path.join(PKG, *rel)), rel
 
 
+def test_probe_module_and_script_are_probed():
+    """The Mosaic probes' module and CUDA source (read by the source scan
+    below) and their script, which imports no JAX either."""
+    for rel in (('ops', 'probes.py'), ('ops', 'csrc', 'probes.cu'),
+                ('ops', 'csrc', 'grid_gemm.cuh')):
+        assert os.path.isfile(os.path.join(PKG, *rel)), rel
+    with open(os.path.join(ROOT, 'scripts', 'torch_probe_ops.py')) as f:
+        text = f.read()
+    assert not re.search(r'^\s*(import|from)\s+(jax|elegantrl_tpu)\b', text, re.M)
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

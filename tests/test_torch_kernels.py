@@ -1,4 +1,5 @@
-"""The plain versions of K10, K11a and K11b (``elegantrl_tpu_torch/ops/kernels.py``)
+"""The plain versions of K10, K11a (one field, and every replay field of a
+chunk in one call) and K11b (``elegantrl_tpu_torch/ops/kernels.py``)
 against the JAX package's Pallas kernels (``elegantrl_tpu/ops/pallas_kernels.py``,
 in interpret mode under ``jax.jit``, as ``tests/test_pallas_kernels.py`` runs
 them) and against the port's ``*_reference`` twins; then the three switches
@@ -82,6 +83,70 @@ def test_k11a_plain_matches_pallas_kernel(dtype, dim):
     assert torch.equal(nxt, tbuf[i0.long() + 1, i1.long()])
 
 
+@pytest.mark.parametrize('idx_dtype', [np.int32, np.int64])
+def test_k11a_fields_plain_matches_pallas_kernel(idx_dtype):
+    """Every replay field of a (C, B) chunk in one call: f32 states in the
+    (C, S, B) layout (and the offset-1 next states), f32 actions (C, A, B),
+    int32 actions and dim-1 columns (C, B), against the JAX kernel field by
+    field (its ids flat, int32, the offset added)."""
+    rng = np.random.default_rng(11)
+    T, N, S, A, C, B = 30, 4, 6, 3, 2, 12
+    states = rng.standard_normal((T, N, S)).astype(np.float32)
+    act_f = rng.standard_normal((T, N, A)).astype(np.float32)
+    act_i = rng.integers(0, A, (T, N)).astype(np.int32)
+    rew = rng.standard_normal((T, N)).astype(np.float32)
+    ids0 = rng.integers(0, T - 1, (C, B)).astype(idx_dtype)
+    ids1 = rng.integers(0, N, (C, B)).astype(idx_dtype)
+    jg = jax.jit(partial(jpk.buffer_gather, interpret=True))
+    fields = [(states, 0, True), (states, 1, True), (act_f, 0, True), (act_i, 0, False),
+              (rew, 0, False), (states, 0, False)]
+    got = kernels.buffer_gather_fields(
+        [(torch.from_numpy(b), off, fm) for b, off, fm in fields],
+        torch.from_numpy(ids0), torch.from_numpy(ids1))
+    for (buf, off, fm), g in zip(fields, got):
+        b3 = buf if buf.ndim == 3 else buf[..., None]
+        want = np.asarray(jg(jnp.asarray(b3), jnp.asarray((ids0 + off).reshape(-1), jnp.int32),
+                             jnp.asarray(ids1.reshape(-1), jnp.int32))).reshape(C, B, -1)
+        want = want.transpose(0, 2, 1) if fm else (want[..., 0] if buf.ndim == 2 else want)
+        assert g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize('discrete', [False, True])
+def test_replay_gathers_unchanged_on_cpu(discrete):
+    """ReplayBuffer.sample / sample_rows give, on the CPU, the tensors of the
+    per-field gathers they replace; feature_major gives their (..., dim, B)
+    transposes, contiguous."""
+    M, N, S, A = 24, 4, 5, 3
+    rb = ReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete)
+    g = torch.Generator().manual_seed(3)
+    acts = (torch.randint(0, A, (M, N), generator=g, dtype=torch.int32) if discrete
+            else torch.randn((M, N, A), generator=g))
+    buf = rb.update(rb.init(), (torch.randn((M, N, S), generator=g), acts,
+                                torch.randn((M, N), generator=g), torch.rand((M, N), generator=g),
+                                torch.rand((M, N), generator=g)))
+    n = rb.sample_len(buf)
+    ids = torch.randint(0, n * N, (3, 8), generator=g)
+    rows = torch.randint(0, n, (3, 2), generator=g)
+    r_ids0 = rows[..., :, None].expand(3, 2, N).reshape(3, -1)
+    r_ids1 = torch.arange(N).expand(3, 2, N).reshape(3, -1)
+    for got_rows, got_cols, (i0, i1) in (
+            (rb.sample(buf, 8, ids=ids), rb.sample(buf, 8, ids=ids, feature_major=True),
+             (ids % n, ids // n)),
+            (rb.sample_rows(buf, 8, rows=rows), rb.sample_rows(buf, 8, rows=rows,
+                                                               feature_major=True),
+             (r_ids0, r_ids1))):
+        ref = kernels.buffer_gather_reference
+        old = [ref(buf.states, i0, i1), ref(buf.actions, i0, i1), ref(buf.rewards, i0, i1),
+               ref(buf.undones, i0, i1), ref(buf.unmasks, i0, i1), ref(buf.states, i0, i1, 1)]
+        for k, (a, b) in enumerate(zip(got_rows[:6], old)):
+            assert torch.equal(a, b), k
+        for k, (a, b) in enumerate(zip(got_cols[:6], old)):
+            want = b.transpose(1, 2) if (k in (0, 5) or (k == 1 and not discrete)) else b
+            assert torch.equal(a, want) and a.is_contiguous(), k
+        assert torch.equal(got_cols[6][0], i0) and torch.equal(got_cols[6][1], i1)
+
+
 def _mlp(dims, seed, scale=0.3):
     rng = np.random.default_rng(seed)
     leaves = []
@@ -115,6 +180,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
         kernels.gae_vtrace_kernel(meta, meta, meta, meta[0], 0.99, 0.95)
     with pytest.raises(ValueError, match='unsupported device'):
         kernels.buffer_gather(meta[None], ids, ids)
+    with pytest.raises(ValueError, match='unsupported device'):
+        kernels.buffer_gather_fields([(meta[None], 0, True), (meta[None], 1, False)], ids, ids)
     with pytest.raises(ValueError, match='unsupported device'):
         kernels.fused_mlp3(meta, meta, meta[0], meta, meta[0], meta, meta[0])
 
