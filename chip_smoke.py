@@ -38,8 +38,13 @@ PyTorch version:
     heads on the three continuous bodies and the DQN heads on the two
     discrete ones, against their plain version (``k6_vs_plain``, both noise
     modes), the DQN-family update chunk's four variants (``k9_vs_plain``),
-    the DDPG/TD3 chunk (``k7_vs_plain``) and the SAC/ModSAC chunk
-    (``k8_vs_plain``) against theirs; the three off-policy main paths at full
+    the DDPG/TD3 chunk (``k7_vs_plain``; ``k7_vs_plain_wide``: TD3 at (256,
+    256) with B = 512 and DDPG at (1024, 1024) with B = 128, workloads the
+    JAX package sends to its chunk) and the SAC/ModSAC chunk
+    (``k8_vs_plain``) against theirs, each chunk one cooperative launch
+    whose invalid steps leave every buffer bit-identical, whose two runs
+    are bitwise equal and whose phases block 0 stamps (``phase_ms``); the
+    three off-policy main paths at full
     width, TD3 on HopperSlip (1024 envs, H=32, ring 4000 rows, batch 1024,
     repeat 4), DQN on CartPole (64 envs, H=64, ring 20,000 rows, batch 128,
     repeat 1) and SAC on HopperSlip (path A's sizes, E = 4), each with a
@@ -191,15 +196,12 @@ def offpolicy_smem_pairs():
             fr._library().offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
             fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
     out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
-    for S, A, E in ((6, 2, 8), (3, 1, 1), (8, 2, 8)):
-        out[f'ddpg_update[S={S},A={A},E={E}]'] = (
-            fo._ddpg_library().ddpg_update_smem_bytes(S, A, *OFF_NET, E),
-            fo.ddpg_smem_bytes(S, A, *OFF_NET, E))
-    for S, A in ((6, 2), (3, 1), (8, 2)):
-        for E in (4, 8):
-            out[f'sac_update[S={S},A={A},E={E}]'] = (
-                fo._sac_library().sac_update_smem_bytes(S, A, *OFF_NET, E),
-                fo.sac_smem_bytes(S, A, *OFF_NET, E))
+    out['ddpg_update'] = (fo._ddpg_library().ddpg_update_smem_bytes(), fo.DDPG_SMEM_BYTES)
+    out['sac_update'] = (fo._sac_library().sac_update_smem_bytes(), fo.SAC_SMEM_BYTES)
+    # and the phase names that read the kernels' traces, one per phase
+    out['dqn_update phases'] = (fo._dqn_library().dqn_update_phases(), len(fo.DQN_PHASES))
+    out['ddpg_update phases'] = (fo._ddpg_library().ddpg_update_phases(), len(fo.DDPG_PHASES))
+    out['sac_update phases'] = (fo._sac_library().sac_update_phases(), len(fo.SAC_PHASES))
     return out
 
 
@@ -457,6 +459,18 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                 1e-3 * torch.randn(n, generator=gen, device=dev),
                 1e-6 * torch.rand(n, generator=gen, device=dev)][:count]
 
+    def runs_and_trace(fn, base, blocks, bcv, hyper, n_phases):
+        """One cooperative launch a chunk: two runs of it bitwise equal (the
+        second traced), and block 0's phase stamps."""
+        runs, trace = [], torch.zeros((C, n_phases + 1), dtype=torch.int64, device=dev)
+        for tr in (None, trace):
+            bufs = [None if b is None else b.clone() for b in base]
+            objs = fn(*bufs, *blocks, bcv, **hyper, trace=tr)
+            torch.cuda.synchronize()
+            runs.append([b for b in bufs if b is not None]
+                        + list(objs if isinstance(objs, tuple) else (objs,)))
+        return all(torch.equal(a, b) for a, b in zip(*runs)), trace
+
     def k9_check(S, A, B, net, twin, duel, phase):
         """K9 against its plain version for one variant at (S, A, B, net)."""
         n1, n2 = net
@@ -477,14 +491,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         res = chunk_check(fo.dqn_chunk, fo.dqn_chunk_reference, base, blocks,
                           lambda valid: fo.dqn_bcv(5, idx, valid), hyper,
                           [dqn_param_shapes(S, net, A, twin, duel)] * 4)
-        # one cooperative launch: two runs bitwise equal; block 0's phase stamps
-        runs, trace = [], torch.zeros((C, 8), dtype=torch.int64, device=dev)
-        for tr in (None, trace):
-            bufs = [b.clone() for b in base]
-            objs = fo.dqn_chunk(*bufs, *blocks, fo.dqn_bcv(5, idx, C), **hyper, trace=tr)
-            torch.cuda.synchronize()
-            runs.append(bufs + [objs])
-        det = all(torch.equal(a, b) for a, b in zip(*runs))
+        det, trace = runs_and_trace(fo.dqn_chunk, base, blocks, fo.dqn_bcv(5, idx, C), hyper,
+                                    len(fo.DQN_PHASES))
         assert det, ('K9: two runs differ', variant, net)
         res.update(two_runs_bitwise_equal=det, launches_per_chunk=1,
                    phase_ms=fo.dqn_phase_ms(trace))
@@ -502,13 +510,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     k9_lunar = dict(k9_check(8, 4, 256, (256, 256), twin, duel, 'k9_vs_plain_lunar')
                     for twin, duel in ((False, False), (True, True)))
 
-    k7 = {}
-    S, A, B = 6, 2, PATH_A['batch']
-    for td3 in (False, True):
+    def k7_check(S, A, B, net, td3, E, phase):
+        """K7 against its plain version, one variant at (S, A, B, net, E)."""
+        n1, n2 = net
         variant = 'td3' if td3 else 'ddpg'
-        E = 8 if td3 else 1
         g = torch.Generator(device=dev).manual_seed(43)
-        act_shapes, cri_shapes = ddpg_param_shapes(S, OFF_NET, A, E)
+        act_shapes, cri_shapes = ddpg_param_shapes(S, net, A, E)
         Pa, Pc = (sum(math.prod(x) for x in sh) for sh in (act_shapes, cri_shapes))
         pa, ta, mua, nua = warm_buffers(g, Pa, 4)
         pc, tc, muc, nuc = warm_buffers(g, Pc, 4)
@@ -521,20 +528,34 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                   (torch.rand((C, B), generator=g, device=dev) > 0.02).float(),
                   0.1 * torch.randn((C, A, B), generator=g, device=dev)]
         idx = torch.arange(C, device=dev)
-        res = chunk_check(fo.ddpg_chunk, fo.ddpg_chunk_reference, base, blocks,
-                          lambda valid: fo.ddpg_bcv(9, 4, idx, valid, idx % 2 == 0,
-                                                    (idx + 1) // 2 + 1),
-                          dict(net_dims=OFF_NET, td3=td3, num_ensembles=E, gamma=0.99,
-                               tau=5e-3, lr=3e-4, clip_grad=3.0),
+        bcv_of = lambda valid: fo.ddpg_bcv(9, 4, idx, valid, idx % 2 == 0,  # noqa: E731
+                                           (idx + 1) // 2 + 1)
+        hyper = dict(net_dims=net, td3=td3, num_ensembles=E, gamma=0.99, tau=5e-3, lr=3e-4,
+                     clip_grad=3.0)
+        res = chunk_check(fo.ddpg_chunk, fo.ddpg_chunk_reference, base, blocks, bcv_of, hyper,
                           [act_shapes, cri_shapes] * 4)
-        f_a = 2 * B * (S * D1 + D1 * D2 + D2 * A)
-        f_c = 2 * B * ((S + A) * D1 + D1 * D2 + D2 * E)
+        det, trace = runs_and_trace(fo.ddpg_chunk, base, blocks, bcv_of(C), hyper,
+                                    len(fo.DDPG_PHASES))
+        assert det, ('K7: two runs differ', variant, net)
+        res.update(two_runs_bitwise_equal=det, launches_per_chunk=1,
+                   phase_ms=fo.ddpg_phase_ms(trace))
+        f_a = 2 * B * (S * n1 + n1 * n2 + n2 * A)
+        f_c = 2 * B * ((S + A) * n1 + n1 * n2 + n2 * E)
         b_ms, b_by = bound((4 * f_a + 5 * f_c) * C,
                            4 * (8 * (Pa + Pc) + C * B * (2 * S + 2 * A + 3) + 7 * C + 2 * C))
         res.update(bound_ms=b_ms, bound_by=b_by)
-        emit(phase='k7_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A,
+        emit(phase=phase, variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A, net_dims=net,
              do_act='alternating', **res, tolerance={'update': 5e-3, 'objectives': 1e-3})
-        k7[variant] = res
+        return variant, res
+
+    k7 = dict(k7_check(6, 2, PATH_A['batch'], OFF_NET, td3, 8 if td3 else 1, 'k7_vs_plain')
+              for td3 in (False, True))
+    # ---- k7_vs_plain_wide: the workloads the JAX package sends to its chunk
+    # that the port raised on before the persistent design (shared memory
+    # grew with the widths): TD3 (E = 8) at (256, 256) with B = 512, DDPG at
+    # (1024, 1024) with B = 128
+    for net, B_, td3 in (((256, 256), 512, True), ((1024, 1024), 128, False)):
+        k7_check(6, 2, B_, net, td3, 8 if td3 else 1, 'k7_vs_plain_wide')
 
     # ---- k7per_vs_plain: K7', the PER variant of the DDPG/TD3 chunk, against
     # its plain version at path A's shapes, TD3 (E = 8) and DDPG (E = 1), the
@@ -591,10 +612,13 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                       **dict(hyper, iw=iw[:VALID].contiguous()))
         torch.cuda.synchronize()
         identical = all(torch.equal(a, b) for a, b in zip(short, kb))
+        det, trace = runs_and_trace(fo.ddpg_chunk, base, per_blocks, bcv_of(C), hyper,
+                                    len(fo.DDPG_PHASES))
         assert all(r <= 5e-3 for r in rel), (variant, rel)
         assert obj_rel <= 1e-3, (variant, obj_rel)
         assert td_rel <= 1e-5, (variant, td_rel)
         assert identical, variant
+        assert det, ('K7\': two runs differ', variant)
         bufs = [b.clone() for b in base]
         ms = cuda_ms_(lambda: fo.ddpg_chunk(*bufs, *per_blocks, bcv_of(C), **hyper), reps=10,
                       warmup=2)
@@ -609,8 +633,9 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                                 + 2 * C * B))
         res = dict(rel_update_diff=rel, max_abs_err=max(err, float((kt - pt).abs().max())),
                    objective_rel_diff=obj_rel, td_rel_diff=td_rel,
-                   invalid_steps_bit_identical=identical, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by)
+                   invalid_steps_bit_identical=identical, two_runs_bitwise_equal=det,
+                   launches_per_chunk=1, phase_ms=fo.ddpg_phase_ms(trace), ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by)
         emit(phase='k7per_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A,
              iw_from=f'ReplayBuffer.per_ids on a filled ring of {NE} envs x 64 rows',
              iw_range=[float(iw.min()), float(iw.max())], do_act='alternating', **res,
@@ -674,6 +699,9 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                      **hyper)
         torch.cuda.synchronize()
         identical = all(torch.equal(a, b) for a, b in zip(short, kb) if a is not None)
+        det, trace = runs_and_trace(fo.sac_chunk, base, blocks, fo.sac_bcv(9, 9, idx, C), hyper,
+                                    len(fo.SAC_PHASES))
+        assert det, ('K8: two runs differ', variant)
         assert all(r <= 5e-3 for r in rel + temp_rel), (variant, rel, temp_rel)
         assert obj_rel <= 1e-3, (variant, obj_rel)
         assert counts['kernel'] == counts['plain'] and torch.equal(ko[:, 2], po[:, 2]), (
@@ -694,8 +722,10 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                            4 * (8 * (Pa + Pc) + C * B * (2 * S + 3 * A + 3) + 7 * C + 3 * C + 10))
         res = dict(rel_update_diff=rel, leaf_rel_update_diff=leaf_rel, max_abs_err=err,
                    temperature_rel_diff=temp_rel, objective_rel_diff=obj_rel, counts=counts,
-                   do_act=gate, invalid_steps_bit_identical=identical, ms=ms, plain_ms=plain,
-                   bound_ms=b_ms, bound_by=b_by)
+                   do_act=gate, invalid_steps_bit_identical=identical,
+                   two_runs_bitwise_equal=det, launches_per_chunk=1,
+                   phase_ms=fo.sac_phase_ms(trace), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by)
         emit(phase='k8_vs_plain', variant=variant, E=E, C=C, valid=VALID, B=B, S=S, A=A, **res,
              tolerance={'update': 5e-3, 'temperature': 5e-3, 'objectives': 1e-3})
         k8[variant] = res

@@ -41,9 +41,9 @@ import torch
 
 from ..config import select_kernel
 from ..ops import kernels
-from ..ops.fused_offpolicy_update import (SMEM_LIMIT, ddpg_actor, ddpg_actor_loss, ddpg_bcv,
+from ..ops.fused_offpolicy_update import (ddpg_actor, ddpg_actor_loss, ddpg_bcv,
                                           ddpg_chunk, ddpg_critic_td, ddpg_q_values,
-                                          ddpg_smem_bytes, ddpg_td_label)
+                                          ddpg_fits, ddpg_td_label)
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
 from ..ops.nets import ddpg_param_shapes, init_flat, mlp3_forward, soft_update_, split_flat
@@ -198,13 +198,12 @@ def _make(net_dims, state_dim: int, action_dim: int, args, buffer=None, td3: boo
                  and len(net_dims) == 2 and batch_size % 128 == 0 and batch_size <= 2048
                  and max(net_dims) * batch_size <= 131072
                  and (not if_use_per or batch_size % buffer.num_seqs == 0))
-    port_fits = len(net_dims) == 2 and ddpg_smem_bytes(
-        state_dim, action_dim, *net_dims, num_ensembles) <= SMEM_LIMIT
+    port_fits = ddpg_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'the non-H-term agent, lambda_fit_cum_r=0, a batch that is a multiple of 128 (and '
         f'under PER of num_envs) and at most 2048 with max(net_dims) * batch <= 131072 and a '
-        f'2-hidden-layer net whose tiles fit one block (the DDPG/TD3 chunk); got '
+        f'2-hidden-layer net (the DDPG/TD3 chunk); got '
         f'batch_size={batch_size}, net_dims={net_dims}, hterm={hterm}, '
         f'lambda_fit_cum_r={lambda_fit_cum_r}')
 

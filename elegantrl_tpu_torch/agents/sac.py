@@ -47,9 +47,9 @@ import torch
 
 from ..config import select_kernel
 from ..ops import kernels
-from ..ops.fused_offpolicy_update import (SMEM_LIMIT, modsac_do_actor, sac_action_logprob,
+from ..ops.fused_offpolicy_update import (modsac_do_actor, sac_action_logprob,
                                           sac_actor_dist, sac_actor_loss, sac_bcv, sac_chunk,
-                                          sac_q_values, sac_smem_bytes, sac_td_label)
+                                          sac_fits, sac_q_values, sac_td_label)
 from ..ops.fused_update import value_and_grad_flat
 from ..ops.gae import cumulative_returns
 from ..ops.nets import init_flat, sac_act_shapes, sac_cri_shapes, soft_update_, split_flat
@@ -229,12 +229,12 @@ def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     jax_takes = (buffer is not None and not hterm and not if_use_per
                  and lambda_fit_cum_r == 0.0 and len(net_dims) == 2 and batch_size % 128 == 0
                  and batch_size <= 2048 and lane_chunk)
-    port_fits = len(net_dims) == 2 and sac_smem_bytes(S, A, *net_dims, E) <= SMEM_LIMIT
+    port_fits = sac_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'a batch that is a multiple of 128 and at most 2048 with a lane chunk (some lc of '
         f'2048, ..., 128 dividing it with max(net_dims) * lc <= 131072), max(net_dims) <= 128, '
-        f'a 2-hidden-layer net whose tiles fit one block, the non-H-term agent, uniform '
+        f'a 2-hidden-layer net, the non-H-term agent, uniform '
         f'sampling (no PER) and lambda_fit_cum_r=0 (the SAC chunk); got '
         f'batch_size={batch_size}, net_dims={net_dims}, hterm={hterm}, '
         f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')

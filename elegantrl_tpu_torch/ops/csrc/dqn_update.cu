@@ -63,12 +63,11 @@
 
 namespace {
 
-using gg::EPI_DGRAD;
-using gg::EPI_FWD;
-using gg::EPI_WGRAD;
+using gg::dgrad_job;
+using gg::fwd_job;
 using gg::Job;
-using gg::Mat;
 using gg::mat;
+using gg::wgrad_job;
 
 struct Heads {
   int n;          // number of heads
@@ -123,27 +122,6 @@ __device__ __forceinline__ float q_td(const float* row, const Heads& hd, int pai
   const int k = combine ? 2 * pair : pair;  // value head of the pair
   const float v = row[hd.col[k] + a];
   return combine ? v - mean + row[hd.col[k + 1]] : v;
-}
-
-// One layer's forward: out (B, J) = act(in (B, K) W^T + b), W (J, K) at w.
-__device__ __forceinline__ Job fwd_job(const Mat& in, const float* w, int J, int K, int B,
-                                       float* out, float* pre, int gelu) {
-  Job j;
-  j.A = in;
-  j.B = mat(w, 1, K, K, J);  // (k, n) = W[n][k]
-  j.M = B;
-  j.N = J;
-  j.K = K;
-  j.e.kind = EPI_FWD;
-  j.e.out = out;
-  j.e.pre = pre;
-  j.e.bias = w + (long long)J * K;
-  j.e.ld = J;
-  j.e.gelu = gelu;
-  j.e.off = 0;
-  j.e.kin = 0;
-  j.e.heads = 0;
-  return j;
 }
 
 constexpr int ROW_CAP = 64;  // head-table rows a warp keeps in shared memory
@@ -323,72 +301,48 @@ __global__ void __launch_bounds__(gg::THREADS, 1) dqn_chunk_kernel(const Args a)
     float sq = 0.f;  // this thread's share of the squared gradient norm
     stamp(a, u, 0);
     // ---- 1. layer 1 of the target on nx and the online net on x
-    {
-      gg::run_jobs(fwd_job(mat(nx, 1, B, B, S), a.t, D1, S, B, a.h1t, nullptr, 1),
-                   fwd_job(mat(x, 1, B, B, S), a.p, D1, S, B, a.h1, a.z1, 1), hm, sm, sq);
-    }
+    gg::run_list<false>([&](int j) -> Job {
+      return j == 0 ? fwd_job(mat(nx, 1, B, B, S), a.t, D1, S, B, a.h1t, nullptr, 1, D1)
+                    : fwd_job(mat(x, 1, B, B, S), a.p, D1, S, B, a.h1, a.z1, 1, D1);
+    }, 2, sm, &hm, &sq);
     gg::grid_sync(a.bar);
     stamp(a, u, 1);
     // ---- 2. layer 2 of both
-    {
-      gg::run_jobs(
-          fwd_job(mat(a.h1t, D1, 1, B, D1), a.t + oW2, D2, D1, B, a.h2t, nullptr, !enc),
-          fwd_job(mat(a.h1, D1, 1, B, D1), a.p + oW2, D2, D1, B, a.h2, a.z2, !enc), hm, sm, sq);
-    }
+    gg::run_list<false>([&](int j) -> Job {
+      return j == 0
+                 ? fwd_job(mat(a.h1t, D1, 1, B, D1), a.t + oW2, D2, D1, B, a.h2t, nullptr, !enc, D2)
+                 : fwd_job(mat(a.h1, D1, 1, B, D1), a.p + oW2, D2, D1, B, a.h2, a.z2, !enc, D2);
+    }, 2, sm, &hm, &sq);
     gg::grid_sync(a.bar);
     stamp(a, u, 2);
     // ---- 3. heads, label, loss, the gradient at the heads (g, (B, nc))
     heads_phase(a, hd, hm, u, sm, rows);
     gg::grid_sync(a.bar);
     stamp(a, u, 3);
-    // ---- 4. the heads' weight gradients; the gradient at layer 2's output
-    {
-      Job jobs[2];
-      jobs[0].A = mat(a.g, 1, nc, nc, B);                // (r, b) = g[b][r]
-      jobs[0].B = mat(a.h2, D2, 1, B, D2 + 1, D2);       // [h2, 1]
-      jobs[0].M = nc;
-      jobs[0].N = D2 + 1;
-      jobs[0].K = B;
-      jobs[0].e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, 0, D2, 1};
-      jobs[1].A = mat(a.g, nc, 1, B, nc);                // (b, r)
-      jobs[1].B = mat(a.p, 0, 1, nc, D2, -1, 1);         // head rows of p
-      jobs[1].M = B;
-      jobs[1].N = D2;
-      jobs[1].K = nc;
-      jobs[1].e = {EPI_DGRAD, a.z2, nullptr, nullptr, D2, !enc, 0, 0, 0};
-      gg::run_jobs(jobs[0], jobs[1], hm, sm, sq);
-    }
+    // ---- 4. the heads' weight gradients (each head row at its head); the
+    // gradient at layer 2's output
+    gg::run_list<false>([&](int j) -> Job {
+      if (j == 1)
+        return dgrad_job(a.g, nc, nc, mat(a.p, 0, 1, nc, D2, -1, 1), D2, B, a.z2, D2, !enc);
+      Job w = wgrad_job(a.g, nc, nc, mat(a.h2, D2, 1, B, D2 + 1, D2), D2, B, a.grad, 0, 0, 0);
+      w.e.heads = 1;
+      return w;
+    }, 2, sm, &hm, &sq);
     gg::grid_sync(a.bar);
     stamp(a, u, 4);
     // ---- 5. layer 2's weight gradient; the gradient at layer 1's output
-    {
-      Job jobs[2];
-      jobs[0].A = mat(a.z2, 1, D2, D2, B);               // (j, b) = dz2[b][j]
-      jobs[0].B = mat(a.h1, D1, 1, B, D1 + 1, D1);       // [h1, 1]
-      jobs[0].M = D2;
-      jobs[0].N = D1 + 1;
-      jobs[0].K = B;
-      jobs[0].e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, oW2, D1, 0};
-      jobs[1].A = mat(a.z2, D2, 1, B, D2);               // (b, j)
-      jobs[1].B = mat(a.p + oW2, D1, 1, D2, D1);         // W2 (j, i)
-      jobs[1].M = B;
-      jobs[1].N = D1;
-      jobs[1].K = D2;
-      jobs[1].e = {EPI_DGRAD, a.z1, nullptr, nullptr, D1, 1, 0, 0, 0};
-      gg::run_jobs(jobs[0], jobs[1], hm, sm, sq);
-    }
+    gg::run_list<false>([&](int j) -> Job {
+      return j == 0 ? wgrad_job(a.z2, D2, D2, mat(a.h1, D1, 1, B, D1 + 1, D1), D1, B, a.grad,
+                                oW2, 0, 0)
+                    : dgrad_job(a.z2, D2, D2, mat(a.p + oW2, D1, 1, D2, D1), D1, B, a.z1, D1, 1);
+    }, 2, sm, &hm, &sq);
     gg::grid_sync(a.bar);
     stamp(a, u, 5);
     // ---- 6. layer 1's weight gradient, then this block's norm partial
+    gg::run_list<false>([&](int) -> Job {
+      return wgrad_job(a.z1, D1, D1, mat(x, 1, B, B, S + 1, S), S, B, a.grad, 0, 0, 0);
+    }, 1, sm, &hm, &sq);
     {
-      Job job;
-      job.A = mat(a.z1, 1, D1, D1, B);                   // (j, b) = dz1[b][j]
-      job.B = mat(x, 1, B, B, S + 1, S);                 // [x, 1], x[b][s] = sb[s][b]
-      job.M = D1;
-      job.N = S + 1;
-      job.K = B;
-      job.e = {EPI_WGRAD, a.grad, nullptr, nullptr, 0, 0, 0, S, 0};
-      gg::run_jobs(job, hm, sm, sq);
       const float s = gg::block_sum2(sq, 0.f, sm).x;
       if (threadIdx.x == 0) a.normpart[blockIdx.x] = s;
     }
@@ -400,8 +354,6 @@ __global__ void __launch_bounds__(gg::THREADS, 1) dqn_chunk_kernel(const Args a)
     stamp(a, u, 7);
   }
 }
-
-inline int round4(long long n) { return (int)((n + 3) / 4 * 4); }
 
 }  // namespace
 
@@ -415,21 +367,10 @@ extern "C" int dqn_update_smem_bytes() {
 // Blocks of the cooperative launch: one per SM.  Negative (minus the CUDA
 // error) when the card cannot launch cooperatively or cannot hold a block
 // on every SM.
-extern "C" int dqn_update_grid() {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  int coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return -(int)err;
-  if (!coop) return -(int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dqn_chunk_kernel, gg::THREADS, 0);
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-  return sms;
-}
+extern "C" int dqn_update_grid() { return gg::coop_grid(dqn_chunk_kernel); }
+
+// Phases an update (the trace holds 8 stamps an update).
+extern "C" int dqn_update_phases() { return 7; }
 
 // Floats of the workspace for a launch of `grid` blocks.
 extern "C" long long dqn_update_workspace_floats(int B, int S, int A, int D1, int D2, int twin,
@@ -437,8 +378,9 @@ extern "C" long long dqn_update_workspace_floats(int B, int S, int A, int D1, in
   const Heads hd = make_heads(S, A, D1, D2, twin, duel);
   const long long P = hd.off[hd.n - 1] + (long long)hd.width[hd.n - 1] * (D2 + 1);
   const long long nc = head_rows(hd);
-  return 3LL * round4((long long)B * D1) + 3LL * round4((long long)B * D2) +
-         3LL * round4((long long)B * nc) + round4(P) + round4(grid) + round4(2LL * grid) + 4;
+  return 3LL * gg::round4((long long)B * D1) + 3LL * gg::round4((long long)B * D2) +
+         3LL * gg::round4((long long)B * nc) + gg::round4(P) + gg::round4(grid) +
+         gg::round4(2LL * grid) + 4;
 }
 
 // bcv: (C, 3) float rows (1 - b1^step, 1 - b2^step, valid).  Blocks: sb,
@@ -470,19 +412,19 @@ extern "C" int dqn_update(void* p, void* t, void* mu, void* nu, const void* sb,
   a.objs = (float*)objs;
   const long long nc = head_rows(hd);
   float* w = (float*)ws;
-  a.h1t = w; w += round4((long long)B * D1);
-  a.z1 = w; w += round4((long long)B * D1);
-  a.h1 = w; w += round4((long long)B * D1);
-  a.h2t = w; w += round4((long long)B * D2);
-  a.z2 = w; w += round4((long long)B * D2);
-  a.h2 = w; w += round4((long long)B * D2);
-  a.qt = w; w += round4((long long)B * nc);
-  a.qo = w; w += round4((long long)B * nc);
-  a.g = w; w += round4((long long)B * nc);
+  a.h1t = w; w += gg::round4((long long)B * D1);
+  a.z1 = w; w += gg::round4((long long)B * D1);
+  a.h1 = w; w += gg::round4((long long)B * D1);
+  a.h2t = w; w += gg::round4((long long)B * D2);
+  a.z2 = w; w += gg::round4((long long)B * D2);
+  a.h2 = w; w += gg::round4((long long)B * D2);
+  a.qt = w; w += gg::round4((long long)B * nc);
+  a.qo = w; w += gg::round4((long long)B * nc);
+  a.g = w; w += gg::round4((long long)B * nc);
   a.P = hd.off[hd.n - 1] + hd.width[hd.n - 1] * (D2 + 1);
-  a.grad = w; w += round4(a.P);
-  a.normpart = w; w += round4(grid);
-  a.objpart = w; w += round4(2LL * grid);
+  a.grad = w; w += gg::round4(a.P);
+  a.normpart = w; w += gg::round4(grid);
+  a.objpart = w; w += gg::round4(2LL * grid);
   a.bar = (unsigned int*)w;
   a.trace = (unsigned long long*)trace;
   a.C = C;
@@ -500,12 +442,5 @@ extern "C" int dqn_update(void* p, void* t, void* mu, void* nu, const void* sb,
   a.b1 = b1;
   a.b2 = b2;
   a.eps = eps;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), st);
-  if (err != cudaSuccess) return (int)err;
-  void* params[] = {(void*)&a};
-  err = cudaLaunchCooperativeKernel((const void*)dqn_chunk_kernel, dim3(grid),
-                                    dim3(gg::THREADS), params, 0, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return gg::coop_launch(dqn_chunk_kernel, a, a.bar, grid, (cudaStream_t)stream);
 }

@@ -1,7 +1,6 @@
-// Device pieces shared by the hand-written update kernels (ppo_update.cu,
-// dqn_update.cu, ddpg_update.cu, sac_update.cu): dense forward passes, hand-written
-// backward passes and the reduce / clip + Adam (+ Polyak) steps of optax's
-// chain(clip_by_global_norm, adam).
+// Device pieces of the per-block MLP passes (ppo_update.cu, kernels.cu; the
+// GELU and warp sum also for grid_gemm.cuh): dense forward passes and
+// hand-written backward passes over a tile of TB samples.
 //
 // Activation tiles are sample-major, (TB samples, features), in shared
 // memory with an odd leading dimension (ld(k) = k | 1), so that the passes
@@ -178,82 +177,6 @@ __device__ void net_backward(const float* flat, float* g, const Tiles& t, int S,
   __syncthreads();
   wgrad(t.z1, t.ld1, t.xn, t.lds, gW1, gb1, D1, S);
   __syncthreads();
-}
-
-// Sums the per-block partial gradients of one net, (nb, P) row-major, into
-// grad and each block's share of the squared norm into normpart[blockIdx].
-__global__ void reduce_one_kernel(const float* __restrict__ partial, int nb, int P,
-                                  float* __restrict__ grad,
-                                  float* __restrict__ normpart) {
-  __shared__ float red[THREADS];
-  float acc = 0.f;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < P; i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < nb; ++k) s += partial[(size_t)k * P + i];
-    grad[i] = s;
-    acc += s * s;
-  }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) normpart[blockIdx.x] = red[0];
-}
-
-inline int reduce_blocks(int P) {
-  const int n = (P + THREADS - 1) / THREADS;
-  return n < 264 ? n : 264;
-}
-
-// One masked step of clip-by-global-norm + Adam + Polyak over one net:
-// with s = sum(normpart), g *= (sqrt(s) < clip ? 1 : clip / sqrt(s)),
-// mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2,
-// p -= lr (mu / bc1) / (sqrt(nu / bc2) + eps), t = t (1 - tau) + p tau
-// (no Polyak step when t is null).
-// The bias corrections and the masks come from the step's row of the
-// per-step table (columns bc1_col, bc2_col; mask_col, and mask2_col when
-// >= 0); a masked step writes nothing, so every buffer stays bit-identical.
-// Block 0 also writes the step's objectives, obj_out[c] = sum_k
-// objpart[k * 2 + c] / B for obj_c0 <= c < obj_c0 + obj_n, masked or not.
-__global__ void clip_adam_polyak_kernel(float* __restrict__ p, float* __restrict__ mu,
-                                        float* __restrict__ nu, float* __restrict__ t,
-                                        const float* __restrict__ grad,
-                                        const float* __restrict__ normpart, int nr, int P,
-                                        const float* __restrict__ bcv_row, int bc1_col,
-                                        int bc2_col, int mask_col, int mask2_col,
-                                        const float* __restrict__ objpart, int nb,
-                                        float* __restrict__ obj_out, int obj_c0, int obj_n,
-                                        int B, float lr, float clip_grad, float b1, float b2,
-                                        float eps, float tau) {
-  if (blockIdx.x == 0 && threadIdx.x < obj_n) {
-    const int c = obj_c0 + threadIdx.x;
-    float s = 0.f;
-    for (int k = 0; k < nb; ++k) s += objpart[k * 2 + c];
-    obj_out[c] = s / (float)B;
-  }
-  const bool on = bcv_row[mask_col] > 0.f && (mask2_col < 0 || bcv_row[mask2_col] > 0.f);
-  if (!on) return;
-  __shared__ float scale;
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int r = 0; r < nr; ++r) s += normpart[r];
-    const float gn = sqrtf(s);
-    scale = gn < clip_grad ? 1.0f : clip_grad / gn;
-  }
-  __syncthreads();
-  const float bc1 = bcv_row[bc1_col], bc2 = bcv_row[bc2_col];
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < P; i += gridDim.x * blockDim.x) {
-    const float g = grad[i] * scale;
-    const float m = b1 * mu[i] + (1.0f - b1) * g;
-    const float v = b2 * nu[i] + (1.0f - b2) * g * g;
-    mu[i] = m;
-    nu[i] = v;
-    const float pn = p[i] - lr * (m / bc1) / (sqrtf(v / bc2) + eps);
-    p[i] = pn;
-    if (t != nullptr) t[i] = t[i] * (1.0f - tau) + pn * tau;
-  }
 }
 
 }  // namespace mlp

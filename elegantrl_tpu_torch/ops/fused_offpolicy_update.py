@@ -55,10 +55,11 @@ place; each function returns the objectives, ``(C, 2)`` (TD loss, mean
 
 As for every kernel of the port: ``*_chunk_reference`` is the plain version
 (gradients by ``torch.autograd``), ``*_chunk`` the wrapper (the plain
-version for CPU tensors, the hand-written CUDA kernel of
-``csrc/dqn_update.cu``, ``csrc/ddpg_update.cu`` or ``csrc/sac_update.cu`` for
-CUDA tensors), and ``*_chunk.launches`` the count of chunks launched
-(``launches_by_variant`` splits it).  The functions below the chunks (Q
+version for CPU tensors; for CUDA tensors one cooperative launch of the
+hand-written persistent kernel of ``csrc/dqn_update.cu``,
+``csrc/ddpg_update.cu`` or ``csrc/sac_update.cu``, one block per SM, the
+phases of every update between grid barriers), and ``*_chunk.launches`` the
+count of chunks launched (``launches_by_variant`` splits it).  The functions below the chunks (Q
 values of the four DQN nets, the dueling combine, the SAC actor and critic
 ensemble) are also what the agents' scan updates differentiate.
 """
@@ -77,10 +78,6 @@ from .dists import tanh_normal_logprob, tanh_normal_logprob_simple
 from .fused_update import value_and_grad_flat
 from .nets import (ddpg_param_shapes, dqn_param_shapes, gelu, mlp_apply_leaves,
                    sac_act_shapes, sac_cri_shapes, soft_update_, split_flat)
-
-SMEM_LIMIT = 232448
-_TB = 32   # samples per fwd_bwd block (csrc/ddpg_update.cu, sac_update.cu)
-
 
 # ------------------------------------------------------------ DQN nets
 
@@ -521,11 +518,15 @@ def dqn_variant(twin: bool, duel: bool) -> str:
             (True, True): 'd3qn'}[(bool(twin), bool(duel))]
 
 
-# Shared memory of one block of the DQN chunk's persistent kernel, the same
-# for every width, batch and head: gg::Smem (two 32 x 33 operand tiles, 8 x 2
-# reduction slots) and 8 warps' 2 x 64 head rows.  csrc/dqn_update.cu owns
-# the layout (dqn_update_smem_bytes); chip_smoke.py checks this copy.
-DQN_SMEM_BYTES = 4 * (2 * 32 * 33 + 8 * 2) + 4 * 8 * 2 * 64
+# Shared memory of one block of the update chunks' persistent kernels, the
+# same for every width, batch, head and ensemble: gg::Smem (two 32 x 33
+# operand tiles, 8 x 2 reduction slots), then for the DQN chunk 8 warps' 2 x
+# 64 head rows.  The .cu files own the layouts (dqn_update_smem_bytes,
+# ddpg_update_smem_bytes, sac_update_smem_bytes); chip_smoke.py checks these
+# copies.
+GG_SMEM_BYTES = 4 * (2 * 32 * 33 + 8 * 2)
+DQN_SMEM_BYTES = GG_SMEM_BYTES + 4 * 8 * 2 * 64
+DDPG_SMEM_BYTES = SAC_SMEM_BYTES = GG_SMEM_BYTES
 
 
 def dqn_fits(net_dims: Sequence[int]) -> bool:
@@ -535,20 +536,18 @@ def dqn_fits(net_dims: Sequence[int]) -> bool:
     return len(net_dims) == 2
 
 
-def ddpg_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
-                    num_ensembles: int) -> int:
-    """Dynamic shared memory of one DDPG/TD3 fwd_bwd block (the layout of
-    ``ddpg_update_smem_bytes`` in ``csrc/ddpg_update.cu``)."""
-    ld = lambda k: k | 1  # noqa: E731
-    return 4 * _TB * (2 * ld(state_dim + action_dim) + 4 * ld(d1) + 4 * ld(d2)
-                      + ld(max(num_ensembles, action_dim)) + ld(action_dim) + 1)
+def ddpg_fits(net_dims: Sequence[int]) -> bool:
+    """Whether the DDPG/TD3 chunk's kernel takes a net: any of two hidden
+    layers, any batch or ensemble (``DDPG_SMEM_BYTES`` does not grow with
+    them; the activations live in the workspace)."""
+    return len(net_dims) == 2
 
 
-def _scratch(lib, nb_fn, nr_fn, B, P, dev):
-    nb, nr = nb_fn(B), nr_fn(P)
-    f32 = torch.float32
-    return (torch.empty((nb, P), dtype=f32, device=dev), torch.empty((nb, 2), dtype=f32, device=dev),
-            torch.empty((P,), dtype=f32, device=dev), torch.empty((nr,), dtype=f32, device=dev))
+def sac_fits(net_dims: Sequence[int]) -> bool:
+    """Whether the SAC/ModSAC chunk's kernel takes a net: any of two hidden
+    layers, any batch or ensemble (``SAC_SMEM_BYTES`` does not grow with
+    them)."""
+    return len(net_dims) == 2
 
 
 def _check_blocks(what, dev, C, S, A, B, blocks, bcv, bcv_cols):
@@ -590,7 +589,7 @@ def dqn_chunk(p, t, mu, nu, sb, nsb, oh, rb, ud, um, bcv, *, net_dims: Sequence[
     if trace is not None:
         check_tensor('dqn_chunk', 'trace', trace, (C, 8), torch.int64, dev)
     lib = _dqn_library()
-    grid = _dqn_grid(lib, dev)
+    grid = _coop_grid(lib, 'dqn_update', dev)
     ws = torch.empty(lib.dqn_update_workspace_floats(B, S, A, D1, D2, int(bool(twin)),
                                                      int(bool(duel)), grid),
                      dtype=torch.float32, device=dev)
@@ -615,10 +614,13 @@ dqn_chunk.launches_by_variant = {v: 0 for v in ('dqn', 'doubledqn', 'duelingdqn'
 def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv, *,
                net_dims: Sequence[int], td3: bool, num_ensembles: int, gamma: float,
                tau: float, lr: float, clip_grad: float, b1: float = 0.9, b2: float = 0.999,
-               eps: float = 1e-8, iw=None):
-    """The DDPG/TD3 chunk: CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  In place; returns the ``(C, 2)`` objectives, or with
-    PER's importance weights ``iw (C, B)`` (K7') ``(objs, td (C, B))``."""
+               eps: float = 1e-8, iw=None, trace=None):
+    """The DDPG/TD3 chunk: CUDA kernel for CUDA tensors (one cooperative
+    launch, one block per SM; a card that refuses the launch raises), the
+    plain version for CPU tensors.  In place; returns the ``(C, 2)``
+    objectives, or with PER's importance weights ``iw (C, B)`` (K7') ``(objs,
+    td (C, B))``.  ``trace``, a ``(C, len(DDPG_PHASES) + 1)`` int64 CUDA
+    tensor, receives the kernel's phase stamps (``ddpg_phase_ms``)."""
     kw = dict(net_dims=net_dims, td3=td3, num_ensembles=num_ensembles, gamma=gamma, tau=tau,
               lr=lr, clip_grad=clip_grad, b1=b1, b2=b2, eps=eps, iw=iw)
     args = (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv)
@@ -626,7 +628,7 @@ def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, 
         return ddpg_chunk_reference(*args, **kw)
     if pa.device.type != 'cuda':
         raise ValueError(f'ddpg_chunk: unsupported device {pa.device}')
-    if len(net_dims) != 2:
+    if not ddpg_fits(net_dims):
         raise ValueError(f'ddpg_chunk: the CUDA kernel takes 2 hidden layers, got {net_dims}')
     from ._cuda_build import check, check_tensor, ptr
     D1, D2 = (int(d) for d in net_dims)
@@ -646,22 +648,20 @@ def ddpg_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, 
                    ('um', um, (C, B))), bcv, 7)
     if iw is not None:
         check_tensor('ddpg_chunk', 'iw', iw, (C, B), torch.float32, dev)
+    if trace is not None:
+        check_tensor('ddpg_chunk', 'trace', trace, (C, len(DDPG_PHASES) + 1), torch.int64, dev)
     lib = _ddpg_library()
-    smem = lib.ddpg_update_smem_bytes(S, A, D1, D2, E)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'ddpg_chunk: net_dims={(D1, D2)} needs {smem} bytes of shared memory '
-                         f'per block, more than the {SMEM_LIMIT} a Hopper block can hold')
-    partial, objpart, grad, normpart = _scratch(lib, lib.ddpg_update_blocks,
-                                                lib.ddpg_update_reduce_blocks, B,
-                                                max(Pa, Pc), dev)
+    grid = _coop_grid(lib, 'ddpg_update', dev)
+    ws = torch.empty(lib.ddpg_update_workspace_floats(B, S, A, D1, D2, E, grid),
+                     dtype=torch.float32, device=dev)
     objs = torch.empty((C, 2), dtype=torch.float32, device=dev)
     td = None if iw is None else torch.empty((C, B), dtype=torch.float32, device=dev)
     f = ctypes.c_float
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.ddpg_update(
         *[ptr(x) for x in (pa, pc, ta, tc, mua, muc, nua, nuc, sb, nsb, ab, rb, ud, um, nz, bcv,
-                           partial, objpart, grad, normpart, objs, iw, td)],
-        C, B, S, A, D1, D2, E, int(bool(td3)),
+                           iw, td, ws, objs, trace)],
+        grid, C, B, S, A, D1, D2, E, int(bool(td3)),
         f(gamma), f(tau), f(lr), f(clip_grad), f(b1), f(b2), f(eps), ctypes.c_void_p(stream))
     variant = ('td3' if td3 else 'ddpg') + ('' if iw is None else '_per')
     check(status, f'ddpg_update[{variant}]')
@@ -674,22 +674,17 @@ ddpg_chunk.launches = 0
 ddpg_chunk.launches_by_variant = {'ddpg': 0, 'td3': 0, 'ddpg_per': 0, 'td3_per': 0}
 
 
-def sac_smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int,
-                   num_ensembles: int) -> int:
-    """Dynamic shared memory of one SAC fwd_bwd block (the layout of
-    ``sac_update_smem_bytes`` in ``csrc/sac_update.cu``)."""
-    ld = lambda k: k | 1  # noqa: E731
-    return 4 * _TB * (2 * ld(state_dim + action_dim) + 4 * ld(d1) + 4 * ld(d2)
-                      + ld(2 * action_dim) + ld(num_ensembles) + 2)
-
-
 def sac_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um, nzn, nzp,
               bcv, *, net_dims: Sequence[int], modsac: bool, num_ensembles: int, gamma: float,
               tau: float, lr: float, clip_grad: float, target_entropy: float, std_clip,
-              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
-    """The SAC/ModSAC chunk: CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  In place (``ta`` is None for SAC); returns the ``(C,
-    3)`` objectives."""
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+              trace=None) -> torch.Tensor:
+    """The SAC/ModSAC chunk: CUDA kernel for CUDA tensors (one cooperative
+    launch, one block per SM; a card that refuses the launch raises), the
+    plain version for CPU tensors.  In place (``ta`` is None for SAC);
+    returns the ``(C, 3)`` objectives.  ``trace``, a ``(C, len(SAC_PHASES) +
+    1)`` int64 CUDA tensor, receives the kernel's phase stamps
+    (``sac_phase_ms``)."""
     kw = dict(net_dims=net_dims, modsac=modsac, num_ensembles=num_ensembles, gamma=gamma,
               tau=tau, lr=lr, clip_grad=clip_grad, target_entropy=target_entropy,
               std_clip=std_clip, b1=b1, b2=b2, eps=eps)
@@ -698,7 +693,7 @@ def sac_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
         return sac_chunk_reference(*args, **kw)
     if pa.device.type != 'cuda':
         raise ValueError(f'sac_chunk: unsupported device {pa.device}')
-    if len(net_dims) != 2:
+    if not sac_fits(net_dims):
         raise ValueError(f'sac_chunk: the CUDA kernel takes 2 hidden layers, got {net_dims}')
     if (ta is None) == bool(modsac):
         raise ValueError('sac_chunk: ModSAC takes an actor target, SAC none')
@@ -719,23 +714,19 @@ def sac_chunk(pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
                   (('sb', sb, (C, S, B)), ('nsb', nsb, (C, S, B)), ('ab', ab, (C, A, B)),
                    ('nzn', nzn, (C, A, B)), ('nzp', nzp, (C, A, B)), ('rb', rb, (C, B)),
                    ('ud', ud, (C, B)), ('um', um, (C, B))), bcv, 7)
+    if trace is not None:
+        check_tensor('sac_chunk', 'trace', trace, (C, len(SAC_PHASES) + 1), torch.int64, dev)
     lib = _sac_library()
-    smem = lib.sac_update_smem_bytes(S, A, D1, D2, E)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'sac_chunk: net_dims={(D1, D2)} with {E} heads needs {smem} bytes of '
-                         f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
-                         'can hold')
-    partial, objpart, grad, normpart = _scratch(lib, lib.sac_update_blocks,
-                                                lib.sac_update_reduce_blocks, B,
-                                                max(Pa, Pc), dev)
-    step = torch.empty((8,), dtype=torch.float32, device=dev)
+    grid = _coop_grid(lib, 'sac_update', dev)
+    ws = torch.empty(lib.sac_update_workspace_floats(B, S, A, D1, D2, E, grid),
+                     dtype=torch.float32, device=dev)
     objs = torch.empty((C, 3), dtype=torch.float32, device=dev)
     f = ctypes.c_float
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.sac_update(
         *[ptr(x) for x in (pa, pc, ta, tc, mua, muc, nua, nuc, misc, sb, nsb, ab, rb, ud, um,
-                           nzn, nzp, bcv, partial, objpart, grad, normpart, step, objs)],
-        C, B, S, A, D1, D2, E, int(bool(modsac)),
+                           nzn, nzp, bcv, ws, objs, trace)],
+        grid, C, B, S, A, D1, D2, E, int(bool(modsac)),
         *[f(v) for v in (gamma, tau, lr, clip_grad, b1, b2, eps, target_entropy, std_clip[0],
                          std_clip[1], SAC_RELIABLE)], ctypes.c_void_p(stream))
     variant = 'modsac' if modsac else 'sac'
@@ -749,76 +740,95 @@ sac_chunk.launches = 0
 sac_chunk.launches_by_variant = {'sac': 0, 'modsac': 0}
 
 
-def _bind(lib, fn_name, n_ptr, n_int, sizes, n_float=7):
-    fn = getattr(lib, fn_name)
+def _bind(lib, name, n_ptr, n_int, n_float, n_sizes):
+    """ctypes signatures of a chunk's launcher ``name`` (pointers, the grid
+    and ints, floats, the stream) and of ``name_smem_bytes``, ``name_grid``,
+    ``name_phases`` and ``name_workspace_floats`` (``n_sizes`` ints)."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-            + [ctypes.c_float] * n_float + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for name, n_args in sizes:
-            g = getattr(lib, name)
-            g.argtypes = [ctypes.c_int] * n_args
-            g.restype = ctypes.c_int
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * n_ptr + [i] * n_int + [ctypes.c_float] * n_float + [vp]
+        fn.restype = i
+        for suffix in ('_smem_bytes', '_grid', '_phases'):
+            g = getattr(lib, name + suffix)
+            g.argtypes, g.restype = [], i
+        ws = getattr(lib, name + '_workspace_floats')
+        ws.argtypes, ws.restype = [i] * n_sizes, ctypes.c_longlong
     return lib
 
 
 def _dqn_library():
     from ._cuda_build import load
-    lib = load('dqn_update')
-    if lib.dqn_update.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dqn_update.argtypes = [vp] * 14 + [i] * 9 + [f] * 7 + [vp]
-        lib.dqn_update_smem_bytes.argtypes = []
-        lib.dqn_update_grid.argtypes = []
-        lib.dqn_update_workspace_floats.argtypes = [i] * 8
-        lib.dqn_update_workspace_floats.restype = ctypes.c_longlong
-        for fn in (lib.dqn_update, lib.dqn_update_smem_bytes, lib.dqn_update_grid):
-            fn.restype = ctypes.c_int
-    return lib
-
-
-_dqn_grids = {}
-
-DQN_PHASES = ('layer 1', 'layer 2', 'heads and loss', 'head grads', 'layer 2 grads',
-              'layer 1 grads', 'clip + Adam + Polyak')
-
-
-def dqn_phase_ms(trace: torch.Tensor) -> dict:
-    """Mean ms per update of each of the DQN chunk kernel's seven phases,
-    from a ``dqn_chunk(..., trace=)`` buffer (block 0's barrier stamps; the
-    last update's Adam phase is block 0's alone)."""
-    t = trace.detach().cpu().double()
-    d = (t[:, 1:] - t[:, :-1]) / 1e6
-    return {name: float(d[:, k].mean()) for k, name in enumerate(DQN_PHASES)}
-
-
-def _dqn_grid(lib, dev) -> int:
-    """Blocks of the chunk's cooperative launch on ``dev`` (one per SM);
-    raises where the card cannot launch it cooperatively."""
-    key = torch.device(dev).index if torch.device(dev).index is not None \
-        else torch.cuda.current_device()
-    if key not in _dqn_grids:
-        with torch.cuda.device(key):
-            grid = lib.dqn_update_grid()
-        if grid <= 0:
-            raise RuntimeError(f'dqn_chunk: the card refuses the cooperative launch of one '
-                               f'block per SM (CUDA error {-grid})')
-        _dqn_grids[key] = grid
-    return _dqn_grids[key]
+    return _bind(load('dqn_update'), 'dqn_update', 14, 9, 7, 8)
 
 
 def _ddpg_library():
     from ._cuda_build import load
-    return _bind(load('ddpg_update'), 'ddpg_update', 23, 8,
-                 (('ddpg_update_smem_bytes', 5), ('ddpg_update_blocks', 1),
-                  ('ddpg_update_reduce_blocks', 1)))
+    return _bind(load('ddpg_update'), 'ddpg_update', 21, 9, 7, 7)
 
 
 def _sac_library():
     from ._cuda_build import load
-    return _bind(load('sac_update'), 'sac_update', 24, 8,
-                 (('sac_update_smem_bytes', 5), ('sac_update_blocks', 1),
-                  ('sac_update_reduce_blocks', 1)), n_float=11)
+    return _bind(load('sac_update'), 'sac_update', 21, 9, 11, 7)
+
+
+DQN_PHASES = ('layer 1', 'layer 2', 'heads and loss', 'head grads', 'layer 2 grads',
+              'layer 1 grads', 'clip + Adam + Polyak')
+DDPG_PHASES = ('layer 1 (actor nx, x; critic)', 'layer 2', "a', a_pi, q", 'target layer 1',
+               'target layer 2', 'label and loss', 'critic head grads', 'critic layer 2 grads',
+               'critic layer 1 grads', 'critic split sums', 'critic clip + Adam + Polyak',
+               'actor step layer 1', 'actor step layer 2', 'actor step q', 'actor step dlayer 1',
+               'actor step da', 'actor head grads', 'actor layer 2 grads',
+               'actor layer 1 grads', 'actor split sums', 'actor clip + Adam + Polyak')
+SAC_PHASES = ('layer 1 (actor nx, x; encoder)', 'layer 2, head layers', 'draws, q',
+              'target encoder', 'target head layers', 'label, loss, alpha step',
+              'critic head grads, dencoding', 'encoder grads', 'critic split sums',
+              'critic clip + Adam + Polyak', 'actor step encoder', 'actor step head layers',
+              'actor step q', 'actor step dencoding', 'actor step dhead', 'actor head grads',
+              'actor layer 2 grads', 'actor layer 1 grads', 'actor split sums',
+              'actor clip + Adam')
+
+
+def phase_ms(trace: torch.Tensor, names: Sequence[str]) -> dict:
+    """Mean ms per update of each of a chunk kernel's phases, from its
+    ``trace`` buffer (block 0's stamps at the start and after each phase's
+    barrier; the last update's last phase is block 0's alone)."""
+    t = trace.detach().cpu().double()
+    d = (t[:, 1:] - t[:, :-1]) / 1e6
+    return {name: float(d[:, k].mean()) for k, name in enumerate(names)}
+
+
+def dqn_phase_ms(trace: torch.Tensor) -> dict:
+    """:func:`phase_ms` of the DQN chunk (``dqn_chunk(..., trace=)``)."""
+    return phase_ms(trace, DQN_PHASES)
+
+
+def ddpg_phase_ms(trace: torch.Tensor) -> dict:
+    """:func:`phase_ms` of the DDPG/TD3 chunk (``ddpg_chunk(..., trace=)``)."""
+    return phase_ms(trace, DDPG_PHASES)
+
+
+def sac_phase_ms(trace: torch.Tensor) -> dict:
+    """:func:`phase_ms` of the SAC/ModSAC chunk (``sac_chunk(..., trace=)``)."""
+    return phase_ms(trace, SAC_PHASES)
+
+
+_grids = {}
+
+
+def _coop_grid(lib, name: str, dev) -> int:
+    """Blocks of a chunk's cooperative launch on ``dev`` (one per SM);
+    raises where the card cannot launch it cooperatively."""
+    key = (name, torch.device(dev).index if torch.device(dev).index is not None
+           else torch.cuda.current_device())
+    if key not in _grids:
+        with torch.cuda.device(key[1]):
+            grid = getattr(lib, name + '_grid')()
+        if grid <= 0:
+            raise RuntimeError(f'{name}: the card refuses the cooperative launch of one '
+                               f'block per SM (CUDA error {-grid})')
+        _grids[key] = grid
+    return _grids[key]
 
 
 # ------------------------------------------------- the per-step tables

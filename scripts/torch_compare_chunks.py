@@ -1,0 +1,165 @@
+"""Hold the off-policy update chunks of this checkout against another
+checkout's on the same inputs, on one CUDA card.
+
+    python3 scripts/torch_compare_chunks.py OTHER_ROOT
+
+OTHER_ROOT is the root of another checkout of the repository, for example
+the parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists (``build/``).  Each side runs in its own process (both
+packages are named ``elegantrl_tpu_torch``), in the order other, this,
+this, other, and builds its own kernels.  Every run makes the same inputs
+from fixed seeds: the DQN-family chunk's four nets at path B's shape (B =
+128, (128, 128)) and DQN / D3QN at ``dqn_lunarlander``'s ((256, 256), B =
+256); the DDPG/TD3 chunk, TD3 (E = 8) and DDPG, with and without PER's
+importance weights, and the SAC/ModSAC chunk (E = 4 / 8) at path A's and
+C's shape (B = 1024, (128, 128), S = 6, A = 2); one chunk of C = 16 with
+the last 4 steps invalid.  For each chunk it prints one JSON line: whether
+the two checkouts' updated buffers and objectives are bitwise equal (the
+first run of each side), and each run's ms a chunk (CUDA events over 10
+chunks after 2 warm-up ones).  Needs one card; the last line names it.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+
+C, VALID = 16, 12
+CASES = ([('dqn', t, d, 4, 2, 128, (128, 128)) for t, d in
+          ((False, False), (True, False), (False, True), (True, True))]
+         + [('dqn', t, d, 8, 4, 256, (256, 256)) for t, d in ((False, False), (True, True))]
+         + [('ddpg', td3, per, 6, 2, 1024, (128, 128)) for td3 in (True, False)
+            for per in (False, True)]
+         + [('sac', modsac, None, 6, 2, 1024, (128, 128)) for modsac in (False, True)])
+
+
+def case_name(kind, a, b, S, A, B, net):
+    if kind == 'dqn':
+        name = {(False, False): 'dqn', (True, False): 'doubledqn', (False, True): 'duelingdqn',
+                (True, True): 'd3qn'}[(a, b)]
+    elif kind == 'ddpg':
+        name = ('td3' if a else 'ddpg') + ('_per' if b else '')
+    else:
+        name = 'modsac' if a else 'sac'
+    return f'{name}{list(net)},B={B}'
+
+
+def run_side(root, out_path):
+    """Run every case with the package under ``root``; save the outputs and
+    the ms a chunk to ``out_path``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo
+    from elegantrl_tpu_torch.ops.nets import (ddpg_param_shapes, dqn_param_shapes,
+                                              sac_act_shapes, sac_cri_shapes)
+    dev = torch.device('cuda')
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def buffers(g, n):
+        p = torch.randn(n, generator=g, device=dev) * 0.05
+        return [p, p + 0.01 * torch.randn(n, generator=g, device=dev),
+                1e-3 * torch.randn(n, generator=g, device=dev),
+                1e-6 * torch.rand(n, generator=g, device=dev)]
+
+    def rows(g, B):
+        return [torch.randn((C, B), generator=g, device=dev),
+                (torch.rand((C, B), generator=g, device=dev) > 0.05).float(),
+                (torch.rand((C, B), generator=g, device=dev) > 0.02).float()]
+
+    def inputs(kind, a, b, S, A, B, net):
+        """(wrapper, buffers, blocks, bcv of n valid steps, hyper)."""
+        g = torch.Generator(device=dev).manual_seed(41)
+        idx = torch.arange(C, device=dev)
+        if kind == 'dqn':
+            base = buffers(g, sum(math.prod(x) for x in dqn_param_shapes(S, net, A, a, b)))
+            oh = torch.nn.functional.one_hot(torch.randint(0, A, (C, B), generator=g, device=dev),
+                                             A).float().transpose(1, 2).contiguous()
+            blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                      torch.randn((C, S, B), generator=g, device=dev), oh, *rows(g, B)]
+            return (fo.dqn_chunk, base, blocks, lambda n: fo.dqn_bcv(5, idx, n),
+                    dict(net_dims=net, twin=a, duel=b, gamma=0.99, tau=5e-3, lr=1e-3,
+                         clip_grad=3.0))
+        if kind == 'ddpg':
+            E = 8 if a else 1
+            act, cri = ddpg_param_shapes(S, net, A, E)
+            pa, ta, mua, nua = buffers(g, sum(math.prod(x) for x in act))
+            pc, tc, muc, nuc = buffers(g, sum(math.prod(x) for x in cri))
+            blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                      torch.randn((C, S, B), generator=g, device=dev),
+                      torch.rand((C, A, B), generator=g, device=dev) * 2 - 1, *rows(g, B),
+                      0.1 * torch.randn((C, A, B), generator=g, device=dev)]
+            iw = 0.2 + torch.rand((C, B), generator=g, device=dev) if b else None
+            return (fo.ddpg_chunk, [pa, pc, ta, tc, mua, muc, nua, nuc], blocks,
+                    lambda n: fo.ddpg_bcv(9, 4, idx, n, idx % 2 == 0, (idx + 1) // 2 + 1),
+                    dict(net_dims=net, td3=a, num_ensembles=E, gamma=0.99, tau=5e-3, lr=3e-4,
+                         clip_grad=3.0, iw=iw))
+        E = 8 if a else 4
+        pa, ta, mua, nua = buffers(g, sum(math.prod(x) for x in sac_act_shapes(S, net, A, a)))
+        pc, tc, muc, nuc = buffers(g, sum(math.prod(x) for x in sac_cri_shapes(S, A, net, E)))
+        misc = torch.tensor([-1.0, 1e-3, 1e-6, 9.0, 5.0], device=dev)
+        blocks = [torch.randn((C, S, B), generator=g, device=dev),
+                  torch.randn((C, S, B), generator=g, device=dev),
+                  torch.rand((C, A, B), generator=g, device=dev) * 2 - 1, *rows(g, B),
+                  torch.randn((C, A, B), generator=g, device=dev),
+                  torch.randn((C, A, B), generator=g, device=dev)]
+        return (fo.sac_chunk, [pa, pc, ta if a else None, tc, mua, muc, nua, nuc, misc], blocks,
+                lambda n: fo.sac_bcv(9, 9, idx, n),
+                dict(net_dims=net, modsac=a, num_ensembles=E, gamma=0.99, tau=5e-3, lr=3e-4,
+                     clip_grad=3.0, target_entropy=-math.log(A) if a else math.log(A),
+                     std_clip=(-20.0, 2.0) if a else (-16.0, 2.0)))
+
+    results = {}
+    for case in CASES:
+        fn, base, blocks, bcv, hyper = inputs(*case)
+        bufs = [None if x is None else x.clone() for x in base]
+        objs = fn(*bufs, *blocks, bcv(VALID), **hyper)
+        outs = [x for x in bufs if x is not None] + list(objs if isinstance(objs, tuple)
+                                                         else (objs,))
+        bufs = [None if x is None else x.clone() for x in base]
+        full = bcv(C)
+        for _ in range(2):
+            fn(*bufs, *blocks, full, **hyper)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(10):
+            fn(*bufs, *blocks, full, **hyper)
+        end.record()
+        torch.cuda.synchronize()
+        results[case_name(*case)] = ([x.cpu() for x in outs], start.elapsed_time(end) / 10)
+    torch.save(results, out_path)
+
+
+def main():
+    if len(sys.argv) == 4 and sys.argv[1] == '--side':
+        run_side(sys.argv[2], sys.argv[3])
+        return
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('torch_compare_chunks: this needs a CUDA card')
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sides = {'other': sys.argv[1], 'this': here}
+    runs = {'other': [], 'this': []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, side in enumerate(('other', 'this', 'this', 'other')):
+            path = os.path.join(tmp, f'{k}.pt')
+            subprocess.run([sys.executable, os.path.abspath(__file__), '--side', sides[side],
+                            path], check=True)
+            runs[side].append(torch.load(path))
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    for name in runs['this'][0]:
+        mine, theirs = runs['this'][0][name][0], runs['other'][0][name][0]
+        equal = len(mine) == len(theirs) and all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        print(json.dumps({'chunk': name, 'bitwise_equal': equal,
+                          'ms_other': [r[name][1] for r in runs['other']],
+                          'ms_this': [r[name][1] for r in runs['this']]}), flush=True)
+    print(json.dumps({'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi}))
+
+
+if __name__ == '__main__':
+    main()
