@@ -64,11 +64,12 @@ PyTorch version:
     (each PyTorch path said so), and an ``if_save_buffer`` run resumed with
     ``continue_train``;
 13. StockTradingEnv-v2 (``stock_phases``): K4, the stock body of both rollout
-    kernels (the on-policy one as an actor-only kernel plus a critic pass),
-    against its plain version at ``ppo_stock``'s 256 and ``ppo_stock_4k``'s
-    4096 envs, H = 128, both noise modes, with a one-step check from every
-    visited state whose lot flips must each sit at a lot edge
-    (``k4_vs_plain``); the ddpg, sac and modsac heads on the stock body
+    kernels (the on-policy one as the stock actor kernel, a lane group on a
+    thread-block cluster, plus a critic pass), against its plain version at
+    ``ppo_stock``'s 256 and ``ppo_stock_4k``'s 4096 envs and a ragged 300,
+    H = 128, both noise modes, two runs bitwise equal, with a one-step check
+    from every visited state whose lot flips must each sit at a lot edge,
+    and the kernel's time at each cluster size (``k4_vs_plain``); the ddpg, sac and modsac heads on the stock body
     (``k4_offpolicy_vs_plain``); the reset's and the head's Philox draws
     (``k4_philox``); the ``ppo_stock`` main path (a small round against the
     CPU, then 10 timed rounds: 10 K4 rollouts, 10 critic passes, 10 K2
@@ -82,9 +83,11 @@ PyTorch version:
     (C, S, B) layout), bitwise against ``buf[ids0, ids1]`` at
     ``dqn_lunarlander``'s row chunk and path D's chunk, int64 and int32 ids,
     with six such calls and the transposes as the library yardstick, and
-    its one-field case (``k11a_vs_plain``); K11b, the fused 3-layer MLP forward, within 1e-5 of
-    the largest plain output at (8, 128, 128, 2) for B = 64 and 16,384 and
-    at (8, 256, 256, 4) for B = 64 (``k11b_vs_plain``); K2 at S = 8, A = 2,
+    its one-field case (``k11a_vs_plain``); K11b, the fused 3-layer MLP
+    forward on thread-block clusters, within 1e-5 of the largest plain
+    output at (8, 128, 128, 2), (8, 256, 256, 4) and (8, 128, 128, 1) for B =
+    1, 64, 65, 1000, 4096 and 16,384, two runs bitwise equal, call and
+    device time (``k11b_vs_plain``); K2 at S = 8, A = 2,
     U = 8 (``k2_vs_plain_lunar``) and K9 at (256, 256), B = 256
     (``k9_vs_plain_lunar``, with the other K9 checks); the
     ``ppo_lunarlander_cont`` and ``dqn_lunarlander`` main paths, 10 rounds
@@ -154,6 +157,23 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(torch, fn, reps, kernel_name):
+    """Mean device ms per call of the kernels whose name holds
+    ``kernel_name``, from ``torch.profiler`` over ``reps`` calls (after one
+    warm-up); raises when the trace holds none (no device time traced)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name)
+    assert total > 0, f'the profiler traced no device time for {kernel_name}'
+    return total / 1e3 / reps
+
+
 # ---------------------------------------------------------------- off-policy
 
 OFF_NET = (128, 128)
@@ -210,10 +230,11 @@ def stock_smem_pairs():
     the Python copies that judge eligibility on the CPU do."""
     from elegantrl_tpu_torch.ops import fused_rollout as fr
     lib, S, A = fr._library(), 151, 15
-    out = {'stock_rollout': (lib.stock_rollout_smem_bytes(*OFF_NET),
-                             fr.actor_smem_bytes(S, OFF_NET, A)),
-           f'critic_values[S={S}]': (lib.critic_values_smem_bytes(S, *OFF_NET),
-                                     fr.critic_smem_bytes(S, OFF_NET))}
+    out = {f'stock_rollout[cluster={c}]': (lib.stock_rollout_smem_bytes(*OFF_NET, c),
+                                           fr.actor_smem_bytes(S, OFF_NET, A, c))
+           for c in (1, 2, 4, 8)}
+    out[f'critic_values[S={S}]'] = (lib.critic_values_smem_bytes(S, *OFF_NET),
+                                    fr.critic_smem_bytes(S, OFF_NET))
     for head in fr.CONTINUOUS_HEADS:
         out[f'offpolicy_rollout[StockTradingEnv-v2,{head}]'] = (
             lib.offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
@@ -1218,15 +1239,19 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
 
     def onpolicy_bound(n, h, n_act, n_cri):
         """K4 on-policy: the actor (rollout) and critic (pass) over every
-        env-step; bytes: weights, the env rows in and out, one market row of
-        each table per step, the stored outputs written once."""
-        flop_a = 2 * (S * D1 + D1 * D2 + D2 * A) * n * h
-        flop_c = 2 * (S * D1 + D1 * D2 + D2) * n * h
+        env-step, each net's W1 market columns once per step (the day, and
+        so the market rows of the obs, is the same on every lane); bytes:
+        weights, the env rows in and out, one market row of each table per
+        step, the stored outputs written once.  Also the bound that counts
+        both nets in full per env-step, and the critic pass's alone."""
+        L, M = 1 + A, S - 1 - A
+        flop_a = 2 * (L * D1 + D1 * D2 + D2 * A) * n * h + 2 * M * D1 * h
+        flop_c = 2 * (L * D1 + D1 * D2 + D2) * n * h + 2 * M * D1 * h
+        flop_full = 2 * (S * D1 + D1 * D2 + D2 * A) * n * h + 2 * (S * D1 + D1 * D2 + D2) * n * h
         rows = body.n_f32 + body.n_i32
-        nbytes = 4 * (n_act + n_cri + 2 * S + 2 * rows * n + h * (S - 1 - A)
-                      + n * h * (S + A + 5))
-        return bound(flop_a + flop_c, nbytes), bound(
-            flop_c, 4 * (n_cri + 2 * S + n * h * (S + 1)))
+        nbytes = 4 * (n_act + n_cri + 2 * S + 2 * rows * n + h * M + n * h * (S + A + 5))
+        return bound(flop_a + flop_c, nbytes), bound(flop_full, nbytes), bound(
+            2 * (S * D1 + D1 * D2 + D2) * n * h, 4 * (n_cri + 2 * S + n * h * (S + 1)))
 
     # ---- k4_vs_plain: the on-policy stock rollout (the actor-only kernel and
     # the critic pass) at ppo_stock's 256 envs and at ppo_stock_4k's 4096,
@@ -1244,7 +1269,11 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     # parts from its twin at its first lot flip, and stays apart (a lot
     # moves the cash); the lanes parted and their first steps are reported,
     # at most a quarter may part (a wrong kernel parts nearly all), and the
-    # other lanes agree to 2e-2 and end with equal lots.
+    # other lanes agree to 2e-2 and end with equal lots.  Two runs of the
+    # kernel are bitwise equal.  A ragged N (300: a last group of 12 lanes)
+    # runs the same checks.  The kernel's time at each cluster size it can
+    # take (cluster_ms: the actor kernel and the critic pass) records the
+    # options; the kernel picks its own.
     st = make_ppo(STOCK_NET, S, A, Config()).init(0, dev)
     g = torch.Generator(device=dev).manual_seed(41)
     st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
@@ -1253,7 +1282,8 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         st.act.std_log.fill_(-0.5)
     net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
     k4 = {}
-    for recipe, path in (('ppo_stock', PPO_STOCK), ('ppo_stock_4k', PPO_STOCK_4K)):
+    for recipe, path in (('ppo_stock', PPO_STOCK), ('ppo_stock_4k', PPO_STOCK_4K),
+                         ('ragged_300', dict(PPO_STOCK, envs=300))):
         n, h = path['envs'], path['horizon']
         f0, i0 = start_rows(n, T - 61, g)
         nz = noise(g, h, n)
@@ -1262,9 +1292,12 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
             got = fr.rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
+            again = fr.rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
             want = fr.rollout_reference(*net, f0, i0, horizon_len=h, env_trace=trace, **bkw,
                                         **extra)
             torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
+                'K4 runs differ', recipe, mode)
             assert torch.equal(got.terminals, want.terminals) and torch.equal(
                 got.truncates, want.truncates), 'K4 flags differ'
             assert int(got.terminals.sum()) == n
@@ -1325,21 +1358,27 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                        reps=10, warmup=2)
         c_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
             st.cri_flat, st.norm_avg, st.norm_std, got.states, net_dims=STOCK_NET), reps=2)
-        (b_ms, b_by), (cb_ms, cb_by) = onpolicy_bound(n, h, st.act_flat.numel(),
-                                                      st.cri_flat.numel())
+        cluster = fr._library().stock_rollout_cluster(n, D1, D2, 0)
+        cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed,
+                                                           stock_cluster=c, **bkw),
+                                 reps=5, warmup=1) for c in (1, 2, 4, 8)}
+        (b_ms, b_by), (full_ms, _), (cb_ms, cb_by) = onpolicy_bound(
+            n, h, st.act_flat.numel(), st.cri_flat.numel())
         emit(phase='k4_vs_plain', kernel='fused_rollout[StockTradingEnv-v2,gaussian]',
              recipe=recipe, envs=n,
              horizon=h, trajectory=report, one_step=one, one_step_samples=h * n,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
-             critic_pass_max_abs_err=critic_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, critic_ms=c_ms, critic_plain_ms=c_plain, critic_bound_ms=cb_ms,
-             critic_bound_by=cb_by, ms_covers='the actor-only rollout kernel and the critic pass',
+             two_runs_bitwise_equal=True, cluster=cluster, cluster_ms=cluster_ms,
+             critic_pass_max_abs_err=critic_err, ms=ms, actor_ms=ms - c_ms, plain_ms=plain_ms,
+             bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms, critic_ms=c_ms,
+             critic_plain_ms=c_plain, critic_bound_ms=cb_ms, critic_bound_by=cb_by,
+             ms_covers='the actor-only rollout kernel and the critic pass',
              tolerance=dict(tol, share_parted=0.25, kept_lanes=2e-2))
         k4[recipe] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['values'], one['logprobs'],
                                                                 one['actions'], one['rewards']),
-                     bound_ms=b_ms, bound_by=b_by, critic=dict(
-                         ms=c_ms, plain_ms=c_plain, max_abs_err=critic_err, bound_ms=cb_ms,
-                         bound_by=cb_by))
+                     bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms, cluster=cluster,
+                     critic=dict(ms=c_ms, plain_ms=c_plain, max_abs_err=critic_err,
+                                 bound_ms=cb_ms, bound_by=cb_by))
 
     # ---- k4_philox: the internal draws.  Every lane at the last day but one
     # ends its episode at step 0 and resets from Philox uniforms: cash in
@@ -1594,7 +1633,8 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                         'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
                         'launches': launches['fused_rollout'], 'max_abs_err': k['max_abs_err'],
                         'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
-                        'bound_by': k['bound_by'], 'library_ms': None})
+                        'bound_by': k['bound_by'], 'library_ms': None,
+                        'bound_ms_full_obs': k['bound_ms_full_obs'], 'cluster': k['cluster']})
         c = k['critic']
         kernels.append({'name': f'critic_values[StockTradingEnv-v2,{n} envs]', 'route': 'cuda',
                         'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
@@ -1751,28 +1791,39 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
                      'feature-major', tolerance='exact')
 
     # ---- K11b: within 1e-5 of the largest plain output (FP32 products
-    # summed in another order than cuBLAS's, TF32 off; tanhf of two libraries)
+    # summed in another order than cuBLAS's, TF32 off; tanhf of two
+    # libraries) at the LunarLander actors' and critic's widths, for the
+    # rollout's B = 64, a ragged 65 and 1, and 1000, 4096, 16,384 (each B
+    # takes its own (rows, cluster) layout); two runs bitwise equal; the
+    # call time by CUDA events and the device time from the profiler
     k11b = {}
-    for dims, B in (((8, 128, 128, 2), 64), ((8, 128, 128, 2), 16384), ((8, 256, 256, 4), 64)):
-        g = torch.Generator(device=dev).manual_seed(B)
-        leaves = [p.detach().to(dev).contiguous() for p in
-                  mlp_init(torch.Generator().manual_seed(B), dims, out_std=0.1).leaves()]
-        x = torch.randn((B, dims[0]), generator=g, device=dev)
-        got = kn.fused_mlp3(x, *leaves)
-        want = kn.fused_mlp3_reference(x, *leaves)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        assert math.isfinite(err) and err <= 1e-5 * scale, ('K11b', dims, B, err, scale)
-        ms = cuda_ms_(lambda: kn.fused_mlp3(x, *leaves), reps=50, warmup=3)
-        plain = cuda_ms_(lambda: kn.fused_mlp3_reference(x, *leaves), reps=50, warmup=3)
-        S, D1, D2, A = dims
-        n_params = sum(t.numel() for t in leaves)
-        b_ms, b_by = bound(2 * B * (S * D1 + D1 * D2 + D2 * A), 4 * (B * S + n_params + B * A))
-        k11b[(dims, B)] = dict(max_abs_err=err, max_abs_out=scale, ms=ms, plain_ms=plain,
-                               bound_ms=b_ms, bound_by=b_by)
-        emit(phase='k11b_vs_plain', dims=dims, B=B, **k11b[(dims, B)], library_ms=None,
-             tolerance='1e-5 x max|plain out|')
+    for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1)):
+        for B in (1, 64, 65, 1000, 4096, 16384):
+            g = torch.Generator(device=dev).manual_seed(B)
+            leaves = [p.detach().to(dev).contiguous() for p in
+                      mlp_init(torch.Generator().manual_seed(B), dims, out_std=0.1).leaves()]
+            x = torch.randn((B, dims[0]), generator=g, device=dev)
+            got = kn.fused_mlp3(x, *leaves)
+            again = kn.fused_mlp3(x, *leaves)
+            want = kn.fused_mlp3_reference(x, *leaves)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            assert math.isfinite(err) and err <= 1e-5 * scale, ('K11b', dims, B, err, scale)
+            assert torch.equal(got, again), ('K11b runs differ', dims, B)
+            ms = cuda_ms_(lambda: kn.fused_mlp3(x, *leaves), reps=50, warmup=3)
+            dev_ms = profiled_ms(torch, lambda: kn.fused_mlp3(x, *leaves), 20, 'fused_mlp3')
+            plain = cuda_ms_(lambda: kn.fused_mlp3_reference(x, *leaves), reps=50, warmup=3)
+            S, D1, D2, A = dims
+            n_params = sum(t.numel() for t in leaves)
+            b_ms, b_by = bound(2 * B * (S * D1 + D1 * D2 + D2 * A),
+                               4 * (B * S + n_params + B * A))
+            layout = kn._library().fused_mlp3_config(B, *dims)
+            k11b[(dims, B)] = dict(max_abs_err=err, max_abs_out=scale, ms=ms, device_ms=dev_ms,
+                                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                   rows_per_cluster=layout // 16, cluster=layout % 16)
+            emit(phase='k11b_vs_plain', dims=dims, B=B, **k11b[(dims, B)], library_ms=None,
+                 two_runs_bitwise_equal=True, tolerance='1e-5 x max|plain out|')
 
     # ---- the main paths, 10 rounds each at full width
     counters = {'gae_vtrace': kn.gae_vtrace_kernel, 'buffer_gather': kn.buffer_gather_fields,
@@ -1915,7 +1966,9 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
                  dqn_l['buffer_gather'], k11a['dqn_lunarlander_chunk'],
                  path_d_chunk=k11a['path_d_chunk']),
         entry_of('fused_mlp3[8,128,128,2 B=64]', src, replaces + '172', ppo_l['fused_mlp3'],
-                 k11b[((8, 128, 128, 2), 64)], at_B16384=k11b[((8, 128, 128, 2), 16384)]),
+                 k11b[((8, 128, 128, 2), 64)], at_B16384=k11b[((8, 128, 128, 2), 16384)],
+                 critic_8_128_128_1=k11b[((8, 128, 128, 1), 64)],
+                 launches_cover='the actor and the critic forwards of main_path_ppo_lunar'),
         entry_of('fused_mlp3[8,256,256,4 B=64]', src, replaces + '172', dqn_l['fused_mlp3'],
                  k11b[((8, 256, 256, 4), 64)]),
         entry_of('ppo_update[LunarLanderContinuous-v2, U=8]',
@@ -2066,9 +2119,10 @@ def main():
                                             fu_smem(S, A, *NET_DIMS))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
-    for S, D1, D2 in ((8, 128, 128), (8, 256, 256), (151, 128, 128)):
-        smem[f'fused_mlp3[{S},{D1},{D2}]'] = (kn_lib().fused_mlp3_smem_bytes(S, D1, D2),
-                                              mlp3_smem_bytes(S, D1, D2))
+    for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1), (151, 128, 128, 15)):
+        for rows, c in ((64, 1), (64, 8), (32, 4), (16, 2), (16, 8)):
+            smem[f'fused_mlp3[{dims},rows={rows},cluster={c}]'] = (
+                kn_lib().fused_mlp3_smem_bytes(*dims, rows, c), mlp3_smem_bytes(*dims, rows, c))
     assert all(a == b for a, b in smem.values()), smem
     emit(phase='build', seconds=round(time.time() - t0, 3), ptxas=ptxas,
          smem_bytes={k: v[0] for k, v in smem.items()})

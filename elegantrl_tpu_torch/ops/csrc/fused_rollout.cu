@@ -1,8 +1,9 @@
 // Fused whole-rollout kernel: actor + critic MLPs, the Gaussian or the
 // categorical head and an inlined env step, for every env lane and all H
 // steps in one launch.  One instantiation per env body: Pendulum-v1,
-// CartPole-v1, HopperSlip-v0, PointChasing (continuous and discrete) and
-// StockTradingEnv-v2 (StockBody, actor only: see below).
+// CartPole-v1, HopperSlip-v0 and PointChasing (continuous and discrete);
+// StockTradingEnv-v2's actor runs in stock_actor_kernel (K4, below), its
+// critic in critic_values_kernel.
 // Below it, offpolicy_rollout_kernel: the same template for the off-policy
 // agents' exploration (one net, the ddpg and DQN heads).
 //
@@ -48,6 +49,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cluster_mlp.cuh"
 
 // The stock body's tables and constants (ops/fused_rollout.py:_StockArgs),
 // passed by the host to stock_rollout and offpolicy_stock_rollout.
@@ -321,18 +324,11 @@ struct ChasingDiscreteBody : ChasingBase {
 // recorded cumulative return; the step counter is the lane's day.  The obs
 // is tanh(cash 2^-18), tanh(shares 2^-10) (the S_LANE per-lane rows), then
 // close[day] 2^-7 and tech[day] 2^-6: the day is the same on every lane of
-// a block (every env starts at day 0 and ends at the shared last day), so
-// the kernel reads it from the block's first lane, carries it as a scalar
-// and wraps it to 0 at the last day, and all threads fill the 135 market
-// rows together.  The tables stay in device memory (read through L2/L1:
-// one row of each per step, the same row for every lane of the block).
-//
-// Bound: operations.  The actor per env-step, 2 (S D1 + D1 D2 + D2 A) FLOP
-// (75,264 at S = 151, A = 15, (128, 128)), 2.5 GFLOP at 256 envs x 128
-// steps; with the critic pass 4.8 GFLOP (0.072 ms at 67 TFLOP/s FP32), while
-// the outputs are ~200 B per env-step.  Design against it: the actor alone
-// fits one block (205,756 B), so its weights stay in shared memory for all H
-// steps and the critic runs as its own kernel, parallel over (lanes, steps).
+// a group of TE lanes (every env starts at day 0 and ends at the shared last
+// day), so the kernels read it from the group's first lane, carry it as a
+// scalar and wrap it to 0 at the last day, and fill the 135 market rows
+// once for the group.  The tables stay in device memory (read through
+// L2/L1: one row of each per step, the same row for every lane).
 //
 // Numbers: lots are floor(cash / price) with cash near 1e6, where one f32
 // ulp is 0.0625, so the trade loop and the total are written with _rn
@@ -350,10 +346,13 @@ struct StockBody {
   static constexpr bool DISCRETE = false;
   StockArgs p;
 
+  // obs row s (< S_LANE) from the lane's row f[s]: cash 2^-18, shares 2^-10
+  __device__ static float obs_row(int s, float v) {
+    return tanhf(v * (s == 0 ? 3.814697265625e-06f : 9.765625e-04f));
+  }
   __device__ void obs(const float* f, float* x) const {
-    x[0] = tanhf(f[0] * 3.814697265625e-06f);    // 2^-18
 #pragma unroll
-    for (int k = 0; k < NS; ++k) x[1 + k] = tanhf(f[1 + k] * 9.765625e-04f);  // 2^-10
+    for (int s = 0; s < S_LANE; ++s) x[s] = obs_row(s, f[s]);
   }
   // market row r (S_LANE <= r < S) of the obs on `day`
   __device__ float market(int day, int r) const {
@@ -372,6 +371,11 @@ struct StockBody {
     float prices[NS];
 #pragma unroll
     for (int k = 0; k < NS; ++k) prices[k] = __ldg(p.close + (size_t)(day + 1) * NS + k);
+    step_at(f, tc, prices, a, reward, terminal, trunc);
+  }
+  // the step at the next day's close prices
+  __device__ void step_at(float* f, int& tc, const float* prices, const float* a, float& reward,
+                          bool& terminal, bool& trunc) const {
     float cash = f[0];
 #pragma unroll
     for (int k = 0; k < NS; ++k) {  // sequential: buys compete for the same cash
@@ -496,9 +500,9 @@ __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
 
 // ----------------------------------------------------------------- kernel
 
-// CRITIC = false runs the actor only (the stock body, whose two nets do not
-// fit one block together): `val_o` is left alone for critic_values_kernel.
-template <class Body, bool CRITIC>
+// The bodies without market tables (the stock body's actor runs in
+// stock_actor_kernel below).
+template <class Body>
 __global__ void __launch_bounds__(THREADS)
 fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
@@ -521,16 +525,13 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   constexpr int N_HEAD = DISCRETE ? A : 2 * A;         // internal head uniforms
   constexpr int NB = (N_HEAD + N_ENV + 3) / 4;         // Philox blocks per step
   constexpr int AE = DISCRETE ? 1 : A;                 // values of the env's action
-  constexpr bool TABLES = BodyInfo<Body>::TABLES;
-  constexpr int L = BodyInfo<Body>::S_LANE;            // per-lane obs rows
+  static_assert(!BodyInfo<Body>::TABLES, "the stock body runs stock_actor_kernel");
 
   extern __shared__ float smem[];
   const int net_floats = D1 * S + D1 + D2 * D1 + D2;
   const Net actor = load_net(act_flat, smem, S, D1, D2, A);
-  Net critic{};
-  if (CRITIC) critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
-  float* xn = smem + (CRITIC ? 2 * net_floats + A * D2 + A + D2 + 1  // (S, TE)
-                             : net_floats + A * D2 + A);
+  const Net critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
+  float* xn = smem + 2 * net_floats + A * D2 + A + D2 + 1;  // (S, TE)
   float* h1 = xn + S * TE;                                  // (D1, TE)
   float* h2 = h1 + D1 * TE;                                 // (D2, TE)
   float* out = h2 + D2 * TE;                                // (A + 1, TE)
@@ -539,14 +540,12 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   const int n = blockIdx.x * TE + e;
   const bool owner = e < TE;
   const bool live = owner && n < N;
-  int day = 0;                // the block's day (TABLES): its first lane's
-  if (TABLES) day = env_i[blockIdx.x * TE];
 
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
   int tc = 0;
-  float std_a[A], log_std_sum = 0.f, avg[L], nstd[L];
+  float std_a[A], log_std_sum = 0.f, avg[S], nstd[S];
   if (owner) {
     if (live) {
 #pragma unroll
@@ -562,7 +561,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
       }
     }
 #pragma unroll
-    for (int s = 0; s < L; ++s) {
+    for (int s = 0; s < S; ++s) {
       avg[s] = norm_avg[s];
       nstd[s] = norm_std[s] + 1e-4f;
     }
@@ -572,19 +571,11 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   __syncthreads();
 
   for (int t = 0; t < H; ++t) {
-    if constexpr (TABLES) {  // the day's market rows, the same on every lane
-      for (int idx = threadIdx.x; idx < (S - L) * TE; idx += blockDim.x) {
-        const int r = L + idx / TE, e2 = idx % TE, n2 = blockIdx.x * TE + e2;
-        const float x = body.market(day, r);
-        xn[r * TE + e2] = n2 < N ? (x - __ldg(norm_avg + r)) / (__ldg(norm_std + r) + 1e-4f) : 0.f;
-        if (n2 < N) states_o[((size_t)t * S + r) * N + n2] = x;
-      }
-    }
     if (owner) {
-      float x[L];
+      float x[S];
       body.obs(f, x);
 #pragma unroll
-      for (int s = 0; s < L; ++s) {
+      for (int s = 0; s < S; ++s) {
         xn[s * TE + e] = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
         if (live) states_o[((size_t)t * S + s) * N + n] = x[s];
       }
@@ -592,10 +583,8 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
     __syncthreads();
     mlp(actor, xn, h1, h2, out, S, D1, D2, A);
     __syncthreads();
-    if (CRITIC) {
-      mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
-      __syncthreads();
-    }
+    mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
+    __syncthreads();
     if (live) {
       // head[0:A]: normals (Gaussian, injected), or uniforms; u_env: the
       // env's N_STEP step uniforms, then its N_RESET reset uniforms
@@ -666,22 +655,17 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
       }
       float reward;
       bool terminal, trunc;
-      if constexpr (TABLES) {
-        body.step(f, tc, day, env_a, reward, terminal, trunc);
-      } else {
-        body.step(f, tc, env_a, u_env, reward, terminal, trunc);
-      }
+      body.step(f, tc, env_a, u_env, reward, terminal, trunc);
       logp_o[o] = logp;
       rew_o[o] = reward * reward_scale;
       term_o[o] = terminal ? 1.0f : 0.0f;
       trunc_o[o] = trunc ? 1.0f : 0.0f;
-      if (CRITIC) val_o[o] = out[A * TE + e];
+      val_o[o] = out[A * TE + e];
       if (terminal || trunc) {  // masked reset from the reset uniforms
         body.reset(f, u_env + Body::N_STEP);
         tc = 0;
       }
     }
-    if constexpr (TABLES) day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
     // the next step's xn write and dense passes reuse the shared tiles
     __syncthreads();
   }
@@ -692,20 +676,19 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   }
 }
 
-template <class Body, bool CRITIC = true>
+template <class Body>
 int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* norm_std, const void* env_f, const void* env_i,
            const void* noise, const void* seed, void* states, void* actions,
            void* logp, void* rew, void* term, void* trunc, void* val,
            void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
-           float reward_scale, int smem_bytes, cudaStream_t stream, const Body body = Body{}) {
+           float reward_scale, int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_kernel<Body, CRITIC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TE - 1) / TE;
-  fused_rollout_kernel<Body, CRITIC><<<blocks, THREADS, smem_bytes, stream>>>(
-      body, (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
+  fused_rollout_kernel<Body><<<blocks, THREADS, smem_bytes, stream>>>(
+      Body{}, (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
       (const float*)norm_std, (const float*)env_f, (const int*)env_i,
       (const float*)noise, (const int*)seed, (float*)states, actions,
       (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)val,
@@ -1084,10 +1067,322 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
   }
 }
 
-// the actor-only rollout's shared memory: the actor's weights and the tiles
-__host__ __device__ inline int actor_smem(int S, int A, int D1, int D2) {
-  return (int)sizeof(float) *
-         (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (S + D1 + D2 + A + 1) * TE);
+// ------------------------------------------------- K4: the stock actor
+// The on-policy stock rollout's actor kernel (replaces the actor half of
+// pallas_rollout.py:_make_kernel :600 with make_stock_body :451; the critic
+// runs afterwards in critic_values_kernel).  The function is that of
+// fused_rollout_kernel<StockBody> without the critic: the same outputs, the
+// same Philox bits, the same trade loop with its _rn intrinsics.
+//
+// Bound: operations.  The work the function needs per step and group of
+// TE = 32 lanes is the actor's per-lane rows, 2 TE (L D1 + D1 D2 + D2 A)
+// FLOP, plus W1's market columns once, 2 (S - L) D1: the day, and so the
+// S - L = 135 market rows of the obs, is the same on every lane of a group
+// (every env starts at day 0 and ends at the shared last day; the JAX
+// kernel relies on it too, pallas_rollout.py:466-469).
+//
+// What held the first design back (fused_rollout_kernel<StockBody, false>,
+// one 8-warp block per 32 lanes, 205,756 B, ~61 us a step): 8 of 132 SMs at
+// 256 envs and 8 warps an SM at 4096; layer 1 applied the market rows on
+// every lane (46% of the FMA); `dense` issued one shared load per FMA; warp
+// 0 drew 12 Philox blocks, 15 Box-Muller pairs and 15 tanhf per lane while
+// seven warps waited.  This design:
+// - A group of 32 lanes runs on a cluster of c blocks (c = 8, 4, 2 or 1:
+//   the largest whose clusters all fit on the card at once, so 256 envs take
+//   64 SMs and 4096 envs two blocks an SM).  Block r owns 1/c of W1's and
+//   W2's rows and of Wo's columns (cluster_mlp.cuh); every block runs the
+//   env step of all 32 lanes on its warp 0 from the same inputs, so the
+//   blocks agree bit for bit and only rank 0 stores per-lane outputs.
+// - Per step: W1's market columns times the day's normalised market rows
+//   (8 threads a row, read through L1/L2, summed in a fixed tree) once per
+//   block; the lanes' 16 rows through tile_dense; each block's rows of h1
+//   pushed into every block (distributed shared memory stores) before a
+//   cluster barrier; h2; the head's part of the mean pushed likewise; the
+//   parts added in rank order after the second barrier.
+// - The head's 8 Philox blocks a lane and its Box-Muller, and the lanes'
+//   obs rows (tanh and normalisation), run on all warps into shared memory;
+//   the reset's 5 blocks are drawn only on a lane that resets (counter
+//   (lane, step, j / 4, 0): the same bits).  Warp 0 runs only the
+//   sequential trade loop, from the next day's close prices in shared
+//   memory, while the other warps fetch the next step's market rows and
+//   prices and draw its uniforms.
+// Sums run in another order than fused_rollout_kernel's, so an action can
+// differ in its last bit (and a lot at a lot edge: chip_smoke.py's
+// k4_vs_plain); a launch is deterministic for a given N.
+
+// Shared memory of one block (floats), clusters of c: the weight slices row
+// by row (W1's rows at the lane columns, W2's rows, Wo's columns:
+// cluster_mlp.cuh) and biases, exp(std_log), the day's normalised market
+// rows and W1's market columns times them, the next day's close prices (two
+// steps' worth), then (rows, TE) tiles: the lanes' raw and normalised obs
+// rows, the whole h1, this block's rows of h2, every block's part of the
+// mean, the head's uniforms and normals, the env actions, and the split-K
+// scratch.
+struct StockActorLayout {
+  int js1, js2, k2, w1l, b1, w2, b2, wo, bo, stdv, xm, msm, pnext, xraw, xl, h1, h2, outp, ubuf,
+      zbuf, ea, scratch, floats;
+  __host__ __device__ StockActorLayout(int D1, int D2, int c) {
+    constexpr int L = StockBody::S_LANE, AP = cm::round4(StockBody::A);
+    js1 = cm::slice(D1, c);
+    js2 = cm::slice(D2, c);
+    k2 = c * js1;
+    int o = 0;
+    w1l = o; o += js1 * cm::ldk(L);
+    b1 = o; o += js1;
+    w2 = o; o += js2 * cm::ldk(k2);
+    b2 = o; o += js2;
+    wo = o; o += AP * cm::ldk(js2);
+    bo = o; o += AP;
+    stdv = o; o += AP;
+    xm = o; o += cm::round4(StockBody::S - L);
+    msm = o; o += js1;
+    pnext = o; o += 2 * cm::round4(StockBody::NS);
+    xraw = o; o += L * TE;
+    xl = o; o += L * TE;
+    h1 = o; o += k2 * TE;
+    h2 = o; o += js2 * TE;
+    outp = o; o += c * AP * TE;
+    ubuf = o; o += 32 * TE;
+    zbuf = o; o += AP * TE;
+    ea = o; o += AP * TE;
+    scratch = o; o += cm::SCRATCH;
+    floats = o;
+  }
+};
+
+__global__ void __launch_bounds__(cm::THREADS, 2)
+stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
+                   const float* __restrict__ norm_avg, const float* __restrict__ norm_std,
+                   const float* __restrict__ env_f, const int* __restrict__ env_i,
+                   const float* __restrict__ noise, const int* __restrict__ seed,
+                   float* __restrict__ states_o, float* __restrict__ actions_o,
+                   float* __restrict__ logp_o, float* __restrict__ rew_o,
+                   float* __restrict__ term_o, float* __restrict__ trunc_o,
+                   float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N, int H, int D1,
+                   int D2, float reward_scale) {
+  constexpr int S = StockBody::S, A = StockBody::A, F = StockBody::F, NS = StockBody::NS;
+  constexpr int L = StockBody::S_LANE, NM = S - L, AP = cm::round4(A), NP = cm::round4(NS);
+  constexpr int N_ENV = StockBody::N_RESET;           // no step uniforms
+  constexpr int NZ = A + N_ENV;                       // injected rows
+  constexpr int N_HEAD = 2 * A;                       // head uniforms: words 0 .. 29
+  constexpr int HB = (N_HEAD + 3) / 4;                // head Philox blocks
+  constexpr int RB0 = N_HEAD / 4, RB1 = (N_HEAD + N_ENV + 3) / 4;  // the reset's blocks
+  static_assert(4 * HB <= 32, "ubuf holds 32 words a lane");
+
+  cm::cg::cluster_group cluster = cm::cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int grp = blockIdx.x / c;
+  const StockActorLayout Ly(D1, D2, c);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1l = sm + Ly.w1l, *b1s = sm + Ly.b1, *w2s = sm + Ly.w2, *b2s = sm + Ly.b2;
+  float *wos = sm + Ly.wo, *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *xm = sm + Ly.xm;
+  float *msm = sm + Ly.msm, *pnext = sm + Ly.pnext, *xraw = sm + Ly.xraw, *xl = sm + Ly.xl;
+  float *h1 = sm + Ly.h1, *h2 = sm + Ly.h2, *outp = sm + Ly.outp, *ubuf = sm + Ly.ubuf;
+  float *zbuf = sm + Ly.zbuf, *ea = sm + Ly.ea, *scratch = sm + Ly.scratch;
+  const int js1 = Ly.js1, js2 = Ly.js2, j1 = rank * js1, j2 = rank * js2;
+  cm::cluster_arrive();  // this block has started
+
+  // the actor's leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (A, D2), bo, std_log
+  const float* W1 = act_flat;
+  const float* W2 = W1 + D1 * S + D1;
+  const float* Wo = W2 + D2 * D1 + D2;
+  const float* std_log = Wo + A * D2 + A;
+  cm::load_rows<false>(W1, D1, S, j1, js1, 0, L, w1l, cm::ldk(L));
+  cm::load_vec<false>(W1 + D1 * S, D1, j1, js1, b1s);
+  cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, w2s, cm::ldk(Ly.k2));
+  cm::load_vec<false>(W2 + D2 * D1, D2, j2, js2, b2s);
+  cm::load_rows<false>(Wo, A, D2, 0, AP, j2, js2, wos, cm::ldk(js2));
+  cm::load_vec<false>(Wo + A * D2, A, 0, AP, bos);
+  for (int a = threadIdx.x; a < AP; a += blockDim.x) stdv[a] = a < A ? expf(std_log[a]) : 0.f;
+
+  // warp 0 holds the env rows of the group's lanes (every block of the cluster)
+  const int e = threadIdx.x;  // the lane of a warp-0 thread
+  const bool w0 = threadIdx.x < TE;
+  const int n = grp * TE + (threadIdx.x & (TE - 1));
+  const bool live = w0 && n < N;
+  int day = env_i[grp * TE];  // the group's day: its first lane's
+  float f[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) f[k] = 0.f;
+  int tc = 0;
+  float log_std_sum = 0.f;
+  if (w0) {
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < F; ++k) f[k] = env_f[(size_t)k * N + n];
+      tc = env_i[n];
+    }
+#pragma unroll
+    for (int a = 0; a < A; ++a) log_std_sum += logf(expf(std_log[a]));
+  }
+  uint2 key = make_uint2(0u, 0u);
+  if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
+
+  // warp 0: the lanes' rows the next obs reads (all warps turn them into obs)
+  auto lane_rows = [&]() {
+#pragma unroll
+    for (int s = 0; s < L; ++s) xraw[s * TE + e] = f[s];
+  };
+  // threads from `first` on, for step t on day d: the normalised market rows
+  // (stored too, rows r = rank mod c), the next day's close prices and the
+  // head's uniforms (internal noise)
+  auto prepare = [&](int t, int d, int first) {
+    const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
+    if (i0 < 0) return;
+    for (int r = i0; r < NM; r += nth)
+      xm[r] = (body.market(d, L + r) - __ldg(norm_avg + L + r)) / (__ldg(norm_std + L + r) + 1e-4f);
+    for (int k = i0; k < NS; k += nth)
+      pnext[(t & 1) * NP + k] = __ldg(body.p.close + (size_t)(d + 1) * NS + k);
+    const int mine = (NM - rank + c - 1) / c;
+    for (int i = i0; i < mine * TE; i += nth) {
+      const int r = L + rank + c * (i / TE), n2 = grp * TE + i % TE;
+      if (n2 < N) states_o[((size_t)t * S + r) * N + n2] = body.market(d, r);
+    }
+    if (noise == nullptr) {
+      for (int i = i0; i < HB * TE; i += nth) {
+        const int b = i / TE, e2 = i % TE;
+        const uint4 q = philox4x32_10(
+            make_uint4((uint32_t)(grp * TE + e2), (uint32_t)t, (uint32_t)b, 0u), key);
+        ubuf[(4 * b + 0) * TE + e2] = uniform24(q.x);
+        ubuf[(4 * b + 1) * TE + e2] = uniform24(q.y);
+        ubuf[(4 * b + 2) * TE + e2] = uniform24(q.z);
+        ubuf[(4 * b + 3) * TE + e2] = uniform24(q.w);
+      }
+    }
+  };
+  if (w0) lane_rows();
+  if (H > 0) prepare(0, day, 0);
+  cm::cluster_wait();  // every block has started: h1 and the parts may be pushed
+
+  for (int t = 0; t < H; ++t) {
+    __syncthreads();  // step t's rows, prices and uniforms; the weights at t = 0
+    // W1's market columns times the day's rows: 8 threads a row, each two
+    // chains, summed in a fixed tree (js1 is a multiple of 4, so whole warps
+    // take part)
+    for (int i = threadIdx.x; i < js1 * 8; i += cm::THREADS) {
+      const int j = i >> 3, q = i & 7;
+      float v0 = 0.f, v1 = 0.f;
+      if (j1 + j < D1) {  // a fixed trip count, so every load issues up front
+        const float* w = W1 + (size_t)(j1 + j) * S + L;
+#pragma unroll
+        for (int u = 0; u < (NM + 15) / 16; ++u) {
+          const int k = q + 16 * u;
+          if (k < NM) v0 = fmaf(__ldg(w + k), xm[k], v0);
+          if (k + 8 < NM) v1 = fmaf(__ldg(w + k + 8), xm[k + 8], v1);
+        }
+      }
+      float v = v0 + v1;
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (q == 0) msm[j] = v;
+    }
+    // the lanes' obs rows (stored by rank 0) and the head's normals:
+    // injected, or Box-Muller on the Philox uniforms
+    for (int i = threadIdx.x; i < (L + A) * TE; i += cm::THREADS) {
+      const int e2 = i % TE, n2 = grp * TE + e2;
+      if (i < L * TE) {
+        const int s2 = i / TE;
+        const float x = StockBody::obs_row(s2, xraw[i]);
+        xl[i] = n2 < N ? (x - __ldg(norm_avg + s2)) / (__ldg(norm_std + s2) + 1e-4f) : 0.f;
+        if (rank == 0 && n2 < N) states_o[((size_t)t * S + s2) * N + n2] = x;
+      } else {
+        const int a = i / TE - L;
+        float z = 0.f;
+        if (noise != nullptr) {
+          if (n2 < N) z = noise[((size_t)t * NZ + a) * N + n2];
+        } else {
+          z = sqrtf(-2.0f * logf(1.0f - ubuf[a * TE + e2])) *
+              cosf(TWO_PI_F * ubuf[(A + a) * TE + e2]);
+        }
+        zbuf[a * TE + e2] = z;
+      }
+    }
+    __syncthreads();
+    cm::tile_dense<TE>(w1l, cm::ldk(L), xl, L, js1, scratch, [&](int j, int m0, float4 v) {
+      const float mj = msm[j], b = b1s[j];
+      cm::store_cluster(cluster, c, h1, (j1 + j) * TE + m0,
+                        make_float4(gelu_tanh((mj + v.x) + b), gelu_tanh((mj + v.y) + b),
+                                    gelu_tanh((mj + v.z) + b), gelu_tanh((mj + v.w) + b)));
+    });
+    cluster.sync();  // every block's rows of h1, in every block
+    cm::tile_dense<TE>(w2s, cm::ldk(Ly.k2), h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
+      const float b = b2s[j];
+      *reinterpret_cast<float4*>(h2 + j * TE + m0) =
+          make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                      gelu_tanh(v.w + b));
+    });
+    __syncthreads();
+    cm::tile_dense<TE>(wos, cm::ldk(js2), h2, js2, AP, scratch, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * AP + j) * TE + m0, v);
+    });
+    cluster.sync();  // every block's part of the mean, in every block
+    for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
+      const int a = i / TE, n2 = grp * TE + i % TE;
+      float v = outp[i];
+      for (int q = 1; q < c; ++q) v += outp[q * AP * TE + i];
+      const float action = (v + bos[a]) + stdv[a] * zbuf[i];
+      ea[i] = tanhf(action);
+      if (rank == 0 && n2 < N) actions_o[((size_t)t * A + a) * N + n2] = action;
+    }
+    __syncthreads();
+    day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
+    if (w0) {
+      if (live) {
+        float env_a[A], logp = -log_std_sum;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float z = zbuf[a * TE + e];
+          logp += -0.5f * z * z - LOG_SQRT_2PI;
+          env_a[a] = ea[a * TE + e];
+        }
+        float reward;
+        bool terminal, trunc;
+        body.step_at(f, tc, pnext + (t & 1) * NP, env_a, reward, terminal, trunc);
+        if (rank == 0) {
+          const size_t o = (size_t)t * N + n;
+          logp_o[o] = logp;
+          rew_o[o] = reward * reward_scale;
+          term_o[o] = terminal ? 1.0f : 0.0f;
+          trunc_o[o] = trunc ? 1.0f : 0.0f;
+        }
+        if (terminal || trunc) {  // masked reset, its uniforms drawn here only
+          float u_env[N_ENV];
+          if (noise != nullptr) {
+#pragma unroll
+            for (int k = 0; k < N_ENV; ++k) u_env[k] = noise[((size_t)t * NZ + A + k) * N + n];
+          } else {
+            float u[4 * (RB1 - RB0)];
+#pragma unroll
+            for (int b = RB0; b < RB1; ++b) {
+              const uint4 q = philox4x32_10(
+                  make_uint4((uint32_t)n, (uint32_t)t, (uint32_t)b, 0u), key);
+              u[4 * (b - RB0) + 0] = uniform24(q.x);
+              u[4 * (b - RB0) + 1] = uniform24(q.y);
+              u[4 * (b - RB0) + 2] = uniform24(q.z);
+              u[4 * (b - RB0) + 3] = uniform24(q.w);
+            }
+#pragma unroll
+            for (int k = 0; k < N_ENV; ++k) u_env[k] = u[N_HEAD - 4 * RB0 + k];
+          }
+          body.reset(f, u_env);
+          tc = 0;
+        }
+      }
+      lane_rows();
+    }
+    if (t + 1 < H) prepare(t + 1, day, TE);  // the other warps, meanwhile
+  }
+  if (live && rank == 0) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) env_f_o[(size_t)k * N + n] = f[k];
+    env_i_o[n] = tc;
+  }
+}
+
+int stock_actor_smem(int D1, int D2, int c) {
+  return (int)sizeof(float) * StockActorLayout(D1, D2, c).floats;
 }
 
 }  // namespace
@@ -1175,24 +1470,64 @@ extern "C" int offpolicy_rollout(int body, int head, const void* flat, const voi
 #undef ELEGANTRL_OFF
 }
 
-// StockTradingEnv-v2: the actor-only rollout (the Gaussian head on StockBody;
-// values are left to critic_values).  Returns the CUDA error of the launch.
-extern "C" int stock_rollout_smem_bytes(int D1, int D2) {
-  return actor_smem(StockBody::S, StockBody::A, D1, D2);
+// StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel;
+// values are left to critic_values).  Shared memory of one block for
+// clusters of c blocks.
+extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c) { return stock_actor_smem(D1, D2, c); }
+
+// The cluster size for N lanes: `cluster` when it is 1, 2, 4 or 8; with 0,
+// the largest of 8, 4, 2, 1 whose layout fits and whose clusters of the
+// ceil(N / 32) groups the card holds all at once (else the largest that
+// fits of 2 and 1).  Returns 0 when none fits or on a CUDA error.
+int stock_cluster(int N, int D1, int D2, int cluster) {
+  constexpr int SMEM_LIMIT = 232448;
+  if (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
+    return stock_actor_smem(D1, D2, cluster) <= SMEM_LIMIT ? cluster : 0;
+  if (cluster != 0) return 0;
+  const int groups = (N + TE - 1) / TE;
+  int fallback = 0;
+  for (int c : {8, 4, 2, 1}) {
+    const int smem = stock_actor_smem(D1, D2, c);
+    if (smem > SMEM_LIMIT) continue;
+    if (c <= 2 && fallback == 0) fallback = c;
+    if (cudaFuncSetAttribute(stock_actor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+      return 0;
+    const int active = cm::active_clusters(stock_actor_kernel, c, smem);
+    if (active == 0) return 0;
+    if (groups <= active) return c;
+  }
+  return fallback;
+}
+
+extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster) {
+  return stock_cluster(N, D1, D2, cluster);
 }
 
 extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
                              const void* env_f, const void* env_i, const void* noise,
                              const void* seed, void* states, void* actions, void* logp,
                              void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
-                             int N, int H, int D1, int D2, float reward_scale,
+                             int N, int H, int D1, int D2, float reward_scale, int cluster,
                              const StockArgs* args, void* stream) {
   const StockBody body{*args};
-  return launch<StockBody, false>(act_flat, nullptr, norm_avg, norm_std, env_f, env_i, noise,
-                                  seed, states, actions, logp, rew, term, trunc, nullptr,
-                                  env_f_o, env_i_o, N, H, D1, D2, reward_scale,
-                                  actor_smem(StockBody::S, StockBody::A, D1, D2),
-                                  (cudaStream_t)stream, body);
+  if (N == 0) return 0;
+  const int c = stock_cluster(N, D1, D2, cluster);
+  if (c == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  }
+  const int smem = stock_actor_smem(D1, D2, c);
+  cudaError_t err = cudaFuncSetAttribute(
+      stock_actor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (N + TE - 1) / TE;
+  return (int)cm::launch_clusters(
+      stock_actor_kernel, groups * c, c, smem, (cudaStream_t)stream, body,
+      (const float*)act_flat, (const float*)norm_avg, (const float*)norm_std,
+      (const float*)env_f, (const int*)env_i, (const float*)noise, (const int*)seed,
+      (float*)states, (float*)actions, (float*)logp, (float*)rew, (float*)term, (float*)trunc,
+      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
 }
 
 // The critic pass: val (H, N) from the stored states (H, S, N).

@@ -41,20 +41,36 @@
 //    W2^T + b2 with tanh-GELU (jax.nn.gelu's default), weights in the port's
 //    (out, in) layout, f32.  Bound: operations, 2 B (S D1 + D1 D2 + D2 A)
 //    FLOP on the FP32 cores (8.6 us at (8, 128, 128, 2), B = 16,384), at
-//    every B this slice runs; the weights are read once.  Design: one block of 256 threads per 32 rows of x; the rows'
-//    input and both hidden activations stay in shared memory and only the
-//    output is written.  The TPU kernel kept all three weights in VMEM; at
-//    (256, 256) they take 274,432 B, more than a block's 227 KB, so each W is
-//    streamed through shared memory in (32 k x 64 j) tiles, the next tile
-//    loaded into registers while the current one is used, and every thread
-//    accumulates a 2 x 4 register tile of outputs.  At a rollout's B = 64
-//    two blocks run, so the chain of tiles, not the FLOP, sets the time.
+//    every B this slice runs; the weights are read once.  At the rollouts'
+//    B = 64 the work is 2.3-8.8 MFLOP against 70-274 KB of weights resident
+//    in L2, so what sets the time is how many SMs share it and how long a
+//    chain of dependent steps each runs, not the FLOP.  Design (after a
+//    design of 32-row blocks that streamed every W through one shared tile:
+//    two blocks and 14-44 tile steps at B = 64): one thread-block cluster of
+//    c blocks per RM rows of x (RM 16, 32 or 64).  Block r owns 1/c of each
+//    hidden layer (rows of W0, b0, W1, b1; the matching columns of W2), so
+//    its weights sit in shared memory for the whole call: they are copied
+//    row by row with 16-byte cp.async at the start, W0 first, before x is
+//    read, so their latency is paid once and the rest overlaps the first
+//    layer.  Each block pushes its rows of the first hidden layer into every
+//    block of the cluster (distributed shared memory stores), so after a
+//    cluster barrier layer 1 reads the whole layer locally; its part of the
+//    output layer's sums (rows x A) goes to the block that owns those rows,
+//    which adds the parts in rank order, so two runs are bitwise equal.
+//    The host picks (RM, c) from B: the smallest cluster, then the largest
+//    RM, whose grid fills the card (B = 1000: RM 16, c 2; B = 16,384: RM
+//    64, c 1), or at a small B the layout with the most blocks (B = 64: RM
+//    16, c 8, 32 blocks); scripts/torch_cluster_kernels.py times every
+//    layout against this choice.  Sums run in
+//    k order per output, split over a power-of-2 number of threads where a
+//    slice has fewer output tiles than threads (cluster_mlp.cuh:tile_dense).
 //    tanhf is the accurate one: the library is built without
 //    --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_mlp.cuh"
 #include "mlp_grad.cuh"
 
 namespace {
@@ -133,118 +149,168 @@ __global__ void __launch_bounds__(GATHER_SAMPLES) gather_fields_kernel(const Gat
 
 // ----------------------------------------------------------- K11b MLP3
 
-constexpr int BM = 32;       // rows of x per block
-constexpr int JT = 64;       // output columns per pass
-constexpr int KT = 32;       // depth of a streamed weight tile
-constexpr int THREADS = 256; // 16 x 16: 2 rows x 4 columns each
+// Shared memory of one block (floats): the block's weight slices, row by
+// row (W0's and W1's rows, W2's columns: cluster_mlp.cuh), the biases, then
+// x transposed (round4(S), RM) whose space the block's rows of the second
+// hidden layer (js2, RM) take over, the whole first hidden layer (c js1,
+// RM), every block's part of this block's RM / c output rows (c,
+// round4(A), RM / c) and the split-K scratch.
+struct Mlp3Layout {
+  int js1, js2, ap, s4, d1c, w0t, b0, w1t, b1, w2t, b2, xt, h0t, part, scratch, floats;
+  __host__ __device__ Mlp3Layout(int S, int D1, int D2, int A, int RM, int c) {
+    js1 = cm::slice(D1, c);
+    js2 = cm::slice(D2, c);
+    ap = cm::round4(A);
+    s4 = cm::round4(S);
+    d1c = c * js1;
+    int o = 0;
+    w0t = o; o += js1 * cm::ldk(S);
+    b0 = o; o += js1;
+    w1t = o; o += js2 * cm::ldk(d1c);
+    b1 = o; o += js2;
+    w2t = o; o += ap * cm::ldk(js2);
+    b2 = o; o += ap;
+    xt = o; o += (s4 > js2 ? s4 : js2) * RM;
+    h0t = o; o += d1c * RM;
+    part = o; o += ap * RM;
+    scratch = o; o += cm::SCRATCH;
+    floats = o;
+  }
+};
 
-__host__ __device__ inline int mlp3_ld(int k) { return k | 1; }
+constexpr int MLP3_SMEM_LIMIT = 232448;        // bytes of shared memory a Hopper block can hold
+constexpr int MLP3_CLUSTERS[4] = {1, 2, 4, 8};   // cluster sizes, smallest first
+constexpr int MLP3_ROWS[3] = {64, 32, 16};       // rows of x per cluster, largest first
 
-constexpr int PER = KT * JT / THREADS;  // weights each thread stages per tile
+// One cluster of c blocks per RM rows of x; block r computes its slice of
+// each layer for all RM rows.
+template <int RM>
+__global__ void __launch_bounds__(cm::THREADS, 2)
+fused_mlp3_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+                  const float* __restrict__ b0, const float* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ b2, float* __restrict__ out, int B, int S, int D1,
+                  int D2, int A) {
+  cm::cg::cluster_group cluster = cm::cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const Mlp3Layout L(S, D1, D2, A, RM, c);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w0t = sm + L.w0t, *b0s = sm + L.b0, *w1t = sm + L.w1t, *b1s = sm + L.b1;
+  float *w2t = sm + L.w2t, *b2s = sm + L.b2, *xt = sm + L.xt, *h0t = sm + L.h0t;
+  float *part = sm + L.part, *scratch = sm + L.scratch;
+  float* h1t = xt;  // x is dead once the first layer is done
+  const int js1 = L.js1, js2 = L.js2, ap = L.ap;
+  cm::cluster_arrive();  // this block has started
 
-// Tile t of a layer's weights, (KT k) x (JT j) in (k-tile, j-chunk) order
-// with k fastest, into registers: consecutive threads read consecutive k of
-// one row of W, so the loads coalesce.
-__device__ __forceinline__ void mlp3_fetch(const float* __restrict__ W, int K, int J, int nk,
-                                           int t, float (&next)[PER]) {
-  const int j0 = (t / nk) * JT, k0 = (t % nk) * KT;
+  // the weights, asynchronously: the first layer's, then the rest
+  cm::load_rows<true>(w0, D1, S, r * js1, js1, 0, S, w0t, cm::ldk(S));
+  cm::load_vec<true>(b0, D1, r * js1, js1, b0s);
+  cm::cp_async_commit();
+  cm::load_rows<true>(w1, D2, D1, r * js2, js2, 0, L.d1c, w1t, cm::ldk(L.d1c));
+  cm::load_vec<true>(b1, D2, r * js2, js2, b1s);
+  cm::load_rows<true>(w2, A, D2, 0, ap, r * js2, js2, w2t, cm::ldk(js2));
+  cm::load_vec<true>(b2, A, 0, ap, b2s);
+  cm::cp_async_commit();
+  // the group's rows of x, transposed, zero past B and past S
+  const int m0 = (blockIdx.x / c) * RM;
+  const int rows = min(RM, B - m0);
+  for (int i = threadIdx.x; i < RM * L.s4; i += blockDim.x) {
+    const int m = i / L.s4, k = i - m * L.s4;
+    xt[k * RM + m] = m < rows && k < S ? __ldg(x + (size_t)(m0 + m) * S + k) : 0.f;
+  }
+  cm::cp_async_wait<1>();
+  __syncthreads();
+  cm::cluster_wait();  // every block has started: the layer's rows may be pushed
+  cm::tile_dense<RM>(w0t, cm::ldk(S), xt, L.s4, js1, scratch, [&](int j, int m4, float4 v) {
+    const float b = b0s[j];
+    cm::store_cluster(cluster, c, h0t, (r * js1 + j) * RM + m4,
+                      make_float4(mlp::gelu_tanh(v.x + b), mlp::gelu_tanh(v.y + b),
+                                  mlp::gelu_tanh(v.z + b), mlp::gelu_tanh(v.w + b)));
+  });
+  cluster.sync();  // every block's rows of h0, in every block
+  cm::cp_async_wait<0>();
+  __syncthreads();
+  cm::tile_dense<RM>(w1t, cm::ldk(L.d1c), h0t, L.d1c, js2, scratch, [&](int j, int m4, float4 v) {
+    const float b = b1s[j];
+    *reinterpret_cast<float4*>(h1t + j * RM + m4) =
+        make_float4(mlp::gelu_tanh(v.x + b), mlp::gelu_tanh(v.y + b), mlp::gelu_tanh(v.z + b),
+                    mlp::gelu_tanh(v.w + b));
+  });
+  __syncthreads();
+  // this block's part of the output, pushed to the block that owns the row:
+  // block q owns rows q * per ... and holds every block's part of them
+  const int per = RM / c;
+  cm::tile_dense<RM>(w2t, cm::ldk(js2), h1t, js2, ap, scratch, [&](int j, int m4, float4 v) {
+    const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int i = threadIdx.x + p * THREADS, kk = i % KT, jj = i / KT;
-    const int j = j0 + jj, k = k0 + kk;
-    next[p] = (j < J && k < K) ? __ldg(W + (size_t)j * K + k) : 0.f;
+    for (int b = 0; b < 4; ++b) {
+      float* dst = part + (r * ap + j) * per + (m4 + b) % per;
+      if (c == 1) *dst = vs[b];
+      else *cluster.map_shared_rank(dst, (m4 + b) / per) = vs[b];
+    }
+  });
+  cluster.sync();  // every block's parts of this block's rows
+  // this block's rows of the output: the parts in rank order, then b2
+  for (int i = threadIdx.x; i < per * A; i += blockDim.x) {
+    const int ml = i / A, a = i % A;
+    if (r * per + ml >= rows) continue;
+    float v = part[a * per + ml];
+    for (int q = 1; q < c; ++q) v += part[(q * ap + a) * per + ml];
+    out[(size_t)(m0 + r * per + ml) * A + a] = v + b2s[a];
   }
 }
 
-// out[m][j] = act(sum_k in[m][k] W[j][k] + b[j]) for the block's BM rows.
-// ``in`` is in shared memory (leading dimension ldi); ``out`` is shared (ldo)
-// or, with TO_GLOBAL, the output rows of this block, ``rows`` of them valid.
-// The next weight tile is loaded into registers while the current one is
-// used, so a tile's load latency hides behind the previous tile's products.
-template <bool GELU, bool TO_GLOBAL>
-__device__ void mlp3_layer(const float* __restrict__ W, const float* __restrict__ b,
-                           const float* in, int ldi, int K, int J, float* out, int ldo,
-                           float* ws, int rows) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nk = (K + KT - 1) / KT, ntiles = nk * ((J + JT - 1) / JT);
-  float next[PER];
-  float acc[2][4];
-  mlp3_fetch(W, K, J, nk, 0, next);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kt = t % nk, j0 = (t / nk) * JT, k0 = kt * KT;
-    if (kt == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    }
-    __syncthreads();  // the previous tile's readers (and layer's writers) are done
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int i = threadIdx.x + p * THREADS;
-      ws[(i % KT) * (JT + 1) + i / KT] = next[p];
-    }
-    __syncthreads();
-    if (t + 1 < ntiles) mlp3_fetch(W, K, J, nk, t + 1, next);
-    const int kmax = min(KT, K - k0);
-    const float* a0p = in + (ty * 2) * ldi + k0;
-    const float* a1p = a0p + ldi;
-    for (int kk = 0; kk < kmax; ++kk) {
-      const float a0 = a0p[kk], a1 = a1p[kk];
-      const float* wr = ws + kk * (JT + 1) + tx;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float w = wr[16 * c];
-        acc[0][c] = fmaf(a0, w, acc[0][c]);
-        acc[1][c] = fmaf(a1, w, acc[1][c]);
+int mlp3_smem(int S, int D1, int D2, int A, int RM, int c) {
+  return (int)sizeof(float) * Mlp3Layout(S, D1, D2, A, RM, c).floats;
+}
+
+// The launch for B rows: the first layout, by cluster size (1, 2, 4, 8:
+// fewer cluster barriers and row copies first) and then RM (64, 32, 16:
+// fewer weight copies first), whose shared memory fits and whose grid fills
+// the card (at least 15/16 of its SMs); where none does (a small B), the
+// layout with the most blocks, then the fewest rows x hidden units a block.
+// rm = 0 when no layout fits.
+void mlp3_config(int B, int S, int D1, int D2, int A, int sms, int& rm, int& c) {
+  rm = 0;
+  c = 0;
+  long long most = -1;
+  int least = 1 << 30;
+  for (int cc : MLP3_CLUSTERS)
+    for (int RM : MLP3_ROWS) {
+      if (mlp3_smem(S, D1, D2, A, RM, cc) > MLP3_SMEM_LIMIT) continue;
+      const long long blocks = (long long)((B + RM - 1) / RM) * cc;
+      if (16 * blocks >= 15LL * sms) {
+        rm = RM;
+        c = cc;
+        return;
+      }
+      if (blocks > most || (blocks == most && RM / cc < least)) {
+        most = blocks;
+        least = RM / cc;
+        rm = RM;
+        c = cc;
       }
     }
-    if (kt != nk - 1) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = ty * 2 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tx + 16 * c;
-        if (j >= J) continue;
-        float val = acc[r][c] + __ldg(b + j);
-        if (GELU) val = mlp::gelu_tanh(val);
-        if (TO_GLOBAL) {
-          if (m < rows) out[(size_t)m * ldo + j] = val;
-        } else {
-          out[m * ldo + j] = val;
-        }
-      }
-    }
-  }
 }
 
-// Shared memory: buffer A holds x, later the second hidden layer; buffer B
-// the first hidden layer; then one weight tile.
-__host__ __device__ inline int mlp3_smem_floats(int S, int D1, int D2) {
-  const int lda = mlp3_ld(S > D2 ? S : D2);
-  return BM * lda + BM * mlp3_ld(D1) + KT * (JT + 1);
-}
-
-__global__ void fused_mlp3_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                                  const float* __restrict__ b0, const float* __restrict__ w1,
-                                  const float* __restrict__ b1, const float* __restrict__ w2,
-                                  const float* __restrict__ b2, float* __restrict__ out,
-                                  int B, int S, int D1, int D2, int A) {
-  extern __shared__ float smem[];
-  const int lda = mlp3_ld(S > D2 ? S : D2), ldb = mlp3_ld(D1);
-  float* bufa = smem;
-  float* bufb = bufa + BM * lda;
-  float* ws = bufb + BM * ldb;
-  const int m0 = blockIdx.x * BM;
-  const int rows = min(BM, B - m0);
-  for (int i = threadIdx.x; i < BM * S; i += THREADS) {
-    const int m = i / S, k = i - m * S;
-    bufa[m * lda + k] = m < rows ? x[(size_t)(m0 + m) * S + k] : 0.f;
+template <int RM>
+int mlp3_launch(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+                const void* w2, const void* b2, void* out, int B, int S, int D1, int D2, int A,
+                int c, cudaStream_t stream) {
+  static bool attr_set = false;  // the attribute is set once, to a block's whole limit
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_mlp3_kernel<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize, MLP3_SMEM_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
-  mlp3_layer<true, false>(w0, b0, bufa, lda, S, D1, bufb, ldb, ws, rows);
-  mlp3_layer<true, false>(w1, b1, bufb, ldb, D1, D2, bufa, lda, ws, rows);
-  mlp3_layer<false, true>(w2, b2, bufa, lda, D2, A, out + (size_t)m0 * A, A, ws, rows);
+  const int smem = mlp3_smem(S, D1, D2, A, RM, c);
+  const int blocks = (B + RM - 1) / RM * c;
+  return (int)cm::launch_clusters(fused_mlp3_kernel<RM>, blocks, c, smem, stream,
+                                  (const float*)x, (const float*)w0, (const float*)b0,
+                                  (const float*)w1, (const float*)b1, (const float*)w2,
+                                  (const float*)b2, (float*)out, B, S, D1, D2, A);
 }
 
 }  // namespace
@@ -293,20 +359,33 @@ extern "C" int buffer_gather_fields(const long long* desc, int nf, const void* i
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_mlp3_smem_bytes(int S, int D1, int D2) {
-  return (int)sizeof(float) * mlp3_smem_floats(S, D1, D2);
+// Shared memory of one K11b block for RM rows a cluster and clusters of c.
+extern "C" int fused_mlp3_smem_bytes(int S, int D1, int D2, int A, int RM, int c) {
+  return mlp3_smem(S, D1, D2, A, RM, c);
 }
 
+// The (RM, c) the launch takes for B rows on this card, as RM * 16 + c;
+// 0 when no layout fits.
+extern "C" int fused_mlp3_config(int B, int S, int D1, int D2, int A) {
+  int rm, c;
+  mlp3_config(B, S, D1, D2, A, cm::sm_count(), rm, c);
+  return rm * 16 + c;
+}
+
+// rm and c pick the layout (RM 64, 32 or 16 rows a cluster of c = 1, 2, 4 or
+// 8 blocks; its shared memory must fit); rm = 0 takes mlp3_config's choice.
 extern "C" int fused_mlp3(const void* x, const void* w0, const void* b0, const void* w1,
                           const void* b1, const void* w2, const void* b2, void* out, int B,
-                          int S, int D1, int D2, int A, void* stream) {
+                          int S, int D1, int D2, int A, int rm, int c, void* stream) {
   if (B == 0) return 0;
-  const int smem = fused_mlp3_smem_bytes(S, D1, D2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_mlp3_kernel<<<(B + BM - 1) / BM, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w0, (const float*)b0, (const float*)w1,
-      (const float*)b1, (const float*)w2, (const float*)b2, (float*)out, B, S, D1, D2, A);
-  return (int)cudaGetLastError();
+  if (rm == 0) mlp3_config(B, S, D1, D2, A, cm::sm_count(), rm, c);
+  else if ((c != 1 && c != 2 && c != 4 && c != 8) || mlp3_smem(S, D1, D2, A, rm, c) > MLP3_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (rm) {
+    case 64: return mlp3_launch<64>(x, w0, b0, w1, b1, w2, b2, out, B, S, D1, D2, A, c, st);
+    case 32: return mlp3_launch<32>(x, w0, b0, w1, b1, w2, b2, out, B, S, D1, D2, A, c, st);
+    case 16: return mlp3_launch<16>(x, w0, b0, w1, b1, w2, b2, out, B, S, D1, D2, A, c, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,14 +22,16 @@ Outputs keep the kernel-native ``(H, S, N)`` layout, flagged by the
 The stock body (:func:`make_stock_body`, one instance per env, holding its
 market tables) has a 151-wide obs, and both nets with their tiles need
 350,144 bytes of shared memory, more than a Hopper block holds.  On the card
-its rollout is therefore two kernels: the rollout with only the actor in
-shared memory (205,756 bytes), which leaves the values alone, then
-:func:`critic_values`, the critic over the stored ``(H, S, N)`` states
-(215,824 bytes, tiles of 64 samples).  The outputs are those of the
-one-kernel route.  The body reads the day of its block's first lane
-(:func:`block_day`): every env starts at day 0 and ends at the shared last
-day, so the day is the same on every lane of a block, and its 135 market
-rows are filled for all lanes at once.
+its rollout is therefore two kernels: the actor kernel (K4's
+``stock_actor_kernel``: a group of ``_TE`` lanes on a thread-block cluster
+whose blocks each hold a slice of the actor, :func:`actor_smem_bytes`),
+which leaves the values alone, then :func:`critic_values`, the critic over
+the stored ``(H, S, N)`` states (215,824 bytes, tiles of 64 samples).  The
+outputs are those of the one-kernel route.  The body reads the day of its
+group's first lane (:func:`block_day`): every env starts at day 0 and ends
+at the shared last day, so the day is the same on every lane of a group,
+its 135 market rows are filled once for all lanes, and the kernel applies
+the actor's first layer to them once per step.
 
 Three pieces, as for every kernel of the port:
 
@@ -403,14 +405,14 @@ def kernel_bodies_text(body: Optional[KernelEnvBody] = None) -> str:
 
 
 # --------------------------------------------------------------- StockTrading
-# The day is the same on every lane of a block: every env starts at day 0
+# The day is the same on every lane of a group: every env starts at day 0
 # and ends only at the shared last day, so the body reads the day row of its
-# block's first lane (``block_day``), as the CUDA kernel does per block.
+# group's first lane (``block_day``), as the CUDA kernels do per group.
 
 
 def block_day(i: torch.Tensor) -> torch.Tensor:
-    """(N,) day of each lane's block: the day row of the block's first lane
-    (blocks of ``_TE`` lanes, as the kernel's)."""
+    """(N,) day of each lane's group: the day row of the group's first lane
+    (groups of ``_TE`` lanes, as the kernels')."""
     first = torch.div(torch.arange(i.shape[1], device=i.device), _TE,
                       rounding_mode='floor') * _TE
     return i[0, first].long()
@@ -645,13 +647,29 @@ def smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int) -> int:
     return 4 * floats
 
 
-def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int) -> int:
-    """Shared memory of one block of the actor-only rollout (the stock
-    body's route, ``stock_rollout_smem_bytes``): the actor's weights and the
-    activation tiles; the critic runs afterwards in :func:`critic_values`."""
+def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
+                     cluster: int = 1) -> int:
+    """Shared memory of one block of the stock actor kernel (K4's on-policy
+    route, ``stock_rollout_smem_bytes``) for clusters of ``cluster`` blocks
+    over a group of ``_TE`` lanes: the block's slices of the actor's weights
+    row by row (W1's rows at the ``1 + A`` lane columns, W2's rows, Wo's
+    columns; a row of K inputs takes ``kernels.ldk(K)`` floats), the biases
+    and stds, the day's market rows, two steps' close prices, then the lane
+    tiles (every block's part of the mean among them) and the split-K
+    scratch.  ``csrc/fused_rollout.cu`` owns the layout
+    (``StockActorLayout``); the critic runs afterwards in
+    :func:`critic_values`.  ``cluster = 1`` is the largest layout; the
+    wrapper needs it to fit."""
+    from .kernels import ldk
     D1, D2 = net_dims
-    S, A = state_dim, action_dim
-    return 4 * (D1 * S + D1 + D2 * D1 + D2 + A * D2 + A + (S + D1 + D2 + A + 1) * _TE)
+    S, A, c = state_dim, action_dim, cluster
+    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    L, ap = 1 + A, r4(A)
+    js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
+    k2 = c * js1
+    floats = (js1 * ldk(L) + js1 + js2 * ldk(k2) + js2 + ap * ldk(js2) + 2 * ap + r4(S - L)
+              + js1 + 2 * r4(A) + (2 * L + k2 + js2 + c * ap + 32 + 2 * ap) * _TE + 256 * 16)
+    return 4 * floats
 
 
 _CM, _CR = 64, 8   # the critic pass's samples per tile and rows per thread (csrc/fused_rollout.cu)
@@ -770,9 +788,11 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             net_dims: Sequence[int], horizon_len: int, reward_scale: float,
             noise: Optional[torch.Tensor] = None,
             seed: Optional[torch.Tensor] = None,
-            body: KernelEnvBody = PENDULUM_BODY) -> RolloutOutputs:
+            body: KernelEnvBody = PENDULUM_BODY, stock_cluster: int = 0) -> RolloutOutputs:
     """The fused rollout: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  ``stock_cluster`` sets the stock actor
+    kernel's cluster size (1, 2, 4 or 8; 0, the default, lets the kernel
+    choose from the card's occupancy): a knob for measuring the options."""
     kw = dict(net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise=noise, seed=seed, body=body)
     if act_flat.device.type == 'cpu':
@@ -794,7 +814,7 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     lib = _library()
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
-        smem = lib.stock_rollout_smem_bytes(D1, D2)
+        smem = lib.stock_rollout_smem_bytes(D1, D2, 1)
     else:
         smem = lib.fused_rollout_smem_bytes(S, A, D1, D2)
     if smem > SMEM_LIMIT:
@@ -837,7 +857,8 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         status = lib.stock_rollout(
             ptr(act_flat), ptr(norm_avg), ptr(norm_std), ptr(env_f), ptr(env_i), ptr(noise),
             ptr(seed), *[ptr(t) for t in out if t is not out.values], N, H, D1, D2,
-            ctypes.c_float(reward_scale), ctypes.byref(stock_args), ctypes.c_void_p(stream))
+            ctypes.c_float(reward_scale), int(stock_cluster), ctypes.byref(stock_args),
+            ctypes.c_void_p(stream))
     else:
         status = lib.fused_rollout(
             body.kernel_id,
@@ -874,10 +895,13 @@ def _library():
         lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
         lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                                      + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_void_p])
         lib.stock_rollout.restype = ctypes.c_int
-        lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.stock_rollout_smem_bytes.restype = ctypes.c_int
+        lib.stock_rollout_cluster.argtypes = [ctypes.c_int] * 4
+        lib.stock_rollout_cluster.restype = ctypes.c_int
         lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.critic_values.restype = ctypes.c_int
         lib.critic_values_smem_bytes.argtypes = [ctypes.c_int] * 3

@@ -27,6 +27,7 @@ order than cuBLAS.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,7 +36,6 @@ from ..config import select_kernel
 from .nets import mlp_apply_leaves
 
 SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block can hold
-_BM, _KT, _JT = 32, 32, 64   # K11b's rows per block and weight tile (csrc/kernels.cu)
 
 
 def select(args, flag: str, fits: bool, device, scope: str) -> bool:
@@ -205,18 +205,47 @@ buffer_gather.launches = 0
 
 # ------------------------------------------------------------ K11b fused MLP3
 
-def mlp3_smem_bytes(state_dim: int, d1: int, d2: int) -> int:
-    """K11b's dynamic shared memory per block: x and then the second hidden
-    layer, the first hidden layer (32 rows each, odd leading dimensions) and
-    one (32 x 64) weight tile.  ``csrc/kernels.cu`` owns the layout
-    (``fused_mlp3_smem_bytes``); this copy judges eligibility on the CPU."""
-    ld = lambda k: k | 1  # noqa: E731
-    return 4 * (_BM * ld(max(state_dim, d2)) + _BM * ld(d1) + _KT * (_JT + 1))
+_MLP3_ROWS, _MLP3_CLUSTERS = (64, 32, 16), (1, 2, 4, 8)   # csrc/kernels.cu
+
+
+def mlp3_smem_bytes(state_dim: int, d1: int, d2: int, action_dim: int, rows: int,
+                    cluster: int) -> int:
+    """K11b's dynamic shared memory per block, for ``rows`` rows of x per
+    cluster of ``cluster`` blocks: the block's weight slices row by row (a
+    row of K inputs takes :func:`ldk` floats), the biases, x transposed (its
+    space reused by the block's rows of the second hidden layer), the whole
+    first hidden layer, the block's part of the output and the split-K
+    scratch.  ``csrc/kernels.cu`` owns the layout (``Mlp3Layout``,
+    ``fused_mlp3_smem_bytes``); this copy judges eligibility on the CPU."""
+    js1, js2, ap = _r4(-(-d1 // cluster)), _r4(-(-d2 // cluster)), _r4(action_dim)
+    d1c = cluster * js1
+    floats = (js1 * ldk(state_dim) + js1 + js2 * ldk(d1c) + js2 + ap * ldk(js2) + ap
+              + max(_r4(state_dim), js2) * rows + d1c * rows + ap * rows + 256 * 16)
+    return 4 * floats
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def ldk(k: int) -> int:
+    """Floats a weight row of ``k`` inputs takes in the cluster kernels'
+    shared memory (``csrc/cluster_mlp.cuh:ldk``): ``k`` rounded up to 16
+    bytes, plus 16 bytes where that count of 16-byte chunks is even."""
+    return _r4(k) + (4 if _r4(k) // 4 % 2 == 0 else 0)
 
 
 def mlp3_fits(dims) -> bool:
-    """Whether K11b takes an MLP of layer widths ``dims = (S, D1, D2, A)``."""
-    return len(dims) == 4 and mlp3_smem_bytes(*dims[:3]) <= SMEM_LIMIT
+    """Whether K11b takes an MLP of layer widths ``dims = (S, D1, D2, A)``:
+    some layout fits a block (then the smallest, 16 rows a cluster, does, and
+    every B runs)."""
+    return _mlp3_fits(tuple(int(d) for d in dims))
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp3_fits(dims: tuple) -> bool:
+    return len(dims) == 4 and any(mlp3_smem_bytes(*dims, rows, c) <= SMEM_LIMIT
+                                  for rows in _MLP3_ROWS for c in _MLP3_CLUSTERS)
 
 
 def fused_mlp3_reference(x, w0, b0, w1, b1, w2, b2) -> torch.Tensor:
@@ -225,30 +254,43 @@ def fused_mlp3_reference(x, w0, b0, w1, b1, w2, b2) -> torch.Tensor:
     return mlp_apply_leaves((w0, b0, w1, b1, w2, b2), x)
 
 
-def fused_mlp3(x, w0, b0, w1, b1, w2, b2) -> torch.Tensor:
+def fused_mlp3(x, w0, b0, w1, b1, w2, b2, layout=None) -> torch.Tensor:
     """K11b for CUDA tensors (one launch), the plain version for CPU ones.
     ``x (B, S)`` f32 with any B; ``w0 (D1, S)``, ``w1 (D2, D1)``, ``w2 (A,
     D2)`` and their biases, f32 and contiguous.  Forward only: the JAX
-    package's kernel has no backward either."""
+    package's kernel has no backward either.  ``layout = (rows, cluster)``
+    sets the kernel's rows of x per cluster (64, 32, 16) and blocks per
+    cluster (1, 2, 4, 8), a knob for measuring the options; by default the
+    kernel picks them from B (``fused_mlp3_config``).  Called once per env
+    step on the generic rollout, so the per-call host work is kept small:
+    the library and the widths' fit are looked up once, and the checks read
+    each tensor's attributes once."""
     if x.device.type == 'cpu':
         return fused_mlp3_reference(x, w0, b0, w1, b1, w2, b2)
     _cuda_only('fused_mlp3', x)
-    from ._cuda_build import check, check_tensor, ptr
     B, S = x.shape
     D1, D2, A = w0.shape[0], w1.shape[0], w2.shape[0]
     dev = x.device
-    shapes = (('x', x, (B, S)), ('w0', w0, (D1, S)), ('b0', b0, (D1,)),
-              ('w1', w1, (D2, D1)), ('b1', b1, (D2,)), ('w2', w2, (A, D2)), ('b2', b2, (A,)))
-    for name, t, shape in shapes:
-        check_tensor('fused_mlp3', name, t, shape, torch.float32, dev)
-    smem = _library().fused_mlp3_smem_bytes(S, D1, D2)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'fused_mlp3: widths {(S, D1, D2)} need {smem} bytes of shared memory '
-                         f'per block, more than the {SMEM_LIMIT} a Hopper block can hold')
+    tensors = (x, w0, b0, w1, b1, w2, b2)
+    shapes = ((B, S), (D1, S), (D1,), (D2, D1), (D2,), (A, D2), (A,))
+    for t, shape in zip(tensors, shapes):
+        if t.dtype is not torch.float32 or t.device != dev or t.shape != shape \
+                or not t.is_contiguous():
+            from ._cuda_build import check_tensor
+            for name, t_, shape_ in zip(('x', 'w0', 'b0', 'w1', 'b1', 'w2', 'b2'), tensors,
+                                        shapes):
+                check_tensor('fused_mlp3', name, t_, shape_, torch.float32, dev)
+    if not _mlp3_fits((S, D1, D2, A)):
+        raise ValueError(f'fused_mlp3: widths {(S, D1, D2, A)} need more than the '
+                         f'{SMEM_LIMIT} bytes of shared memory a Hopper block can hold, '
+                         'in every layout')
     out = torch.empty((B, A), dtype=torch.float32, device=dev)
-    status = _library().fused_mlp3(*[ptr(t) for t in (x, w0, b0, w1, b1, w2, b2, out)],
-                                   B, S, D1, D2, A, _stream(dev))
-    check(status, 'fused_mlp3')
+    rows, cluster = layout or (0, 0)
+    status = _library().fused_mlp3(*[t.data_ptr() for t in tensors], out.data_ptr(),
+                                   B, S, D1, D2, A, rows, cluster, _stream(dev))
+    if status:
+        from ._cuda_build import check
+        check(status, 'fused_mlp3')
     fused_mlp3.launches += 1
     return out
 
@@ -263,20 +305,32 @@ def _cuda_only(what: str, t: torch.Tensor) -> None:
         raise ValueError(f'{what}: unsupported device {t.device}')
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _stream(dev) -> int:
+    """The current stream's handle, by PyTorch's internal getter where this
+    build has it, which skips building a ``Stream`` object (K11b runs once
+    per env step)."""
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    return get(dev.index) if get is not None else torch.cuda.current_stream(dev).cuda_stream
+
+
+_LIB = None
 
 
 def _library():
+    global _LIB
+    if _LIB is not None:
+        return _LIB
     from ._cuda_build import load
     lib = load('kernels')
     if lib.gae_vtrace.argtypes is None:
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.gae_vtrace.argtypes = [vp] * 5 + [i, i, f, f, vp]
         lib.buffer_gather_fields.argtypes = [ctypes.POINTER(ll), i, vp, vp, ll, ll, i, vp]
-        lib.fused_mlp3.argtypes = [vp] * 8 + [i] * 5 + [vp]
-        lib.fused_mlp3_smem_bytes.argtypes = [i] * 3
+        lib.fused_mlp3.argtypes = [vp] * 8 + [i] * 7 + [vp]
+        lib.fused_mlp3_smem_bytes.argtypes = [i] * 6
+        lib.fused_mlp3_config.argtypes = [i] * 5
         for fn in (lib.gae_vtrace, lib.buffer_gather_fields, lib.fused_mlp3,
-                   lib.fused_mlp3_smem_bytes):
+                   lib.fused_mlp3_smem_bytes, lib.fused_mlp3_config):
             fn.restype = ctypes.c_int
+    _LIB = lib
     return lib

@@ -1,7 +1,7 @@
-"""Hold the off-policy update chunks of this checkout against another
-checkout's on the same inputs, on one CUDA card.
+"""Hold the off-policy update chunks, K11b and K4 of this checkout against
+another checkout's on the same inputs, on one CUDA card.
 
-    python3 scripts/torch_compare_chunks.py OTHER_ROOT
+    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4]
 
 OTHER_ROOT is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -16,9 +16,19 @@ C's shape (B = 1024, (128, 128), S = 6, A = 2); one chunk of C = 16 with
 the last 4 steps invalid.  For each chunk it prints one JSON line: whether
 the two checkouts' updated buffers and objectives are bitwise equal (the
 first run of each side), and each run's ms a chunk (CUDA events over 10
-chunks after 2 warm-up ones).  Needs one card; the last line names it.
+chunks after 2 warm-up ones).  ``k11b``: the fused MLP3 forward at the
+LunarLander widths, (8, 128, 128, 2) at B = 64 and 16,384, (8, 256, 256, 4)
+and the critic's (8, 128, 128, 1) at B = 64 (ms a call by CUDA events over
+50 calls, and the device ms from the profiler over 20).  ``k4``: the stock
+rollout (the actor kernel and the critic pass) at ``ppo_stock``'s 256 and
+``ppo_stock_4k``'s 4096 envs, H = 128, injected and Philox noise, from day
+T - 61 (ms a rollout over 5).  Where two designs sum in other orders the
+outputs are not bitwise equal; each line also gives the largest difference.
+``--only`` picks the groups (all by default).  Needs one card; the last
+line names it.
 """
 
+import argparse
 import json
 import math
 import os
@@ -46,9 +56,93 @@ def case_name(kind, a, b, S, A, B, net):
     return f'{name}{list(net)},B={B}'
 
 
-def run_side(root, out_path):
-    """Run every case with the package under ``root``; save the outputs and
-    the ms a chunk to ``out_path``."""
+GROUPS = ('chunks', 'k11b', 'k4')
+K11B_CASES = (((8, 128, 128, 2), 64), ((8, 128, 128, 2), 16384), ((8, 256, 256, 4), 64),
+              ((8, 128, 128, 1), 64))
+K4_ENVS = (256, 4096)
+
+
+def cuda_ms(torch, fn, reps, warmup):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps, kernel_name):
+    """Device ms a call of the kernels named ``kernel_name``, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and kernel_name in ev.name) / 1e3 / reps
+
+
+def run_k11b(torch, dev):
+    from elegantrl_tpu_torch.ops import kernels as kn
+    from elegantrl_tpu_torch.ops.nets import mlp_init
+    results = {}
+    for dims, B in K11B_CASES:
+        g = torch.Generator(device=dev).manual_seed(B)
+        leaves = [p.detach().to(dev).contiguous() for p in
+                  mlp_init(torch.Generator().manual_seed(B), dims, out_std=0.1).leaves()]
+        x = torch.randn((B, dims[0]), generator=g, device=dev)
+        out = kn.fused_mlp3(x, *leaves)
+
+        def fn():
+            return kn.fused_mlp3(x, *leaves)
+        results[f'fused_mlp3{list(dims)},B={B}'] = dict(
+            outs=[out.cpu()], ms=cuda_ms(torch, fn, 50, 3),
+            device_ms=device_ms(torch, fn, 20, 'fused_mlp3'))
+    return results
+
+
+def run_k4(torch, dev):
+    from elegantrl_tpu_torch import Config
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    env_def = StockTradingVecEnv(num_envs=1)._def
+    body = env_def.kernel_body
+    S, A, NR = body.state_dim, body.action_dim, body.n_reset
+    T = body.tables.close.shape[0]
+    st = make_ppo((128, 128), S, A, Config()).init(0, dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
+                     norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
+    with torch.no_grad():
+        st.act.std_log.fill_(-0.5)
+    net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+    seed = torch.tensor([20260, -77], dtype=torch.int32, device=dev)
+    results = {}
+    for n in K4_ENVS:
+        f0, _ = body.pack(env_def.init(g, n, dev))
+        f0 = f0.contiguous()
+        i0 = torch.full((1, n), T - 61, dtype=torch.int32, device=dev)
+        nz = torch.cat([torch.randn((128, A, n), generator=g, device=dev),
+                        torch.rand((128, NR, n), generator=g, device=dev)], 1).contiguous()
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            def fn():
+                return fr.rollout(*net, f0, i0, net_dims=(128, 128), horizon_len=128,
+                                  reward_scale=2.0 ** -8, body=body, **extra)
+            out = fn()
+            results[f'stock_rollout[{n} envs,{mode}]'] = dict(
+                outs=[x.cpu() for x in out], ms=cuda_ms(torch, fn, 5, 1))
+    return results
+
+
+def run_side(root, out_path, groups):
+    """Run every case of ``groups`` with the package under ``root``; save the
+    outputs and the times to ``out_path``."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo
@@ -111,7 +205,11 @@ def run_side(root, out_path):
                      std_clip=(-20.0, 2.0) if a else (-16.0, 2.0)))
 
     results = {}
-    for case in CASES:
+    if 'k11b' in groups:
+        results.update(run_k11b(torch, dev))
+    if 'k4' in groups:
+        results.update(run_k4(torch, dev))
+    for case in (CASES if 'chunks' in groups else ()):
         fn, base, blocks, bcv, hyper = inputs(*case)
         bufs = [None if x is None else x.clone() for x in base]
         objs = fn(*bufs, *blocks, bcv(VALID), **hyper)
@@ -128,36 +226,52 @@ def run_side(root, out_path):
             fn(*bufs, *blocks, full, **hyper)
         end.record()
         torch.cuda.synchronize()
-        results[case_name(*case)] = ([x.cpu() for x in outs], start.elapsed_time(end) / 10)
+        results[case_name(*case)] = dict(outs=[x.cpu() for x in outs],
+                                         ms=start.elapsed_time(end) / 10)
     torch.save(results, out_path)
 
 
+def max_diff(torch, mine, theirs):
+    """Largest absolute difference over the float outputs (None if shapes differ)."""
+    if len(mine) != len(theirs) or any(a.shape != b.shape for a, b in zip(mine, theirs)):
+        return None
+    return max([float((a.double() - b.double()).abs().max()) for a, b in zip(mine, theirs)
+                if a.dtype.is_floating_point and a.numel()] or [0.0])
+
+
 def main():
-    if len(sys.argv) == 4 and sys.argv[1] == '--side':
-        run_side(sys.argv[2], sys.argv[3])
+    if len(sys.argv) >= 4 and sys.argv[1] == '--side':
+        run_side(sys.argv[2], sys.argv[3], sys.argv[4:])
         return
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
+    parser = argparse.ArgumentParser(usage=__doc__)
+    parser.add_argument('other')
+    parser.add_argument('--only', nargs='+', choices=GROUPS, default=list(GROUPS))
+    opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('torch_compare_chunks: this needs a CUDA card')
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sides = {'other': sys.argv[1], 'this': here}
+    sides = {'other': opts.other, 'this': here}
     runs = {'other': [], 'this': []}
     with tempfile.TemporaryDirectory() as tmp:
         for k, side in enumerate(('other', 'this', 'this', 'other')):
             path = os.path.join(tmp, f'{k}.pt')
             subprocess.run([sys.executable, os.path.abspath(__file__), '--side', sides[side],
-                            path], check=True)
+                            path, *opts.only], check=True)
             runs[side].append(torch.load(path))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip()
     for name in runs['this'][0]:
-        mine, theirs = runs['this'][0][name][0], runs['other'][0][name][0]
+        mine, theirs = runs['this'][0][name]['outs'], runs['other'][0][name]['outs']
         equal = len(mine) == len(theirs) and all(torch.equal(a, b) for a, b in zip(mine, theirs))
-        print(json.dumps({'chunk': name, 'bitwise_equal': equal,
-                          'ms_other': [r[name][1] for r in runs['other']],
-                          'ms_this': [r[name][1] for r in runs['this']]}), flush=True)
+        line = {'case': name, 'bitwise_equal': equal,
+                'max_abs_diff': max_diff(torch, mine, theirs),
+                'ms_other': [r[name]['ms'] for r in runs['other']],
+                'ms_this': [r[name]['ms'] for r in runs['this']]}
+        if 'device_ms' in runs['this'][0][name]:
+            line['device_ms_other'] = [r[name]['device_ms'] for r in runs['other']]
+            line['device_ms_this'] = [r[name]['device_ms'] for r in runs['this']]
+        print(json.dumps(line), flush=True)
     print(json.dumps({'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi}))
 
 

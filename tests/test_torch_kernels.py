@@ -186,9 +186,32 @@ def test_wrappers_raise_off_cpu_and_cuda():
         kernels.fused_mlp3(meta, meta, meta[0], meta, meta[0], meta, meta[0])
 
 
+@pytest.mark.parametrize('dims,B', [((8, 128, 128, 2), 65), ((8, 128, 128, 1), 1),
+                                    ((151, 128, 128, 15), 40)])
+def test_k11b_ragged_plain_matches_pallas_kernel(dims, B):
+    """Ragged B at the main paths' widths (the LunarLander actor and critic,
+    the stock actor), which the kernel takes as a part-filled row group."""
+    leaves = _mlp(dims, 7 * B + dims[-1])
+    x = np.random.default_rng(B + 5).standard_normal((B, dims[0])).astype(np.float32)
+    jleaves = [jnp.asarray(w.T if w.ndim == 2 else w) for w in leaves]    # (in, out)
+    want = np.asarray(jax.jit(partial(jpk.fused_mlp3, interpret=True))(
+        jnp.asarray(x), *jleaves))
+    tl = [torch.from_numpy(w) for w in leaves]
+    got = kernels.fused_mlp3(torch.from_numpy(x), *tl).numpy()
+    assert got.shape == (B, dims[-1])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
 def test_k11b_fit():
     assert kernels.mlp3_fits((8, 256, 256, 4)) and kernels.mlp3_fits((151, 128, 128, 15))
-    assert kernels.mlp3_smem_bytes(8, 256, 256) == 4 * (32 * 257 * 2 + 32 * 65)
+    # 16 rows a cluster of 8: slices of 32 hidden units, their rows of 8,
+    # 256 and 32 inputs at 12, 260 and 36 floats (16-byte rows, an odd
+    # count of 16-byte chunks); x (8 x 16) under the second layer's (32 x
+    # 16); the first hidden layer (256 x 16); the output part (4 x 16); the
+    # split-K scratch
+    assert kernels.mlp3_smem_bytes(8, 256, 256, 4, 16, 8) == 4 * (
+        32 * 12 + 32 + 32 * 260 + 32 + 4 * 36 + 4 + 32 * 16 + 256 * 16 + 4 * 16 + 256 * 16)
+    assert [kernels.ldk(k) for k in (8, 15, 16, 128, 151)] == [12, 20, 20, 132, 156]
     assert not kernels.mlp3_fits((8, 2048, 2048, 4))       # 527 KB of shared memory
     assert not kernels.mlp3_fits((8, 64, 64, 64, 4))       # 4 linear layers
 

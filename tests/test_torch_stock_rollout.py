@@ -207,6 +207,19 @@ def test_reset_draws():
     torch.testing.assert_close(f2[1 + A], total, rtol=0, atol=0)
 
 
+def test_stock_kernel_fits_the_recipes_widths():
+    """The stock body at the recipes' (128, 128): the actor kernel's largest
+    layout (one block a lane group) and the critic pass each fit a block,
+    and a cluster of c blocks holds 1/c of W2 (64 of its rows at c = 2)."""
+    body = st.StockTradingVecEnv(num_envs=1)._def.kernel_body
+    S, A = body.state_dim, body.action_dim
+    assert fr.rollout_fits(body, (128, 128))
+    sizes = [fr.actor_smem_bytes(S, (128, 128), A, c) for c in (1, 2, 4, 8)]
+    assert sizes[0] <= fr.SMEM_LIMIT and sizes == sorted(sizes, reverse=True)
+    assert sizes[0] - sizes[1] > 4 * 128 * 64     # W2's rows halve
+    assert not fr.rollout_fits(body, (1024, 1024))
+
+
 def test_other_stock_count_is_refused_on_a_card_with_the_reason(tmp_path):
     """The CUDA stock body is built for 15 stocks: a market of another
     width runs the plain body on the CPU and is refused on a card, saying
