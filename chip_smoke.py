@@ -12,16 +12,24 @@ PyTorch version:
 1. device: name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` for ``sm_90a`` on every ``ops/csrc/*.cu``, all at once;
 3. fused rollout, Pendulum + Gaussian head, against ``rollout_reference`` at
-   full width (4096 envs, H=64, (128, 128)), injected noise and Philox noise;
+   full width (4096 envs, H=64, (128, 128)), injected noise and Philox noise,
+   two runs bitwise equal, and its time at each cluster size that fits
+   (``k1_cluster_ms``);
 4. its Philox draws, statistically (262,144 normals, reset ranges);
 5. fused PPO update, continuous head, against ``ppo_update_reference`` at
-   U=1 and U=32, B=512;
+   U=1 and U=32, B=512, and at ``ppo_lunarlander_cont``'s S = 8, A = 2, U =
+   8 and at (512, 512) (``k2_vs_plain_wide``); each twice bitwise equal, its
+   phases from block 0's stamps (``ppo_phase_ms``) and the profiler's count
+   of CUDA kernels a call (one, whatever U is);
 6. fused rollout for CartPole + categorical, HopperSlip + Gaussian,
    PointChasing + Gaussian and PointChasingDiscrete + categorical, each
    against ``rollout_reference`` at full width, both noise modes, with a
-   one-step check on every state the rollout visits; the Gumbel-max sample
-   and the chasing reset's normals, statistically;
-7. fused PPO update, discrete head, at U=1 and U=32, B=512, A=2 and A=9;
+   one-step check on every state the rollout visits, two runs bitwise equal
+   and the time at each cluster size at 4096 and 1024 envs; Pendulum and
+   CartPole likewise at (256, 256) (``k13_vs_plain_wide``); the Gumbel-max
+   sample and the chasing reset's normals, statistically;
+7. fused PPO update, discrete head, at U=1 and U=32, B=512, A=2 and A=9
+   (and K2 at the stock widths), with the checks of 5;
 8. the Pendulum main path: ``build_training`` at the bench config (4096
    envs, H=64, B=512, repeat 8, (128, 128)), one small round against the
    same round on the CPU, then 10 timed rounds with the launch counts reset
@@ -172,6 +180,25 @@ def profiled_ms(torch, fn, reps, kernel_name):
                 if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name)
     assert total > 0, f'the profiler traced no device time for {kernel_name}'
     return total / 1e3 / reps
+
+
+def device_kernels(torch, fn, reps=3):
+    """The names of the CUDA kernels ``reps`` calls of ``fn`` launch (memsets
+    and copies left out), from ``torch.profiler``; a trace that came back
+    with no device event at all is taken once more."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [ev.name for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    return [n for n in device if not n.startswith(('Memset', 'Memcpy', '[memory]'))]
 
 
 # ---------------------------------------------------------------- off-policy
@@ -2073,10 +2100,11 @@ def main():
     from elegantrl_tpu_torch.ops import _cuda_build
     from elegantrl_tpu_torch.ops.fused_rollout import (
         CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
-        PENDULUM_BODY, noise_rows, rollout, rollout_reference, _library as fr_lib,
-        smem_bytes as fr_smem)
-    from elegantrl_tpu_torch.ops.fused_update import (ppo_update, ppo_update_reference,
-                                                      _library as fu_lib, smem_bytes as fu_smem)
+        PENDULUM_BODY, ROLLOUT_CLUSTERS, noise_rows, rollout, rollout_reference,
+        _library as fr_lib, rollout_smem_bytes as fr_smem)
+    from elegantrl_tpu_torch.ops.fused_update import (PPO_PHASES, PPO_SMEM_BYTES, ppo_phase_ms,
+                                                      ppo_update, ppo_update_reference,
+                                                      _library as fu_lib)
     from elegantrl_tpu_torch.ops.kernels import _library as kn_lib, mlp3_smem_bytes
     from elegantrl_tpu_torch.utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
 
@@ -2110,13 +2138,13 @@ def main():
              for k, v in logs.items()}
     # the .cu files own the shared-memory layouts; the Python copies that
     # judge eligibility on the CPU must agree with them, for every body
-    smem = {}
+    smem = {'ppo_update': (fu_lib().ppo_update_smem_bytes(), PPO_SMEM_BYTES)}
     for body in KERNEL_ENV_BODIES.values():
-        S, A = body.state_dim, body.action_dim
-        smem[f'fused_rollout[{body.env_name}]'] = (
-            fr_lib().fused_rollout_smem_bytes(S, A, *NET_DIMS), fr_smem(S, NET_DIMS, A))
-        smem[f'ppo_update[S={S},A={A}]'] = (fu_lib().ppo_update_smem_bytes(S, A, *NET_DIMS),
-                                            fu_smem(S, A, *NET_DIMS))
+        for dims in (NET_DIMS, (64, 64), (256, 256), (96, 160)):
+            for c in ROLLOUT_CLUSTERS:
+                smem[f'fused_rollout[{body.env_name},{dims},cluster={c}]'] = (
+                    fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c),
+                    fr_smem(body, dims, c))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
     for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1), (151, 128, 128, 15)):
@@ -2148,9 +2176,10 @@ def main():
     roll_args = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std, env_f, env_i)
     D1, D2 = NET_DIMS
 
-    def rollout_bound(body, n_params):
+    def rollout_bound(body, n_params, dims=NET_DIMS):
         """Both nets per env-step; every input read and output written once."""
         S, A = body.state_dim, body.action_dim
+        D1, D2 = dims
         flop = 2 * (2 * (S * D1 + D1 * D2) + D2 * (A + 1)) * N * H
         rows_in = body.n_f32 + body.n_i32
         nbytes = 4 * (n_params + rows_in * N + 2 + 2 * S
@@ -2165,11 +2194,24 @@ def main():
     # pendulum is unstable at rate sqrt(15) /s, so over 64 steps (3.2 s) a
     # last-bit difference can grow by up to e^(3.87*3.2) ~ 2e5.  Flags
     # agree exactly.
+    def same_runs(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
+
+    def cluster_ms(run, body, n, dims):
+        """ms of the rollout kernel at each cluster size that fits, and the
+        size it picks by itself."""
+        out = {str(c): cuda_ms(torch, lambda: run(c), reps=5) for c in ROLLOUT_CLUSTERS
+               if fr_smem(body, dims, c) <= 232448}
+        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0)
+        return out
+
     k1 = {}
     for mode, extra in (('injected', dict(noise=noise)), ('philox', dict(seed=seed))):
         got = rollout(*roll_args, **kw, **extra)
+        again = rollout(*roll_args, **kw, **extra)
         want = rollout_reference(*roll_args, **kw, **extra)
         torch.cuda.synchronize()
+        assert same_runs(got, again), 'K1: two runs differ'
         diffs = {f: float((getattr(got, f).float() - getattr(want, f).float()).abs().max())
                  for f in got._fields}
         assert torch.equal(got.truncates, want.truncates), 'K1 truncation flags differ'
@@ -2196,10 +2238,14 @@ def main():
         assert all(d <= 1e-4 for d in tf.values()), tf
         k1[mode] = dict(max_abs_diff=diffs, teacher_forced=tf, z=z)
         emit(phase='k1_vs_plain', mode=mode, max_abs_diff=diffs, teacher_forced=tf,
-             tolerance={'trajectory': 2e-2, 'teacher_forced': 1e-4})
+             two_runs_bitwise=True, tolerance={'trajectory': 2e-2, 'teacher_forced': 1e-4})
     k1_ms = cuda_ms(torch, lambda: rollout(*roll_args, **kw, seed=seed), reps=20, warmup=2)
     k1_plain_ms = cuda_ms(torch, lambda: rollout_reference(*roll_args, **kw, seed=seed), reps=3)
     k1_bound, k1_by = rollout_bound(PENDULUM_BODY, st.act_flat.numel() + st.cri_flat.numel())
+    k1_cluster = cluster_ms(lambda c: rollout(*roll_args, **kw, seed=seed, cluster=c),
+                            PENDULUM_BODY, N, NET_DIMS)
+    emit(phase='k1_cluster_ms', envs=N, cluster_ms=k1_cluster, ms=k1_ms, device=name,
+         nvidia_smi=smi)
 
     # ---- 4. the Pendulum rollout's Philox draws
     z = k1['philox']['z'].reshape(-1)
@@ -2219,7 +2265,7 @@ def main():
     hp = dict(net_dims=NET_DIMS, ratio_clip=0.25, lambda_entropy=0.001, lr=6e-5,
               clip_grad=3.0)
 
-    def update_vs_plain(state, S, A, discrete, U, phase, **hyper):
+    def update_vs_plain(state, S, A, discrete, U, phase, dims=NET_DIMS, **hyper):
         g2 = torch.Generator(device=dev).manual_seed(100 + U)
         sb = torch.randn((U, S, BATCH), generator=g2, device=dev)
         if discrete:   # one-hot rows of uniformly drawn actions; logprobs near -log A
@@ -2236,14 +2282,17 @@ def main():
         base = [state.act_flat, state.cri_flat, state.act_opt.mu + 1e-4,
                 state.act_opt.nu + 1e-8, state.cri_opt.mu + 1e-4, state.cri_opt.nu + 1e-8]
         norm = (state.norm_avg, state.norm_std)
-        hyper = dict(hp, discrete=discrete, **hyper)
+        hyper = dict(hp, net_dims=dims, discrete=discrete, **hyper)
         runs = {}
-        for fn in (ppo_update, ppo_update_reference):
+        for key, fn in (('kernel', ppo_update), ('again', ppo_update),
+                        ('plain', ppo_update_reference)):
             bufs = [b.clone() for b in base]
             objs = fn(*bufs, 5, 5, *norm, *block, **hyper)
             torch.cuda.synchronize()
-            runs[fn.__name__] = (bufs, objs)
-        (kb, ko), (pb, po) = runs['ppo_update'], runs['ppo_update_reference']
+            runs[key] = (bufs, objs)
+        (kb, ko), (pb, po) = runs['kernel'], runs['plain']
+        again = runs['again'][0] + [runs['again'][1]]
+        assert all(torch.equal(x, y) for x, y in zip(kb + [ko], again)), f'{phase}: two runs differ'
         rel = [float(((k - b) - (p - b)).abs().max() / (p - b).abs().max())
                for k, p, b in zip(kb, pb, base)]
         err = max(float(((k - b) - (p - b)).abs().max()) for k, p, b in zip(kb, pb, base))
@@ -2253,15 +2302,25 @@ def main():
         bufs = [b.clone() for b in base]
         ms = cuda_ms(torch, lambda: ppo_update(*bufs, 5, 5, *norm, *block, **hyper),
                      reps=20, warmup=2)
+        trace = torch.zeros((U, len(PPO_PHASES) + 1), dtype=torch.int64, device=dev)
+        ppo_update(*bufs, 5, 5, *norm, *block, **hyper, trace=trace)
+        torch.cuda.synchronize()
+        phases = ppo_phase_ms(trace)
+        # one CUDA kernel launch a call, whatever U is (3 calls profiled)
+        launched = device_kernels(torch, lambda: ppo_update(*bufs, 5, 5, *norm, *block, **hyper))
+        assert len(launched) == 3 and all('ppo_update_kernel' in k for k in launched), launched
         plain = cuda_ms(torch, lambda: ppo_update_reference(*bufs, 5, 5, *norm, *block, **hyper),
                         reps=3)
         P = state.act_flat.numel() + state.cri_flat.numel()
+        D1, D2 = dims
         # 2 nets, forward + backward (2x), 2 FLOP per multiply-add
         flop = 3 * 2 * (2 * (S * D1 + D1 * D2) + D2 * (A + 1)) * BATCH * U
         nbytes = 4 * (2 * 3 * P + U * BATCH * (S + A + 4) + 2 * S + U * 3)
         b_ms, b_by = bound(flop, nbytes)
-        emit(phase=phase, U=U, B=BATCH, S=S, A=A, rel_update_diff=rel, max_abs_err=err,
-             objective_rel_diff=obj_rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        emit(phase=phase, U=U, B=BATCH, S=S, A=A, net_dims=dims, rel_update_diff=rel,
+             max_abs_err=err, objective_rel_diff=obj_rel, two_runs_bitwise=True,
+             device_kernels_a_call=len(launched) / 3, ms=ms, plain_ms=plain, bound_ms=b_ms,
+             bound_by=b_by, ppo_phase_ms=phases)
         return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
 
     k2 = {U: update_vs_plain(st, 3, 1, False, U, 'k2_vs_plain') for U in (1, 32)}
@@ -2272,6 +2331,14 @@ def main():
     with torch.no_grad():
         st_lunar.act.std_log.fill_(-0.5)
     k2_lunar = update_vs_plain(st_lunar, 8, 2, False, 8, 'k2_vs_plain_lunar')
+    # K2 at (512, 512), B = 512: a width the JAX package sends to its kernel
+    # (float32 compute) that the first design refused (shared memory)
+    wide_cfg = Config()
+    wide_cfg.net_dims, wide_cfg.compute_dtype = (512, 512), 'float32'
+    st_wide = make_ppo((512, 512), 3, 1, wide_cfg).init(0, dev)
+    with torch.no_grad():
+        st_wide.act.std_log.fill_(-0.5)
+    k2_wide = update_vs_plain(st_wide, 3, 1, False, 1, 'k2_vs_plain_wide', dims=(512, 512))
 
     # ---- 6. fused rollout, the other bodies and the categorical head
     # One-step check (injected noise): the kernel and the plain version each
@@ -2290,11 +2357,11 @@ def main():
     # where any output differs by more than 2e-2 or a flag or discrete action
     # differs; at most 1% of the 4096 lanes may part in 64 steps, and every
     # other lane agrees everywhere, final env rows included.
-    def body_state(body):
+    def body_state(body, dims=NET_DIMS):
         S, A = body.state_dim, body.action_dim
         a = Config()
-        a.net_dims = NET_DIMS
-        s = make_ppo(NET_DIMS, S, A, a, discrete=body.discrete).init(0, dev)
+        a.net_dims = dims
+        s = make_ppo(dims, S, A, a, discrete=body.discrete).init(0, dev)
         g = torch.Generator(device=dev).manual_seed(11)
         s = s._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
                        norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
@@ -2325,10 +2392,10 @@ def main():
                 worst = torch.maximum(worst, (a - b).abs().amax(0))
         return bad | (worst > tol), worst
 
-    def check_body(body, env_class):
+    def check_body(body, env_class, dims=NET_DIMS, phase='k3_vs_plain'):
         S, A = body.state_dim, body.action_dim
         tag = f'fused_rollout[{body.env_name},{"categorical" if body.discrete else "gaussian"}]'
-        s = body_state(body)
+        s = body_state(body, dims)
         g = torch.Generator(device=dev).manual_seed(21)
         env_def = env_class(num_envs=1)._def
         f0, i0 = body.pack(env_def.init(g, N, dev))
@@ -2339,13 +2406,15 @@ def main():
         f0, i0 = f0.contiguous(), i0.contiguous()
         nz = body_noise(body, g, H, N)
         net = (s.act_flat, s.cri_flat, s.norm_avg, s.norm_std)
-        bkw = dict(net_dims=NET_DIMS, reward_scale=1.0, body=body)
+        bkw = dict(net_dims=dims, reward_scale=1.0, body=body)
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
             got = rollout(*net, f0, i0, horizon_len=H, **bkw, **extra)
+            again = rollout(*net, f0, i0, horizon_len=H, **bkw, **extra)
             want = rollout_reference(*net, f0, i0, horizon_len=H, env_trace=trace, **bkw, **extra)
             torch.cuda.synchronize()
+            assert same_runs(got, again), (tag, mode, 'two runs differ')
             differ, worst = fields_differ(got, want, 2e-2)
             parted = differ.any(0)                                     # (N,)
             end_diff = torch.maximum((got.env_f - want.env_f).abs().amax(0),
@@ -2356,7 +2425,8 @@ def main():
             assert float(end_diff[kept].max()) <= 2e-2, (tag, mode, float(end_diff[kept].max()))
             assert all(bool(torch.isfinite(getattr(got, f).float()).all()) for f in got._fields)
             flags = {'terminals': int(got.terminals.sum()), 'truncates': int(got.truncates.sum())}
-            assert flags['terminals'] > 0, (tag, flags)
+            # Pendulum has no terminal state: its time limit fires instead
+            assert flags['truncates' if body is PENDULUM_BODY else 'terminals'] > 0, (tag, flags)
             report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share,
                                 max_abs_diff_kept=float(worst[:, kept].max()), **flags)
         # the one-step check, on the injected-noise trajectory's visited rows
@@ -2384,17 +2454,29 @@ def main():
                      reps=20, warmup=2)
         plain_ms = cuda_ms(torch, lambda: rollout_reference(*net, f0, i0, horizon_len=H,
                                                             seed=seed, **bkw), reps=2)
-        b_ms, b_by = rollout_bound(body, s.act_flat.numel() + s.cri_flat.numel())
-        emit(phase='k3_vs_plain', kernel=tag, trajectory=report, one_step=one,
-             one_step_threshold_flips=n_flip, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, tolerance={'trajectory': 2e-2, 'share_parted': 0.01,
-                                       'one_step': 1e-4, 'threshold_flips': 8})
+        b_ms, b_by = rollout_bound(body, s.act_flat.numel() + s.cri_flat.numel(), dims)
+        # the time at each cluster size, at 4096 envs and at the 1024 of the
+        # train_agent runs below
+        by_c = {n: cluster_ms(lambda c: rollout(*net, f0[:, :n].contiguous(),
+                                                i0[:, :n].contiguous(), horizon_len=H,
+                                                seed=seed, cluster=c, **bkw), body, n, dims)
+                for n in (N, 1024)}
+        emit(phase=phase, kernel=tag, net_dims=dims, trajectory=report, one_step=one,
+             one_step_threshold_flips=n_flip, two_runs_bitwise=True, ms=ms, plain_ms=plain_ms,
+             bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c,
+             tolerance={'trajectory': 2e-2, 'share_parted': 0.01, 'one_step': 1e-4,
+                        'threshold_flips': 8})
         return dict(name=tag, ms=ms, plain_ms=plain_ms, max_abs_err=max(one.values()),
-                    bound_ms=b_ms, bound_by=b_by)
+                    bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c)
 
     k3 = {body.env_name: check_body(body, env_class) for body, env_class in (
         (CARTPOLE_BODY, CartPoleEnv), (HOPPER_BODY, HopperEnv),
         (CHASING_BODY, PointChasingVecEnv), (CHASING_DISCRETE_BODY, PointChasingDiscreteEnv))}
+    # K1 and K3 at (256, 256): widths the JAX runner takes its kernel at, which
+    # the first design refused (both nets in one block); the same checks
+    k13_wide = {body.env_name: check_body(body, env_class, (256, 256), 'k13_vs_plain_wide')
+                for body, env_class in ((PENDULUM_BODY, PendulumEnv),
+                                        (CARTPOLE_BODY, CartPoleEnv))}
 
     # the Gumbel-max sample on fixed logits (zero actor weights, the logits
     # as the output bias): action frequencies over 262,144 Philox draws are
@@ -2551,16 +2633,16 @@ def main():
     # on the card nothing falls back to a plain version where the JAX package
     # takes a kernel: asking for the plain version, or a workload that the
     # JAX package sends to its kernel and this kernel does not fit, raises
-    # (the rollout's weights at (256, 256) exceed one block).  Where the JAX
-    # package runs XLA ops the card runs PyTorch ops and says so: A2C's update
-    # (no kernel in either package), and both halves of a 3-hidden-layer PPO
-    # (the generic rollout and the autograd update).
+    # (the rollout's weight slices at (384, 384) exceed a cluster of 8).  Where
+    # the JAX package runs XLA ops the card runs PyTorch ops and says so: A2C's
+    # update (no kernel in either package), and both halves of a 3-hidden-layer
+    # PPO (the generic rollout and the autograd update).
     import contextlib
     import io
     refused = {}
     for task in (pendulum, cartpole):
         for flag, setting in (('use_fused_rollout', ('use_fused_rollout', False)),
-                              ('use_fused_rollout', ('net_dims', (256, 256))),
+                              ('use_fused_rollout', ('net_dims', (384, 384))),
                               ('use_fused_update', ('use_fused_update', False))):
             a = bench_args(task, 256, 32, 128)
             setattr(a, *setting)
@@ -2659,13 +2741,13 @@ def main():
          'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
          'launches': launches['fused_rollout'], 'max_abs_err': k1_err, 'ms': k1_ms,
          'plain_ms': k1_plain_ms, 'bound_ms': k1_bound, 'bound_by': k1_by,
-         'library_ms': None},
+         'library_ms': None, 'cluster_ms': k1_cluster, 'wide': k13_wide['Pendulum-v1']},
         {'name': 'ppo_update', 'route': 'cuda', 'source': update_src,
          'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',
          'launches': launches['ppo_update'], 'max_abs_err': k2[1]['max_abs_err'],
          'ms': k2[1]['ms'], 'plain_ms': k2[1]['plain_ms'], 'bound_ms': k2[1]['bound_ms'],
          'bound_by': k2[1]['bound_by'], 'library_ms': None,
-         'u32': k2[32]},
+         'u32': k2[32], 'wide': k2_wide},
     ]
     # the CartPole instantiation's launches are the CartPole main path's 10
     # rounds; the other bodies' are their train_agent runs above
@@ -2675,7 +2757,9 @@ def main():
                         'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600', 'launches': n,
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
                         'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
-                        'bound_by': k['bound_by'], 'library_ms': None})
+                        'bound_by': k['bound_by'], 'library_ms': None,
+                        'cluster_ms': k['cluster_ms'],
+                        **({'wide': k13_wide[env_name]} if env_name in k13_wide else {})})
     d = k5[(2, 1)]
     kernels.append({'name': 'ppo_update[discrete]', 'route': 'cuda', 'source': update_src,
                     'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',

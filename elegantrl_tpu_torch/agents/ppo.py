@@ -57,8 +57,8 @@ from torch import nn
 
 from ..config import select_kernel
 from ..ops import dists, gae, kernels
-from ..ops.fused_update import (SMEM_LIMIT, a2c_actor_loss, actor_loss, critic_loss,
-                                fused_update_bytes, make_ppo_fused_update, smem_bytes,
+from ..ops.fused_update import (a2c_actor_loss, actor_loss, critic_loss,
+                                fused_update_bytes, make_ppo_fused_update, update_fits,
                                 value_and_grad_flat)
 from ..ops.nets import (MLP, bind_flat, mlp3_forward, mlp_apply_leaves, mlp_init,
                         ppo_param_shapes, split_flat)
@@ -145,12 +145,6 @@ def resolve_compute_dtype(args, net_dims) -> str:
     return mode
 
 
-def fused_update_eligible(net_dims, state_dim: int, action_dim: int) -> bool:
-    """Whether the port's update kernel takes these widths."""
-    return (len(tuple(net_dims)) == 2
-            and smem_bytes(state_dim, action_dim, *net_dims) <= SMEM_LIMIT)
-
-
 def jax_takes_fused_update(net_dims, state_dim: int, action_dim: int, batch_size: int,
                            update_times: int) -> bool:
     """The JAX package's eligibility for its fused PPO update, term by term
@@ -224,10 +218,10 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                 args, 'use_fused_update',
                 jax_takes_fused_update(net_dims, state_dim, action_dim, batch_size,
                                        update_times),
-                fused_update_eligible(net_dims, state_dim, action_dim),
+                update_fits(net_dims),
                 getattr(args, 'device', 'cuda'),
-                '(Discrete)PPO with a 2-hidden-layer MLP whose activation tiles fit one '
-                'block, batch_size a multiple of 128 and <= 2048, and minibatch blocks '
+                '(Discrete)PPO with a 2-hidden-layer MLP of any widths, batch_size a '
+                'multiple of 128 and <= 2048, and minibatch blocks '
                 f'within 8 MiB; got net_dims={net_dims}, batch_size={batch_size}, '
                 f'update_times={update_times}')
         return kernel_choice[horizon_len]

@@ -117,6 +117,8 @@ class Config:
             agent_name = getattr(self.agent_class, '__name__', 'Agent')
             agent_name = agent_name[5:] if agent_name.startswith('Agent') else agent_name
             self.cwd = f'./{self.env_name}_{agent_name}_{self.random_seed}'
+        if self.if_remove is None:   # ask, as the JAX package does
+            self.if_remove = bool(input(f"| Config PRESS 'y' to REMOVE: {self.cwd}? ") == 'y')
         if self.if_remove:
             shutil.rmtree(self.cwd, ignore_errors=True)
             print(f"| Config Remove cwd: {self.cwd}", flush=True)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
-land in ``build/kernels/`` at the repository root, named by a hash of the
+land in ``build/kernels/`` at the repository root (an installed package:
+a per-user cache directory, :func:`build_dir`), named by a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing here runs at import time: the first kernel launch builds
 its library.
@@ -20,7 +21,21 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+
+
+def build_dir(package: Path = Path(__file__).resolve().parents[1]) -> Path:
+    """Where the libraries go: ``<repo>/build/kernels`` when ``package``
+    (the ``elegantrl_tpu_torch`` directory) sits in a checkout, beside the
+    ``pyproject.toml`` that names it; else (an installed package) a per-user
+    cache directory, ``$XDG_CACHE_HOME`` or ``~/.cache``."""
+    root = package.parent
+    if (root / 'pyproject.toml').is_file():
+        return root / 'build' / 'kernels'
+    cache = os.environ.get('XDG_CACHE_HOME') or os.path.join(os.path.expanduser('~'), '.cache')
+    return Path(cache) / 'elegantrl_tpu_torch' / 'kernels'
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 

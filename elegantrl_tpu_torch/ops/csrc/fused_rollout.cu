@@ -20,22 +20,22 @@
 // CUDA cores (no tensor cores in this version).
 //
 // Design:
-// - One block owns TE = 32 env lanes and loops over all H steps itself.  On
-//   the TPU the grid's time-chunk axis and a VMEM scratch carry existed
-//   because the outputs had to fit in VMEM; here the outputs stream to
-//   device memory as they are made, so no state carries between blocks.
-// - Both nets' weights (137 KB at 128x128) are loaded once into dynamic
-//   shared memory and reused for all H steps; the wrapper raises for widths
-//   that do not fit in the 227 KB of one block.
-// - Activations are (features, TE) tiles in shared memory: lane = env, so
-//   the activation reads are conflict-free and each weight read is one
-//   broadcast for the warp.  Each warp computes RJ output rows at a time,
-//   holding RJ sums in registers.
+// - A group of TE = 32 env lanes loops over all H steps itself.  On the TPU
+//   the grid's time-chunk axis and a VMEM scratch carry existed because the
+//   outputs had to fit in VMEM; here the outputs stream to device memory as
+//   they are made, so no state carries between groups.
+// - In fused_rollout_kernel (below) a group runs on a thread-block
+//   cluster of c blocks, each holding a slice of every layer of both nets
+//   in shared memory (cluster_mlp.cuh), so widths up to what a cluster of 8
+//   holds fit and two or more blocks can share an SM; products are tiles of
+//   4 x 4 outputs a thread (cm::tile_dense).  The off-policy kernel below
+//   keeps the first design: one 8-warp block per group, the net whole in
+//   shared memory, activations as (features, TE) tiles read by `dense`.
 // - The env body and the head are template parameters: a body is a struct
 //   with its dimensions and obs/step/reset functions over a register array
 //   of its F float rows and one step counter, so each instantiation keeps
-//   its env state in registers of the env's thread; the env step, the
-//   sampling and the output stores run on warp 0 (one thread per env).
+//   its env state in registers of the env's thread; the env step runs on
+//   warp 0 (one thread per env).
 // - Noise: either injected, a (H, A + N_STEP + N_RESET, N) tensor (Gaussian
 //   head: A normals, then the env's uniforms; categorical head: all
 //   uniforms), or drawn in-kernel with Philox4x32-10, key = seed: uniform j
@@ -499,11 +499,100 @@ __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
 }
 
 // ----------------------------------------------------------------- kernel
+// K1/K3 for the bodies without market tables (the stock body's actor runs
+// in stock_actor_kernel below).  A group of TE = 32 env lanes runs on a
+// thread-block cluster of c blocks (c = 1, 2, 4 or 8, from the card's
+// occupancy: rollout_cluster); block r of a cluster owns slice(D, c) hidden
+// units of every layer of both nets (cluster_mlp.cuh), loaded once a launch
+// with cp.async.  Per step, two cluster barriers:
+// - layer 1 of both nets as one product (the actor's rows of W1 stacked on
+//   the critic's) over the normalised obs tile; each block pushes its rows
+//   of h1 to every block (store_cluster); cluster barrier;
+// - layer 2 of both nets over the whole h1, then this block's part of the
+//   actor's means or logits and of the critic's value from its rows of h2
+//   (the third layer split by its inputs), pushed to every block; cluster
+//   barrier; the parts added in rank order, so every block holds the same
+//   bits of the heads;
+// - every block then runs the head's sampling and the env step from those
+//   bitwise-equal inputs, one thread per lane on warp 0 (the bodies'
+//   arithmetic unchanged), and keeps the lanes' env rows itself, so no
+//   broadcast and no third barrier is needed; rank 0 stores the outputs.
+//   Meanwhile warps 1-7 draw the next step's Philox words (or copy the
+//   injected noise rows), and at the top of a step all warps turn them into
+//   the head's normals (Box-Muller) or Gumbel noise.  (Rank 0 alone running
+//   the env step and pushing the obs tile, a third cluster barrier a step,
+//   measured slower: scripts/torch_cluster_kernels.py --push-obs.)
+// Products are cm::tile_dense: 4 x 4 outputs a thread, split-K parts added
+// in a fixed order, so a launch is deterministic.  Sums run in another
+// order than the plain version's, so outputs agree to rounding (a lane can
+// part at a hard threshold: chip_smoke.py's k1/k3 checks).
 
-// The bodies without market tables (the stock body's actor runs in
-// stock_actor_kernel below).
+// Shared memory of one block (floats), clusters of c, a body with NH head
+// words and NE env uniforms a (lane, step): the weight slices row by row
+// (both nets' W1 rows, W2a rows, W2c rows, the heads' columns:
+// cluster_mlp.cuh) and biases, exp(std_log), the normalisation, then
+// (rows, TE) tiles: xn, both h1 (every block's rows), this block's rows of
+// both h2, every block's part of the heads, two steps' head words and env
+// uniforms, the head noise, the summed heads, and the split-K scratch of
+// the widest product (tile_scratch; products that share it are a block
+// barrier apart).
+// Floats of split-K scratch that cm::tile_dense takes for a product of J
+// rows over K inputs and TE lanes (its rule for the count of parts ks).
+__host__ __device__ inline int tile_scratch(int K, int J) {
+  const int tiles = (J / 4) * (TE / 4);
+  int ks = 1;
+  while (2 * ks * tiles <= cm::THREADS && 8 * ks <= K) ks *= 2;
+  return ks > 1 ? ks * J * TE : 0;
+}
+
+struct RolloutLayout {
+  int s4, ap, js1, js2, k2, w1, b1, w2a, w2c, b2a, b2c, woa, woc, bo, stdv, nrm, xn, h1a, h1c,
+      h2a, h2c, outp, hraw, uenv, hz, headv, scratch, floats, nh4, ne4;
+  __host__ __device__ RolloutLayout(int S, int A, int NH, int NE, int D1, int D2, int c) {
+    s4 = cm::round4(S);
+    ap = cm::round4(A);
+    nh4 = cm::round4(NH);
+    ne4 = cm::round4(max(NE, 1));
+    js1 = cm::slice(D1, c);
+    js2 = cm::slice(D2, c);
+    k2 = c * js1;
+    int o = 0;
+    w1 = o; o += 2 * js1 * cm::ldk(S);
+    b1 = o; o += 2 * js1;
+    w2a = o; o += js2 * cm::ldk(k2);
+    w2c = o; o += js2 * cm::ldk(k2);
+    b2a = o; o += js2;
+    b2c = o; o += js2;
+    woa = o; o += ap * cm::ldk(js2);
+    woc = o; o += 4 * cm::ldk(js2);
+    bo = o; o += ap + 4;
+    stdv = o; o += ap;
+    nrm = o; o += 2 * s4;
+    xn = o; o += s4 * TE;
+    h1a = o; o += k2 * TE;
+    h1c = o; o += k2 * TE;
+    h2a = o; o += js2 * TE;
+    h2c = o; o += js2 * TE;
+    outp = o; o += c * (ap + 4) * TE;
+    hraw = o; o += 2 * nh4 * TE;
+    uenv = o; o += 2 * ne4 * TE;
+    hz = o; o += ap * TE;
+    headv = o; o += cm::round4(A + 1) * TE;
+    scratch = o;
+    o += cm::round4(max(max(tile_scratch(s4, 2 * js1), tile_scratch(k2, js2)),
+                        max(tile_scratch(js2, ap), tile_scratch(js2, 4))));
+    floats = o;
+  }
+};
+
 template <class Body>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ inline RolloutLayout body_layout(int D1, int D2, int c) {
+  return RolloutLayout(Body::S, Body::A, Body::DISCRETE ? Body::A : 2 * Body::A,
+                       Body::N_STEP + Body::N_RESET, D1, D2, c);
+}
+
+template <class Body>
+__global__ void __launch_bounds__(cm::THREADS, 2)
 fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
                      const float* __restrict__ norm_avg,
@@ -527,153 +616,291 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   constexpr int AE = DISCRETE ? 1 : A;                 // values of the env's action
   static_assert(!BodyInfo<Body>::TABLES, "the stock body runs stock_actor_kernel");
 
-  extern __shared__ float smem[];
-  const int net_floats = D1 * S + D1 + D2 * D1 + D2;
-  const Net actor = load_net(act_flat, smem, S, D1, D2, A);
-  const Net critic = load_net(cri_flat, smem + net_floats + A * D2 + A, S, D1, D2, 1);
-  float* xn = smem + 2 * net_floats + A * D2 + A + D2 + 1;  // (S, TE)
-  float* h1 = xn + S * TE;                                  // (D1, TE)
-  float* h2 = h1 + D1 * TE;                                 // (D2, TE)
-  float* out = h2 + D2 * TE;                                // (A + 1, TE)
+  cm::cg::cluster_group cluster = cm::cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int grp = blockIdx.x / c;
+  const RolloutLayout Ly = body_layout<Body>(D1, D2, c);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1s = sm + Ly.w1, *b1s = sm + Ly.b1, *w2a = sm + Ly.w2a, *w2c = sm + Ly.w2c;
+  float *b2a = sm + Ly.b2a, *b2c = sm + Ly.b2c, *woa = sm + Ly.woa, *woc = sm + Ly.woc;
+  float *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *avg = sm + Ly.nrm, *nstd = sm + Ly.nrm + Ly.s4;
+  float *xn = sm + Ly.xn, *h1a = sm + Ly.h1a, *h1c = sm + Ly.h1c, *h2a = sm + Ly.h2a;
+  float *h2c = sm + Ly.h2c, *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
+  float* scr = sm + Ly.scratch;
+  const int js1 = Ly.js1, js2 = Ly.js2, k2 = Ly.k2, j1 = rank * js1, j2 = rank * js2;
+  const int AP = Ly.ap, R = Ly.ap + 4;  // rows of a rank's part: AP actor rows, the value
+  // a cluster barrier, or a block barrier for a cluster of one block (a
+  // cluster barrier costs ~0.5 us more on an H100)
+  auto sync_group = [&]() {
+    if (c == 1) __syncthreads();
+    else cluster.sync();
+  };
+  cm::cluster_arrive();  // this block has started
 
-  const int e = threadIdx.x;  // env slot of this thread when e < TE
-  const int n = blockIdx.x * TE + e;
-  const bool owner = e < TE;
-  const bool live = owner && n < N;
+  // the leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (O, D2), bo (, std_log)
+  const float* W1a = act_flat;
+  const float* W2a = W1a + D1 * S + D1;
+  const float* Woa = W2a + D2 * D1 + D2;
+  const float* W1c = cri_flat;
+  const float* W2c = W1c + D1 * S + D1;
+  const float* Woc = W2c + D2 * D1 + D2;
+  cm::load_rows<true>(W1a, D1, S, j1, js1, 0, S, w1s, cm::ldk(S));
+  cm::load_rows<true>(W1c, D1, S, j1, js1, 0, S, w1s + js1 * cm::ldk(S), cm::ldk(S));
+  cm::load_vec<true>(W1a + D1 * S, D1, j1, js1, b1s);
+  cm::load_vec<true>(W1c + D1 * S, D1, j1, js1, b1s + js1);
+  cm::load_rows<true>(W2a, D2, D1, j2, js2, 0, k2, w2a, cm::ldk(k2));
+  cm::load_rows<true>(W2c, D2, D1, j2, js2, 0, k2, w2c, cm::ldk(k2));
+  cm::load_vec<true>(W2a + D2 * D1, D2, j2, js2, b2a);
+  cm::load_vec<true>(W2c + D2 * D1, D2, j2, js2, b2c);
+  cm::load_rows<true>(Woa, A, D2, 0, AP, j2, js2, woa, cm::ldk(js2));
+  cm::load_rows<true>(Woc, 1, D2, 0, 4, j2, js2, woc, cm::ldk(js2));
+  cm::cp_async_commit();
+  for (int i = threadIdx.x; i < R; i += cm::THREADS) {
+    bos[i] = i < A ? __ldg(Woa + A * D2 + i) : (i == AP ? __ldg(Woc + D2) : 0.f);
+    if (i < AP) stdv[i] = !DISCRETE && i < A ? expf(__ldg(Woa + A * D2 + A + i)) : 1.f;
+  }
+  for (int s = threadIdx.x; s < Ly.s4; s += cm::THREADS) {
+    avg[s] = s < S ? __ldg(norm_avg + s) : 0.f;
+    nstd[s] = s < S ? __ldg(norm_std + s) + 1e-4f : 1.f;
+  }
+  for (int i = threadIdx.x; i < (Ly.s4 - S) * TE; i += cm::THREADS) xn[S * TE + i] = 0.f;
+  __syncthreads();  // avg and nstd, before warp 0 reads them
 
+  // warp 0 holds the env rows of the group's lanes (every block of the cluster)
+  const int e = threadIdx.x;  // the lane of a warp-0 thread
+  const bool w0 = threadIdx.x < TE;
+  const int n = grp * TE + (threadIdx.x & (TE - 1));
+  const bool live = w0 && n < N;
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
   int tc = 0;
-  float std_a[A], log_std_sum = 0.f, avg[S], nstd[S];
-  if (owner) {
-    if (live) {
+  if (live) {
 #pragma unroll
-      for (int k = 0; k < F; ++k) f[k] = env_f[(size_t)k * N + n];
-      tc = env_i[n];
-    }
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      std_a[a] = 1.f;
-      if constexpr (!DISCRETE) {  // std_log is the actor's last leaf
-        std_a[a] = expf(act_flat[net_floats + A * D2 + A + a]);
-        log_std_sum += logf(std_a[a]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      avg[s] = norm_avg[s];
-      nstd[s] = norm_std[s] + 1e-4f;
-    }
+    for (int k = 0; k < F; ++k) f[k] = env_f[(size_t)k * N + n];
+    tc = env_i[n];
   }
   uint2 key = make_uint2(0u, 0u);
   if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
-  __syncthreads();
+
+  // warp 0: the obs of step t, normalised into xn; rank 0 stores it
+  auto observe = [&](int t) {
+    float x[S];
+    body.obs(f, x);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float v = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
+      xn[s * TE + e] = v;
+      if (live && rank == 0) states_o[((size_t)t * S + s) * N + n] = x[s];
+    }
+  };
+  // threads from `first` on: step t's head words and env uniforms, drawn
+  // (Philox, counter (lane, step, j / 4, 0)) or copied from the noise rows
+  auto prepare = [&](int t, int first) {
+    const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
+    if (i0 < 0) return;
+    float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * TE;
+    float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * TE;
+    if (noise == nullptr) {
+      for (int i = i0; i < NB * TE; i += nth) {
+        const int b = i / TE, e2 = i % TE;
+        const uint4 q = philox4x32_10(
+            make_uint4((uint32_t)(grp * TE + e2), (uint32_t)t, (uint32_t)b, 0u), key);
+        const float w[4] = {uniform24(q.x), uniform24(q.y), uniform24(q.z), uniform24(q.w)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * b + k;
+          if (j < N_HEAD) hr[j * TE + e2] = w[k];
+          else if (j < N_HEAD + N_ENV) ue[(j - N_HEAD) * TE + e2] = w[k];
+        }
+      }
+    } else {
+      for (int i = i0; i < NZ * TE; i += nth) {
+        const int r = i / TE, e2 = i % TE, n2 = grp * TE + e2;
+        const float v = n2 < N ? noise[((size_t)t * NZ + r) * N + n2] : 0.f;
+        if (r < A) hr[r * TE + e2] = v;
+        else ue[(r - A) * TE + e2] = v;
+      }
+    }
+  };
+  if (w0 && H > 0) observe(0);
+  if (H > 0) prepare(0, 0);
+  cm::cp_async_wait<0>();
+  cm::cluster_wait();  // every block has started: h1 rows and head parts may be pushed
 
   for (int t = 0; t < H; ++t) {
-    if (owner) {
-      float x[S];
-      body.obs(f, x);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        xn[s * TE + e] = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
-        if (live) states_o[((size_t)t * S + s) * N + n] = x[s];
+    __syncthreads();  // step t's obs tile and noise words; the weights at t = 0
+    // ---- layer 1 of both nets: the actor's js1 rows, then the critic's
+    cm::tile_dense<TE>(w1s, cm::ldk(S), xn, Ly.s4, 2 * js1, scr, [&](int j, int m0, float4 v) {
+      const float b = b1s[j];
+      float* h1 = j < js1 ? h1a : h1c;
+      const int row = j1 + (j < js1 ? j : j - js1);
+      cm::store_cluster(cluster, c, h1, row * TE + m0,
+                        make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                                    gelu_tanh(v.w + b)));
+    });
+    // the head's noise: the Gaussian's normals, or the categorical's Gumbel
+    const float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * TE;
+    for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
+      const int a = i / TE, e2 = i % TE;
+      float z;
+      if (DISCRETE) {
+        z = -logf(-logf(fmaxf(hr[i], 1e-12f)) + 1e-12f);
+      } else if (noise != nullptr) {
+        z = hr[i];
+      } else {
+        z = sqrtf(-2.0f * logf(1.0f - hr[i])) * cosf(TWO_PI_F * hr[(A + a) * TE + e2]);
       }
+      hz[i] = z;
+    }
+    sync_group();  // h1: every block's rows, in every block
+    // ---- layer 2 of both nets; this block's parts of the heads
+    cm::tile_dense<TE>(w2a, cm::ldk(k2), h1a, k2, js2, scr, [&](int j, int m0, float4 v) {
+      const float b = b2a[j];
+      *reinterpret_cast<float4*>(h2a + j * TE + m0) = make_float4(
+          gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b), gelu_tanh(v.w + b));
+    });
+    __syncthreads();  // the scratch is free
+    cm::tile_dense<TE>(w2c, cm::ldk(k2), h1c, k2, js2, scr, [&](int j, int m0, float4 v) {
+      const float b = b2c[j];
+      *reinterpret_cast<float4*>(h2c + j * TE + m0) = make_float4(
+          gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b), gelu_tanh(v.w + b));
+    });
+    __syncthreads();
+    cm::tile_dense<TE>(woa, cm::ldk(js2), h2a, js2, AP, scr, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * R + j) * TE + m0, v);
+    });
+    __syncthreads();
+    cm::tile_dense<TE>(woc, cm::ldk(js2), h2c, js2, 4, scr, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * R + AP + j) * TE + m0, v);
+    });
+    sync_group();  // every block's parts of the heads, in every block
+    // ---- the heads: the parts in rank order, plus the bias
+    for (int i = threadIdx.x; i < (A + 1) * TE; i += cm::THREADS) {
+      const int a = i / TE, row = a < A ? a : AP, o = row * TE + i % TE;
+      float v = outp[o];
+      for (int q = 1; q < c; ++q) v += outp[q * R * TE + o];
+      headv[i] = v + bos[row];  // rows: the A means or logits, then the value
     }
     __syncthreads();
-    mlp(actor, xn, h1, h2, out, S, D1, D2, A);
-    __syncthreads();
-    mlp(critic, xn, h1, h2, out + A * TE, S, D1, D2, 1);
-    __syncthreads();
-    if (live) {
-      // head[0:A]: normals (Gaussian, injected), or uniforms; u_env: the
-      // env's N_STEP step uniforms, then its N_RESET reset uniforms
-      float head[N_HEAD], u_env[N_ENV > 0 ? N_ENV : 1];
-      if (noise != nullptr) {
-        const float* nz = noise + (size_t)t * NZ * N + n;
+    if (w0) {
+      if (live) {
+        const float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * TE;
+        float u_env[N_ENV > 0 ? N_ENV : 1];
 #pragma unroll
-        for (int a = 0; a < A; ++a) head[a] = nz[(size_t)a * N];
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = ue[k * TE + e];
+        const size_t o = (size_t)t * N + n;
+        float env_a[AE], logp;
+        if constexpr (DISCRETE) {
+          float best = 0.f, m = 0.f;
+          int index = 0;
 #pragma unroll
-        for (int k = 0; k < N_ENV; ++k) u_env[k] = nz[(size_t)(A + k) * N];
-      } else {
-        float u[4 * NB];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const uint4 r = philox4x32_10(
-              make_uint4((uint32_t)n, (uint32_t)t, (uint32_t)b, 0u), key);
-          u[4 * b + 0] = uniform24(r.x);
-          u[4 * b + 1] = uniform24(r.y);
-          u[4 * b + 2] = uniform24(r.z);
-          u[4 * b + 3] = uniform24(r.w);
-        }
-#pragma unroll
-        for (int a = 0; a < N_HEAD; ++a) head[a] = u[a];
-#pragma unroll
-        for (int k = 0; k < N_ENV; ++k) u_env[k] = u[N_HEAD + k];
-      }
-      const size_t o = (size_t)t * N + n;
-      float env_a[AE], logp;
-      if constexpr (DISCRETE) {
-        float best = 0.f, m = 0.f;
-        int index = 0;
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          const float logit = out[a * TE + e];
-          const float g = -logf(-logf(fmaxf(head[a], 1e-12f)) + 1e-12f);
-          const float p = logit + g;
-          if (a == 0 || p > best) {  // strict: the first maximum wins a tie
-            best = p;
-            index = a;
+          for (int a = 0; a < A; ++a) {
+            const float logit = headv[a * TE + e];
+            const float p = logit + hz[a * TE + e];
+            if (a == 0 || p > best) {  // strict: the first maximum wins a tie
+              best = p;
+              index = a;
+            }
+            m = a == 0 ? logit : fmaxf(m, logit);
           }
-          m = a == 0 ? logit : fmaxf(m, logit);
-        }
-        float sum = 0.f, chosen = 0.f;
+          float sum = 0.f, chosen = 0.f;
 #pragma unroll
-        for (int a = 0; a < A; ++a) {
-          const float logit = out[a * TE + e];
-          sum += expf(logit - m);
-          if (a == index) chosen = logit;
-        }
-        logp = chosen - (m + logf(sum));
-        ((int*)actions_o)[o] = index;
-        env_a[0] = (float)index;
-      } else {
-        logp = -log_std_sum;
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          float z;
-          if (noise != nullptr) {
-            z = head[a];
-          } else {
-            z = sqrtf(-2.0f * logf(1.0f - head[a])) * cosf(TWO_PI_F * head[A + a]);
+          for (int a = 0; a < A; ++a) {
+            const float logit = headv[a * TE + e];
+            sum += expf(logit - m);
+            if (a == index) chosen = logit;
           }
-          const float action = out[a * TE + e] + std_a[a] * z;
-          logp += -0.5f * z * z - LOG_SQRT_2PI;
-          ((float*)actions_o)[((size_t)t * A + a) * N + n] = action;
-          env_a[a] = tanhf(action);
+          logp = chosen - (m + logf(sum));
+          if (rank == 0) ((int*)actions_o)[o] = index;
+          env_a[0] = (float)index;
+        } else {
+          logp = 0.f;
+#pragma unroll
+          for (int a = 0; a < A; ++a) logp -= logf(stdv[a]);
+#pragma unroll
+          for (int a = 0; a < A; ++a) {
+            const float z = hz[a * TE + e];
+            const float action = headv[a * TE + e] + stdv[a] * z;
+            logp += -0.5f * z * z - LOG_SQRT_2PI;
+            if (rank == 0) ((float*)actions_o)[((size_t)t * A + a) * N + n] = action;
+            env_a[a] = tanhf(action);
+          }
+        }
+        float reward;
+        bool terminal, trunc;
+        body.step(f, tc, env_a, u_env, reward, terminal, trunc);
+        if (rank == 0) {
+          logp_o[o] = logp;
+          rew_o[o] = reward * reward_scale;
+          term_o[o] = terminal ? 1.0f : 0.0f;
+          trunc_o[o] = trunc ? 1.0f : 0.0f;
+          val_o[o] = headv[A * TE + e];
+        }
+        if (terminal || trunc) {  // masked reset from the reset uniforms
+          body.reset(f, u_env + Body::N_STEP);
+          tc = 0;
         }
       }
-      float reward;
-      bool terminal, trunc;
-      body.step(f, tc, env_a, u_env, reward, terminal, trunc);
-      logp_o[o] = logp;
-      rew_o[o] = reward * reward_scale;
-      term_o[o] = terminal ? 1.0f : 0.0f;
-      trunc_o[o] = trunc ? 1.0f : 0.0f;
-      val_o[o] = out[A * TE + e];
-      if (terminal || trunc) {  // masked reset from the reset uniforms
-        body.reset(f, u_env + Body::N_STEP);
-        tc = 0;
-      }
+      if (t + 1 < H) observe(t + 1);
+    } else if (t + 1 < H) {
+      prepare(t + 1, TE);  // the other warps, meanwhile
     }
-    // the next step's xn write and dense passes reuse the shared tiles
-    __syncthreads();
   }
-  if (live) {
+  if (rank == 0 && live) {
 #pragma unroll
     for (int k = 0; k < F; ++k) env_f_o[(size_t)k * N + n] = f[k];
     env_i_o[n] = tc;
   }
+}
+
+template <class Body>
+int rollout_smem(int D1, int D2, int c) {
+  return (int)sizeof(float) * body_layout<Body>(D1, D2, c).floats;
+}
+
+// Raises the kernel's dynamic shared-memory ceiling on the current device
+// to smem bytes.  The ceiling only grows, so it is set once for each larger
+// size a (kernel, device) meets, not at every launch.
+template <class Body>
+cudaError_t allow_rollout_smem(int smem) {
+  static int ceiling[64] = {0};
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < 64;
+  if (known && ceiling[dev] >= smem) return cudaSuccess;
+  const cudaError_t set = cudaFuncSetAttribute(
+      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set == cudaSuccess && known) ceiling[dev] = smem;
+  return set;
+}
+
+// The cluster size for N lanes: `cluster` when it is 1, 2, 4 or 8 and its
+// layout fits; with 0, the largest of 8, 4, 2, 1 whose layout fits and whose
+// clusters of the ceil(N / 32) groups the card holds all at once, else the
+// largest that fits of 2 and 1, else 4 or 8 (wide nets: only a wide cluster
+// holds the slices).  0 when none fits or on a CUDA error.
+template <class Body>
+int rollout_cluster(int N, int D1, int D2, int cluster) {
+  constexpr int SMEM_LIMIT = 232448;
+  if (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
+    return rollout_smem<Body>(D1, D2, cluster) <= SMEM_LIMIT ? cluster : 0;
+  if (cluster != 0) return 0;
+  const int groups = (N + TE - 1) / TE;
+  int small = 0, wide = 0;  // the largest that fits of 2 and 1; of 8 and 4
+  for (int c : {8, 4, 2, 1}) {
+    const int smem = rollout_smem<Body>(D1, D2, c);
+    if (smem > SMEM_LIMIT) continue;
+    if (c <= 2 && small == 0) small = c;
+    if (c > 2 && wide == 0) wide = c;
+    if (allow_rollout_smem<Body>(smem) != cudaSuccess) return 0;
+    const int active = cm::active_clusters(fused_rollout_kernel<Body>, c, smem);
+    if (active == 0) return 0;
+    if (groups <= active) return c;
+  }
+  return small != 0 ? small : wide;
 }
 
 template <class Body>
@@ -682,18 +909,23 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* noise, const void* seed, void* states, void* actions,
            void* logp, void* rew, void* term, void* trunc, void* val,
            void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
-           float reward_scale, int smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+           float reward_scale, int cluster, cudaStream_t stream) {
+  if (N == 0) return 0;
+  const int c = rollout_cluster<Body>(N, D1, D2, cluster);
+  if (c == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  }
+  const int smem = rollout_smem<Body>(D1, D2, c);
+  const cudaError_t err = allow_rollout_smem<Body>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + TE - 1) / TE;
-  fused_rollout_kernel<Body><<<blocks, THREADS, smem_bytes, stream>>>(
-      Body{}, (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
-      (const float*)norm_std, (const float*)env_f, (const int*)env_i,
-      (const float*)noise, (const int*)seed, (float*)states, actions,
-      (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)val,
-      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
-  return (int)cudaGetLastError();
+  const int groups = (N + TE - 1) / TE;
+  return (int)cm::launch_clusters(
+      fused_rollout_kernel<Body>, groups * c, c, smem, stream, Body{}, (const float*)act_flat,
+      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
+      (const float*)env_f, (const int*)env_i, (const float*)noise, (const int*)seed,
+      (float*)states, actions, (float*)logp, (float*)rew, (float*)term, (float*)trunc,
+      (float*)val, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
 }
 
 // ------------------------------------------------- off-policy exploration
@@ -951,7 +1183,7 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
 // ------------------------------------------------------------ critic pass
 // The stock body's second kernel: the critic over the rollout's stored
 // (H, S, N) states, val = mlp(cri, (x - avg) / (std + 1e-4)), the function
-// fused_rollout_kernel computes in-loop when both nets fit one block.
+// fused_rollout_kernel computes in-loop for the other bodies.
 // Nothing in it is sequential, so it runs as a chain of tiled products over
 // the M = H N samples: one block per SM holds the critic, transposed to
 // (K, J) per layer, in shared memory and loops over tiles of CM = 64
@@ -1387,40 +1619,50 @@ int stock_actor_smem(int D1, int D2, int c) {
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes: both nets' weights (the
-// actor's without std_log), then the xn, h1, h2 and out tiles (the layout
-// of fused_rollout_kernel).
-extern "C" int fused_rollout_smem_bytes(int S, int A, int D1, int D2) {
-  const int net_floats = D1 * S + D1 + D2 * D1 + D2;
-  return (int)sizeof(float) *
-         (2 * net_floats + A * D2 + A + D2 + 1 + (S + D1 + D2 + A + 1) * TE);
+// The on-policy bodies (KernelEnvBody.kernel_id of ops/fused_rollout.py):
+// 0 Pendulum-v1, 1 CartPole-v1, 2 HopperSlip-v0, 3 PointChasingVecEnv,
+// 4 PointChasingDiscreteEnv.
+#define ELEGANTRL_BODIES(X) X(0, PendulumBody) X(1, CartPoleBody) X(2, HopperBody) \
+  X(3, ChasingBody) X(4, ChasingDiscreteBody)
+
+// Dynamic shared memory of one block of the rollout kernel for clusters of
+// c blocks (RolloutLayout); -1 for an unknown body.
+extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c) {
+#define ELEGANTRL_SMEM(ID, BODY) \
+  if (body == ID) return rollout_smem<BODY>(D1, D2, c);
+  ELEGANTRL_BODIES(ELEGANTRL_SMEM)
+#undef ELEGANTRL_SMEM
+  return -1;
 }
 
-// body: 0 Pendulum-v1, 1 CartPole-v1, 2 HopperSlip-v0, 3 PointChasingVecEnv,
-// 4 PointChasingDiscreteEnv (KernelEnvBody.kernel_id of ops/fused_rollout.py).
+// The cluster size the kernel takes for N lanes (rollout_cluster; `cluster`
+// 0 picks from the card's occupancy); 0 when none fits, -1 for an unknown
+// body.
+extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluster) {
+#define ELEGANTRL_CLUSTER(ID, BODY) \
+  if (body == ID) return rollout_cluster<BODY>(N, D1, D2, cluster);
+  ELEGANTRL_BODIES(ELEGANTRL_CLUSTER)
+#undef ELEGANTRL_CLUSTER
+  return -1;
+}
+
 // Returns the CUDA error of the launch, or -1 for an unknown body.
 extern "C" int fused_rollout(
     int body, const void* act_flat, const void* cri_flat, const void* norm_avg,
     const void* norm_std, const void* env_f, const void* env_i,
     const void* noise, const void* seed, void* states, void* actions,
     void* logp, void* rew, void* term, void* trunc, void* val, void* env_f_o,
-    void* env_i_o, int N, int H, int D1, int D2, float reward_scale,
+    void* env_i_o, int N, int H, int D1, int D2, float reward_scale, int cluster,
     void* stream) {
-#define ELEGANTRL_LAUNCH(BODY)                                                  \
-  return launch<BODY>(act_flat, cri_flat, norm_avg, norm_std, env_f, env_i,     \
-                      noise, seed, states, actions, logp, rew, term, trunc,     \
-                      val, env_f_o, env_i_o, N, H, D1, D2, reward_scale,        \
-                      fused_rollout_smem_bytes(BODY::S, BODY::A, D1, D2),       \
-                      (cudaStream_t)stream)
-  switch (body) {
-    case 0: ELEGANTRL_LAUNCH(PendulumBody);
-    case 1: ELEGANTRL_LAUNCH(CartPoleBody);
-    case 2: ELEGANTRL_LAUNCH(HopperBody);
-    case 3: ELEGANTRL_LAUNCH(ChasingBody);
-    case 4: ELEGANTRL_LAUNCH(ChasingDiscreteBody);
-    default: return -1;
-  }
+#define ELEGANTRL_LAUNCH(ID, BODY)                                                      \
+  if (body == ID)                                                                       \
+    return launch<BODY>(                                                                \
+        act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,      \
+        actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N, H, D1, D2,           \
+        reward_scale, cluster, (cudaStream_t)stream);
+  ELEGANTRL_BODIES(ELEGANTRL_LAUNCH)
 #undef ELEGANTRL_LAUNCH
+  return -1;
 }
 
 // Dynamic shared memory of one off-policy block, in bytes: the head's

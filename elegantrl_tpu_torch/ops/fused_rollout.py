@@ -634,17 +634,48 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
 
 # ---------------------------------------------------------------- wrapper
 
-def smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int) -> int:
-    """Dynamic shared memory of one kernel block: both nets' weights plus
-    the per-block activation tiles.  ``csrc/fused_rollout.cu`` owns the
-    layout (``fused_rollout_smem_bytes``, which the wrapper uses); this copy
-    only judges eligibility where the library is not built (the CPU)."""
-    D1, D2 = net_dims
-    S, A = state_dim, action_dim
-    net = D1 * S + D1 + D2 * D1 + D2
-    floats = (2 * net + A * D2 + A + D2 + 1
-              + (S + D1 + D2 + A + 1) * _TE)
-    return 4 * floats
+ROLLOUT_CLUSTERS = (1, 2, 4, 8)   # the cluster sizes the rollout kernel takes
+
+
+def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: int) -> int:
+    """Shared memory of one block of the rollout kernel (K1, K3) for clusters
+    of ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices
+    of both nets' weights row by row (a row of K inputs takes
+    ``kernels.ldk(K)`` floats: both W1's rows, both W2's rows, the heads'
+    columns), the biases, stds and the normalisation, then the lane tiles
+    (the obs, both whole h1, the block's rows of both h2, every block's part
+    of the heads, two steps' noise words, the head noise and sums) and the
+    split-K scratch of the widest product (``cm::tile_dense``'s count of
+    parts: :func:`tile_scratch`).  ``csrc/fused_rollout.cu``
+    owns the layout (``RolloutLayout``, ``fused_rollout_smem_bytes``); this
+    copy judges eligibility where the library is not built (the CPU)."""
+    from .kernels import ldk
+    D1, D2 = (int(d) for d in net_dims)
+    S, A, c = body.state_dim, body.action_dim, int(cluster)
+    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    s4, ap = r4(S), r4(A)
+    nh4 = r4(A if body.discrete else 2 * A)
+    ne4 = r4(max(body.n_step + body.n_reset, 1))
+    js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
+    k2 = c * js1
+    weights = (2 * js1 * ldk(S) + 2 * js1 + 2 * js2 * ldk(k2) + 2 * js2 + ap * ldk(js2)
+               + 4 * ldk(js2) + 2 * ap + 4 + 2 * s4)
+    tiles = (s4 + 2 * k2 + 2 * js2 + c * (ap + 4) + 2 * nh4 + 2 * ne4 + ap + r4(A + 1)) * _TE
+    scratch = max(tile_scratch(s4, 2 * js1), tile_scratch(k2, js2), tile_scratch(js2, ap),
+                  tile_scratch(js2, 4))
+    return 4 * (weights + tiles + r4(scratch))
+
+
+def tile_scratch(k: int, j: int, lanes: int = _TE, threads: int = 256) -> int:
+    """Floats of split-K scratch that ``cm::tile_dense`` (csrc/cluster_mlp.cuh)
+    takes for a product of ``j`` rows over ``k`` inputs and ``lanes`` lanes:
+    it cuts K into ``ks`` parts, doubling ``ks`` while ``2 ks tiles <=
+    threads`` and ``8 ks <= k``, each part's sums ``(j, lanes)`` floats."""
+    tiles = (j // 4) * (lanes // 4)
+    ks = 1
+    while 2 * ks * tiles <= threads and 8 * ks <= k:
+        ks *= 2
+    return ks * j * lanes if ks > 1 else 0
 
 
 def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
@@ -688,10 +719,11 @@ def critic_smem_bytes(state_dim: int, net_dims: Sequence[int]) -> int:
 
 def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
     """Whether the CUDA kernel takes this body at these widths: the
-    registered bodies with both nets in one block; a market-data body
-    (built for ``STOCK_KERNEL_STOCKS`` stocks) as the actor-only rollout
-    plus the critic pass, each fitting one block, the critic's widths
-    multiples of ``_CR``."""
+    registered bodies where a cluster of 8 blocks holds both nets' slices
+    (:func:`rollout_smem_bytes`; (256, 256) and more, ``ROADMAP.md`` lists
+    the limit); a market-data body (built for ``STOCK_KERNEL_STOCKS``
+    stocks) as the actor-only rollout plus the critic pass, each fitting one
+    block, the critic's widths multiples of ``_CR``."""
     if len(tuple(net_dims)) != 2:
         return False
     S, A = body.state_dim, body.action_dim
@@ -701,7 +733,7 @@ def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
         return (actor_smem_bytes(S, net_dims, A) <= SMEM_LIMIT
                 and critic_smem_bytes(S, net_dims) <= SMEM_LIMIT
                 and all(int(d) % _CR == 0 for d in net_dims))
-    return smem_bytes(S, net_dims, A) <= SMEM_LIMIT
+    return rollout_smem_bytes(body, net_dims, 8) <= SMEM_LIMIT
 
 
 class _StockArgs(ctypes.Structure):
@@ -788,11 +820,14 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             net_dims: Sequence[int], horizon_len: int, reward_scale: float,
             noise: Optional[torch.Tensor] = None,
             seed: Optional[torch.Tensor] = None,
-            body: KernelEnvBody = PENDULUM_BODY, stock_cluster: int = 0) -> RolloutOutputs:
+            body: KernelEnvBody = PENDULUM_BODY, stock_cluster: int = 0,
+            cluster: int = 0) -> RolloutOutputs:
     """The fused rollout: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``stock_cluster`` sets the stock actor
-    kernel's cluster size (1, 2, 4 or 8; 0, the default, lets the kernel
-    choose from the card's occupancy): a knob for measuring the options."""
+    version for CPU tensors.  ``cluster`` and ``stock_cluster`` set the
+    cluster size of the rollout kernel and of the stock actor kernel (1, 2,
+    4 or 8; 0, the default, lets the kernel choose from the card's
+    occupancy, the rollout kernel's choice kept per body, env count, widths
+    and device); knobs for measuring the options."""
     kw = dict(net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise=noise, seed=seed, body=body)
     if act_flat.device.type == 'cpu':
@@ -815,12 +850,19 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
         smem = lib.stock_rollout_smem_bytes(D1, D2, 1)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
+                             f'shared memory per block, more than the {SMEM_LIMIT} a '
+                             'Hopper block can hold')
     else:
-        smem = lib.fused_rollout_smem_bytes(S, A, D1, D2)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
-                         f'shared memory per block, more than the {SMEM_LIMIT} a '
-                         'Hopper block can hold')
+        smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
+                             f'shared memory in each block of a cluster of 8, the widest '
+                             f'the kernel takes, more than the {SMEM_LIMIT} a Hopper block '
+                             'can hold')
+        if not cluster:
+            cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device)
     dev = act_flat.device
     act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A, body.discrete)
     f32 = torch.float32
@@ -865,7 +907,7 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
             ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
             *[ptr(t) for t in out],
-            N, H, D1, D2, ctypes.c_float(reward_scale), ctypes.c_void_p(stream))
+            N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), ctypes.c_void_p(stream))
     check(status, f'fused_rollout[{body.env_name}]')
     rollout.launches += 1
     rollout.launches_by_body[body.env_name] = rollout.launches_by_body.get(body.env_name, 0) + 1
@@ -877,6 +919,22 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
 rollout.launches = 0
 rollout.launches_by_body = {}
 
+_CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index) -> the rollout kernel's cluster size
+
+
+def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device) -> int:
+    """The cluster size the rollout kernel picks from the card's occupancy
+    (``fused_rollout_cluster``), asked once per body, env count, widths and
+    device: the pick makes up to eight CUDA runtime calls.  0 where nothing fits
+    (the launch then reports the error)."""
+    key = (body.kernel_id, N, D1, D2, device.index)
+    if key not in _CLUSTER_PICKS:
+        c = lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0)
+        if c <= 0:
+            return 0
+        _CLUSTER_PICKS[key] = c
+    return _CLUSTER_PICKS[key]
+
 
 def _library():
     from ._cuda_build import load
@@ -884,10 +942,12 @@ def _library():
     fn = lib.fused_rollout
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
+        lib.fused_rollout_cluster.argtypes = [ctypes.c_int] * 5
+        lib.fused_rollout_cluster.restype = ctypes.c_int
         lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                                           + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
                                           + [ctypes.c_void_p])

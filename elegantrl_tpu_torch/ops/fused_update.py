@@ -19,9 +19,12 @@ actor's buffer has no ``std_log`` leaf.
   gradient evenly at a tie, as JAX's do, so the clip is written with them
   (``torch.clamp`` would give the full gradient at ``ratio == 1 +- clip``).
 - :func:`ppo_update`: the wrapper; plain version for CPU tensors, the
-  hand-written CUDA kernel ``csrc/ppo_update.cu`` for CUDA tensors.
+  hand-written CUDA kernel ``csrc/ppo_update.cu`` for CUDA tensors: one
+  cooperative launch for all U steps, a persistent block per SM, 8 phases
+  a step between grid barriers (``PPO_PHASES``; ``trace=`` returns block 0's
+  stamps, :func:`ppo_phase_ms`).
 - ``ppo_update.launches``: the count of wrapper calls that launched the
-  kernel (one call makes 3 CUDA launches per minibatch step);
+  kernel (one CUDA launch each, whatever U is);
   ``ppo_update.launches_by_head`` splits it by head.
 
 The losses (:func:`actor_loss`, :func:`a2c_actor_loss`, :func:`critic_loss`)
@@ -40,17 +43,19 @@ import torch
 from . import dists
 from .nets import mlp_apply_leaves, ppo_param_shapes, split_flat
 
-SMEM_LIMIT = 232448
-_TB = 32   # samples per fwd_bwd block (csrc/ppo_update.cu)
+# Static shared memory of one block of the kernel, the same for every width,
+# batch and U: gg::Smem (two 32 x 33 operand tiles, 8 x 2 reduction slots);
+# the activations live in a workspace.  csrc/ppo_update.cu owns the layout
+# (ppo_update_smem_bytes); chip_smoke.py checks this copy.
+PPO_SMEM_BYTES = 4 * (2 * 32 * 33 + 8 * 2)
+PPO_PHASES = ('layer 1', 'layer 2', 'heads and losses', 'head grads', 'layer 2 grads',
+              'layer 1 grads', 'split sums and norms', 'clip + Adam')
 
 
-def smem_bytes(state_dim: int, action_dim: int, d1: int, d2: int) -> int:
-    """Dynamic shared memory of one fwd_bwd block: sample-major activation
-    tiles with odd leading dimensions.  ``csrc/ppo_update.cu`` owns the
-    layout (``ppo_update_smem_bytes``, which the wrapper uses); this copy
-    only judges eligibility where the library is not built (the CPU)."""
-    ld = lambda k: k | 1  # noqa: E731
-    return 4 * _TB * (ld(state_dim) + 2 * ld(d1) + 2 * ld(d2) + ld(action_dim))
+def update_fits(net_dims: Sequence[int]) -> bool:
+    """Whether the update kernel takes a net: any of two hidden layers, any
+    batch, U and head (``PPO_SMEM_BYTES`` does not grow with them)."""
+    return len(tuple(net_dims)) == 2
 
 
 def fused_update_bytes(update_times: int, batch_size: int, state_dim: int,
@@ -177,9 +182,13 @@ def ppo_update(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
                sb, ab, lpb, advb, rsb, umb, *, net_dims: Sequence[int],
                ratio_clip: float, lambda_entropy: float, lr: float,
                clip_grad: float, single_sided: bool = False, discrete: bool = False,
-               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
-    """The fused update: CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  In place; returns the ``(U, 3)`` objectives."""
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+               trace=None) -> torch.Tensor:
+    """The fused update: CUDA kernel for CUDA tensors (one cooperative
+    launch, a block per SM; a card that refuses the launch raises), the
+    plain version for CPU tensors.  In place; returns the ``(U, 3)``
+    objectives.  ``trace``, a ``(U, len(PPO_PHASES) + 1)`` int64 CUDA
+    tensor, receives block 0's clock stamps."""
     kw = dict(net_dims=net_dims, ratio_clip=ratio_clip, lambda_entropy=lambda_entropy,
               lr=lr, clip_grad=clip_grad, single_sided=single_sided, discrete=discrete,
               b1=b1, b2=b2, eps=eps)
@@ -214,26 +223,20 @@ def ppo_update(act_flat, cri_flat, act_mu, act_nu, cri_mu, cri_nu,
     for name, t in (('lpb', lpb), ('advb', advb), ('rsb', rsb), ('umb', umb)):
         _check(name, t, (U, B), dev)
 
+    if trace is not None:
+        check_tensor('ppo_update', 'trace', trace, (U, len(PPO_PHASES) + 1), torch.int64, dev)
+    from .fused_offpolicy_update import _coop_grid
     lib = _library()
-    smem = lib.ppo_update_smem_bytes(S, A, D1, D2)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'ppo_update: net_dims={(D1, D2)} needs {smem} bytes of shared '
-                         f'memory per block, more than the {SMEM_LIMIT} a Hopper block '
-                         'can hold')
-    nb = lib.ppo_update_blocks(B)
-    nr = lib.ppo_update_reduce_blocks(Pa + Pc)
-    partial = torch.empty((nb, Pa + Pc), dtype=torch.float32, device=dev)
-    objpart = torch.empty((nb, 3), dtype=torch.float32, device=dev)
-    grad = torch.empty((Pa + Pc,), dtype=torch.float32, device=dev)
-    normpart = torch.empty((nr, 2), dtype=torch.float32, device=dev)
+    grid = _coop_grid(lib, 'ppo_update', dev)
+    ws = torch.empty(lib.ppo_update_workspace_floats(U, B, S, A, D1, D2, int(bool(discrete)),
+                                                     grid), dtype=torch.float32, device=dev)
     objs = torch.empty((U, 3), dtype=torch.float32, device=dev)
     f = ctypes.c_float
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.ppo_update(
         *[ptr(t) for t in (act_flat, act_mu, act_nu, cri_flat, cri_mu, cri_nu,
-                           norm_avg, norm_std, sb, ab, lpb, advb, rsb, umb,
-                           partial, objpart, grad, normpart, objs)],
-        U, B, S, A, D1, D2, int(act_count), int(cri_count), int(bool(single_sided)),
+                           norm_avg, norm_std, sb, ab, lpb, advb, rsb, umb, ws, objs, trace)],
+        grid, U, B, S, A, D1, D2, int(act_count), int(cri_count), int(bool(single_sided)),
         int(bool(discrete)),
         f(ratio_clip), f(lambda_entropy), f(lr), f(clip_grad), f(b1), f(b2), f(eps),
         ctypes.c_void_p(stream))
@@ -249,18 +252,16 @@ ppo_update.launches_by_head = {'continuous': 0, 'discrete': 0}
 
 def _library():
     from ._cuda_build import load
-    lib = load('ppo_update')
-    if lib.ppo_update.argtypes is None:
-        lib.ppo_update.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
-                                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-        lib.ppo_update.restype = ctypes.c_int
-        lib.ppo_update_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.ppo_update_blocks.argtypes = [ctypes.c_int]
-        lib.ppo_update_reduce_blocks.argtypes = [ctypes.c_int]
-        for fn in (lib.ppo_update_smem_bytes, lib.ppo_update_blocks,
-                   lib.ppo_update_reduce_blocks):
-            fn.restype = ctypes.c_int
-    return lib
+    from .fused_offpolicy_update import _bind
+    return _bind(load('ppo_update'), 'ppo_update', 17, 11, 7, 8)
+
+
+def ppo_phase_ms(trace: torch.Tensor) -> dict:
+    """Mean ms per step of each of the update kernel's phases, from its
+    ``trace`` buffer (``ppo_update(..., trace=)``: block 0's stamps at the
+    start of a step and after each phase's barrier)."""
+    from .fused_offpolicy_update import phase_ms
+    return phase_ms(trace, PPO_PHASES)
 
 
 def make_ppo_fused_update(state_dim: int, action_dim: int, batch_size: int,

@@ -8,9 +8,12 @@ instead of its summed reward), prints the ``ID Step Time | avgR stdR avgS
 stdS | expR objC objA`` table (a trailing string in the logging tuple, the
 discrete action histogram, is printed after the numbers), appends to
 ``recorder.npy``, saves actor checkpoints and, at the end of a run,
-``LearningCurve.jpg``.  The greedy forwards are the agents' own: a plain
-3-linear actor or Q net runs K11b (``ops/kernels.py:fused_mlp3``) on a
-card, so an evaluation there differs from the CPU's by f32 rounding.
+``LearningCurve.jpg``.  With ``if_tensorboard`` (the argument or
+``args.if_tensorboard``) it also writes the JAX evaluator's five scalars
+under ``{cwd}/tensorboard``, where ``torch.utils.tensorboard`` imports.
+The greedy forwards are the agents' own: a plain 3-linear actor or Q net
+runs K11b (``ops/kernels.py:fused_mlp3``) on a card, so an evaluation there
+differs from the CPU's by f32 rounding.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def make_eval_fn(env: EnvDef, greedy_action: Callable, num_episodes: int,
 
 
 class Evaluator:
-    def __init__(self, cwd: str, env: EnvDef, greedy_action: Callable, args, device):
+    def __init__(self, cwd: str, env: EnvDef, greedy_action: Callable, args, device,
+                 if_tensorboard: bool = False):
         self.cwd = cwd
         self.agent_id = int(getattr(args, 'gpu_id', 0))
         self.total_step = 0
@@ -80,6 +84,15 @@ class Evaluator:
         self._eval_fn = make_eval_fn(env, greedy_action, self.eval_times, max_step, device)
         self._gen = torch.Generator(device=device)
         self._gen.manual_seed(int(getattr(args, 'random_seed', 0) or 0) + 1943)
+        # TensorBoard scalars under {cwd}/tensorboard, the JAX evaluator's tags;
+        # nothing where tensorboard is not installed
+        self.tensorboard = None
+        if if_tensorboard or bool(getattr(args, 'if_tensorboard', False)):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tensorboard = SummaryWriter(os.path.join(cwd, 'tensorboard'))
+            except ImportError:
+                pass
         print("| Evaluator:"
               "\n| `step`: Number of samples (env.step() calls)."
               "\n| `time`: Seconds since start of training."
@@ -111,6 +124,15 @@ class Evaluator:
             logging_tuple[-1], str)) else ''
         self.recorder.append((self.total_step, avg_r, std_r, exp_r, *values))
         self.recorder_times.append(float(used_time))
+        if self.tensorboard is not None:
+            step = self.total_step
+            self.tensorboard.add_scalar('reward/avg_reward_sample', avg_r, step)
+            self.tensorboard.add_scalar('reward/std_reward_sample', std_r, step)
+            self.tensorboard.add_scalar('reward/exp_reward_sample', exp_r, step)
+            if values:
+                self.tensorboard.add_scalar('info/critic_loss_sample', values[0], step)
+            if len(values) > 1:
+                self.tensorboard.add_scalar('info/actor_obj_sample', values[1], step)
         prev_max_r = self.max_r
         self.max_r = max(self.max_r, avg_r)
         print(f"{self.agent_id:<3}{self.total_step:8.2e}{used_time:8.0f} |"

@@ -27,7 +27,8 @@ carry handed to ``round_fn`` shares its parameters with the one returned.
 ``train_agent_single_process``, ``train_agent_multiprocessing`` and
 ``train_agent_multiprocessing_multi_gpu`` are aliases of ``train_agent``;
 ``valid_agent`` (``render_agent``) plays a saved agent's greedy episodes.
-Host-rollout and mesh modes of the JAX runner are not ported.
+Host-rollout and mesh modes of the JAX runner are not ported: ``args.mesh_axes``
+raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ..agents.base import AgentDef, collect_rollout
+from ..agents.ppo import resolve_compute_dtype
 from ..config import Config, kwargs_filter, resolve_device, select_kernel
 from ..envs.base import EnvDef, vec_reset
 from ..utils.checkpoint import load_tree, save_tree, tree_unflatten
@@ -135,8 +137,9 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     (A2C explores exactly as PPO does; not ``AgentPPOHterm``), or an
     off-policy agent with a kernel head, when a (block, chunk) fits its VMEM
     budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
-    the weights fit one block (``rollout_fits``) and, off-policy, when it has
-    the (body, head) pair."""
+    a cluster of 8 blocks holds the weight slices (``rollout_fits``) or,
+    off-policy, when the weights fit one block and it has the (body, head)
+    pair."""
     from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
                                      offpolicy_pair_fits, offpolicy_smem_bytes, rollout_fits)
@@ -153,6 +156,13 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                      and agent.rollout_extras is None
                      and jax_rollout_block_chunk(body, spec.if_discrete, True, num_envs,
                                                  horizon_len) is not None)
+        if jax_takes and resolve_compute_dtype(args, net_dims) != 'float32':
+            # the JAX runner hands its kernel the compute type; the port's is f32 only
+            raise NotImplementedError(
+                'the PyTorch port computes in float32 only; set args.compute_dtype = '
+                f"'float32' (got {getattr(args, 'compute_dtype', 'auto')!r} at "
+                f'net_dims={net_dims}, which resolves to '
+                f'{resolve_compute_dtype(args, net_dims)})')
         fits = (jax_takes and offpolicy_pair_fits(body, off_head)
                 and offpolicy_smem_bytes(body.state_dim, net_dims, body.action_dim,
                                          off_head) <= SMEM_LIMIT)
@@ -178,7 +188,9 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                  and jax_rollout_block_chunk(body, spec.if_discrete, False, num_envs,
                                              horizon_len) is not None)
     scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
-             f'weights fit one block, on an env of {bodies} at its '
+             f'weight slices fit a cluster of 8 blocks (square widths up to 320, 288 on '
+             f'PointChasingDiscreteEnv; ops/fused_rollout.py:rollout_fits), on an env of '
+             f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
@@ -192,6 +204,10 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
 
 def build_training(args: Config) -> TrainContext:
     """Env, agent, initial carry and the per-round step function."""
+    if getattr(args, 'mesh_axes', None):
+        raise NotImplementedError(
+            f'args.mesh_axes={args.mesh_axes!r}: the PyTorch port trains on one device; '
+            "sharding the env axis is ROADMAP.md's parallel item (parallel/mesh.py)")
     device = resolve_device(args)
     env = _resolve_env_def(args)
     spec = env.spec

@@ -81,3 +81,8 @@ def load_tree(path: str, template: Any) -> Any:
         raise ValueError(f'{path} has {len(leaves)} leaves, the template has {len(t_leaves)}')
     cast = [np.asarray(v).astype(to_numpy(t).dtype) for v, t in zip(leaves, t_leaves)]
     return tree_unflatten(template, iter(cast))
+
+
+# the JAX package's names (elegantrl_tpu/utils/checkpoint.py), same signatures
+save_pytree = save_tree
+load_pytree = load_tree

@@ -1,7 +1,8 @@
-"""Hold the off-policy update chunks, K11b and K4 of this checkout against
-another checkout's on the same inputs, on one CUDA card.
+"""Hold the off-policy update chunks, K11b, K4, the on-policy rollout (K1,
+K3) and the PPO update (K2, K5) of this checkout against another checkout's
+on the same inputs, on one CUDA card.
 
-    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4]
+    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4 k1 k3 k2]
 
 OTHER_ROOT is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -22,7 +23,13 @@ and the critic's (8, 128, 128, 1) at B = 64 (ms a call by CUDA events over
 50 calls, and the device ms from the profiler over 20).  ``k4``: the stock
 rollout (the actor kernel and the critic pass) at ``ppo_stock``'s 256 and
 ``ppo_stock_4k``'s 4096 envs, H = 128, injected and Philox noise, from day
-T - 61 (ms a rollout over 5).  Where two designs sum in other orders the
+T - 61 (ms a rollout over 5).  ``k1``: the Pendulum rollout at 4096 envs,
+H = 64, (128, 128); ``k3``: the CartPole rollout likewise and the HopperSlip,
+PointChasing and PointChasingDiscrete ones at 1024 envs, injected and Philox
+noise (ms a rollout over 10).  ``k2``: the PPO update at B = 512, (128, 128):
+Pendulum U = 1 and 32, CartPole (discrete) U = 1, ``ppo_lunarlander_cont``'s
+S = 8, A = 2, U = 8 and ``ppo_stock``'s S = 151, A = 15, U = 2 (ms a call
+over 20).  Where two designs sum in other orders the
 outputs are not bitwise equal; each line also gives the largest difference.
 ``--only`` picks the groups (all by default).  Needs one card; the last
 line names it.
@@ -56,10 +63,12 @@ def case_name(kind, a, b, S, A, B, net):
     return f'{name}{list(net)},B={B}'
 
 
-GROUPS = ('chunks', 'k11b', 'k4')
+GROUPS = ('chunks', 'k11b', 'k4', 'k1', 'k3', 'k2')
 K11B_CASES = (((8, 128, 128, 2), 64), ((8, 128, 128, 2), 16384), ((8, 256, 256, 4), 64),
               ((8, 128, 128, 1), 64))
 K4_ENVS = (256, 4096)
+K2_CASES = (('pendulum', 3, 1, False, 1), ('pendulum', 3, 1, False, 32),
+            ('cartpole', 4, 2, True, 1), ('lunar', 8, 2, False, 8), ('stock', 151, 15, False, 2))
 
 
 def cuda_ms(torch, fn, reps, warmup):
@@ -140,6 +149,77 @@ def run_k4(torch, dev):
     return results
 
 
+def run_onpolicy_rollouts(torch, dev, groups):
+    """K1 (``k1``) and K3 (``k3``): every on-policy kernel body from seeded
+    env rows, staggered step counters and noise."""
+    from elegantrl_tpu_torch import Config
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    cases = [(fr.PENDULUM_BODY, 4096)] if 'k1' in groups else []
+    if 'k3' in groups:
+        cases += [(fr.CARTPOLE_BODY, 4096), (fr.HOPPER_BODY, 1024), (fr.CHASING_BODY, 1024),
+                  (fr.CHASING_DISCRETE_BODY, 1024)]
+    seed = torch.tensor([20260, -77], dtype=torch.int32, device=dev)
+    results = {}
+    for body, n in cases:
+        S, A = body.state_dim, body.action_dim
+        st = make_ppo((128, 128), S, A, Config(), discrete=body.discrete).init(0, dev)
+        g = torch.Generator(device=dev).manual_seed(41)
+        st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
+                         norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
+        f0 = (torch.rand((body.n_f32, n), generator=g, device=dev) * 0.1).contiguous()
+        if body is fr.HOPPER_BODY:
+            f0[1], f0[5] = 0.9, 0.55
+        if body in (fr.CHASING_BODY, fr.CHASING_DISCRETE_BODY):
+            f0[4:6], f0[8] = -8.0, 11.3
+        i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % 200)[None].contiguous()
+        head = (torch.rand if body.discrete else torch.randn)((64, A, n), generator=g, device=dev)
+        nz = torch.cat([head, torch.rand((64, body.n_step + body.n_reset, n), generator=g,
+                                         device=dev)], 1).contiguous()
+        net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            def fn():
+                return fr.rollout(*net, f0, i0, net_dims=(128, 128), horizon_len=64,
+                                  reward_scale=1.0, body=body, **extra)
+            out = fn()
+            results[f'fused_rollout[{body.env_name},{n} envs,{mode}]'] = dict(
+                outs=[x.cpu() for x in out], ms=cuda_ms(torch, fn, 10, 2))
+    return results
+
+
+def run_k2(torch, dev):
+    """K2 and K5: the PPO update's cases of ``K2_CASES`` from seeded blocks."""
+    from elegantrl_tpu_torch import Config
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    results, B = {}, 512
+    for tag, S, A, discrete, U in K2_CASES:
+        st = make_ppo((128, 128), S, A, Config(), discrete=discrete).init(0, dev)
+        g = torch.Generator(device=dev).manual_seed(100 + U)
+        if discrete:
+            ab = torch.nn.functional.one_hot(torch.randint(0, A, (U, B), generator=g, device=dev),
+                                             A).float().transpose(1, 2).contiguous()
+        else:
+            ab = torch.randn((U, A, B), generator=g, device=dev)
+        block = [torch.randn((U, S, B), generator=g, device=dev), ab,
+                 torch.randn((U, B), generator=g, device=dev) * 0.3 - 1.2,
+                 torch.randn((U, B), generator=g, device=dev),
+                 torch.randn((U, B), generator=g, device=dev),
+                 (torch.rand((U, B), generator=g, device=dev) > 0.05).float()]
+        base = [st.act_flat, st.cri_flat, st.act_opt.mu + 1e-4, st.act_opt.nu + 1e-8,
+                st.cri_opt.mu + 1e-4, st.cri_opt.nu + 1e-8]
+        hyper = dict(net_dims=(128, 128), ratio_clip=0.25, lr=6e-5, clip_grad=3.0,
+                     lambda_entropy=0.01 if discrete else 0.001, discrete=discrete)
+        bufs = [b.clone() for b in base]
+        objs = ppo_update(*bufs, 5, 5, st.norm_avg, st.norm_std, *block, **hyper)
+        outs = [x.cpu() for x in bufs + [objs]]
+        bufs = [b.clone() for b in base]
+        ms = cuda_ms(torch, lambda: ppo_update(*bufs, 5, 5, st.norm_avg, st.norm_std, *block,
+                                               **hyper), 20, 2)
+        results[f'ppo_update[{tag},S={S},A={A},U={U}]'] = dict(outs=outs, ms=ms)
+    return results
+
+
 def run_side(root, out_path, groups):
     """Run every case of ``groups`` with the package under ``root``; save the
     outputs and the times to ``out_path``."""
@@ -209,6 +289,10 @@ def run_side(root, out_path, groups):
         results.update(run_k11b(torch, dev))
     if 'k4' in groups:
         results.update(run_k4(torch, dev))
+    if 'k1' in groups or 'k3' in groups:
+        results.update(run_onpolicy_rollouts(torch, dev, groups))
+    if 'k2' in groups:
+        results.update(run_k2(torch, dev))
     for case in (CASES if 'chunks' in groups else ()):
         fn, base, blocks, bcv, hyper = inputs(*case)
         bufs = [None if x is None else x.clone() for x in base]

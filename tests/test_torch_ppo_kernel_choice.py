@@ -28,30 +28,36 @@ import torch
 
 import elegantrl_tpu.ops.pallas_update as jpu
 from elegantrl_tpu.agents import AgentA2C as JAgentA2C, AgentPPO as JAgentPPO
+from elegantrl_tpu.agents import AgentDiscretePPO as JAgentDiscretePPO
 from elegantrl_tpu.agents import AgentPPOHterm as JAgentPPOHterm
 from elegantrl_tpu.agents.base import Rollout as JRollout
 from elegantrl_tpu.config import Config as JConfig
+from elegantrl_tpu.envs import CartPoleEnv as JCartPoleEnv
 from elegantrl_tpu.envs import LunarLanderContinuousEnv as JLanderCont
 from elegantrl_tpu.envs import PendulumEnv as JPendulumEnv
 from elegantrl_tpu.envs import PointChasingVecEnv as JChasingEnv
 from elegantrl_tpu.envs.stock_trading import StockTradingVecEnv as JStockEnv
 from elegantrl_tpu.train import runner as jrunner
 from elegantrl_tpu_torch import Config, build_training, train_agent
-from elegantrl_tpu_torch.agents import AgentA2C, AgentPPO, AgentPPOHterm
+from elegantrl_tpu_torch.agents import AgentA2C, AgentDiscretePPO, AgentPPO, AgentPPOHterm
 from elegantrl_tpu_torch.agents import ppo as pppo
 from elegantrl_tpu_torch.agents.base import Rollout
-from elegantrl_tpu_torch.envs import (LunarLanderContinuousEnv, PendulumEnv, PointChasingVecEnv,
-                                      StockTradingVecEnv)
+from elegantrl_tpu_torch.envs import (CartPoleEnv, LunarLanderContinuousEnv, PendulumEnv,
+                                      PointChasingVecEnv, StockTradingVecEnv)
 from elegantrl_tpu_torch.train import runner
 from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
 from elegantrl_tpu_torch.utils.jax_params import env_state_from_numpy
 
 torch.set_num_threads(1)
 AGENTS = {'ppo': (AgentPPO, JAgentPPO), 'a2c': (AgentA2C, JAgentA2C),
-          'hterm': (AgentPPOHterm, JAgentPPOHterm)}
+          'hterm': (AgentPPOHterm, JAgentPPOHterm),
+          'dppo': (AgentDiscretePPO, JAgentDiscretePPO)}
 ENVS = {
     'pendulum': (PendulumEnv, JPendulumEnv, {'env_name': 'Pendulum-v1', 'max_step': 200,
                                              'state_dim': 3, 'action_dim': 1}),
+    'cartpole': (CartPoleEnv, JCartPoleEnv, {'env_name': 'CartPole-v1', 'max_step': 500,
+                                             'state_dim': 4, 'action_dim': 2,
+                                             'if_discrete': True}),
     'stock': (StockTradingVecEnv, JStockEnv, {'env_name': 'StockTradingEnv-v2',
                                               'max_step': 1112, 'state_dim': 151,
                                               'action_dim': 15}),
@@ -64,7 +70,7 @@ ENVS = {
                                                    'max_step': 1024, 'state_dim': 12,
                                                    'action_dim': 3, 'dim': 3}),
 }
-# (agent, env, net_dims, num_envs, horizon, batch, repeat)
+# (agent, env, net_dims, num_envs, horizon, batch, repeat[, extra settings])
 GRID = {
     'ppo_stock': ('ppo', 'stock', (128, 128), 256, 128, 512, 8),
     'ppo_stock_4k': ('ppo', 'stock', (128, 128), 4096, 128, 4096, 64),
@@ -79,17 +85,28 @@ GRID = {
     'chasing_no_body': ('ppo', 'chasing3', (128, 128), 1024, 64, 512, 8),
     # ppo_lunarlander_cont (RESULTS.md:23): the generic rollout and K2 at U = 8
     'ppo_lunarlander_cont': ('ppo', 'lunar_cont', (128, 128), 64, 256, 512, 16),
+    # widths the first rollout design refused (both nets in one block); the
+    # JAX runner takes its kernel at any width
+    'pendulum_256': ('ppo', 'pendulum', (256, 256), 4096, 64, 512, 8),
+    'cartpole_256': ('dppo', 'cartpole', (256, 256), 4096, 64, 512, 8),
+    # a width the first update design refused (shared memory); float32, as the
+    # JAX package takes its kernel only then ('auto' picks bf16 from 512).  The
+    # rollout kernel stops at (320, 320): there the card raises
+    'pendulum_512_b512': ('ppo', 'pendulum', (512, 512), 1024, 64, 512, 8,
+                          {'compute_dtype': 'float32'}),
 }
 
 
 def _configs(case, device='cuda'):
-    agent, env, net_dims, num_envs, horizon, batch, repeat = GRID[case]
+    agent, env, net_dims, num_envs, horizon, batch, repeat, *extra = GRID[case]
     (cls, jcls), (env_cls, jenv_cls, env_args) = AGENTS[agent], ENVS[env]
-    env_args = dict(env_args, num_envs=num_envs, if_discrete=False)
+    env_args = dict({'if_discrete': False}, **env_args, num_envs=num_envs)
     out = []
     for c, a_cls, e_cls in ((Config, cls, env_cls), (JConfig, jcls, jenv_cls)):
         a = c(a_cls, e_cls, dict(env_args))
         a.net_dims, a.horizon_len, a.batch_size, a.repeat_times = net_dims, horizon, batch, repeat
+        for k, v in (extra[0] if extra else {}).items():
+            setattr(a, k, v)
         out.append(a)
     out[0].device = device
     return out
@@ -147,9 +164,15 @@ def test_kernel_choice_as_jax(case, monkeypatch):
     for k in ('state_dim', 'action_dim', 'if_discrete'):
         setattr(args, k, getattr(env.spec, k))
     agent = runner._make_agent(args, None)
+    port_update = any(out for flag, out in chosen if flag == 'use_fused_update')
+    if case == 'pendulum_512_b512':
+        assert jax_rollout and jax_update and port_update
+        with pytest.raises(ValueError, match='cluster of 8 blocks'):
+            runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
+                                        args.horizon_len, 1.0)
+        return
     fast = runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
                                        args.horizon_len, 1.0)
-    port_update = any(out for flag, out in chosen if flag == 'use_fused_update')
     assert (fast is not None, port_update) == (jax_rollout, jax_update)
     if case == 'ppo_stock':
         assert jax_rollout and jax_update
@@ -157,6 +180,8 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         assert jax_rollout and not jax_update
     if case == 'ppo_lunarlander_cont':
         assert not jax_rollout and jax_update
+    if case in ('pendulum_256', 'cartpole_256'):
+        assert jax_rollout and fast is not None
 
 
 def test_make_ppo_three_layers_on_cuda_builds():

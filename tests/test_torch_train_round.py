@@ -193,9 +193,9 @@ def test_explicit_kernel_request_raises_on_ineligible(flag, monkeypatch, capsys)
     _as_if_on_a_card(monkeypatch)
     if flag == 'use_fused_rollout':
         # on a card 'auto' raises for a workload the JAX package sends to its
-        # kernel but this kernel does not fit: K1's weights at (256, 256)
-        # exceed one block
-        args.net_dims = (256, 256)
+        # kernel but this kernel does not fit: K1's weight slices at (384, 384)
+        # exceed a cluster of 8 blocks
+        args.net_dims = (384, 384)
         with pytest.raises(ValueError, match=f'{flag}: on cuda'):
             build_training(args)
     else:
