@@ -45,7 +45,9 @@ PyTorch version:
     kernel's fifteen (body, head) instantiations, the ddpg, sac and modsac
     heads on the three continuous bodies and the DQN heads on the two
     discrete ones, against their plain version (``k6_vs_plain``, both noise
-    modes), the DQN-family update chunk's four variants (``k9_vs_plain``),
+    modes, two runs bitwise equal, the time at each cluster size), TD3 and
+    SAC on HopperSlip and DQN on CartPole at (256, 256)
+    (``k6_vs_plain_wide``), the DQN-family update chunk's four variants (``k9_vs_plain``),
     the DDPG/TD3 chunk (``k7_vs_plain``; ``k7_vs_plain_wide``: TD3 at (256,
     256) with B = 512 and DDPG at (1024, 1024) with B = 128, workloads the
     JAX package sends to its chunk) and the SAC/ModSAC chunk
@@ -77,8 +79,15 @@ PyTorch version:
     ``ppo_stock``'s 256 and ``ppo_stock_4k``'s 4096 envs and a ragged 300,
     H = 128, both noise modes, two runs bitwise equal, with a one-step check
     from every visited state whose lot flips must each sit at a lot edge,
-    and the kernel's time at each cluster size (``k4_vs_plain``); the ddpg, sac and modsac heads on the stock body
-    (``k4_offpolicy_vs_plain``); the reset's and the head's Philox draws
+    and the kernel's time at each cluster size (``k4_vs_plain``), the critic
+    pass there on states whose lane groups share their market rows (its
+    precondition, asserted), within ``CRITIC_TOL`` of the full MLP while a
+    1xTF32 emulation of it is not, two runs bitwise equal, with its bounds counting
+    the market columns once per (step, group) and in full, and on the tensor
+    cores in split-3xTF32; K4 and the critic pass at (256, 256)
+    (``k4_vs_plain_wide``) and the critic pass at (448, 448), on 64-sample
+    tiles (``critic_vs_plain_448``); the ddpg, sac and modsac heads on the stock body
+    (``k4_offpolicy_vs_plain``, two runs bitwise equal); the reset's and the head's Philox draws
     (``k4_philox``); the ``ppo_stock`` main path (a small round against the
     CPU, then 10 timed rounds: 10 K4 rollouts, 10 critic passes, 10 K2
     updates) and the ``ppo_stock_4k`` one (10 K4 rollouts and critic passes,
@@ -126,8 +135,10 @@ NUM_ENVS, HORIZON, BATCH, REPEAT, NET_DIMS = 4096, 64, 512, 8.0, (128, 128)
 ROUNDS = 10
 
 # Published dense peaks of the H100 SXM part (NVIDIA data sheet, 700 W):
-# FP32 on the CUDA cores, TFLOP/s, and HBM bandwidth, TB/s.
+# FP32 on the CUDA cores, TFLOP/s, and HBM bandwidth, TB/s; TF32 on the
+# tensor cores, TFLOP/s (the critic pass's split-3xTF32 products).
 H100_SXM_PEAKS = (67.0, 3.35)
+H100_TF32_TFLOPS = 495.0
 
 
 def emit(**kw):
@@ -238,10 +249,12 @@ def offpolicy_smem_pairs():
     out = {}
     for env_name, head in K6_PAIRS:
         body = fr.KERNEL_ENV_BODIES[env_name]
-        S, A = body.state_dim, body.action_dim
-        out[f'offpolicy_rollout[{env_name},{head}]'] = (
-            fr._library().offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
-            fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
+        for dims in (OFF_NET, (256, 256), (96, 160)):
+            for c in fr.ROLLOUT_CLUSTERS:
+                out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c}]'] = (
+                    fr._library().offpolicy_rollout_smem_bytes(
+                        body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c),
+                    fr.offpolicy_smem_bytes(body, dims, head, c))
     out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
     out['ddpg_update'] = (fo._ddpg_library().ddpg_update_smem_bytes(), fo.DDPG_SMEM_BYTES)
     out['sac_update'] = (fo._sac_library().sac_update_smem_bytes(), fo.SAC_SMEM_BYTES)
@@ -255,17 +268,22 @@ def offpolicy_smem_pairs():
 def stock_smem_pairs():
     """The stock body's kernels' shared memory as the .cu computes it and as
     the Python copies that judge eligibility on the CPU do."""
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
     from elegantrl_tpu_torch.ops import fused_rollout as fr
-    lib, S, A = fr._library(), 151, 15
-    out = {f'stock_rollout[cluster={c}]': (lib.stock_rollout_smem_bytes(*OFF_NET, c),
-                                           fr.actor_smem_bytes(S, OFF_NET, A, c))
-           for c in (1, 2, 4, 8)}
-    out[f'critic_values[S={S}]'] = (lib.critic_values_smem_bytes(S, *OFF_NET),
-                                    fr.critic_smem_bytes(S, OFF_NET))
-    for head in fr.CONTINUOUS_HEADS:
-        out[f'offpolicy_rollout[StockTradingEnv-v2,{head}]'] = (
-            lib.offpolicy_rollout_smem_bytes(S, A, *OFF_NET, fr.OFFPOLICY_HEADS[head]),
-            fr.offpolicy_smem_bytes(S, OFF_NET, A, head))
+    body = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    lib, S, A = fr._library(), body.state_dim, body.action_dim
+    out = {}
+    for dims in (OFF_NET, (256, 256), (96, 160), (448, 448)):
+        for c in fr.ROLLOUT_CLUSTERS:
+            out[f'stock_rollout[{dims},cluster={c}]'] = (lib.stock_rollout_smem_bytes(*dims, c),
+                                                         fr.actor_smem_bytes(S, dims, A, c))
+            for head in fr.CONTINUOUS_HEADS:
+                out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{dims},cluster={c}]'] = (
+                    lib.offpolicy_rollout_smem_bytes(body.kernel_id, fr.OFFPOLICY_HEADS[head],
+                                                     *dims, c),
+                    fr.offpolicy_smem_bytes(body, dims, head, c))
+        out[f'critic_values[{dims}]'] = (lib.critic_values_smem_bytes(*dims),
+                                         fr.critic_smem_bytes(dims))
     return out
 
 
@@ -346,8 +364,9 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                 worst = torch.maximum(worst, d.amax(-1) if d.dim() == 3 else d)
         return bad | (worst > tol), worst
 
-    def k6_bound(body, head, n, h, n_params):
+    def k6_bound(body, head, n, h, n_params, dims=OFF_NET):
         S, A = body.state_dim, body.action_dim
+        D1, D2 = dims
         out_rows = {'dqn_duel': A + 1, 'sac': 2 * A, 'modsac': 2 * A}.get(head, A)
         flop = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
         rows = body.n_f32 + body.n_i32
@@ -363,7 +382,10 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     # only 64); one step from every visited state
     # (injected noise) agrees to 1e-4 with discrete actions and flags equal,
     # but for at most 8 samples within rounding of a hard threshold (an argmax
-    # near-tie, CartPole's limits, a touchdown), counted and left out.
+    # near-tie, CartPole's limits, a touchdown), counted and left out.  Two
+    # runs of the kernel are bitwise equal in both modes; the kernel's time at
+    # each cluster size that fits (cluster_ms) records the options, the
+    # kernel picks its own.
     k6 = {}
     for env_name, head in K6_PAIRS:
         body = fr.KERNEL_ENV_BODIES[env_name]
@@ -385,9 +407,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
             got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            again = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
             want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, env_trace=trace,
                                                   **kw, **extra)
             torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
+                'K6 runs differ', tag, mode)
             differ, worst = k6_fields_differ(got, want, 2e-2)
             parted = differ.any(0)
             share = float(parted.float().mean())
@@ -426,14 +451,77 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                       reps=20, warmup=2)
         plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
                                                                    seed=seed, **kw), reps=2)
+        sizes = {c: cuda_ms_(lambda c=c: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h,
+                                                              seed=seed, cluster=c, **kw),
+                             reps=10, warmup=1)
+                 for c in fr.ROLLOUT_CLUSTERS
+                 if fr.offpolicy_smem_bytes(body, OFF_NET, head, c) <= fr.SMEM_LIMIT}
+        picked = fr._library().offpolicy_rollout_cluster(
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0)
         b_ms, b_by = k6_bound(body, head, n, h, flat.numel())
         emit(phase='k6_vs_plain', kernel=tag, envs=n, horizon=h, trajectory=report,
-             one_step=one, one_step_threshold_flips=n_flip, ms=ms, plain_ms=plain_ms,
+             one_step=one, one_step_threshold_flips=n_flip, two_runs_bitwise_equal=True,
+             cluster=picked, cluster_ms=sizes, ms=ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by,
              tolerance={'trajectory': 2e-2, 'lanes_parted': max(1, int(0.01 * n)),
                         'one_step': 1e-4, 'threshold_flips': 8})
         k6[(env_name, head)] = dict(name=tag, ms=ms, plain_ms=plain_ms,
-                                    max_abs_err=max(one.values()), bound_ms=b_ms, bound_by=b_by)
+                                    max_abs_err=max(one.values()), bound_ms=b_ms, bound_by=b_by,
+                                    cluster=picked, cluster_ms=sizes)
+
+    # ---- k6_vs_plain_wide: TD3 and SAC on HopperSlip (path A's shape) and
+    # DQN on CartPole (path B's) at (256, 256), widths the first design
+    # refused (its whole net in one block): the kernel against its plain
+    # version with k6_vs_plain's trajectory tolerances, two runs bitwise
+    # equal, and the wrapper's fit that the runner asks
+    for env_name, head in (('HopperSlip-v0', 'ddpg'), ('HopperSlip-v0', 'sac'),
+                           ('CartPole-v1', 'dqn')):
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        wide = (256, 256)
+        n, h = (PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B)['envs'], (
+            PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B)['horizon']
+        assert fr.offpolicy_fits(body, head, wide), (env_name, head)
+        g = torch.Generator(device=dev).manual_seed(37)
+        S, A = body.state_dim, body.action_dim
+        heads = {'sac': [((256, 2 * A), 0.1)]}.get(head, [((256, A), 0.1)])
+        nets = [((S, 256, 256, A), 0.1)] if head != 'sac' else [((S, 256, 256), None)] + heads
+        flat = init_flat(torch.Generator().manual_seed(7), nets, dev)
+        env_def = env_classes[env_name](num_envs=1)._def
+        f0, i0 = body.pack(env_def.init(g, n, dev))
+        i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        kw = dict(body=body, head=head, net_dims=wide, reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25, std_clip=std_clip(head))
+        report = {}
+        for mode, extra in (('injected', dict(noise=k6_noise(body, head, g, h, n))),
+                            ('philox', dict(seed=seed))):
+            got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            again = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, **kw, **extra)
+            torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields)
+            differ, worst = k6_fields_differ(got, want, 2e-2)
+            parted = differ.any(0)
+            assert int(parted.sum()) <= max(1, int(0.01 * n)), (env_name, head, mode)
+            report[mode] = dict(lanes_parted=int(parted.sum()),
+                                max_abs_diff_kept=float(worst[:, ~parted].max()),
+                                step0_max_abs_diff=float(worst[0].max()))
+            assert report[mode]['step0_max_abs_diff'] <= 1e-4, report[mode]
+        ms = cuda_ms_(lambda: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, seed=seed, **kw),
+                      reps=10, warmup=2)
+        plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
+                                                                   seed=seed, **kw), reps=1)
+        b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), wide)
+        picked = fr._library().offpolicy_rollout_cluster(
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, *wide, 0)
+        emit(phase='k6_vs_plain_wide', kernel=f'fused_rollout[{env_name},{head}]',
+             net_dims=wide, envs=n, horizon=h, trajectory=report, two_runs_bitwise_equal=True,
+             cluster=picked, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             tolerance={'trajectory': 2e-2, 'lanes_parted': max(1, int(0.01 * n)),
+                        'step0': 1e-4})
+        k6[(env_name, head)]['wide'] = dict(net_dims=list(wide), ms=ms, plain_ms=plain_ms,
+                                            bound_ms=b_ms, bound_by=b_by, cluster=picked,
+                                            max_abs_err=report['injected']['step0_max_abs_diff'])
 
     # the DQN heads' exploration: with zero weights and the bias favouring
     # action 0, an action other than 0 comes only from exploring; over
@@ -1132,7 +1220,9 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                         'launches': main if main else entry_rollout.get(tag, 0),
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
                         'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
-                        'bound_by': k['bound_by'], 'library_ms': None})
+                        'bound_by': k['bound_by'], 'library_ms': None,
+                        'cluster': k['cluster'], 'cluster_ms': k['cluster_ms'],
+                        **({'wide': k['wide']} if 'wide' in k else {})})
     for variant, k in k9.items():
         n = launches_b[1].get(variant, 0) or entry_update.get(variant, 0)
         kernels.append({'name': f'dqn_update[{variant}]', 'route': 'cuda',
@@ -1176,6 +1266,12 @@ PPO_STOCK = dict(envs=256, horizon=128, batch=512, repeat=8.0, lr=2e-4)
 PPO_STOCK_4K = dict(envs=4096, horizon=128, batch=4096, repeat=64.0, lr=2e-4)
 # the off-policy heads on the stock body at path A's envs and horizon
 STOCK_OFF = dict(envs=1024, horizon=32)
+# The critic pass's limit against its plain version, the full f32 MLP: the
+# split-3xTF32 kernel reads 2e-7 to 6e-7 there, a plain 1xTF32 product (the
+# residual products dropped; critic_1xtf32 in stock_phases) about 3e-5 or
+# more, so the limit sits between them, and each critic check asserts that
+# the 1xTF32 emulation of the same states exceeds it.
+CRITIC_TOL = 5e-6
 
 
 def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
@@ -1191,7 +1287,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     from elegantrl_tpu_torch.envs import StockTradingVecEnv
     from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
-    from elegantrl_tpu_torch.ops.nets import init_flat
+    from elegantrl_tpu_torch.ops.nets import gelu, init_flat, ppo_param_shapes, split_flat
     from elegantrl_tpu_torch.utils.jax_params import ppo_state_from_numpy, ppo_state_to_numpy
 
     env_def = StockTradingVecEnv(num_envs=1)._def
@@ -1264,21 +1360,66 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                 out[f] = float((a - b).abs()[..., ok].max())
         return out
 
-    def onpolicy_bound(n, h, n_act, n_cri):
+    def onpolicy_bound(n, h, n_act, n_cri, dims=STOCK_NET):
         """K4 on-policy: the actor (rollout) and critic (pass) over every
         env-step, each net's W1 market columns once per step (the day, and
         so the market rows of the obs, is the same on every lane); bytes:
         weights, the env rows in and out, one market row of each table per
         step, the stored outputs written once.  Also the bound that counts
-        both nets in full per env-step, and the critic pass's alone."""
+        both nets in full per env-step."""
+        D1, D2 = dims
         L, M = 1 + A, S - 1 - A
         flop_a = 2 * (L * D1 + D1 * D2 + D2 * A) * n * h + 2 * M * D1 * h
         flop_c = 2 * (L * D1 + D1 * D2 + D2) * n * h + 2 * M * D1 * h
         flop_full = 2 * (S * D1 + D1 * D2 + D2 * A) * n * h + 2 * (S * D1 + D1 * D2 + D2) * n * h
         rows = body.n_f32 + body.n_i32
         nbytes = 4 * (n_act + n_cri + 2 * S + 2 * rows * n + h * M + n * h * (S + A + 5))
-        return bound(flop_a + flop_c, nbytes), bound(flop_full, nbytes), bound(
-            2 * (S * D1 + D1 * D2 + D2) * n * h, 4 * (n_cri + 2 * S + n * h * (S + 1)))
+        return bound(flop_a + flop_c, nbytes), bound(flop_full, nbytes)
+
+    def critic_bounds(n, h, n_cri, dims=STOCK_NET):
+        """The critic pass over H x N stored states: (1) the market columns
+        once per (step, group of 32 lanes), the work the kernel does, on the
+        FP32 CUDA cores; (2) in full, every sample's 151 columns; (3) as the
+        kernel computes it, layer 1's lane columns and layer 2 on the
+        tensor cores in split-3xTF32 (three TF32 products of their FLOP at
+        495 TFLOP/s) beside the rest on the FP32 cores, the larger of the
+        two.  Bytes: the weights, each sample's 16 lane rows and each
+        (step, group)'s market rows read once, the values written once."""
+        D1, D2 = dims
+        L, M = 1 + A, S - 1 - A
+        groups = h * -(-n // 32)
+        nbytes = 4 * (n_cri + 2 * S + n * h * (L + 1) + groups * M)
+        once = bound(2 * (L * D1 + D1 * D2 + D2) * n * h + 2 * M * D1 * groups, nbytes)
+        full = bound(2 * (S * D1 + D1 * D2 + D2) * n * h, 4 * (n_cri + 2 * S + n * h * (S + 1)))
+        t_tc = 3 * 2 * (L * D1 + D1 * D2) * n * h / (H100_TF32_TFLOPS * 1e12)
+        t_fp32 = (2 * D2 * n * h + 2 * M * D1 * groups) / (peak_tflops * 1e12)
+        t_bytes = nbytes / (peak_tbs * 1e12)
+        tf32 = (max(t_tc, t_fp32, t_bytes) * 1e3,
+                'operations' if max(t_tc, t_fp32) >= t_bytes else 'bytes')
+        return once, full, tf32
+
+    def market_shared(states):
+        """The critic pass's precondition: the lanes of each group of 32 share
+        every step's market rows."""
+        m = states[:, 1 + A:]
+        first = torch.div(torch.arange(m.shape[-1], device=m.device), 32,
+                          rounding_mode='floor') * 32
+        return torch.equal(m, m[:, :, first])
+
+    def critic_1xtf32(cri_flat, norm_avg, norm_std, states, dims):
+        """The critic pass as a plain 1xTF32 product would compute it: the
+        kernel's tensor-core operands (the lane rows and W1's lane columns,
+        h1 and W2) rounded to TF32 as cvt.rna rounds them, the residual
+        products dropped, the rest in f32.  What CRITIC_TOL must tell apart
+        from the split-3xTF32 kernel."""
+        def tf32(x):
+            b = x.contiguous().view(torch.int32)
+            return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+        W1, b1, W2, b2, Wo, bo = split_flat(cri_flat, ppo_param_shapes(S, dims, 1, True)[1])
+        xn = (states.transpose(1, 2) - norm_avg) / (norm_std + 1e-4)
+        L = 1 + A
+        h1 = gelu(tf32(xn[..., :L]) @ tf32(W1[:, :L]).T + xn[..., L:] @ W1[:, L:].T + b1)
+        return (gelu(tf32(h1) @ tf32(W2).T + b2) @ Wo.T + bo)[..., 0]
 
     # ---- k4_vs_plain: the on-policy stock rollout (the actor-only kernel and
     # the critic pass) at ppo_stock's 256 envs and at ppo_stock_4k's 4096,
@@ -1300,7 +1441,12 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     # kernel are bitwise equal.  A ragged N (300: a last group of 12 lanes)
     # runs the same checks.  The kernel's time at each cluster size it can
     # take (cluster_ms: the actor kernel and the critic pass) records the
-    # options; the kernel picks its own.
+    # options; the kernel picks its own.  The critic pass: within CRITIC_TOL
+    # of its plain version (the full MLP) on the stored states, whose lane
+    # groups share their market rows (asserted), and on a 7 x 99 slice,
+    # while its 1xTF32 emulation on the stored states is not; two runs
+    # bitwise equal.
+    peak_tflops, peak_tbs = peaks_for(name)[1]
     st = make_ppo(STOCK_NET, S, A, Config()).init(0, dev)
     g = torch.Generator(device=dev).manual_seed(41)
     st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
@@ -1365,8 +1511,14 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                'states': 1e-5, 'env_f': 1e-6}
         assert all(one[f] <= t for f, t in tol.items()), one
         # the critic pass alone against its plain version, on the stored states
+        assert market_shared(got.states), 'the critic pass precondition'
         v = fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, got.states,
                              net_dims=STOCK_NET)
+        v2 = fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, got.states,
+                              net_dims=STOCK_NET)
+        torch.cuda.synchronize()
+        assert torch.equal(v, v2), 'critic pass runs differ'
+
         v_ref = fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, got.states,
                                            net_dims=STOCK_NET)
         # and on a slice whose H N (693) is no multiple of the 64-sample tile
@@ -1375,7 +1527,10 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
             fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, odd, net_dims=STOCK_NET)
             - fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, odd,
                                          net_dims=STOCK_NET)).abs().max()))
-        assert critic_err <= 1e-4, critic_err
+        assert critic_err <= CRITIC_TOL, critic_err
+        tf32_err = float((critic_1xtf32(st.cri_flat, st.norm_avg, st.norm_std, got.states,
+                                        STOCK_NET) - v_ref).abs().max())
+        assert tf32_err > CRITIC_TOL, ('the critic limit does not part 1xTF32', tf32_err)
         ms = cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed, **bkw),
                      reps=10, warmup=2)
         plain_ms = cuda_ms(torch, lambda: fr.rollout_reference(*net, f0, i0, horizon_len=h,
@@ -1389,23 +1544,99 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed,
                                                            stock_cluster=c, **bkw),
                                  reps=5, warmup=1) for c in (1, 2, 4, 8)}
-        (b_ms, b_by), (full_ms, _), (cb_ms, cb_by) = onpolicy_bound(
-            n, h, st.act_flat.numel(), st.cri_flat.numel())
+        (b_ms, b_by), (full_ms, _) = onpolicy_bound(n, h, st.act_flat.numel(),
+                                                    st.cri_flat.numel())
+        (cb_ms, cb_by), (cf_ms, _), (ct_ms, ct_by) = critic_bounds(n, h, st.cri_flat.numel())
         emit(phase='k4_vs_plain', kernel='fused_rollout[StockTradingEnv-v2,gaussian]',
              recipe=recipe, envs=n,
              horizon=h, trajectory=report, one_step=one, one_step_samples=h * n,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
              two_runs_bitwise_equal=True, cluster=cluster, cluster_ms=cluster_ms,
-             critic_pass_max_abs_err=critic_err, ms=ms, actor_ms=ms - c_ms, plain_ms=plain_ms,
+             critic_pass_max_abs_err=critic_err, critic_1xtf32_max_abs_err=tf32_err, ms=ms, actor_ms=ms - c_ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms, critic_ms=c_ms,
-             critic_plain_ms=c_plain, critic_bound_ms=cb_ms, critic_bound_by=cb_by,
+             critic_plain_ms=c_plain, critic_bound_ms=ct_ms, critic_bound_by=ct_by,
+             critic_bound_ms_market_once=cb_ms, critic_bound_ms_full=cf_ms,
+             critic_two_runs_bitwise_equal=True, critic_precondition_holds=True,
              ms_covers='the actor-only rollout kernel and the critic pass',
-             tolerance=dict(tol, share_parted=0.25, kept_lanes=2e-2))
+             tolerance=dict(tol, share_parted=0.25, kept_lanes=2e-2, critic=CRITIC_TOL))
         k4[recipe] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['values'], one['logprobs'],
                                                                 one['actions'], one['rewards']),
                      bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms, cluster=cluster,
                      critic=dict(ms=c_ms, plain_ms=c_plain, max_abs_err=critic_err,
-                                 bound_ms=cb_ms, bound_by=cb_by))
+                                 bound_ms=ct_ms, bound_by=ct_by, bound_ms_market_once=cb_ms,
+                                 bound_ms_full=cf_ms))
+
+    # ---- k4_vs_plain_wide: ppo_stock's rollout at (256, 256), which the
+    # first critic pass refused (its whole critic in one block): the actor
+    # kernel's first step against the plain version (1e-4; the actor's whole
+    # trajectory is k4_vs_plain's) and the critic pass's values against
+    # theirs (CRITIC_TOL, which their 1xTF32 emulation exceeds), two runs
+    # bitwise equal, and both kernels' times and bounds
+    wide = (256, 256)
+    assert fr.rollout_fits(body, wide)
+    stw = make_ppo(wide, S, A, Config()).init(0, dev)
+    stw = stw._replace(norm_avg=st.norm_avg, norm_std=st.norm_std)
+    with torch.no_grad():
+        stw.act.std_log.fill_(-0.5)
+    netw = (stw.act_flat, stw.cri_flat, stw.norm_avg, stw.norm_std)
+    n, h = PPO_STOCK['envs'], PPO_STOCK['horizon']
+    f0, i0 = start_rows(n, T - 61, g)
+    bkw = dict(net_dims=wide, reward_scale=2.0 ** -8, body=body)
+    got = fr.rollout(*netw, f0, i0, horizon_len=h, seed=seed, **bkw)
+    again = fr.rollout(*netw, f0, i0, horizon_len=h, seed=seed, **bkw)
+    want1 = fr.rollout_reference(*netw, f0, i0, horizon_len=1, seed=seed, **bkw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields)
+    assert market_shared(got.states)
+    v_ref = fr.critic_values_reference(stw.cri_flat, stw.norm_avg, stw.norm_std, got.states,
+                                       net_dims=wide)
+    wide_err = dict(values=float((got.values - v_ref).abs().max()),
+                    step0_actions=float((got.actions[0] - want1.actions[0]).abs().max()),
+                    step0_logprobs=float((got.logprobs[0] - want1.logprobs[0]).abs().max()))
+    wide_tol = dict(values=CRITIC_TOL, step0_actions=1e-4, step0_logprobs=1e-4)
+    assert all(wide_err[f] <= t for f, t in wide_tol.items()), wide_err
+    wide_tf32 = float((critic_1xtf32(stw.cri_flat, stw.norm_avg, stw.norm_std, got.states, wide)
+                       - v_ref).abs().max())
+    assert wide_tf32 > CRITIC_TOL, ('the critic limit does not part 1xTF32', wide_tf32)
+    w_ms = cuda_ms(torch, lambda: fr.rollout(*netw, f0, i0, horizon_len=h, seed=seed, **bkw),
+                   reps=5, warmup=1)
+    wc_ms = cuda_ms(torch, lambda: fr.critic_values(stw.cri_flat, stw.norm_avg, stw.norm_std,
+                                                    got.states, net_dims=wide), reps=10, warmup=2)
+    wc_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
+        stw.cri_flat, stw.norm_avg, stw.norm_std, got.states, net_dims=wide), reps=2)
+    (wb_ms, wb_by), _ = onpolicy_bound(n, h, stw.act_flat.numel(), stw.cri_flat.numel(), wide)
+    (wcb_ms, _), (wcf_ms, _), (wct_ms, wct_by) = critic_bounds(n, h, stw.cri_flat.numel(), wide)
+    emit(phase='k4_vs_plain_wide', recipe='ppo_stock', net_dims=wide, envs=n, horizon=h,
+         max_abs_err=wide_err, critic_1xtf32_max_abs_err=wide_tf32, two_runs_bitwise_equal=True,
+         cluster=fr._library().stock_rollout_cluster(n, *wide, 0), ms=w_ms, bound_ms=wb_ms,
+         bound_by=wb_by, critic_ms=wc_ms, critic_plain_ms=wc_plain, critic_bound_ms=wct_ms,
+         critic_bound_by=wct_by, critic_bound_ms_market_once=wcb_ms, critic_bound_ms_full=wcf_ms,
+         ms_covers='the actor-only rollout kernel and the critic pass', tolerance=wide_tol)
+    k4['ppo_stock']['critic']['wide'] = dict(net_dims=list(wide), ms=wc_ms, plain_ms=wc_plain,
+                                             bound_ms=wct_ms, bound_by=wct_by,
+                                             max_abs_err=wide_err['values'])
+    # and the critic pass alone at (448, 448), the stock actor kernel's widest
+    # width, where it takes 64-sample tiles (128 do not fit a block), on the
+    # same states: CRITIC_TOL (its 1xTF32 emulation exceeds it) and two runs
+    # bitwise equal
+    cri448 = make_ppo((448, 448), S, A, Config()).init(1, dev).cri_flat
+    v448 = fr.critic_values(cri448, st.norm_avg, st.norm_std, got.states, net_dims=(448, 448))
+    again448 = fr.critic_values(cri448, st.norm_avg, st.norm_std, got.states,
+                                net_dims=(448, 448))
+    ref448 = fr.critic_values_reference(cri448, st.norm_avg, st.norm_std, got.states,
+                                        net_dims=(448, 448))
+    torch.cuda.synchronize()
+    err448 = float((v448 - ref448).abs().max())
+    assert torch.equal(v448, again448) and err448 <= CRITIC_TOL, err448
+    tf32_448 = float((critic_1xtf32(cri448, st.norm_avg, st.norm_std, got.states, (448, 448))
+                      - ref448).abs().max())
+    assert tf32_448 > CRITIC_TOL, ('the critic limit does not part 1xTF32', tf32_448)
+    ms448 = cuda_ms(torch, lambda: fr.critic_values(cri448, st.norm_avg, st.norm_std, got.states,
+                                                    net_dims=(448, 448)), reps=10, warmup=2)
+    (_, _), (_, _), (b448, by448) = critic_bounds(n, h, cri448.numel(), (448, 448))
+    emit(phase='critic_vs_plain_448', net_dims=[448, 448], envs=n, horizon=h,
+         max_abs_err=err448, critic_1xtf32_max_abs_err=tf32_448, two_runs_bitwise_equal=True,
+         ms=ms448, bound_ms=b448, bound_by=by448, tolerance=CRITIC_TOL)
 
     # ---- k4_philox: the internal draws.  Every lane at the last day but one
     # ends its episode at step 0 and resets from Philox uniforms: cash in
@@ -1455,9 +1686,12 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
             got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            again = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
             want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, env_trace=trace,
                                                   **kw, **extra)
             torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
+                'K4 off-policy runs differ', head, mode)
             assert torch.equal(got.terminals, want.terminals) and int(got.terminals.sum()) == n
             assert torch.equal(got.states[..., 1 + A:], want.states[..., 1 + A:])
             lot_diff = lots_differ(got.states.transpose(1, 2), want.states.transpose(1, 2))
@@ -1492,20 +1726,29 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                                                          **kw), reps=10, warmup=2)
         plain_ms = cuda_ms(torch, lambda: fr.offpolicy_rollout_reference(
             flat, f0, i0, horizon_len=h, seed=seed, **kw), reps=1)
+        # the bound counts W1's market columns once a step (every lane of a
+        # step shares the day), as the kernel applies them; bound_ms_full_obs
+        # counts all S columns for every lane and step
         out_rows = 2 * A if head != 'ddpg' else A
-        flop = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
+        L, M = 1 + A, S - 1 - A
+        flop = 2 * (L * D1 + D1 * D2 + D2 * out_rows) * n * h + 2 * M * D1 * h
+        flop_full = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
         rows = body.n_f32 + body.n_i32
-        b_ms, b_by = bound(flop, 4 * (flat.numel() + 2 + 2 * rows * n + h * (S - 1 - A)
-                                      + n * h * (S + A + 3)))
+        nbytes = 4 * (flat.numel() + 2 + 2 * rows * n + h * M + n * h * (S + A + 3))
+        b_ms, b_by = bound(flop, nbytes)
+        full_ms, _ = bound(flop_full, nbytes)
+        picked = fr._library().offpolicy_rollout_cluster(
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0)
         emit(phase='k4_offpolicy_vs_plain', kernel=f'fused_rollout[StockTradingEnv-v2,{head}]',
              envs=n, horizon=h, trajectory=report, one_step=one,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
-             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             two_runs_bitwise_equal=True, cluster=picked,
+             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms,
              tolerance={'actions': 1e-4, 'rewards': 1e-4, 'states': 1e-5, 'env_f': 1e-6,
                         'share_parted': 0.25})
         k4_off[head] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['actions'],
                                                                        one['rewards']),
-                            bound_ms=b_ms, bound_by=b_by)
+                            bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms)
 
     # ---- the stock main paths
     def stock_args(path, device=None, agent_class=AgentPPO, **hyper):
@@ -1667,7 +1910,10 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                         'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
                         'launches': launches['critic_values'], 'max_abs_err': c['max_abs_err'],
                         'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
-                        'bound_by': c['bound_by'], 'library_ms': None})
+                        'bound_by': c['bound_by'], 'library_ms': None,
+                        'bound_ms_market_once': c['bound_ms_market_once'],
+                        'bound_ms_full': c['bound_ms_full'],
+                        **({'wide': c['wide']} if 'wide' in c else {})})
     kernels.append({'name': 'ppo_update[StockTradingEnv-v2]', 'route': 'cuda',
                     'source': 'elegantrl_tpu_torch/ops/csrc/ppo_update.cu',
                     'replaces': 'elegantrl_tpu/ops/pallas_update.py:79',
@@ -1680,7 +1926,8 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                         'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
                         'launches': off_runs[head], 'max_abs_err': k['max_abs_err'],
                         'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
-                        'bound_by': k['bound_by'], 'library_ms': None})
+                        'bound_by': k['bound_by'], 'library_ms': None,
+                        'bound_ms_full_obs': k['bound_ms_full_obs']})
     return kernels
 
 

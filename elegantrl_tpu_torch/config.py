@@ -135,13 +135,13 @@ class Config:
         pprint(vars(self))
 
 
-def resolve_device(args) -> torch.device:
+def resolve_device(args, owner: str = 'Config') -> torch.device:
     """``args.device`` as a ``torch.device``; raises when CUDA is asked for
-    and no GPU is present."""
+    and no GPU is present (``owner`` names the object in the message)."""
     device = torch.device(str(getattr(args, 'device', 'cuda')))
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
-            f"Config.device={str(device)!r} but torch.cuda.is_available() is "
+            f"{owner}.device={str(device)!r} but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
     return device
 

@@ -76,10 +76,16 @@ def vec_step(env: EnvDef, state: EnvState, actions: torch.Tensor,
 
 class VecEnv:
     """Stateful adapter with the ``reset/step`` protocol over an
-    :class:`EnvDef`, holding the state and a generator between calls."""
+    :class:`EnvDef`, holding the state and a generator between calls.
+
+    ``device`` is where ``reset`` and ``step`` run: the CUDA card unless the
+    caller asks for ``'cpu'`` (None means ``'cuda'``), as for ``Config``.
+    The generator and the state are made on the first ``reset``, through
+    ``config.resolve_device``, so without a GPU that call raises; building
+    an env only to read ``._def`` or its spec touches no device."""
 
     def __init__(self, env_def: EnvDef, num_envs: int = None, seed: int = 0,
-                 device: str = 'cpu'):
+                 device: str = None):
         self._def = env_def
         spec = env_def.spec
         if num_envs is not None:
@@ -91,12 +97,17 @@ class VecEnv:
         self.state_dim = spec.state_dim
         self.action_dim = spec.action_dim
         self.if_discrete = spec.if_discrete
-        self.device = torch.device(device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        self.device = torch.device('cuda' if device is None else device)
+        self._seed = int(seed)
+        self._gen = None
         self._state = None
 
     def reset(self, **_kwargs):
+        if self._gen is None:
+            from ..config import resolve_device
+            resolve_device(self, owner=type(self).__name__)
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(self._seed)
         self._state, obs = vec_reset(self._def, self._gen, self.num_envs, self.device)
         return obs, {}
 

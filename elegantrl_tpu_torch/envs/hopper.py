@@ -111,5 +111,5 @@ def make_hopper() -> EnvDef:
 
 
 class HopperEnv(VecEnv):
-    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = 'cpu', **_kwargs):
+    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = None, **_kwargs):
         super().__init__(make_hopper(), num_envs=num_envs, seed=seed, device=device)

@@ -168,10 +168,10 @@ def make_lunar_lander(continuous: bool = False) -> EnvDef:
 
 
 class LunarLanderEnv(VecEnv):
-    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = 'cpu', **_kwargs):
+    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = None, **_kwargs):
         super().__init__(make_lunar_lander(False), num_envs=num_envs, seed=seed, device=device)
 
 
 class LunarLanderContinuousEnv(VecEnv):
-    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = 'cpu', **_kwargs):
+    def __init__(self, num_envs: int = 1, seed: int = 0, device: str = None, **_kwargs):
         super().__init__(make_lunar_lander(True), num_envs=num_envs, seed=seed, device=device)

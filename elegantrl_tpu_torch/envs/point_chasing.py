@@ -101,18 +101,18 @@ def make_point_chasing_discrete(dim: int = 2) -> EnvDef:
 
 class PointChasingVecEnv(VecEnv):
     def __init__(self, dim: int = 2, env_num: int = 32, num_envs: int = None,
-                 seed: int = 0, device: str = 'cpu', **_kwargs):
+                 seed: int = 0, device: str = None, **_kwargs):
         super().__init__(make_point_chasing(dim), num_envs=num_envs or env_num,
                          seed=seed, device=device)
 
 
 class PointChasingEnv(PointChasingVecEnv):
-    def __init__(self, dim: int = 2, seed: int = 0, device: str = 'cpu', **_kwargs):
+    def __init__(self, dim: int = 2, seed: int = 0, device: str = None, **_kwargs):
         super().__init__(dim=dim, env_num=1, seed=seed, device=device)
 
 
 class PointChasingDiscreteEnv(VecEnv):
     def __init__(self, dim: int = 2, num_envs: int = 1, seed: int = 0,
-                 device: str = 'cpu', **_kwargs):
+                 device: str = None, **_kwargs):
         super().__init__(make_point_chasing_discrete(dim), num_envs=num_envs, seed=seed,
                          device=device)

@@ -239,7 +239,7 @@ class StockTradingVecEnv(VecEnv):
     def __init__(self, initial_amount: float = 1e6, max_stock: float = 1e2,
                  cost_pct: float = 1e-3, gamma: float = 0.99,
                  beg_idx: int = 0, end_idx: int = 1113, num_envs: int = 4,
-                 if_random_reset: bool = True, seed: int = 0, device: str = 'cpu',
+                 if_random_reset: bool = True, seed: int = 0, device: str = None,
                  **_kwargs):
         super().__init__(
             make_stock_trading(initial_amount, max_stock, cost_pct, gamma,

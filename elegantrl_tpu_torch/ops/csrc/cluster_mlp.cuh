@@ -1,6 +1,7 @@
 // Pieces of the kernels that split an MLP's hidden units over the blocks of
-// a thread-block cluster: K11b (kernels.cu, fused_mlp3_kernel) and K4's
-// actor (fused_rollout.cu, stock_actor_kernel).
+// a thread-block cluster: K11b (kernels.cu, fused_mlp3_kernel), K4's actor,
+// K1/K3 and K6/K6′ (fused_rollout.cu: stock_actor_kernel,
+// fused_rollout_kernel, offpolicy_rollout_kernel).
 //
 // Block r of a cluster of c owns `slice(D, c)` consecutive hidden units of
 // each layer (rows of W, zero past D).  Its weights sit in shared memory row

@@ -4,8 +4,9 @@
 // CartPole-v1, HopperSlip-v0 and PointChasing (continuous and discrete);
 // StockTradingEnv-v2's actor runs in stock_actor_kernel (K4, below), its
 // critic in critic_values_kernel.
-// Below it, offpolicy_rollout_kernel: the same template for the off-policy
-// agents' exploration (one net, the ddpg and DQN heads).
+// Below it, offpolicy_rollout_kernel: the same design for the off-policy
+// agents' exploration (one net, the ddpg, sac and DQN heads; the stock
+// body's heads run in stock_actor_kernel<HEAD>).
 //
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_kernel (built by
 // make_fused_rollout with PENDULUM_BODY, CARTPOLE_BODY, HOPPER_BODY,
@@ -17,7 +18,7 @@
 // D1=D2=128); the outputs are S + 6 or S + A + 5 floats per env-step.  At
 // 4096 envs x 64 steps that is about 18 GFLOP against about 10 MB written,
 // far on the compute side of the roofline, and the FLOP run on the FP32
-// CUDA cores (no tensor cores in this version).
+// CUDA cores (the critic pass runs on the tensor cores).
 //
 // Design:
 // - A group of TE = 32 env lanes loops over all H steps itself.  On the TPU
@@ -28,9 +29,8 @@
 //   cluster of c blocks, each holding a slice of every layer of both nets
 //   in shared memory (cluster_mlp.cuh), so widths up to what a cluster of 8
 //   holds fit and two or more blocks can share an SM; products are tiles of
-//   4 x 4 outputs a thread (cm::tile_dense).  The off-policy kernel below
-//   keeps the first design: one 8-warp block per group, the net whole in
-//   shared memory, activations as (features, TE) tiles read by `dense`.
+//   4 x 4 outputs a thread (cm::tile_dense); the off-policy kernel below
+//   takes the same design.
 // - The env body and the head are template parameters: a body is a struct
 //   with its dimensions and obs/step/reset functions over a register array
 //   of its F float rows and one step counter, so each instantiation keeps
@@ -64,9 +64,7 @@ struct StockArgs {
 
 namespace {
 
-constexpr int TE = 32;        // env lanes per block
-constexpr int THREADS = 256;  // threads per block
-constexpr int RJ = 8;         // output rows per warp pass
+constexpr int TE = 32;        // env lanes per group
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr float LOG_SQRT_2PI = 0.91893853320467274178f;
@@ -440,64 +438,6 @@ struct BodyInfo<StockBody> {
   static constexpr int S_LANE = StockBody::S_LANE;
 };
 
-// -------------------------------------------------------------------- MLP
-
-// out[j][e] = act(sum_k W[j][k] * in[k][e] + b[j]) for j < J, e < TE.
-// Tiles are (rows, TE) in shared memory; W is row-major (J, K).
-template <bool GELU>
-__device__ void dense(const float* W, const float* b, const float* in,
-                      float* out, int J, int K) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int j0 = warp * RJ; j0 < J; j0 += nwarps * RJ) {
-    float acc[RJ];
-#pragma unroll
-    for (int r = 0; r < RJ; ++r) acc[r] = 0.f;
-    const int rows = min(RJ, J - j0);
-    for (int k = 0; k < K; ++k) {
-      const float x = in[k * TE + lane];
-#pragma unroll
-      for (int r = 0; r < RJ; ++r)
-        if (r < rows) acc[r] = fmaf(W[(j0 + r) * K + k], x, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RJ; ++r) {
-      if (r < rows) {
-        const float v = acc[r] + b[j0 + r];
-        out[(j0 + r) * TE + lane] = GELU ? gelu_tanh(v) : v;
-      }
-    }
-  }
-}
-
-struct Net {
-  const float *W1, *b1, *W2, *b2, *Wo, *bo;
-};
-
-// Copy one net's leaves from the flat buffer into shared memory.
-__device__ Net load_net(const float* __restrict__ flat, float* smem, int S,
-                        int D1, int D2, int O) {
-  const int n = D1 * S + D1 + D2 * D1 + D2 + O * D2 + O;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = flat[i];
-  Net net;
-  net.W1 = smem;
-  net.b1 = net.W1 + D1 * S;
-  net.W2 = net.b1 + D1;
-  net.b2 = net.W2 + D2 * D1;
-  net.Wo = net.b2 + D2;
-  net.bo = net.Wo + O * D2;
-  return net;
-}
-
-__device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
-                    float* out, int S, int D1, int D2, int O) {
-  dense<true>(net.W1, net.b1, xn, h1, D1, S);
-  __syncthreads();
-  dense<true>(net.W2, net.b2, h1, h2, D2, D1);
-  __syncthreads();
-  dense<false>(net.Wo, net.bo, h2, out, O, D2);
-}
-
 // ----------------------------------------------------------------- kernel
 // K1/K3 for the bodies without market tables (the stock body's actor runs
 // in stock_actor_kernel below).  A group of TE = 32 env lanes runs on a
@@ -537,12 +477,12 @@ __device__ void mlp(const Net& net, const float* xn, float* h1, float* h2,
 // the widest product (tile_scratch; products that share it are a block
 // barrier apart).
 // Floats of split-K scratch that cm::tile_dense takes for a product of J
-// rows over K inputs and TE lanes (its rule for the count of parts ks).
-__host__ __device__ inline int tile_scratch(int K, int J) {
-  const int tiles = (J / 4) * (TE / 4);
+// rows over K inputs and M lanes (its rule for the count of parts ks).
+__host__ __device__ inline int tile_scratch(int K, int J, int M = TE) {
+  const int tiles = (J / 4) * (M / 4);
   int ks = 1;
   while (2 * ks * tiles <= cm::THREADS && 8 * ks <= K) ks *= 2;
-  return ks > 1 ? ks * J * TE : 0;
+  return ks > 1 ? ks * J * M : 0;
 }
 
 struct RolloutLayout {
@@ -860,47 +800,67 @@ int rollout_smem(int D1, int D2, int c) {
   return (int)sizeof(float) * body_layout<Body>(D1, D2, c).floats;
 }
 
-// Raises the kernel's dynamic shared-memory ceiling on the current device
-// to smem bytes.  The ceiling only grows, so it is set once for each larger
+// Raises KERNEL's dynamic shared-memory ceiling on the current device to
+// smem bytes.  The ceiling only grows, so it is set once for each larger
 // size a (kernel, device) meets, not at every launch.
-template <class Body>
-cudaError_t allow_rollout_smem(int smem) {
+template <auto KERNEL>
+cudaError_t allow_smem(int smem) {
   static int ceiling[64] = {0};
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool known = dev >= 0 && dev < 64;
   if (known && ceiling[dev] >= smem) return cudaSuccess;
-  const cudaError_t set = cudaFuncSetAttribute(
-      fused_rollout_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t set =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set == cudaSuccess && known) ceiling[dev] = smem;
   return set;
 }
 
-// The cluster size for N lanes: `cluster` when it is 1, 2, 4 or 8 and its
-// layout fits; with 0, the largest of 8, 4, 2, 1 whose layout fits and whose
-// clusters of the ceil(N / 32) groups the card holds all at once, else the
-// largest that fits of 2 and 1, else 4 or 8 (wide nets: only a wide cluster
-// holds the slices).  0 when none fits or on a CUDA error.
-template <class Body>
-int rollout_cluster(int N, int D1, int D2, int cluster) {
-  constexpr int SMEM_LIMIT = 232448;
+// The cluster size for `groups` lane groups of KERNEL, whose block takes
+// smem_of(c) bytes in clusters of c: `cluster` when it is 1, 2, 4 or 8 and
+// its layout fits; with 0, the largest of 8, 4, 2, 1 whose layout fits and
+// whose clusters the card holds all at once, else the largest that fits of
+// 2 and 1, else 4 or 8 (wide nets: only a wide cluster holds the slices).
+// With whole_sm that rule comes second: first the largest whose clusters
+// the card holds all at once with one block an SM (asked of the occupancy
+// calculator with more than half an SM's shared memory a block).  0 when
+// none fits or on a CUDA error.
+template <auto KERNEL, class SmemOf>
+int pick_cluster(int groups, int cluster, SmemOf smem_of, bool whole_sm) {
+  constexpr int SMEM_LIMIT = 232448, WHOLE_SM = 116 * 1024;
   if (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
-    return rollout_smem<Body>(D1, D2, cluster) <= SMEM_LIMIT ? cluster : 0;
+    return smem_of(cluster) <= SMEM_LIMIT ? cluster : 0;
   if (cluster != 0) return 0;
-  const int groups = (N + TE - 1) / TE;
+  for (int c : {8, 4, 2, 1}) {
+    const int smem = smem_of(c);
+    if (!whole_sm) break;
+    if (smem > SMEM_LIMIT) continue;
+    const int whole = smem > WHOLE_SM ? smem : WHOLE_SM;
+    if (allow_smem<KERNEL>(whole) != cudaSuccess) return 0;
+    const int active = cm::active_clusters(KERNEL, c, whole);
+    if (active == 0) return 0;
+    if (groups <= active) return c;
+  }
   int small = 0, wide = 0;  // the largest that fits of 2 and 1; of 8 and 4
   for (int c : {8, 4, 2, 1}) {
-    const int smem = rollout_smem<Body>(D1, D2, c);
+    const int smem = smem_of(c);
     if (smem > SMEM_LIMIT) continue;
     if (c <= 2 && small == 0) small = c;
     if (c > 2 && wide == 0) wide = c;
-    if (allow_rollout_smem<Body>(smem) != cudaSuccess) return 0;
-    const int active = cm::active_clusters(fused_rollout_kernel<Body>, c, smem);
+    if (allow_smem<KERNEL>(smem) != cudaSuccess) return 0;
+    const int active = cm::active_clusters(KERNEL, c, smem);
     if (active == 0) return 0;
     if (groups <= active) return c;
   }
   return small != 0 ? small : wide;
+}
+
+// The rollout kernel's cluster size for N lanes (pick_cluster).
+template <class Body>
+int rollout_cluster(int N, int D1, int D2, int cluster) {
+  return pick_cluster<fused_rollout_kernel<Body>>(
+      (N + TE - 1) / TE, cluster, [=](int c) { return rollout_smem<Body>(D1, D2, c); }, false);
 }
 
 template <class Body>
@@ -917,7 +877,7 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
   const int smem = rollout_smem<Body>(D1, D2, c);
-  const cudaError_t err = allow_rollout_smem<Body>(smem);
+  const cudaError_t err = allow_smem<fused_rollout_kernel<Body>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + TE - 1) / TE;
   return (int)cm::launch_clusters(
@@ -931,7 +891,7 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
 // ------------------------------------------------- off-policy exploration
 // Replaces: elegantrl_tpu/ops/pallas_rollout.py, _make_offpolicy_kernel
 // (built by make_fused_offpolicy_rollout) with the heads ddpg, dqn, dqn_enc,
-// dqn_duel, sac and modsac (pallas_rollout.py:1059-1069).  One net, no
+// dqn_duel, sac and modsac (pallas_rollout.py:1054-1083).  One net, no
 // critic, no logprob and no observation normalisation; the trunk is l2 = W2
 // gelu(W1 x + b1) + b2 and the heads
 //   HEAD_DDPG     a = clip(tanh(Wo gelu(l2) + bo) + noise_std z, -1, 1)
@@ -943,38 +903,107 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
 //   HEAD_MODSAC   the same with mean = Wa l2 + ba, log_std = Ws l2 + bs
 // with the DQN heads acting epsilon-greedily: u0 < explore_rate ?
 // min(floor(u1 A), A - 1) : argmax q (the first maximum on a tie).  The
-// weights, the tiles and the step loop are those of the on-policy kernel;
-// the outputs are written in the (H, N, dim) layout the replay buffer takes.
+// outputs are written in the (H, N, dim) layout the replay buffer takes.
 // Noise: injected (H, NZ, N) with A normals (ddpg, sac, modsac) or the coin
 // and the random-action uniform (DQN) first, then the env's uniforms;
 // internal Philox draws 2A (the continuous heads, Box-Muller) or 2 head
-// uniforms per (lane, step).
-// Bound: operations, one net's 2 (S D1 + D1 D2 + D2 A) FLOP per env-step;
-// at 1024 envs only 32 blocks run, and at 64 envs 2, so the kernel is
-// latency-bound at the off-policy shapes.
+// uniforms per (lane, step), counter (lane, step, j / 4, 0).  The stock
+// body's heads run in stock_actor_kernel<HEAD> below.
+//
+// Bound: operations, one net's 2 (S D1 + D1 D2 + D2 O) FLOP per env-step (O
+// head rows); at the off-policy shapes (64 or 1024 envs) far less work than
+// the card holds, so a step's latency sets the time.
+//
+// What held the first design back (one 8-warp block per 32 lanes, the whole
+// net in shared memory, `dense`, ~25 us a step): 2 blocks on 132 SMs at 64
+// envs, 32 at 1024; one shared-memory weight load per FMA; the Philox draws,
+// head, sampling and env step on 32 threads while seven warps waited; and
+// (256, 256) did not fit one block.  This design is fused_rollout_kernel's:
+// - a group of OFF_LANES env lanes runs on a thread-block cluster of c
+//   blocks (c = 1, 2, 4 or 8 from the card's occupancy: offpolicy_cluster);
+//   block r owns slice(D, c) rows of W1 and W2 and the same slice of the
+//   head's columns (cluster_mlp.cuh), loaded once a launch with cp.async;
+// - per step, two cluster barriers: layer 1 over the obs tile, each block's
+//   rows of h1 pushed to every block (store_cluster); layer 2 over the whole
+//   h1, then this block's part of the O head rows from its rows of h2,
+//   pushed likewise; the parts added in rank order, so every block holds
+//   the same bits and steps its own copy of the lanes' envs on warp 0 (the
+//   bodies' arithmetic unchanged); rank 0 stores the outputs;
+// - warps 1-7 draw the next step's Philox words (or copy the injected noise
+//   rows) meanwhile, and all warps turn the head's words into normals at
+//   the top of a step.
+// Products are cm::tile_dense (4 x 4 outputs a thread, split-K parts in a
+// fixed order), so a launch is deterministic; sums run in another order
+// than the plain version's, so outputs agree to rounding.
 
 constexpr int HEAD_DDPG = 0, HEAD_DQN = 1, HEAD_DQN_ENC = 2, HEAD_DQN_DUEL = 3,
               HEAD_SAC = 4, HEAD_MODSAC = 5;
+constexpr int HEAD_PPO = 6;   // stock_actor_kernel's on-policy Gaussian head
+constexpr int OFF_LANES = 16; // env lanes per off-policy group (32 measured slower)
 
-__host__ __device__ inline bool sac_head(int head) {
+__host__ __device__ constexpr bool sac_head(int head) {
   return head == HEAD_SAC || head == HEAD_MODSAC;
 }
-
-// The head's weights: the trunk, then A rows (ddpg, DQN; dqn_duel adds the
-// advantage row) or 2A rows (SAC's head; ModSAC's avg and std heads).
-__host__ __device__ inline int offpolicy_net_floats(int S, int A, int D1, int D2, int head) {
-  const int heads = sac_head(head) ? 2 * (A * D2 + A)
-                                   : A * D2 + A + (head == HEAD_DQN_DUEL ? D2 + 1 : 0);
-  return D1 * S + D1 + D2 * D1 + D2 + heads;
+__host__ __device__ constexpr bool dqn_head(int head) {
+  return head == HEAD_DQN || head == HEAD_DQN_ENC || head == HEAD_DQN_DUEL;
+}
+// Rows of the head's output: 2A (sac, modsac: mean, then log_std), A + 1
+// (dqn_duel: the values, then the advantage) or A.
+__host__ __device__ constexpr int offpolicy_out_rows(int A, int head) {
+  return sac_head(head) ? 2 * A : (head == HEAD_DQN_DUEL ? A + 1 : A);
 }
 
-// Rows of the out tile: the 2A SAC outputs, or A (+ the advantage).
-__host__ __device__ inline int offpolicy_out_rows(int A, int head) {
-  return sac_head(head) ? 2 * A : A + 1;
+// Shared memory of one block (floats), clusters of c, S obs rows, O head
+// rows, NH head words and NE env uniforms a (lane, step), G lanes a group:
+// the weight slices row by row (W1's rows, W2's rows, the head's columns:
+// cluster_mlp.cuh) and biases, then (rows, G) tiles: the obs, the whole h1,
+// this block's rows of h2, every block's part of the head rows, two steps'
+// head words and env uniforms, the head's normals, the summed head rows, and
+// the split-K scratch of the widest product.
+struct OffLayout {
+  int s4, op, js1, js2, k2, w1, b1, w2, b2, wo, bo, xn, h1, h2, outp, hraw, uenv, hz, headv,
+      scratch, floats, nh4, ne4;
+  __host__ __device__ OffLayout(int S, int A, int O, int NH, int NE, int D1, int D2, int c,
+                                int G) {
+    s4 = cm::round4(S);
+    op = cm::round4(O);
+    nh4 = cm::round4(NH);
+    ne4 = cm::round4(max(NE, 1));
+    js1 = cm::slice(D1, c);
+    js2 = cm::slice(D2, c);
+    k2 = c * js1;
+    int o = 0;
+    w1 = o; o += js1 * cm::ldk(S);
+    b1 = o; o += js1;
+    w2 = o; o += js2 * cm::ldk(k2);
+    b2 = o; o += js2;
+    wo = o; o += op * cm::ldk(js2);
+    bo = o; o += op;
+    xn = o; o += s4 * G;
+    h1 = o; o += k2 * G;
+    h2 = o; o += js2 * G;
+    outp = o; o += c * op * G;
+    hraw = o; o += 2 * nh4 * G;
+    uenv = o; o += 2 * ne4 * G;
+    hz = o; o += cm::round4(A) * G;
+    headv = o; o += op * G;
+    scratch = o;
+    o += cm::round4(max(max(tile_scratch(s4, js1, G), tile_scratch(k2, js2, G)),
+                        tile_scratch(js2, op, G)));
+    floats = o;
+  }
+};
+
+template <class Body, int HEAD>
+__host__ __device__ inline OffLayout off_layout(int D1, int D2, int c) {
+  constexpr bool DISCRETE = dqn_head(HEAD);
+  return OffLayout(Body::S, Body::A, offpolicy_out_rows(Body::A, HEAD),
+                   DISCRETE ? 2 : 2 * Body::A, Body::N_STEP + Body::N_RESET, D1, D2, c,
+                   OFF_LANES);
 }
 
 template <class Body, int HEAD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(cm::THREADS, 2)
 offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          const float* __restrict__ env_f,
                          const int* __restrict__ env_i, const float* __restrict__ noise,
@@ -984,40 +1013,64 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N,
                          int H, int D1, int D2, float reward_scale, float noise_std,
                          float explore_rate, float std_lo, float std_hi) {
-  constexpr int S = Body::S, A = Body::A, F = Body::F;
-  constexpr bool SAC = HEAD == HEAD_SAC || HEAD == HEAD_MODSAC;
-  constexpr bool DISCRETE = HEAD != HEAD_DDPG && !SAC;
+  constexpr int S = Body::S, A = Body::A, F = Body::F, G = OFF_LANES;
+  constexpr bool SAC = sac_head(HEAD), DISCRETE = dqn_head(HEAD);
   static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
+  static_assert(!BodyInfo<Body>::TABLES, "the stock body runs stock_actor_kernel<HEAD>");
+  static_assert(G % 4 == 0 && G <= 32, "a group's lanes sit on warp 0");
+  constexpr bool GELU2 = HEAD == HEAD_DDPG || HEAD == HEAD_DQN || HEAD == HEAD_SAC;
+  constexpr int O = offpolicy_out_rows(A, HEAD);
   constexpr int N_ENV = Body::N_STEP + Body::N_RESET;
   constexpr int N_HEAD_INJ = DISCRETE ? 2 : A;      // injected head rows
   constexpr int NZ = N_HEAD_INJ + N_ENV;
   constexpr int N_HEAD = DISCRETE ? 2 : 2 * A;      // internal head uniforms
-  constexpr int NB = (N_HEAD + N_ENV + 3) / 4;
-  constexpr bool TABLES = BodyInfo<Body>::TABLES;
-  constexpr int L = BodyInfo<Body>::S_LANE;
+  constexpr int NB = (N_HEAD + N_ENV + 3) / 4;      // Philox blocks per step
+  constexpr int AE = DISCRETE ? 1 : A;              // values of the env's action
 
-  extern __shared__ float smem[];
-  const int n_w = offpolicy_net_floats(S, A, D1, D2, HEAD);
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) smem[i] = flat[i];
-  const float* W1 = smem;
-  const float* b1 = W1 + D1 * S;
-  const float* W2 = b1 + D1;
-  const float* b2 = W2 + D2 * D1;
-  const float* Wo = b2 + D2;
-  const float* bo = Wo + A * D2;
-  const float* W4 = bo + A;  // the advantage head (HEAD_DQN_DUEL), ModSAC's std head
-  const float* b4 = W4 + (HEAD == HEAD_MODSAC ? A * D2 : D2);
-  float* xn = smem + n_w;    // (S, TE)
-  float* h1 = xn + S * TE;   // (D1, TE)
-  float* h2 = h1 + D1 * TE;  // (D2, TE)
-  float* out = h2 + D2 * TE; // (A + 1, TE), or (2A, TE) for the SAC heads
+  cm::cg::cluster_group cluster = cm::cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int grp = blockIdx.x / c;
+  const OffLayout Ly = off_layout<Body, HEAD>(D1, D2, c);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1s = sm + Ly.w1, *b1s = sm + Ly.b1, *w2s = sm + Ly.w2, *b2s = sm + Ly.b2;
+  float *wos = sm + Ly.wo, *bos = sm + Ly.bo, *xn = sm + Ly.xn, *h1 = sm + Ly.h1;
+  float *h2 = sm + Ly.h2, *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
+  float* scr = sm + Ly.scratch;
+  const int js1 = Ly.js1, js2 = Ly.js2, k2 = Ly.k2, j1 = rank * js1, j2 = rank * js2;
+  const int OP = Ly.op;
+  auto sync_group = [&]() {
+    if (c == 1) __syncthreads();
+    else cluster.sync();
+  };
+  cm::cluster_arrive();  // this block has started
 
-  const int e = threadIdx.x;
-  const int n = blockIdx.x * TE + e;
-  const bool owner = e < TE;
-  const bool live = owner && n < N;
-  int day = 0;   // the block's day (TABLES): its first lane's
-  if (TABLES) day = env_i[blockIdx.x * TE];
+  // the leaves: W1 (D1, S), b1, W2 (D2, D1), b2, then the head: Wo (A, D2)
+  // and bo (A) (ddpg, DQN), Wo (2A, D2) and bo (2A) (sac), plus W4 (1, D2)
+  // and b4 (dqn_duel) or W4 (A, D2) and b4 (A) (modsac): rows >= A of the
+  // head's output come from W4 (from Wo's second half for sac)
+  const float* W1 = flat;
+  const float* W2 = W1 + D1 * S + D1;
+  const float* Wo = W2 + D2 * D1 + D2;
+  const float* bo = Wo + (HEAD == HEAD_SAC ? 2 : 1) * A * D2;
+  const float* W4 = HEAD == HEAD_SAC ? Wo + A * D2 : bo + A;
+  const float* b4 = HEAD == HEAD_SAC ? bo + A : W4 + (O - A) * D2;
+  cm::load_rows<true>(W1, D1, S, j1, js1, 0, S, w1s, cm::ldk(S));
+  cm::load_vec<true>(W1 + D1 * S, D1, j1, js1, b1s);
+  cm::load_rows<true>(W2, D2, D1, j2, js2, 0, k2, w2s, cm::ldk(k2));
+  cm::load_vec<true>(W2 + D2 * D1, D2, j2, js2, b2s);
+  cm::load_rows<true>(Wo, A, D2, 0, A, j2, js2, wos, cm::ldk(js2));
+  cm::load_rows<true>(W4, O - A, D2, 0, OP - A, j2, js2, wos + A * cm::ldk(js2), cm::ldk(js2));
+  cm::cp_async_commit();
+  for (int i = threadIdx.x; i < OP; i += cm::THREADS)
+    bos[i] = i < A ? __ldg(bo + i) : (i < O ? __ldg(b4 + i - A) : 0.f);
+  for (int i = threadIdx.x; i < (Ly.s4 - S) * G; i += cm::THREADS) xn[S * G + i] = 0.f;
+
+  // warp 0 holds the env rows of the group's lanes (every block of the cluster)
+  const int e = threadIdx.x;  // the lane of a warp-0 thread
+  const bool w0 = threadIdx.x < G;
+  const int n = grp * G + (threadIdx.x & (G - 1));
+  const bool live = w0 && n < N;
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
@@ -1029,134 +1082,174 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   }
   uint2 key = make_uint2(0u, 0u);
   if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
-  __syncthreads();
+
+  // warp 0: the obs of step t into xn; rank 0 stores it
+  auto observe = [&](int t) {
+    float x[S];
+    body.obs(f, x);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      xn[s * G + e] = live ? x[s] : 0.f;
+      if (live && rank == 0) states_o[((size_t)t * N + n) * S + s] = x[s];
+    }
+  };
+  // threads from `first` on: step t's head words and env uniforms, drawn
+  // (Philox, counter (lane, step, j / 4, 0)) or copied from the noise rows
+  auto prepare = [&](int t, int first) {
+    const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
+    if (i0 < 0) return;
+    float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * G;
+    float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * G;
+    if (noise == nullptr) {
+      for (int i = i0; i < NB * G; i += nth) {
+        const int b = i / G, e2 = i % G;
+        const uint4 q = philox4x32_10(
+            make_uint4((uint32_t)(grp * G + e2), (uint32_t)t, (uint32_t)b, 0u), key);
+        const float w[4] = {uniform24(q.x), uniform24(q.y), uniform24(q.z), uniform24(q.w)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * b + k;
+          if (j < N_HEAD) hr[j * G + e2] = w[k];
+          else if (j < N_HEAD + N_ENV) ue[(j - N_HEAD) * G + e2] = w[k];
+        }
+      }
+    } else {
+      for (int i = i0; i < NZ * G; i += nth) {
+        const int r = i / G, e2 = i % G, n2 = grp * G + e2;
+        const float v = n2 < N ? noise[((size_t)t * NZ + r) * N + n2] : 0.f;
+        if (r < N_HEAD_INJ) hr[r * G + e2] = v;
+        else ue[(r - N_HEAD_INJ) * G + e2] = v;
+      }
+    }
+  };
+  if (w0 && H > 0) observe(0);
+  if (H > 0) prepare(0, 0);
+  cm::cp_async_wait<0>();
+  cm::cluster_wait();  // every block has started: h1 and head-row parts may be pushed
 
   for (int t = 0; t < H; ++t) {
-    if constexpr (TABLES) {  // the day's market rows, the same on every lane
-      for (int idx = threadIdx.x; idx < (S - L) * TE; idx += blockDim.x) {
-        const int r = L + idx / TE, e2 = idx % TE, n2 = blockIdx.x * TE + e2;
-        const float x = body.market(day, r);
-        xn[r * TE + e2] = n2 < N ? x : 0.f;
-        if (n2 < N) states_o[((size_t)t * N + n2) * S + r] = x;
+    __syncthreads();  // step t's obs and noise words (the weights at t = 0)
+    // ---- layer 1
+    cm::tile_dense<G>(w1s, cm::ldk(S), xn, Ly.s4, js1, scr, [&](int j, int m0, float4 v) {
+      const float b = b1s[j];
+      cm::store_cluster(cluster, c, h1, (j1 + j) * G + m0,
+                        make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                                    gelu_tanh(v.w + b)));
+    });
+    const float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * G;
+    if constexpr (!DISCRETE) {  // the head's normals: injected, or Box-Muller
+      for (int i = threadIdx.x; i < A * G; i += cm::THREADS) {
+        const int a = i / G, e2 = i % G;
+        hz[i] = noise != nullptr ? hr[i]
+                                 : sqrtf(-2.0f * logf(1.0f - hr[i])) *
+                                       cosf(TWO_PI_F * hr[(A + a) * G + e2]);
       }
     }
-    if (owner) {
-      float x[L];
-      body.obs(f, x);
-#pragma unroll
-      for (int s = 0; s < L; ++s) {
-        xn[s * TE + e] = live ? x[s] : 0.f;
-        if (live) states_o[((size_t)t * N + n) * S + s] = x[s];
-      }
+    sync_group();  // every block's rows of h1, in every block
+    // ---- layer 2 (the trunk l2, through GELU for the heads that take it)
+    cm::tile_dense<G>(w2s, cm::ldk(k2), h1, k2, js2, scr, [&](int j, int m0, float4 v) {
+      const float b = b2s[j];
+      *reinterpret_cast<float4*>(h2 + j * G + m0) =
+          GELU2 ? make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                              gelu_tanh(v.w + b))
+                : make_float4(v.x + b, v.y + b, v.z + b, v.w + b);
+    });
+    __syncthreads();
+    // ---- this block's part of the head rows
+    cm::tile_dense<G>(wos, cm::ldk(js2), h2, js2, OP, scr, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * OP + j) * G + m0, v);
+    });
+    sync_group();  // every block's parts of the head rows, in every block
+    for (int i = threadIdx.x; i < O * G; i += cm::THREADS) {
+      float v = outp[i];
+      for (int q = 1; q < c; ++q) v += outp[q * OP * G + i];
+      headv[i] = v + bos[i / G];
     }
     __syncthreads();
-    dense<true>(W1, b1, xn, h1, D1, S);
-    __syncthreads();
-    dense<HEAD == HEAD_DDPG || HEAD == HEAD_DQN || HEAD == HEAD_SAC>(W2, b2, h1, h2, D2, D1);
-    __syncthreads();
-    if (HEAD == HEAD_SAC) {
-      dense<false>(Wo, Wo + 2 * A * D2, h2, out, 2 * A, D2);  // [mean, log_std]
-    } else {
-      dense<false>(Wo, bo, h2, out, A, D2);
-      if (HEAD == HEAD_DQN_DUEL) dense<false>(W4, b4, h2, out + A * TE, 1, D2);
-      if (HEAD == HEAD_MODSAC) dense<false>(W4, b4, h2, out + A * TE, A, D2);
-    }
-    __syncthreads();
-    if (live) {
-      float head[N_HEAD], u_env[N_ENV > 0 ? N_ENV : 1];
-      if (noise != nullptr) {
-        const float* nz = noise + (size_t)t * NZ * N + n;
+    if (w0) {
+      if (live) {  // the head's action and the env step
+        const float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * G;
+        float u_env[N_ENV > 0 ? N_ENV : 1];
 #pragma unroll
-        for (int a = 0; a < N_HEAD_INJ; ++a) head[a] = nz[(size_t)a * N];
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = ue[k * G + e];
+        const size_t o = (size_t)t * N + n;
+        float env_a[AE];
+        if constexpr (DISCRETE) {
+          float mean = 0.f, adv = 0.f;
+          if (HEAD == HEAD_DQN_DUEL) {
 #pragma unroll
-        for (int k = 0; k < N_ENV; ++k) u_env[k] = nz[(size_t)(N_HEAD_INJ + k) * N];
-      } else {
-        float u[4 * NB];
+            for (int a = 0; a < A; ++a) mean += headv[a * G + e];
+            mean /= (float)A;
+            adv = headv[A * G + e];
+          }
+          float best = 0.f;
+          int greedy = 0;
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const uint4 r = philox4x32_10(
-              make_uint4((uint32_t)n, (uint32_t)t, (uint32_t)b, 0u), key);
-          u[4 * b + 0] = uniform24(r.x);
-          u[4 * b + 1] = uniform24(r.y);
-          u[4 * b + 2] = uniform24(r.z);
-          u[4 * b + 3] = uniform24(r.w);
-        }
+          for (int a = 0; a < A; ++a) {
+            float q = headv[a * G + e];
+            if (HEAD == HEAD_DQN_DUEL) q = q - mean + adv;
+            if (a == 0 || q > best) {  // strict: the first maximum wins a tie
+              best = q;
+              greedy = a;
+            }
+          }
+          const int rnd = min((int)floorf(hr[G + e] * (float)A), A - 1);
+          const int index = hr[e] < explore_rate ? rnd : greedy;
+          if (rank == 0) ((int*)actions_o)[o] = index;
+          env_a[0] = (float)index;
+        } else {
 #pragma unroll
-        for (int a = 0; a < N_HEAD; ++a) head[a] = u[a];
-#pragma unroll
-        for (int k = 0; k < N_ENV; ++k) u_env[k] = u[N_HEAD + k];
-      }
-      const size_t o = (size_t)t * N + n;
-      float env_a[DISCRETE ? 1 : A];
-      if constexpr (DISCRETE) {
-        float mean = 0.f, adv = 0.f;
-        if (HEAD == HEAD_DQN_DUEL) {
-#pragma unroll
-          for (int a = 0; a < A; ++a) mean += out[a * TE + e];
-          mean /= (float)A;
-          adv = out[A * TE + e];
-        }
-        float best = 0.f;
-        int greedy = 0;
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          float q = out[a * TE + e];
-          if (HEAD == HEAD_DQN_DUEL) q = q - mean + adv;
-          if (a == 0 || q > best) {  // strict: the first maximum wins a tie
-            best = q;
-            greedy = a;
+          for (int a = 0; a < A; ++a) {
+            const float z = hz[a * G + e];
+            float act;
+            if constexpr (SAC) {
+              const float log_std = clampf(headv[(A + a) * G + e], std_lo, std_hi);
+              act = tanhf(headv[a * G + e] + expf(log_std) * z);
+            } else {
+              act = clampf(tanhf(headv[a * G + e]) + noise_std * z, -1.0f, 1.0f);
+            }
+            if (rank == 0) ((float*)actions_o)[o * A + a] = act;
+            env_a[a] = act;
           }
         }
-        const int rnd = min((int)floorf(head[1] * (float)A), A - 1);
-        const int index = head[0] < explore_rate ? rnd : greedy;
-        ((int*)actions_o)[o] = index;
-        env_a[0] = (float)index;
-      } else {
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          const float z = noise != nullptr
-                              ? head[a]
-                              : sqrtf(-2.0f * logf(1.0f - head[a])) *
-                                    cosf(TWO_PI_F * head[A + a]);
-          float act;
-          if constexpr (SAC) {
-            const float log_std = clampf(out[(A + a) * TE + e], std_lo, std_hi);
-            act = tanhf(out[a * TE + e] + expf(log_std) * z);
-          } else {
-            act = clampf(tanhf(out[a * TE + e]) + noise_std * z, -1.0f, 1.0f);
-          }
-          ((float*)actions_o)[o * A + a] = act;
-          env_a[a] = act;
-        }
-      }
-      float reward;
-      bool terminal, trunc;
-      if constexpr (TABLES) {
-        body.step(f, tc, day, env_a, reward, terminal, trunc);
-      } else {
+        float reward;
+        bool terminal, trunc;
         body.step(f, tc, env_a, u_env, reward, terminal, trunc);
+        if (rank == 0) {
+          rew_o[o] = reward * reward_scale;
+          term_o[o] = terminal ? 1.0f : 0.0f;
+          trunc_o[o] = trunc ? 1.0f : 0.0f;
+        }
+        if (terminal || trunc) {  // masked reset from the reset uniforms
+          body.reset(f, u_env + Body::N_STEP);
+          tc = 0;
+        }
       }
-      rew_o[o] = reward * reward_scale;
-      term_o[o] = terminal ? 1.0f : 0.0f;
-      trunc_o[o] = trunc ? 1.0f : 0.0f;
-      if (terminal || trunc) {
-        body.reset(f, u_env + Body::N_STEP);
-        tc = 0;
-      }
+      if (t + 1 < H) observe(t + 1);  // the next obs tile
+    } else if (t + 1 < H) {
+      prepare(t + 1, 32);  // the other warps, meanwhile
     }
-    if constexpr (TABLES) day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
-    __syncthreads();
   }
-  if (live) {
+  if (rank == 0 && live) {  // the final env rows
 #pragma unroll
     for (int k = 0; k < F; ++k) env_f_o[(size_t)k * N + n] = f[k];
     env_i_o[n] = tc;
   }
 }
 
-__host__ __device__ inline int offpolicy_smem(int S, int A, int D1, int D2, int head) {
-  return (int)sizeof(float) * (offpolicy_net_floats(S, A, D1, D2, head) +
-                               (S + D1 + D2 + offpolicy_out_rows(A, head)) * TE);
+template <class Body, int HEAD>
+int offpolicy_smem(int D1, int D2, int c) {
+  return (int)sizeof(float) * off_layout<Body, HEAD>(D1, D2, c).floats;
+}
+
+// The cluster size for N lanes (pick_cluster): one block an SM first, as a
+// step's latency, not the card's throughput, sets the time (two blocks on
+// an SM measured up to 1.8x slower).
+template <class Body, int HEAD>
+int offpolicy_cluster(int N, int D1, int D2, int cluster) {
+  return pick_cluster<offpolicy_rollout_kernel<Body, HEAD>>(
+      (N + OFF_LANES - 1) / OFF_LANES, cluster,
+      [=](int c) { return offpolicy_smem<Body, HEAD>(D1, D2, c); }, true);
 }
 
 template <class Body, int HEAD>
@@ -1164,147 +1257,332 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
                      int H, int D1, int D2, float reward_scale, float noise_std,
-                     float explore_rate, float std_lo, float std_hi, cudaStream_t stream,
-                     const Body body = Body{}) {
-  const int smem_bytes = offpolicy_smem(Body::S, Body::A, D1, D2, HEAD);
-  cudaError_t err = cudaFuncSetAttribute(offpolicy_rollout_kernel<Body, HEAD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
+                     float explore_rate, float std_lo, float std_hi, int cluster,
+                     cudaStream_t stream) {
+  if (N == 0) return 0;
+  const int c = offpolicy_cluster<Body, HEAD>(N, D1, D2, cluster);
+  if (c == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  }
+  const int smem = offpolicy_smem<Body, HEAD>(D1, D2, c);
+  const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + TE - 1) / TE;
-  offpolicy_rollout_kernel<Body, HEAD><<<blocks, THREADS, smem_bytes, stream>>>(
-      body, (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
+  const int groups = (N + OFF_LANES - 1) / OFF_LANES;
+  return (int)cm::launch_clusters(
+      offpolicy_rollout_kernel<Body, HEAD>, groups * c, c, smem, stream, Body{},
+      (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
       (const int*)seed, (float*)states, actions, (float*)rew, (float*)term, (float*)trunc,
       (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate,
       std_lo, std_hi);
-  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ critic pass
-// The stock body's second kernel: the critic over the rollout's stored
-// (H, S, N) states, val = mlp(cri, (x - avg) / (std + 1e-4)), the function
-// fused_rollout_kernel computes in-loop for the other bodies.
-// Nothing in it is sequential, so it runs as a chain of tiled products over
-// the M = H N samples: one block per SM holds the critic, transposed to
-// (K, J) per layer, in shared memory and loops over tiles of CM = 64
-// samples, so the weights are loaded once per block, not once per tile.  In
-// a layer each thread computes CR x CC = 8 x 4 outputs (rows x samples) from
-// two float4 weight reads and one float4 activation read per k: 32 FMA per 3
-// shared-memory reads, where `dense` (1 lane = 1 sample) does 8 per 9.
-// Bound: operations, 2 (S D1 + D1 D2 + D2) FLOP per sample.
-constexpr int CM = 64, CR = 8, CC = 4;
-constexpr int C_COLS = CM / CC;            // threads across the samples of a tile
-constexpr int C_ROWS = THREADS / C_COLS;   // threads across a layer's rows
-static_assert(THREADS % CM == 0 && CM <= THREADS, "a thread loads one sample of a tile");
+// The stock body's second kernel (replaces the critic half of
+// elegantrl_tpu/ops/pallas_rollout.py:600 _make_kernel with make_stock_body
+// :451, called at :829): val = mlp(cri, (x - avg) / (std + 1e-4)) over the
+// rollout's stored (H, S, N) states.
+//
+// Precondition: the lanes of a group of TE = 32 (n / 32 equal) share the
+// step's market rows (rows S_LANE .. S - 1): every env starts at day 0 and
+// ends at the shared last day, so the stock rollouts' stored states always
+// meet it (the kernels and the plain body read the day of a group's first
+// lane, ops/fused_rollout.py:block_day).  W1's 135 market columns are
+// applied once per (step, group), to the group's first lane, and each
+// sample applies only its 16 lane columns, layer 2 and the value head.
+//
+// Bound: operations, 2 (16 D1 + D1 D2 + D2) FLOP a sample plus 2 (135 D1)
+// a (step, group); on the tensor cores in split-3xTF32, three TF32 products
+// of the layers' FLOP.
+//
+// Design: a GEMM over M = H N samples on the tensor cores.  A persistent
+// block (one or two an SM) takes tiles of CT = 128 samples of one step
+// (lanes n0 .. n0 + 127, four groups; 64 samples, two groups, where the
+// first width is too wide for the 128-sample h1 tile: critic_tile):
+// - the tile's lane rows, normalised, into shared memory (samples x 16),
+//   and each group's normalised market rows (from its first lane);
+// - W1's market columns times each group's rows (8 threads a row of W1,
+//   four groups each, summed in a fixed tree), once per (step, group);
+// - layer 1's lane columns and layer 2 with mma.sync m16n8k8 in TF32, each
+//   f32 operand split into a TF32 high part and a TF32 residual and three
+//   products summed in f32 (lo x hi, hi x lo, hi x hi), which keeps f32
+//   accuracy; 8 warps as CT / 32 (samples) x 256 / CT (features), a warp
+//   32 samples of a 64-feature chunk;
+// - W2 is streamed in K-tiles of 64 features x 32 inputs through a
+//   two-stage cp.async ring (the next tile's first stage in flight during
+//   the tile's own first layer); W1's lane columns, the biases and the
+//   value head stay in shared memory;
+// - layer 2's epilogue applies GELU and the value head's weights and sums
+//   each sample's row in a fixed order, so a launch is deterministic.
+// Widths are padded with zeros to multiples of 64 (a GELU of 0 is 0).
+constexpr int CNC = 64;   // features a chunk of a product's outputs
+constexpr int CKT = 32;   // inputs a K-tile of W2
+constexpr int CLD = StockBody::S_LANE + 4;  // row stride of the lane rows and W1's lane columns
+constexpr int CKLD = CKT + 4;               // row stride of a W2 K-tile
 
-// floats of the critic's leaves in shared memory, padded to a float4
-__host__ __device__ inline int critic_weight_floats(int S, int D1, int D2) {
-  return (S * D1 + D1 + D1 * D2 + D2 + D2 + 1 + 3) / 4 * 4;
+__host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
+
+// Shared memory of one critic-pass block (floats), tiles of CT samples: W1's
+// lane columns (D1p rows), b1, b2 and the value head's weights, the W2
+// ring, the tile's lane rows, the groups' market rows (the CT / TE groups'
+// values of a row side by side) and market products, h1 (CT x D1p) and the
+// value partials of the feature warps.
+struct CriticLayout {
+  int d1p, d2p, w1l, b1, b2, wo, ring, xl, xm, mk, h1, vpart, floats;
+  __host__ __device__ CriticLayout(int D1, int D2, int CT) {
+    const int NM = StockBody::S - StockBody::S_LANE, NQ = CT / TE;
+    d1p = round64(D1);
+    d2p = round64(D2);
+    int o = 0;
+    w1l = o; o += d1p * CLD;
+    b1 = o; o += d1p;
+    b2 = o; o += d2p;
+    wo = o; o += d2p;
+    ring = o; o += 2 * CNC * CKLD;
+    xl = o; o += CT * CLD;
+    xm = o; o += cm::round4(NQ * NM);
+    mk = o; o += NQ * d1p;
+    h1 = o; o += CT * (d1p + 4);
+    vpart = o; o += 8 * TE;
+    floats = o;
+  }
+};
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x as a TF32 high part and the TF32 residual
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// the weights, then the (S, CM) input tile (the second layer's output in
-// its place) and the (D1, CM) first-layer tile
-__host__ __device__ inline int critic_smem(int S, int D1, int D2) {
-  return (int)sizeof(float) *
-         (critic_weight_floats(S, D1, D2) + ((S > D2 ? S : D2) + D1) * CM);
-}
-
-// dst[k * J + j] = src[j * K + k]: a row-major (J, K) leaf, transposed
-__device__ void load_transposed(const float* __restrict__ src, float* dst, int J, int K) {
-  for (int i = threadIdx.x; i < J * K; i += blockDim.x) {
-    const int k = i / J, j = i - k * J;
-    dst[i] = __ldg(src + (size_t)j * K + k);
+// acc[mt][nt] += X[m0 + 16 mt .. ][k0 .. k0 + 8) W[n0 + 8 nt ..][k0 .. k0 + 8)^T
+// in split-3xTF32 for a warp's 32 samples x 8 NT features: X is (samples,
+// inputs) with row stride ldx, W (features, inputs) with row stride ldw;
+// the mma.sync m16n8k8 fragments (g = lane / 4, q = lane % 4): A (g, q),
+// (g + 8, q), (g, q + 4), (g + 8, q + 4); B (k = q, n = g), (q + 4, g).
+template <int NT>
+__device__ __forceinline__ void mma_k8(float (&acc)[2][NT][4], const float* X, int ldx,
+                                       const float* W, int ldw, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* x = X + (16 * mt + g) * ldx + k0 + q;
+    split_tf32(x[0], ah[mt][0], al[mt][0]);
+    split_tf32(x[8 * ldx], ah[mt][1], al[mt][1]);
+    split_tf32(x[4], ah[mt][2], al[mt][2]);
+    split_tf32(x[8 * ldx + 4], ah[mt][3], al[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float* w = W + (8 * nt + g) * ldw + k0 + q;
+    uint32_t bh[2], bl[2];
+    split_tf32(w[0], bh[0], bl[0]);
+    split_tf32(w[4], bh[1], bl[1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      mma_tf32(acc[mt][nt], al[mt], bh);
+      mma_tf32(acc[mt][nt], ah[mt], bl);
+      mma_tf32(acc[mt][nt], ah[mt], bh);
+    }
   }
 }
 
-// out[j][m] = gelu(sum_k WT[k][j] in[k][m] + b[j]) for j < J, m < CM: the
-// thread's rows j0 .. j0 + CR - 1 (J a multiple of CR) and samples
-// c0 .. c0 + CC - 1
-__device__ void dense_tile(const float* WT, const float* b, const float* in, float* out,
-                           int J, int K) {
-  const int c0 = (threadIdx.x % C_COLS) * CC;
-  for (int j0 = (threadIdx.x / C_COLS) * CR; j0 < J; j0 += C_ROWS * CR) {
-    float acc[CR][CC];
-#pragma unroll
-    for (int r = 0; r < CR; ++r)
-#pragma unroll
-      for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(in + k * CM + c0);
-      const float4 wa = *reinterpret_cast<const float4*>(WT + k * J + j0);
-      const float4 wb = *reinterpret_cast<const float4*>(WT + k * J + j0 + 4);
-      const float w[CR] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-      const float xs[CC] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int r = 0; r < CR; ++r)
-#pragma unroll
-        for (int c = 0; c < CC; ++c) acc[r][c] = fmaf(w[r], xs[c], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < CR; ++r) {
-      const float bj = b[j0 + r];
-      float4 v;
-      v.x = gelu_tanh(acc[r][0] + bj);
-      v.y = gelu_tanh(acc[r][1] + bj);
-      v.z = gelu_tanh(acc[r][2] + bj);
-      v.w = gelu_tanh(acc[r][3] + bj);
-      *reinterpret_cast<float4*>(out + (j0 + r) * CM + c0) = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+template <int CT>
+__global__ void __launch_bounds__(cm::THREADS, 2)
 critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict__ norm_avg,
                      const float* __restrict__ norm_std, const float* __restrict__ states,
-                     float* __restrict__ val, int S, int N, int H, int D1, int D2) {
+                     float* __restrict__ val, int N, int H, int D1, int D2) {
+  constexpr int S = StockBody::S, L = StockBody::S_LANE, NM = S - L, NQ = CT / TE;
+  constexpr int WM = CT / 32, WN = 8 / WM;   // warps across the samples; the features
+  constexpr int FW = CNC / WN, NT = FW / 8;  // a warp's features of a chunk, n8 tiles
+  const CriticLayout Ly(D1, D2, CT);
+  const int d1p = Ly.d1p, d2p = Ly.d2p, ldh = d1p + 4;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  // the flat leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (1, D2), bo
-  float* W1T = smem;                 // (S, D1)
-  float* b1 = W1T + S * D1;
-  float* W2T = b1 + D1;              // (D1, D2)
-  float* b2 = W2T + D1 * D2;
-  float* wo = b2 + D2;
-  float* xn = smem + critic_weight_floats(S, D1, D2);   // (S, CM), then h2 (D2, CM)
-  float* h1 = xn + (S > D2 ? S : D2) * CM;              // (D1, CM)
-  load_transposed(cri_flat, W1T, D1, S);
-  const float* rest = cri_flat + D1 * S;
-  for (int i = threadIdx.x; i < D1; i += blockDim.x) b1[i] = rest[i];
-  load_transposed(rest + D1, W2T, D2, D1);
-  rest += D1 + D2 * D1;
-  for (int i = threadIdx.x; i < 2 * D2 + 1; i += blockDim.x) b2[i] = rest[i];  // b2, Wo, bo
-  const long long M = (long long)H * N;
-  // THREADS is a multiple of CM, so a thread loads one sample's rows of a tile
-  const int c = threadIdx.x % CM;
-  for (long long m0 = (long long)blockIdx.x * CM; m0 < M; m0 += (long long)gridDim.x * CM) {
-    __syncthreads();   // the weights, or the previous tile's reads of xn
-    const long long m = m0 + c;
-    const long long t = m / N;
-    const float* x = states + (t * S) * N + (m - t * N);   // row s at x[s * N]
-    for (int s = threadIdx.x / CM; s < S; s += THREADS / CM)
-      xn[s * CM + c] = m < M ? (x[(size_t)s * N] - __ldg(norm_avg + s)) /
-                                   (__ldg(norm_std + s) + 1e-4f)
-                             : 0.f;
+  float* sm = reinterpret_cast<float*>(smem4);
+  float *w1l = sm + Ly.w1l, *b1 = sm + Ly.b1, *b2 = sm + Ly.b2, *wo = sm + Ly.wo;
+  float *ring = sm + Ly.ring, *xl = sm + Ly.xl, *xm = sm + Ly.xm, *mk = sm + Ly.mk;
+  float *h1 = sm + Ly.h1, *vpart = sm + Ly.vpart;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;  // the warp's 32 samples and FW features of a chunk
+
+  // the leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (1, D2), bo
+  const float* W1 = cri_flat;
+  const float* W2 = W1 + D1 * S + D1;
+  const float* Wo = W2 + D2 * D1 + D2;
+  const float bo = __ldg(Wo + D2);
+  cm::load_rows<false>(W1, D1, S, 0, d1p, 0, L, w1l, CLD);
+  cm::load_vec<false>(W1 + D1 * S, D1, 0, d1p, b1);
+  cm::load_vec<false>(W2 + D2 * D1, D2, 0, d2p, b2);
+  cm::load_vec<false>(Wo, D2, 0, d2p, wo);
+
+  const int per_step = (N + CT - 1) / CT;
+  const long long tiles = (long long)H * per_step;
+  const int kts = d1p / CKT, stages = (d2p / CNC) * kts;  // W2 stages a tile
+  // W2's stage s of a tile (chunk s / kts, K-tile s % kts) into ring slot b
+  auto issue = [&](int s, int b) {
+    cm::load_rows<true>(W2, D2, D1, (s / kts) * CNC, CNC, (s % kts) * CKT, CKT,
+                        ring + b * CNC * CKLD, CKLD);
+    cm::cp_async_commit();
+  };
+  int slot = 0;  // the ring slot of the next stage to compute
+  if ((long long)blockIdx.x < tiles) issue(0, 0);
+
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t = (int)(tile / per_step), n0 = (int)(tile % per_step) * CT;
+    const bool more = tile + gridDim.x < tiles;
+    __syncthreads();  // the previous tile's reads of xl, xm, mk and h1; the weights
+    // ---- the tile's normalised lane rows, and each group's market rows
+    for (int i = threadIdx.x; i < L * CT; i += cm::THREADS) {
+      const int k = i / CT, m = i % CT, n = n0 + m;
+      xl[m * CLD + k] = n < N ? (states[((size_t)t * S + k) * N + n] - __ldg(norm_avg + k)) /
+                                    (__ldg(norm_std + k) + 1e-4f)
+                              : 0.f;
+    }
+    for (int i = threadIdx.x; i < NQ * NM; i += cm::THREADS) {
+      const int r = i / NQ, grp = i % NQ, n = n0 + grp * TE;
+      xm[i] = n < N ? (states[((size_t)t * S + L + r) * N + n] - __ldg(norm_avg + L + r)) /
+                          (__ldg(norm_std + L + r) + 1e-4f)
+                    : 0.f;
+    }
     __syncthreads();
-    dense_tile(W1T, b1, xn, h1, D1, S);
+    // ---- W1's market columns times each group's rows: 8 threads a row,
+    // each its 17 columns for the NQ groups, then a fixed tree
+    for (int i = threadIdx.x; i < d1p * 8; i += cm::THREADS) {
+      const int j = i >> 3, p = i & 7;
+      float v[NQ];
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) v[k] = 0.f;
+      if (j < D1) {
+        const float* w = W1 + (size_t)j * S + L;
+#pragma unroll
+        for (int u = 0; u < (NM + 7) / 8; ++u) {
+          const int r = p + 8 * u;
+          if (r < NM) {
+            const float wv = __ldg(w + r);
+#pragma unroll
+            for (int k = 0; k < NQ; ++k) v[k] = fmaf(wv, xm[r * NQ + k], v[k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) {
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 4);
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 2);
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 1);
+      }
+      if (p == 0) {
+#pragma unroll
+        for (int k = 0; k < NQ; ++k) mk[k * d1p + j] = v[k];
+      }
+    }
     __syncthreads();
-    dense_tile(W2T, b2, h1, xn, D2, D1);   // h2 over the input tile
+    // ---- layer 1: the lane columns on the tensor cores, plus the group's
+    // market product and the bias, through GELU into h1 (samples x D1p)
+    for (int n0c = 0; n0c < d1p; n0c += CNC) {
+      float acc[2][NT][4] = {};
+      const float* X = xl + (32 * wm) * CLD;
+      const float* W = w1l + (n0c + FW * wn) * CLD;
+      mma_k8(acc, X, CLD, W, CLD, 0);
+      mma_k8(acc, X, CLD, W, CLD, 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = 32 * wm + 16 * mt + g + 8 * h, j = n0c + FW * wn + 8 * nt + 2 * q;
+            const float* mkq = mk + (m / TE) * d1p;
+            float2 out;
+            out.x = gelu_tanh((acc[mt][nt][2 * h] + mkq[j]) + b1[j]);
+            out.y = gelu_tanh((acc[mt][nt][2 * h + 1] + mkq[j + 1]) + b1[j + 1]);
+            *reinterpret_cast<float2*>(h1 + m * ldh + j) = out;
+          }
+    }
+    // ---- layer 2 over the W2 ring, GELU and the value head's weights
+    float vrow[2][2] = {};  // this thread's samples (mt, h): its features' terms
+    int s = 0;
+    for (int chunk = 0; chunk < d2p / CNC; ++chunk) {
+      float acc[2][NT][4] = {};
+      for (int kt = 0; kt < kts; ++kt, ++s) {
+        if (s + 1 < stages) issue(s + 1, slot ^ 1);
+        else if (more) issue(0, slot ^ 1);  // the next tile's first stage
+        if (s + 1 < stages || more) cm::cp_async_wait<1>();
+        else cm::cp_async_wait<0>();
+        __syncthreads();  // stage s in its slot; h1 at s = 0
+        const float* X = h1 + (32 * wm) * ldh + kt * CKT;
+        const float* W = ring + slot * CNC * CKLD + (FW * wn) * CKLD;
+#pragma unroll
+        for (int k8 = 0; k8 < CKT; k8 += 8) mma_k8(acc, X, ldh, W, CKLD, k8);
+        __syncthreads();  // the slot is free for stage s + 2
+        slot ^= 1;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = chunk * CNC + FW * wn + 8 * nt + 2 * q;
+            vrow[mt][h] = fmaf(wo[j], gelu_tanh(acc[mt][nt][2 * h] + b2[j]), vrow[mt][h]);
+            vrow[mt][h] =
+                fmaf(wo[j + 1], gelu_tanh(acc[mt][nt][2 * h + 1] + b2[j + 1]), vrow[mt][h]);
+          }
+    }
+    // a sample's terms: the 4 threads of its row (fixed tree), then the WN
+    // feature warps in order, plus the bias
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = vrow[mt][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (q == 0) vpart[wn * CT + 32 * wm + 16 * mt + g + 8 * h] = v;
+      }
     __syncthreads();
-    if (threadIdx.x < CM && m0 + threadIdx.x < M) {
-      float v = wo[D2];
-      for (int k = 0; k < D2; ++k) v = fmaf(wo[k], xn[k * CM + threadIdx.x], v);
-      val[m0 + threadIdx.x] = v;
+    for (int m = threadIdx.x; m < CT; m += cm::THREADS) {
+      float v = vpart[m];
+      for (int w = 1; w < WN; ++w) v += vpart[w * CT + m];
+      if (n0 + m < N) val[(size_t)t * N + n0 + m] = v + bo;
     }
   }
+}
+
+// The critic pass's tile: 128 samples where its layout fits a block, else 64
+// (a first width past 320).
+constexpr int SMEM_BLOCK = 232448;
+inline int critic_tile(int D1, int D2) {
+  return (int)sizeof(float) * CriticLayout(D1, D2, 128).floats <= SMEM_BLOCK ? 128 : 64;
+}
+int critic_smem(int D1, int D2) {
+  return (int)sizeof(float) * CriticLayout(D1, D2, critic_tile(D1, D2)).floats;
 }
 
 // ------------------------------------------------- K4: the stock actor
-// The on-policy stock rollout's actor kernel (replaces the actor half of
-// pallas_rollout.py:_make_kernel :600 with make_stock_body :451; the critic
-// runs afterwards in critic_values_kernel).  The function is that of
+// The on-policy stock rollout's actor kernel (HEAD_PPO: replaces the actor
+// half of pallas_rollout.py:_make_kernel :600 with make_stock_body :451; the
+// critic runs afterwards in critic_values_kernel).  The function is that of
 // fused_rollout_kernel<StockBody> without the critic: the same outputs, the
-// same Philox bits, the same trade loop with its _rn intrinsics.
+// same Philox bits, the same trade loop with its _rn intrinsics.  With
+// HEAD_DDPG, HEAD_SAC or HEAD_MODSAC it is the off-policy exploration
+// rollout on the stock body (replaces _make_offpolicy_kernel :1006 with
+// make_stock_body): no normalisation, no logprob, the head's rule of
+// offpolicy_rollout_kernel, the outputs in the replay buffer's (H, N, dim)
+// layout; the noise (A normals or 2A head uniforms, then the reset's) is
+// the same.
 //
 // Bound: operations.  The work the function needs per step and group of
 // TE = 32 lanes is the actor's per-lane rows, 2 TE (L D1 + D1 D2 + D2 A)
@@ -1353,7 +1631,8 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
 struct StockActorLayout {
   int js1, js2, k2, w1l, b1, w2, b2, wo, bo, stdv, xm, msm, pnext, xraw, xl, h1, h2, outp, ubuf,
       zbuf, ea, scratch, floats;
-  __host__ __device__ StockActorLayout(int D1, int D2, int c) {
+  // OP: the head's output rows rounded to 4 (A, or 2A for the SAC heads)
+  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP) {
     constexpr int L = StockBody::S_LANE, AP = cm::round4(StockBody::A);
     js1 = cm::slice(D1, c);
     js2 = cm::slice(D2, c);
@@ -1363,8 +1642,8 @@ struct StockActorLayout {
     b1 = o; o += js1;
     w2 = o; o += js2 * cm::ldk(k2);
     b2 = o; o += js2;
-    wo = o; o += AP * cm::ldk(js2);
-    bo = o; o += AP;
+    wo = o; o += OP * cm::ldk(js2);
+    bo = o; o += OP;
     stdv = o; o += AP;
     xm = o; o += cm::round4(StockBody::S - L);
     msm = o; o += js1;
@@ -1373,7 +1652,7 @@ struct StockActorLayout {
     xl = o; o += L * TE;
     h1 = o; o += k2 * TE;
     h2 = o; o += js2 * TE;
-    outp = o; o += c * AP * TE;
+    outp = o; o += c * OP * TE;
     ubuf = o; o += 32 * TE;
     zbuf = o; o += AP * TE;
     ea = o; o += AP * TE;
@@ -1382,6 +1661,12 @@ struct StockActorLayout {
   }
 };
 
+template <int HEAD>
+__host__ __device__ constexpr int stock_out_rows() {
+  return cm::round4(sac_head(HEAD) ? 2 * StockBody::A : StockBody::A);
+}
+
+template <int HEAD>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    const float* __restrict__ norm_avg, const float* __restrict__ norm_std,
@@ -1391,9 +1676,12 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    float* __restrict__ logp_o, float* __restrict__ rew_o,
                    float* __restrict__ term_o, float* __restrict__ trunc_o,
                    float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N, int H, int D1,
-                   int D2, float reward_scale) {
+                   int D2, float reward_scale, float noise_std, float std_lo, float std_hi) {
   constexpr int S = StockBody::S, A = StockBody::A, F = StockBody::F, NS = StockBody::NS;
   constexpr int L = StockBody::S_LANE, NM = S - L, AP = cm::round4(A), NP = cm::round4(NS);
+  constexpr bool ON = HEAD == HEAD_PPO;              // the on-policy head
+  constexpr int OP = stock_out_rows<HEAD>();         // head rows, rounded to 4
+  static_assert(ON || HEAD == HEAD_DDPG || sac_head(HEAD), "a continuous head");
   constexpr int N_ENV = StockBody::N_RESET;           // no step uniforms
   constexpr int NZ = A + N_ENV;                       // injected rows
   constexpr int N_HEAD = 2 * A;                       // head uniforms: words 0 .. 29
@@ -1404,7 +1692,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const StockActorLayout Ly(D1, D2, c);
+  const StockActorLayout Ly(D1, D2, c, OP);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float *w1l = sm + Ly.w1l, *b1s = sm + Ly.b1, *w2s = sm + Ly.w2, *b2s = sm + Ly.b2;
@@ -1415,7 +1703,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   const int js1 = Ly.js1, js2 = Ly.js2, j1 = rank * js1, j2 = rank * js2;
   cm::cluster_arrive();  // this block has started
 
-  // the actor's leaves: W1 (D1, S), b1, W2 (D2, D1), b2, Wo (A, D2), bo, std_log
+  // the actor's leaves: W1 (D1, S), b1, W2 (D2, D1), b2, then the head: Wo
+  // (A, D2), bo, std_log (on-policy); Wo (A, D2), bo (ddpg); Wo (2A, D2),
+  // bo (2A) (sac); Wo (A, D2), bo, Ws (A, D2), bs (modsac)
   const float* W1 = act_flat;
   const float* W2 = W1 + D1 * S + D1;
   const float* Wo = W2 + D2 * D1 + D2;
@@ -1424,9 +1714,21 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   cm::load_vec<false>(W1 + D1 * S, D1, j1, js1, b1s);
   cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, w2s, cm::ldk(Ly.k2));
   cm::load_vec<false>(W2 + D2 * D1, D2, j2, js2, b2s);
-  cm::load_rows<false>(Wo, A, D2, 0, AP, j2, js2, wos, cm::ldk(js2));
-  cm::load_vec<false>(Wo + A * D2, A, 0, AP, bos);
-  for (int a = threadIdx.x; a < AP; a += blockDim.x) stdv[a] = a < A ? expf(std_log[a]) : 0.f;
+  if constexpr (HEAD == HEAD_SAC) {
+    cm::load_rows<false>(Wo, 2 * A, D2, 0, OP, j2, js2, wos, cm::ldk(js2));
+    cm::load_vec<false>(Wo + 2 * A * D2, 2 * A, 0, OP, bos);
+  } else if constexpr (HEAD == HEAD_MODSAC) {
+    const float* Ws = Wo + A * D2 + A;
+    cm::load_rows<false>(Wo, A, D2, 0, A, j2, js2, wos, cm::ldk(js2));
+    cm::load_rows<false>(Ws, A, D2, 0, OP - A, j2, js2, wos + A * cm::ldk(js2), cm::ldk(js2));
+    cm::load_vec<false>(Wo + A * D2, A, 0, A, bos);
+    cm::load_vec<false>(Ws + A * D2, A, 0, OP - A, bos + A);
+  } else {
+    cm::load_rows<false>(Wo, A, D2, 0, AP, j2, js2, wos, cm::ldk(js2));
+    cm::load_vec<false>(Wo + A * D2, A, 0, AP, bos);
+  }
+  if constexpr (ON)
+    for (int a = threadIdx.x; a < AP; a += blockDim.x) stdv[a] = a < A ? expf(std_log[a]) : 0.f;
 
   // warp 0 holds the env rows of the group's lanes (every block of the cluster)
   const int e = threadIdx.x;  // the lane of a warp-0 thread
@@ -1446,7 +1748,8 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       tc = env_i[n];
     }
 #pragma unroll
-    for (int a = 0; a < A; ++a) log_std_sum += logf(expf(std_log[a]));
+    if constexpr (ON)
+      for (int a = 0; a < A; ++a) log_std_sum += logf(expf(std_log[a]));
   }
   uint2 key = make_uint2(0u, 0u);
   if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
@@ -1456,6 +1759,14 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
 #pragma unroll
     for (int s = 0; s < L; ++s) xraw[s * TE + e] = f[s];
   };
+  // the obs row's address in the states: (H, S, N) on-policy, (H, N, S) off
+  auto state_at = [&](int t, int r, int n2) -> float* {
+    return ON ? states_o + ((size_t)t * S + r) * N + n2 : states_o + ((size_t)t * N + n2) * S + r;
+  };
+  // the normalisation of obs row r (on-policy only)
+  auto normalise = [&](int r, float x) {
+    return ON ? (x - __ldg(norm_avg + r)) / (__ldg(norm_std + r) + 1e-4f) : x;
+  };
   // threads from `first` on, for step t on day d: the normalised market rows
   // (stored too, rows r = rank mod c), the next day's close prices and the
   // head's uniforms (internal noise)
@@ -1463,13 +1774,13 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
     const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
     if (i0 < 0) return;
     for (int r = i0; r < NM; r += nth)
-      xm[r] = (body.market(d, L + r) - __ldg(norm_avg + L + r)) / (__ldg(norm_std + L + r) + 1e-4f);
+      xm[r] = normalise(L + r, body.market(d, L + r));
     for (int k = i0; k < NS; k += nth)
       pnext[(t & 1) * NP + k] = __ldg(body.p.close + (size_t)(d + 1) * NS + k);
     const int mine = (NM - rank + c - 1) / c;
     for (int i = i0; i < mine * TE; i += nth) {
       const int r = L + rank + c * (i / TE), n2 = grp * TE + i % TE;
-      if (n2 < N) states_o[((size_t)t * S + r) * N + n2] = body.market(d, r);
+      if (n2 < N) *state_at(t, r, n2) = body.market(d, r);
     }
     if (noise == nullptr) {
       for (int i = i0; i < HB * TE; i += nth) {
@@ -1517,8 +1828,8 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       if (i < L * TE) {
         const int s2 = i / TE;
         const float x = StockBody::obs_row(s2, xraw[i]);
-        xl[i] = n2 < N ? (x - __ldg(norm_avg + s2)) / (__ldg(norm_std + s2) + 1e-4f) : 0.f;
-        if (rank == 0 && n2 < N) states_o[((size_t)t * S + s2) * N + n2] = x;
+        xl[i] = n2 < N ? normalise(s2, x) : 0.f;
+        if (rank == 0 && n2 < N) *state_at(t, s2, n2) = x;
       } else {
         const int a = i / TE - L;
         float z = 0.f;
@@ -1542,21 +1853,37 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
     cm::tile_dense<TE>(w2s, cm::ldk(Ly.k2), h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
       const float b = b2s[j];
       *reinterpret_cast<float4*>(h2 + j * TE + m0) =
-          make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
-                      gelu_tanh(v.w + b));
+          HEAD == HEAD_MODSAC  // ModSAC's heads read the raw trunk
+              ? make_float4(v.x + b, v.y + b, v.z + b, v.w + b)
+              : make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                            gelu_tanh(v.w + b));
     });
     __syncthreads();
-    cm::tile_dense<TE>(wos, cm::ldk(js2), h2, js2, AP, scratch, [&](int j, int m0, float4 v) {
-      cm::store_cluster(cluster, c, outp, (rank * AP + j) * TE + m0, v);
+    cm::tile_dense<TE>(wos, cm::ldk(js2), h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * OP + j) * TE + m0, v);
     });
-    cluster.sync();  // every block's part of the mean, in every block
+    cluster.sync();  // every block's part of the head rows, in every block
     for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
       const int a = i / TE, n2 = grp * TE + i % TE;
       float v = outp[i];
-      for (int q = 1; q < c; ++q) v += outp[q * AP * TE + i];
-      const float action = (v + bos[a]) + stdv[a] * zbuf[i];
-      ea[i] = tanhf(action);
-      if (rank == 0 && n2 < N) actions_o[((size_t)t * A + a) * N + n2] = action;
+      for (int q = 1; q < c; ++q) v += outp[q * OP * TE + i];
+      if constexpr (ON) {
+        const float action = (v + bos[a]) + stdv[a] * zbuf[i];
+        ea[i] = tanhf(action);
+        if (rank == 0 && n2 < N) actions_o[((size_t)t * A + a) * N + n2] = action;
+      } else {
+        float act;
+        if constexpr (sac_head(HEAD)) {
+          float ls = outp[i + A * TE];
+          for (int q = 1; q < c; ++q) ls += outp[q * OP * TE + i + A * TE];
+          const float log_std = clampf(ls + bos[A + a], std_lo, std_hi);
+          act = tanhf((v + bos[a]) + expf(log_std) * zbuf[i]);
+        } else {
+          act = clampf(tanhf(v + bos[a]) + noise_std * zbuf[i], -1.0f, 1.0f);
+        }
+        ea[i] = act;
+        if (rank == 0 && n2 < N) actions_o[((size_t)t * N + n2) * A + a] = act;
+      }
     }
     __syncthreads();
     day = day + 1 >= body.p.T - 1 ? 0 : day + 1;
@@ -1566,7 +1893,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
 #pragma unroll
         for (int a = 0; a < A; ++a) {
           const float z = zbuf[a * TE + e];
-          logp += -0.5f * z * z - LOG_SQRT_2PI;
+          if (ON) logp += -0.5f * z * z - LOG_SQRT_2PI;
           env_a[a] = ea[a * TE + e];
         }
         float reward;
@@ -1574,7 +1901,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
         body.step_at(f, tc, pnext + (t & 1) * NP, env_a, reward, terminal, trunc);
         if (rank == 0) {
           const size_t o = (size_t)t * N + n;
-          logp_o[o] = logp;
+          if (ON) logp_o[o] = logp;
           rew_o[o] = reward * reward_scale;
           term_o[o] = terminal ? 1.0f : 0.0f;
           trunc_o[o] = trunc ? 1.0f : 0.0f;
@@ -1613,8 +1940,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   }
 }
 
+template <int HEAD>
 int stock_actor_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * StockActorLayout(D1, D2, c).floats;
+  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>()).floats;
 }
 
 }  // namespace
@@ -1665,85 +1993,118 @@ extern "C" int fused_rollout(
   return -1;
 }
 
-// Dynamic shared memory of one off-policy block, in bytes: the head's
-// weights, then the xn, h1, h2 and out tiles.  head: 0 ddpg, 1 dqn,
-// 2 dqn_enc, 3 dqn_duel, 4 sac, 5 modsac (OFFPOLICY_HEADS of
-// ops/fused_rollout.py).
-extern "C" int offpolicy_rollout_smem_bytes(int S, int A, int D1, int D2, int head) {
-  return offpolicy_smem(S, A, D1, D2, head);
+// The off-policy (body, head) pairs of offpolicy_rollout_kernel: ddpg, sac
+// and modsac on Pendulum-v1 (0), HopperSlip-v0 (2) and PointChasingVecEnv
+// (3); dqn, dqn_enc and dqn_duel on CartPole-v1 (1) and
+// PointChasingDiscreteEnv (4).  head: 0 ddpg, 1 dqn, 2 dqn_enc, 3 dqn_duel,
+// 4 sac, 5 modsac (OFFPOLICY_HEADS of ops/fused_rollout.py).
+#define ELEGANTRL_OFF_PAIRS(X)                                                        \
+  X(0, PendulumBody, HEAD_DDPG) X(2, HopperBody, HEAD_DDPG) X(3, ChasingBody, HEAD_DDPG) \
+  X(0, PendulumBody, HEAD_SAC) X(2, HopperBody, HEAD_SAC) X(3, ChasingBody, HEAD_SAC)    \
+  X(0, PendulumBody, HEAD_MODSAC) X(2, HopperBody, HEAD_MODSAC)                          \
+  X(3, ChasingBody, HEAD_MODSAC) X(1, CartPoleBody, HEAD_DQN)                            \
+  X(1, CartPoleBody, HEAD_DQN_ENC) X(1, CartPoleBody, HEAD_DQN_DUEL)                     \
+  X(4, ChasingDiscreteBody, HEAD_DQN) X(4, ChasingDiscreteBody, HEAD_DQN_ENC)            \
+  X(4, ChasingDiscreteBody, HEAD_DQN_DUEL)
+// The stock body's heads (stock_actor_kernel<HEAD>), body 5.
+#define ELEGANTRL_STOCK_HEADS(X) X(HEAD_DDPG) X(HEAD_SAC) X(HEAD_MODSAC)
+
+// Dynamic shared memory of one block of the off-policy rollout for clusters
+// of c blocks (OffLayout; the stock body's StockActorLayout); -1 for a pair
+// it does not have.
+extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c) {
+#define ELEGANTRL_SMEM(ID, BODY, HEAD) \
+  if (body == ID && head == HEAD) return offpolicy_smem<BODY, HEAD>(D1, D2, c);
+  ELEGANTRL_OFF_PAIRS(ELEGANTRL_SMEM)
+#undef ELEGANTRL_SMEM
+#define ELEGANTRL_SMEM(HEAD) \
+  if (body == 5 && head == HEAD) return stock_actor_smem<HEAD>(D1, D2, c);
+  ELEGANTRL_STOCK_HEADS(ELEGANTRL_SMEM)
+#undef ELEGANTRL_SMEM
+  return -1;
 }
 
-// The off-policy exploration rollout for the fifteen (body, head) pairs:
-// ddpg, sac and modsac on Pendulum-v1 (0), HopperSlip-v0 (2) and
-// PointChasingVecEnv (3); dqn, dqn_enc and dqn_duel on CartPole-v1 (1) and
-// PointChasingDiscreteEnv (4).  std_lo and std_hi clip the SAC heads'
-// log_std.  Returns the CUDA error of the launch, or -1 for a pair it does
+// The stock actor kernel's cluster size for N lanes (pick_cluster).
+template <int HEAD>
+int stock_cluster(int N, int D1, int D2, int cluster) {
+  return pick_cluster<stock_actor_kernel<HEAD>>(
+      (N + TE - 1) / TE, cluster, [=](int c) { return stock_actor_smem<HEAD>(D1, D2, c); },
+      false);
+}
+
+// The cluster size the off-policy rollout takes for N lanes (`cluster` 0
+// picks from the card's occupancy); 0 when none fits, -1 for a pair it does
 // not have.
+extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int D2,
+                                         int cluster) {
+#define ELEGANTRL_CLUSTER(ID, BODY, HEAD) \
+  if (body == ID && head == HEAD) return offpolicy_cluster<BODY, HEAD>(N, D1, D2, cluster);
+  ELEGANTRL_OFF_PAIRS(ELEGANTRL_CLUSTER)
+#undef ELEGANTRL_CLUSTER
+#define ELEGANTRL_CLUSTER(HEAD) \
+  if (body == 5 && head == HEAD) return stock_cluster<HEAD>(N, D1, D2, cluster);
+  ELEGANTRL_STOCK_HEADS(ELEGANTRL_CLUSTER)
+#undef ELEGANTRL_CLUSTER
+  return -1;
+}
+
+// The off-policy exploration rollout for the fifteen pairs above.  std_lo
+// and std_hi clip the SAC heads' log_std; `cluster` as for
+// offpolicy_rollout_cluster.  Returns the CUDA error of the launch, or -1
+// for a pair it does not have.
 extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
                                  const void* env_i, const void* noise, const void* seed,
                                  void* states, void* actions, void* rew, void* term,
                                  void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                  int D1, int D2, float reward_scale, float noise_std,
-                                 float explore_rate, float std_lo, float std_hi,
+                                 float explore_rate, float std_lo, float std_hi, int cluster,
                                  void* stream) {
-#define ELEGANTRL_OFF(BODY, HEAD)                                                     \
-  return launch_offpolicy<BODY, HEAD>(flat, env_f, env_i, noise, seed, states,        \
-                                      actions, rew, term, trunc, env_f_o, env_i_o, N, \
-                                      H, D1, D2, reward_scale, noise_std,             \
-                                      explore_rate, std_lo, std_hi, (cudaStream_t)stream)
-  switch (body * 8 + head) {
-    case 0 * 8 + HEAD_DDPG: ELEGANTRL_OFF(PendulumBody, HEAD_DDPG);
-    case 2 * 8 + HEAD_DDPG: ELEGANTRL_OFF(HopperBody, HEAD_DDPG);
-    case 3 * 8 + HEAD_DDPG: ELEGANTRL_OFF(ChasingBody, HEAD_DDPG);
-    case 0 * 8 + HEAD_SAC: ELEGANTRL_OFF(PendulumBody, HEAD_SAC);
-    case 2 * 8 + HEAD_SAC: ELEGANTRL_OFF(HopperBody, HEAD_SAC);
-    case 3 * 8 + HEAD_SAC: ELEGANTRL_OFF(ChasingBody, HEAD_SAC);
-    case 0 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(PendulumBody, HEAD_MODSAC);
-    case 2 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(HopperBody, HEAD_MODSAC);
-    case 3 * 8 + HEAD_MODSAC: ELEGANTRL_OFF(ChasingBody, HEAD_MODSAC);
-    case 1 * 8 + HEAD_DQN: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN);
-    case 1 * 8 + HEAD_DQN_ENC: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_ENC);
-    case 1 * 8 + HEAD_DQN_DUEL: ELEGANTRL_OFF(CartPoleBody, HEAD_DQN_DUEL);
-    case 4 * 8 + HEAD_DQN: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN);
-    case 4 * 8 + HEAD_DQN_ENC: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_ENC);
-    case 4 * 8 + HEAD_DQN_DUEL: ELEGANTRL_OFF(ChasingDiscreteBody, HEAD_DQN_DUEL);
-    default: return -1;
-  }
+#define ELEGANTRL_OFF(ID, BODY, HEAD)                                                    \
+  if (body == ID && head == HEAD)                                                        \
+    return launch_offpolicy<BODY, HEAD>(flat, env_f, env_i, noise, seed, states, actions, \
+                                        rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, \
+                                        reward_scale, noise_std, explore_rate, std_lo,    \
+                                        std_hi, cluster, (cudaStream_t)stream);
+  ELEGANTRL_OFF_PAIRS(ELEGANTRL_OFF)
 #undef ELEGANTRL_OFF
+  return -1;
 }
 
-// StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel;
-// values are left to critic_values).  Shared memory of one block for
-// clusters of c blocks.
-extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c) { return stock_actor_smem(D1, D2, c); }
-
-// The cluster size for N lanes: `cluster` when it is 1, 2, 4 or 8; with 0,
-// the largest of 8, 4, 2, 1 whose layout fits and whose clusters of the
-// ceil(N / 32) groups the card holds all at once (else the largest that
-// fits of 2 and 1).  Returns 0 when none fits or on a CUDA error.
-int stock_cluster(int N, int D1, int D2, int cluster) {
-  constexpr int SMEM_LIMIT = 232448;
-  if (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
-    return stock_actor_smem(D1, D2, cluster) <= SMEM_LIMIT ? cluster : 0;
-  if (cluster != 0) return 0;
-  const int groups = (N + TE - 1) / TE;
-  int fallback = 0;
-  for (int c : {8, 4, 2, 1}) {
-    const int smem = stock_actor_smem(D1, D2, c);
-    if (smem > SMEM_LIMIT) continue;
-    if (c <= 2 && fallback == 0) fallback = c;
-    if (cudaFuncSetAttribute(stock_actor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess)
-      return 0;
-    const int active = cm::active_clusters(stock_actor_kernel, c, smem);
-    if (active == 0) return 0;
-    if (groups <= active) return c;
+// Launches stock_actor_kernel<HEAD> on the cluster size stock_cluster picks.
+template <int HEAD>
+int launch_stock(const StockBody& body, const void* act_flat, const void* norm_avg,
+                 const void* norm_std, const void* env_f, const void* env_i, const void* noise,
+                 const void* seed, void* states, void* actions, void* logp, void* rew,
+                 void* term, void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1,
+                 int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
+                 int cluster, cudaStream_t stream) {
+  if (N == 0) return 0;
+  const int c = stock_cluster<HEAD>(N, D1, D2, cluster);
+  if (c == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  return fallback;
+  const int smem = stock_actor_smem<HEAD>(D1, D2, c);
+  const cudaError_t err = allow_smem<stock_actor_kernel<HEAD>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (N + TE - 1) / TE;
+  return (int)cm::launch_clusters(
+      stock_actor_kernel<HEAD>, groups * c, c, smem, stream, body, (const float*)act_flat,
+      (const float*)norm_avg, (const float*)norm_std, (const float*)env_f, (const int*)env_i,
+      (const float*)noise, (const int*)seed, (float*)states, (float*)actions, (float*)logp,
+      (float*)rew, (float*)term, (float*)trunc, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2,
+      reward_scale, noise_std, std_lo, std_hi);
+}
+
+// StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel<HEAD_PPO>;
+// values are left to critic_values).  Shared memory of one block for
+// clusters of c blocks, and the cluster size for N lanes (stock_cluster).
+extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c) {
+  return stock_actor_smem<HEAD_PPO>(D1, D2, c);
 }
 
 extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster) {
-  return stock_cluster(N, D1, D2, cluster);
+  return stock_cluster<HEAD_PPO>(N, D1, D2, cluster);
 }
 
 extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
@@ -1752,68 +2113,90 @@ extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const v
                              void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
                              int N, int H, int D1, int D2, float reward_scale, int cluster,
                              const StockArgs* args, void* stream) {
-  const StockBody body{*args};
-  if (N == 0) return 0;
-  const int c = stock_cluster(N, D1, D2, cluster);
-  if (c == 0) {
-    const cudaError_t err = cudaGetLastError();
-    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
-  }
-  const int smem = stock_actor_smem(D1, D2, c);
-  cudaError_t err = cudaFuncSetAttribute(
-      stock_actor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int groups = (N + TE - 1) / TE;
-  return (int)cm::launch_clusters(
-      stock_actor_kernel, groups * c, c, smem, (cudaStream_t)stream, body,
-      (const float*)act_flat, (const float*)norm_avg, (const float*)norm_std,
-      (const float*)env_f, (const int*)env_i, (const float*)noise, (const int*)seed,
-      (float*)states, (float*)actions, (float*)logp, (float*)rew, (float*)term, (float*)trunc,
-      (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
-}
-
-// The critic pass: val (H, N) from the stored states (H, S, N).
-extern "C" int critic_values_smem_bytes(int S, int D1, int D2) { return critic_smem(S, D1, D2); }
-
-extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const void* norm_std,
-                             const void* states, void* val, int S, int N, int H, int D1, int D2,
-                             void* stream) {
-  const int smem_bytes = critic_smem(S, D1, D2);
-  cudaError_t err = cudaFuncSetAttribute(
-      critic_values_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  const long long tiles = ((long long)H * N + CM - 1) / CM;
-  const int blocks = (int)(tiles < sms ? tiles : sms);   // one block per SM, looping over tiles
-  critic_values_kernel<<<blocks, THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
-      (const float*)states, (float*)val, S, N, H, D1, D2);
-  return (int)cudaGetLastError();
+  return launch_stock<HEAD_PPO>(StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i,
+                                noise, seed, states, actions, logp, rew, term, trunc, env_f_o,
+                                env_i_o, N, H, D1, D2, reward_scale, 0.f, 0.f, 0.f, cluster,
+                                (cudaStream_t)stream);
 }
 
 // The off-policy exploration rollout on StockBody: the ddpg, sac and modsac
-// heads.  Returns the CUDA error of the launch, or -1 for another head.
+// heads (stock_actor_kernel<HEAD>; no normalisation, no logprob).  Returns
+// the CUDA error of the launch, or -1 for another head.
 extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* env_f,
                                        const void* env_i, const void* noise, const void* seed,
                                        void* states, void* actions, void* rew, void* term,
                                        void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                        int D1, int D2, float reward_scale, float noise_std,
-                                       float explore_rate, float std_lo, float std_hi,
+                                       float std_lo, float std_hi, int cluster,
                                        const StockArgs* args, void* stream) {
-  const StockBody body{*args};
 #define ELEGANTRL_STOCK(HEAD)                                                               \
-  return launch_offpolicy<StockBody, HEAD>(flat, env_f, env_i, noise, seed, states, actions, \
-                                           rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, \
-                                           reward_scale, noise_std, explore_rate, std_lo,    \
-                                           std_hi, (cudaStream_t)stream, body)
-  switch (head) {
-    case HEAD_DDPG: ELEGANTRL_STOCK(HEAD_DDPG);
-    case HEAD_SAC: ELEGANTRL_STOCK(HEAD_SAC);
-    case HEAD_MODSAC: ELEGANTRL_STOCK(HEAD_MODSAC);
-    default: return -1;
-  }
+  if (head == HEAD)                                                                         \
+    return launch_stock<HEAD>(StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, \
+                              seed, states, actions, nullptr, rew, term, trunc, env_f_o,    \
+                              env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo, std_hi, \
+                              cluster, (cudaStream_t)stream);
+  ELEGANTRL_STOCK_HEADS(ELEGANTRL_STOCK)
 #undef ELEGANTRL_STOCK
+  return -1;
+}
+
+// Blocks of critic_values_kernel<CT> an SM holds at smem bytes a block into
+// per_sm: asked of the occupancy calculator once per (CT, device, smem) and
+// kept, not at every launch.
+template <int CT>
+cudaError_t critic_blocks_per_sm(int smem, int& per_sm) {
+  static int kept_smem[64] = {0}, kept[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < 64;
+  if (known && kept_smem[dev] == smem) {
+    per_sm = kept[dev];
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, critic_values_kernel<CT>,
+                                                      cm::THREADS, smem);
+  if (err == cudaSuccess && known) {
+    kept_smem[dev] = smem;
+    kept[dev] = per_sm;
+  }
+  return err;
+}
+
+// Launches critic_values_kernel<CT>: persistent blocks, as many as the card
+// holds at once, or one a tile.
+template <int CT>
+int launch_critic(const void* cri_flat, const void* norm_avg, const void* norm_std,
+                  const void* states, void* val, int N, int H, int D1, int D2,
+                  cudaStream_t stream) {
+  const int smem = critic_smem(D1, D2);
+  cudaError_t err = allow_smem<critic_values_kernel<CT>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = critic_blocks_per_sm<CT>(smem, per_sm);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)H * ((N + CT - 1) / CT);
+  const long long most = (long long)cm::sm_count() * per_sm;  // persistent blocks
+  const int blocks = (int)(tiles < most ? tiles : most);
+  critic_values_kernel<CT><<<blocks, cm::THREADS, smem, stream>>>(
+      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
+      (const float*)states, (float*)val, N, H, D1, D2);
+  return (int)cudaGetLastError();
+}
+
+// The critic pass: val (H, N) from the stored states (H, S, N) of the stock
+// body (S = StockBody::S); its lanes' groups of TE share each step's market
+// rows (critic_values_kernel's precondition).  Shared memory of one block.
+extern "C" int critic_values_smem_bytes(int D1, int D2) { return critic_smem(D1, D2); }
+
+extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const void* norm_std,
+                             const void* states, void* val, int N, int H, int D1, int D2,
+                             void* stream) {
+  if ((long long)H * N == 0) return 0;
+  return critic_tile(D1, D2) == 128
+             ? launch_critic<128>(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2,
+                                  (cudaStream_t)stream)
+             : launch_critic<64>(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2,
+                                 (cudaStream_t)stream);
 }

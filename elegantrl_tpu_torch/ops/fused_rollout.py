@@ -20,18 +20,17 @@ Outputs keep the kernel-native ``(H, S, N)`` layout, flagged by the
 ``'tsn'`` extras marker all the way into the update.
 
 The stock body (:func:`make_stock_body`, one instance per env, holding its
-market tables) has a 151-wide obs, and both nets with their tiles need
-350,144 bytes of shared memory, more than a Hopper block holds.  On the card
-its rollout is therefore two kernels: the actor kernel (K4's
-``stock_actor_kernel``: a group of ``_TE`` lanes on a thread-block cluster
-whose blocks each hold a slice of the actor, :func:`actor_smem_bytes`),
-which leaves the values alone, then :func:`critic_values`, the critic over
-the stored ``(H, S, N)`` states (215,824 bytes, tiles of 64 samples).  The
-outputs are those of the one-kernel route.  The body reads the day of its
-group's first lane (:func:`block_day`): every env starts at day 0 and ends
-at the shared last day, so the day is the same on every lane of a group,
-its 135 market rows are filled once for all lanes, and the kernel applies
-the actor's first layer to them once per step.
+market tables) has a 151-wide obs.  On the card its rollout is two kernels:
+the actor kernel (K4's ``stock_actor_kernel``: a group of ``_TE`` lanes on a
+thread-block cluster whose blocks each hold a slice of the actor,
+:func:`actor_smem_bytes`), which leaves the values alone, then
+:func:`critic_values`, the critic over the stored ``(H, S, N)`` states on
+the tensor cores (:func:`critic_smem_bytes`).  The outputs are those of the
+one-kernel route.  The body reads the day of its group's first lane
+(:func:`block_day`): every env starts at day 0 and ends at the shared last
+day, so the day is the same on every lane of a group, its 135 market rows
+are filled once for all lanes, and both kernels apply their first layer's
+market columns to them once per step and group.
 
 Three pieces, as for every kernel of the port:
 
@@ -679,42 +678,60 @@ def tile_scratch(k: int, j: int, lanes: int = _TE, threads: int = 256) -> int:
 
 
 def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
-                     cluster: int = 1) -> int:
-    """Shared memory of one block of the stock actor kernel (K4's on-policy
-    route, ``stock_rollout_smem_bytes``) for clusters of ``cluster`` blocks
-    over a group of ``_TE`` lanes: the block's slices of the actor's weights
-    row by row (W1's rows at the ``1 + A`` lane columns, W2's rows, Wo's
-    columns; a row of K inputs takes ``kernels.ldk(K)`` floats), the biases
-    and stds, the day's market rows, two steps' close prices, then the lane
-    tiles (every block's part of the mean among them) and the split-K
+                     cluster: int = 1, head: Optional[str] = None) -> int:
+    """Shared memory of one block of the stock actor kernel (K4: the
+    on-policy route, ``stock_rollout_smem_bytes``, ``head`` None; the
+    off-policy heads, ``offpolicy_rollout_smem_bytes``) for clusters of
+    ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices of
+    the actor's weights row by row (W1's rows at the ``1 + A`` lane
+    columns, W2's rows, the head's columns, A rows or 2A for the SAC heads;
+    a row of K inputs takes ``kernels.ldk(K)`` floats), the biases and
+    stds, the day's market rows, two steps' close prices, then the lane
+    tiles (every block's part of the head rows among them) and the split-K
     scratch.  ``csrc/fused_rollout.cu`` owns the layout
     (``StockActorLayout``); the critic runs afterwards in
-    :func:`critic_values`.  ``cluster = 1`` is the largest layout; the
-    wrapper needs it to fit."""
+    :func:`critic_values`.  The wrapper needs one cluster size's layout to
+    fit."""
     from .kernels import ldk
     D1, D2 = net_dims
     S, A, c = state_dim, action_dim, cluster
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     L, ap = 1 + A, r4(A)
+    op = r4(2 * A) if head in ('sac', 'modsac') else ap
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    floats = (js1 * ldk(L) + js1 + js2 * ldk(k2) + js2 + ap * ldk(js2) + 2 * ap + r4(S - L)
-              + js1 + 2 * r4(A) + (2 * L + k2 + js2 + c * ap + 32 + 2 * ap) * _TE + 256 * 16)
+    floats = (js1 * ldk(L) + js1 + js2 * ldk(k2) + js2 + op * ldk(js2) + op + ap + r4(S - L)
+              + js1 + 2 * r4(A) + (2 * L + k2 + js2 + c * op + 32 + 2 * ap) * _TE + 256 * 16)
     return 4 * floats
 
 
-_CM, _CR = 64, 8   # the critic pass's samples per tile and rows per thread (csrc/fused_rollout.cu)
+# the critic pass's tiles: samples (128, or 64 where that layout does not
+# fit), the features of a product's chunk, W2's K-tile (csrc/fused_rollout.cu:
+# critic_tile, CNC, CKT), and the row strides of the lane rows (CLD) and of a
+# K-tile (CKLD)
+_CTS, _CNC, _CKT = (128, 64), 64, 32
+_CLD, _CKLD = 1 + STOCK_KERNEL_STOCKS + 4, _CKT + 4
+_STOCK_S = 1 + 10 * STOCK_KERNEL_STOCKS   # the stock body's obs rows
 
 
-def critic_smem_bytes(state_dim: int, net_dims: Sequence[int]) -> int:
+def critic_smem_bytes(net_dims: Sequence[int], tile: Optional[int] = None) -> int:
     """Shared memory of one block of the critic pass
-    (``critic_values_smem_bytes``): the critic's weights, padded to a
-    float4, then the input tile (the second layer's output in its place)
-    and the first layer's tile, ``_CM`` samples each."""
-    D1, D2 = net_dims
-    S = state_dim
-    weights = (S * D1 + D1 + D1 * D2 + D2 + D2 + 1 + 3) // 4 * 4
-    return 4 * (weights + (max(S, D2) + D1) * _CM)
+    (``critic_values_smem_bytes``; ``CriticLayout`` of
+    ``csrc/fused_rollout.cu`` owns it) with tiles of ``tile`` samples, by
+    default the kernel's (128 where that layout fits a block, else 64): W1's
+    lane columns, b1, b2 and the value head's weights at the widths padded
+    to 64, the two-stage W2 ring, the tile's lane rows, the groups' market
+    rows and products, h1 and the value partials.  W2 streams through the
+    ring, so only h1 grows with both widths: the widest ``D1`` is 320 at
+    128 samples, 576 at 64."""
+    if tile is None:
+        tile = _CTS[0] if critic_smem_bytes(net_dims, _CTS[0]) <= SMEM_LIMIT else _CTS[1]
+    d1p, d2p = (-(-int(d) // 64) * 64 for d in net_dims)
+    nm, nq = _STOCK_S - (1 + STOCK_KERNEL_STOCKS), tile // _TE
+    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    floats = (d1p * _CLD + d1p + 2 * d2p + 2 * _CNC * _CKLD + tile * _CLD + r4(nq * nm)
+              + nq * d1p + tile * (d1p + 4) + 8 * _TE)
+    return 4 * floats
 
 
 def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
@@ -722,17 +739,16 @@ def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
     registered bodies where a cluster of 8 blocks holds both nets' slices
     (:func:`rollout_smem_bytes`; (256, 256) and more, ``ROADMAP.md`` lists
     the limit); a market-data body (built for ``STOCK_KERNEL_STOCKS``
-    stocks) as the actor-only rollout plus the critic pass, each fitting one
-    block, the critic's widths multiples of ``_CR``."""
+    stocks) as the actor-only rollout, where a cluster holds the actor's
+    slices, plus the critic pass (:func:`critic_smem_bytes`)."""
     if len(tuple(net_dims)) != 2:
         return False
     S, A = body.state_dim, body.action_dim
     if not kernel_has_body(body):
         return False
     if body.tables is not None:
-        return (actor_smem_bytes(S, net_dims, A) <= SMEM_LIMIT
-                and critic_smem_bytes(S, net_dims) <= SMEM_LIMIT
-                and all(int(d) % _CR == 0 for d in net_dims))
+        return (min(actor_smem_bytes(S, net_dims, A, c) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
+                and critic_smem_bytes(net_dims) <= SMEM_LIMIT)
     return rollout_smem_bytes(body, net_dims, 8) <= SMEM_LIMIT
 
 
@@ -763,7 +779,7 @@ def critic_values_reference(cri_flat: torch.Tensor, norm_avg: torch.Tensor,
                             norm_std: torch.Tensor, states: torch.Tensor, *,
                             net_dims: Sequence[int]) -> torch.Tensor:
     """Plain version of the critic pass: ``(H, N)`` values of the stored
-    ``(H, S, N)`` states."""
+    ``(H, S, N)`` states, the full MLP on every sample."""
     S = states.shape[1]
     shapes = ppo_param_shapes(S, net_dims, 1, True)[1]
     xn = (states.transpose(1, 2) - norm_avg) / (norm_std + 1e-4)
@@ -773,9 +789,15 @@ def critic_values_reference(cri_flat: torch.Tensor, norm_avg: torch.Tensor,
 def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torch.Tensor,
                   states: torch.Tensor, values: Optional[torch.Tensor] = None, *,
                   net_dims: Sequence[int]) -> torch.Tensor:
-    """The critic pass of the actor-only rollout: the CUDA kernel for CUDA
-    tensors (writing into ``values`` when given), the plain version for CPU
-    tensors."""
+    """The critic pass of the actor-only stock rollout: the CUDA kernel for
+    CUDA tensors (writing into ``values`` when given), the plain version for
+    CPU tensors.
+
+    Precondition of the kernel: ``states`` are the stock body's (``S =
+    151``), and the lanes of a group of ``_TE`` (``n // 32`` equal) share
+    each step's market rows, which the kernel applies once per (step,
+    group), from the group's first lane.  The stock rollouts' stored states
+    always meet it (:func:`block_day`)."""
     if cri_flat.device.type == 'cpu':
         return critic_values_reference(cri_flat, norm_avg, norm_std, states, net_dims=net_dims)
     if cri_flat.device.type != 'cuda':
@@ -784,16 +806,16 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
         raise ValueError(f'critic_values: the CUDA kernel takes 2 hidden layers, got {net_dims}')
     from ._cuda_build import check, check_tensor, ptr
     D1, D2 = (int(d) for d in net_dims)
-    if D1 % _CR or D2 % _CR:
-        raise ValueError(f'critic_values: the CUDA kernel takes widths that are multiples of '
-                         f'{_CR}, got {tuple(net_dims)}')
     H, S, N = states.shape
+    if S != _STOCK_S:
+        raise ValueError(f'critic_values: the CUDA kernel takes the stock body\'s {_STOCK_S} '
+                         f'obs rows, got {S}')
     lib = _library()
-    smem = lib.critic_values_smem_bytes(S, D1, D2)
+    smem = lib.critic_values_smem_bytes(D1, D2)
     if smem > SMEM_LIMIT:
         raise ValueError(f'critic_values: net_dims={tuple(net_dims)} needs {smem} bytes of '
                          f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
-                         'can hold')
+                         'can hold (the first width is at most 576)')
     dev, f32 = cri_flat.device, torch.float32
     n_cri = sum(math.prod(sh) for sh in ppo_param_shapes(S, (D1, D2), 1, True)[1])
     check_tensor('critic_values', 'cri_flat', cri_flat, (n_cri,), f32, dev)
@@ -805,7 +827,7 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
     check_tensor('critic_values', 'values', values, (H, N), f32, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.critic_values(ptr(cri_flat), ptr(norm_avg), ptr(norm_std), ptr(states),
-                            ptr(values), S, N, H, D1, D2, ctypes.c_void_p(stream)),
+                            ptr(values), N, H, D1, D2, ctypes.c_void_p(stream)),
           'critic_values')
     critic_values.launches += 1
     return values
@@ -826,8 +848,8 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     version for CPU tensors.  ``cluster`` and ``stock_cluster`` set the
     cluster size of the rollout kernel and of the stock actor kernel (1, 2,
     4 or 8; 0, the default, lets the kernel choose from the card's
-    occupancy, the rollout kernel's choice kept per body, env count, widths
-    and device); knobs for measuring the options."""
+    occupancy, the choice kept per body, env count, widths and device);
+    knobs for measuring the options."""
     kw = dict(net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise=noise, seed=seed, body=body)
     if act_flat.device.type == 'cpu':
@@ -849,11 +871,13 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     lib = _library()
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
-        smem = lib.stock_rollout_smem_bytes(D1, D2, 1)
+        smem = min(lib.stock_rollout_smem_bytes(D1, D2, c) for c in ROLLOUT_CLUSTERS)
         if smem > SMEM_LIMIT:
             raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
-                             f'shared memory per block, more than the {SMEM_LIMIT} a '
-                             'Hopper block can hold')
+                             f'shared memory in each block of a cluster at the least, more '
+                             f'than the {SMEM_LIMIT} a Hopper block can hold')
+        if not stock_cluster:
+            stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device)
     else:
         smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8)
         if smem > SMEM_LIMIT:
@@ -922,18 +946,28 @@ rollout.launches_by_body = {}
 _CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index) -> the rollout kernel's cluster size
 
 
-def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device) -> int:
-    """The cluster size the rollout kernel picks from the card's occupancy
-    (``fused_rollout_cluster``), asked once per body, env count, widths and
-    device: the pick makes up to eight CUDA runtime calls.  0 where nothing fits
-    (the launch then reports the error)."""
-    key = (body.kernel_id, N, D1, D2, device.index)
-    if key not in _CLUSTER_PICKS:
-        c = lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0)
+def _kept_pick(picks: dict, key, ask) -> int:
+    """``ask()``, a kernel's cluster pick from the card's occupancy, asked once
+    per ``key`` and kept in ``picks``: a pick makes up to sixteen CUDA runtime
+    calls.  0 where nothing fits (not kept; the launch then reports the
+    error)."""
+    if key not in picks:
+        c = ask()
         if c <= 0:
             return 0
-        _CLUSTER_PICKS[key] = c
-    return _CLUSTER_PICKS[key]
+        picks[key] = c
+    return picks[key]
+
+
+def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device) -> int:
+    """The rollout kernel's cluster size (``fused_rollout_cluster``; for the
+    stock body the actor kernel's, ``stock_rollout_cluster``), kept per body,
+    env count, widths and device."""
+    if body.tables is not None:
+        ask = lambda: lib.stock_rollout_cluster(N, D1, D2, 0)  # noqa: E731
+    else:
+        ask = lambda: lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0)  # noqa: E731
+    return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index), ask)
 
 
 def _library():
@@ -950,10 +984,12 @@ def _library():
         lib.fused_rollout_cluster.restype = ctypes.c_int
         lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                                           + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
-                                          + [ctypes.c_void_p])
+                                          + [ctypes.c_int, ctypes.c_void_p])
         lib.offpolicy_rollout.restype = ctypes.c_int
         lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
+        lib.offpolicy_rollout_cluster.argtypes = [ctypes.c_int] * 6
+        lib.offpolicy_rollout_cluster.restype = ctypes.c_int
         lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                                          ctypes.c_void_p])
@@ -962,13 +998,13 @@ def _library():
         lib.stock_rollout_smem_bytes.restype = ctypes.c_int
         lib.stock_rollout_cluster.argtypes = [ctypes.c_int] * 4
         lib.stock_rollout_cluster.restype = ctypes.c_int
-        lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.critic_values.restype = ctypes.c_int
-        lib.critic_values_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.critic_values_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.critic_values_smem_bytes.restype = ctypes.c_int
         lib.offpolicy_stock_rollout.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
-                                                + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
-                                                + [ctypes.c_void_p] * 2)
+                                                + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                                                + [ctypes.c_int] + [ctypes.c_void_p] * 2)
         lib.offpolicy_stock_rollout.restype = ctypes.c_int
     return lib
 
@@ -1139,19 +1175,51 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
     return OffPolicyRolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
 
 
-def offpolicy_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
-                         head: str) -> int:
-    """Dynamic shared memory of one off-policy kernel block: the head's
-    weights plus the activation tiles (``offpolicy_rollout_smem_bytes`` of
-    ``csrc/fused_rollout.cu`` owns the layout; this copy judges eligibility
-    where the library is not built)."""
-    D1, D2 = net_dims
-    S, A = state_dim, action_dim
-    sac = head in ('sac', 'modsac')
-    heads = 2 * (A * D2 + A) if sac else A * D2 + A + (D2 + 1 if head == 'dqn_duel' else 0)
-    floats = (D1 * S + D1 + D2 * D1 + D2 + heads
-              + (S + D1 + D2 + (2 * A if sac else A + 1)) * _TE)
-    return 4 * floats
+OFF_LANES = 16   # env lanes of an off-policy group (csrc/fused_rollout.cu: OFF_LANES)
+
+
+def offpolicy_out_rows(action_dim: int, head: str) -> int:
+    """Rows of the head's output: 2A (sac, modsac), A + 1 (dqn_duel), A."""
+    A = action_dim
+    return 2 * A if head in ('sac', 'modsac') else A + 1 if head == 'dqn_duel' else A
+
+
+def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str,
+                         cluster: int = 8) -> int:
+    """Shared memory of one block of the off-policy rollout for clusters of
+    ``cluster`` blocks over a group of ``OFF_LANES`` lanes: the block's
+    slices of W1's and W2's rows and of the head's columns (a row of K
+    inputs takes ``kernels.ldk(K)`` floats) and biases, then the lane tiles
+    (the obs, the whole h1, the block's rows of h2, every block's part of
+    the head rows, two steps' noise words, the normals, the summed head
+    rows) and the split-K scratch of the widest product
+    (``offpolicy_rollout_smem_bytes`` of ``csrc/fused_rollout.cu``:
+    ``OffLayout``).  The stock body runs the stock actor kernel
+    (:func:`actor_smem_bytes`)."""
+    from .kernels import ldk
+    D1, D2 = (int(d) for d in net_dims)
+    S, A, c, G = body.state_dim, body.action_dim, int(cluster), OFF_LANES
+    if body.tables is not None:
+        return actor_smem_bytes(S, (D1, D2), A, c, head)
+    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    s4, op = r4(S), r4(offpolicy_out_rows(A, head))
+    nh4 = r4(2 * A if head in CONTINUOUS_HEADS else 2)
+    ne4 = r4(max(body.n_step + body.n_reset, 1))
+    js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
+    k2 = c * js1
+    weights = js1 * ldk(S) + js1 + js2 * ldk(k2) + js2 + op * ldk(js2) + op
+    tiles = (s4 + k2 + js2 + c * op + 2 * nh4 + 2 * ne4 + r4(A) + op) * G
+    scratch = max(tile_scratch(s4, js1, G), tile_scratch(k2, js2, G), tile_scratch(js2, op, G))
+    return 4 * (weights + tiles + r4(scratch))
+
+
+def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int]) -> bool:
+    """Whether the CUDA kernel takes this (body, head) pair at these widths:
+    two hidden layers whose slices a cluster of 1, 2, 4 or 8 blocks holds
+    (``ROADMAP.md`` lists the limits)."""
+    return (offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
+            and min(offpolicy_smem_bytes(body, net_dims, head, c)
+                    for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
 
 
 def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor, *,
@@ -1159,9 +1227,13 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
                       horizon_len: int, reward_scale: float, noise_std: float = 0.05,
                       explore_rate: float = 0.25, std_clip=(-16.0, 2.0),
                       noise: Optional[torch.Tensor] = None,
-                      seed: Optional[torch.Tensor] = None) -> OffPolicyRolloutOutputs:
+                      seed: Optional[torch.Tensor] = None,
+                      cluster: int = 0) -> OffPolicyRolloutOutputs:
     """The off-policy fused rollout: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  ``cluster`` sets the cluster size (1, 2,
+    4 or 8; 0, the default, lets the kernel choose from the card's
+    occupancy, the choice kept per body, head, env count, widths and
+    device); a knob for measuring the options."""
     kw = dict(body=body, head=head, net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise_std=noise_std, explore_rate=explore_rate,
               std_clip=std_clip, noise=noise, seed=seed)
@@ -1184,11 +1256,15 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     H, N = int(horizon_len), env_f.shape[1]
     from ._cuda_build import check, check_tensor, ptr
     lib = _library()
-    smem = lib.offpolicy_rollout_smem_bytes(S, A, D1, D2, OFFPOLICY_HEADS[head])
+    head_id = OFFPOLICY_HEADS[head]
+    smem = min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1, D2, c)
+               for c in ROLLOUT_CLUSTERS)
     if smem > SMEM_LIMIT:
         raise ValueError(f'offpolicy_rollout: net_dims={tuple(net_dims)} needs {smem} bytes '
-                         f'of shared memory per block, more than the {SMEM_LIMIT} a Hopper '
-                         'block can hold')
+                         f'of shared memory in each block of a cluster at the least, more '
+                         f'than the {SMEM_LIMIT} a Hopper block can hold')
+    if not cluster:
+        cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device)
     dev = flat.device
     f32 = torch.float32
     n_head = sum(math.prod(s) for s in offpolicy_head_shapes(S, (D1, D2), A, head))
@@ -1212,17 +1288,18 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         truncates=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]
     if stock:
+        hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, *std_clip)]
         status = lib.offpolicy_stock_rollout(
-            OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
-            *[ptr(x) for x in out], N, H, D1, D2, *hyper, ctypes.byref(stock_args),
-            ctypes.c_void_p(stream))
+            head_id, ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
+            *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster),
+            ctypes.byref(stock_args), ctypes.c_void_p(stream))
     else:
+        hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]
         status = lib.offpolicy_rollout(
-            body.kernel_id, OFFPOLICY_HEADS[head], ptr(flat), ptr(env_f), ptr(env_i),
+            body.kernel_id, head_id, ptr(flat), ptr(env_f), ptr(env_i),
             ptr(noise), ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, *hyper,
-            ctypes.c_void_p(stream))
+            int(cluster), ctypes.c_void_p(stream))
     tag = f'{body.env_name},{head}'
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1
@@ -1232,6 +1309,18 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
 
 offpolicy_rollout.launches = 0
 offpolicy_rollout.launches_by_kernel = {}
+
+# (body, head, envs, D1, D2, device index) -> the off-policy kernel's cluster size
+_OFF_CLUSTER_PICKS = {}
+
+
+def _offpolicy_cluster(lib, body: KernelEnvBody, head_id: int, N: int, D1: int, D2: int,
+                       device) -> int:
+    """The off-policy kernel's cluster size (``offpolicy_rollout_cluster``),
+    kept per body, head, env count, widths and device."""
+    return _kept_pick(_OFF_CLUSTER_PICKS, (body.kernel_id, head_id, N, D1, D2, device.index),
+                      lambda: lib.offpolicy_rollout_cluster(body.kernel_id, head_id, N, D1, D2,
+                                                            0))
 
 
 def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horizon_len: int,

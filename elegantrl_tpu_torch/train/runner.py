@@ -137,12 +137,11 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     (A2C explores exactly as PPO does; not ``AgentPPOHterm``), or an
     off-policy agent with a kernel head, when a (block, chunk) fits its VMEM
     budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
-    a cluster of 8 blocks holds the weight slices (``rollout_fits``) or,
-    off-policy, when the weights fit one block and it has the (body, head)
-    pair."""
-    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, SMEM_LIMIT, kernel_bodies_text,
+    a cluster of blocks holds the weight slices (``rollout_fits``; off-policy
+    ``offpolicy_fits``, for a (body, head) pair it has)."""
+    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
-                                     offpolicy_pair_fits, offpolicy_smem_bytes, rollout_fits)
+                                     offpolicy_fits, rollout_fits)
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = env.kernel_body or KERNEL_ENV_BODIES.get(spec.env_name)
@@ -163,11 +162,12 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                 f"'float32' (got {getattr(args, 'compute_dtype', 'auto')!r} at "
                 f'net_dims={net_dims}, which resolves to '
                 f'{resolve_compute_dtype(args, net_dims)})')
-        fits = (jax_takes and offpolicy_pair_fits(body, off_head)
-                and offpolicy_smem_bytes(body.state_dim, net_dims, body.action_dim,
-                                         off_head) <= SMEM_LIMIT)
+        fits = jax_takes and offpolicy_fits(body, off_head, net_dims)
         scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
-                 f'2-hidden-layer MLP whose weights fit one block, on an env of '
+                 f'2-hidden-layer MLP whose weight slices a cluster of blocks holds (square '
+                 f'widths up to 576, 544 on PointChasingDiscreteEnv; on the stock body 448 '
+                 f'for ddpg, 416 for sac and modsac; ops/fused_rollout.py:offpolicy_fits), '
+                 f'on an env of '
                  f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
                  f'net_dims={net_dims}')
@@ -189,7 +189,8 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                                              horizon_len) is not None)
     scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
              f'weight slices fit a cluster of 8 blocks (square widths up to 320, 288 on '
-             f'PointChasingDiscreteEnv; ops/fused_rollout.py:rollout_fits), on an env of '
+             f'PointChasingDiscreteEnv, 448 on the stock body; '
+             f'ops/fused_rollout.py:rollout_fits), on an env of '
              f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '

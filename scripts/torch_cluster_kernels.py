@@ -1,6 +1,7 @@
 """Measure the layouts of the thread-block-cluster kernels on one CUDA card:
 K11b, the fused MLP3 forward (``ops/csrc/kernels.cu``), K4's stock actor
-kernel and K1/K3, the on-policy rollout (``ops/csrc/fused_rollout.cu``).
+kernel, K1/K3, the on-policy rollout, and K6/K6′, the off-policy rollout
+(``ops/csrc/fused_rollout.cu``).
 
     python3 scripts/torch_cluster_kernels.py [--phases] [--push-obs]
 
@@ -16,7 +17,11 @@ Philox noise, H = 128) at 256 and 4096 envs for each cluster size
 the size the kernel picks.  K1/K3: the rollout of every on-policy body
 (Philox noise, H = 64, (128, 128)) at 4096, 1024 and 256 envs for each
 cluster size that fits (``rollout(..., cluster=)``), ms by CUDA events over
-5 rollouts and the size the kernel picks.  One JSON line per case.
+5 rollouts and the size the kernel picks.  K6/K6′: HopperSlip's ddpg and
+sac heads and CartPole's dqn head (Philox noise, (128, 128)) at path B's 64
+envs x 64 steps, the off-policy ``train_agent`` runs' 128 x 32 and paths A
+and C's 1024 x 32 for each cluster size that fits
+(``offpolicy_rollout(..., cluster=)``), likewise.  One JSON line per case.
 
 ``--push-obs`` also measures K1/K3's other env-step option beside each
 cluster size of 2 or more: rank 0 of a cluster alone runs the heads, the
@@ -31,7 +36,7 @@ the kernel's bitwise.
 two sources with clock64 stamps of block 0's thread 0 between the phases
 into ``build/phases/``, builds them with the flags of ``ops/_cuda_build.py``
 and runs the same cases on them, printing µs per phase (a call for K11b,
-a step for K4 and K1/K3) at the card's maximum SM clock.  The stamps sit at text
+a step for K4, K1/K3 and K6/K6′) at the card's maximum SM clock.  The stamps sit at text
 anchors of the sources; a change to those lines needs the anchors here
 updated (the script stops with the anchor it did not find).
 """
@@ -57,9 +62,15 @@ K1_ENVS = (4096, 1024, 256)
 K1_PHASES = ['top_sync', 'layer1_push', 'head_noise', 'cluster_sync', 'layer2', 'heads_push',
              'cluster_sync2', 'head_sums', 'env_step']
 K1_TRACE = 16   # K1/K3's slots of g_trace (K4 takes 0-9)
+K6_CASES = (('HopperSlip-v0', 'ddpg'), ('HopperSlip-v0', 'sac'), ('CartPole-v1', 'dqn'))
+K6_SHAPES = ((64, 64), (128, 32), (1024, 32))
+K6_PHASES = ['top_sync', 'layer1_push', 'head_noise', 'cluster_sync', 'layer2', 'heads_push',
+             'cluster_sync2', 'head_sums', 'env_step']
+K6_TRACE = 32   # K6/K6′'s slots of g_trace
+TRACE_SLOTS = 48
 
 STAMP = '''
-__device__ unsigned long long g_trace[32];
+__device__ unsigned long long g_trace[48];
 #define STAMP(i) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
   const unsigned long long now_ = clock64(); tr_acc[i] += now_ - tr_last; tr_last = now_; } } while (0)
 '''
@@ -68,7 +79,7 @@ extern "C" int trace_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));
 }
 extern "C" int trace_reset() {
-  unsigned long long z[32] = {0};
+  unsigned long long z[48] = {0};
   return (int)cudaMemcpyToSymbol(g_trace, z, sizeof(z));
 }
 '''
@@ -151,7 +162,7 @@ def instrumented_sources(out_dir):
     s = _insert(s, '    cluster.sync();  // every block\'s rows of h1, in every block\n',
                 before='    STAMP(2);\n', after='    STAMP(3);\n')
     s = _insert(s, '    cm::tile_dense<TE>(wos', before='    STAMP(5);\n')
-    s = _insert(s, '    cluster.sync();  // every block\'s part of the mean, in every block\n',
+    s = _insert(s, '    cluster.sync();  // every block\'s part of the head rows, in every block\n',
                 before='    STAMP(6);\n', after='    STAMP(7);\n')
     s = _insert(s, '    day = day + 1 >= body.p.T - 1 ? 0 : day + 1;\n', before='    STAMP(8);\n')
     s = _insert(s, '    if (t + 1 < H) prepare(t + 1, day, TE);  // the other warps, meanwhile\n',
@@ -180,6 +191,26 @@ def instrumented_sources(out_dir):
                    '    for (int k = 0; k < F; ++k) env_f_o',
                 before='  if (threadIdx.x == 0 && blockIdx.x == 0)\n'
                        f'    for (int i = 0; i < 9; ++i) g_trace[{K1_TRACE} + i] += tr_acc[i];\n')
+    # K6/K6′, offpolicy_rollout_kernel<Body, HEAD>: g_trace[K6_TRACE + i]
+    s = _insert(s, '  cm::cluster_wait();  // every block has started: h1 and head-row parts may '
+                   'be pushed\n',
+                after='  unsigned long long tr_acc[12] = {0}, tr_last = clock64();\n')
+    s = _insert(s, '    __syncthreads();  // step t\'s obs and noise words (the weights at t = 0)\n',
+                after='    STAMP(0);\n')
+    s = _insert(s, '    const float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * G;\n',
+                before='    STAMP(1);\n')
+    s = _insert(s, '    sync_group();  // every block\'s rows of h1, in every block\n',
+                before='    STAMP(2);\n', after='    STAMP(3);\n')
+    s = _insert(s, '    // ---- this block\'s part of the head rows\n', before='    STAMP(4);\n')
+    s = _insert(s, '    sync_group();  // every block\'s parts of the head rows, in every block\n',
+                before='    STAMP(5);\n', after='    STAMP(6);\n')
+    s = _insert(s, '    if (w0) {\n      if (live) {  // the head\'s action and the env step\n',
+                before='    STAMP(7);\n')
+    s = _insert(s, '      if (t + 1 < H) observe(t + 1);  // the next obs tile\n',
+                after='      STAMP(8);\n')
+    s = _insert(s, '  if (rank == 0 && live) {  // the final env rows\n',
+                before='  if (threadIdx.x == 0 && blockIdx.x == 0)\n'
+                       f'    for (int i = 0; i < 9; ++i) g_trace[{K6_TRACE} + i] += tr_acc[i];\n')
     open(os.path.join(out_dir, 'fused_rollout.cu'), 'w').write(s + TRACE_IO)
 
 
@@ -255,7 +286,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def phases(lib, names, calls, first=0):
-        buf = (ctypes.c_ulonglong * 32)()
+        buf = (ctypes.c_ulonglong * TRACE_SLOTS)()
         lib.trace_read(buf)
         return {k: v / calls / mhz for k, v in zip(names, buf[first:])}
 
@@ -376,6 +407,38 @@ def main():
             print(json.dumps(dict(kernel=f'fused_rollout[{body.env_name}]', envs=n, horizon=64,
                                   picked=fr._library().fused_rollout_cluster(
                                       body.kernel_id, n, 128, 128, 0),
+                                  cluster_sizes=sizes)), flush=True)
+    from elegantrl_tpu_torch.ops.nets import init_flat
+    for env_name, head in K6_CASES:
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        S, A = body.state_dim, body.action_dim
+        nets = ([((S, 128, 128, A), 0.1)] if head in ('ddpg', 'dqn')
+                else [((S, 128, 128), None), ((128, 2 * A), 0.1)])
+        flat = init_flat(torch.Generator().manual_seed(7), nets, dev)
+        g = torch.Generator(device=dev).manual_seed(41)
+        kw = dict(body=body, head=head, net_dims=(128, 128), reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25, std_clip=(-16.0, 2.0), seed=seed)
+        for n, h in K6_SHAPES:
+            f0, i0 = body.pack(body_init(body, g, n, dev))
+            f0, i0 = f0.contiguous(), i0.contiguous()
+            sizes = {}
+            for c in fr.ROLLOUT_CLUSTERS:
+                if fr.offpolicy_smem_bytes(body, (128, 128), head, c) > fr.SMEM_LIMIT:
+                    continue
+
+                def fn(c=c):
+                    return fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, cluster=c, **kw)
+                entry = dict(ms=events_ms(fn, 10))
+                if libs:
+                    reset(libs['fused_rollout'])
+                    fn()
+                    torch.cuda.synchronize()
+                    entry['phases_us_per_step'] = phases(libs['fused_rollout'], K6_PHASES, h,
+                                                         K6_TRACE)
+                sizes[str(c)] = entry
+            print(json.dumps(dict(kernel=f'offpolicy_rollout[{env_name},{head}]', envs=n,
+                                  horizon=h, picked=fr._library().offpolicy_rollout_cluster(
+                                      body.kernel_id, fr.OFFPOLICY_HEADS[head], n, 128, 128, 0),
                                   cluster_sizes=sizes)), flush=True)
     print(json.dumps({'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi}))
 

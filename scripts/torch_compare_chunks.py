@@ -1,8 +1,9 @@
 """Hold the off-policy update chunks, K11b, K4, the on-policy rollout (K1,
-K3) and the PPO update (K2, K5) of this checkout against another checkout's
-on the same inputs, on one CUDA card.
+K3), the PPO update (K2, K5), the off-policy rollout (K6, K6′) and the
+critic pass of this checkout against another checkout's on the same inputs,
+on one CUDA card.
 
-    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4 k1 k3 k2]
+    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4 k1 k3 k2 k6 critic]
 
 OTHER_ROOT is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -21,15 +22,22 @@ chunks after 2 warm-up ones).  ``k11b``: the fused MLP3 forward at the
 LunarLander widths, (8, 128, 128, 2) at B = 64 and 16,384, (8, 256, 256, 4)
 and the critic's (8, 128, 128, 1) at B = 64 (ms a call by CUDA events over
 50 calls, and the device ms from the profiler over 20).  ``k4``: the stock
-rollout (the actor kernel and the critic pass) at ``ppo_stock``'s 256 and
-``ppo_stock_4k``'s 4096 envs, H = 128, injected and Philox noise, from day
-T - 61 (ms a rollout over 5).  ``k1``: the Pendulum rollout at 4096 envs,
+rollout at ``ppo_stock``'s 256 and ``ppo_stock_4k``'s 4096 envs, H = 128,
+injected and Philox noise, from day T - 61: the actor kernel's outputs (the
+values are the critic pass's, the ``critic`` group) and the ms of the
+rollout, the actor kernel and the critic pass together, over 5.  ``k1``: the Pendulum rollout at 4096 envs,
 H = 64, (128, 128); ``k3``: the CartPole rollout likewise and the HopperSlip,
 PointChasing and PointChasingDiscrete ones at 1024 envs, injected and Philox
 noise (ms a rollout over 10).  ``k2``: the PPO update at B = 512, (128, 128):
 Pendulum U = 1 and 32, CartPole (discrete) U = 1, ``ppo_lunarlander_cont``'s
 S = 8, A = 2, U = 8 and ``ppo_stock``'s S = 151, A = 15, U = 2 (ms a call
-over 20).  Where two designs sum in other orders the
+over 20).  ``k6``: the off-policy rollout of every (body, head) pair at its
+main path's shape (the ddpg, sac and modsac heads 1024 envs x 32 steps,
+the DQN heads 64 x 64; the stock body's heads 1024 x 32 from day T - 17),
+(128, 128), injected and Philox noise (ms a rollout over 10).  ``critic``:
+the critic pass at 256 and 4096 envs x 128 steps, (128, 128), on seeded
+lane rows and each step's market rows of a seeded day (ms a call over 10).
+Where two designs sum in other orders the
 outputs are not bitwise equal; each line also gives the largest difference.
 ``--only`` picks the groups (all by default).  Needs one card; the last
 line names it.
@@ -63,7 +71,14 @@ def case_name(kind, a, b, S, A, B, net):
     return f'{name}{list(net)},B={B}'
 
 
-GROUPS = ('chunks', 'k11b', 'k4', 'k1', 'k3', 'k2')
+GROUPS = ('chunks', 'k11b', 'k4', 'k1', 'k3', 'k2', 'k6', 'critic')
+K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVecEnv', 'ddpg'),
+            ('CartPole-v1', 'dqn'), ('CartPole-v1', 'dqn_enc'), ('CartPole-v1', 'dqn_duel'),
+            ('PointChasingDiscreteEnv', 'dqn'), ('PointChasingDiscreteEnv', 'dqn_enc'),
+            ('PointChasingDiscreteEnv', 'dqn_duel'),
+            ('Pendulum-v1', 'sac'), ('HopperSlip-v0', 'sac'), ('PointChasingVecEnv', 'sac'),
+            ('Pendulum-v1', 'modsac'), ('HopperSlip-v0', 'modsac'),
+            ('PointChasingVecEnv', 'modsac'))
 K11B_CASES = (((8, 128, 128, 2), 64), ((8, 128, 128, 2), 16384), ((8, 256, 256, 4), 64),
               ((8, 128, 128, 1), 64))
 K4_ENVS = (256, 4096)
@@ -145,7 +160,8 @@ def run_k4(torch, dev):
                                   reward_scale=2.0 ** -8, body=body, **extra)
             out = fn()
             results[f'stock_rollout[{n} envs,{mode}]'] = dict(
-                outs=[x.cpu() for x in out], ms=cuda_ms(torch, fn, 5, 1))
+                outs=[getattr(out, f).cpu() for f in out._fields if f != 'values'],
+                ms=cuda_ms(torch, fn, 5, 1))
     return results
 
 
@@ -184,6 +200,81 @@ def run_onpolicy_rollouts(torch, dev, groups):
             out = fn()
             results[f'fused_rollout[{body.env_name},{n} envs,{mode}]'] = dict(
                 outs=[x.cpu() for x in out], ms=cuda_ms(torch, fn, 10, 2))
+    return results
+
+
+def run_k6(torch, dev):
+    """K6/K6′: every (body, head) pair of ``K6_PAIRS`` and the stock body's
+    three heads, from seeded env rows, staggered step counters and noise."""
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    from elegantrl_tpu_torch.ops.nets import init_flat
+    stock = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    T = stock.tables.close.shape[0]
+    seed = torch.tensor([20260, -77], dtype=torch.int32, device=dev)
+    cases = [(fr.KERNEL_ENV_BODIES[e], h) for e, h in K6_PAIRS]
+    cases += [(stock, h) for h in ('ddpg', 'sac', 'modsac')]
+    results = {}
+    for body, head in cases:
+        S, A = body.state_dim, body.action_dim
+        cont = head in ('ddpg', 'sac', 'modsac')
+        n, h = (1024, 32) if cont else (64, 64)
+        heads = {'sac': [((128, 2 * A), 0.1)], 'modsac': [((128, A), 0.1)] * 2,
+                 'dqn_duel': [((128, A), 0.1), ((128, 1), 0.1)]}.get(head, [((128, A), 0.1)])
+        nets = ([((S, 128, 128, A), 0.1)] if head in ('ddpg', 'dqn')
+                else [((S, 128, 128), None)] + heads)
+        flat = init_flat(torch.Generator().manual_seed(7), nets, dev)
+        g = torch.Generator(device=dev).manual_seed(31)
+        if body is stock:
+            f0 = body.pack(StockTradingVecEnv(num_envs=1)._def.init(g, n, dev))[0].contiguous()
+            i0 = torch.full((1, n), T - 17, dtype=torch.int32, device=dev)
+        else:
+            f0 = (torch.rand((body.n_f32, n), generator=g, device=dev) * 0.1).contiguous()
+            if body is fr.HOPPER_BODY:
+                f0[1], f0[5] = 0.9, 0.55
+            if body in (fr.CHASING_BODY, fr.CHASING_DISCRETE_BODY):
+                f0[4:6], f0[8] = -8.0, 11.3
+            i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % 200)[None].contiguous()
+        n_env = body.n_step + body.n_reset
+        first = (torch.randn((h, A, n), generator=g, device=dev) if cont
+                 else torch.rand((h, 2, n), generator=g, device=dev))
+        nz = torch.cat([first, torch.rand((h, n_env, n), generator=g, device=dev)], 1).contiguous()
+        kw = dict(body=body, head=head, net_dims=(128, 128), reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25, std_clip=(-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0))
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            def fn():
+                return fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            out = fn()
+            results[f'offpolicy_rollout[{body.env_name},{head},{n} envs,{mode}]'] = dict(
+                outs=[x.cpu() for x in out], ms=cuda_ms(torch, fn, 10, 2))
+    return results
+
+
+def run_critic(torch, dev):
+    """The critic pass on seeded states that meet its precondition: random
+    lane rows, and the market rows of one seeded day a step on every lane."""
+    from elegantrl_tpu_torch import Config
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    body = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    S, A = body.state_dim, body.action_dim
+    close, tech = body.tables.on(dev)
+    st = make_ppo((128, 128), S, A, Config()).init(0, dev)
+    g = torch.Generator(device=dev).manual_seed(43)
+    avg = torch.rand(S, generator=g, device=dev) * 0.4 - 0.2
+    std = torch.rand(S, generator=g, device=dev) + 0.7
+    results = {}
+    for n in K4_ENVS:
+        days = torch.randint(0, close.shape[0], (128,), generator=g, device=dev)
+        market = torch.cat([close[days] * 2.0 ** -7, tech[days] * 2.0 ** -6], 1)   # (H, 135)
+        states = torch.cat([torch.rand((128, 1 + A, n), generator=g, device=dev) * 2 - 1,
+                            market[:, :, None].expand(128, S - 1 - A, n)], 1).contiguous()
+
+        def fn():
+            return fr.critic_values(st.cri_flat, avg, std, states, net_dims=(128, 128))
+        results[f'critic_values[{n} envs]'] = dict(outs=[fn().cpu()],
+                                                   ms=cuda_ms(torch, fn, 10, 2))
     return results
 
 
@@ -293,6 +384,10 @@ def run_side(root, out_path, groups):
         results.update(run_onpolicy_rollouts(torch, dev, groups))
     if 'k2' in groups:
         results.update(run_k2(torch, dev))
+    if 'k6' in groups:
+        results.update(run_k6(torch, dev))
+    if 'critic' in groups:
+        results.update(run_critic(torch, dev))
     for case in (CASES if 'chunks' in groups else ()):
         fn, base, blocks, bcv, hyper = inputs(*case)
         bufs = [None if x is None else x.clone() for x in base]

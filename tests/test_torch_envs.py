@@ -104,7 +104,7 @@ def test_vec_step_masked_reset():
 
 
 def test_vec_env_adapter():
-    env = PendulumEnv(num_envs=4, seed=0)
+    env = PendulumEnv(num_envs=4, seed=0, device='cpu')
     obs, _ = env.reset()
     assert obs.shape == (4, 3)
     obs, r, term, trunc, _ = env.step(np.zeros((4, 1), np.float32))

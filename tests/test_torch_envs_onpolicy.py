@@ -244,7 +244,8 @@ def test_init_matches_jax_init_in_distribution(name):
 def test_vec_env_adapter_and_build_env(name):
     case = CASES[name]
     spec = case['make']().spec
-    env = build_env(case['env_class'], {'num_envs': 4, 'seed': 3, 'max_step': spec.max_step})
+    env = build_env(case['env_class'], {'num_envs': 4, 'seed': 3, 'max_step': spec.max_step,
+                                           'device': 'cpu'})
     env_args = get_gym_env_args(env, if_print=False)
     assert env_args == {'env_name': spec.env_name, 'num_envs': 4, 'max_step': spec.max_step,
                         'state_dim': spec.state_dim, 'action_dim': spec.action_dim,
@@ -284,9 +285,9 @@ def test_grid_action_decodes_base_three():
 
 
 def test_single_env_and_other_dims():
-    env = PointChasingEnv(seed=1)
+    env = PointChasingEnv(seed=1, device='cpu')
     assert env.num_envs == 1 and env.reset()[0].shape == (1, 8)
-    env3 = PointChasingVecEnv(dim=3, env_num=5)
+    env3 = PointChasingVecEnv(dim=3, env_num=5, device='cpu')
     assert env3.state_dim == 12 and env3.action_dim == 3
     obs, r, term, _, _ = env3.step(np.zeros((5, 3), np.float32)) if env3.reset() else None
     assert obs.shape == (5, 12) and math.isfinite(float(r.sum())) and not term.any()

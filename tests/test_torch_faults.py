@@ -1,8 +1,9 @@
 """Settings and names of the JAX package that the port used to drop or
 ignore without a word: the off-policy rollout's compute type, the
 evaluator's TensorBoard scalars, ``if_remove=None``, the packages' public
-names, ``mesh_axes``, the CUDA sources as package data and where their
-libraries are built.  Each is held against the JAX package where it has the
+names, ``mesh_axes``, the CUDA sources as package data, where their
+libraries are built, and the env classes' device (the card unless the
+caller asks for the CPU, as ``Config``).  Each is held against the JAX package where it has the
 behaviour (the TensorBoard tags and values, the prompt, the names)."""
 import builtins
 import fnmatch
@@ -180,3 +181,16 @@ def test_build_dir_in_a_checkout_and_installed(tmp_path, monkeypatch):
     assert _cuda_build.build_dir(site) == (tmp_path / 'home' / '.cache' / 'elegantrl_tpu_torch'
                                            / 'kernels')
     assert os.access(tmp_path, os.W_OK)
+
+
+def test_env_classes_default_to_the_card(monkeypatch):
+    """An env runs where ``Config`` does: on the card unless ``device='cpu'``
+    is given.  Without a GPU its first ``reset`` raises, naming the way out;
+    building it to read its definition touches no device."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    env = PendulumEnv(num_envs=2)
+    assert env.device.type == 'cuda' and env._def.spec.state_dim == 3
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env.reset()
+    obs, _ = PendulumEnv(num_envs=2, device='cpu').reset()
+    assert obs.shape == (2, 3) and obs.device.type == 'cpu'

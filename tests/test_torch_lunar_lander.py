@@ -133,7 +133,7 @@ def test_auto_reset():
     (LunarLanderContinuousEnv, 'LunarLanderContinuous-v2', 2, False)])
 def test_vec_env_protocol(cls, name, A, discrete):
     env = build_env(cls, {'env_name': name, 'num_envs': 3, 'state_dim': 8, 'action_dim': A,
-                          'if_discrete': discrete})
+                          'if_discrete': discrete, 'device': 'cpu'})
     assert (env.env_name, env.num_envs, env.max_step, env.state_dim, env.action_dim,
             env.if_discrete) == (name, 3, 12345, 8, A, discrete)
     assert env.spec.max_step == 1000 and env._def.kernel_body is None

@@ -80,30 +80,30 @@ def _std_clip(head):
     return (-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0)
 
 
-def _agent_state(body, kind, seed):
+def _agent_state(body, kind, seed, net_dims=NET_DIMS):
     """The JAX agent's initial state and the port's flat buffer of it."""
     args = JConfig()
     S, A = body.state_dim, body.action_dim
     if kind in ('td3', 'ddpg'):
-        s = jmake_ddpg_td3(NET_DIMS, S, A, args, None, td3=kind == 'td3').init(
+        s = jmake_ddpg_td3(net_dims, S, A, args, None, td3=kind == 'td3').init(
             jax.random.PRNGKey(seed))
         return s, ddpg_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu').act
     if kind in ('sac', 'modsac'):
-        s = jmake_sac(NET_DIMS, S, A, args, None, modsac=kind == 'modsac').init(
+        s = jmake_sac(net_dims, S, A, args, None, modsac=kind == 'modsac').init(
             jax.random.PRNGKey(seed))
         return s, sac_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu', kind == 'modsac').act
     twin, duel = kind
-    s = jmake_dqn(NET_DIMS, S, A, args, twin=twin, duel=duel).init(jax.random.PRNGKey(seed))
+    s = jmake_dqn(net_dims, S, A, args, twin=twin, duel=duel).init(jax.random.PRNGKey(seed))
     return s, dqn_state_from_numpy(jax.tree.map(np.asarray, s), 'cpu', twin, duel).q
 
 
-def _noise(body, head, key):
+def _noise(body, head, key, h=H):
     n_env = body.n_step + body.n_reset
     if head not in fr.CONTINUOUS_HEADS:
-        return jax.random.uniform(key, (H, 2 + n_env, N), jnp.float32)
+        return jax.random.uniform(key, (h, 2 + n_env, N), jnp.float32)
     kz, ku = jax.random.split(key)
-    return jnp.concatenate([jax.random.normal(kz, (H, body.action_dim, N), jnp.float32),
-                            jax.random.uniform(ku, (H, n_env, N), jnp.float32)], axis=1)
+    return jnp.concatenate([jax.random.normal(kz, (h, body.action_dim, N), jnp.float32),
+                            jax.random.uniform(ku, (h, n_env, N), jnp.float32)], axis=1)
 
 
 @pytest.fixture(scope='module', params=list(CASES))
@@ -190,7 +190,76 @@ def test_philox_mode_is_injected_mode_on_its_draws(case):
     (fr.PENDULUM_BODY, 'dqn', False), (fr.CARTPOLE_BODY, 'sac', False),
     (fr.HOPPER_BODY, 'sac', True), (fr.CHASING_BODY, 'sac', True),
     (fr.PENDULUM_BODY, 'modsac', True), (fr.HOPPER_BODY, 'modsac', True),
-    (fr.CHASING_DISCRETE_BODY, 'modsac', False)])
+    (fr.CHASING_DISCRETE_BODY, 'modsac', False),
+    # on a simulated card: TD3 and SAC on HopperSlip and DQN on CartPole take
+    # the kernel at (256, 256); one width past the limit raises, naming it
+    (fr.HOPPER_BODY, 'sac', 'takes (256, 256) on a card'),
+    (fr.HOPPER_BODY, 'ddpg', 'raises past the limit on a card')])
 def test_kernel_pairs(body, head, fits):
-    """The kernel has the fifteen (body, head) pairs whose action spaces match."""
-    assert fr.offpolicy_pair_fits(body, head) == fits
+    """The kernel has the fifteen (body, head) pairs whose action spaces
+    match, at every width the JAX runner sends its kernel up to what a
+    cluster of blocks holds (576 on HopperSlip and CartPole)."""
+    assert fr.offpolicy_pair_fits(body, head) == bool(fits)
+    if isinstance(fits, bool):
+        return
+    from elegantrl_tpu_torch import Config
+    from elegantrl_tpu_torch.agents import AgentDQN, AgentSAC, AgentTD3
+    from elegantrl_tpu_torch.envs import CartPoleEnv, HopperEnv
+    from elegantrl_tpu_torch.train import runner
+    hopper = (HopperEnv, {'env_name': 'HopperSlip-v0', 'max_step': 1000, 'state_dim': 6,
+                          'action_dim': 2, 'if_discrete': False})
+    cartpole = (CartPoleEnv, {'env_name': 'CartPole-v1', 'max_step': 500, 'state_dim': 4,
+                              'action_dim': 2, 'if_discrete': True})
+
+    def on_a_card(agent_class, env, net_dims, num_envs, horizon):
+        args = Config(agent_class, env[0], dict(env[1], num_envs=num_envs))
+        args.net_dims, args.horizon_len, args.device = net_dims, horizon, 'cuda'
+        args.compute_dtype = 'float32'   # 'auto' takes bf16 from 512, which the port refuses
+        env_def = runner._resolve_env_def(args)
+        agent = runner._make_agent(args, None)
+        return runner._maybe_fused_rollout(args, env_def, agent, torch.device('cuda'), num_envs,
+                                           horizon, 1.0)
+    if fits == 'takes (256, 256) on a card':
+        for agent_class, env, n, h in ((AgentTD3, hopper, 1024, 32), (AgentSAC, hopper, 1024, 32),
+                                       (AgentDQN, cartpole, 64, 64)):
+            assert on_a_card(agent_class, env, (256, 256), n, h) is not None, agent_class
+        return
+    assert fr.offpolicy_fits(body, head, (576, 576)) and not fr.offpolicy_fits(body, head,
+                                                                              (580, 580))
+    with pytest.raises(ValueError, match='square widths up to 576'):
+        on_a_card(AgentTD3, hopper, (580, 580), 1024, 32)
+
+
+@pytest.mark.parametrize('case', ['sac_hopper', 'dqn_cartpole'])
+def test_wide_plain_matches_pallas_kernel(case):
+    """At (256, 256), a width the card's kernel now takes (a cluster of
+    blocks holds the net's slices), the plain version against the JAX
+    kernel in interpret mode over 4 steps, with the tolerances above."""
+    env_name, jbody, body, state_class, head, kind = CASES[case]
+    wide, h = (256, 256), 4
+    js, flat = _agent_state(jbody, kind, seed=5, net_dims=wide)
+    env = ENVS[env_name]()
+    env_state = _stagger(env_name, jax.vmap(env.init)(jax.random.split(jax.random.PRNGKey(9), N)))
+    fast = jpr.make_fused_offpolicy_rollout(
+        jbody, wide, h, N, REWARD_SCALE, head=head,
+        head_cfg={'noise_std': NOISE_STD, 'explore_rate': EXPLORE_RATE,
+                  'std_clip': _std_clip(head)}, block=8, interpret=True)
+    key = jax.random.PRNGKey(4)
+    jro, jenv2, _ = fast(js, env_state, jax.vmap(env.obs)(env_state), key)
+    jro = jax.tree.map(np.asarray, jro)
+    f0, i0 = body.pack(env_state_from_numpy(state_class, jax.tree.map(np.asarray, env_state),
+                                            'cpu'))
+    got = fr.offpolicy_rollout(flat, f0, i0, body=body, head=head, net_dims=wide, horizon_len=h,
+                               reward_scale=REWARD_SCALE, noise_std=NOISE_STD,
+                               explore_rate=EXPLORE_RATE, std_clip=_std_clip(head),
+                               noise=torch.tensor(np.asarray(_noise(jbody, head, key, h))))
+    np.testing.assert_allclose(got.states.numpy(), jro.states, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.rewards.numpy(), jro.rewards, rtol=0, atol=1e-5)
+    if head in fr.CONTINUOUS_HEADS:
+        np.testing.assert_allclose(got.actions.numpy(), jro.actions, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.actions.numpy(), jro.actions)
+    np.testing.assert_array_equal(1.0 - got.terminals.numpy(), jro.undones)
+    jf, ji = jbody.pack(jenv2)
+    np.testing.assert_allclose(got.env_f.numpy(), np.asarray(jf), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.env_i.numpy(), np.asarray(ji).reshape(got.env_i.shape))

@@ -94,6 +94,11 @@ GRID = {
     # rollout kernel stops at (320, 320): there the card raises
     'pendulum_512_b512': ('ppo', 'pendulum', (512, 512), 1024, 64, 512, 8,
                           {'compute_dtype': 'float32'}),
+    # the stock rollout at widths its first critic pass refused (its whole
+    # critic in one block), and past the new limit (the actor kernel's
+    # slices: 448), where the card raises
+    'ppo_stock_256': ('ppo', 'stock', (256, 256), 256, 128, 512, 8),
+    'ppo_stock_452': ('ppo', 'stock', (452, 452), 256, 128, 512, 8),
 }
 
 
@@ -165,7 +170,7 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         setattr(args, k, getattr(env.spec, k))
     agent = runner._make_agent(args, None)
     port_update = any(out for flag, out in chosen if flag == 'use_fused_update')
-    if case == 'pendulum_512_b512':
+    if case in ('pendulum_512_b512', 'ppo_stock_452'):
         assert jax_rollout and jax_update and port_update
         with pytest.raises(ValueError, match='cluster of 8 blocks'):
             runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
@@ -180,7 +185,7 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         assert jax_rollout and not jax_update
     if case == 'ppo_lunarlander_cont':
         assert not jax_rollout and jax_update
-    if case in ('pendulum_256', 'cartpole_256'):
+    if case in ('pendulum_256', 'cartpole_256', 'ppo_stock_256'):
         assert jax_rollout and fast is not None
 
 

@@ -156,7 +156,7 @@ def test_cash_constraint():
 def test_vec_env_reports_cumulative_returns():
     """The property reads the state's per-env record, as the JAX package's:
     0 before a reset, then one value per env (0 until an episode ends)."""
-    env = StockTradingVecEnv(num_envs=4, end_idx=6)
+    env = StockTradingVecEnv(num_envs=4, end_idx=6, device='cpu')
     jenv = jst.StockTradingVecEnv(num_envs=4, end_idx=6)
     assert env.cumulative_returns == jenv.cumulative_returns == 0.0
     env.reset()

@@ -210,7 +210,9 @@ def test_reset_draws():
 def test_stock_kernel_fits_the_recipes_widths():
     """The stock body at the recipes' (128, 128): the actor kernel's largest
     layout (one block a lane group) and the critic pass each fit a block,
-    and a cluster of c blocks holds 1/c of W2 (64 of its rows at c = 2)."""
+    and a cluster of c blocks holds 1/c of W2 (64 of its rows at c = 2).  At
+    (256, 256) the actor takes a cluster of 2 or more and the critic pass
+    streams W2, so both fit; past (448, 448) the actor's slices do not."""
     body = st.StockTradingVecEnv(num_envs=1)._def.kernel_body
     S, A = body.state_dim, body.action_dim
     assert fr.rollout_fits(body, (128, 128))
@@ -218,6 +220,10 @@ def test_stock_kernel_fits_the_recipes_widths():
     assert sizes[0] <= fr.SMEM_LIMIT and sizes == sorted(sizes, reverse=True)
     assert sizes[0] - sizes[1] > 4 * 128 * 64     # W2's rows halve
     assert not fr.rollout_fits(body, (1024, 1024))
+    wide = [fr.actor_smem_bytes(S, (256, 256), A, c) for c in (1, 2, 4, 8)]
+    assert wide[0] > fr.SMEM_LIMIT >= min(wide) and fr.rollout_fits(body, (256, 256))
+    assert fr.critic_smem_bytes((256, 256)) <= fr.SMEM_LIMIT
+    assert fr.rollout_fits(body, (448, 448)) and not fr.rollout_fits(body, (452, 452))
 
 
 def test_other_stock_count_is_refused_on_a_card_with_the_reason(tmp_path):

@@ -16,7 +16,9 @@ rollout (K1/K3, thread-block clusters, up to (320, 320)) and the PPO update
   critic's gradient but not on the actor's; the test also checks that the
   Adam step of twice the JAX gradient falls outside both bounds.
 - The Python copies of the kernels' shared-memory reckoning against the
-  sources: the rollout's ``RolloutLayout`` evaluated from the text of
+  sources: the rollout's ``RolloutLayout``, the off-policy rollout's
+  ``OffLayout`` (and the stock body's ``StockActorLayout`` under each head)
+  and the critic pass's ``CriticLayout``, each evaluated from the text of
   ``csrc/fused_rollout.cu``, the split-K rule of ``cm::tile_dense``, and the
   update's fixed shared memory (``gg::Smem``) and phase count.
 """
@@ -180,6 +182,79 @@ def _layout_floats(text, S, A, NH, NE, D1, D2, c):
     return env['o']
 
 
+def _struct_floats(text, ctor, **env):
+    """``<ctor>(...).floats`` evaluated from the constructor's text in
+    ``csrc/fused_rollout.cu``, its parameters and constants given in ``env``."""
+    body = text[text.index(f'__host__ __device__ {ctor}('):]
+    body = body[body.index('{') + 1:body.index('floats = o;')]
+    body = re.sub(r'//[^\n]*', '', body).replace('cm::', '').replace('int o', 'o')
+    body = re.sub(r'(?:constexpr|const) int ([^;]*);',   # 'const int a = x, b = y;': one
+                  lambda m: re.sub(r',\s*(\w+)\s*=', r'; \1 =', m.group(1)) + ';', body)
+    body = body.replace('/', '//')                            # C's integer division
+    for name, value in (('S_LANE', 16), ('NS', 15), ('S', 151), ('A', 15)):  # StockBody's
+        body = body.replace(f'StockBody::{name}', str(value))
+    scope = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
+             'max': max, 'tile_scratch': fr.tile_scratch, 'round64': lambda n: -(-n // 64) * 64,
+             'TE': 32, 'SCRATCH': 256 * 16, 'CNC': fr._CNC, 'CKT': fr._CKT, 'CLD': fr._CLD,
+             'CKLD': fr._CKLD, **env}
+    for stmt in ' '.join(body.split()).split(';'):
+        if stmt.strip():
+            exec(stmt.strip(), scope)
+    return scope['o']
+
+
+@pytest.mark.parametrize('dims', [(128, 128), (256, 256), (64, 96), (576, 576), (8, 40)],
+                         ids=lambda d: f'{d[0]}x{d[1]}')
+def test_offpolicy_layout_copy_matches_the_source(dims):
+    """K6/K6′'s ``OffLayout`` for every (body, head) pair and the stock actor
+    kernel's ``StockActorLayout`` under each off-policy head, at every
+    cluster size, against ``offpolicy_smem_bytes``."""
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    text = (CSRC / 'fused_rollout.cu').read_text()
+    lanes = int(re.search(r'constexpr int OFF_LANES = (\d+);', text).group(1))
+    assert lanes == fr.OFF_LANES
+    for body in fr.KERNEL_ENV_BODIES.values():
+        for head in fr.OFFPOLICY_HEADS:
+            if not fr.offpolicy_pair_fits(body, head):
+                continue
+            A = body.action_dim
+            for c in fr.ROLLOUT_CLUSTERS:
+                want = 4 * _struct_floats(
+                    text, 'OffLayout', S=body.state_dim, A=A, O=fr.offpolicy_out_rows(A, head),
+                    NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
+                    NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c, G=lanes)
+                assert fr.offpolicy_smem_bytes(body, dims, head, c) == want, (body.env_name,
+                                                                              head, c)
+    stock = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    for head in fr.CONTINUOUS_HEADS:
+        for c in fr.ROLLOUT_CLUSTERS:
+            op = _round4(30 if head in ('sac', 'modsac') else 15)
+            want = 4 * _struct_floats(text, 'StockActorLayout', D1=dims[0], D2=dims[1], c=c,
+                                      OP=op)
+            assert fr.offpolicy_smem_bytes(stock, dims, head, c) == want, (head, c)
+            if head == 'ddpg':   # the on-policy head has the ddpg head's rows
+                assert fr.actor_smem_bytes(151, dims, 15, c) == want
+
+
+@pytest.mark.parametrize('dims', [(128, 128), (256, 256), (320, 320), (448, 448), (576, 64),
+                                  (96, 40)], ids=lambda d: f'{d[0]}x{d[1]}')
+def test_critic_layout_copy_matches_the_source(dims):
+    """The critic pass's ``CriticLayout`` at both tiles (and its constants)
+    against ``critic_smem_bytes``: 128 samples fit a block up to a first
+    width of 320, 64 up to 576, so the critic takes every width the stock
+    actor kernel takes (448)."""
+    text = (CSRC / 'fused_rollout.cu').read_text()
+    for name, value in (('CNC', fr._CNC), ('CKT', fr._CKT)):
+        assert f'constexpr int {name} = {value};' in text, name
+    for ct in (128, 64):
+        assert fr.critic_smem_bytes(dims, ct) == 4 * _struct_floats(
+            text, 'CriticLayout', D1=dims[0], D2=dims[1], CT=ct)
+    assert (fr.critic_smem_bytes(dims, 128) <= fr.SMEM_LIMIT) == (dims[0] <= 320)
+    assert fr.critic_smem_bytes(dims) == fr.critic_smem_bytes(dims, 128 if dims[0] <= 320 else 64)
+    assert fr.critic_smem_bytes(dims) <= fr.SMEM_LIMIT
+    assert fr.critic_smem_bytes((580, 64)) > fr.SMEM_LIMIT
+
+
 @pytest.mark.parametrize('dims', [(128, 128), (256, 256), (64, 96), (320, 320), (8, 40)],
                          ids=lambda d: f'{d[0]}x{d[1]}')
 def test_rollout_layout_copy_matches_the_source(dims):
@@ -234,6 +309,47 @@ def test_rollout_cluster_pick_is_asked_once_per_shape(monkeypatch):
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
     assert asked == [(body.kernel_id, n, 128, 128, 0) for n in (1024, 1024, 256, 7, 7)]
+
+
+def test_stock_actor_cluster_pick_is_asked_once_per_shape(monkeypatch):
+    """For the stock body the kept pick is the stock actor kernel's
+    (``stock_rollout_cluster``), per envs, widths and device."""
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    asked = []
+
+    class Lib:
+        def stock_rollout_cluster(self, n, d1, d2, cluster):
+            asked.append((n, d1, d2, cluster))
+            return 0 if n == 7 else 8
+
+    monkeypatch.setattr(fr, '_CLUSTER_PICKS', {})
+    body, lib = StockTradingVecEnv(num_envs=1)._def.kernel_body, Lib()
+    dev0 = torch.device('cuda', 0)
+    assert [fr._rollout_cluster(lib, body, 4096, 128, 128, dev0) for _ in range(3)] == [8] * 3
+    assert fr._rollout_cluster(lib, body, 256, 256, 256, dev0) == 8
+    assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
+    assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
+    assert asked == [(4096, 128, 128, 0), (256, 256, 256, 0), (7, 128, 128, 0), (7, 128, 128, 0)]
+
+
+def test_offpolicy_cluster_pick_is_asked_once_per_shape(monkeypatch):
+    """The off-policy wrapper keeps the kernel's cluster pick per (body,
+    head, envs, widths, device), as the on-policy one."""
+    asked = []
+
+    class Lib:
+        def offpolicy_rollout_cluster(self, body_id, head_id, n, d1, d2, cluster):
+            asked.append((body_id, head_id, n, d1, d2, cluster))
+            return 0 if n == 7 else 2
+
+    monkeypatch.setattr(fr, '_OFF_CLUSTER_PICKS', {})
+    body, lib, dev0 = fr.HOPPER_BODY, Lib(), torch.device('cuda', 0)
+    assert [fr._offpolicy_cluster(lib, body, 0, 1024, 128, 128, dev0) for _ in range(3)] == [2] * 3
+    assert fr._offpolicy_cluster(lib, body, 4, 1024, 128, 128, dev0) == 2
+    assert fr._offpolicy_cluster(lib, body, 0, 7, 128, 128, dev0) == 0
+    assert fr._offpolicy_cluster(lib, body, 0, 7, 128, 128, dev0) == 0
+    assert asked == [(body.kernel_id, h, n, 128, 128, 0) for h, n in ((0, 1024), (4, 1024),
+                                                                       (0, 7), (0, 7))]
 
 
 class _Smem(ctypes.Structure):  # gg::Smem, csrc/grid_gemm.cuh
