@@ -29,13 +29,22 @@ PyTorch version:
    CartPole likewise at (256, 256) (``k13_vs_plain_wide``); the Gumbel-max
    sample and the chasing reset's normals, statistically;
 7. fused PPO update, discrete head, at U=1 and U=32, B=512, A=2 and A=9
-   (and K2 at the stock widths), with the checks of 5;
+   (and K2 at the stock widths), with the checks of 5; then the bf16
+   variants of K1/K3 (bf16 weight slices and tiles, f32 sums) against the
+   plain version in bf16, both storage types, at (128, 128), (128, 64) and
+   (512, 512) (``k1_bf16_vs_plain``, ``k3_bf16_vs_plain``, ``BF16_TOL``);
 8. the Pendulum main path: ``build_training`` at the bench config (4096
    envs, H=64, B=512, repeat 8, (128, 128)), one small round against the
    same round on the CPU, then 10 timed rounds with the launch counts reset
    just before them; the card refuses every plain path where the JAX
    package takes a kernel;
 9. the CartPole main path, ``AgentDiscretePPO`` at the same sizes, likewise;
+   then the bf16 main paths: ``main_path_bf16`` (``ppo_pendulum_bf16``'s
+   shape), ``main_path_cartpole_bf16_storage`` and ``main_path_wide_auto``
+   (PPO at (512, 512) with the default ``compute_dtype='auto'``), each 10
+   rounds through the K1/K3 bf16 variant, K10 and the autograd update (no
+   K2, no K11b, as the JAX package under bf16), and the card raising past
+   the widest bf16 width (``bf16_width_limit``);
 10. the entry point: ``train_agent`` for PPO on Pendulum and discrete PPO on
     CartPole (two evaluation periods each) and, shorter, A2C on Pendulum,
     PPO on HopperSlip, PPO on PointChasing and discrete A2C on
@@ -47,7 +56,8 @@ PyTorch version:
     discrete ones, against their plain version (``k6_vs_plain``, both noise
     modes, two runs bitwise equal, the time at each cluster size), TD3 and
     SAC on HopperSlip and DQN on CartPole at (256, 256)
-    (``k6_vs_plain_wide``), the DQN-family update chunk's four variants (``k9_vs_plain``),
+    (``k6_vs_plain_wide``), the bf16 variant of every pair in both storage
+    types (``k6_bf16_vs_plain``), the DQN-family update chunk's four variants (``k9_vs_plain``),
     the DDPG/TD3 chunk (``k7_vs_plain``; ``k7_vs_plain_wide``: TD3 at (256,
     256) with B = 512 and DDPG at (1024, 1024) with B = 128, workloads the
     JAX package sends to its chunk) and the SAC/ModSAC chunk
@@ -59,7 +69,10 @@ PyTorch version:
     repeat 4), DQN on CartPole (64 envs, H=64, ring 20,000 rows, batch 128,
     repeat 1) and SAC on HopperSlip (path A's sizes, E = 4), each with a
     small round against the CPU, the ring filled by kernel rollouts inserted
-    without updates, then 10 timed rounds; ``train_agent`` for every
+    without updates, then 10 timed rounds, and path A with bf16 compute
+    (``main_path_td3_hopper_bf16``: K6's bf16 variant, K7) and with bf16
+    compute and storage (``main_path_td3_hopper_bf16_storage``: the bf16
+    ring and the autograd update); ``train_agent`` for every
     off-policy agent class (SAC and ModSAC on all three continuous bodies,
     SAC on Pendulum at batch 64 through the PyTorch update); the card
     refusing the plain update;
@@ -94,8 +107,11 @@ PyTorch version:
     the autograd update, 0 K2); ``train_agent`` for PPO (the evaluator
     reporting ``cumulative_returns``), TD3, SAC and ModSAC on the stock env;
 14. LunarLander and the kernels of ``ops/kernels.py`` (``lunar_phases``):
-    K10, the V-trace recursion, bitwise against its plain loop at 256 x 64,
-    64 x 4096 and 37 x 1000 (``k10_vs_plain``); K11a, the replay gather, one
+    K10, the V-trace recursion, bitwise against its plain version at 256 x
+    64, 64 x 4096, 37 x 1000 and 2048 x 4096, alone and with the truncation
+    bootstrap and the reward sums folded in, call and device time
+    (``k10_vs_plain``), and the PPO advantage step's device kernels before
+    and after the fold (``k10_advantage_step``); K11a, the replay gather, one
     launch for all six fields of a chunk (states and next states in the
     (C, S, B) layout), bitwise against ``buf[ids0, ids1]`` at
     ``dqn_lunarlander``'s row chunk and path D's chunk, int64 and int32 ids,
@@ -136,9 +152,12 @@ ROUNDS = 10
 
 # Published dense peaks of the H100 SXM part (NVIDIA data sheet, 700 W):
 # FP32 on the CUDA cores, TFLOP/s, and HBM bandwidth, TB/s; TF32 on the
-# tensor cores, TFLOP/s (the critic pass's split-3xTF32 products).
+# tensor cores, TFLOP/s (the critic pass's split-3xTF32 products); dense
+# bf16 on the tensor cores, TFLOP/s (the bf16 variants' bound: their
+# products take bf16 operands, which the card multiplies at that rate).
 H100_SXM_PEAKS = (67.0, 3.35)
 H100_TF32_TFLOPS = 495.0
+H100_BF16_TFLOPS = 989.0
 
 
 def emit(**kw):
@@ -177,39 +196,48 @@ def cuda_ms(torch, fn, reps, warmup=1):
 
 
 def profiled_ms(torch, fn, reps, kernel_name):
-    """Mean device ms per call of the kernels whose name holds
-    ``kernel_name``, from ``torch.profiler`` over ``reps`` calls (after one
-    warm-up); raises when the trace holds none (no device time traced)."""
+    """Mean device ms per launch of the kernels whose name holds
+    ``kernel_name`` (one a call where it is used), from ``torch.profiler``
+    over ``reps`` calls after one warm-up.  A trace can come back without
+    some of its device events (the profiler warns that it clears events at
+    the end of a cycle), so the mean is over the launches the trace holds,
+    and a trace holding none is taken again, up to three times; then it
+    raises (no device time traced)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name)
-    assert total > 0, f'the profiler traced no device time for {kernel_name}'
-    return total / 1e3 / reps
-
-
-def device_kernels(torch, fn, reps=3):
-    """The names of the CUDA kernels ``reps`` calls of ``fn`` launch (memsets
-    and copies left out), from ``torch.profiler``; a trace that came back
-    with no device event at all is taken once more."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        device = [ev.name for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if device:
-            break
-    return [n for n in device if not n.startswith(('Memset', 'Memcpy', '[memory]'))]
+        times = [ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name]
+        if times:
+            return sum(times) / 1e3 / len(times)
+    raise AssertionError(f'the profiler traced no device time for {kernel_name}')
+
+
+def device_kernels(torch, fn, reps=3, traces=3):
+    """The names of the CUDA kernels ``reps`` calls of ``fn`` launch (memsets
+    and copies left out), from ``torch.profiler``.  A trace can come back
+    without some of its device events, never with an extra one, so of
+    ``traces`` traces the one holding the most is kept."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not ev.name.startswith(('Memset', 'Memcpy', '[memory]'))]
+        if len(names) > len(best):
+            best = names
+    return best
 
 
 # ---------------------------------------------------------------- off-policy
@@ -235,6 +263,14 @@ K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVe
             ('PointChasingVecEnv', 'modsac'))
 # the update chunks' main-path variant for each rollout head
 CHUNK_VARIANT = {'ddpg': 'td3', 'dqn': 'dqn', 'sac': 'sac'}
+# the bf16 variants, and the float32 kernels with bf16 storage, against
+# their plain versions so (k6_bf16_vs_plain and the on-policy
+# check_reduced say why): whole trajectories, a lane parted beyond 5e-2, at
+# most 1% of the lanes (at least one) parted; one step from every visited
+# state within 1e-2, at most 1% of the samples beyond 1e-4, at most 1%
+# threshold flips
+BF16_TOL = {'trajectory': 5e-2, 'share_parted': 0.01, 'one_step': 1e-2,
+            'share_over_1e4': 0.01, 'flip_share': 0.01}
 
 
 def std_clip(head):
@@ -249,12 +285,13 @@ def offpolicy_smem_pairs():
     out = {}
     for env_name, head in K6_PAIRS:
         body = fr.KERNEL_ENV_BODIES[env_name]
-        for dims in (OFF_NET, (256, 256), (96, 160)):
+        for dims in (OFF_NET, (256, 256), (96, 160), (512, 512)):
             for c in fr.ROLLOUT_CLUSTERS:
-                out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c}]'] = (
-                    fr._library().offpolicy_rollout_smem_bytes(
-                        body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c),
-                    fr.offpolicy_smem_bytes(body, dims, head, c))
+                for bf in (0, 1):
+                    out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c},bf16={bf}]'] = (
+                        fr._library().offpolicy_rollout_smem_bytes(
+                            body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf),
+                        fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)))
     out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
     out['ddpg_update'] = (fo._ddpg_library().ddpg_update_smem_bytes(), fo.DDPG_SMEM_BYTES)
     out['sac_update'] = (fo._sac_library().sac_update_smem_bytes(), fo.SAC_SMEM_BYTES)
@@ -280,7 +317,7 @@ def stock_smem_pairs():
             for head in fr.CONTINUOUS_HEADS:
                 out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{dims},cluster={c}]'] = (
                     lib.offpolicy_rollout_smem_bytes(body.kernel_id, fr.OFFPOLICY_HEADS[head],
-                                                     *dims, c),
+                                                     *dims, c, 0),
                     fr.offpolicy_smem_bytes(body, dims, head, c))
         out[f'critic_values[{dims}]'] = (lib.critic_values_smem_bytes(*dims),
                                          fr.critic_smem_bytes(dims))
@@ -364,15 +401,21 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                 worst = torch.maximum(worst, d.amax(-1) if d.dim() == 3 else d)
         return bad | (worst > tol), worst
 
-    def k6_bound(body, head, n, h, n_params, dims=OFF_NET):
+    def k6_bound(body, head, n, h, n_params, dims=OFF_NET, tflops=None, store=False):
+        """At the FP32 CUDA-core rate, or at ``tflops`` (the bf16 variant: the
+        dense bf16 tensor rate); ``store``: states and float actions written
+        as bf16."""
         S, A = body.state_dim, body.action_dim
         D1, D2 = dims
         out_rows = {'dqn_duel': A + 1, 'sac': 2 * A, 'modsac': 2 * A}.get(head, A)
         flop = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
         rows = body.n_f32 + body.n_i32
-        a_out = A if head in fr.CONTINUOUS_HEADS else 1
-        nbytes = 4 * (n_params + 2 + 2 * rows * n + n * h * (S + a_out + 3))
-        return bound(flop, nbytes)
+        cont = head in fr.CONTINUOUS_HEADS
+        a_out = A if cont else 1
+        nbytes = (4 * (n_params + 2 + 2 * rows * n)
+                  + n * h * ((2 if store else 4) * (S + (a_out if cont else 0))
+                             + 4 * (3 + (0 if cont else a_out))))
+        return bound(flop, nbytes, tflops)
 
     # ---- k6_vs_plain: each instantiation at its main path's envs and horizon
     # Tolerances as for the on-policy bodies (k3_vs_plain): whole trajectories
@@ -457,7 +500,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                  for c in fr.ROLLOUT_CLUSTERS
                  if fr.offpolicy_smem_bytes(body, OFF_NET, head, c) <= fr.SMEM_LIMIT}
         picked = fr._library().offpolicy_rollout_cluster(
-            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0)
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, 0)
         b_ms, b_by = k6_bound(body, head, n, h, flat.numel())
         emit(phase='k6_vs_plain', kernel=tag, envs=n, horizon=h, trajectory=report,
              one_step=one, one_step_threshold_flips=n_flip, two_runs_bitwise_equal=True,
@@ -513,7 +556,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                                                                    seed=seed, **kw), reps=1)
         b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), wide)
         picked = fr._library().offpolicy_rollout_cluster(
-            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, *wide, 0)
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, *wide, 0, 0)
         emit(phase='k6_vs_plain_wide', kernel=f'fused_rollout[{env_name},{head}]',
              net_dims=wide, envs=n, horizon=h, trajectory=report, two_runs_bitwise_equal=True,
              cluster=picked, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -522,6 +565,121 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         k6[(env_name, head)]['wide'] = dict(net_dims=list(wide), ms=ms, plain_ms=plain_ms,
                                             bound_ms=b_ms, bound_by=b_by, cluster=picked,
                                             max_abs_err=report['injected']['step0_max_abs_diff'])
+
+    # ---- k6_bf16_vs_plain: the bf16 variant (bf16 products, f32 sums) of
+    # every pair against the plain version in bf16, at its main path's shape,
+    # both storage types (bf16 storage: the obs rounded before acting, bf16
+    # states and float actions); and k6_store_bf16_vs_plain: the float32
+    # kernel with bf16 storage (the JAX package's storage_dtype='bfloat16'
+    # under float32 compute) against the plain version so.  Tolerances
+    # (BF16_TOL): two runs bitwise equal in both noise modes; one step from
+    # every visited state (injected noise) within 1e-2 on every sample
+    # without a threshold flip, at most 1% flips, and at most 1% of the
+    # samples beyond 1e-4: the kernel and the plain version sum the f32
+    # products in other orders, and where a hidden activation (or an obs
+    # under bf16 storage) lies within that last bit of a bf16 rounding
+    # boundary it rounds one bf16 step (2^-8) apart, moving an output by
+    # about |w| 2^-8 |h| (a stored bf16 action by one bf16 step, up to
+    # 3.9e-3); whole trajectories: at most 1% of the lanes (at least one)
+    # part (an output beyond 5e-2, or a flag or discrete action) and the
+    # rest agree to 5e-2.  The control (bf16 compute): the float32 kernel
+    # on the same one-step inputs against the bf16 plain version must break
+    # these limits where the net's outputs are floats (the Gaussian heads);
+    # a DQN head's only output is its argmax, which bf16 and f32 sums part
+    # only at near-ties, so there the control's reading is reported and not
+    # asserted.
+    k6_bf16 = {}
+    bfr = torch.bfloat16
+
+    def as_f32(out):
+        return out._replace(states=out.states.float(), actions=out.actions.float()
+                            if out.actions.dtype == bfr else out.actions)
+
+    def k6_one_step(o1, w1, samples):
+        o1, w1 = as_f32(o1), as_f32(w1)
+        flip, sample = k6_fields_differ(o1, w1, float('inf'))
+        flip = (flip[0] | (o1.env_i != w1.env_i).any(0)
+                | ((o1.env_f - w1.env_f).abs().amax(0) > 0.25))
+        sample = torch.maximum(sample[0], (o1.env_f - w1.env_f).abs().amax(0))[~flip]
+        one = dict(max_abs=float(sample.max()), share_over_1e4=float((sample > 1e-4)
+                                                                     .float().mean()),
+                   flips=int(flip.sum()))
+        one['within'] = (one['flips'] <= BF16_TOL['flip_share'] * samples
+                         and one['max_abs'] <= BF16_TOL['one_step']
+                         and one['share_over_1e4'] <= BF16_TOL['share_over_1e4'])
+        return one
+
+    for env_name, head in K6_PAIRS:
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        path = PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B
+        n, h = path['envs'], path['horizon']
+        g = torch.Generator(device=dev).manual_seed(41)
+        flat = flat_for(body, head, 7)
+        env_def = env_classes[env_name](num_envs=1)._def
+        f0, i0 = body.pack(env_def.init(g, n, dev))
+        i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        nz = k6_noise(body, head, g, h, n)
+        nz_all = nz.transpose(0, 1).reshape(1, nz.shape[1], h * n).contiguous()
+        for compute, store in ((bfr, False), (bfr, True), (None, True)):
+            kw = dict(body=body, head=head, net_dims=OFF_NET, reward_scale=1.0, noise_std=0.1,
+                      explore_rate=0.25, std_clip=std_clip(head), compute_dtype=compute,
+                      store_dtype=bfr if store else None)
+            tag = (f'offpolicy_rollout{"_bf16" if compute else ""}'
+                   f'[{env_name},{head},store={"bf16" if store else "f32"}]')
+            report = {}
+            for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+                trace = []
+                got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+                again = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+                want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
+                                                      env_trace=trace, **kw, **extra)
+                torch.cuda.synchronize()
+                assert all(torch.equal(getattr(got, f), getattr(again, f))
+                           for f in got._fields), (tag, mode)
+                assert got.states.dtype == (bfr if store else torch.float32), tag
+                differ, worst = k6_fields_differ(as_f32(got), as_f32(want),
+                                                 BF16_TOL['trajectory'])
+                parted = differ.any(0)
+                assert int(parted.sum()) <= max(1, int(BF16_TOL['share_parted'] * n)), (
+                    tag, mode, int(parted.sum()))
+                assert float(worst[:, ~parted].max()) <= BF16_TOL['trajectory'], (tag, mode)
+                report[mode] = dict(lanes_parted=int(parted.sum()),
+                                    max_abs_diff_kept=float(worst[:, ~parted].max()))
+                if mode == 'injected':
+                    f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()
+                    i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
+            w1 = fr.offpolicy_rollout_reference(flat, f_all, i_all, horizon_len=1,
+                                                noise=nz_all, **kw)
+            one = k6_one_step(fr.offpolicy_rollout(flat, f_all, i_all, horizon_len=1,
+                                                   noise=nz_all, **kw), w1, h * n)
+            assert one['within'], (tag, one)
+            res = dict(name=tag, trajectory=report, one_step=one, max_abs_err=one['max_abs'],
+                       lanes_parted=max(r['lanes_parted'] for r in report.values()))
+            if compute is not None:
+                control = k6_one_step(fr.offpolicy_rollout(
+                    flat, f_all, i_all, horizon_len=1, noise=nz_all,
+                    **dict(kw, compute_dtype=None)), w1, h * n)
+                if head in fr.CONTINUOUS_HEADS:
+                    assert not control['within'], ('the f32 kernel passed BF16_TOL', tag, control)
+                res['control_f32_kernel'] = control
+            ms = cuda_ms_(lambda: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, seed=seed,
+                                                       **kw), reps=10, warmup=2)
+            plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(
+                flat, f0, i0, horizon_len=h, seed=seed, **kw), reps=1)
+            if compute is not None:
+                b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), tflops=H100_BF16_TFLOPS,
+                                      store=store)
+                res['bound_ms_fp32'] = k6_bound(body, head, n, h, flat.numel(), store=store)[0]
+            else:
+                b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), store=store)
+            picked = fr._library().offpolicy_rollout_cluster(
+                body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, int(compute is not None))
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, cluster=picked)
+            k6_bf16[(env_name, head, compute is not None, store)] = res
+            emit(phase='k6_bf16_vs_plain' if compute is not None else 'k6_store_bf16_vs_plain',
+                 kernel=tag, envs=n, horizon=h, two_runs_bitwise_equal=True, **res,
+                 tolerance=BF16_TOL, device=name, nvidia_smi=smi)
 
     # the DQN heads' exploration: with zero weights and the bias favouring
     # action 0, an action other than 0 comes only from exploring; over
@@ -937,12 +1095,21 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                               torch.rand((h, n_env, n), generator=gen)], 1)
         return torch.rand((h, 2 + n_env, n), generator=gen)
 
-    def timed_rounds(task, head, path, phase, kernel_ms, variant=None, **hyper):
+    def timed_rounds(task, head, path, phase, kernel_ms, variant=None, autograd=False,
+                     **hyper):
+        """10 timed rounds; ``autograd``: the update is the autograd loop
+        (bf16 storage: the JAX package runs its scan), one K11a gather an
+        update and no chunk; under bf16 compute the rollout kernel counted is
+        its bf16 variant ('<env>,<head>,bf16')."""
         a = off_args(task, path['envs'], path['horizon'], path['batch'], path['repeat'],
                      path['buffer'], path['lr'], **hyper)
         ctx = build_training(a)
         body = fr.KERNEL_ENV_BODIES[task[2]]
         carry, rb = ctx.carry, ctx.rb
+        bf = hyper.get('compute_dtype') == 'bfloat16'
+        types = dict(compute_dtype=torch.bfloat16 if bf else None,
+                     store_dtype=(torch.bfloat16 if hyper.get('storage_dtype') == 'bfloat16'
+                                  else None))
         # fill the ring: kernel rollouts inserted without updates
         flat = carry.agent_state.act if head in fr.CONTINUOUS_HEADS else carry.agent_state.q
         f, i = (x.contiguous() for x in body.pack(carry.env_state))
@@ -952,7 +1119,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                                dtype=torch.int32)
             out = fr.offpolicy_rollout(flat, f, i, body=body, head=head, net_dims=OFF_NET,
                                        horizon_len=path['horizon'], reward_scale=1.0,
-                                       noise_std=0.05, explore_rate=0.25, seed=s_)
+                                       noise_std=0.05, explore_rate=0.25, seed=s_, **types)
             buf = rb.update(buf, (out.states, out.actions, out.rewards, 1.0 - out.terminals,
                                   1.0 - out.truncates))
             f, i, fills = out.env_f, out.env_i, fills + 1
@@ -982,12 +1149,14 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             [x for x in carry.agent_state if isinstance(x, torch.Tensor)], p0))
         chunks = -(-U // 16)
         update_counts = {k: v for k, v in by_chunk.items() if v}
-        assert by_kernel == {f'{task[2]},{head}': ROUNDS}, by_kernel
-        assert update_counts == {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}, update_counts
+        assert by_kernel == {f'{task[2]},{head}' + (',bf16' if bf else ''): ROUNDS}, by_kernel
+        assert update_counts == ({} if autograd else
+                                 {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}), update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
-        # K11a: one launch gathers every field of a chunk
+        # K11a: one launch gathers every field of a chunk (of an update, autograd)
         gathers = kn.buffer_gather_fields.launches
-        assert gathers == ROUNDS * chunks, (phase, gathers, ROUNDS * chunks)
+        want_gathers = ROUNDS * (U if autograd else chunks)
+        assert gathers == want_gathers, (phase, gathers, want_gathers)
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
         emit(phase=phase, agent=task[0].__name__, env=task[2], envs=path['envs'],
@@ -1008,6 +1177,16 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     launches_a = timed_rounds(td3_hopper, 'ddpg', PATH_A, 'main_path_td3_hopper', dict(
         fused_rollout_ms=k6[('HopperSlip-v0', 'ddpg')]['ms'],
         ddpg_update_ms=k7['td3']['ms'], ddpg_update_plain_ms=k7['td3']['plain_ms']), gamma=0.99)
+    # path A with bf16 compute (the K6 bf16 variant, the K7 chunk: the storage
+    # is float32) and its bf16-storage twin (the bf16 ring: the autograd
+    # update, as the JAX package runs its scan there)
+    launches_a_bf16 = timed_rounds(td3_hopper, 'ddpg', PATH_A, 'main_path_td3_hopper_bf16', dict(
+        fused_rollout_bf16_ms=k6_bf16[('HopperSlip-v0', 'ddpg', True, False)]['ms']), gamma=0.99,
+        compute_dtype='bfloat16')
+    launches_a_bf16s = timed_rounds(
+        td3_hopper, 'ddpg', PATH_A, 'main_path_td3_hopper_bf16_storage', dict(
+            fused_rollout_bf16_ms=k6_bf16[('HopperSlip-v0', 'ddpg', True, True)]['ms']), gamma=0.99,
+        compute_dtype='bfloat16', storage_dtype='bfloat16', autograd=True)
     small_round_vs_cpu(dqn_cartpole, 'dqn', 64, 16, 128, 16.0,
                        'main_path_dqn_cartpole_small_vs_cpu')
     launches_b = timed_rounds(dqn_cartpole, 'dqn', PATH_B, 'main_path_dqn_cartpole', dict(
@@ -1255,6 +1434,28 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                         'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
                         'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
                         'library_ms': None})
+    # the bf16 variant of K6/K6' (one template instantiation per pair, bf16
+    # weights and tiles): one entry per main path, path A with bf16 compute
+    # (storage f32) and its bf16-storage twin, each with its own launches;
+    # every pair's check rides along, and the float32 kernel's bf16-storage
+    # checks ride with the f32 entries' pairs
+    def reduced_pairs(bf):
+        return {f'{e},{hd},store={"bf16" if st else "f32"}':
+                {k: v[k] for k in ('ms', 'plain_ms', 'max_abs_err', 'bound_ms', 'lanes_parted',
+                                   'cluster') + (('bound_ms_fp32',) if bf else ())}
+                for (e, hd, b_, st), v in k6_bf16.items() if b_ == bf}
+    for store, launched in ((False, launches_a_bf16), (True, launches_a_bf16s)):
+        a = k6_bf16[('HopperSlip-v0', 'ddpg', True, store)]
+        kernels.append({'name': a['name'], 'route': 'cuda', 'source': rollout_src,
+                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:1006',
+                        'launches': launched[0]['HopperSlip-v0,ddpg,bf16'],
+                        'max_abs_err': a['max_abs_err'], 'ms': a['ms'], 'plain_ms': a['plain_ms'],
+                        'bound_ms': a['bound_ms'], 'bound_by': a['bound_by'],
+                        'bound_ms_fp32': a['bound_ms_fp32'], 'library_ms': None,
+                        **({'pairs': reduced_pairs(True)} if not store else {})})
+    for k in kernels:
+        if k['name'] == 'fused_rollout[HopperSlip-v0,ddpg]':
+            k['pairs_store_bf16'] = reduced_pairs(False)
     return kernels, k9_lunar
 
 
@@ -1738,7 +1939,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         b_ms, b_by = bound(flop, nbytes)
         full_ms, _ = bound(flop_full, nbytes)
         picked = fr._library().offpolicy_rollout_cluster(
-            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0)
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, 0)
         emit(phase='k4_offpolicy_vs_plain', kernel=f'fused_rollout[StockTradingEnv-v2,{head}]',
              envs=n, horizon=h, trajectory=report, one_step=one,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
@@ -1977,27 +2178,72 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
     def cuda_ms_(fn, reps, warmup=1):
         return cuda_ms(torch, fn, reps, warmup)
 
-    # ---- K10: bitwise equal to the plain loop (the same f32 operations in
-    # the same order, no FMA contraction)
+    # ---- K10: bitwise equal to its plain version (the truncation bootstrap,
+    # the recursion and the reward sums: the same f32 operations in the same
+    # order, no FMA contraction), the PPO advantage step as the agent calls
+    # it, at ppo_lunarlander_cont's 256 x 64, the bench's 64 x 4096, 37 x
+    # 1000 (ragged: 32-row stages and 32-column blocks) and bench config 2's
+    # 2048 x 4096.  Times: the call (CUDA events, the wrapper's host time
+    # included) and the device time (the profiler)
+    from elegantrl_tpu_torch.ops import gae as gae_ops
     k10 = {}
-    for H, N in ((LUNAR_PPO['horizon'], LUNAR_PPO['envs']), (64, 4096), (37, 1000)):
+    for H, N in ((LUNAR_PPO['horizon'], LUNAR_PPO['envs']), (64, 4096), (37, 1000),
+                 (2048, 4096)):
         g = torch.Generator(device=dev).manual_seed(H * N)
         r = torch.randn((H, N), generator=g, device=dev)
         u = (torch.rand((H, N), generator=g, device=dev) > 0.02).float()
+        um = (torch.rand((H, N), generator=g, device=dev) > 0.01).float()
         v = torch.randn((H, N), generator=g, device=dev)
         nv = torch.randn(N, generator=g, device=dev)
-        got = kn.gae_vtrace_kernel(r, u, v, nv, 0.99, 0.95)
-        want = kn.gae_vtrace_reference(r, u, v, nv, 0.99, 0.95)
+        fa, fs = kn.gae_vtrace_kernel(r, u, um, v, nv, 0.99, 0.95)
+        wa, ws = kn.vtrace_advantages_reference(r, u, um, v, nv, 0.99, 0.95)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        assert torch.equal(got, want), ('K10 differs from its plain version', H, N, err)
-        ms = cuda_ms_(lambda: kn.gae_vtrace_kernel(r, u, v, nv, 0.99, 0.95), reps=50, warmup=3)
-        plain = cuda_ms_(lambda: kn.gae_vtrace_reference(r, u, v, nv, 0.99, 0.95), reps=5)
-        # r, u, v read and adv written once; 7 f32 operations a cell
-        b_ms, b_by = bound(7 * H * N, 4 * (4 * H * N + N))
-        k10[(H, N)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        err = max(float((fa - wa).abs().max()), float((fs - ws).abs().max()))
+        assert torch.equal(fa, wa) and torch.equal(fs, ws), ('K10 differs', H, N, err)
+
+        def k10_call():
+            return kn.gae_vtrace_kernel(r, u, um, v, nv, 0.99, 0.95)
+
+        ms = cuda_ms_(k10_call, reps=50, warmup=3)
+        device_ms = profiled_ms(torch, k10_call, 20, 'gae_vtrace')
+        plain = cuda_ms_(lambda: kn.vtrace_advantages_reference(r, u, um, v, nv, 0.99, 0.95),
+                         reps=1 if H > 256 else 5)
+        # r, u, unmask, v read and adv, reward_sums written once (24 B a
+        # cell), 11 f32 operations a cell; beside it the recursion's own 16 B
+        # (r, u, v and adv) and 7 operations, the bound before the fold
+        b_ms, b_by = bound(11 * H * N, 4 * (6 * H * N + N))
+        b16_ms, _ = bound(7 * H * N, 4 * (4 * H * N + N))
+        k10[(H, N)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           device_ms=device_ms, bound_ms_16B=b16_ms)
         emit(phase='k10_vs_plain', H=H, N=N, bitwise_equal=True, **k10[(H, N)],
-             library_ms=None, tolerance='exact')
+             library_ms=None, tolerance='exact', device=name, nvidia_smi=smi)
+    # the PPO advantage step (agents/ppo.py:update) at the bench's 64 x 4096,
+    # K10 and the normalisation, bitwise equal to its plain composition
+    # (ops/gae.py: apply_truncation_bootstrap, the reverse loop, adv + v,
+    # normalize_advantages): its device kernels and ms (the parent's step,
+    # the bootstrap's ops, K10 alone and the sum, is timed against it by
+    # scripts/torch_compare_chunks.py --only k10)
+    H, N = 64, 4096
+    g = torch.Generator(device=dev).manual_seed(5)
+    r, v = (torch.randn((H, N), generator=g, device=dev) for _ in range(2))
+    u = (torch.rand((H, N), generator=g, device=dev) > 0.02).float()
+    um = (torch.rand((H, N), generator=g, device=dev) > 0.01).float()
+    nv = torch.randn(N, generator=g, device=dev)
+
+    def step_plain():
+        rb, ub = gae_ops.apply_truncation_bootstrap(r, u, um, v)
+        adv = gae_ops.gae_vtrace(rb, ub, v, nv, 0.99, 0.95)
+        return gae_ops.normalize_advantages(adv), adv + v
+
+    def step():
+        adv, sums = gae_ops.vtrace_advantages(r, u, um, v, nv, 0.99, 0.95, use_kernel=True)
+        return gae_ops.normalize_advantages(adv), sums
+
+    assert all(torch.equal(x, y) for x, y in zip(step(), step_plain())), 'advantage step differs'
+    launches_step = len(device_kernels(torch, step, reps=3)) / 3
+    step_ms = cuda_ms_(step, reps=50, warmup=3)
+    emit(phase='k10_advantage_step', H=H, N=N, bitwise_equal=True,
+         device_kernels_a_step=launches_step, ms=step_ms, device=name, nvidia_smi=smi)
 
     # ---- K11a: bitwise equal to buf[ids0, ids1]; one launch gathers every
     # field of a chunk (ReplayBuffer.gather with feature_major, as the update
@@ -2235,7 +2481,8 @@ def lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar):
     k10_main = k10[(H_p, LUNAR_PPO['envs'])]
     kernels = [
         entry_of('gae_vtrace[256x64]', src, replaces + '123', ppo_l['gae_vtrace'], k10_main,
-                 at_64x4096=k10[(64, 4096)], at_37x1000=k10[(37, 1000)]),
+                 at_64x4096=k10[(64, 4096)], at_37x1000=k10[(37, 1000)],
+                 at_2048x4096=k10[(2048, 4096)], advantage_step_kernels=launches_step),
         entry_of('buffer_gather_fields[dqn_lunarlander chunk, 6 fields]', src, replaces + '62',
                  dqn_l['buffer_gather'], k11a['dqn_lunarlander_chunk'],
                  path_d_chunk=k11a['path_d_chunk']),
@@ -2347,7 +2594,7 @@ def main():
     from elegantrl_tpu_torch.ops import _cuda_build
     from elegantrl_tpu_torch.ops.fused_rollout import (
         CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
-        PENDULUM_BODY, ROLLOUT_CLUSTERS, noise_rows, rollout, rollout_reference,
+        PENDULUM_BODY, ROLLOUT_CLUSTERS, noise_rows, rollout, rollout_fits, rollout_reference,
         _library as fr_lib, rollout_smem_bytes as fr_smem)
     from elegantrl_tpu_torch.ops.fused_update import (PPO_PHASES, PPO_SMEM_BYTES, ppo_phase_ms,
                                                       ppo_update, ppo_update_reference,
@@ -2370,11 +2617,15 @@ def main():
     part, (peak_tflops, peak_tbs) = peaks_for(name)
     emit(phase='device', name=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, peaks_from=part, fp32_tflops=peak_tflops,
-         hbm_tb_s=peak_tbs)
+         hbm_tb_s=peak_tbs, tf32_tflops=H100_TF32_TFLOPS, bf16_tflops=H100_BF16_TFLOPS)
     dev = torch.device('cuda')
 
-    def bound(flop, nbytes):
-        t_ops, t_bytes = flop / (peak_tflops * 1e12), nbytes / (peak_tbs * 1e12)
+    def bound(flop, nbytes, tflops=None):
+        """The least time, ms, and what bounds it: ``flop`` at ``tflops``
+        (the FP32 CUDA-core rate unless given) or ``nbytes`` at the HBM
+        rate."""
+        t_ops = flop / ((tflops or peak_tflops) * 1e12)
+        t_bytes = nbytes / (peak_tbs * 1e12)
         return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes else 'bytes')
 
     # ---- 2. build
@@ -2387,11 +2638,12 @@ def main():
     # judge eligibility on the CPU must agree with them, for every body
     smem = {'ppo_update': (fu_lib().ppo_update_smem_bytes(), PPO_SMEM_BYTES)}
     for body in KERNEL_ENV_BODIES.values():
-        for dims in (NET_DIMS, (64, 64), (256, 256), (96, 160)):
+        for dims in (NET_DIMS, (64, 64), (256, 256), (96, 160), (384, 384), (512, 512)):
             for c in ROLLOUT_CLUSTERS:
-                smem[f'fused_rollout[{body.env_name},{dims},cluster={c}]'] = (
-                    fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c),
-                    fr_smem(body, dims, c))
+                for bf in (0, 1):
+                    smem[f'fused_rollout[{body.env_name},{dims},cluster={c},bf16={bf}]'] = (
+                        fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c, bf),
+                        fr_smem(body, dims, c, bool(bf)))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
     for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1), (151, 128, 128, 15)):
@@ -2449,7 +2701,7 @@ def main():
         size it picks by itself."""
         out = {str(c): cuda_ms(torch, lambda: run(c), reps=5) for c in ROLLOUT_CLUSTERS
                if fr_smem(body, dims, c) <= 232448}
-        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0)
+        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0, 0)
         return out
 
     k1 = {}
@@ -2781,6 +3033,123 @@ def main():
     k2_stock = update_vs_plain(body_state(stock_body), stock_body.state_dim,
                                stock_body.action_dim, False, 2, 'k2_vs_plain_stock')
 
+    # ---- 7c. the bf16 variants of K1/K3 (bf16 weight slices and tiles, f32
+    # sums) against the plain version in bf16, both storage types: Pendulum
+    # and CartPole at (128, 128), ppo_pendulum_bf16's (128, 64) at H = 128,
+    # and both at (512, 512), the first width at which 'auto' takes bf16 and
+    # the widest the float32 kernel's cluster of 8 could not hold; then the
+    # float32 kernel with bf16 storage (the obs rounded before acting, bf16
+    # states) on every body at the main paths' (128, 128).  Tolerances
+    # (BF16_TOL) and their reason as for k6_bf16_vs_plain; two runs bitwise
+    # equal in both noise modes.  The control (bf16 compute): the float32
+    # kernel on the same one-step inputs against the bf16 plain version must
+    # break them (values and log-probabilities carry the net's outputs).
+    bfr = torch.bfloat16
+
+    def as_f32(out):
+        return out._replace(states=out.states.float())
+
+    def one_step_reduced(o1, w1, samples):
+        o1, w1 = as_f32(o1), as_f32(w1)
+        flip, sample = fields_differ(o1, w1, float('inf'))
+        flip = (flip[0] | (o1.env_i != w1.env_i).any(0)
+                | ((o1.env_f - w1.env_f).abs().amax(0) > 0.25))
+        sample = torch.maximum(sample[0], (o1.env_f - w1.env_f).abs().amax(0))[~flip]
+        one = dict(max_abs=float(sample.max()),
+                   share_over_1e4=float((sample > 1e-4).float().mean()), flips=int(flip.sum()))
+        one['within'] = (one['flips'] <= BF16_TOL['flip_share'] * samples
+                         and one['max_abs'] <= BF16_TOL['one_step']
+                         and one['share_over_1e4'] <= BF16_TOL['share_over_1e4'])
+        return one
+
+    def check_reduced(body, env_class, dims, compute, store, h, phase):
+        s = body_state(body, dims)
+        g = torch.Generator(device=dev).manual_seed(23)
+        env_def = env_class(num_envs=1)._def
+        f0, _ = body.pack(env_def.init(g, N, dev))
+        i0 = (torch.arange(N, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        nz = body_noise(body, g, h, N)
+        net = (s.act_flat, s.cri_flat, s.norm_avg, s.norm_std)
+        bkw = dict(net_dims=dims, reward_scale=1.0, body=body, compute_dtype=compute,
+                   store_dtype=bfr if store else None)
+        tag = (f'fused_rollout{"_bf16" if compute else ""}[{body.env_name},{dims},H={h},'
+               f'store={"bf16" if store else "f32"}]')
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
+            again = rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
+            want = rollout_reference(*net, f0, i0, horizon_len=h, env_trace=trace, **bkw,
+                                     **extra)
+            torch.cuda.synchronize()
+            assert same_runs(got, again), (tag, mode, 'two runs differ')
+            assert got.states.dtype == (bfr if store else torch.float32), tag
+            differ, worst = fields_differ(as_f32(got), as_f32(want), BF16_TOL['trajectory'])
+            parted = differ.any(0)
+            assert int(parted.sum()) <= max(1, int(BF16_TOL['share_parted'] * N)), (
+                tag, mode, int(parted.sum()))
+            assert float(worst[:, ~parted].max()) <= BF16_TOL['trajectory'], (tag, mode)
+            report[mode] = dict(lanes_parted=int(parted.sum()),
+                                max_abs_diff_kept=float(worst[:, ~parted].max()))
+            if mode == 'injected':
+                f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()
+                i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
+        nz_all = nz.transpose(0, 1).reshape(1, noise_rows(body), h * N).contiguous()
+        w1 = rollout_reference(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        one = one_step_reduced(rollout(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw),
+                               w1, h * N)
+        assert one['within'], (tag, one)
+        res = dict(name=tag, trajectory=report, one_step=one, max_abs_err=one['max_abs'],
+                   lanes_parted=max(r['lanes_parted'] for r in report.values()))
+        if compute is not None:
+            # at a width the float32 kernel does not take, (512, 512), the
+            # float32 plain version stands in for it (they agree to 1e-4)
+            f32_fn = rollout if rollout_fits(body, dims) else rollout_reference
+            control = one_step_reduced(f32_fn(*net, f_all, i_all, horizon_len=1, noise=nz_all,
+                                              **dict(bkw, compute_dtype=None)), w1, h * N)
+            assert not control['within'], ('the f32 rollout passed BF16_TOL', tag, control)
+            res['control_f32_' + ('kernel' if f32_fn is rollout else 'plain')] = control
+        ms = cuda_ms(torch, lambda: rollout(*net, f0, i0, horizon_len=h, seed=seed, **bkw),
+                     reps=10, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: rollout_reference(*net, f0, i0, horizon_len=h,
+                                                            seed=seed, **bkw), reps=1)
+        S, A = body.state_dim, body.action_dim
+        d1, d2 = dims
+        # both nets an env-step: the bf16 variant's products at the dense
+        # bf16 tensor rate (bound_ms), and at the FP32 CUDA-core rate where
+        # this kernel widens them (bound_ms_fp32)
+        flop = 2 * (2 * (S * d1 + d1 * d2) + d2 * (A + 1)) * N * h
+        nbytes = (4 * (s.act_flat.numel() + s.cri_flat.numel()) + 8 * (body.n_f32 + 1) * N
+                  + N * h * ((2 if store else 4) * S + 4 * ((1 if body.discrete else A) + 5)))
+        b_ms, b_by = bound(flop, nbytes, H100_BF16_TFLOPS if compute is not None else None)
+        picked = fr_lib().fused_rollout_cluster(body.kernel_id, N, *dims, 0,
+                                                int(compute is not None))
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, cluster=picked,
+                   smem_bytes=fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, picked,
+                                                                int(compute is not None)))
+        if compute is not None:
+            res['bound_ms_fp32'] = bound(flop, nbytes)[0]
+        emit(phase=phase, kernel=tag, envs=N, horizon=h, net_dims=dims,
+             two_runs_bitwise_equal=True, **res, tolerance=BF16_TOL, device=name,
+             nvidia_smi=smi)
+        return res
+
+    k1_bf16 = {(dims, h, store): check_reduced(PENDULUM_BODY, PendulumEnv, dims, bfr, store, h,
+                                               'k1_bf16_vs_plain')
+               for dims, h, store in (((128, 128), H, False), ((128, 128), H, True),
+                                      ((128, 64), 128, False), ((512, 512), H, False))}
+    k3_bf16 = {(dims, h, store): check_reduced(CARTPOLE_BODY, CartPoleEnv, dims, bfr, store, h,
+                                               'k3_bf16_vs_plain')
+               for dims, h, store in (((128, 128), H, False), ((128, 128), H, True),
+                                      ((512, 512), H, True))}
+    k13_store_bf16 = {body.env_name: check_reduced(
+        body, env_class, NET_DIMS, None, True, H,
+        'k1_store_bf16_vs_plain' if body is PENDULUM_BODY else 'k3_store_bf16_vs_plain')
+        for body, env_class in ((PENDULUM_BODY, PendulumEnv), (CARTPOLE_BODY, CartPoleEnv),
+                                (HOPPER_BODY, HopperEnv), (CHASING_BODY, PointChasingVecEnv),
+                                (CHASING_DISCRETE_BODY, PointChasingDiscreteEnv))}
+
     # ---- 8 and 9. the main paths
     pendulum = (AgentPPO, PendulumEnv, 'Pendulum-v1', 3, 1, False, 200)
     cartpole = (AgentDiscretePPO, CartPoleEnv, 'CartPole-v1', 4, 2, True, 500)
@@ -2930,6 +3299,82 @@ def main():
         fused_rollout_ms=cart['ms'], fused_rollout_plain_ms=cart['plain_ms'],
         ppo_update_ms=k5[(2, 1)]['ms'], ppo_update_plain_ms=k5[(2, 1)]['plain_ms']))
 
+    # ---- 9b. the bf16 main paths: ppo_pendulum_bf16's shape (4096 envs, H
+    # 128, B 4096, (128, 64), bf16 compute, its repeat 512: 16 updates a
+    # round), DiscretePPO on CartPole at the bench's shape with bf16 compute
+    # and storage, and PPO on Pendulum at (512, 512) with the default
+    # compute_dtype 'auto' (bf16 there).  Each: the K1/K3 bf16 variant once a
+    # round, K10 once a round, the autograd update (no K2: the JAX package
+    # runs its scan under bf16) and the no-grad forwards on PyTorch ops (no
+    # K11b: it has no bf16 variant), 10 timed rounds with the counts reset
+    # just before them.  Past the widest bf16 width the card raises, naming it.
+    from elegantrl_tpu_torch.ops import kernels as kn_ops
+
+    def timed_bf16(task, phase, num_envs, horizon, batch, **hyper):
+        a = bench_args(task, num_envs, horizon, batch)
+        for k, v in hyper.items():
+            setattr(a, k, v)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            ctx = build_training(a)
+        said = text.getvalue()
+        assert ctx.fused_rollout and 'use_fused_update: PyTorch path' in said, said
+        assert 'use_mlp3_kernel: PyTorch path' in said, said
+        carry, _ = ctx.round_fn(ctx.carry)                      # warm-up round
+        p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
+        torch.cuda.synchronize()
+        reset_counts()
+        kn_ops.gae_vtrace_kernel.launches = kn_ops.fused_mlp3.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = []
+        for _ in range(ROUNDS):
+            carry, m = ctx.round_fn(carry)
+            m = scalars(m)
+            metrics.append(torch.stack([m[k].float() for k in sorted(m)]))
+        end.record()
+        torch.cuda.synchronize()
+        by_body, by_head = read_counts()
+        launches = {'fused_rollout': by_body, 'ppo_update': sum(by_head.values()),
+                    'gae_vtrace': kn_ops.gae_vtrace_kernel.launches,
+                    'fused_mlp3': kn_ops.fused_mlp3.launches}
+        round_ms = start.elapsed_time(end) / ROUNDS
+        mvals = torch.stack(metrics).cpu()
+        moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
+                    float((carry.agent_state.cri_flat - p0[1]).abs().max()))
+        want = {'fused_rollout': {f'{task[2]},bf16': ROUNDS}, 'ppo_update': 0,
+                'gae_vtrace': ROUNDS, 'fused_mlp3': 0}
+        assert launches == want, (phase, launches)
+        assert bool(torch.isfinite(mvals).all()), mvals
+        assert moved > 0.0
+        if a.storage_dtype == 'bfloat16':
+            assert carry.obs.dtype == torch.float32
+        emit(phase=phase, agent=task[0].__name__, env=task[2], envs=num_envs, horizon=horizon,
+             batch=batch, repeat=a.repeat_times, net_dims=tuple(a.net_dims),
+             compute_dtype=a.compute_dtype, storage_dtype=a.storage_dtype, rounds=ROUNDS,
+             launches=launches, round_ms=round_ms,
+             env_steps_per_s=num_envs * horizon / (round_ms / 1e3),
+             metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
+             device=name, nvidia_smi=smi)
+        return launches
+
+    launches_bf16 = timed_bf16(pendulum, 'main_path_bf16', NUM_ENVS, 128, 4096,
+                               net_dims=(128, 64), compute_dtype='bfloat16', repeat_times=512,
+                               gamma=0.97, learning_rate=1e-3)
+    launches_cart_bf16 = timed_bf16(cartpole, 'main_path_cartpole_bf16_storage', NUM_ENVS,
+                                    HORIZON, BATCH, compute_dtype='bfloat16',
+                                    storage_dtype='bfloat16')
+    launches_wide = timed_bf16(pendulum, 'main_path_wide_auto', NUM_ENVS, HORIZON, BATCH,
+                               net_dims=(512, 512))
+    too_wide = bench_args(pendulum, 256, 32, 128)
+    too_wide.net_dims = (516, 516)
+    try:
+        build_training(too_wide)
+        raise AssertionError('the card took a bf16 rollout past the widest width')
+    except ValueError as e:
+        assert 'up to 512 in bf16' in str(e) or 'up to 512 on Pendulum-v1 in bf16' in str(e), e
+        emit(phase='bf16_width_limit', net_dims=(516, 516), raised=str(e)[:300])
+
     # ---- 10. the entry point
     def run_train_agent(task, num_envs, horizon, batch, periods, rounds_per_period=1, **hyper):
         with tempfile.TemporaryDirectory() as cwd:
@@ -3014,6 +3459,35 @@ def main():
                     'ms': d['ms'], 'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'],
                     'bound_by': d['bound_by'], 'library_ms': None,
                     'u32': k5[(2, 32)], 'a9_u1': k5[(9, 1)], 'a9_u32': k5[(9, 32)]})
+    # the bf16 variants of K1/K3 (one instantiation per body): one entry per
+    # main path, each with that path's launches and the check at its shape
+    # (Pendulum: main_path_bf16 at (128, 64) x 128 steps and
+    # main_path_wide_auto at (512, 512); CartPole:
+    # main_path_cartpole_bf16_storage); every check rides along
+    for body_name, checks, n, key in (
+            ('Pendulum-v1', k1_bf16, launches_bf16['fused_rollout']['Pendulum-v1,bf16'],
+             ((128, 64), 128, False)),
+            ('Pendulum-v1', k1_bf16, launches_wide['fused_rollout']['Pendulum-v1,bf16'],
+             ((512, 512), H, False)),
+            ('CartPole-v1', k3_bf16, launches_cart_bf16['fused_rollout']['CartPole-v1,bf16'],
+             ((128, 128), H, True))):
+        k = checks[key]
+        kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
+                        'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600', 'launches': n,
+                        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+                        'bound_ms_fp32': k['bound_ms_fp32'], 'library_ms': None,
+                        'checks': {c['name']: {f: c[f] for f in (
+                            'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32', 'max_abs_err',
+                            'cluster', 'lanes_parted')} for c in checks.values()}})
+    # the float32 kernel's bf16-storage checks ride with its entries
+    for k in kernels:
+        for env_name, c in k13_store_bf16.items():
+            if k['name'] in (f'fused_rollout[{env_name},gaussian]',
+                             f'fused_rollout[{env_name},categorical]') or (
+                    env_name == 'Pendulum-v1' and k['name'] == 'fused_rollout'):
+                k['store_bf16'] = {f: c[f] for f in ('name', 'ms', 'plain_ms', 'bound_ms',
+                                                     'max_abs_err', 'lanes_parted')}
     kernels += offpolicy_kernels + stock_kernels + lunar_kernels + probe_kernels
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -129,22 +129,31 @@ def collect_rollout(env: EnvDef, agent_state: Any, explore_action: Callable,
                     env_action: Callable, env_state: Any, obs: torch.Tensor,
                     gen: torch.Generator, horizon_len: int, reward_scale: float,
                     extras_fn: Optional[Callable] = None,
+                    store_dtype: Optional[torch.dtype] = None,
                     ) -> Tuple[Rollout, Any, torch.Tensor]:
     """Actor inference + env step, ``horizon_len`` times.  Stores the raw
     sampled action (pre-tanh for PPO; the int32 index, without a feature
     axis, for a discrete agent) and its logprob (None for an off-policy
-    agent, whose ``explore_action`` returns none).  Returns (rollout,
-    env_state, obs)."""
+    agent, whose ``explore_action`` returns none).  ``store_dtype``
+    (bfloat16) stores the states in that type, and the policy acts on the
+    rounded obs, so the stored state is the one acted on (the JAX package's
+    quantise-before-act); float actions are stored in it too where no
+    logprob is kept (off-policy).  Returns (rollout, env_state, obs)."""
     states, actions, logprobs, rewards, undones, unmasks, extras = ([] for _ in range(7))
     with torch.no_grad():
         for _ in range(horizon_len):
+            if store_dtype is not None:   # round BEFORE acting
+                obs = obs.to(store_dtype).to(obs.dtype)
             action, logprob = explore_action(agent_state, obs, gen)
             if extras_fn is not None:
                 extras.append(extras_fn(agent_state, obs))
             env_state, next_obs, reward, terminal, truncate = vec_step(
                 env, env_state, env_action(action), gen)
-            states.append(obs)
-            actions.append(action)
+            store_act = action
+            if store_dtype is not None and logprob is None and action.is_floating_point():
+                store_act = action.to(store_dtype)
+            states.append(obs if store_dtype is None else obs.to(store_dtype))
+            actions.append(store_act)
             logprobs.append(logprob)
             rewards.append(reward)
             undones.append(~terminal)
@@ -160,6 +169,14 @@ def collect_rollout(env: EnvDef, agent_state: Any, explore_action: Callable,
         undones=torch.stack(undones).float(), unmasks=torch.stack(unmasks).float(),
         extras=extra)
     return rollout, env_state, obs
+
+
+def resolve_storage_dtype(args) -> Optional[torch.dtype]:
+    """``args.storage_dtype`` as the rollout's and replay ring's bulk type:
+    ``torch.bfloat16`` for 'bfloat16', None (float32) otherwise, as the JAX
+    package's ``resolve_storage_dtype``."""
+    return (torch.bfloat16 if str(getattr(args, 'storage_dtype', 'float32')) == 'bfloat16'
+            else None)
 
 
 def sample_flat_ids(gen: torch.Generator, horizon: int, num_seqs: int,

@@ -192,20 +192,22 @@ def _make(net_dims, state_dim: int, action_dim: int, args, buffer=None, td3: boo
         return update(s, buf_state, gen, ids=ids, noise=noise)
 
     # the JAX package's eligibility for its Pallas chunk, term by term
-    # (elegantrl_tpu/agents/ddpg_td3.py:_fused_update; the storage is float32,
-    # no mesh)
+    # (elegantrl_tpu/agents/ddpg_td3.py:_fused_update; no mesh): under bf16
+    # storage (f32_storage false) it runs its scan
     jax_takes = (buffer is not None and not hterm and lambda_fit_cum_r == 0.0
                  and len(net_dims) == 2 and batch_size % 128 == 0 and batch_size <= 2048
                  and max(net_dims) * batch_size <= 131072
+                 and getattr(buffer, 'storage_dtype', torch.float32) == torch.float32
                  and (not if_use_per or batch_size % buffer.num_seqs == 0))
     port_fits = ddpg_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'the non-H-term agent, lambda_fit_cum_r=0, a batch that is a multiple of 128 (and '
         f'under PER of num_envs) and at most 2048 with max(net_dims) * batch <= 131072 and a '
-        f'2-hidden-layer net (the DDPG/TD3 chunk); got '
+        f'2-hidden-layer net and float32 storage (the DDPG/TD3 chunk); got '
         f'batch_size={batch_size}, net_dims={net_dims}, hterm={hterm}, '
-        f'lambda_fit_cum_r={lambda_fit_cum_r}')
+        f'lambda_fit_cum_r={lambda_fit_cum_r}, '
+        f"storage_dtype={getattr(args, 'storage_dtype', 'float32')}")
 
     def chunk_blocks(buf_state, draws):
         """One chunk's blocks ``(sb, nsb, ab (C, A, B), rb, ud, um)``, and under

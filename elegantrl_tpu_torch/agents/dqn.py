@@ -158,18 +158,20 @@ def make_dqn(net_dims, state_dim: int, action_dim: int, args, twin: bool = False
                 td.detach() if if_use_per else None)
 
     # the JAX package's eligibility for its Pallas chunk, term by term
-    # (elegantrl_tpu/agents/dqn.py:_fused_update; the storage is float32 and
-    # the port has no mesh)
+    # (elegantrl_tpu/agents/dqn.py:_fused_update; the port has no mesh):
+    # under bf16 storage (f32_storage false) it runs its scan
     jax_takes = (buffer is not None and not if_use_per and lambda_fit_cum_r == 0.0
                  and len(net_dims) == 2 and batch_size % 128 == 0
-                 and batch_size <= 2048 and max(net_dims) * batch_size <= 131072)
+                 and batch_size <= 2048 and max(net_dims) * batch_size <= 131072
+                 and getattr(buffer, 'storage_dtype', torch.float32) == torch.float32)
     port_fits = dqn_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'a batch that is a multiple of 128 and at most 2048 with max(net_dims) * batch <= '
-        f'131072, a 2-hidden-layer net, uniform sampling (no PER) and lambda_fit_cum_r=0 (the '
-        f'DQN chunk); got batch_size={batch_size}, net_dims={net_dims}, '
-        f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')
+        f'131072, a 2-hidden-layer net, uniform sampling (no PER), lambda_fit_cum_r=0 and '
+        f'float32 storage (the DQN chunk); got batch_size={batch_size}, net_dims={net_dims}, '
+        f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}, '
+        f"storage_dtype={getattr(args, 'storage_dtype', 'float32')}")
 
     def fused_update(s: DQNState, buf_state, gen, ids=None, noise=None):
         """The chunked update, ``FUSED_CHUNK`` updates per call of

@@ -69,6 +69,8 @@ def sample_batch(buffer, buf_state, batch_size: int, draw, row_sample: bool):
     else:
         *items, ids = buffer.sample(buf_state, batch_size, ids=draw)
     cum_r = None if buf_state.cum_rewards is None else buf_state.cum_rewards[ids]
+    # a bf16 ring's states and actions, widened: the updates compute in f32
+    items = [x.float() if x.dtype == torch.bfloat16 else x for x in items]
     return Batch(*items, is_weight=weights, cum_r=cum_r), ids
 
 

@@ -33,15 +33,22 @@
   exactly where the JAX package takes its Pallas update: 2 hidden layers,
   ``batch_size % 128 == 0``, ``batch_size <= 2048``, float32 compute and the
   minibatch blocks within 8 MiB (:func:`jax_takes_fused_update`).  Elsewhere
-  (a 3-layer net, batch 4096) the JAX package runs its minibatch scan on XLA
-  autodiff, and here the same minibatch loop runs on ``torch.autograd``, on
-  either device.
+  (a 3-layer net, batch 4096, bf16 compute) the JAX package runs its
+  minibatch scan on XLA autodiff, and here the same minibatch loop runs on
+  ``torch.autograd``, on either device.
+- ``compute_dtype`` (:func:`resolve_compute_dtype`: 'auto' takes bfloat16
+  once every hidden width is at least 512) bfloat16 computes every forward
+  and the losses as the JAX package's ``mlp_apply(dtype=bfloat16)``
+  (``ops/nets.py:mlp_apply_leaves``): bf16 operands, float32 sums.
+  ``storage_dtype`` bfloat16 stores the rollout's states in bf16 (the
+  runner's rollouts; ``agents/base.py:collect_rollout``).
 
-- The V-trace recursion runs K10 (``ops/kernels.py:gae_vtrace_kernel``,
-  ``use_gae_kernel``) and the no-grad actor and critic forwards (the
-  generic rollout's, the evaluator's, the value pass) run K11b
-  (``fused_mlp3``, ``use_mlp3_kernel``) on a card; gradient paths run
-  PyTorch ops.
+- The PPO advantage step (the truncation bootstrap, the V-trace recursion
+  and the reward sums) is one K10 launch (``ops/kernels.py:gae_vtrace_kernel``,
+  ``use_gae_kernel``) and the no-grad float32 actor and critic forwards
+  (the generic rollout's, the evaluator's, the value pass) run K11b
+  (``fused_mlp3``, ``use_mlp3_kernel``) on a card; gradient paths and
+  bf16 forwards run PyTorch ops.
 
 Actor and critic are ``nn.Module`` views of two flat parameter buffers
 (``ops/nets.py:bind_flat``); the update changes the buffers in place.
@@ -146,14 +153,15 @@ def resolve_compute_dtype(args, net_dims) -> str:
 
 
 def jax_takes_fused_update(net_dims, state_dim: int, action_dim: int, batch_size: int,
-                           update_times: int) -> bool:
+                           update_times: int, compute_dtype: str = 'float32') -> bool:
     """The JAX package's eligibility for its fused PPO update, term by term
     (``elegantrl_tpu/agents/ppo.py:_fused_update``), for (Discrete)PPO
-    without the H-term in float32 (the only compute type here): 2 hidden
-    layers, a batch that is a multiple of 128 and at most 2048, and the
-    minibatch blocks with three copies of both nets within 8 MiB."""
+    without the H-term: 2 hidden layers, a batch that is a multiple of 128
+    and at most 2048, float32 compute (``compute_dtype is None`` there), and
+    the minibatch blocks with three copies of both nets within 8 MiB."""
     net_dims = tuple(net_dims)
-    if not (len(net_dims) == 2 and batch_size % 128 == 0 and batch_size <= 2048):
+    if not (len(net_dims) == 2 and batch_size % 128 == 0 and batch_size <= 2048
+            and compute_dtype == 'float32'):
         return False
     n_params = (state_dim * net_dims[0] + net_dims[0] + net_dims[0] * net_dims[1]
                 + net_dims[1] + net_dims[1] * (action_dim + 1) + action_dim + 1) * 2
@@ -166,10 +174,8 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
     """Factory; ``args`` is read with ``getattr``, as in the JAX package."""
     if hterm and (discrete or a2c):
         raise ValueError('H-term is supported for continuous PPO only')
-    if resolve_compute_dtype(args, net_dims) != 'float32' \
-            or str(getattr(args, 'storage_dtype', 'float32')) != 'float32':
-        raise NotImplementedError('the PyTorch port computes and stores in float32 only; '
-                                  "set args.compute_dtype = args.storage_dtype = 'float32'")
+    compute_dtype = resolve_compute_dtype(args, net_dims)
+    cdt = torch.bfloat16 if compute_dtype == 'bfloat16' else None   # None: float32
     gamma = float(getattr(args, 'gamma', 0.99))
     lr = float(getattr(args, 'learning_rate', 6e-5))
     clip_grad = float(getattr(args, 'clip_grad_norm', 3.0))
@@ -217,28 +223,32 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             kernel_choice[horizon_len] = select_kernel(
                 args, 'use_fused_update',
                 jax_takes_fused_update(net_dims, state_dim, action_dim, batch_size,
-                                       update_times),
+                                       update_times, 'bfloat16' if cdt else 'float32'),
                 update_fits(net_dims),
                 getattr(args, 'device', 'cuda'),
                 '(Discrete)PPO with a 2-hidden-layer MLP of any widths, batch_size a '
-                'multiple of 128 and <= 2048, and minibatch blocks '
+                'multiple of 128 and <= 2048, float32 compute and minibatch blocks '
                 f'within 8 MiB; got net_dims={net_dims}, batch_size={batch_size}, '
-                f'update_times={update_times}')
+                f'update_times={update_times}, compute_dtype={compute_dtype}')
         return kernel_choice[horizon_len]
 
     if not (a2c or hterm):
         use_fused_update(int(getattr(args, 'horizon_len', 2048)))
     device = getattr(args, 'device', 'cuda')
-    # K10 (ops/kernels.py) computes the V-trace recursion; K11b the no-grad
-    # forwards of the actor and the critic (the rollout's, the evaluator's and
-    # the value pass), both 3-linear MLPs of the same hidden widths
+    # K10 (ops/kernels.py) computes the advantage step; K11b the no-grad
+    # float32 forwards of the actor and the critic (the rollout's, the
+    # evaluator's and the value pass), both 3-linear MLPs of the same hidden
+    # widths; under bf16 compute the JAX package runs XLA there, and so
+    # PyTorch ops run here
     use_gae_kernel = kernels.select(
         args, 'use_gae_kernel', if_use_vtrace, device,
         f'V-trace advantages; got if_use_vtrace={if_use_vtrace}')
     use_mlp3 = kernels.select(
-        args, 'use_mlp3_kernel', kernels.mlp3_fits((state_dim, *net_dims, action_dim)),
-        device, f'the no-grad forward of a 3-linear f32 MLP whose tiles fit one block; '
-                f'got net_dims={net_dims}')
+        args, 'use_mlp3_kernel',
+        cdt is None and kernels.mlp3_fits((state_dim, *net_dims, action_dim)),
+        device, f'the no-grad forward of a 3-linear f32 MLP whose tiles fit one block '
+                f'(K11b has no bf16 variant: ROADMAP.md); got net_dims={net_dims}, '
+                f'compute_dtype={compute_dtype}')
 
     def init(seed: int, device) -> PPOState:
         gen = torch.Generator().manual_seed(int(seed))
@@ -259,11 +269,11 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
 
     def critic_value(s: PPOState, obs):
         return mlp3_forward(s.cri.leaves(), norm_state(obs, s.norm_avg, s.norm_std),
-                            use_mlp3)[..., 0]
+                            use_mlp3, cdt)[..., 0]
 
     def actor_out(s: PPOState, obs):
         return mlp3_forward(s.act.mlp.leaves(), norm_state(obs, s.norm_avg, s.norm_std),
-                            use_mlp3)
+                            use_mlp3, cdt)
 
     def explore_action(s: PPOState, obs, gen):
         out = actor_out(s, obs)
@@ -306,10 +316,10 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             xn = norm_state(state.float(), s.norm_avg, s.norm_std)
             adv, rs, um = advantages[ids0], reward_sums[ids0], unmasks[ids0]
             obj_c, g_cri = value_and_grad_flat(
-                lambda leaves: critic_loss(leaves, xn, rs, um), s.cri_flat, cri_shapes)
+                lambda leaves: critic_loss(leaves, xn, rs, um, cdt), s.cri_flat, cri_shapes)
             (_, obj_s, obj_e), g_act = value_and_grad_flat(
                 lambda leaves: a2c_actor_loss(leaves, xn, action, adv, um, lambda_entropy,
-                                              discrete), s.act_flat, act_shapes)
+                                              discrete, cdt), s.act_flat, act_shapes)
             cri_opt = grad_step(optimizer, s.cri_flat, cri_opt, g_cri)
             act_opt = grad_step(optimizer, s.act_flat, act_opt, g_act)
             objs.append(torch.stack([obj_c, obj_s, obj_e]).detach())
@@ -338,7 +348,7 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                 action = actions[i0, :, i1] if tsn else actions[i0, i1]
             xn = norm_state(state.float(), s.norm_avg, s.norm_std)
             obj_c, g_cri = value_and_grad_flat(
-                lambda lv: critic_loss(lv, xn, reward_sums[i0, i1], unmasks[i0, i1]),
+                lambda lv: critic_loss(lv, xn, reward_sums[i0, i1], unmasks[i0, i1], cdt),
                 s.cri_flat, cri_shapes)
             cri_opt = grad_step(optimizer, s.cri_flat, cri_opt, g_cri)
             if hterm:
@@ -348,10 +358,10 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             def loss(lv):
                 out = actor_loss(lv, xn, action, logprobs[i0, i1], advantages[i0, i1],
                                  unmasks[i0, i1], ratio_clip, lambda_entropy,
-                                 if_single_sided_clip, discrete)
+                                 if_single_sided_clip, discrete, cdt)
                 if not hterm:
                     return out
-                mean_h = mlp_apply_leaves(lv[:-1], hxn)
+                mean_h = mlp_apply_leaves(lv[:-1], hxn, cdt)
                 lp = torch.sum(dists.normal_logprob(ha, mean_h, torch.exp(lv[-1])), dim=-1)
                 return (out[0] - h_term_lambda * masked_window_mean(lp, hm, w, valid),
                         *out[1:])
@@ -377,16 +387,17 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
             else:
                 flat = torch.movedim(states, 1, 2) if tsn else states
                 values = critic_value(s, flat)
-            rewards_b, undones_b = gae.apply_truncation_bootstrap(
-                rollout.rewards, rollout.undones, rollout.unmasks, values)
             next_value = critic_value(s, last_obs)
-            if if_use_vtrace:
-                advantages = gae.gae_vtrace(rewards_b, undones_b, values, next_value,
-                                            gamma, lambda_gae_adv, use_kernel=use_gae_kernel)
+            if if_use_vtrace:   # K10 on a card: bootstrap, recursion and sums in one launch
+                advantages, reward_sums = gae.vtrace_advantages(
+                    rollout.rewards, rollout.undones, rollout.unmasks, values, next_value,
+                    gamma, lambda_gae_adv, use_kernel=use_gae_kernel)
             else:
+                rewards_b, undones_b = gae.apply_truncation_bootstrap(
+                    rollout.rewards, rollout.undones, rollout.unmasks, values)
                 advantages = gae.gae_plain(rewards_b, undones_b, values, gamma,
                                            lambda_gae_adv)
-            reward_sums = advantages + values
+                reward_sums = advantages + values
             advantages = gae.normalize_advantages(advantages)
 
             update_times = max(1, int(horizon_len * repeat_times / batch_size))

@@ -222,22 +222,24 @@ def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         return update(s, buf_state, gen, ids=ids, noise=noise)
 
     # the JAX package's eligibility for its Pallas chunk, term by term
-    # (elegantrl_tpu/agents/sac.py:313-332; the storage is float32, no mesh):
-    # a lane chunk must exist
+    # (elegantrl_tpu/agents/sac.py:298-332; no mesh): a lane chunk must exist;
+    # under bf16 storage (f32_storage false) it runs its scan
     lane_chunk = any(lc <= batch_size and batch_size % lc == 0 and max(net_dims) * lc <= 131072
                      and max(net_dims) <= 128 for lc in (2048, 1024, 512, 256, 128))
     jax_takes = (buffer is not None and not hterm and not if_use_per
                  and lambda_fit_cum_r == 0.0 and len(net_dims) == 2 and batch_size % 128 == 0
-                 and batch_size <= 2048 and lane_chunk)
+                 and batch_size <= 2048 and lane_chunk
+                 and getattr(buffer, 'storage_dtype', torch.float32) == torch.float32)
     port_fits = sac_fits(net_dims)
     fused = buffer is not None and select_kernel(
         args, 'use_fused_update', jax_takes, port_fits, getattr(args, 'device', 'cuda'),
         f'a batch that is a multiple of 128 and at most 2048 with a lane chunk (some lc of '
         f'2048, ..., 128 dividing it with max(net_dims) * lc <= 131072), max(net_dims) <= 128, '
         f'a 2-hidden-layer net, the non-H-term agent, uniform '
-        f'sampling (no PER) and lambda_fit_cum_r=0 (the SAC chunk); got '
+        f'sampling (no PER), lambda_fit_cum_r=0 and float32 storage (the SAC chunk); got '
         f'batch_size={batch_size}, net_dims={net_dims}, hterm={hterm}, '
-        f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}')
+        f'if_use_per={if_use_per}, lambda_fit_cum_r={lambda_fit_cum_r}, '
+        f"storage_dtype={getattr(args, 'storage_dtype', 'float32')}")
 
     def fused_update(s: SACState, buf_state, gen, ids=None, noise=None):
         """The chunked update, ``FUSED_CHUNK`` updates per call of

@@ -14,8 +14,11 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cm {
 
@@ -30,6 +33,48 @@ __host__ __device__ constexpr int slice(int d, int c) { return round4((d + c - 1
 // floats a weight row of K inputs takes in shared memory: K rounded up to
 // 16 bytes, plus 16 bytes where that count of 16-byte chunks is even
 __host__ __device__ constexpr int ldk(int k) { return round4(k) + (round4(k) / 4 % 2 == 0 ? 4 : 0); }
+// the same for a row of bf16 values (its stride in bf16 elements): K
+// rounded up to 16 bytes (8 values), plus 16 bytes where the count is even
+__host__ __device__ constexpr int ldh(int k) {
+  return (k + 7) / 8 * 8 + ((k + 7) / 8 % 2 == 0 ? 8 : 0);
+}
+// Floats of shared memory, in the layouts' 4-byte units, that a weight row
+// of K inputs takes (bf: stored as bf16), and that n activation values take.
+__host__ __device__ constexpr int wrow(int k, int bf) { return bf ? ldh(k) / 2 : ldk(k); }
+__host__ __device__ constexpr int vals(int n, int bf) { return bf ? n / 2 : n; }
+
+// The element type of a kernel's weights and activation tiles: float, or
+// bf16 (BF), whose products the kernels widen to f32 and sum in f32.
+template <bool BF>
+using elem_t = typename std::conditional<BF, __nv_bfloat16, float>::type;
+template <bool BF>
+__host__ __device__ constexpr int wld(int k) { return BF ? ldh(k) : ldk(k); }
+
+// f32 -> the nearest bf16 (ties to even) -> f32, as jnp's astype(bfloat16)
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// four consecutive values as f32 (16-byte aligned floats, 8-byte aligned bf16)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+// one value stored from f32 (rounded to the nearest bf16 for bf16)
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// four values stored from f32 (rounded to the nearest bf16 for bf16)
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -85,6 +130,21 @@ __device__ void load_rows(const float* __restrict__ W, int J, int K, int j0, int
   }
 }
 
+// load_rows for a bf16 copy: dst[j * ld + k] = bf16(W[j0 + j][k0 + k]), the
+// f32 weights rounded to the nearest bf16 as they are copied (plain loads
+// whatever ASYNC says), zero outside W and past ks up to a multiple of 8.
+template <bool ASYNC>
+__device__ void load_rows(const float* __restrict__ W, int J, int K, int j0, int js, int k0,
+                          int ks, __nv_bfloat16* dst, int ld) {
+  const int q = (ks + 7) / 8 * 8;
+  for (int i = threadIdx.x; i < js * q; i += blockDim.x) {
+    const int j = i / q, k = i - j * q;
+    dst[j * ld + k] = __float2bfloat16_rn(j0 + j < J && k0 + k < K && k < ks
+                                               ? __ldg(W + (size_t)(j0 + j) * K + k0 + k)
+                                               : 0.f);
+  }
+}
+
 // dst[j] = b[j0 + j] for j < js, zero past J
 template <bool ASYNC>
 __device__ void load_vec(const float* __restrict__ b, int J, int j0, int js, float* dst) {
@@ -104,16 +164,19 @@ __device__ void load_vec(const float* __restrict__ b, int J, int j0, int js, flo
 // owns 4 j (J / 4 apart) x 4 m: per 4 k, four 16-byte loads of W rows and
 // four of `in` feed 64 FMA; a warp's W loads touch consecutive rows, which
 // ldk puts in distinct banks.  With fewer tiles than threads, K is cut into
-// KS parts (a power of 2, a thread each) whose sums meet in `scratch` and
-// are added in part order, so a result depends only on (K, J, M) and never
-// on timing.  No barrier before; with KS > 1 one inside.
-template <int M, class Epi>
-__device__ __forceinline__ void tile_dense(const float* W, int ld, const float* in, int K, int J,
-                                           float* scratch, Epi epi) {
+// KS parts (a power of 2, a thread each, at most ks_max) whose sums meet in
+// `scratch` and are added in part order, so a result depends only on (K, J,
+// M, ks_max) and never on timing.  No barrier before; with KS > 1 one
+// inside.  W and `in` are f32 or bf16 (TW, TI); bf16 values are widened to
+// f32, where a product of two bf16 values is exact, and summed in f32.
+template <int M, class TW, class TI, class Epi>
+__device__ __forceinline__ void tile_dense(const TW* W, int ld, const TI* in, int K, int J,
+                                           float* scratch, Epi epi, int ks_max = THREADS) {
   constexpr int MG = M / 4;
   const int J4 = J / 4, tiles = J4 * MG;
   int ks = 1;
   while (2 * ks * tiles <= THREADS && 8 * ks <= K) ks *= 2;
+  if (ks > ks_max) ks = ks_max;
   const int kc = round4((K + ks - 1) / ks);
   for (int u = threadIdx.x; u < tiles * ks; u += THREADS) {
     const int tile = u % tiles, part = u / tiles;
@@ -128,9 +191,9 @@ __device__ __forceinline__ void tile_dense(const float* W, int ld, const float* 
     for (int k = part * kc; k < k1; k += 4) {
       float4 w[4], x[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) w[a] = *reinterpret_cast<const float4*>(W + (jg + a * J4) * ld + k);
+      for (int a = 0; a < 4; ++a) w[a] = ld4(W + (jg + a * J4) * ld + k);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) x[t] = *reinterpret_cast<const float4*>(in + (k + t) * M + m0);
+      for (int t = 0; t < 4; ++t) x[t] = ld4(in + (k + t) * M + m0);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const float wv[4] = {w[a].x, w[a].y, w[a].z, w[a].w};
@@ -187,13 +250,15 @@ __device__ __forceinline__ void cluster_wait() {
 // layer's outputs are pushed to every block that reads them, and each reads
 // its own copy after the next cluster barrier, so no block waits on a
 // remote load.
-__device__ __forceinline__ void store_cluster(cg::cluster_group& cluster, int c, float* base, int i,
+// A bf16 tile takes the values rounded to the nearest bf16.
+template <class T>
+__device__ __forceinline__ void store_cluster(cg::cluster_group& cluster, int c, T* base, int i,
                                               float4 v) {
   if (c == 1) {
-    *reinterpret_cast<float4*>(base + i) = v;
+    st4(base + i, v);
     return;
   }
-  for (int q = 0; q < c; ++q) *reinterpret_cast<float4*>(cluster.map_shared_rank(base + i, q)) = v;
+  for (int q = 0; q < c; ++q) st4(cluster.map_shared_rank(base + i, q), v);
 }
 
 

@@ -485,10 +485,17 @@ __host__ __device__ inline int tile_scratch(int K, int J, int M = TE) {
   return ks > 1 ? ks * J * M : 0;
 }
 
+// With bf (bf16 compute) the weight slices and the activation tiles (xn, h1,
+// h2) hold bf16 values (cm::wrow, cm::vals); where that layout with layer 2's
+// split-K scratch does not fit a block, layer 2 runs unsplit (cap2) and the
+// scratch only serves the other products.
+constexpr int SMEM_FLOATS = 232448 / 4;  // shared memory a Hopper block can hold
+
 struct RolloutLayout {
   int s4, ap, js1, js2, k2, w1, b1, w2a, w2c, b2a, b2c, woa, woc, bo, stdv, nrm, xn, h1a, h1c,
-      h2a, h2c, outp, hraw, uenv, hz, headv, scratch, floats, nh4, ne4;
-  __host__ __device__ RolloutLayout(int S, int A, int NH, int NE, int D1, int D2, int c) {
+      h2a, h2c, outp, hraw, uenv, hz, headv, scratch, split2, rest, cap2, floats, nh4, ne4;
+  __host__ __device__ RolloutLayout(int S, int A, int NH, int NE, int D1, int D2, int c,
+                                    int bf) {
     s4 = cm::round4(S);
     ap = cm::round4(A);
     nh4 = cm::round4(NH);
@@ -497,41 +504,48 @@ struct RolloutLayout {
     js2 = cm::slice(D2, c);
     k2 = c * js1;
     int o = 0;
-    w1 = o; o += 2 * js1 * cm::ldk(S);
+    w1 = o; o += 2 * js1 * cm::wrow(S, bf);
     b1 = o; o += 2 * js1;
-    w2a = o; o += js2 * cm::ldk(k2);
-    w2c = o; o += js2 * cm::ldk(k2);
+    w2a = o; o += js2 * cm::wrow(k2, bf);
+    w2c = o; o += js2 * cm::wrow(k2, bf);
     b2a = o; o += js2;
     b2c = o; o += js2;
-    woa = o; o += ap * cm::ldk(js2);
-    woc = o; o += 4 * cm::ldk(js2);
+    woa = o; o += ap * cm::wrow(js2, bf);
+    woc = o; o += 4 * cm::wrow(js2, bf);
     bo = o; o += ap + 4;
     stdv = o; o += ap;
     nrm = o; o += 2 * s4;
-    xn = o; o += s4 * TE;
-    h1a = o; o += k2 * TE;
-    h1c = o; o += k2 * TE;
-    h2a = o; o += js2 * TE;
-    h2c = o; o += js2 * TE;
+    xn = o; o += cm::vals(s4 * TE, bf);
+    h1a = o; o += cm::vals(k2 * TE, bf);
+    h1c = o; o += cm::vals(k2 * TE, bf);
+    h2a = o; o += cm::vals(js2 * TE, bf);
+    h2c = o; o += cm::vals(js2 * TE, bf);
     outp = o; o += c * (ap + 4) * TE;
     hraw = o; o += 2 * nh4 * TE;
     uenv = o; o += 2 * ne4 * TE;
     hz = o; o += ap * TE;
     headv = o; o += cm::round4(A + 1) * TE;
     scratch = o;
-    o += cm::round4(max(max(tile_scratch(s4, 2 * js1), tile_scratch(k2, js2)),
-                        max(tile_scratch(js2, ap), tile_scratch(js2, 4))));
+    split2 = tile_scratch(k2, js2);
+    rest = max(tile_scratch(s4, 2 * js1), max(tile_scratch(js2, ap), tile_scratch(js2, 4)));
+    cap2 = bf * (o + cm::round4(max(split2, rest)) > SMEM_FLOATS);
+    o += cm::round4(max(split2 * (1 - cap2), rest));
     floats = o;
   }
 };
 
-template <class Body>
+template <class Body, bool BF>
 __host__ __device__ inline RolloutLayout body_layout(int D1, int D2, int c) {
   return RolloutLayout(Body::S, Body::A, Body::DISCRETE ? Body::A : 2 * Body::A,
-                       Body::N_STEP + Body::N_RESET, D1, D2, c);
+                       Body::N_STEP + Body::N_RESET, D1, D2, c, BF);
 }
 
-template <class Body>
+// BF: bf16 compute (elegantrl_tpu/ops/pallas_rollout.py:_bf16_dot): each
+// product's operands are rounded to bf16 (the weights as they are loaded,
+// xn, h1 and h2 as they are stored) and summed in f32; biases, GELU and the
+// heads stay f32.  quant (store_dtype bf16): the obs is rounded to bf16
+// before it is normalised and acted on, and stored as bf16.
+template <class Body, bool BF>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
@@ -541,12 +555,12 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const int* __restrict__ env_i,
                      const float* __restrict__ noise,
                      const int* __restrict__ seed,
-                     float* __restrict__ states_o, void* __restrict__ actions_o,
+                     void* __restrict__ states_o, void* __restrict__ actions_o,
                      float* __restrict__ logp_o, float* __restrict__ rew_o,
                      float* __restrict__ term_o, float* __restrict__ trunc_o,
                      float* __restrict__ val_o, float* __restrict__ env_f_o,
                      int* __restrict__ env_i_o, int N, int H, int D1, int D2,
-                     float reward_scale) {
+                     float reward_scale, int quant) {
   constexpr int S = Body::S, A = Body::A, F = Body::F;
   constexpr bool DISCRETE = Body::DISCRETE;
   constexpr int N_ENV = Body::N_STEP + Body::N_RESET;  // the env's uniforms
@@ -559,15 +573,20 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const RolloutLayout Ly = body_layout<Body>(D1, D2, c);
+  const RolloutLayout Ly = body_layout<Body, BF>(D1, D2, c);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float *w1s = sm + Ly.w1, *b1s = sm + Ly.b1, *w2a = sm + Ly.w2a, *w2c = sm + Ly.w2c;
-  float *b2a = sm + Ly.b2a, *b2c = sm + Ly.b2c, *woa = sm + Ly.woa, *woc = sm + Ly.woc;
+  using WT = cm::elem_t<BF>;
+  auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
+  WT *w1s = wt(Ly.w1), *w2a = wt(Ly.w2a), *w2c = wt(Ly.w2c), *woa = wt(Ly.woa),
+     *woc = wt(Ly.woc);
+  WT *xn = wt(Ly.xn), *h1a = wt(Ly.h1a), *h1c = wt(Ly.h1c), *h2a = wt(Ly.h2a),
+     *h2c = wt(Ly.h2c);
+  float *b1s = sm + Ly.b1, *b2a = sm + Ly.b2a, *b2c = sm + Ly.b2c;
   float *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *avg = sm + Ly.nrm, *nstd = sm + Ly.nrm + Ly.s4;
-  float *xn = sm + Ly.xn, *h1a = sm + Ly.h1a, *h1c = sm + Ly.h1c, *h2a = sm + Ly.h2a;
-  float *h2c = sm + Ly.h2c, *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
+  float *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
   float* scr = sm + Ly.scratch;
+  const int ks2 = Ly.cap2 ? 1 : cm::THREADS;  // layer 2's split-K parts at most
   const int js1 = Ly.js1, js2 = Ly.js2, k2 = Ly.k2, j1 = rank * js1, j2 = rank * js2;
   const int AP = Ly.ap, R = Ly.ap + 4;  // rows of a rank's part: AP actor rows, the value
   // a cluster barrier, or a block barrier for a cluster of one block (a
@@ -585,16 +604,17 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   const float* W1c = cri_flat;
   const float* W2c = W1c + D1 * S + D1;
   const float* Woc = W2c + D2 * D1 + D2;
-  cm::load_rows<true>(W1a, D1, S, j1, js1, 0, S, w1s, cm::ldk(S));
-  cm::load_rows<true>(W1c, D1, S, j1, js1, 0, S, w1s + js1 * cm::ldk(S), cm::ldk(S));
+  const int ld1 = cm::wld<BF>(S), ld2 = cm::wld<BF>(k2), ldo = cm::wld<BF>(js2);
+  cm::load_rows<true>(W1a, D1, S, j1, js1, 0, S, w1s, ld1);
+  cm::load_rows<true>(W1c, D1, S, j1, js1, 0, S, w1s + js1 * ld1, ld1);
   cm::load_vec<true>(W1a + D1 * S, D1, j1, js1, b1s);
   cm::load_vec<true>(W1c + D1 * S, D1, j1, js1, b1s + js1);
-  cm::load_rows<true>(W2a, D2, D1, j2, js2, 0, k2, w2a, cm::ldk(k2));
-  cm::load_rows<true>(W2c, D2, D1, j2, js2, 0, k2, w2c, cm::ldk(k2));
+  cm::load_rows<true>(W2a, D2, D1, j2, js2, 0, k2, w2a, ld2);
+  cm::load_rows<true>(W2c, D2, D1, j2, js2, 0, k2, w2c, ld2);
   cm::load_vec<true>(W2a + D2 * D1, D2, j2, js2, b2a);
   cm::load_vec<true>(W2c + D2 * D1, D2, j2, js2, b2c);
-  cm::load_rows<true>(Woa, A, D2, 0, AP, j2, js2, woa, cm::ldk(js2));
-  cm::load_rows<true>(Woc, 1, D2, 0, 4, j2, js2, woc, cm::ldk(js2));
+  cm::load_rows<true>(Woa, A, D2, 0, AP, j2, js2, woa, ldo);
+  cm::load_rows<true>(Woc, 1, D2, 0, 4, j2, js2, woc, ldo);
   cm::cp_async_commit();
   for (int i = threadIdx.x; i < R; i += cm::THREADS) {
     bos[i] = i < A ? __ldg(Woa + A * D2 + i) : (i == AP ? __ldg(Woc + D2) : 0.f);
@@ -604,7 +624,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
     avg[s] = s < S ? __ldg(norm_avg + s) : 0.f;
     nstd[s] = s < S ? __ldg(norm_std + s) + 1e-4f : 1.f;
   }
-  for (int i = threadIdx.x; i < (Ly.s4 - S) * TE; i += cm::THREADS) xn[S * TE + i] = 0.f;
+  for (int i = threadIdx.x; i < (Ly.s4 - S) * TE; i += cm::THREADS) cm::st1(xn + S * TE + i, 0.f);
   __syncthreads();  // avg and nstd, before warp 0 reads them
 
   // warp 0 holds the env rows of the group's lanes (every block of the cluster)
@@ -624,15 +644,21 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   uint2 key = make_uint2(0u, 0u);
   if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
 
-  // warp 0: the obs of step t, normalised into xn; rank 0 stores it
+  // warp 0: the obs of step t (rounded to bf16 first when quant), normalised
+  // into xn; rank 0 stores it
   auto observe = [&](int t) {
     float x[S];
     body.obs(f, x);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
+      if (quant) x[s] = cm::bf16_round(x[s]);
       const float v = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
-      xn[s * TE + e] = v;
-      if (live && rank == 0) states_o[((size_t)t * S + s) * N + n] = x[s];
+      cm::st1(xn + s * TE + e, v);
+      if (live && rank == 0) {
+        const size_t i = ((size_t)t * S + s) * N + n;
+        if (quant) cm::st1((__nv_bfloat16*)states_o + i, x[s]);
+        else ((float*)states_o)[i] = x[s];
+      }
     }
   };
   // threads from `first` on: step t's head words and env uniforms, drawn
@@ -672,9 +698,9 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   for (int t = 0; t < H; ++t) {
     __syncthreads();  // step t's obs tile and noise words; the weights at t = 0
     // ---- layer 1 of both nets: the actor's js1 rows, then the critic's
-    cm::tile_dense<TE>(w1s, cm::ldk(S), xn, Ly.s4, 2 * js1, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(w1s, ld1, xn, Ly.s4, 2 * js1, scr, [&](int j, int m0, float4 v) {
       const float b = b1s[j];
-      float* h1 = j < js1 ? h1a : h1c;
+      WT* h1 = j < js1 ? h1a : h1c;
       const int row = j1 + (j < js1 ? j : j - js1);
       cm::store_cluster(cluster, c, h1, row * TE + m0,
                         make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
@@ -696,23 +722,23 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
     }
     sync_group();  // h1: every block's rows, in every block
     // ---- layer 2 of both nets; this block's parts of the heads
-    cm::tile_dense<TE>(w2a, cm::ldk(k2), h1a, k2, js2, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(w2a, ld2, h1a, k2, js2, scr, [&](int j, int m0, float4 v) {
       const float b = b2a[j];
-      *reinterpret_cast<float4*>(h2a + j * TE + m0) = make_float4(
-          gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b), gelu_tanh(v.w + b));
-    });
+      cm::st4(h2a + j * TE + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
+                                             gelu_tanh(v.z + b), gelu_tanh(v.w + b)));
+    }, ks2);
     __syncthreads();  // the scratch is free
-    cm::tile_dense<TE>(w2c, cm::ldk(k2), h1c, k2, js2, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(w2c, ld2, h1c, k2, js2, scr, [&](int j, int m0, float4 v) {
       const float b = b2c[j];
-      *reinterpret_cast<float4*>(h2c + j * TE + m0) = make_float4(
-          gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b), gelu_tanh(v.w + b));
-    });
+      cm::st4(h2c + j * TE + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
+                                             gelu_tanh(v.z + b), gelu_tanh(v.w + b)));
+    }, ks2);
     __syncthreads();
-    cm::tile_dense<TE>(woa, cm::ldk(js2), h2a, js2, AP, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(woa, ldo, h2a, js2, AP, scr, [&](int j, int m0, float4 v) {
       cm::store_cluster(cluster, c, outp, (rank * R + j) * TE + m0, v);
     });
     __syncthreads();
-    cm::tile_dense<TE>(woc, cm::ldk(js2), h2c, js2, 4, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(woc, ldo, h2c, js2, 4, scr, [&](int j, int m0, float4 v) {
       cm::store_cluster(cluster, c, outp, (rank * R + AP + j) * TE + m0, v);
     });
     sync_group();  // every block's parts of the heads, in every block
@@ -795,9 +821,9 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   }
 }
 
-template <class Body>
+template <class Body, bool BF>
 int rollout_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * body_layout<Body>(D1, D2, c).floats;
+  return (int)sizeof(float) * body_layout<Body, BF>(D1, D2, c).floats;
 }
 
 // Raises KERNEL's dynamic shared-memory ceiling on the current device to
@@ -857,35 +883,37 @@ int pick_cluster(int groups, int cluster, SmemOf smem_of, bool whole_sm) {
 }
 
 // The rollout kernel's cluster size for N lanes (pick_cluster).
-template <class Body>
+template <class Body, bool BF>
 int rollout_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<fused_rollout_kernel<Body>>(
-      (N + TE - 1) / TE, cluster, [=](int c) { return rollout_smem<Body>(D1, D2, c); }, false);
+  return pick_cluster<fused_rollout_kernel<Body, BF>>(
+      (N + TE - 1) / TE, cluster, [=](int c) { return rollout_smem<Body, BF>(D1, D2, c); },
+      false);
 }
 
-template <class Body>
+template <class Body, bool BF>
 int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* norm_std, const void* env_f, const void* env_i,
            const void* noise, const void* seed, void* states, void* actions,
            void* logp, void* rew, void* term, void* trunc, void* val,
            void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
-           float reward_scale, int cluster, cudaStream_t stream) {
+           float reward_scale, int cluster, int quant, cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = rollout_cluster<Body>(N, D1, D2, cluster);
+  const int c = rollout_cluster<Body, BF>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = rollout_smem<Body>(D1, D2, c);
-  const cudaError_t err = allow_smem<fused_rollout_kernel<Body>>(smem);
+  const int smem = rollout_smem<Body, BF>(D1, D2, c);
+  const cudaError_t err = allow_smem<fused_rollout_kernel<Body, BF>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + TE - 1) / TE;
   return (int)cm::launch_clusters(
-      fused_rollout_kernel<Body>, groups * c, c, smem, stream, Body{}, (const float*)act_flat,
-      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
-      (const float*)env_f, (const int*)env_i, (const float*)noise, (const int*)seed,
-      (float*)states, actions, (float*)logp, (float*)rew, (float*)term, (float*)trunc,
-      (float*)val, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale);
+      fused_rollout_kernel<Body, BF>, groups * c, c, smem, stream, Body{},
+      (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
+      (const float*)norm_std, (const float*)env_f, (const int*)env_i, (const float*)noise,
+      (const int*)seed, states, actions, (float*)logp, (float*)rew, (float*)term,
+      (float*)trunc, (float*)val, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale,
+      quant);
 }
 
 // ------------------------------------------------- off-policy exploration
@@ -960,11 +988,13 @@ __host__ __device__ constexpr int offpolicy_out_rows(int A, int head) {
 // this block's rows of h2, every block's part of the head rows, two steps'
 // head words and env uniforms, the head's normals, the summed head rows, and
 // the split-K scratch of the widest product.
+// With bf (bf16 compute) the weight slices and the tiles xn, h1 and h2 hold
+// bf16 values (cm::wrow, cm::vals).
 struct OffLayout {
   int s4, op, js1, js2, k2, w1, b1, w2, b2, wo, bo, xn, h1, h2, outp, hraw, uenv, hz, headv,
       scratch, floats, nh4, ne4;
   __host__ __device__ OffLayout(int S, int A, int O, int NH, int NE, int D1, int D2, int c,
-                                int G) {
+                                int G, int bf) {
     s4 = cm::round4(S);
     op = cm::round4(O);
     nh4 = cm::round4(NH);
@@ -973,15 +1003,15 @@ struct OffLayout {
     js2 = cm::slice(D2, c);
     k2 = c * js1;
     int o = 0;
-    w1 = o; o += js1 * cm::ldk(S);
+    w1 = o; o += js1 * cm::wrow(S, bf);
     b1 = o; o += js1;
-    w2 = o; o += js2 * cm::ldk(k2);
+    w2 = o; o += js2 * cm::wrow(k2, bf);
     b2 = o; o += js2;
-    wo = o; o += op * cm::ldk(js2);
+    wo = o; o += op * cm::wrow(js2, bf);
     bo = o; o += op;
-    xn = o; o += s4 * G;
-    h1 = o; o += k2 * G;
-    h2 = o; o += js2 * G;
+    xn = o; o += cm::vals(s4 * G, bf);
+    h1 = o; o += cm::vals(k2 * G, bf);
+    h2 = o; o += cm::vals(js2 * G, bf);
     outp = o; o += c * op * G;
     hraw = o; o += 2 * nh4 * G;
     uenv = o; o += 2 * ne4 * G;
@@ -994,25 +1024,28 @@ struct OffLayout {
   }
 };
 
-template <class Body, int HEAD>
+template <class Body, int HEAD, bool BF>
 __host__ __device__ inline OffLayout off_layout(int D1, int D2, int c) {
   constexpr bool DISCRETE = dqn_head(HEAD);
   return OffLayout(Body::S, Body::A, offpolicy_out_rows(Body::A, HEAD),
                    DISCRETE ? 2 : 2 * Body::A, Body::N_STEP + Body::N_RESET, D1, D2, c,
-                   OFF_LANES);
+                   OFF_LANES, BF);
 }
 
-template <class Body, int HEAD>
+// BF and quant as for fused_rollout_kernel (_bf16_dot in
+// pallas_rollout.py:_make_offpolicy_kernel); under quant the continuous
+// heads' stored actions are bf16 too, the env stepping with the f32 action.
+template <class Body, int HEAD, bool BF>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          const float* __restrict__ env_f,
                          const int* __restrict__ env_i, const float* __restrict__ noise,
-                         const int* __restrict__ seed, float* __restrict__ states_o,
+                         const int* __restrict__ seed, void* __restrict__ states_o,
                          void* __restrict__ actions_o, float* __restrict__ rew_o,
                          float* __restrict__ term_o, float* __restrict__ trunc_o,
                          float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N,
                          int H, int D1, int D2, float reward_scale, float noise_std,
-                         float explore_rate, float std_lo, float std_hi) {
+                         float explore_rate, float std_lo, float std_hi, int quant) {
   constexpr int S = Body::S, A = Body::A, F = Body::F, G = OFF_LANES;
   constexpr bool SAC = sac_head(HEAD), DISCRETE = dqn_head(HEAD);
   static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
@@ -1030,12 +1063,15 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const OffLayout Ly = off_layout<Body, HEAD>(D1, D2, c);
+  const OffLayout Ly = off_layout<Body, HEAD, BF>(D1, D2, c);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float *w1s = sm + Ly.w1, *b1s = sm + Ly.b1, *w2s = sm + Ly.w2, *b2s = sm + Ly.b2;
-  float *wos = sm + Ly.wo, *bos = sm + Ly.bo, *xn = sm + Ly.xn, *h1 = sm + Ly.h1;
-  float *h2 = sm + Ly.h2, *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
+  using WT = cm::elem_t<BF>;
+  auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
+  WT *w1s = wt(Ly.w1), *w2s = wt(Ly.w2), *wos = wt(Ly.wo), *xn = wt(Ly.xn), *h1 = wt(Ly.h1),
+     *h2 = wt(Ly.h2);
+  float *b1s = sm + Ly.b1, *b2s = sm + Ly.b2, *bos = sm + Ly.bo;
+  float *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
   float* scr = sm + Ly.scratch;
   const int js1 = Ly.js1, js2 = Ly.js2, k2 = Ly.k2, j1 = rank * js1, j2 = rank * js2;
   const int OP = Ly.op;
@@ -1055,16 +1091,17 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   const float* bo = Wo + (HEAD == HEAD_SAC ? 2 : 1) * A * D2;
   const float* W4 = HEAD == HEAD_SAC ? Wo + A * D2 : bo + A;
   const float* b4 = HEAD == HEAD_SAC ? bo + A : W4 + (O - A) * D2;
-  cm::load_rows<true>(W1, D1, S, j1, js1, 0, S, w1s, cm::ldk(S));
+  const int ld1 = cm::wld<BF>(S), ld2 = cm::wld<BF>(k2), ldo = cm::wld<BF>(js2);
+  cm::load_rows<true>(W1, D1, S, j1, js1, 0, S, w1s, ld1);
   cm::load_vec<true>(W1 + D1 * S, D1, j1, js1, b1s);
-  cm::load_rows<true>(W2, D2, D1, j2, js2, 0, k2, w2s, cm::ldk(k2));
+  cm::load_rows<true>(W2, D2, D1, j2, js2, 0, k2, w2s, ld2);
   cm::load_vec<true>(W2 + D2 * D1, D2, j2, js2, b2s);
-  cm::load_rows<true>(Wo, A, D2, 0, A, j2, js2, wos, cm::ldk(js2));
-  cm::load_rows<true>(W4, O - A, D2, 0, OP - A, j2, js2, wos + A * cm::ldk(js2), cm::ldk(js2));
+  cm::load_rows<true>(Wo, A, D2, 0, A, j2, js2, wos, ldo);
+  cm::load_rows<true>(W4, O - A, D2, 0, OP - A, j2, js2, wos + A * ldo, ldo);
   cm::cp_async_commit();
   for (int i = threadIdx.x; i < OP; i += cm::THREADS)
     bos[i] = i < A ? __ldg(bo + i) : (i < O ? __ldg(b4 + i - A) : 0.f);
-  for (int i = threadIdx.x; i < (Ly.s4 - S) * G; i += cm::THREADS) xn[S * G + i] = 0.f;
+  for (int i = threadIdx.x; i < (Ly.s4 - S) * G; i += cm::THREADS) cm::st1(xn + S * G + i, 0.f);
 
   // warp 0 holds the env rows of the group's lanes (every block of the cluster)
   const int e = threadIdx.x;  // the lane of a warp-0 thread
@@ -1083,14 +1120,20 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   uint2 key = make_uint2(0u, 0u);
   if (noise == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
 
-  // warp 0: the obs of step t into xn; rank 0 stores it
+  // warp 0: the obs of step t (rounded to bf16 first when quant) into xn;
+  // rank 0 stores it
   auto observe = [&](int t) {
     float x[S];
     body.obs(f, x);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      xn[s * G + e] = live ? x[s] : 0.f;
-      if (live && rank == 0) states_o[((size_t)t * N + n) * S + s] = x[s];
+      if (quant) x[s] = cm::bf16_round(x[s]);
+      cm::st1(xn + s * G + e, live ? x[s] : 0.f);
+      if (live && rank == 0) {
+        const size_t i = ((size_t)t * N + n) * S + s;
+        if (quant) cm::st1((__nv_bfloat16*)states_o + i, x[s]);
+        else ((float*)states_o)[i] = x[s];
+      }
     }
   };
   // threads from `first` on: step t's head words and env uniforms, drawn
@@ -1130,7 +1173,7 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   for (int t = 0; t < H; ++t) {
     __syncthreads();  // step t's obs and noise words (the weights at t = 0)
     // ---- layer 1
-    cm::tile_dense<G>(w1s, cm::ldk(S), xn, Ly.s4, js1, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w1s, ld1, xn, Ly.s4, js1, scr, [&](int j, int m0, float4 v) {
       const float b = b1s[j];
       cm::store_cluster(cluster, c, h1, (j1 + j) * G + m0,
                         make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
@@ -1147,16 +1190,16 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
     }
     sync_group();  // every block's rows of h1, in every block
     // ---- layer 2 (the trunk l2, through GELU for the heads that take it)
-    cm::tile_dense<G>(w2s, cm::ldk(k2), h1, k2, js2, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w2s, ld2, h1, k2, js2, scr, [&](int j, int m0, float4 v) {
       const float b = b2s[j];
-      *reinterpret_cast<float4*>(h2 + j * G + m0) =
-          GELU2 ? make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
-                              gelu_tanh(v.w + b))
-                : make_float4(v.x + b, v.y + b, v.z + b, v.w + b);
+      cm::st4(h2 + j * G + m0,
+              GELU2 ? make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                                  gelu_tanh(v.w + b))
+                    : make_float4(v.x + b, v.y + b, v.z + b, v.w + b));
     });
     __syncthreads();
     // ---- this block's part of the head rows
-    cm::tile_dense<G>(wos, cm::ldk(js2), h2, js2, OP, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(wos, ldo, h2, js2, OP, scr, [&](int j, int m0, float4 v) {
       cm::store_cluster(cluster, c, outp, (rank * OP + j) * G + m0, v);
     });
     sync_group();  // every block's parts of the head rows, in every block
@@ -1208,7 +1251,10 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
             } else {
               act = clampf(tanhf(headv[a * G + e]) + noise_std * z, -1.0f, 1.0f);
             }
-            if (rank == 0) ((float*)actions_o)[o * A + a] = act;
+            if (rank == 0) {
+              if (quant) cm::st1((__nv_bfloat16*)actions_o + o * A + a, act);
+              else ((float*)actions_o)[o * A + a] = act;
+            }
             env_a[a] = act;
           }
         }
@@ -1237,44 +1283,44 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   }
 }
 
-template <class Body, int HEAD>
+template <class Body, int HEAD, bool BF>
 int offpolicy_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * off_layout<Body, HEAD>(D1, D2, c).floats;
+  return (int)sizeof(float) * off_layout<Body, HEAD, BF>(D1, D2, c).floats;
 }
 
 // The cluster size for N lanes (pick_cluster): one block an SM first, as a
 // step's latency, not the card's throughput, sets the time (two blocks on
 // an SM measured up to 1.8x slower).
-template <class Body, int HEAD>
+template <class Body, int HEAD, bool BF>
 int offpolicy_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<offpolicy_rollout_kernel<Body, HEAD>>(
+  return pick_cluster<offpolicy_rollout_kernel<Body, HEAD, BF>>(
       (N + OFF_LANES - 1) / OFF_LANES, cluster,
-      [=](int c) { return offpolicy_smem<Body, HEAD>(D1, D2, c); }, true);
+      [=](int c) { return offpolicy_smem<Body, HEAD, BF>(D1, D2, c); }, true);
 }
 
-template <class Body, int HEAD>
+template <class Body, int HEAD, bool BF>
 int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
                      int H, int D1, int D2, float reward_scale, float noise_std,
-                     float explore_rate, float std_lo, float std_hi, int cluster,
+                     float explore_rate, float std_lo, float std_hi, int cluster, int quant,
                      cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = offpolicy_cluster<Body, HEAD>(N, D1, D2, cluster);
+  const int c = offpolicy_cluster<Body, HEAD, BF>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = offpolicy_smem<Body, HEAD>(D1, D2, c);
-  const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD>>(smem);
+  const int smem = offpolicy_smem<Body, HEAD, BF>(D1, D2, c);
+  const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD, BF>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + OFF_LANES - 1) / OFF_LANES;
   return (int)cm::launch_clusters(
-      offpolicy_rollout_kernel<Body, HEAD>, groups * c, c, smem, stream, Body{},
+      offpolicy_rollout_kernel<Body, HEAD, BF>, groups * c, c, smem, stream, Body{},
       (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
-      (const int*)seed, (float*)states, actions, (float*)rew, (float*)term, (float*)trunc,
+      (const int*)seed, states, actions, (float*)rew, (float*)term, (float*)trunc,
       (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate,
-      std_lo, std_hi);
+      std_lo, std_hi, quant);
 }
 
 // ------------------------------------------------------------ critic pass
@@ -1954,10 +2000,10 @@ int stock_actor_smem(int D1, int D2, int c) {
   X(3, ChasingBody) X(4, ChasingDiscreteBody)
 
 // Dynamic shared memory of one block of the rollout kernel for clusters of
-// c blocks (RolloutLayout); -1 for an unknown body.
-extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c) {
+// c blocks (RolloutLayout), bf16 compute when bf; -1 for an unknown body.
+extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c, int bf) {
 #define ELEGANTRL_SMEM(ID, BODY) \
-  if (body == ID) return rollout_smem<BODY>(D1, D2, c);
+  if (body == ID) return bf ? rollout_smem<BODY, true>(D1, D2, c) : rollout_smem<BODY, false>(D1, D2, c);
   ELEGANTRL_BODIES(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
@@ -1966,28 +2012,31 @@ extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c) {
 // The cluster size the kernel takes for N lanes (rollout_cluster; `cluster`
 // 0 picks from the card's occupancy); 0 when none fits, -1 for an unknown
 // body.
-extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluster) {
-#define ELEGANTRL_CLUSTER(ID, BODY) \
-  if (body == ID) return rollout_cluster<BODY>(N, D1, D2, cluster);
+extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluster, int bf) {
+#define ELEGANTRL_CLUSTER(ID, BODY)                                   \
+  if (body == ID) return bf ? rollout_cluster<BODY, true>(N, D1, D2, cluster) \
+                            : rollout_cluster<BODY, false>(N, D1, D2, cluster);
   ELEGANTRL_BODIES(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
 }
 
-// Returns the CUDA error of the launch, or -1 for an unknown body.
+// bf: bf16 compute; quant: the obs rounded to bf16 before acting and the
+// states stored as bf16.  Returns the CUDA error of the launch, or -1 for an
+// unknown body.
 extern "C" int fused_rollout(
     int body, const void* act_flat, const void* cri_flat, const void* norm_avg,
     const void* norm_std, const void* env_f, const void* env_i,
     const void* noise, const void* seed, void* states, void* actions,
     void* logp, void* rew, void* term, void* trunc, void* val, void* env_f_o,
     void* env_i_o, int N, int H, int D1, int D2, float reward_scale, int cluster,
-    void* stream) {
-#define ELEGANTRL_LAUNCH(ID, BODY)                                                      \
-  if (body == ID)                                                                       \
-    return launch<BODY>(                                                                \
-        act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,      \
-        actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N, H, D1, D2,           \
-        reward_scale, cluster, (cudaStream_t)stream);
+    int bf, int quant, void* stream) {
+#define ELEGANTRL_LAUNCH(ID, BODY)                                                       \
+  if (body == ID)                                                                        \
+    return (bf ? launch<BODY, true> : launch<BODY, false>)(                              \
+        act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,       \
+        actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N, H, D1, D2,            \
+        reward_scale, cluster, quant, (cudaStream_t)stream);
   ELEGANTRL_BODIES(ELEGANTRL_LAUNCH)
 #undef ELEGANTRL_LAUNCH
   return -1;
@@ -2010,15 +2059,17 @@ extern "C" int fused_rollout(
 #define ELEGANTRL_STOCK_HEADS(X) X(HEAD_DDPG) X(HEAD_SAC) X(HEAD_MODSAC)
 
 // Dynamic shared memory of one block of the off-policy rollout for clusters
-// of c blocks (OffLayout; the stock body's StockActorLayout); -1 for a pair
-// it does not have.
-extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c) {
-#define ELEGANTRL_SMEM(ID, BODY, HEAD) \
-  if (body == ID && head == HEAD) return offpolicy_smem<BODY, HEAD>(D1, D2, c);
+// of c blocks (OffLayout; the stock body's StockActorLayout), bf16 compute
+// when bf; -1 for a pair it does not have (the stock heads are f32 only).
+extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c, int bf) {
+#define ELEGANTRL_SMEM(ID, BODY, HEAD)                                  \
+  if (body == ID && head == HEAD)                                       \
+    return bf ? offpolicy_smem<BODY, HEAD, true>(D1, D2, c)             \
+              : offpolicy_smem<BODY, HEAD, false>(D1, D2, c);
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
 #define ELEGANTRL_SMEM(HEAD) \
-  if (body == 5 && head == HEAD) return stock_actor_smem<HEAD>(D1, D2, c);
+  if (body == 5 && head == HEAD && !bf) return stock_actor_smem<HEAD>(D1, D2, c);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
@@ -2036,13 +2087,15 @@ int stock_cluster(int N, int D1, int D2, int cluster) {
 // picks from the card's occupancy); 0 when none fits, -1 for a pair it does
 // not have.
 extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int D2,
-                                         int cluster) {
-#define ELEGANTRL_CLUSTER(ID, BODY, HEAD) \
-  if (body == ID && head == HEAD) return offpolicy_cluster<BODY, HEAD>(N, D1, D2, cluster);
+                                         int cluster, int bf) {
+#define ELEGANTRL_CLUSTER(ID, BODY, HEAD)                                \
+  if (body == ID && head == HEAD)                                        \
+    return bf ? offpolicy_cluster<BODY, HEAD, true>(N, D1, D2, cluster)  \
+              : offpolicy_cluster<BODY, HEAD, false>(N, D1, D2, cluster);
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
 #define ELEGANTRL_CLUSTER(HEAD) \
-  if (body == 5 && head == HEAD) return stock_cluster<HEAD>(N, D1, D2, cluster);
+  if (body == 5 && head == HEAD && !bf) return stock_cluster<HEAD>(N, D1, D2, cluster);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
@@ -2050,21 +2103,21 @@ extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int 
 
 // The off-policy exploration rollout for the fifteen pairs above.  std_lo
 // and std_hi clip the SAC heads' log_std; `cluster` as for
-// offpolicy_rollout_cluster.  Returns the CUDA error of the launch, or -1
-// for a pair it does not have.
+// offpolicy_rollout_cluster; bf and quant as for fused_rollout.  Returns the
+// CUDA error of the launch, or -1 for a pair it does not have.
 extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
                                  const void* env_i, const void* noise, const void* seed,
                                  void* states, void* actions, void* rew, void* term,
                                  void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                  int D1, int D2, float reward_scale, float noise_std,
                                  float explore_rate, float std_lo, float std_hi, int cluster,
-                                 void* stream) {
-#define ELEGANTRL_OFF(ID, BODY, HEAD)                                                    \
-  if (body == ID && head == HEAD)                                                        \
-    return launch_offpolicy<BODY, HEAD>(flat, env_f, env_i, noise, seed, states, actions, \
-                                        rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, \
-                                        reward_scale, noise_std, explore_rate, std_lo,    \
-                                        std_hi, cluster, (cudaStream_t)stream);
+                                 int bf, int quant, void* stream) {
+#define ELEGANTRL_OFF(ID, BODY, HEAD)                                                       \
+  if (body == ID && head == HEAD)                                                           \
+    return (bf ? launch_offpolicy<BODY, HEAD, true> : launch_offpolicy<BODY, HEAD, false>)( \
+        flat, env_f, env_i, noise, seed, states, actions, rew, term, trunc, env_f_o,        \
+        env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate, std_lo, std_hi,       \
+        cluster, quant, (cudaStream_t)stream);
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_OFF)
 #undef ELEGANTRL_OFF
   return -1;

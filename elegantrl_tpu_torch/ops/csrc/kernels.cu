@@ -4,15 +4,26 @@
 //    _gae_kernel :99, pallas_call :146): the reverse V-trace recursion
 //      m = undone * gamma
 //      adv[t] = ((r[t] + m * next_v) - v[t]) + (m * lam) * adv[t+1]
-//      next_v = v[t], starting from next_value and adv = 0.
-//    Bound on this card: bytes (r, u, v read and adv written once, 16 B a
-//    cell: 1.25 us at 4096 envs x 64 steps).  Design: one thread per env
-//    column walks t = H-1 ... 0; each time row is contiguous over N, so a
-//    warp's loads coalesce.  The TPU kernel's 128-lane blocks were its tile
-//    and are not part of the function: any N runs.  Every operation is an
-//    explicit round-to-nearest intrinsic in the plain loop's order (nvcc
-//    would contract a*b+c into an FMA), so the result is bitwise the plain
-//    version's (ops/kernels.py:gae_vtrace_reference).
+//      next_v = v[t], starting from next_value and adv = 0,
+//    with, folded into the same pass (the PPO advantage step around it,
+//    elegantrl_tpu/agents/ppo.py:update, ops/gae.py), the truncation
+//    bootstrap r = r + (1 - unmask) v, undone = undone * unmask before it
+//    and reward_sums = adv + v after it.
+//    Bound on this card: bytes (r, u, unmask, v read and adv, reward_sums
+//    written once, 24 B a cell: 1.88 us at 4096 envs x 64 steps; the
+//    recursion alone would move 16 B a cell).  The first design (one thread per env column
+//    walking t = H-1 ... 0 with three dependent global loads a step) ran 16
+//    blocks at 4096 envs and one at 64, with each step's loads in the
+//    recursion's serial chain.  Design: a block owns GAE_COLS = 32 env
+//    columns; all its warps stage GAE_ROWS time rows of the inputs into
+//    shared memory as 128-byte rows with cp.async, double-buffered from the
+//    last rows down, so the next stage lands while warp 0 walks the
+//    recursion over this one from shared memory (a lane a column); warps
+//    1-7 meanwhile store the previous stage's outputs, coalesced.  128
+//    blocks at 4096 envs.  Every operation is an explicit round-to-nearest
+//    intrinsic in the plain composition's order (nvcc would contract a*b+c
+//    into an FMA), so the result is bitwise the plain version's
+//    (ops/kernels.py:vtrace_advantages_reference).
 //
 // 2. gather_fields_kernel (K11a) replaces buffer_gather (:62; kernel
 //    _gather_kernel :48, pallas_call :84): out[b] = buf[ids0[b] + offset,
@@ -77,22 +88,91 @@ namespace {
 
 // ---------------------------------------------------------------- K10 GAE
 
-__global__ void gae_vtrace_kernel(const float* __restrict__ r, const float* __restrict__ u,
-                                  const float* __restrict__ v, const float* __restrict__ nv0,
-                                  float* __restrict__ adv, int H, int N, float gamma,
-                                  float lam) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float next_v = nv0[n], a = 0.f;
-  for (int t = H - 1; t >= 0; --t) {
-    const size_t i = (size_t)t * N + n;
-    const float m = __fmul_rn(u[i], gamma);
-    const float vt = v[i];
-    a = __fadd_rn(__fsub_rn(__fadd_rn(r[i], __fmul_rn(m, next_v)), vt),
-                  __fmul_rn(__fmul_rn(m, lam), a));
-    adv[i] = a;
-    next_v = vt;
+constexpr int GAE_COLS = 32;     // env columns a block (a warp's lanes)
+constexpr int GAE_ROWS = 32;     // time rows a stage
+constexpr int GAE_THREADS = 256;
+
+// inputs: 0 rewards, 1 undones, 2 unmasks, 3 values; outputs: 0 adv,
+// 1 reward_sums.  vec: 16-byte copies (N % 4 == 0 and
+// every pointer 16-byte aligned).
+__global__ void __launch_bounds__(GAE_THREADS)
+gae_vtrace_kernel(const float* __restrict__ r, const float* __restrict__ u,
+                  const float* __restrict__ um, const float* __restrict__ v,
+                  const float* __restrict__ nv0, float* __restrict__ adv,
+                  float* __restrict__ rs, int H, int N, float gamma, float lam, int vec) {
+  __shared__ __align__(16) float in[2][4][GAE_ROWS][GAE_COLS];
+  __shared__ __align__(16) float out[2][2][GAE_ROWS][GAE_COLS];
+  const int n0 = blockIdx.x * GAE_COLS, cols = min(GAE_COLS, N - n0);
+  const int stages = (H + GAE_ROWS - 1) / GAE_ROWS;
+  // stage k holds rows t0 .. t0 + len - 1, t0 = max(H - (k + 1) GAE_ROWS, 0)
+  auto rows = [&](int k, int& t0) {
+    const int t1 = H - k * GAE_ROWS;
+    t0 = max(t1 - GAE_ROWS, 0);
+    return t1 - t0;
+  };
+  auto stage_in = [&](int k) {  // every thread: its share of stage k's copies
+    int t0;
+    const int len = rows(k, t0), per = len * (GAE_COLS / 4);
+    for (int i = threadIdx.x; i < 4 * per; i += GAE_THREADS) {
+      const int f = i / per, row = (i - f * per) / (GAE_COLS / 4), q = (i % (GAE_COLS / 4)) * 4;
+      const float* src = f == 0 ? r : f == 1 ? u : f == 2 ? um : v;
+      const float* g = src + (size_t)(t0 + row) * N + n0 + q;
+      float* d = &in[k & 1][f][row][q];
+      if (vec && q + 4 <= cols) {
+        cm::cp_async16(d, g);
+      } else {
+        for (int x = 0; x < 4 && q + x < cols; ++x) cm::cp_async4(d + x, g + x);
+      }
+    }
+    cm::cp_async_commit();
+  };
+  auto store_out = [&](int k, int first) {  // threads from `first` on: stage k's outputs
+    int t0;
+    const int len = rows(k, t0), per = len * (GAE_COLS / 4);
+    for (int i = (int)threadIdx.x - first; i < 2 * per; i += GAE_THREADS - first) {
+      if (i < 0) return;
+      const int f = i / per, row = (i - f * per) / (GAE_COLS / 4), q = (i % (GAE_COLS / 4)) * 4;
+      float* g = (f == 0 ? adv : rs) + (size_t)(t0 + row) * N + n0 + q;
+      const float* s = &out[k & 1][f][row][q];
+      if (vec && q + 4 <= cols) {
+        *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(s);
+      } else {
+        for (int x = 0; x < 4 && q + x < cols; ++x) g[x] = s[x];
+      }
+    }
+  };
+  const int e = threadIdx.x;  // warp 0: the column of a lane
+  float next_v = 0.f, a = 0.f;
+  if (e < cols) next_v = nv0[n0 + e];
+  stage_in(0);
+  for (int k = 0; k < stages; ++k) {
+    cm::cp_async_wait<0>();
+    __syncthreads();  // stage k landed; stage k - 1 walked; stage k - 2 stored
+    if (k + 1 < stages) stage_in(k + 1);  // into the buffer stage k - 1 left
+    if (threadIdx.x < 32) {
+      int t0;
+      const int len = rows(k, t0);
+      if (e < cols) {
+        const float(*x)[GAE_ROWS][GAE_COLS] = in[k & 1];
+        for (int row = len - 1; row >= 0; --row) {
+          const float vt = x[3][row][e], mk = x[2][row][e];
+          // the truncation bootstrap, then the recursion
+          const float rr = __fadd_rn(x[0][row][e], __fmul_rn(__fsub_rn(1.0f, mk), vt));
+          const float uu = __fmul_rn(x[1][row][e], mk);
+          const float m = __fmul_rn(uu, gamma);
+          a = __fadd_rn(__fsub_rn(__fadd_rn(rr, __fmul_rn(m, next_v)), vt),
+                        __fmul_rn(__fmul_rn(m, lam), a));
+          out[k & 1][0][row][e] = a;
+          out[k & 1][1][row][e] = __fadd_rn(a, vt);
+          next_v = vt;
+        }
+      }
+    } else if (k > 0) {
+      store_out(k - 1, 32);  // warps 1-7, meanwhile
+    }
   }
+  __syncthreads();
+  if (stages > 0) store_out(stages - 1, 0);
 }
 
 // ---------------------------------------------------------- K11a gather
@@ -315,12 +395,16 @@ int mlp3_launch(const void* x, const void* w0, const void* b0, const void* w1, c
 
 }  // namespace
 
-extern "C" int gae_vtrace(const void* r, const void* u, const void* v, const void* nv,
-                          void* adv, int H, int N, float gamma, float lam, void* stream) {
-  const int threads = 256;
-  gae_vtrace_kernel<<<(N + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)r, (const float*)u, (const float*)v, (const float*)nv, (float*)adv, H, N,
-      gamma, lam);
+extern "C" int gae_vtrace(const void* r, const void* u, const void* um, const void* v,
+                          const void* nv, void* adv, void* rs, int H, int N, float gamma,
+                          float lam, void* stream) {
+  if (H == 0 || N == 0) return 0;
+  const void* ptrs[] = {r, u, um, v, adv, rs};
+  int vec = N % 4 == 0;
+  for (const void* q : ptrs) vec = vec && ((uintptr_t)q & 15) == 0;
+  gae_vtrace_kernel<<<(N + GAE_COLS - 1) / GAE_COLS, GAE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)r, (const float*)u, (const float*)um, (const float*)v, (const float*)nv,
+      (float*)adv, (float*)rs, H, N, gamma, lam, vec);
   return (int)cudaGetLastError();
 }
 

@@ -76,7 +76,7 @@ import torch.nn.functional as F
 
 from .dists import tanh_normal_logprob, tanh_normal_logprob_simple
 from .fused_update import value_and_grad_flat
-from .nets import (ddpg_param_shapes, dqn_param_shapes, gelu, mlp_apply_leaves,
+from .nets import (ddpg_param_shapes, dqn_param_shapes, gelu, linear, mlp_apply_leaves,
                    sac_act_shapes, sac_cri_shapes, soft_update_, split_flat)
 
 # ------------------------------------------------------------ DQN nets
@@ -86,19 +86,20 @@ def dueling_combine(val: torch.Tensor, adv: torch.Tensor) -> torch.Tensor:
     return val - torch.mean(val, dim=-1, keepdim=True) + adv
 
 
-def dqn_head_outputs(leaves, x, twin: bool, duel: bool) -> list:
+def dqn_head_outputs(leaves, x, twin: bool, duel: bool, dtype=None) -> list:
     """The outputs of every head of the net for ``x (..., S)``: one ``(..., A)``
-    for the plain MLP; else the heads after the encoder, in leaf order."""
+    for the plain MLP; else the heads after the encoder, in leaf order.
+    ``dtype``: the compute type (``ops/nets.py:mlp_apply_leaves``)."""
     if not (twin or duel):
-        return [mlp_apply_leaves(leaves, x)]
-    h = mlp_apply_leaves(leaves[:4], x)          # the encoder: GELU after layer 1 only
-    return [F.linear(h, leaves[i], leaves[i + 1]) for i in range(4, len(leaves), 2)]
+        return [mlp_apply_leaves(leaves, x, dtype)]
+    h = mlp_apply_leaves(leaves[:4], x, dtype)   # the encoder: GELU after layer 1 only
+    return [linear(h, leaves[i], leaves[i + 1], dtype) for i in range(4, len(leaves), 2)]
 
 
-def dqn_q_greedy(leaves, x, twin: bool, duel: bool) -> torch.Tensor:
+def dqn_q_greedy(leaves, x, twin: bool, duel: bool, dtype=None) -> torch.Tensor:
     """Q of the greedy policy: the plain net's output, or head 1, combined
     with its advantage head where the net is dueling."""
-    outs = dqn_head_outputs(leaves, x, twin, duel)
+    outs = dqn_head_outputs(leaves, x, twin, duel, dtype)
     return dueling_combine(outs[0], outs[1]) if duel else outs[0]
 
 
@@ -251,17 +252,18 @@ def mlp_input_grad(leaves, x: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor
 SAC_RELIABLE = float(np.float32(1.0 / (2.0 - math.exp(-1.0))))
 
 
-def sac_actor_dist(leaves, x, modsac: bool, std_clip) -> tuple:
+def sac_actor_dist(leaves, x, modsac: bool, std_clip, dtype=None) -> tuple:
     """``(mean, log_std)`` of the actor on ``x (..., S)``: SAC reads ``[mean,
     log_std] = head(gelu(enc(x)))``, ModSAC the raw encoding into its ``avg``
-    and ``std`` heads; ``log_std`` is clipped to ``std_clip``."""
+    and ``std`` heads; ``log_std`` is clipped to ``std_clip``.  ``dtype``:
+    the compute type (``ops/nets.py:mlp_apply_leaves``)."""
     n = len(leaves) - (4 if modsac else 2)
-    enc = mlp_apply_leaves(leaves[:n], x)      # GELU between the encoder's layers only
+    enc = mlp_apply_leaves(leaves[:n], x, dtype)   # GELU between the encoder's layers only
     if modsac:
-        mean = F.linear(enc, leaves[n], leaves[n + 1])
-        log_std = F.linear(enc, leaves[n + 2], leaves[n + 3])
+        mean = linear(enc, leaves[n], leaves[n + 1], dtype)
+        log_std = linear(enc, leaves[n + 2], leaves[n + 3], dtype)
     else:
-        mean, log_std = F.linear(gelu(enc), leaves[n], leaves[n + 1]).chunk(2, dim=-1)
+        mean, log_std = linear(gelu(enc), leaves[n], leaves[n + 1], dtype).chunk(2, dim=-1)
     return mean, torch.clamp(log_std, *std_clip)
 
 

@@ -38,7 +38,17 @@ Three pieces, as for every kernel of the port:
 - :func:`rollout`, the wrapper: for CPU tensors it runs the plain version,
   for CUDA tensors it launches ``csrc/fused_rollout.cu`` (or raises);
 - ``rollout.launches``, the count of kernel launches (``rollout.launches_by_body``
-  splits it by env body).
+  splits it by env body, the bf16 variants as ``'<env>,bf16'``).
+
+Compute and storage types, as the JAX kernel's ``compute_dtype`` and
+``store_dtype``: with ``compute_dtype=torch.bfloat16`` every product takes
+its operands rounded to bf16 (weights, the normalised obs, each hidden
+activation) and sums in float32 (``pallas_rollout.py:_bf16_dot``; biases,
+GELU and the heads stay float32); with ``store_dtype=torch.bfloat16`` the
+obs is rounded to bf16 before it is acted on and the states are stored in
+bf16 (off-policy also the float actions).  The kernels' bf16 variants hold
+the weight slices and activation tiles in bf16 (half the shared memory);
+the stock body has none (``ROADMAP.md``).
 
 Noise has two modes, as in the JAX package: *injected*, a ``(H, A +
 n_step + n_reset, N)`` tensor (Gaussian head: A normals, then the env's
@@ -566,6 +576,20 @@ def _check_noise_mode(noise, seed):
         raise ValueError('give exactly one of noise (injected) and seed (internal)')
 
 
+def _check_dtypes(what: str, compute_dtype, store_dtype) -> None:
+    for name, dt in (('compute_dtype', compute_dtype), ('store_dtype', store_dtype)):
+        if dt not in (None, torch.bfloat16):
+            raise ValueError(f'{what}: {name} must be None (float32) or torch.bfloat16, '
+                             f'got {dt}')
+
+
+# what the stock body's kernels (K4's actor kernel and the critic pass) say
+# under bf16 compute or storage, which they do not take on a card
+STOCK_BF16_TEXT = ('the stock body\'s kernels (K4: the actor kernel and the critic pass) have '
+                   'no bf16 variant yet (ROADMAP.md, module item 3); run it with '
+                   "compute_dtype = storage_dtype = 'float32', or on the CPU")
+
+
 def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                       norm_avg: torch.Tensor, norm_std: torch.Tensor,
                       env_f: torch.Tensor, env_i: torch.Tensor, *,
@@ -573,9 +597,12 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                       reward_scale: float, noise: Optional[torch.Tensor] = None,
                       seed: Optional[torch.Tensor] = None,
                       body: KernelEnvBody = PENDULUM_BODY,
-                      env_trace: Optional[list] = None) -> RolloutOutputs:
+                      env_trace: Optional[list] = None,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      store_dtype: Optional[torch.dtype] = None) -> RolloutOutputs:
     """Plain PyTorch version of the fused rollout kernel.  ``env_trace``, a
-    list, receives the ``(env_f, env_i)`` rows each step starts from."""
+    list, receives the ``(env_f, env_i)`` rows each step starts from;
+    ``compute_dtype`` and ``store_dtype`` as the module says."""
     S, A = body.state_dim, body.action_dim
     act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A, body.discrete)
     act = split_flat(act_flat, act_shapes)
@@ -595,9 +622,11 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         if env_trace is not None:
             env_trace.append((f, i))
         x = body.obs(f, i)                                   # (S, N)
+        if store_dtype is not None:                          # round before acting
+            x = x.to(store_dtype).float()
         xn = ((x - avg) / nstd).T                            # (N, S)
-        out = mlp_apply_leaves(act, xn).T                    # (A, N) mean or logits
-        value = mlp_apply_leaves(cri, xn)[:, 0]              # (N,)
+        out = mlp_apply_leaves(act, xn, compute_dtype).T     # (A, N) mean or logits
+        value = mlp_apply_leaves(cri, xn, compute_dtype)[:, 0]   # (N,)
         if body.discrete:
             u = noise[t] if seed is None else u_all[t]
             g = -torch.log(-torch.log(torch.clamp(u[0:A], min=1e-12)) + 1e-12)
@@ -628,7 +657,8 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         outs['terminals'].append(terminal[0].float())
         outs['truncates'].append(trunc[0].float())
         outs['values'].append(value)
-    return RolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
+    out = RolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
+    return out if store_dtype is None else out._replace(states=out.states.to(store_dtype))
 
 
 # ---------------------------------------------------------------- wrapper
@@ -636,7 +666,20 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
 ROLLOUT_CLUSTERS = (1, 2, 4, 8)   # the cluster sizes the rollout kernel takes
 
 
-def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: int) -> int:
+def wrow(k: int, bf16: bool) -> int:
+    """4-byte words of shared memory that a weight row of ``k`` inputs takes
+    (``cm::wrow`` of csrc/cluster_mlp.cuh): ``kernels.ldk(k)`` floats, or in
+    bf16 ``k`` rounded up to 8 values, plus 8 where that count of 16-byte
+    chunks is even, two values a word."""
+    from .kernels import ldk
+    if not bf16:
+        return ldk(k)
+    k8 = (k + 7) // 8 * 8
+    return (k8 + (8 if k8 // 8 % 2 == 0 else 0)) // 2
+
+
+def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: int,
+                       bf16: bool = False) -> int:
     """Shared memory of one block of the rollout kernel (K1, K3) for clusters
     of ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices
     of both nets' weights row by row (a row of K inputs takes
@@ -645,24 +688,30 @@ def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: in
     (the obs, both whole h1, the block's rows of both h2, every block's part
     of the heads, two steps' noise words, the head noise and sums) and the
     split-K scratch of the widest product (``cm::tile_dense``'s count of
-    parts: :func:`tile_scratch`).  ``csrc/fused_rollout.cu``
-    owns the layout (``RolloutLayout``, ``fused_rollout_smem_bytes``); this
-    copy judges eligibility where the library is not built (the CPU)."""
-    from .kernels import ldk
+    parts: :func:`tile_scratch`).  With ``bf16`` the weight slices and the
+    tiles xn, h1 and h2 hold bf16 values, and where the layout with layer 2's
+    split-K scratch would not fit a block layer 2 runs unsplit.
+    ``csrc/fused_rollout.cu`` owns the layout (``RolloutLayout``,
+    ``fused_rollout_smem_bytes``); this copy judges eligibility where the
+    library is not built (the CPU)."""
     D1, D2 = (int(d) for d in net_dims)
-    S, A, c = body.state_dim, body.action_dim, int(cluster)
+    S, A, c, bf = body.state_dim, body.action_dim, int(cluster), bool(bf16)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, ap = r4(S), r4(A)
     nh4 = r4(A if body.discrete else 2 * A)
     ne4 = r4(max(body.n_step + body.n_reset, 1))
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    weights = (2 * js1 * ldk(S) + 2 * js1 + 2 * js2 * ldk(k2) + 2 * js2 + ap * ldk(js2)
-               + 4 * ldk(js2) + 2 * ap + 4 + 2 * s4)
-    tiles = (s4 + 2 * k2 + 2 * js2 + c * (ap + 4) + 2 * nh4 + 2 * ne4 + ap + r4(A + 1)) * _TE
-    scratch = max(tile_scratch(s4, 2 * js1), tile_scratch(k2, js2), tile_scratch(js2, ap),
-                  tile_scratch(js2, 4))
-    return 4 * (weights + tiles + r4(scratch))
+    weights = (2 * js1 * wrow(S, bf) + 2 * js1 + 2 * js2 * wrow(k2, bf) + 2 * js2
+               + ap * wrow(js2, bf) + 4 * wrow(js2, bf) + 2 * ap + 4 + 2 * s4)
+    tiles = (half((s4 + 2 * k2 + 2 * js2) * _TE)
+             + (c * (ap + 4) + 2 * nh4 + 2 * ne4 + ap + r4(A + 1)) * _TE)
+    split2 = tile_scratch(k2, js2)
+    rest = max(tile_scratch(s4, 2 * js1), tile_scratch(js2, ap), tile_scratch(js2, 4))
+    if bf and 4 * (weights + tiles + r4(max(split2, rest))) > SMEM_LIMIT:
+        split2 = 0   # layer 2 unsplit
+    return 4 * (weights + tiles + r4(max(split2, rest)))
 
 
 def tile_scratch(k: int, j: int, lanes: int = _TE, threads: int = 256) -> int:
@@ -734,22 +783,34 @@ def critic_smem_bytes(net_dims: Sequence[int], tile: Optional[int] = None) -> in
     return 4 * floats
 
 
-def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int]) -> bool:
-    """Whether the CUDA kernel takes this body at these widths: the
-    registered bodies where a cluster of 8 blocks holds both nets' slices
-    (:func:`rollout_smem_bytes`; (256, 256) and more, ``ROADMAP.md`` lists
-    the limit); a market-data body (built for ``STOCK_KERNEL_STOCKS``
-    stocks) as the actor-only rollout, where a cluster holds the actor's
-    slices, plus the critic pass (:func:`critic_smem_bytes`)."""
+def rollout_width_limit(body: KernelEnvBody, bf16: bool = False) -> int:
+    """The widest square net (a multiple of 4) whose slices a cluster of 8
+    blocks of the rollout kernel holds (:func:`rollout_smem_bytes`)."""
+    d = 4
+    while rollout_smem_bytes(body, (d + 4, d + 4), 8, bf16) <= SMEM_LIMIT:
+        d += 4
+    return d
+
+
+def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = False) -> bool:
+    """Whether the CUDA kernel takes this body at these widths (``bf16``: its
+    bf16-compute variant): the registered bodies where a cluster of 8 blocks
+    holds both nets' slices (:func:`rollout_smem_bytes`; (256, 256) and more
+    in float32, (512, 512) in bf16 but on PointChasingDiscreteEnv,
+    ``ROADMAP.md`` lists the limits); a market-data body (built for
+    ``STOCK_KERNEL_STOCKS`` stocks) in float32 as the actor-only rollout,
+    where a cluster holds the actor's slices, plus the critic pass
+    (:func:`critic_smem_bytes`)."""
     if len(tuple(net_dims)) != 2:
         return False
     S, A = body.state_dim, body.action_dim
     if not kernel_has_body(body):
         return False
     if body.tables is not None:
-        return (min(actor_smem_bytes(S, net_dims, A, c) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
+        return (not bf16
+                and min(actor_smem_bytes(S, net_dims, A, c) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
                 and critic_smem_bytes(net_dims) <= SMEM_LIMIT)
-    return rollout_smem_bytes(body, net_dims, 8) <= SMEM_LIMIT
+    return rollout_smem_bytes(body, net_dims, 8, bf16) <= SMEM_LIMIT
 
 
 class _StockArgs(ctypes.Structure):
@@ -843,21 +904,29 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             noise: Optional[torch.Tensor] = None,
             seed: Optional[torch.Tensor] = None,
             body: KernelEnvBody = PENDULUM_BODY, stock_cluster: int = 0,
-            cluster: int = 0) -> RolloutOutputs:
+            cluster: int = 0, compute_dtype: Optional[torch.dtype] = None,
+            store_dtype: Optional[torch.dtype] = None) -> RolloutOutputs:
     """The fused rollout: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``cluster`` and ``stock_cluster`` set the
-    cluster size of the rollout kernel and of the stock actor kernel (1, 2,
-    4 or 8; 0, the default, lets the kernel choose from the card's
-    occupancy, the choice kept per body, env count, widths and device);
-    knobs for measuring the options."""
+    version for CPU tensors.  ``compute_dtype`` and ``store_dtype`` (None or
+    ``torch.bfloat16``) as the module says; the stock body takes neither on
+    a card.  ``cluster`` and ``stock_cluster`` set the cluster size of the
+    rollout kernel and of the stock actor kernel (1, 2, 4 or 8; 0, the
+    default, lets the kernel choose from the card's occupancy, the choice
+    kept per body, env count, widths, compute type and device); knobs for
+    measuring the options."""
+    _check_dtypes('rollout', compute_dtype, store_dtype)
     kw = dict(net_dims=net_dims, horizon_len=horizon_len,
-              reward_scale=reward_scale, noise=noise, seed=seed, body=body)
+              reward_scale=reward_scale, noise=noise, seed=seed, body=body,
+              compute_dtype=compute_dtype, store_dtype=store_dtype)
     if act_flat.device.type == 'cpu':
         return rollout_reference(act_flat, cri_flat, norm_avg, norm_std,
                                  env_f, env_i, **kw)
     if act_flat.device.type != 'cuda':
         raise ValueError(f'rollout: unsupported device {act_flat.device}')
     stock = body.tables is not None
+    bf, quant = int(compute_dtype is not None), int(store_dtype is not None)
+    if stock and (bf or quant):
+        raise NotImplementedError(STOCK_BF16_TEXT)
     if not kernel_has_body(body):
         raise ValueError(f'rollout: the CUDA kernel implements the bodies of '
                          f'{kernel_bodies_text(body)}, not {body.env_name}')
@@ -879,14 +948,15 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         if not stock_cluster:
             stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device)
     else:
-        smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8)
+        smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8, bf)
         if smem > SMEM_LIMIT:
             raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
                              f'shared memory in each block of a cluster of 8, the widest '
                              f'the kernel takes, more than the {SMEM_LIMIT} a Hopper block '
-                             'can hold')
+                             f'can hold (square widths up to {rollout_width_limit(body, bf)} '
+                             f'in {("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)')
         if not cluster:
-            cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device)
+            cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf)
     dev = act_flat.device
     act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A, body.discrete)
     f32 = torch.float32
@@ -910,7 +980,7 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     else:
         actions = torch.empty((H, A, N), dtype=f32, device=dev)
     out = RolloutOutputs(
-        states=torch.empty((H, S, N), dtype=f32, device=dev),
+        states=torch.empty((H, S, N), dtype=store_dtype or f32, device=dev),
         actions=actions,
         logprobs=torch.empty((H, N), dtype=f32, device=dev),
         rewards=torch.empty((H, N), dtype=f32, device=dev),
@@ -931,10 +1001,12 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
             ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
             *[ptr(t) for t in out],
-            N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), ctypes.c_void_p(stream))
-    check(status, f'fused_rollout[{body.env_name}]')
+            N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), bf, quant,
+            ctypes.c_void_p(stream))
+    tag = body.env_name + (',bf16' if bf else '')   # the bf16 variant counts apart
+    check(status, f'fused_rollout[{tag}]')
     rollout.launches += 1
-    rollout.launches_by_body[body.env_name] = rollout.launches_by_body.get(body.env_name, 0) + 1
+    rollout.launches_by_body[tag] = rollout.launches_by_body.get(tag, 0) + 1
     if stock:
         critic_values(cri_flat, norm_avg, norm_std, out.states, out.values, net_dims=(D1, D2))
     return out
@@ -943,7 +1015,7 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
 rollout.launches = 0
 rollout.launches_by_body = {}
 
-_CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index) -> the rollout kernel's cluster size
+_CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index, bf) -> the rollout kernel's cluster size
 
 
 def _kept_pick(picks: dict, key, ask) -> int:
@@ -959,15 +1031,16 @@ def _kept_pick(picks: dict, key, ask) -> int:
     return picks[key]
 
 
-def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device) -> int:
+def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device,
+                     bf: int = 0) -> int:
     """The rollout kernel's cluster size (``fused_rollout_cluster``; for the
     stock body the actor kernel's, ``stock_rollout_cluster``), kept per body,
-    env count, widths and device."""
+    env count, widths, device and compute type."""
     if body.tables is not None:
         ask = lambda: lib.stock_rollout_cluster(N, D1, D2, 0)  # noqa: E731
     else:
-        ask = lambda: lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0)  # noqa: E731
-    return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index), ask)
+        ask = lambda: lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0, bf)  # noqa: E731
+    return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index, bf), ask)
 
 
 def _library():
@@ -976,19 +1049,19 @@ def _library():
     fn = lib.fused_rollout
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
-        lib.fused_rollout_cluster.argtypes = [ctypes.c_int] * 5
+        lib.fused_rollout_cluster.argtypes = [ctypes.c_int] * 6
         lib.fused_rollout_cluster.restype = ctypes.c_int
         lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                                           + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
-                                          + [ctypes.c_int, ctypes.c_void_p])
+                                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.offpolicy_rollout.restype = ctypes.c_int
-        lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
-        lib.offpolicy_rollout_cluster.argtypes = [ctypes.c_int] * 6
+        lib.offpolicy_rollout_cluster.argtypes = [ctypes.c_int] * 7
         lib.offpolicy_rollout_cluster.restype = ctypes.c_int
         lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -1012,11 +1085,14 @@ def _library():
 # ---------------------------------------------------- runner integration
 
 def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
-                       num_envs: int, reward_scale: float):
+                       num_envs: int, reward_scale: float,
+                       compute_dtype: Optional[torch.dtype] = None,
+                       store_dtype: Optional[torch.dtype] = None):
     """``rollout_fn(agent_state, env_state, gen, noise=None) -> (Rollout,
     env_state', last_obs)``: the fast path for ``collect_rollout`` on the
-    on-policy agents with a kernel-body env.  Without ``noise`` the kernel's
-    internal Philox draws are keyed by a seed taken from ``gen``."""
+    on-policy agents with a kernel-body env, in the given compute and
+    storage types.  Without ``noise`` the kernel's internal Philox draws are
+    keyed by a seed taken from ``gen``."""
     from ..agents.base import Rollout
     H = int(horizon_len)
     net_dims = tuple(int(d) for d in net_dims)
@@ -1031,7 +1107,8 @@ def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
                       agent_state.norm_avg, agent_state.norm_std,
                       f0.contiguous(), i0.contiguous(), net_dims=net_dims,
                       horizon_len=H, reward_scale=reward_scale, noise=noise,
-                      seed=seed, body=body)
+                      seed=seed, body=body, compute_dtype=compute_dtype,
+                      store_dtype=store_dtype)
         ro = Rollout(states=out.states, actions=out.actions, logprobs=out.logprobs,
                      rewards=out.rewards, undones=1.0 - out.terminals,
                      unmasks=1.0 - out.truncates,
@@ -1124,10 +1201,14 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
                                 explore_rate: float = 0.25, std_clip=(-16.0, 2.0),
                                 noise: Optional[torch.Tensor] = None,
                                 seed: Optional[torch.Tensor] = None,
-                                env_trace: Optional[list] = None) -> OffPolicyRolloutOutputs:
+                                env_trace: Optional[list] = None,
+                                compute_dtype: Optional[torch.dtype] = None,
+                                store_dtype: Optional[torch.dtype] = None
+                                ) -> OffPolicyRolloutOutputs:
     """Plain PyTorch version of the off-policy rollout kernel.  ``flat`` is
-    the agent's flat actor (ddpg, sac, modsac) or Q buffer; ``env_trace`` as
-    in :func:`rollout_reference`."""
+    the agent's flat actor (ddpg, sac, modsac) or Q buffer; ``env_trace``,
+    ``compute_dtype`` and ``store_dtype`` as in :func:`rollout_reference`
+    (the stored float actions in ``store_dtype`` too)."""
     from .fused_offpolicy_update import dqn_q_greedy, sac_actor_dist
     S, A = body.state_dim, body.action_dim
     shapes = offpolicy_head_shapes(S, net_dims, A, head)
@@ -1143,6 +1224,8 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
         if env_trace is not None:
             env_trace.append((f, i))
         x = body.obs(f, i)                                   # (S, N)
+        if store_dtype is not None:                          # round before acting
+            x = x.to(store_dtype).float()
         u = noise[t] if seed is None else u_all[t]
         if head in CONTINUOUS_HEADS:
             if seed is None:
@@ -1151,14 +1234,16 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
                 z = torch.sqrt(-2.0 * torch.log(1.0 - u[0:A])) * torch.cos(_TWO_PI * u[A:2 * A])
                 u_env = u[2 * A:]
             if head == 'ddpg':
-                out = mlp_apply_leaves(leaves, x.T).T        # (A, N)
+                out = mlp_apply_leaves(leaves, x.T, compute_dtype).T   # (A, N)
                 action = torch.clamp(torch.tanh(out) + noise_std * z, -1.0, 1.0)
             else:
-                mean, log_std = sac_actor_dist(leaves, x.T, head == 'modsac', std_clip)
+                mean, log_std = sac_actor_dist(leaves, x.T, head == 'modsac', std_clip,
+                                               compute_dtype)
                 action = torch.tanh(mean.T + torch.exp(log_std.T) * z)
             env_a, stored = action, action.T
         else:
-            q = dqn_q_greedy(leaves, x.T, head == 'dqn_enc', head == 'dqn_duel')  # (N, A)
+            q = dqn_q_greedy(leaves, x.T, head == 'dqn_enc', head == 'dqn_duel',
+                             compute_dtype)                  # (N, A)
             greedy = torch.argmax(q, dim=1)                  # first max on a tie
             rand = torch.clamp(torch.floor(u[1] * A), max=A - 1).long()
             index = torch.where(u[0] < explore_rate, rand, greedy)
@@ -1172,7 +1257,12 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
         outs['rewards'].append(reward[0] * reward_scale)
         outs['terminals'].append(terminal[0].float())
         outs['truncates'].append(trunc[0].float())
-    return OffPolicyRolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
+    out = OffPolicyRolloutOutputs(*[torch.stack(v) for v in outs.values()], f, i)
+    if store_dtype is None:
+        return out
+    return out._replace(states=out.states.to(store_dtype),
+                        actions=(out.actions.to(store_dtype) if head in CONTINUOUS_HEADS
+                                 else out.actions))
 
 
 OFF_LANES = 16   # env lanes of an off-policy group (csrc/fused_rollout.cu: OFF_LANES)
@@ -1185,7 +1275,7 @@ def offpolicy_out_rows(action_dim: int, head: str) -> int:
 
 
 def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str,
-                         cluster: int = 8) -> int:
+                         cluster: int = 8, bf16: bool = False) -> int:
     """Shared memory of one block of the off-policy rollout for clusters of
     ``cluster`` blocks over a group of ``OFF_LANES`` lanes: the block's
     slices of W1's and W2's rows and of the head's columns (a row of K
@@ -1194,31 +1284,35 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
     the head rows, two steps' noise words, the normals, the summed head
     rows) and the split-K scratch of the widest product
     (``offpolicy_rollout_smem_bytes`` of ``csrc/fused_rollout.cu``:
-    ``OffLayout``).  The stock body runs the stock actor kernel
-    (:func:`actor_smem_bytes`)."""
-    from .kernels import ldk
+    ``OffLayout``), with ``bf16`` the weight slices and the tiles xn, h1 and
+    h2 in bf16.  The stock body runs the stock actor kernel
+    (:func:`actor_smem_bytes`, float32 only)."""
     D1, D2 = (int(d) for d in net_dims)
-    S, A, c, G = body.state_dim, body.action_dim, int(cluster), OFF_LANES
+    S, A, c, G, bf = body.state_dim, body.action_dim, int(cluster), OFF_LANES, bool(bf16)
     if body.tables is not None:
         return actor_smem_bytes(S, (D1, D2), A, c, head)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, op = r4(S), r4(offpolicy_out_rows(A, head))
     nh4 = r4(2 * A if head in CONTINUOUS_HEADS else 2)
     ne4 = r4(max(body.n_step + body.n_reset, 1))
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    weights = js1 * ldk(S) + js1 + js2 * ldk(k2) + js2 + op * ldk(js2) + op
-    tiles = (s4 + k2 + js2 + c * op + 2 * nh4 + 2 * ne4 + r4(A) + op) * G
+    weights = js1 * wrow(S, bf) + js1 + js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf) + op
+    tiles = half((s4 + k2 + js2) * G) + (c * op + 2 * nh4 + 2 * ne4 + r4(A) + op) * G
     scratch = max(tile_scratch(s4, js1, G), tile_scratch(k2, js2, G), tile_scratch(js2, op, G))
     return 4 * (weights + tiles + r4(scratch))
 
 
-def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int]) -> bool:
-    """Whether the CUDA kernel takes this (body, head) pair at these widths:
+def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                   bf16: bool = False) -> bool:
+    """Whether the CUDA kernel takes this (body, head) pair at these widths
+    (``bf16``: its bf16-compute variant, which the stock body has not):
     two hidden layers whose slices a cluster of 1, 2, 4 or 8 blocks holds
     (``ROADMAP.md`` lists the limits)."""
     return (offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
-            and min(offpolicy_smem_bytes(body, net_dims, head, c)
+            and not (bf16 and body.tables is not None)
+            and min(offpolicy_smem_bytes(body, net_dims, head, c, bf16)
                     for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
 
 
@@ -1228,20 +1322,28 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
                       explore_rate: float = 0.25, std_clip=(-16.0, 2.0),
                       noise: Optional[torch.Tensor] = None,
                       seed: Optional[torch.Tensor] = None,
-                      cluster: int = 0) -> OffPolicyRolloutOutputs:
+                      cluster: int = 0, compute_dtype: Optional[torch.dtype] = None,
+                      store_dtype: Optional[torch.dtype] = None) -> OffPolicyRolloutOutputs:
     """The off-policy fused rollout: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``cluster`` sets the cluster size (1, 2,
-    4 or 8; 0, the default, lets the kernel choose from the card's
-    occupancy, the choice kept per body, head, env count, widths and
-    device); a knob for measuring the options."""
+    plain version for CPU tensors.  ``compute_dtype`` and ``store_dtype`` as
+    for :func:`rollout` (the stock heads take neither on a card).
+    ``cluster`` sets the cluster size (1, 2, 4 or 8; 0, the default, lets
+    the kernel choose from the card's occupancy, the choice kept per body,
+    head, env count, widths, compute type and device); a knob for measuring
+    the options."""
+    _check_dtypes('offpolicy_rollout', compute_dtype, store_dtype)
     kw = dict(body=body, head=head, net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise_std=noise_std, explore_rate=explore_rate,
-              std_clip=std_clip, noise=noise, seed=seed)
+              std_clip=std_clip, noise=noise, seed=seed, compute_dtype=compute_dtype,
+              store_dtype=store_dtype)
     if flat.device.type == 'cpu':
         return offpolicy_rollout_reference(flat, env_f, env_i, **kw)
     if flat.device.type != 'cuda':
         raise ValueError(f'offpolicy_rollout: unsupported device {flat.device}')
     stock = body.tables is not None
+    bf, quant = int(compute_dtype is not None), int(store_dtype is not None)
+    if stock and (bf or quant):
+        raise NotImplementedError(STOCK_BF16_TEXT)
     if stock:
         stock_args = _stock_args(body, flat.device)
     if not offpolicy_pair_fits(body, head):
@@ -1257,14 +1359,14 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     from ._cuda_build import check, check_tensor, ptr
     lib = _library()
     head_id = OFFPOLICY_HEADS[head]
-    smem = min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1, D2, c)
+    smem = min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1, D2, c, bf)
                for c in ROLLOUT_CLUSTERS)
     if smem > SMEM_LIMIT:
         raise ValueError(f'offpolicy_rollout: net_dims={tuple(net_dims)} needs {smem} bytes '
                          f'of shared memory in each block of a cluster at the least, more '
                          f'than the {SMEM_LIMIT} a Hopper block can hold')
     if not cluster:
-        cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device)
+        cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device, bf)
     dev = flat.device
     f32 = torch.float32
     n_head = sum(math.prod(s) for s in offpolicy_head_shapes(S, (D1, D2), A, head))
@@ -1279,10 +1381,11 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
                      (H, offpolicy_noise_rows(body, head), N), f32, dev)
     else:
         check_tensor('offpolicy_rollout', 'seed', seed, (2,), torch.int32, dev)
-    actions = (torch.empty((H, N, A), dtype=f32, device=dev) if head in CONTINUOUS_HEADS
+    actions = (torch.empty((H, N, A), dtype=store_dtype or f32, device=dev)
+               if head in CONTINUOUS_HEADS
                else torch.empty((H, N), dtype=torch.int32, device=dev))
     out = OffPolicyRolloutOutputs(
-        states=torch.empty((H, N, S), dtype=f32, device=dev), actions=actions,
+        states=torch.empty((H, N, S), dtype=store_dtype or f32, device=dev), actions=actions,
         rewards=torch.empty((H, N), dtype=f32, device=dev),
         terminals=torch.empty((H, N), dtype=f32, device=dev),
         truncates=torch.empty((H, N), dtype=f32, device=dev),
@@ -1299,8 +1402,8 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         status = lib.offpolicy_rollout(
             body.kernel_id, head_id, ptr(flat), ptr(env_f), ptr(env_i),
             ptr(noise), ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, *hyper,
-            int(cluster), ctypes.c_void_p(stream))
-    tag = f'{body.env_name},{head}'
+            int(cluster), bf, quant, ctypes.c_void_p(stream))
+    tag = f'{body.env_name},{head}' + (',bf16' if bf else '')
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1
     offpolicy_rollout.launches_by_kernel[tag] = offpolicy_rollout.launches_by_kernel.get(tag, 0) + 1
@@ -1310,26 +1413,30 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
 offpolicy_rollout.launches = 0
 offpolicy_rollout.launches_by_kernel = {}
 
-# (body, head, envs, D1, D2, device index) -> the off-policy kernel's cluster size
+# (body, head, envs, D1, D2, device index, bf) -> the off-policy kernel's cluster size
 _OFF_CLUSTER_PICKS = {}
 
 
 def _offpolicy_cluster(lib, body: KernelEnvBody, head_id: int, N: int, D1: int, D2: int,
-                       device) -> int:
+                       device, bf: int = 0) -> int:
     """The off-policy kernel's cluster size (``offpolicy_rollout_cluster``),
-    kept per body, head, env count, widths and device."""
-    return _kept_pick(_OFF_CLUSTER_PICKS, (body.kernel_id, head_id, N, D1, D2, device.index),
+    kept per body, head, env count, widths, device and compute type."""
+    return _kept_pick(_OFF_CLUSTER_PICKS,
+                      (body.kernel_id, head_id, N, D1, D2, device.index, bf),
                       lambda: lib.offpolicy_rollout_cluster(body.kernel_id, head_id, N, D1, D2,
-                                                            0))
+                                                            0, bf))
 
 
 def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horizon_len: int,
                                  num_envs: int, reward_scale: float, noise_std: float,
-                                 explore_rate: float, std_clip=(-16.0, 2.0)):
+                                 explore_rate: float, std_clip=(-16.0, 2.0),
+                                 compute_dtype: Optional[torch.dtype] = None,
+                                 store_dtype: Optional[torch.dtype] = None):
     """``rollout_fn(agent_state, env_state, gen, noise=None) -> (Rollout,
-    env_state', last_obs)`` for the off-policy agents: the flat buffer is the
-    agent state's ``act`` (ddpg, sac, modsac) or ``q``; without ``noise`` the
-    kernel's Philox draws are keyed by a seed taken from ``gen``."""
+    env_state', last_obs)`` for the off-policy agents, in the given compute
+    and storage types: the flat buffer is the agent state's ``act`` (ddpg,
+    sac, modsac) or ``q``; without ``noise`` the kernel's Philox draws are
+    keyed by a seed taken from ``gen``."""
     from ..agents.base import Rollout
     H = int(horizon_len)
     net_dims = tuple(int(d) for d in net_dims)
@@ -1344,7 +1451,8 @@ def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horiz
         out = offpolicy_rollout(flat, f0.contiguous(), i0.contiguous(), body=body, head=head,
                                 net_dims=net_dims, horizon_len=H, reward_scale=reward_scale,
                                 noise_std=noise_std, explore_rate=explore_rate,
-                                std_clip=std_clip, noise=noise, seed=seed)
+                                std_clip=std_clip, noise=noise, seed=seed,
+                                compute_dtype=compute_dtype, store_dtype=store_dtype)
         ro = Rollout(states=out.states, actions=out.actions, logprobs=None,
                      rewards=out.rewards, undones=1.0 - out.terminals,
                      unmasks=1.0 - out.truncates)

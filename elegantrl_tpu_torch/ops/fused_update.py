@@ -77,14 +77,14 @@ def with_adam_parts(opt_state, count, mu, nu):
     return opt_state._replace(count=count, mu=mu, nu=nu)
 
 
-def logprob_entropy(leaves, xn, a, discrete: bool):
+def logprob_entropy(leaves, xn, a, discrete: bool, dtype=None):
     """``(new_logprob, entropy)`` of actions ``a`` under the actor given by
     ``leaves``; ``a`` is ``(..., A)``: raw actions, or one-hot rows when
-    ``discrete``."""
+    ``discrete``.  ``dtype``: the MLP's compute type (``mlp_apply_leaves``)."""
     if discrete:
-        logp = torch.log_softmax(mlp_apply_leaves(leaves, xn), dim=-1)
+        logp = torch.log_softmax(mlp_apply_leaves(leaves, xn, dtype), dim=-1)
         return torch.sum(logp * a, dim=-1), -torch.sum(torch.exp(logp) * logp, dim=-1)
-    mean = mlp_apply_leaves(leaves[:-1], xn)             # (..., A)
+    mean = mlp_apply_leaves(leaves[:-1], xn, dtype)      # (..., A)
     std = torch.exp(leaves[-1])                          # (1, A)
     new_lp = torch.sum(dists.normal_logprob(a, mean, std), dim=-1)
     entropy = torch.sum(dists.normal_entropy(std.expand_as(mean)), dim=-1)
@@ -92,9 +92,9 @@ def logprob_entropy(leaves, xn, a, discrete: bool):
 
 
 def actor_loss(leaves, xn, a, lp, adv, um, ratio_clip, lambda_entropy, single_sided,
-               discrete: bool = False):
+               discrete: bool = False, dtype=None):
     """PPO: ``-(mean(surrogate * um) - lambda * mean(entropy * um))``."""
-    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete)
+    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete, dtype)
     ratio = torch.exp(new_lp - lp)
     if single_sided:
         surrogate = adv * ratio * torch.where(adv > 0, 1.0 - ratio_clip, 1.0 + ratio_clip)
@@ -108,10 +108,11 @@ def actor_loss(leaves, xn, a, lp, adv, um, ratio_clip, lambda_entropy, single_si
     return -(obj_surrogate - obj_entropy * lambda_entropy), obj_surrogate, obj_entropy
 
 
-def a2c_actor_loss(leaves, xn, a, adv, um, lambda_entropy, discrete: bool = False):
+def a2c_actor_loss(leaves, xn, a, adv, um, lambda_entropy, discrete: bool = False,
+                   dtype=None):
     """A2C: the unclipped policy gradient with a true entropy bonus,
     ``-(mean(adv * logp * um) + lambda * mean(entropy * um))``."""
-    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete)
+    new_lp, entropy = logprob_entropy(leaves, xn, a, discrete, dtype)
     obj_surrogate = torch.mean(adv * new_lp * um)
     obj_entropy = torch.mean(entropy * um)
     return -(obj_surrogate + obj_entropy * lambda_entropy), obj_surrogate, obj_entropy
@@ -130,8 +131,8 @@ def discrete_head_backward(logits, onehot, g_lp, g_ent):
     return g_lp[..., None] * (onehot - p * soh) - g_ent[..., None] * p * (logp + entropy)
 
 
-def critic_loss(leaves, xn, rs, um):
-    v = mlp_apply_leaves(leaves, xn)[..., 0]
+def critic_loss(leaves, xn, rs, um, dtype=None):
+    v = mlp_apply_leaves(leaves, xn, dtype)[..., 0]
     return torch.mean(torch.square(v - rs) * um)
 
 

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from .kernels import gae_vtrace_kernel, gae_vtrace_reference
+from .kernels import gae_vtrace_kernel, gae_vtrace_reference, vtrace_advantages_reference
 
 
 def apply_truncation_bootstrap(rewards: torch.Tensor, undones: torch.Tensor,
@@ -26,18 +26,30 @@ def apply_truncation_bootstrap(rewards: torch.Tensor, undones: torch.Tensor,
 
 
 def gae_vtrace(rewards: torch.Tensor, undones: torch.Tensor, values: torch.Tensor,
-               next_value: torch.Tensor, gamma: float, lam: float,
-               use_kernel: bool = False) -> torch.Tensor:
+               next_value: torch.Tensor, gamma: float, lam: float) -> torch.Tensor:
     """V-trace-style recursion:
     ``adv[t] = r[t] + m[t]*v[t+1] - v[t] + m[t]*lam*adv[t+1]`` with
-    ``m = gamma*undone`` and ``v[H] = next_value``.  With ``use_kernel``
-    (``config.py:select_kernel`` on ``use_gae_kernel``) it runs K10,
-    ``ops/kernels.py:gae_vtrace_kernel``, in one launch on a card; else the
-    reverse loop, ``gae_vtrace_reference``.  The two are bitwise equal."""
+    ``m = gamma*undone`` and ``v[H] = next_value``; the reverse loop,
+    ``ops/kernels.py:gae_vtrace_reference``."""
+    return gae_vtrace_reference(rewards, undones, values, next_value, gamma, lam)
+
+
+def vtrace_advantages(rewards: torch.Tensor, undones: torch.Tensor, unmasks: torch.Tensor,
+                      values: torch.Tensor, next_value: torch.Tensor, gamma: float, lam: float,
+                      use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PPO advantage step before normalisation: the truncation bootstrap,
+    the V-trace recursion and ``reward_sums = adv + v``; returns ``(adv,
+    reward_sums)``.  With ``use_kernel`` (``config.py:select_kernel`` on
+    ``use_gae_kernel``) all three are one K10 launch on a card
+    (``ops/kernels.py:gae_vtrace_kernel``); else
+    :func:`apply_truncation_bootstrap`, the reverse loop and the sum
+    (``vtrace_advantages_reference``), which the kernel repeats operation by
+    operation: the two are bitwise equal."""
     if use_kernel:
         return gae_vtrace_kernel(rewards.contiguous(), undones.contiguous(),
-                                 values.contiguous(), next_value.contiguous(), gamma, lam)
-    return gae_vtrace_reference(rewards, undones, values, next_value, gamma, lam)
+                                 unmasks.contiguous(), values.contiguous(),
+                                 next_value.contiguous(), gamma, lam)
+    return vtrace_advantages_reference(rewards, undones, unmasks, values, next_value, gamma, lam)
 
 
 def gae_plain(rewards: torch.Tensor, undones: torch.Tensor, values: torch.Tensor,

@@ -3,8 +3,10 @@ forward (counterpart of ``elegantrl_tpu/ops/pallas_kernels.py``).
 
 Each kernel's wrapper stands beside its plain PyTorch version:
 
-- :func:`gae_vtrace_kernel` / :func:`gae_vtrace_reference` (K10): the
-  reverse V-trace recursion of ``ops/gae.py:gae_vtrace``;
+- :func:`gae_vtrace_kernel` / :func:`vtrace_advantages_reference` (K10):
+  the PPO advantage step before normalisation
+  (``ops/gae.py:vtrace_advantages``): the truncation bootstrap, the reverse
+  V-trace recursion of :func:`gae_vtrace_reference` and the reward sums;
 - :func:`buffer_gather_fields` / :func:`buffer_gather_fields_reference`
   (K11a): the row gathers ``buf[ids0 + offset, ids1]`` of every field of the
   replay ring in one launch, optionally feature-major; :func:`buffer_gather`
@@ -68,25 +70,42 @@ def gae_vtrace_reference(rewards: torch.Tensor, undones: torch.Tensor, values: t
     return advantages
 
 
-def gae_vtrace_kernel(rewards: torch.Tensor, undones: torch.Tensor, values: torch.Tensor,
-                      next_value: torch.Tensor, gamma: float, lam: float) -> torch.Tensor:
-    """K10 for CUDA tensors (one launch), the plain version for CPU ones."""
+def vtrace_advantages_reference(rewards: torch.Tensor, undones: torch.Tensor,
+                                unmasks: torch.Tensor, values: torch.Tensor,
+                                next_value: torch.Tensor, gamma: float, lam: float):
+    """K10's plain version: the truncation bootstrap
+    (``ops/gae.py:apply_truncation_bootstrap``: ``r + (1 - unmask) v``,
+    ``undone * unmask``), :func:`gae_vtrace_reference` on its result, and
+    ``reward_sums = adv + v``; returns ``(adv, reward_sums)``."""
+    rewards, undones = rewards + (1.0 - unmasks) * values, undones * unmasks
+    advantages = gae_vtrace_reference(rewards, undones, values, next_value, gamma, lam)
+    return advantages, advantages + values
+
+
+def gae_vtrace_kernel(rewards: torch.Tensor, undones: torch.Tensor, unmasks: torch.Tensor,
+                      values: torch.Tensor, next_value: torch.Tensor, gamma: float, lam: float):
+    """K10 for CUDA tensors (one launch computing what
+    :func:`vtrace_advantages_reference` does, bitwise), the plain version
+    for CPU ones; returns ``(adv, reward_sums)``."""
     if rewards.device.type == 'cpu':
-        return gae_vtrace_reference(rewards, undones, values, next_value, gamma, lam)
+        return vtrace_advantages_reference(rewards, undones, unmasks, values, next_value,
+                                           gamma, lam)
     _cuda_only('gae_vtrace_kernel', rewards)
     from ._cuda_build import check, check_tensor, ptr
     H, N = rewards.shape
     dev = rewards.device
-    for name, t in (('rewards', rewards), ('undones', undones), ('values', values)):
+    for name, t in (('rewards', rewards), ('undones', undones), ('unmasks', unmasks),
+                    ('values', values)):
         check_tensor('gae_vtrace_kernel', name, t, (H, N), torch.float32, dev)
     check_tensor('gae_vtrace_kernel', 'next_value', next_value, (N,), torch.float32, dev)
     adv = torch.empty((H, N), dtype=torch.float32, device=dev)
+    sums = torch.empty((H, N), dtype=torch.float32, device=dev)
     status = _library().gae_vtrace(
-        ptr(rewards), ptr(undones), ptr(values), ptr(next_value), ptr(adv), H, N,
-        ctypes.c_float(gamma), ctypes.c_float(lam), _stream(dev))
+        ptr(rewards), ptr(undones), ptr(unmasks), ptr(values), ptr(next_value), ptr(adv),
+        ptr(sums), H, N, ctypes.c_float(gamma), ctypes.c_float(lam), _stream(dev))
     check(status, 'gae_vtrace_kernel')
     gae_vtrace_kernel.launches += 1
-    return adv
+    return adv, sums
 
 
 gae_vtrace_kernel.launches = 0
@@ -324,7 +343,7 @@ def _library():
     lib = load('kernels')
     if lib.gae_vtrace.argtypes is None:
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.gae_vtrace.argtypes = [vp] * 5 + [i, i, f, f, vp]
+        lib.gae_vtrace.argtypes = [vp] * 7 + [i, i, f, f, vp]
         lib.buffer_gather_fields.argtypes = [ctypes.POINTER(ll), i, vp, vp, ll, ll, i, vp]
         lib.fused_mlp3.argtypes = [vp] * 8 + [i] * 7 + [vp]
         lib.fused_mlp3_smem_bytes.argtypes = [i] * 6

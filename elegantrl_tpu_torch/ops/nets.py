@@ -118,25 +118,58 @@ def split_flat(flat: torch.Tensor, shapes) -> list:
     return out
 
 
-def mlp_apply_leaves(leaves: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """:func:`mlp_apply` over ``[W1, b1, W2, b2, ..., Wo, bo]`` leaves."""
+def round_to(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` (nearest, ties to even) and widened back to
+    float32; ``x`` as float32 when ``dtype`` is None.  Its gradient is
+    rounded the same way, as JAX's ``astype`` transposes."""
+    return x.float() if dtype is None else x.to(dtype).float()
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``F.linear``; with ``dtype`` over ``x`` and ``w`` rounded to it, summed
+    in float32 (one layer of :func:`mlp_apply_leaves`)."""
+    if dtype is None:
+        return F.linear(x, w, b)
+    return F.linear(round_to(x, dtype), round_to(w, dtype), b)
+
+
+def mlp_apply_leaves(leaves: Sequence[torch.Tensor], x: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`mlp_apply` over ``[W1, b1, W2, b2, ..., Wo, bo]`` leaves.  With
+    ``dtype`` (bfloat16) the JAX package's ``mlp_apply(dtype=...)``: the
+    input, each weight and each hidden activation are rounded to ``dtype``,
+    the products of the rounded operands are summed in float32 (a product of
+    two bf16 values is exact in float32, so the float32 matmul of the
+    widened operands is ``preferred_element_type=float32``'s product; a
+    matmul in bf16 would round its output), biases and GELU stay float32 and
+    the result is float32."""
     n = len(leaves) // 2
+    if dtype is not None:
+        x = round_to(x, dtype)
     for i in range(n):
-        x = F.linear(x, leaves[2 * i], leaves[2 * i + 1])
+        w = leaves[2 * i] if dtype is None else round_to(leaves[2 * i], dtype)
+        x = F.linear(x, w, leaves[2 * i + 1])
         if i < n - 1:
             x = gelu(x)
+            if dtype is not None:
+                x = round_to(x, dtype)
     return x
 
 
-def mlp3_forward(leaves: Sequence[torch.Tensor], x: torch.Tensor, use_kernel: bool
-                 ) -> torch.Tensor:
+def mlp3_forward(leaves: Sequence[torch.Tensor], x: torch.Tensor, use_kernel: bool,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The no-grad forward of a 3-linear MLP ``[W0, b0, W1, b1, W2, b2]``
     over the last axis of ``x``: K11b (``ops/kernels.py:fused_mlp3``, one
     launch on a card) when ``use_kernel`` (``config.py:select_kernel`` on
-    ``use_mlp3_kernel``), else :func:`mlp_apply_leaves`.  No gradient path
-    calls it: K11b has no backward, in the JAX package either."""
+    ``use_mlp3_kernel``), else :func:`mlp_apply_leaves` (with ``dtype``, the
+    bf16 compute K11b does not take: its caller declines the kernel then).
+    No gradient path calls it: K11b has no backward, in the JAX package
+    either."""
     if not use_kernel:
-        return mlp_apply_leaves(leaves, x)
+        return mlp_apply_leaves(leaves, x, dtype)
+    if dtype is not None:
+        raise ValueError(f'mlp3_forward: K11b computes in float32, not {dtype}')
     from .kernels import fused_mlp3    # kernels.py builds on this module
     lead = x.shape[:-1]
     out = fused_mlp3(x.reshape(-1, x.shape[-1]).float().contiguous(), *leaves)

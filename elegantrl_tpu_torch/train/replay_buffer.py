@@ -27,8 +27,11 @@
   writes ``clip(td, 1e-8, 10)^alpha`` (``per_alpha`` 0.6, ``per_beta`` 0.4);
 - the cumulative-return column ``cum_rewards`` (``lambda_fit_cum_r != 0``),
   written for the span just inserted;
+- ``storage_dtype`` bfloat16 (``args.storage_dtype``) keeps the states and
+  float actions in bf16, the scalars in float32, as the JAX package;
 - :meth:`ReplayBuffer.save_or_load_history`: one ``replay_buffer.npz`` with
-  the JAX package's keys, so each package reads the other's file.
+  the JAX package's keys, so each package reads the other's file (bf16
+  fields widened to float32 in the file, narrowed back on load).
 
 ``ptr`` and ``size`` are Python ints, so the update count of a round is
 known on the host without a device sync.
@@ -42,13 +45,14 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..agents.base import resolve_storage_dtype
 from ..ops import kernels
 from ..ops.per import SegmentTree
 
 
 class BufferState(NamedTuple):
-    states: torch.Tensor    # (M, N, S) float32
-    actions: torch.Tensor   # (M, N, A) float32 | (M, N) int32 when discrete
+    states: torch.Tensor    # (M, N, S) float32, or the storage dtype
+    actions: torch.Tensor   # (M, N, A) float32 (or the storage dtype) | (M, N) int32 when discrete
     rewards: torch.Tensor   # (M, N)
     undones: torch.Tensor   # (M, N)
     unmasks: torch.Tensor   # (M, N)
@@ -64,8 +68,8 @@ class ReplayBuffer:
     def __init__(self, max_size: int, state_dim: int, action_dim: int,
                  num_seqs: int = 1, if_use_per: bool = False,
                  if_discrete: bool = False, args=None, device='cpu'):
-        if str(getattr(args, 'storage_dtype', 'float32')) != 'float32':
-            raise NotImplementedError('the PyTorch port stores the replay buffer in float32 only')
+        # the bulk fields' type (states and float actions; the scalars stay f32)
+        self.storage_dtype = resolve_storage_dtype(args) or torch.float32
         self.max_size = int(max_size)
         self.state_dim = int(state_dim)
         self.action_dim = int(action_dim)
@@ -84,9 +88,11 @@ class ReplayBuffer:
     def init(self) -> BufferState:
         M, N, S = self.max_size, self.num_seqs, self.state_dim
         dev = self.device
+        bulk = self.storage_dtype
         actions = (torch.zeros((M, N), dtype=torch.int32, device=dev) if self.if_discrete
-                   else torch.zeros((M, N, self.action_dim), device=dev))
-        return BufferState(states=torch.zeros((M, N, S), device=dev), actions=actions,
+                   else torch.zeros((M, N, self.action_dim), dtype=bulk, device=dev))
+        return BufferState(states=torch.zeros((M, N, S), dtype=bulk, device=dev),
+                           actions=actions,
                            rewards=torch.zeros((M, N), device=dev),
                            undones=torch.zeros((M, N), device=dev),
                            unmasks=torch.zeros((M, N), device=dev), ptr=0, size=0,
@@ -231,7 +237,10 @@ class ReplayBuffer:
         under the JAX package's keys."""
         path = os.path.join(cwd, 'replay_buffer.npz')
         if if_save:
-            arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            # bf16 fields are widened to float32 (numpy has no bf16; lossless)
+            arrays = {k: (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor)
+                          and v.dtype == torch.bfloat16
+                          else v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                           else np.asarray(v, np.int32))
                       for k, v in buf._asdict().items() if v is not None and k != 'per_tree'}
             if buf.per_tree is not None:

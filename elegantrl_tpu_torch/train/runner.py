@@ -40,7 +40,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..agents.base import AgentDef, collect_rollout
+from ..agents.base import AgentDef, collect_rollout, resolve_storage_dtype
 from ..agents.ppo import resolve_compute_dtype
 from ..config import Config, kwargs_filter, resolve_device, select_kernel
 from ..envs.base import EnvDef, vec_reset
@@ -138,10 +138,13 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     off-policy agent with a kernel head, when a (block, chunk) fits its VMEM
     budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
     a cluster of blocks holds the weight slices (``rollout_fits``; off-policy
-    ``offpolicy_fits``, for a (body, head) pair it has)."""
-    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, kernel_bodies_text,
+    ``offpolicy_fits``, for a (body, head) pair it has), in the compute and
+    storage types the JAX runner hands its kernel.  The stock body's kernels
+    have no bf16 variant: under bf16 compute or storage a card raises there
+    (the plain version runs it on the CPU)."""
+    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, STOCK_BF16_TEXT, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
-                                     offpolicy_fits, rollout_fits)
+                                     offpolicy_fits, rollout_fits, rollout_width_limit)
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = env.kernel_body or KERNEL_ENV_BODIES.get(spec.env_name)
@@ -150,27 +153,35 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
         body = None
     off_head = _OFFPOLICY_KERNEL_HEADS.get(agent.name)
     bodies = kernel_bodies_text(body)
+    # the types the JAX runner hands its kernel (compute_dtype, store_dtype)
+    cdt = torch.bfloat16 if resolve_compute_dtype(args, net_dims) == 'bfloat16' else None
+    sdt = resolve_storage_dtype(args)
+    types = dict(compute_dtype=cdt, store_dtype=sdt)
+    # the kernels' bf16 variants; the stock body's have none: a card raises
+    # (stock_bf16_on_card), the CPU runs the plain version
+    bf = cdt is not None and body is not None and body.tables is None
+
+    def stock_bf16_on_card(jax_takes: bool) -> None:
+        if (jax_takes and body.tables is not None
+                and (cdt is not None or sdt is not None) and device.type == 'cuda'):
+            raise NotImplementedError(STOCK_BF16_TEXT)
+
     if agent.if_off_policy:
         jax_takes = (body is not None and len(net_dims) == 2 and off_head is not None
                      and agent.rollout_extras is None
                      and jax_rollout_block_chunk(body, spec.if_discrete, True, num_envs,
                                                  horizon_len) is not None)
-        if jax_takes and resolve_compute_dtype(args, net_dims) != 'float32':
-            # the JAX runner hands its kernel the compute type; the port's is f32 only
-            raise NotImplementedError(
-                'the PyTorch port computes in float32 only; set args.compute_dtype = '
-                f"'float32' (got {getattr(args, 'compute_dtype', 'auto')!r} at "
-                f'net_dims={net_dims}, which resolves to '
-                f'{resolve_compute_dtype(args, net_dims)})')
-        fits = jax_takes and offpolicy_fits(body, off_head, net_dims)
+        stock_bf16_on_card(jax_takes)
+        fits = jax_takes and offpolicy_fits(body, off_head, net_dims, bf)
         scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
                  f'2-hidden-layer MLP whose weight slices a cluster of blocks holds (square '
-                 f'widths up to 576, 544 on PointChasingDiscreteEnv; on the stock body 448 '
-                 f'for ddpg, 416 for sac and modsac; ops/fused_rollout.py:offpolicy_fits), '
+                 f'widths up to 576, 544 on PointChasingDiscreteEnv, more in bf16; on the '
+                 f'stock body, float32 only, 448 for ddpg, 416 for sac and modsac; '
+                 f'ops/fused_rollout.py:offpolicy_fits), '
                  f'on an env of '
                  f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
-                 f'net_dims={net_dims}')
+                 f'net_dims={net_dims}, compute_dtype={cdt or torch.float32}')
         if not select_kernel(args, 'use_fused_rollout', jax_takes, fits, device, scope):
             return None
         print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
@@ -181,26 +192,30 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
             noise_std=float(getattr(args, 'explore_noise_std',
                                     getattr(args, 'explore_noise', 0.05))),
             explore_rate=float(getattr(args, 'explore_rate', 0.25)),
-            std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0))
+            std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0), **types)
     want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
                    else ('AgentPPO', 'AgentA2C'))
     jax_takes = (body is not None and agent.name in want_agents and len(net_dims) == 2
                  and jax_rollout_block_chunk(body, spec.if_discrete, False, num_envs,
                                              horizon_len) is not None)
+    limit = (f'{rollout_width_limit(body, bf)} on {spec.env_name}'
+             if body is not None and body.tables is None else '448')
     scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
-             f'weight slices fit a cluster of 8 blocks (square widths up to 320, 288 on '
-             f'PointChasingDiscreteEnv, 448 on the stock body; '
+             f'weight slices fit a cluster of 8 blocks (square widths up to {limit} in '
+             f'{"bf16" if bf else "float32"}; 448 on the stock body, float32 only; '
              f'ops/fused_rollout.py:rollout_fits), on an env of '
              f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
+    stock_bf16_on_card(jax_takes)
     if not select_kernel(args, 'use_fused_rollout', jax_takes,
-                         jax_takes and rollout_fits(body, net_dims), device, scope):
+                         jax_takes and rollout_fits(body, net_dims, bf), device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
-          f'net_dims={net_dims})', flush=True)
-    return make_fused_rollout(body, net_dims, horizon_len, num_envs, reward_scale)
+          f'net_dims={net_dims}, compute={cdt or torch.float32}, '
+          f'storage={sdt or torch.float32})', flush=True)
+    return make_fused_rollout(body, net_dims, horizon_len, num_envs, reward_scale, **types)
 
 
 def build_training(args: Config) -> TrainContext:
@@ -247,6 +262,7 @@ def build_training(args: Config) -> TrainContext:
             print(f'| train_agent: loaded {ckpt}', flush=True)
     env_state, obs = vec_reset(env, gen, num_envs, device)
     buf_state = rb.init() if rb is not None else None
+    store_dtype = resolve_storage_dtype(args)
 
     def round_fn(carry: TrainCarry, noise=None, ids=None, update_noise=None):
         """One round.  ``noise`` (the fused rollout's injected-noise tensor),
@@ -264,7 +280,7 @@ def build_training(args: Config) -> TrainContext:
             rollout, env_state, obs = collect_rollout(
                 env, carry.agent_state, agent.explore_action, agent.env_action,
                 carry.env_state, carry.obs, carry.gen, horizon_len, reward_scale,
-                extras_fn=agent.rollout_extras)
+                extras_fn=agent.rollout_extras, store_dtype=store_dtype)
         buf_state = carry.buf_state
         if agent.if_off_policy:
             agent_state = carry.agent_state
@@ -314,8 +330,12 @@ def _load_carry(path: str, carry: TrainCarry, agent: AgentDef, device) -> TrainC
     env_state = tree_unflatten(carry.env_state, iter(
         [t(x) for x in tree['env_state']]))
     carry.gen.set_state(torch.as_tensor(tree['gen']))
-    buf_state = (buffer_state_from_numpy(tree['buf_state'], device)
-                 if 'buf_state' in tree else None)
+    buf_state = None
+    if 'buf_state' in tree:   # back to the ring's storage type
+        buf_state = buffer_state_from_numpy(tree['buf_state'], device)
+        buf_state = buf_state._replace(
+            states=buf_state.states.to(carry.buf_state.states.dtype),
+            actions=buf_state.actions.to(carry.buf_state.actions.dtype))
     return TrainCarry(agent.state_from_numpy(tree['agent_state'], device), buf_state,
                       env_state, t(tree['obs']), carry.gen)
 

@@ -335,8 +335,11 @@ def buffer_state_from_numpy(tree, device):
 
 
 def buffer_state_to_numpy(buf) -> NumpyBufferState:
-    """The JAX package's leaves of a port ``BufferState``, as numpy."""
-    a = lambda x: None if x is None else x.detach().cpu().numpy().copy()  # noqa: E731
+    """The JAX package's leaves of a port ``BufferState``, as numpy (bf16
+    storage widened to float32, as the JAX package saves it)."""
+    a = lambda x: None if x is None else (  # noqa: E731
+        x.detach().cpu().float() if x.dtype == torch.bfloat16 else x.detach().cpu()
+    ).numpy().copy()
     return NumpyBufferState(*[a(x) for x in buf[:5]],
                             ptr=np.asarray(buf.ptr, np.int32), size=np.asarray(buf.size, np.int32),
                             per_tree=None if buf.per_tree is None else tuple(

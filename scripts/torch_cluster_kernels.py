@@ -406,7 +406,7 @@ def main():
                 sizes[str(c)] = entry
             print(json.dumps(dict(kernel=f'fused_rollout[{body.env_name}]', envs=n, horizon=64,
                                   picked=fr._library().fused_rollout_cluster(
-                                      body.kernel_id, n, 128, 128, 0),
+                                      body.kernel_id, n, 128, 128, 0, 0),
                                   cluster_sizes=sizes)), flush=True)
     from elegantrl_tpu_torch.ops.nets import init_flat
     for env_name, head in K6_CASES:
@@ -438,7 +438,7 @@ def main():
                 sizes[str(c)] = entry
             print(json.dumps(dict(kernel=f'offpolicy_rollout[{env_name},{head}]', envs=n,
                                   horizon=h, picked=fr._library().offpolicy_rollout_cluster(
-                                      body.kernel_id, fr.OFFPOLICY_HEADS[head], n, 128, 128, 0),
+                                      body.kernel_id, fr.OFFPOLICY_HEADS[head], n, 128, 128, 0, 0),
                                   cluster_sizes=sizes)), flush=True)
     print(json.dumps({'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi}))
 

@@ -3,7 +3,8 @@ K3), the PPO update (K2, K5), the off-policy rollout (K6, K6′) and the
 critic pass of this checkout against another checkout's on the same inputs,
 on one CUDA card.
 
-    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4 k1 k3 k2 k6 critic]
+    python3 scripts/torch_compare_chunks.py OTHER_ROOT [--only chunks k11b k4 k1 k3 k2 k6 critic
+                                                        k10]
 
 OTHER_ROOT is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -37,6 +38,12 @@ the DQN heads 64 x 64; the stock body's heads 1024 x 32 from day T - 17),
 (128, 128), injected and Philox noise (ms a rollout over 10).  ``critic``:
 the critic pass at 256 and 4096 envs x 128 steps, (128, 128), on seeded
 lane rows and each step's market rows of a seeded day (ms a call over 10).
+``k10``: the PPO advantage step before normalisation (the truncation
+bootstrap, the V-trace recursion and the reward sums) as each checkout's
+agent takes it, at 256 x 64, 64 x 4096, 37 x 1000 and 2048 x 4096 (ms a
+call over 50, K10's device ms over 20), and the whole step with the
+normalisation at 64 x 4096: its outputs, ms over 50 and device kernels a
+step.
 Where two designs sum in other orders the
 outputs are not bitwise equal; each line also gives the largest difference.
 ``--only`` picks the groups (all by default).  Needs one card; the last
@@ -71,7 +78,8 @@ def case_name(kind, a, b, S, A, B, net):
     return f'{name}{list(net)},B={B}'
 
 
-GROUPS = ('chunks', 'k11b', 'k4', 'k1', 'k3', 'k2', 'k6', 'critic')
+GROUPS = ('chunks', 'k11b', 'k4', 'k1', 'k3', 'k2', 'k6', 'critic', 'k10')
+K10_SHAPES = ((256, 64), (64, 4096), (37, 1000), (2048, 4096))
 K6_PAIRS = (('Pendulum-v1', 'ddpg'), ('HopperSlip-v0', 'ddpg'), ('PointChasingVecEnv', 'ddpg'),
             ('CartPole-v1', 'dqn'), ('CartPole-v1', 'dqn_enc'), ('CartPole-v1', 'dqn_duel'),
             ('PointChasingDiscreteEnv', 'dqn'), ('PointChasingDiscreteEnv', 'dqn_enc'),
@@ -100,15 +108,17 @@ def cuda_ms(torch, fn, reps, warmup):
 
 
 def device_ms(torch, fn, reps, kernel_name):
-    """Device ms a call of the kernels named ``kernel_name``, profiled."""
+    """Device ms a launch of the kernels named ``kernel_name`` (one a call),
+    profiled: the mean over the launches the trace holds (a trace can miss
+    some device events); None where it holds none."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and kernel_name in ev.name) / 1e3 / reps
+    times = [ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name]
+    return sum(times) / 1e3 / len(times) if times else None
 
 
 def run_k11b(torch, dev):
@@ -278,6 +288,56 @@ def run_critic(torch, dev):
     return results
 
 
+def run_k10(torch, dev):
+    """K10 at ``K10_SHAPES`` and the PPO advantage step at 64 x 4096, as each
+    checkout's agent takes them: with ``ops/gae.py:vtrace_advantages`` where
+    the checkout has it (the truncation bootstrap and the reward sums folded
+    into K10), else the bootstrap's ops, K10 and the sum."""
+    from torch.profiler import ProfilerActivity, profile
+    from elegantrl_tpu_torch.ops import gae
+    from elegantrl_tpu_torch.ops import kernels as kn
+    folded = hasattr(gae, 'vtrace_advantages')
+
+    def advantages(r, u, um, v, nv):
+        if folded:
+            return gae.vtrace_advantages(r, u, um, v, nv, 0.99, 0.95, use_kernel=True)
+        rb, ub = gae.apply_truncation_bootstrap(r, u, um, v)
+        adv = kn.gae_vtrace_kernel(rb, ub, v, nv, 0.99, 0.95)
+        return adv, adv + v
+
+    def inputs(H, N, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r, v = (torch.randn((H, N), generator=g, device=dev) for _ in range(2))
+        u = (torch.rand((H, N), generator=g, device=dev) > 0.02).float()
+        um = (torch.rand((H, N), generator=g, device=dev) > 0.01).float()
+        return r, u, um, v, torch.randn(N, generator=g, device=dev)
+
+    results = {}
+    for H, N in K10_SHAPES:
+        x = inputs(H, N, H * N)
+
+        def fn():
+            return advantages(*x)
+        results[f'gae_vtrace[{H}x{N}]'] = dict(outs=[y.cpu() for y in fn()],
+                                               ms=cuda_ms(torch, fn, 50, 3),
+                                               device_ms=device_ms(torch, fn, 20, 'gae_vtrace'))
+    x = inputs(64, 4096, 5)
+
+    def step():
+        adv, sums = advantages(*x)
+        return gae.normalize_advantages(adv), sums
+    outs = [y.cpu() for y in step()]
+    ms = cuda_ms(torch, step, 50, 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    n_kernels = sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not ev.name.startswith(('Memset', 'Memcpy', '[memory]'))) / 3
+    results['advantage_step[64x4096]'] = dict(outs=outs, ms=ms, device_kernels=n_kernels)
+    return results
+
+
 def run_k2(torch, dev):
     """K2 and K5: the PPO update's cases of ``K2_CASES`` from seeded blocks."""
     from elegantrl_tpu_torch import Config
@@ -388,6 +448,8 @@ def run_side(root, out_path, groups):
         results.update(run_k6(torch, dev))
     if 'critic' in groups:
         results.update(run_critic(torch, dev))
+    if 'k10' in groups:
+        results.update(run_k10(torch, dev))
     for case in (CASES if 'chunks' in groups else ()):
         fn, base, blocks, bcv, hyper = inputs(*case)
         bufs = [None if x is None else x.clone() for x in base]
@@ -447,9 +509,10 @@ def main():
                 'max_abs_diff': max_diff(torch, mine, theirs),
                 'ms_other': [r[name]['ms'] for r in runs['other']],
                 'ms_this': [r[name]['ms'] for r in runs['this']]}
-        if 'device_ms' in runs['this'][0][name]:
-            line['device_ms_other'] = [r[name]['device_ms'] for r in runs['other']]
-            line['device_ms_this'] = [r[name]['device_ms'] for r in runs['this']]
+        for key in ('device_ms', 'device_kernels'):
+            if key in runs['this'][0][name]:
+                line[f'{key}_other'] = [r[name][key] for r in runs['other']]
+                line[f'{key}_this'] = [r[name][key] for r in runs['this']]
         print(json.dumps(line), flush=True)
     print(json.dumps({'device': torch.cuda.get_device_name(0), 'nvidia_smi': smi}))
 

@@ -21,6 +21,12 @@ On-policy:
   steps, eval every 4e6; the rollout kernel with an autograd update (batch
   4096 is outside the JAX package's fused update)
   (``scripts/verify_learning.py:170-178, 313-321``);
+- ``ppo_pendulum_bf16``: AgentPPO on Pendulum-v1, 4096 envs, net (128, 64),
+  gamma 0.97, horizon 128, repeat 512, lr 1e-3, batch 4096, 3e7 steps, eval
+  every 2e6, ``compute_dtype='bfloat16'``; target -120 (``RESULTS.md:22``,
+  ``scripts/verify_learning.py:155-160``): the rollout kernel's bf16
+  variant with the autograd update in bf16 (the JAX package runs its scan
+  under bf16);
 - ``a2c_pendulum``: AgentA2C on Pendulum-v1, 16 envs, net (64, 64), gamma
   0.9, horizon 8, one pass, lr 7e-4, batch 8, lambda_gae_adv 1, no entropy
   term, 5e5 steps; target -250.  The JAX recipe pins seed 2 because
@@ -180,6 +186,11 @@ def recipes():
             dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=64,
                  learning_rate=2e-4, batch_size=4096, eval_per_step=int(4e6),
                  break_step=int(2e7))),
+        'ppo_pendulum_bf16': (
+            AgentPPO, PendulumEnv, dict(PENDULUM, num_envs=4096), -120.0,
+            dict(net_dims=(128, 64), gamma=0.97, horizon_len=128, repeat_times=512,
+                 learning_rate=1e-3, batch_size=4096, eval_per_step=int(2e6),
+                 break_step=int(3e7), compute_dtype='bfloat16')),
         'a2c_pendulum': (
             AgentA2C, PendulumEnv,
             {'env_name': 'Pendulum-v1', 'num_envs': 16, 'max_step': 200, 'state_dim': 3,

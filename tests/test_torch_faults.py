@@ -1,5 +1,6 @@
 """Settings and names of the JAX package that the port used to drop or
-ignore without a word: the off-policy rollout's compute type, the
+ignore without a word, or refused: the compute and storage types (fault
+12: bf16 raised; the off-policy rollout's compute type before it), the
 evaluator's TensorBoard scalars, ``if_remove=None``, the packages' public
 names, ``mesh_axes``, the CUDA sources as package data, where their
 libraries are built, and the env classes' device (the card unless the
@@ -40,12 +41,49 @@ def _td3_args(tmp_path, net_dims, compute_dtype):
 @pytest.mark.parametrize('net_dims,compute_dtype', [((512, 512), 'auto'),
                                                     ((16, 16), 'bfloat16')],
                          ids=['auto_wide', 'bfloat16'])
-def test_offpolicy_rollout_refuses_bf16(tmp_path, net_dims, compute_dtype):
+def test_offpolicy_rollout_refuses_bf16(tmp_path, net_dims, compute_dtype, monkeypatch):
     """Where the JAX runner takes its off-policy rollout kernel and hands it a
-    bf16 compute type, the port raises as ``make_ppo`` does; float32 builds."""
-    with pytest.raises(NotImplementedError, match='float32 only'):
-        build_training(_td3_args(tmp_path, net_dims, compute_dtype))
+    bf16 compute type, the port used to raise (fault 6: rather than compute
+    in float32 without a word); since fault 12's repair it hands its kernel
+    the bf16 type, as the JAX runner; float32 builds as before."""
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    made = []
+    real = fr.make_fused_offpolicy_rollout
+    monkeypatch.setattr(fr, 'make_fused_offpolicy_rollout',
+                        lambda *a, **k: made.append(k) or real(*a, **k))
+    ctx = build_training(_td3_args(tmp_path, net_dims, compute_dtype))
+    assert ctx.fused_rollout and made[-1]['compute_dtype'] == torch.bfloat16
     assert build_training(_td3_args(tmp_path, (16, 16), 'float32')).fused_rollout
+    assert made[-1]['compute_dtype'] is None
+
+
+@pytest.mark.parametrize('agent,net_dims,compute,storage', [
+    ('AgentPPO', (512, 512), 'auto', 'float32'),
+    ('AgentPPO', (16, 16), 'bfloat16', 'bfloat16'),
+    ('AgentDiscretePPO', (16, 16), 'bfloat16', 'bfloat16'),
+    ('AgentTD3', (16, 16), 'bfloat16', 'bfloat16'),
+    ('AgentDQN', (16, 16), 'float32', 'bfloat16')])
+def test_bf16_compute_and_storage_build_and_run(tmp_path, agent, net_dims, compute, storage):
+    """Fault 12: ``compute_dtype='bfloat16'`` (also the default 'auto' at
+    widths of 512), and ``storage_dtype='bfloat16'`` raised in ``make_ppo``,
+    the off-policy rollout selection and ``ReplayBuffer``; the JAX package
+    trains with them.  Each builds and runs a round on the CPU now, in the
+    types asked for."""
+    import elegantrl_tpu_torch.agents as agents
+    from elegantrl_tpu_torch.envs import CartPoleEnv
+    env = CartPoleEnv if 'Discrete' in agent or 'DQN' in agent else PendulumEnv
+    env_args = (dict(PEND) if env is PendulumEnv else
+                {'env_name': 'CartPole-v1', 'num_envs': 8, 'max_step': 500, 'state_dim': 4,
+                 'action_dim': 2, 'if_discrete': True})
+    args = Config(getattr(agents, agent), env, env_args)
+    args.device, args.cwd, args.net_dims = 'cpu', str(tmp_path / 'run'), net_dims
+    args.horizon_len, args.buffer_size, args.batch_size = 8, 256, 32
+    args.compute_dtype, args.storage_dtype = compute, storage
+    ctx = build_training(args)
+    carry, m = ctx.round_fn(ctx.carry)
+    assert np.isfinite(float(m['obj_critic']))
+    if storage == 'bfloat16' and ctx.rb is not None:
+        assert carry.buf_state.states.dtype == torch.bfloat16
 
 
 def _scalars(logdir):

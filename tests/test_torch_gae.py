@@ -61,3 +61,24 @@ def test_normalize_advantages(h):
     want = jgae.normalize_advantages(adv)
     got = gae.normalize_advantages(torch.from_numpy(adv))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize('h', [12, 32, 37])
+def test_vtrace_advantages_fused_matches_composition_and_jax(h):
+    """The PPO advantage step as K10 now takes it (the bootstrap, the
+    recursion and the reward sums in one pass; on the CPU its plain
+    version) is bitwise the composition it replaces
+    (``apply_truncation_bootstrap``, the reverse loop, ``adv + v``), and
+    agrees with the JAX package's composition to 1e-5."""
+    r, d, m, v, nv = _inputs(h, 4)
+    adv, sums = gae.vtrace_advantages(*_t(r, d, m, v, nv), 0.99, 0.95, use_kernel=True)
+    rb, db = gae.apply_truncation_bootstrap(*_t(r, d, m, v))
+    want = gae.gae_vtrace(rb, db, torch.from_numpy(v), torch.from_numpy(nv), 0.99, 0.95)
+    assert torch.equal(adv, want)
+    assert torch.equal(sums, want + torch.from_numpy(v))
+    for got in (gae.vtrace_advantages(*_t(r, d, m, v, nv), 0.99, 0.95),):
+        assert torch.equal(got[0], adv) and torch.equal(got[1], sums)
+    jr, jd = jgae.apply_truncation_bootstrap(r, d, m, v)
+    jadv = jgae.gae_vtrace(jr, jd, v, nv, 0.99, 0.95)
+    np.testing.assert_allclose(adv.numpy(), np.asarray(jadv), **TOL)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(jadv + v), **TOL)

@@ -57,11 +57,12 @@ def test_k10_plain_matches_jax_gae_at_64_envs(H):
     want = np.asarray(jax.jit(partial(jgae.gae_vtrace, gamma=0.97, lam=0.9))(
         *map(jnp.asarray, (r, u, v, nv))))
     t = [torch.from_numpy(x) for x in (r, u, v, nv)]
-    got = gae.gae_vtrace(*t, 0.97, 0.9, use_kernel=True)
+    got = gae.gae_vtrace(*t, 0.97, 0.9)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    # the kernel's path and the loop are one function, bit for bit
-    assert torch.equal(got, gae.gae_vtrace(*t, 0.97, 0.9))
-    assert torch.equal(got, kernels.gae_vtrace_kernel(*t, 0.97, 0.9))
+    # the kernel's path (no step truncated: unmasks all 1) and the loop are
+    # one function, bit for bit
+    adv, sums = kernels.gae_vtrace_kernel(t[0], t[1], torch.ones_like(t[0]), *t[2:], 0.97, 0.9)
+    assert torch.equal(adv, got) and torch.equal(sums, got + t[2])
 
 
 @pytest.mark.parametrize('dtype', [np.float32, np.int32])
@@ -177,7 +178,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
     meta = torch.empty((4, 3), device='meta')
     ids = torch.zeros(2, dtype=torch.int64, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
-        kernels.gae_vtrace_kernel(meta, meta, meta, meta[0], 0.99, 0.95)
+        kernels.gae_vtrace_kernel(meta, meta, meta, meta, meta[0], 0.99, 0.95)
     with pytest.raises(ValueError, match='unsupported device'):
         kernels.buffer_gather(meta[None], ids, ids)
     with pytest.raises(ValueError, match='unsupported device'):
@@ -302,3 +303,19 @@ def test_choices_reach_the_round_on_cpu():
         c, m = ctx.round_fn(ctx.carry)
         outs.append((c.agent_state.act_flat.clone(), float(m['obj_critic'])))
     assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
+
+
+@pytest.mark.parametrize('H,N', [(64, 96), (37, 1000), (256, 64), (33, 5)])
+def test_k10_folded_plain_is_the_composition_bitwise(H, N):
+    """K10's plain version with the truncation bootstrap and the reward sums
+    folded in (what the redesigned kernel computes in one pass) is, bit for
+    bit, the bootstrap, the plain recursion and the sum, one after another;
+    at shapes whose time rows span several 32-row stages and whose columns
+    a block's 32 do not divide."""
+    rng = np.random.default_rng(H + N)
+    r, u, v, nv = (torch.from_numpy(x) for x in _gae_inputs(H, N, H + N))
+    um = torch.from_numpy((rng.random((H, N)) > 0.05).astype(np.float32))
+    adv, sums = kernels.gae_vtrace_kernel(r, u, um, v, nv, 0.98, 0.9)
+    rb, ub = gae.apply_truncation_bootstrap(r, u, um, v)
+    want = kernels.gae_vtrace_reference(rb, ub, v, nv, 0.98, 0.9)
+    assert torch.equal(adv, want) and torch.equal(sums, want + v)

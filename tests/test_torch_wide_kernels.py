@@ -167,15 +167,25 @@ def _round4(n):
     return (n + 3) // 4 * 4
 
 
-def _layout_floats(text, S, A, NH, NE, D1, D2, c):
-    """``RolloutLayout(S, A, NH, NE, D1, D2, c).floats`` evaluated from the
-    constructor's text in ``csrc/fused_rollout.cu``."""
+def _wrow(k, bf):
+    """``cm::wrow`` of csrc/cluster_mlp.cuh."""
+    k8 = (k + 7) // 8 * 8
+    return (k8 + (8 if k8 // 8 % 2 == 0 else 0)) // 2 if bf else ldk(k)
+
+
+_LAYOUT_HELPERS = {'wrow': _wrow, 'vals': lambda n, bf: n // 2 if bf else n,
+                   'SMEM_FLOATS': fr.SMEM_LIMIT // 4}
+
+
+def _layout_floats(text, S, A, NH, NE, D1, D2, c, bf=0):
+    """``RolloutLayout(S, A, NH, NE, D1, D2, c, bf).floats`` evaluated from
+    the constructor's text in ``csrc/fused_rollout.cu``."""
     body = text[text.index('__host__ __device__ RolloutLayout('):]
     body = body[body.index('{') + 1:body.index('floats = o;')]
     body = re.sub(r'//[^\n]*', '', body).replace('cm::', '').replace('int o', 'o')
     env = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
            'max': max, 'tile_scratch': fr.tile_scratch, 'TE': 32, 'S': S, 'A': A, 'NH': NH,
-           'NE': NE, 'D1': D1, 'D2': D2, 'c': c}
+           'NE': NE, 'D1': D1, 'D2': D2, 'c': c, 'bf': bf, **_LAYOUT_HELPERS}
     for stmt in ' '.join(body.split()).split(';'):
         if stmt.strip():
             exec(stmt.strip(), env)
@@ -196,7 +206,7 @@ def _struct_floats(text, ctor, **env):
     scope = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
              'max': max, 'tile_scratch': fr.tile_scratch, 'round64': lambda n: -(-n // 64) * 64,
              'TE': 32, 'SCRATCH': 256 * 16, 'CNC': fr._CNC, 'CKT': fr._CKT, 'CLD': fr._CLD,
-             'CKLD': fr._CKLD, **env}
+             'CKLD': fr._CKLD, 'bf': 0, **_LAYOUT_HELPERS, **env}
     for stmt in ' '.join(body.split()).split(';'):
         if stmt.strip():
             exec(stmt.strip(), scope)
@@ -219,12 +229,15 @@ def test_offpolicy_layout_copy_matches_the_source(dims):
                 continue
             A = body.action_dim
             for c in fr.ROLLOUT_CLUSTERS:
-                want = 4 * _struct_floats(
-                    text, 'OffLayout', S=body.state_dim, A=A, O=fr.offpolicy_out_rows(A, head),
-                    NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
-                    NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c, G=lanes)
-                assert fr.offpolicy_smem_bytes(body, dims, head, c) == want, (body.env_name,
-                                                                              head, c)
+                for bf in (0, 1):
+                    want = 4 * _struct_floats(
+                        text, 'OffLayout', S=body.state_dim, A=A,
+                        O=fr.offpolicy_out_rows(A, head),
+                        NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
+                        NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c, G=lanes,
+                        bf=bf)
+                    assert fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)) == want, (
+                        body.env_name, head, c, bf)
     stock = StockTradingVecEnv(num_envs=1)._def.kernel_body
     for head in fr.CONTINUOUS_HEADS:
         for c in fr.ROLLOUT_CLUSTERS:
@@ -255,16 +268,19 @@ def test_critic_layout_copy_matches_the_source(dims):
     assert fr.critic_smem_bytes((580, 64)) > fr.SMEM_LIMIT
 
 
-@pytest.mark.parametrize('dims', [(128, 128), (256, 256), (64, 96), (320, 320), (8, 40)],
-                         ids=lambda d: f'{d[0]}x{d[1]}')
+@pytest.mark.parametrize('dims', [(128, 128), (256, 256), (64, 96), (320, 320), (8, 40),
+                                  (512, 512)], ids=lambda d: f'{d[0]}x{d[1]}')
 def test_rollout_layout_copy_matches_the_source(dims):
+    """Both compute types; in bf16 (512, 512) takes layer 2 unsplit at c = 8."""
     text = (CSRC / 'fused_rollout.cu').read_text()
     for body in fr.KERNEL_ENV_BODIES.values():
         nh = body.action_dim if body.discrete else 2 * body.action_dim
         for c in fr.ROLLOUT_CLUSTERS:
-            want = 4 * _layout_floats(text, body.state_dim, body.action_dim, nh,
-                                      body.n_step + body.n_reset, *dims, c)
-            assert fr.rollout_smem_bytes(body, dims, c) == want, (body.env_name, dims, c)
+            for bf in (0, 1):
+                want = 4 * _layout_floats(text, body.state_dim, body.action_dim, nh,
+                                          body.n_step + body.n_reset, *dims, c, bf)
+                assert fr.rollout_smem_bytes(body, dims, c, bool(bf)) == want, (
+                    body.env_name, dims, c, bf)
 
 
 def test_tile_scratch_follows_tile_dense():
@@ -291,13 +307,13 @@ def test_rollout_fits_up_to_what_a_cluster_of_8_holds():
 
 def test_rollout_cluster_pick_is_asked_once_per_shape(monkeypatch):
     """The wrapper keeps the kernel's cluster pick per (body, envs, widths,
-    device) and asks the library again only for a new key or after a
-    failed pick."""
+    device, compute type) and asks the library again only for a new key or
+    after a failed pick."""
     asked = []
 
     class Lib:
-        def fused_rollout_cluster(self, body_id, n, d1, d2, cluster):
-            asked.append((body_id, n, d1, d2, cluster))
+        def fused_rollout_cluster(self, body_id, n, d1, d2, cluster, bf):
+            asked.append((body_id, n, d1, d2, cluster, bf))
             return 0 if n == 7 else 4
 
     monkeypatch.setattr(fr, '_CLUSTER_PICKS', {})
@@ -308,7 +324,9 @@ def test_rollout_cluster_pick_is_asked_once_per_shape(monkeypatch):
     assert fr._rollout_cluster(lib, body, 256, 128, 128, dev0) == 4
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
-    assert asked == [(body.kernel_id, n, 128, 128, 0) for n in (1024, 1024, 256, 7, 7)]
+    assert [fr._rollout_cluster(lib, body, 1024, 128, 128, dev0, 1) for _ in range(2)] == [4, 4]
+    assert asked == [(body.kernel_id, n, 128, 128, 0, bf)
+                     for n, bf in ((1024, 0), (1024, 0), (256, 0), (7, 0), (7, 0), (1024, 1))]
 
 
 def test_stock_actor_cluster_pick_is_asked_once_per_shape(monkeypatch):
@@ -334,12 +352,12 @@ def test_stock_actor_cluster_pick_is_asked_once_per_shape(monkeypatch):
 
 def test_offpolicy_cluster_pick_is_asked_once_per_shape(monkeypatch):
     """The off-policy wrapper keeps the kernel's cluster pick per (body,
-    head, envs, widths, device), as the on-policy one."""
+    head, envs, widths, device, compute type), as the on-policy one."""
     asked = []
 
     class Lib:
-        def offpolicy_rollout_cluster(self, body_id, head_id, n, d1, d2, cluster):
-            asked.append((body_id, head_id, n, d1, d2, cluster))
+        def offpolicy_rollout_cluster(self, body_id, head_id, n, d1, d2, cluster, bf):
+            asked.append((body_id, head_id, n, d1, d2, cluster, bf))
             return 0 if n == 7 else 2
 
     monkeypatch.setattr(fr, '_OFF_CLUSTER_PICKS', {})
@@ -348,8 +366,11 @@ def test_offpolicy_cluster_pick_is_asked_once_per_shape(monkeypatch):
     assert fr._offpolicy_cluster(lib, body, 4, 1024, 128, 128, dev0) == 2
     assert fr._offpolicy_cluster(lib, body, 0, 7, 128, 128, dev0) == 0
     assert fr._offpolicy_cluster(lib, body, 0, 7, 128, 128, dev0) == 0
-    assert asked == [(body.kernel_id, h, n, 128, 128, 0) for h, n in ((0, 1024), (4, 1024),
-                                                                       (0, 7), (0, 7))]
+    assert [fr._offpolicy_cluster(lib, body, 0, 1024, 128, 128, dev0, 1)
+            for _ in range(2)] == [2, 2]
+    assert asked == [(body.kernel_id, h, n, 128, 128, 0, bf)
+                     for h, n, bf in ((0, 1024, 0), (4, 1024, 0), (0, 7, 0), (0, 7, 0),
+                                      (0, 1024, 1))]
 
 
 class _Smem(ctypes.Structure):  # gg::Smem, csrc/grid_gemm.cuh
