@@ -106,6 +106,23 @@ PyTorch version:
     updates) and the ``ppo_stock_4k`` one (10 K4 rollouts and critic passes,
     the autograd update, 0 K2); ``train_agent`` for PPO (the evaluator
     reporting ``cumulative_returns``), TD3, SAC and ModSAC on the stock env;
+13b. ``bf16_host_pixel_phases``: K4's bf16 variants, the stock actor
+    kernel under the PPO head at 256 and 4096 envs and under the ddpg, sac
+    and modsac heads, with both storage types, against the plain version in
+    bf16 (``k4_bf16_vs_plain``: ``BF16_TOL`` on one step from every visited
+    state with every lot flip at an edge of the two versions' actions, both
+    noise modes, two runs bitwise equal, a float32 control that must break
+    the limits, the time at each cluster size), the float32 kernels with
+    bf16 storage (``k4_store_bf16_vs_plain``), the critic pass's bf16
+    variant at 256 and 4096 envs and (576, 576) (``critic_bf16_vs_plain``);
+    the main paths ``main_path_stock_bf16`` (``ppo_stock``'s shape in bf16:
+    K4 bf16, the bf16 critic pass, K10, autograd), ``main_path_isaac_mock``
+    (PPO through ``make_isaac_env`` on the mock VecTask, its tensors on the
+    card), ``main_path_modsac_host`` (ModSAC on a host pool of numpy
+    gym-protocol envs; sequential, threaded and forked pools bitwise equal)
+    and ``main_path_pixel`` (pixel PPO on PixelChasing), each with ms per
+    round, env-steps/s and the profiled idle share, then ``train_agent`` and
+    a ``valid_agent`` round trip;
 14. LunarLander and the kernels of ``ops/kernels.py`` (``lunar_phases``):
     K10, the V-trace recursion, bitwise against its plain version at 256 x
     64, 64 x 4096, 37 x 1000 and 2048 x 4096, alone and with the truncation
@@ -142,10 +159,13 @@ Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 NUM_ENVS, HORIZON, BATCH, REPEAT, NET_DIMS = 4096, 64, 512, 8.0, (128, 128)
 ROUNDS = 10
@@ -201,8 +221,9 @@ def profiled_ms(torch, fn, reps, kernel_name):
     over ``reps`` calls after one warm-up.  A trace can come back without
     some of its device events (the profiler warns that it clears events at
     the end of a cycle), so the mean is over the launches the trace holds,
-    and a trace holding none is taken again, up to three times; then it
-    raises (no device time traced)."""
+    and a trace holding none is taken again, up to three times; then the
+    time is taken with CUDA events over the same calls (launch gaps
+    included), and a ``profiler_empty`` line says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -215,7 +236,9 @@ def profiled_ms(torch, fn, reps, kernel_name):
                  if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.name]
         if times:
             return sum(times) / 1e3 / len(times)
-    raise AssertionError(f'the profiler traced no device time for {kernel_name}')
+    ms = cuda_ms(torch, fn, reps)
+    emit(phase='profiler_empty', kernel=kernel_name, traces=3, fallback='cuda events', ms=ms)
+    return ms
 
 
 def device_kernels(torch, fn, reps=3, traces=3):
@@ -310,15 +333,18 @@ def stock_smem_pairs():
     body = StockTradingVecEnv(num_envs=1)._def.kernel_body
     lib, S, A = fr._library(), body.state_dim, body.action_dim
     out = {}
-    for dims in (OFF_NET, (256, 256), (96, 160), (448, 448)):
+    for dims in (OFF_NET, (256, 256), (96, 160), (448, 448), (576, 576), (704, 704)):
         for c in fr.ROLLOUT_CLUSTERS:
-            out[f'stock_rollout[{dims},cluster={c}]'] = (lib.stock_rollout_smem_bytes(*dims, c),
-                                                         fr.actor_smem_bytes(S, dims, A, c))
-            for head in fr.CONTINUOUS_HEADS:
-                out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{dims},cluster={c}]'] = (
-                    lib.offpolicy_rollout_smem_bytes(body.kernel_id, fr.OFFPOLICY_HEADS[head],
-                                                     *dims, c, 0),
-                    fr.offpolicy_smem_bytes(body, dims, head, c))
+            for bf in (0, 1):
+                out[f'stock_rollout[{dims},cluster={c},bf16={bf}]'] = (
+                    lib.stock_rollout_smem_bytes(*dims, c, bf),
+                    fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf)))
+                for head in fr.CONTINUOUS_HEADS:
+                    out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{dims},cluster={c},'
+                        f'bf16={bf}]'] = (
+                        lib.offpolicy_rollout_smem_bytes(body.kernel_id,
+                                                         fr.OFFPOLICY_HEADS[head], *dims, c, bf),
+                        fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)))
         out[f'critic_values[{dims}]'] = (lib.critic_values_smem_bytes(*dims),
                                          fr.critic_smem_bytes(dims))
     return out
@@ -1741,7 +1767,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                        reps=10, warmup=2)
         c_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
             st.cri_flat, st.norm_avg, st.norm_std, got.states, net_dims=STOCK_NET), reps=2)
-        cluster = fr._library().stock_rollout_cluster(n, D1, D2, 0)
+        cluster = fr._library().stock_rollout_cluster(n, D1, D2, 0, 0)
         cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed,
                                                            stock_cluster=c, **bkw),
                                  reps=5, warmup=1) for c in (1, 2, 4, 8)}
@@ -1809,7 +1835,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     (wcb_ms, _), (wcf_ms, _), (wct_ms, wct_by) = critic_bounds(n, h, stw.cri_flat.numel(), wide)
     emit(phase='k4_vs_plain_wide', recipe='ppo_stock', net_dims=wide, envs=n, horizon=h,
          max_abs_err=wide_err, critic_1xtf32_max_abs_err=wide_tf32, two_runs_bitwise_equal=True,
-         cluster=fr._library().stock_rollout_cluster(n, *wide, 0), ms=w_ms, bound_ms=wb_ms,
+         cluster=fr._library().stock_rollout_cluster(n, *wide, 0, 0), ms=w_ms, bound_ms=wb_ms,
          bound_by=wb_by, critic_ms=wc_ms, critic_plain_ms=wc_plain, critic_bound_ms=wct_ms,
          critic_bound_by=wct_by, critic_bound_ms_market_once=wcb_ms, critic_bound_ms_full=wcf_ms,
          ms_covers='the actor-only rollout kernel and the critic pass', tolerance=wide_tol)
@@ -2130,6 +2156,614 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                         'bound_by': k['bound_by'], 'library_ms': None,
                         'bound_ms_full_obs': k['bound_ms_full_obs']})
     return kernels
+
+
+# ----------------------------------------------- K4 bf16, host envs, pixels
+
+# the ppo_isaac_mock recipe (examples/plan_Isaac_Gym.py:85-97), the
+# modsac_lander_host shape (scripts/verify_learning.py:451-466) and the
+# pixelppo_chasing recipe (scripts/verify_learning.py:186-197)
+ISAAC_MOCK = dict(envs=64, horizon=40, net=(128, 128), batch=512, repeat=32.0, lr=1e-3,
+                  reward_scale=4.0, gamma=0.95)
+MODSAC_HOST = dict(envs=16, horizon=64, net=(256, 256), buffer=int(5e4), batch=1024,
+                   repeat=1.0, lr=1e-4, reward_scale=0.5)
+PIXEL_PPO = dict(envs=128, horizon=64, net=(128,), encoder=128, batch=512, repeat=256.0,
+                 lr=3e-4, gamma=0.97)
+
+
+class HostLanderEnv:
+    """A gym-protocol env in numpy (no gymnasium on the card's machine): a 2-D
+    lander with LunarLanderContinuous's shapes (8 obs, 2 actions in [-1, 1],
+    1000 steps), thrust against gravity towards the pad at the origin; a
+    crash or a landing ends the episode, the time limit truncates it."""
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+        self._s = np.zeros(6)
+        self._t = 0
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._s = np.concatenate([self._rng.uniform(-1, 1, 2) * [0.5, 0.1] + [0.0, 1.4],
+                                  self._rng.uniform(-0.5, 0.5, 2), [0.0, 0.0]])
+        self._t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        x, y, vx, vy, ang, vang = self._s
+        return np.array([x, y, vx, vy, ang, vang, float(y <= 0.0), float(y <= 0.0)], np.float32)
+
+    def step(self, action):
+        a = np.clip(np.asarray(action, np.float64), -1.0, 1.0)
+        x, y, vx, vy, ang, vang = self._s
+        main = max(a[0], 0.0)
+        vang += 0.05 * a[1]
+        ang += 0.05 * vang
+        vx += 0.05 * (-np.sin(ang) * main)
+        vy += 0.05 * (np.cos(ang) * main * 2.0 - 1.0)
+        x, y = x + 0.05 * vx, y + 0.05 * vy
+        self._s = np.array([x, y, vx, vy, ang, vang])
+        self._t += 1
+        shaping = -np.hypot(x, y) - np.hypot(vx, vy) - abs(ang)
+        landed = y <= 0.0 and abs(vy) < 0.5 and abs(x) < 0.2
+        crashed = y <= 0.0 and not landed or abs(x) > 1.5
+        reward = shaping - 0.3 * main + (100.0 if landed else -100.0 if crashed else 0.0)
+        return (self._obs(), float(reward), bool(landed or crashed), self._t >= 1000, {})
+
+
+def profiled_rounds(torch, step, rounds):
+    """``rounds`` calls of ``step`` under the profiler: (host ms per round,
+    device busy ms per round, idle share, device events per round); busy is
+    the sum of the CUDA kernels' durations (one stream: they do not
+    overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    return wall / rounds, busy / rounds, 1.0 - busy / wall, len(evs) / rounds
+
+
+def bf16_host_pixel_phases(torch, dev, name, smi, bound, seed):
+    """K4's bf16 variants (the stock actor kernel under every head and the
+    critic pass), the float32 kernels with bf16 storage, and the main paths
+    of the bf16 stock recipe, the Isaac adapter, the host pool and the pixel
+    agent; returns their entries of the kernels line."""
+    import contextlib
+    import io
+    from elegantrl_tpu_torch import (AgentPixelPPO, Config, PixelChasingEnv, build_training,
+                                     make_host_env, make_isaac_env, train_agent, valid_agent)
+    from elegantrl_tpu_torch.agents import AgentModSAC, AgentPPO
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    from elegantrl_tpu_torch.envs.base import EnvSpec
+    from elegantrl_tpu_torch.envs.host_env import HostLink, host_collect_rollout
+    from elegantrl_tpu_torch.envs.isaac import mock_vectask
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo, fused_rollout as fr
+    from elegantrl_tpu_torch.ops import kernels as kn
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.ops.nets import gelu, ppo_param_shapes, split_flat
+
+    bfr = torch.bfloat16
+    env_def = StockTradingVecEnv(num_envs=1)._def
+    body = env_def.kernel_body
+    S, A, NR = body.state_dim, body.action_dim, body.n_reset
+    T = body.tables.close.shape[0]
+    L, M = 1 + A, S - 1 - A
+    src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
+    peak_tflops, peak_tbs = peaks_for(name)[1]
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def start_rows(n, day):
+        f, _ = body.pack(env_def.init(g, n, dev))
+        return f.contiguous(), torch.full((1, n), day, dtype=torch.int32, device=dev)
+
+    def noise(h, n):
+        return torch.cat([torch.randn((h, A, n), generator=g, device=dev),
+                          torch.rand((h, NR, n), generator=g, device=dev)], 1).contiguous()
+
+    def bf16_bound(flop_tc, flop_rest, nbytes):
+        """The bf16 variants' least time: the products of bf16 operands at the
+        dense bf16 tensor rate beside the rest at the FP32 rate, against the
+        bytes; and the same work all at the FP32 rate (bound_ms_fp32)."""
+        t_tc = flop_tc / (H100_BF16_TFLOPS * 1e12)
+        t_rest = flop_rest / (peak_tflops * 1e12)
+        t_bytes = nbytes / (peak_tbs * 1e12)
+        fp32 = bound(flop_tc + flop_rest, nbytes)[0]
+        t = max(t_tc + t_rest, t_bytes)
+        return t * 1e3, ('operations' if t_tc + t_rest >= t_bytes else 'bytes'), fp32
+
+    def as_f32(out):
+        return out._replace(states=out.states.float(), actions=out.actions.float())
+
+    def bf16_interval(v):
+        """The float32 values that round to the bf16 values ``v`` (round to
+        nearest): ``v`` plus or minus half the bf16 spacing at ``|v|``, which
+        is exact arithmetic of the rounding, not a tolerance."""
+        v = v.float()
+        e = torch.frexp(v)[1]
+        half = torch.where(v == 0, torch.zeros_like(v), torch.pow(2.0, (e - 9).float()))
+        return v - half, v + half
+
+    def flips_at_edges(got1, want1, got_lo, got_hi, env_want, u_reset):
+        """One step from the same rows: the samples whose lots differ, and
+        whether each sits at a lot edge.  ``env_want`` is the float32 action
+        the plain version's env stepped on (its ``env_actions``); the
+        kernel's env action lies in ``[got_lo, got_hi]``: one value, or,
+        where the kernel stores its actions in bf16 while its env steps on
+        the float32 ones, the values that round to the stored one.  At the
+        first stock whose lots differ (the cash before it is equal on both
+        sides) a flip is at an edge when the kernel's interval lies within
+        BF16_TOL['one_step'] of ``env_want`` and either a lot edge trunc(100
+        a) or a dead-zone edge |a| = 0.1 lies between the two, or
+        ``env_want`` is within 1e-3 lots (or 1e-6) of an edge (the env's own
+        rounding); where the step reset the lane, the reset's normal is
+        within 1e-4 of 1 or 2."""
+        lots_g, lots_w = got1.env_f[1:1 + A], want1.env_f[1:1 + A]
+        flip = (lots_g != lots_w).any(0)
+        k = torch.argmax((lots_g != lots_w).int(), 0)
+        lo, hi = torch.minimum(got_lo, env_want), torch.maximum(got_hi, env_want)
+        near = torch.maximum(got_lo - env_want, env_want - got_hi) <= BF16_TOL['one_step']
+        xw = 100.0 * env_want
+        dead = lambda a: a.abs() < 0.1  # noqa: E731
+        edge = near & ((torch.trunc(100.0 * lo) != torch.trunc(100.0 * hi))
+                       | (dead(lo) != dead(hi))
+                       | ((xw - torch.round(xw)).abs() < 1e-3)
+                       | ((env_want.abs() - 0.1).abs() < 1e-6))
+        p = (A + 1) // 2
+        r = torch.sqrt(-2.0 * torch.log(1.0 - u_reset[1:1 + p]))
+        ang = 2 * math.pi * u_reset[1 + p:1 + 2 * p]
+        z = torch.cat([r * torch.cos(ang), r * torch.sin(ang)])[:A].abs()
+        near_z = ((z - 1).abs() < 1e-4) | ((z - 2).abs() < 1e-4)
+        pick = lambda m: m.gather(0, k[None])[0]  # noqa: E731
+        explained = torch.where(got1.terminals[0].bool(), pick(near_z), pick(edge))
+        return flip, explained
+
+    def kernel_env_action(out, on, stored_bf16):
+        """The kernel's env action as an interval (lo, hi), ``(A, samples)``:
+        on-policy tanh of its float32 action; off-policy its action, widened
+        to the values that round to it where it was stored in bf16."""
+        if on:
+            a = torch.tanh(out.actions[0])
+            return a, a
+        a = out.actions[0].float().T
+        return bf16_interval(a) if stored_bf16 else (a, a)
+
+    def one_step_bf16(got1, want1, flip, n_samples, on):
+        """BF16_TOL's one-step reading over the samples without a lot flip:
+        per sample the largest difference of its stored state and action,
+        reward, and on-policy its logprob and value."""
+        def per_sample(f):
+            d = (getattr(got1, f).float() - getattr(want1, f).float()).abs()[0]
+            return d if d.dim() == 1 else d.amax(0 if on else 1)
+        fields = ['states', 'actions', 'rewards'] + (['logprobs', 'values'] if on else [])
+        sample = torch.stack([per_sample(f) for f in fields]).amax(0)[~flip]
+        one = dict(max_abs=float(sample.max()), flips=int(flip.sum()),
+                   share_over_1e4=float((sample > 1e-4).float().mean()))
+        one['within'] = (one['flips'] <= BF16_TOL['flip_share'] * n_samples
+                         and one['max_abs'] <= BF16_TOL['one_step']
+                         and one['share_over_1e4'] <= BF16_TOL['share_over_1e4'])
+        return one
+
+    # ---- k4_bf16_vs_plain, k4_store_bf16_vs_plain: the stock actor kernel
+    # (and on-policy the critic pass) under bf16 compute with both storage
+    # types, and the float32 kernels with bf16 storage, against the plain
+    # version in the same types: ppo_stock's 256 and ppo_stock_4k's 4096
+    # envs (PPO head, H 128, from day T - 61: every lane resets once), the
+    # ddpg, sac and modsac heads at 1024 envs x 32.  Tolerances: two runs
+    # bitwise equal in both noise modes; one step from every visited state
+    # (injected noise) within BF16_TOL on the samples without a lot flip,
+    # every lot flip at a lot edge of the two versions' actions (bf16 sums
+    # in another order part an action by a last bit, and at a bf16 rounding
+    # boundary of a hidden activation by about |w| 2^-8 |h|); whole
+    # trajectories: a lot flip parts a lane for good (the stock rule: at
+    # most a quarter parted), the others within BF16_TOL['trajectory'] and
+    # with equal lots at the end.  Control (bf16 compute): the float32
+    # kernel on the same one-step inputs must break BF16_TOL.
+    st = make_ppo(STOCK_NET, S, A, Config()).init(0, dev)
+    st = st._replace(norm_avg=torch.rand(S, generator=g, device=dev) * 0.4 - 0.2,
+                     norm_std=torch.rand(S, generator=g, device=dev) + 0.7)
+    with torch.no_grad():
+        st.act.std_log.fill_(-0.5)
+    net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+    D1, D2 = STOCK_NET
+    res = {}
+    cases = [('ppo', n, c, s) for n in (PPO_STOCK['envs'], PPO_STOCK_4K['envs'])
+             for c, s in ((bfr, False), (bfr, True), (None, True))]
+    cases += [(head, STOCK_OFF['envs'], c, s) for head in fr.CONTINUOUS_HEADS
+              for c, s in ((bfr, False), (bfr, True), (None, True))]
+    for head, n, compute, store in cases:
+        on = head == 'ppo'
+        h = PPO_STOCK['horizon'] if on else STOCK_OFF['horizon']
+        f0, i0 = start_rows(n, T - 61 if on else T - 21)
+        nz = noise(h, n)
+        sdt = bfr if store else None
+        tag = (f'fused_rollout{"_bf16" if compute else ""}[StockTradingEnv-v2,'
+               f'{"gaussian" if on else head},{n} envs,store={"bf16" if store else "f32"}]')
+        if on:
+            kw = dict(net_dims=STOCK_NET, reward_scale=2.0 ** -8, body=body,
+                      compute_dtype=compute, store_dtype=sdt)
+            run = lambda f, i, hh, ctl=False, **x: fr.rollout(  # noqa: E731
+                *net, f, i, horizon_len=hh, **(dict(kw, compute_dtype=None) if ctl else kw), **x)
+            plain = lambda f, i, hh, **x: fr.rollout_reference(  # noqa: E731
+                *net, f, i, horizon_len=hh, **kw, **x)
+            flat_n = st.act_flat.numel() + st.cri_flat.numel()
+        else:
+            shapes = fr.offpolicy_head_shapes(S, STOCK_NET, A, head)
+            flat = (torch.randn(sum(math.prod(x) for x in shapes), generator=g, device=dev)
+                    * 0.05).contiguous()
+            kw = dict(body=body, head=head, net_dims=STOCK_NET, reward_scale=1.0, noise_std=0.1,
+                      std_clip=std_clip(head), compute_dtype=compute, store_dtype=sdt)
+            run = lambda f, i, hh, ctl=False, **x: fr.offpolicy_rollout(  # noqa: E731
+                flat, f, i, horizon_len=hh, **(dict(kw, compute_dtype=None) if ctl else kw), **x)
+            plain = lambda f, i, hh, **x: fr.offpolicy_rollout_reference(  # noqa: E731
+                flat, f, i, horizon_len=hh, **kw, **x)
+            flat_n = flat.numel()
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got, again = run(f0, i0, h, **extra), run(f0, i0, h, **extra)
+            want = plain(f0, i0, h, env_trace=trace, **extra)
+            torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
+                tag, mode, 'two runs differ')
+            assert got.states.dtype == (bfr if store else torch.float32), tag
+            gf, wf = as_f32(got), as_f32(want)
+            assert torch.equal(got.terminals, want.terminals), (tag, mode)
+            sg = gf.states if on else gf.states.transpose(1, 2)
+            sw = wf.states if on else wf.states.transpose(1, 2)
+            assert torch.equal(sg[:, 1 + A:], sw[:, 1 + A:]), (tag, 'market rows')
+            lot = ((sg[:, 1:1 + A] - sw[:, 1:1 + A]).abs() > 1e-6).any(1)
+            act_d = (gf.actions - wf.actions).abs().amax(1 if on else -1)
+            bad = lot | (act_d > BF16_TOL['trajectory'])
+            # a flip at the last step shows only in the final env rows
+            parted = bad.any(0) | (got.env_f[1:1 + A] != want.env_f[1:1 + A]).any(0)
+            share = float(parted.float().mean())
+            assert share <= 0.25, (tag, mode, share)
+            rel_end = ((got.env_f - want.env_f).abs() / want.env_f.abs().clamp_min(1.0))[:, ~parted]
+            assert rel_end.numel() == 0 or float(rel_end.max()) <= 1e-4, (tag, mode)
+            kept_err = float(act_d[:, ~parted].max()) if bool((~parted).any()) else 0.0
+            assert kept_err <= BF16_TOL['trajectory'], (tag, mode, kept_err)
+            report[mode] = dict(lanes_parted=int(parted.sum()), share_parted=share,
+                                max_abs_diff_kept=kept_err)
+            if mode == 'injected':
+                inj = trace
+        f_all = torch.cat([f for f, _ in inj], dim=1).contiguous()
+        i_all = torch.cat([i for _, i in inj], dim=1).contiguous()
+        nz_all = nz.transpose(0, 1).reshape(1, nz.shape[1], h * n).contiguous()
+        env_acts = []
+        w1 = plain(f_all, i_all, 1, noise=nz_all, env_actions=env_acts)
+        g1 = run(f_all, i_all, 1, noise=nz_all)
+        torch.cuda.synchronize()
+        env_w, rounded = env_acts[0], store and not on
+        g_lo, g_hi = kernel_env_action(g1, on, rounded)
+        flip, explained = flips_at_edges(g1, w1, g_lo, g_hi, env_w, nz_all[0, A:])
+        assert bool(explained[flip].all()), (tag, 'lot flips off an edge',
+                                             int((~explained[flip]).sum()))
+        one = one_step_bf16(g1, w1, flip, h * n, on)
+        assert one['within'], (tag, one)
+        r = dict(name=tag, trajectory=report, one_step=one, max_abs_err=one['max_abs'],
+                 lot_flips_explained=int(explained[flip].sum()))
+        if rounded:   # how many flips the stored actions' rounding interval explains
+            _, at_stored = flips_at_edges(g1, w1, *kernel_env_action(g1, on, False), env_w,
+                                          nz_all[0, A:])
+            r['lot_flips_needing_the_rounding_interval'] = int((~at_stored[flip]).sum())
+        if compute is not None:
+            c1 = run(f_all, i_all, 1, ctl=True, noise=nz_all)
+            cf, _ = flips_at_edges(c1, w1, *kernel_env_action(c1, on, rounded), env_w,
+                                   nz_all[0, A:])
+            control = one_step_bf16(c1, w1, cf, h * n, on)
+            assert not control['within'], ('the f32 kernel passed BF16_TOL', tag, control)
+            r['control_f32_kernel'] = control
+        r['ms'] = cuda_ms(torch, lambda: run(f0, i0, h, seed=seed), reps=10, warmup=2)
+        r['plain_ms'] = cuda_ms(torch, lambda: plain(f0, i0, h, seed=seed), reps=1)
+        bf = int(compute is not None)
+        if on:
+            r['cluster'] = fr._library().stock_rollout_cluster(n, D1, D2, 0, bf)
+            r['cluster_ms'] = {c: cuda_ms(torch, lambda: fr.rollout(
+                *net, f0, i0, horizon_len=h, seed=seed, stock_cluster=c, **kw), reps=5)
+                for c in (1, 2, 4, 8)}
+        else:
+            r['cluster'] = fr._library().offpolicy_rollout_cluster(
+                body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, bf)
+        # the actor's lane columns, layers 2 and 3 per lane and W1's market
+        # columns once a step (the kernel's work); on-policy plus the critic
+        # pass's share as the kernel computes it (critic_bf16_vs_plain)
+        rows = 2 * A if head in ('sac', 'modsac') else A
+        flop = 2 * (L * D1 + D1 * D2 + D2 * rows) * n * h + 2 * M * D1 * h
+        if on:
+            flop += 2 * (L * D1 + D1 * D2 + D2) * n * h + 2 * M * D1 * h * -(-n // 32)
+        nbytes = (4 * (flat_n + 2 * S + 2 * (body.n_f32 + body.n_i32) * n + h * M)
+                  + n * h * ((2 if store else 4) * S + 4 * (A + 5)))
+        if compute is not None:
+            r['bound_ms'], r['bound_by'], r['bound_ms_fp32'] = bf16_bound(flop, 0, nbytes)
+        else:
+            r['bound_ms'], r['bound_by'] = bound(flop, nbytes)
+        res[(head, n, compute is not None, store)] = r
+        emit(phase='k4_bf16_vs_plain' if compute is not None else 'k4_store_bf16_vs_plain',
+             kernel=tag, envs=n, horizon=h, two_runs_bitwise_equal=True, **r,
+             tolerance=dict(BF16_TOL, share_parted=0.25), device=name, nvidia_smi=smi)
+
+    # ---- critic_bf16_vs_plain: the critic pass's bf16 variant (one mma.sync
+    # m16n8k16 where the float32 pass issues three TF32 products) on the
+    # stored bf16-compute states at 256 and 4096 envs, and at (576, 576),
+    # the widest bf16 width (64-sample tiles), against the plain MLP in bf16:
+    # within BF16_TOL (max 1e-2, at most 1% of the values beyond 1e-4); the
+    # float32 pass on the same states must break it; two runs bitwise equal;
+    # the groups share their market rows (the precondition, asserted).
+    crit = {}
+    for n, dims in ((256, STOCK_NET), (4096, STOCK_NET), (256, (576, 576))):
+        f0, i0 = start_rows(n, T - 61)
+        states = fr.rollout(*net, f0, i0, net_dims=STOCK_NET, horizon_len=128,
+                            reward_scale=1.0, body=body, seed=seed, compute_dtype=bfr).states
+        m = states[:, 1 + A:]
+        first = torch.div(torch.arange(n, device=dev), 32, rounding_mode='floor') * 32
+        assert torch.equal(m, m[:, :, first]), 'the critic pass precondition'
+        cri = st.cri_flat if dims == STOCK_NET else (torch.randn(
+            sum(math.prod(x) for x in ppo_param_shapes(S, dims, 1, True)[1]), generator=g,
+            device=dev) * 0.05).contiguous()
+        args_ = (cri, st.norm_avg, st.norm_std, states)
+        v = fr.critic_values(*args_, net_dims=dims, compute_dtype=bfr)
+        v2 = fr.critic_values(*args_, net_dims=dims, compute_dtype=bfr)
+        want = fr.critic_values_reference(*args_, net_dims=dims, compute_dtype=bfr)
+        ctl = fr.critic_values(*args_, net_dims=dims)
+        torch.cuda.synchronize()
+        assert torch.equal(v, v2), 'critic bf16 runs differ'
+        d, dc = (v - want).abs(), (ctl - want).abs()
+        one = dict(max_abs=float(d.max()), share_over_1e4=float((d > 1e-4).float().mean()))
+        control = dict(max_abs=float(dc.max()), share_over_1e4=float((dc > 1e-4).float().mean()))
+        assert one['max_abs'] <= BF16_TOL['one_step'] and \
+            one['share_over_1e4'] <= BF16_TOL['share_over_1e4'], (n, dims, one)
+        assert control['share_over_1e4'] > BF16_TOL['share_over_1e4'], (n, dims, control)
+        ms = cuda_ms(torch, lambda: fr.critic_values(*args_, net_dims=dims, compute_dtype=bfr),
+                     reps=10, warmup=2)
+        f32_ms = cuda_ms(torch, lambda: fr.critic_values(*args_, net_dims=dims), reps=10)
+        plain_ms = cuda_ms(torch, lambda: fr.critic_values_reference(
+            *args_, net_dims=dims, compute_dtype=bfr), reps=2)
+        d1, d2 = dims
+        hh, groups = states.shape[0], states.shape[0] * -(-n // 32)
+        nbytes = 4 * (cri.numel() + 2 * S + n * hh * 1 + groups * M) + 2 * n * hh * L
+        b_ms, b_by, b32 = bf16_bound(2 * (L * d1 + d1 * d2) * n * hh,
+                                     2 * d2 * n * hh + 2 * M * d1 * groups, nbytes)
+        crit[(n, dims)] = dict(name=f'critic_values_bf16[StockTradingEnv-v2,{n} envs,{dims}]',
+                               max_abs_err=one['max_abs'], one_step=one, control_f32_pass=control,
+                               ms=ms, float32_pass_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, bound_ms_fp32=b32)
+        emit(phase='critic_bf16_vs_plain', envs=n, horizon=hh, net_dims=dims,
+             two_runs_bitwise_equal=True, precondition_holds=True, **crit[(n, dims)],
+             tolerance={k: BF16_TOL[k] for k in ('one_step', 'share_over_1e4')}, device=name,
+             nvidia_smi=smi)
+
+    def timed_path(phase, step, rounds, steps_per_round, extra):
+        """ms per round over ``rounds`` (CUDA events, the counts reset just
+        before and read just after: the kernels' launches and the pool steps
+        taken through a ``HostLink``, the host-rollout path), env-steps/s,
+        then the profiled idle share over 3 more."""
+        step()                                                   # warm-up round
+        torch.cuda.synchronize()
+        counters = dict(fused_rollout=fr.rollout, critic_values=fr.critic_values,
+                        offpolicy_rollout=fr.offpolicy_rollout, ppo_update=ppo_update,
+                        gae_vtrace=kn.gae_vtrace_kernel, fused_mlp3=kn.fused_mlp3,
+                        buffer_gather=kn.buffer_gather_fields, sac_chunk=fo.sac_chunk)
+        for fn in counters.values():
+            fn.launches = 0
+        fr.rollout.launches_by_body.clear()
+        fr.critic_values.launches_by_kind.clear()
+        HostLink.steps = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(rounds):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        by_kind = (dict(fr.rollout.launches_by_body), dict(fr.critic_values.launches_by_kind))
+        host_steps = HostLink.steps
+        round_ms = start.elapsed_time(end) / rounds
+        host_ms, busy_ms, idle, events = profiled_rounds(torch, step, 3)
+        emit(phase=phase, rounds=rounds, launches=launches, rollout_by_body=by_kind[0],
+             critic_by_kind=by_kind[1], host_link_steps=host_steps, round_ms=round_ms,
+             env_steps_per_s=steps_per_round / (round_ms / 1e3),
+             profiled=dict(round_ms=host_ms, device_busy_ms=busy_ms, idle_share=idle,
+                           device_events_per_round=events), **extra, device=name,
+             nvidia_smi=smi)
+        return launches, by_kind, host_steps
+
+    def round_step(ctx):
+        box = [ctx.carry]
+
+        def step():
+            box[0], m = ctx.round_fn(box[0])
+            assert all(math.isfinite(float(v)) for k, v in m.items() if v.dim() == 0), m
+        return step, box
+
+    def entry_point(args, env_class, env_args, agent_class, net_dims, periods=2):
+        """train_agent for ``periods`` evaluations, then valid_agent on the
+        saved agent: its greedy episodes are finite."""
+        with tempfile.TemporaryDirectory() as cwd:
+            args.cwd, args.eval_times = cwd, 2
+            args.eval_per_step = args.num_envs * args.horizon_len
+            args.break_step = args.eval_per_step * (periods - 1)
+            t0 = time.time()
+            r = train_agent(args)
+            assert r['recorder'].shape[0] == periods and np.isfinite(r['recorder']).all()
+            played = valid_agent(env_class, env_args, net_dims, agent_class,
+                                 os.path.join(cwd, 'agent.npz'), render_times=2)
+            assert len(played) == 2 and all(math.isfinite(x) for x, _ in played), played
+            emit(phase='train_agent', agent=agent_class.__name__, env=env_args['env_name'],
+                 evaluations=int(r['recorder'].shape[0]), total_step=int(r['total_step']),
+                 max_r=float(r['max_r']), seconds=round(time.time() - t0, 3),
+                 valid_agent=played)
+
+    # ---- main_path_stock_bf16: ppo_stock's shape with bf16 compute (K4 bf16,
+    # the bf16 critic pass, K10, the autograd update: no K2, as the JAX package
+    # under bf16 compute)
+    stock_env_args = {'env_name': 'StockTradingEnv-v2', 'num_envs': PPO_STOCK['envs'],
+                      'max_step': T - 1, 'state_dim': S, 'action_dim': A, 'if_discrete': False}
+
+    def stock_bf16_args():
+        a = Config(AgentPPO, StockTradingVecEnv, dict(stock_env_args))
+        a.horizon_len, a.batch_size = PPO_STOCK['horizon'], PPO_STOCK['batch']
+        a.repeat_times, a.learning_rate = PPO_STOCK['repeat'], PPO_STOCK['lr']
+        a.net_dims, a.random_seed, a.compute_dtype = STOCK_NET, 0, 'bfloat16'
+        return a
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        ctx = build_training(stock_bf16_args())
+    assert ctx.fused_rollout and 'use_fused_update: PyTorch path' in text.getvalue()
+    step, _ = round_step(ctx)
+    stock_l, stock_kind, stock_host = timed_path(
+        'main_path_stock_bf16', step, ROUNDS, PPO_STOCK['envs'] * PPO_STOCK['horizon'],
+        dict(agent='AgentPPO', env='StockTradingEnv-v2', envs=PPO_STOCK['envs'],
+             horizon=PPO_STOCK['horizon'], batch=PPO_STOCK['batch'],
+             repeat=PPO_STOCK['repeat'], net_dims=STOCK_NET, compute_dtype='bfloat16'))
+    assert stock_kind == ({'StockTradingEnv-v2,bf16': ROUNDS}, {'bf16': ROUNDS}), stock_kind
+    assert set(stock_l) == {'fused_rollout', 'critic_values', 'gae_vtrace'}, stock_l
+    assert stock_l['gae_vtrace'] == ROUNDS and stock_host == 0, (stock_l, stock_host)
+    # one period: the stock env's greedy episodes run 1112 steps
+    entry_point(stock_bf16_args(), StockTradingVecEnv, stock_env_args, AgentPPO, STOCK_NET,
+                periods=1)
+
+    # ---- main_path_isaac_mock: PPO through make_isaac_env on the mock
+    # VecTask with its tensors on the card (ppo_isaac_mock's recipe): the
+    # round train_agent runs (ctx.round_fn: the host rollout on the sim
+    # through a HostLink, the actor on the card with K11b, then K10, K2)
+    spec = EnvSpec('MockVecTask-v0', ISAAC_MOCK['envs'], 40, 2, 2, False)
+
+    def isaac_args():
+        env = make_isaac_env(lambda: mock_vectask(ISAAC_MOCK['envs'], dev),
+                             env_name='MockVecTask-v0', spec=spec)
+        ea = {'env_name': 'MockVecTask-v0', 'num_envs': ISAAC_MOCK['envs'], 'max_step': 40,
+              'state_dim': 2, 'action_dim': 2, 'if_discrete': False}
+        a = Config(AgentPPO, env, ea)
+        a.net_dims, a.horizon_len, a.batch_size = ISAAC_MOCK['net'], 40, ISAAC_MOCK['batch']
+        a.repeat_times, a.learning_rate = ISAAC_MOCK['repeat'], ISAAC_MOCK['lr']
+        a.reward_scale, a.gamma, a.random_seed = ISAAC_MOCK['reward_scale'], 0.95, 0
+        return a, env, ea
+
+    a, env, _ = isaac_args()
+    ctx = build_training(a)
+    assert ctx.use_host_rollout and not ctx.fused_rollout
+    assert ctx.carry.obs.device.type == dev.type   # the sim's tensors stay on the run's device
+    step, box = round_step(ctx)
+    isaac_l, _, isaac_host = timed_path('main_path_isaac_mock', step, ROUNDS, 64 * 40, dict(
+        agent='AgentPPO', env='MockVecTask-v0 (tensors on the card)', **ISAAC_MOCK))
+    assert box[0].obs.device.type == dev.type
+    assert set(isaac_l) == {'ppo_update', 'gae_vtrace', 'fused_mlp3'}, isaac_l
+    assert isaac_l['ppo_update'] == ROUNDS and isaac_l['gae_vtrace'] == ROUNDS, isaac_l
+    assert isaac_l['fused_mlp3'] >= 40 * ROUNDS and isaac_host == 40 * ROUNDS, (
+        isaac_l, isaac_host)
+    a, env, ea = isaac_args()
+    entry_point(a, env, ea, AgentPPO, ISAAC_MOCK['net'])
+
+    # ---- main_path_modsac_host: ModSAC through make_host_env on the numpy
+    # lander (modsac_lander_host's shape); the pool steps sequentially, on 4
+    # threads and on 4 forked processes, and the three give bitwise-equal
+    # rollouts from the same weights and noise.  The timed round is the one
+    # train_agent runs (ctx.round_fn: the host rollout through a HostLink's
+    # pinned buffers, the ModSAC actor on PyTorch ops, as K11b takes only a
+    # 3-linear MLP; then the ring, K11a's gathers and the autograd update:
+    # no K8 at (256, 256), past the JAX chunk's widths)
+    lander_spec = EnvSpec('HostLander-v0', MODSAC_HOST['envs'], 1000, 8, 2, False)
+
+    def lander_args(**pool):
+        env = make_host_env(HostLanderEnv, lander_spec, seed=0, **pool)
+        ea = {'env_name': 'HostLander-v0', 'num_envs': MODSAC_HOST['envs'], 'max_step': 1000,
+              'state_dim': 8, 'action_dim': 2, 'if_discrete': False}
+        a = Config(AgentModSAC, env, ea)
+        a.net_dims, a.horizon_len = MODSAC_HOST['net'], MODSAC_HOST['horizon']
+        a.buffer_size, a.batch_size = MODSAC_HOST['buffer'], MODSAC_HOST['batch']
+        a.repeat_times, a.learning_rate = MODSAC_HOST['repeat'], MODSAC_HOST['lr']
+        a.reward_scale, a.gamma, a.random_seed = MODSAC_HOST['reward_scale'], 0.99, 0
+        return a, env, ea
+
+    a, env, ea = lander_args()
+    ctx = build_training(a)
+    assert ctx.use_host_rollout
+    zs = torch.randn((64, 16, 2), generator=g, device=dev)
+    outs = {}
+    for kind, pool_kw in (('sequential', {}), ('threads', dict(num_threads=4)),
+                          ('processes', dict(num_procs=4))):
+        env_k = make_host_env(HostLanderEnv, lander_spec, seed=0, **pool_kw)
+        try:
+            obs0 = env_k.host_pool.reset_all(16)
+            ro, last = host_collect_rollout(env_k.host_pool, ctx.agent, ctx.carry.agent_state,
+                                            obs0, None, 64, 0.5, dev, noise=zs)
+            outs[kind] = [x.cpu() for x in ro[:6] if x is not None] + [torch.as_tensor(last)]
+        finally:
+            env_k.host_pool.close()
+    assert all(all(torch.equal(x, y) for x, y in zip(outs['sequential'], outs[k]))
+               for k in ('threads', 'processes')), 'host pools differ'
+    step, _ = round_step(ctx)
+    step()    # a first round fills the ring past one batch
+    host_l, _, modsac_host = timed_path('main_path_modsac_host', step, ROUNDS, 16 * 64, dict(
+        agent='AgentModSAC', env='HostLander-v0 (numpy, gym protocol)',
+        pools_bitwise_equal=['sequential', 'threads', 'processes'], **MODSAC_HOST))
+    assert set(host_l) == {'buffer_gather'} and host_l['buffer_gather'] >= ROUNDS, host_l
+    assert modsac_host == 64 * ROUNDS, modsac_host
+    a, env, ea = lander_args()
+    entry_point(a, env, ea, AgentModSAC, MODSAC_HOST['net'])
+    env.host_pool.close()
+
+    # ---- main_path_pixel: pixelppo_chasing's recipe (the ConvNet and the
+    # autograd update on PyTorch ops, as the JAX package runs XLA; K10)
+    pixel_args_ = {'env_name': 'PixelChasing-v0', 'num_envs': PIXEL_PPO['envs'],
+                   'max_step': 200, 'state_dim': (64, 64, 2), 'action_dim': 2,
+                   'if_discrete': False}
+
+    def pixel_args():
+        a = Config(AgentPixelPPO, PixelChasingEnv, dict(pixel_args_))
+        a.net_dims, a.encoder_dim, a.gamma = PIXEL_PPO['net'], PIXEL_PPO['encoder'], 0.97
+        a.horizon_len, a.batch_size = PIXEL_PPO['horizon'], PIXEL_PPO['batch']
+        a.repeat_times, a.learning_rate, a.random_seed = PIXEL_PPO['repeat'], PIXEL_PPO['lr'], 0
+        return a
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        ctx = build_training(pixel_args())
+    said = text.getvalue()
+    assert 'use_fused_update: PyTorch path' in said and 'use_conv_kernel: PyTorch path' in said
+    step, _ = round_step(ctx)
+    pix_l, _, pix_host = timed_path('main_path_pixel', step, ROUNDS,
+                                    PIXEL_PPO['envs'] * PIXEL_PPO['horizon'],
+                                    dict(agent='AgentPixelPPO', env='PixelChasing-v0',
+                                         **PIXEL_PPO))
+    # the ConvNet and the update are PyTorch ops (as the JAX package's XLA):
+    # K10 is the path's one kernel
+    assert pix_l == {'gae_vtrace': ROUNDS} and pix_host == 0, (pix_l, pix_host)
+    entry_point(pixel_args(), PixelChasingEnv, pixel_args_, AgentPixelPPO, PIXEL_PPO['net'])
+
+    # ---- the kernels line: K4 bf16 on its main path (ppo_stock's 256 envs),
+    # the bf16 critic pass likewise; the other shapes, heads and the float32
+    # kernels with bf16 storage ride along as checks
+    k = res[('ppo', PPO_STOCK['envs'], True, False)]
+    c = crit[(256, STOCK_NET)]
+    checks = {r['name']: {f: r[f] for f in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                            'max_abs_err', 'cluster')
+                          if f in r} | ({'bound_ms_fp32': r['bound_ms_fp32']}
+                                        if 'bound_ms_fp32' in r else {})
+              for r in res.values()}
+    return [
+        {'name': 'fused_rollout_bf16[StockTradingEnv-v2,gaussian,256 envs]', 'route': 'cuda',
+         'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+         'launches': stock_kind[0]['StockTradingEnv-v2,bf16'], 'max_abs_err': k['max_abs_err'],
+         'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+         'bound_by': k['bound_by'], 'bound_ms_fp32': k['bound_ms_fp32'], 'library_ms': None,
+         'cluster_ms': k['cluster_ms'], 'checks': checks},
+        {'name': c['name'], 'route': 'cuda', 'source': src,
+         'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+         'launches': stock_kind[1]['bf16'], 'max_abs_err': c['max_abs_err'], 'ms': c['ms'],
+         'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
+         'bound_ms_fp32': c['bound_ms_fp32'], 'library_ms': None,
+         'checks': {v['name']: {f: v[f] for f in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')}
+                    for v in crit.values()}},
+    ]
 
 
 # ---------------------------------------------------------------- LunarLander
@@ -3418,6 +4052,9 @@ def main():
     # ---- 13. StockTradingEnv-v2 (K4)
     stock_kernels = stock_phases(torch, dev, name, smi, bound, seed, k2_stock)
 
+    # ---- 13b. K4's bf16 variants, the host-env, Isaac and pixel main paths
+    bf16_host_pixel_kernels = bf16_host_pixel_phases(torch, dev, name, smi, bound, seed)
+
     # ---- 14. LunarLander (K10, K11a, K11b; K2 and K9 at the slice's widths)
     lunar_kernels = lunar_phases(torch, dev, name, smi, bound, k2_lunar, k9_lunar)
 
@@ -3488,7 +4125,8 @@ def main():
                     env_name == 'Pendulum-v1' and k['name'] == 'fused_rollout'):
                 k['store_bf16'] = {f: c[f] for f in ('name', 'ms', 'plain_ms', 'bound_ms',
                                                      'max_abs_err', 'lanes_parted')}
-    kernels += offpolicy_kernels + stock_kernels + lunar_kernels + probe_kernels
+    kernels += (offpolicy_kernels + stock_kernels + bf16_host_pixel_kernels + lunar_kernels
+                + probe_kernels)
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

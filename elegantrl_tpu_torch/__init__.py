@@ -12,11 +12,14 @@ family (``AgentDQN``, ``AgentDoubleDQN``, ``AgentDuelingDQN``,
 ``AgentD3QN``, ``AgentEmbedDQN``, ``AgentEnsembleDQN``, ``AgentDDPG``,
 ``AgentTD3``, ``AgentSAC``, ``AgentModSAC`` and the H-term variants
 ``AgentDDPGHterm``, ``AgentTD3Hterm``, ``AgentSACHterm``,
-``AgentModSACHterm``, with the replay buffer of ``train/replay_buffer.py``,
+``AgentModSACHterm``, and ``AgentPixelPPO`` (a ConvNet trunk on
+``PixelChasingEnv``), with the replay buffer of ``train/replay_buffer.py``,
 prioritised replay (``ops/per.py``), the cumulative-return fit and buffer
 save and load) on Pendulum, CartPole, HopperSlip, PointChasing
 (continuous and discrete), StockTradingEnv-v2 and LunarLander (discrete
-and continuous), through ``Config``, ``build_training``, ``train_agent``
+and continuous), on gymnasium envs and external batched simulators through
+host pools (``make_host_env``, ``gym_env_def``, ``make_isaac_env``; the
+runner's host-rollout mode), through ``Config``, ``build_training``, ``train_agent``
 (and its three aliases) and ``valid_agent``/``render_agent``, with the
 fused rollout (all six kernel bodies, the stock body's market tables
 included; Gaussian, categorical, ddpg, sac, modsac and DQN heads), the
@@ -36,5 +39,7 @@ from .train.runner import (TrainCarry, build_training, render_agent, train_agent
 from .agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm, AgentDoubleDQN,  # noqa: F401
                      AgentDQN, AgentDuelingDQN, AgentEmbedDQN, AgentEnsembleDQN,
                      AgentModSAC, AgentModSACHterm, AgentPPOHterm, AgentSAC, AgentSACHterm,
-                     AgentTD3, AgentTD3Hterm)
+                     AgentTD3, AgentTD3Hterm, AgentPixelPPO)
+from .envs import (IsaacVecEnv, PixelChasingEnv, SimUnavailable, get_env_args,  # noqa: F401
+                   gym_env_def, load_isaac_task, make_host_env, make_isaac_env)
 from . import agents, envs, ops, train, utils  # noqa: F401

@@ -9,3 +9,4 @@ from .sac import (AgentModSAC, AgentModSACHterm, AgentSAC, AgentSACHterm,  # noq
                   SACHtermState, SACState, make_sac)
 from .embed_dqn import AgentEmbedDQN, AgentEnsembleDQN, EmbedDQNState, make_embed_dqn  # noqa: F401
 from .hterm import HtermBuffer  # noqa: F401
+from .pixel import AgentPixelPPO, PixelPPOState, make_pixel_ppo  # noqa: F401

@@ -122,9 +122,10 @@ def _make(net_dims, state_dim: int, action_dim: int, args, buffer=None, td3: boo
     def greedy_action(s, obs):
         return torch.tanh(mlp3_forward(split_flat(s.act, act_shapes), obs, use_mlp3))
 
-    def explore_action(s, obs, gen):
+    def explore_action(s, obs, gen, z=None):
         a = greedy_action(s, obs)
-        z = torch.randn(a.shape, generator=gen, device=a.device)
+        if z is None:   # else the injected normals (the host rollout's noise)
+            z = torch.randn(a.shape, generator=gen, device=a.device)
         return torch.clamp(a + explore_noise_std * z, -1.0, 1.0), None
 
     def smoothing_noise(gen, count):

@@ -275,13 +275,18 @@ def make_ppo(net_dims, state_dim: int, action_dim: int, args, buffer=None,
         return mlp3_forward(s.act.mlp.leaves(), norm_state(obs, s.norm_avg, s.norm_std),
                             use_mlp3, cdt)
 
-    def explore_action(s: PPOState, obs, gen):
+    def explore_action(s: PPOState, obs, gen, z=None):
+        """``z``: the standard normals to use in place of draws from
+        ``gen`` (continuous only; the host rollout's injected noise)."""
         out = actor_out(s, obs)
         if discrete:
+            if z is not None:
+                raise ValueError('explore_action: injected normals need a continuous head')
             action = dists.categorical_sample(gen, out)
             return action.to(torch.int32), dists.categorical_logprob(out, action)
         std = torch.exp(s.act.std_log)
-        action = dists.normal_sample(gen, out, std.expand_as(out))
+        action = (dists.normal_sample(gen, out, std.expand_as(out)) if z is None
+                  else out + std * z)
         logprob = torch.sum(dists.normal_logprob(action, out, std), dim=-1)
         return action, logprob
 

@@ -137,9 +137,10 @@ def make_sac(net_dims, state_dim: int, action_dim: int, args, buffer=None,
                    'the no-grad forward of a 3-linear f32 MLP; got the '
                    f'{"ModSAC" if modsac else "SAC"} actor (an encoder and heads)')
 
-    def explore_action(s: SACState, obs, gen):
+    def explore_action(s: SACState, obs, gen, z=None):
         mean, log_std = sac_actor_dist(split_flat(s.act, act_shapes), obs, **sac)
-        z = torch.randn(mean.shape, generator=gen, device=mean.device)
+        if z is None:   # else the injected normals (the host rollout's noise)
+            z = torch.randn(mean.shape, generator=gen, device=mean.device)
         return torch.tanh(mean + torch.exp(log_std) * z), None
 
     def greedy_action(s: SACState, obs):

@@ -36,6 +36,12 @@ class EnvDef(NamedTuple):
           ``gen`` feeds the env's own randomness (PointChasing's walker)
 
     ``step`` does not reset; :func:`vec_step` applies the auto-reset.
+
+    ``batched=True`` (host pools and external sims, ``envs/host_env.py``,
+    ``envs/isaac.py``): ``init`` and ``step`` take the whole batch and reset
+    done instances themselves --
+      init(gen, num_envs, device) -> (state, obs)
+      step(state, actions, gen) -> (state, obs, rewards, terminals, truncates)
     """
     spec: EnvSpec
     init: Callable[[torch.Generator, int, torch.device], EnvState]
@@ -49,11 +55,23 @@ class EnvDef(NamedTuple):
     # data (the stock env's market tables); parameter-free envs register in
     # KERNEL_ENV_BODIES instead
     kernel_body: Any = None
+    # whole-batch init/step with their own auto-reset (see above)
+    batched: bool = False
+    # optional () -> EnvDef making an INDEPENDENT instance: a host env owns a
+    # stateful pool, and the evaluator must not reset or resize the
+    # training pool mid-run, so it builds its own through this
+    fresh: Any = None
+    # host envs only: the stateful pool itself (``reset_all``, ``step``), which
+    # the runner's host-rollout mode and the evaluator's host path step
+    # directly
+    host_pool: Any = None
 
 
 def vec_reset(env: EnvDef, gen: torch.Generator, num_envs: int,
               device: torch.device) -> Tuple[EnvState, torch.Tensor]:
     """Initialise ``num_envs`` instances; returns (state, obs)."""
+    if env.batched:
+        return env.init(gen, num_envs, device)
     state = env.init(gen, num_envs, device)
     return state, env.obs(state)
 
@@ -65,6 +83,8 @@ def vec_step(env: EnvDef, state: EnvState, actions: torch.Tensor,
 
     Returns ``(state', obs', rewards, terminals, truncates)``; ``obs'``
     observes the post-reset state for done instances."""
+    if env.batched:
+        return env.step(state, actions, gen)
     num_envs = state[0].shape[0]
     s2, reward, terminal, truncate = env.step(state, actions, gen)
     done = terminal | truncate

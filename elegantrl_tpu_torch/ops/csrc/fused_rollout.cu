@@ -1446,11 +1446,66 @@ __device__ __forceinline__ void mma_k8(float (&acc)[2][NT][4], const float* X, i
   }
 }
 
-template <int CT>
+// bf16 pairs (lo, hi) in one register, lo in the low half: the operands of
+// mma.sync m16n8k16 rounded to the nearest bf16
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_k8's product over 16 inputs k0 .. k0 + 16 in bf16 (the bf16 variant):
+// the f32 operands in shared memory are rounded to bf16 as the fragments are
+// built, one m16n8k16 product each (exact products, f32 sums).  Fragments
+// (g = lane / 4, q = lane % 4): A rows g and g + 8 at inputs 2q, 2q + 1 and
+// 2q + 8, 2q + 9; B (k = 2q, 2q + 1 and 2q + 8, 2q + 9; n = g).
+template <int NT>
+__device__ __forceinline__ void mma_k16(float (&acc)[2][NT][4], const float* X, int ldx,
+                                        const float* W, int ldw, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* x = X + (16 * mt + g) * ldx + k0 + 2 * q;
+    const float2 x0 = *reinterpret_cast<const float2*>(x);
+    const float2 x1 = *reinterpret_cast<const float2*>(x + 8 * ldx);
+    const float2 x2 = *reinterpret_cast<const float2*>(x + 8);
+    const float2 x3 = *reinterpret_cast<const float2*>(x + 8 * ldx + 8);
+    a[mt][0] = bf16x2(x0.x, x0.y);
+    a[mt][1] = bf16x2(x1.x, x1.y);
+    a[mt][2] = bf16x2(x2.x, x2.y);
+    a[mt][3] = bf16x2(x3.x, x3.y);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float* w = W + (8 * nt + g) * ldw + k0 + 2 * q;
+    const float2 w0 = *reinterpret_cast<const float2*>(w);
+    const float2 w1 = *reinterpret_cast<const float2*>(w + 8);
+    const uint32_t b[2] = {bf16x2(w0.x, w0.y), bf16x2(w1.x, w1.y)};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+  }
+}
+
+// BF: the bf16 variant (the JAX kernel's _bf16_dot): each product's operands
+// rounded to bf16 (W1, the normalised rows, h1, W2, the value head's weights
+// and the GELU of layer 2) with f32 sums, the lane columns and layer 2 one
+// mma.sync m16n8k16 where the f32 pass issues three m16n8k8 in TF32; the
+// market columns on the CUDA cores from rounded operands.  sbf: the stored
+// states are bf16 (storage_dtype bfloat16; already rounded, read as they
+// are).
+template <int CT, bool BF>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict__ norm_avg,
-                     const float* __restrict__ norm_std, const float* __restrict__ states,
-                     float* __restrict__ val, int N, int H, int D1, int D2) {
+                     const float* __restrict__ norm_std, const void* __restrict__ states,
+                     float* __restrict__ val, int N, int H, int D1, int D2, int sbf) {
   constexpr int S = StockBody::S, L = StockBody::S_LANE, NM = S - L, NQ = CT / TE;
   constexpr int WM = CT / 32, WN = 8 / WM;   // warps across the samples; the features
   constexpr int FW = CNC / WN, NT = FW / 8;  // a warp's features of a chunk, n8 tiles
@@ -1469,6 +1524,12 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
   const float* W2 = W1 + D1 * S + D1;
   const float* Wo = W2 + D2 * D1 + D2;
   const float bo = __ldg(Wo + D2);
+  auto opnd = [](float x) { return BF ? cm::bf16_round(x) : x; };
+  // stored state (t, row k, lane n)
+  auto state = [&](int t, int k, int n) {
+    const size_t i = ((size_t)t * S + k) * N + n;
+    return sbf ? __bfloat162float(((const __nv_bfloat16*)states)[i]) : ((const float*)states)[i];
+  };
   cm::load_rows<false>(W1, D1, S, 0, d1p, 0, L, w1l, CLD);
   cm::load_vec<false>(W1 + D1 * S, D1, 0, d1p, b1);
   cm::load_vec<false>(W2 + D2 * D1, D2, 0, d2p, b2);
@@ -1493,14 +1554,13 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
     // ---- the tile's normalised lane rows, and each group's market rows
     for (int i = threadIdx.x; i < L * CT; i += cm::THREADS) {
       const int k = i / CT, m = i % CT, n = n0 + m;
-      xl[m * CLD + k] = n < N ? (states[((size_t)t * S + k) * N + n] - __ldg(norm_avg + k)) /
-                                    (__ldg(norm_std + k) + 1e-4f)
-                              : 0.f;
+      xl[m * CLD + k] =
+          n < N ? (state(t, k, n) - __ldg(norm_avg + k)) / (__ldg(norm_std + k) + 1e-4f) : 0.f;
     }
     for (int i = threadIdx.x; i < NQ * NM; i += cm::THREADS) {
       const int r = i / NQ, grp = i % NQ, n = n0 + grp * TE;
-      xm[i] = n < N ? (states[((size_t)t * S + L + r) * N + n] - __ldg(norm_avg + L + r)) /
-                          (__ldg(norm_std + L + r) + 1e-4f)
+      xm[i] = n < N ? opnd((state(t, L + r, n) - __ldg(norm_avg + L + r)) /
+                           (__ldg(norm_std + L + r) + 1e-4f))
                     : 0.f;
     }
     __syncthreads();
@@ -1517,7 +1577,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
         for (int u = 0; u < (NM + 7) / 8; ++u) {
           const int r = p + 8 * u;
           if (r < NM) {
-            const float wv = __ldg(w + r);
+            const float wv = opnd(__ldg(w + r));
 #pragma unroll
             for (int k = 0; k < NQ; ++k) v[k] = fmaf(wv, xm[r * NQ + k], v[k]);
           }
@@ -1541,8 +1601,12 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
       float acc[2][NT][4] = {};
       const float* X = xl + (32 * wm) * CLD;
       const float* W = w1l + (n0c + FW * wn) * CLD;
-      mma_k8(acc, X, CLD, W, CLD, 0);
-      mma_k8(acc, X, CLD, W, CLD, 8);
+      if constexpr (BF) {
+        mma_k16(acc, X, CLD, W, CLD, 0);
+      } else {
+        mma_k8(acc, X, CLD, W, CLD, 0);
+        mma_k8(acc, X, CLD, W, CLD, 8);
+      }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1570,8 +1634,13 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
         __syncthreads();  // stage s in its slot; h1 at s = 0
         const float* X = h1 + (32 * wm) * ldh + kt * CKT;
         const float* W = ring + slot * CNC * CKLD + (FW * wn) * CKLD;
+        if constexpr (BF) {
 #pragma unroll
-        for (int k8 = 0; k8 < CKT; k8 += 8) mma_k8(acc, X, ldh, W, CKLD, k8);
+          for (int k16 = 0; k16 < CKT; k16 += 16) mma_k16(acc, X, ldh, W, CKLD, k16);
+        } else {
+#pragma unroll
+          for (int k8 = 0; k8 < CKT; k8 += 8) mma_k8(acc, X, ldh, W, CKLD, k8);
+        }
         __syncthreads();  // the slot is free for stage s + 2
         slot ^= 1;
       }
@@ -1582,9 +1651,10 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = chunk * CNC + FW * wn + 8 * nt + 2 * q;
-            vrow[mt][h] = fmaf(wo[j], gelu_tanh(acc[mt][nt][2 * h] + b2[j]), vrow[mt][h]);
             vrow[mt][h] =
-                fmaf(wo[j + 1], gelu_tanh(acc[mt][nt][2 * h + 1] + b2[j + 1]), vrow[mt][h]);
+                fmaf(opnd(wo[j]), opnd(gelu_tanh(acc[mt][nt][2 * h] + b2[j])), vrow[mt][h]);
+            vrow[mt][h] = fmaf(opnd(wo[j + 1]), opnd(gelu_tanh(acc[mt][nt][2 * h + 1] + b2[j + 1])),
+                               vrow[mt][h]);
           }
     }
     // a sample's terms: the 4 threads of its row (fixed tree), then the WN
@@ -1673,31 +1743,32 @@ int critic_smem(int D1, int D2) {
 // steps' worth), then (rows, TE) tiles: the lanes' raw and normalised obs
 // rows, the whole h1, this block's rows of h2, every block's part of the
 // mean, the head's uniforms and normals, the env actions, and the split-K
-// scratch.
+// scratch.  With bf (bf16 compute) the weight slices and the tiles xl, h1
+// and h2 hold bf16 values (cm::wrow, cm::vals).
 struct StockActorLayout {
   int js1, js2, k2, w1l, b1, w2, b2, wo, bo, stdv, xm, msm, pnext, xraw, xl, h1, h2, outp, ubuf,
       zbuf, ea, scratch, floats;
   // OP: the head's output rows rounded to 4 (A, or 2A for the SAC heads)
-  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP) {
+  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP, int bf) {
     constexpr int L = StockBody::S_LANE, AP = cm::round4(StockBody::A);
     js1 = cm::slice(D1, c);
     js2 = cm::slice(D2, c);
     k2 = c * js1;
     int o = 0;
-    w1l = o; o += js1 * cm::ldk(L);
+    w1l = o; o += js1 * cm::wrow(L, bf);
     b1 = o; o += js1;
-    w2 = o; o += js2 * cm::ldk(k2);
+    w2 = o; o += js2 * cm::wrow(k2, bf);
     b2 = o; o += js2;
-    wo = o; o += OP * cm::ldk(js2);
+    wo = o; o += OP * cm::wrow(js2, bf);
     bo = o; o += OP;
     stdv = o; o += AP;
     xm = o; o += cm::round4(StockBody::S - L);
     msm = o; o += js1;
     pnext = o; o += 2 * cm::round4(StockBody::NS);
     xraw = o; o += L * TE;
-    xl = o; o += L * TE;
-    h1 = o; o += k2 * TE;
-    h2 = o; o += js2 * TE;
+    xl = o; o += cm::vals(L * TE, bf);
+    h1 = o; o += cm::vals(k2 * TE, bf);
+    h2 = o; o += cm::vals(js2 * TE, bf);
     outp = o; o += c * OP * TE;
     ubuf = o; o += 32 * TE;
     zbuf = o; o += AP * TE;
@@ -1712,17 +1783,26 @@ __host__ __device__ constexpr int stock_out_rows() {
   return cm::round4(sac_head(HEAD) ? 2 * StockBody::A : StockBody::A);
 }
 
-template <int HEAD>
+// BF and quant as for fused_rollout_kernel (_bf16_dot and the quantised
+// store of pallas_rollout.py:_make_kernel :600 and _make_offpolicy_kernel
+// :1006): under BF the weight slices, the lanes' normalised rows, h1 and h2
+// are bf16, the day's normalised market rows are rounded to bf16 once a
+// step and W1's market columns as they are read, every product summed in
+// f32; under quant the obs (lane and market rows) is rounded to bf16 before
+// it is normalised and acted on and stored as bf16, and the off-policy
+// heads store their actions as bf16 (the env steps on the f32 action).
+template <int HEAD, bool BF>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    const float* __restrict__ norm_avg, const float* __restrict__ norm_std,
                    const float* __restrict__ env_f, const int* __restrict__ env_i,
                    const float* __restrict__ noise, const int* __restrict__ seed,
-                   float* __restrict__ states_o, float* __restrict__ actions_o,
+                   void* __restrict__ states_o, void* __restrict__ actions_o,
                    float* __restrict__ logp_o, float* __restrict__ rew_o,
                    float* __restrict__ term_o, float* __restrict__ trunc_o,
                    float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N, int H, int D1,
-                   int D2, float reward_scale, float noise_std, float std_lo, float std_hi) {
+                   int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
+                   int quant) {
   constexpr int S = StockBody::S, A = StockBody::A, F = StockBody::F, NS = StockBody::NS;
   constexpr int L = StockBody::S_LANE, NM = S - L, AP = cm::round4(A), NP = cm::round4(NS);
   constexpr bool ON = HEAD == HEAD_PPO;              // the on-policy head
@@ -1738,15 +1818,24 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const StockActorLayout Ly(D1, D2, c, OP);
+  const StockActorLayout Ly(D1, D2, c, OP, BF);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float *w1l = sm + Ly.w1l, *b1s = sm + Ly.b1, *w2s = sm + Ly.w2, *b2s = sm + Ly.b2;
-  float *wos = sm + Ly.wo, *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *xm = sm + Ly.xm;
-  float *msm = sm + Ly.msm, *pnext = sm + Ly.pnext, *xraw = sm + Ly.xraw, *xl = sm + Ly.xl;
-  float *h1 = sm + Ly.h1, *h2 = sm + Ly.h2, *outp = sm + Ly.outp, *ubuf = sm + Ly.ubuf;
+  using WT = cm::elem_t<BF>;
+  auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
+  WT *w1l = wt(Ly.w1l), *w2s = wt(Ly.w2), *wos = wt(Ly.wo);
+  WT *xl = wt(Ly.xl), *h1 = wt(Ly.h1), *h2 = wt(Ly.h2);
+  float *b1s = sm + Ly.b1, *b2s = sm + Ly.b2;
+  float *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *xm = sm + Ly.xm;
+  float *msm = sm + Ly.msm, *pnext = sm + Ly.pnext, *xraw = sm + Ly.xraw;
+  float *outp = sm + Ly.outp, *ubuf = sm + Ly.ubuf;
   float *zbuf = sm + Ly.zbuf, *ea = sm + Ly.ea, *scratch = sm + Ly.scratch;
   const int js1 = Ly.js1, js2 = Ly.js2, j1 = rank * js1, j2 = rank * js2;
+  const int ld1 = cm::wld<BF>(L), ld2 = cm::wld<BF>(Ly.k2), ldo = cm::wld<BF>(js2);
+  // a product's operand as the kernel takes it: rounded to bf16 under BF
+  auto opnd = [](float x) { return BF ? cm::bf16_round(x) : x; };
+  // an obs value as it is stored and acted on: rounded to bf16 under quant
+  auto qobs = [&](float x) { return quant ? cm::bf16_round(x) : x; };
   cm::cluster_arrive();  // this block has started
 
   // the actor's leaves: W1 (D1, S), b1, W2 (D2, D1), b2, then the head: Wo
@@ -1756,21 +1845,21 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   const float* W2 = W1 + D1 * S + D1;
   const float* Wo = W2 + D2 * D1 + D2;
   const float* std_log = Wo + A * D2 + A;
-  cm::load_rows<false>(W1, D1, S, j1, js1, 0, L, w1l, cm::ldk(L));
+  cm::load_rows<false>(W1, D1, S, j1, js1, 0, L, w1l, ld1);
   cm::load_vec<false>(W1 + D1 * S, D1, j1, js1, b1s);
-  cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, w2s, cm::ldk(Ly.k2));
+  cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, w2s, ld2);
   cm::load_vec<false>(W2 + D2 * D1, D2, j2, js2, b2s);
   if constexpr (HEAD == HEAD_SAC) {
-    cm::load_rows<false>(Wo, 2 * A, D2, 0, OP, j2, js2, wos, cm::ldk(js2));
+    cm::load_rows<false>(Wo, 2 * A, D2, 0, OP, j2, js2, wos, ldo);
     cm::load_vec<false>(Wo + 2 * A * D2, 2 * A, 0, OP, bos);
   } else if constexpr (HEAD == HEAD_MODSAC) {
     const float* Ws = Wo + A * D2 + A;
-    cm::load_rows<false>(Wo, A, D2, 0, A, j2, js2, wos, cm::ldk(js2));
-    cm::load_rows<false>(Ws, A, D2, 0, OP - A, j2, js2, wos + A * cm::ldk(js2), cm::ldk(js2));
+    cm::load_rows<false>(Wo, A, D2, 0, A, j2, js2, wos, ldo);
+    cm::load_rows<false>(Ws, A, D2, 0, OP - A, j2, js2, wos + A * ldo, ldo);
     cm::load_vec<false>(Wo + A * D2, A, 0, A, bos);
     cm::load_vec<false>(Ws + A * D2, A, 0, OP - A, bos + A);
   } else {
-    cm::load_rows<false>(Wo, A, D2, 0, AP, j2, js2, wos, cm::ldk(js2));
+    cm::load_rows<false>(Wo, A, D2, 0, AP, j2, js2, wos, ldo);
     cm::load_vec<false>(Wo + A * D2, A, 0, AP, bos);
   }
   if constexpr (ON)
@@ -1805,28 +1894,32 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
 #pragma unroll
     for (int s = 0; s < L; ++s) xraw[s * TE + e] = f[s];
   };
-  // the obs row's address in the states: (H, S, N) on-policy, (H, N, S) off
-  auto state_at = [&](int t, int r, int n2) -> float* {
-    return ON ? states_o + ((size_t)t * S + r) * N + n2 : states_o + ((size_t)t * N + n2) * S + r;
+  // store obs row r of lane n2 at step t: (H, S, N) on-policy, (H, N, S)
+  // off; bf16 under quant (x is rounded already)
+  auto put_state = [&](int t, int r, int n2, float x) {
+    const size_t i = ON ? ((size_t)t * S + r) * N + n2 : ((size_t)t * N + n2) * S + r;
+    if (quant) cm::st1((__nv_bfloat16*)states_o + i, x);
+    else ((float*)states_o)[i] = x;
   };
   // the normalisation of obs row r (on-policy only)
   auto normalise = [&](int r, float x) {
     return ON ? (x - __ldg(norm_avg + r)) / (__ldg(norm_std + r) + 1e-4f) : x;
   };
   // threads from `first` on, for step t on day d: the normalised market rows
-  // (stored too, rows r = rank mod c), the next day's close prices and the
-  // head's uniforms (internal noise)
+  // (stored too, rows r = rank mod c; under BF rounded to bf16 here, once a
+  // step), the next day's close prices and the head's uniforms (internal
+  // noise)
   auto prepare = [&](int t, int d, int first) {
     const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
     if (i0 < 0) return;
     for (int r = i0; r < NM; r += nth)
-      xm[r] = normalise(L + r, body.market(d, L + r));
+      xm[r] = opnd(normalise(L + r, qobs(body.market(d, L + r))));
     for (int k = i0; k < NS; k += nth)
       pnext[(t & 1) * NP + k] = __ldg(body.p.close + (size_t)(d + 1) * NS + k);
     const int mine = (NM - rank + c - 1) / c;
     for (int i = i0; i < mine * TE; i += nth) {
       const int r = L + rank + c * (i / TE), n2 = grp * TE + i % TE;
-      if (n2 < N) *state_at(t, r, n2) = body.market(d, r);
+      if (n2 < N) put_state(t, r, n2, qobs(body.market(d, r)));
     }
     if (noise == nullptr) {
       for (int i = i0; i < HB * TE; i += nth) {
@@ -1857,8 +1950,8 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
 #pragma unroll
         for (int u = 0; u < (NM + 15) / 16; ++u) {
           const int k = q + 16 * u;
-          if (k < NM) v0 = fmaf(__ldg(w + k), xm[k], v0);
-          if (k + 8 < NM) v1 = fmaf(__ldg(w + k + 8), xm[k + 8], v1);
+          if (k < NM) v0 = fmaf(opnd(__ldg(w + k)), xm[k], v0);
+          if (k + 8 < NM) v1 = fmaf(opnd(__ldg(w + k + 8)), xm[k + 8], v1);
         }
       }
       float v = v0 + v1;
@@ -1873,9 +1966,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       const int e2 = i % TE, n2 = grp * TE + e2;
       if (i < L * TE) {
         const int s2 = i / TE;
-        const float x = StockBody::obs_row(s2, xraw[i]);
-        xl[i] = n2 < N ? normalise(s2, x) : 0.f;
-        if (rank == 0 && n2 < N) *state_at(t, s2, n2) = x;
+        const float x = qobs(StockBody::obs_row(s2, xraw[i]));
+        cm::st1(xl + i, n2 < N ? normalise(s2, x) : 0.f);
+        if (rank == 0 && n2 < N) put_state(t, s2, n2, x);
       } else {
         const int a = i / TE - L;
         float z = 0.f;
@@ -1889,23 +1982,23 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       }
     }
     __syncthreads();
-    cm::tile_dense<TE>(w1l, cm::ldk(L), xl, L, js1, scratch, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(w1l, ld1, xl, L, js1, scratch, [&](int j, int m0, float4 v) {
       const float mj = msm[j], b = b1s[j];
       cm::store_cluster(cluster, c, h1, (j1 + j) * TE + m0,
                         make_float4(gelu_tanh((mj + v.x) + b), gelu_tanh((mj + v.y) + b),
                                     gelu_tanh((mj + v.z) + b), gelu_tanh((mj + v.w) + b)));
     });
     cluster.sync();  // every block's rows of h1, in every block
-    cm::tile_dense<TE>(w2s, cm::ldk(Ly.k2), h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(w2s, ld2, h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
       const float b = b2s[j];
-      *reinterpret_cast<float4*>(h2 + j * TE + m0) =
-          HEAD == HEAD_MODSAC  // ModSAC's heads read the raw trunk
-              ? make_float4(v.x + b, v.y + b, v.z + b, v.w + b)
-              : make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
-                            gelu_tanh(v.w + b));
+      cm::st4(h2 + j * TE + m0,
+              HEAD == HEAD_MODSAC  // ModSAC's heads read the raw trunk
+                  ? make_float4(v.x + b, v.y + b, v.z + b, v.w + b)
+                  : make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
+                                gelu_tanh(v.w + b)));
     });
     __syncthreads();
-    cm::tile_dense<TE>(wos, cm::ldk(js2), h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
+    cm::tile_dense<TE>(wos, ldo, h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
       cm::store_cluster(cluster, c, outp, (rank * OP + j) * TE + m0, v);
     });
     cluster.sync();  // every block's part of the head rows, in every block
@@ -1916,7 +2009,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       if constexpr (ON) {
         const float action = (v + bos[a]) + stdv[a] * zbuf[i];
         ea[i] = tanhf(action);
-        if (rank == 0 && n2 < N) actions_o[((size_t)t * A + a) * N + n2] = action;
+        if (rank == 0 && n2 < N) ((float*)actions_o)[((size_t)t * A + a) * N + n2] = action;
       } else {
         float act;
         if constexpr (sac_head(HEAD)) {
@@ -1928,7 +2021,11 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
           act = clampf(tanhf(v + bos[a]) + noise_std * zbuf[i], -1.0f, 1.0f);
         }
         ea[i] = act;
-        if (rank == 0 && n2 < N) actions_o[((size_t)t * N + n2) * A + a] = act;
+        if (rank == 0 && n2 < N) {
+          const size_t o = ((size_t)t * N + n2) * A + a;
+          if (quant) cm::st1((__nv_bfloat16*)actions_o + o, act);
+          else ((float*)actions_o)[o] = act;
+        }
       }
     }
     __syncthreads();
@@ -1986,9 +2083,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   }
 }
 
-template <int HEAD>
+template <int HEAD, bool BF>
 int stock_actor_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>()).floats;
+  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>(), BF).floats;
 }
 
 }  // namespace
@@ -2060,7 +2157,7 @@ extern "C" int fused_rollout(
 
 // Dynamic shared memory of one block of the off-policy rollout for clusters
 // of c blocks (OffLayout; the stock body's StockActorLayout), bf16 compute
-// when bf; -1 for a pair it does not have (the stock heads are f32 only).
+// when bf; -1 for a pair it does not have.
 extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c, int bf) {
 #define ELEGANTRL_SMEM(ID, BODY, HEAD)                                  \
   if (body == ID && head == HEAD)                                       \
@@ -2068,19 +2165,25 @@ extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, 
               : offpolicy_smem<BODY, HEAD, false>(D1, D2, c);
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
-#define ELEGANTRL_SMEM(HEAD) \
-  if (body == 5 && head == HEAD && !bf) return stock_actor_smem<HEAD>(D1, D2, c);
+#define ELEGANTRL_SMEM(HEAD)                                                      \
+  if (body == 5 && head == HEAD)                                                  \
+    return bf ? stock_actor_smem<HEAD, true>(D1, D2, c) : stock_actor_smem<HEAD, false>(D1, D2, c);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
 }
 
 // The stock actor kernel's cluster size for N lanes (pick_cluster).
-template <int HEAD>
+template <int HEAD, bool BF>
 int stock_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<stock_actor_kernel<HEAD>>(
-      (N + TE - 1) / TE, cluster, [=](int c) { return stock_actor_smem<HEAD>(D1, D2, c); },
+  return pick_cluster<stock_actor_kernel<HEAD, BF>>(
+      (N + TE - 1) / TE, cluster, [=](int c) { return stock_actor_smem<HEAD, BF>(D1, D2, c); },
       false);
+}
+template <int HEAD>
+int stock_cluster_bf(int N, int D1, int D2, int cluster, int bf) {
+  return bf ? stock_cluster<HEAD, true>(N, D1, D2, cluster)
+            : stock_cluster<HEAD, false>(N, D1, D2, cluster);
 }
 
 // The cluster size the off-policy rollout takes for N lanes (`cluster` 0
@@ -2095,7 +2198,7 @@ extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int 
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
 #define ELEGANTRL_CLUSTER(HEAD) \
-  if (body == 5 && head == HEAD && !bf) return stock_cluster<HEAD>(N, D1, D2, cluster);
+  if (body == 5 && head == HEAD) return stock_cluster_bf<HEAD>(N, D1, D2, cluster, bf);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
@@ -2123,41 +2226,44 @@ extern "C" int offpolicy_rollout(int body, int head, const void* flat, const voi
   return -1;
 }
 
-// Launches stock_actor_kernel<HEAD> on the cluster size stock_cluster picks.
-template <int HEAD>
+// Launches stock_actor_kernel<HEAD, BF> on the cluster size stock_cluster
+// picks.
+template <int HEAD, bool BF>
 int launch_stock(const StockBody& body, const void* act_flat, const void* norm_avg,
                  const void* norm_std, const void* env_f, const void* env_i, const void* noise,
                  const void* seed, void* states, void* actions, void* logp, void* rew,
                  void* term, void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1,
                  int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
-                 int cluster, cudaStream_t stream) {
+                 int cluster, int quant, cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = stock_cluster<HEAD>(N, D1, D2, cluster);
+  const int c = stock_cluster<HEAD, BF>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = stock_actor_smem<HEAD>(D1, D2, c);
-  const cudaError_t err = allow_smem<stock_actor_kernel<HEAD>>(smem);
+  const int smem = stock_actor_smem<HEAD, BF>(D1, D2, c);
+  const cudaError_t err = allow_smem<stock_actor_kernel<HEAD, BF>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + TE - 1) / TE;
   return (int)cm::launch_clusters(
-      stock_actor_kernel<HEAD>, groups * c, c, smem, stream, body, (const float*)act_flat,
+      stock_actor_kernel<HEAD, BF>, groups * c, c, smem, stream, body, (const float*)act_flat,
       (const float*)norm_avg, (const float*)norm_std, (const float*)env_f, (const int*)env_i,
-      (const float*)noise, (const int*)seed, (float*)states, (float*)actions, (float*)logp,
-      (float*)rew, (float*)term, (float*)trunc, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2,
-      reward_scale, noise_std, std_lo, std_hi);
+      (const float*)noise, (const int*)seed, states, actions, (float*)logp, (float*)rew,
+      (float*)term, (float*)trunc, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale,
+      noise_std, std_lo, std_hi, quant);
 }
 
-// StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel<HEAD_PPO>;
-// values are left to critic_values).  Shared memory of one block for
-// clusters of c blocks, and the cluster size for N lanes (stock_cluster).
-extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c) {
-  return stock_actor_smem<HEAD_PPO>(D1, D2, c);
+// StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel<HEAD_PPO,
+// BF>; values are left to critic_values).  Shared memory of one block for
+// clusters of c blocks, and the cluster size for N lanes (stock_cluster);
+// bf and quant as for fused_rollout.
+extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c, int bf) {
+  return bf ? stock_actor_smem<HEAD_PPO, true>(D1, D2, c)
+            : stock_actor_smem<HEAD_PPO, false>(D1, D2, c);
 }
 
-extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster) {
-  return stock_cluster<HEAD_PPO>(N, D1, D2, cluster);
+extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster, int bf) {
+  return stock_cluster_bf<HEAD_PPO>(N, D1, D2, cluster, bf);
 }
 
 extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
@@ -2165,29 +2271,30 @@ extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const v
                              const void* seed, void* states, void* actions, void* logp,
                              void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
                              int N, int H, int D1, int D2, float reward_scale, int cluster,
-                             const StockArgs* args, void* stream) {
-  return launch_stock<HEAD_PPO>(StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i,
-                                noise, seed, states, actions, logp, rew, term, trunc, env_f_o,
-                                env_i_o, N, H, D1, D2, reward_scale, 0.f, 0.f, 0.f, cluster,
-                                (cudaStream_t)stream);
+                             int bf, int quant, const StockArgs* args, void* stream) {
+  return (bf ? launch_stock<HEAD_PPO, true> : launch_stock<HEAD_PPO, false>)(
+      StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,
+      actions, logp, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, 0.f, 0.f,
+      0.f, cluster, quant, (cudaStream_t)stream);
 }
 
 // The off-policy exploration rollout on StockBody: the ddpg, sac and modsac
-// heads (stock_actor_kernel<HEAD>; no normalisation, no logprob).  Returns
-// the CUDA error of the launch, or -1 for another head.
+// heads (stock_actor_kernel<HEAD, BF>; no normalisation, no logprob); bf and
+// quant as for fused_rollout.  Returns the CUDA error of the launch, or -1
+// for another head.
 extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* env_f,
                                        const void* env_i, const void* noise, const void* seed,
                                        void* states, void* actions, void* rew, void* term,
                                        void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                        int D1, int D2, float reward_scale, float noise_std,
-                                       float std_lo, float std_hi, int cluster,
-                                       const StockArgs* args, void* stream) {
-#define ELEGANTRL_STOCK(HEAD)                                                               \
-  if (head == HEAD)                                                                         \
-    return launch_stock<HEAD>(StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, \
-                              seed, states, actions, nullptr, rew, term, trunc, env_f_o,    \
-                              env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo, std_hi, \
-                              cluster, (cudaStream_t)stream);
+                                       float std_lo, float std_hi, int cluster, int bf,
+                                       int quant, const StockArgs* args, void* stream) {
+#define ELEGANTRL_STOCK(HEAD)                                                                  \
+  if (head == HEAD)                                                                            \
+    return (bf ? launch_stock<HEAD, true> : launch_stock<HEAD, false>)(                        \
+        StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, seed, states, actions,  \
+        nullptr, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, noise_std,    \
+        std_lo, std_hi, cluster, quant, (cudaStream_t)stream);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_STOCK)
 #undef ELEGANTRL_STOCK
   return -1;
@@ -2196,7 +2303,7 @@ extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* e
 // Blocks of critic_values_kernel<CT> an SM holds at smem bytes a block into
 // per_sm: asked of the occupancy calculator once per (CT, device, smem) and
 // kept, not at every launch.
-template <int CT>
+template <int CT, bool BF>
 cudaError_t critic_blocks_per_sm(int smem, int& per_sm) {
   static int kept_smem[64] = {0}, kept[64] = {0};
   int dev = 0;
@@ -2207,7 +2314,7 @@ cudaError_t critic_blocks_per_sm(int smem, int& per_sm) {
     per_sm = kept[dev];
     return cudaSuccess;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, critic_values_kernel<CT>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, critic_values_kernel<CT, BF>,
                                                       cm::THREADS, smem);
   if (err == cudaSuccess && known) {
     kept_smem[dev] = smem;
@@ -2216,40 +2323,40 @@ cudaError_t critic_blocks_per_sm(int smem, int& per_sm) {
   return err;
 }
 
-// Launches critic_values_kernel<CT>: persistent blocks, as many as the card
-// holds at once, or one a tile.
-template <int CT>
+// Launches critic_values_kernel<CT, BF>: persistent blocks, as many as the
+// card holds at once, or one a tile.
+template <int CT, bool BF>
 int launch_critic(const void* cri_flat, const void* norm_avg, const void* norm_std,
-                  const void* states, void* val, int N, int H, int D1, int D2,
+                  const void* states, void* val, int N, int H, int D1, int D2, int sbf,
                   cudaStream_t stream) {
   const int smem = critic_smem(D1, D2);
-  cudaError_t err = allow_smem<critic_values_kernel<CT>>(smem);
+  cudaError_t err = allow_smem<critic_values_kernel<CT, BF>>(smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = critic_blocks_per_sm<CT>(smem, per_sm);
+  err = critic_blocks_per_sm<CT, BF>(smem, per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   const long long tiles = (long long)H * ((N + CT - 1) / CT);
   const long long most = (long long)cm::sm_count() * per_sm;  // persistent blocks
   const int blocks = (int)(tiles < most ? tiles : most);
-  critic_values_kernel<CT><<<blocks, cm::THREADS, smem, stream>>>(
-      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std,
-      (const float*)states, (float*)val, N, H, D1, D2);
+  critic_values_kernel<CT, BF><<<blocks, cm::THREADS, smem, stream>>>(
+      (const float*)cri_flat, (const float*)norm_avg, (const float*)norm_std, states,
+      (float*)val, N, H, D1, D2, sbf);
   return (int)cudaGetLastError();
 }
 
 // The critic pass: val (H, N) from the stored states (H, S, N) of the stock
-// body (S = StockBody::S); its lanes' groups of TE share each step's market
-// rows (critic_values_kernel's precondition).  Shared memory of one block.
+// body (S = StockBody::S; bf16 when sbf); its lanes' groups of TE share each
+// step's market rows (critic_values_kernel's precondition); bf: the bf16
+// variant.  Shared memory of one block (the same in both variants).
 extern "C" int critic_values_smem_bytes(int D1, int D2) { return critic_smem(D1, D2); }
 
 extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const void* norm_std,
                              const void* states, void* val, int N, int H, int D1, int D2,
-                             void* stream) {
+                             int bf, int sbf, void* stream) {
   if ((long long)H * N == 0) return 0;
-  return critic_tile(D1, D2) == 128
-             ? launch_critic<128>(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2,
-                                  (cudaStream_t)stream)
-             : launch_critic<64>(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2,
-                                 (cudaStream_t)stream);
+  const bool wide = critic_tile(D1, D2) != 128;
+  auto go = wide ? (bf ? launch_critic<64, true> : launch_critic<64, false>)
+                 : (bf ? launch_critic<128, true> : launch_critic<128, false>);
+  return go(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2, sbf, (cudaStream_t)stream);
 }

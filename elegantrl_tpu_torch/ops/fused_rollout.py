@@ -48,7 +48,9 @@ GELU and the heads stay float32); with ``store_dtype=torch.bfloat16`` the
 obs is rounded to bf16 before it is acted on and the states are stored in
 bf16 (off-policy also the float actions).  The kernels' bf16 variants hold
 the weight slices and activation tiles in bf16 (half the shared memory);
-the stock body has none (``ROADMAP.md``).
+the stock body's critic pass rounds its tensor-core operands to bf16
+(``mma.sync`` m16n8k16 where the float32 pass runs split-3xTF32) and reads
+the stored states in either type.
 
 Noise has two modes, as in the JAX package: *injected*, a ``(H, A +
 n_step + n_reset, N)`` tensor (Gaussian head: A normals, then the env's
@@ -583,13 +585,6 @@ def _check_dtypes(what: str, compute_dtype, store_dtype) -> None:
                              f'got {dt}')
 
 
-# what the stock body's kernels (K4's actor kernel and the critic pass) say
-# under bf16 compute or storage, which they do not take on a card
-STOCK_BF16_TEXT = ('the stock body\'s kernels (K4: the actor kernel and the critic pass) have '
-                   'no bf16 variant yet (ROADMAP.md, module item 3); run it with '
-                   "compute_dtype = storage_dtype = 'float32', or on the CPU")
-
-
 def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                       norm_avg: torch.Tensor, norm_std: torch.Tensor,
                       env_f: torch.Tensor, env_i: torch.Tensor, *,
@@ -599,9 +594,11 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
                       body: KernelEnvBody = PENDULUM_BODY,
                       env_trace: Optional[list] = None,
                       compute_dtype: Optional[torch.dtype] = None,
-                      store_dtype: Optional[torch.dtype] = None) -> RolloutOutputs:
+                      store_dtype: Optional[torch.dtype] = None,
+                      env_actions: Optional[list] = None) -> RolloutOutputs:
     """Plain PyTorch version of the fused rollout kernel.  ``env_trace``, a
-    list, receives the ``(env_f, env_i)`` rows each step starts from;
+    list, receives the ``(env_f, env_i)`` rows each step starts from, and
+    ``env_actions`` the float32 ``(A, N)`` action each step's env steps on;
     ``compute_dtype`` and ``store_dtype`` as the module says."""
     S, A = body.state_dim, body.action_dim
     act_shapes, cri_shapes = ppo_param_shapes(S, net_dims, A, body.discrete)
@@ -647,6 +644,8 @@ def rollout_reference(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             action = out + std * z
             logp = torch.sum(-0.5 * torch.square(z) - log_std - LOG_SQRT_2PI, dim=0)
             env_a = torch.tanh(action)
+        if env_actions is not None:
+            env_actions.append(env_a)
         f2, i2, reward, terminal, trunc = body.step(f, i, env_a, u_env[0:body.n_step])
         f, i = body.reset(f2, i2, u_env[body.n_step:body.n_step + body.n_reset],
                           terminal | trunc)
@@ -727,7 +726,7 @@ def tile_scratch(k: int, j: int, lanes: int = _TE, threads: int = 256) -> int:
 
 
 def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
-                     cluster: int = 1, head: Optional[str] = None) -> int:
+                     cluster: int = 1, head: Optional[str] = None, bf16: bool = False) -> int:
     """Shared memory of one block of the stock actor kernel (K4: the
     on-policy route, ``stock_rollout_smem_bytes``, ``head`` None; the
     off-policy heads, ``offpolicy_rollout_smem_bytes``) for clusters of
@@ -737,20 +736,22 @@ def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
     a row of K inputs takes ``kernels.ldk(K)`` floats), the biases and
     stds, the day's market rows, two steps' close prices, then the lane
     tiles (every block's part of the head rows among them) and the split-K
-    scratch.  ``csrc/fused_rollout.cu`` owns the layout
-    (``StockActorLayout``); the critic runs afterwards in
+    scratch.  With ``bf16`` the weight slices and the tiles of the lanes'
+    normalised rows, h1 and h2 hold bf16 values.  ``csrc/fused_rollout.cu``
+    owns the layout (``StockActorLayout``); the critic runs afterwards in
     :func:`critic_values`.  The wrapper needs one cluster size's layout to
     fit."""
-    from .kernels import ldk
     D1, D2 = net_dims
-    S, A, c = state_dim, action_dim, cluster
+    S, A, c, bf = state_dim, action_dim, cluster, bool(bf16)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    half = lambda n: n // 2 if bf else n  # noqa: E731
     L, ap = 1 + A, r4(A)
     op = r4(2 * A) if head in ('sac', 'modsac') else ap
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    floats = (js1 * ldk(L) + js1 + js2 * ldk(k2) + js2 + op * ldk(js2) + op + ap + r4(S - L)
-              + js1 + 2 * r4(A) + (2 * L + k2 + js2 + c * op + 32 + 2 * ap) * _TE + 256 * 16)
+    floats = (js1 * wrow(L, bf) + js1 + js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf) + op + ap
+              + r4(S - L) + js1 + 2 * r4(A) + half((L + k2 + js2) * _TE)
+              + (L + c * op + 32 + 2 * ap) * _TE + 256 * 16)
     return 4 * floats
 
 
@@ -798,19 +799,40 @@ def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = Fals
     holds both nets' slices (:func:`rollout_smem_bytes`; (256, 256) and more
     in float32, (512, 512) in bf16 but on PointChasingDiscreteEnv,
     ``ROADMAP.md`` lists the limits); a market-data body (built for
-    ``STOCK_KERNEL_STOCKS`` stocks) in float32 as the actor-only rollout,
-    where a cluster holds the actor's slices, plus the critic pass
-    (:func:`critic_smem_bytes`)."""
+    ``STOCK_KERNEL_STOCKS`` stocks) as the actor-only rollout, where a
+    cluster holds the actor's slices (:func:`stock_width_limit`), plus the
+    critic pass (:func:`critic_smem_bytes`, the same layout in both
+    variants)."""
     if len(tuple(net_dims)) != 2:
         return False
     S, A = body.state_dim, body.action_dim
     if not kernel_has_body(body):
         return False
     if body.tables is not None:
-        return (not bf16
-                and min(actor_smem_bytes(S, net_dims, A, c) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
+        return (min(actor_smem_bytes(S, net_dims, A, c, bf16=bf16)
+                    for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
                 and critic_smem_bytes(net_dims) <= SMEM_LIMIT)
     return rollout_smem_bytes(body, net_dims, 8, bf16) <= SMEM_LIMIT
+
+
+def stock_width_limit(head: Optional[str] = None, bf16: bool = False,
+                      critic: bool = True) -> int:
+    """The widest square net (a multiple of 4) whose actor slices a cluster
+    of the stock actor kernel holds (:func:`actor_smem_bytes`; ``head`` None
+    on-policy, else the off-policy head), on-policy with ``critic`` the
+    critic pass's tile too (:func:`critic_smem_bytes`).  In float32 448 (416
+    for sac and modsac); in bf16 576 on-policy (the critic pass; the actor
+    kernel alone 704), 704 for ddpg, 640 for sac and modsac."""
+    S, A = _STOCK_S, STOCK_KERNEL_STOCKS
+    with_critic = head is None and critic
+
+    def fits(d):
+        return (min(actor_smem_bytes(S, (d, d), A, c, head, bf16) for c in ROLLOUT_CLUSTERS)
+                <= SMEM_LIMIT and (not with_critic or critic_smem_bytes((d, d)) <= SMEM_LIMIT))
+    d = 4
+    while fits(d + 4):
+        d += 4
+    return d
 
 
 class _StockArgs(ctypes.Structure):
@@ -838,29 +860,35 @@ def _stock_args(body: KernelEnvBody, device) -> _StockArgs:
 
 def critic_values_reference(cri_flat: torch.Tensor, norm_avg: torch.Tensor,
                             norm_std: torch.Tensor, states: torch.Tensor, *,
-                            net_dims: Sequence[int]) -> torch.Tensor:
+                            net_dims: Sequence[int],
+                            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of the critic pass: ``(H, N)`` values of the stored
-    ``(H, S, N)`` states, the full MLP on every sample."""
+    ``(H, S, N)`` states (float32 or bf16), the full MLP on every sample in
+    ``compute_dtype`` (as the module says)."""
     S = states.shape[1]
     shapes = ppo_param_shapes(S, net_dims, 1, True)[1]
-    xn = (states.transpose(1, 2) - norm_avg) / (norm_std + 1e-4)
-    return mlp_apply_leaves(split_flat(cri_flat, shapes), xn)[..., 0]
+    xn = (states.float().transpose(1, 2) - norm_avg) / (norm_std + 1e-4)
+    return mlp_apply_leaves(split_flat(cri_flat, shapes), xn, compute_dtype)[..., 0]
 
 
 def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torch.Tensor,
                   states: torch.Tensor, values: Optional[torch.Tensor] = None, *,
-                  net_dims: Sequence[int]) -> torch.Tensor:
+                  net_dims: Sequence[int],
+                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The critic pass of the actor-only stock rollout: the CUDA kernel for
-    CUDA tensors (writing into ``values`` when given), the plain version for
-    CPU tensors.
+    CUDA tensors (writing into ``values`` when given; its bf16 variant under
+    ``compute_dtype=torch.bfloat16``; ``states`` float32 or bf16), the plain
+    version for CPU tensors.
 
     Precondition of the kernel: ``states`` are the stock body's (``S =
     151``), and the lanes of a group of ``_TE`` (``n // 32`` equal) share
     each step's market rows, which the kernel applies once per (step,
     group), from the group's first lane.  The stock rollouts' stored states
     always meet it (:func:`block_day`)."""
+    _check_dtypes('critic_values', compute_dtype, None)
     if cri_flat.device.type == 'cpu':
-        return critic_values_reference(cri_flat, norm_avg, norm_std, states, net_dims=net_dims)
+        return critic_values_reference(cri_flat, norm_avg, norm_std, states, net_dims=net_dims,
+                                       compute_dtype=compute_dtype)
     if cri_flat.device.type != 'cuda':
         raise ValueError(f'critic_values: unsupported device {cri_flat.device}')
     if len(net_dims) != 2:
@@ -882,19 +910,24 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
     check_tensor('critic_values', 'cri_flat', cri_flat, (n_cri,), f32, dev)
     check_tensor('critic_values', 'norm_avg', norm_avg, (S,), f32, dev)
     check_tensor('critic_values', 'norm_std', norm_std, (S,), f32, dev)
-    check_tensor('critic_values', 'states', states, (H, S, N), f32, dev)
+    sbf = int(states.dtype == torch.bfloat16)
+    check_tensor('critic_values', 'states', states, (H, S, N), (f32, torch.bfloat16)[sbf], dev)
     if values is None:
         values = torch.empty((H, N), dtype=f32, device=dev)
     check_tensor('critic_values', 'values', values, (H, N), f32, dev)
+    bf = int(compute_dtype is not None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.critic_values(ptr(cri_flat), ptr(norm_avg), ptr(norm_std), ptr(states),
-                            ptr(values), N, H, D1, D2, ctypes.c_void_p(stream)),
+                            ptr(values), N, H, D1, D2, bf, sbf, ctypes.c_void_p(stream)),
           'critic_values')
     critic_values.launches += 1
+    kind = ('float32', 'bf16')[bf]     # the bf16 variant counts apart
+    critic_values.launches_by_kind[kind] = critic_values.launches_by_kind.get(kind, 0) + 1
     return values
 
 
 critic_values.launches = 0
+critic_values.launches_by_kind = {}
 
 
 def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
@@ -908,12 +941,11 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             store_dtype: Optional[torch.dtype] = None) -> RolloutOutputs:
     """The fused rollout: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  ``compute_dtype`` and ``store_dtype`` (None or
-    ``torch.bfloat16``) as the module says; the stock body takes neither on
-    a card.  ``cluster`` and ``stock_cluster`` set the cluster size of the
-    rollout kernel and of the stock actor kernel (1, 2, 4 or 8; 0, the
-    default, lets the kernel choose from the card's occupancy, the choice
-    kept per body, env count, widths, compute type and device); knobs for
-    measuring the options."""
+    ``torch.bfloat16``) as the module says.  ``cluster`` and
+    ``stock_cluster`` set the cluster size of the rollout kernel and of the
+    stock actor kernel (1, 2, 4 or 8; 0, the default, lets the kernel choose
+    from the card's occupancy, the choice kept per body, env count, widths,
+    compute type and device); knobs for measuring the options."""
     _check_dtypes('rollout', compute_dtype, store_dtype)
     kw = dict(net_dims=net_dims, horizon_len=horizon_len,
               reward_scale=reward_scale, noise=noise, seed=seed, body=body,
@@ -925,8 +957,6 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         raise ValueError(f'rollout: unsupported device {act_flat.device}')
     stock = body.tables is not None
     bf, quant = int(compute_dtype is not None), int(store_dtype is not None)
-    if stock and (bf or quant):
-        raise NotImplementedError(STOCK_BF16_TEXT)
     if not kernel_has_body(body):
         raise ValueError(f'rollout: the CUDA kernel implements the bodies of '
                          f'{kernel_bodies_text(body)}, not {body.env_name}')
@@ -940,13 +970,15 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     lib = _library()
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
-        smem = min(lib.stock_rollout_smem_bytes(D1, D2, c) for c in ROLLOUT_CLUSTERS)
+        smem = min(lib.stock_rollout_smem_bytes(D1, D2, c, bf) for c in ROLLOUT_CLUSTERS)
         if smem > SMEM_LIMIT:
             raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
                              f'shared memory in each block of a cluster at the least, more '
-                             f'than the {SMEM_LIMIT} a Hopper block can hold')
+                             f'than the {SMEM_LIMIT} a Hopper block can hold (square widths '
+                             f'up to {stock_width_limit(None, bf)} in '
+                             f'{("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)')
         if not stock_cluster:
-            stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device)
+            stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf)
     else:
         smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8, bf)
         if smem > SMEM_LIMIT:
@@ -993,8 +1025,8 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         status = lib.stock_rollout(
             ptr(act_flat), ptr(norm_avg), ptr(norm_std), ptr(env_f), ptr(env_i), ptr(noise),
             ptr(seed), *[ptr(t) for t in out if t is not out.values], N, H, D1, D2,
-            ctypes.c_float(reward_scale), int(stock_cluster), ctypes.byref(stock_args),
-            ctypes.c_void_p(stream))
+            ctypes.c_float(reward_scale), int(stock_cluster), bf, quant,
+            ctypes.byref(stock_args), ctypes.c_void_p(stream))
     else:
         status = lib.fused_rollout(
             body.kernel_id,
@@ -1008,7 +1040,8 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     rollout.launches += 1
     rollout.launches_by_body[tag] = rollout.launches_by_body.get(tag, 0) + 1
     if stock:
-        critic_values(cri_flat, norm_avg, norm_std, out.states, out.values, net_dims=(D1, D2))
+        critic_values(cri_flat, norm_avg, norm_std, out.states, out.values, net_dims=(D1, D2),
+                      compute_dtype=compute_dtype)
     return out
 
 
@@ -1037,7 +1070,7 @@ def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device,
     stock body the actor kernel's, ``stock_rollout_cluster``), kept per body,
     env count, widths, device and compute type."""
     if body.tables is not None:
-        ask = lambda: lib.stock_rollout_cluster(N, D1, D2, 0)  # noqa: E731
+        ask = lambda: lib.stock_rollout_cluster(N, D1, D2, 0, bf)  # noqa: E731
     else:
         ask = lambda: lib.fused_rollout_cluster(body.kernel_id, N, D1, D2, 0, bf)  # noqa: E731
     return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index, bf), ask)
@@ -1064,20 +1097,20 @@ def _library():
         lib.offpolicy_rollout_cluster.argtypes = [ctypes.c_int] * 7
         lib.offpolicy_rollout_cluster.restype = ctypes.c_int
         lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.c_void_p])
+                                      + [ctypes.c_float] + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p, ctypes.c_void_p])
         lib.stock_rollout.restype = ctypes.c_int
-        lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.stock_rollout_smem_bytes.restype = ctypes.c_int
-        lib.stock_rollout_cluster.argtypes = [ctypes.c_int] * 4
+        lib.stock_rollout_cluster.argtypes = [ctypes.c_int] * 5
         lib.stock_rollout_cluster.restype = ctypes.c_int
-        lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.critic_values.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.critic_values.restype = ctypes.c_int
         lib.critic_values_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.critic_values_smem_bytes.restype = ctypes.c_int
         lib.offpolicy_stock_rollout.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
                                                 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                                                + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                                                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         lib.offpolicy_stock_rollout.restype = ctypes.c_int
     return lib
 
@@ -1203,12 +1236,14 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
                                 seed: Optional[torch.Tensor] = None,
                                 env_trace: Optional[list] = None,
                                 compute_dtype: Optional[torch.dtype] = None,
-                                store_dtype: Optional[torch.dtype] = None
+                                store_dtype: Optional[torch.dtype] = None,
+                                env_actions: Optional[list] = None
                                 ) -> OffPolicyRolloutOutputs:
     """Plain PyTorch version of the off-policy rollout kernel.  ``flat`` is
     the agent's flat actor (ddpg, sac, modsac) or Q buffer; ``env_trace``,
-    ``compute_dtype`` and ``store_dtype`` as in :func:`rollout_reference`
-    (the stored float actions in ``store_dtype`` too)."""
+    ``env_actions``, ``compute_dtype`` and ``store_dtype`` as in
+    :func:`rollout_reference` (the stored float actions in ``store_dtype``
+    too, while the env steps on the float32 ones)."""
     from .fused_offpolicy_update import dqn_q_greedy, sac_actor_dist
     S, A = body.state_dim, body.action_dim
     shapes = offpolicy_head_shapes(S, net_dims, A, head)
@@ -1249,6 +1284,8 @@ def offpolicy_rollout_reference(flat: torch.Tensor, env_f: torch.Tensor, env_i: 
             index = torch.where(u[0] < explore_rate, rand, greedy)
             env_a, stored = index[None].float(), index.to(torch.int32)
             u_env = u[2:]
+        if env_actions is not None:
+            env_actions.append(env_a)
         f2, i2, reward, terminal, trunc = body.step(f, i, env_a, u_env[0:body.n_step])
         f, i = body.reset(f2, i2, u_env[body.n_step:body.n_step + body.n_reset],
                           terminal | trunc)
@@ -1286,11 +1323,11 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
     (``offpolicy_rollout_smem_bytes`` of ``csrc/fused_rollout.cu``:
     ``OffLayout``), with ``bf16`` the weight slices and the tiles xn, h1 and
     h2 in bf16.  The stock body runs the stock actor kernel
-    (:func:`actor_smem_bytes`, float32 only)."""
+    (:func:`actor_smem_bytes`)."""
     D1, D2 = (int(d) for d in net_dims)
     S, A, c, G, bf = body.state_dim, body.action_dim, int(cluster), OFF_LANES, bool(bf16)
     if body.tables is not None:
-        return actor_smem_bytes(S, (D1, D2), A, c, head)
+        return actor_smem_bytes(S, (D1, D2), A, c, head, bf)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, op = r4(S), r4(offpolicy_out_rows(A, head))
@@ -1307,11 +1344,11 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
 def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int],
                    bf16: bool = False) -> bool:
     """Whether the CUDA kernel takes this (body, head) pair at these widths
-    (``bf16``: its bf16-compute variant, which the stock body has not):
-    two hidden layers whose slices a cluster of 1, 2, 4 or 8 blocks holds
-    (``ROADMAP.md`` lists the limits)."""
+    (``bf16``: its bf16-compute variant): two hidden layers whose slices a
+    cluster of 1, 2, 4 or 8 blocks holds (``ROADMAP.md`` lists the limits;
+    on the stock body :func:`stock_width_limit`: 448 for ddpg and 416 for
+    sac and modsac in float32, 704 and 640 in bf16)."""
     return (offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
-            and not (bf16 and body.tables is not None)
             and min(offpolicy_smem_bytes(body, net_dims, head, c, bf16)
                     for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
 
@@ -1326,7 +1363,7 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
                       store_dtype: Optional[torch.dtype] = None) -> OffPolicyRolloutOutputs:
     """The off-policy fused rollout: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  ``compute_dtype`` and ``store_dtype`` as
-    for :func:`rollout` (the stock heads take neither on a card).
+    for :func:`rollout`.
     ``cluster`` sets the cluster size (1, 2, 4 or 8; 0, the default, lets
     the kernel choose from the card's occupancy, the choice kept per body,
     head, env count, widths, compute type and device); a knob for measuring
@@ -1342,8 +1379,6 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         raise ValueError(f'offpolicy_rollout: unsupported device {flat.device}')
     stock = body.tables is not None
     bf, quant = int(compute_dtype is not None), int(store_dtype is not None)
-    if stock and (bf or quant):
-        raise NotImplementedError(STOCK_BF16_TEXT)
     if stock:
         stock_args = _stock_args(body, flat.device)
     if not offpolicy_pair_fits(body, head):
@@ -1362,9 +1397,11 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     smem = min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1, D2, c, bf)
                for c in ROLLOUT_CLUSTERS)
     if smem > SMEM_LIMIT:
+        limit = (f' (square widths up to {stock_width_limit(head, bf)} for {head} in '
+                 f'{("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)' if stock else '')
         raise ValueError(f'offpolicy_rollout: net_dims={tuple(net_dims)} needs {smem} bytes '
                          f'of shared memory in each block of a cluster at the least, more '
-                         f'than the {SMEM_LIMIT} a Hopper block can hold')
+                         f'than the {SMEM_LIMIT} a Hopper block can hold{limit}')
     if not cluster:
         cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device, bf)
     dev = flat.device
@@ -1395,7 +1432,7 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, *std_clip)]
         status = lib.offpolicy_stock_rollout(
             head_id, ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
-            *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster),
+            *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster), bf, quant,
             ctypes.byref(stock_args), ctypes.c_void_p(stream))
     else:
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]

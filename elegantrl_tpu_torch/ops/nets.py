@@ -250,3 +250,67 @@ def init_flat(gen: torch.Generator, nets, device) -> torch.Tensor:
     leaves = [p.detach().reshape(-1) for dims, out_std in nets
               for p in mlp_init(gen, dims, out_std).leaves()]
     return torch.cat(leaves).float().to(device)
+
+
+# --------------------------------------------------------- pixel encoder
+# The strided conv stack of the JAX package's ``convnet_*``
+# (``elegantrl_tpu/ops/nets.py``), the reference's ConvNet: per stage
+# (channels, kernel, stride), VALID padding, ReLU, then one linear layer.
+# The JAX package runs it as XLA ops (no Pallas kernel), so here it is
+# ``torch.nn.functional.conv2d``.  The public layout stays the JAX
+# package's: images NHWC, transposed to NCHW once at the input; the flat
+# features are taken in NHWC order, so the linear layer's input rows are
+# the JAX package's.  Leaves: per stage W (out, in, k, k) (OIHW; the JAX
+# HWIO transposed) and b, then the linear W (out, in) and b.
+
+_CONV_STAGES = {
+    224: [(32, 5, 2), (48, 3, 2), (64, 3, 2), (96, 3, 2), (128, 3, 2), (192, 5, 1)],
+    112: [(32, 5, 2), (48, 3, 2), (64, 3, 2), (96, 3, 2), (128, 5, 1)],
+    64: [(16, 5, 2), (32, 3, 2), (32, 3, 2), (64, 3, 2), (64, 2, 1)],
+}
+
+
+def convnet_out_hw(image_size: int) -> int:
+    """The side of the last stage's feature map (VALID convolutions)."""
+    hw = image_size
+    for _c, k, stride in _CONV_STAGES[image_size]:
+        hw = (hw - k) // stride + 1
+    return hw
+
+
+def convnet_shapes(inp_dim: int, out_dim: int, image_size: int = 112) -> list:
+    """Leaf shapes of :func:`convnet_apply`'s parameters, in order."""
+    assert image_size in _CONV_STAGES, f'image_size must be one of {sorted(_CONV_STAGES)}'
+    shapes, c_in = [], inp_dim
+    for c_out, k, _stride in _CONV_STAGES[image_size]:
+        shapes += [(c_out, c_in, k, k), (c_out,)]
+        c_in = c_out
+    return shapes + [(out_dim, c_in * convnet_out_hw(image_size) ** 2), (out_dim,)]
+
+
+def convnet_init(gen: torch.Generator, inp_dim: int, out_dim: int,
+                 image_size: int = 112) -> List[torch.Tensor]:
+    """Leaves as the JAX ``convnet_init`` draws them (from ``gen``): conv
+    weights uniform in ``+-1/sqrt(k k c_in)``, zero biases, the linear layer
+    as :func:`linear_init`."""
+    shapes = convnet_shapes(inp_dim, out_dim, image_size)
+    leaves = []
+    for w_shape, b_shape in zip(shapes[:-2:2], shapes[1:-2:2]):
+        bound = 1.0 / math.sqrt(max(w_shape[1] * w_shape[2] * w_shape[3], 1))
+        leaves += [torch.empty(w_shape).uniform_(-bound, bound, generator=gen),
+                   torch.zeros(b_shape)]
+    lin = linear_init(gen, shapes[-2][1], out_dim)
+    return leaves + [lin.weight.detach().clone(), lin.bias.detach().clone()]
+
+
+def convnet_apply(leaves: Sequence[torch.Tensor], x: torch.Tensor,
+                  image_size: int = 112) -> torch.Tensor:
+    """``x`` (batch, H, W, C), uint8 or float, scaled to ``x / 128 - 1`` (the
+    reference's); returns (batch, out_dim)."""
+    stages = _CONV_STAGES[image_size]
+    h = (x.float() / 128.0 - 1.0).permute(0, 3, 1, 2)        # NHWC -> NCHW, once
+    for i, (_c, _k, stride) in enumerate(stages):
+        w, b = leaves[2 * i], leaves[2 * i + 1]
+        h = F.relu(F.conv2d(h, w, stride=stride) + b[:, None, None])
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)          # NHWC order
+    return F.linear(h, leaves[-2], leaves[-1])

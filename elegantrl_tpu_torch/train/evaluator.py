@@ -13,7 +13,12 @@ discrete action histogram, is printed after the numbers), appends to
 under ``{cwd}/tensorboard``, where ``torch.utils.tensorboard`` imports.
 The greedy forwards are the agents' own: a plain 3-linear actor or Q net
 runs K11b (``ops/kernels.py:fused_mlp3``) on a card, so an evaluation there
-differs from the CPU's by f32 rounding.
+differs from the CPU's by f32 rounding.  A host env (``EnvDef.host_pool``)
+is evaluated on its own pool (``host_eval``, the runner's
+``args.host_rollout``): the greedy forward on the run's device, the pool
+stepped on the host (``envs/host_env.py:HostLink``), episodes run to their
+first done; with ``host_eval`` off, through the env's batched
+``init``/``step``.
 """
 
 from __future__ import annotations
@@ -30,9 +35,57 @@ from ..utils.checkpoint import save_tree
 
 
 def make_eval_fn(env: EnvDef, greedy_action: Callable, num_episodes: int,
-                 max_step: int, device) -> Callable:
+                 max_step: int, device, host_eval: bool = True) -> Callable:
     """``fn(agent_state, gen) -> (returns, steps)`` as numpy arrays over
-    ``num_episodes`` parallel greedy episodes run to their first done."""
+    ``num_episodes`` parallel greedy episodes run to their first done
+    (``host_eval``: a host env's pool path, as the module says)."""
+    if env.batched and env.host_pool is not None and host_eval:
+        from ..envs.host_env import HostLink
+        pool = env.host_pool
+        link = HostLink(pool, device)
+
+        @torch.no_grad()
+        def eval_fn_host(agent_state, gen):
+            del gen   # the pool's envs own their reset randomness
+            obs = (pool.reset_all(num_episodes, device) if link.native
+                   else pool.reset_all(num_episodes))
+            done = np.zeros(num_episodes, bool)
+            ret = np.zeros(num_episodes, np.float32)
+            steps = np.zeros(num_episodes, np.int32)
+            for _ in range(max_step):
+                obs, reward, terminal, truncate = link.step(
+                    greedy_action(agent_state, link.up(obs)))
+                if link.native:
+                    reward, terminal, truncate = (x.cpu().numpy()
+                                                  for x in (reward, terminal, truncate))
+                alive = ~done
+                ret += reward * alive
+                steps += alive
+                done |= terminal | truncate
+                if done.all():
+                    break
+            return ret, steps
+
+        return eval_fn_host
+
+    if env.batched:   # whole-batch init/step; no state to freeze
+        @torch.no_grad()
+        def eval_fn_batched(agent_state, gen):
+            state, obs = env.init(gen, num_episodes, device)
+            done = torch.zeros(num_episodes, dtype=torch.bool, device=device)
+            ret = torch.zeros(num_episodes, device=device)
+            steps = torch.zeros(num_episodes, dtype=torch.int32, device=device)
+            for _ in range(max_step):
+                state, obs, reward, terminal, truncate = env.step(
+                    state, greedy_action(agent_state, obs), gen)
+                alive = ~done
+                ret += reward * alive
+                steps += alive.to(torch.int32)
+                done = done | terminal | truncate
+            both = torch.stack([ret, steps.float()]).cpu().numpy()
+            return both[0], both[1]
+
+        return eval_fn_batched
 
     @torch.no_grad()
     def eval_fn(agent_state, gen):
@@ -63,7 +116,7 @@ def make_eval_fn(env: EnvDef, greedy_action: Callable, num_episodes: int,
 
 class Evaluator:
     def __init__(self, cwd: str, env: EnvDef, greedy_action: Callable, args, device,
-                 if_tensorboard: bool = False):
+                 if_tensorboard: bool = False, host_eval: bool = True):
         self.cwd = cwd
         self.agent_id = int(getattr(args, 'gpu_id', 0))
         self.total_step = 0
@@ -81,7 +134,8 @@ class Evaluator:
         self.recorder_step = int(getattr(args, 'eval_record_step', 0))
         self.max_r = -np.inf
         max_step = int(getattr(args, 'max_step', env.spec.max_step))
-        self._eval_fn = make_eval_fn(env, greedy_action, self.eval_times, max_step, device)
+        self._eval_fn = make_eval_fn(env, greedy_action, self.eval_times, max_step, device,
+                                     host_eval)
         self._gen = torch.Generator(device=device)
         self._gen.manual_seed(int(getattr(args, 'random_seed', 0) or 0) + 1943)
         # TensorBoard scalars under {cwd}/tensorboard, the JAX evaluator's tags;

@@ -27,8 +27,17 @@ carry handed to ``round_fn`` shares its parameters with the one returned.
 ``train_agent_single_process``, ``train_agent_multiprocessing`` and
 ``train_agent_multiprocessing_multi_gpu`` are aliases of ``train_agent``;
 ``valid_agent`` (``render_agent``) plays a saved agent's greedy episodes.
-Host-rollout and mesh modes of the JAX runner are not ported: ``args.mesh_axes``
-raises.
+
+Host envs (``EnvDef.host_pool``: gymnasium pools, ``envs/host_env.py``;
+external batched sims, ``envs/isaac.py``) train in host-rollout mode,
+decided once in ``build_training`` (``args.host_rollout``, default True): a
+round (``round_fn``) collects its rollout on the pool
+(``host_collect_rollout``: the actor on the run's device, the pool stepped
+on the host) and then runs the update half (for a rollout collected
+elsewhere, ``TrainContext.update_from_rollout``); the evaluator plays its
+episodes on its own pool (``env.fresh()``).  With ``args.host_rollout =
+False`` both go through the env's batched ``init``/``step`` instead.  The
+JAX runner's mesh mode is not ported: ``args.mesh_axes`` raises.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..agents.base import AgentDef, collect_rollout, resolve_storage_dtype
 from ..agents.ppo import resolve_compute_dtype
 from ..config import Config, kwargs_filter, resolve_device, select_kernel
 from ..envs.base import EnvDef, vec_reset
+from ..envs.host_env import HostLink, host_collect_rollout
 from ..utils.checkpoint import load_tree, save_tree, tree_unflatten
 from ..utils.jax_params import buffer_state_from_numpy, buffer_state_to_numpy
 from .evaluator import Evaluator
@@ -67,6 +77,14 @@ class TrainContext(NamedTuple):
     device: torch.device
     fused_rollout: bool
     rb: Any = None          # the ReplayBuffer (off-policy)
+    # (carry, rollout, last_obs, ids=None, update_noise=None) -> (carry,
+    # metrics): the update half of round_fn for a rollout collected outside
+    # it (envs/host_env.py:host_collect_rollout)
+    update_from_rollout: Any = None
+    # decided once in build_training, where round_fn takes the host rollout
+    # with it; the evaluator follows it (the pool is stateful and the
+    # carry's obs came from it)
+    use_host_rollout: bool = False
 
 
 def _resolve_env_def(args: Config) -> EnvDef:
@@ -139,16 +157,17 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
     a cluster of blocks holds the weight slices (``rollout_fits``; off-policy
     ``offpolicy_fits``, for a (body, head) pair it has), in the compute and
-    storage types the JAX runner hands its kernel.  The stock body's kernels
-    have no bf16 variant: under bf16 compute or storage a card raises there
-    (the plain version runs it on the CPU)."""
-    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, STOCK_BF16_TEXT, kernel_bodies_text,
+    storage types the JAX runner hands its kernel (the bf16 variants under
+    bf16 compute, the stock body's K4 among them)."""
+    from ..ops.fused_rollout import (KERNEL_ENV_BODIES, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
-                                     offpolicy_fits, rollout_fits, rollout_width_limit)
+                                     offpolicy_fits, rollout_fits, rollout_width_limit,
+                                     stock_width_limit)
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = env.kernel_body or KERNEL_ENV_BODIES.get(spec.env_name)
-    if body is not None and (body.state_dim != spec.state_dim
+    if body is not None and (env.host_pool is not None   # a host env has no kernel body
+                             or body.state_dim != spec.state_dim
                              or body.action_dim != spec.action_dim):
         body = None
     off_head = _OFFPOLICY_KERNEL_HEADS.get(agent.name)
@@ -157,27 +176,22 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     cdt = torch.bfloat16 if resolve_compute_dtype(args, net_dims) == 'bfloat16' else None
     sdt = resolve_storage_dtype(args)
     types = dict(compute_dtype=cdt, store_dtype=sdt)
-    # the kernels' bf16 variants; the stock body's have none: a card raises
-    # (stock_bf16_on_card), the CPU runs the plain version
-    bf = cdt is not None and body is not None and body.tables is None
-
-    def stock_bf16_on_card(jax_takes: bool) -> None:
-        if (jax_takes and body.tables is not None
-                and (cdt is not None or sdt is not None) and device.type == 'cuda'):
-            raise NotImplementedError(STOCK_BF16_TEXT)
+    bf = cdt is not None   # the kernels' bf16 variants
+    precision = 'bf16' if bf else 'float32'
 
     if agent.if_off_policy:
         jax_takes = (body is not None and len(net_dims) == 2 and off_head is not None
                      and agent.rollout_extras is None
                      and jax_rollout_block_chunk(body, spec.if_discrete, True, num_envs,
                                                  horizon_len) is not None)
-        stock_bf16_on_card(jax_takes)
         fits = jax_takes and offpolicy_fits(body, off_head, net_dims, bf)
+        stock = (f'{stock_width_limit(off_head, bf)} for {off_head} in {precision}'
+                 if off_head in ('ddpg', 'sac', 'modsac') else
+                 '448 for ddpg, 416 for sac and modsac in float32')
         scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
                  f'2-hidden-layer MLP whose weight slices a cluster of blocks holds (square '
                  f'widths up to 576, 544 on PointChasingDiscreteEnv, more in bf16; on the '
-                 f'stock body, float32 only, 448 for ddpg, 416 for sac and modsac; '
-                 f'ops/fused_rollout.py:offpolicy_fits), '
+                 f'stock body {stock}; ops/fused_rollout.py:offpolicy_fits), '
                  f'on an env of '
                  f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
@@ -199,16 +213,16 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                  and jax_rollout_block_chunk(body, spec.if_discrete, False, num_envs,
                                              horizon_len) is not None)
     limit = (f'{rollout_width_limit(body, bf)} on {spec.env_name}'
-             if body is not None and body.tables is None else '448')
+             if body is not None and body.tables is None else
+             f'{stock_width_limit(None, bf)} on the stock body (the actor kernel to '
+             f'{stock_width_limit(None, bf, critic=False)}, the critic pass to 576)')
     scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
              f'weight slices fit a cluster of 8 blocks (square widths up to {limit} in '
-             f'{"bf16" if bf else "float32"}; 448 on the stock body, float32 only; '
-             f'ops/fused_rollout.py:rollout_fits), on an env of '
+             f'{precision}; ops/fused_rollout.py:rollout_fits), on an env of '
              f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
              f'net_dims={net_dims}')
-    stock_bf16_on_card(jax_takes)
     if not select_kernel(args, 'use_fused_rollout', jax_takes,
                          jax_takes and rollout_fits(body, net_dims, bf), device, scope):
         return None
@@ -260,27 +274,19 @@ def build_training(args: Config) -> TrainContext:
             agent_state = agent.state_from_numpy(
                 load_tree(ckpt, agent.state_to_numpy(agent_state)), device)
             print(f'| train_agent: loaded {ckpt}', flush=True)
-    env_state, obs = vec_reset(env, gen, num_envs, device)
+    use_host_rollout = env.host_pool is not None and bool(getattr(args, 'host_rollout', True))
+    env_state, obs = vec_reset(env, gen, num_envs, device)   # a host env: its pool's reset
     buf_state = rb.init() if rb is not None else None
     store_dtype = resolve_storage_dtype(args)
+    if use_host_rollout:
+        # the pool's current obs as the pool gives them (numpy, or a native
+        # pool's tensors) and the rollout's own generator, as the JAX run's
+        link = HostLink(env.host_pool, device)
+        obs_host = obs if link.native else obs.cpu().numpy()
+        gen_host = torch.Generator(device=device)
+        gen_host.manual_seed(seed + 0x705)
 
-    def round_fn(carry: TrainCarry, noise=None, ids=None, update_noise=None):
-        """One round.  ``noise`` (the fused rollout's injected-noise tensor),
-        ``ids`` (minibatch ids: ``(U, B)`` flat ids, time slices for A2C, or
-        ``(U, R)`` time rows off-policy) and ``update_noise`` (TD3's ``(U, B,
-        A)`` smoothing noise; SAC's ``(U, 2, B, A)`` next-action and
-        policy-gradient noise) replace the draws from ``carry.gen``; tests use
-        them to replay the JAX package's round."""
-        if fast_rollout is not None:
-            rollout, env_state, obs = fast_rollout(carry.agent_state, carry.env_state,
-                                                   carry.gen, noise=noise)
-        else:
-            if noise is not None:
-                raise ValueError('injected noise needs the fused-rollout path')
-            rollout, env_state, obs = collect_rollout(
-                env, carry.agent_state, agent.explore_action, agent.env_action,
-                carry.env_state, carry.obs, carry.gen, horizon_len, reward_scale,
-                extras_fn=agent.rollout_extras, store_dtype=store_dtype)
+    def update_half(carry: TrainCarry, rollout, env_state, obs, ids, update_noise):
         buf_state = carry.buf_state
         if agent.if_off_policy:
             agent_state = carry.agent_state
@@ -302,15 +308,57 @@ def build_training(args: Config) -> TrainContext:
                                                     minlength=int(args.action_dim))
         return TrainCarry(agent_state, buf_state, env_state, obs, carry.gen), metrics
 
+    def update_from_rollout(carry: TrainCarry, rollout, last_obs, ids=None, update_noise=None):
+        """The update half of a round for a rollout collected outside it (the
+        host-rollout mode); ``ids`` and ``update_noise`` as for round_fn."""
+        return update_half(carry, rollout, carry.env_state, last_obs, ids, update_noise)
+
+    def round_fn(carry: TrainCarry, noise=None, ids=None, update_noise=None):
+        """One round.  ``noise`` (the fused rollout's injected-noise tensor;
+        in host-rollout mode the host rollout's ``(H, N, A)`` normals),
+        ``ids`` (minibatch ids: ``(U, B)`` flat ids, time slices for A2C, or
+        ``(U, R)`` time rows off-policy) and ``update_noise`` (TD3's ``(U, B,
+        A)`` smoothing noise; SAC's ``(U, 2, B, A)`` next-action and
+        policy-gradient noise) replace the draws; tests use them to replay
+        the JAX package's round.  In host-rollout mode the rollout runs on
+        the pool (``host_collect_rollout``) and the round's update half is
+        ``update_from_rollout``'s."""
+        nonlocal obs_host
+        if use_host_rollout:
+            rollout, obs_host = host_collect_rollout(
+                env.host_pool, agent, carry.agent_state, obs_host, gen_host, horizon_len,
+                reward_scale, device, noise=noise, link=link)
+            return update_half(carry, rollout, carry.env_state, link.up(obs_host), ids,
+                               update_noise)
+        if fast_rollout is not None:
+            rollout, env_state, obs = fast_rollout(carry.agent_state, carry.env_state,
+                                                   carry.gen, noise=noise)
+        else:
+            if noise is not None:
+                raise ValueError('injected noise needs the fused-rollout path')
+            rollout, env_state, obs = collect_rollout(
+                env, carry.agent_state, agent.explore_action, agent.env_action,
+                carry.env_state, carry.obs, carry.gen, horizon_len, reward_scale,
+                extras_fn=agent.rollout_extras, store_dtype=store_dtype)
+        return update_half(carry, rollout, env_state, obs, ids, update_noise)
+
     carry = TrainCarry(agent_state, buf_state, env_state, obs, gen)
     if args.continue_train:
         full = os.path.join(args.cwd, 'train_carry.npz')
         if os.path.isfile(full):
             carry = _load_carry(full, carry, agent, device)
             print(f'| train_agent: resumed full carry from {full}', flush=True)
+            if use_host_rollout:
+                # the pool's envs are not in the checkpoint and were reset
+                # above: keep the restored agent, buffer and generator, but
+                # point obs at the pool's episode starts, so the first stored
+                # transition pairs a real (s, a, r, s')
+                carry = carry._replace(obs=obs, env_state=env_state)
     return TrainContext(env=env, agent=agent, round_fn=round_fn, carry=carry,
                         steps_per_round=horizon_len * num_envs, device=device,
-                        fused_rollout=fast_rollout is not None, rb=rb)
+                        fused_rollout=fast_rollout is not None, rb=rb,
+                        update_from_rollout=update_from_rollout,
+                        use_host_rollout=use_host_rollout)
 
 
 def _carry_tree(carry: TrainCarry, agent: AgentDef) -> dict:
@@ -327,8 +375,10 @@ def _carry_tree(carry: TrainCarry, agent: AgentDef) -> dict:
 def _load_carry(path: str, carry: TrainCarry, agent: AgentDef, device) -> TrainCarry:
     tree = load_tree(path, _carry_tree(carry, agent))
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    env_state = tree_unflatten(carry.env_state, iter(
-        [t(x) for x in tree['env_state']]))
+    if isinstance(carry.env_state, torch.Tensor):   # a host env's dummy state
+        env_state = t(tree['env_state'])
+    else:
+        env_state = tree_unflatten(carry.env_state, iter([t(x) for x in tree['env_state']]))
     carry.gen.set_state(torch.as_tensor(tree['gen']))
     buf_state = None
     if 'buf_state' in tree:   # back to the ring's storage type
@@ -361,13 +411,15 @@ def train_agent(args: Config, if_single_process: bool = True) -> dict:
     args.init_before_training()
     ctx = build_training(args)
     carry, round_fn = ctx.carry, ctx.round_fn
-    eval_env = ctx.env
+    # a host env owns a stateful pool: the evaluator gets its own instance,
+    # so evaluation episodes cannot reset or resize the training pool
+    eval_env = ctx.env.fresh() if ctx.env.fresh is not None else ctx.env
     if args.eval_env_class is not None:
         eval_args = Config(args.agent_class, args.eval_env_class,
                            args.eval_env_args or dict(args.env_args))
         eval_env = _resolve_env_def(eval_args)
     evaluator = Evaluator(cwd=args.cwd, env=eval_env, greedy_action=ctx.agent.greedy_action,
-                          args=args, device=ctx.device)
+                          args=args, device=ctx.device, host_eval=ctx.use_host_rollout)
     rounds_per_eval = max(1, int(args.eval_per_step) // ctx.steps_per_round)
     names = ('obj_critic', 'obj_actor', 'exp_r')
     carry_path = os.path.join(args.cwd, 'train_carry.npz')

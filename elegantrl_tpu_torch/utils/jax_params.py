@@ -468,3 +468,63 @@ def embed_dqn_state_to_numpy(state, shapes, ensemble: bool, num_ensembles: int):
     """The JAX package's nesting of a port ``EmbedDQNState``, as numpy."""
     unflat = lambda flat: _embed_q_tree(flat, shapes, ensemble, num_ensembles)  # noqa: E731
     return NumpyDQNState(unflat(state.q), unflat(state.q_target), _adam_tree(state.opt, unflat))
+
+
+# ------------------------------------------------------------ pixel PPO
+# The JAX ``PixelPPOState(act, cri, act_opt, cri_opt)``: ``act = {'conv':
+# [(w HWIO, b), ..., (w (in, out), b)], 'mlp': [(w, b), ...], 'std_log': (1,
+# A)}``, ``cri = {'conv', 'mlp'}``; the optimizer states' Adam moments shaped
+# like the params.  The port's flat buffers hold the conv leaves (OIHW, the
+# linear layer (out, in)), the MLP's, then ``std_log``
+# (``agents/pixel.py:pixel_ppo_shapes``).
+
+class NumpyPixelPPOState(NamedTuple):
+    act: dict
+    cri: dict
+    act_opt: tuple
+    cri_opt: tuple
+
+
+def _flat_pixel(net) -> np.ndarray:
+    conv = net['conv']
+    parts = [p for w, b in conv[:-1] for p in (np.transpose(np.asarray(w), (3, 2, 0, 1)),
+                                                np.asarray(b))]
+    parts += [np.asarray(conv[-1][0]).T, np.asarray(conv[-1][1])]
+    flat = np.concatenate([np.concatenate([p.reshape(-1) for p in parts]),
+                           _flat_pairs(net['mlp'])])
+    if 'std_log' in net:
+        flat = np.concatenate([flat, np.asarray(net['std_log']).reshape(-1)])
+    return flat.astype(np.float32)
+
+
+def _pixel_tree(flat: torch.Tensor, shapes, n_conv: int) -> dict:
+    from ..ops.nets import split_flat
+    leaves = [x.detach().cpu().numpy().copy() for x in split_flat(flat, shapes)]
+    conv = [(np.ascontiguousarray(np.transpose(leaves[i], (2, 3, 1, 0))), leaves[i + 1])
+            for i in range(0, n_conv - 2, 2)]
+    conv.append((leaves[n_conv - 2].T.copy(), leaves[n_conv - 1]))
+    n_mlp = len(leaves) - n_conv - (len(leaves) - n_conv) % 2
+    mlp = [(leaves[i].T.copy(), leaves[i + 1]) for i in range(n_conv, n_conv + n_mlp, 2)]
+    tree = {'conv': conv, 'mlp': mlp}
+    if len(leaves) > n_conv + n_mlp:
+        tree['std_log'] = leaves[-1]
+    return tree
+
+
+def pixel_ppo_state_from_numpy(tree, device):
+    """The port's ``PixelPPOState`` from a numpy JAX one, Adam moments
+    included."""
+    from ..agents.pixel import PixelPPOState
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return PixelPPOState(t(_flat_pixel(_field(tree, 'act', 0))),
+                         t(_flat_pixel(_field(tree, 'cri', 1))),
+                         _adam_from(_field(tree, 'act_opt', 2), _flat_pixel, t),
+                         _adam_from(_field(tree, 'cri_opt', 3), _flat_pixel, t))
+
+
+def pixel_ppo_state_to_numpy(state, act_shapes, cri_shapes, n_conv: int) -> NumpyPixelPPOState:
+    """The JAX package's nesting of a port ``PixelPPOState``, as numpy."""
+    ua = lambda flat: _pixel_tree(flat, act_shapes, n_conv)  # noqa: E731
+    uc = lambda flat: _pixel_tree(flat, cri_shapes, n_conv)  # noqa: E731
+    return NumpyPixelPPOState(ua(state.act), uc(state.cri), _adam_tree(state.act_opt, ua),
+                              _adam_tree(state.cri_opt, uc))

@@ -369,7 +369,7 @@ def main():
             sizes[str(c)] = entry
         print(json.dumps(dict(kernel='stock_rollout', envs=n, horizon=128,
                               ms_covers='the actor kernel and the critic pass',
-                              picked=fr._library().stock_rollout_cluster(n, 128, 128, 0),
+                              picked=fr._library().stock_rollout_cluster(n, 128, 128, 0, 0),
                               cluster_sizes=sizes)), flush=True)
     for body in fr.KERNEL_ENV_BODIES.values():
         S, A = body.state_dim, body.action_dim

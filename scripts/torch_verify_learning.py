@@ -76,6 +76,30 @@ Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
   with AgentPPOHterm, ``h_term_k_step`` 16 (PyTorch rollout and update)
   (``scripts/verify_learning.py:129-131,137-139,247-256,268-277,302-311``).
 
+bf16, host envs and pixels:
+
+- ``ppo_stock_bf16``: the ``ppo_stock`` recipe with ``compute_dtype=
+  'bfloat16'`` (target 100.0, with its ``market`` line): K4's bf16
+  variants (the stock actor kernel and the critic pass) and the autograd
+  update (the JAX package runs its scan under bf16 compute);
+- ``ppo_isaac_mock``: AgentPPO through ``make_isaac_env`` on the mock
+  VecTask (``envs/isaac.py:mock_vectask``, its tensors on the run's
+  device), 64 envs, net (128, 128), horizon 40, batch 512, repeat 32, lr
+  1e-3, reward scale 4, gamma 0.95, 3e5 steps, eval every 5e4; target -6.0
+  (``examples/plan_Isaac_Gym.py:85-97``, ``RESULTS.md:46``);
+- ``pixelppo_chasing``: AgentPixelPPO on PixelChasing-v0, 128 envs, net
+  (128,), encoder 128, gamma 0.97, horizon 64, repeat 256, lr 3e-4, batch
+  512, 6e6 steps, eval every 2e5, stops at 1.02; target 0.9
+  (``scripts/verify_learning.py:186-197``, ``RESULTS.md:25``);
+- the ``*_host`` rows (``scripts/verify_learning.py:445-610``): ModSAC on
+  gymnasium's Box2D LunarLanderContinuous (``modsac_lander_host``, 150),
+  H-term PPO and SAC on MuJoCo Hopper (``ppoh_hopper_mujoco_host``,
+  ``sac_hopper_mujoco_host``, 1000), SAC on BipedalWalker (300),
+  HalfCheetah and Ant (2000), Walker2d and Humanoid (1500), through
+  ``gym_env_def`` and the host-rollout mode.  They need gymnasium (and
+  Box2D or mujoco): without it the gym factory's ``ImportError`` stops the
+  row.
+
 Evaluation is over 16 greedy episodes, as the JAX script's.  Prints one JSON
 line per (recipe, seed) with the result, the device and the kernel launches.
 The stock recipes' lines also hold ``market``: what every evaluation would
@@ -112,21 +136,102 @@ DQN_CART = dict(net_dims=(128, 128), horizon_len=64, buffer_size=int(2e5), batch
                 learning_rate=1e-3, eval_per_step=int(2e4), break_step=int(2e5))
 
 
+class Lazy:
+    """An env made when its row runs (a host pool, an external sim), not
+    when the table is read: a gym row without gymnasium stops at its own
+    run with the gym factory's ``ImportError``."""
+
+    def __init__(self, make):
+        self.make = make
+
+
+def isaac_mock():
+    from elegantrl_tpu_torch.envs import make_isaac_env
+    from elegantrl_tpu_torch.envs.isaac import mock_vectask
+    device = RUN_DEVICE[0]
+    return make_isaac_env(lambda: mock_vectask(64, device), env_name='MockVecTask-v0')
+
+
+RUN_DEVICE = ['cuda']   # the --device of the run, where the mock sim keeps its tensors
+ISAAC_ARGS = {'env_name': 'MockVecTask-v0', 'num_envs': 64, 'max_step': 40, 'state_dim': 2,
+              'action_dim': 2, 'if_discrete': False}
+
+# the *_host rows of scripts/verify_learning.py:445-610: (agent, gym id,
+# pool threads, env_args overrides, target, hypers)
+_SAC_HOST = dict(net_dims=(256, 256), gamma=0.99, horizon_len=32, repeat_times=2048,
+                 learning_rate=3e-4, batch_size=512, buffer_size=int(3.2e4),
+                 reward_scale=2 ** -2, eval_per_step=int(5e4), eval_times=4,
+                 replay_row_sample=False)
+HOST_ROWS = {
+    'modsac_lander_host': ('AgentModSAC', 'LunarLanderContinuous-v3', 0, 16, 150.0, dict(
+        net_dims=(256, 256), gamma=0.99, horizon_len=64, buffer_size=int(5e4),
+        batch_size=1024, repeat_times=1.0, reward_scale=2 ** -1, learning_rate=1e-4,
+        eval_per_step=int(2e4), eval_times=8, break_step=int(1.2e6), break_score=200.0)),
+    'ppoh_hopper_mujoco_host': ('AgentPPOHterm', 'Hopper-v5', 16, 64, 1000.0, dict(
+        net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=320,
+        learning_rate=3e-4, batch_size=2048, eval_per_step=int(1e5), eval_times=4,
+        break_step=int(6e6), break_score=2500.0)),
+    'sac_hopper_mujoco_host': ('AgentSAC', 'Hopper-v5', 16, 64, 1000.0,
+                               dict(_SAC_HOST, break_step=int(1.2e6), break_score=1500.0)),
+    'sac_bipedal_host': ('AgentSAC', 'BipedalWalker-v3', 16, 64, 300.0,
+                         dict(_SAC_HOST, break_step=int(2e6), break_score=301.0)),
+    'sac_halfcheetah_mujoco_host': ('AgentSAC', 'HalfCheetah-v5', 16, 64, 2000.0,
+                                    dict(_SAC_HOST, break_step=int(1.2e6), break_score=4000.0)),
+    'sac_ant_mujoco_host': ('AgentSAC', 'Ant-v5', 16, 64, 2000.0,
+                            dict(_SAC_HOST, break_step=int(8e5), break_score=2500.0)),
+    'sac_walker_mujoco_host': ('AgentSAC', 'Walker2d-v5', 16, 64, 1500.0,
+                               dict(_SAC_HOST, break_step=int(1.2e6), break_score=2500.0)),
+    'sac_humanoid_mujoco_host': ('AgentSAC', 'Humanoid-v5', 16, 64, 1500.0,
+                                 dict(_SAC_HOST, break_step=int(8e5), break_score=3000.0)),
+}
+
+
+def host_row(name):
+    """A ``*_host`` recipe: the gym env made when the row runs."""
+    from elegantrl_tpu_torch import agents
+    agent, env_id, threads, num_envs, target, hypers = HOST_ROWS[name]
+
+    def make():
+        from elegantrl_tpu_torch.envs import gym_env_def
+        return gym_env_def(env_id, num_threads=threads)
+
+    return (getattr(agents, agent), Lazy(make), {'num_envs': num_envs}, target, hypers)
+
+
 def recipes():
     from elegantrl_tpu_torch.agents import (AgentA2C, AgentD3QN, AgentDDPG, AgentDDPGHterm,
                                             AgentDiscretePPO, AgentDoubleDQN, AgentDQN,
                                             AgentDuelingDQN, AgentEmbedDQN, AgentModSAC,
                                             AgentPPO, AgentPPOHterm, AgentSAC, AgentSACHterm,
                                             AgentTD3)
+    from elegantrl_tpu_torch.agents import AgentPixelPPO
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, LunarLanderContinuousEnv,
-                                          LunarLanderEnv, PendulumEnv, StockTradingVecEnv)
+                                          LunarLanderEnv, PendulumEnv, PixelChasingEnv,
+                                          StockTradingVecEnv)
     stock = {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 1112,
              'state_dim': 151, 'action_dim': 15, 'if_discrete': False}
     lunar = {'env_name': 'LunarLander-v2', 'num_envs': 64, 'max_step': 1000, 'state_dim': 8,
              'action_dim': 4, 'if_discrete': True}
     lunar_dqn = dict(net_dims=(256, 256), horizon_len=64, batch_size=256, learning_rate=5e-4,
                      explore_rate=0.2, eval_per_step=int(2e5), break_step=int(8e6))
-    return {
+    ppo_stock = dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=8,
+                     learning_rate=2e-4, batch_size=512, eval_per_step=int(4e5),
+                     break_step=int(2e6))
+    host = {**{name: host_row(name) for name in HOST_ROWS}, 'ppo_isaac_mock': (
+        AgentPPO, Lazy(isaac_mock), ISAAC_ARGS, -6.0,
+        dict(net_dims=(128, 128), horizon_len=40, batch_size=512, repeat_times=32,
+             learning_rate=1e-3, reward_scale=4.0, gamma=0.95, break_step=int(3e5),
+             eval_per_step=int(5e4)))}
+    return {**host,
+        'ppo_stock_bf16': (AgentPPO, StockTradingVecEnv, stock, 100.0,
+                           dict(ppo_stock, compute_dtype='bfloat16')),
+        'pixelppo_chasing': (
+            AgentPixelPPO, PixelChasingEnv,
+            {'env_name': 'PixelChasing-v0', 'num_envs': 128, 'max_step': 200,
+             'state_dim': (64, 64, 2), 'action_dim': 2, 'if_discrete': False}, 0.9,
+            dict(net_dims=(128,), encoder_dim=128, gamma=0.97, horizon_len=64,
+                 repeat_times=256, learning_rate=3e-4, batch_size=512,
+                 eval_per_step=int(2e5), break_step=int(6e6), break_score=1.02)),
         'ppo_lunarlander_cont': (
             AgentPPO, LunarLanderContinuousEnv,
             dict(lunar, env_name='LunarLanderContinuous-v2', action_dim=2, if_discrete=False),
@@ -176,11 +281,7 @@ def recipes():
             dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=128,
                  learning_rate=3e-4, batch_size=2048, eval_per_step=int(1e6),
                  break_step=int(1.5e7))),
-        'ppo_stock': (
-            AgentPPO, StockTradingVecEnv, stock, 100.0,
-            dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=8,
-                 learning_rate=2e-4, batch_size=512, eval_per_step=int(4e5),
-                 break_step=int(2e6))),
+        'ppo_stock': (AgentPPO, StockTradingVecEnv, stock, 100.0, ppo_stock),
         'ppo_stock_4k': (
             AgentPPO, StockTradingVecEnv, dict(stock, num_envs=4096), 100.0,
             dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=64,
@@ -244,7 +345,7 @@ def main():
     opts = parser.parse_args()
 
     import torch
-    from elegantrl_tpu_torch import Config, train_agent
+    from elegantrl_tpu_torch import Config, get_env_args, train_agent
     from elegantrl_tpu_torch.ops.fused_offpolicy_update import ddpg_chunk, dqn_chunk, sac_chunk
     from elegantrl_tpu_torch.ops.fused_rollout import critic_values, offpolicy_rollout, rollout
     from elegantrl_tpu_torch.ops.fused_update import ppo_update
@@ -261,11 +362,17 @@ def main():
                                 text=True, check=True).stdout.strip().splitlines()[0]
     else:
         device = f'cpu ({torch.get_num_threads()} threads)'
+    RUN_DEVICE[0] = opts.device
     table = recipes()
     for name in (opts.only or list(table)):
         agent_class, env_class, env_args, target, hypers = table[name]
         for seed in opts.seeds:
-            args = Config(agent_class, env_class, dict(env_args))
+            if isinstance(env_class, Lazy):   # a fresh pool or sim for each run
+                env = env_class.make()
+                env_args = dict(get_env_args(env, env_args['num_envs']), **env_args)
+                args = Config(agent_class, env, env_args)
+            else:
+                args = Config(agent_class, env_class, dict(env_args))
             for k, v in hypers.items():
                 setattr(args, k, v)
             args.device, args.random_seed, args.eval_times = opts.device, seed, 16

@@ -574,7 +574,8 @@ def test_wide_auto_takes_bf16_and_the_autograd_update(capsys):
 def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     """On a simulated card bf16 compute takes K1's bf16 variant at (512,
     512), where the float32 one could not; past the bf16 limit the card
-    raises naming it; the stock body (K4) raises naming ROADMAP.md."""
+    raises naming it; the stock body takes K4's bf16 variant and raises past
+    its bf16 limit (576, the critic pass's tile) naming it."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     from elegantrl_tpu_torch.train import runner
     made = {}
@@ -602,5 +603,11 @@ def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     sargs.state_dim, sargs.action_dim, sargs.if_discrete = (senv.spec.state_dim,
                                                             senv.spec.action_dim, False)
     sagent = runner._make_agent(sargs, None)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    made.clear()
+    assert runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128,
+                                       1.0) == 'fused'
+    assert made['compute_dtype'] == BF and made['store_dtype'] is None
+    sargs.net_dims = (580, 580)
+    sagent = runner._make_agent(sargs, None)
+    with pytest.raises(ValueError, match='576 on the stock body'):
         runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128, 1.0)

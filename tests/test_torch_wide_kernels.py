@@ -336,8 +336,8 @@ def test_stock_actor_cluster_pick_is_asked_once_per_shape(monkeypatch):
     asked = []
 
     class Lib:
-        def stock_rollout_cluster(self, n, d1, d2, cluster):
-            asked.append((n, d1, d2, cluster))
+        def stock_rollout_cluster(self, n, d1, d2, cluster, bf):
+            asked.append((n, d1, d2, cluster, bf))
             return 0 if n == 7 else 8
 
     monkeypatch.setattr(fr, '_CLUSTER_PICKS', {})
@@ -347,7 +347,9 @@ def test_stock_actor_cluster_pick_is_asked_once_per_shape(monkeypatch):
     assert fr._rollout_cluster(lib, body, 256, 256, 256, dev0) == 8
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
     assert fr._rollout_cluster(lib, body, 7, 128, 128, dev0) == 0
-    assert asked == [(4096, 128, 128, 0), (256, 256, 256, 0), (7, 128, 128, 0), (7, 128, 128, 0)]
+    assert fr._rollout_cluster(lib, body, 4096, 128, 128, dev0, 1) == 8
+    assert asked == [(4096, 128, 128, 0, 0), (256, 256, 256, 0, 0), (7, 128, 128, 0, 0),
+                     (7, 128, 128, 0, 0), (4096, 128, 128, 0, 1)]
 
 
 def test_offpolicy_cluster_pick_is_asked_once_per_shape(monkeypatch):
