@@ -151,7 +151,26 @@ PyTorch version:
     448, ...) and to its plain version at the script's inputs and at seeded
     random integer-valued tables and days (``probes_vs_plain``), then the
     probes' entry point ``scripts/torch_probe_ops.py`` with the counts reset;
-16. the kernels line and the device line.
+15b. ``parallel/`` (``parallel_phases``): the sharded rollouts
+    (``sharded_rollout_vs_plain``: K1 on the main path's 4096 Pendulum envs,
+    K6 on path A's 1024 HopperSlip envs, K4 with its critic pass on
+    ``ppo_stock``'s 256, at dp = 2 and 4 on the one card: each shard's launch
+    against its plain version with its folded seed, the union with injected
+    noise bitwise equal to the single launch at one forced cluster size, ms
+    per rollout at dp = 1, 2 and 4); the main path at ``{'dp': 2}`` against
+    dp = 1, 10 rounds each, the launches asserted (``main_path_dp2``), and
+    path A likewise (``main_path_td3_dp2``: two K6, one K7 chunk and one K11a
+    a round); the
+    ``population_ppo`` and ``population_stock`` shapes, 8 members, ms per
+    member round, the launches per member round, ``train_agent_population``
+    with evaluation and selection, copies that share no storage
+    (``main_path_population``); a one-rank NCCL group through
+    ``init_distributed`` and a round whose gathers run on it
+    (``distributed_world1``); ``train_agent`` with ``mesh_axes={'dp': -1}``,
+    ``elastic_restore`` of its carry onto ``{'dp': 2}``, a round and
+    ``valid_agent`` (``train_agent_mesh``);
+16. the kernels line (the sharded wrappers' numbers ride with the entry of
+    the kernel they launch, ``sharded``) and the device line.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -3216,6 +3235,615 @@ def probe_phases(torch, dev, bound):
 PROBES_SEED = 17
 
 
+# ------------------------------------------------------------------ parallel
+
+# population_ppo's and population_stock's recipes (scripts/verify_learning.py:398-445)
+POP_PPO = dict(members=8, envs=128, net=(64, 64), horizon=200, batch=512, repeat=64.0,
+               lr=4e-4, gamma=0.97)
+POP_STOCK = dict(members=8, envs=256, net=(128, 128), horizon=128, batch=512, repeat=8.0,
+                 lr=2e-4, gamma=0.99)
+
+
+def parallel_phases(torch, dev, name, smi, bound):
+    """The ``parallel/`` phases: the sharded rollouts against their plain
+    versions and the single launch (``sharded_rollout_vs_plain``), the main
+    path and path A at ``{'dp': 2}`` on one card against dp = 1
+    (``main_path_dp2``, ``main_path_td3_dp2``),
+    the two population shapes (``main_path_population``), a one-rank NCCL
+    group (``distributed_world1``) and ``train_agent`` with ``mesh_axes``,
+    ``elastic_restore`` and ``valid_agent`` (``train_agent_mesh``).  Returns
+    the sharded wrappers' numbers keyed by the kernels-line entry of the
+    kernel they launch."""
+    import numpy as np
+    import torch.distributed as dist
+    from elegantrl_tpu_torch import Config, build_training, train_agent, valid_agent
+    from elegantrl_tpu_torch.agents import AgentPPO, AgentTD3
+    from elegantrl_tpu_torch.agents.ppo import make_ppo
+    from elegantrl_tpu_torch.envs import HopperEnv, PendulumEnv, StockTradingVecEnv
+    from elegantrl_tpu_torch.envs.base import vec_reset
+    from elegantrl_tpu_torch.ops import fused_rollout as fr, kernels as kn
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.parallel import make_mesh
+    from elegantrl_tpu_torch.parallel import population as pop
+    from elegantrl_tpu_torch.parallel.distributed import elastic_restore, init_distributed
+    from elegantrl_tpu_torch.parallel.mesh import (gather_env_axis, replicate,
+                                                   split_env_axis)
+    from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
+
+    def gens(seed_, k):
+        """``k`` generators on the card in the same state."""
+        out = [torch.Generator(device=dev) for _ in range(k)]
+        for g_ in out:
+            g_.manual_seed(seed_)
+        return out
+
+    def least_cluster(fits):
+        return next(c for c in fr.ROLLOUT_CLUSTERS if fits(c))
+
+    def ptrs(tree):
+        return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor) and t.numel()}
+
+    # ---- sharded_rollout_vs_plain.  For each dp: (1) the shards with their
+    # folded seeds (fold_seed of one seed from the generator), each shard's
+    # launch against its plain version on the same shard and seed, with the
+    # tolerances of the single launch's check (K1: whole trajectories within
+    # 2e-2, flags equal; K6: at most 1% of lanes, at least one, parted beyond
+    # 2e-2; K4: flags, days and market rows equal, at most a quarter of the
+    # lanes parted by a lot flip, the others' final rows within 1e-5 of their
+    # value, the critic pass within CRITIC_TOL of the plain MLP on the stored
+    # states), and two runs bitwise equal; (2) the union with injected noise
+    # against the single launch on all envs, both at one cluster size (the
+    # least that fits): bitwise equal, every output; (3) ms per rollout at dp
+    # = 1 (the single launch), 2 and 4 on the one card.
+    sharded = {}
+
+    def report(key, wrapper, replaces, ms, worst, b, extra):
+        sharded[key] = dict(wrapper=wrapper, replaces=replaces, ms_by_dp=ms,
+                            max_abs_err_per_shard=worst, union_bitwise_single_launch=True,
+                            two_runs_bitwise=True, bound_ms=b[0], bound_by=b[1], **extra)
+        emit(phase='sharded_rollout_vs_plain', kernel=key, wrapper=wrapper, ms_by_dp=ms,
+             max_abs_err_per_shard=worst, union_bitwise_single_launch=True,
+             two_runs_bitwise=True, bound_ms=b[0], bound_by=b[1], **extra, device=name,
+             nvidia_smi=smi)
+
+    # K1: PPO on Pendulum, the main path's shape
+    N, H = NUM_ENVS, HORIZON
+    g = torch.Generator(device=dev).manual_seed(61)
+    st = make_ppo(NET_DIMS, 3, 1, Config()).init(0, dev)
+    st = st._replace(norm_avg=torch.tensor([0.1, -0.2, 0.3], device=dev),
+                     norm_std=torch.tensor([0.9, 1.1, 2.0], device=dev))
+    with torch.no_grad():
+        st.act.std_log.fill_(-0.5)
+    env_def = PendulumEnv(num_envs=1)._def
+    state, _ = vec_reset(env_def, g, N, dev)
+    state = state._replace(t=(torch.arange(N, device=dev, dtype=torch.int32) * 7 % 200))
+    nz = torch.cat([torch.randn((H, 1, N), generator=g, device=dev),
+                    torch.rand((H, 2, N), generator=g, device=dev)], 1).contiguous()
+    body = fr.PENDULUM_BODY
+    net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+    kw = dict(net_dims=NET_DIMS, horizon_len=H, reward_scale=1.0)
+    c1 = least_cluster(lambda c: fr.rollout_smem_bytes(body, NET_DIMS, c) <= fr.SMEM_LIMIT)
+    D1, D2 = NET_DIMS
+    n_params = st.act_flat.numel() + st.cri_flat.numel()
+    k1_bound = bound(2 * (2 * (3 * D1 + D1 * D2) + D2 * 2) * N * H,
+                     4 * (n_params + 3 * N + 2 + 6 + N * H * (3 + 1 + 5) + 3 * N))
+    f_all, i_all = body.pack(state)
+    f_all, i_all = f_all.contiguous(), i_all.contiguous()
+    fixed = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    k1_launch = cuda_ms(torch, lambda: fr.rollout(*net, f_all, i_all, seed=fixed, **kw),
+                        reps=20, warmup=2)
+    k1_ms, k1_worst = {}, 0.0
+    for dp in (1, 2, 4):
+        mesh = make_mesh({'dp': dp}, devices=[dev] * dp)
+        fn = fr.make_sharded_fused_rollout(body, NET_DIMS, H, N, 1.0, mesh)
+        shards = split_env_axis(mesh, state)
+        ga, gb, gc = gens(9, 3)
+        if dp == 1:     # the wrapper's own cost: one shard
+            k1_ms[dp] = cuda_ms(torch, lambda: fn(st, shards, ga), reps=20, warmup=2)
+            continue
+        ro, env2, last = fn(st, shards, ga)
+        ro2, _, _ = fn(st, shards, gb)
+        seed0 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gc, device=dev,
+                              dtype=torch.int32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(getattr(ro, f), getattr(ro2, f))
+                   for f in ('states', 'actions', 'logprobs', 'rewards', 'undones', 'unmasks'))
+        n = N // dp
+        for r in range(dp):
+            f, i = body.pack(shards[r])
+            want = fr.rollout_reference(*net, f, i, seed=fr.fold_seed(seed0, r), **kw)
+            cols = slice(r * n, (r + 1) * n)
+            got = dict(states=ro.states[..., cols], actions=ro.actions[..., cols],
+                       logprobs=ro.logprobs[:, cols], rewards=ro.rewards[:, cols],
+                       values=ro.extras['values'][:, cols])
+            assert torch.equal(1.0 - ro.unmasks[:, cols], want.truncates), ('K1 flags', dp, r)
+            d = max(float((v - getattr(want, k)).abs().max()) for k, v in got.items())
+            assert math.isfinite(d) and d <= 2e-2, ('K1 shard', dp, r, d)
+            k1_worst = max(k1_worst, d)
+        union, _, _ = fn(st, shards, None, noise=nz, cluster=c1)
+        single = fr.rollout(*net, f_all, i_all, noise=nz, cluster=c1, **kw)
+        torch.cuda.synchronize()
+        assert (torch.equal(union.states, single.states)
+                and torch.equal(union.actions, single.actions)
+                and torch.equal(union.logprobs, single.logprobs)
+                and torch.equal(union.rewards, single.rewards)
+                and torch.equal(union.extras['values'], single.values)
+                and torch.equal(1.0 - union.undones, single.terminals)
+                and torch.equal(1.0 - union.unmasks, single.truncates)), ('K1 union', dp)
+        k1_ms[dp] = cuda_ms(torch, lambda: fn(st, shards, ga), reps=20, warmup=2)
+    report('fused_rollout', 'make_sharded_fused_rollout',
+           'elegantrl_tpu/ops/pallas_rollout.py:908', k1_ms, k1_worst, k1_bound,
+           dict(envs=N, horizon=H, cluster_forced=c1, single_launch_ms=k1_launch,
+                tolerance={'trajectory': 2e-2, 'union': 'bitwise'}))
+
+    # K6: TD3 on HopperSlip, path A's shape (1024 envs, H 32), dp = 2 and 4
+    N6, H6 = PATH_A['envs'], PATH_A['horizon']
+    body6 = fr.HOPPER_BODY
+    targs = Config(AgentTD3)
+    targs.net_dims = OFF_NET
+    td3 = AgentTD3.make(OFF_NET, 6, 2, targs).init(7, dev)
+    hop = HopperEnv(num_envs=1)._def
+    state6, _ = vec_reset(hop, g, N6, dev)
+    nz6 = torch.cat([torch.randn((H6, 2, N6), generator=g, device=dev),
+                     torch.rand((H6, fr.offpolicy_noise_rows(body6, 'ddpg') - 2, N6),
+                                generator=g, device=dev)], 1).contiguous()
+    okw = dict(body=body6, head='ddpg', net_dims=OFF_NET, horizon_len=H6, reward_scale=1.0,
+               noise_std=0.1, explore_rate=0.25)
+    c6 = least_cluster(lambda c: fr.offpolicy_smem_bytes(body6, OFF_NET, 'ddpg', c)
+                       <= fr.SMEM_LIMIT)
+    f6, i6 = body6.pack(state6)
+    f6, i6 = f6.contiguous(), i6.contiguous()
+    D1o, D2o = OFF_NET
+    k6_bound = bound(2 * (6 * D1o + D1o * D2o + D2o * 2) * N6 * H6,
+                     4 * (td3.act.numel() + 2 * (body6.n_f32 + body6.n_i32) * N6
+                          + N6 * H6 * (6 + 2 + 3)))
+    k6_launch = cuda_ms(torch, lambda: fr.offpolicy_rollout(td3.act, f6, i6, seed=fixed, **okw),
+                        reps=20, warmup=2)
+    k6_ms, k6_worst, k6_parted = {}, 0.0, 0
+    for dp in (1, 2, 4):
+        mesh = make_mesh({'dp': dp}, devices=[dev] * dp)
+        fn = fr.make_sharded_offpolicy_rollout(body6, 'ddpg', OFF_NET, H6, N6, 1.0, mesh,
+                                               noise_std=0.1, explore_rate=0.25)
+        shards = split_env_axis(mesh, state6)
+        ga, gb, gc = gens(11, 3)
+        if dp == 1:
+            k6_ms[dp] = cuda_ms(torch, lambda: fn(td3, shards, ga), reps=20, warmup=2)
+            continue
+        ro, _, _ = fn(td3, shards, ga)
+        ro2, _, _ = fn(td3, shards, gb)
+        seed0 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gc, device=dev,
+                              dtype=torch.int32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(getattr(ro, f), getattr(ro2, f))
+                   for f in ('states', 'actions', 'rewards', 'undones', 'unmasks'))
+        n = N6 // dp
+        for r in range(dp):
+            f, i = body6.pack(shards[r])
+            want = fr.offpolicy_rollout_reference(td3.act, f, i, seed=fr.fold_seed(seed0, r),
+                                                  **okw)
+            cols = slice(r * n, (r + 1) * n)
+            lane = torch.stack([(ro.states[:, cols] - want.states).abs().amax((0, 2)),
+                                (ro.actions[:, cols] - want.actions).abs().amax((0, 2)),
+                                (ro.rewards[:, cols] - want.rewards).abs().amax(0)]).amax(0)
+            flags = (((1.0 - ro.undones[:, cols]) != want.terminals)
+                     | ((1.0 - ro.unmasks[:, cols]) != want.truncates)).any(0)
+            parted = (lane > 2e-2) | flags
+            assert int(parted.sum()) <= max(1, int(0.01 * n)), ('K6 shard', dp, r)
+            k6_parted += int(parted.sum())
+            k6_worst = max(k6_worst, float(lane[~parted].max()))
+        union, _, _ = fn(td3, shards, None, noise=nz6, cluster=c6)
+        single = fr.offpolicy_rollout(td3.act, f6, i6, noise=nz6, cluster=c6, **okw)
+        torch.cuda.synchronize()
+        assert (torch.equal(union.states, single.states)
+                and torch.equal(union.actions, single.actions)
+                and torch.equal(union.rewards, single.rewards)
+                and torch.equal(1.0 - union.undones, single.terminals)
+                and torch.equal(1.0 - union.unmasks, single.truncates)), ('K6 union', dp)
+        k6_ms[dp] = cuda_ms(torch, lambda: fn(td3, shards, ga), reps=20, warmup=2)
+    report('fused_rollout[HopperSlip-v0,ddpg]', 'make_sharded_offpolicy_rollout',
+           'elegantrl_tpu/ops/pallas_rollout.py:1308', k6_ms, k6_worst, k6_bound,
+           dict(envs=N6, horizon=H6, cluster_forced=c6, lanes_parted=k6_parted,
+                single_launch_ms=k6_launch,
+                tolerance={'trajectory': 2e-2, 'lanes_parted': '1% (at least 1) a shard',
+                           'union': 'bitwise'}))
+
+    # K4 with its critic pass: ppo_stock's 256 envs x 128 steps from day T -
+    # 61 (every lane ends its episode and resets), dp = 2 (128 a shard) and 4
+    stock_def = StockTradingVecEnv(num_envs=1)._def
+    sbody = stock_def.kernel_body
+    S4, A4 = sbody.state_dim, sbody.action_dim
+    T = sbody.tables.close.shape[0]
+    N4, H4 = PPO_STOCK['envs'], PPO_STOCK['horizon']
+    sst = make_ppo(STOCK_NET, S4, A4, Config()).init(0, dev)
+    sst = sst._replace(norm_avg=torch.rand(S4, generator=g, device=dev) * 0.4 - 0.2,
+                       norm_std=torch.rand(S4, generator=g, device=dev) + 0.7)
+    with torch.no_grad():
+        sst.act.std_log.fill_(-0.5)
+    f4, _ = sbody.pack(stock_def.init(g, N4, dev))
+    i4 = torch.full((1, N4), T - 61, dtype=torch.int32, device=dev)
+    state4 = sbody.unpack(f4, i4)
+    f4, i4 = f4.contiguous(), i4.contiguous()
+    nz4 = torch.cat([torch.randn((H4, A4, N4), generator=g, device=dev),
+                     torch.rand((H4, sbody.n_reset, N4), generator=g, device=dev)],
+                    1).contiguous()
+    snet = (sst.act_flat, sst.cri_flat, sst.norm_avg, sst.norm_std)
+    skw = dict(net_dims=STOCK_NET, horizon_len=H4, reward_scale=2.0 ** -8, body=sbody)
+    c4 = least_cluster(lambda c: fr._library().stock_rollout_smem_bytes(*STOCK_NET, c, 0)
+                       <= fr.SMEM_LIMIT)
+    D1s, D2s = STOCK_NET
+    L, M = 1 + A4, S4 - 1 - A4
+    k4_bound = bound(2 * (L * D1s + D1s * D2s + D2s * A4) * N4 * H4 + 2 * M * D1s * H4
+                     + 2 * (L * D1s + D1s * D2s + D2s) * N4 * H4 + 2 * M * D1s * H4,
+                     4 * (sst.act_flat.numel() + sst.cri_flat.numel() + 2 * S4
+                          + 2 * (sbody.n_f32 + sbody.n_i32) * N4 + H4 * M
+                          + N4 * H4 * (S4 + A4 + 5)))
+    k4_launch = cuda_ms(torch, lambda: fr.rollout(*snet, f4, i4, seed=fixed, **skw), reps=10,
+                        warmup=2)
+    k4_ms, k4_worst, k4_parted, k4_critic = {}, 0.0, 0, 0.0
+    for dp in (1, 2, 4):
+        mesh = make_mesh({'dp': dp}, devices=[dev] * dp)
+        fn = fr.make_sharded_fused_rollout(sbody, STOCK_NET, H4, N4, 2.0 ** -8, mesh)
+        shards = split_env_axis(mesh, state4)
+        ga, gb, gc = gens(13, 3)
+        if dp == 1:
+            k4_ms[dp] = cuda_ms(torch, lambda: fn(sst, shards, ga), reps=10, warmup=2)
+            continue
+        ro, env2, _ = fn(sst, shards, ga)
+        ro2, _, _ = fn(sst, shards, gb)
+        seed0 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gc, device=dev,
+                              dtype=torch.int32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(getattr(ro, f), getattr(ro2, f))
+                   for f in ('states', 'actions', 'logprobs', 'rewards', 'undones', 'unmasks'))
+        assert torch.equal(ro.extras['values'], ro2.extras['values'])
+        n = N4 // dp
+        for r in range(dp):
+            f, i = sbody.pack(shards[r])
+            want = fr.rollout_reference(*snet, f.contiguous(), i.contiguous(),
+                                        seed=fr.fold_seed(seed0, r), **skw)
+            cols = slice(r * n, (r + 1) * n)
+            gs, ga_ = ro.states[..., cols], ro.actions[..., cols]
+            assert torch.equal(1.0 - ro.undones[:, cols], want.terminals), ('K4 flags', dp, r)
+            assert torch.equal(gs[:, 1 + A4:], want.states[:, 1 + A4:]), ('market rows', dp, r)
+            lots = ((gs[:, 1:1 + A4] - want.states[:, 1:1 + A4]).abs() > 1e-6).any(1)
+            outs = torch.maximum((ga_ - want.actions).abs().amax(1),
+                                 (ro.logprobs[:, cols] - want.logprobs).abs()) > 2e-2
+            parted = (lots | outs).any(0)
+            assert float(parted.float().mean()) <= 0.25, ('K4 shard', dp, r)
+            k4_parted += int(parted.sum())
+            kept = ~parted
+            if bool(kept.any()):
+                out_f = sbody.pack(env2[r])[0]
+                rel = ((out_f - want.env_f).abs() / want.env_f.abs().clamp_min(1.0))[:, kept]
+                assert float(rel.max()) <= 1e-5, ('K4 final rows', dp, r, float(rel.max()))
+                k4_worst = max(k4_worst, float((ga_ - want.actions).abs().amax(1)[:, kept].max()))
+            v_ref = fr.critic_values_reference(sst.cri_flat, sst.norm_avg, sst.norm_std, gs,
+                                               net_dims=STOCK_NET)
+            err = float((ro.extras['values'][:, cols] - v_ref).abs().max())
+            assert err <= CRITIC_TOL, ('K4 critic pass', dp, r, err)
+            k4_critic = max(k4_critic, err)
+        union, _, _ = fn(sst, shards, None, noise=nz4, stock_cluster=c4)
+        single = fr.rollout(*snet, f4, i4, noise=nz4, stock_cluster=c4, **skw)
+        torch.cuda.synchronize()
+        assert (torch.equal(union.states, single.states)
+                and torch.equal(union.actions, single.actions)
+                and torch.equal(union.logprobs, single.logprobs)
+                and torch.equal(union.rewards, single.rewards)
+                and torch.equal(union.extras['values'], single.values)
+                and torch.equal(1.0 - union.undones, single.terminals)), ('K4 union', dp)
+        k4_ms[dp] = cuda_ms(torch, lambda: fn(sst, shards, ga), reps=10, warmup=2)
+    report(f'fused_rollout[StockTradingEnv-v2,gaussian,{N4} envs]',
+           'make_sharded_fused_rollout', 'elegantrl_tpu/ops/pallas_rollout.py:908', k4_ms,
+           k4_worst, k4_bound,
+           dict(envs=N4, horizon=H4, stock_cluster_forced=c4, lanes_parted=k4_parted,
+                single_launch_ms=k4_launch,
+                critic_max_abs_err=k4_critic,
+                tolerance={'lanes_parted': 'a quarter a shard', 'final_rows_rel': 1e-5,
+                           'critic': CRITIC_TOL, 'union': 'bitwise'}))
+
+    # ---- main_path_dp2: the main path (PPO on Pendulum, 4096 envs, H 64, B
+    # 512, repeat 8) at {'dp': 2}, both shards on the one card, against dp =
+    # 1 in the same call, without a mesh and on a mesh of one shard ({'dp':
+    # 1}, what train_agent's {'dp': -1} makes on one card); 10 rounds each
+    # after a warm-up round, the counts reset just before them and read just
+    # after; the two dp = 1 paths timed again after dp = 2
+    pend_args = {'env_name': 'Pendulum-v1', 'num_envs': N, 'max_step': 200, 'state_dim': 3,
+                 'action_dim': 1, 'if_discrete': False}
+
+    def ppo_pendulum():
+        a = Config(AgentPPO, PendulumEnv, dict(pend_args))
+        a.net_dims, a.horizon_len, a.batch_size, a.repeat_times = NET_DIMS, H, BATCH, REPEAT
+        a.random_seed = 0
+        return a
+
+    counters = dict(fused_rollout=fr.rollout, critic_values=fr.critic_values,
+                    ppo_update=ppo_update, gae_vtrace=kn.gae_vtrace_kernel,
+                    fused_mlp3=kn.fused_mlp3)
+
+    def reset_counts():
+        for fn_ in counters.values():
+            fn_.launches = 0
+        fr.rollout.launches_by_body.clear()
+
+    def read_counts():
+        return {k: fn_.launches for k, fn_ in counters.items() if fn_.launches}
+
+    def timed(step, rounds):
+        step()                                                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(rounds):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / rounds, read_counts()
+
+    dp_paths = {}
+    for key in (1, '1_mesh', 2, 1, '1_mesh'):
+        dp = 2 if key == 2 else 1
+        mesh = (None if key == 1 else
+                make_mesh({'dp': dp}, devices=[dev] * dp))
+        ctx = build_training(ppo_pendulum(), mesh=mesh)
+        assert ctx.fused_rollout
+        box = [ctx.carry]
+
+        def step():
+            box[0], m = ctx.round_fn(box[0])
+            assert all(math.isfinite(float(v)) for v in m.values() if v.dim() == 0), m
+
+        round_ms, launches = timed(step, ROUNDS)
+        host_ms, busy_ms, idle, events = profiled_rounds(torch, step, 3)
+        want = {'fused_rollout': dp * ROUNDS, 'gae_vtrace': ROUNDS, 'ppo_update': ROUNDS,
+                'fused_mlp3': ROUNDS}
+        assert launches == want, (key, launches)
+        replicas = 'one state'
+        if mesh is not None:
+            s_ = box[0].agent_state
+            lead = (s_.act_flat, s_.cri_flat, s_.norm_avg, s_.norm_std)
+            reps = replicate(mesh, lead)
+            assert all(all(torch.equal(a, b) for a, b in zip(rep, lead)) for rep in reps)
+            replicas = ('bitwise equal; the shards share the card, so they share the lead '
+                        'tensors' if all(a is b for rep in reps for a, b in zip(rep, lead))
+                        else 'bitwise equal')
+        if key in dp_paths:
+            dp_paths[key]['round_ms_again'] = round_ms
+            continue
+        dp_paths[key] = dict(round_ms=round_ms, env_steps_per_s=N * H / (round_ms / 1e3),
+                             launches=launches, replicas=replicas,
+                             profiled=dict(round_ms=host_ms, device_busy_ms=busy_ms,
+                                           idle_share=idle, device_events_per_round=events))
+    emit(phase='main_path_dp2', envs=N, horizon=H, batch=BATCH, repeat=REPEAT,
+         net_dims=NET_DIMS, rounds=ROUNDS, dp2=dp_paths[2], dp1=dp_paths[1],
+         dp1_mesh=dp_paths['1_mesh'],
+         launches_asserted='K1 2, K10 1, K2 1, K11b 1 (the bootstrap value) a round at dp 2',
+         device=name, nvidia_smi=smi)
+    sharded['fused_rollout']['main_path_dp2'] = dp_paths
+
+    # ---- main_path_td3_dp2: path A (TD3 on HopperSlip, 1024 envs, H 32, ring
+    # 4000 rows, B 1024, repeat 4: 15 updates, one K7 chunk) at {'dp': 2}
+    # against dp = 1 in the same call; the ring filled first by kernel
+    # rollouts of the union inserted without updates, then 10 timed rounds:
+    # two K6 launches a round, K7 and K11a on the union
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo
+    td3_paths = {}
+    for dp in (1, 2):
+        a = Config(AgentTD3, HopperEnv, {'env_name': 'HopperSlip-v0', 'num_envs': N6,
+                                         'max_step': 1000, 'state_dim': 6, 'action_dim': 2,
+                                         'if_discrete': False})
+        a.horizon_len, a.batch_size, a.repeat_times = H6, PATH_A['batch'], PATH_A['repeat']
+        a.buffer_size, a.learning_rate, a.net_dims = PATH_A['buffer'], PATH_A['lr'], OFF_NET
+        a.random_seed, a.gamma = 0, 0.99
+        mesh = None if dp == 1 else make_mesh({'dp': 2}, devices=[dev, dev])
+        ctx = build_training(a, mesh=mesh)
+        assert ctx.fused_rollout
+        carry = ctx.carry
+        f, i = body6.pack(carry.env_state if mesh is None else gather_env_axis(carry.env_state))
+        f, i, buf = f.contiguous(), i.contiguous(), carry.buf_state
+        while buf.size < ctx.rb.max_size:
+            s_ = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=carry.gen, device=dev,
+                               dtype=torch.int32)
+            out = fr.offpolicy_rollout(carry.agent_state.act, f, i, body=body6, head='ddpg',
+                                       net_dims=OFF_NET, horizon_len=H6, reward_scale=1.0,
+                                       noise_std=0.05, explore_rate=0.25, seed=s_)
+            buf = ctx.rb.update(buf, (out.states, out.actions, out.rewards,
+                                      1.0 - out.terminals, 1.0 - out.truncates))
+            f, i = out.env_f, out.env_i
+        env_u, obs_u = body6.unpack(f, i), body6.obs(f, i).T
+        carry = carry._replace(buf_state=buf, env_state=env_u if mesh is None else
+                               split_env_axis(mesh, env_u),
+                               obs=obs_u if mesh is None else split_env_axis(mesh, obs_u))
+        box = [carry]
+
+        def step():
+            box[0], m = ctx.round_fn(box[0])
+            assert all(math.isfinite(float(v)) for v in m.values() if v.dim() == 0), m
+
+        step()                                                     # warm-up
+        torch.cuda.synchronize()
+        for fn_ in (fr.offpolicy_rollout, fo.ddpg_chunk, kn.buffer_gather_fields):
+            fn_.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ROUNDS):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        launches = {'offpolicy_rollout': fr.offpolicy_rollout.launches,
+                    'ddpg_update': fo.ddpg_chunk.launches,
+                    'buffer_gather_fields': kn.buffer_gather_fields.launches}
+        assert launches == {'offpolicy_rollout': dp * ROUNDS, 'ddpg_update': ROUNDS,
+                            'buffer_gather_fields': ROUNDS}, (dp, launches)
+        round_ms = start.elapsed_time(end) / ROUNDS
+        td3_paths[dp] = dict(round_ms=round_ms, env_steps_per_s=N6 * H6 / (round_ms / 1e3),
+                             launches=launches, ring_rows=box[0].buf_state.size)
+    emit(phase='main_path_td3_dp2', envs=N6, horizon=H6, ring_rows=PATH_A['buffer'],
+         batch=PATH_A['batch'], repeat=PATH_A['repeat'], net_dims=OFF_NET, rounds=ROUNDS,
+         dp2=td3_paths[2], dp1=td3_paths[1],
+         launches_asserted='K6 2, K7 1, K11a 1 a round at dp 2', device=name, nvidia_smi=smi)
+    sharded['fused_rollout[HopperSlip-v0,ddpg]']['main_path_td3_dp2'] = td3_paths
+
+    # ---- main_path_population: population_ppo's and population_stock's
+    # shapes at full width, 8 members; the member rounds timed through
+    # ctx.round_fn (2 a member), then train_agent_population for two
+    # generations of one round (evaluation, selection, the copies trained),
+    # its launches per member round asserted; every member's agent state
+    # (parameters, Adam moments) its own after selection, and a copy trained
+    # leaves its source bitwise as it was
+    pops = {}
+    stock_env_args = {'env_name': 'StockTradingEnv-v2', 'num_envs': POP_STOCK['envs'],
+                      'max_step': T - 1, 'state_dim': S4, 'action_dim': A4,
+                      'if_discrete': False}
+    for label, recipe, env_class, env_args, kernel in (
+            ('population_ppo', POP_PPO, PendulumEnv, dict(pend_args, num_envs=POP_PPO['envs']),
+             'Pendulum-v1'),
+            ('population_stock', POP_STOCK, StockTradingVecEnv, stock_env_args,
+             'StockTradingEnv-v2')):
+        def pop_args():
+            a = Config(AgentPPO, env_class, dict(env_args))
+            a.net_dims, a.horizon_len, a.batch_size = recipe['net'], recipe['horizon'], \
+                recipe['batch']
+            a.repeat_times, a.learning_rate, a.gamma = recipe['repeat'], recipe['lr'], \
+                recipe['gamma']
+            a.random_seed = 0
+            return a
+
+        P = recipe['members']
+        args = pop_args()
+        ctx = build_training(args)
+        assert ctx.fused_rollout
+        carries = [pop.member_carry(ctx, args, m, dev) for m in range(P)]
+        carries = pop.train_members(ctx, carries, 1)                 # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        carries = pop.train_members(ctx, carries, 2)
+        end.record()
+        torch.cuda.synchronize()
+        member_round_ms = start.elapsed_time(end) / (2 * P)
+        per_round = {k: v / (2 * P) for k, v in read_counts().items()}
+        want = {'fused_rollout': 1.0, 'gae_vtrace': 1.0, 'ppo_update': 1.0, 'fused_mlp3': 1.0}
+        if kernel == 'StockTradingEnv-v2':
+            want['critic_values'] = 1.0
+        assert per_round == want, (label, per_round)
+        # a copy shares nothing with its source; training it leaves the source as it was
+        src = carries[0]
+        before = [np.array(x) for x in tree_leaves(ctx.agent.state_to_numpy(src.agent_state))]
+        copy = pop.clone_member(ctx, src, 7919, dev)
+        assert not ptrs(copy) & ptrs(src) and not ptrs(copy.agent_state) & ptrs(src.agent_state)
+        pop.train_members(ctx, [copy], 1)
+        assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(
+            before, tree_leaves(ctx.agent.state_to_numpy(src.agent_state))))
+        # the entry point: 2 generations of 1 round, evaluation and selection
+        # between; depth cut on the stock env to 4 members (an evaluation plays
+        # the whole 1112-day episode, ~7 s a member on the card)
+        Pe = P if kernel == 'Pendulum-v1' else P // 2
+        reset_counts()
+        t0 = time.time()
+        out = pop.train_agent_population(pop_args(), population_size=Pe, generations=2,
+                                         rounds_per_generation=1, eval_episodes=8)
+        seconds = time.time() - t0
+        launches = read_counts()
+        assert all(launches.get(k, 0) == 2 * Pe for k in ('fused_rollout', 'gae_vtrace',
+                                                           'ppo_update')), (label, launches)
+        assert out['history'].shape == (2, Pe) and np.isfinite(out['history']).all()
+        owned = [ptrs(c.agent_state) for c in out['carry']]
+        assert all(not owned[a] & owned[b] for a in range(Pe) for b in range(a + 1, Pe)), label
+        reduced = ([] if Pe == P else
+                   [f'entry-point pass at {Pe} members, not the recipe\'s {P}: each '
+                    'evaluation plays the whole 1112-day episode (the member-round timing '
+                    f'above runs all {P})'])
+        pops[label] = dict(member_round_ms=member_round_ms, launches_per_member_round=per_round,
+                           entry_point_members=Pe, entry_point_launches=launches,
+                           entry_point_seconds=seconds, history=out['history'].tolist(),
+                           reduced=reduced)
+        emit(phase='main_path_population', path=label, members=P, envs=recipe['envs'],
+             horizon=recipe['horizon'], batch=recipe['batch'], repeat=recipe['repeat'],
+             net_dims=recipe['net'], member_round_ms=member_round_ms,
+             env_steps_per_s=recipe['envs'] * recipe['horizon'] / (member_round_ms / 1e3),
+             launches_per_member_round=per_round, entry_point_members=Pe,
+             reduced=reduced, entry_point_launches=launches,
+             entry_point_seconds=round(seconds, 3), history=out['history'].tolist(),
+             copies_share_no_storage=True, source_unchanged_after_copy_trains=True,
+             device=name, nvidia_smi=smi)
+
+    # ---- distributed_world1: a one-rank NCCL group (a rendezvous file), one
+    # dp round whose gathers run through it (all_gather, the broadcast)
+    with tempfile.TemporaryDirectory() as tmp:
+        count = init_distributed('file://' + os.path.join(tmp, 'rendezvous'), 1, 0,
+                                 backend='nccl')
+        try:
+            mesh = make_mesh({'dp': 1})
+            assert mesh.distributed and mesh.size == 1 and dist.get_backend() == 'nccl'
+            ctx = build_training(ppo_pendulum(), mesh=mesh)
+            box = [ctx.carry]
+
+            def step():
+                box[0], m = ctx.round_fn(box[0])
+                assert all(math.isfinite(float(v)) for v in m.values() if v.dim() == 0), m
+
+            round_ms, launches = timed(step, 3)
+            prof = profiled_rounds(torch, step, 3)
+            obs = gather_env_axis(box[0].obs)
+            assert obs.shape == (N, 3) and bool(torch.isfinite(obs).all())
+        finally:
+            dist.destroy_process_group()
+    emit(phase='distributed_world1', backend='nccl', device_count=count, rounds=3,
+         round_ms=round_ms, launches=launches,
+         profiled=dict(zip(('round_ms', 'device_busy_ms', 'idle_share',
+                            'device_events_per_round'), prof)), device=name, nvidia_smi=smi)
+
+    # ---- train_agent_mesh: train_agent with {'dp': -1} (every card: one
+    # here), elastic_restore of its train_carry.npz onto {'dp': 2} on the
+    # card, one round, and valid_agent on the saved agent; the same
+    # train_agent without a mesh timed beside it (host clock, set-up and
+    # evaluation included)
+    def no_mesh_seconds():
+        with tempfile.TemporaryDirectory() as cwd0:
+            a_ = ppo_pendulum()
+            a_.cwd, a_.eval_times = cwd0, 2
+            a_.eval_per_step = a_.break_step = N * H
+            t_ = time.time()
+            train_agent(a_)
+            return round(time.time() - t_, 3)
+
+    seconds_no_mesh = [no_mesh_seconds()]        # before the mesh's run, and after it
+    with tempfile.TemporaryDirectory() as cwd:
+        a = ppo_pendulum()
+        a.mesh_axes, a.cwd, a.eval_times = {'dp': -1}, cwd, 2
+        a.eval_per_step = a.break_step = N * H
+        t0 = time.time()
+        res = train_agent(a)
+        seconds = time.time() - t0
+        seconds_no_mesh.append(no_mesh_seconds())
+        assert res['recorder'].shape[0] == 2 and np.isfinite(res['recorder']).all()
+        mesh2 = make_mesh({'dp': 2}, devices=[dev, dev])
+        ctx2 = build_training(ppo_pendulum(), mesh=mesh2)
+        restored, _ = elastic_restore(os.path.join(cwd, 'train_carry.npz'), ctx2, {'dp': 2},
+                                      devices=[dev, dev])
+        assert all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(
+            tree_leaves(ctx2.agent.state_to_numpy(restored.agent_state)),
+            tree_leaves(ctx2.agent.state_to_numpy(res['agent_state']))))
+        out, m = ctx2.round_fn(restored)
+        assert bool(torch.isfinite(gather_env_axis(out.obs)).all())
+        assert math.isfinite(float(m['obj_critic']))
+        played = valid_agent(PendulumEnv, pend_args, NET_DIMS, AgentPPO,
+                             os.path.join(cwd, 'agent.npz'), render_times=2)
+        assert len(played) == 2 and all(math.isfinite(x) for x, _ in played), played
+    emit(phase='train_agent_mesh', mesh_axes={'dp': -1}, evaluations=2,
+         total_step=int(res['total_step']), max_r=float(res['max_r']),
+         seconds=round(seconds, 3), seconds_no_mesh=seconds_no_mesh,
+         restored_onto={'dp': 2}, restored_round_finite=True,
+         valid_agent=played, device=name, nvidia_smi=smi)
+    sharded['fused_rollout']['population'] = pops['population_ppo']
+    sharded[f'fused_rollout[StockTradingEnv-v2,gaussian,{N4} envs]']['population'] = (
+        pops['population_stock'])
+    return sharded
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -4061,6 +4689,9 @@ def main():
     # ---- 15. the Mosaic probes
     probe_kernels = probe_phases(torch, dev, bound)
 
+    # ---- 15b. parallel/: the sharded rollouts, dp = 2, populations, NCCL, mesh entry point
+    sharded = parallel_phases(torch, dev, name, smi, bound)
+
     # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
@@ -4127,6 +4758,11 @@ def main():
                                                      'max_abs_err', 'lanes_parted')}
     kernels += (offpolicy_kernels + stock_kernels + bf16_host_pixel_kernels + lunar_kernels
                 + probe_kernels)
+    # the sharded wrappers' per-shard launches ride with the kernel they launch
+    for k in kernels:
+        if k['name'] in sharded:
+            k['sharded'] = sharded.pop(k['name'])
+    assert not sharded, sorted(sharded)
     assert all(k['launches'] > 0 for k in kernels), [(k['name'], k['launches']) for k in kernels]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -26,7 +26,11 @@ included; Gaussian, categorical, ddpg, sac, modsac and DQN heads), the
 fused PPO update (continuous and discrete heads), the fused DQN-family,
 DDPG/TD3 (also under PER) and SAC/ModSAC update chunks, and the V-trace
 recursion, the replay gather and the fused 3-layer MLP forward
-(``ops/kernels.py``).  Where the JAX package runs XLA ops instead of a
+(``ops/kernels.py``).  ``parallel/`` shards the env axis over a mesh
+(``Config.mesh_axes``, ``make_mesh``, ``shard_train_carry``: one launch of
+the fused rollout per shard, the update on the union), joins processes
+(``init_distributed``, ``elastic_restore``) and trains populations
+(``train_agent_population``).  Where the JAX package runs XLA ops instead of a
 kernel, the port runs PyTorch ops, on a card too.
 """
 
@@ -42,4 +46,4 @@ from .agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm, AgentDoubleDQN,  # no
                      AgentTD3, AgentTD3Hterm, AgentPixelPPO)
 from .envs import (IsaacVecEnv, PixelChasingEnv, SimUnavailable, get_env_args,  # noqa: F401
                    gym_env_def, load_isaac_task, make_host_env, make_isaac_env)
-from . import agents, envs, ops, train, utils  # noqa: F401
+from . import agents, envs, ops, parallel, train, utils  # noqa: F401

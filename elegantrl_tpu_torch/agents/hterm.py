@@ -38,7 +38,7 @@ class HtermDraws(NamedTuple):
 
 
 def init_hterm_buffer(buffer_size: int, k_step: int, state_dim: int, action_dim: int,
-                      device='cpu') -> HtermBuffer:
+                      device) -> HtermBuffer:
     K, k = int(buffer_size), int(k_step)
     return HtermBuffer(states=torch.zeros((K, k, state_dim), device=device),
                        actions=torch.zeros((K, k, action_dim), device=device),

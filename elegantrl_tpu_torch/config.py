@@ -77,6 +77,9 @@ class Config:
         self.gpu_id = 0
         self.num_workers = 1
         self.random_seed = None      # None -> derived from gpu_id
+        # e.g. {'dp': 2} to shard the env axis over a mesh (parallel/mesh.py);
+        # None trains on one device
+        self.mesh_axes = None
         # matmul dtype: 'auto' keeps float32 below hidden width 512, as the
         # JAX package does; the hand-written kernels take float32 only
         self.compute_dtype = 'auto'

@@ -1152,6 +1152,131 @@ def make_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
     return rollout_fn
 
 
+# ------------------------------------------------------- mesh data parallel
+# The JAX package's sharded wrappers (``pallas_rollout.py:908, 1308``)
+# ``shard_map`` the one-chip kernel over the env shards, each shard keyed by
+# ``fold_in(key, axis_index)``.  Here each shard is one launch of the same
+# kernel at ``num_envs / n`` envs on its shard's device, keyed by the round's
+# seed folded with the shard's global index; the outputs are concatenated in
+# the kernel's layout (and across processes all-gathered,
+# ``parallel/mesh.py:gather_env_axis``) for the update, which runs on the
+# union.
+
+_FOLD_MULT = (0x85EBCA6B, 0xC2B2AE35)
+
+
+def fold_seed(seed: torch.Tensor, index) -> torch.Tensor:
+    """The Philox key of shard ``index`` (an int: ``(2,)``; a sequence:
+    ``(len, 2)``) from the round's ``(2,)`` int32 key ``seed``: word ``w``
+    is ``seed[w] + (index + 1) * M[w] mod 2^32`` with the odd constants
+    ``M = (0x85EBCA6B, 0xC2B2AE35)``, as int32.  Every shard, shard 0 too,
+    gets a key other than the round's, as ``jax.random.fold_in(key,
+    axis_index)`` does; the keys of two shards differ in both words."""
+    dev = seed.device
+    r = torch.as_tensor(index, dtype=torch.int64, device=dev)
+    k = (seed.to(torch.int64) + (r[..., None] + 1)
+         * torch.tensor(_FOLD_MULT, dtype=torch.int64, device=dev)) & _MASK
+    return torch.where(k >= 2 ** 31, k - 2 ** 32, k).to(torch.int32)
+
+
+def shard_fits(body: Optional[KernelEnvBody], num_envs: int, shards: int) -> bool:
+    """Whether ``num_envs`` in ``shards`` shards suits the body: any body
+    but the stock one, whose shards must hold whole ``_TE``-lane groups."""
+    return shards == 1 or body is None or body.tables is None or (num_envs // shards) % _TE == 0
+
+
+def _shard_envs(mesh, num_envs: int, body: KernelEnvBody, what: str) -> int:
+    """The envs of one shard; raises where they do not divide, and on the
+    stock body where a shard would part a lane group (its days and market
+    rows are per group of ``_TE`` lanes, as the critic pass's precondition)."""
+    if num_envs % mesh.size:
+        raise ValueError(f"{what}: num_envs={num_envs} not divisible by the mesh's "
+                         f'{mesh.size} shards')
+    local = num_envs // mesh.size
+    if body.tables is not None and local % _TE:
+        raise ValueError(f"{what}: the stock body needs each shard's envs, "
+                         f'{num_envs} / {mesh.size} = {local}, to be a multiple of its '
+                         f'{_TE}-lane group')
+    return local
+
+
+def _shard_inputs(mesh, local: int, gen, noise):
+    """Each shard's noise columns (the union's ``(H, rows, N)`` tensor) or
+    its folded seed, drawn once from ``gen`` for the round."""
+    if noise is not None:
+        return [(noise[..., r * local:(r + 1) * local].to(dev).contiguous(), None)
+                for r, dev in zip(mesh.shards, mesh.devices)]
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gen, device=gen.device,
+                         dtype=torch.int32)
+    seeds = fold_seed(seed, list(mesh.shards))
+    return [(None, seeds[j].to(dev)) for j, dev in enumerate(mesh.devices)]
+
+
+def _sharded(mesh, num_envs: int, body: KernelEnvBody, what: str, reads, launch_one,
+             to_rollout):
+    """The rollout function of both sharded wrappers.  ``reads(agent_state)``
+    are the tensors the kernel reads, copied to the shards on other devices
+    (``parallel/mesh.py:replicate``); ``launch_one(tensors, f0, i0, noise,
+    seed, launch)`` is one shard's launch, made with the shard's device
+    current (``device_scope``); ``to_rollout(cat)`` builds the union's
+    Rollout, where ``cat(name, dim)`` is the outputs ``name`` of the shards
+    concatenated along ``dim`` on the lead device."""
+    from ..parallel import mesh as pm
+    local = _shard_envs(mesh, num_envs, body, what)
+
+    def rollout_fn(agent_state, env_state, gen, noise=None, **launch):
+        reps = pm.replicate(mesh, reads(agent_state))
+        outs = []
+        for j, (nz, seed) in enumerate(_shard_inputs(mesh, local, gen, noise)):
+            with pm.device_scope(mesh.devices[j]):
+                f0, i0 = body.pack(env_state[j])
+                outs.append(launch_one(reps[j], f0.contiguous(), i0.contiguous(), nz, seed,
+                                       launch))
+
+        def cat(name, dim):
+            return pm.gather_env_axis(pm.Shards([getattr(o, name) for o in outs], mesh), dim)
+
+        last_obs = pm.gather_env_axis(pm.Shards([body.obs(o.env_f, o.env_i).T for o in outs],
+                                                mesh))
+        env_shards = pm.Shards([body.unpack(o.env_f, o.env_i) for o in outs], mesh)
+        return to_rollout(cat), env_shards, last_obs
+
+    return rollout_fn
+
+
+def make_sharded_fused_rollout(body: KernelEnvBody, net_dims, horizon_len: int,
+                               num_envs: int, reward_scale: float, mesh,
+                               compute_dtype: Optional[torch.dtype] = None,
+                               store_dtype: Optional[torch.dtype] = None):
+    """``rollout_fn(agent_state, env_shards, gen, noise=None, **launch) ->
+    (Rollout, env_shards', last_obs)`` over a mesh (``parallel/mesh.py``):
+    one launch of the fused rollout kernel per shard at ``num_envs /
+    mesh.size`` envs, on the shard's env state (``Shards``) and device;
+    without ``noise`` shard ``r`` is keyed by :func:`fold_seed` of one seed
+    taken from ``gen``, with ``noise`` (the union's) it takes its columns.
+    The rollout and ``last_obs`` are the union's, the ``(H, S, N)`` layout
+    concatenated along its trailing env axis, on the lead device;
+    ``launch`` goes to :func:`rollout` (``cluster``, ``stock_cluster``)."""
+    from ..agents.base import Rollout
+    H = int(horizon_len)
+    net_dims = tuple(int(d) for d in net_dims)
+
+    def launch_one(t, f0, i0, noise, seed, launch):
+        return rollout(*t, f0, i0, net_dims=net_dims, horizon_len=H,
+                       reward_scale=reward_scale, noise=noise, seed=seed, body=body,
+                       compute_dtype=compute_dtype, store_dtype=store_dtype, **launch)
+
+    def to_rollout(cat):
+        return Rollout(states=cat('states', -1), actions=cat('actions', -1),
+                       logprobs=cat('logprobs', -1), rewards=cat('rewards', -1),
+                       undones=1.0 - cat('terminals', -1), unmasks=1.0 - cat('truncates', -1),
+                       extras={'values': cat('values', -1), 'tsn': True})
+
+    return _sharded(mesh, num_envs, body, 'make_sharded_fused_rollout',
+                    lambda s: (s.act_flat, s.cri_flat, s.norm_avg, s.norm_std),
+                    launch_one, to_rollout)
+
+
 # ====================================================== off-policy heads
 # The same kernel family for the off-policy agents' exploration
 # (``elegantrl_tpu/ops/pallas_rollout.py:_make_offpolicy_kernel``): one net,
@@ -1497,3 +1622,33 @@ def make_fused_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims, horiz
         return ro, body.unpack(out.env_f, out.env_i), last_obs
 
     return rollout_fn
+
+
+def make_sharded_offpolicy_rollout(body: KernelEnvBody, head: str, net_dims,
+                                   horizon_len: int, num_envs: int, reward_scale: float,
+                                   mesh, noise_std: float, explore_rate: float,
+                                   std_clip=(-16.0, 2.0),
+                                   compute_dtype: Optional[torch.dtype] = None,
+                                   store_dtype: Optional[torch.dtype] = None):
+    """:func:`make_sharded_fused_rollout` for the off-policy heads: one
+    launch of the off-policy kernel per shard, the union's ``(H, N, dim)``
+    outputs concatenated along axis 1 (the replay ring's ``num_seqs``)."""
+    from ..agents.base import Rollout
+    H = int(horizon_len)
+    net_dims = tuple(int(d) for d in net_dims)
+
+    def launch_one(t, f0, i0, noise, seed, launch):
+        return offpolicy_rollout(t[0], f0, i0, body=body, head=head, net_dims=net_dims,
+                                 horizon_len=H, reward_scale=reward_scale, noise_std=noise_std,
+                                 explore_rate=explore_rate, std_clip=std_clip, noise=noise,
+                                 seed=seed, compute_dtype=compute_dtype,
+                                 store_dtype=store_dtype, **launch)
+
+    def to_rollout(cat):
+        return Rollout(states=cat('states', 1), actions=cat('actions', 1), logprobs=None,
+                       rewards=cat('rewards', 1), undones=1.0 - cat('terminals', 1),
+                       unmasks=1.0 - cat('truncates', 1))
+
+    return _sharded(mesh, num_envs, body, 'make_sharded_offpolicy_rollout',
+                    lambda s: (s.act if head in CONTINUOUS_HEADS else s.q,),
+                    launch_one, to_rollout)

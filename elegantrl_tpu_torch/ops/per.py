@@ -63,7 +63,7 @@ class SegmentTree:
         self.n_chunks = max(1, _cdiv(self.max_size, FANOUT))
         self.cap = self.n_chunks * FANOUT
 
-    def init(self, device='cpu') -> Tree:
+    def init(self, device) -> Tree:
         return (torch.zeros((self.num_seqs, self.n_chunks), device=device),
                 torch.zeros((self.num_seqs, self.cap), device=device))
 

@@ -2,7 +2,9 @@
 ``elegantrl_tpu/train/replay_buffer.py``).
 
 - layout ``(max_size, num_seqs, dim)``: one ring per env sequence, on the
-  run's device; discrete actions are int32 ``(max_size, num_seqs)``;
+  run's device (``device=None``, the default, is the card, as ``Config``;
+  without a GPU the constructor raises and names ``device='cpu'``); discrete
+  actions are int32 ``(max_size, num_seqs)``;
 - modular insert at the ring pointer, ``size = min(size + h, max_size)``;
   the insert writes the tensors in place, so the returned ``BufferState``
   shares them with the one passed in (the JAX package donates the buffer);
@@ -40,12 +42,14 @@ known on the host without a device sync.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..agents.base import resolve_storage_dtype
+from ..config import resolve_device
 from ..ops import kernels
 from ..ops.per import SegmentTree
 
@@ -67,7 +71,7 @@ class ReplayBuffer:
 
     def __init__(self, max_size: int, state_dim: int, action_dim: int,
                  num_seqs: int = 1, if_use_per: bool = False,
-                 if_discrete: bool = False, args=None, device='cpu'):
+                 if_discrete: bool = False, args=None, device=None):
         # the bulk fields' type (states and float actions; the scalars stay f32)
         self.storage_dtype = resolve_storage_dtype(args) or torch.float32
         self.max_size = int(max_size)
@@ -75,7 +79,11 @@ class ReplayBuffer:
         self.action_dim = int(action_dim)
         self.num_seqs = int(num_seqs)
         self.if_discrete = bool(if_discrete)
-        self.device = torch.device(device)
+        # the default is the run's card, resolved as Config.device is (so
+        # without a GPU it raises here); a device asked for by name is taken
+        # as given (a description of a card's buffer, whose ring is never made)
+        self.device = (resolve_device(SimpleNamespace(device='cuda'), owner='ReplayBuffer')
+                       if device is None else torch.device(device))
         self.if_use_per = bool(if_use_per)
         self.per_alpha = float(getattr(args, 'per_alpha', 0.6))
         self.per_beta = float(getattr(args, 'per_beta', 0.4))
@@ -85,9 +93,11 @@ class ReplayBuffer:
         self.use_gather_kernel = kernels.select(args, 'use_gather_kernel', True, self.device,
                                                 'the gather of any replay field')
 
-    def init(self) -> BufferState:
+    def init(self, device=None) -> BufferState:
+        """An empty ring on the buffer's device, or on ``device`` where given
+        (a population member's)."""
         M, N, S = self.max_size, self.num_seqs, self.state_dim
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
         bulk = self.storage_dtype
         actions = (torch.zeros((M, N), dtype=torch.int32, device=dev) if self.if_discrete
                    else torch.zeros((M, N, self.action_dim), dtype=bulk, device=dev))

@@ -36,8 +36,21 @@ round (``round_fn``) collects its rollout on the pool
 on the host) and then runs the update half (for a rollout collected
 elsewhere, ``TrainContext.update_from_rollout``); the evaluator plays its
 episodes on its own pool (``env.fresh()``).  With ``args.host_rollout =
-False`` both go through the env's batched ``init``/``step`` instead.  The
-JAX runner's mesh mode is not ported: ``args.mesh_axes`` raises.
+False`` both go through the env's batched ``init``/``step`` instead.
+
+Under a mesh (``build_training(args, mesh=)``; ``train_agent`` makes it from
+``args.mesh_axes``, ``parallel/mesh.py``) the env state and obs of the carry
+are split over the shards: the fused rollout launches its kernel once per
+shard (``make_sharded_fused_rollout``, ``make_sharded_offpolicy_rollout``)
+where the JAX runner takes its sharded kernel, the generic
+``collect_rollout`` runs on the union on the lead device (the JAX package's
+partitioned scan computes that one-device program), and the update half
+runs on the gathered union in every process, from the same generator, then
+takes rank 0's agent state (``broadcast_agent_state``).  A host env keeps
+host-rollout mode under a one-process mesh.  ``train_carry.npz`` holds the
+union's layout, so a run restores onto another mesh or none
+(``parallel/distributed.py:elastic_restore``); across processes rank 0
+evaluates and writes the files.
 """
 
 from __future__ import annotations
@@ -54,6 +67,9 @@ from ..agents.ppo import resolve_compute_dtype
 from ..config import Config, kwargs_filter, resolve_device, select_kernel
 from ..envs.base import EnvDef, vec_reset
 from ..envs.host_env import HostLink, host_collect_rollout
+from ..parallel.mesh import (Shards, broadcast_agent_state, device_scope, gather_env_axis,
+                             gather_train_carry, make_mesh, mesh_devices,
+                             shard_train_carry, split_env_axis)
 from ..utils.checkpoint import load_tree, save_tree, tree_unflatten
 from ..utils.jax_params import buffer_state_from_numpy, buffer_state_to_numpy
 from .evaluator import Evaluator
@@ -85,6 +101,7 @@ class TrainContext(NamedTuple):
     # with it; the evaluator follows it (the pool is stateful and the
     # carry's obs came from it)
     use_host_rollout: bool = False
+    mesh: Any = None        # the mesh the carry is sharded over (parallel/mesh.py), or None
 
 
 def _resolve_env_def(args: Config) -> EnvDef:
@@ -144,7 +161,7 @@ def jax_rollout_block_chunk(body, discrete: bool, off_policy: bool, num_envs: in
 
 
 def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.device,
-                         num_envs: int, horizon_len: int, reward_scale: float):
+                         num_envs: int, horizon_len: int, reward_scale: float, mesh=None):
     """The fused rollout (``ops/fused_rollout.py``) when ``select_kernel``
     takes it, else None (the generic ``collect_rollout``, on either device).
     The JAX runner takes its kernel (``elegantrl_tpu/train/runner.py:
@@ -158,11 +175,34 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     a cluster of blocks holds the weight slices (``rollout_fits``; off-policy
     ``offpolicy_fits``, for a (body, head) pair it has), in the compute and
     storage types the JAX runner hands its kernel (the bf16 variants under
-    bf16 compute, the stock body's K4 among them)."""
+    bf16 compute, the stock body's K4 among them).
+
+    Under a mesh the JAX runner's terms come first: one mesh axis and
+    ``num_envs`` a multiple of the shards, or no kernel (``True`` raises);
+    then the (block, chunk) of the per-shard env count.  Where they send
+    the JAX runner to its sharded kernel, the port takes its per-shard
+    launches (``make_sharded_fused_rollout``,
+    ``make_sharded_offpolicy_rollout``), whose stock body needs each shard
+    to hold whole 32-lane groups (``shard_fits``)."""
     from ..ops.fused_rollout import (KERNEL_ENV_BODIES, kernel_bodies_text,
                                      make_fused_offpolicy_rollout, make_fused_rollout,
-                                     offpolicy_fits, rollout_fits, rollout_width_limit,
+                                     make_sharded_fused_rollout,
+                                     make_sharded_offpolicy_rollout, offpolicy_fits,
+                                     rollout_fits, rollout_width_limit, shard_fits,
                                      stock_width_limit)
+    shards = 1
+    if mesh is not None:
+        shards = mesh.size
+        if len(mesh.axis_names) != 1 or num_envs % shards:
+            scope = (f'a single mesh axis and num_envs % {shards} == 0 (got '
+                     f'axes={mesh.axis_names}, num_envs={num_envs})')
+            if getattr(args, 'use_fused_rollout', 'auto') is True:
+                raise ValueError(f'use_fused_rollout=True under a mesh needs {scope}')
+            select_kernel(args, 'use_fused_rollout', False, False, device, scope)
+            return None
+    envs_local = num_envs // shards
+    in_shards = ('' if mesh is None else
+                 f', in shards of {envs_local} envs (whole 32-lane groups on the stock body)')
     spec = env.spec
     net_dims = tuple(args.net_dims)
     body = env.kernel_body or KERNEL_ENV_BODIES.get(spec.env_name)
@@ -182,9 +222,10 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     if agent.if_off_policy:
         jax_takes = (body is not None and len(net_dims) == 2 and off_head is not None
                      and agent.rollout_extras is None
-                     and jax_rollout_block_chunk(body, spec.if_discrete, True, num_envs,
+                     and jax_rollout_block_chunk(body, spec.if_discrete, True, envs_local,
                                                  horizon_len) is not None)
-        fits = jax_takes and offpolicy_fits(body, off_head, net_dims, bf)
+        fits = (jax_takes and offpolicy_fits(body, off_head, net_dims, bf)
+                and shard_fits(body, num_envs, shards))
         stock = (f'{stock_width_limit(off_head, bf)} for {off_head} in {precision}'
                  if off_head in ('ddpg', 'sac', 'modsac') else
                  '448 for ddpg, 416 for sac and modsac in float32')
@@ -195,22 +236,26 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                  f'on an env of '
                  f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
-                 f'net_dims={net_dims}, compute_dtype={cdt or torch.float32}')
+                 f'net_dims={net_dims}, compute_dtype={cdt or torch.float32}{in_shards}')
         if not select_kernel(args, 'use_fused_rollout', jax_takes, fits, device, scope):
             return None
         print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
-              f'head={off_head}, net_dims={net_dims})', flush=True)
+              f'head={off_head}, net_dims={net_dims}{_shard_note(mesh)})', flush=True)
         # the agents' own hyper defaults (the JAX runner's head_cfg)
-        return make_fused_offpolicy_rollout(
-            body, off_head, net_dims, horizon_len, num_envs, reward_scale,
-            noise_std=float(getattr(args, 'explore_noise_std',
-                                    getattr(args, 'explore_noise', 0.05))),
-            explore_rate=float(getattr(args, 'explore_rate', 0.25)),
-            std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0), **types)
+        head_cfg = dict(noise_std=float(getattr(args, 'explore_noise_std',
+                                                getattr(args, 'explore_noise', 0.05))),
+                        explore_rate=float(getattr(args, 'explore_rate', 0.25)),
+                        std_clip=(-20.0, 2.0) if off_head == 'modsac' else (-16.0, 2.0))
+        if mesh is not None:
+            return make_sharded_offpolicy_rollout(body, off_head, net_dims, horizon_len,
+                                                  num_envs, reward_scale, mesh, **head_cfg,
+                                                  **types)
+        return make_fused_offpolicy_rollout(body, off_head, net_dims, horizon_len, num_envs,
+                                            reward_scale, **head_cfg, **types)
     want_agents = (('AgentDiscretePPO', 'AgentDiscreteA2C') if spec.if_discrete
                    else ('AgentPPO', 'AgentA2C'))
     jax_takes = (body is not None and agent.name in want_agents and len(net_dims) == 2
-                 and jax_rollout_block_chunk(body, spec.if_discrete, False, num_envs,
+                 and jax_rollout_block_chunk(body, spec.if_discrete, False, envs_local,
                                              horizon_len) is not None)
     limit = (f'{rollout_width_limit(body, bf)} on {spec.env_name}'
              if body is not None and body.tables is None else
@@ -222,23 +267,35 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
              f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
              f'state_dim={spec.state_dim}, action_dim={spec.action_dim}, '
-             f'net_dims={net_dims}')
+             f'net_dims={net_dims}{in_shards}')
     if not select_kernel(args, 'use_fused_rollout', jax_takes,
-                         jax_takes and rollout_fits(body, net_dims, bf), device, scope):
+                         jax_takes and rollout_fits(body, net_dims, bf)
+                         and shard_fits(body, num_envs, shards), device, scope):
         return None
     print(f'| build_training: fused-rollout path enabled (env={spec.env_name}, '
           f'net_dims={net_dims}, compute={cdt or torch.float32}, '
-          f'storage={sdt or torch.float32})', flush=True)
+          f'storage={sdt or torch.float32}{_shard_note(mesh)})', flush=True)
+    if mesh is not None:
+        return make_sharded_fused_rollout(body, net_dims, horizon_len, num_envs, reward_scale,
+                                          mesh, **types)
     return make_fused_rollout(body, net_dims, horizon_len, num_envs, reward_scale, **types)
 
 
-def build_training(args: Config) -> TrainContext:
-    """Env, agent, initial carry and the per-round step function."""
-    if getattr(args, 'mesh_axes', None):
-        raise NotImplementedError(
-            f'args.mesh_axes={args.mesh_axes!r}: the PyTorch port trains on one device; '
-            "sharding the env axis is ROADMAP.md's parallel item (parallel/mesh.py)")
+def _shard_note(mesh) -> str:
+    return '' if mesh is None else f', sharded x{mesh.size}'
+
+
+def build_training(args: Config, mesh=None) -> TrainContext:
+    """Env, agent, initial carry and the per-round step function.  With
+    ``mesh`` (``parallel/mesh.py:make_mesh``) the carry is built whole on
+    the mesh's lead device and sharded env-axis data parallel, as the
+    module says."""
     device = resolve_device(args)
+    if mesh is not None:
+        if mesh.lead.type != device.type:
+            raise ValueError(f'build_training: args.device={args.device!r} but the mesh\'s '
+                             f'shards are on {[str(d) for d in mesh.devices]}')
+        device = mesh.lead
     env = _resolve_env_def(args)
     spec = env.spec
     if args.state_dim is None:
@@ -261,7 +318,7 @@ def build_training(args: Config) -> TrainContext:
                           if_discrete=bool(args.if_discrete), args=args, device=device)
     agent = _make_agent(args, rb)
     fast_rollout = _maybe_fused_rollout(args, env, agent, device, num_envs, horizon_len,
-                                        reward_scale)
+                                        reward_scale, mesh)
     if args.random_seed is None:
         args.random_seed = max(0, int(args.gpu_id))
     seed = int(args.random_seed)
@@ -275,6 +332,12 @@ def build_training(args: Config) -> TrainContext:
                 load_tree(ckpt, agent.state_to_numpy(agent_state)), device)
             print(f'| train_agent: loaded {ckpt}', flush=True)
     use_host_rollout = env.host_pool is not None and bool(getattr(args, 'host_rollout', True))
+    if env.host_pool is not None and mesh is not None and mesh.world_size > 1:
+        # the JAX runner leaves host-rollout mode here for its io_callback
+        # steps, which the port does not have: the pool would need splitting
+        raise NotImplementedError(
+            f'build_training: the host env {spec.env_name} under a mesh of '
+            f'{mesh.world_size} processes; a host env trains under a one-process mesh')
     env_state, obs = vec_reset(env, gen, num_envs, device)   # a host env: its pool's reset
     buf_state = rb.init() if rb is not None else None
     store_dtype = resolve_storage_dtype(args)
@@ -306,12 +369,18 @@ def build_training(args: Config) -> TrainContext:
         if agent.if_discrete:   # the action histogram of the eval line
             metrics['action_hist'] = torch.bincount(rollout.actions.reshape(-1).long(),
                                                     minlength=int(args.action_dim))
+        if mesh is not None:    # the union's update ran in every process
+            broadcast_agent_state(mesh, agent_state)
+            if not isinstance(env_state, Shards):
+                env_state = split_env_axis(mesh, env_state)
+            obs = split_env_axis(mesh, obs)
         return TrainCarry(agent_state, buf_state, env_state, obs, carry.gen), metrics
 
     def update_from_rollout(carry: TrainCarry, rollout, last_obs, ids=None, update_noise=None):
         """The update half of a round for a rollout collected outside it (the
         host-rollout mode); ``ids`` and ``update_noise`` as for round_fn."""
-        return update_half(carry, rollout, carry.env_state, last_obs, ids, update_noise)
+        with device_scope(carry.gen.device):
+            return update_half(carry, rollout, carry.env_state, last_obs, ids, update_noise)
 
     def round_fn(carry: TrainCarry, noise=None, ids=None, update_noise=None):
         """One round.  ``noise`` (the fused rollout's injected-noise tensor;
@@ -322,8 +391,21 @@ def build_training(args: Config) -> TrainContext:
         policy-gradient noise) replace the draws; tests use them to replay
         the JAX package's round.  In host-rollout mode the rollout runs on
         the pool (``host_collect_rollout``) and the round's update half is
-        ``update_from_rollout``'s."""
+        ``update_from_rollout``'s.  Under a mesh ``noise`` is the union's.
+        The round runs with the carry's device current (its generator's: a
+        population member's card, or the mesh's lead), where its kernels
+        launch."""
+        with device_scope(carry.gen.device):
+            return _round(carry, noise, ids, update_noise)
+
+    def _round(carry: TrainCarry, noise, ids, update_noise):
         nonlocal obs_host
+        if mesh is not None and not isinstance(carry.obs, Shards):
+            raise ValueError('round_fn: this context was built with a mesh; its carry is '
+                             'sharded (shard_train_carry)')
+        if mesh is None and isinstance(carry.obs, Shards):
+            raise ValueError('round_fn: the carry is sharded over a mesh this context was '
+                             'not built with; build_training(args, mesh=...)')
         if use_host_rollout:
             rollout, obs_host = host_collect_rollout(
                 env.host_pool, agent, carry.agent_state, obs_host, gen_host, horizon_len,
@@ -336,9 +418,12 @@ def build_training(args: Config) -> TrainContext:
         else:
             if noise is not None:
                 raise ValueError('injected noise needs the fused-rollout path')
+            env_state, obs = carry.env_state, carry.obs
+            if mesh is not None:   # the one-device program on the union
+                env_state, obs = gather_env_axis(env_state), gather_env_axis(obs)
             rollout, env_state, obs = collect_rollout(
                 env, carry.agent_state, agent.explore_action, agent.env_action,
-                carry.env_state, carry.obs, carry.gen, horizon_len, reward_scale,
+                env_state, obs, carry.gen, horizon_len, reward_scale,
                 extras_fn=agent.rollout_extras, store_dtype=store_dtype)
         return update_half(carry, rollout, env_state, obs, ids, update_noise)
 
@@ -354,11 +439,13 @@ def build_training(args: Config) -> TrainContext:
                 # point obs at the pool's episode starts, so the first stored
                 # transition pairs a real (s, a, r, s')
                 carry = carry._replace(obs=obs, env_state=env_state)
+    if mesh is not None:
+        carry = shard_train_carry(mesh, carry, mesh.axis_names[0])
     return TrainContext(env=env, agent=agent, round_fn=round_fn, carry=carry,
                         steps_per_round=horizon_len * num_envs, device=device,
                         fused_rollout=fast_rollout is not None, rb=rb,
                         update_from_rollout=update_from_rollout,
-                        use_host_rollout=use_host_rollout)
+                        use_host_rollout=use_host_rollout, mesh=mesh)
 
 
 def _carry_tree(carry: TrainCarry, agent: AgentDef) -> dict:
@@ -390,11 +477,24 @@ def _load_carry(path: str, carry: TrainCarry, agent: AgentDef, device) -> TrainC
                       env_state, t(tree['obs']), carry.gen)
 
 
-def _save_carry(path: str, carry: TrainCarry, agent: AgentDef) -> None:
-    """Write the carry through a temporary file, so no torn checkpoint is
-    ever left at ``path``."""
-    save_tree(path + '.tmp.npz', _carry_tree(carry, agent))
-    os.replace(path + '.tmp.npz', path)
+def _save_carry(path: str, carry: TrainCarry, agent: AgentDef, write: bool = True) -> None:
+    """Write the carry, in the union's layout, through a temporary file, so
+    no torn checkpoint is ever left at ``path``.  Across processes every
+    process gathers and the one with ``write`` writes."""
+    carry = gather_train_carry(carry)
+    if write:
+        save_tree(path + '.tmp.npz', _carry_tree(carry, agent))
+        os.replace(path + '.tmp.npz', path)
+
+
+def _rank0_flag(mesh, flag: bool) -> bool:
+    """Rank 0's ``flag`` in every process of the mesh."""
+    if mesh is None or mesh.world_size == 1:
+        return flag
+    import torch.distributed as dist
+    t = torch.tensor([int(flag)], device=mesh.lead)
+    dist.broadcast(t, src=0)
+    return bool(t.item())
 
 
 def train_agent(args: Config, if_single_process: bool = True) -> dict:
@@ -407,9 +507,15 @@ def train_agent(args: Config, if_single_process: bool = True) -> dict:
     ``if_save_buffer``) writes ``train_carry.npz`` every ``save_gap``
     evaluation periods and at the end; an on-policy run always writes it at
     the end, an off-policy one (whose carry holds the replay ring) only when
-    resumable."""
+    resumable.  ``args.mesh_axes`` (``{'dp': n}``) trains over a mesh of the
+    cards, or on the CPU of ``'cpu'`` shards (``parallel/mesh.py``); across
+    processes rank 0 evaluates, writes the files and decides when to stop."""
     args.init_before_training()
-    ctx = build_training(args)
+    mesh = None
+    if getattr(args, 'mesh_axes', None):
+        mesh = make_mesh(args.mesh_axes, mesh_devices(args.mesh_axes, resolve_device(args)))
+    lead = mesh is None or mesh.rank == 0
+    ctx = build_training(args, mesh=mesh)
     carry, round_fn = ctx.carry, ctx.round_fn
     # a host env owns a stateful pool: the evaluator gets its own instance,
     # so evaluation episodes cannot reset or resize the training pool
@@ -445,24 +551,27 @@ def train_agent(args: Config, if_single_process: bool = True) -> dict:
             frac = counts / max(counts.sum(), 1)
             logging_tuple += (' a:' + ' '.join(f'{f:.2f}' for f in frac),)
         steps = ctx.steps_per_round * rounds_per_eval
-        evaluator.evaluate_and_save(carry.agent_state, steps, exp_r, logging_tuple,
-                                    ctx.agent.state_to_numpy)
+        if lead:
+            evaluator.evaluate_and_save(carry.agent_state, steps, exp_r, logging_tuple,
+                                        ctx.agent.state_to_numpy)
         periods += 1
         if resumable and periods % carry_gap == 0:
-            _save_carry(carry_path, carry, ctx.agent)
+            _save_carry(carry_path, carry, ctx.agent, lead)
         total_step += steps
-        if_train = (total_step <= args.break_step
-                    and evaluator.max_r < args.break_score
-                    and not os.path.exists(os.path.join(args.cwd, 'stop')))
+        if_train = _rank0_flag(mesh, total_step <= args.break_step
+                               and evaluator.max_r < args.break_score
+                               and not os.path.exists(os.path.join(args.cwd, 'stop')))
 
     used_time = time.time() - t_start
     print(f'| UsedTime: {used_time:>7.0f} | SavedDir: {args.cwd}', flush=True)
-    evaluator.save_or_load_recorder(if_save=True)
-    evaluator.save_training_curve_jpg()
-    save_tree(os.path.join(args.cwd, 'agent.npz'), ctx.agent.state_to_numpy(carry.agent_state))
+    if lead:
+        evaluator.save_or_load_recorder(if_save=True)
+        evaluator.save_training_curve_jpg()
+        save_tree(os.path.join(args.cwd, 'agent.npz'),
+                  ctx.agent.state_to_numpy(carry.agent_state))
     if ctx.rb is None or resumable:
-        _save_carry(carry_path, carry, ctx.agent)
-    if args.if_save_buffer and ctx.rb is not None:
+        _save_carry(carry_path, carry, ctx.agent, lead)
+    if args.if_save_buffer and ctx.rb is not None and lead:
         ctx.rb.save_or_load_history(carry.buf_state, args.cwd, if_save=True)
     return {
         'recorder': np.array(evaluator.recorder, dtype=np.float64),
@@ -486,8 +595,10 @@ def train_agent_multiprocessing(args: Config) -> dict:
 
 
 def train_agent_multiprocessing_multi_gpu(args: Config) -> dict:
-    """One card: the JAX package's mesh mode is not ported, so this alias
-    trains on ``args.device`` alone."""
+    """Multi-learner training: set ``args.mesh_axes = {'dp': n}`` to shard the
+    env axis over the cards (``parallel/mesh.py``; across processes, after
+    ``parallel/distributed.py:init_distributed``) instead of spawning a
+    learner process per card."""
     return train_agent(args)
 
 

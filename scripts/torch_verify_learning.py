@@ -100,6 +100,19 @@ bf16, host envs and pixels:
   Box2D or mujoco): without it the gym factory's ``ImportError`` stops the
   row.
 
+Population (``scripts/verify_learning.py:398-445``, ``RESULTS.md:48-49``),
+through ``parallel/population.py:train_agent_population`` (8 greedy
+episodes a member evaluation, the JAX default); the line's ``max_r`` is the
+best member's score of the last generation, as the JAX row reads it:
+
+- ``population_ppo``: AgentPPO on Pendulum-v1, 8 members x 128 envs, net
+  (64, 64), gamma 0.97, horizon 200, repeat 64 (U = 25), lr 4e-4, batch 512,
+  8 generations of 12 rounds; target -200;
+- ``population_stock``: AgentPPO on StockTradingEnv-v2, 8 members x 256
+  envs, net (128, 128), gamma 0.99, horizon 128, repeat 8 (U = 2), lr 2e-4,
+  batch 512, 6 generations of 8 rounds; target 100.0, with ``market``: the
+  holding policy's reading on the best member's last evaluation episodes.
+
 Evaluation is over 16 greedy episodes, as the JAX script's.  Prints one JSON
 line per (recipe, seed) with the result, the device and the kernel launches.
 The stock recipes' lines also hold ``market``: what every evaluation would
@@ -302,6 +315,55 @@ def recipes():
     }
 
 
+# name: (agent, env, env_args, target, hypers, population_size, generations, rounds)
+POPULATION_ROWS = {
+    'population_ppo': ('AgentPPO', 'PendulumEnv', dict(PENDULUM, num_envs=128), -200.0,
+                       dict(net_dims=(64, 64), gamma=0.97, horizon_len=200, repeat_times=64,
+                            learning_rate=4e-4, batch_size=512), 8, 8, 12),
+    'population_stock': ('AgentPPO', 'StockTradingVecEnv',
+                         {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 1112,
+                          'state_dim': 151, 'action_dim': 15, 'if_discrete': False}, 100.0,
+                         dict(net_dims=(128, 128), gamma=0.99, horizon_len=128, repeat_times=8,
+                              learning_rate=2e-4, batch_size=512), 8, 6, 8),
+}
+
+
+def run_population(name, seed, device):
+    """One population row: ``(line fields, seconds)``."""
+    import numpy as np
+    import torch
+    from elegantrl_tpu_torch import Config, agents, envs
+    from elegantrl_tpu_torch.config import build_env
+    from elegantrl_tpu_torch.parallel.population import member_seed, train_agent_population
+    from elegantrl_tpu_torch.train.evaluator import make_eval_fn
+    agent, env_class, env_args, target, hypers, P, G, R = POPULATION_ROWS[name]
+    args = Config(getattr(agents, agent), getattr(envs, env_class), dict(env_args))
+    for k, v in hypers.items():
+        setattr(args, k, v)
+    args.device, args.random_seed = device, seed
+    t0 = time.time()
+    res = train_agent_population(args, population_size=P, generations=G,
+                                 rounds_per_generation=R, verbose=True)
+    seconds = time.time() - t0
+    history = res['history']
+    fields = {'config': name, 'agent': agent, 'env': env_args['env_name'],
+              'max_r': float(np.max(history[-1])), 'target': target,
+              'curve': [[int((g + 1) * R * args.horizon_len * env_args['num_envs']),
+                         round(float(np.max(h)), 2), round(float(np.median(h)), 2)]
+                        for g, h in enumerate(history)],
+              'steps': int(P * G * R * args.horizon_len * env_args['num_envs'])}
+    if env_args['env_name'] == 'StockTradingEnv-v2':   # holding, on the best's last episodes
+        env = build_env(args.env_class, args.env_args)._def
+        best = int(np.argmax(history[-1]))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(member_seed(1000 + G - 1, best))
+        hold = make_eval_fn(env, lambda s, obs: torch.zeros((obs.shape[0], 15),
+                                                            device=obs.device),
+                            8, int(args.max_step), torch.device(device))(None, gen)[0]
+        fields['market'] = {'hold_last_episodes': float(np.mean(hold))}
+    return fields, seconds
+
+
 def market_check(args, agent_state, evaluations: int) -> dict:
     """Holding against the trained greedy policy on the evaluator's episodes:
     its generator, seeded as the evaluator seeds it, draws each evaluation's
@@ -364,7 +426,19 @@ def main():
         device = f'cpu ({torch.get_num_threads()} threads)'
     RUN_DEVICE[0] = opts.device
     table = recipes()
-    for name in (opts.only or list(table)):
+    for name in (opts.only or list(table) + list(POPULATION_ROWS)):
+        if name in POPULATION_ROWS:
+            for seed in opts.seeds:
+                before = {k: fn.launches for k, fn in counted.items()}
+                fields, seconds = run_population(name, seed, opts.device)
+                print(json.dumps({**fields, 'device': device, 'seed': seed,
+                                  'pass': bool(fields['max_r'] >= fields['target']),
+                                  'seconds': round(seconds, 1),
+                                  'kernel_launches': {k: fn.launches - before[k]
+                                                      for k, fn in counted.items()
+                                                      if fn.launches > before[k]}}),
+                      flush=True)
+            continue
         agent_class, env_class, env_args, target, hypers = table[name]
         for seed in opts.seeds:
             if isinstance(env_class, Lazy):   # a fresh pool or sim for each run

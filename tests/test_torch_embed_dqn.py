@@ -87,7 +87,8 @@ def updates(request):
     ids = torch.tensor(np.asarray(draws(k_upd)))
     ids = ids if per else ids.long()
     args = _args(Config, per, device='cpu')
-    rb = ReplayBuffer(256, S, A, num_seqs=NS, if_use_per=per, if_discrete=True, args=args)
+    rb = ReplayBuffer(256, S, A, num_seqs=NS, if_use_per=per, if_discrete=True, args=args,
+                      device='cpu')
     agent = make_embed_dqn(NET_DIMS, S, A, args, buffer=rb, ensemble=ensemble)
     s = agent.state_from_numpy(_np(js), 'cpu')
     s2, buf2, m = agent.update(s, buffer_state_from_numpy(_np(jbuf), 'cpu'), None, ids=ids)

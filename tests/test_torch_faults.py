@@ -2,9 +2,10 @@
 ignore without a word, or refused: the compute and storage types (fault
 12: bf16 raised; the off-policy rollout's compute type before it), the
 evaluator's TensorBoard scalars, ``if_remove=None``, the packages' public
-names, ``mesh_axes``, the CUDA sources as package data, where their
-libraries are built, and the env classes' device (the card unless the
-caller asks for the CPU, as ``Config``).  Each is held against the JAX package where it has the
+names, ``mesh_axes`` (fault 10, which trains now), the CUDA sources as
+package data, where their libraries are built, and the env classes' and the
+replay buffer's device (the card unless the caller asks for the CPU, as
+``Config``; fault 14 for the buffer).  Each is held against the JAX package where it has the
 behaviour (the TensorBoard tags and values, the prompt, the names)."""
 import builtins
 import fnmatch
@@ -19,7 +20,7 @@ import torch
 from elegantrl_tpu.config import Config as JConfig
 from elegantrl_tpu.envs import PendulumEnv as JPendulumEnv
 from elegantrl_tpu.train.evaluator import Evaluator as JEvaluator
-from elegantrl_tpu_torch import Config, build_training
+from elegantrl_tpu_torch import Config, build_training, train_agent
 from elegantrl_tpu_torch.agents import AgentPPO, AgentTD3
 from elegantrl_tpu_torch.envs import PendulumEnv
 from elegantrl_tpu_torch.ops import _cuda_build
@@ -186,11 +187,34 @@ def test_save_pytree_round_trip(tmp_path):
     np.testing.assert_array_equal(np.asarray(got['b'][0]), tree['b'][0].numpy())
 
 
-def test_mesh_axes_raises(tmp_path):
+def test_mesh_axes_trains_on_cpu_shards(tmp_path, capsys):
+    """``mesh_axes`` (fault 10: it raised) shards the env axis: ``train_agent``
+    with ``{'dp': 2}`` on the CPU takes two shards on ``'cpu'``, the fused
+    rollout once per shard, and writes a carry in the union's layout."""
     args = Config(AgentPPO, PendulumEnv, dict(PEND))
-    args.device, args.cwd, args.mesh_axes = 'cpu', str(tmp_path), {'dp': 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md's parallel item"):
-        build_training(args)
+    args.device, args.cwd, args.mesh_axes = 'cpu', str(tmp_path / 'run'), {'dp': 2}
+    args.net_dims, args.horizon_len, args.batch_size = (16, 16), 16, 64
+    args.eval_per_step, args.break_step, args.eval_times = 16 * 8, 16 * 8, 2
+    out = train_agent(args)
+    assert 'sharded x2' in capsys.readouterr().out
+    assert out['total_step'] == 2 * 16 * 8 and np.isfinite(out['recorder']).all()
+    args.continue_train, args.mesh_axes = True, None
+    ctx = build_training(args)     # the dp = 2 run's carry restores without a mesh
+    assert ctx.carry.obs.shape == (8, 3)
+
+
+def test_replay_buffer_defaults_to_the_card(monkeypatch):
+    """Fault 14: ``ReplayBuffer`` without a device put its ring on the CPU.
+    It is the card now, as ``Config``: without a GPU the constructor raises,
+    naming the way out; ``device='cpu'`` asks for the CPU."""
+    from elegantrl_tpu_torch.train.replay_buffer import ReplayBuffer
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplayBuffer(16, 3, 1, num_seqs=2)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert ReplayBuffer(16, 3, 1, num_seqs=2).device.type == 'cuda'
+    buf = ReplayBuffer(16, 3, 1, num_seqs=2, device='cpu').init()
+    assert buf.states.device.type == 'cpu'
 
 
 def test_package_data_names_every_cuda_source():

@@ -94,7 +94,7 @@ def test_insert_best_windows_like_jax(N, K, k):
     kept, and the labels below repeat values so ties decide the order."""
     rng = np.random.default_rng(N * K)
     H = 6
-    jbuf, buf = jh.init_hterm_buffer(K, k, 2, 1), ph.init_hterm_buffer(K, k, 2, 1)
+    jbuf, buf = jh.init_hterm_buffer(K, k, 2, 1), ph.init_hterm_buffer(K, k, 2, 1, 'cpu')
     for _ in range(2):
         s, a, ud, um = _windows(rng, H, N)
         q = rng.integers(0, 4, (max(H - min(k, H) + 1, 1), N)).astype(np.float32)
@@ -104,7 +104,7 @@ def test_insert_best_windows_like_jax(N, K, k):
 
 
 def test_top_k_ties_keep_the_lower_env_index():
-    h_buf = ph.init_hterm_buffer(3, 1, 1, 1)
+    h_buf = ph.init_hterm_buffer(3, 1, 1, 1, 'cpu')
     states = torch.arange(6.0).reshape(1, 6, 1)
     q = torch.tensor([[5.0, 7.0, 5.0, 7.0, 5.0, 1.0]])
     out = ph.insert_best_windows(h_buf, states, states, torch.ones(1, 6), torch.ones(1, 6), q, 1)
@@ -118,7 +118,7 @@ def test_rehearsal_sample_and_bounds_like_jax():
     q = rng.standard_normal((4, 5)).astype(np.float32)
     jbuf = _jinsert(jh.init_hterm_buffer(8, 3, 2, 1), *[jnp.asarray(x) for x in (s, a, ud, um, q)],
                     3)
-    buf = ph.insert_best_windows(ph.init_hterm_buffer(8, 3, 2, 1),
+    buf = ph.insert_best_windows(ph.init_hterm_buffer(8, 3, 2, 1, 'cpu'),
                                  *[_t(x) for x in (s, a, ud, um, q)], 3)
     for x, y in zip(jax.jit(jh.return_bounds)(jbuf), ph.return_bounds(buf)):
         assert float(y) == float(x)
@@ -128,7 +128,7 @@ def test_rehearsal_sample_and_bounds_like_jax():
     got = ph.rehearsal_sample(buf, ids)
     for x, y in zip(want, got):
         np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-6, atol=0)
-    _, _, _, w, valid = ph.rehearsal_sample(ph.init_hterm_buffer(8, 4, 2, 1),
+    _, _, _, w, valid = ph.rehearsal_sample(ph.init_hterm_buffer(8, 4, 2, 1, 'cpu'),
                                             torch.zeros(5, dtype=torch.long))
     assert valid.tolist() == [0.0] * 5 and w.tolist() == [0.0] * 5   # not NaN
 
@@ -198,7 +198,7 @@ def off_update(request):
     noise, rows, h_ids = (_t(x) for x in draws(k_upd))
     rows, h_ids = rows.long(), h_ids.long()
     args = _off_args(Config, device='cpu')
-    rb = ReplayBuffer(256, S, A, num_seqs=NS)
+    rb = ReplayBuffer(256, S, A, num_seqs=NS, device='cpu')
     agent = _off_agent(kind, args, rb, port=True)
     assert agent.update.__name__ == 'scan_update'
     s = agent.pre_update(agent.state_from_numpy(_np(js0), 'cpu'),

@@ -65,6 +65,13 @@ def test_probe_module_and_script_are_probed():
     assert not re.search(r'^\s*(import|from)\s+(jax|elegantrl_tpu)\b', text, re.M)
 
 
+def test_parallel_modules_are_probed():
+    """The mesh, the process group and the population, whose modules the
+    probe above imports and the source scan below reads."""
+    for name in ('__init__', 'mesh', 'distributed', 'population'):
+        assert os.path.isfile(os.path.join(PKG, 'parallel', name + '.py')), name
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

@@ -119,7 +119,7 @@ def test_replay_gathers_unchanged_on_cpu(discrete):
     per-field gathers they replace; feature_major gives their (..., dim, B)
     transposes, contiguous."""
     M, N, S, A = 24, 4, 5, 3
-    rb = ReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete)
+    rb = ReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete, device='cpu')
     g = torch.Generator().manual_seed(3)
     acts = (torch.randint(0, A, (M, N), generator=g, dtype=torch.int32) if discrete
             else torch.randn((M, N, A), generator=g))

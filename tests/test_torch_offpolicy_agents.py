@@ -105,7 +105,7 @@ def updates(request):
     out = {}
     for path in ('scan', 'chunk'):
         args = _args(Config, device='cpu', use_fused_update=path == 'chunk')
-        rb = ReplayBuffer(256, S, A, num_seqs=NS, if_discrete=discrete)
+        rb = ReplayBuffer(256, S, A, num_seqs=NS, if_discrete=discrete, device='cpu')
         agent = _make(kind, S, A, args, rb, port=True)
         s = agent.state_from_numpy(_np(js), 'cpu')
         buf = buffer_state_from_numpy(_np(jbuf), 'cpu')
@@ -272,7 +272,7 @@ def test_selection_rule(kind, capsys):
     either device, said so.  Batch 128 on a card with the kernel refused
     raises; a kernel asked for outside the JAX scope raises too."""
     S, A = (4, 2) if kind == 'dqn' else (6, 2)
-    rb = ReplayBuffer(64, S, A, num_seqs=N, if_discrete=kind == 'dqn')
+    rb = ReplayBuffer(64, S, A, num_seqs=N, if_discrete=kind == 'dqn', device='cpu')
     for device in ('cpu', 'cuda'):
         _make(kind, S, A, _args(Config, device=device, batch_size=64), rb, port=True)
         assert 'use_fused_update: PyTorch path' in capsys.readouterr().out

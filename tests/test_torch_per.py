@@ -44,7 +44,7 @@ def _trees(rng):
     ids = np.arange(M, dtype=np.int32)
     prob = _halves(rng, (M, N))
     jtree = jax.jit(jt.update)(jt.init(), jnp.asarray(ids), jnp.asarray(prob))
-    ptree = pt.update(pt.init(), _t(ids).long(), _t(prob))
+    ptree = pt.update(pt.init('cpu'), _t(ids).long(), _t(prob))
     return jt, pt, jtree, ptree
 
 
@@ -128,7 +128,7 @@ def buffers():
     jargs, args = JConfig(), Config()
     jargs.lambda_fit_cum_r = args.lambda_fit_cum_r = 0.1
     jrb = JReplayBuffer(64, S, A, num_seqs=N, if_use_per=True, args=jargs)
-    rb = ReplayBuffer(64, S, A, num_seqs=N, if_use_per=True, args=args)
+    rb = ReplayBuffer(64, S, A, num_seqs=N, if_use_per=True, args=args, device='cpu')
     jbuf, buf = jrb.init(), rb.init()
     update = jax.jit(jrb.update)
     for h in (40, 40):

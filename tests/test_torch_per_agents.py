@@ -137,7 +137,7 @@ def _run(kind, repeat, jmode='scan', paths=('scan',), cum=False, key=11):
     for path in paths:
         args = _args(Config, repeat, device='cpu', use_fused_update=path == 'fused', **extra)
         rb = ReplayBuffer(256, S, A, num_seqs=NS, if_use_per=True, if_discrete=discrete,
-                          args=args)
+                          args=args, device='cpu')
         agent = _agent(kind, S, A, args, rb, port=True)
         assert (agent.update.__name__ == 'fused_update') == (path == 'fused')
         s = agent.state_from_numpy(_np(js), 'cpu')

@@ -36,7 +36,7 @@ def buffers(request):
     pointer runs 0 -> 6 -> 2 -> 8 and the ring wraps twice."""
     discrete = request.param
     jrb = JReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete, args=JConfig())
-    rb = ReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete)
+    rb = ReplayBuffer(M, S, A, num_seqs=N, if_discrete=discrete, device='cpu')
     jbuf, buf = jrb.init(), rb.init()
     rng = np.random.default_rng(0)
     states = []
@@ -125,8 +125,8 @@ def test_unported_methods_raise(method, tmp_path):
     args = Config()
     args.lambda_fit_cum_r = 0.5
     rng = np.random.default_rng(1)
-    plain = ReplayBuffer(M, S, A, num_seqs=N)
-    full = ReplayBuffer(M, S, A, num_seqs=N, if_use_per=True, args=args)
+    plain = ReplayBuffer(M, S, A, num_seqs=N, device='cpu')
+    full = ReplayBuffer(M, S, A, num_seqs=N, if_use_per=True, args=args, device='cpu')
     buf = full.update(full.init(), tuple(torch.tensor(x) for x in _items(rng, False)))
     ids = (torch.tensor([0, 3, 3]), torch.tensor([1, 2, 2]))
     calls = {'sample_for_per': lambda rb, b: rb.sample_for_per(b, B, u=torch.rand(N, B // N)),

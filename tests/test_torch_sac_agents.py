@@ -92,7 +92,7 @@ def updates(request):
     out = {}
     for path in ('scan', 'chunk'):
         args = _args(Config, device='cpu', use_fused_update=path == 'chunk')
-        rb = ReplayBuffer(256, S, A, num_seqs=NS)
+        rb = ReplayBuffer(256, S, A, num_seqs=NS, device='cpu')
         agent = make_sac(NET_DIMS, S, A, args, rb, modsac=modsac)
         s = agent.state_from_numpy(_np(js), 'cpu')
         buf = buffer_state_from_numpy(_np(jbuf), 'cpu')
@@ -243,7 +243,7 @@ def test_selection_rule(modsac, capsys):
     chunk: the PyTorch update on either device, said so.  Batch 1024 at
     (128, 128) on a card takes the kernel, or raises with the kernel
     refused; a kernel asked for outside the JAX scope raises too."""
-    rb = ReplayBuffer(64, 6, 2, num_seqs=N)
+    rb = ReplayBuffer(64, 6, 2, num_seqs=N, device='cpu')
     make = lambda **kw: make_sac(kw.pop('net_dims', (128, 128)), 6, 2,  # noqa: E731
                                  _args(Config, **{'batch_size': 1024, **kw}), rb, modsac=modsac)
     for device in ('cpu', 'cuda'):
@@ -267,7 +267,7 @@ def test_unported_variants_raise():
     """PER, ``lambda_fit_cum_r`` and the H-term, once unported, keep SAC off
     its chunk as in the JAX package: they build on the scan path, and asking
     for the kernel raises."""
-    rb = ReplayBuffer(256, S, A, num_seqs=NS)
+    rb = ReplayBuffer(256, S, A, num_seqs=NS, device='cpu')
     for kw, hterm in ((dict(if_use_per=True), False), (dict(lambda_fit_cum_r=0.5), False),
                       ({}, True)):
         agent = make_sac(NET_DIMS, S, A, _args(Config, device='cpu', **kw), rb, hterm=hterm)
