@@ -169,8 +169,28 @@ PyTorch version:
     (``distributed_world1``); ``train_agent`` with ``mesh_axes={'dp': -1}``,
     ``elastic_restore`` of its carry onto ``{'dp': 2}``, a round and
     ``valid_agent`` (``train_agent_mesh``);
+15c. ``marl/`` (``marl_phases``): MAPPO, MADDPG, QMIX, VDN, the recurrent
+    MAPPO and the recurrent QMIX on TeamChasing at their learning recipes'
+    sizes, a few rounds each with ms a round, finite metrics and every
+    tensor on the card, then each ``train_*`` entry point for two evaluated
+    rounds (PyTorch ops: the JAX package runs no Pallas kernel there);
 16. the kernels line (the sharded wrappers' numbers ride with the entry of
     the kernel they launch, ``sharded``) and the device line.
+
+The streamed designs of the rollout kernels (layer 2 read from a copy of
+the weights in device memory, taken where no cluster holds the weight
+slices) are held against their plain versions with the tolerances of the
+resident designs' checks: ``k13_vs_plain_streamed`` (K1 and K3 at (384,
+384) and (1024, 1024)), ``k13_bf16_vs_plain_streamed`` ((1024, 1024) in
+bf16), ``k6_vs_plain_streamed`` (ddpg, sac and dqn at (1024, 1024), ddpg
+and dqn in bf16), ``k4_vs_plain`` at (512, 512) and (640, 640) with the
+critic pass, ``k4_offpolicy_vs_plain`` under the ddpg head at (512, 512),
+``k4_bf16_vs_plain`` and ``critic_bf16_vs_plain`` at (1024, 1024); and
+three main paths take them: ``main_path_wide_f32`` (PPO on Pendulum at
+(384, 384) in float32: the streamed K1, K10, K2), ``main_path_td3_wide``
+(path A at (1024, 1024): the streamed K6, K7) and ``main_path_stock_wide``
+(``ppo_stock`` at (640, 640): the streamed K4 actor and critic pass, the
+autograd update, as the JAX package runs XLA ops there).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -260,20 +280,29 @@ def profiled_ms(torch, fn, reps, kernel_name):
     return ms
 
 
-def device_kernels(torch, fn, reps=3, traces=3):
+def device_kernels(torch, fn, reps=3, traces=4):
     """The names of the CUDA kernels ``reps`` calls of ``fn`` launch (memsets
     and copies left out), from ``torch.profiler``.  A trace can come back
     without some of its device events, never with an extra one, so of
     ``traces`` traces the one holding the most is kept."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     best = []
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+    for attempt in range(traces):
+        # every other trace records a warm-up step first and keeps the
+        # second: the device tracing is then already running when the
+        # counted calls launch (a trace started cold has dropped its first
+        # kernel)
+        warm = attempt % 2 == 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1) if warm else None) as prof:
+            for _ in range(2 if warm else 1):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                if warm:
+                    prof.step()
         names = [ev.name for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA
                  and not ev.name.startswith(('Memset', 'Memcpy', '[memory]'))]
@@ -291,6 +320,11 @@ PATH_A = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-
               updates=15)
 PATH_B = dict(envs=64, horizon=64, buffer=20000, batch=128, repeat=1.0, lr=1e-3,
               updates=156)
+# path A at (1024, 1024) (main_path_td3_wide): the JAX package's DDPG/TD3
+# chunk takes a net that wide only at max(net_dims) * batch <= 131072
+# (agents/ddpg_td3.py, the JAX eligibility copied term by term), so
+# batch 128 (at 1024 it runs XLA ops and the port autograd)
+PATH_A_WIDE = dict(PATH_A, batch=128, updates=125)
 # path C, SAC on HopperSlip: the JAX package's sac_hopper_shape (E = 4)
 PATH_C = dict(envs=1024, horizon=32, buffer=4000, batch=1024, repeat=4.0, lr=3e-4,
               updates=15)
@@ -327,13 +361,15 @@ def offpolicy_smem_pairs():
     out = {}
     for env_name, head in K6_PAIRS:
         body = fr.KERNEL_ENV_BODIES[env_name]
-        for dims in (OFF_NET, (256, 256), (96, 160), (512, 512)):
+        for dims in (OFF_NET, (256, 256), (96, 160), (512, 512), (1024, 1024), (1024, 256)):
             for c in fr.ROLLOUT_CLUSTERS:
                 for bf in (0, 1):
-                    out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c},bf16={bf}]'] = (
-                        fr._library().offpolicy_rollout_smem_bytes(
-                            body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf),
-                        fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)))
+                    for st in (0, fr.STREAMED):   # the resident and the streamed layouts
+                        out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c},bf16={bf},'
+                            f'streamed={int(st > 0)}]'] = (
+                            fr._library().offpolicy_rollout_smem_bytes(
+                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf | st),
+                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), bool(st)))
     out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
     out['ddpg_update'] = (fo._ddpg_library().ddpg_update_smem_bytes(), fo.DDPG_SMEM_BYTES)
     out['sac_update'] = (fo._sac_library().sac_update_smem_bytes(), fo.SAC_SMEM_BYTES)
@@ -352,18 +388,20 @@ def stock_smem_pairs():
     body = StockTradingVecEnv(num_envs=1)._def.kernel_body
     lib, S, A = fr._library(), body.state_dim, body.action_dim
     out = {}
-    for dims in (OFF_NET, (256, 256), (96, 160), (448, 448), (576, 576), (704, 704)):
+    for dims in (OFF_NET, (256, 256), (96, 160), (448, 448), (576, 576), (704, 704),
+                 (1024, 1024), (640, 640)):
         for c in fr.ROLLOUT_CLUSTERS:
             for bf in (0, 1):
-                out[f'stock_rollout[{dims},cluster={c},bf16={bf}]'] = (
-                    lib.stock_rollout_smem_bytes(*dims, c, bf),
-                    fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf)))
-                for head in fr.CONTINUOUS_HEADS:
-                    out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{dims},cluster={c},'
-                        f'bf16={bf}]'] = (
-                        lib.offpolicy_rollout_smem_bytes(body.kernel_id,
-                                                         fr.OFFPOLICY_HEADS[head], *dims, c, bf),
-                        fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)))
+                for st in (0, fr.STREAMED):   # the resident and the streamed layouts
+                    key = f'{dims},cluster={c},bf16={bf},streamed={int(st > 0)}'
+                    out[f'stock_rollout[{key}]'] = (
+                        lib.stock_rollout_smem_bytes(*dims, c, bf | st),
+                        fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf), streamed=bool(st)))
+                    for head in fr.CONTINUOUS_HEADS:
+                        out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{key}]'] = (
+                            lib.offpolicy_rollout_smem_bytes(
+                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf | st),
+                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), bool(st)))
         out[f'critic_values[{dims}]'] = (lib.critic_values_smem_bytes(*dims),
                                          fr.critic_smem_bytes(dims))
     return out
@@ -416,13 +454,14 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     def cuda_ms_(fn, reps, warmup=1):
         return cuda_ms(torch, fn, reps, warmup)
 
-    def flat_for(body, head, seed_):
+    def flat_for(body, head, seed_, dims=OFF_NET):
         """The head's net as the agents initialise it, from a seed."""
         S, A = body.state_dim, body.action_dim
-        heads = {'sac': [((D2, 2 * A), 0.1)], 'modsac': [((D2, A), 0.1)] * 2,
-                 'dqn_duel': [((D2, A), 0.1), ((D2, 1), 0.1)]}.get(head, [((D2, A), 0.1)])
-        nets = ([((S, D1, D2, A), 0.1)] if head in ('ddpg', 'dqn')
-                else [((S, D1, D2), None)] + heads)
+        d1, d2 = dims
+        heads = {'sac': [((d2, 2 * A), 0.1)], 'modsac': [((d2, A), 0.1)] * 2,
+                 'dqn_duel': [((d2, A), 0.1), ((d2, 1), 0.1)]}.get(head, [((d2, A), 0.1)])
+        nets = ([((S, d1, d2, A), 0.1)] if head in ('ddpg', 'dqn')
+                else [((S, d1, d2), None)] + heads)
         return init_flat(torch.Generator().manual_seed(seed_), nets, dev)
 
     def k6_noise(body, head, gen, h, n):
@@ -725,6 +764,121 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             emit(phase='k6_bf16_vs_plain' if compute is not None else 'k6_store_bf16_vs_plain',
                  kernel=tag, envs=n, horizon=h, two_runs_bitwise_equal=True, **res,
                  tolerance=BF16_TOL, device=name, nvidia_smi=smi)
+
+    # ---- k6_vs_plain_streamed: the streamed design (layer 2 read from the
+    # stream_weights copy in device memory), taken where no cluster holds the
+    # net's slices, at (1024, 1024): TD3 (ddpg) and SAC on HopperSlip at path
+    # A's shape and DQN on CartPole at path B's in float32, with
+    # k6_vs_plain's tolerances (whole trajectories, both noise modes, and one
+    # step from every visited state); ddpg and dqn in bf16 with
+    # k6_bf16_vs_plain's (BF16_TOL, the float32 control breaking it for the
+    # Gaussian head); two runs bitwise equal; the kernel's time at each
+    # cluster size its streamed layout fits and the bounds (operations at
+    # the FP32 rate, or the dense bf16 rate; stream_bytes: the W2 bytes the
+    # lane groups read from L2, one net a group and step)
+    k6_streamed = {}
+    for env_name, head, dims, compute in (
+            ('HopperSlip-v0', 'ddpg', (1024, 1024), None), ('HopperSlip-v0', 'sac', (1024, 1024), None),
+            ('CartPole-v1', 'dqn', (1024, 1024), None), ('HopperSlip-v0', 'ddpg', (1024, 1024), bfr),
+            ('CartPole-v1', 'dqn', (1024, 1024), bfr)):
+        body = fr.KERNEL_ENV_BODIES[env_name]
+        bf = compute is not None
+        assert fr.offpolicy_fits(body, head, dims, bf)
+        assert not fr.offpolicy_fits_resident(body, head, dims, bf)
+        path = PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B
+        n, h = path['envs'], path['horizon']
+        g = torch.Generator(device=dev).manual_seed(43)
+        flat = flat_for(body, head, 7, dims)
+        env_def = env_classes[env_name](num_envs=1)._def
+        f0, i0 = body.pack(env_def.init(g, n, dev))
+        i0 = (torch.arange(n, device=dev, dtype=torch.int32) * 37 % env_def.spec.max_step)[None]
+        if body is fr.HOPPER_BODY:
+            f0[1, :16], f0[3, :16] = 0.27, -3.0
+        f0, i0 = f0.contiguous(), i0.contiguous()
+        nz = k6_noise(body, head, g, h, n)
+        nz_all = nz.transpose(0, 1).reshape(1, nz.shape[1], h * n).contiguous()
+        kw = dict(body=body, head=head, net_dims=dims, reward_scale=1.0, noise_std=0.1,
+                  explore_rate=0.25, std_clip=std_clip(head), compute_dtype=compute)
+        tol = BF16_TOL['trajectory'] if bf else 2e-2
+        parted_most = max(1, int((BF16_TOL['share_parted'] if bf else 0.01) * n))
+        tag = f'offpolicy_rollout{"_bf16" if bf else ""}[{env_name},{head},{dims},streamed]'
+        report = {}
+        for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
+            trace = []
+            got = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            again = fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, **kw, **extra)
+            want = fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h, env_trace=trace,
+                                                  **kw, **extra)
+            torch.cuda.synchronize()
+            assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
+                tag, mode, 'two runs differ')
+            differ, worst = k6_fields_differ(as_f32(got), as_f32(want), tol)
+            parted = differ.any(0)
+            assert int(parted.sum()) <= parted_most, (tag, mode, int(parted.sum()))
+            assert float(worst[:, ~parted].max()) <= tol, (tag, mode)
+            if not bf:
+                end = torch.maximum((got.env_f - want.env_f).abs().amax(0),
+                                    (got.env_i != want.env_i).any(0).float())
+                assert float(end[~parted].max()) <= 2e-2, (tag, mode)
+            report[mode] = dict(lanes_parted=int(parted.sum()),
+                                max_abs_diff_kept=float(worst[:, ~parted].max()))
+            if mode == 'injected':
+                f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()
+                i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
+        g1 = fr.offpolicy_rollout(flat, f_all, i_all, horizon_len=1, noise=nz_all, **kw)
+        w1 = fr.offpolicy_rollout_reference(flat, f_all, i_all, horizon_len=1, noise=nz_all,
+                                            **kw)
+        torch.cuda.synchronize()
+        res = dict(name=tag, net_dims=list(dims), trajectory=report)
+        if bf:
+            one = k6_one_step(g1, w1, h * n)
+            assert one['within'], (tag, one)
+            control = k6_one_step(fr.offpolicy_rollout(
+                flat, f_all, i_all, horizon_len=1, noise=nz_all, **dict(kw, compute_dtype=None)),
+                w1, h * n)
+            if head in fr.CONTINUOUS_HEADS:
+                assert not control['within'], ('the f32 kernel passed BF16_TOL', tag, control)
+            res.update(one_step=one, control_f32_kernel=control, max_abs_err=one['max_abs'])
+        else:
+            flip, _ = k6_fields_differ(g1, w1, float('inf'))
+            flip = (flip[0] | (g1.env_i != w1.env_i).any(0)
+                    | ((g1.env_f - w1.env_f).abs().amax(0) > 0.25))
+            assert int(flip.sum()) <= 8, (tag, int(flip.sum()))
+            one = {}
+            for f in g1._fields:
+                a, b = getattr(g1, f), getattr(w1, f)
+                if a.dtype.is_floating_point:
+                    d = (a - b).abs()
+                    one[f] = float((d[:, ~flip] if f == 'env_f' else d[0][~flip]).max())
+            assert all(v <= 1e-4 for v in one.values()), (tag, one)
+            res.update(one_step=one, one_step_threshold_flips=int(flip.sum()),
+                       max_abs_err=max(one.values()))
+        ms = cuda_ms_(lambda: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h, seed=seed, **kw),
+                      reps=5, warmup=1)
+        plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
+                                                                   seed=seed, **kw), reps=1)
+        variant = int(bf) | fr.STREAMED
+        sizes = {c: cuda_ms_(lambda c=c: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h,
+                                                              seed=seed, cluster=c, **kw),
+                             reps=3, warmup=1)
+                 for c in fr.ROLLOUT_CLUSTERS
+                 if fr.offpolicy_smem_bytes(body, dims, head, c, bf, True) <= fr.SMEM_LIMIT}
+        picked = fr._library().offpolicy_rollout_cluster(
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, *dims, 0, variant)
+        b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), dims,
+                              tflops=H100_BF16_TFLOPS if bf else None)
+        stream_bytes = (n // fr.OFF_LANES) * h * dims[0] * dims[1] * (2 if bf else 4)
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, cluster=picked,
+                   cluster_ms=sizes, stream_bytes=stream_bytes,
+                   stream_ms_at_hbm_rate=stream_bytes / (peaks_for(name)[1][1] * 1e12) * 1e3)
+        if bf:
+            res['bound_ms_fp32'] = k6_bound(body, head, n, h, flat.numel(), dims)[0]
+        k6_streamed[(env_name, head, bf)] = res
+        emit(phase='k6_vs_plain_streamed', kernel=tag, envs=n, horizon=h,
+             two_runs_bitwise_equal=True, **res,
+             tolerance=(BF16_TOL if bf else {'trajectory': 2e-2, 'lanes_parted': parted_most,
+                                             'one_step': 1e-4, 'threshold_flips': 8}),
+             device=name, nvidia_smi=smi)
 
     # the DQN heads' exploration: with zero weights and the bias favouring
     # action 0, an action other than 0 comes only from exploring; over
@@ -1152,6 +1306,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         body = fr.KERNEL_ENV_BODIES[task[2]]
         carry, rb = ctx.carry, ctx.rb
         bf = hyper.get('compute_dtype') == 'bfloat16'
+        dims = tuple(a.net_dims)
+        streamed = not fr.offpolicy_fits_resident(body, head, dims, bf)   # the streamed design
         types = dict(compute_dtype=torch.bfloat16 if bf else None,
                      store_dtype=(torch.bfloat16 if hyper.get('storage_dtype') == 'bfloat16'
                                   else None))
@@ -1162,7 +1318,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         while buf.size < rb.max_size:
             s_ = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=carry.gen, device=dev,
                                dtype=torch.int32)
-            out = fr.offpolicy_rollout(flat, f, i, body=body, head=head, net_dims=OFF_NET,
+            out = fr.offpolicy_rollout(flat, f, i, body=body, head=head, net_dims=dims,
                                        horizon_len=path['horizon'], reward_scale=1.0,
                                        noise_std=0.05, explore_rate=0.25, seed=s_, **types)
             buf = rb.update(buf, (out.states, out.actions, out.rewards, 1.0 - out.terminals,
@@ -1194,7 +1350,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
             [x for x in carry.agent_state if isinstance(x, torch.Tensor)], p0))
         chunks = -(-U // 16)
         update_counts = {k: v for k, v in by_chunk.items() if v}
-        assert by_kernel == {f'{task[2]},{head}' + (',bf16' if bf else ''): ROUNDS}, by_kernel
+        assert by_kernel == {f'{task[2]},{head}' + (',bf16' if bf else '')
+                             + (',streamed' if streamed else ''): ROUNDS}, by_kernel
         assert update_counts == ({} if autograd else
                                  {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}), update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
@@ -1206,7 +1363,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         assert moved > 0.0
         emit(phase=phase, agent=task[0].__name__, env=task[2], envs=path['envs'],
              horizon=path['horizon'], ring_rows=rb.max_size, batch=path['batch'],
-             repeat=path['repeat'], net_dims=OFF_NET, updates_per_round=U,
+             repeat=path['repeat'], net_dims=dims, updates_per_round=U,
              ring_filled_by=f'{fills} kernel rollouts inserted without updates ({fill_s:.3f} s)',
              rounds=ROUNDS, launches={'fused_rollout': by_kernel, 'update_chunks': update_counts,
                                       'buffer_gather_fields': gathers},
@@ -1232,6 +1389,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         td3_hopper, 'ddpg', PATH_A, 'main_path_td3_hopper_bf16_storage', dict(
             fused_rollout_bf16_ms=k6_bf16[('HopperSlip-v0', 'ddpg', True, True)]['ms']), gamma=0.99,
         compute_dtype='bfloat16', storage_dtype='bfloat16', autograd=True)
+    # path A at (1024, 1024) float32 with batch 128 (PATH_A_WIDE), past the
+    # widths a cluster holds: the streamed K6 and the K7 chunk, 10 rounds
+    launches_a_wide = timed_rounds(td3_hopper, 'ddpg', PATH_A_WIDE, 'main_path_td3_wide', dict(
+        fused_rollout_streamed_ms=k6_streamed[('HopperSlip-v0', 'ddpg', False)]['ms']),
+        gamma=0.99, net_dims=(1024, 1024), compute_dtype='float32')
+    assert launches_a_wide[1], launches_a_wide
     small_round_vs_cpu(dqn_cartpole, 'dqn', 64, 16, 128, 16.0,
                        'main_path_dqn_cartpole_small_vs_cpu')
     launches_b = timed_rounds(dqn_cartpole, 'dqn', PATH_B, 'main_path_dqn_cartpole', dict(
@@ -1501,6 +1664,20 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     for k in kernels:
         if k['name'] == 'fused_rollout[HopperSlip-v0,ddpg]':
             k['pairs_store_bf16'] = reduced_pairs(False)
+    # the streamed design of K6/K6' (offpolicy_rollout_kernel<Body, HEAD, BF,
+    # true>): its entry is path A's at (1024, 1024), main_path_td3_wide's
+    # launches; every streamed check rides along
+    a = k6_streamed[('HopperSlip-v0', 'ddpg', False)]
+    kernels.append({'name': 'offpolicy_rollout[HopperSlip-v0,ddpg,streamed]', 'route': 'cuda',
+                    'source': rollout_src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:1006',
+                    'launches': launches_a_wide[0]['HopperSlip-v0,ddpg,streamed'],
+                    'max_abs_err': a['max_abs_err'], 'ms': a['ms'], 'plain_ms': a['plain_ms'],
+                    'bound_ms': a['bound_ms'], 'bound_by': a['bound_by'], 'library_ms': None,
+                    'net_dims': a['net_dims'], 'cluster': a['cluster'],
+                    'cluster_ms': a['cluster_ms'], 'stream_bytes': a['stream_bytes'],
+                    'checks': {v['name']: {f: v[f] for f in (
+                        'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err', 'cluster',
+                        'stream_bytes')} for v in k6_streamed.values()}})
     return kernels, k9_lunar
 
 
@@ -1701,18 +1878,39 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         st.act.std_log.fill_(-0.5)
     net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
     k4 = {}
-    for recipe, path in (('ppo_stock', PPO_STOCK), ('ppo_stock_4k', PPO_STOCK_4K),
-                         ('ragged_300', dict(PPO_STOCK, envs=300))):
+
+    def stock_state(dims, seed_):
+        s = make_ppo(dims, S, A, Config()).init(seed_, dev)
+        s = s._replace(norm_avg=stx.norm_avg, norm_std=stx.norm_std)
+        with torch.no_grad():
+            s.act.std_log.fill_(-0.5)
+        return s
+
+    # past the resident designs' widths, the streamed ones (k4_vs_plain's
+    # checks and tolerances): (512, 512), the actor kernel streamed and the
+    # critic pass on 64-sample tiles, and (640, 640), both streamed
+    for recipe, path, dims in (('ppo_stock', PPO_STOCK, STOCK_NET),
+                               ('ppo_stock_4k', PPO_STOCK_4K, STOCK_NET),
+                               ('ragged_300', dict(PPO_STOCK, envs=300), STOCK_NET),
+                               ('ppo_stock_512_streamed', PPO_STOCK, (512, 512)),
+                               ('ppo_stock_640_streamed', PPO_STOCK, (640, 640))):
         n, h = path['envs'], path['horizon']
-        f0, i0 = start_rows(n, T - 61, g)
-        nz = noise(g, h, n)
-        bkw = dict(net_dims=STOCK_NET, reward_scale=2.0 ** -8, body=body)
+        stx = st if dims == STOCK_NET else stock_state(dims, 2)
+        netx = (stx.act_flat, stx.cri_flat, stx.norm_avg, stx.norm_std)
+        a_st = min(fr.actor_smem_bytes(S, dims, A, c) for c in fr.ROLLOUT_CLUSTERS) > fr.SMEM_LIMIT
+        variant = fr.STREAMED if a_st else 0
+        # the streamed widths draw from a generator of their own, so the
+        # resident checks keep their inputs
+        gx = g if dims == STOCK_NET else torch.Generator(device=dev).manual_seed(53)
+        f0, i0 = start_rows(n, T - 61, gx)
+        nz = noise(gx, h, n)
+        bkw = dict(net_dims=dims, reward_scale=2.0 ** -8, body=body)
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
-            got = fr.rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
-            again = fr.rollout(*net, f0, i0, horizon_len=h, **bkw, **extra)
-            want = fr.rollout_reference(*net, f0, i0, horizon_len=h, env_trace=trace, **bkw,
+            got = fr.rollout(*netx, f0, i0, horizon_len=h, **bkw, **extra)
+            again = fr.rollout(*netx, f0, i0, horizon_len=h, **bkw, **extra)
+            want = fr.rollout_reference(*netx, f0, i0, horizon_len=h, env_trace=trace, **bkw,
                                         **extra)
             torch.cuda.synchronize()
             assert all(torch.equal(getattr(got, f), getattr(again, f)) for f in got._fields), (
@@ -1746,8 +1944,8 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         f_all = torch.cat([f for f, _ in trace], dim=1).contiguous()
         i_all = torch.cat([i for _, i in trace], dim=1).contiguous()
         nz_all = nz_.transpose(0, 1).reshape(1, nz_.shape[1], h * n).contiguous()
-        got1 = fr.rollout(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
-        want1 = fr.rollout_reference(*net, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        got1 = fr.rollout(*netx, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
+        want1 = fr.rollout_reference(*netx, f_all, i_all, horizon_len=1, noise=nz_all, **bkw)
         torch.cuda.synchronize()
         flip, explained = explain_flips(got1, want1, torch.tanh(want1.actions[0]),
                                         nz_all[0, A:])
@@ -1758,43 +1956,46 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         assert all(one[f] <= t for f, t in tol.items()), one
         # the critic pass alone against its plain version, on the stored states
         assert market_shared(got.states), 'the critic pass precondition'
-        v = fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, got.states,
-                             net_dims=STOCK_NET)
-        v2 = fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, got.states,
-                              net_dims=STOCK_NET)
+        v = fr.critic_values(stx.cri_flat, stx.norm_avg, stx.norm_std, got.states,
+                             net_dims=dims)
+        v2 = fr.critic_values(stx.cri_flat, stx.norm_avg, stx.norm_std, got.states,
+                              net_dims=dims)
         torch.cuda.synchronize()
         assert torch.equal(v, v2), 'critic pass runs differ'
 
-        v_ref = fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, got.states,
-                                           net_dims=STOCK_NET)
+        v_ref = fr.critic_values_reference(stx.cri_flat, stx.norm_avg, stx.norm_std, got.states,
+                                           net_dims=dims)
         # and on a slice whose H N (693) is no multiple of the 64-sample tile
         odd = got.states[:7, :, :99].contiguous()
         critic_err = max(float((v - v_ref).abs().max()), float((
-            fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std, odd, net_dims=STOCK_NET)
-            - fr.critic_values_reference(st.cri_flat, st.norm_avg, st.norm_std, odd,
-                                         net_dims=STOCK_NET)).abs().max()))
+            fr.critic_values(stx.cri_flat, stx.norm_avg, stx.norm_std, odd, net_dims=dims)
+            - fr.critic_values_reference(stx.cri_flat, stx.norm_avg, stx.norm_std, odd,
+                                         net_dims=dims)).abs().max()))
         assert critic_err <= CRITIC_TOL, critic_err
-        tf32_err = float((critic_1xtf32(st.cri_flat, st.norm_avg, st.norm_std, got.states,
-                                        STOCK_NET) - v_ref).abs().max())
+        tf32_err = float((critic_1xtf32(stx.cri_flat, stx.norm_avg, stx.norm_std, got.states,
+                                        dims) - v_ref).abs().max())
         assert tf32_err > CRITIC_TOL, ('the critic limit does not part 1xTF32', tf32_err)
-        ms = cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed, **bkw),
+        ms = cuda_ms(torch, lambda: fr.rollout(*netx, f0, i0, horizon_len=h, seed=seed, **bkw),
                      reps=10, warmup=2)
-        plain_ms = cuda_ms(torch, lambda: fr.rollout_reference(*net, f0, i0, horizon_len=h,
+        plain_ms = cuda_ms(torch, lambda: fr.rollout_reference(*netx, f0, i0, horizon_len=h,
                                                                seed=seed, **bkw), reps=1)
-        c_ms = cuda_ms(torch, lambda: fr.critic_values(st.cri_flat, st.norm_avg, st.norm_std,
-                                                       got.states, net_dims=STOCK_NET),
+        c_ms = cuda_ms(torch, lambda: fr.critic_values(stx.cri_flat, stx.norm_avg, stx.norm_std,
+                                                       got.states, net_dims=dims),
                        reps=10, warmup=2)
         c_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
-            st.cri_flat, st.norm_avg, st.norm_std, got.states, net_dims=STOCK_NET), reps=2)
-        cluster = fr._library().stock_rollout_cluster(n, D1, D2, 0, 0)
-        cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*net, f0, i0, horizon_len=h, seed=seed,
+            stx.cri_flat, stx.norm_avg, stx.norm_std, got.states, net_dims=dims), reps=2)
+        cluster = fr._library().stock_rollout_cluster(n, *dims, 0, variant)
+        cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*netx, f0, i0, horizon_len=h, seed=seed,
                                                            stock_cluster=c, **bkw),
-                                 reps=5, warmup=1) for c in (1, 2, 4, 8)}
-        (b_ms, b_by), (full_ms, _) = onpolicy_bound(n, h, st.act_flat.numel(),
-                                                    st.cri_flat.numel())
-        (cb_ms, cb_by), (cf_ms, _), (ct_ms, ct_by) = critic_bounds(n, h, st.cri_flat.numel())
+                                 reps=5, warmup=1) for c in (1, 2, 4, 8)
+                      if fr.actor_smem_bytes(S, dims, A, c, streamed=a_st) <= fr.SMEM_LIMIT}
+        (b_ms, b_by), (full_ms, _) = onpolicy_bound(n, h, stx.act_flat.numel(),
+                                                    stx.cri_flat.numel(), dims)
+        (cb_ms, cb_by), (cf_ms, _), (ct_ms, ct_by) = critic_bounds(n, h, stx.cri_flat.numel(),
+                                                                   dims)
         emit(phase='k4_vs_plain', kernel='fused_rollout[StockTradingEnv-v2,gaussian]',
-             recipe=recipe, envs=n,
+             recipe=recipe, envs=n, net_dims=dims, actor_design=('streamed' if a_st else 'resident'),
+             critic_tile=fr.critic_tile(dims),
              horizon=h, trajectory=report, one_step=one, one_step_samples=h * n,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
              two_runs_bitwise_equal=True, cluster=cluster, cluster_ms=cluster_ms,
@@ -1805,7 +2006,8 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
              critic_two_runs_bitwise_equal=True, critic_precondition_holds=True,
              ms_covers='the actor-only rollout kernel and the critic pass',
              tolerance=dict(tol, share_parted=0.25, kept_lanes=2e-2, critic=CRITIC_TOL))
-        k4[recipe] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['values'], one['logprobs'],
+        k4[recipe] = dict(net_dims=list(dims), critic_tile=fr.critic_tile(dims),
+                          ms=ms, plain_ms=plain_ms, max_abs_err=max(one['values'], one['logprobs'],
                                                                 one['actions'], one['rewards']),
                      bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms, cluster=cluster,
                      critic=dict(ms=c_ms, plain_ms=c_plain, max_abs_err=critic_err,
@@ -1919,14 +2121,19 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     # body at 1024 envs x 32 steps from day T - 17 (every lane resets once);
     # the tolerances of k4_vs_plain
     k4_off = {}
-    for head in ('ddpg', 'sac', 'modsac'):
+    # and the ddpg head at (512, 512), past the resident design's 448: the
+    # streamed one, with the same checks
+    for head, dims in (('ddpg', STOCK_NET), ('sac', STOCK_NET), ('modsac', STOCK_NET),
+                       ('ddpg', (512, 512))):
         n, h = STOCK_OFF['envs'], STOCK_OFF['horizon']
-        heads = {'sac': [((D2, 2 * A), 0.1)], 'modsac': [((D2, A), 0.1)] * 2}.get(head)
-        nets = [((S, D1, D2, A), 0.1)] if head == 'ddpg' else [((S, D1, D2), None)] + heads
+        d1, d2 = dims
+        heads = {'sac': [((d2, 2 * A), 0.1)], 'modsac': [((d2, A), 0.1)] * 2}.get(head)
+        nets = [((S, d1, d2, A), 0.1)] if head == 'ddpg' else [((S, d1, d2), None)] + heads
         flat = init_flat(torch.Generator().manual_seed(7), nets, dev)
-        f0, i0 = start_rows(n, T - 17, g)
-        nz = noise(g, h, n)
-        kw = dict(body=body, head=head, net_dims=STOCK_NET, reward_scale=1.0, noise_std=0.1,
+        gx = g if dims == STOCK_NET else torch.Generator(device=dev).manual_seed(59)
+        f0, i0 = start_rows(n, T - 17, gx)
+        nz = noise(gx, h, n)
+        kw = dict(body=body, head=head, net_dims=dims, reward_scale=1.0, noise_std=0.1,
                   explore_rate=0.25, std_clip=(-20.0, 2.0) if head == 'modsac' else (-16.0, 2.0))
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
@@ -1977,22 +2184,25 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         # counts all S columns for every lane and step
         out_rows = 2 * A if head != 'ddpg' else A
         L, M = 1 + A, S - 1 - A
-        flop = 2 * (L * D1 + D1 * D2 + D2 * out_rows) * n * h + 2 * M * D1 * h
-        flop_full = 2 * (S * D1 + D1 * D2 + D2 * out_rows) * n * h
+        flop = 2 * (L * d1 + d1 * d2 + d2 * out_rows) * n * h + 2 * M * d1 * h
+        flop_full = 2 * (S * d1 + d1 * d2 + d2 * out_rows) * n * h
         rows = body.n_f32 + body.n_i32
         nbytes = 4 * (flat.numel() + 2 + 2 * rows * n + h * M + n * h * (S + A + 3))
         b_ms, b_by = bound(flop, nbytes)
         full_ms, _ = bound(flop_full, nbytes)
+        streamed = not fr.offpolicy_fits_resident(body, head, dims)
         picked = fr._library().offpolicy_rollout_cluster(
-            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, 0)
+            body.kernel_id, fr.OFFPOLICY_HEADS[head], n, d1, d2, 0,
+            fr.STREAMED if streamed else 0)
         emit(phase='k4_offpolicy_vs_plain', kernel=f'fused_rollout[StockTradingEnv-v2,{head}]',
+             net_dims=dims, design='streamed' if streamed else 'resident',
              envs=n, horizon=h, trajectory=report, one_step=one,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
              two_runs_bitwise_equal=True, cluster=picked,
              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms,
              tolerance={'actions': 1e-4, 'rewards': 1e-4, 'states': 1e-5, 'env_f': 1e-6,
                         'share_parted': 0.25})
-        k4_off[head] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['actions'],
+        k4_off[head if dims == STOCK_NET else f'{head}_{d1}_streamed'] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(one['actions'],
                                                                        one['rewards']),
                             bound_ms=b_ms, bound_by=b_by, bound_ms_full_obs=full_ms)
 
@@ -2012,6 +2222,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     def reset_counts():
         fr.rollout.launches = fr.critic_values.launches = ppo_update.launches = 0
         fr.rollout.launches_by_body.clear()
+        fr.critic_values.launches_by_kind.clear()
         fr.offpolicy_rollout.launches_by_kernel.clear()
         for k in ppo_update.launches_by_head:
             ppo_update.launches_by_head[k] = 0
@@ -2058,10 +2269,11 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     emit(phase='main_path_stock_small_vs_cpu', envs=256, horizon=32, batch=128,
          objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
 
-    def timed(path, phase, want, **extra):
+    def timed(path, phase, want, hyper=None, **extra):
         text = io.StringIO()
+        a = stock_args(path, **(hyper or {}))
         with contextlib.redirect_stdout(text):
-            ctx = build_training(stock_args(path))
+            ctx = build_training(a)
         print(text.getvalue(), end='', flush=True)
         assert ctx.fused_rollout
         carry, _ = ctx.round_fn(ctx.carry)                       # warm-up round
@@ -2078,6 +2290,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         end_.record()
         torch.cuda.synchronize()
         launches = read_counts()
+        kinds = dict(fr.rollout.launches_by_body), dict(fr.critic_values.launches_by_kind)
         assert launches == want, (phase, launches)
         round_ms = start_.elapsed_time(end_) / ROUNDS
         mvals = torch.stack(metrics).cpu()
@@ -2088,19 +2301,32 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                   if 'use_fused_update: PyTorch path' in text.getvalue() else 'kernel')
         emit(phase=phase, agent='AgentPPO', env='StockTradingEnv-v2', envs=path['envs'],
              horizon=path['horizon'], batch=path['batch'], repeat=path['repeat'],
-             net_dims=STOCK_NET, rounds=ROUNDS, launches=launches, update_path=update,
+             net_dims=tuple(a.net_dims), rounds=ROUNDS, launches=launches,
+             launches_by_kind=kinds, update_path=update,
              round_ms=round_ms, env_steps_per_s=path['envs'] * path['horizon'] / (round_ms / 1e3),
              metrics=dict(zip(sorted(m), mvals[-1].tolist())), max_param_change=moved,
              device=name, nvidia_smi=smi, **extra)
-        return launches, update
+        return launches, update, kinds
 
-    stock_launches, _ = timed(PPO_STOCK, 'main_path_stock', {
+    stock_launches, _, _ = timed(PPO_STOCK, 'main_path_stock', {
         'fused_rollout': ROUNDS, 'critic_values': ROUNDS, 'ppo_update': ROUNDS},
         fused_rollout_ms=k4['ppo_stock']['ms'], critic_ms=k4['ppo_stock']['critic']['ms'])
-    stock4k_launches, update = timed(PPO_STOCK_4K, 'main_path_stock_4k', {
+    stock4k_launches, update, _ = timed(PPO_STOCK_4K, 'main_path_stock_4k', {
         'fused_rollout': ROUNDS, 'critic_values': ROUNDS, 'ppo_update': 0},
         fused_rollout_ms=k4['ppo_stock_4k']['ms'],
         critic_ms=k4['ppo_stock_4k']['critic']['ms'])
+    assert update.startswith('pytorch'), update
+    # ppo_stock at (640, 640) in float32, past both resident designs: the
+    # streamed actor kernel and the streamed critic pass (32-sample tiles)
+    # once a round, and the autograd update (at these widths the JAX
+    # package's fused update does not fit its VMEM budget: XLA ops there)
+    _, update, wide_kinds = timed(PPO_STOCK, 'main_path_stock_wide', {
+        'fused_rollout': 0, 'critic_values': ROUNDS, 'ppo_update': 0},
+        hyper=dict(net_dims=(640, 640), compute_dtype='float32'),
+        fused_rollout_ms=k4['ppo_stock_640_streamed']['ms'],
+        critic_ms=k4['ppo_stock_640_streamed']['critic']['ms'])
+    assert wide_kinds == ({'StockTradingEnv-v2,streamed': ROUNDS},
+                          {'float32,streamed': ROUNDS}), wide_kinds
     assert update.startswith('pytorch'), update
 
     # ---- the entry point: PPO on the stock env at ppo_stock's shape (two
@@ -2168,12 +2394,41 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                     'plain_ms': k2_stock['plain_ms'], 'bound_ms': k2_stock['bound_ms'],
                     'bound_by': k2_stock['bound_by'], 'library_ms': None})
     for head, k in k4_off.items():
+        if head.endswith('streamed'):
+            continue
         kernels.append({'name': f'fused_rollout[StockTradingEnv-v2,{head}]', 'route': 'cuda',
                         'source': src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
                         'launches': off_runs[head], 'max_abs_err': k['max_abs_err'],
                         'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
                         'bound_by': k['bound_by'], 'library_ms': None,
                         'bound_ms_full_obs': k['bound_ms_full_obs']})
+    # the streamed designs of K4's actor kernel (stock_actor_kernel<HEAD, BF,
+    # true>) and critic pass (critic_values_kernel<32, BF>): their entries are
+    # main_path_stock_wide's at (640, 640); the other streamed checks
+    # ((512, 512), the ddpg head) ride along
+    k = k4['ppo_stock_640_streamed']
+    kernels.append({'name': 'fused_rollout[StockTradingEnv-v2,gaussian,256 envs,streamed]',
+                    'route': 'cuda', 'source': src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
+                    'launches': wide_kinds[0]['StockTradingEnv-v2,streamed'],
+                    'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                    'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'], 'library_ms': None,
+                    'net_dims': k['net_dims'], 'bound_ms_full_obs': k['bound_ms_full_obs'],
+                    'cluster': k['cluster'],
+                    'checks': {'ppo_stock_512': {f: k4['ppo_stock_512_streamed'][f] for f in (
+                        'ms', 'plain_ms', 'bound_ms', 'max_abs_err', 'cluster')},
+                        'ddpg_512': {f: k4_off['ddpg_512_streamed'][f] for f in (
+                            'ms', 'plain_ms', 'bound_ms', 'max_abs_err')}}})
+    c = k['critic']
+    kernels.append({'name': 'critic_values[StockTradingEnv-v2,256 envs,streamed]',
+                    'route': 'cuda', 'source': src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+                    'launches': wide_kinds[1]['float32,streamed'],
+                    'max_abs_err': c['max_abs_err'], 'ms': c['ms'], 'plain_ms': c['plain_ms'],
+                    'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'], 'library_ms': None,
+                    'net_dims': k['net_dims'], 'tile': k['critic_tile'],
+                    'bound_ms_market_once': c['bound_ms_market_once'],
+                    'bound_ms_full': c['bound_ms_full']})
     return kernels
 
 
@@ -2392,26 +2647,40 @@ def bf16_host_pixel_phases(torch, dev, name, smi, bound, seed):
     net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
     D1, D2 = STOCK_NET
     res = {}
-    cases = [('ppo', n, c, s) for n in (PPO_STOCK['envs'], PPO_STOCK_4K['envs'])
+    cases = [('ppo', n, c, s, STOCK_NET) for n in (PPO_STOCK['envs'], PPO_STOCK_4K['envs'])
              for c, s in ((bfr, False), (bfr, True), (None, True))]
-    cases += [(head, STOCK_OFF['envs'], c, s) for head in fr.CONTINUOUS_HEADS
+    cases += [(head, STOCK_OFF['envs'], c, s, STOCK_NET) for head in fr.CONTINUOUS_HEADS
               for c, s in ((bfr, False), (bfr, True), (None, True))]
-    for head, n, compute, store in cases:
+    # ppo_stock's rollout at (1024, 1024) in bf16, past the resident designs:
+    # the streamed actor kernel and critic pass, the same checks
+    cases += [('ppo', PPO_STOCK['envs'], bfr, False, (1024, 1024))]
+    for head, n, compute, store, dims in cases:
+        d1, d2 = dims
+        streamed = dims != STOCK_NET
+        if streamed:   # its draws leave the later checks' inputs as they were
+            g_state = g.get_state()
         on = head == 'ppo'
         h = PPO_STOCK['horizon'] if on else STOCK_OFF['horizon']
         f0, i0 = start_rows(n, T - 61 if on else T - 21)
         nz = noise(h, n)
         sdt = bfr if store else None
         tag = (f'fused_rollout{"_bf16" if compute else ""}[StockTradingEnv-v2,'
-               f'{"gaussian" if on else head},{n} envs,store={"bf16" if store else "f32"}]')
+               f'{"gaussian" if on else head},{n} envs,store={"bf16" if store else "f32"}'
+               f'{f",{dims},streamed" if streamed else ""}]')
         if on:
-            kw = dict(net_dims=STOCK_NET, reward_scale=2.0 ** -8, body=body,
+            if streamed:
+                netd = make_ppo(dims, S, A, Config()).init(3, dev)
+                netd = netd._replace(norm_avg=st.norm_avg, norm_std=st.norm_std)
+                with torch.no_grad():
+                    netd.act.std_log.fill_(-0.5)
+                net = (netd.act_flat, netd.cri_flat, netd.norm_avg, netd.norm_std)
+            kw = dict(net_dims=dims, reward_scale=2.0 ** -8, body=body,
                       compute_dtype=compute, store_dtype=sdt)
             run = lambda f, i, hh, ctl=False, **x: fr.rollout(  # noqa: E731
                 *net, f, i, horizon_len=hh, **(dict(kw, compute_dtype=None) if ctl else kw), **x)
             plain = lambda f, i, hh, **x: fr.rollout_reference(  # noqa: E731
                 *net, f, i, horizon_len=hh, **kw, **x)
-            flat_n = st.act_flat.numel() + st.cri_flat.numel()
+            flat_n = net[0].numel() + net[1].numel()
         else:
             shapes = fr.offpolicy_head_shapes(S, STOCK_NET, A, head)
             flat = (torch.randn(sum(math.prod(x) for x in shapes), generator=g, device=dev)
@@ -2483,27 +2752,34 @@ def bf16_host_pixel_phases(torch, dev, name, smi, bound, seed):
         r['plain_ms'] = cuda_ms(torch, lambda: plain(f0, i0, h, seed=seed), reps=1)
         bf = int(compute is not None)
         if on:
-            r['cluster'] = fr._library().stock_rollout_cluster(n, D1, D2, 0, bf)
+            r['cluster'] = fr._library().stock_rollout_cluster(
+                n, d1, d2, 0, bf | (fr.STREAMED if streamed else 0))
             r['cluster_ms'] = {c: cuda_ms(torch, lambda: fr.rollout(
                 *net, f0, i0, horizon_len=h, seed=seed, stock_cluster=c, **kw), reps=5)
-                for c in (1, 2, 4, 8)}
+                for c in (1, 2, 4, 8)
+                if fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf), streamed=streamed)
+                <= fr.SMEM_LIMIT}
+            r['critic_tile'] = fr.critic_tile(dims)
         else:
             r['cluster'] = fr._library().offpolicy_rollout_cluster(
-                body.kernel_id, fr.OFFPOLICY_HEADS[head], n, D1, D2, 0, bf)
+                body.kernel_id, fr.OFFPOLICY_HEADS[head], n, d1, d2, 0, bf)
         # the actor's lane columns, layers 2 and 3 per lane and W1's market
         # columns once a step (the kernel's work); on-policy plus the critic
         # pass's share as the kernel computes it (critic_bf16_vs_plain)
         rows = 2 * A if head in ('sac', 'modsac') else A
-        flop = 2 * (L * D1 + D1 * D2 + D2 * rows) * n * h + 2 * M * D1 * h
+        flop = 2 * (L * d1 + d1 * d2 + d2 * rows) * n * h + 2 * M * d1 * h
         if on:
-            flop += 2 * (L * D1 + D1 * D2 + D2) * n * h + 2 * M * D1 * h * -(-n // 32)
+            flop += 2 * (L * d1 + d1 * d2 + d2) * n * h + 2 * M * d1 * h * -(-n // 32)
         nbytes = (4 * (flat_n + 2 * S + 2 * (body.n_f32 + body.n_i32) * n + h * M)
                   + n * h * ((2 if store else 4) * S + 4 * (A + 5)))
         if compute is not None:
             r['bound_ms'], r['bound_by'], r['bound_ms_fp32'] = bf16_bound(flop, 0, nbytes)
         else:
             r['bound_ms'], r['bound_by'] = bound(flop, nbytes)
-        res[(head, n, compute is not None, store)] = r
+        res[(head, n, compute is not None, store) + ((dims,) if streamed else ())] = r
+        if streamed:
+            net = (st.act_flat, st.cri_flat, st.norm_avg, st.norm_std)
+            g.set_state(g_state)
         emit(phase='k4_bf16_vs_plain' if compute is not None else 'k4_store_bf16_vs_plain',
              kernel=tag, envs=n, horizon=h, two_runs_bitwise_equal=True, **r,
              tolerance=dict(BF16_TOL, share_parted=0.25), device=name, nvidia_smi=smi)
@@ -2516,16 +2792,24 @@ def bf16_host_pixel_phases(torch, dev, name, smi, bound, seed):
     # float32 pass on the same states must break it; two runs bitwise equal;
     # the groups share their market rows (the precondition, asserted).
     crit = {}
-    for n, dims in ((256, STOCK_NET), (4096, STOCK_NET), (256, (576, 576))):
+    for n, dims in ((256, STOCK_NET), (4096, STOCK_NET), (256, (576, 576)), (256, (1024, 1024))):
         f0, i0 = start_rows(n, T - 61)
         states = fr.rollout(*net, f0, i0, net_dims=STOCK_NET, horizon_len=128,
                             reward_scale=1.0, body=body, seed=seed, compute_dtype=bfr).states
         m = states[:, 1 + A:]
         first = torch.div(torch.arange(n, device=dev), 32, rounding_mode='floor') * 32
         assert torch.equal(m, m[:, :, first]), 'the critic pass precondition'
-        cri = st.cri_flat if dims == STOCK_NET else (torch.randn(
-            sum(math.prod(x) for x in ppo_param_shapes(S, dims, 1, True)[1]), generator=g,
-            device=dev) * 0.05).contiguous()
+        if dims == (1024, 1024):
+            # the streamed pass (32-sample tiles) on the critic as the agents
+            # initialise it, as the K4 bf16 case above runs it: with N(0,
+            # 0.05^2) weights at this width 2.5% of the values lay beyond
+            # 1e-4 on an H100 (max 9.2e-4), where the bf16 rounding
+            # boundaries of 1024 hidden units part the two sum orders
+            cri = make_ppo(dims, S, A, Config()).init(4, dev).cri_flat
+        else:
+            cri = st.cri_flat if dims == STOCK_NET else (torch.randn(
+                sum(math.prod(x) for x in ppo_param_shapes(S, dims, 1, True)[1]), generator=g,
+                device=dev) * 0.05).contiguous()
         args_ = (cri, st.norm_avg, st.norm_std, states)
         v = fr.critic_values(*args_, net_dims=dims, compute_dtype=bfr)
         v2 = fr.critic_values(*args_, net_dims=dims, compute_dtype=bfr)
@@ -3844,6 +4128,94 @@ def parallel_phases(torch, dev, name, smi, bound):
     return sharded
 
 
+# ------------------------------------------------------------------ marl/
+# The multi-agent trainers at their learning recipes' sizes
+# (scripts/verify_learning.py:342-395): TeamChasing with 2 agents in 2
+# dimensions.  The JAX package runs no Pallas kernel here; the port runs
+# PyTorch ops on the card.
+MARL_ROUNDS = 3
+
+
+def marl_phases(torch, dev, name, smi):
+    """Each multi-agent trainer: a few rounds through its ``make_*`` on the
+    card, timed (ms a round), every metric finite and every tensor of its
+    state on the card; then its ``train_*`` entry point for two rounds, each
+    evaluated."""
+    from elegantrl_tpu_torch import marl
+    from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
+
+    def on_card(*trees):
+        leaves = [x for tree in trees for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+        return bool(leaves) and all(x.device.type == 'cuda' for x in leaves)
+
+    env, denv = marl.make_team_chasing(2, 2), marl.make_team_chasing_discrete(2, 2)
+    hid = 64
+    runs = {
+        'mappo': (env, lambda: marl.make_mappo(env, device=dev), 64, 64),
+        'maddpg': (env, lambda: marl.make_maddpg(env, num_envs=64, device=dev), 64, 64),
+        'qmix': (denv, lambda: marl.make_qmix(denv, mixer='qmix', device=dev), 32, 64),
+        'vdn': (denv, lambda: marl.make_qmix(denv, mixer='vdn', device=dev), 32, 64),
+        'mappo_rnn': (env, lambda: marl.make_mappo_rnn(env, hid=hid, device=dev), 64, 64),
+        'qmix_rnn': (denv, lambda: marl.make_qmix_rnn(denv, hid=hid, device=dev), 32, 64),
+    }
+    for trainer, (e, make, n, h) in runs.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        parts = make()
+        state = parts[0](torch.Generator().manual_seed(0))
+        if trainer in ('qmix', 'vdn'):
+            carry = (e.init(gen, n, dev), parts[1](n))
+            step = lambda s, c: (lambda o: (o[0], (o[1], o[2]), o[3]))(  # noqa: E731
+                parts[2](s, c[0], c[1], gen, n, h))
+        elif trainer == 'qmix_rnn':
+            carry = (e.init(gen, n, dev), torch.zeros((n, e.num_agents, hid), device=dev),
+                     parts[1](n, h))
+            step = lambda s, c: (lambda o: (o[0], (o[1], o[2], o[3]), o[4]))(  # noqa: E731
+                parts[2](s, c[0], c[1], c[2], gen, n, h))
+        elif trainer == 'maddpg':
+            carry = ()
+            step = lambda s, c: (lambda o: (o[0], (), o[1]))(parts[1](s, gen))  # noqa: E731
+        elif trainer == 'mappo_rnn':
+            carry = (e.init(gen, n, dev), (torch.zeros((n, e.num_agents, hid), device=dev),
+                                           torch.zeros((n, hid), device=dev)))
+            step = lambda s, c: (lambda o: (o[0], (o[1], o[2]), o[3]))(  # noqa: E731
+                parts[1](s, c[0], c[1], gen, n, h, 16, 4))
+        else:
+            carry = (e.init(gen, n, dev),)
+            step = lambda s, c: (lambda o: (o[0], (o[1],), o[2]))(  # noqa: E731
+                parts[1](s, c[0], gen, n, h, 512, 4))
+        state, carry, metric = step(state, carry)               # warm-up round
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = []
+        for _ in range(MARL_ROUNDS):
+            state, carry, metric = step(state, carry)
+            metrics.append(float(metric))
+        torch.cuda.synchronize()
+        round_ms = (time.time() - t0) * 1e3 / MARL_ROUNDS
+        assert all(math.isfinite(m) for m in metrics), (trainer, metrics)
+        assert on_card(state, carry), trainer
+        score = float(parts[-2 if trainer in ('mappo',) else -1](
+            state, torch.Generator(device=dev).manual_seed(1)))
+        assert math.isfinite(score), (trainer, score)
+        # the entry point, two rounds, each evaluated
+        kw = {'mappo': dict(num_envs=n, horizon=h, batch_size=512, repeat_times=4),
+              'maddpg': dict(num_envs=n), 'qmix': dict(num_envs=n, horizon=h, mixer='qmix'),
+              'vdn': dict(num_envs=n, horizon=h, mixer='vdn'),
+              'mappo_rnn': dict(num_envs=n, horizon=h, seq_batch=16, repeat_times=4),
+              'qmix_rnn': dict(num_envs=n, horizon=h)}[trainer]
+        fn = getattr(marl, 'train_' + ('qmix' if trainer == 'vdn' else trainer))
+        t1 = time.time()
+        final, history = fn(e, num_rounds=2, verbose=False, device=dev, **kw)
+        entry_s = time.time() - t1
+        assert len(history) == 2 and all(math.isfinite(x) for x in history), (trainer, history)
+        assert on_card(final), trainer
+        emit(phase=f'marl_{trainer}', envs=n, horizon=h, rounds=MARL_ROUNDS, round_ms=round_ms,
+             env_steps_per_s=n * h / (round_ms / 1e3), metrics=metrics, eval_return=score,
+             entry_point=dict(rounds=2, history=history, seconds=round(entry_s, 3)),
+             every_tensor_on='cuda', kernels='none (PyTorch ops, as the JAX package runs XLA)',
+             device=name, nvidia_smi=smi)
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -3856,8 +4228,9 @@ def main():
     from elegantrl_tpu_torch.ops import _cuda_build
     from elegantrl_tpu_torch.ops.fused_rollout import (
         CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
-        PENDULUM_BODY, ROLLOUT_CLUSTERS, noise_rows, rollout, rollout_fits, rollout_reference,
-        _library as fr_lib, rollout_smem_bytes as fr_smem)
+        PENDULUM_BODY, ROLLOUT_CLUSTERS, STREAM_LANES, STREAMED, noise_rows, rollout,
+        rollout_fits, rollout_fits_resident, rollout_reference, _library as fr_lib,
+        rollout_smem_bytes as fr_smem)
     from elegantrl_tpu_torch.ops.fused_update import (PPO_PHASES, PPO_SMEM_BYTES, ppo_phase_ms,
                                                       ppo_update, ppo_update_reference,
                                                       _library as fu_lib)
@@ -3892,7 +4265,8 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    logs = _cuda_build.build(['fused_rollout', 'ppo_update', 'dqn_update', 'ddpg_update',
+    logs = _cuda_build.build(['onpolicy_rollout', 'offpolicy_rollout', 'ppo_update',
+                              'dqn_update', 'ddpg_update',
                               'sac_update', 'kernels', 'probes'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
@@ -3900,12 +4274,15 @@ def main():
     # judge eligibility on the CPU must agree with them, for every body
     smem = {'ppo_update': (fu_lib().ppo_update_smem_bytes(), PPO_SMEM_BYTES)}
     for body in KERNEL_ENV_BODIES.values():
-        for dims in (NET_DIMS, (64, 64), (256, 256), (96, 160), (384, 384), (512, 512)):
+        for dims in (NET_DIMS, (64, 64), (256, 256), (96, 160), (384, 384), (512, 512),
+                     (1024, 1024), (1024, 256)):
             for c in ROLLOUT_CLUSTERS:
                 for bf in (0, 1):
-                    smem[f'fused_rollout[{body.env_name},{dims},cluster={c},bf16={bf}]'] = (
-                        fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c, bf),
-                        fr_smem(body, dims, c, bool(bf)))
+                    for st in (0, STREAMED):   # the resident and the streamed layouts
+                        smem[f'fused_rollout[{body.env_name},{dims},cluster={c},bf16={bf},'
+                             f'streamed={int(st > 0)}]'] = (
+                            fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c, bf | st),
+                            fr_smem(body, dims, c, bool(bf), bool(st)))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
     for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1), (151, 128, 128, 15)):
@@ -3958,13 +4335,21 @@ def main():
     def same_runs(a, b):
         return all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
 
-    def cluster_ms(run, body, n, dims):
+    def cluster_ms(run, body, n, dims, bf=False):
         """ms of the rollout kernel at each cluster size that fits, and the
-        size it picks by itself."""
-        out = {str(c): cuda_ms(torch, lambda: run(c), reps=5) for c in ROLLOUT_CLUSTERS
-               if fr_smem(body, dims, c) <= 232448}
-        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0, 0)
+        size it picks by itself, in the design the widths take (the
+        streamed one where a cluster of 8 does not hold the slices)."""
+        st = not rollout_fits_resident(body, dims, bf)
+        out = {str(c): cuda_ms(torch, lambda: run(c), reps=3 if st else 5)
+               for c in ROLLOUT_CLUSTERS if fr_smem(body, dims, c, bf, st) <= 232448}
+        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0,
+                                                       int(bf) | (STREAMED if st else 0))
         return out
+
+    def stream_bytes(body, dims, h, bf=False):
+        """The streamed design's weight stream: both nets' W2 read from L2 by
+        every lane group at every step."""
+        return 2 * (N // STREAM_LANES) * h * dims[0] * dims[1] * (2 if bf else 4)
 
     k1 = {}
     for mode, extra in (('injected', dict(noise=noise)), ('philox', dict(seed=seed))):
@@ -4153,9 +4538,12 @@ def main():
                 worst = torch.maximum(worst, (a - b).abs().amax(0))
         return bad | (worst > tol), worst
 
-    def check_body(body, env_class, dims=NET_DIMS, phase='k3_vs_plain'):
+    def check_body(body, env_class, dims=NET_DIMS, phase='k3_vs_plain', cluster_envs=(N, 1024)):
         S, A = body.state_dim, body.action_dim
+        streamed = not rollout_fits_resident(body, dims)
         tag = f'fused_rollout[{body.env_name},{"categorical" if body.discrete else "gaussian"}]'
+        if streamed:
+            tag = tag[:-1] + f',{dims},streamed]'
         s = body_state(body, dims)
         g = torch.Generator(device=dev).manual_seed(21)
         env_def = env_class(num_envs=1)._def
@@ -4212,7 +4600,7 @@ def main():
                 one[f] = float((a - b).abs()[..., ok].max())
         assert all(d <= 1e-4 for d in one.values()), (tag, one)
         ms = cuda_ms(torch, lambda: rollout(*net, f0, i0, horizon_len=H, seed=seed, **bkw),
-                     reps=20, warmup=2)
+                     reps=5 if streamed else 20, warmup=2)
         plain_ms = cuda_ms(torch, lambda: rollout_reference(*net, f0, i0, horizon_len=H,
                                                             seed=seed, **bkw), reps=2)
         b_ms, b_by = rollout_bound(body, s.act_flat.numel() + s.cri_flat.numel(), dims)
@@ -4221,14 +4609,17 @@ def main():
         by_c = {n: cluster_ms(lambda c: rollout(*net, f0[:, :n].contiguous(),
                                                 i0[:, :n].contiguous(), horizon_len=H,
                                                 seed=seed, cluster=c, **bkw), body, n, dims)
-                for n in (N, 1024)}
+                for n in cluster_envs}
+        extra = {}
+        if streamed:
+            extra['stream_bytes'] = stream_bytes(body, dims, H)
         emit(phase=phase, kernel=tag, net_dims=dims, trajectory=report, one_step=one,
              one_step_threshold_flips=n_flip, two_runs_bitwise=True, ms=ms, plain_ms=plain_ms,
-             bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c,
+             bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c, **extra,
              tolerance={'trajectory': 2e-2, 'share_parted': 0.01, 'one_step': 1e-4,
                         'threshold_flips': 8})
         return dict(name=tag, ms=ms, plain_ms=plain_ms, max_abs_err=max(one.values()),
-                    bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c)
+                    bound_ms=b_ms, bound_by=b_by, cluster_ms=by_c, **extra)
 
     k3 = {body.env_name: check_body(body, env_class) for body, env_class in (
         (CARTPOLE_BODY, CartPoleEnv), (HOPPER_BODY, HopperEnv),
@@ -4238,6 +4629,15 @@ def main():
     k13_wide = {body.env_name: check_body(body, env_class, (256, 256), 'k13_vs_plain_wide')
                 for body, env_class in ((PENDULUM_BODY, PendulumEnv),
                                         (CARTPOLE_BODY, CartPoleEnv))}
+    # K1 and K3 past what a cluster of 8 holds, (384, 384) and (1024, 1024):
+    # the streamed design (both nets' W2 read from the stream_weights copy in
+    # device memory, 16-lane groups), the same checks and tolerances, its
+    # time at each cluster size at the main path's 4096 envs
+    k13_streamed = {(body.env_name, dims): check_body(body, env_class, dims,
+                                                      'k13_vs_plain_streamed', (N,))
+                    for body, env_class in ((PENDULUM_BODY, PendulumEnv),
+                                            (CARTPOLE_BODY, CartPoleEnv))
+                    for dims in ((384, 384), (1024, 1024))}
 
     # the Gumbel-max sample on fixed logits (zero actor weights, the logits
     # as the output bias): action frequencies over 262,144 Philox draws are
@@ -4335,8 +4735,9 @@ def main():
         net = (s.act_flat, s.cri_flat, s.norm_avg, s.norm_std)
         bkw = dict(net_dims=dims, reward_scale=1.0, body=body, compute_dtype=compute,
                    store_dtype=bfr if store else None)
+        streamed = not rollout_fits_resident(body, dims, compute is not None)
         tag = (f'fused_rollout{"_bf16" if compute else ""}[{body.env_name},{dims},H={h},'
-               f'store={"bf16" if store else "f32"}]')
+               f'store={"bf16" if store else "f32"}{",streamed" if streamed else ""}]')
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
@@ -4385,11 +4786,13 @@ def main():
         nbytes = (4 * (s.act_flat.numel() + s.cri_flat.numel()) + 8 * (body.n_f32 + 1) * N
                   + N * h * ((2 if store else 4) * S + 4 * ((1 if body.discrete else A) + 5)))
         b_ms, b_by = bound(flop, nbytes, H100_BF16_TFLOPS if compute is not None else None)
-        picked = fr_lib().fused_rollout_cluster(body.kernel_id, N, *dims, 0,
-                                                int(compute is not None))
+        variant = int(compute is not None) | (STREAMED if streamed else 0)
+        picked = fr_lib().fused_rollout_cluster(body.kernel_id, N, *dims, 0, variant)
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, cluster=picked,
                    smem_bytes=fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, picked,
-                                                                int(compute is not None)))
+                                                                variant))
+        if streamed:
+            res['stream_bytes'] = stream_bytes(body, dims, h, compute is not None)
         if compute is not None:
             res['bound_ms_fp32'] = bound(flop, nbytes)[0]
         emit(phase=phase, kernel=tag, envs=N, horizon=h, net_dims=dims,
@@ -4405,6 +4808,11 @@ def main():
                                                'k3_bf16_vs_plain')
                for dims, h, store in (((128, 128), H, False), ((128, 128), H, True),
                                       ((512, 512), H, True))}
+    # the bf16 variant of the streamed design at (1024, 1024), on K1 and K3
+    k13_bf16_streamed = {body.env_name: check_reduced(body, env_class, (1024, 1024), bfr, False,
+                                                      H, 'k13_bf16_vs_plain_streamed')
+                         for body, env_class in ((PENDULUM_BODY, PendulumEnv),
+                                                 (CARTPOLE_BODY, CartPoleEnv))}
     k13_store_bf16 = {body.env_name: check_reduced(
         body, env_class, NET_DIMS, None, True, H,
         'k1_store_bf16_vs_plain' if body is PENDULUM_BODY else 'k3_store_bf16_vs_plain')
@@ -4473,13 +4881,20 @@ def main():
         emit(phase=phase, envs=256, horizon=32, batch=128,
              objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
 
-    def timed_rounds(task, body, head, phase, kernel_ms):
+    def timed_rounds(task, body, head, phase, kernel_ms, **hyper):
         a = bench_args(task, NUM_ENVS, HORIZON, BATCH)
+        for k, v in hyper.items():
+            setattr(a, k, v)
+        dims = tuple(a.net_dims)
+        # the rollout kernel's count: the streamed design's past what a
+        # cluster of 8 holds (float32 here)
+        tag = body.env_name + ('' if rollout_fits_resident(body, dims) else ',streamed')
         ctx = build_training(a)
         carry, _ = ctx.round_fn(ctx.carry)                      # warm-up round
         p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
         torch.cuda.synchronize()
         reset_counts()
+        kn_ops.gae_vtrace_kernel.launches = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = []
@@ -4490,28 +4905,32 @@ def main():
         end.record()
         torch.cuda.synchronize()
         by_body, by_head = read_counts()
-        launches = {'fused_rollout': by_body.get(body.env_name, 0), 'ppo_update': by_head[head]}
+        launches = {'fused_rollout': by_body.get(tag, 0), 'ppo_update': by_head[head]}
         round_ms = start.elapsed_time(end) / ROUNDS
         mvals = torch.stack(metrics).cpu()
         moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
                     float((carry.agent_state.cri_flat - p0[1]).abs().max()))
         assert launches == {'fused_rollout': ROUNDS, 'ppo_update': ROUNDS}, launches
         assert rollout.launches == ROUNDS and ppo_update.launches == ROUNDS
+        assert kn_ops.gae_vtrace_kernel.launches == ROUNDS
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
         emit(phase=phase, agent=task[0].__name__, env=task[2], envs=NUM_ENVS, horizon=HORIZON,
-             batch=BATCH, repeat=REPEAT, net_dims=NET_DIMS, rounds=ROUNDS, launches=launches,
+             batch=BATCH, repeat=REPEAT, net_dims=dims, rounds=ROUNDS, launches=launches,
+             gae_vtrace_launches=kn_ops.gae_vtrace_kernel.launches,
              round_ms=round_ms, env_steps_per_s=NUM_ENVS * HORIZON / (round_ms / 1e3),
              **kernel_ms, metrics=dict(zip(sorted(m), mvals[-1].tolist())),
              max_param_change=moved, device=name, nvidia_smi=smi)
         return launches
 
     small_round_vs_cpu(pendulum, PENDULUM_BODY, 'main_path_small_vs_cpu')
+    from elegantrl_tpu_torch.ops import kernels as kn_ops
 
     # on the card nothing falls back to a plain version where the JAX package
     # takes a kernel: asking for the plain version, or a workload that the
     # JAX package sends to its kernel and this kernel does not fit, raises
-    # (the rollout's weight slices at (384, 384) exceed a cluster of 8).  Where
+    # (at (2628, 2628), bf16 under 'auto', past even the streamed design's
+    # widest width, 2624).  Where
     # the JAX package runs XLA ops the card runs PyTorch ops and says so: A2C's
     # update (no kernel in either package), and both halves of a 3-hidden-layer
     # PPO (the generic rollout and the autograd update).
@@ -4520,7 +4939,7 @@ def main():
     refused = {}
     for task in (pendulum, cartpole):
         for flag, setting in (('use_fused_rollout', ('use_fused_rollout', False)),
-                              ('use_fused_rollout', ('net_dims', (384, 384))),
+                              ('use_fused_rollout', ('net_dims', (2628, 2628))),
                               ('use_fused_update', ('use_fused_update', False))):
             a = bench_args(task, 256, 32, 128)
             setattr(a, *setting)
@@ -4561,6 +4980,14 @@ def main():
         fused_rollout_ms=cart['ms'], fused_rollout_plain_ms=cart['plain_ms'],
         ppo_update_ms=k5[(2, 1)]['ms'], ppo_update_plain_ms=k5[(2, 1)]['plain_ms']))
 
+    # ---- 9a. the main path past what a cluster of 8 holds: PPO on Pendulum at
+    # (384, 384) in float32 at the bench's shape, the streamed K1, K10 and K2
+    # (which takes these widths) each once a round, 10 rounds
+    launches_wide_f32 = timed_rounds(
+        pendulum, PENDULUM_BODY, 'continuous', 'main_path_wide_f32', dict(
+            fused_rollout_ms=k13_streamed[('Pendulum-v1', (384, 384))]['ms']),
+        net_dims=(384, 384), compute_dtype='float32')
+
     # ---- 9b. the bf16 main paths: ppo_pendulum_bf16's shape (4096 envs, H
     # 128, B 4096, (128, 64), bf16 compute, its repeat 512: 16 updates a
     # round), DiscretePPO on CartPole at the bench's shape with bf16 compute
@@ -4570,8 +4997,6 @@ def main():
     # runs its scan under bf16) and the no-grad forwards on PyTorch ops (no
     # K11b: it has no bf16 variant), 10 timed rounds with the counts reset
     # just before them.  Past the widest bf16 width the card raises, naming it.
-    from elegantrl_tpu_torch.ops import kernels as kn_ops
-
     def timed_bf16(task, phase, num_envs, horizon, batch, **hyper):
         a = bench_args(task, num_envs, horizon, batch)
         for k, v in hyper.items():
@@ -4629,13 +5054,13 @@ def main():
     launches_wide = timed_bf16(pendulum, 'main_path_wide_auto', NUM_ENVS, HORIZON, BATCH,
                                net_dims=(512, 512))
     too_wide = bench_args(pendulum, 256, 32, 128)
-    too_wide.net_dims = (516, 516)
+    too_wide.net_dims = (2628, 2628)
     try:
         build_training(too_wide)
         raise AssertionError('the card took a bf16 rollout past the widest width')
     except ValueError as e:
-        assert 'up to 512 in bf16' in str(e) or 'up to 512 on Pendulum-v1 in bf16' in str(e), e
-        emit(phase='bf16_width_limit', net_dims=(516, 516), raised=str(e)[:300])
+        assert 'up to 2624 on Pendulum-v1 in bf16' in str(e), e
+        emit(phase='bf16_width_limit', net_dims=(2628, 2628), raised=str(e)[:300])
 
     # ---- 10. the entry point
     def run_train_agent(task, num_envs, horizon, batch, periods, rounds_per_period=1, **hyper):
@@ -4691,6 +5116,9 @@ def main():
 
     # ---- 15b. parallel/: the sharded rollouts, dp = 2, populations, NCCL, mesh entry point
     sharded = parallel_phases(torch, dev, name, smi, bound)
+
+    # ---- 15c. marl/: every multi-agent trainer on the card
+    marl_phases(torch, dev, name, smi)
 
     # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
@@ -4748,6 +5176,20 @@ def main():
                         'checks': {c['name']: {f: c[f] for f in (
                             'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32', 'max_abs_err',
                             'cluster', 'lanes_parted')} for c in checks.values()}})
+    # the streamed design of K1/K3 (fused_rollout_kernel<Body, BF, true>): its
+    # entry is main_path_wide_f32's (Pendulum at (384, 384)); every streamed
+    # check, float32 and bf16, rides along
+    k = k13_streamed[('Pendulum-v1', (384, 384))]
+    kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+                    'launches': launches_wide_f32['fused_rollout'],
+                    'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                    'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'], 'library_ms': None,
+                    'cluster_ms': k['cluster_ms'], 'stream_bytes': k['stream_bytes'],
+                    'checks': {c['name']: {f: c.get(f) for f in (
+                        'ms', 'plain_ms', 'bound_ms', 'bound_by', 'bound_ms_fp32',
+                        'max_abs_err', 'stream_bytes')}
+                        for c in list(k13_streamed.values()) + list(k13_bf16_streamed.values())}})
     # the float32 kernel's bf16-storage checks ride with its entries
     for k in kernels:
         for env_name, c in k13_store_bf16.items():

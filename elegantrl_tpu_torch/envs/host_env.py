@@ -79,6 +79,7 @@ class _HostPool:
     def __init__(self, env_fn: Callable, seed: int, num_threads: int = 0, num_procs: int = 0):
         self.env_fn = env_fn
         self.seed = seed
+        self.offset = 0   # the global index of the first env (a process's shard)
         self.envs = None
         self.obs = None
         self.num_threads = int(num_threads)
@@ -105,7 +106,8 @@ class _HostPool:
                     continue
                 parent, child = ctx.Pipe()
                 p = ctx.Process(target=_proc_worker,
-                                args=(self.env_fn, self.seed, idxs.tolist(), child), daemon=True)
+                                args=(self.env_fn, self.seed, (idxs + self.offset).tolist(),
+                                      child), daemon=True)
                 p.start()
                 child.close()
                 self._procs.append((p, parent, idxs))
@@ -113,7 +115,7 @@ class _HostPool:
             return
         if self.envs is None or len(self.envs) != num_envs:
             self.envs = [self.env_fn() for _ in range(num_envs)]
-            self.obs = np.stack([e.reset(seed=self.seed + i)[0]
+            self.obs = np.stack([e.reset(seed=self.seed + self.offset + i)[0]
                                  for i, e in enumerate(self.envs)]).astype(np.float32)
 
     def _close_procs(self):
@@ -135,6 +137,15 @@ class _HostPool:
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+
+    def shard(self, offset: int) -> None:
+        """Hold the envs from global index ``offset`` on (a process's shard
+        under a mesh of several processes): env ``i`` of the pool is then
+        seeded as env ``offset + i`` of the whole run.  Envs built for
+        another offset are built anew at the next reset."""
+        if int(offset) != self.offset:
+            self.close()
+            self.envs, self.obs, self.offset = None, None, int(offset)
 
     def reset_all(self, num_envs) -> np.ndarray:
         n = int(num_envs)
@@ -264,7 +275,8 @@ class HostLink:
 
 def host_collect_rollout(pool, agent, agent_state, obs, gen: torch.Generator,
                          horizon_len: int, reward_scale: float, device,
-                         noise: Optional[torch.Tensor] = None, link: Optional[HostLink] = None):
+                         noise: Optional[torch.Tensor] = None, link: Optional[HostLink] = None,
+                         shard: Optional[tuple] = None):
     """Collect one rollout on ``pool`` (counterpart of the JAX
     ``host_collect_rollout``): per step the agent's ``explore_action`` on
     ``device`` (K11b where the agent takes it), the env action down to the
@@ -272,6 +284,13 @@ def host_collect_rollout(pool, agent, agent_state, obs, gen: torch.Generator,
     tensor for a native pool).  ``noise``, ``(H, N, A)`` standard normals,
     replaces the Gaussian draws of PPO, DDPG/TD3 and SAC/ModSAC
     (``explore_action(..., z=)``), so tests can feed the JAX draws.
+    ``shard = (lo, hi, union)``: the pool holds envs ``lo`` to ``hi`` of
+    the run (a process's shard under a mesh of several processes) and
+    ``union(x, dim)`` gathers every process's rows of ``x`` along ``dim``:
+    each step the agent acts on the union's obs with the union's draws
+    (``noise`` is the union's), as one process holding every env does, and
+    the pool steps on its rows of the actions, so every process holds the
+    one-process run's rollout, which is returned whole.
     Returns a ``Rollout`` of ``(H, N, ...)`` tensors on ``device`` (rewards
     times ``reward_scale``, no extras, float32 states as the JAX path
     stores) and the final obs as the pool gives it."""
@@ -281,11 +300,16 @@ def host_collect_rollout(pool, agent, agent_state, obs, gen: torch.Generator,
     with torch.no_grad():
         for t in range(horizon_len):
             obs_d = link.up(obs)
+            if shard is not None:
+                obs_d = shard[2](obs_d, 0)
             if noise is None:
                 action, logprob = agent.explore_action(agent_state, obs_d, gen)
             else:
                 action, logprob = agent.explore_action(agent_state, obs_d, gen, z=noise[t])
-            obs, r, term, trunc = link.step(agent.env_action(action))
+            env_action = agent.env_action(action)
+            if shard is not None:
+                env_action = env_action[shard[0]:shard[1]]
+            obs, r, term, trunc = link.step(env_action)
             states.append(obs_d)
             actions.append(action)
             logprobs.append(logprob)
@@ -295,6 +319,8 @@ def host_collect_rollout(pool, agent, agent_state, obs, gen: torch.Generator,
     stack = (torch.stack if link.native else
              lambda xs: torch.from_numpy(np.stack(xs)).to(device))
     rew, term, trunc = stack(rewards), stack(terms), stack(truncs)
+    if shard is not None:   # the pool's rows, into the union
+        rew, term, trunc = (shard[2](x, 1) for x in (rew, term, trunc))
     rollout = Rollout(states=torch.stack(states), actions=torch.stack(actions),
                       logprobs=None if logprobs[0] is None else torch.stack(logprobs),
                       rewards=rew * reward_scale, undones=(~term).float(),

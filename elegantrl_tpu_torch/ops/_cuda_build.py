@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 land in ``build/kernels/`` at the repository root (an installed package:
 a per-user cache directory, :func:`build_dir`), named by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source, the ``.cu`` files it includes, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing here runs at import time: the first kernel launch builds
 its library.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,6 +54,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
+    src += b''.join((CSRC / f.decode()).read_bytes()
+                    for f in re.findall(rb'#include "([\w.]+\.cu)"', src))
     headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
     digest = hashlib.sha256(src + headers + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'

@@ -65,6 +65,14 @@ struct StockArgs {
 namespace {
 
 constexpr int TE = 32;        // env lanes per group
+constexpr int STREAM_LANES = 16;  // env lanes per group of the streamed K1 (G below)
+
+// The streamed designs (ST) read layer 2's weights from device memory (L2)
+// instead of holding their slices in shared memory: each net's W2 zero-padded
+// to (round32(D2), round32(D1)) rows and columns, in the compute type, one net
+// after the other (ops/fused_rollout.py:stream_weights), so the rows and inputs
+// of every cluster size's slice lie inside it.
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr float LOG_SQRT_2PI = 0.91893853320467274178f;
@@ -476,12 +484,18 @@ struct BodyInfo<StockBody> {
 // uniforms, the head noise, the summed heads, and the split-K scratch of
 // the widest product (tile_scratch; products that share it are a block
 // barrier apart).
+// With st (the streamed design) the W2 slices are not held (they are read
+// from the stream_weights copy in device memory) and a group has G =
+// STREAM_LANES lanes, so the whole h1 of both nets fits a block up to a first
+// width past 1024 in float32; else G = TE.
 // Floats of split-K scratch that cm::tile_dense takes for a product of J
-// rows over K inputs and M lanes (its rule for the count of parts ks).
-__host__ __device__ inline int tile_scratch(int K, int J, int M = TE) {
+// rows over K inputs and M lanes, at most ks_max parts (its rule for the
+// count of parts ks).
+__host__ __device__ inline int tile_scratch(int K, int J, int M = TE, int ks_max = cm::THREADS) {
   const int tiles = (J / 4) * (M / 4);
   int ks = 1;
   while (2 * ks * tiles <= cm::THREADS && 8 * ks <= K) ks *= 2;
+  if (ks > ks_max) ks = ks_max;
   return ks > 1 ? ks * J * M : 0;
 }
 
@@ -495,7 +509,7 @@ struct RolloutLayout {
   int s4, ap, js1, js2, k2, w1, b1, w2a, w2c, b2a, b2c, woa, woc, bo, stdv, nrm, xn, h1a, h1c,
       h2a, h2c, outp, hraw, uenv, hz, headv, scratch, split2, rest, cap2, floats, nh4, ne4;
   __host__ __device__ RolloutLayout(int S, int A, int NH, int NE, int D1, int D2, int c,
-                                    int bf) {
+                                    int G, int bf, int st) {
     s4 = cm::round4(S);
     ap = cm::round4(A);
     nh4 = cm::round4(NH);
@@ -506,8 +520,8 @@ struct RolloutLayout {
     int o = 0;
     w1 = o; o += 2 * js1 * cm::wrow(S, bf);
     b1 = o; o += 2 * js1;
-    w2a = o; o += js2 * cm::wrow(k2, bf);
-    w2c = o; o += js2 * cm::wrow(k2, bf);
+    w2a = o; o += (1 - st) * js2 * cm::wrow(k2, bf);
+    w2c = o; o += (1 - st) * js2 * cm::wrow(k2, bf);
     b2a = o; o += js2;
     b2c = o; o += js2;
     woa = o; o += ap * cm::wrow(js2, bf);
@@ -515,37 +529,40 @@ struct RolloutLayout {
     bo = o; o += ap + 4;
     stdv = o; o += ap;
     nrm = o; o += 2 * s4;
-    xn = o; o += cm::vals(s4 * TE, bf);
-    h1a = o; o += cm::vals(k2 * TE, bf);
-    h1c = o; o += cm::vals(k2 * TE, bf);
-    h2a = o; o += cm::vals(js2 * TE, bf);
-    h2c = o; o += cm::vals(js2 * TE, bf);
-    outp = o; o += c * (ap + 4) * TE;
-    hraw = o; o += 2 * nh4 * TE;
-    uenv = o; o += 2 * ne4 * TE;
-    hz = o; o += ap * TE;
-    headv = o; o += cm::round4(A + 1) * TE;
+    xn = o; o += cm::vals(s4 * G, bf);
+    h1a = o; o += cm::vals(k2 * G, bf);
+    h1c = o; o += cm::vals(k2 * G, bf);
+    h2a = o; o += cm::vals(js2 * G, bf);
+    h2c = o; o += cm::vals(js2 * G, bf);
+    outp = o; o += c * (ap + 4) * G;
+    hraw = o; o += 2 * nh4 * G;
+    uenv = o; o += 2 * ne4 * G;
+    hz = o; o += ap * G;
+    headv = o; o += cm::round4(A + 1) * G;
     scratch = o;
-    split2 = tile_scratch(k2, js2);
-    rest = max(tile_scratch(s4, 2 * js1), max(tile_scratch(js2, ap), tile_scratch(js2, 4)));
+    split2 = tile_scratch(k2, js2, G);
+    rest = max(tile_scratch(s4, 2 * js1, G), max(tile_scratch(js2, ap, G), tile_scratch(js2, 4, G)));
     cap2 = bf * (o + cm::round4(max(split2, rest)) > SMEM_FLOATS);
     o += cm::round4(max(split2 * (1 - cap2), rest));
     floats = o;
   }
 };
 
-template <class Body, bool BF>
+template <class Body, bool BF, bool ST>
 __host__ __device__ inline RolloutLayout body_layout(int D1, int D2, int c) {
   return RolloutLayout(Body::S, Body::A, Body::DISCRETE ? Body::A : 2 * Body::A,
-                       Body::N_STEP + Body::N_RESET, D1, D2, c, BF);
+                       Body::N_STEP + Body::N_RESET, D1, D2, c, ST ? STREAM_LANES : TE, BF, ST);
 }
 
 // BF: bf16 compute (elegantrl_tpu/ops/pallas_rollout.py:_bf16_dot): each
 // product's operands are rounded to bf16 (the weights as they are loaded,
 // xn, h1 and h2 as they are stored) and summed in f32; biases, GELU and the
 // heads stay f32.  quant (store_dtype bf16): the obs is rounded to bf16
-// before it is normalised and acted on, and stored as bf16.
-template <class Body, bool BF>
+// before it is normalised and acted on, and stored as bf16.  ST: the streamed
+// design (RolloutLayout's st; w2g the stream_weights copy of both nets' W2,
+// which tile_dense reads through L1 from L2 as it reads shared memory in the
+// resident design); the same products in the same order at G lanes a group.
+template <class Body, bool BF, bool ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
@@ -560,8 +577,9 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      float* __restrict__ term_o, float* __restrict__ trunc_o,
                      float* __restrict__ val_o, float* __restrict__ env_f_o,
                      int* __restrict__ env_i_o, int N, int H, int D1, int D2,
-                     float reward_scale, int quant) {
-  constexpr int S = Body::S, A = Body::A, F = Body::F;
+                     float reward_scale, int quant,
+                     const cm::elem_t<BF>* __restrict__ w2g) {
+  constexpr int S = Body::S, A = Body::A, F = Body::F, G = ST ? STREAM_LANES : TE;
   constexpr bool DISCRETE = Body::DISCRETE;
   constexpr int N_ENV = Body::N_STEP + Body::N_RESET;  // the env's uniforms
   constexpr int NZ = A + N_ENV;                        // injected rows
@@ -573,13 +591,12 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const RolloutLayout Ly = body_layout<Body, BF>(D1, D2, c);
+  const RolloutLayout Ly = body_layout<Body, BF, ST>(D1, D2, c);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   using WT = cm::elem_t<BF>;
   auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
-  WT *w1s = wt(Ly.w1), *w2a = wt(Ly.w2a), *w2c = wt(Ly.w2c), *woa = wt(Ly.woa),
-     *woc = wt(Ly.woc);
+  WT *w1s = wt(Ly.w1), *woa = wt(Ly.woa), *woc = wt(Ly.woc);
   WT *xn = wt(Ly.xn), *h1a = wt(Ly.h1a), *h1c = wt(Ly.h1c), *h2a = wt(Ly.h2a),
      *h2c = wt(Ly.h2c);
   float *b1s = sm + Ly.b1, *b2a = sm + Ly.b2a, *b2c = sm + Ly.b2c;
@@ -604,13 +621,20 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   const float* W1c = cri_flat;
   const float* W2c = W1c + D1 * S + D1;
   const float* Woc = W2c + D2 * D1 + D2;
-  const int ld1 = cm::wld<BF>(S), ld2 = cm::wld<BF>(k2), ldo = cm::wld<BF>(js2);
+  const int ld1 = cm::wld<BF>(S), ld2 = ST ? round32(D1) : cm::wld<BF>(k2),
+            ldo = cm::wld<BF>(js2);
+  // this block's rows of both W2: slices in shared memory, or (ST) rows of
+  // the stream_weights copy, the critic's after the actor's round32(D2) rows
+  const WT* w2a = ST ? w2g + (size_t)j2 * ld2 : wt(Ly.w2a);
+  const WT* w2c = ST ? w2g + (size_t)(round32(D2) + j2) * ld2 : wt(Ly.w2c);
   cm::load_rows<true>(W1a, D1, S, j1, js1, 0, S, w1s, ld1);
   cm::load_rows<true>(W1c, D1, S, j1, js1, 0, S, w1s + js1 * ld1, ld1);
   cm::load_vec<true>(W1a + D1 * S, D1, j1, js1, b1s);
   cm::load_vec<true>(W1c + D1 * S, D1, j1, js1, b1s + js1);
-  cm::load_rows<true>(W2a, D2, D1, j2, js2, 0, k2, w2a, ld2);
-  cm::load_rows<true>(W2c, D2, D1, j2, js2, 0, k2, w2c, ld2);
+  if constexpr (!ST) {
+    cm::load_rows<true>(W2a, D2, D1, j2, js2, 0, k2, wt(Ly.w2a), ld2);
+    cm::load_rows<true>(W2c, D2, D1, j2, js2, 0, k2, wt(Ly.w2c), ld2);
+  }
   cm::load_vec<true>(W2a + D2 * D1, D2, j2, js2, b2a);
   cm::load_vec<true>(W2c + D2 * D1, D2, j2, js2, b2c);
   cm::load_rows<true>(Woa, A, D2, 0, AP, j2, js2, woa, ldo);
@@ -624,13 +648,13 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
     avg[s] = s < S ? __ldg(norm_avg + s) : 0.f;
     nstd[s] = s < S ? __ldg(norm_std + s) + 1e-4f : 1.f;
   }
-  for (int i = threadIdx.x; i < (Ly.s4 - S) * TE; i += cm::THREADS) cm::st1(xn + S * TE + i, 0.f);
+  for (int i = threadIdx.x; i < (Ly.s4 - S) * G; i += cm::THREADS) cm::st1(xn + S * G + i, 0.f);
   __syncthreads();  // avg and nstd, before warp 0 reads them
 
   // warp 0 holds the env rows of the group's lanes (every block of the cluster)
   const int e = threadIdx.x;  // the lane of a warp-0 thread
-  const bool w0 = threadIdx.x < TE;
-  const int n = grp * TE + (threadIdx.x & (TE - 1));
+  const bool w0 = threadIdx.x < G;
+  const int n = grp * G + (threadIdx.x & (G - 1));
   const bool live = w0 && n < N;
   float f[F];
 #pragma unroll
@@ -653,7 +677,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
     for (int s = 0; s < S; ++s) {
       if (quant) x[s] = cm::bf16_round(x[s]);
       const float v = live ? (x[s] - avg[s]) / nstd[s] : 0.f;
-      cm::st1(xn + s * TE + e, v);
+      cm::st1(xn + s * G + e, v);
       if (live && rank == 0) {
         const size_t i = ((size_t)t * S + s) * N + n;
         if (quant) cm::st1((__nv_bfloat16*)states_o + i, x[s]);
@@ -666,27 +690,27 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   auto prepare = [&](int t, int first) {
     const int i0 = (int)threadIdx.x - first, nth = cm::THREADS - first;
     if (i0 < 0) return;
-    float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * TE;
-    float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * TE;
+    float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * G;
+    float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * G;
     if (noise == nullptr) {
-      for (int i = i0; i < NB * TE; i += nth) {
-        const int b = i / TE, e2 = i % TE;
+      for (int i = i0; i < NB * G; i += nth) {
+        const int b = i / G, e2 = i % G;
         const uint4 q = philox4x32_10(
-            make_uint4((uint32_t)(grp * TE + e2), (uint32_t)t, (uint32_t)b, 0u), key);
+            make_uint4((uint32_t)(grp * G + e2), (uint32_t)t, (uint32_t)b, 0u), key);
         const float w[4] = {uniform24(q.x), uniform24(q.y), uniform24(q.z), uniform24(q.w)};
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int j = 4 * b + k;
-          if (j < N_HEAD) hr[j * TE + e2] = w[k];
-          else if (j < N_HEAD + N_ENV) ue[(j - N_HEAD) * TE + e2] = w[k];
+          if (j < N_HEAD) hr[j * G + e2] = w[k];
+          else if (j < N_HEAD + N_ENV) ue[(j - N_HEAD) * G + e2] = w[k];
         }
       }
     } else {
-      for (int i = i0; i < NZ * TE; i += nth) {
-        const int r = i / TE, e2 = i % TE, n2 = grp * TE + e2;
+      for (int i = i0; i < NZ * G; i += nth) {
+        const int r = i / G, e2 = i % G, n2 = grp * G + e2;
         const float v = n2 < N ? noise[((size_t)t * NZ + r) * N + n2] : 0.f;
-        if (r < A) hr[r * TE + e2] = v;
-        else ue[(r - A) * TE + e2] = v;
+        if (r < A) hr[r * G + e2] = v;
+        else ue[(r - A) * G + e2] = v;
       }
     }
   };
@@ -698,64 +722,64 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   for (int t = 0; t < H; ++t) {
     __syncthreads();  // step t's obs tile and noise words; the weights at t = 0
     // ---- layer 1 of both nets: the actor's js1 rows, then the critic's
-    cm::tile_dense<TE>(w1s, ld1, xn, Ly.s4, 2 * js1, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w1s, ld1, xn, Ly.s4, 2 * js1, scr, [&](int j, int m0, float4 v) {
       const float b = b1s[j];
       WT* h1 = j < js1 ? h1a : h1c;
       const int row = j1 + (j < js1 ? j : j - js1);
-      cm::store_cluster(cluster, c, h1, row * TE + m0,
+      cm::store_cluster(cluster, c, h1, row * G + m0,
                         make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
                                     gelu_tanh(v.w + b)));
     });
     // the head's noise: the Gaussian's normals, or the categorical's Gumbel
-    const float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * TE;
-    for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
-      const int a = i / TE, e2 = i % TE;
+    const float* hr = sm + Ly.hraw + (t & 1) * Ly.nh4 * G;
+    for (int i = threadIdx.x; i < A * G; i += cm::THREADS) {
+      const int a = i / G, e2 = i % G;
       float z;
       if (DISCRETE) {
         z = -logf(-logf(fmaxf(hr[i], 1e-12f)) + 1e-12f);
       } else if (noise != nullptr) {
         z = hr[i];
       } else {
-        z = sqrtf(-2.0f * logf(1.0f - hr[i])) * cosf(TWO_PI_F * hr[(A + a) * TE + e2]);
+        z = sqrtf(-2.0f * logf(1.0f - hr[i])) * cosf(TWO_PI_F * hr[(A + a) * G + e2]);
       }
       hz[i] = z;
     }
     sync_group();  // h1: every block's rows, in every block
     // ---- layer 2 of both nets; this block's parts of the heads
-    cm::tile_dense<TE>(w2a, ld2, h1a, k2, js2, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w2a, ld2, h1a, k2, js2, scr, [&](int j, int m0, float4 v) {
       const float b = b2a[j];
-      cm::st4(h2a + j * TE + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
+      cm::st4(h2a + j * G + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
                                              gelu_tanh(v.z + b), gelu_tanh(v.w + b)));
     }, ks2);
     __syncthreads();  // the scratch is free
-    cm::tile_dense<TE>(w2c, ld2, h1c, k2, js2, scr, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w2c, ld2, h1c, k2, js2, scr, [&](int j, int m0, float4 v) {
       const float b = b2c[j];
-      cm::st4(h2c + j * TE + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
+      cm::st4(h2c + j * G + m0, make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b),
                                              gelu_tanh(v.z + b), gelu_tanh(v.w + b)));
     }, ks2);
     __syncthreads();
-    cm::tile_dense<TE>(woa, ldo, h2a, js2, AP, scr, [&](int j, int m0, float4 v) {
-      cm::store_cluster(cluster, c, outp, (rank * R + j) * TE + m0, v);
+    cm::tile_dense<G>(woa, ldo, h2a, js2, AP, scr, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * R + j) * G + m0, v);
     });
     __syncthreads();
-    cm::tile_dense<TE>(woc, ldo, h2c, js2, 4, scr, [&](int j, int m0, float4 v) {
-      cm::store_cluster(cluster, c, outp, (rank * R + AP + j) * TE + m0, v);
+    cm::tile_dense<G>(woc, ldo, h2c, js2, 4, scr, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * R + AP + j) * G + m0, v);
     });
     sync_group();  // every block's parts of the heads, in every block
     // ---- the heads: the parts in rank order, plus the bias
-    for (int i = threadIdx.x; i < (A + 1) * TE; i += cm::THREADS) {
-      const int a = i / TE, row = a < A ? a : AP, o = row * TE + i % TE;
+    for (int i = threadIdx.x; i < (A + 1) * G; i += cm::THREADS) {
+      const int a = i / G, row = a < A ? a : AP, o = row * G + i % G;
       float v = outp[o];
-      for (int q = 1; q < c; ++q) v += outp[q * R * TE + o];
+      for (int q = 1; q < c; ++q) v += outp[q * R * G + o];
       headv[i] = v + bos[row];  // rows: the A means or logits, then the value
     }
     __syncthreads();
     if (w0) {
       if (live) {
-        const float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * TE;
+        const float* ue = sm + Ly.uenv + (t & 1) * Ly.ne4 * G;
         float u_env[N_ENV > 0 ? N_ENV : 1];
 #pragma unroll
-        for (int k = 0; k < N_ENV; ++k) u_env[k] = ue[k * TE + e];
+        for (int k = 0; k < N_ENV; ++k) u_env[k] = ue[k * G + e];
         const size_t o = (size_t)t * N + n;
         float env_a[AE], logp;
         if constexpr (DISCRETE) {
@@ -763,8 +787,8 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
           int index = 0;
 #pragma unroll
           for (int a = 0; a < A; ++a) {
-            const float logit = headv[a * TE + e];
-            const float p = logit + hz[a * TE + e];
+            const float logit = headv[a * G + e];
+            const float p = logit + hz[a * G + e];
             if (a == 0 || p > best) {  // strict: the first maximum wins a tie
               best = p;
               index = a;
@@ -774,7 +798,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
           float sum = 0.f, chosen = 0.f;
 #pragma unroll
           for (int a = 0; a < A; ++a) {
-            const float logit = headv[a * TE + e];
+            const float logit = headv[a * G + e];
             sum += expf(logit - m);
             if (a == index) chosen = logit;
           }
@@ -787,8 +811,8 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
           for (int a = 0; a < A; ++a) logp -= logf(stdv[a]);
 #pragma unroll
           for (int a = 0; a < A; ++a) {
-            const float z = hz[a * TE + e];
-            const float action = headv[a * TE + e] + stdv[a] * z;
+            const float z = hz[a * G + e];
+            const float action = headv[a * G + e] + stdv[a] * z;
             logp += -0.5f * z * z - LOG_SQRT_2PI;
             if (rank == 0) ((float*)actions_o)[((size_t)t * A + a) * N + n] = action;
             env_a[a] = tanhf(action);
@@ -802,7 +826,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
           rew_o[o] = reward * reward_scale;
           term_o[o] = terminal ? 1.0f : 0.0f;
           trunc_o[o] = trunc ? 1.0f : 0.0f;
-          val_o[o] = headv[A * TE + e];
+          val_o[o] = headv[A * G + e];
         }
         if (terminal || trunc) {  // masked reset from the reset uniforms
           body.reset(f, u_env + Body::N_STEP);
@@ -811,7 +835,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
       }
       if (t + 1 < H) observe(t + 1);
     } else if (t + 1 < H) {
-      prepare(t + 1, TE);  // the other warps, meanwhile
+      prepare(t + 1, 32);  // the other warps, meanwhile
     }
   }
   if (rank == 0 && live) {
@@ -821,9 +845,9 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   }
 }
 
-template <class Body, bool BF>
+template <class Body, bool BF, bool ST>
 int rollout_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * body_layout<Body, BF>(D1, D2, c).floats;
+  return (int)sizeof(float) * body_layout<Body, BF, ST>(D1, D2, c).floats;
 }
 
 // Raises KERNEL's dynamic shared-memory ceiling on the current device to
@@ -883,37 +907,39 @@ int pick_cluster(int groups, int cluster, SmemOf smem_of, bool whole_sm) {
 }
 
 // The rollout kernel's cluster size for N lanes (pick_cluster).
-template <class Body, bool BF>
+template <class Body, bool BF, bool ST>
 int rollout_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<fused_rollout_kernel<Body, BF>>(
-      (N + TE - 1) / TE, cluster, [=](int c) { return rollout_smem<Body, BF>(D1, D2, c); },
+  constexpr int G = ST ? STREAM_LANES : TE;
+  return pick_cluster<fused_rollout_kernel<Body, BF, ST>>(
+      (N + G - 1) / G, cluster, [=](int c) { return rollout_smem<Body, BF, ST>(D1, D2, c); },
       false);
 }
 
-template <class Body, bool BF>
+template <class Body, bool BF, bool ST>
 int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* norm_std, const void* env_f, const void* env_i,
            const void* noise, const void* seed, void* states, void* actions,
            void* logp, void* rew, void* term, void* trunc, void* val,
            void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
-           float reward_scale, int cluster, int quant, cudaStream_t stream) {
+           float reward_scale, int cluster, int quant, const void* w2, cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = rollout_cluster<Body, BF>(N, D1, D2, cluster);
+  const int c = rollout_cluster<Body, BF, ST>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = rollout_smem<Body, BF>(D1, D2, c);
-  const cudaError_t err = allow_smem<fused_rollout_kernel<Body, BF>>(smem);
+  const int smem = rollout_smem<Body, BF, ST>(D1, D2, c);
+  const cudaError_t err = allow_smem<fused_rollout_kernel<Body, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int groups = (N + TE - 1) / TE;
+  constexpr int G = ST ? STREAM_LANES : TE;
+  const int groups = (N + G - 1) / G;
   return (int)cm::launch_clusters(
-      fused_rollout_kernel<Body, BF>, groups * c, c, smem, stream, Body{},
+      fused_rollout_kernel<Body, BF, ST>, groups * c, c, smem, stream, Body{},
       (const float*)act_flat, (const float*)cri_flat, (const float*)norm_avg,
       (const float*)norm_std, (const float*)env_f, (const int*)env_i, (const float*)noise,
       (const int*)seed, states, actions, (float*)logp, (float*)rew, (float*)term,
       (float*)trunc, (float*)val, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale,
-      quant);
+      quant, (const cm::elem_t<BF>*)w2);
 }
 
 // ------------------------------------------------- off-policy exploration
@@ -989,12 +1015,13 @@ __host__ __device__ constexpr int offpolicy_out_rows(int A, int head) {
 // head words and env uniforms, the head's normals, the summed head rows, and
 // the split-K scratch of the widest product.
 // With bf (bf16 compute) the weight slices and the tiles xn, h1 and h2 hold
-// bf16 values (cm::wrow, cm::vals).
+// bf16 values (cm::wrow, cm::vals); with st (the streamed design) W2's slice
+// is not held (it is read from the stream_weights copy in device memory).
 struct OffLayout {
   int s4, op, js1, js2, k2, w1, b1, w2, b2, wo, bo, xn, h1, h2, outp, hraw, uenv, hz, headv,
       scratch, floats, nh4, ne4;
   __host__ __device__ OffLayout(int S, int A, int O, int NH, int NE, int D1, int D2, int c,
-                                int G, int bf) {
+                                int G, int bf, int st) {
     s4 = cm::round4(S);
     op = cm::round4(O);
     nh4 = cm::round4(NH);
@@ -1005,7 +1032,7 @@ struct OffLayout {
     int o = 0;
     w1 = o; o += js1 * cm::wrow(S, bf);
     b1 = o; o += js1;
-    w2 = o; o += js2 * cm::wrow(k2, bf);
+    w2 = o; o += (1 - st) * js2 * cm::wrow(k2, bf);
     b2 = o; o += js2;
     wo = o; o += op * cm::wrow(js2, bf);
     bo = o; o += op;
@@ -1024,18 +1051,20 @@ struct OffLayout {
   }
 };
 
-template <class Body, int HEAD, bool BF>
+template <class Body, int HEAD, bool BF, bool ST>
 __host__ __device__ inline OffLayout off_layout(int D1, int D2, int c) {
   constexpr bool DISCRETE = dqn_head(HEAD);
   return OffLayout(Body::S, Body::A, offpolicy_out_rows(Body::A, HEAD),
                    DISCRETE ? 2 : 2 * Body::A, Body::N_STEP + Body::N_RESET, D1, D2, c,
-                   OFF_LANES, BF);
+                   OFF_LANES, BF, ST);
 }
 
 // BF and quant as for fused_rollout_kernel (_bf16_dot in
 // pallas_rollout.py:_make_offpolicy_kernel); under quant the continuous
 // heads' stored actions are bf16 too, the env stepping with the f32 action.
-template <class Body, int HEAD, bool BF>
+// ST: the streamed design, W2 read from w2g (stream_weights) as in
+// fused_rollout_kernel.
+template <class Body, int HEAD, bool BF, bool ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          const float* __restrict__ env_f,
@@ -1045,7 +1074,8 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          float* __restrict__ term_o, float* __restrict__ trunc_o,
                          float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N,
                          int H, int D1, int D2, float reward_scale, float noise_std,
-                         float explore_rate, float std_lo, float std_hi, int quant) {
+                         float explore_rate, float std_lo, float std_hi, int quant,
+                         const cm::elem_t<BF>* __restrict__ w2g) {
   constexpr int S = Body::S, A = Body::A, F = Body::F, G = OFF_LANES;
   constexpr bool SAC = sac_head(HEAD), DISCRETE = dqn_head(HEAD);
   static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
@@ -1063,13 +1093,12 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const OffLayout Ly = off_layout<Body, HEAD, BF>(D1, D2, c);
+  const OffLayout Ly = off_layout<Body, HEAD, BF, ST>(D1, D2, c);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   using WT = cm::elem_t<BF>;
   auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
-  WT *w1s = wt(Ly.w1), *w2s = wt(Ly.w2), *wos = wt(Ly.wo), *xn = wt(Ly.xn), *h1 = wt(Ly.h1),
-     *h2 = wt(Ly.h2);
+  WT *w1s = wt(Ly.w1), *wos = wt(Ly.wo), *xn = wt(Ly.xn), *h1 = wt(Ly.h1), *h2 = wt(Ly.h2);
   float *b1s = sm + Ly.b1, *b2s = sm + Ly.b2, *bos = sm + Ly.bo;
   float *outp = sm + Ly.outp, *hz = sm + Ly.hz, *headv = sm + Ly.headv;
   float* scr = sm + Ly.scratch;
@@ -1091,10 +1120,12 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   const float* bo = Wo + (HEAD == HEAD_SAC ? 2 : 1) * A * D2;
   const float* W4 = HEAD == HEAD_SAC ? Wo + A * D2 : bo + A;
   const float* b4 = HEAD == HEAD_SAC ? bo + A : W4 + (O - A) * D2;
-  const int ld1 = cm::wld<BF>(S), ld2 = cm::wld<BF>(k2), ldo = cm::wld<BF>(js2);
+  const int ld1 = cm::wld<BF>(S), ld2 = ST ? round32(D1) : cm::wld<BF>(k2),
+            ldo = cm::wld<BF>(js2);
+  const WT* w2s = ST ? w2g + (size_t)j2 * ld2 : wt(Ly.w2);  // this block's rows of W2
   cm::load_rows<true>(W1, D1, S, j1, js1, 0, S, w1s, ld1);
   cm::load_vec<true>(W1 + D1 * S, D1, j1, js1, b1s);
-  cm::load_rows<true>(W2, D2, D1, j2, js2, 0, k2, w2s, ld2);
+  if constexpr (!ST) cm::load_rows<true>(W2, D2, D1, j2, js2, 0, k2, wt(Ly.w2), ld2);
   cm::load_vec<true>(W2 + D2 * D1, D2, j2, js2, b2s);
   cm::load_rows<true>(Wo, A, D2, 0, A, j2, js2, wos, ldo);
   cm::load_rows<true>(W4, O - A, D2, 0, OP - A, j2, js2, wos + A * ldo, ldo);
@@ -1283,44 +1314,44 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   }
 }
 
-template <class Body, int HEAD, bool BF>
+template <class Body, int HEAD, bool BF, bool ST>
 int offpolicy_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * off_layout<Body, HEAD, BF>(D1, D2, c).floats;
+  return (int)sizeof(float) * off_layout<Body, HEAD, BF, ST>(D1, D2, c).floats;
 }
 
 // The cluster size for N lanes (pick_cluster): one block an SM first, as a
 // step's latency, not the card's throughput, sets the time (two blocks on
 // an SM measured up to 1.8x slower).
-template <class Body, int HEAD, bool BF>
+template <class Body, int HEAD, bool BF, bool ST>
 int offpolicy_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<offpolicy_rollout_kernel<Body, HEAD, BF>>(
+  return pick_cluster<offpolicy_rollout_kernel<Body, HEAD, BF, ST>>(
       (N + OFF_LANES - 1) / OFF_LANES, cluster,
-      [=](int c) { return offpolicy_smem<Body, HEAD, BF>(D1, D2, c); }, true);
+      [=](int c) { return offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c); }, true);
 }
 
-template <class Body, int HEAD, bool BF>
+template <class Body, int HEAD, bool BF, bool ST>
 int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
                      int H, int D1, int D2, float reward_scale, float noise_std,
                      float explore_rate, float std_lo, float std_hi, int cluster, int quant,
-                     cudaStream_t stream) {
+                     const void* w2, cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = offpolicy_cluster<Body, HEAD, BF>(N, D1, D2, cluster);
+  const int c = offpolicy_cluster<Body, HEAD, BF, ST>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = offpolicy_smem<Body, HEAD, BF>(D1, D2, c);
-  const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD, BF>>(smem);
+  const int smem = offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c);
+  const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + OFF_LANES - 1) / OFF_LANES;
   return (int)cm::launch_clusters(
-      offpolicy_rollout_kernel<Body, HEAD, BF>, groups * c, c, smem, stream, Body{},
+      offpolicy_rollout_kernel<Body, HEAD, BF, ST>, groups * c, c, smem, stream, Body{},
       (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
       (const int*)seed, states, actions, (float*)rew, (float*)term, (float*)trunc,
       (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate,
-      std_lo, std_hi, quant);
+      std_lo, std_hi, quant, (const cm::elem_t<BF>*)w2);
 }
 
 // ------------------------------------------------------------ critic pass
@@ -1361,10 +1392,16 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
 // - layer 2's epilogue applies GELU and the value head's weights and sums
 //   each sample's row in a fixed order, so a launch is deterministic.
 // Widths are padded with zeros to multiples of 64 (a GELU of 0 is 0).
+// The streamed design (tiles of CT_STREAM = 32 samples, where the 64-sample
+// tile does not fit a block) streams W1's lane columns through the same
+// ring, one 64-feature chunk a stage ahead of W2's stages, so shared memory
+// holds no weight matrix and only h1 grows with the first width: the same
+// products in the same order.
 constexpr int CNC = 64;   // features a chunk of a product's outputs
 constexpr int CKT = 32;   // inputs a K-tile of W2
 constexpr int CLD = StockBody::S_LANE + 4;  // row stride of the lane rows and W1's lane columns
 constexpr int CKLD = CKT + 4;               // row stride of a W2 K-tile
+constexpr int CT_STREAM = 32;               // samples a tile of the streamed design
 
 __host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
 
@@ -1372,15 +1409,16 @@ __host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
 // lane columns (D1p rows), b1, b2 and the value head's weights, the W2
 // ring, the tile's lane rows, the groups' market rows (the CT / TE groups'
 // values of a row side by side) and market products, h1 (CT x D1p) and the
-// value partials of the feature warps.
+// value partials of the feature warps; st (the streamed design): no W1 lane
+// columns.
 struct CriticLayout {
   int d1p, d2p, w1l, b1, b2, wo, ring, xl, xm, mk, h1, vpart, floats;
-  __host__ __device__ CriticLayout(int D1, int D2, int CT) {
+  __host__ __device__ CriticLayout(int D1, int D2, int CT, int st) {
     const int NM = StockBody::S - StockBody::S_LANE, NQ = CT / TE;
     d1p = round64(D1);
     d2p = round64(D2);
     int o = 0;
-    w1l = o; o += d1p * CLD;
+    w1l = o; o += (1 - st) * d1p * CLD;
     b1 = o; o += d1p;
     b2 = o; o += d2p;
     wo = o; o += d2p;
@@ -1509,7 +1547,8 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
   constexpr int S = StockBody::S, L = StockBody::S_LANE, NM = S - L, NQ = CT / TE;
   constexpr int WM = CT / 32, WN = 8 / WM;   // warps across the samples; the features
   constexpr int FW = CNC / WN, NT = FW / 8;  // a warp's features of a chunk, n8 tiles
-  const CriticLayout Ly(D1, D2, CT);
+  constexpr bool ST = CT == CT_STREAM;       // the streamed design
+  const CriticLayout Ly(D1, D2, CT, ST);
   const int d1p = Ly.d1p, d2p = Ly.d2p, ldh = d1p + 4;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -1530,22 +1569,43 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
     const size_t i = ((size_t)t * S + k) * N + n;
     return sbf ? __bfloat162float(((const __nv_bfloat16*)states)[i]) : ((const float*)states)[i];
   };
-  cm::load_rows<false>(W1, D1, S, 0, d1p, 0, L, w1l, CLD);
+  if constexpr (!ST) cm::load_rows<false>(W1, D1, S, 0, d1p, 0, L, w1l, CLD);
   cm::load_vec<false>(W1 + D1 * S, D1, 0, d1p, b1);
   cm::load_vec<false>(W2 + D2 * D1, D2, 0, d2p, b2);
   cm::load_vec<false>(Wo, D2, 0, d2p, wo);
 
   const int per_step = (N + CT - 1) / CT;
   const long long tiles = (long long)H * per_step;
-  const int kts = d1p / CKT, stages = (d2p / CNC) * kts;  // W2 stages a tile
-  // W2's stage s of a tile (chunk s / kts, K-tile s % kts) into ring slot b
+  // the ring's stages a tile: (ST) W1's lane columns of each 64-feature
+  // chunk, then W2's (chunk, K-tile) stages
+  const int kts = d1p / CKT, s1 = ST ? d1p / CNC : 0, stages = s1 + (d2p / CNC) * kts;
+  // stage s of a tile into ring slot b: W1's lane columns of chunk s (s <
+  // s1), else W2's chunk u / kts, K-tile u % kts (u = s - s1)
   auto issue = [&](int s, int b) {
-    cm::load_rows<true>(W2, D2, D1, (s / kts) * CNC, CNC, (s % kts) * CKT, CKT,
-                        ring + b * CNC * CKLD, CKLD);
+    float* dst = ring + b * CNC * CKLD;
+    if (s < s1) {
+      cm::load_rows<true>(W1, D1, S, s * CNC, CNC, 0, L, dst, CKLD);
+    } else {
+      const int u = s - s1;
+      cm::load_rows<true>(W2, D2, D1, (u / kts) * CNC, CNC, (u % kts) * CKT, CKT, dst, CKLD);
+    }
     cm::cp_async_commit();
   };
   int slot = 0;  // the ring slot of the next stage to compute
   if ((long long)blockIdx.x < tiles) issue(0, 0);
+  // stage s: the next stage (or the next tile's first) in flight, stage s in
+  // its slot for every thread; end_stage frees the slot
+  auto begin_stage = [&](int s, bool more) {
+    if (s + 1 < stages) issue(s + 1, slot ^ 1);
+    else if (more) issue(0, slot ^ 1);  // the next tile's first stage
+    if (s + 1 < stages || more) cm::cp_async_wait<1>();
+    else cm::cp_async_wait<0>();
+    __syncthreads();
+  };
+  auto end_stage = [&]() {
+    __syncthreads();  // the slot is free for stage s + 2
+    slot ^= 1;
+  };
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int t = (int)(tile / per_step), n0 = (int)(tile % per_step) * CT;
@@ -1597,15 +1657,19 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
     __syncthreads();
     // ---- layer 1: the lane columns on the tensor cores, plus the group's
     // market product and the bias, through GELU into h1 (samples x D1p)
+    int s = 0;
     for (int n0c = 0; n0c < d1p; n0c += CNC) {
       float acc[2][NT][4] = {};
       const float* X = xl + (32 * wm) * CLD;
-      const float* W = w1l + (n0c + FW * wn) * CLD;
+      if constexpr (ST) begin_stage(s, more);
+      const float* W = ST ? ring + slot * CNC * CKLD + (FW * wn) * CKLD
+                          : w1l + (n0c + FW * wn) * CLD;
+      const int ldw = ST ? CKLD : CLD;
       if constexpr (BF) {
-        mma_k16(acc, X, CLD, W, CLD, 0);
+        mma_k16(acc, X, CLD, W, ldw, 0);
       } else {
-        mma_k8(acc, X, CLD, W, CLD, 0);
-        mma_k8(acc, X, CLD, W, CLD, 8);
+        mma_k8(acc, X, CLD, W, ldw, 0);
+        mma_k8(acc, X, CLD, W, ldw, 8);
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -1620,18 +1684,17 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
             out.y = gelu_tanh((acc[mt][nt][2 * h + 1] + mkq[j + 1]) + b1[j + 1]);
             *reinterpret_cast<float2*>(h1 + m * ldh + j) = out;
           }
+      if constexpr (ST) {
+        end_stage();
+        ++s;
+      }
     }
     // ---- layer 2 over the W2 ring, GELU and the value head's weights
     float vrow[2][2] = {};  // this thread's samples (mt, h): its features' terms
-    int s = 0;
     for (int chunk = 0; chunk < d2p / CNC; ++chunk) {
       float acc[2][NT][4] = {};
       for (int kt = 0; kt < kts; ++kt, ++s) {
-        if (s + 1 < stages) issue(s + 1, slot ^ 1);
-        else if (more) issue(0, slot ^ 1);  // the next tile's first stage
-        if (s + 1 < stages || more) cm::cp_async_wait<1>();
-        else cm::cp_async_wait<0>();
-        __syncthreads();  // stage s in its slot; h1 at s = 0
+        begin_stage(s, more);  // h1 too at W2's first stage
         const float* X = h1 + (32 * wm) * ldh + kt * CKT;
         const float* W = ring + slot * CNC * CKLD + (FW * wn) * CKLD;
         if constexpr (BF) {
@@ -1641,8 +1704,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
 #pragma unroll
           for (int k8 = 0; k8 < CKT; k8 += 8) mma_k8(acc, X, ldh, W, CKLD, k8);
         }
-        __syncthreads();  // the slot is free for stage s + 2
-        slot ^= 1;
+        end_stage();
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -1678,13 +1740,16 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
 }
 
 // The critic pass's tile: 128 samples where its layout fits a block, else 64
-// (a first width past 320).
+// (a first width past 320), else the streamed design's 32 (past 576).
 constexpr int SMEM_BLOCK = 232448;
 inline int critic_tile(int D1, int D2) {
-  return (int)sizeof(float) * CriticLayout(D1, D2, 128).floats <= SMEM_BLOCK ? 128 : 64;
+  for (int ct : {128, 64})
+    if ((int)sizeof(float) * CriticLayout(D1, D2, ct, 0).floats <= SMEM_BLOCK) return ct;
+  return CT_STREAM;
 }
 int critic_smem(int D1, int D2) {
-  return (int)sizeof(float) * CriticLayout(D1, D2, critic_tile(D1, D2)).floats;
+  const int ct = critic_tile(D1, D2);
+  return (int)sizeof(float) * CriticLayout(D1, D2, ct, ct == CT_STREAM).floats;
 }
 
 // ------------------------------------------------- K4: the stock actor
@@ -1736,6 +1801,8 @@ int critic_smem(int D1, int D2) {
 // differ in its last bit (and a lot at a lot edge: chip_smoke.py's
 // k4_vs_plain); a launch is deterministic for a given N.
 
+constexpr int STOCK_STREAM_KS = 2;  // split-K parts at most, streamed stock actor
+
 // Shared memory of one block (floats), clusters of c: the weight slices row
 // by row (W1's rows at the lane columns, W2's rows, Wo's columns:
 // cluster_mlp.cuh) and biases, exp(std_log), the day's normalised market
@@ -1744,12 +1811,14 @@ int critic_smem(int D1, int D2) {
 // rows, the whole h1, this block's rows of h2, every block's part of the
 // mean, the head's uniforms and normals, the env actions, and the split-K
 // scratch.  With bf (bf16 compute) the weight slices and the tiles xl, h1
-// and h2 hold bf16 values (cm::wrow, cm::vals).
+// and h2 hold bf16 values (cm::wrow, cm::vals); with st (the streamed
+// design) W2's slice is not held (it is read from the stream_weights copy)
+// and the scratch is only as large as the products need.
 struct StockActorLayout {
   int js1, js2, k2, w1l, b1, w2, b2, wo, bo, stdv, xm, msm, pnext, xraw, xl, h1, h2, outp, ubuf,
       zbuf, ea, scratch, floats;
   // OP: the head's output rows rounded to 4 (A, or 2A for the SAC heads)
-  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP, int bf) {
+  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP, int bf, int st) {
     constexpr int L = StockBody::S_LANE, AP = cm::round4(StockBody::A);
     js1 = cm::slice(D1, c);
     js2 = cm::slice(D2, c);
@@ -1757,7 +1826,7 @@ struct StockActorLayout {
     int o = 0;
     w1l = o; o += js1 * cm::wrow(L, bf);
     b1 = o; o += js1;
-    w2 = o; o += js2 * cm::wrow(k2, bf);
+    w2 = o; o += (1 - st) * js2 * cm::wrow(k2, bf);
     b2 = o; o += js2;
     wo = o; o += OP * cm::wrow(js2, bf);
     bo = o; o += OP;
@@ -1773,7 +1842,14 @@ struct StockActorLayout {
     ubuf = o; o += 32 * TE;
     zbuf = o; o += AP * TE;
     ea = o; o += AP * TE;
-    scratch = o; o += cm::SCRATCH;
+    // the split-K scratch: cm::SCRATCH, or (st) what the block's three
+    // products take in at most STOCK_STREAM_KS parts, which lets the widest
+    // nets fit
+    scratch = o;
+    o += st * cm::round4(max(max(tile_scratch(L, js1, TE, STOCK_STREAM_KS),
+                                 tile_scratch(k2, js2, TE, STOCK_STREAM_KS)),
+                             tile_scratch(js2, OP, TE, STOCK_STREAM_KS))) +
+         (1 - st) * cm::SCRATCH;
     floats = o;
   }
 };
@@ -1791,7 +1867,9 @@ __host__ __device__ constexpr int stock_out_rows() {
 // f32; under quant the obs (lane and market rows) is rounded to bf16 before
 // it is normalised and acted on and stored as bf16, and the off-policy
 // heads store their actions as bf16 (the env steps on the f32 action).
-template <int HEAD, bool BF>
+// ST: the streamed design, W2 read from w2g (stream_weights) as in
+// fused_rollout_kernel.
+template <int HEAD, bool BF, bool ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    const float* __restrict__ norm_avg, const float* __restrict__ norm_std,
@@ -1802,7 +1880,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    float* __restrict__ term_o, float* __restrict__ trunc_o,
                    float* __restrict__ env_f_o, int* __restrict__ env_i_o, int N, int H, int D1,
                    int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
-                   int quant) {
+                   int quant, const cm::elem_t<BF>* __restrict__ w2g) {
   constexpr int S = StockBody::S, A = StockBody::A, F = StockBody::F, NS = StockBody::NS;
   constexpr int L = StockBody::S_LANE, NM = S - L, AP = cm::round4(A), NP = cm::round4(NS);
   constexpr bool ON = HEAD == HEAD_PPO;              // the on-policy head
@@ -1814,16 +1892,17 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   constexpr int HB = (N_HEAD + 3) / 4;                // head Philox blocks
   constexpr int RB0 = N_HEAD / 4, RB1 = (N_HEAD + N_ENV + 3) / 4;  // the reset's blocks
   static_assert(4 * HB <= 32, "ubuf holds 32 words a lane");
+  constexpr int KS = ST ? STOCK_STREAM_KS : cm::THREADS;  // split-K parts at most
 
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const StockActorLayout Ly(D1, D2, c, OP, BF);
+  const StockActorLayout Ly(D1, D2, c, OP, BF, ST);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   using WT = cm::elem_t<BF>;
   auto wt = [&](int off) { return reinterpret_cast<WT*>(sm + off); };
-  WT *w1l = wt(Ly.w1l), *w2s = wt(Ly.w2), *wos = wt(Ly.wo);
+  WT *w1l = wt(Ly.w1l), *wos = wt(Ly.wo);
   WT *xl = wt(Ly.xl), *h1 = wt(Ly.h1), *h2 = wt(Ly.h2);
   float *b1s = sm + Ly.b1, *b2s = sm + Ly.b2;
   float *bos = sm + Ly.bo, *stdv = sm + Ly.stdv, *xm = sm + Ly.xm;
@@ -1831,7 +1910,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   float *outp = sm + Ly.outp, *ubuf = sm + Ly.ubuf;
   float *zbuf = sm + Ly.zbuf, *ea = sm + Ly.ea, *scratch = sm + Ly.scratch;
   const int js1 = Ly.js1, js2 = Ly.js2, j1 = rank * js1, j2 = rank * js2;
-  const int ld1 = cm::wld<BF>(L), ld2 = cm::wld<BF>(Ly.k2), ldo = cm::wld<BF>(js2);
+  const int ld1 = cm::wld<BF>(L), ld2 = ST ? round32(D1) : cm::wld<BF>(Ly.k2),
+            ldo = cm::wld<BF>(js2);
+  const WT* w2s = ST ? w2g + (size_t)j2 * ld2 : wt(Ly.w2);  // this block's rows of W2
   // a product's operand as the kernel takes it: rounded to bf16 under BF
   auto opnd = [](float x) { return BF ? cm::bf16_round(x) : x; };
   // an obs value as it is stored and acted on: rounded to bf16 under quant
@@ -1847,7 +1928,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   const float* std_log = Wo + A * D2 + A;
   cm::load_rows<false>(W1, D1, S, j1, js1, 0, L, w1l, ld1);
   cm::load_vec<false>(W1 + D1 * S, D1, j1, js1, b1s);
-  cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, w2s, ld2);
+  if constexpr (!ST) cm::load_rows<false>(W2, D2, D1, j2, js2, 0, Ly.k2, wt(Ly.w2), ld2);
   cm::load_vec<false>(W2 + D2 * D1, D2, j2, js2, b2s);
   if constexpr (HEAD == HEAD_SAC) {
     cm::load_rows<false>(Wo, 2 * A, D2, 0, OP, j2, js2, wos, ldo);
@@ -1987,7 +2068,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       cm::store_cluster(cluster, c, h1, (j1 + j) * TE + m0,
                         make_float4(gelu_tanh((mj + v.x) + b), gelu_tanh((mj + v.y) + b),
                                     gelu_tanh((mj + v.z) + b), gelu_tanh((mj + v.w) + b)));
-    });
+    }, KS);
     cluster.sync();  // every block's rows of h1, in every block
     cm::tile_dense<TE>(w2s, ld2, h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
       const float b = b2s[j];
@@ -1996,11 +2077,11 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                   ? make_float4(v.x + b, v.y + b, v.z + b, v.w + b)
                   : make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
                                 gelu_tanh(v.w + b)));
-    });
+    }, KS);
     __syncthreads();
     cm::tile_dense<TE>(wos, ldo, h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
       cm::store_cluster(cluster, c, outp, (rank * OP + j) * TE + m0, v);
-    });
+    }, KS);
     cluster.sync();  // every block's part of the head rows, in every block
     for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
       const int a = i / TE, n2 = grp * TE + i % TE;
@@ -2083,9 +2164,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   }
 }
 
-template <int HEAD, bool BF>
+template <int HEAD, bool BF, bool ST>
 int stock_actor_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>(), BF).floats;
+  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>(), BF, ST).floats;
 }
 
 }  // namespace
@@ -2096,30 +2177,65 @@ int stock_actor_smem(int D1, int D2, int c) {
 #define ELEGANTRL_BODIES(X) X(0, PendulumBody) X(1, CartPoleBody) X(2, HopperBody) \
   X(3, ChasingBody) X(4, ChasingDiscreteBody)
 
+// `variant` of the size and cluster queries below: bit 0 bf16 compute, bit 1
+// the streamed design (STREAMED of ops/fused_rollout.py).  FN<BF, ST>(args)
+// for the variant.
+#define ELEGANTRL_VARIANT(variant, FN, ...)                                          \
+  ((variant) == 0   ? FN<false, false>(__VA_ARGS__)                                  \
+   : (variant) == 1 ? FN<true, false>(__VA_ARGS__)                                   \
+   : (variant) == 2 ? FN<false, true>(__VA_ARGS__)                                   \
+                    : FN<true, true>(__VA_ARGS__))
+
+template <class Body>
+struct OnPolicy {
+  template <bool BF, bool ST>
+  static int smem(int D1, int D2, int c) { return rollout_smem<Body, BF, ST>(D1, D2, c); }
+  template <bool BF, bool ST>
+  static int cluster(int N, int D1, int D2, int k) {
+    return rollout_cluster<Body, BF, ST>(N, D1, D2, k);
+  }
+};
+template <class Body, int HEAD>
+struct OffPolicy {
+  template <bool BF, bool ST>
+  static int smem(int D1, int D2, int c) { return offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c); }
+  template <bool BF, bool ST>
+  static int cluster(int N, int D1, int D2, int k) {
+    return offpolicy_cluster<Body, HEAD, BF, ST>(N, D1, D2, k);
+  }
+};
+
+// The port builds this file as two libraries whose nvcc runs go side by
+// side: onpolicy_rollout.cu (K1/K3, K4's on-policy actor and the critic
+// pass) and offpolicy_rollout.cu (K6/K6' and K4 under the off-policy
+// heads), each defining one of these; built alone, the file holds both.
+#if !defined(ELEGANTRL_OFFPOLICY_ONLY)
 // Dynamic shared memory of one block of the rollout kernel for clusters of
-// c blocks (RolloutLayout), bf16 compute when bf; -1 for an unknown body.
-extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c, int bf) {
+// c blocks (RolloutLayout) in the variant; -1 for an unknown body.
+extern "C" int fused_rollout_smem_bytes(int body, int D1, int D2, int c, int variant) {
 #define ELEGANTRL_SMEM(ID, BODY) \
-  if (body == ID) return bf ? rollout_smem<BODY, true>(D1, D2, c) : rollout_smem<BODY, false>(D1, D2, c);
+  if (body == ID) return ELEGANTRL_VARIANT(variant, OnPolicy<BODY>::template smem, D1, D2, c);
   ELEGANTRL_BODIES(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
 }
 
 // The cluster size the kernel takes for N lanes (rollout_cluster; `cluster`
-// 0 picks from the card's occupancy); 0 when none fits, -1 for an unknown
-// body.
-extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluster, int bf) {
-#define ELEGANTRL_CLUSTER(ID, BODY)                                   \
-  if (body == ID) return bf ? rollout_cluster<BODY, true>(N, D1, D2, cluster) \
-                            : rollout_cluster<BODY, false>(N, D1, D2, cluster);
+// 0 picks from the card's occupancy) in the variant; 0 when none fits, -1
+// for an unknown body.
+extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluster, int variant) {
+#define ELEGANTRL_CLUSTER(ID, BODY)                                                      \
+  if (body == ID)                                                                        \
+    return ELEGANTRL_VARIANT(variant, OnPolicy<BODY>::template cluster, N, D1, D2, cluster);
   ELEGANTRL_BODIES(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
 }
 
 // bf: bf16 compute; quant: the obs rounded to bf16 before acting and the
-// states stored as bf16.  Returns the CUDA error of the launch, or -1 for an
+// states stored as bf16; w2: null for the resident design, else the
+// streamed design on this stream_weights copy of both nets' W2 (f32, or
+// bf16 under bf).  Returns the CUDA error of the launch, or -1 for an
 // unknown body.
 extern "C" int fused_rollout(
     int body, const void* act_flat, const void* cri_flat, const void* norm_avg,
@@ -2127,17 +2243,19 @@ extern "C" int fused_rollout(
     const void* noise, const void* seed, void* states, void* actions,
     void* logp, void* rew, void* term, void* trunc, void* val, void* env_f_o,
     void* env_i_o, int N, int H, int D1, int D2, float reward_scale, int cluster,
-    int bf, int quant, void* stream) {
+    int bf, int quant, const void* w2, void* stream) {
 #define ELEGANTRL_LAUNCH(ID, BODY)                                                       \
   if (body == ID)                                                                        \
-    return (bf ? launch<BODY, true> : launch<BODY, false>)(                              \
+    return (w2 ? (bf ? launch<BODY, true, true> : launch<BODY, false, true>)             \
+               : (bf ? launch<BODY, true, false> : launch<BODY, false, false>))(         \
         act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,       \
         actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N, H, D1, D2,            \
-        reward_scale, cluster, quant, (cudaStream_t)stream);
+        reward_scale, cluster, quant, w2, (cudaStream_t)stream);
   ELEGANTRL_BODIES(ELEGANTRL_LAUNCH)
 #undef ELEGANTRL_LAUNCH
   return -1;
 }
+#endif
 
 // The off-policy (body, head) pairs of offpolicy_rollout_kernel: ddpg, sac
 // and modsac on Pendulum-v1 (0), HopperSlip-v0 (2) and PointChasingVecEnv
@@ -2155,50 +2273,59 @@ extern "C" int fused_rollout(
 // The stock body's heads (stock_actor_kernel<HEAD>), body 5.
 #define ELEGANTRL_STOCK_HEADS(X) X(HEAD_DDPG) X(HEAD_SAC) X(HEAD_MODSAC)
 
+// The stock actor kernel's cluster size for N lanes (pick_cluster).
+template <int HEAD, bool BF, bool ST>
+int stock_cluster(int N, int D1, int D2, int cluster) {
+  return pick_cluster<stock_actor_kernel<HEAD, BF, ST>>(
+      (N + TE - 1) / TE, cluster,
+      [=](int c) { return stock_actor_smem<HEAD, BF, ST>(D1, D2, c); }, false);
+}
+template <int HEAD>
+struct StockHead {
+  template <bool BF, bool ST>
+  static int smem(int D1, int D2, int c) { return stock_actor_smem<HEAD, BF, ST>(D1, D2, c); }
+  template <bool BF, bool ST>
+  static int cluster(int N, int D1, int D2, int k) {
+    return stock_cluster<HEAD, BF, ST>(N, D1, D2, k);
+  }
+};
+
+#if !defined(ELEGANTRL_ONPOLICY_ONLY)
 // Dynamic shared memory of one block of the off-policy rollout for clusters
-// of c blocks (OffLayout; the stock body's StockActorLayout), bf16 compute
-// when bf; -1 for a pair it does not have.
-extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c, int bf) {
+// of c blocks (OffLayout; the stock body's StockActorLayout) in the variant;
+// -1 for a pair it does not have.
+extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, int c,
+                                            int variant) {
 #define ELEGANTRL_SMEM(ID, BODY, HEAD)                                  \
-  if (body == ID && head == HEAD)                                       \
-    return bf ? offpolicy_smem<BODY, HEAD, true>(D1, D2, c)             \
-              : offpolicy_smem<BODY, HEAD, false>(D1, D2, c);
+  if (body == ID && head == HEAD) {                                     \
+    using P = OffPolicy<BODY, HEAD>;                                    \
+    return ELEGANTRL_VARIANT(variant, P::template smem, D1, D2, c);     \
+  }
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
 #define ELEGANTRL_SMEM(HEAD)                                                      \
   if (body == 5 && head == HEAD)                                                  \
-    return bf ? stock_actor_smem<HEAD, true>(D1, D2, c) : stock_actor_smem<HEAD, false>(D1, D2, c);
+    return ELEGANTRL_VARIANT(variant, StockHead<HEAD>::template smem, D1, D2, c);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
 }
 
-// The stock actor kernel's cluster size for N lanes (pick_cluster).
-template <int HEAD, bool BF>
-int stock_cluster(int N, int D1, int D2, int cluster) {
-  return pick_cluster<stock_actor_kernel<HEAD, BF>>(
-      (N + TE - 1) / TE, cluster, [=](int c) { return stock_actor_smem<HEAD, BF>(D1, D2, c); },
-      false);
-}
-template <int HEAD>
-int stock_cluster_bf(int N, int D1, int D2, int cluster, int bf) {
-  return bf ? stock_cluster<HEAD, true>(N, D1, D2, cluster)
-            : stock_cluster<HEAD, false>(N, D1, D2, cluster);
-}
-
 // The cluster size the off-policy rollout takes for N lanes (`cluster` 0
-// picks from the card's occupancy); 0 when none fits, -1 for a pair it does
-// not have.
+// picks from the card's occupancy) in the variant; 0 when none fits, -1 for
+// a pair it does not have.
 extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int D2,
-                                         int cluster, int bf) {
-#define ELEGANTRL_CLUSTER(ID, BODY, HEAD)                                \
-  if (body == ID && head == HEAD)                                        \
-    return bf ? offpolicy_cluster<BODY, HEAD, true>(N, D1, D2, cluster)  \
-              : offpolicy_cluster<BODY, HEAD, false>(N, D1, D2, cluster);
+                                         int cluster, int variant) {
+#define ELEGANTRL_CLUSTER(ID, BODY, HEAD)                                       \
+  if (body == ID && head == HEAD) {                                             \
+    using P = OffPolicy<BODY, HEAD>;                                            \
+    return ELEGANTRL_VARIANT(variant, P::template cluster, N, D1, D2, cluster); \
+  }
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
-#define ELEGANTRL_CLUSTER(HEAD) \
-  if (body == 5 && head == HEAD) return stock_cluster_bf<HEAD>(N, D1, D2, cluster, bf);
+#define ELEGANTRL_CLUSTER(HEAD)    \
+  if (body == 5 && head == HEAD)   \
+    return ELEGANTRL_VARIANT(variant, StockHead<HEAD>::template cluster, N, D1, D2, cluster);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
@@ -2206,64 +2333,85 @@ extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int 
 
 // The off-policy exploration rollout for the fifteen pairs above.  std_lo
 // and std_hi clip the SAC heads' log_std; `cluster` as for
-// offpolicy_rollout_cluster; bf and quant as for fused_rollout.  Returns the
-// CUDA error of the launch, or -1 for a pair it does not have.
+// offpolicy_rollout_cluster; bf, quant and w2 (one net's W2) as for
+// fused_rollout.  Returns the CUDA error of the launch, or -1 for a pair it
+// does not have.
 extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
                                  const void* env_i, const void* noise, const void* seed,
                                  void* states, void* actions, void* rew, void* term,
                                  void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                  int D1, int D2, float reward_scale, float noise_std,
                                  float explore_rate, float std_lo, float std_hi, int cluster,
-                                 int bf, int quant, void* stream) {
+                                 int bf, int quant, const void* w2, void* stream) {
 #define ELEGANTRL_OFF(ID, BODY, HEAD)                                                       \
   if (body == ID && head == HEAD)                                                           \
-    return (bf ? launch_offpolicy<BODY, HEAD, true> : launch_offpolicy<BODY, HEAD, false>)( \
+    return (w2 ? (bf ? launch_offpolicy<BODY, HEAD, true, true>                             \
+                     : launch_offpolicy<BODY, HEAD, false, true>)                           \
+               : (bf ? launch_offpolicy<BODY, HEAD, true, false>                            \
+                     : launch_offpolicy<BODY, HEAD, false, false>))(                        \
         flat, env_f, env_i, noise, seed, states, actions, rew, term, trunc, env_f_o,        \
         env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate, std_lo, std_hi,       \
-        cluster, quant, (cudaStream_t)stream);
+        cluster, quant, w2, (cudaStream_t)stream);
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_OFF)
 #undef ELEGANTRL_OFF
   return -1;
 }
+#endif
 
-// Launches stock_actor_kernel<HEAD, BF> on the cluster size stock_cluster
+// Launches stock_actor_kernel<HEAD, BF, ST> on the cluster size stock_cluster
 // picks.
-template <int HEAD, bool BF>
+template <int HEAD, bool BF, bool ST>
 int launch_stock(const StockBody& body, const void* act_flat, const void* norm_avg,
                  const void* norm_std, const void* env_f, const void* env_i, const void* noise,
                  const void* seed, void* states, void* actions, void* logp, void* rew,
                  void* term, void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1,
                  int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
-                 int cluster, int quant, cudaStream_t stream) {
+                 int cluster, int quant, const void* w2, cudaStream_t stream) {
   if (N == 0) return 0;
-  const int c = stock_cluster<HEAD, BF>(N, D1, D2, cluster);
+  const int c = stock_cluster<HEAD, BF, ST>(N, D1, D2, cluster);
   if (c == 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   }
-  const int smem = stock_actor_smem<HEAD, BF>(D1, D2, c);
-  const cudaError_t err = allow_smem<stock_actor_kernel<HEAD, BF>>(smem);
+  const int smem = stock_actor_smem<HEAD, BF, ST>(D1, D2, c);
+  const cudaError_t err = allow_smem<stock_actor_kernel<HEAD, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + TE - 1) / TE;
   return (int)cm::launch_clusters(
-      stock_actor_kernel<HEAD, BF>, groups * c, c, smem, stream, body, (const float*)act_flat,
-      (const float*)norm_avg, (const float*)norm_std, (const float*)env_f, (const int*)env_i,
-      (const float*)noise, (const int*)seed, states, actions, (float*)logp, (float*)rew,
-      (float*)term, (float*)trunc, (float*)env_f_o, (int*)env_i_o, N, H, D1, D2, reward_scale,
-      noise_std, std_lo, std_hi, quant);
+      stock_actor_kernel<HEAD, BF, ST>, groups * c, c, smem, stream, body,
+      (const float*)act_flat, (const float*)norm_avg, (const float*)norm_std,
+      (const float*)env_f, (const int*)env_i, (const float*)noise, (const int*)seed, states,
+      actions, (float*)logp, (float*)rew, (float*)term, (float*)trunc, (float*)env_f_o,
+      (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo, std_hi, quant,
+      (const cm::elem_t<BF>*)w2);
+}
+// launch_stock in the design w2 asks for (null: resident) and compute type
+template <int HEAD>
+int launch_stock_any(int bf, const void* w2, const StockBody& body, const void* act_flat,
+                     const void* norm_avg, const void* norm_std, const void* env_f,
+                     const void* env_i, const void* noise, const void* seed, void* states,
+                     void* actions, void* logp, void* rew, void* term, void* trunc,
+                     void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
+                     float reward_scale, float noise_std, float std_lo, float std_hi,
+                     int cluster, int quant, cudaStream_t stream) {
+  return (w2 ? (bf ? launch_stock<HEAD, true, true> : launch_stock<HEAD, false, true>)
+             : (bf ? launch_stock<HEAD, true, false> : launch_stock<HEAD, false, false>))(
+      body, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states, actions, logp,
+      rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo,
+      std_hi, cluster, quant, w2, stream);
 }
 
+#if !defined(ELEGANTRL_OFFPOLICY_ONLY)
 // StockTradingEnv-v2: the actor-only rollout (K4, stock_actor_kernel<HEAD_PPO,
-// BF>; values are left to critic_values).  Shared memory of one block for
-// clusters of c blocks, and the cluster size for N lanes (stock_cluster);
-// bf and quant as for fused_rollout.
-extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c, int bf) {
-  return bf ? stock_actor_smem<HEAD_PPO, true>(D1, D2, c)
-            : stock_actor_smem<HEAD_PPO, false>(D1, D2, c);
+// BF, ST>; values are left to critic_values).  Shared memory of one block for
+// clusters of c blocks, and the cluster size for N lanes (stock_cluster), in
+// the variant; bf, quant and w2 (the actor's W2) as for fused_rollout.
+extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c, int variant) {
+  return ELEGANTRL_VARIANT(variant, StockHead<HEAD_PPO>::template smem, D1, D2, c);
 }
 
-extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster, int bf) {
-  return stock_cluster_bf<HEAD_PPO>(N, D1, D2, cluster, bf);
+extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster, int variant) {
+  return ELEGANTRL_VARIANT(variant, StockHead<HEAD_PPO>::template cluster, N, D1, D2, cluster);
 }
 
 extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
@@ -2271,35 +2419,41 @@ extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const v
                              const void* seed, void* states, void* actions, void* logp,
                              void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
                              int N, int H, int D1, int D2, float reward_scale, int cluster,
-                             int bf, int quant, const StockArgs* args, void* stream) {
-  return (bf ? launch_stock<HEAD_PPO, true> : launch_stock<HEAD_PPO, false>)(
-      StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,
+                             int bf, int quant, const StockArgs* args, const void* w2,
+                             void* stream) {
+  return launch_stock_any<HEAD_PPO>(
+      bf, w2, StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,
       actions, logp, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, 0.f, 0.f,
       0.f, cluster, quant, (cudaStream_t)stream);
 }
+#endif
 
+#if !defined(ELEGANTRL_ONPOLICY_ONLY)
 // The off-policy exploration rollout on StockBody: the ddpg, sac and modsac
-// heads (stock_actor_kernel<HEAD, BF>; no normalisation, no logprob); bf and
-// quant as for fused_rollout.  Returns the CUDA error of the launch, or -1
-// for another head.
+// heads (stock_actor_kernel<HEAD, BF, ST>; no normalisation, no logprob); bf,
+// quant and w2 as for fused_rollout.  Returns the CUDA error of the launch,
+// or -1 for another head.
 extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* env_f,
                                        const void* env_i, const void* noise, const void* seed,
                                        void* states, void* actions, void* rew, void* term,
                                        void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                        int D1, int D2, float reward_scale, float noise_std,
                                        float std_lo, float std_hi, int cluster, int bf,
-                                       int quant, const StockArgs* args, void* stream) {
+                                       int quant, const StockArgs* args, const void* w2,
+                                       void* stream) {
 #define ELEGANTRL_STOCK(HEAD)                                                                  \
   if (head == HEAD)                                                                            \
-    return (bf ? launch_stock<HEAD, true> : launch_stock<HEAD, false>)(                        \
-        StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, seed, states, actions,  \
-        nullptr, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, noise_std,    \
-        std_lo, std_hi, cluster, quant, (cudaStream_t)stream);
+    return launch_stock_any<HEAD>(                                                             \
+        bf, w2, StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, seed, states,   \
+        actions, nullptr, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale,      \
+        noise_std, std_lo, std_hi, cluster, quant, (cudaStream_t)stream);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_STOCK)
 #undef ELEGANTRL_STOCK
   return -1;
 }
+#endif
 
+#if !defined(ELEGANTRL_OFFPOLICY_ONLY)
 // Blocks of critic_values_kernel<CT> an SM holds at smem bytes a block into
 // per_sm: asked of the occupancy calculator once per (CT, device, smem) and
 // kept, not at every launch.
@@ -2355,8 +2509,10 @@ extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const v
                              const void* states, void* val, int N, int H, int D1, int D2,
                              int bf, int sbf, void* stream) {
   if ((long long)H * N == 0) return 0;
-  const bool wide = critic_tile(D1, D2) != 128;
-  auto go = wide ? (bf ? launch_critic<64, true> : launch_critic<64, false>)
-                 : (bf ? launch_critic<128, true> : launch_critic<128, false>);
+  const int ct = critic_tile(D1, D2);
+  auto go = ct == CT_STREAM ? (bf ? launch_critic<CT_STREAM, true> : launch_critic<CT_STREAM, false>)
+            : ct == 64      ? (bf ? launch_critic<64, true> : launch_critic<64, false>)
+                            : (bf ? launch_critic<128, true> : launch_critic<128, false>);
   return go(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2, sbf, (cudaStream_t)stream);
 }
+#endif

@@ -38,7 +38,19 @@ Three pieces, as for every kernel of the port:
 - :func:`rollout`, the wrapper: for CPU tensors it runs the plain version,
   for CUDA tensors it launches ``csrc/fused_rollout.cu`` (or raises);
 - ``rollout.launches``, the count of kernel launches (``rollout.launches_by_body``
-  splits it by env body, the bf16 variants as ``'<env>,bf16'``).
+  splits it by env body, the bf16 variants as ``'<env>,bf16'`` and the
+  streamed design with ``',streamed'`` after it).
+
+Two designs of each rollout kernel.  The *resident* one holds every block's
+slice of the weights in shared memory; where no cluster of up to 8 blocks
+holds them, the *streamed* one reads layer 2's weights from a copy in
+device memory (:func:`stream_weights`, which stays in the card's 50 MB L2)
+and holds only the activation tiles, W1's slices and the heads in shared
+memory (the critic pass streams W1's lane columns through its ring too).
+Each width takes the resident design where it fits (``*_fits_resident``)
+and the streamed one elsewhere, up to what a block's activation tiles allow
+(:func:`rollout_width_limit`, :func:`stock_width_limit`): a first width of
+1024 and more for every body and head in both compute types.
 
 Compute and storage types, as the JAX kernel's ``compute_dtype`` and
 ``store_dtype``: with ``compute_dtype=torch.bfloat16`` every product takes
@@ -81,6 +93,9 @@ _TWO_PI = 2.0 * math.pi
 SMEM_LIMIT = 232448
 # env lanes per CUDA block (one warp lane per env), as csrc/fused_rollout.cu
 _TE = 32
+STREAM_LANES = 16   # env lanes of a group of the streamed K1/K3 (csrc/fused_rollout.cu)
+STREAMED = 2        # the streamed design's bit of the library's size and cluster queries
+_STOCK_STREAM_KS = 2   # split-K parts at most in the streamed stock actor (STOCK_STREAM_KS)
 
 
 class KernelEnvBody(NamedTuple):
@@ -678,7 +693,7 @@ def wrow(k: int, bf16: bool) -> int:
 
 
 def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: int,
-                       bf16: bool = False) -> int:
+                       bf16: bool = False, streamed: bool = False) -> int:
     """Shared memory of one block of the rollout kernel (K1, K3) for clusters
     of ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices
     of both nets' weights row by row (a row of K inputs takes
@@ -689,12 +704,15 @@ def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: in
     split-K scratch of the widest product (``cm::tile_dense``'s count of
     parts: :func:`tile_scratch`).  With ``bf16`` the weight slices and the
     tiles xn, h1 and h2 hold bf16 values, and where the layout with layer 2's
-    split-K scratch would not fit a block layer 2 runs unsplit.
+    split-K scratch would not fit a block layer 2 runs unsplit.  With
+    ``streamed`` (the streamed design) the W2 slices are not held and a
+    group has ``STREAM_LANES`` lanes.
     ``csrc/fused_rollout.cu`` owns the layout (``RolloutLayout``,
     ``fused_rollout_smem_bytes``); this copy judges eligibility where the
     library is not built (the CPU)."""
     D1, D2 = (int(d) for d in net_dims)
     S, A, c, bf = body.state_dim, body.action_dim, int(cluster), bool(bf16)
+    G, st = (STREAM_LANES, 1) if streamed else (_TE, 0)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, ap = r4(S), r4(A)
@@ -702,137 +720,214 @@ def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: in
     ne4 = r4(max(body.n_step + body.n_reset, 1))
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    weights = (2 * js1 * wrow(S, bf) + 2 * js1 + 2 * js2 * wrow(k2, bf) + 2 * js2
+    weights = (2 * js1 * wrow(S, bf) + 2 * js1 + (1 - st) * 2 * js2 * wrow(k2, bf) + 2 * js2
                + ap * wrow(js2, bf) + 4 * wrow(js2, bf) + 2 * ap + 4 + 2 * s4)
-    tiles = (half((s4 + 2 * k2 + 2 * js2) * _TE)
-             + (c * (ap + 4) + 2 * nh4 + 2 * ne4 + ap + r4(A + 1)) * _TE)
-    split2 = tile_scratch(k2, js2)
-    rest = max(tile_scratch(s4, 2 * js1), tile_scratch(js2, ap), tile_scratch(js2, 4))
+    tiles = (half((s4 + 2 * k2 + 2 * js2) * G)
+             + (c * (ap + 4) + 2 * nh4 + 2 * ne4 + ap + r4(A + 1)) * G)
+    split2 = tile_scratch(k2, js2, G)
+    rest = max(tile_scratch(s4, 2 * js1, G), tile_scratch(js2, ap, G), tile_scratch(js2, 4, G))
     if bf and 4 * (weights + tiles + r4(max(split2, rest))) > SMEM_LIMIT:
         split2 = 0   # layer 2 unsplit
     return 4 * (weights + tiles + r4(max(split2, rest)))
 
 
-def tile_scratch(k: int, j: int, lanes: int = _TE, threads: int = 256) -> int:
+def tile_scratch(k: int, j: int, lanes: int = _TE, ks_max: int = 256,
+                 threads: int = 256) -> int:
     """Floats of split-K scratch that ``cm::tile_dense`` (csrc/cluster_mlp.cuh)
     takes for a product of ``j`` rows over ``k`` inputs and ``lanes`` lanes:
     it cuts K into ``ks`` parts, doubling ``ks`` while ``2 ks tiles <=
-    threads`` and ``8 ks <= k``, each part's sums ``(j, lanes)`` floats."""
+    threads`` and ``8 ks <= k``, at most ``ks_max``, each part's sums ``(j,
+    lanes)`` floats."""
     tiles = (j // 4) * (lanes // 4)
     ks = 1
     while 2 * ks * tiles <= threads and 8 * ks <= k:
         ks *= 2
+    ks = min(ks, ks_max)
     return ks * j * lanes if ks > 1 else 0
 
 
 def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
-                     cluster: int = 1, head: Optional[str] = None, bf16: bool = False) -> int:
+                     cluster: int = 1, head: Optional[str] = None, bf16: bool = False,
+                     streamed: bool = False) -> int:
     """Shared memory of one block of the stock actor kernel (K4: the
     on-policy route, ``stock_rollout_smem_bytes``, ``head`` None; the
     off-policy heads, ``offpolicy_rollout_smem_bytes``) for clusters of
     ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices of
     the actor's weights row by row (W1's rows at the ``1 + A`` lane
-    columns, W2's rows, the head's columns, A rows or 2A for the SAC heads;
-    a row of K inputs takes ``kernels.ldk(K)`` floats), the biases and
-    stds, the day's market rows, two steps' close prices, then the lane
-    tiles (every block's part of the head rows among them) and the split-K
-    scratch.  With ``bf16`` the weight slices and the tiles of the lanes'
-    normalised rows, h1 and h2 hold bf16 values.  ``csrc/fused_rollout.cu``
-    owns the layout (``StockActorLayout``); the critic runs afterwards in
-    :func:`critic_values`.  The wrapper needs one cluster size's layout to
-    fit."""
+    columns, W2's rows unless ``streamed``, the head's columns, A rows or 2A
+    for the SAC heads; a row of K inputs takes ``kernels.ldk(K)`` floats),
+    the biases and stds, the day's market rows, two steps' close prices,
+    then the lane tiles (every block's part of the head rows among them) and
+    the split-K scratch (``cm::SCRATCH``, or in the streamed design what its
+    products take in at most ``_STOCK_STREAM_KS`` parts).  With ``bf16`` the weight slices and the tiles of
+    the lanes' normalised rows, h1 and h2 hold bf16 values.
+    ``csrc/fused_rollout.cu`` owns the layout (``StockActorLayout``); the
+    critic runs afterwards in :func:`critic_values`.  The wrapper needs one
+    cluster size's layout to fit."""
     D1, D2 = net_dims
-    S, A, c, bf = state_dim, action_dim, cluster, bool(bf16)
+    S, A, c, bf, st = state_dim, action_dim, cluster, bool(bf16), int(bool(streamed))
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     L, ap = 1 + A, r4(A)
     op = r4(2 * A) if head in ('sac', 'modsac') else ap
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    floats = (js1 * wrow(L, bf) + js1 + js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf) + op + ap
-              + r4(S - L) + js1 + 2 * r4(A) + half((L + k2 + js2) * _TE)
-              + (L + c * op + 32 + 2 * ap) * _TE + 256 * 16)
+    ks = _STOCK_STREAM_KS
+    scratch = (r4(max(tile_scratch(L, js1, _TE, ks), tile_scratch(k2, js2, _TE, ks),
+                      tile_scratch(js2, op, _TE, ks))) if st else 256 * 16)
+    floats = (js1 * wrow(L, bf) + js1 + (1 - st) * js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf)
+              + op + ap + r4(S - L) + js1 + 2 * r4(A) + half((L + k2 + js2) * _TE)
+              + (L + c * op + 32 + 2 * ap) * _TE + scratch)
     return 4 * floats
 
 
 # the critic pass's tiles: samples (128, or 64 where that layout does not
-# fit), the features of a product's chunk, W2's K-tile (csrc/fused_rollout.cu:
-# critic_tile, CNC, CKT), and the row strides of the lane rows (CLD) and of a
-# K-tile (CKLD)
+# fit, or the streamed design's 32), the features of a product's chunk, W2's
+# K-tile (csrc/fused_rollout.cu: critic_tile, CNC, CKT), and the row strides
+# of the lane rows (CLD) and of a K-tile (CKLD)
 _CTS, _CNC, _CKT = (128, 64), 64, 32
+_CT_STREAM = 32
 _CLD, _CKLD = 1 + STOCK_KERNEL_STOCKS + 4, _CKT + 4
 _STOCK_S = 1 + 10 * STOCK_KERNEL_STOCKS   # the stock body's obs rows
+
+
+def critic_tile(net_dims: Sequence[int]) -> int:
+    """The critic pass's samples a tile (``critic_tile`` of the source): 128
+    where that resident layout fits a block, else 64, else the streamed
+    design's 32 (``_CT_STREAM``)."""
+    for ct in _CTS:
+        if critic_smem_bytes(net_dims, ct) <= SMEM_LIMIT:
+            return ct
+    return _CT_STREAM
 
 
 def critic_smem_bytes(net_dims: Sequence[int], tile: Optional[int] = None) -> int:
     """Shared memory of one block of the critic pass
     (``critic_values_smem_bytes``; ``CriticLayout`` of
     ``csrc/fused_rollout.cu`` owns it) with tiles of ``tile`` samples, by
-    default the kernel's (128 where that layout fits a block, else 64): W1's
-    lane columns, b1, b2 and the value head's weights at the widths padded
-    to 64, the two-stage W2 ring, the tile's lane rows, the groups' market
-    rows and products, h1 and the value partials.  W2 streams through the
-    ring, so only h1 grows with both widths: the widest ``D1`` is 320 at
-    128 samples, 576 at 64."""
+    default the kernel's (:func:`critic_tile`): W1's lane columns (not in the
+    streamed design, tiles of 32, which streams them through the ring), b1,
+    b2 and the value head's weights at the widths padded to 64, the
+    two-stage ring, the tile's lane rows, the groups' market rows and
+    products, h1 and the value partials.  W2 streams through the ring, so
+    only h1 grows with both widths: the widest ``D1`` is 320 at 128
+    samples, 576 at 64, 1408 in the streamed design."""
     if tile is None:
-        tile = _CTS[0] if critic_smem_bytes(net_dims, _CTS[0]) <= SMEM_LIMIT else _CTS[1]
+        tile = critic_tile(net_dims)
+    st = int(tile == _CT_STREAM)
     d1p, d2p = (-(-int(d) // 64) * 64 for d in net_dims)
     nm, nq = _STOCK_S - (1 + STOCK_KERNEL_STOCKS), tile // _TE
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
-    floats = (d1p * _CLD + d1p + 2 * d2p + 2 * _CNC * _CKLD + tile * _CLD + r4(nq * nm)
-              + nq * d1p + tile * (d1p + 4) + 8 * _TE)
+    floats = ((1 - st) * d1p * _CLD + d1p + 2 * d2p + 2 * _CNC * _CKLD + tile * _CLD
+              + r4(nq * nm) + nq * d1p + tile * (d1p + 4) + 8 * _TE)
     return 4 * floats
 
 
-def rollout_width_limit(body: KernelEnvBody, bf16: bool = False) -> int:
-    """The widest square net (a multiple of 4) whose slices a cluster of 8
-    blocks of the rollout kernel holds (:func:`rollout_smem_bytes`)."""
-    d = 4
-    while rollout_smem_bytes(body, (d + 4, d + 4), 8, bf16) <= SMEM_LIMIT:
+_WIDEST = {}   # the searches' answers, per their key
+
+
+def _widest(fits, key=None) -> int:
+    """The widest square width (a multiple of 4) at which ``fits((d, d))``
+    holds, searching up from 4 (0 where none does); kept per ``key``."""
+    if key in _WIDEST:
+        return _WIDEST[key]
+    d = 0
+    while fits((d + 4, d + 4)):
         d += 4
+    if key is not None:
+        _WIDEST[key] = d
     return d
 
 
-def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = False) -> bool:
-    """Whether the CUDA kernel takes this body at these widths (``bf16``: its
-    bf16-compute variant): the registered bodies where a cluster of 8 blocks
-    holds both nets' slices (:func:`rollout_smem_bytes`; (256, 256) and more
-    in float32, (512, 512) in bf16 but on PointChasingDiscreteEnv,
-    ``ROADMAP.md`` lists the limits); a market-data body (built for
+def _body_key(body: KernelEnvBody) -> tuple:
+    """What the layouts read of a body."""
+    return (body.kernel_id, body.state_dim, body.action_dim, body.discrete, body.n_step,
+            body.n_reset, body.tables is not None)
+
+
+def _rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool,
+                  streamed: bool) -> bool:
+    """One design of the rollout kernel holds this body at these widths:
+    the actor kernel and the critic pass for a market-data body, else a
+    cluster of 8 (the resident design) or of any size (the streamed one)."""
+    if len(tuple(net_dims)) != 2 or not kernel_has_body(body):
+        return False
+    if body.tables is not None:   # the critic pass: resident tiles, or (streamed) any
+        return (min(actor_smem_bytes(body.state_dim, net_dims, body.action_dim, c, bf16=bf16,
+                                     streamed=streamed) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
+                and critic_smem_bytes(net_dims) <= SMEM_LIMIT
+                and (streamed or critic_tile(net_dims) != _CT_STREAM))
+    clusters = ROLLOUT_CLUSTERS if streamed else (8,)
+    return min(rollout_smem_bytes(body, net_dims, c, bf16, streamed)
+               for c in clusters) <= SMEM_LIMIT
+
+
+def rollout_fits_resident(body: KernelEnvBody, net_dims: Sequence[int],
+                          bf16: bool = False) -> bool:
+    """Whether the resident design of the CUDA kernel takes this body at these
+    widths (``bf16``: its bf16-compute variant): the registered bodies where
+    a cluster of 8 blocks holds both nets' slices (:func:`rollout_smem_bytes`;
+    (256, 256) and more in float32, (512, 512) in bf16 but on
+    PointChasingDiscreteEnv); a market-data body (built for
     ``STOCK_KERNEL_STOCKS`` stocks) as the actor-only rollout, where a
-    cluster holds the actor's slices (:func:`stock_width_limit`), plus the
-    critic pass (:func:`critic_smem_bytes`, the same layout in both
-    variants)."""
-    if len(tuple(net_dims)) != 2:
-        return False
-    S, A = body.state_dim, body.action_dim
-    if not kernel_has_body(body):
-        return False
-    if body.tables is not None:
-        return (min(actor_smem_bytes(S, net_dims, A, c, bf16=bf16)
-                    for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
-                and critic_smem_bytes(net_dims) <= SMEM_LIMIT)
-    return rollout_smem_bytes(body, net_dims, 8, bf16) <= SMEM_LIMIT
+    cluster holds the actor's slices (:func:`actor_smem_bytes`), plus the
+    critic pass with W1's lane columns held (:func:`critic_smem_bytes`)."""
+    return _rollout_fits(body, net_dims, bf16, False)
+
+
+def rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = False) -> bool:
+    """Whether the CUDA kernel takes this body at these widths in one of its
+    designs: the resident one (:func:`rollout_fits_resident`) or the
+    streamed one, whose activation tiles a block holds up to a first width
+    past 1024 (:func:`rollout_width_limit`)."""
+    return _rollout_fits(body, net_dims, bf16, False) or _rollout_fits(body, net_dims, bf16, True)
+
+
+def rollout_width_limit(body: KernelEnvBody, bf16: bool = False, resident: bool = False) -> int:
+    """The widest square net (a multiple of 4) that the rollout kernel takes
+    (:func:`rollout_fits`; ``resident``: that the resident design takes,
+    :func:`rollout_fits_resident`)."""
+    fits = rollout_fits_resident if resident else rollout_fits
+    return _widest(lambda dims: fits(body, dims, bf16),
+                   ('rollout', _body_key(body), bool(bf16), resident))
 
 
 def stock_width_limit(head: Optional[str] = None, bf16: bool = False,
-                      critic: bool = True) -> int:
-    """The widest square net (a multiple of 4) whose actor slices a cluster
-    of the stock actor kernel holds (:func:`actor_smem_bytes`; ``head`` None
-    on-policy, else the off-policy head), on-policy with ``critic`` the
-    critic pass's tile too (:func:`critic_smem_bytes`).  In float32 448 (416
+                      critic: bool = True, resident: bool = False) -> int:
+    """The widest square net (a multiple of 4) whose actor a cluster of the
+    stock actor kernel takes (:func:`actor_smem_bytes`; ``head`` None
+    on-policy, else the off-policy head) in either design, on-policy with
+    ``critic`` the critic pass too (:func:`critic_smem_bytes`).  With
+    ``resident`` the widest the resident designs take: in float32 448 (416
     for sac and modsac); in bf16 576 on-policy (the critic pass; the actor
     kernel alone 704), 704 for ddpg, 640 for sac and modsac."""
     S, A = _STOCK_S, STOCK_KERNEL_STOCKS
     with_critic = head is None and critic
+    designs = (False,) if resident else (False, True)
 
-    def fits(d):
-        return (min(actor_smem_bytes(S, (d, d), A, c, head, bf16) for c in ROLLOUT_CLUSTERS)
-                <= SMEM_LIMIT and (not with_critic or critic_smem_bytes((d, d)) <= SMEM_LIMIT))
-    d = 4
-    while fits(d + 4):
-        d += 4
-    return d
+    def fits(dims):
+        return (any(min(actor_smem_bytes(S, dims, A, c, head, bf16, st) for c in ROLLOUT_CLUSTERS)
+                    <= SMEM_LIMIT for st in designs)
+                and (not with_critic or critic_smem_bytes(
+                    dims, None if not resident else _CTS[1]) <= SMEM_LIMIT))
+    return _widest(fits, ('stock', head, bool(bf16), with_critic, resident))
+
+
+def stream_weights(flats: Sequence[torch.Tensor], in_dim: int, net_dims: Sequence[int],
+                   bf16: bool = False) -> torch.Tensor:
+    """The streamed design's copy of layer 2's weights: W2 ``(D2, D1)`` of
+    each flat net (leaves W1 ``(D1, in_dim)``, b1, W2, ...) zero-padded to
+    ``(round32(D2), round32(D1))``, one net after the other, in bf16 (rounded
+    to the nearest, as the resident design rounds its slices) under
+    ``bf16``.  The kernels read every cluster size's slices of it."""
+    D1, D2 = (int(d) for d in net_dims)
+    r32 = lambda n: -(-n // 32) * 32  # noqa: E731
+    o = D1 * int(in_dim) + D1
+    out = torch.zeros((len(flats), r32(D2), r32(D1)), device=flats[0].device,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
+    for i, flat in enumerate(flats):
+        out[i, :D2, :D1] = flat[o:o + D2 * D1].view(D2, D1)
+    return out
 
 
 class _StockArgs(ctypes.Structure):
@@ -886,7 +981,7 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
     group), from the group's first lane.  The stock rollouts' stored states
     always meet it (:func:`block_day`)."""
     _check_dtypes('critic_values', compute_dtype, None)
-    if cri_flat.device.type == 'cpu':
+    if cri_flat.device.type == 'cpu':   # the plain version, only for CPU tensors
         return critic_values_reference(cri_flat, norm_avg, norm_std, states, net_dims=net_dims,
                                        compute_dtype=compute_dtype)
     if cri_flat.device.type != 'cuda':
@@ -904,7 +999,8 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
     if smem > SMEM_LIMIT:
         raise ValueError(f'critic_values: net_dims={tuple(net_dims)} needs {smem} bytes of '
                          f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
-                         'can hold (the first width is at most 576)')
+                         f'can hold (the first width is at most '
+                         f'{_widest(lambda d: critic_smem_bytes(d) <= SMEM_LIMIT)})')
     dev, f32 = cri_flat.device, torch.float32
     n_cri = sum(math.prod(sh) for sh in ppo_param_shapes(S, (D1, D2), 1, True)[1])
     check_tensor('critic_values', 'cri_flat', cri_flat, (n_cri,), f32, dev)
@@ -921,7 +1017,8 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
                             ptr(values), N, H, D1, D2, bf, sbf, ctypes.c_void_p(stream)),
           'critic_values')
     critic_values.launches += 1
-    kind = ('float32', 'bf16')[bf]     # the bf16 variant counts apart
+    # the bf16 variant and the streamed design count apart
+    kind = ('float32', 'bf16')[bf] + (',streamed' if critic_tile((D1, D2)) == _CT_STREAM else '')
     critic_values.launches_by_kind[kind] = critic_values.launches_by_kind.get(kind, 0) + 1
     return values
 
@@ -970,25 +1067,20 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     lib = _library()
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
-        smem = min(lib.stock_rollout_smem_bytes(D1, D2, c, bf) for c in ROLLOUT_CLUSTERS)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
-                             f'shared memory in each block of a cluster at the least, more '
-                             f'than the {SMEM_LIMIT} a Hopper block can hold (square widths '
-                             f'up to {stock_width_limit(None, bf)} in '
-                             f'{("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)')
+        design = _design(lambda v: min(lib.stock_rollout_smem_bytes(D1, D2, c, v)
+                                       for c in ROLLOUT_CLUSTERS), bf, 'rollout', net_dims,
+                         lambda: f'{stock_width_limit(None, bf, critic=False)} in '
+                                 f'{("float32", "bf16")[bf]} on {body.env_name}')
         if not stock_cluster:
-            stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf)
+            stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf | design)
     else:
-        smem = lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, 8, bf)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f'rollout: net_dims={tuple(net_dims)} needs {smem} bytes of '
-                             f'shared memory in each block of a cluster of 8, the widest '
-                             f'the kernel takes, more than the {SMEM_LIMIT} a Hopper block '
-                             f'can hold (square widths up to {rollout_width_limit(body, bf)} '
-                             f'in {("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)')
+        design = _design(lambda v: min(lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, c, v)
+                                       for c in ((8,) if v == bf else ROLLOUT_CLUSTERS)),
+                         bf, 'rollout', net_dims,
+                         lambda: f'{rollout_width_limit(body, bf)} in '
+                                 f'{("float32", "bf16")[bf]} on {body.env_name}')
         if not cluster:
-            cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf)
+            cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf | design)
     dev = act_flat.device
     act_shapes, cri_shapes = ppo_param_shapes(S, (D1, D2), A, body.discrete)
     f32 = torch.float32
@@ -1021,12 +1113,15 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         values=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    w2 = None    # the resident design; else the streamed design's copy of W2
+    if design:
+        w2 = stream_weights((act_flat,) if stock else (act_flat, cri_flat), S, (D1, D2), bf)
     if stock:
         status = lib.stock_rollout(
             ptr(act_flat), ptr(norm_avg), ptr(norm_std), ptr(env_f), ptr(env_i), ptr(noise),
             ptr(seed), *[ptr(t) for t in out if t is not out.values], N, H, D1, D2,
             ctypes.c_float(reward_scale), int(stock_cluster), bf, quant,
-            ctypes.byref(stock_args), ctypes.c_void_p(stream))
+            ctypes.byref(stock_args), ptr(w2), ctypes.c_void_p(stream))
     else:
         status = lib.fused_rollout(
             body.kernel_id,
@@ -1034,8 +1129,9 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
             *[ptr(t) for t in out],
             N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), bf, quant,
-            ctypes.c_void_p(stream))
-    tag = body.env_name + (',bf16' if bf else '')   # the bf16 variant counts apart
+            ptr(w2), ctypes.c_void_p(stream))
+    # the bf16 variant and the streamed design count apart
+    tag = body.env_name + (',bf16' if bf else '') + (',streamed' if design else '')
     check(status, f'fused_rollout[{tag}]')
     rollout.launches += 1
     rollout.launches_by_body[tag] = rollout.launches_by_body.get(tag, 0) + 1
@@ -1049,6 +1145,23 @@ rollout.launches = 0
 rollout.launches_by_body = {}
 
 _CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index, bf) -> the rollout kernel's cluster size
+
+
+def _design(smem_of, bf: int, what: str, net_dims, limit) -> int:
+    """The design a kernel takes: 0 (resident) where ``smem_of(bf)``, the
+    least shared memory a block of it takes in the library's reckoning, fits
+    a block, else ``STREAMED`` where ``smem_of(bf | STREAMED)`` does; raises
+    past both, naming the widest square width ``limit()`` (a search,
+    reckoned only then: the wrapper asks at every launch)."""
+    if smem_of(bf) <= SMEM_LIMIT:
+        return 0
+    smem = smem_of(bf | STREAMED)
+    if smem <= SMEM_LIMIT:
+        return STREAMED
+    raise ValueError(f'{what}: net_dims={tuple(net_dims)} needs {smem} bytes of shared memory '
+                     f'in each block even with layer 2 streamed from device memory, more than '
+                     f'the {SMEM_LIMIT} a Hopper block can hold (square widths up to {limit()}, '
+                     f'ROADMAP.md)')
 
 
 def _kept_pick(picks: dict, key, ask) -> int:
@@ -1068,7 +1181,8 @@ def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device,
                      bf: int = 0) -> int:
     """The rollout kernel's cluster size (``fused_rollout_cluster``; for the
     stock body the actor kernel's, ``stock_rollout_cluster``), kept per body,
-    env count, widths, device and compute type."""
+    env count, widths, device and variant (``bf``: bit 0 bf16, ``STREAMED``
+    the streamed design)."""
     if body.tables is not None:
         ask = lambda: lib.stock_rollout_cluster(N, D1, D2, 0, bf)  # noqa: E731
     else:
@@ -1076,13 +1190,27 @@ def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device,
     return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index, bf), ask)
 
 
+# the entry points of csrc/fused_rollout.cu that offpolicy_rollout.cu builds;
+# onpolicy_rollout.cu builds the others (two nvcc runs side by side)
+_OFFPOLICY_ENTRIES = ('offpolicy_rollout', 'offpolicy_rollout_smem_bytes',
+                      'offpolicy_rollout_cluster', 'offpolicy_stock_rollout')
+
+
 def _library():
-    from ._cuda_build import load
-    lib = load('fused_rollout')
+    """The rollout kernels' library: ``onpolicy_rollout``'s entry points
+    with ``offpolicy_rollout``'s beside them (both built from
+    ``csrc/fused_rollout.cu``, their ``nvcc`` runs started together)."""
+    from . import _cuda_build
+    if not all(n in _cuda_build._loaded for n in ('onpolicy_rollout', 'offpolicy_rollout')):
+        _cuda_build.build(['onpolicy_rollout', 'offpolicy_rollout'])
+    lib = _cuda_build.load('onpolicy_rollout')
     fn = lib.fused_rollout
     if fn.argtypes is None:
+        off = _cuda_build.load('offpolicy_rollout')
+        for name in _OFFPOLICY_ENTRIES:
+            setattr(lib, name, getattr(off, name))
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.fused_rollout_smem_bytes.restype = ctypes.c_int
@@ -1090,7 +1218,7 @@ def _library():
         lib.fused_rollout_cluster.restype = ctypes.c_int
         lib.offpolicy_rollout.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                                           + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
-                                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         lib.offpolicy_rollout.restype = ctypes.c_int
         lib.offpolicy_rollout_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.offpolicy_rollout_smem_bytes.restype = ctypes.c_int
@@ -1098,7 +1226,7 @@ def _library():
         lib.offpolicy_rollout_cluster.restype = ctypes.c_int
         lib.stock_rollout.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                                      + [ctypes.c_void_p, ctypes.c_void_p])
+                                      + [ctypes.c_void_p] * 3)
         lib.stock_rollout.restype = ctypes.c_int
         lib.stock_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.stock_rollout_smem_bytes.restype = ctypes.c_int
@@ -1110,7 +1238,7 @@ def _library():
         lib.critic_values_smem_bytes.restype = ctypes.c_int
         lib.offpolicy_stock_rollout.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
                                                 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                                                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                                                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         lib.offpolicy_stock_rollout.restype = ctypes.c_int
     return lib
 
@@ -1437,7 +1565,7 @@ def offpolicy_out_rows(action_dim: int, head: str) -> int:
 
 
 def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str,
-                         cluster: int = 8, bf16: bool = False) -> int:
+                         cluster: int = 8, bf16: bool = False, streamed: bool = False) -> int:
     """Shared memory of one block of the off-policy rollout for clusters of
     ``cluster`` blocks over a group of ``OFF_LANES`` lanes: the block's
     slices of W1's and W2's rows and of the head's columns (a row of K
@@ -1447,12 +1575,13 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
     rows) and the split-K scratch of the widest product
     (``offpolicy_rollout_smem_bytes`` of ``csrc/fused_rollout.cu``:
     ``OffLayout``), with ``bf16`` the weight slices and the tiles xn, h1 and
-    h2 in bf16.  The stock body runs the stock actor kernel
-    (:func:`actor_smem_bytes`)."""
+    h2 in bf16, and with ``streamed`` (the streamed design) no W2 slice.
+    The stock body runs the stock actor kernel (:func:`actor_smem_bytes`)."""
     D1, D2 = (int(d) for d in net_dims)
     S, A, c, G, bf = body.state_dim, body.action_dim, int(cluster), OFF_LANES, bool(bf16)
+    st = int(bool(streamed))
     if body.tables is not None:
-        return actor_smem_bytes(S, (D1, D2), A, c, head, bf)
+        return actor_smem_bytes(S, (D1, D2), A, c, head, bf, streamed)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, op = r4(S), r4(offpolicy_out_rows(A, head))
@@ -1460,22 +1589,45 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
     ne4 = r4(max(body.n_step + body.n_reset, 1))
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
-    weights = js1 * wrow(S, bf) + js1 + js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf) + op
+    weights = (js1 * wrow(S, bf) + js1 + (1 - st) * js2 * wrow(k2, bf) + js2
+               + op * wrow(js2, bf) + op)
     tiles = half((s4 + k2 + js2) * G) + (c * op + 2 * nh4 + 2 * ne4 + r4(A) + op) * G
     scratch = max(tile_scratch(s4, js1, G), tile_scratch(k2, js2, G), tile_scratch(js2, op, G))
     return 4 * (weights + tiles + r4(scratch))
 
 
-def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int],
-                   bf16: bool = False) -> bool:
-    """Whether the CUDA kernel takes this (body, head) pair at these widths
-    (``bf16``: its bf16-compute variant): two hidden layers whose slices a
-    cluster of 1, 2, 4 or 8 blocks holds (``ROADMAP.md`` lists the limits;
-    on the stock body :func:`stock_width_limit`: 448 for ddpg and 416 for
-    sac and modsac in float32, 704 and 640 in bf16)."""
+def offpolicy_fits_resident(body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                            bf16: bool = False) -> bool:
+    """Whether the resident design of the CUDA kernel takes this (body, head)
+    pair at these widths (``bf16``: its bf16-compute variant): two hidden
+    layers whose slices a cluster of 1, 2, 4 or 8 blocks holds (to (576, 576),
+    and (544, 544) on PointChasingDiscreteEnv; on the stock body
+    ``stock_width_limit(head, resident=True)``: 448 for ddpg and 416 for sac
+    and modsac in float32, 704 and 640 in bf16)."""
     return (offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
             and min(offpolicy_smem_bytes(body, net_dims, head, c, bf16)
                     for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
+
+
+def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                   bf16: bool = False) -> bool:
+    """Whether the CUDA kernel takes this (body, head) pair at these widths
+    in one of its designs: the resident one (:func:`offpolicy_fits_resident`)
+    or the streamed one, whose activation tiles a block holds up to a first
+    width past 1024 (:func:`offpolicy_width_limit`)."""
+    return offpolicy_fits_resident(body, head, net_dims, bf16) or (
+        offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
+        and min(offpolicy_smem_bytes(body, net_dims, head, c, bf16, True)
+                for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
+
+
+def offpolicy_width_limit(body: KernelEnvBody, head: str, bf16: bool = False,
+                          resident: bool = False) -> int:
+    """The widest square net (a multiple of 4) that the off-policy rollout
+    takes for this pair (``resident``: its resident design)."""
+    fits = offpolicy_fits_resident if resident else offpolicy_fits
+    return _widest(lambda dims: fits(body, head, dims, bf16),
+                   ('offpolicy', _body_key(body), head, bool(bf16), resident))
 
 
 def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tensor, *,
@@ -1519,16 +1671,13 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     from ._cuda_build import check, check_tensor, ptr
     lib = _library()
     head_id = OFFPOLICY_HEADS[head]
-    smem = min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1, D2, c, bf)
-               for c in ROLLOUT_CLUSTERS)
-    if smem > SMEM_LIMIT:
-        limit = (f' (square widths up to {stock_width_limit(head, bf)} for {head} in '
-                 f'{("float32", "bf16")[bf]} on {body.env_name}, ROADMAP.md)' if stock else '')
-        raise ValueError(f'offpolicy_rollout: net_dims={tuple(net_dims)} needs {smem} bytes '
-                         f'of shared memory in each block of a cluster at the least, more '
-                         f'than the {SMEM_LIMIT} a Hopper block can hold{limit}')
+    design = _design(lambda v: min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1,
+                                                                     D2, c, v)
+                                   for c in ROLLOUT_CLUSTERS), bf, 'offpolicy_rollout', net_dims,
+                     lambda: f'{offpolicy_width_limit(body, head, bf)} for {head} in '
+                             f'{("float32", "bf16")[bf]} on {body.env_name}')
     if not cluster:
-        cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device, bf)
+        cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device, bf | design)
     dev = flat.device
     f32 = torch.float32
     n_head = sum(math.prod(s) for s in offpolicy_head_shapes(S, (D1, D2), A, head))
@@ -1553,19 +1702,21 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         truncates=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    w2 = stream_weights((flat,), S, (D1, D2), bf) if design else None
     if stock:
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, *std_clip)]
         status = lib.offpolicy_stock_rollout(
             head_id, ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
             *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster), bf, quant,
-            ctypes.byref(stock_args), ctypes.c_void_p(stream))
+            ctypes.byref(stock_args), ptr(w2), ctypes.c_void_p(stream))
     else:
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]
         status = lib.offpolicy_rollout(
             body.kernel_id, head_id, ptr(flat), ptr(env_f), ptr(env_i),
             ptr(noise), ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, *hyper,
-            int(cluster), bf, quant, ctypes.c_void_p(stream))
-    tag = f'{body.env_name},{head}' + (',bf16' if bf else '')
+            int(cluster), bf, quant, ptr(w2), ctypes.c_void_p(stream))
+    # the bf16 variant and the streamed design count apart
+    tag = f'{body.env_name},{head}' + (',bf16' if bf else '') + (',streamed' if design else '')
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1
     offpolicy_rollout.launches_by_kernel[tag] = offpolicy_rollout.launches_by_kernel.get(tag, 0) + 1
@@ -1582,7 +1733,8 @@ _OFF_CLUSTER_PICKS = {}
 def _offpolicy_cluster(lib, body: KernelEnvBody, head_id: int, N: int, D1: int, D2: int,
                        device, bf: int = 0) -> int:
     """The off-policy kernel's cluster size (``offpolicy_rollout_cluster``),
-    kept per body, head, env count, widths, device and compute type."""
+    kept per body, head, env count, widths, device and variant (as
+    :func:`_rollout_cluster`)."""
     return _kept_pick(_OFF_CLUSTER_PICKS,
                       (body.kernel_id, head_id, N, D1, D2, device.index, bf),
                       lambda: lib.offpolicy_rollout_cluster(body.kernel_id, head_id, N, D1, D2,

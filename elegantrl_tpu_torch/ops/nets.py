@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.checkpoint import tree_leaves, tree_unflatten
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate='tanh')
@@ -182,6 +184,29 @@ def soft_update_(target: torch.Tensor, online: torch.Tensor, tau: float) -> None
     target.mul_(1.0 - tau).add_(online * tau)
 
 
+def soft_update(target, online, tau: float):
+    """Polyak averaging ``target * (1 - tau) + online * tau`` over matching
+    trees of tensors (a flat buffer, or lists, tuples and dicts of them),
+    returned as new tensors (``elegantrl_tpu/ops/nets.py:soft_update``;
+    :func:`soft_update_` updates a flat buffer in place)."""
+    pairs = zip(tree_leaves(target), tree_leaves(online))
+    return tree_unflatten(target, iter([t * (1.0 - tau) + o * tau for t, o in pairs]))
+
+
+def ensemble_init(gen: torch.Generator, num: int, init_fn):
+    """``num`` independent parameter trees from ``init_fn(gen)``, stacked
+    along a new leading axis (``elegantrl_tpu/ops/nets.py:ensemble_init``:
+    critic ensembles evaluated as one batched product)."""
+    members = [init_fn(gen) for _ in range(int(num))]
+    leaves = zip(*[tree_leaves(m) for m in members])
+    return tree_unflatten(members[0], iter([torch.stack(xs) for xs in leaves]))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The square root of the sum of squares of every leaf of ``tree``."""
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tree_leaves(tree)))
+
+
 def mlp_shapes(dims: Sequence[int]) -> list:
     """Leaf shapes ``W (out, in), b (out,)`` of an MLP ``dims[0] -> ... ->
     dims[-1]``, in the flat-buffer order."""
@@ -314,3 +339,40 @@ def convnet_apply(leaves: Sequence[torch.Tensor], x: torch.Tensor,
         h = F.relu(F.conv2d(h, w, stride=stride) + b[:, None, None])
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)          # NHWC order
     return F.linear(h, leaves[-2], leaves[-1])
+
+
+# ------------------------------------------------------------- DenseNet
+# The reference's ``DenseNet`` (``elegantrl_tpu/ops/nets.py:densenet_*``):
+# two concat-growing Hardswish blocks, lay_dim -> 4 lay_dim.  Leaves as
+# everywhere in the port: W (out, in), b.
+
+def densenet_init(gen: torch.Generator, lay_dim: int) -> dict:
+    """``{'dense1': (W, b), 'dense2': (W, b)}``, each layer as
+    :func:`linear_init` draws it: ``lay_dim -> lay_dim``, then ``2 lay_dim ->
+    2 lay_dim``."""
+    out = {}
+    for name, dim in (('dense1', lay_dim), ('dense2', 2 * lay_dim)):
+        layer = linear_init(gen, dim, dim)
+        out[name] = (layer.weight.detach().clone(), layer.bias.detach().clone())
+    return out
+
+
+def densenet_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    w1, b1 = params['dense1']
+    x2 = torch.cat([x, F.hardswish(F.linear(x, w1, b1))], dim=-1)
+    w2, b2 = params['dense2']
+    return torch.cat([x2, F.hardswish(F.linear(x2, w2, b2))], dim=-1)
+
+
+# ----------------------------------------------------- Ornstein-Uhlenbeck
+def ou_noise_step(noise: torch.Tensor, gen: Optional[torch.Generator] = None,
+                  theta: float = 0.15, sigma: float = 0.3, dt: float = 1e-2,
+                  normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Ornstein-Uhlenbeck step (``elegantrl_tpu/ops/nets.py:ou_noise_step``,
+    the reference's sign convention): ``n - (theta n dt + sigma sqrt(dt) z)``,
+    ``z`` standard normals drawn from ``gen``, or ``normal`` given (a test
+    replays the JAX draws).  Functional: the caller carries ``noise``."""
+    if normal is None:
+        normal = torch.randn(noise.shape, generator=gen, device=noise.device, dtype=noise.dtype)
+    eps = sigma * math.sqrt(dt) * normal
+    return noise - (theta * noise * dt + eps)

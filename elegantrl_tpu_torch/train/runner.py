@@ -172,10 +172,12 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     (A2C explores exactly as PPO does; not ``AgentPPOHterm``), or an
     off-policy agent with a kernel head, when a (block, chunk) fits its VMEM
     budget (:func:`jax_rollout_block_chunk`).  The port's kernel fits when
-    a cluster of blocks holds the weight slices (``rollout_fits``; off-policy
-    ``offpolicy_fits``, for a (body, head) pair it has), in the compute and
-    storage types the JAX runner hands its kernel (the bf16 variants under
-    bf16 compute, the stock body's K4 among them).
+    one of its designs holds the net: a cluster of blocks holding the weight
+    slices, or the streamed design, which reads layer 2 from device memory
+    and takes every width to (1024, 1024) and past it (``rollout_fits``;
+    off-policy ``offpolicy_fits``, for a (body, head) pair it has), in the
+    compute and storage types the JAX runner hands its kernel (the bf16
+    variants under bf16 compute, the stock body's K4 among them).
 
     Under a mesh the JAX runner's terms come first: one mesh axis and
     ``num_envs`` a multiple of the shards, or no kernel (``True`` raises);
@@ -188,8 +190,8 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                                      make_fused_offpolicy_rollout, make_fused_rollout,
                                      make_sharded_fused_rollout,
                                      make_sharded_offpolicy_rollout, offpolicy_fits,
-                                     rollout_fits, rollout_width_limit, shard_fits,
-                                     stock_width_limit)
+                                     offpolicy_width_limit, rollout_fits,
+                                     rollout_width_limit, shard_fits)
     shards = 1
     if mesh is not None:
         shards = mesh.size
@@ -226,13 +228,12 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
                                                  horizon_len) is not None)
         fits = (jax_takes and offpolicy_fits(body, off_head, net_dims, bf)
                 and shard_fits(body, num_envs, shards))
-        stock = (f'{stock_width_limit(off_head, bf)} for {off_head} in {precision}'
-                 if off_head in ('ddpg', 'sac', 'modsac') else
-                 '448 for ddpg, 416 for sac and modsac in float32')
+        limit = (f'{offpolicy_width_limit(body, off_head, bf)} for {off_head} on '
+                 f'{spec.env_name} in {precision}' if jax_takes else
+                 'past 1024 on every pair')
         scope = (f'an off-policy agent of {sorted(_OFFPOLICY_KERNEL_HEADS)} with a '
-                 f'2-hidden-layer MLP whose weight slices a cluster of blocks holds (square '
-                 f'widths up to 576, 544 on PointChasingDiscreteEnv, more in bf16; on the '
-                 f'stock body {stock}; ops/fused_rollout.py:offpolicy_fits), '
+                 f'2-hidden-layer MLP that one of its designs holds (square widths up to '
+                 f'{limit}; ops/fused_rollout.py:offpolicy_fits), '
                  f'on an env of '
                  f'{bodies} at its body\'s dimensions whose action space '
                  f'the agent fits; got agent={agent.name}, env={spec.env_name}, '
@@ -257,12 +258,10 @@ def _maybe_fused_rollout(args, env: EnvDef, agent: AgentDef, device: torch.devic
     jax_takes = (body is not None and agent.name in want_agents and len(net_dims) == 2
                  and jax_rollout_block_chunk(body, spec.if_discrete, False, envs_local,
                                              horizon_len) is not None)
-    limit = (f'{rollout_width_limit(body, bf)} on {spec.env_name}'
-             if body is not None and body.tables is None else
-             f'{stock_width_limit(None, bf)} on the stock body (the actor kernel to '
-             f'{stock_width_limit(None, bf, critic=False)}, the critic pass to 576)')
-    scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP whose '
-             f'weight slices fit a cluster of 8 blocks (square widths up to {limit} in '
+    limit = (f'{rollout_width_limit(body, bf)} on {spec.env_name}' if body is not None
+             else 'past 1024 on every body')
+    scope = (f'{want_agents[0]} or {want_agents[1]} with a 2-hidden-layer MLP that one '
+             f'of its designs holds (square widths up to {limit} in '
              f'{precision}; ops/fused_rollout.py:rollout_fits), on an env of '
              f'{bodies} at its '
              f"body's dimensions; got agent={agent.name}, env={spec.env_name}, "
@@ -332,20 +331,39 @@ def build_training(args: Config, mesh=None) -> TrainContext:
                 load_tree(ckpt, agent.state_to_numpy(agent_state)), device)
             print(f'| train_agent: loaded {ckpt}', flush=True)
     use_host_rollout = env.host_pool is not None and bool(getattr(args, 'host_rollout', True))
+    # Under a mesh of several processes each process's pool holds the envs of
+    # its own shards, seeded as in the one-process layout, and steps them in
+    # host-rollout mode; the rollouts and obs are gathered into the union as
+    # the device rollouts' are (the JAX runner steps its pool through
+    # io_callback there, elegantrl_tpu/train/runner.py:327-343).
+    def union(x, dim: int = 0):
+        """This process's rows of a host-pool value, gathered into the union."""
+        return gather_env_axis(Shards(list(torch.chunk(x, len(mesh.shards), dim)), mesh), dim)
+
+    host_shard = None   # (lo, hi, union) of this process's pool: host_collect_rollout's
     if env.host_pool is not None and mesh is not None and mesh.world_size > 1:
-        # the JAX runner leaves host-rollout mode here for its io_callback
-        # steps, which the port does not have: the pool would need splitting
-        raise NotImplementedError(
-            f'build_training: the host env {spec.env_name} under a mesh of '
-            f'{mesh.world_size} processes; a host env trains under a one-process mesh')
-    env_state, obs = vec_reset(env, gen, num_envs, device)   # a host env: its pool's reset
+        if num_envs % mesh.size:
+            raise ValueError(f'build_training: num_envs={num_envs} does not divide over the '
+                             f'mesh\'s {mesh.size} shards')
+        per = num_envs // mesh.size
+        host_shard = (mesh.shards[0] * per, (mesh.shards[-1] + 1) * per, union)
+        env.host_pool.shard(host_shard[0])
+        use_host_rollout = True
+
+    if host_shard is None:
+        env_state, obs = vec_reset(env, gen, num_envs, device)   # a host env: its pool's reset
+    else:
+        env_state, obs = vec_reset(env, gen, host_shard[1] - host_shard[0], device)
+        obs_local = obs
+        env_state, obs = union(env_state), union(obs)
     buf_state = rb.init() if rb is not None else None
     store_dtype = resolve_storage_dtype(args)
     if use_host_rollout:
         # the pool's current obs as the pool gives them (numpy, or a native
         # pool's tensors) and the rollout's own generator, as the JAX run's
         link = HostLink(env.host_pool, device)
-        obs_host = obs if link.native else obs.cpu().numpy()
+        first = obs if host_shard is None else obs_local
+        obs_host = first if link.native else first.cpu().numpy()
         gen_host = torch.Generator(device=device)
         gen_host.manual_seed(seed + 0x705)
 
@@ -409,9 +427,11 @@ def build_training(args: Config, mesh=None) -> TrainContext:
         if use_host_rollout:
             rollout, obs_host = host_collect_rollout(
                 env.host_pool, agent, carry.agent_state, obs_host, gen_host, horizon_len,
-                reward_scale, device, noise=noise, link=link)
-            return update_half(carry, rollout, carry.env_state, link.up(obs_host), ids,
-                               update_noise)
+                reward_scale, device, noise=noise, link=link, shard=host_shard)
+            last = link.up(obs_host)
+            if host_shard is not None:   # this process's envs, into the union
+                last = union(last)
+            return update_half(carry, rollout, carry.env_state, last, ids, update_noise)
         if fast_rollout is not None:
             rollout, env_state, obs = fast_rollout(carry.agent_state, carry.env_state,
                                                    carry.gen, noise=noise)

@@ -528,3 +528,169 @@ def pixel_ppo_state_to_numpy(state, act_shapes, cri_shapes, n_conv: int) -> Nump
     uc = lambda flat: _pixel_tree(flat, cri_shapes, n_conv)  # noqa: E731
     return NumpyPixelPPOState(ua(state.act), uc(state.cri), _adam_tree(state.act_opt, ua),
                               _adam_tree(state.cri_opt, uc))
+
+
+# ------------------------------------------------------------------ marl/
+# The multi-agent states keep the JAX package's nesting (dicts, lists of
+# ``(w, b)`` with ``w`` as ``(in, out)``, NamedTuples) as views of one flat
+# buffer per optimised group, in the JAX flatten order; their Adam moments
+# are flat buffers over the same order.
+
+def _torch_tree(tree, device):
+    """A numpy tree as float32 tensors on ``device``, the nesting kept."""
+    from ..utils.checkpoint import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, iter([torch.tensor(np.asarray(x), dtype=torch.float32,
+                                                   device=device)
+                                      for x in tree_leaves(tree)]))
+
+
+def _flat_group(tree, device):
+    """``(flat, views)`` of a numpy parameter tree (``marl/env.py:flat_tree``)."""
+    from ..marl.env import flat_tree
+    return flat_tree(_torch_tree(tree, device), device)
+
+
+def _marl_adam(opt, device) -> AdamState:
+    """The port's ``AdamState`` from an optax clip-then-Adam chain state."""
+    from ..utils.checkpoint import tree_leaves
+    st = opt[1][0]
+    flat = lambda tree: torch.tensor(np.concatenate(  # noqa: E731
+        [np.asarray(x, np.float32).reshape(-1) for x in tree_leaves(tree)]), device=device)
+    return AdamState(int(np.asarray(_field(st, 'count', 0))), flat(_field(st, 'mu', 1)),
+                     flat(_field(st, 'nu', 2)))
+
+
+def _marl_adam_tree(opt: AdamState, template) -> tuple:
+    """The optax chain state's nesting of ``opt`` over ``template``'s leaves."""
+    from ..marl.env import tree_numpy, tree_views
+    return ((), (NumpyAdamState(np.asarray(opt.count, np.int32),
+                                tree_numpy(tree_views(opt.mu, template)),
+                                tree_numpy(tree_views(opt.nu, template))), ()))
+
+
+class NumpyMAPPOState(NamedTuple):
+    actor: dict
+    critic: list
+    act_opt: tuple
+    cri_opt: tuple
+
+
+def mappo_state_from_numpy(tree, device):
+    """The port's ``MAPPOState`` from a numpy JAX ``MAPPOState``."""
+    from ..marl.mappo import MAPPOState
+    act_flat, actor = _flat_group(_field(tree, 'actor', 0), device)
+    cri_flat, critic = _flat_group(_field(tree, 'critic', 1), device)
+    return MAPPOState(actor, critic, _marl_adam(_field(tree, 'act_opt', 2), device),
+                      _marl_adam(_field(tree, 'cri_opt', 3), device), act_flat, cri_flat)
+
+
+def mappo_state_to_numpy(state) -> NumpyMAPPOState:
+    from ..marl.env import tree_numpy
+    return NumpyMAPPOState(tree_numpy(state.actor), tree_numpy(state.critic),
+                           _marl_adam_tree(state.act_opt, state.actor),
+                           _marl_adam_tree(state.cri_opt, state.critic))
+
+
+def _keep_dtype(tree, device):
+    """A numpy tree as tensors on ``device``, dtypes kept (float64 as float32)."""
+    from ..utils.checkpoint import tree_leaves, tree_unflatten
+
+    def t(x):
+        x = np.asarray(x)
+        return torch.tensor(x.astype(np.float32) if x.dtype == np.float64 else x, device=device)
+    return tree_unflatten(tree, iter([t(x) for x in tree_leaves(tree)]))
+
+
+class NumpyMADDPGState(NamedTuple):
+    actor: list
+    actor_target: list
+    critic: list
+    critic_target: list
+    a_opt: tuple
+    c_opt: tuple
+    buf: tuple
+    env_states: Any
+
+
+def maddpg_state_from_numpy(tree, device):
+    """The port's ``MADDPGState`` from a numpy JAX ``MADDPGState``."""
+    from ..marl.chasing import TeamChaseState
+    from ..marl.maddpg import MADDPGState
+    act_flat, actor = _flat_group(_field(tree, 'actor', 0), device)
+    act_t, actor_t = _flat_group(_field(tree, 'actor_target', 1), device)
+    cri_flat, critic = _flat_group(_field(tree, 'critic', 2), device)
+    cri_t, critic_t = _flat_group(_field(tree, 'critic_target', 3), device)
+    env_states = _field(tree, 'env_states', 7)
+    return MADDPGState(actor, actor_t, critic, critic_t,
+                       _marl_adam(_field(tree, 'a_opt', 4), device),
+                       _marl_adam(_field(tree, 'c_opt', 5), device),
+                       tuple(_keep_dtype(tuple(_field(tree, 'buf', 6)), device)),
+                       env_state_from_numpy(TeamChaseState, env_states, device),
+                       act_flat, act_t, cri_flat, cri_t)
+
+
+def maddpg_state_to_numpy(state) -> NumpyMADDPGState:
+    from ..marl.env import tree_numpy
+    return NumpyMADDPGState(tree_numpy(state.actor), tree_numpy(state.actor_target),
+                            tree_numpy(state.critic), tree_numpy(state.critic_target),
+                            _marl_adam_tree(state.a_opt, state.actor),
+                            _marl_adam_tree(state.c_opt, state.critic),
+                            tree_numpy(tuple(state.buf)), tree_numpy(state.env_states))
+
+
+class NumpyQMixState(NamedTuple):
+    params: Any
+    target: Any
+    opt: tuple
+
+
+def qmix_state_from_numpy(tree, device, rnn: bool = False):
+    """The port's ``QMixState`` (``rnn``: ``QMixRnnState``) from a numpy JAX
+    one; the parameter NamedTuples keep their JAX fields."""
+    if rnn:
+        from ..marl.qmix_rnn import QMixRnnParams as P, QMixRnnState as S
+    else:
+        from ..marl.qmix import QMixParams as P, QMixState as S
+    params, target = _field(tree, 'params', 0), _field(tree, 'target', 1)
+    flat, p = _flat_group(P(*params), device)
+    target_flat, tp = _flat_group(P(*target), device)
+    return S(p, tp, _marl_adam(_field(tree, 'opt', 2), device), flat, target_flat)
+
+
+def qmix_state_to_numpy(state) -> NumpyQMixState:
+    from ..marl.env import tree_numpy
+    return NumpyQMixState(tree_numpy(state.params), tree_numpy(state.target),
+                          _marl_adam_tree(state.opt, state.params))
+
+
+def qmix_rnn_state_from_numpy(tree, device):
+    return qmix_state_from_numpy(tree, device, rnn=True)
+
+
+qmix_rnn_state_to_numpy = qmix_state_to_numpy
+
+
+class NumpyMAPPORnnState(NamedTuple):
+    actor: dict
+    critic: dict
+    act_opt: tuple
+    cri_opt: tuple
+
+
+def mappo_rnn_state_from_numpy(tree, device):
+    """The port's ``MAPPORnnState`` from a numpy JAX one (the critic's
+    ``PopArt`` statistics and head among its leaves)."""
+    from ..marl.mappo_rnn import MAPPORnnState, PopArt
+    critic = dict(_field(tree, 'critic', 1))
+    critic['popart'] = PopArt(*critic['popart'])
+    act_flat, actor = _flat_group(_field(tree, 'actor', 0), device)
+    cri_flat, critic = _flat_group(critic, device)
+    return MAPPORnnState(actor, critic, _marl_adam(_field(tree, 'act_opt', 2), device),
+                         _marl_adam(_field(tree, 'cri_opt', 3), device), act_flat, cri_flat)
+
+
+def mappo_rnn_state_to_numpy(state) -> NumpyMAPPORnnState:
+    from ..marl.env import tree_numpy
+    return NumpyMAPPORnnState(tree_numpy(state.actor), tree_numpy(state.critic),
+                              _marl_adam_tree(state.act_opt, state.actor),
+                              _marl_adam_tree(state.cri_opt, state.critic))

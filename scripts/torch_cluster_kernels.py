@@ -233,15 +233,20 @@ def build_copies(copies):
     return libs
 
 
+ROLLOUT_LIBRARIES = ('onpolicy_rollout', 'offpolicy_rollout')   # fused_rollout.cu's halves
+
+
 def with_library(lib, fn):
-    """``fn()`` with the wrappers loading ``lib`` as ``fused_rollout``."""
+    """``fn()`` with the wrappers loading ``lib`` (a whole ``fused_rollout``
+    library) for both halves of the rollout kernels' library."""
     from elegantrl_tpu_torch.ops import _cuda_build
-    load = _cuda_build.load
-    _cuda_build.load = lambda name: lib if name == 'fused_rollout' else load(name)
+    load, build = _cuda_build.load, _cuda_build.build
+    _cuda_build.load = lambda name: lib if name in ROLLOUT_LIBRARIES else load(name)
+    _cuda_build.build = lambda names: {n: 'patched' for n in names}
     try:
         return fn()
     finally:
-        _cuda_build.load = load
+        _cuda_build.load, _cuda_build.build = load, build
 
 
 def main():
@@ -273,7 +278,9 @@ def main():
     if opts.phases:   # the wrappers load the stamped copies
         from elegantrl_tpu_torch.ops import _cuda_build
         libs = {n: built[(stamped, n)] for n in ('kernels', 'fused_rollout')}
-        _cuda_build.load = lambda name: libs[name]
+        _cuda_build.load = lambda name: libs['fused_rollout' if name in ROLLOUT_LIBRARIES
+                                             else name]
+        _cuda_build.build = lambda names: {n: 'patched' for n in names}
     if opts.push_obs:
         push_lib = built[(pushed, 'fused_rollout')]
     from torch.profiler import ProfilerActivity, profile

@@ -5,6 +5,12 @@
     python scripts/torch_verify_learning.py [--only NAME ...] [--seeds 0 1 2]
                                             [--device cuda|cpu]
 
+Multi-agent (``MARL_ROWS``): ``mappo_chasing``, ``maddpg_chasing``,
+``qmix_chasing``, ``vdn_chasing``, ``mappornn_chasing`` and
+``qmixrnn_chasing`` on TeamChasing (2 agents, dim 2) through
+``elegantrl_tpu_torch.marl``'s trainers at the JAX recipes; targets 3.5,
+or 3.0 for the two recurrent rows.
+
 On-policy:
 
 - ``discreteppo_cartpole``: AgentDiscretePPO on CartPole-v1, 16 envs, net
@@ -399,6 +405,45 @@ def market_check(args, agent_state, evaluations: int) -> dict:
                                'policy_trade_share': float(counts[0] / counts[1])}}
 
 
+# The multi-agent rows (``scripts/verify_learning.py:342-395, 618-630``;
+# targets ``RESULTS.md:41-45, 47``): TeamChasing with 2 agents in 2
+# dimensions, each trainer at its JAX recipe, the score the best of the
+# last evaluations (3, or 5 for the QMIX family) of eight evenly spaced
+# ones.  (name -> (trainer, discrete env, keyword arguments, evaluations
+# counted, steps, target))
+MARL_ROWS = {
+    'mappo_chasing': ('train_mappo', False, dict(num_envs=64, horizon=64, batch_size=512,
+                                                 repeat_times=4, num_rounds=40), 3,
+                      40 * 64 * 64, 3.5),
+    'maddpg_chasing': ('train_maddpg', False, dict(num_envs=64, num_rounds=120), 3,
+                       120 * 64 * 32, 3.5),
+    'qmix_chasing': ('train_qmix', True, dict(num_envs=32, horizon=64, num_rounds=240,
+                                              mixer='qmix'), 5, 240 * 32 * 64, 3.5),
+    'vdn_chasing': ('train_qmix', True, dict(num_envs=32, horizon=64, num_rounds=240,
+                                             mixer='vdn'), 5, 240 * 32 * 64, 3.5),
+    'mappornn_chasing': ('train_mappo_rnn', False, dict(num_envs=64, horizon=64, seq_batch=16,
+                                                        repeat_times=4, num_rounds=40), 3,
+                         40 * 64 * 64, 3.0),
+    'qmixrnn_chasing': ('train_qmix_rnn', True, dict(num_envs=32, horizon=64, num_rounds=120),
+                        5, 120 * 32 * 64, 3.0),
+}
+
+
+def run_marl(name, seed, device):
+    """One multi-agent row: ``(line fields, seconds)``.  Its trainer runs
+    PyTorch ops on ``device`` (the JAX package runs XLA ops there)."""
+    from elegantrl_tpu_torch import marl
+    trainer, discrete, kw, last, steps, target = MARL_ROWS[name]
+    make = marl.make_team_chasing_discrete if discrete else marl.make_team_chasing
+    t0 = time.time()
+    _, history = getattr(marl, trainer)(make(num_agents=2, dim=2), seed=seed, verbose=False,
+                                        device=device, **kw)
+    seconds = time.time() - t0
+    return {'config': name, 'agent': name.split('_')[0].upper(), 'env': 'TeamChasing',
+            'max_r': float(max(history[-last:])), 'target': target,
+            'curve': [round(float(h), 3) for h in history], 'steps': steps}, seconds
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--device', default='cuda')
@@ -426,11 +471,12 @@ def main():
         device = f'cpu ({torch.get_num_threads()} threads)'
     RUN_DEVICE[0] = opts.device
     table = recipes()
-    for name in (opts.only or list(table) + list(POPULATION_ROWS)):
-        if name in POPULATION_ROWS:
+    for name in (opts.only or list(table) + list(POPULATION_ROWS) + list(MARL_ROWS)):
+        if name in POPULATION_ROWS or name in MARL_ROWS:
+            run = run_population if name in POPULATION_ROWS else run_marl
             for seed in opts.seeds:
                 before = {k: fn.launches for k, fn in counted.items()}
-                fields, seconds = run_population(name, seed, opts.device)
+                fields, seconds = run(name, seed, opts.device)
                 print(json.dumps({**fields, 'device': device, 'seed': seed,
                                   'pass': bool(fields['max_r'] >= fields['target']),
                                   'seconds': round(seconds, 1),

@@ -573,9 +573,11 @@ def test_wide_auto_takes_bf16_and_the_autograd_update(capsys):
 
 def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     """On a simulated card bf16 compute takes K1's bf16 variant at (512,
-    512), where the float32 one could not; past the bf16 limit the card
-    raises naming it; the stock body takes K4's bf16 variant and raises past
-    its bf16 limit (576, the critic pass's tile) naming it."""
+    512), where the float32 one's resident design could not; past the bf16
+    resident limit the streamed design takes it, and past that (2624 on
+    Pendulum) the card raises naming it; the stock body takes K4's bf16
+    variant, its resident designs to 576 (the critic pass's tile), the
+    streamed ones past it, and raises past 1408, naming it."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     from elegantrl_tpu_torch.train import runner
     made = {}
@@ -588,12 +590,19 @@ def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     assert runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64,
                                        1.0) == 'fused'
     assert made['compute_dtype'] == BF and made['store_dtype'] is None
-    assert fr.rollout_fits(fr.PENDULUM_BODY, (512, 512), bf16=True)
-    assert not fr.rollout_fits(fr.PENDULUM_BODY, (512, 512))
-    assert not fr.rollout_fits(fr.PENDULUM_BODY, (516, 516), bf16=True)
+    assert fr.rollout_fits_resident(fr.PENDULUM_BODY, (512, 512), bf16=True)
+    assert not fr.rollout_fits_resident(fr.PENDULUM_BODY, (512, 512))
+    assert not fr.rollout_fits_resident(fr.PENDULUM_BODY, (516, 516), bf16=True)
     args.net_dims = (516, 516)
     agent = runner._make_agent(args, None)
-    with pytest.raises(ValueError, match='up to 512 on Pendulum-v1 in bf16'):
+    made.clear()
+    assert runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64,
+                                       1.0) == 'fused'
+    assert made['compute_dtype'] == BF
+    assert fr.rollout_width_limit(fr.PENDULUM_BODY, bf16=True) == 2624
+    args.net_dims = (2628, 2628)
+    agent = runner._make_agent(args, None)
+    with pytest.raises(ValueError, match='up to 2624 on Pendulum-v1 in bf16'):
         runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64, 1.0)
     sargs = Config(AgentPPO, StockTradingVecEnv,
                    {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 9,
@@ -609,5 +618,10 @@ def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     assert made['compute_dtype'] == BF and made['store_dtype'] is None
     sargs.net_dims = (580, 580)
     sagent = runner._make_agent(sargs, None)
-    with pytest.raises(ValueError, match='576 on the stock body'):
+    made.clear()
+    assert runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128,
+                                       1.0) == 'fused'
+    sargs.net_dims = (1412, 1412)
+    sagent = runner._make_agent(sargs, None)
+    with pytest.raises(ValueError, match='1408 on StockTradingEnv-v2'):
         runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128, 1.0)

@@ -256,3 +256,128 @@ def test_env_classes_default_to_the_card(monkeypatch):
         env.reset()
     obs, _ = PendulumEnv(num_envs=2, device='cpu').reset()
     assert obs.shape == (2, 3) and obs.device.type == 'cpu'
+
+
+# fault 16: past the rollouts' shared-memory widths the card raised; the JAX
+# runner takes its kernel there.  The streamed design takes every width to
+# (1024, 1024) and past it, for every body and head in both compute types.
+
+def test_card_takes_a_rollout_kernel_past_the_resident_widths(monkeypatch):
+    from elegantrl_tpu_torch.agents import AgentSAC
+    from elegantrl_tpu_torch.envs import HopperEnv
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    from elegantrl_tpu_torch.train import runner
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(fr, 'make_fused_rollout', lambda *a, **k: 'fused')
+    monkeypatch.setattr(fr, 'make_fused_offpolicy_rollout', lambda *a, **k: 'fused')
+    hop = {'env_name': 'HopperSlip-v0', 'num_envs': 1024, 'max_step': 1000, 'state_dim': 6,
+           'action_dim': 2, 'if_discrete': False}
+    for agent, env_class, env_args, dims in ((AgentPPO, PendulumEnv, dict(PEND), (384, 384)),
+                                             (AgentTD3, HopperEnv, hop, (1024, 1024)),
+                                             (AgentSAC, HopperEnv, hop, (1024, 256))):
+        for dtype in ('float32', 'bfloat16'):
+            args = Config(agent, env_class, dict(env_args))
+            args.device, args.net_dims, args.compute_dtype = 'cuda', dims, dtype
+            args.horizon_len = 32
+            env = runner._resolve_env_def(args)
+            for k in ('state_dim', 'action_dim', 'if_discrete'):
+                setattr(args, k, getattr(env.spec, k))
+            rb = None
+            if args.if_off_policy:
+                from elegantrl_tpu_torch.train.replay_buffer import ReplayBuffer
+                rb = ReplayBuffer(max_size=64, state_dim=args.state_dim,
+                                  action_dim=args.action_dim, num_seqs=args.num_envs,
+                                  args=args, device='cpu')
+            assert runner._maybe_fused_rollout(args, env, runner._make_agent(args, rb),
+                                               torch.device('cuda'), args.num_envs, 32,
+                                               1.0) == 'fused', (agent.__name__, dims, dtype)
+    # the wrapper's choice: the resident design where it fits, else the
+    # streamed one, else a raise naming the widest width
+    assert fr._design(lambda v: 1000 if v & fr.STREAMED else 10 ** 6, 1, 'rollout', (8, 8),
+                      lambda: '8') == fr.STREAMED
+    assert fr._design(lambda v: 1000, 0, 'rollout', (8, 8), lambda: '8') == 0
+    with pytest.raises(ValueError, match='square widths up to 1408'):
+        fr._design(lambda v: 10 ** 6, 0, 'rollout', (1412, 1412), lambda: '1408')
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+def test_stream_weights_pads_and_rounds_layer_2(bf16):
+    """The streamed design's copy of W2: each net's (D2, D1) block zero-padded
+    to multiples of 32, one net after the other, rounded to bf16 (to the
+    nearest) under bf16, so every cluster size's slices lie inside it."""
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    S, D1, D2 = 5, 40, 70
+    rng = np.random.default_rng(0)
+    flats = [torch.from_numpy(rng.standard_normal(D1 * S + D1 + D2 * D1 + D2 + 9)
+                              .astype(np.float32)) for _ in range(2)]
+    w = fr.stream_weights(flats, S, (D1, D2), bf16)
+    assert w.shape == (2, 96, 64) and w.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    for i, flat in enumerate(flats):
+        w2 = flat[D1 * S + D1:D1 * S + D1 + D2 * D1].view(D2, D1)
+        want = w2.to(torch.bfloat16).float() if bf16 else w2
+        assert torch.equal(w[i, :D2, :D1].float(), want)
+        assert not w[i, D2:].any() and not w[i, :, D1:].any()
+
+
+# fault 15: a host env under a mesh of several processes raised; the JAX
+# runner trains there.  Each process's pool now holds its shard's envs.
+
+_HOST_TRAIN_WORKER = r"""
+import sys
+import numpy as np
+import torch
+from elegantrl_tpu_torch import Config, train_agent
+from elegantrl_tpu_torch.agents import AgentPPO
+from elegantrl_tpu_torch.envs import EnvSpec, make_host_env
+from elegantrl_tpu_torch.parallel.distributed import init_distributed
+
+
+class ToyEnv:
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.x0 = np.array([0.01 * seed, 0.0, 1.0], np.float32)
+        self.x = self.x0.copy()
+        return self.x, {}
+
+    def step(self, action):
+        self.x = (self.x * 0.9 + float(np.sum(action))).astype(np.float32)
+        return self.x, -float(np.sum(np.square(self.x))), False, False, {}
+
+
+torch.set_num_threads(1)
+rank, url, cwd = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+assert init_distributed(url, 2, rank, backend='gloo') == 2
+env = make_host_env(ToyEnv, EnvSpec('Toy-v0', 3, 50, 3, 1, False))
+args = Config(AgentPPO, env, {'env_name': 'Toy-v0', 'num_envs': 4, 'max_step': 50,
+                              'state_dim': 3, 'action_dim': 1, 'if_discrete': False})
+args.device, args.net_dims, args.horizon_len, args.batch_size = 'cpu', (8, 8), 8, 16
+args.mesh_axes, args.cwd = {'dp': 2}, cwd
+args.eval_per_step, args.break_step, args.eval_times = 64, 64, 1
+res = train_agent(args)
+assert env.host_pool.offset == 2 * rank, env.host_pool.offset
+env.host_pool.close()
+print('WORKER-OK', rank, res['total_step'], flush=True)
+"""
+
+
+def test_host_env_trains_under_a_mesh_of_two_processes(tmp_path):
+    import subprocess
+    import sys
+    url = 'file://' + str(tmp_path / 'rendezvous')
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    env.pop('LOCAL_RANK', None)
+    procs = [subprocess.Popen([sys.executable, '-c', _HOST_TRAIN_WORKER, str(r), url,
+                               str(tmp_path / 'run')], cwd=str(REPO), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and 'WORKER-OK' in out, f'rank {r}:\n{out[-3000:]}'
+    assert (tmp_path / 'run' / 'agent.npz').is_file()

@@ -683,3 +683,115 @@ def test_two_gloo_processes_match_the_in_process_round(tmp_path):
     saved = np.load(tmp_path / 'run' / 'train_carry.npz')
     assert any(v.shape == (N, 3) for v in (saved[k] for k in saved.files))
     assert (tmp_path / 'run' / 'agent.npz').is_file()
+
+
+# ------------------------- a host env under two processes (fault 15 repaired)
+# Each process's pool holds its shard's envs, seeded as in the one-process
+# layout (env i from seed + i): the seeded first obs show each process built
+# the right envs.  The continuous agent takes its rows of the union's normals,
+# so the two processes give the in-process dp = 2 host round bitwise.
+
+_SEEDED_HOST_ENV = r"""
+import numpy as np
+
+
+class SeededHostEnv:
+    '''A numpy env of the gym protocol whose first obs shows its seed.'''
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.x0 = np.array([0.01 * seed, -0.02 * seed, 0.5], np.float32)
+        self.x = self.x0.copy()
+        return self.x, {}
+
+    def step(self, action):
+        a = float(np.sum(action))
+        self.x = (self.x * 0.9 + np.array([a, -a, 0.1], np.float32)).astype(np.float32)
+        return self.x, -float(np.sum(np.square(self.x))), False, False, {}
+"""
+exec(_SEEDED_HOST_ENV)   # SeededHostEnv, the same code as the workers'
+
+_HOST_ARGS = dict(num_envs=4, net=(16, 16), horizon=8, batch=16, seed=3)
+
+_HOST_WORKER = _SEEDED_HOST_ENV + r"""
+import sys
+import torch
+from elegantrl_tpu_torch import Config, build_training
+from elegantrl_tpu_torch.agents import AgentPPO
+from elegantrl_tpu_torch.envs import EnvSpec, make_host_env
+from elegantrl_tpu_torch.parallel import make_mesh
+from elegantrl_tpu_torch.parallel.distributed import init_distributed
+from elegantrl_tpu_torch.parallel.mesh import gather_env_axis
+from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
+
+torch.set_num_threads(1)
+rank, url, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+assert init_distributed(url, 2, rank, backend='gloo') == 2
+env = make_host_env(SeededHostEnv, EnvSpec('SeededHost-v0', 3, 200, 3, 1, False))
+args = Config(AgentPPO, env, {'env_name': 'SeededHost-v0', 'num_envs': 4, 'max_step': 200,
+                              'state_dim': 3, 'action_dim': 1, 'if_discrete': False})
+args.device, args.net_dims, args.horizon_len, args.batch_size = 'cpu', (16, 16), 8, 16
+args.random_seed = 3
+ctx = build_training(args, mesh=make_mesh({'dp': 2}, devices=['cpu']))
+assert ctx.use_host_rollout and env.host_pool.offset == 2 * rank
+first = gather_env_axis(ctx.carry.obs).numpy()
+rng = np.random.default_rng(7)
+noise = torch.from_numpy(rng.standard_normal((8, 4, 1)).astype(np.float32))
+ids = torch.from_numpy(rng.integers(0, 8 * 4, (4, 16)))
+carry, m1 = ctx.round_fn(ctx.carry, noise=noise, ids=ids)
+carry, m2 = ctx.round_fn(carry)        # the union's normals from the round's generator
+leaves = [np.asarray(x) for x in tree_leaves(ctx.agent.state_to_numpy(carry.agent_state))]
+np.savez(out, first=first, obs=gather_env_axis(carry.obs).numpy(),
+         m1=np.array([float(v) for k, v in sorted(m1.items())]),
+         m2=np.array([float(v) for k, v in sorted(m2.items())]), *leaves)
+env.host_pool.close()
+print('WORKER-OK', rank, flush=True)
+"""
+
+
+def test_two_gloo_processes_with_a_host_env_match_the_in_process_round(tmp_path):
+    url = 'file://' + str(tmp_path / 'rendezvous')
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    env.pop('LOCAL_RANK', None)
+    procs = [subprocess.Popen([sys.executable, '-c', _HOST_WORKER, str(r), url,
+                               str(tmp_path / f'rank{r}.npz')],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and 'WORKER-OK' in out, f'rank {r}:\n{out[-3000:]}'
+    ranks = [np.load(tmp_path / f'rank{r}.npz') for r in range(2)]
+    for k in ranks[0].files:               # the replicas, bitwise
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+    # the in-process dp = 2 host round (one pool of all 4 envs) on the same draws
+    from elegantrl_tpu_torch.envs import EnvSpec, make_host_env
+    host = make_host_env(SeededHostEnv, EnvSpec('SeededHost-v0', 3, 200, 3, 1, False))
+    args = Config(AgentPPO, host, {'env_name': 'SeededHost-v0', 'num_envs': 4,
+                                   'max_step': 200, 'state_dim': 3, 'action_dim': 1,
+                                   'if_discrete': False})
+    args.device, args.net_dims, args.horizon_len, args.batch_size = 'cpu', (16, 16), 8, 16
+    args.random_seed = 3
+    ctx = build_training(args, mesh=_mesh(2))
+    assert ctx.use_host_rollout and host.host_pool.offset == 0
+    # the seeds of the one-process layout: env i reset from seed + i
+    np.testing.assert_array_equal(ranks[0]['first'], gather_env_axis(ctx.carry.obs).numpy())
+    np.testing.assert_array_equal(ranks[0]['first'][:, 0], 0.01 * np.arange(4, dtype=np.float32))
+    rng = np.random.default_rng(7)
+    noise = torch.from_numpy(rng.standard_normal((8, 4, 1)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 8 * 4, (4, 16)))
+    carry, m1 = ctx.round_fn(ctx.carry, noise=noise, ids=ids)
+    carry, m2 = ctx.round_fn(carry)
+    np.testing.assert_array_equal(ranks[0]['obs'], gather_env_axis(carry.obs).numpy())
+    for name, m in (('m1', m1), ('m2', m2)):
+        np.testing.assert_array_equal(ranks[0][name],
+                                      np.array([float(v) for k, v in sorted(m.items())]))
+    leaves = [np.asarray(x) for x in tree_leaves(ctx.agent.state_to_numpy(carry.agent_state))]
+    for i, want in enumerate(leaves):
+        np.testing.assert_array_equal(ranks[0][f'arr_{i}'], want)

@@ -32,18 +32,28 @@ from elegantrl_tpu.agents import AgentDiscretePPO as JAgentDiscretePPO
 from elegantrl_tpu.agents import AgentPPOHterm as JAgentPPOHterm
 from elegantrl_tpu.agents.base import Rollout as JRollout
 from elegantrl_tpu.config import Config as JConfig
+from elegantrl_tpu.agents import AgentDoubleDQN as JAgentDoubleDQN, AgentDQN as JAgentDQN
+from elegantrl_tpu.agents import AgentDuelingDQN as JAgentDuelingDQN
+from elegantrl_tpu.agents import AgentModSAC as JAgentModSAC, AgentSAC as JAgentSAC
+from elegantrl_tpu.agents import AgentTD3 as JAgentTD3
 from elegantrl_tpu.envs import CartPoleEnv as JCartPoleEnv
+from elegantrl_tpu.envs import HopperEnv as JHopperEnv
 from elegantrl_tpu.envs import LunarLanderContinuousEnv as JLanderCont
 from elegantrl_tpu.envs import PendulumEnv as JPendulumEnv
+from elegantrl_tpu.envs import PointChasingDiscreteEnv as JChasingDiscEnv
 from elegantrl_tpu.envs import PointChasingVecEnv as JChasingEnv
 from elegantrl_tpu.envs.stock_trading import StockTradingVecEnv as JStockEnv
 from elegantrl_tpu.train import runner as jrunner
 from elegantrl_tpu_torch import Config, build_training, train_agent
 from elegantrl_tpu_torch.agents import AgentA2C, AgentDiscretePPO, AgentPPO, AgentPPOHterm
+from elegantrl_tpu_torch.agents import (AgentDoubleDQN, AgentDQN, AgentDuelingDQN,
+                                        AgentModSAC, AgentSAC, AgentTD3)
 from elegantrl_tpu_torch.agents import ppo as pppo
 from elegantrl_tpu_torch.agents.base import Rollout
-from elegantrl_tpu_torch.envs import (CartPoleEnv, LunarLanderContinuousEnv, PendulumEnv,
-                                      PointChasingVecEnv, StockTradingVecEnv)
+from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, LunarLanderContinuousEnv,
+                                      PendulumEnv, PointChasingDiscreteEnv, PointChasingVecEnv,
+                                      StockTradingVecEnv)
+from elegantrl_tpu_torch.ops import fused_rollout as fr
 from elegantrl_tpu_torch.train import runner
 from elegantrl_tpu_torch.utils.checkpoint import tree_leaves
 from elegantrl_tpu_torch.utils.jax_params import env_state_from_numpy
@@ -51,13 +61,24 @@ from elegantrl_tpu_torch.utils.jax_params import env_state_from_numpy
 torch.set_num_threads(1)
 AGENTS = {'ppo': (AgentPPO, JAgentPPO), 'a2c': (AgentA2C, JAgentA2C),
           'hterm': (AgentPPOHterm, JAgentPPOHterm),
-          'dppo': (AgentDiscretePPO, JAgentDiscretePPO)}
+          'dppo': (AgentDiscretePPO, JAgentDiscretePPO),
+          'td3': (AgentTD3, JAgentTD3), 'sac': (AgentSAC, JAgentSAC),
+          'modsac': (AgentModSAC, JAgentModSAC), 'dqn': (AgentDQN, JAgentDQN),
+          'ddqn': (AgentDoubleDQN, JAgentDoubleDQN), 'duel': (AgentDuelingDQN, JAgentDuelingDQN)}
 ENVS = {
     'pendulum': (PendulumEnv, JPendulumEnv, {'env_name': 'Pendulum-v1', 'max_step': 200,
                                              'state_dim': 3, 'action_dim': 1}),
     'cartpole': (CartPoleEnv, JCartPoleEnv, {'env_name': 'CartPole-v1', 'max_step': 500,
                                              'state_dim': 4, 'action_dim': 2,
                                              'if_discrete': True}),
+    'hopper': (HopperEnv, JHopperEnv, {'env_name': 'HopperSlip-v0', 'max_step': 1000,
+                                       'state_dim': 6, 'action_dim': 2}),
+    'chasing': (PointChasingVecEnv, JChasingEnv, {'env_name': 'PointChasingVecEnv',
+                                                  'max_step': 1024, 'state_dim': 8,
+                                                  'action_dim': 2}),
+    'chasing_disc': (PointChasingDiscreteEnv, JChasingDiscEnv,
+                     {'env_name': 'PointChasingDiscreteEnv', 'max_step': 1024,
+                      'state_dim': 8, 'action_dim': 5, 'if_discrete': True}),
     'stock': (StockTradingVecEnv, JStockEnv, {'env_name': 'StockTradingEnv-v2',
                                               'max_step': 1112, 'state_dim': 151,
                                               'action_dim': 15}),
@@ -91,15 +112,33 @@ GRID = {
     'cartpole_256': ('dppo', 'cartpole', (256, 256), 4096, 64, 512, 8),
     # a width the first update design refused (shared memory); float32, as the
     # JAX package takes its kernel only then ('auto' picks bf16 from 512).  The
-    # rollout kernel stops at (320, 320): there the card raises
+    # rollout kernel's resident design stops at (320, 320): the streamed one
+    # takes it
     'pendulum_512_b512': ('ppo', 'pendulum', (512, 512), 1024, 64, 512, 8,
                           {'compute_dtype': 'float32'}),
     # the stock rollout at widths its first critic pass refused (its whole
-    # critic in one block), and past the new limit (the actor kernel's
-    # slices: 448), where the card raises
+    # critic in one block), and past the resident actor's limit (448), where
+    # the streamed design takes it
     'ppo_stock_256': ('ppo', 'stock', (256, 256), 256, 128, 512, 8),
     'ppo_stock_452': ('ppo', 'stock', (452, 452), 256, 128, 512, 8),
+    # past even the streamed design's widest square net (1408 on Pendulum in
+    # float32): the card raises
+    'pendulum_1412': ('ppo', 'pendulum', (1412, 1412), 1024, 64, 512, 8,
+                      {'compute_dtype': 'float32'}),
 }
+# every on-policy body at widths past the resident designs, in both compute
+# types: the JAX runner takes its kernel at any width, the port its streamed
+# design
+WIDE = ((384, 384), (1024, 256), (1024, 1024))
+WIDE_DTYPES = ('float32', 'bfloat16')
+for _agent, _env, _n, _h in (('ppo', 'pendulum', 1024, 64), ('dppo', 'cartpole', 1024, 64),
+                             ('ppo', 'hopper', 1024, 64), ('ppo', 'chasing', 1024, 64),
+                             ('dppo', 'chasing_disc', 1024, 64), ('ppo', 'stock', 256, 128)):
+    for _dims in WIDE:
+        for _dt in WIDE_DTYPES:
+            GRID[f'{_env}_{_dims[0]}x{_dims[1]}_{_dt}'] = (
+                _agent, _env, _dims, _n, _h, 512, 8, {'compute_dtype': _dt})
+PAST_STREAMED = ('pendulum_1412',)   # the card raises
 
 
 def _configs(case, device='cuda'):
@@ -140,7 +179,11 @@ def _jax_decisions(case, monkeypatch):
     monkeypatch.setattr(jpu, 'make_ppo_fused_update', record)
     H, N, S, A = (jargs.horizon_len, jargs.num_envs, jargs.state_dim, jargs.action_dim)
     f = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.float32)  # noqa: E731
-    rollout = JRollout(f(H, N, S), f(H, N, A), f(H, N), f(H, N), f(H, N), f(H, N),
+    # a discrete rollout stores action indices (where the JAX update runs its
+    # scan, it gathers the logits with them)
+    actions = (jax.ShapeDtypeStruct((H, N), jnp.int32) if jargs.if_discrete
+               else f(H, N, A))
+    rollout = JRollout(f(H, N, S), actions, f(H, N), f(H, N), f(H, N), f(H, N),
                        extras={'values': f(H, N)})
     state = jax.eval_shape(jagent.init, jax.random.PRNGKey(0))
     try:
@@ -170,15 +213,22 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         setattr(args, k, getattr(env.spec, k))
     agent = runner._make_agent(args, None)
     port_update = any(out for flag, out in chosen if flag == 'use_fused_update')
-    if case in ('pendulum_512_b512', 'ppo_stock_452'):
-        assert jax_rollout and jax_update and port_update
-        with pytest.raises(ValueError, match='cluster of 8 blocks'):
+    if case in PAST_STREAMED:
+        assert jax_rollout and port_update == jax_update
+        with pytest.raises(ValueError, match='square widths up to 1408 on Pendulum-v1'):
             runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
                                         args.horizon_len, 1.0)
         return
     fast = runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
                                        args.horizon_len, 1.0)
     assert (fast is not None, port_update) == (jax_rollout, jax_update)
+    if case in ('pendulum_512_b512', 'ppo_stock_452') or args.net_dims in WIDE:
+        # past the resident design: the streamed one takes it
+        body = env.kernel_body or fr.KERNEL_ENV_BODIES[env.spec.env_name]
+        bf = args.compute_dtype == 'bfloat16'
+        assert jax_rollout and fast is not None
+        assert fr.rollout_fits(body, args.net_dims, bf)
+        assert not fr.rollout_fits_resident(body, args.net_dims, bf) or args.net_dims[0] <= 512
     if case == 'ppo_stock':
         assert jax_rollout and jax_update
     if case == 'ppo_stock_4k':
@@ -187,6 +237,47 @@ def test_kernel_choice_as_jax(case, monkeypatch):
         assert not jax_rollout and jax_update
     if case in ('pendulum_256', 'cartpole_256', 'ppo_stock_256'):
         assert jax_rollout and fast is not None
+
+
+OFF_PAIRS = [(a, e) for a in ('td3', 'sac', 'modsac')
+             for e in ('pendulum', 'hopper', 'chasing', 'stock')]
+OFF_PAIRS += [(a, e) for a in ('dqn', 'ddqn', 'duel') for e in ('cartpole', 'chasing_disc')]
+
+
+@pytest.mark.parametrize('agent,env_key', OFF_PAIRS, ids=lambda x: x)
+def test_offpolicy_rollout_choice_as_jax_at_wide_widths(agent, env_key):
+    """The off-policy heads on every body they have, at each of ``WIDE`` in
+    both compute types: the port takes its rollout kernel (the streamed
+    design where the resident one does not fit) exactly where the JAX runner
+    takes its own."""
+    from elegantrl_tpu_torch.train.replay_buffer import ReplayBuffer
+    (cls, jcls), (env_cls, jenv_cls, env_args) = AGENTS[agent], ENVS[env_key]
+    n, h = (256, 32) if env_key == 'stock' else (1024, 32)
+    env_args = dict({'if_discrete': False}, **env_args, num_envs=n)
+    for dims in WIDE:
+        for dt in WIDE_DTYPES:
+            jargs = JConfig(jcls, jenv_cls, dict(env_args))
+            args = Config(cls, env_cls, dict(env_args))
+            for a in (args, jargs):
+                a.net_dims, a.horizon_len, a.compute_dtype = dims, h, dt
+            jargs.use_pallas_rollout = True
+            jenv = jrunner._resolve_env_def(jargs)
+            try:
+                jrunner._maybe_pallas_rollout(jargs, jenv, jrunner._make_agent(jargs, None), n,
+                                              h, 1.0, None, None)
+                raise AssertionError('a CPU backend cannot build the Mosaic kernel')
+            except ValueError as e:
+                jax_rollout = 'need a real TPU' in str(e)
+            args.device = 'cuda'
+            env = runner._resolve_env_def(args)
+            for k in ('state_dim', 'action_dim', 'if_discrete'):
+                setattr(args, k, getattr(env.spec, k))
+            rb = ReplayBuffer(max_size=64, state_dim=args.state_dim,
+                              action_dim=1 if args.if_discrete else args.action_dim,
+                              num_seqs=n, args=args, device='cpu')
+            fast = runner._maybe_fused_rollout(args, env, runner._make_agent(args, rb),
+                                               torch.device('cuda'), n, h, 1.0)
+            assert jax_rollout and fast is not None, (dims, dt)
 
 
 def test_make_ppo_three_layers_on_cuda_builds():

@@ -176,9 +176,11 @@ def _stock_args(agent_class, dims, compute='bfloat16', storage='float32'):
 def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, head):
     """On a simulated card the stock body takes K4's bf16 variant (the
     compute and storage types the JAX runner hands its kernel) up to the
-    bf16 width limit (576 on-policy, the critic pass's tile; 704 for ddpg,
-    640 for sac and modsac), wider than float32's (448; 416), and raises past
-    it, naming the limit."""
+    bf16 width limit of its resident designs (576 on-policy, the critic
+    pass's tile; 704 for ddpg, 640 for sac and modsac), wider than float32's
+    (448; 416), then its streamed designs, and raises past those (1408
+    on-policy, the critic pass; 2368 for ddpg, 2016 for sac), naming the
+    limit."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     from elegantrl_tpu_torch.train import runner
     made = {}
@@ -186,10 +188,14 @@ def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, 
     monkeypatch.setattr(fr, 'make_fused_offpolicy_rollout',
                         lambda *a, **k: made.update(k) or 'fused')
     body = StockTradingVecEnv(num_envs=1, end_idx=10)._def.kernel_body
-    limit = fr.stock_width_limit(head, bf16=True)
+    limit = fr.stock_width_limit(head, bf16=True, resident=True)
     assert limit == {None: 576, 'ddpg': 704, 'sac': 640}[head]
-    assert fr.stock_width_limit(head) == {None: 448, 'ddpg': 448, 'sac': 416}[head]
-    for dims, storage in (((limit, limit), 'float32'), ((128, 128), 'bfloat16')):
+    assert fr.stock_width_limit(head, resident=True) == {None: 448, 'ddpg': 448,
+                                                         'sac': 416}[head]
+    widest = fr.stock_width_limit(head, bf16=True)
+    assert widest == {None: 1408, 'ddpg': 2368, 'sac': 2016}[head]
+    for dims, storage in (((limit, limit), 'float32'), ((128, 128), 'bfloat16'),
+                          ((limit + 4, limit + 4), 'float32')):
         a = _stock_args(agent_class, dims, storage=storage)
         env = runner._resolve_env_def(a)
         a.state_dim, a.action_dim, a.if_discrete = S, A, False
@@ -207,7 +213,10 @@ def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, 
         fits = (fr.rollout_fits(body, dims, bf16=True) if head is None
                 else fr.offpolicy_fits(body, head, dims, bf16=True))
         assert fits
-    wide = (limit + 4, limit + 4)
+    assert not (fr.rollout_fits_resident(body, (limit + 4, limit + 4), bf16=True)
+                if head is None else
+                fr.offpolicy_fits_resident(body, head, (limit + 4, limit + 4), bf16=True))
+    wide = (widest + 4, widest + 4)
     assert not (fr.rollout_fits(body, wide, bf16=True) if head is None
                 else fr.offpolicy_fits(body, head, wide, bf16=True))
     a = _stock_args(agent_class, wide)
@@ -219,6 +228,7 @@ def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, 
         rb = ReplayBuffer(max_size=64, state_dim=S, action_dim=A, num_seqs=256, args=a,
                           device='cpu')
     agent = runner._make_agent(a, rb)
-    text = f'{limit} on the stock body' if head is None else f'{limit} for {head} in bf16'
+    text = (f'{widest} on StockTradingEnv-v2' if head is None
+            else f'{widest} for {head} on StockTradingEnv-v2 in bf16')
     with pytest.raises(ValueError, match=text):
         runner._maybe_fused_rollout(a, env, agent, torch.device('cuda'), 256, 32, 1.0)

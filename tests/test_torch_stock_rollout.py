@@ -212,18 +212,23 @@ def test_stock_kernel_fits_the_recipes_widths():
     layout (one block a lane group) and the critic pass each fit a block,
     and a cluster of c blocks holds 1/c of W2 (64 of its rows at c = 2).  At
     (256, 256) the actor takes a cluster of 2 or more and the critic pass
-    streams W2, so both fit; past (448, 448) the actor's slices do not."""
+    streams W2, so both fit; past (448, 448) the actor's slices do not, and
+    the streamed design (W2 read from device memory) takes the stock body to
+    (1184, 1184) in float32."""
     body = st.StockTradingVecEnv(num_envs=1)._def.kernel_body
     S, A = body.state_dim, body.action_dim
     assert fr.rollout_fits(body, (128, 128))
     sizes = [fr.actor_smem_bytes(S, (128, 128), A, c) for c in (1, 2, 4, 8)]
     assert sizes[0] <= fr.SMEM_LIMIT and sizes == sorted(sizes, reverse=True)
     assert sizes[0] - sizes[1] > 4 * 128 * 64     # W2's rows halve
-    assert not fr.rollout_fits(body, (1024, 1024))
+    assert not fr.rollout_fits_resident(body, (1024, 1024))
     wide = [fr.actor_smem_bytes(S, (256, 256), A, c) for c in (1, 2, 4, 8)]
-    assert wide[0] > fr.SMEM_LIMIT >= min(wide) and fr.rollout_fits(body, (256, 256))
+    assert wide[0] > fr.SMEM_LIMIT >= min(wide) and fr.rollout_fits_resident(body, (256, 256))
     assert fr.critic_smem_bytes((256, 256)) <= fr.SMEM_LIMIT
-    assert fr.rollout_fits(body, (448, 448)) and not fr.rollout_fits(body, (452, 452))
+    assert (fr.rollout_fits_resident(body, (448, 448))
+            and not fr.rollout_fits_resident(body, (452, 452)))
+    assert fr.rollout_fits(body, (452, 452)) and fr.rollout_fits(body, (1024, 1024))
+    assert fr.rollout_fits(body, (1184, 1184)) and not fr.rollout_fits(body, (1188, 1188))
 
 
 def test_other_stock_count_is_refused_on_a_card_with_the_reason(tmp_path):

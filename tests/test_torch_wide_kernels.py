@@ -23,6 +23,7 @@ rollout (K1/K3, thread-block clusters, up to (320, 320)) and the PPO update
   update's fixed shared memory (``gg::Smem``) and phase count.
 """
 import ctypes
+import itertools
 import re
 from pathlib import Path
 
@@ -177,15 +178,15 @@ _LAYOUT_HELPERS = {'wrow': _wrow, 'vals': lambda n, bf: n // 2 if bf else n,
                    'SMEM_FLOATS': fr.SMEM_LIMIT // 4}
 
 
-def _layout_floats(text, S, A, NH, NE, D1, D2, c, bf=0):
-    """``RolloutLayout(S, A, NH, NE, D1, D2, c, bf).floats`` evaluated from
-    the constructor's text in ``csrc/fused_rollout.cu``."""
+def _layout_floats(text, S, A, NH, NE, D1, D2, c, bf=0, G=32, st=0):
+    """``RolloutLayout(S, A, NH, NE, D1, D2, c, G, bf, st).floats`` evaluated
+    from the constructor's text in ``csrc/fused_rollout.cu``."""
     body = text[text.index('__host__ __device__ RolloutLayout('):]
     body = body[body.index('{') + 1:body.index('floats = o;')]
     body = re.sub(r'//[^\n]*', '', body).replace('cm::', '').replace('int o', 'o')
     env = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
            'max': max, 'tile_scratch': fr.tile_scratch, 'TE': 32, 'S': S, 'A': A, 'NH': NH,
-           'NE': NE, 'D1': D1, 'D2': D2, 'c': c, 'bf': bf, **_LAYOUT_HELPERS}
+           'NE': NE, 'D1': D1, 'D2': D2, 'c': c, 'bf': bf, 'G': G, 'st': st, **_LAYOUT_HELPERS}
     for stmt in ' '.join(body.split()).split(';'):
         if stmt.strip():
             exec(stmt.strip(), env)
@@ -206,7 +207,8 @@ def _struct_floats(text, ctor, **env):
     scope = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
              'max': max, 'tile_scratch': fr.tile_scratch, 'round64': lambda n: -(-n // 64) * 64,
              'TE': 32, 'SCRATCH': 256 * 16, 'CNC': fr._CNC, 'CKT': fr._CKT, 'CLD': fr._CLD,
-             'CKLD': fr._CKLD, 'bf': 0, **_LAYOUT_HELPERS, **env}
+             'CKLD': fr._CKLD, 'bf': 0, 'st': 0, 'STOCK_STREAM_KS': fr._STOCK_STREAM_KS,
+             **_LAYOUT_HELPERS, **env}
     for stmt in ' '.join(body.split()).split(';'):
         if stmt.strip():
             exec(stmt.strip(), scope)
@@ -223,30 +225,32 @@ def test_offpolicy_layout_copy_matches_the_source(dims):
     text = (CSRC / 'fused_rollout.cu').read_text()
     lanes = int(re.search(r'constexpr int OFF_LANES = (\d+);', text).group(1))
     assert lanes == fr.OFF_LANES
+    ks = int(re.search(r'constexpr int STOCK_STREAM_KS = (\d+);', text).group(1))
+    assert ks == fr._STOCK_STREAM_KS
     for body in fr.KERNEL_ENV_BODIES.values():
         for head in fr.OFFPOLICY_HEADS:
             if not fr.offpolicy_pair_fits(body, head):
                 continue
             A = body.action_dim
-            for c in fr.ROLLOUT_CLUSTERS:
-                for bf in (0, 1):
-                    want = 4 * _struct_floats(
-                        text, 'OffLayout', S=body.state_dim, A=A,
-                        O=fr.offpolicy_out_rows(A, head),
-                        NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
-                        NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c, G=lanes,
-                        bf=bf)
-                    assert fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf)) == want, (
-                        body.env_name, head, c, bf)
+            for c, bf, st in itertools.product(fr.ROLLOUT_CLUSTERS, (0, 1), (0, 1)):
+                want = 4 * _struct_floats(
+                    text, 'OffLayout', S=body.state_dim, A=A,
+                    O=fr.offpolicy_out_rows(A, head),
+                    NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
+                    NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c, G=lanes,
+                    bf=bf, st=st)
+                assert fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), bool(st)) == want, (
+                    body.env_name, head, c, bf, st)
     stock = StockTradingVecEnv(num_envs=1)._def.kernel_body
     for head in fr.CONTINUOUS_HEADS:
-        for c in fr.ROLLOUT_CLUSTERS:
+        for c, st in itertools.product(fr.ROLLOUT_CLUSTERS, (0, 1)):
             op = _round4(30 if head in ('sac', 'modsac') else 15)
             want = 4 * _struct_floats(text, 'StockActorLayout', D1=dims[0], D2=dims[1], c=c,
-                                      OP=op)
-            assert fr.offpolicy_smem_bytes(stock, dims, head, c) == want, (head, c)
+                                      OP=op, st=st)
+            assert fr.offpolicy_smem_bytes(stock, dims, head, c, False, bool(st)) == want, (
+                head, c, st)
             if head == 'ddpg':   # the on-policy head has the ddpg head's rows
-                assert fr.actor_smem_bytes(151, dims, 15, c) == want
+                assert fr.actor_smem_bytes(151, dims, 15, c, streamed=bool(st)) == want
 
 
 @pytest.mark.parametrize('dims', [(128, 128), (256, 256), (320, 320), (448, 448), (576, 64),
@@ -257,15 +261,18 @@ def test_critic_layout_copy_matches_the_source(dims):
     width of 320, 64 up to 576, so the critic takes every width the stock
     actor kernel takes (448)."""
     text = (CSRC / 'fused_rollout.cu').read_text()
-    for name, value in (('CNC', fr._CNC), ('CKT', fr._CKT)):
+    for name, value in (('CNC', fr._CNC), ('CKT', fr._CKT), ('CT_STREAM', fr._CT_STREAM)):
         assert f'constexpr int {name} = {value};' in text, name
-    for ct in (128, 64):
+    for ct in (128, 64, fr._CT_STREAM):   # the last: the streamed design's tile
         assert fr.critic_smem_bytes(dims, ct) == 4 * _struct_floats(
-            text, 'CriticLayout', D1=dims[0], D2=dims[1], CT=ct)
+            text, 'CriticLayout', D1=dims[0], D2=dims[1], CT=ct, st=int(ct == fr._CT_STREAM))
     assert (fr.critic_smem_bytes(dims, 128) <= fr.SMEM_LIMIT) == (dims[0] <= 320)
     assert fr.critic_smem_bytes(dims) == fr.critic_smem_bytes(dims, 128 if dims[0] <= 320 else 64)
     assert fr.critic_smem_bytes(dims) <= fr.SMEM_LIMIT
-    assert fr.critic_smem_bytes((580, 64)) > fr.SMEM_LIMIT
+    # past 576 the 64-sample resident tile does not fit; the streamed one does
+    assert fr.critic_smem_bytes((580, 64), 64) > fr.SMEM_LIMIT
+    assert fr.critic_tile((580, 64)) == fr._CT_STREAM
+    assert fr.critic_smem_bytes((580, 64)) <= fr.SMEM_LIMIT
 
 
 @pytest.mark.parametrize('dims', [(128, 128), (256, 256), (64, 96), (320, 320), (8, 40),
@@ -273,14 +280,16 @@ def test_critic_layout_copy_matches_the_source(dims):
 def test_rollout_layout_copy_matches_the_source(dims):
     """Both compute types; in bf16 (512, 512) takes layer 2 unsplit at c = 8."""
     text = (CSRC / 'fused_rollout.cu').read_text()
+    lanes = int(re.search(r'constexpr int STREAM_LANES = (\d+);', text).group(1))
+    assert lanes == fr.STREAM_LANES
     for body in fr.KERNEL_ENV_BODIES.values():
         nh = body.action_dim if body.discrete else 2 * body.action_dim
-        for c in fr.ROLLOUT_CLUSTERS:
-            for bf in (0, 1):
-                want = 4 * _layout_floats(text, body.state_dim, body.action_dim, nh,
-                                          body.n_step + body.n_reset, *dims, c, bf)
-                assert fr.rollout_smem_bytes(body, dims, c, bool(bf)) == want, (
-                    body.env_name, dims, c, bf)
+        for c, bf, st in itertools.product(fr.ROLLOUT_CLUSTERS, (0, 1), (0, 1)):
+            want = 4 * _layout_floats(text, body.state_dim, body.action_dim, nh,
+                                      body.n_step + body.n_reset, *dims, c, bf,
+                                      lanes if st else 32, st)
+            assert fr.rollout_smem_bytes(body, dims, c, bool(bf), bool(st)) == want, (
+                body.env_name, dims, c, bf, st)
 
 
 def test_tile_scratch_follows_tile_dense():
@@ -295,14 +304,23 @@ def test_tile_scratch_follows_tile_dense():
 
 
 def test_rollout_fits_up_to_what_a_cluster_of_8_holds():
+    """The resident design takes what a cluster of 8 holds; past it the
+    streamed design takes every width to (1024, 1024) and beyond."""
     for body in fr.KERNEL_ENV_BODIES.values():
-        assert fr.rollout_fits(body, (256, 256)) and fr.rollout_fits(body, (128, 128))
-        assert not fr.rollout_fits(body, (384, 384)) and not fr.rollout_fits(body, (64, 64, 64))
+        fits = fr.rollout_fits_resident
+        assert fits(body, (256, 256)) and fits(body, (128, 128))
+        assert not fits(body, (384, 384)) and not fits(body, (64, 64, 64))
         limit = 288 if body.env_name == 'PointChasingDiscreteEnv' else 320
-        assert fr.rollout_fits(body, (limit, limit))
-        assert not fr.rollout_fits(body, (limit + 4, limit + 4))
+        assert fits(body, (limit, limit))
+        assert not fits(body, (limit + 4, limit + 4))
         assert min(fr.rollout_smem_bytes(body, (limit, limit), c)
                    for c in fr.ROLLOUT_CLUSTERS) <= fr.SMEM_LIMIT
+        assert fr.rollout_width_limit(body, resident=True) == limit
+        for dims in ((limit + 4, limit + 4), (384, 384), (1024, 256), (1024, 1024)):
+            assert fr.rollout_fits(body, dims) and fr.rollout_fits(body, dims, bf16=True)
+        assert not fr.rollout_fits(body, (64, 64, 64))
+        wide = fr.rollout_width_limit(body)
+        assert wide >= 1024 and not fr.rollout_fits(body, (wide + 4, wide + 4))
 
 
 def test_rollout_cluster_pick_is_asked_once_per_shape(monkeypatch):
