@@ -174,6 +174,14 @@ PyTorch version:
     sizes, a few rounds each with ms a round, finite metrics and every
     tensor on the card, then each ``train_*`` entry point for two evaluated
     rounds (PyTorch ops: the JAX package runs no Pallas kernel there);
+15d. ``rlsolver/`` (``rlsolver_phases``): ``rlsolver_maxcut``, each ported
+    MaxCut method (iSCO, MCPG, greedy local search, simulated annealing) on
+    both committed 800-node BA instances at ``scripts/maxcut_shootout.py``'s
+    sizes, its cut and seconds, gated on its x reproducing its cut in
+    float64 numpy on the host and on beating random search at its number of
+    sims; ``rlsolver_ppo_maxcut``, ``ppo_maxcut_solve`` on the committed
+    64-node instance with K10's launches counted and K10 held, bitwise,
+    against its plain version on the path's own inputs;
 16. the kernels line (the sharded wrappers' numbers ride with the entry of
     the kernel they launch, ``sharded``) and the device line.
 
@@ -190,7 +198,13 @@ three main paths take them: ``main_path_wide_f32`` (PPO on Pendulum at
 (384, 384) in float32: the streamed K1, K10, K2), ``main_path_td3_wide``
 (path A at (1024, 1024): the streamed K6, K7) and ``main_path_stock_wide``
 (``ppo_stock`` at (640, 640): the streamed K4 actor and critic pass, the
-autograd update, as the JAX package runs XLA ops there).
+autograd update, as the JAX package runs XLA ops there).  Past the widest
+streamed lane group each kernel takes a narrower one (``onpolicy_narrow.cu``,
+``offpolicy_narrow.cu``): ``k13_vs_plain_narrow`` (K1 at (1536, 1536), 8
+lanes) with ``main_path_narrow``; ``k6_vs_plain_narrow`` (path A at (3072,
+3072), 8 lanes) with ``main_path_td3_narrow``; ``k4_vs_plain`` at (1280,
+1280) (the actor on 16 lanes) and (1536, 1536) (the critic pass on
+16-sample tiles) with ``main_path_stock_narrow_1280`` and ``_1536``.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
@@ -295,8 +309,11 @@ def device_kernels(torch, fn, reps=3, traces=4):
         # counted calls launch (a trace started cold has dropped its first
         # kernel)
         warm = attempt % 2 == 0
+        # acc_events: the scheduled trace keeps the active step's events when
+        # its cycle ends (torch 2.11 clears them there otherwise)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1) if warm else None) as prof:
+                     schedule=schedule(wait=0, warmup=1, active=1) if warm else None,
+                     acc_events=warm) as prof:
             for _ in range(2 if warm else 1):
                 for _ in range(reps):
                     fn()
@@ -305,7 +322,7 @@ def device_kernels(torch, fn, reps=3, traces=4):
                     prof.step()
         names = [ev.name for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                 and not ev.name.startswith(('Memset', 'Memcpy', '[memory]'))]
+                 and not ev.name.startswith(('Memset', 'Memcpy', '[memory]', 'ProfilerStep'))]
         if len(names) > len(best):
             best = names
     return best
@@ -364,12 +381,15 @@ def offpolicy_smem_pairs():
         for dims in (OFF_NET, (256, 256), (96, 160), (512, 512), (1024, 1024), (1024, 256)):
             for c in fr.ROLLOUT_CLUSTERS:
                 for bf in (0, 1):
-                    for st in (0, fr.STREAMED):   # the resident and the streamed layouts
+                    # the resident and streamed layouts, the narrower groups' from
+                    # the narrow library
+                    for level in range(fr.OFF_LEVELS + 1):
                         out[f'offpolicy_rollout[{env_name},{head},{dims},cluster={c},bf16={bf},'
-                            f'streamed={int(st > 0)}]'] = (
-                            fr._library().offpolicy_rollout_smem_bytes(
-                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf | st),
-                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), bool(st)))
+                            f'level={level}]'] = (
+                            fr._library(level << 1).offpolicy_rollout_smem_bytes(
+                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c,
+                                bf | level << 1),
+                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), level))
     out['dqn_update'] = (fo._dqn_library().dqn_update_smem_bytes(), fo.DQN_SMEM_BYTES)
     out['ddpg_update'] = (fo._ddpg_library().ddpg_update_smem_bytes(), fo.DDPG_SMEM_BYTES)
     out['sac_update'] = (fo._sac_library().sac_update_smem_bytes(), fo.SAC_SMEM_BYTES)
@@ -386,24 +406,28 @@ def stock_smem_pairs():
     from elegantrl_tpu_torch.envs import StockTradingVecEnv
     from elegantrl_tpu_torch.ops import fused_rollout as fr
     body = StockTradingVecEnv(num_envs=1)._def.kernel_body
-    lib, S, A = fr._library(), body.state_dim, body.action_dim
+    S, A = body.state_dim, body.action_dim
     out = {}
     for dims in (OFF_NET, (256, 256), (96, 160), (448, 448), (576, 576), (704, 704),
-                 (1024, 1024), (640, 640)):
+                 (1024, 1024), (640, 640), (1280, 1280), (1536, 1536)):
         for c in fr.ROLLOUT_CLUSTERS:
             for bf in (0, 1):
-                for st in (0, fr.STREAMED):   # the resident and the streamed layouts
-                    key = f'{dims},cluster={c},bf16={bf},streamed={int(st > 0)}'
+                # the resident and streamed layouts, the narrower groups' from the
+                # narrow library
+                for level in range(fr.STOCK_LEVELS + 1):
+                    lib, v = fr._library(level << 1), bf | level << 1
+                    key = f'{dims},cluster={c},bf16={bf},level={level}'
                     out[f'stock_rollout[{key}]'] = (
-                        lib.stock_rollout_smem_bytes(*dims, c, bf | st),
-                        fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf), streamed=bool(st)))
+                        lib.stock_rollout_smem_bytes(*dims, c, v),
+                        fr.actor_smem_bytes(S, dims, A, c, bf16=bool(bf), streamed=level))
                     for head in fr.CONTINUOUS_HEADS:
                         out[f'offpolicy_rollout[StockTradingEnv-v2,{head},{key}]'] = (
                             lib.offpolicy_rollout_smem_bytes(
-                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, bf | st),
-                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), bool(st)))
-        out[f'critic_values[{dims}]'] = (lib.critic_values_smem_bytes(*dims),
-                                         fr.critic_smem_bytes(dims))
+                                body.kernel_id, fr.OFFPOLICY_HEADS[head], *dims, c, v),
+                            fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), level))
+        for lib in (fr._library(0), fr._library(4)):   # both libraries, the same reckoning
+            out[f'critic_values[{dims},{lib._name.split("/")[-1]}]'] = (
+                lib.critic_values_smem_bytes(*dims), fr.critic_smem_bytes(dims))
     return out
 
 
@@ -776,15 +800,19 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
     # cluster size its streamed layout fits and the bounds (operations at
     # the FP32 rate, or the dense bf16 rate; stream_bytes: the W2 bytes the
     # lane groups read from L2, one net a group and step)
-    k6_streamed = {}
+    # Past its 16-lane groups' widest width (2592 on HopperSlip in float32)
+    # the streamed design takes 8-lane groups: TD3 at (3072, 3072), path A's
+    # shape, the same checks (k6_narrow)
+    k6_streamed, k6_narrow = {}, {}
     for env_name, head, dims, compute in (
             ('HopperSlip-v0', 'ddpg', (1024, 1024), None), ('HopperSlip-v0', 'sac', (1024, 1024), None),
             ('CartPole-v1', 'dqn', (1024, 1024), None), ('HopperSlip-v0', 'ddpg', (1024, 1024), bfr),
-            ('CartPole-v1', 'dqn', (1024, 1024), bfr)):
+            ('CartPole-v1', 'dqn', (1024, 1024), bfr), ('HopperSlip-v0', 'ddpg', (3072, 3072), None)):
         body = fr.KERNEL_ENV_BODIES[env_name]
         bf = compute is not None
         assert fr.offpolicy_fits(body, head, dims, bf)
         assert not fr.offpolicy_fits_resident(body, head, dims, bf)
+        level = fr.offpolicy_level(body, head, dims, bf)
         path = PATH_A if head in fr.CONTINUOUS_HEADS else PATH_B
         n, h = path['envs'], path['horizon']
         g = torch.Generator(device=dev).manual_seed(43)
@@ -801,7 +829,8 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                   explore_rate=0.25, std_clip=std_clip(head), compute_dtype=compute)
         tol = BF16_TOL['trajectory'] if bf else 2e-2
         parted_most = max(1, int((BF16_TOL['share_parted'] if bf else 0.01) * n))
-        tag = f'offpolicy_rollout{"_bf16" if bf else ""}[{env_name},{head},{dims},streamed]'
+        tag = (f'offpolicy_rollout{"_bf16" if bf else ""}[{env_name},{head},{dims}'
+               f'{fr._design_tag(level << 1, fr.OFF_LANES)}]')
         report = {}
         for mode, extra in (('injected', dict(noise=nz)), ('philox', dict(seed=seed))):
             trace = []
@@ -857,24 +886,26 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                       reps=5, warmup=1)
         plain_ms = cuda_ms_(lambda: fr.offpolicy_rollout_reference(flat, f0, i0, horizon_len=h,
                                                                    seed=seed, **kw), reps=1)
-        variant = int(bf) | fr.STREAMED
+        variant = int(bf) | level << 1
         sizes = {c: cuda_ms_(lambda c=c: fr.offpolicy_rollout(flat, f0, i0, horizon_len=h,
                                                               seed=seed, cluster=c, **kw),
                              reps=3, warmup=1)
                  for c in fr.ROLLOUT_CLUSTERS
-                 if fr.offpolicy_smem_bytes(body, dims, head, c, bf, True) <= fr.SMEM_LIMIT}
-        picked = fr._library().offpolicy_rollout_cluster(
+                 if fr.offpolicy_smem_bytes(body, dims, head, c, bf, level) <= fr.SMEM_LIMIT}
+        picked = fr._library(variant).offpolicy_rollout_cluster(
             body.kernel_id, fr.OFFPOLICY_HEADS[head], n, *dims, 0, variant)
         b_ms, b_by = k6_bound(body, head, n, h, flat.numel(), dims,
                               tflops=H100_BF16_TFLOPS if bf else None)
-        stream_bytes = (n // fr.OFF_LANES) * h * dims[0] * dims[1] * (2 if bf else 4)
+        lanes = fr.narrow_lanes(fr.OFF_LANES, level)
+        stream_bytes = (n // lanes) * h * dims[0] * dims[1] * (2 if bf else 4)
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, cluster=picked,
-                   cluster_ms=sizes, stream_bytes=stream_bytes,
+                   cluster_ms=sizes, lanes=lanes, stream_bytes=stream_bytes,
                    stream_ms_at_hbm_rate=stream_bytes / (peaks_for(name)[1][1] * 1e12) * 1e3)
         if bf:
             res['bound_ms_fp32'] = k6_bound(body, head, n, h, flat.numel(), dims)[0]
-        k6_streamed[(env_name, head, bf)] = res
-        emit(phase='k6_vs_plain_streamed', kernel=tag, envs=n, horizon=h,
+        (k6_narrow if level >= 2 else k6_streamed)[(env_name, head, bf)] = res
+        emit(phase='k6_vs_plain_narrow' if level >= 2 else 'k6_vs_plain_streamed', kernel=tag,
+             envs=n, horizon=h,
              two_runs_bitwise_equal=True, **res,
              tolerance=(BF16_TOL if bf else {'trajectory': 2e-2, 'lanes_parted': parted_most,
                                              'one_step': 1e-4, 'threshold_flips': 8}),
@@ -1307,7 +1338,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         carry, rb = ctx.carry, ctx.rb
         bf = hyper.get('compute_dtype') == 'bfloat16'
         dims = tuple(a.net_dims)
-        streamed = not fr.offpolicy_fits_resident(body, head, dims, bf)   # the streamed design
+        level = fr.offpolicy_level(body, head, dims, bf)   # the streamed designs past 0
         types = dict(compute_dtype=torch.bfloat16 if bf else None,
                      store_dtype=(torch.bfloat16 if hyper.get('storage_dtype') == 'bfloat16'
                                   else None))
@@ -1351,7 +1382,7 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         chunks = -(-U // 16)
         update_counts = {k: v for k, v in by_chunk.items() if v}
         assert by_kernel == {f'{task[2]},{head}' + (',bf16' if bf else '')
-                             + (',streamed' if streamed else ''): ROUNDS}, by_kernel
+                             + fr._design_tag(level << 1, fr.OFF_LANES): ROUNDS}, by_kernel
         assert update_counts == ({} if autograd else
                                  {variant or CHUNK_VARIANT[head]: ROUNDS * chunks}), update_counts
         assert fr.offpolicy_rollout.launches == ROUNDS
@@ -1395,6 +1426,12 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
         fused_rollout_streamed_ms=k6_streamed[('HopperSlip-v0', 'ddpg', False)]['ms']),
         gamma=0.99, net_dims=(1024, 1024), compute_dtype='float32')
     assert launches_a_wide[1], launches_a_wide
+    # path A at (3072, 3072): K6 on 8-lane streamed groups, and the autograd
+    # update (past max(net_dims) * batch <= 131072 the JAX package runs its
+    # scan), 10 rounds
+    launches_a_narrow = timed_rounds(td3_hopper, 'ddpg', PATH_A_WIDE, 'main_path_td3_narrow', dict(
+        fused_rollout_narrow_ms=k6_narrow[('HopperSlip-v0', 'ddpg', False)]['ms']),
+        gamma=0.99, net_dims=(3072, 3072), compute_dtype='float32', autograd=True)
     small_round_vs_cpu(dqn_cartpole, 'dqn', 64, 16, 128, 16.0,
                        'main_path_dqn_cartpole_small_vs_cpu')
     launches_b = timed_rounds(dqn_cartpole, 'dqn', PATH_B, 'main_path_dqn_cartpole', dict(
@@ -1678,6 +1715,15 @@ def offpolicy_phases(torch, dev, name, smi, bound, seed):
                     'checks': {v['name']: {f: v[f] for f in (
                         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err', 'cluster',
                         'stream_bytes')} for v in k6_streamed.values()}})
+    # its 8-lane groups: path A's at (3072, 3072), main_path_td3_narrow's launches
+    a = k6_narrow[('HopperSlip-v0', 'ddpg', False)]
+    kernels.append({'name': 'offpolicy_rollout[HopperSlip-v0,ddpg,streamed8]', 'route': 'cuda',
+                    'source': rollout_src, 'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:1006',
+                    'launches': launches_a_narrow[0]['HopperSlip-v0,ddpg,streamed8'],
+                    'max_abs_err': a['max_abs_err'], 'ms': a['ms'], 'plain_ms': a['plain_ms'],
+                    'bound_ms': a['bound_ms'], 'bound_by': a['bound_by'], 'library_ms': None,
+                    'net_dims': a['net_dims'], 'lanes': a['lanes'], 'cluster': a['cluster'],
+                    'cluster_ms': a['cluster_ms'], 'stream_bytes': a['stream_bytes']})
     return kernels, k9_lunar
 
 
@@ -1893,12 +1939,17 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                                ('ppo_stock_4k', PPO_STOCK_4K, STOCK_NET),
                                ('ragged_300', dict(PPO_STOCK, envs=300), STOCK_NET),
                                ('ppo_stock_512_streamed', PPO_STOCK, (512, 512)),
-                               ('ppo_stock_640_streamed', PPO_STOCK, (640, 640))):
+                               ('ppo_stock_640_streamed', PPO_STOCK, (640, 640)),
+                               # past the 32-lane groups' widest width (1184): the
+                               # actor on 16-lane groups, the critic pass on
+                               # 32-sample tiles, then (1536) on 16-sample ones
+                               ('ppo_stock_1280_narrow', PPO_STOCK, (1280, 1280)),
+                               ('ppo_stock_1536_narrow', PPO_STOCK, (1536, 1536))):
         n, h = path['envs'], path['horizon']
         stx = st if dims == STOCK_NET else stock_state(dims, 2)
         netx = (stx.act_flat, stx.cri_flat, stx.norm_avg, stx.norm_std)
-        a_st = min(fr.actor_smem_bytes(S, dims, A, c) for c in fr.ROLLOUT_CLUSTERS) > fr.SMEM_LIMIT
-        variant = fr.STREAMED if a_st else 0
+        a_st = fr.rollout_level(body, dims)      # the actor's design level
+        variant = a_st << 1
         # the streamed widths draw from a generator of their own, so the
         # resident checks keep their inputs
         gx = g if dims == STOCK_NET else torch.Generator(device=dev).manual_seed(53)
@@ -1984,7 +2035,7 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                        reps=10, warmup=2)
         c_plain = cuda_ms(torch, lambda: fr.critic_values_reference(
             stx.cri_flat, stx.norm_avg, stx.norm_std, got.states, net_dims=dims), reps=2)
-        cluster = fr._library().stock_rollout_cluster(n, *dims, 0, variant)
+        cluster = fr._library(variant).stock_rollout_cluster(n, *dims, 0, variant)
         cluster_ms = {c: cuda_ms(torch, lambda: fr.rollout(*netx, f0, i0, horizon_len=h, seed=seed,
                                                            stock_cluster=c, **bkw),
                                  reps=5, warmup=1) for c in (1, 2, 4, 8)
@@ -1994,7 +2045,9 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
         (cb_ms, cb_by), (cf_ms, _), (ct_ms, ct_by) = critic_bounds(n, h, stx.cri_flat.numel(),
                                                                    dims)
         emit(phase='k4_vs_plain', kernel='fused_rollout[StockTradingEnv-v2,gaussian]',
-             recipe=recipe, envs=n, net_dims=dims, actor_design=('streamed' if a_st else 'resident'),
+             recipe=recipe, envs=n, net_dims=dims,
+             actor_design=('streamed' if a_st else 'resident'),
+             actor_lanes=fr.rollout_group_lanes(body, dims),
              critic_tile=fr.critic_tile(dims),
              horizon=h, trajectory=report, one_step=one, one_step_samples=h * n,
              one_step_lot_flips=int(flip.sum()), lot_flips_explained=int(explained[flip].sum()),
@@ -2328,6 +2381,20 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
     assert wide_kinds == ({'StockTradingEnv-v2,streamed': ROUNDS},
                           {'float32,streamed': ROUNDS}), wide_kinds
     assert update.startswith('pytorch'), update
+    # ppo_stock at (1280, 1280) and (1536, 1536), past the actor's 32-lane
+    # groups: the actor kernel on 16-lane groups and the critic pass on 32-
+    # and 16-sample tiles once a round, the autograd update
+    narrow_kinds = {}
+    for dims, critic_kind in (((1280, 1280), 'float32,streamed'),
+                              ((1536, 1536), 'float32,streamed16')):
+        recipe = f'ppo_stock_{dims[0]}_narrow'
+        _, update, kinds = timed(PPO_STOCK, f'main_path_stock_narrow_{dims[0]}', {
+            'fused_rollout': 0, 'critic_values': ROUNDS, 'ppo_update': 0},
+            hyper=dict(net_dims=dims, compute_dtype='float32'),
+            fused_rollout_ms=k4[recipe]['ms'], critic_ms=k4[recipe]['critic']['ms'])
+        assert kinds == ({'StockTradingEnv-v2,streamed16': ROUNDS}, {critic_kind: ROUNDS}), kinds
+        assert update.startswith('pytorch'), update
+        narrow_kinds[dims[0]] = kinds
 
     # ---- the entry point: PPO on the stock env at ppo_stock's shape (two
     # evaluation periods, the evaluator reporting cumulative_returns, 100 x
@@ -2424,6 +2491,31 @@ def stock_phases(torch, dev, name, smi, bound, seed, k2_stock):
                     'route': 'cuda', 'source': src,
                     'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
                     'launches': wide_kinds[1]['float32,streamed'],
+                    'max_abs_err': c['max_abs_err'], 'ms': c['ms'], 'plain_ms': c['plain_ms'],
+                    'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'], 'library_ms': None,
+                    'net_dims': k['net_dims'], 'tile': k['critic_tile'],
+                    'bound_ms_market_once': c['bound_ms_market_once'],
+                    'bound_ms_full': c['bound_ms_full']})
+    # the narrower groups: the actor on 16-lane groups (main_path_stock_narrow_1280's
+    # launches; the (1536, 1536) check rides along) and the critic pass on
+    # 16-sample tiles (main_path_stock_narrow_1536's)
+    k = k4['ppo_stock_1280_narrow']
+    kernels.append({'name': 'fused_rollout[StockTradingEnv-v2,gaussian,256 envs,streamed16]',
+                    'route': 'cuda', 'source': src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:451',
+                    'launches': narrow_kinds[1280][0]['StockTradingEnv-v2,streamed16'],
+                    'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                    'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'], 'library_ms': None,
+                    'net_dims': k['net_dims'], 'bound_ms_full_obs': k['bound_ms_full_obs'],
+                    'cluster': k['cluster'],
+                    'checks': {'ppo_stock_1536': {f: k4['ppo_stock_1536_narrow'][f] for f in (
+                        'ms', 'plain_ms', 'bound_ms', 'max_abs_err', 'cluster')}}})
+    k = k4['ppo_stock_1536_narrow']
+    c = k['critic']
+    kernels.append({'name': 'critic_values[StockTradingEnv-v2,256 envs,streamed16]',
+                    'route': 'cuda', 'source': src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+                    'launches': narrow_kinds[1536][1]['float32,streamed16'],
                     'max_abs_err': c['max_abs_err'], 'ms': c['ms'], 'plain_ms': c['plain_ms'],
                     'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'], 'library_ms': None,
                     'net_dims': k['net_dims'], 'tile': k['critic_tile'],
@@ -4216,6 +4308,124 @@ def marl_phases(torch, dev, name, smi):
              device=name, nvidia_smi=smi)
 
 
+# ---------------------------------------------------------------- rlsolver/
+# The MaxCut core on the committed 800-node BA instances at the sizes of
+# scripts/maxcut_shootout.py:100-115, and PPO on node flips on the committed
+# 64-node one.  The simulators' products are torch.matmul (the JAX package
+# computes them outside any Pallas kernel); the flip env's V-trace
+# advantages take K10.
+MAXCUT_INSTANCES = ('syn_BA_800_dense.txt', 'syn_BA_800_sparse.txt')
+
+
+def rlsolver_phases(torch, dev, name, smi, bound):
+    """``rlsolver_maxcut``: each ported MaxCut method on both instances, its
+    cut and seconds, gated on its x reproducing its cut in float64 numpy on
+    the host and on beating random search at its number of sims;
+    ``rlsolver_ppo_maxcut``: ``ppo_maxcut_solve`` on the card, K10 launched
+    on its path (counts reset just before, read just after) and held against
+    its plain version, bitwise, on the inputs of the path's last call.
+    Returns the kernels line's K10 entry for this path."""
+    from elegantrl_tpu_torch import rlsolver as rs
+    from elegantrl_tpu_torch.ops import gae as gae_ops
+    from elegantrl_tpu_torch.ops import kernels as kn
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    table = {}
+    for inst in MAXCUT_INSTANCES:
+        n, edges = rs.read_graph_txt(rs.data_path(inst))
+        sim = rs.MaxCutSimulator(edges, n)            # the default device: the card
+        assert sim.adj.device.type == 'cuda'
+        adj64 = rs.edges_to_adjacency(edges, n).astype(np.float64)
+
+        def host_cut(x):
+            x = np.asarray(x.detach().cpu().numpy(), np.float64)
+            assert set(np.unique(x)) <= {0.0, 1.0}
+            return float(x @ adj64 @ (1.0 - x))
+
+        cells = {}
+        for method, sims, fn in (
+                ('iSCO', 2048, lambda: rs.isco_solve(sim, gen(1), num_sims=2048, num_steps=360,
+                                                     path_length=4)),
+                ('MCPG', 2048, lambda: rs.mcpg_solve(sim, gen(2), num_chains=2048,
+                                                     num_epochs=40)),
+                ('greedy local search', 4096, lambda: rs.greedy_local_search(
+                    sim, gen(4), num_sims=4096, num_iters=256)),
+                ('simulated annealing', 4096, lambda: rs.simulated_annealing(
+                    sim, gen(5), num_sims=4096, num_steps=2048))):
+            out, secs = timed(fn)
+            cut, x = float(out[0]), out[1]
+            assert x.device.type == 'cuda' and host_cut(x) == cut, (inst, method)
+            (r_cut, r_x), r_secs = timed(lambda: rs.random_search(sim, gen(9), num_sims=sims,
+                                                                  num_rounds=1))
+            assert host_cut(r_x) == float(r_cut)
+            assert cut > float(r_cut), (inst, method, cut, float(r_cut))
+            cells[method] = dict(cut=cut, seconds=secs, sims=sims,
+                                 random_search_cut=float(r_cut), random_search_seconds=r_secs)
+            emit(phase='rlsolver_maxcut', instance=inst, nodes=n, edges=sim.num_edges,
+                 method=method, sims=sims, cut=cut, seconds=round(secs, 3),
+                 random_search_cut=float(r_cut), x_reproduces_cut_in_float64=True,
+                 device=name, nvidia_smi=smi)
+        table[inst] = cells
+
+    # ---- rlsolver_ppo_maxcut: the flip env's generic rollout and autograd
+    # update (a one-hidden-layer net: the JAX package's scan and autograd
+    # update), K10 once a round
+    n, edges = rs.read_graph_txt(rs.data_path('syn_BA_64.txt'))
+    sim = rs.MaxCutSimulator(edges, n)
+    seen = []
+    real = kn.gae_vtrace_kernel
+
+    def spy(*a, **k):      # the agent's K10 call, its inputs kept for the check below
+        seen[:] = [a, k]
+        return real(*a, **k)
+
+    gae_ops.gae_vtrace_kernel = spy
+    real.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as cwd:
+            out, secs = timed(lambda: rs.ppo_maxcut_solve(sim, seed=0, num_envs=64, cwd=cwd))
+    finally:
+        gae_ops.gae_vtrace_kernel = real
+    launches = real.launches                      # read just after the path
+    assert launches > 0 and seen, launches
+    x = torch.as_tensor(out['best_x'], device=dev)
+    assert abs(float(sim.obj(x[None])[0]) - out['best_cut']) < 1e-4
+    adj64 = rs.edges_to_adjacency(edges, n).astype(np.float64)
+    xh = out['best_x'].astype(np.float64)
+    assert float(xh @ adj64 @ (1 - xh)) == out['best_cut']
+    (r, u, um, v, nv, gamma, lam), kw = seen
+    fa, fs = real(r, u, um, v, nv, gamma, lam, **kw)
+    wa, ws = kn.vtrace_advantages_reference(r, u, um, v, nv, gamma, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(fa, wa) and torch.equal(fs, ws), 'K10 differs on the ppo_maxcut path'
+    H, N = r.shape
+    ms = cuda_ms(torch, lambda: real(r, u, um, v, nv, gamma, lam, **kw), reps=50, warmup=3)
+    plain_ms = cuda_ms(torch, lambda: kn.vtrace_advantages_reference(r, u, um, v, nv, gamma,
+                                                                      lam), reps=5)
+    b_ms, b_by = bound(11 * H * N, 4 * (6 * H * N + N))
+    (r_cut, _), _ = timed(lambda: rs.random_search(sim, gen(9), num_sims=64, num_rounds=4))
+    emit(phase='rlsolver_ppo_maxcut', instance='syn_BA_64.txt', nodes=n, num_envs=64,
+         horizon=n, net_dims=(64,), break_step=200_000, best_cut=out['best_cut'],
+         random_search_cut=float(r_cut), seconds=round(secs, 3),
+         rollout='the generic rollout (no kernel body)', update='autograd (one hidden layer)',
+         gae_vtrace_launches=launches, k10_bitwise_equal=True, k10_ms=ms, k10_plain_ms=plain_ms,
+         device=name, nvidia_smi=smi)
+    return [{'name': 'gae_vtrace[rlsolver_ppo_maxcut]', 'route': 'cuda',
+             'source': 'elegantrl_tpu_torch/ops/csrc/kernels.cu',
+             'replaces': 'elegantrl_tpu/ops/pallas_kernels.py:146', 'launches': launches,
+             'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+             'bound_by': b_by, 'library_ms': None, 'H': H, 'N': N}], table
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -4228,9 +4438,10 @@ def main():
     from elegantrl_tpu_torch.ops import _cuda_build
     from elegantrl_tpu_torch.ops.fused_rollout import (
         CARTPOLE_BODY, CHASING_BODY, CHASING_DISCRETE_BODY, HOPPER_BODY, KERNEL_ENV_BODIES,
-        PENDULUM_BODY, ROLLOUT_CLUSTERS, STREAM_LANES, STREAMED, noise_rows, rollout,
-        rollout_fits, rollout_fits_resident, rollout_reference, _library as fr_lib,
-        rollout_smem_bytes as fr_smem)
+        PENDULUM_BODY, ROLLOUT_CLUSTERS, ROLLOUT_LEVELS, STREAM_LANES, STREAMED, noise_rows,
+        rollout,
+        rollout_fits, rollout_fits_resident, rollout_group_lanes, rollout_level,
+        rollout_reference, _design_tag, _library as fr_lib, rollout_smem_bytes as fr_smem)
     from elegantrl_tpu_torch.ops.fused_update import (PPO_PHASES, PPO_SMEM_BYTES, ppo_phase_ms,
                                                       ppo_update, ppo_update_reference,
                                                       _library as fu_lib)
@@ -4265,8 +4476,8 @@ def main():
 
     # ---- 2. build
     t0 = time.time()
-    logs = _cuda_build.build(['onpolicy_rollout', 'offpolicy_rollout', 'ppo_update',
-                              'dqn_update', 'ddpg_update',
+    logs = _cuda_build.build(['onpolicy_rollout', 'offpolicy_rollout', 'onpolicy_narrow',
+                              'offpolicy_narrow', 'ppo_update', 'dqn_update', 'ddpg_update',
                               'sac_update', 'kernels', 'probes'])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if 'registers' in ln or 'spill' in ln]
              for k, v in logs.items()}
@@ -4278,11 +4489,14 @@ def main():
                      (1024, 1024), (1024, 256)):
             for c in ROLLOUT_CLUSTERS:
                 for bf in (0, 1):
-                    for st in (0, STREAMED):   # the resident and the streamed layouts
+                    # the resident and the streamed layouts, the narrower groups
+                    # from the narrow library
+                    for level in range(ROLLOUT_LEVELS + 1):
                         smem[f'fused_rollout[{body.env_name},{dims},cluster={c},bf16={bf},'
-                             f'streamed={int(st > 0)}]'] = (
-                            fr_lib().fused_rollout_smem_bytes(body.kernel_id, *dims, c, bf | st),
-                            fr_smem(body, dims, c, bool(bf), bool(st)))
+                             f'level={level}]'] = (
+                            fr_lib(level << 1).fused_rollout_smem_bytes(body.kernel_id, *dims, c,
+                                                                        bf | level << 1),
+                            fr_smem(body, dims, c, bool(bf), level))
     smem.update(offpolicy_smem_pairs())
     smem.update(stock_smem_pairs())
     for dims in ((8, 128, 128, 2), (8, 256, 256, 4), (8, 128, 128, 1), (151, 128, 128, 15)):
@@ -4338,18 +4552,20 @@ def main():
     def cluster_ms(run, body, n, dims, bf=False):
         """ms of the rollout kernel at each cluster size that fits, and the
         size it picks by itself, in the design the widths take (the
-        streamed one where a cluster of 8 does not hold the slices)."""
-        st = not rollout_fits_resident(body, dims, bf)
+        streamed one where a cluster of 8 does not hold the slices, on the
+        widest lane group that fits)."""
+        st = rollout_level(body, dims, bf)
         out = {str(c): cuda_ms(torch, lambda: run(c), reps=3 if st else 5)
                for c in ROLLOUT_CLUSTERS if fr_smem(body, dims, c, bf, st) <= 232448}
-        out['picked'] = fr_lib().fused_rollout_cluster(body.kernel_id, n, *dims, 0,
-                                                       int(bf) | (STREAMED if st else 0))
+        out['picked'] = fr_lib(st << 1).fused_rollout_cluster(body.kernel_id, n, *dims, 0,
+                                                              int(bf) | st << 1)
         return out
 
     def stream_bytes(body, dims, h, bf=False):
         """The streamed design's weight stream: both nets' W2 read from L2 by
         every lane group at every step."""
-        return 2 * (N // STREAM_LANES) * h * dims[0] * dims[1] * (2 if bf else 4)
+        lanes = rollout_group_lanes(body, dims, bf)
+        return 2 * (N // lanes) * h * dims[0] * dims[1] * (2 if bf else 4)
 
     k1 = {}
     for mode, extra in (('injected', dict(noise=noise)), ('philox', dict(seed=seed))):
@@ -4543,7 +4759,8 @@ def main():
         streamed = not rollout_fits_resident(body, dims)
         tag = f'fused_rollout[{body.env_name},{"categorical" if body.discrete else "gaussian"}]'
         if streamed:
-            tag = tag[:-1] + f',{dims},streamed]'
+            design = _design_tag(rollout_level(body, dims) << 1, STREAM_LANES)
+            tag = tag[:-1] + f',{dims}{design}]'
         s = body_state(body, dims)
         g = torch.Generator(device=dev).manual_seed(21)
         env_def = env_class(num_envs=1)._def
@@ -4638,6 +4855,11 @@ def main():
                     for body, env_class in ((PENDULUM_BODY, PendulumEnv),
                                             (CARTPOLE_BODY, CartPoleEnv))
                     for dims in ((384, 384), (1024, 1024))}
+    # K1 past its 16-lane groups' widest width (1408 in float32): the
+    # streamed design on 8-lane groups at (1536, 1536), the same checks
+    assert rollout_group_lanes(PENDULUM_BODY, (1536, 1536)) == 8
+    k13_narrow = check_body(PENDULUM_BODY, PendulumEnv, (1536, 1536), 'k13_vs_plain_narrow',
+                            (N,))
 
     # the Gumbel-max sample on fixed logits (zero actor weights, the logits
     # as the output bias): action frequencies over 262,144 Philox draws are
@@ -4881,14 +5103,16 @@ def main():
         emit(phase=phase, envs=256, horizon=32, batch=128,
              objective_rel_diff=obj_rel, update_rel_diff=upd_rel)
 
-    def timed_rounds(task, body, head, phase, kernel_ms, **hyper):
+    def timed_rounds(task, body, head, phase, kernel_ms, updates=ROUNDS, **hyper):
+        """10 timed rounds; ``updates``: K2's launches in them (0 where the
+        JAX package runs its scan, and the port autograd)."""
         a = bench_args(task, NUM_ENVS, HORIZON, BATCH)
         for k, v in hyper.items():
             setattr(a, k, v)
         dims = tuple(a.net_dims)
         # the rollout kernel's count: the streamed design's past what a
-        # cluster of 8 holds (float32 here)
-        tag = body.env_name + ('' if rollout_fits_resident(body, dims) else ',streamed')
+        # cluster of 8 holds, on the lane groups it takes (float32 here)
+        tag = body.env_name + _design_tag(rollout_level(body, dims) << 1, STREAM_LANES)
         ctx = build_training(a)
         carry, _ = ctx.round_fn(ctx.carry)                      # warm-up round
         p0 = [carry.agent_state.act_flat.clone(), carry.agent_state.cri_flat.clone()]
@@ -4910,13 +5134,13 @@ def main():
         mvals = torch.stack(metrics).cpu()
         moved = max(float((carry.agent_state.act_flat - p0[0]).abs().max()),
                     float((carry.agent_state.cri_flat - p0[1]).abs().max()))
-        assert launches == {'fused_rollout': ROUNDS, 'ppo_update': ROUNDS}, launches
-        assert rollout.launches == ROUNDS and ppo_update.launches == ROUNDS
+        assert launches == {'fused_rollout': ROUNDS, 'ppo_update': updates}, launches
+        assert rollout.launches == ROUNDS and ppo_update.launches == updates
         assert kn_ops.gae_vtrace_kernel.launches == ROUNDS
         assert bool(torch.isfinite(mvals).all()), mvals
         assert moved > 0.0
         emit(phase=phase, agent=task[0].__name__, env=task[2], envs=NUM_ENVS, horizon=HORIZON,
-             batch=BATCH, repeat=REPEAT, net_dims=dims, rounds=ROUNDS, launches=launches,
+             batch=BATCH, repeat=a.repeat_times, net_dims=dims, rounds=ROUNDS, launches=launches,
              gae_vtrace_launches=kn_ops.gae_vtrace_kernel.launches,
              round_ms=round_ms, env_steps_per_s=NUM_ENVS * HORIZON / (round_ms / 1e3),
              **kernel_ms, metrics=dict(zip(sorted(m), mvals[-1].tolist())),
@@ -4929,8 +5153,8 @@ def main():
     # on the card nothing falls back to a plain version where the JAX package
     # takes a kernel: asking for the plain version, or a workload that the
     # JAX package sends to its kernel and this kernel does not fit, raises
-    # (at (2628, 2628), bf16 under 'auto', past even the streamed design's
-    # widest width, 2624).  Where
+    # (at (8228, 8228), bf16 under 'auto', past even the streamed design's
+    # narrowest lane groups' widest width, 8224).  Where
     # the JAX package runs XLA ops the card runs PyTorch ops and says so: A2C's
     # update (no kernel in either package), and both halves of a 3-hidden-layer
     # PPO (the generic rollout and the autograd update).
@@ -4939,7 +5163,7 @@ def main():
     refused = {}
     for task in (pendulum, cartpole):
         for flag, setting in (('use_fused_rollout', ('use_fused_rollout', False)),
-                              ('use_fused_rollout', ('net_dims', (2628, 2628))),
+                              ('use_fused_rollout', ('net_dims', (8228, 8228))),
                               ('use_fused_update', ('use_fused_update', False))):
             a = bench_args(task, 256, 32, 128)
             setattr(a, *setting)
@@ -4987,6 +5211,14 @@ def main():
         pendulum, PENDULUM_BODY, 'continuous', 'main_path_wide_f32', dict(
             fused_rollout_ms=k13_streamed[('Pendulum-v1', (384, 384))]['ms']),
         net_dims=(384, 384), compute_dtype='float32')
+    # PPO on Pendulum at (1536, 1536) in float32 at the bench's shape but
+    # repeat 1 (512 SGD steps a round, not 4096): K1 on 8-lane streamed
+    # groups and K10 once a round, the autograd update (the JAX package's
+    # fused update does not fit its VMEM budget there)
+    launches_narrow = timed_rounds(
+        pendulum, PENDULUM_BODY, 'continuous', 'main_path_narrow', dict(
+            fused_rollout_ms=k13_narrow['ms']), updates=0,
+        net_dims=(1536, 1536), compute_dtype='float32', repeat_times=1.0)
 
     # ---- 9b. the bf16 main paths: ppo_pendulum_bf16's shape (4096 envs, H
     # 128, B 4096, (128, 64), bf16 compute, its repeat 512: 16 updates a
@@ -5054,13 +5286,13 @@ def main():
     launches_wide = timed_bf16(pendulum, 'main_path_wide_auto', NUM_ENVS, HORIZON, BATCH,
                                net_dims=(512, 512))
     too_wide = bench_args(pendulum, 256, 32, 128)
-    too_wide.net_dims = (2628, 2628)
+    too_wide.net_dims = (8228, 8228)
     try:
         build_training(too_wide)
         raise AssertionError('the card took a bf16 rollout past the widest width')
     except ValueError as e:
-        assert 'up to 2624 on Pendulum-v1 in bf16' in str(e), e
-        emit(phase='bf16_width_limit', net_dims=(2628, 2628), raised=str(e)[:300])
+        assert 'up to 8224 on Pendulum-v1 in bf16' in str(e), e
+        emit(phase='bf16_width_limit', net_dims=(8228, 8228), raised=str(e)[:300])
 
     # ---- 10. the entry point
     def run_train_agent(task, num_envs, horizon, batch, periods, rounds_per_period=1, **hyper):
@@ -5119,6 +5351,9 @@ def main():
 
     # ---- 15c. marl/: every multi-agent trainer on the card
     marl_phases(torch, dev, name, smi)
+
+    # ---- 15d. rlsolver/: the MaxCut core on the 800-node instances, PPO on node flips
+    rlsolver_kernels, _ = rlsolver_phases(torch, dev, name, smi, bound)
 
     # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
@@ -5190,6 +5425,16 @@ def main():
                         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'bound_ms_fp32',
                         'max_abs_err', 'stream_bytes')}
                         for c in list(k13_streamed.values()) + list(k13_bf16_streamed.values())}})
+    # its 8-lane groups (the same kernel, ST 2): main_path_narrow's
+    # launches at (1536, 1536)
+    k = k13_narrow
+    kernels.append({'name': k['name'], 'route': 'cuda', 'source': rollout_src,
+                    'replaces': 'elegantrl_tpu/ops/pallas_rollout.py:600',
+                    'launches': launches_narrow['fused_rollout'],
+                    'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+                    'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'], 'library_ms': None,
+                    'cluster_ms': k['cluster_ms'], 'stream_bytes': k['stream_bytes'],
+                    'lanes': rollout_group_lanes(PENDULUM_BODY, (1536, 1536))})
     # the float32 kernel's bf16-storage checks ride with its entries
     for k in kernels:
         for env_name, c in k13_store_bf16.items():
@@ -5199,7 +5444,7 @@ def main():
                 k['store_bf16'] = {f: c[f] for f in ('name', 'ms', 'plain_ms', 'bound_ms',
                                                      'max_abs_err', 'lanes_parted')}
     kernels += (offpolicy_kernels + stock_kernels + bf16_host_pixel_kernels + lunar_kernels
-                + probe_kernels)
+                + probe_kernels + rlsolver_kernels)
     # the sharded wrappers' per-shard launches ride with the kernel they launch
     for k in kernels:
         if k['name'] in sharded:

@@ -67,6 +67,21 @@ namespace {
 constexpr int TE = 32;        // env lanes per group
 constexpr int STREAM_LANES = 16;  // env lanes per group of the streamed K1 (G below)
 
+// The template parameter ST of the rollout kernels: 0 the resident design,
+// 1 the streamed one at its widest lane group, and each step past 1 halves
+// the group (the narrower streamed groups, which hold less of h1 and h2 in
+// shared memory: same products, same order, smaller tiles and more of them).
+// A group keeps at least 4 lanes: cm::tile_dense works on 4 x 4 register
+// tiles over float4 rows, so a tile row of fewer lanes takes as much shared
+// memory as one of 4.
+__host__ __device__ constexpr int narrow_lanes(int lanes, int st) {
+  return st > 1 ? lanes >> (st - 1) : lanes;
+}
+// K1/K3's lanes a group: TE resident, STREAM_LANES (16), 8, 4 streamed
+__host__ __device__ constexpr int rollout_lanes(int st) {
+  return st ? narrow_lanes(STREAM_LANES, st) : TE;
+}
+
 // The streamed designs (ST) read layer 2's weights from device memory (L2)
 // instead of holding their slices in shared memory: each net's W2 zero-padded
 // to (round32(D2), round32(D1)) rows and columns, in the compute type, one net
@@ -548,10 +563,10 @@ struct RolloutLayout {
   }
 };
 
-template <class Body, bool BF, bool ST>
+template <class Body, bool BF, int ST>
 __host__ __device__ inline RolloutLayout body_layout(int D1, int D2, int c) {
   return RolloutLayout(Body::S, Body::A, Body::DISCRETE ? Body::A : 2 * Body::A,
-                       Body::N_STEP + Body::N_RESET, D1, D2, c, ST ? STREAM_LANES : TE, BF, ST);
+                       Body::N_STEP + Body::N_RESET, D1, D2, c, rollout_lanes(ST), BF, ST != 0);
 }
 
 // BF: bf16 compute (elegantrl_tpu/ops/pallas_rollout.py:_bf16_dot): each
@@ -561,8 +576,9 @@ __host__ __device__ inline RolloutLayout body_layout(int D1, int D2, int c) {
 // before it is normalised and acted on, and stored as bf16.  ST: the streamed
 // design (RolloutLayout's st; w2g the stream_weights copy of both nets' W2,
 // which tile_dense reads through L1 from L2 as it reads shared memory in the
-// resident design); the same products in the same order at G lanes a group.
-template <class Body, bool BF, bool ST>
+// resident design); the same products in the same order at G lanes a group
+// (rollout_lanes: 16, or 8 and 4 for the narrower groups).
+template <class Body, bool BF, int ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      const float* __restrict__ cri_flat,
@@ -579,7 +595,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
                      int* __restrict__ env_i_o, int N, int H, int D1, int D2,
                      float reward_scale, int quant,
                      const cm::elem_t<BF>* __restrict__ w2g) {
-  constexpr int S = Body::S, A = Body::A, F = Body::F, G = ST ? STREAM_LANES : TE;
+  constexpr int S = Body::S, A = Body::A, F = Body::F, G = rollout_lanes(ST);
   constexpr bool DISCRETE = Body::DISCRETE;
   constexpr int N_ENV = Body::N_STEP + Body::N_RESET;  // the env's uniforms
   constexpr int NZ = A + N_ENV;                        // injected rows
@@ -845,7 +861,7 @@ fused_rollout_kernel(const Body body, const float* __restrict__ act_flat,
   }
 }
 
-template <class Body, bool BF, bool ST>
+template <class Body, bool BF, int ST>
 int rollout_smem(int D1, int D2, int c) {
   return (int)sizeof(float) * body_layout<Body, BF, ST>(D1, D2, c).floats;
 }
@@ -907,15 +923,15 @@ int pick_cluster(int groups, int cluster, SmemOf smem_of, bool whole_sm) {
 }
 
 // The rollout kernel's cluster size for N lanes (pick_cluster).
-template <class Body, bool BF, bool ST>
+template <class Body, bool BF, int ST>
 int rollout_cluster(int N, int D1, int D2, int cluster) {
-  constexpr int G = ST ? STREAM_LANES : TE;
+  constexpr int G = rollout_lanes(ST);
   return pick_cluster<fused_rollout_kernel<Body, BF, ST>>(
       (N + G - 1) / G, cluster, [=](int c) { return rollout_smem<Body, BF, ST>(D1, D2, c); },
       false);
 }
 
-template <class Body, bool BF, bool ST>
+template <class Body, bool BF, int ST>
 int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
            const void* norm_std, const void* env_f, const void* env_i,
            const void* noise, const void* seed, void* states, void* actions,
@@ -931,7 +947,7 @@ int launch(const void* act_flat, const void* cri_flat, const void* norm_avg,
   const int smem = rollout_smem<Body, BF, ST>(D1, D2, c);
   const cudaError_t err = allow_smem<fused_rollout_kernel<Body, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int G = ST ? STREAM_LANES : TE;
+  constexpr int G = rollout_lanes(ST);
   const int groups = (N + G - 1) / G;
   return (int)cm::launch_clusters(
       fused_rollout_kernel<Body, BF, ST>, groups * c, c, smem, stream, Body{},
@@ -1051,20 +1067,21 @@ struct OffLayout {
   }
 };
 
-template <class Body, int HEAD, bool BF, bool ST>
+template <class Body, int HEAD, bool BF, int ST>
 __host__ __device__ inline OffLayout off_layout(int D1, int D2, int c) {
   constexpr bool DISCRETE = dqn_head(HEAD);
   return OffLayout(Body::S, Body::A, offpolicy_out_rows(Body::A, HEAD),
                    DISCRETE ? 2 : 2 * Body::A, Body::N_STEP + Body::N_RESET, D1, D2, c,
-                   OFF_LANES, BF, ST);
+                   narrow_lanes(OFF_LANES, ST), BF, ST != 0);
 }
 
 // BF and quant as for fused_rollout_kernel (_bf16_dot in
 // pallas_rollout.py:_make_offpolicy_kernel); under quant the continuous
 // heads' stored actions are bf16 too, the env stepping with the f32 action.
 // ST: the streamed design, W2 read from w2g (stream_weights) as in
-// fused_rollout_kernel.
-template <class Body, int HEAD, bool BF, bool ST>
+// fused_rollout_kernel; its groups of OFF_LANES lanes, or 8 and 4 for the
+// narrower streamed groups (ST 2, 3).
+template <class Body, int HEAD, bool BF, int ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          const float* __restrict__ env_f,
@@ -1076,7 +1093,7 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
                          int H, int D1, int D2, float reward_scale, float noise_std,
                          float explore_rate, float std_lo, float std_hi, int quant,
                          const cm::elem_t<BF>* __restrict__ w2g) {
-  constexpr int S = Body::S, A = Body::A, F = Body::F, G = OFF_LANES;
+  constexpr int S = Body::S, A = Body::A, F = Body::F, G = narrow_lanes(OFF_LANES, ST);
   constexpr bool SAC = sac_head(HEAD), DISCRETE = dqn_head(HEAD);
   static_assert(DISCRETE == Body::DISCRETE, "the head must fit the body's action space");
   static_assert(!BodyInfo<Body>::TABLES, "the stock body runs stock_actor_kernel<HEAD>");
@@ -1314,7 +1331,7 @@ offpolicy_rollout_kernel(const Body body, const float* __restrict__ flat,
   }
 }
 
-template <class Body, int HEAD, bool BF, bool ST>
+template <class Body, int HEAD, bool BF, int ST>
 int offpolicy_smem(int D1, int D2, int c) {
   return (int)sizeof(float) * off_layout<Body, HEAD, BF, ST>(D1, D2, c).floats;
 }
@@ -1322,14 +1339,15 @@ int offpolicy_smem(int D1, int D2, int c) {
 // The cluster size for N lanes (pick_cluster): one block an SM first, as a
 // step's latency, not the card's throughput, sets the time (two blocks on
 // an SM measured up to 1.8x slower).
-template <class Body, int HEAD, bool BF, bool ST>
+template <class Body, int HEAD, bool BF, int ST>
 int offpolicy_cluster(int N, int D1, int D2, int cluster) {
+  constexpr int G = narrow_lanes(OFF_LANES, ST);
   return pick_cluster<offpolicy_rollout_kernel<Body, HEAD, BF, ST>>(
-      (N + OFF_LANES - 1) / OFF_LANES, cluster,
+      (N + G - 1) / G, cluster,
       [=](int c) { return offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c); }, true);
 }
 
-template <class Body, int HEAD, bool BF, bool ST>
+template <class Body, int HEAD, bool BF, int ST>
 int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
                      const void* noise, const void* seed, void* states, void* actions,
                      void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o, int N,
@@ -1345,7 +1363,7 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
   const int smem = offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c);
   const cudaError_t err = allow_smem<offpolicy_rollout_kernel<Body, HEAD, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int groups = (N + OFF_LANES - 1) / OFF_LANES;
+  const int groups = (N + narrow_lanes(OFF_LANES, ST) - 1) / narrow_lanes(OFF_LANES, ST);
   return (int)cm::launch_clusters(
       offpolicy_rollout_kernel<Body, HEAD, BF, ST>, groups * c, c, smem, stream, Body{},
       (const float*)flat, (const float*)env_f, (const int*)env_i, (const float*)noise,
@@ -1396,12 +1414,17 @@ int launch_offpolicy(const void* flat, const void* env_f, const void* env_i,
 // tile does not fit a block) streams W1's lane columns through the same
 // ring, one 64-feature chunk a stage ahead of W2's stages, so shared memory
 // holds no weight matrix and only h1 grows with the first width: the same
-// products in the same order.
+// products in the same order.  Past that, tiles of CT_NARROW = 16 samples
+// (half a group): each warp one m16 row of fragments instead of two, the
+// same eight feature warps, so the same products in the same order again.
+// No narrower tile: an m16 fragment reads 16 rows of h1, so a tile of 8
+// samples would hold as much h1 as one of 16.
 constexpr int CNC = 64;   // features a chunk of a product's outputs
 constexpr int CKT = 32;   // inputs a K-tile of W2
 constexpr int CLD = StockBody::S_LANE + 4;  // row stride of the lane rows and W1's lane columns
 constexpr int CKLD = CKT + 4;               // row stride of a W2 K-tile
 constexpr int CT_STREAM = 32;               // samples a tile of the streamed design
+constexpr int CT_NARROW = 16;               // samples a tile of its narrower design
 
 __host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
 
@@ -1414,7 +1437,7 @@ __host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
 struct CriticLayout {
   int d1p, d2p, w1l, b1, b2, wo, ring, xl, xm, mk, h1, vpart, floats;
   __host__ __device__ CriticLayout(int D1, int D2, int CT, int st) {
-    const int NM = StockBody::S - StockBody::S_LANE, NQ = CT / TE;
+    const int NM = StockBody::S - StockBody::S_LANE, NQ = max(CT / TE, 1);
     d1p = round64(D1);
     d2p = round64(D2);
     int o = 0;
@@ -1452,17 +1475,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // acc[mt][nt] += X[m0 + 16 mt .. ][k0 .. k0 + 8) W[n0 + 8 nt ..][k0 .. k0 + 8)^T
-// in split-3xTF32 for a warp's 32 samples x 8 NT features: X is (samples,
+// in split-3xTF32 for a warp's 16 MT samples x 8 NT features: X is (samples,
 // inputs) with row stride ldx, W (features, inputs) with row stride ldw;
 // the mma.sync m16n8k8 fragments (g = lane / 4, q = lane % 4): A (g, q),
 // (g + 8, q), (g, q + 4), (g + 8, q + 4); B (k = q, n = g), (q + 4, g).
-template <int NT>
-__device__ __forceinline__ void mma_k8(float (&acc)[2][NT][4], const float* X, int ldx,
+template <int NT, int MT = 2>
+__device__ __forceinline__ void mma_k8(float (&acc)[MT][NT][4], const float* X, int ldx,
                                        const float* W, int ldw, int k0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  uint32_t ah[2][4], al[2][4];
+  uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
     const float* x = X + (16 * mt + g) * ldx + k0 + q;
     split_tf32(x[0], ah[mt][0], al[mt][0]);
     split_tf32(x[8 * ldx], ah[mt][1], al[mt][1]);
@@ -1476,7 +1499,7 @@ __device__ __forceinline__ void mma_k8(float (&acc)[2][NT][4], const float* X, i
     split_tf32(w[0], bh[0], bl[0]);
     split_tf32(w[4], bh[1], bl[1]);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       mma_tf32(acc[mt][nt], al[mt], bh);
       mma_tf32(acc[mt][nt], ah[mt], bl);
       mma_tf32(acc[mt][nt], ah[mt], bh);
@@ -1504,13 +1527,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // built, one m16n8k16 product each (exact products, f32 sums).  Fragments
 // (g = lane / 4, q = lane % 4): A rows g and g + 8 at inputs 2q, 2q + 1 and
 // 2q + 8, 2q + 9; B (k = 2q, 2q + 1 and 2q + 8, 2q + 9; n = g).
-template <int NT>
-__device__ __forceinline__ void mma_k16(float (&acc)[2][NT][4], const float* X, int ldx,
+template <int NT, int MT = 2>
+__device__ __forceinline__ void mma_k16(float (&acc)[MT][NT][4], const float* X, int ldx,
                                         const float* W, int ldw, int k0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  uint32_t a[2][4];
+  uint32_t a[MT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
     const float* x = X + (16 * mt + g) * ldx + k0 + 2 * q;
     const float2 x0 = *reinterpret_cast<const float2*>(x);
     const float2 x1 = *reinterpret_cast<const float2*>(x + 8 * ldx);
@@ -1528,7 +1551,7 @@ __device__ __forceinline__ void mma_k16(float (&acc)[2][NT][4], const float* X, 
     const float2 w1 = *reinterpret_cast<const float2*>(w + 8);
     const uint32_t b[2] = {bf16x2(w0.x, w0.y), bf16x2(w1.x, w1.y)};
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+    for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
   }
 }
 
@@ -1544,10 +1567,12 @@ __global__ void __launch_bounds__(cm::THREADS, 2)
 critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict__ norm_avg,
                      const float* __restrict__ norm_std, const void* __restrict__ states,
                      float* __restrict__ val, int N, int H, int D1, int D2, int sbf) {
-  constexpr int S = StockBody::S, L = StockBody::S_LANE, NM = S - L, NQ = CT / TE;
-  constexpr int WM = CT / 32, WN = 8 / WM;   // warps across the samples; the features
+  constexpr int S = StockBody::S, L = StockBody::S_LANE, NM = S - L;
+  constexpr int NQ = CT >= TE ? CT / TE : 1;  // the groups a tile meets
+  constexpr int MT = CT >= 32 ? 2 : 1;        // a warp's m16 rows of fragments
+  constexpr int WM = CT >= 32 ? CT / 32 : 1, WN = 8 / WM;  // warps across the samples; the features
   constexpr int FW = CNC / WN, NT = FW / 8;  // a warp's features of a chunk, n8 tiles
-  constexpr bool ST = CT == CT_STREAM;       // the streamed design
+  constexpr bool ST = CT <= CT_STREAM;       // the streamed designs
   const CriticLayout Ly(D1, D2, CT, ST);
   const int d1p = Ly.d1p, d2p = Ly.d2p, ldh = d1p + 4;
   extern __shared__ float4 smem4[];
@@ -1659,7 +1684,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
     // market product and the bias, through GELU into h1 (samples x D1p)
     int s = 0;
     for (int n0c = 0; n0c < d1p; n0c += CNC) {
-      float acc[2][NT][4] = {};
+      float acc[MT][NT][4] = {};
       const float* X = xl + (32 * wm) * CLD;
       if constexpr (ST) begin_stage(s, more);
       const float* W = ST ? ring + slot * CNC * CKLD + (FW * wn) * CKLD
@@ -1672,7 +1697,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
         mma_k8(acc, X, CLD, W, ldw, 8);
       }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1690,9 +1715,9 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
       }
     }
     // ---- layer 2 over the W2 ring, GELU and the value head's weights
-    float vrow[2][2] = {};  // this thread's samples (mt, h): its features' terms
+    float vrow[MT][2] = {};  // this thread's samples (mt, h): its features' terms
     for (int chunk = 0; chunk < d2p / CNC; ++chunk) {
-      float acc[2][NT][4] = {};
+      float acc[MT][NT][4] = {};
       for (int kt = 0; kt < kts; ++kt, ++s) {
         begin_stage(s, more);  // h1 too at W2's first stage
         const float* X = h1 + (32 * wm) * ldh + kt * CKT;
@@ -1707,7 +1732,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
         end_stage();
       }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1722,7 +1747,7 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
     // a sample's terms: the 4 threads of its row (fixed tree), then the WN
     // feature warps in order, plus the bias
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float v = vrow[mt][h];
@@ -1740,16 +1765,19 @@ critic_values_kernel(const float* __restrict__ cri_flat, const float* __restrict
 }
 
 // The critic pass's tile: 128 samples where its layout fits a block, else 64
-// (a first width past 320), else the streamed design's 32 (past 576).
+// (a first width past 320), else the streamed design's 32 (past 576), else
+// its narrower 16 (past 1408).
 constexpr int SMEM_BLOCK = 232448;
 inline int critic_tile(int D1, int D2) {
   for (int ct : {128, 64})
     if ((int)sizeof(float) * CriticLayout(D1, D2, ct, 0).floats <= SMEM_BLOCK) return ct;
-  return CT_STREAM;
+  if ((int)sizeof(float) * CriticLayout(D1, D2, CT_STREAM, 1).floats <= SMEM_BLOCK)
+    return CT_STREAM;
+  return CT_NARROW;
 }
 int critic_smem(int D1, int D2) {
   const int ct = critic_tile(D1, D2);
-  return (int)sizeof(float) * CriticLayout(D1, D2, ct, ct == CT_STREAM).floats;
+  return (int)sizeof(float) * CriticLayout(D1, D2, ct, ct <= CT_STREAM).floats;
 }
 
 // ------------------------------------------------- K4: the stock actor
@@ -1810,15 +1838,17 @@ constexpr int STOCK_STREAM_KS = 2;  // split-K parts at most, streamed stock act
 // steps' worth), then (rows, TE) tiles: the lanes' raw and normalised obs
 // rows, the whole h1, this block's rows of h2, every block's part of the
 // mean, the head's uniforms and normals, the env actions, and the split-K
-// scratch.  With bf (bf16 compute) the weight slices and the tiles xl, h1
-// and h2 hold bf16 values (cm::wrow, cm::vals); with st (the streamed
+// scratch; (rows, G) for the narrower streamed groups of G lanes.  With bf
+// (bf16 compute) the weight slices and the tiles xl, h1 and h2 hold bf16
+// values (cm::wrow, cm::vals); with st (the streamed
 // design) W2's slice is not held (it is read from the stream_weights copy)
 // and the scratch is only as large as the products need.
 struct StockActorLayout {
   int js1, js2, k2, w1l, b1, w2, b2, wo, bo, stdv, xm, msm, pnext, xraw, xl, h1, h2, outp, ubuf,
       zbuf, ea, scratch, floats;
   // OP: the head's output rows rounded to 4 (A, or 2A for the SAC heads)
-  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP, int bf, int st) {
+  __host__ __device__ StockActorLayout(int D1, int D2, int c, int OP, int bf, int st,
+                                        int G = TE) {
     constexpr int L = StockBody::S_LANE, AP = cm::round4(StockBody::A);
     js1 = cm::slice(D1, c);
     js2 = cm::slice(D2, c);
@@ -1834,21 +1864,21 @@ struct StockActorLayout {
     xm = o; o += cm::round4(StockBody::S - L);
     msm = o; o += js1;
     pnext = o; o += 2 * cm::round4(StockBody::NS);
-    xraw = o; o += L * TE;
-    xl = o; o += cm::vals(L * TE, bf);
-    h1 = o; o += cm::vals(k2 * TE, bf);
-    h2 = o; o += cm::vals(js2 * TE, bf);
-    outp = o; o += c * OP * TE;
-    ubuf = o; o += 32 * TE;
-    zbuf = o; o += AP * TE;
-    ea = o; o += AP * TE;
+    xraw = o; o += L * G;
+    xl = o; o += cm::vals(L * G, bf);
+    h1 = o; o += cm::vals(k2 * G, bf);
+    h2 = o; o += cm::vals(js2 * G, bf);
+    outp = o; o += c * OP * G;
+    ubuf = o; o += 32 * G;
+    zbuf = o; o += AP * G;
+    ea = o; o += AP * G;
     // the split-K scratch: cm::SCRATCH, or (st) what the block's three
     // products take in at most STOCK_STREAM_KS parts, which lets the widest
     // nets fit
     scratch = o;
-    o += st * cm::round4(max(max(tile_scratch(L, js1, TE, STOCK_STREAM_KS),
-                                 tile_scratch(k2, js2, TE, STOCK_STREAM_KS)),
-                             tile_scratch(js2, OP, TE, STOCK_STREAM_KS))) +
+    o += st * cm::round4(max(max(tile_scratch(L, js1, G, STOCK_STREAM_KS),
+                                 tile_scratch(k2, js2, G, STOCK_STREAM_KS)),
+                             tile_scratch(js2, OP, G, STOCK_STREAM_KS))) +
          (1 - st) * cm::SCRATCH;
     floats = o;
   }
@@ -1869,7 +1899,7 @@ __host__ __device__ constexpr int stock_out_rows() {
 // heads store their actions as bf16 (the env steps on the f32 action).
 // ST: the streamed design, W2 read from w2g (stream_weights) as in
 // fused_rollout_kernel.
-template <int HEAD, bool BF, bool ST>
+template <int HEAD, bool BF, int ST>
 __global__ void __launch_bounds__(cm::THREADS, 2)
 stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
                    const float* __restrict__ norm_avg, const float* __restrict__ norm_std,
@@ -1893,11 +1923,12 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   constexpr int RB0 = N_HEAD / 4, RB1 = (N_HEAD + N_ENV + 3) / 4;  // the reset's blocks
   static_assert(4 * HB <= 32, "ubuf holds 32 words a lane");
   constexpr int KS = ST ? STOCK_STREAM_KS : cm::THREADS;  // split-K parts at most
+  constexpr int G = narrow_lanes(TE, ST);  // lanes a group: 32, or 16, 8, 4 narrower
 
   cm::cg::cluster_group cluster = cm::cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c;
-  const StockActorLayout Ly(D1, D2, c, OP, BF, ST);
+  const StockActorLayout Ly(D1, D2, c, OP, BF, ST != 0, G);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   using WT = cm::elem_t<BF>;
@@ -1948,10 +1979,10 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
 
   // warp 0 holds the env rows of the group's lanes (every block of the cluster)
   const int e = threadIdx.x;  // the lane of a warp-0 thread
-  const bool w0 = threadIdx.x < TE;
-  const int n = grp * TE + (threadIdx.x & (TE - 1));
+  const bool w0 = threadIdx.x < G;
+  const int n = grp * G + (threadIdx.x & (G - 1));
   const bool live = w0 && n < N;
-  int day = env_i[grp * TE];  // the group's day: its first lane's
+  int day = env_i[grp * G];  // the group's day: its first lane's
   float f[F];
 #pragma unroll
   for (int k = 0; k < F; ++k) f[k] = 0.f;
@@ -1973,7 +2004,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   // warp 0: the lanes' rows the next obs reads (all warps turn them into obs)
   auto lane_rows = [&]() {
 #pragma unroll
-    for (int s = 0; s < L; ++s) xraw[s * TE + e] = f[s];
+    for (int s = 0; s < L; ++s) xraw[s * G + e] = f[s];
   };
   // store obs row r of lane n2 at step t: (H, S, N) on-policy, (H, N, S)
   // off; bf16 under quant (x is rounded already)
@@ -1998,19 +2029,19 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
     for (int k = i0; k < NS; k += nth)
       pnext[(t & 1) * NP + k] = __ldg(body.p.close + (size_t)(d + 1) * NS + k);
     const int mine = (NM - rank + c - 1) / c;
-    for (int i = i0; i < mine * TE; i += nth) {
-      const int r = L + rank + c * (i / TE), n2 = grp * TE + i % TE;
+    for (int i = i0; i < mine * G; i += nth) {
+      const int r = L + rank + c * (i / G), n2 = grp * G + i % G;
       if (n2 < N) put_state(t, r, n2, qobs(body.market(d, r)));
     }
     if (noise == nullptr) {
-      for (int i = i0; i < HB * TE; i += nth) {
-        const int b = i / TE, e2 = i % TE;
+      for (int i = i0; i < HB * G; i += nth) {
+        const int b = i / G, e2 = i % G;
         const uint4 q = philox4x32_10(
-            make_uint4((uint32_t)(grp * TE + e2), (uint32_t)t, (uint32_t)b, 0u), key);
-        ubuf[(4 * b + 0) * TE + e2] = uniform24(q.x);
-        ubuf[(4 * b + 1) * TE + e2] = uniform24(q.y);
-        ubuf[(4 * b + 2) * TE + e2] = uniform24(q.z);
-        ubuf[(4 * b + 3) * TE + e2] = uniform24(q.w);
+            make_uint4((uint32_t)(grp * G + e2), (uint32_t)t, (uint32_t)b, 0u), key);
+        ubuf[(4 * b + 0) * G + e2] = uniform24(q.x);
+        ubuf[(4 * b + 1) * G + e2] = uniform24(q.y);
+        ubuf[(4 * b + 2) * G + e2] = uniform24(q.z);
+        ubuf[(4 * b + 3) * G + e2] = uniform24(q.w);
       }
     }
   };
@@ -2043,50 +2074,50 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
     }
     // the lanes' obs rows (stored by rank 0) and the head's normals:
     // injected, or Box-Muller on the Philox uniforms
-    for (int i = threadIdx.x; i < (L + A) * TE; i += cm::THREADS) {
-      const int e2 = i % TE, n2 = grp * TE + e2;
-      if (i < L * TE) {
-        const int s2 = i / TE;
+    for (int i = threadIdx.x; i < (L + A) * G; i += cm::THREADS) {
+      const int e2 = i % G, n2 = grp * G + e2;
+      if (i < L * G) {
+        const int s2 = i / G;
         const float x = qobs(StockBody::obs_row(s2, xraw[i]));
         cm::st1(xl + i, n2 < N ? normalise(s2, x) : 0.f);
         if (rank == 0 && n2 < N) put_state(t, s2, n2, x);
       } else {
-        const int a = i / TE - L;
+        const int a = i / G - L;
         float z = 0.f;
         if (noise != nullptr) {
           if (n2 < N) z = noise[((size_t)t * NZ + a) * N + n2];
         } else {
-          z = sqrtf(-2.0f * logf(1.0f - ubuf[a * TE + e2])) *
-              cosf(TWO_PI_F * ubuf[(A + a) * TE + e2]);
+          z = sqrtf(-2.0f * logf(1.0f - ubuf[a * G + e2])) *
+              cosf(TWO_PI_F * ubuf[(A + a) * G + e2]);
         }
-        zbuf[a * TE + e2] = z;
+        zbuf[a * G + e2] = z;
       }
     }
     __syncthreads();
-    cm::tile_dense<TE>(w1l, ld1, xl, L, js1, scratch, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w1l, ld1, xl, L, js1, scratch, [&](int j, int m0, float4 v) {
       const float mj = msm[j], b = b1s[j];
-      cm::store_cluster(cluster, c, h1, (j1 + j) * TE + m0,
+      cm::store_cluster(cluster, c, h1, (j1 + j) * G + m0,
                         make_float4(gelu_tanh((mj + v.x) + b), gelu_tanh((mj + v.y) + b),
                                     gelu_tanh((mj + v.z) + b), gelu_tanh((mj + v.w) + b)));
     }, KS);
     cluster.sync();  // every block's rows of h1, in every block
-    cm::tile_dense<TE>(w2s, ld2, h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
+    cm::tile_dense<G>(w2s, ld2, h1, Ly.k2, js2, scratch, [&](int j, int m0, float4 v) {
       const float b = b2s[j];
-      cm::st4(h2 + j * TE + m0,
+      cm::st4(h2 + j * G + m0,
               HEAD == HEAD_MODSAC  // ModSAC's heads read the raw trunk
                   ? make_float4(v.x + b, v.y + b, v.z + b, v.w + b)
                   : make_float4(gelu_tanh(v.x + b), gelu_tanh(v.y + b), gelu_tanh(v.z + b),
                                 gelu_tanh(v.w + b)));
     }, KS);
     __syncthreads();
-    cm::tile_dense<TE>(wos, ldo, h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
-      cm::store_cluster(cluster, c, outp, (rank * OP + j) * TE + m0, v);
+    cm::tile_dense<G>(wos, ldo, h2, js2, OP, scratch, [&](int j, int m0, float4 v) {
+      cm::store_cluster(cluster, c, outp, (rank * OP + j) * G + m0, v);
     }, KS);
     cluster.sync();  // every block's part of the head rows, in every block
-    for (int i = threadIdx.x; i < A * TE; i += cm::THREADS) {
-      const int a = i / TE, n2 = grp * TE + i % TE;
+    for (int i = threadIdx.x; i < A * G; i += cm::THREADS) {
+      const int a = i / G, n2 = grp * G + i % G;
       float v = outp[i];
-      for (int q = 1; q < c; ++q) v += outp[q * OP * TE + i];
+      for (int q = 1; q < c; ++q) v += outp[q * OP * G + i];
       if constexpr (ON) {
         const float action = (v + bos[a]) + stdv[a] * zbuf[i];
         ea[i] = tanhf(action);
@@ -2094,8 +2125,8 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       } else {
         float act;
         if constexpr (sac_head(HEAD)) {
-          float ls = outp[i + A * TE];
-          for (int q = 1; q < c; ++q) ls += outp[q * OP * TE + i + A * TE];
+          float ls = outp[i + A * G];
+          for (int q = 1; q < c; ++q) ls += outp[q * OP * G + i + A * G];
           const float log_std = clampf(ls + bos[A + a], std_lo, std_hi);
           act = tanhf((v + bos[a]) + expf(log_std) * zbuf[i]);
         } else {
@@ -2116,9 +2147,9 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
         float env_a[A], logp = -log_std_sum;
 #pragma unroll
         for (int a = 0; a < A; ++a) {
-          const float z = zbuf[a * TE + e];
+          const float z = zbuf[a * G + e];
           if (ON) logp += -0.5f * z * z - LOG_SQRT_2PI;
-          env_a[a] = ea[a * TE + e];
+          env_a[a] = ea[a * G + e];
         }
         float reward;
         bool terminal, trunc;
@@ -2155,7 +2186,7 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
       }
       lane_rows();
     }
-    if (t + 1 < H) prepare(t + 1, day, TE);  // the other warps, meanwhile
+    if (t + 1 < H) prepare(t + 1, day, 32);  // the other warps, meanwhile
   }
   if (live && rank == 0) {
 #pragma unroll
@@ -2164,9 +2195,11 @@ stock_actor_kernel(const StockBody body, const float* __restrict__ act_flat,
   }
 }
 
-template <int HEAD, bool BF, bool ST>
+template <int HEAD, bool BF, int ST>
 int stock_actor_smem(int D1, int D2, int c) {
-  return (int)sizeof(float) * StockActorLayout(D1, D2, c, stock_out_rows<HEAD>(), BF, ST).floats;
+  return (int)sizeof(float) *
+         StockActorLayout(D1, D2, c, stock_out_rows<HEAD>(), BF, ST != 0, narrow_lanes(TE, ST))
+             .floats;
 }
 
 }  // namespace
@@ -2177,38 +2210,82 @@ int stock_actor_smem(int D1, int D2, int c) {
 #define ELEGANTRL_BODIES(X) X(0, PendulumBody) X(1, CartPoleBody) X(2, HopperBody) \
   X(3, ChasingBody) X(4, ChasingDiscreteBody)
 
-// `variant` of the size and cluster queries below: bit 0 bf16 compute, bit 1
-// the streamed design (STREAMED of ops/fused_rollout.py).  FN<BF, ST>(args)
-// for the variant.
+// `variant` of the size, cluster and launch entries below: bit 0 bf16
+// compute, bits 1 and up the design ST (0 resident, 1 streamed, 2 and up its
+// narrower lane groups; STREAMED of ops/fused_rollout.py is ST 1).
+// FN<BF, ST>(args) for the variant; -2 for a variant this library does not
+// build: the resident and streamed designs build into onpolicy_rollout.cu
+// and offpolicy_rollout.cu, the narrower groups (ST 2 and 3; the stock actor
+// also ST 4, ELEGANTRL_STOCK_VARIANT) into onpolicy_narrow.cu and
+// offpolicy_narrow.cu (ELEGANTRL_NARROW), four nvcc runs side by side.
+#if defined(ELEGANTRL_NARROW)
 #define ELEGANTRL_VARIANT(variant, FN, ...)                                          \
-  ((variant) == 0   ? FN<false, false>(__VA_ARGS__)                                  \
-   : (variant) == 1 ? FN<true, false>(__VA_ARGS__)                                   \
-   : (variant) == 2 ? FN<false, true>(__VA_ARGS__)                                   \
-                    : FN<true, true>(__VA_ARGS__))
+  ((variant) == 4   ? FN<false, 2>(__VA_ARGS__)                                      \
+   : (variant) == 5 ? FN<true, 2>(__VA_ARGS__)                                       \
+   : (variant) == 6 ? FN<false, 3>(__VA_ARGS__)                                      \
+   : (variant) == 7 ? FN<true, 3>(__VA_ARGS__)                                       \
+                    : -2)
+#define ELEGANTRL_STOCK_VARIANT(variant, FN, ...)                                    \
+  ((variant) == 8   ? FN<false, 4>(__VA_ARGS__)                                      \
+   : (variant) == 9 ? FN<true, 4>(__VA_ARGS__)                                       \
+                    : ELEGANTRL_VARIANT(variant, FN, __VA_ARGS__))
+#else
+#define ELEGANTRL_VARIANT(variant, FN, ...)                                          \
+  ((variant) == 0   ? FN<false, 0>(__VA_ARGS__)                                      \
+   : (variant) == 1 ? FN<true, 0>(__VA_ARGS__)                                       \
+   : (variant) == 2 ? FN<false, 1>(__VA_ARGS__)                                      \
+   : (variant) == 3 ? FN<true, 1>(__VA_ARGS__)                                       \
+                    : -2)
+#define ELEGANTRL_STOCK_VARIANT ELEGANTRL_VARIANT
+#endif
 
 template <class Body>
 struct OnPolicy {
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int smem(int D1, int D2, int c) { return rollout_smem<Body, BF, ST>(D1, D2, c); }
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int cluster(int N, int D1, int D2, int k) {
     return rollout_cluster<Body, BF, ST>(N, D1, D2, k);
+  }
+  template <bool BF, int ST>
+  static int go(const void* act_flat, const void* cri_flat, const void* norm_avg,
+                const void* norm_std, const void* env_f, const void* env_i, const void* noise,
+                const void* seed, void* states, void* actions, void* logp, void* rew,
+                void* term, void* trunc, void* val, void* env_f_o, void* env_i_o, int N, int H,
+                int D1, int D2, float reward_scale, int cluster, int quant, const void* w2,
+                cudaStream_t stream) {
+    return launch<Body, BF, ST>(act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise,
+                                seed, states, actions, logp, rew, term, trunc, val, env_f_o,
+                                env_i_o, N, H, D1, D2, reward_scale, cluster, quant, w2, stream);
   }
 };
 template <class Body, int HEAD>
 struct OffPolicy {
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int smem(int D1, int D2, int c) { return offpolicy_smem<Body, HEAD, BF, ST>(D1, D2, c); }
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int cluster(int N, int D1, int D2, int k) {
     return offpolicy_cluster<Body, HEAD, BF, ST>(N, D1, D2, k);
   }
+  template <bool BF, int ST>
+  static int go(const void* flat, const void* env_f, const void* env_i, const void* noise,
+                const void* seed, void* states, void* actions, void* rew, void* term,
+                void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
+                float reward_scale, float noise_std, float explore_rate, float std_lo,
+                float std_hi, int cluster, int quant, const void* w2, cudaStream_t stream) {
+    return launch_offpolicy<Body, HEAD, BF, ST>(flat, env_f, env_i, noise, seed, states, actions,
+                                                rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2,
+                                                reward_scale, noise_std, explore_rate, std_lo,
+                                                std_hi, cluster, quant, w2, stream);
+  }
 };
 
-// The port builds this file as two libraries whose nvcc runs go side by
-// side: onpolicy_rollout.cu (K1/K3, K4's on-policy actor and the critic
-// pass) and offpolicy_rollout.cu (K6/K6' and K4 under the off-policy
-// heads), each defining one of these; built alone, the file holds both.
+// The port builds this file as libraries whose nvcc runs go side by side:
+// onpolicy_rollout.cu (K1/K3, K4's on-policy actor and the critic pass) and
+// offpolicy_rollout.cu (K6/K6' and K4 under the off-policy heads), each
+// defining one of these, and their narrower groups (onpolicy_narrow.cu,
+// offpolicy_narrow.cu, with ELEGANTRL_NARROW too); built alone, the file
+// holds both halves' resident and streamed designs.
 #if !defined(ELEGANTRL_OFFPOLICY_ONLY)
 // Dynamic shared memory of one block of the rollout kernel for clusters of
 // c blocks (RolloutLayout) in the variant; -1 for an unknown body.
@@ -2232,25 +2309,26 @@ extern "C" int fused_rollout_cluster(int body, int N, int D1, int D2, int cluste
   return -1;
 }
 
-// bf: bf16 compute; quant: the obs rounded to bf16 before acting and the
-// states stored as bf16; w2: null for the resident design, else the
-// streamed design on this stream_weights copy of both nets' W2 (f32, or
-// bf16 under bf).  Returns the CUDA error of the launch, or -1 for an
-// unknown body.
+// variant: bf16 compute and the design, as above; quant: the obs rounded to
+// bf16 before acting and the states stored as bf16; w2: null for the
+// resident design, else the streamed designs' stream_weights copy of both
+// nets' W2 (f32, or bf16 under bf16 compute).  Returns the CUDA error of the
+// launch, -1 for an unknown body, -2 for a variant this library lacks.
 extern "C" int fused_rollout(
     int body, const void* act_flat, const void* cri_flat, const void* norm_avg,
     const void* norm_std, const void* env_f, const void* env_i,
     const void* noise, const void* seed, void* states, void* actions,
     void* logp, void* rew, void* term, void* trunc, void* val, void* env_f_o,
     void* env_i_o, int N, int H, int D1, int D2, float reward_scale, int cluster,
-    int bf, int quant, const void* w2, void* stream) {
+    int variant, int quant, const void* w2, void* stream) {
+  if ((variant >> 1 != 0) != (w2 != nullptr)) return (int)cudaErrorInvalidValue;
 #define ELEGANTRL_LAUNCH(ID, BODY)                                                       \
   if (body == ID)                                                                        \
-    return (w2 ? (bf ? launch<BODY, true, true> : launch<BODY, false, true>)             \
-               : (bf ? launch<BODY, true, false> : launch<BODY, false, false>))(         \
-        act_flat, cri_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,       \
-        actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N, H, D1, D2,            \
-        reward_scale, cluster, quant, w2, (cudaStream_t)stream);
+    return ELEGANTRL_VARIANT(variant, OnPolicy<BODY>::template go, act_flat, cri_flat,   \
+                             norm_avg, norm_std, env_f, env_i, noise, seed, states,      \
+                             actions, logp, rew, term, trunc, val, env_f_o, env_i_o, N,  \
+                             H, D1, D2, reward_scale, cluster, quant, w2,                \
+                             (cudaStream_t)stream);
   ELEGANTRL_BODIES(ELEGANTRL_LAUNCH)
 #undef ELEGANTRL_LAUNCH
   return -1;
@@ -2274,19 +2352,39 @@ extern "C" int fused_rollout(
 #define ELEGANTRL_STOCK_HEADS(X) X(HEAD_DDPG) X(HEAD_SAC) X(HEAD_MODSAC)
 
 // The stock actor kernel's cluster size for N lanes (pick_cluster).
-template <int HEAD, bool BF, bool ST>
+template <int HEAD, bool BF, int ST>
 int stock_cluster(int N, int D1, int D2, int cluster) {
+  constexpr int G = narrow_lanes(TE, ST);
   return pick_cluster<stock_actor_kernel<HEAD, BF, ST>>(
-      (N + TE - 1) / TE, cluster,
+      (N + G - 1) / G, cluster,
       [=](int c) { return stock_actor_smem<HEAD, BF, ST>(D1, D2, c); }, false);
 }
+template <int HEAD, bool BF, int ST>
+int launch_stock(const StockBody& body, const void* act_flat, const void* norm_avg,
+                 const void* norm_std, const void* env_f, const void* env_i, const void* noise,
+                 const void* seed, void* states, void* actions, void* logp, void* rew,
+                 void* term, void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1,
+                 int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
+                 int cluster, int quant, const void* w2, cudaStream_t stream);
 template <int HEAD>
 struct StockHead {
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int smem(int D1, int D2, int c) { return stock_actor_smem<HEAD, BF, ST>(D1, D2, c); }
-  template <bool BF, bool ST>
+  template <bool BF, int ST>
   static int cluster(int N, int D1, int D2, int k) {
     return stock_cluster<HEAD, BF, ST>(N, D1, D2, k);
+  }
+  template <bool BF, int ST>
+  static int go(const StockBody& body, const void* act_flat, const void* norm_avg,
+                const void* norm_std, const void* env_f, const void* env_i, const void* noise,
+                const void* seed, void* states, void* actions, void* logp, void* rew,
+                void* term, void* trunc, void* env_f_o, void* env_i_o, int N, int H, int D1,
+                int D2, float reward_scale, float noise_std, float std_lo, float std_hi,
+                int cluster, int quant, const void* w2, cudaStream_t stream) {
+    return launch_stock<HEAD, BF, ST>(body, act_flat, norm_avg, norm_std, env_f, env_i, noise,
+                                      seed, states, actions, logp, rew, term, trunc, env_f_o,
+                                      env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo,
+                                      std_hi, cluster, quant, w2, stream);
   }
 };
 
@@ -2305,7 +2403,7 @@ extern "C" int offpolicy_rollout_smem_bytes(int body, int head, int D1, int D2, 
 #undef ELEGANTRL_SMEM
 #define ELEGANTRL_SMEM(HEAD)                                                      \
   if (body == 5 && head == HEAD)                                                  \
-    return ELEGANTRL_VARIANT(variant, StockHead<HEAD>::template smem, D1, D2, c);
+    return ELEGANTRL_STOCK_VARIANT(variant, StockHead<HEAD>::template smem, D1, D2, c);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_SMEM)
 #undef ELEGANTRL_SMEM
   return -1;
@@ -2325,7 +2423,8 @@ extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int 
 #undef ELEGANTRL_CLUSTER
 #define ELEGANTRL_CLUSTER(HEAD)    \
   if (body == 5 && head == HEAD)   \
-    return ELEGANTRL_VARIANT(variant, StockHead<HEAD>::template cluster, N, D1, D2, cluster);
+    return ELEGANTRL_STOCK_VARIANT(variant, StockHead<HEAD>::template cluster, N, D1, D2, \
+                                   cluster);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_CLUSTER)
 #undef ELEGANTRL_CLUSTER
   return -1;
@@ -2333,25 +2432,25 @@ extern "C" int offpolicy_rollout_cluster(int body, int head, int N, int D1, int 
 
 // The off-policy exploration rollout for the fifteen pairs above.  std_lo
 // and std_hi clip the SAC heads' log_std; `cluster` as for
-// offpolicy_rollout_cluster; bf, quant and w2 (one net's W2) as for
-// fused_rollout.  Returns the CUDA error of the launch, or -1 for a pair it
-// does not have.
+// offpolicy_rollout_cluster; variant, quant and w2 (one net's W2) as for
+// fused_rollout.  Returns the CUDA error of the launch, -1 for a pair it
+// does not have, -2 for a variant this library lacks.
 extern "C" int offpolicy_rollout(int body, int head, const void* flat, const void* env_f,
                                  const void* env_i, const void* noise, const void* seed,
                                  void* states, void* actions, void* rew, void* term,
                                  void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                  int D1, int D2, float reward_scale, float noise_std,
                                  float explore_rate, float std_lo, float std_hi, int cluster,
-                                 int bf, int quant, const void* w2, void* stream) {
+                                 int variant, int quant, const void* w2, void* stream) {
+  if ((variant >> 1 != 0) != (w2 != nullptr)) return (int)cudaErrorInvalidValue;
 #define ELEGANTRL_OFF(ID, BODY, HEAD)                                                       \
-  if (body == ID && head == HEAD)                                                           \
-    return (w2 ? (bf ? launch_offpolicy<BODY, HEAD, true, true>                             \
-                     : launch_offpolicy<BODY, HEAD, false, true>)                           \
-               : (bf ? launch_offpolicy<BODY, HEAD, true, false>                            \
-                     : launch_offpolicy<BODY, HEAD, false, false>))(                        \
-        flat, env_f, env_i, noise, seed, states, actions, rew, term, trunc, env_f_o,        \
-        env_i_o, N, H, D1, D2, reward_scale, noise_std, explore_rate, std_lo, std_hi,       \
-        cluster, quant, w2, (cudaStream_t)stream);
+  if (body == ID && head == HEAD) {                                                         \
+    using P = OffPolicy<BODY, HEAD>;                                                        \
+    return ELEGANTRL_VARIANT(variant, P::template go, flat, env_f, env_i, noise, seed,      \
+                             states, actions, rew, term, trunc, env_f_o, env_i_o, N, H, D1, \
+                             D2, reward_scale, noise_std, explore_rate, std_lo, std_hi,     \
+                             cluster, quant, w2, (cudaStream_t)stream);                     \
+  }
   ELEGANTRL_OFF_PAIRS(ELEGANTRL_OFF)
 #undef ELEGANTRL_OFF
   return -1;
@@ -2360,7 +2459,7 @@ extern "C" int offpolicy_rollout(int body, int head, const void* flat, const voi
 
 // Launches stock_actor_kernel<HEAD, BF, ST> on the cluster size stock_cluster
 // picks.
-template <int HEAD, bool BF, bool ST>
+template <int HEAD, bool BF, int ST>
 int launch_stock(const StockBody& body, const void* act_flat, const void* norm_avg,
                  const void* norm_std, const void* env_f, const void* env_i, const void* noise,
                  const void* seed, void* states, void* actions, void* logp, void* rew,
@@ -2376,7 +2475,8 @@ int launch_stock(const StockBody& body, const void* act_flat, const void* norm_a
   const int smem = stock_actor_smem<HEAD, BF, ST>(D1, D2, c);
   const cudaError_t err = allow_smem<stock_actor_kernel<HEAD, BF, ST>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int groups = (N + TE - 1) / TE;
+  constexpr int G = narrow_lanes(TE, ST);
+  const int groups = (N + G - 1) / G;
   return (int)cm::launch_clusters(
       stock_actor_kernel<HEAD, BF, ST>, groups * c, c, smem, stream, body,
       (const float*)act_flat, (const float*)norm_avg, (const float*)norm_std,
@@ -2385,20 +2485,21 @@ int launch_stock(const StockBody& body, const void* act_flat, const void* norm_a
       (int*)env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo, std_hi, quant,
       (const cm::elem_t<BF>*)w2);
 }
-// launch_stock in the design w2 asks for (null: resident) and compute type
+// launch_stock in the variant (compute type and design; w2 null exactly
+// for the resident design)
 template <int HEAD>
-int launch_stock_any(int bf, const void* w2, const StockBody& body, const void* act_flat,
+int launch_stock_any(int variant, const void* w2, const StockBody& body, const void* act_flat,
                      const void* norm_avg, const void* norm_std, const void* env_f,
                      const void* env_i, const void* noise, const void* seed, void* states,
                      void* actions, void* logp, void* rew, void* term, void* trunc,
                      void* env_f_o, void* env_i_o, int N, int H, int D1, int D2,
                      float reward_scale, float noise_std, float std_lo, float std_hi,
                      int cluster, int quant, cudaStream_t stream) {
-  return (w2 ? (bf ? launch_stock<HEAD, true, true> : launch_stock<HEAD, false, true>)
-             : (bf ? launch_stock<HEAD, true, false> : launch_stock<HEAD, false, false>))(
-      body, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states, actions, logp,
-      rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, noise_std, std_lo,
-      std_hi, cluster, quant, w2, stream);
+  if ((variant >> 1 != 0) != (w2 != nullptr)) return (int)cudaErrorInvalidValue;
+  return ELEGANTRL_STOCK_VARIANT(variant, StockHead<HEAD>::template go, body, act_flat, norm_avg,
+                                 norm_std, env_f, env_i, noise, seed, states, actions, logp,
+                                 rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale,
+                                 noise_std, std_lo, std_hi, cluster, quant, w2, stream);
 }
 
 #if !defined(ELEGANTRL_OFFPOLICY_ONLY)
@@ -2407,11 +2508,12 @@ int launch_stock_any(int bf, const void* w2, const StockBody& body, const void* 
 // clusters of c blocks, and the cluster size for N lanes (stock_cluster), in
 // the variant; bf, quant and w2 (the actor's W2) as for fused_rollout.
 extern "C" int stock_rollout_smem_bytes(int D1, int D2, int c, int variant) {
-  return ELEGANTRL_VARIANT(variant, StockHead<HEAD_PPO>::template smem, D1, D2, c);
+  return ELEGANTRL_STOCK_VARIANT(variant, StockHead<HEAD_PPO>::template smem, D1, D2, c);
 }
 
 extern "C" int stock_rollout_cluster(int N, int D1, int D2, int cluster, int variant) {
-  return ELEGANTRL_VARIANT(variant, StockHead<HEAD_PPO>::template cluster, N, D1, D2, cluster);
+  return ELEGANTRL_STOCK_VARIANT(variant, StockHead<HEAD_PPO>::template cluster, N, D1, D2,
+                                 cluster);
 }
 
 extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const void* norm_std,
@@ -2419,10 +2521,10 @@ extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const v
                              const void* seed, void* states, void* actions, void* logp,
                              void* rew, void* term, void* trunc, void* env_f_o, void* env_i_o,
                              int N, int H, int D1, int D2, float reward_scale, int cluster,
-                             int bf, int quant, const StockArgs* args, const void* w2,
+                             int variant, int quant, const StockArgs* args, const void* w2,
                              void* stream) {
   return launch_stock_any<HEAD_PPO>(
-      bf, w2, StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,
+      variant, w2, StockBody{*args}, act_flat, norm_avg, norm_std, env_f, env_i, noise, seed, states,
       actions, logp, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale, 0.f, 0.f,
       0.f, cluster, quant, (cudaStream_t)stream);
 }
@@ -2430,21 +2532,21 @@ extern "C" int stock_rollout(const void* act_flat, const void* norm_avg, const v
 
 #if !defined(ELEGANTRL_ONPOLICY_ONLY)
 // The off-policy exploration rollout on StockBody: the ddpg, sac and modsac
-// heads (stock_actor_kernel<HEAD, BF, ST>; no normalisation, no logprob); bf,
-// quant and w2 as for fused_rollout.  Returns the CUDA error of the launch,
+// heads (stock_actor_kernel<HEAD, BF, ST>; no normalisation, no logprob);
+// variant, quant and w2 as for fused_rollout.  Returns the CUDA error of the launch,
 // or -1 for another head.
 extern "C" int offpolicy_stock_rollout(int head, const void* flat, const void* env_f,
                                        const void* env_i, const void* noise, const void* seed,
                                        void* states, void* actions, void* rew, void* term,
                                        void* trunc, void* env_f_o, void* env_i_o, int N, int H,
                                        int D1, int D2, float reward_scale, float noise_std,
-                                       float std_lo, float std_hi, int cluster, int bf,
-                                       int quant, const StockArgs* args, const void* w2,
-                                       void* stream) {
+                                       float std_lo, float std_hi, int cluster,
+                                       int variant, int quant, const StockArgs* args,
+                                       const void* w2, void* stream) {
 #define ELEGANTRL_STOCK(HEAD)                                                                  \
   if (head == HEAD)                                                                            \
     return launch_stock_any<HEAD>(                                                             \
-        bf, w2, StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, seed, states,   \
+        variant, w2, StockBody{*args}, flat, nullptr, nullptr, env_f, env_i, noise, seed, states,   \
         actions, nullptr, rew, term, trunc, env_f_o, env_i_o, N, H, D1, D2, reward_scale,      \
         noise_std, std_lo, std_hi, cluster, quant, (cudaStream_t)stream);
   ELEGANTRL_STOCK_HEADS(ELEGANTRL_STOCK)
@@ -2510,9 +2612,15 @@ extern "C" int critic_values(const void* cri_flat, const void* norm_avg, const v
                              int bf, int sbf, void* stream) {
   if ((long long)H * N == 0) return 0;
   const int ct = critic_tile(D1, D2);
+#if defined(ELEGANTRL_NARROW)
+  if (ct != CT_NARROW) return -2;  // onpolicy_rollout.cu's tiles
+  auto go = bf ? launch_critic<CT_NARROW, true> : launch_critic<CT_NARROW, false>;
+#else
+  if (ct == CT_NARROW) return -2;  // onpolicy_narrow.cu's tile
   auto go = ct == CT_STREAM ? (bf ? launch_critic<CT_STREAM, true> : launch_critic<CT_STREAM, false>)
             : ct == 64      ? (bf ? launch_critic<64, true> : launch_critic<64, false>)
                             : (bf ? launch_critic<128, true> : launch_critic<128, false>);
+#endif
   return go(cri_flat, norm_avg, norm_std, states, val, N, H, D1, D2, sbf, (cudaStream_t)stream);
 }
 #endif

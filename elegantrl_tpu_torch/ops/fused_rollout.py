@@ -96,6 +96,19 @@ _TE = 32
 STREAM_LANES = 16   # env lanes of a group of the streamed K1/K3 (csrc/fused_rollout.cu)
 STREAMED = 2        # the streamed design's bit of the library's size and cluster queries
 _STOCK_STREAM_KS = 2   # split-K parts at most in the streamed stock actor (STOCK_STREAM_KS)
+# The designs of a kernel (``ST`` of csrc/fused_rollout.cu, a variant's bits 1
+# and up): 0 resident, 1 streamed, and each level past 1 halves the streamed
+# lane group, down to 4 lanes (``cm::tile_dense``'s 4 x 4 register tiles make
+# a tile row of fewer lanes as large as one of 4).  The last level of each:
+ROLLOUT_LEVELS = 3   # K1/K3: 32 lanes resident, 16, 8, 4 streamed
+OFF_LEVELS = 3       # K6/K6': 16 resident, 16, 8, 4 streamed
+STOCK_LEVELS = 4     # K4's actor: 32 resident, 32, 16, 8, 4 streamed
+
+
+def narrow_lanes(lanes: int, level: int) -> int:
+    """The lanes of a group at design ``level`` whose streamed design has
+    ``lanes`` at its widest (``narrow_lanes`` of the source)."""
+    return lanes >> (level - 1) if level > 1 else lanes
 
 
 class KernelEnvBody(NamedTuple):
@@ -693,7 +706,7 @@ def wrow(k: int, bf16: bool) -> int:
 
 
 def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: int,
-                       bf16: bool = False, streamed: bool = False) -> int:
+                       bf16: bool = False, streamed: int = 0) -> int:
     """Shared memory of one block of the rollout kernel (K1, K3) for clusters
     of ``cluster`` blocks over a group of ``_TE`` lanes: the block's slices
     of both nets' weights row by row (a row of K inputs takes
@@ -705,14 +718,15 @@ def rollout_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], cluster: in
     parts: :func:`tile_scratch`).  With ``bf16`` the weight slices and the
     tiles xn, h1 and h2 hold bf16 values, and where the layout with layer 2's
     split-K scratch would not fit a block layer 2 runs unsplit.  With
-    ``streamed`` (the streamed design) the W2 slices are not held and a
-    group has ``STREAM_LANES`` lanes.
+    ``streamed`` (the design level: 1 the streamed design, 2 and 3 its
+    narrower groups) the W2 slices are not held and a group has
+    ``STREAM_LANES`` lanes, 8 or 4.
     ``csrc/fused_rollout.cu`` owns the layout (``RolloutLayout``,
     ``fused_rollout_smem_bytes``); this copy judges eligibility where the
     library is not built (the CPU)."""
     D1, D2 = (int(d) for d in net_dims)
     S, A, c, bf = body.state_dim, body.action_dim, int(cluster), bool(bf16)
-    G, st = (STREAM_LANES, 1) if streamed else (_TE, 0)
+    G, st = (narrow_lanes(STREAM_LANES, int(streamed)), 1) if streamed else (_TE, 0)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     s4, ap = r4(S), r4(A)
@@ -748,7 +762,7 @@ def tile_scratch(k: int, j: int, lanes: int = _TE, ks_max: int = 256,
 
 def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
                      cluster: int = 1, head: Optional[str] = None, bf16: bool = False,
-                     streamed: bool = False) -> int:
+                     streamed: int = 0) -> int:
     """Shared memory of one block of the stock actor kernel (K4: the
     on-policy route, ``stock_rollout_smem_bytes``, ``head`` None; the
     off-policy heads, ``offpolicy_rollout_smem_bytes``) for clusters of
@@ -760,12 +774,15 @@ def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
     then the lane tiles (every block's part of the head rows among them) and
     the split-K scratch (``cm::SCRATCH``, or in the streamed design what its
     products take in at most ``_STOCK_STREAM_KS`` parts).  With ``bf16`` the weight slices and the tiles of
-    the lanes' normalised rows, h1 and h2 hold bf16 values.
+    the lanes' normalised rows, h1 and h2 hold bf16 values.  ``streamed``
+    is the design level: 1 the streamed design, 2 to 4 its narrower groups
+    of 16, 8 and 4 lanes.
     ``csrc/fused_rollout.cu`` owns the layout (``StockActorLayout``); the
     critic runs afterwards in :func:`critic_values`.  The wrapper needs one
     cluster size's layout to fit."""
     D1, D2 = net_dims
     S, A, c, bf, st = state_dim, action_dim, cluster, bool(bf16), int(bool(streamed))
+    G = narrow_lanes(_TE, int(streamed))
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     half = lambda n: n // 2 if bf else n  # noqa: E731
     L, ap = 1 + A, r4(A)
@@ -773,20 +790,20 @@ def actor_smem_bytes(state_dim: int, net_dims: Sequence[int], action_dim: int,
     js1, js2 = r4(-(-D1 // c)), r4(-(-D2 // c))
     k2 = c * js1
     ks = _STOCK_STREAM_KS
-    scratch = (r4(max(tile_scratch(L, js1, _TE, ks), tile_scratch(k2, js2, _TE, ks),
-                      tile_scratch(js2, op, _TE, ks))) if st else 256 * 16)
+    scratch = (r4(max(tile_scratch(L, js1, G, ks), tile_scratch(k2, js2, G, ks),
+                      tile_scratch(js2, op, G, ks))) if st else 256 * 16)
     floats = (js1 * wrow(L, bf) + js1 + (1 - st) * js2 * wrow(k2, bf) + js2 + op * wrow(js2, bf)
-              + op + ap + r4(S - L) + js1 + 2 * r4(A) + half((L + k2 + js2) * _TE)
-              + (L + c * op + 32 + 2 * ap) * _TE + scratch)
+              + op + ap + r4(S - L) + js1 + 2 * r4(A) + half((L + k2 + js2) * G)
+              + (L + c * op + 32 + 2 * ap) * G + scratch)
     return 4 * floats
 
 
 # the critic pass's tiles: samples (128, or 64 where that layout does not
-# fit, or the streamed design's 32), the features of a product's chunk, W2's
-# K-tile (csrc/fused_rollout.cu: critic_tile, CNC, CKT), and the row strides
-# of the lane rows (CLD) and of a K-tile (CKLD)
+# fit, or the streamed design's 32, or its narrower 16), the features of a
+# product's chunk, W2's K-tile (csrc/fused_rollout.cu: critic_tile, CNC,
+# CKT), and the row strides of the lane rows (CLD) and of a K-tile (CKLD)
 _CTS, _CNC, _CKT = (128, 64), 64, 32
-_CT_STREAM = 32
+_CT_STREAM, _CT_NARROW = 32, 16
 _CLD, _CKLD = 1 + STOCK_KERNEL_STOCKS + 4, _CKT + 4
 _STOCK_S = 1 + 10 * STOCK_KERNEL_STOCKS   # the stock body's obs rows
 
@@ -794,11 +811,11 @@ _STOCK_S = 1 + 10 * STOCK_KERNEL_STOCKS   # the stock body's obs rows
 def critic_tile(net_dims: Sequence[int]) -> int:
     """The critic pass's samples a tile (``critic_tile`` of the source): 128
     where that resident layout fits a block, else 64, else the streamed
-    design's 32 (``_CT_STREAM``)."""
-    for ct in _CTS:
+    design's 32 (``_CT_STREAM``), else its narrower 16 (``_CT_NARROW``)."""
+    for ct in _CTS + (_CT_STREAM,):
         if critic_smem_bytes(net_dims, ct) <= SMEM_LIMIT:
             return ct
-    return _CT_STREAM
+    return _CT_NARROW
 
 
 def critic_smem_bytes(net_dims: Sequence[int], tile: Optional[int] = None) -> int:
@@ -811,12 +828,12 @@ def critic_smem_bytes(net_dims: Sequence[int], tile: Optional[int] = None) -> in
     two-stage ring, the tile's lane rows, the groups' market rows and
     products, h1 and the value partials.  W2 streams through the ring, so
     only h1 grows with both widths: the widest ``D1`` is 320 at 128
-    samples, 576 at 64, 1408 in the streamed design."""
+    samples, 576 at 64, 1408 in the streamed design, 2624 at 16."""
     if tile is None:
         tile = critic_tile(net_dims)
-    st = int(tile == _CT_STREAM)
+    st = int(tile <= _CT_STREAM)
     d1p, d2p = (-(-int(d) // 64) * 64 for d in net_dims)
-    nm, nq = _STOCK_S - (1 + STOCK_KERNEL_STOCKS), tile // _TE
+    nm, nq = _STOCK_S - (1 + STOCK_KERNEL_STOCKS), max(tile // _TE, 1)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
     floats = ((1 - st) * d1p * _CLD + d1p + 2 * d2p + 2 * _CNC * _CKLD + tile * _CLD
               + r4(nq * nm) + nq * d1p + tile * (d1p + 4) + 8 * _TE)
@@ -828,15 +845,20 @@ _WIDEST = {}   # the searches' answers, per their key
 
 def _widest(fits, key=None) -> int:
     """The widest square width (a multiple of 4) at which ``fits((d, d))``
-    holds, searching up from 4 (0 where none does); kept per ``key``."""
+    holds (0 where it does not at 4): doubling from 4 to a width that does
+    not fit, then bisecting, as a block's shared memory only grows with the
+    widths; kept per ``key``."""
     if key in _WIDEST:
         return _WIDEST[key]
-    d = 0
-    while fits((d + 4, d + 4)):
-        d += 4
+    lo, hi = 0, 4          # fits at lo (or lo is 0), not known at hi
+    while fits((hi, hi)):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 4:     # fits at lo, not at hi
+        mid = (lo + hi) // 8 * 4
+        lo, hi = (mid, hi) if fits((mid, mid)) else (lo, mid)
     if key is not None:
-        _WIDEST[key] = d
-    return d
+        _WIDEST[key] = lo
+    return lo
 
 
 def _body_key(body: KernelEnvBody) -> tuple:
@@ -845,21 +867,53 @@ def _body_key(body: KernelEnvBody) -> tuple:
             body.n_reset, body.tables is not None)
 
 
+def rollout_level(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = False) -> int:
+    """The design level the rollout kernel takes for this body at these
+    widths, as the wrapper picks it on the card (``_design``) in this copy
+    of the library's reckoning: the first of 0 (resident: a cluster of 8
+    holds the slices), 1 (streamed) and the narrower streamed groups up to
+    ``ROLLOUT_LEVELS`` (``STOCK_LEVELS`` for a market-data body's actor
+    kernel) whose block fits; -1 where none does, or the body or depth has
+    no kernel."""
+    if len(tuple(net_dims)) != 2 or not kernel_has_body(body):
+        return -1
+    if body.tables is not None:
+        smem = lambda lv: min(actor_smem_bytes(  # noqa: E731
+            body.state_dim, net_dims, body.action_dim, c, bf16=bf16, streamed=lv)
+            for c in ROLLOUT_CLUSTERS)
+        last = STOCK_LEVELS
+    else:
+        smem = lambda lv: min(rollout_smem_bytes(body, net_dims, c, bf16, lv)  # noqa: E731
+                              for c in (ROLLOUT_CLUSTERS if lv else (8,)))
+        last = ROLLOUT_LEVELS
+    return next((lv for lv in range(last + 1) if smem(lv) <= SMEM_LIMIT), -1)
+
+
+def rollout_group_lanes(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool = False) -> int:
+    """The env lanes of a group of the rollout kernel's design at these
+    widths (:func:`rollout_level`; the stock body's actor kernel); 0 where
+    no design fits."""
+    level = rollout_level(body, net_dims, bf16)
+    if level < 0:
+        return 0
+    if body.tables is not None:
+        return narrow_lanes(_TE, level)
+    return narrow_lanes(STREAM_LANES, level) if level else _TE
+
+
 def _rollout_fits(body: KernelEnvBody, net_dims: Sequence[int], bf16: bool,
                   streamed: bool) -> bool:
     """One design of the rollout kernel holds this body at these widths:
     the actor kernel and the critic pass for a market-data body, else a
-    cluster of 8 (the resident design) or of any size (the streamed one)."""
-    if len(tuple(net_dims)) != 2 or not kernel_has_body(body):
+    cluster of 8 (the resident design) or of any size (the streamed one,
+    in any of its lane groups)."""
+    level = rollout_level(body, net_dims, bf16)
+    if level < 0:
         return False
     if body.tables is not None:   # the critic pass: resident tiles, or (streamed) any
-        return (min(actor_smem_bytes(body.state_dim, net_dims, body.action_dim, c, bf16=bf16,
-                                     streamed=streamed) for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT
-                and critic_smem_bytes(net_dims) <= SMEM_LIMIT
-                and (streamed or critic_tile(net_dims) != _CT_STREAM))
-    clusters = ROLLOUT_CLUSTERS if streamed else (8,)
-    return min(rollout_smem_bytes(body, net_dims, c, bf16, streamed)
-               for c in clusters) <= SMEM_LIMIT
+        return (critic_smem_bytes(net_dims) <= SMEM_LIMIT
+                and (streamed or (level == 0 and critic_tile(net_dims) > _CT_STREAM)))
+    return streamed or level == 0
 
 
 def rollout_fits_resident(body: KernelEnvBody, net_dims: Sequence[int],
@@ -903,7 +957,7 @@ def stock_width_limit(head: Optional[str] = None, bf16: bool = False,
     kernel alone 704), 704 for ddpg, 640 for sac and modsac."""
     S, A = _STOCK_S, STOCK_KERNEL_STOCKS
     with_critic = head is None and critic
-    designs = (False,) if resident else (False, True)
+    designs = (0,) if resident else range(STOCK_LEVELS + 1)
 
     def fits(dims):
         return (any(min(actor_smem_bytes(S, dims, A, c, head, bf16, st) for c in ROLLOUT_CLUSTERS)
@@ -994,13 +1048,14 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
     if S != _STOCK_S:
         raise ValueError(f'critic_values: the CUDA kernel takes the stock body\'s {_STOCK_S} '
                          f'obs rows, got {S}')
-    lib = _library()
+    tile = critic_tile((D1, D2))
+    lib = _library(4 if tile == _CT_NARROW else 0)   # the 16-sample tile: the narrow library
     smem = lib.critic_values_smem_bytes(D1, D2)
     if smem > SMEM_LIMIT:
         raise ValueError(f'critic_values: net_dims={tuple(net_dims)} needs {smem} bytes of '
-                         f'shared memory per block, more than the {SMEM_LIMIT} a Hopper block '
-                         f'can hold (the first width is at most '
-                         f'{_widest(lambda d: critic_smem_bytes(d) <= SMEM_LIMIT)})')
+                         f'shared memory per block even on tiles of {_CT_NARROW} samples, more '
+                         f'than the {SMEM_LIMIT} a Hopper block can hold (the first width is '
+                         f'at most {_widest(lambda d: critic_smem_bytes(d) <= SMEM_LIMIT)})')
     dev, f32 = cri_flat.device, torch.float32
     n_cri = sum(math.prod(sh) for sh in ppo_param_shapes(S, (D1, D2), 1, True)[1])
     check_tensor('critic_values', 'cri_flat', cri_flat, (n_cri,), f32, dev)
@@ -1017,8 +1072,9 @@ def critic_values(cri_flat: torch.Tensor, norm_avg: torch.Tensor, norm_std: torc
                             ptr(values), N, H, D1, D2, bf, sbf, ctypes.c_void_p(stream)),
           'critic_values')
     critic_values.launches += 1
-    # the bf16 variant and the streamed design count apart
-    kind = ('float32', 'bf16')[bf] + (',streamed' if critic_tile((D1, D2)) == _CT_STREAM else '')
+    # the bf16 variant and the streamed designs count apart
+    kind = ('float32', 'bf16')[bf] + {_CT_STREAM: ',streamed',
+                                      _CT_NARROW: f',streamed{_CT_NARROW}'}.get(tile, '')
     critic_values.launches_by_kind[kind] = critic_values.launches_by_kind.get(kind, 0) + 1
     return values
 
@@ -1064,21 +1120,23 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
     S, A = body.state_dim, body.action_dim
     H, N = int(horizon_len), env_f.shape[1]
     from ._cuda_build import check, check_tensor, ptr
-    lib = _library()
     if stock:    # the actor-only rollout; the critic pass fills the values
         stock_args = _stock_args(body, act_flat.device)
-        design = _design(lambda v: min(lib.stock_rollout_smem_bytes(D1, D2, c, v)
+        design = _design(lambda v: min(_library(v).stock_rollout_smem_bytes(D1, D2, c, v)
                                        for c in ROLLOUT_CLUSTERS), bf, 'rollout', net_dims,
                          lambda: f'{stock_width_limit(None, bf, critic=False)} in '
-                                 f'{("float32", "bf16")[bf]} on {body.env_name}')
+                                 f'{("float32", "bf16")[bf]} on {body.env_name}', STOCK_LEVELS)
+        lib = _library(bf | design)
         if not stock_cluster:
             stock_cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf | design)
     else:
-        design = _design(lambda v: min(lib.fused_rollout_smem_bytes(body.kernel_id, D1, D2, c, v)
+        design = _design(lambda v: min(_library(v).fused_rollout_smem_bytes(body.kernel_id, D1,
+                                                                            D2, c, v)
                                        for c in ((8,) if v == bf else ROLLOUT_CLUSTERS)),
                          bf, 'rollout', net_dims,
                          lambda: f'{rollout_width_limit(body, bf)} in '
-                                 f'{("float32", "bf16")[bf]} on {body.env_name}')
+                                 f'{("float32", "bf16")[bf]} on {body.env_name}', ROLLOUT_LEVELS)
+        lib = _library(bf | design)
         if not cluster:
             cluster = _rollout_cluster(lib, body, N, D1, D2, act_flat.device, bf | design)
     dev = act_flat.device
@@ -1113,14 +1171,14 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
         values=torch.empty((H, N), dtype=f32, device=dev),
         env_f=torch.empty_like(env_f), env_i=torch.empty_like(env_i))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    w2 = None    # the resident design; else the streamed design's copy of W2
+    w2 = None    # the resident design; else the streamed designs' copy of W2
     if design:
         w2 = stream_weights((act_flat,) if stock else (act_flat, cri_flat), S, (D1, D2), bf)
     if stock:
         status = lib.stock_rollout(
             ptr(act_flat), ptr(norm_avg), ptr(norm_std), ptr(env_f), ptr(env_i), ptr(noise),
             ptr(seed), *[ptr(t) for t in out if t is not out.values], N, H, D1, D2,
-            ctypes.c_float(reward_scale), int(stock_cluster), bf, quant,
+            ctypes.c_float(reward_scale), int(stock_cluster), bf | design, quant,
             ctypes.byref(stock_args), ptr(w2), ctypes.c_void_p(stream))
     else:
         status = lib.fused_rollout(
@@ -1128,10 +1186,11 @@ def rollout(act_flat: torch.Tensor, cri_flat: torch.Tensor,
             ptr(act_flat), ptr(cri_flat), ptr(norm_avg), ptr(norm_std),
             ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
             *[ptr(t) for t in out],
-            N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), bf, quant,
+            N, H, D1, D2, ctypes.c_float(reward_scale), int(cluster), bf | design, quant,
             ptr(w2), ctypes.c_void_p(stream))
-    # the bf16 variant and the streamed design count apart
-    tag = body.env_name + (',bf16' if bf else '') + (',streamed' if design else '')
+    # the bf16 variant and the streamed designs count apart
+    tag = (body.env_name + (',bf16' if bf else '')
+           + _design_tag(design, _TE if stock else STREAM_LANES))
     check(status, f'fused_rollout[{tag}]')
     rollout.launches += 1
     rollout.launches_by_body[tag] = rollout.launches_by_body.get(tag, 0) + 1
@@ -1147,21 +1206,35 @@ rollout.launches_by_body = {}
 _CLUSTER_PICKS = {}   # (body, envs, D1, D2, device index, bf) -> the rollout kernel's cluster size
 
 
-def _design(smem_of, bf: int, what: str, net_dims, limit) -> int:
-    """The design a kernel takes: 0 (resident) where ``smem_of(bf)``, the
-    least shared memory a block of it takes in the library's reckoning, fits
-    a block, else ``STREAMED`` where ``smem_of(bf | STREAMED)`` does; raises
-    past both, naming the widest square width ``limit()`` (a search,
-    reckoned only then: the wrapper asks at every launch)."""
-    if smem_of(bf) <= SMEM_LIMIT:
-        return 0
-    smem = smem_of(bf | STREAMED)
-    if smem <= SMEM_LIMIT:
-        return STREAMED
+def _design(smem_of, bf: int, what: str, net_dims, limit,
+            last: int = ROLLOUT_LEVELS) -> int:
+    """The design a kernel takes, as a variant's design bits (``level <<
+    1``): the first level from 0 (resident) over 1 (``STREAMED``) to
+    ``last`` (the narrowest streamed group, 4 lanes) at which ``smem_of(bf
+    | level << 1)``, the least shared memory a block of it takes in its
+    library's reckoning, fits a block; raises past all of them, naming the
+    widest square width ``limit()`` (a search, reckoned only then: the
+    wrapper asks at every launch)."""
+    for level in range(last + 1):
+        smem = smem_of(bf | level << 1)
+        if 0 < smem <= SMEM_LIMIT:
+            return level << 1
     raise ValueError(f'{what}: net_dims={tuple(net_dims)} needs {smem} bytes of shared memory '
-                     f'in each block even with layer 2 streamed from device memory, more than '
-                     f'the {SMEM_LIMIT} a Hopper block can hold (square widths up to {limit()}, '
-                     f'ROADMAP.md)')
+                     f'in each block even with layer 2 streamed from device memory on lane '
+                     f'groups of 4 lanes, more than the {SMEM_LIMIT} a Hopper block can hold '
+                     f'(square widths up to {limit()}, ROADMAP.md)')
+
+
+def _design_tag(design: int, widest: int) -> str:
+    """What a launch counts under for its design bits: nothing for the
+    resident design, ``',streamed'`` for the streamed one at its widest
+    group of ``widest`` lanes, ``',streamed<lanes>'`` for its narrower
+    groups."""
+    level = design >> 1
+    if level == 0:
+        return ''
+    return ',streamed' if level == 1 else f',streamed{narrow_lanes(widest, level)}'
+
 
 
 def _kept_pick(picks: dict, key, ask) -> int:
@@ -1190,23 +1263,31 @@ def _rollout_cluster(lib, body: KernelEnvBody, N: int, D1: int, D2: int, device,
     return _kept_pick(_CLUSTER_PICKS, (body.kernel_id, N, D1, D2, device.index, bf), ask)
 
 
-# the entry points of csrc/fused_rollout.cu that offpolicy_rollout.cu builds;
-# onpolicy_rollout.cu builds the others (two nvcc runs side by side)
+# the entry points of csrc/fused_rollout.cu that offpolicy_rollout.cu (and
+# offpolicy_narrow.cu) builds; onpolicy_rollout.cu (onpolicy_narrow.cu) builds
+# the others (their nvcc runs side by side)
 _OFFPOLICY_ENTRIES = ('offpolicy_rollout', 'offpolicy_rollout_smem_bytes',
                       'offpolicy_rollout_cluster', 'offpolicy_stock_rollout')
+# the libraries of csrc/fused_rollout.cu: (on-policy, off-policy) halves of the
+# resident and streamed designs, and of the narrower streamed groups
+ROLLOUT_LIBRARIES = (('onpolicy_rollout', 'offpolicy_rollout'),
+                     ('onpolicy_narrow', 'offpolicy_narrow'))
 
 
-def _library():
-    """The rollout kernels' library: ``onpolicy_rollout``'s entry points
-    with ``offpolicy_rollout``'s beside them (both built from
-    ``csrc/fused_rollout.cu``, their ``nvcc`` runs started together)."""
+def _library(variant: int = 0):
+    """The rollout kernels' library for a variant: ``onpolicy_rollout``'s
+    entry points with ``offpolicy_rollout``'s beside them (both built from
+    ``csrc/fused_rollout.cu``, their ``nvcc`` runs started together), or for
+    a narrower streamed group (design level 2 and up) ``onpolicy_narrow``'s
+    with ``offpolicy_narrow``'s, built at its first use."""
     from . import _cuda_build
-    if not all(n in _cuda_build._loaded for n in ('onpolicy_rollout', 'offpolicy_rollout')):
-        _cuda_build.build(['onpolicy_rollout', 'offpolicy_rollout'])
-    lib = _cuda_build.load('onpolicy_rollout')
+    names = ROLLOUT_LIBRARIES[int(variant >> 1 >= 2)]
+    if not all(n in _cuda_build._loaded for n in names):
+        _cuda_build.build(list(names))
+    lib = _cuda_build.load(names[0])
     fn = lib.fused_rollout
     if fn.argtypes is None:
-        off = _cuda_build.load('offpolicy_rollout')
+        off = _cuda_build.load(names[1])
         for name in _OFFPOLICY_ENTRIES:
             setattr(lib, name, getattr(off, name))
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
@@ -1565,7 +1646,7 @@ def offpolicy_out_rows(action_dim: int, head: str) -> int:
 
 
 def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str,
-                         cluster: int = 8, bf16: bool = False, streamed: bool = False) -> int:
+                         cluster: int = 8, bf16: bool = False, streamed: int = 0) -> int:
     """Shared memory of one block of the off-policy rollout for clusters of
     ``cluster`` blocks over a group of ``OFF_LANES`` lanes: the block's
     slices of W1's and W2's rows and of the head's columns (a row of K
@@ -1575,11 +1656,12 @@ def offpolicy_smem_bytes(body: KernelEnvBody, net_dims: Sequence[int], head: str
     rows) and the split-K scratch of the widest product
     (``offpolicy_rollout_smem_bytes`` of ``csrc/fused_rollout.cu``:
     ``OffLayout``), with ``bf16`` the weight slices and the tiles xn, h1 and
-    h2 in bf16, and with ``streamed`` (the streamed design) no W2 slice.
+    h2 in bf16, and with ``streamed`` (the design level: 1 the streamed
+    design, 2 and 3 its narrower groups of 8 and 4 lanes) no W2 slice.
     The stock body runs the stock actor kernel (:func:`actor_smem_bytes`)."""
     D1, D2 = (int(d) for d in net_dims)
-    S, A, c, G, bf = body.state_dim, body.action_dim, int(cluster), OFF_LANES, bool(bf16)
-    st = int(bool(streamed))
+    S, A, c, bf = body.state_dim, body.action_dim, int(cluster), bool(bf16)
+    G, st = narrow_lanes(OFF_LANES, int(streamed)), int(bool(streamed))
     if body.tables is not None:
         return actor_smem_bytes(S, (D1, D2), A, c, head, bf, streamed)
     r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
@@ -1609,16 +1691,38 @@ def offpolicy_fits_resident(body: KernelEnvBody, head: str, net_dims: Sequence[i
                     for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
 
 
+def offpolicy_level(body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                    bf16: bool = False) -> int:
+    """The design level the off-policy rollout takes for this pair at these
+    widths, as the wrapper picks it on the card: the first of 0 (resident),
+    1 (streamed) and the narrower streamed groups (up to ``OFF_LEVELS``;
+    ``STOCK_LEVELS`` on the stock body) whose block fits at some cluster
+    size; -1 where none does."""
+    if not offpolicy_pair_fits(body, head) or len(tuple(net_dims)) != 2:
+        return -1
+    last = STOCK_LEVELS if body.tables is not None else OFF_LEVELS
+    return next((lv for lv in range(last + 1)
+                 if min(offpolicy_smem_bytes(body, net_dims, head, c, bf16, lv)
+                        for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT), -1)
+
+
+def offpolicy_group_lanes(body: KernelEnvBody, head: str, net_dims: Sequence[int],
+                          bf16: bool = False) -> int:
+    """The env lanes of a group of the off-policy design at these widths
+    (:func:`offpolicy_level`); 0 where no design fits."""
+    level = offpolicy_level(body, head, net_dims, bf16)
+    if level < 0:
+        return 0
+    return narrow_lanes(_TE if body.tables is not None else OFF_LANES, level)
+
+
 def offpolicy_fits(body: KernelEnvBody, head: str, net_dims: Sequence[int],
                    bf16: bool = False) -> bool:
     """Whether the CUDA kernel takes this (body, head) pair at these widths
     in one of its designs: the resident one (:func:`offpolicy_fits_resident`)
-    or the streamed one, whose activation tiles a block holds up to a first
-    width past 1024 (:func:`offpolicy_width_limit`)."""
-    return offpolicy_fits_resident(body, head, net_dims, bf16) or (
-        offpolicy_pair_fits(body, head) and len(tuple(net_dims)) == 2
-        and min(offpolicy_smem_bytes(body, net_dims, head, c, bf16, True)
-                for c in ROLLOUT_CLUSTERS) <= SMEM_LIMIT)
+    or the streamed one in one of its lane groups, whose activation tiles a
+    block holds up to a first width past 2048 (:func:`offpolicy_width_limit`)."""
+    return offpolicy_level(body, head, net_dims, bf16) >= 0
 
 
 def offpolicy_width_limit(body: KernelEnvBody, head: str, bf16: bool = False,
@@ -1669,13 +1773,14 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
     S, A = body.state_dim, body.action_dim
     H, N = int(horizon_len), env_f.shape[1]
     from ._cuda_build import check, check_tensor, ptr
-    lib = _library()
     head_id = OFFPOLICY_HEADS[head]
-    design = _design(lambda v: min(lib.offpolicy_rollout_smem_bytes(body.kernel_id, head_id, D1,
-                                                                     D2, c, v)
+    design = _design(lambda v: min(_library(v).offpolicy_rollout_smem_bytes(
+                                       body.kernel_id, head_id, D1, D2, c, v)
                                    for c in ROLLOUT_CLUSTERS), bf, 'offpolicy_rollout', net_dims,
                      lambda: f'{offpolicy_width_limit(body, head, bf)} for {head} in '
-                             f'{("float32", "bf16")[bf]} on {body.env_name}')
+                             f'{("float32", "bf16")[bf]} on {body.env_name}',
+                     STOCK_LEVELS if stock else OFF_LEVELS)
+    lib = _library(bf | design)
     if not cluster:
         cluster = _offpolicy_cluster(lib, body, head_id, N, D1, D2, flat.device, bf | design)
     dev = flat.device
@@ -1707,16 +1812,17 @@ def offpolicy_rollout(flat: torch.Tensor, env_f: torch.Tensor, env_i: torch.Tens
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, *std_clip)]
         status = lib.offpolicy_stock_rollout(
             head_id, ptr(flat), ptr(env_f), ptr(env_i), ptr(noise), ptr(seed),
-            *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster), bf, quant,
+            *[ptr(x) for x in out], N, H, D1, D2, *hyper, int(cluster), bf | design, quant,
             ctypes.byref(stock_args), ptr(w2), ctypes.c_void_p(stream))
     else:
         hyper = [ctypes.c_float(v) for v in (reward_scale, noise_std, explore_rate, *std_clip)]
         status = lib.offpolicy_rollout(
             body.kernel_id, head_id, ptr(flat), ptr(env_f), ptr(env_i),
             ptr(noise), ptr(seed), *[ptr(x) for x in out], N, H, D1, D2, *hyper,
-            int(cluster), bf, quant, ptr(w2), ctypes.c_void_p(stream))
-    # the bf16 variant and the streamed design count apart
-    tag = f'{body.env_name},{head}' + (',bf16' if bf else '') + (',streamed' if design else '')
+            int(cluster), bf | design, quant, ptr(w2), ctypes.c_void_p(stream))
+    # the bf16 variant and the streamed designs count apart
+    tag = (f'{body.env_name},{head}' + (',bf16' if bf else '')
+           + _design_tag(design, _TE if stock else OFF_LANES))
     check(status, f'offpolicy_rollout[{tag}]')
     offpolicy_rollout.launches += 1
     offpolicy_rollout.launches_by_kernel[tag] = offpolicy_rollout.launches_by_kernel.get(tag, 0) + 1

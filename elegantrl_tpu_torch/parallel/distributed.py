@@ -12,6 +12,7 @@
 
 from __future__ import annotations
 
+import atexit
 import datetime
 from typing import Any, Dict, Optional, Sequence
 
@@ -36,8 +37,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
     one process unless ``backend`` is named (a world of one, the most a
     machine with one card gives NCCL).  ``backend``: ``'nccl'`` where CUDA
     is available, else ``'gloo'``.  Each process waits at most 300 s for
-    the others.  Returns the global device count: the cards of a world of
-    one (1 on the CPU), else one device per process."""
+    the others.  The group is torn down at the interpreter's exit
+    (:func:`shutdown_distributed`, registered here, as
+    ``jax.distributed.initialize`` registers its shutdown).  Returns the
+    global device count: the cards of a world of one (1 on the CPU), else
+    one device per process."""
     size = int(num_processes or 1)
     if size > 1 or backend is not None:
         import torch.distributed as dist
@@ -50,10 +54,22 @@ def init_distributed(coordinator_address: Optional[str] = None,
         dist.init_process_group(backend=backend, init_method=_init_method(coordinator_address),
                                 world_size=size, rank=int(process_id or 0),
                                 timeout=datetime.timedelta(seconds=300))
+        atexit.register(shutdown_distributed)
     _, size = world()
     if size == 1:
         return torch.cuda.device_count() if torch.cuda.is_available() else 1
     return size
+
+
+def shutdown_distributed() -> None:
+    """Destroy the process group, if there is one.  A gloo group left to the
+    interpreter's teardown can abort the process after its work is done
+    (``terminate called without an active exception``: a transport thread
+    still joinable when its owner is destroyed), so :func:`init_distributed`
+    registers this to run at exit, while the interpreter still runs."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def elastic_restore(checkpoint_path: str, template_carry: Any,

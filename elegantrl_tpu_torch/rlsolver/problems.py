@@ -1,0 +1,128 @@
+"""Problem registry: the reference's ``Problem`` enum mapped to simulators
+(counterpart of ``elegantrl_tpu/rlsolver/problems.py``).
+
+Every problem of the enum is one the JAX package simulates; the port builds
+the simulators of its modules so far, and raises ``NotImplementedError``,
+naming the module, for a problem whose simulator is still to come.
+``minimum_vertex_cover`` is solved through the complement of the MIS
+simulator (a set is a cover iff its complement is independent).
+"""
+
+from __future__ import annotations
+
+from enum import Enum, unique
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+@unique
+class GraphType(Enum):
+    BA = "BA"   # barabasi_albert
+    ER = "ER"   # erdos_renyi
+    PL = "PL"   # powerlaw
+
+
+@unique
+class Problem(Enum):
+    maxcut = "maxcut"
+    graph_partitioning = "graph_partitioning"
+    number_partitioning = "number_partitioning"
+    minimum_vertex_cover = "minimum_vertex_cover"
+    bilp = "bilp"
+    maximum_independent_set = "maximum_independent_set"
+    knapsack = "knapsack"
+    set_cover = "set_cover"
+    graph_coloring = "graph_coloring"
+    portfolio_allocation = "portfolio_allocation"
+    tnco = "tnco"
+    vrp = "vrp"
+    tsp = "tsp"
+
+
+# the JAX package's modules of the problems whose simulators the port has
+# not yet (ROADMAP.md)
+_TO_COME = {
+    Problem.graph_partitioning: 'partition.py', Problem.set_cover: 'setcover.py',
+    Problem.bilp: 'bilp.py', Problem.portfolio_allocation: 'portfolio.py',
+    Problem.vrp: 'vrp.py', Problem.tnco: 'tnco.py',
+}
+
+
+def supported_problems() -> set:
+    """The problems with a batched simulator in the port."""
+    return set(Problem) - set(_TO_COME)
+
+
+_REQUIRED_KWARGS = {
+    Problem.maxcut: ('edges', 'num_nodes'),
+    Problem.maximum_independent_set: ('edges', 'num_nodes'),
+    Problem.minimum_vertex_cover: ('edges', 'num_nodes'),
+    Problem.graph_coloring: ('edges', 'num_nodes', 'num_colors'),
+    Problem.knapsack: ('values', 'weights', 'capacity'),
+    Problem.number_partitioning: ('numbers',),
+    Problem.tsp: ('cities',),
+    Problem.graph_partitioning: ('edges', 'num_nodes'),
+    Problem.set_cover: ('membership',),
+    Problem.bilp: ('c', 'a', 'b'),
+    Problem.vrp: ('instance',),
+    Problem.portfolio_allocation: ('mu', 'sigma', 'k'),
+    Problem.tnco: ('bonds_log2',),
+}
+
+
+def make_simulator(problem: Problem, device=None, **kwargs):
+    """The batched simulator of ``problem`` on ``device`` (None: the card).
+    kwargs are the problem's own parameters (edges/num_nodes,
+    values/weights/capacity, numbers, cities, num_colors, ...)."""
+    if isinstance(problem, str):
+        problem = Problem(problem)
+    missing = [k for k in _REQUIRED_KWARGS.get(problem, ()) if k not in kwargs]
+    if missing:
+        raise TypeError(
+            f"make_simulator({problem}) missing required kwargs {missing}; "
+            f"expects {_REQUIRED_KWARGS[problem]}")
+    if problem in _TO_COME:
+        raise NotImplementedError(
+            f"{problem}: the port has no simulator yet; it comes with "
+            f"elegantrl_tpu_torch/rlsolver/{_TO_COME[problem]} (elegantrl_tpu.rlsolver has it)")
+    if problem == Problem.maxcut:
+        from .maxcut import MaxCutSimulator
+        return MaxCutSimulator(kwargs['edges'], kwargs['num_nodes'], device=device)
+    if problem == Problem.maximum_independent_set:
+        from .mis import MISSimulator
+        return MISSimulator(kwargs['edges'], kwargs['num_nodes'],
+                            penalty=kwargs.get('penalty', 2.0), device=device)
+    if problem == Problem.minimum_vertex_cover:
+        # the cover-space wrapper: solutions and objectives are covers
+        from .mis import VertexCoverSimulator
+        return VertexCoverSimulator(kwargs['edges'], kwargs['num_nodes'],
+                                    penalty=kwargs.get('penalty', 2.0), device=device)
+    if problem == Problem.graph_coloring:
+        from .coloring import GraphColoringSimulator
+        return GraphColoringSimulator(kwargs['edges'], kwargs['num_nodes'],
+                                      kwargs['num_colors'], device=device)
+    if problem == Problem.knapsack:
+        from .knapsack import KnapsackSimulator
+        return KnapsackSimulator(kwargs['values'], kwargs['weights'], kwargs['capacity'],
+                                 penalty=kwargs.get('penalty'), device=device)
+    if problem == Problem.number_partitioning:
+        from .numberpart import NumberPartitionSimulator
+        return NumberPartitionSimulator(kwargs['numbers'], device=device)
+    from .tsp import TSPSimulator
+    return TSPSimulator(kwargs['cities'], device=device)
+
+
+def min_vertex_cover(edges: np.ndarray, num_nodes: int, gen, num_sims: int = 512,
+                     num_sweeps: int = 32, device=None,
+                     draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Minimum vertex cover through the MIS complement: ``|MVC| = N -
+    |MIS|`` and the cover is the independent set's complement
+    (``mis.greedy_mis``'s draws)."""
+    from .mis import greedy_mis
+    sim = make_simulator(Problem.maximum_independent_set, edges=edges, num_nodes=num_nodes,
+                         device=device)
+    mis_size, mis_x = greedy_mis(sim, gen, num_sims=num_sims, num_sweeps=num_sweeps,
+                                 draws=draws)
+    return float(num_nodes) - mis_size, 1.0 - mis_x

@@ -574,10 +574,12 @@ def test_wide_auto_takes_bf16_and_the_autograd_update(capsys):
 def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     """On a simulated card bf16 compute takes K1's bf16 variant at (512,
     512), where the float32 one's resident design could not; past the bf16
-    resident limit the streamed design takes it, and past that (2624 on
-    Pendulum) the card raises naming it; the stock body takes K4's bf16
+    resident limit the streamed design takes it, in 16-lane groups to 2624 on
+    Pendulum and in narrower ones past that, and past its narrowest groups
+    (8224) the card raises naming that width; the stock body takes K4's bf16
     variant, its resident designs to 576 (the critic pass's tile), the
-    streamed ones past it, and raises past 1408, naming it."""
+    streamed ones past it (past 1408 the critic pass on 16-sample tiles),
+    and raises past 2624, naming it."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     from elegantrl_tpu_torch.train import runner
     made = {}
@@ -599,10 +601,16 @@ def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
     assert runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64,
                                        1.0) == 'fused'
     assert made['compute_dtype'] == BF
-    assert fr.rollout_width_limit(fr.PENDULUM_BODY, bf16=True) == 2624
     args.net_dims = (2628, 2628)
     agent = runner._make_agent(args, None)
-    with pytest.raises(ValueError, match='up to 2624 on Pendulum-v1 in bf16'):
+    made.clear()
+    assert runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64,
+                                       1.0) == 'fused'
+    assert fr.rollout_group_lanes(fr.PENDULUM_BODY, (2628, 2628), bf16=True) == 8
+    assert fr.rollout_width_limit(fr.PENDULUM_BODY, bf16=True) == 8224
+    args.net_dims = (8228, 8228)
+    agent = runner._make_agent(args, None)
+    with pytest.raises(ValueError, match='up to 8224 on Pendulum-v1 in bf16'):
         runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), 4096, 64, 1.0)
     sargs = Config(AgentPPO, StockTradingVecEnv,
                    {'env_name': 'StockTradingEnv-v2', 'num_envs': 256, 'max_step': 9,
@@ -623,5 +631,11 @@ def test_card_takes_the_bf16_rollout_kernels_and_raises_for_k4(monkeypatch):
                                        1.0) == 'fused'
     sargs.net_dims = (1412, 1412)
     sagent = runner._make_agent(sargs, None)
-    with pytest.raises(ValueError, match='1408 on StockTradingEnv-v2'):
+    made.clear()
+    assert runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128,
+                                       1.0) == 'fused'
+    assert fr.critic_tile((1412, 1412)) == 16
+    sargs.net_dims = (2628, 2628)
+    sagent = runner._make_agent(sargs, None)
+    with pytest.raises(ValueError, match='2624 on StockTradingEnv-v2'):
         runner._maybe_fused_rollout(sargs, senv, sagent, torch.device('cuda'), 256, 128, 1.0)

@@ -224,15 +224,19 @@ def test_kernel_pairs(body, head, fits):
                                        (AgentDQN, cartpole, 64, 64)):
             assert on_a_card(agent_class, env, (256, 256), n, h) is not None, agent_class
         return
-    # the resident design to (576, 576), the streamed one past it (to 2592
-    # on HopperSlip in float32), then the card raises naming that width
+    # the resident design to (576, 576), the streamed one past it (16-lane
+    # groups to 2592 on HopperSlip in float32, then groups of 8 and 4 lanes
+    # to 8160), then the card raises naming that width
     assert (fr.offpolicy_fits_resident(body, head, (576, 576))
             and not fr.offpolicy_fits_resident(body, head, (580, 580)))
     assert fr.offpolicy_fits(body, head, (580, 580))
     assert on_a_card(AgentTD3, hopper, (580, 580), 1024, 32) is not None
-    assert fr.offpolicy_width_limit(fr.HOPPER_BODY, head) == 2592
-    with pytest.raises(ValueError, match='square widths up to 2592'):
-        on_a_card(AgentTD3, hopper, (2596, 2596), 1024, 32)
+    assert [fr.offpolicy_group_lanes(body, head, (d, d)) for d in (2592, 2596, 8160, 8164)] \
+        == [16, 8, 4, 0]
+    assert on_a_card(AgentTD3, hopper, (2596, 2596), 1024, 32) is not None
+    assert fr.offpolicy_width_limit(fr.HOPPER_BODY, head) == 8160
+    with pytest.raises(ValueError, match='square widths up to 8160'):
+        on_a_card(AgentTD3, hopper, (8164, 8164), 1024, 32)
 
 
 @pytest.mark.parametrize('case', ['sac_hopper', 'dqn_cartpole'])

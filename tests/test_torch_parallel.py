@@ -22,6 +22,7 @@ import contextlib
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -604,6 +605,56 @@ def test_dp2_carry_restores_without_a_mesh(tmp_path):
 
 
 # ----------------------------------------------- two processes through gloo
+# Each rank is a subprocess; a rank passes when it prints WORKER-OK and
+# exits with 0.  Under six busy test workers a rank once printed WORKER-OK
+# and then aborted in the interpreter's teardown ("terminate called without
+# an active exception", rc -6): its gloo group was still live.
+# init_distributed now registers shutdown_distributed at exit
+# (test_init_distributed_tears_the_group_down_at_exit).
+
+RANK_TIMEOUT = 240   # seconds for both ranks together; ~11 s on a loaded box
+
+
+def _run_ranks(code, argvs, env):
+    procs = [subprocess.Popen([sys.executable, '-c', code, *argv], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    outs, deadline = [], time.monotonic() + RANK_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                tails = [q.communicate()[0][-1500:] for q in procs]
+                raise AssertionError(f'rank {r} still ran after {RANK_TIMEOUT} s; output:\n'
+                                     + '\n'.join(f'rank {i}:\n{t}' for i, t in enumerate(tails)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and 'WORKER-OK' in out, \
+            f'rank {r} (rc {p.returncode}):\n{out[-3000:]}'
+
+
+_EXIT_WORKER = r"""
+import atexit, sys
+import torch.distributed as dist
+from elegantrl_tpu_torch.parallel.distributed import init_distributed
+assert init_distributed(sys.argv[1], 1, 0, backend='gloo') == 1 and dist.is_initialized()
+atexit._run_exitfuncs()      # what the interpreter runs at exit, before its teardown
+print('WORKER-OK' if not dist.is_initialized() else 'the group is still live', flush=True)
+"""
+
+
+def test_init_distributed_tears_the_group_down_at_exit(tmp_path):
+    """Fault 17's cause: the group must be destroyed by the exit hooks, while
+    the interpreter still runs, not left to its teardown."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    _run_ranks(_EXIT_WORKER, [['file://' + str(tmp_path / 'rendezvous')]], env)
+
 
 _WORKER = r"""
 import sys
@@ -648,20 +699,8 @@ def test_two_gloo_processes_match_the_in_process_round(tmp_path):
     url = 'file://' + str(tmp_path / 'rendezvous')
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
     env.pop('LOCAL_RANK', None)
-    procs = [subprocess.Popen([sys.executable, '-c', _WORKER, str(r), '2', url,
-                               str(tmp_path / f'rank{r}.npz'), str(tmp_path / 'run')],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and 'WORKER-OK' in out, f'rank {r}:\n{out[-3000:]}'
+    _run_ranks(_WORKER, [[str(r), '2', url, str(tmp_path / f'rank{r}.npz'),
+                          str(tmp_path / 'run')] for r in range(2)], env)
     ranks = [np.load(tmp_path / f'rank{r}.npz') for r in range(2)]
     for k in ranks[0].files:               # the replicas, bitwise
         np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
@@ -753,20 +792,8 @@ def test_two_gloo_processes_with_a_host_env_match_the_in_process_round(tmp_path)
     url = 'file://' + str(tmp_path / 'rendezvous')
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
     env.pop('LOCAL_RANK', None)
-    procs = [subprocess.Popen([sys.executable, '-c', _HOST_WORKER, str(r), url,
-                               str(tmp_path / f'rank{r}.npz')],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and 'WORKER-OK' in out, f'rank {r}:\n{out[-3000:]}'
+    _run_ranks(_HOST_WORKER, [[str(r), url, str(tmp_path / f'rank{r}.npz')] for r in range(2)],
+               env)
     ranks = [np.load(tmp_path / f'rank{r}.npz') for r in range(2)]
     for k in ranks[0].files:               # the replicas, bitwise
         np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)

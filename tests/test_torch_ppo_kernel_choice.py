@@ -121,9 +121,12 @@ GRID = {
     # the streamed design takes it
     'ppo_stock_256': ('ppo', 'stock', (256, 256), 256, 128, 512, 8),
     'ppo_stock_452': ('ppo', 'stock', (452, 452), 256, 128, 512, 8),
-    # past even the streamed design's widest square net (1408 on Pendulum in
-    # float32): the card raises
+    # past the streamed design's 16-lane groups (1408 on Pendulum in
+    # float32): its 8-lane groups take it
     'pendulum_1412': ('ppo', 'pendulum', (1412, 1412), 1024, 64, 512, 8,
+                      {'compute_dtype': 'float32'}),
+    # past even its narrowest groups' widest square net (4832): the card raises
+    'pendulum_4836': ('ppo', 'pendulum', (4836, 4836), 1024, 64, 512, 8,
                       {'compute_dtype': 'float32'}),
 }
 # every on-policy body at widths past the resident designs, in both compute
@@ -138,7 +141,7 @@ for _agent, _env, _n, _h in (('ppo', 'pendulum', 1024, 64), ('dppo', 'cartpole',
         for _dt in WIDE_DTYPES:
             GRID[f'{_env}_{_dims[0]}x{_dims[1]}_{_dt}'] = (
                 _agent, _env, _dims, _n, _h, 512, 8, {'compute_dtype': _dt})
-PAST_STREAMED = ('pendulum_1412',)   # the card raises
+PAST_STREAMED = ('pendulum_4836',)   # the card raises
 
 
 def _configs(case, device='cuda'):
@@ -215,14 +218,14 @@ def test_kernel_choice_as_jax(case, monkeypatch):
     port_update = any(out for flag, out in chosen if flag == 'use_fused_update')
     if case in PAST_STREAMED:
         assert jax_rollout and port_update == jax_update
-        with pytest.raises(ValueError, match='square widths up to 1408 on Pendulum-v1'):
+        with pytest.raises(ValueError, match='square widths up to 4832 on Pendulum-v1'):
             runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
                                         args.horizon_len, 1.0)
         return
     fast = runner._maybe_fused_rollout(args, env, agent, torch.device('cuda'), args.num_envs,
                                        args.horizon_len, 1.0)
     assert (fast is not None, port_update) == (jax_rollout, jax_update)
-    if case in ('pendulum_512_b512', 'ppo_stock_452') or args.net_dims in WIDE:
+    if case in ('pendulum_512_b512', 'ppo_stock_452', 'pendulum_1412') or args.net_dims in WIDE:
         # past the resident design: the streamed one takes it
         body = env.kernel_body or fr.KERNEL_ENV_BODIES[env.spec.env_name]
         bf = args.compute_dtype == 'bfloat16'

@@ -178,9 +178,11 @@ def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, 
     compute and storage types the JAX runner hands its kernel) up to the
     bf16 width limit of its resident designs (576 on-policy, the critic
     pass's tile; 704 for ddpg, 640 for sac and modsac), wider than float32's
-    (448; 416), then its streamed designs, and raises past those (1408
-    on-policy, the critic pass; 2368 for ddpg, 2016 for sac), naming the
-    limit."""
+    (448; 416), then its streamed designs, in narrower lane groups past their
+    widest groups' limits (1408 on-policy, the critic pass's 32-sample
+    tiles; 2368 for ddpg, 2016 for sac), and raises past those (2624
+    on-policy, the critic pass on 16-sample tiles; 11072 for ddpg, 9152 for
+    sac), naming the limit."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     from elegantrl_tpu_torch.train import runner
     made = {}
@@ -193,9 +195,10 @@ def test_card_takes_k4_bf16_and_raises_past_its_limit(monkeypatch, agent_class, 
     assert fr.stock_width_limit(head, resident=True) == {None: 448, 'ddpg': 448,
                                                          'sac': 416}[head]
     widest = fr.stock_width_limit(head, bf16=True)
-    assert widest == {None: 1408, 'ddpg': 2368, 'sac': 2016}[head]
+    assert widest == {None: 2624, 'ddpg': 11072, 'sac': 9152}[head]
+    old = {None: 1408, 'ddpg': 2368, 'sac': 2016}[head]   # the widest groups' limit
     for dims, storage in (((limit, limit), 'float32'), ((128, 128), 'bfloat16'),
-                          ((limit + 4, limit + 4), 'float32')):
+                          ((limit + 4, limit + 4), 'float32'), ((old + 4, old + 4), 'float32')):
         a = _stock_args(agent_class, dims, storage=storage)
         env = runner._resolve_env_def(a)
         a.state_dim, a.action_dim, a.if_discrete = S, A, False

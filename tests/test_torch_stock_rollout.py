@@ -214,7 +214,9 @@ def test_stock_kernel_fits_the_recipes_widths():
     (256, 256) the actor takes a cluster of 2 or more and the critic pass
     streams W2, so both fit; past (448, 448) the actor's slices do not, and
     the streamed design (W2 read from device memory) takes the stock body to
-    (1184, 1184) in float32."""
+    (1184, 1184) in float32 on 32-lane groups, and past that on groups of
+    16 lanes and fewer, to (2624, 2624), where the critic pass's 16-sample
+    tiles stop."""
     body = st.StockTradingVecEnv(num_envs=1)._def.kernel_body
     S, A = body.state_dim, body.action_dim
     assert fr.rollout_fits(body, (128, 128))
@@ -228,7 +230,10 @@ def test_stock_kernel_fits_the_recipes_widths():
     assert (fr.rollout_fits_resident(body, (448, 448))
             and not fr.rollout_fits_resident(body, (452, 452)))
     assert fr.rollout_fits(body, (452, 452)) and fr.rollout_fits(body, (1024, 1024))
-    assert fr.rollout_fits(body, (1184, 1184)) and not fr.rollout_fits(body, (1188, 1188))
+    assert fr.rollout_fits(body, (1184, 1184)) and fr.rollout_fits(body, (1188, 1188))
+    assert [fr.rollout_group_lanes(body, (d, d)) for d in (1184, 1188, 1280)] == [32, 16, 16]
+    assert fr.rollout_fits(body, (2624, 2624)) and not fr.rollout_fits(body, (2628, 2628))
+    assert fr.critic_tile((1408, 1408)) == 32 and fr.critic_tile((1412, 1412)) == 16
 
 
 def test_other_stock_count_is_refused_on_a_card_with_the_reason(tmp_path):

@@ -195,12 +195,12 @@ def test_explicit_kernel_request_raises_on_ineligible(flag, monkeypatch, capsys)
         # at (384, 384) K1's weight slices exceed a cluster of 8 blocks: the
         # streamed design takes it; on a card 'auto' raises for a workload the
         # JAX package sends to its kernel but no design of this kernel holds:
-        # float32 past (1408, 1408)
+        # float32 past (4832, 4832), its narrowest lane groups' limit
         from elegantrl_tpu_torch.ops import fused_rollout as fr
         assert not fr.rollout_fits_resident(fr.PENDULUM_BODY, (384, 384))
         assert fr.rollout_fits(fr.PENDULUM_BODY, (384, 384))
-        args.net_dims, args.compute_dtype = (1412, 1412), 'float32'
-        with pytest.raises(ValueError, match=f'{flag}: on cuda.*up to 1408'):
+        args.net_dims, args.compute_dtype = (4836, 4836), 'float32'
+        with pytest.raises(ValueError, match=f'{flag}: on cuda.*up to 4832'):
             build_training(args)
     else:
         # a 3-layer update is XLA ops in the JAX package: autograd on a card too

@@ -207,7 +207,7 @@ def _struct_floats(text, ctor, **env):
     scope = {'round4': _round4, 'slice': lambda d, cc: _round4(-(-d // cc)), 'ldk': ldk,
              'max': max, 'tile_scratch': fr.tile_scratch, 'round64': lambda n: -(-n // 64) * 64,
              'TE': 32, 'SCRATCH': 256 * 16, 'CNC': fr._CNC, 'CKT': fr._CKT, 'CLD': fr._CLD,
-             'CKLD': fr._CKLD, 'bf': 0, 'st': 0, 'STOCK_STREAM_KS': fr._STOCK_STREAM_KS,
+             'CKLD': fr._CKLD, 'bf': 0, 'st': 0, 'G': 32, 'STOCK_STREAM_KS': fr._STOCK_STREAM_KS,
              **_LAYOUT_HELPERS, **env}
     for stmt in ' '.join(body.split()).split(';'):
         if stmt.strip():
@@ -407,3 +407,147 @@ def test_update_smem_and_phases_match_the_source():
     for net in ((64, 64), (512, 512), (2048, 2048)):
         assert fu.update_fits(net)
     assert not fu.update_fits((64, 64, 64))
+
+
+# ------------------------- fault 16's rest: the narrower streamed lane groups
+# Past the widest streamed group's limit each rollout kernel takes the widest
+# narrower group whose tiles fit a block (K1/K3 and K6/K6': 16, 8, 4 lanes;
+# K4's actor: 32, 16, 8, 4; the critic pass: tiles of 32, then 16 samples),
+# down to 4 lanes (cm::tile_dense's 4 x 4 register tiles), and raises only
+# past the narrowest group's widths.
+
+@pytest.mark.parametrize('dims', [(128, 128), (1412, 1412), (2048, 512), (4096, 4096)],
+                         ids=lambda d: f'{d[0]}x{d[1]}')
+def test_narrow_layout_copies_match_the_source(dims):
+    """Each narrower group's ``RolloutLayout``, ``OffLayout`` and
+    ``StockActorLayout`` and the 16-sample ``CriticLayout``, evaluated from
+    ``csrc/fused_rollout.cu``, against the Python copies at their levels."""
+    text = (CSRC / 'fused_rollout.cu').read_text()
+    assert 'constexpr int CT_NARROW = 16;' in text and fr._CT_NARROW == 16
+    for body in fr.KERNEL_ENV_BODIES.values():
+        nh = body.action_dim if body.discrete else 2 * body.action_dim
+        for c, bf, level in itertools.product(fr.ROLLOUT_CLUSTERS, (0, 1), (2, 3)):
+            lanes = fr.narrow_lanes(fr.STREAM_LANES, level)
+            want = 4 * _layout_floats(text, body.state_dim, body.action_dim, nh,
+                                      body.n_step + body.n_reset, *dims, c, bf, lanes, 1)
+            assert fr.rollout_smem_bytes(body, dims, c, bool(bf), level) == want
+        for head in fr.OFFPOLICY_HEADS:
+            if not fr.offpolicy_pair_fits(body, head):
+                continue
+            A = body.action_dim
+            for c, bf, level in itertools.product(fr.ROLLOUT_CLUSTERS, (0, 1), (2, 3)):
+                want = 4 * _struct_floats(
+                    text, 'OffLayout', S=body.state_dim, A=A, O=fr.offpolicy_out_rows(A, head),
+                    NH=2 * A if head in fr.CONTINUOUS_HEADS else 2,
+                    NE=body.n_step + body.n_reset, D1=dims[0], D2=dims[1], c=c,
+                    G=fr.narrow_lanes(fr.OFF_LANES, level), bf=bf, st=1)
+                assert fr.offpolicy_smem_bytes(body, dims, head, c, bool(bf), level) == want
+    for head, c, level in itertools.product((None, 'ddpg', 'sac'), fr.ROLLOUT_CLUSTERS,
+                                            (2, 3, 4)):
+        op = _round4(30 if head == 'sac' else 15)
+        want = 4 * _struct_floats(text, 'StockActorLayout', D1=dims[0], D2=dims[1], c=c, OP=op,
+                                  st=1, G=fr.narrow_lanes(32, level))
+        assert fr.actor_smem_bytes(151, dims, 15, c, head, streamed=level) == want
+    assert fr.critic_smem_bytes(dims, 16) == 4 * _struct_floats(
+        text, 'CriticLayout', D1=dims[0], D2=dims[1], CT=16, st=1)
+
+
+def test_variant_numbers_of_the_source_match_the_levels():
+    """``ELEGANTRL_VARIANT`` in both builds: variant ``v`` dispatches to
+    ``FN<v & 1, v >> 1>`` (bf16, then the design level), the resident and
+    streamed designs in the halves, the narrower groups (and the stock
+    actor's fourth level) in the narrow libraries, which build from the same
+    source with ``ELEGANTRL_NARROW``."""
+    text = (CSRC / 'fused_rollout.cu').read_text()
+    pairs = re.findall(r'\(variant\) == (\d+)\s*\? FN<(true|false), (\d)>', text)
+    assert len(pairs) == 4 + 4 + 2
+    for v, bf, level in pairs:
+        assert int(v) == (bf == 'true') | int(level) << 1, (v, bf, level)
+    narrow = text[text.index('#if defined(ELEGANTRL_NARROW)\n#define ELEGANTRL_VARIANT'):]
+    narrow = narrow[:narrow.index('#else')]
+    assert sorted(int(lv) for _, _, lv in re.findall(
+        r'\(variant\) == (\d+)\s*\? FN<(true|false), (\d)>', narrow)) == [2, 2, 3, 3, 4, 4]
+    for half, lib in (('ONPOLICY', 'onpolicy_narrow'), ('OFFPOLICY', 'offpolicy_narrow')):
+        src = (CSRC / f'{lib}.cu').read_text()
+        assert f'#define ELEGANTRL_{half}_ONLY' in src and '#define ELEGANTRL_NARROW' in src
+        assert '#include "fused_rollout.cu"' in src
+    assert fr.ROLLOUT_LIBRARIES == (('onpolicy_rollout', 'offpolicy_rollout'),
+                                    ('onpolicy_narrow', 'offpolicy_narrow'))
+    assert (fr.ROLLOUT_LEVELS, fr.OFF_LEVELS, fr.STOCK_LEVELS) == (3, 3, 4)
+
+
+def test_narrow_groups_at_the_old_limits_and_past_them():
+    """The lane group each kernel takes at its widest streamed group's limit
+    (PR 16's), one width past it and at its new limit; one width past the
+    narrowest group's limit no design fits.  Float32 and bf16."""
+    from elegantrl_tpu_torch.envs import StockTradingVecEnv
+    stock = StockTradingVecEnv(num_envs=1)._def.kernel_body
+    for bf, old, new in ((False, 1408, 4832), (True, 2624, 8224)):   # K1/K3 on Pendulum
+        body = fr.PENDULUM_BODY
+        assert [fr.rollout_group_lanes(body, (d, d), bf)
+                for d in (old, old + 4, new, new + 4)] == [16, 8, 4, 0]
+        assert fr.rollout_width_limit(body, bf) == new and fr.rollout_level(body, (old,) * 2, bf) == 1
+    for bf, old, new in ((False, 2752, 9344), (True, 5280, 16544)):  # K6 ddpg on Pendulum
+        assert [fr.offpolicy_group_lanes(fr.PENDULUM_BODY, 'ddpg', (d, d), bf)
+                for d in (old, old + 4, new, new + 4)] == [16, 8, 4, 0]
+        assert fr.offpolicy_width_limit(fr.PENDULUM_BODY, 'ddpg', bf) == new
+    # K4's actor alone (the off-policy ddpg head), float32: 32 lanes to 1184
+    assert [fr.offpolicy_group_lanes(stock, 'ddpg', (d, d)) for d in (1184, 1188, 6048, 6052)] \
+        == [32, 16, 4, 0]
+    # on-policy with the critic pass: the actor's 16-lane groups at 1280, the
+    # critic's 32-sample tiles to 1408 and 16-sample ones to 2624
+    assert fr.rollout_group_lanes(stock, (1280, 1280)) == 16
+    assert [fr.critic_tile((d, d)) for d in (576, 580, 1408, 1412)] == [64, 32, 32, 16]
+    assert fr.stock_width_limit(None) == 2624 and not fr.rollout_fits(stock, (2628, 2628))
+    # the resident designs keep their widths
+    assert fr.rollout_width_limit(fr.PENDULUM_BODY, resident=True) == 320
+    assert fr.offpolicy_width_limit(fr.HOPPER_BODY, 'ddpg', resident=True) == 576
+    assert fr.stock_width_limit(None, resident=True) == 448
+
+
+def test_wrapper_design_takes_the_first_level_that_fits():
+    """``_design`` on the library's reckoning (here the Python copy): each
+    level in order, a level a library does not build (-2) never fits, and
+    past the narrowest group a raise naming the widest width."""
+    body = fr.PENDULUM_BODY
+
+    def smem_of(dims):
+        def of(v):
+            level = v >> 1
+            return min(fr.rollout_smem_bytes(body, dims, c, bool(v & 1), level)
+                       for c in ((8,) if level == 0 else fr.ROLLOUT_CLUSTERS))
+        return of
+    for d, level in ((256, 0), (384, 1), (1408, 1), (1412, 2), (2688, 2), (2692, 3),
+                     (4832, 3)):
+        assert fr._design(smem_of((d, d)), 0, 'rollout', (d, d), lambda: '4832') == level << 1, d
+    assert fr._design(lambda v: -2 if v >> 1 == 2 else (10 ** 6 if v >> 1 < 2 else 1000), 0,
+                      'rollout', (8, 8), lambda: '8') == 3 << 1
+    with pytest.raises(ValueError, match='groups of 4 lanes.*square widths up to 4832'):
+        fr._design(smem_of((4836, 4836)), 0, 'rollout', (4836, 4836), lambda: '4832')
+    assert fr._design_tag(0, 16) == '' and fr._design_tag(2, 16) == ',streamed'
+    assert fr._design_tag(4, 16) == ',streamed8' and fr._design_tag(8, 32) == ',streamed4'
+
+
+def test_a_narrow_design_asks_the_narrow_library(monkeypatch):
+    """Variants of the design levels 0 and 1 load the two halves; levels 2
+    and up their narrow libraries, built at first use."""
+    from elegantrl_tpu_torch.ops import _cuda_build
+    built, loaded = [], []
+
+    class Fn:
+        argtypes = None
+
+    class Lib:
+        def __getattr__(self, name):
+            return Fn()
+
+    monkeypatch.setattr(_cuda_build, '_loaded', {})
+    monkeypatch.setattr(_cuda_build, 'build', lambda names: built.append(tuple(names)))
+    monkeypatch.setattr(_cuda_build, 'load', lambda name: loaded.append(name) or Lib())
+    fr._library(3)
+    fr._library(4)
+    fr._library(9)
+    assert built == [('onpolicy_rollout', 'offpolicy_rollout'),
+                     ('onpolicy_narrow', 'offpolicy_narrow'),
+                     ('onpolicy_narrow', 'offpolicy_narrow')]
+    assert loaded[0] == 'onpolicy_rollout' and 'onpolicy_narrow' in loaded
