@@ -182,6 +182,26 @@ PyTorch version:
     sims; ``rlsolver_ppo_maxcut``, ``ppo_maxcut_solve`` on the committed
     64-node instance with K10's launches counted and K10 held, bitwise,
     against its plain version on the path's own inputs;
+15e. ``serve.py`` and ``utils/profiling.py`` (``serve_profiling_phases``):
+    ``serve_policy``, PPO on Pendulum (a few ``train_agent`` rounds at the
+    main path's sizes, K1 and K2), SAC on Pendulum and DQN on CartPole at
+    (128, 128), each saved as ``train_agent`` saves it and served on the
+    card through ``PolicyServer.start(port=0)``: ``/health``, then batches
+    of 1, 7, 64 and 4096 rows from four client threads of 50 requests each,
+    every answer held against the plain version on the same rows, K11b
+    counted once a PPO or DQN request, p50 and p99 latency, requests/s and
+    K11b's time at each batch size beside its plain time and bound;
+    ``profiling_trace``, three main-path rounds traced by ``trace`` and read
+    by ``parse_device_trace`` (busy share in (0, 1], K1 and K2 three
+    launches each, ``sol_report`` on the card's entry);
+15f. ``rlsolver_more_phases``: ``rlsolver_problems``, partitioning, set
+    cover, BILP and portfolio on the JAX tests' instances at their optima,
+    and partitioning on ``syn_BA_800_dense.txt``; ``rlsolver_learned``,
+    ECO-DQN (32 BA-60 graphs, 2 x 500 steps; greedy and eps 0.05 with 64
+    restarts), S2V-DQN (40 epochs), L2A, RUN-CSP and PI-GNN on both
+    800-node instances, the attention-model TSP (20 cities) and the
+    GraphTRS pretrain with its L2A transfer, every x recomputed in float64
+    on the host and each beating random search;
 16. the kernels line (the sharded wrappers' numbers ride with the entry of
     the kernel they launch, ``sharded``) and the device line.
 
@@ -223,14 +243,18 @@ import numpy as np
 NUM_ENVS, HORIZON, BATCH, REPEAT, NET_DIMS = 4096, 64, 512, 8.0, (128, 128)
 ROUNDS = 10
 
-# Published dense peaks of the H100 SXM part (NVIDIA data sheet, 700 W):
-# FP32 on the CUDA cores, TFLOP/s, and HBM bandwidth, TB/s; TF32 on the
-# tensor cores, TFLOP/s (the critic pass's split-3xTF32 products); dense
-# bf16 on the tensor cores, TFLOP/s (the bf16 variants' bound: their
-# products take bf16 operands, which the card multiplies at that rate).
-H100_SXM_PEAKS = (67.0, 3.35)
-H100_TF32_TFLOPS = 495.0
-H100_BF16_TFLOPS = 989.0
+# Published dense peaks of the H100 SXM part (NVIDIA data sheet, 700 W), one
+# copy, in the port's utils/profiling.py: FP32 on the CUDA cores, TFLOP/s,
+# and HBM bandwidth, TB/s; TF32 on the tensor cores, TFLOP/s (the critic
+# pass's split-3xTF32 products); dense bf16 on the tensor cores, TFLOP/s (the
+# bf16 variants' bound: their products take bf16 operands, which the card
+# multiplies at that rate).
+from elegantrl_tpu_torch.utils.profiling import CHIP_PEAKS  # noqa: E402
+
+H100_SXM_PEAKS = (CHIP_PEAKS['H100 SXM']['f32_tflops'],
+                  CHIP_PEAKS['H100 SXM']['hbm_gbps'] / 1e3)
+H100_TF32_TFLOPS = CHIP_PEAKS['H100 SXM']['tf32_tflops']
+H100_BF16_TFLOPS = CHIP_PEAKS['H100 SXM']['bf16_tflops']
 
 
 def emit(**kw):
@@ -4426,6 +4450,475 @@ def rlsolver_phases(torch, dev, name, smi, bound):
              'bound_by': b_by, 'library_ms': None, 'H': H, 'N': N}], table
 
 
+# ------------------------------------------- serving, tracing, the other solvers
+
+SERVE_BATCHES = (1, 7, 64, 4096)
+SERVE_THREADS, SERVE_REQUESTS = 4, 50
+ECO_ROUNDS, CSP_STEPS = 2, 150
+
+
+def _post_json(url, payload):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def serve_profiling_phases(torch, dev, name, smi, bound):
+    """``serve_policy``: PPO on Pendulum (4096 envs, (128, 128), a few rounds
+    of ``train_agent`` through K1 and K2), SAC on Pendulum and DQN on
+    CartPole (each saved as ``train_agent`` saves it), each served on the
+    card by ``PolicyServer.start(port=0)``: ``/health``, then batches of 1,
+    7, 64 and 4096 rows from four client threads of 50 requests each, every
+    served action held against the plain version on the card (PPO and DQN:
+    ``fused_mlp3_reference`` on the same rows within K11b's tolerance, 1e-5
+    of the largest plain output; DQN's argmax ties aside; SAC, whose actor
+    K11b does not take: the CPU server's answer within 1e-5), K11b counted
+    once a request (the counts reset just before the requests, read just
+    after), latencies, requests/s and K11b's time at each batch size
+    beside its plain time and its bound.  ``profiling_trace``: three main
+    path rounds traced by ``utils/profiling.py:trace`` and read back by
+    ``parse_device_trace``.  Returns the kernels line's
+    ``fused_mlp3[serve_policy]`` entry."""
+    import threading
+    from elegantrl_tpu_torch import Config, PolicyServer, build_training, train_agent
+    from elegantrl_tpu_torch.agents import AgentDQN, AgentPPO, AgentSAC
+    from elegantrl_tpu_torch.agents.ppo import norm_state
+    from elegantrl_tpu_torch.envs import CartPoleEnv, PendulumEnv
+    from elegantrl_tpu_torch.ops import kernels as kn
+    from elegantrl_tpu_torch.ops.fused_rollout import rollout
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.ops.nets import dqn_param_shapes, split_flat
+    from elegantrl_tpu_torch.utils.checkpoint import save_tree
+    from elegantrl_tpu_torch.utils.profiling import parse_device_trace, sol_report, trace
+
+    pend = {'env_name': 'Pendulum-v1', 'num_envs': NUM_ENVS, 'max_step': 200, 'state_dim': 3,
+            'action_dim': 1, 'if_discrete': False}
+    cart = {'env_name': 'CartPole-v1', 'num_envs': 64, 'max_step': 500, 'state_dim': 4,
+            'action_dim': 2, 'if_discrete': True}
+
+    def main_path_args(cwd):
+        a = Config(AgentPPO, PendulumEnv, dict(pend))
+        a.horizon_len, a.batch_size, a.repeat_times = HORIZON, BATCH, REPEAT
+        a.net_dims, a.random_seed, a.cwd = NET_DIMS, 0, cwd
+        return a
+
+    table, k11b_rows = {}, {}
+    serve_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the checkpoints
+        ckpts = {}
+        a = main_path_args(os.path.join(tmp, 'ppo'))
+        a.eval_per_step, a.break_step, a.eval_times = NUM_ENVS * HORIZON, 2 * NUM_ENVS * HORIZON, 2
+        rollout.launches = ppo_update.launches = 0
+        t0 = time.time()
+        res = train_agent(a)
+        train_s = time.time() - t0
+        assert rollout.launches >= 3 and ppo_update.launches >= 3, (rollout.launches,
+                                                                    ppo_update.launches)
+        ckpts['ppo'] = (AgentPPO, pend, os.path.join(a.cwd, 'agent.npz'))
+        emit(phase='serve_policy_train', agent='AgentPPO', env='Pendulum-v1', envs=NUM_ENVS,
+             total_step=int(res['total_step']), seconds=round(train_s, 3),
+             rollout_launches=rollout.launches, update_launches=ppo_update.launches)
+        for key, agent, env_class, env_args in (
+                ('sac', AgentSAC, PendulumEnv, dict(pend, num_envs=64)),
+                ('dqn', AgentDQN, CartPoleEnv, cart)):
+            a = Config(agent, env_class, dict(env_args))
+            a.net_dims, a.random_seed, a.buffer_size = NET_DIMS, 0, 2 ** 16
+            ctx = build_training(a)
+            path = os.path.join(tmp, key, 'agent.npz')
+            save_tree(path, ctx.agent.state_to_numpy(ctx.carry.agent_state))
+            ckpts[key] = (agent, env_args, path)
+
+        # ---- serve each on the card
+        for key, (agent, env_args, path) in ckpts.items():
+            srv = PolicyServer(agent, net_dims=NET_DIMS, env_args=dict(env_args),
+                               checkpoint=path)
+            cpu_srv = PolicyServer(agent, net_dims=NET_DIMS, env_args=dict(env_args),
+                                   checkpoint=path, device='cpu')
+            assert srv.device.type == dev.type
+            S, A = env_args['state_dim'], env_args['action_dim']
+            port = srv.start(port=0)
+            base = f'http://127.0.0.1:{port}'
+            try:
+                import urllib.request
+                health = json.loads(urllib.request.urlopen(base + '/health', timeout=60).read())
+                assert health['ok'] and health['state_dim'] == S, health
+                for B in SERVE_BATCHES:
+                    g = np.random.default_rng(B)
+                    batches = [(g.normal(size=(B, S)) * 2.0).astype(np.float32)
+                               for _ in range(SERVE_THREADS * SERVE_REQUESTS)]
+                    answers, lat, errors = [None] * len(batches), [0.0] * len(batches), []
+
+                    def client(t):
+                        try:
+                            for i in range(t, len(batches), SERVE_THREADS):
+                                t1 = time.perf_counter()
+                                out = _post_json(base + '/act', {'obs': batches[i].tolist()})
+                                lat[i] = time.perf_counter() - t1
+                                answers[i] = np.asarray(out['action'])
+                        except Exception as e:   # re-raised below
+                            errors.append(e)
+
+                    requests0 = srv.requests
+                    threads = [threading.Thread(target=client, args=(t,))
+                               for t in range(SERVE_THREADS)]
+                    kn.fused_mlp3.launches = 0
+                    t1 = time.perf_counter()
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join()
+                    wall = time.perf_counter() - t1
+                    launches = kn.fused_mlp3.launches          # read just after the requests
+                    assert not errors, errors
+                    n_req = len(batches)
+                    assert srv.requests - requests0 == n_req
+                    assert launches == (0 if key == 'sac' else n_req), (key, B, launches)
+                    serve_launches += launches
+                    # every answer against the plain version on the same rows;
+                    # K11b's tolerance, 1e-5 of the largest plain output over
+                    # the rows served at this batch size (tanh and the argmax
+                    # add no error: tanh is 1-Lipschitz, and an argmax is
+                    # right where its plain value is the largest, ties aside)
+                    st = srv.agent_state
+                    worst = scale = 0.0
+                    for obs, got in zip(batches, answers):
+                        x = torch.as_tensor(obs, device=dev)
+                        if key == 'ppo':
+                            xn = norm_state(x, st.norm_avg, st.norm_std).contiguous()
+                            leaves = [t.contiguous() for t in st.act.mlp.leaves()]
+                            ref = kn.fused_mlp3_reference(xn, *leaves)
+                            err = float((torch.tanh(ref).cpu() - torch.as_tensor(got)).abs().max())
+                            scale = max(scale, float(ref.abs().max()))
+                            assert got.shape == (B, A), (key, B, got.shape)
+                        elif key == 'dqn':
+                            leaves = split_flat(st.q, dqn_param_shapes(S, NET_DIMS, A, False,
+                                                                       False))
+                            xn, leaves = x, [t.contiguous() for t in leaves]
+                            q = kn.fused_mlp3_reference(x, *leaves).cpu()
+                            chosen = q[torch.arange(B), torch.as_tensor(got).long()]
+                            err = float((q.max(-1).values - chosen).max())
+                            scale = max(scale, float(q.abs().max()))
+                            assert got.shape == (B,), (key, B, got.shape)
+                        else:       # no kernel: the CPU server's answer
+                            err = float(np.abs(got - cpu_srv.act(obs)).max())
+                            scale = 1.0
+                            assert got.shape == (B, A), (key, B, got.shape)
+                        worst = max(worst, err)
+                    assert worst <= 1e-5 * scale, (key, B, worst, scale)
+                    lat_ms = np.sort(np.asarray(lat)) * 1e3
+                    cell = dict(rows=B, requests=n_req, threads=SERVE_THREADS,
+                                p50_ms=float(np.percentile(lat_ms, 50)),
+                                p99_ms=float(np.percentile(lat_ms, 99)),
+                                requests_per_s=n_req / wall, rows_per_s=n_req * B / wall,
+                                fused_mlp3_launches=launches, max_abs_err=worst,
+                                max_abs_plain_out=scale)
+                    if key != 'sac':
+                        # K11b at this batch size on the last request's rows,
+                        # held again and timed (outside the counted window)
+                        kern = kn.fused_mlp3(xn, *leaves)
+                        ref = kn.fused_mlp3_reference(xn, *leaves)
+                        torch.cuda.synchronize()
+                        k_err = float((kern - ref).abs().max())
+                        assert k_err <= 1e-5 * float(ref.abs().max()), (key, B, k_err)
+                        ms = cuda_ms(torch, lambda: kn.fused_mlp3(xn, *leaves), reps=50, warmup=3)
+                        plain = cuda_ms(torch, lambda: kn.fused_mlp3_reference(xn, *leaves),
+                                        reps=50, warmup=3)
+                        D1, D2 = NET_DIMS
+                        n_params = sum(t.numel() for t in leaves)
+                        b_ms, b_by = bound(2 * B * (S * D1 + D1 * D2 + D2 * A),
+                                           4 * (B * S + n_params + B * A))
+                        k11b_rows[(key, B)] = dict(max_abs_err=k_err, ms=ms, plain_ms=plain,
+                                                   bound_ms=b_ms, bound_by=b_by)
+                        cell.update(k11b_ms=ms, k11b_plain_ms=plain, k11b_bound_ms=b_ms,
+                                    k11b_bound_by=b_by, k11b_max_abs_err=k_err)
+                    table[(key, B)] = cell
+                    emit(phase='serve_policy', agent=agent.__name__, env=env_args['env_name'],
+                         net_dims=NET_DIMS, **cell,
+                         served_as='the rows as given (no padding)', device=name,
+                         nvidia_smi=smi)
+                health = json.loads(urllib.request.urlopen(base + '/health', timeout=60).read())
+                assert health['requests'] == srv.requests
+            finally:
+                srv.stop()
+
+    # ---- profiling_trace: three main-path rounds traced and read back
+    with tempfile.TemporaryDirectory() as run_dir:
+        ctx = build_training(main_path_args(run_dir))
+        carry, _ = ctx.round_fn(ctx.carry)                        # warm-up round
+        torch.cuda.synchronize()
+        S, A = 3, 1
+        D1, D2 = NET_DIMS
+        net_flop = 2 * (S * D1 + D1 * D2 + D2 * 1) + 2 * (S * D1 + D1 * D2 + D2 * A)
+        # the nets' products of a round: both nets an env-step, then U =
+        # int(H repeat / B) minibatch updates of 3 forwards' worth a sample
+        updates = max(1, int(HORIZON * REPEAT / BATCH))
+        flop_round = net_flop * NUM_ENVS * HORIZON + 3 * net_flop * BATCH * updates
+        attempts = []
+        for attempt in range(3):
+            with tempfile.TemporaryDirectory() as log_dir:
+                with trace(log_dir):
+                    for _ in range(3):
+                        carry, _ = ctx.round_fn(carry)
+                agg = parse_device_trace(log_dir)
+            assert agg is not None and 0.0 < agg['busy_frac'] <= 1.0, agg and agg['busy_frac']
+            counts = {k: sum(c for op, c in agg['count_by_op'].items() if k in op)
+                      for k in ('fused_rollout_kernel', 'ppo_update_kernel')}
+            attempts.append(counts)
+            if all(c == 3 for c in counts.values()):
+                break
+        # the profiler can drop device events (see profiled_ms): a trace is
+        # taken again, at most three times, and every attempt is reported
+        assert all(c == 3 for c in counts.values()), attempts
+        sol = sol_report(flop_round * 3, agg['bytes'] or 0.0, agg['busy_s'], chip='H100 SXM')
+        top = dict(list(agg['seconds_by_op'].items())[:6])
+        emit(phase='profiling_trace', rounds=3, envs=NUM_ENVS, horizon=HORIZON, batch=BATCH,
+             busy_s=agg['busy_s'], span_s=agg['span_s'], busy_frac=agg['busy_frac'],
+             seconds_by_category=agg['seconds_by_category'], top_ops_s=top,
+             kernel_launches=counts, attempts=attempts, bytes=agg['bytes'], flops=agg['flops'],
+             sol_compute_util=sol.compute_util, sol_peak_tflops=sol.peak_tflops,
+             sol_flop=flop_round * 3, sol=str(sol), device=name, nvidia_smi=smi)
+
+    main = k11b_rows[('ppo', SERVE_BATCHES[-1])]
+    return [{'name': 'fused_mlp3[serve_policy]', 'route': 'cuda',
+             'source': 'elegantrl_tpu_torch/ops/csrc/kernels.cu',
+             'replaces': 'elegantrl_tpu/ops/pallas_kernels.py:172', 'launches': serve_launches,
+             'max_abs_err': max(r['max_abs_err'] for r in k11b_rows.values()),
+             'ms': main['ms'], 'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
+             'bound_by': main['bound_by'], 'library_ms': None, 'dims': (3, *NET_DIMS, 1),
+             'B': SERVE_BATCHES[-1],
+             'by_batch': {f'{k}_B{b}': v for (k, b), v in k11b_rows.items()},
+             'launches_cover': 'one a request to the PPO and DQN servers'}], table
+
+
+def _host_cut(x, adj64):
+    """The cut of 0/1 ``x`` in float64 numpy on the host."""
+    x = np.asarray(x.detach().cpu().numpy() if hasattr(x, 'detach') else x, np.float64)
+    assert set(np.unique(x)) <= {0.0, 1.0}
+    return float(x @ adj64 @ (1.0 - x))
+
+
+def _brute(n, value, feasible):
+    best = -np.inf
+    for mask in range(1 << n):
+        x = np.array([(mask >> i) & 1 for i in range(n)], np.float64)
+        if feasible(x):
+            best = max(best, value(x))
+    return best
+
+
+def rlsolver_more_phases(torch, dev, name, smi):
+    """``rlsolver_problems``: graph partitioning, set cover, BILP and
+    portfolio on the card on the JAX tests' own instances
+    (``tests/test_rlsolver_problems2.py``), each reaching the optimum those
+    tests require, and partitioning on ``syn_BA_800_dense.txt`` against the
+    best balanced random partition; every x recomputed in float64 numpy on
+    the host, objective and feasibility.  ``rlsolver_learned``: ECO-DQN
+    trained once on 32 BA-60 graphs (2 x 500 steps, cut from the shootout's
+    8 x 500 for the time limit) then greedy with 64 restarts and with eps
+    0.05, S2V-DQN at 40 epochs, L2A, RUN-CSP (trained on the same BA-60
+    pool, 150 steps) and PI-GNN at their defaults, on
+    both 800-node instances, each cut reproduced in float64 and beating
+    random search at the same number of parallel solutions; the
+    attention-model TSP at ``train_attention_tsp``'s defaults against
+    random tours; GraphTRS pretrained at its defaults on ER-64 graphs and
+    its embeddings transferred to L2A on an unseen ER-64 graph."""
+    from elegantrl_tpu_torch import rlsolver as rs
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # ---- rlsolver_problems
+    edges = []
+    for block in (range(4), range(4, 8)):
+        block = list(block)
+        edges += [(block[a], block[b], 1.0) for a in range(4) for b in range(a + 1, 4)]
+    bridge = np.array(edges + [(0, 4, 1.0)])
+    sim = rs.GraphPartitionSimulator(bridge, 8)
+    assert sim.adj.device.type == dev.type
+    (_, x), secs = timed(lambda: rs.genetic_algorithm(sim, gen(0), pop_size=128,
+                                                       num_generations=16))
+    adj64 = rs.edges_to_adjacency(bridge, 8).astype(np.float64)
+    xh = x.cpu().numpy().astype(np.float64)
+    assert _host_cut(x, adj64) == 1.0 and xh.sum() == 4.0
+    emit(phase='rlsolver_problems', problem='graph_partitioning', instance='two K4 + bridge',
+         cut=1.0, optimum=1.0, balanced=True, seconds=round(secs, 3), device=name,
+         nvidia_smi=smi)
+
+    m = np.zeros((5, 6))
+    for i, cols in enumerate(([0, 1, 2], [3, 4, 5], [0, 3], [1, 4], [2, 5])):
+        m[i, cols] = 1
+    sim = rs.SetCoverSimulator(m)
+    (_, x), secs = timed(lambda: rs.genetic_algorithm(sim, gen(1), pop_size=64,
+                                                       num_generations=16))
+    xh = x.cpu().numpy().astype(np.float64)
+    assert (xh @ m >= 1).all() and xh.sum() == 2.0
+    emit(phase='rlsolver_problems', problem='set_cover', instance='5 sets over 6 elements',
+         size=2.0, optimum=2.0, covers=True, seconds=round(secs, 3), device=name,
+         nvidia_smi=smi)
+
+    rng = np.random.default_rng(7)
+    c, a = rng.uniform(1, 10, 10), rng.uniform(0, 5, (4, 10))
+    b = a.sum(1) * 0.4
+    best = _brute(10, lambda x: float(c @ x), lambda x: (a @ x <= b + 1e-9).all())
+    sim = rs.BILPSimulator(c, a, b)
+
+    def bilp():
+        xs = sim.local_search_sweep(sim.rand_xs(gen(2), 1024), gen(3), num_sweeps=32)
+        return sim.best(xs)
+    (val, x), secs = timed(bilp)
+    xh = x.cpu().numpy().astype(np.float64)
+    assert (a @ xh <= b + 1e-9).all() and float(c @ xh) >= 0.99 * best, (float(c @ xh), best)
+    emit(phase='rlsolver_problems', problem='bilp', instance='10 vars, 4 constraints (seed 7)',
+         value=float(c @ xh), optimum=best, feasible=True, seconds=round(secs, 3),
+         device=name, nvidia_smi=smi)
+
+    rng = np.random.default_rng(9)
+    mu = rng.uniform(0, 1, 10)
+    q = rng.normal(size=(10, 10)) * 0.1
+    sigma = q @ q.T + np.eye(10) * 0.05
+    best = _brute(10, lambda x: float(mu @ x - x @ sigma @ x), lambda x: x.sum() == 3)
+    sim = rs.PortfolioSimulator(mu, sigma, 3)
+    (_, x), secs = timed(lambda: rs.simulated_annealing(sim, gen(4), num_sims=512,
+                                                         num_steps=512))
+    xh = x.cpu().numpy().astype(np.float64)
+    value = float(mu @ xh - xh @ sigma @ xh)
+    assert xh.sum() == 3 and value >= best - 1e-3, (value, best)
+    emit(phase='rlsolver_problems', problem='portfolio_allocation',
+         instance='10 assets, k = 3 (seed 9)', value=value, optimum=best, exactly_k=True,
+         seconds=round(secs, 3), device=name, nvidia_smi=smi)
+
+    n, edges = rs.read_graph_txt(rs.data_path('syn_BA_800_dense.txt'))
+    sim = rs.GraphPartitionSimulator(edges, n)
+    adj64 = rs.edges_to_adjacency(edges, n).astype(np.float64)
+    (_, x), secs = timed(lambda: rs.greedy_local_search(sim, gen(5), num_sims=4096,
+                                                         num_iters=256))
+    xh = x.cpu().numpy().astype(np.float64)
+    cut = _host_cut(x, adj64)
+    assert xh.sum() == n / 2 and float(sim.best(x[None])[0]) == cut
+    r_cut, _ = sim.best(sim.rand_xs(gen(6), 4096))     # the best balanced random partition
+    assert math.isfinite(float(r_cut)) and cut < float(r_cut), (cut, float(r_cut))
+    emit(phase='rlsolver_problems', problem='graph_partitioning',
+         instance='syn_BA_800_dense.txt', nodes=n, method='greedy local search', sims=4096,
+         cut=cut, balanced=True, random_balanced_cut=float(r_cut), seconds=round(secs, 3),
+         device=name, nvidia_smi=smi)
+
+    # ---- rlsolver_learned
+    pool_adjs = np.stack([rs.edges_to_adjacency(rs.generate_graph('BA', 60, seed=s), 60)
+                          for s in range(32)])
+    pool = rs.build_pool(pool_adjs)
+    init_fn, round_fn = rs.make_eco_dqn(pool, batch=32, features=64, layers=3,
+                                        replay_cap=8192, eps_decay_steps=2000,
+                                        target_freq=100, lr_peak=1e-3, lr_final=1e-4,
+                                        lr_ramp=300, lr_decay=4000)
+
+    # the training runs are cut for the script's time limit: ECO-DQN to 2 x
+    # 500 of the shootout's 8 x 500 steps, RUN-CSP to 150 of 300
+    def eco_train():
+        ts = init_fn(gen(0))
+        for _ in range(ECO_ROUNDS):
+            ts, ms = round_fn(ts, 500)
+        return ts, ms
+    (ts, ms), eco_s = timed(eco_train)
+    assert math.isfinite(float(ms['loss'])) and ts.tick == ECO_ROUNDS * 500
+    emit(phase='rlsolver_learned', method='ECO-DQN training', pool='32 BA-60',
+         steps=ECO_ROUNDS * 500, batch=32, seconds=round(eco_s, 3), loss=float(ms['loss']),
+         best=float(ms['best']), device=name, nvidia_smi=smi)
+    init_fn, train_fn = rs.make_runcsp(pool_adjs)
+    (csp_state, csp_loss), csp_s = timed(lambda: train_fn(init_fn(gen(1)), gen(2), CSP_STEPS))
+    assert math.isfinite(float(csp_loss))
+    emit(phase='rlsolver_learned', method='RUN-CSP training', pool='32 BA-60', steps=CSP_STEPS,
+         seconds=round(csp_s, 3), loss=float(csp_loss), device=name, nvidia_smi=smi)
+
+    table = {}
+    for inst in MAXCUT_INSTANCES:
+        n, edges = rs.read_graph_txt(rs.data_path(inst))
+        sim = rs.MaxCutSimulator(edges, n)
+        adj = rs.edges_to_adjacency(edges, n)
+        adj64 = adj.astype(np.float64)
+
+        def spins_cut(spins):
+            s = np.asarray(spins, np.float64)
+            return float((adj64.sum() - s @ adj64 @ s) / 4.0)
+
+        cells = {}
+        for method, sims, fn, check in (
+                ('ECO-DQN (greedy, 64 restarts)', 64,
+                 lambda: rs.eco_greedy_solve(ts.params, adj, num_restarts=64, gen=gen(3)),
+                 spins_cut),
+                ('ECO-DQN (eps 0.05, 64 restarts)', 64,
+                 lambda: rs.eco_greedy_solve(ts.params, adj, num_restarts=64, gen=gen(6),
+                                             eps=0.05), spins_cut),
+                ('S2V-DQN (40 epochs on the instance)', 256,
+                 lambda: rs.s2v_dqn_solve(sim, gen(7), num_epochs=40),
+                 lambda x: _host_cut(x, adj64)),
+                ('L2A', 512, lambda: rs.l2a_solve(sim, gen(8)), lambda x: _host_cut(x, adj64)),
+                ('RUN-CSP (BA-60 pool)', 64,
+                 lambda: rs.runcsp_solve(csp_state[0], adj, gen(9)),
+                 lambda x: _host_cut(x, adj64)),
+                ('PI-GNN', 16, lambda: rs.pignn_maxcut(sim, gen(10)),
+                 lambda x: _host_cut(x, adj64))):
+            out, secs = timed(fn)
+            cut, x = float(out[0]), out[1]
+            assert check(x) == cut, (inst, method, check(x), cut)
+            (r_cut, r_x), _ = timed(lambda: rs.random_search(sim, gen(11), num_sims=sims,
+                                                             num_rounds=1))
+            assert _host_cut(r_x, adj64) == float(r_cut)
+            assert cut > float(r_cut), (inst, method, cut, float(r_cut))
+            cells[method] = dict(cut=cut, seconds=secs, sims=sims, random_search_cut=float(r_cut))
+            emit(phase='rlsolver_learned', instance=inst, nodes=n, method=method, sims=sims,
+                 cut=cut, seconds=round(secs, 3), random_search_cut=float(r_cut),
+                 reproduced_in_float64=True, device=name, nvidia_smi=smi)
+        table[inst] = cells
+
+    # the attention-model TSP at train_attention_tsp's defaults (20 cities)
+    (am, am_s) = timed(lambda: rs.train_attention_tsp(verbose=False))
+    params, _, solve = am
+    cities = rs.random_cities(20, seed=11)
+    length, tour = solve(params, cities, gen(12))
+    tsp = rs.TSPSimulator(cities)
+    c64 = np.asarray(cities, np.float64)
+    t = tour.cpu().numpy()
+    assert sorted(t.tolist()) == list(range(20))
+    host_len = float(np.sum(np.linalg.norm(c64[t] - c64[np.roll(t, -1)], axis=-1)))
+    assert abs(host_len - float(length)) <= 1e-4 * host_len
+    rnd = float(tsp.tour_length(tsp.rand_tours(gen(13), 256)).min())
+    assert host_len < rnd, (host_len, rnd)
+    emit(phase='rlsolver_learned', method='attention-model TSP', cities=20, train_steps=200,
+         train_sims=256, train_seconds=round(am_s, 3), tour_length=host_len,
+         random_tours_best_of_256=rnd, device=name, nvidia_smi=smi)
+
+    # GraphTRS pretrain at its defaults, then its transfer to L2A
+    (trs, trs_s) = timed(lambda: rs.pretrain_graph_trs(64))
+    trs_params, embed, hist = trs
+    assert hist[-1][0] < hist[0][0], hist
+    edges = rs.generate_graph('ER', 64, seed=777)
+    sim = rs.MaxCutSimulator(edges, 64)
+    adj64 = rs.edges_to_adjacency(edges, 64).astype(np.float64)
+    with torch.no_grad():
+        emb = embed(trs_params, torch.as_tensor(adj64[None], dtype=torch.float32, device=dev))[0]
+    (l2a, l2a_s) = timed(lambda: rs.l2a_solve(sim, gen(14), node_embed=emb))
+    cut = l2a[0]
+    assert _host_cut(l2a[1], adj64) == cut
+    r_cut, _ = rs.random_search(sim, gen(15), num_sims=512, num_rounds=1)
+    assert cut > float(r_cut), (cut, float(r_cut))
+    emit(phase='rlsolver_learned', method='GraphTRS pretrain + L2A transfer',
+         pretrain='64 ER-64 graphs, 200 steps, batch 16', pretrain_seconds=round(trs_s, 3),
+         pretrain_history=hist, instance='ER-64 seed 777 (unseen)', cut=cut,
+         l2a_seconds=round(l2a_s, 3), random_search_cut=float(r_cut), device=name,
+         nvidia_smi=smi)
+    return table
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -5355,6 +5848,12 @@ def main():
     # ---- 15d. rlsolver/: the MaxCut core on the 800-node instances, PPO on node flips
     rlsolver_kernels, _ = rlsolver_phases(torch, dev, name, smi, bound)
 
+    # ---- 15e. serve.py (K11b on the served path) and utils/profiling.py
+    serve_kernels, _ = serve_profiling_phases(torch, dev, name, smi, bound)
+
+    # ---- 15f. rlsolver/'s other problems and its learned solvers
+    rlsolver_more_phases(torch, dev, name, smi)
+
     # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
@@ -5444,7 +5943,7 @@ def main():
                 k['store_bf16'] = {f: c[f] for f in ('name', 'ms', 'plain_ms', 'bound_ms',
                                                      'max_abs_err', 'lanes_parted')}
     kernels += (offpolicy_kernels + stock_kernels + bf16_host_pixel_kernels + lunar_kernels
-                + probe_kernels + rlsolver_kernels)
+                + probe_kernels + rlsolver_kernels + serve_kernels)
     # the sharded wrappers' per-shard launches ride with the kernel they launch
     for k in kernels:
         if k['name'] in sharded:

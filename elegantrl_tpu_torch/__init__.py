@@ -30,8 +30,12 @@ recursion, the replay gather and the fused 3-layer MLP forward
 (``Config.mesh_axes``, ``make_mesh``, ``shard_train_carry``: one launch of
 the fused rollout per shard, the update on the union), joins processes
 (``init_distributed``, ``elastic_restore``) and trains populations
-(``train_agent_population``).  Where the JAX package runs XLA ops instead of a
-kernel, the port runs PyTorch ops, on a card too.
+(``train_agent_population``).  ``serve.PolicyServer`` serves a saved agent's
+greedy actions over HTTP (K11b on the card for a 3-linear actor or Q net),
+``utils/profiling.py`` traces and reads the card's time, ``marl/`` trains
+the multi-agent family and ``rlsolver/`` holds the combinatorial solvers.
+Where the JAX package runs XLA ops instead of a kernel, the port runs
+PyTorch ops, on a card too.
 """
 
 __version__ = "0.1.0"
@@ -46,4 +50,5 @@ from .agents import (AgentD3QN, AgentDDPG, AgentDDPGHterm, AgentDoubleDQN,  # no
                      AgentTD3, AgentTD3Hterm, AgentPixelPPO)
 from .envs import (IsaacVecEnv, PixelChasingEnv, SimUnavailable, get_env_args,  # noqa: F401
                    gym_env_def, load_isaac_task, make_host_env, make_isaac_env)
-from . import agents, envs, ops, parallel, train, utils  # noqa: F401
+from .serve import PolicyServer  # noqa: F401
+from . import agents, envs, ops, parallel, rlsolver, train, utils  # noqa: F401

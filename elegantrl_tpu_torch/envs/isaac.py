@@ -171,13 +171,21 @@ class IsaacVecEnv:
         return obs, rewards, terminals, truncates, {}
 
 
-def mock_vectask(num_envs: int, device='cpu'):
+def mock_vectask(num_envs: int, device=None):
     """A point-mass reach task with the VecTask surface (the JAX package's
-    ``examples/plan_Isaac_Gym.py`` mock, its tensors on ``device``): obs and
+    ``examples/plan_Isaac_Gym.py`` mock, its tensors on ``device``: None is
+    the card, as for ``Config``, and without a GPU it raises, naming
+    ``device='cpu'``; a device given is taken as given): obs and
     actions 2-D, an obs dict, reward ``-distance``, the sub-envs that reach
     the target or run 40 steps re-spawned inside ``step``, and
     ``info['time_outs']`` marking the time-outs.  Scripted optimum about
     -2.3 a 40-step episode, random about -30."""
+    from types import SimpleNamespace
+
+    from ..config import resolve_device
+    if device is None:
+        device = resolve_device(SimpleNamespace(device='cuda'), owner='mock_vectask')
+
     class MockVecTask:
         def __init__(self):
             self.num_envs, self.num_obs, self.num_actions = num_envs, 2, 2

@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -333,12 +334,23 @@ def _stream(dev) -> int:
 
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
 
 
 def _library():
+    """The kernels' library, built and loaded at first use; the first load
+    holds a lock, since the policy server (``serve.py``) calls the wrappers
+    from a thread per request."""
     global _LIB
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = _load_library()
+    return _LIB
+
+
+def _load_library():
     from ._cuda_build import load
     lib = load('kernels')
     if lib.gae_vtrace.argtypes is None:
@@ -351,5 +363,4 @@ def _library():
         for fn in (lib.gae_vtrace, lib.buffer_gather_fields, lib.fused_mlp3,
                    lib.fused_mlp3_smem_bytes, lib.fused_mlp3_config):
             fn.restype = ctypes.c_int
-    _LIB = lib
     return lib

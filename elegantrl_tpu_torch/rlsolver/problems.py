@@ -43,11 +43,7 @@ class Problem(Enum):
 
 # the JAX package's modules of the problems whose simulators the port has
 # not yet (ROADMAP.md)
-_TO_COME = {
-    Problem.graph_partitioning: 'partition.py', Problem.set_cover: 'setcover.py',
-    Problem.bilp: 'bilp.py', Problem.portfolio_allocation: 'portfolio.py',
-    Problem.vrp: 'vrp.py', Problem.tnco: 'tnco.py',
-}
+_TO_COME = {Problem.vrp: 'vrp.py', Problem.tnco: 'tnco.py'}
 
 
 def supported_problems() -> set:
@@ -110,6 +106,23 @@ def make_simulator(problem: Problem, device=None, **kwargs):
     if problem == Problem.number_partitioning:
         from .numberpart import NumberPartitionSimulator
         return NumberPartitionSimulator(kwargs['numbers'], device=device)
+    if problem == Problem.graph_partitioning:
+        from .partition import GraphPartitionSimulator
+        return GraphPartitionSimulator(kwargs['edges'], kwargs['num_nodes'],
+                                       penalty=kwargs.get('penalty', 2.0), device=device)
+    if problem == Problem.set_cover:
+        from .setcover import SetCoverSimulator
+        return SetCoverSimulator(kwargs['membership'], penalty=kwargs.get('penalty'),
+                                 device=device)
+    if problem == Problem.bilp:
+        from .bilp import BILPSimulator
+        return BILPSimulator(kwargs['c'], kwargs['a'], kwargs['b'],
+                             penalty=kwargs.get('penalty'), device=device)
+    if problem == Problem.portfolio_allocation:
+        from .portfolio import PortfolioSimulator
+        return PortfolioSimulator(kwargs['mu'], kwargs['sigma'], kwargs['k'],
+                                  risk_lambda=kwargs.get('risk_lambda', 1.0),
+                                  penalty=kwargs.get('penalty'), device=device)
     from .tsp import TSPSimulator
     return TSPSimulator(kwargs['cities'], device=device)
 

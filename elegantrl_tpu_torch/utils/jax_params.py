@@ -694,3 +694,47 @@ def mappo_rnn_state_to_numpy(state) -> NumpyMAPPORnnState:
     return NumpyMAPPORnnState(tree_numpy(state.actor), tree_numpy(state.critic),
                               _marl_adam_tree(state.act_opt, state.actor),
                               _marl_adam_tree(state.cri_opt, state.critic))
+
+
+# ---- the learned solvers of rlsolver/.  Their parameters keep the JAX
+# layout (weights ``(in, out)``, the same NamedTuple fields, tuples and
+# dicts), so each converter takes the numpy tree (``jax.tree.map(np.asarray,
+# params)``) leaf for leaf, by position, into the port's NamedTuple.
+
+def s2v_params_from_numpy(tree, device):
+    from ..rlsolver.s2v_dqn import S2VParams
+    return S2VParams(*_torch_tree(tree, device))
+
+
+def mpnn_params_from_numpy(tree, device):
+    """ECO-DQN's ``MPNNParams`` (``w_msg``/``w_upd`` tuples of layers)."""
+    from ..rlsolver.eco_dqn import MPNNParams
+    return MPNNParams(*_torch_tree(tree, device))
+
+
+def runcsp_params_from_numpy(tree, device):
+    from ..rlsolver.runcsp import RunCSPParams
+    return RunCSPParams(*_torch_tree(tree, device))
+
+
+def l2a_params_from_numpy(tree, device):
+    from ..rlsolver.l2a import L2AParams
+    return L2AParams(*_torch_tree(tree, device))
+
+
+def am_params_from_numpy(tree, device):
+    """The attention-model TSP's ``AMParams`` (tuples of weights)."""
+    from ..rlsolver.attention_tsp import AMParams
+    return AMParams(*_torch_tree(tree, device))
+
+
+def graph_trs_params_from_numpy(tree, device):
+    """``GraphTRSParams`` (``layers`` a tuple of dicts)."""
+    from ..rlsolver.graph_trs import GraphTRSParams
+    return GraphTRSParams(*_torch_tree(tree, device))
+
+
+def pignn_params_from_numpy(tree, device) -> dict:
+    """PI-GNN's parameter dict (``embed``, ``w0``, ``b0``, ``w1``, ``b1``,
+    each with its leading replica axis)."""
+    return _torch_tree(tree, device)

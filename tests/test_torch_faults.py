@@ -258,6 +258,21 @@ def test_env_classes_default_to_the_card(monkeypatch):
     assert obs.shape == (2, 3) and obs.device.type == 'cpu'
 
 
+def test_mock_vectask_defaults_to_the_card(monkeypatch):
+    """Fault 18: ``mock_vectask`` without a device built its tensors on the
+    CPU.  It is the card now, as ``Config``: without a GPU it raises, naming
+    ``device='cpu'``; a device given is taken as given."""
+    from elegantrl_tpu_torch.envs.isaac import mock_vectask
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mock_vectask(4)
+    task = mock_vectask(4, device='cpu')
+    obs = task.reset()['obs']
+    assert obs.shape == (4, 2) and obs.device.type == 'cpu'
+    obs, rew, _, info = task.step(torch.zeros((4, 2)))
+    assert obs['obs'].device.type == 'cpu' and rew.shape == (4,)
+
+
 # fault 16: past the rollouts' shared-memory widths the card raised; the JAX
 # runner takes its kernel there.  The streamed design takes every width to
 # (1024, 1024) and past it, for every body and head in both compute types.

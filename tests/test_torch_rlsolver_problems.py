@@ -393,7 +393,8 @@ def test_problem_registry():
     assert r.supported_problems() == {
         r.Problem.maxcut, r.Problem.maximum_independent_set, r.Problem.minimum_vertex_cover,
         r.Problem.graph_coloring, r.Problem.knapsack, r.Problem.number_partitioning,
-        r.Problem.tsp}
+        r.Problem.tsp, r.Problem.graph_partitioning, r.Problem.set_cover, r.Problem.bilp,
+        r.Problem.portfolio_allocation}
     sim = r.make_simulator('maxcut', edges=K4, num_nodes=4, device=CPU)
     assert float(sim.obj(torch.tensor([[0., 0., 1., 1.]]))[0]) == 4.0
     assert isinstance(r.make_simulator(r.Problem.graph_coloring, edges=K4, num_nodes=4,
@@ -402,10 +403,10 @@ def test_problem_registry():
                       r.TSPSimulator)
     with pytest.raises(TypeError, match='instance'):
         r.make_simulator(r.Problem.vrp)
-    with pytest.raises(NotImplementedError, match='partition.py'):
-        r.make_simulator(r.Problem.graph_partitioning, edges=K4, num_nodes=4, device=CPU)
-    with pytest.raises(NotImplementedError, match='setcover.py'):
-        r.make_simulator('set_cover', membership=np.eye(4), device=CPU)
+    with pytest.raises(NotImplementedError, match='vrp.py'):
+        r.make_simulator(r.Problem.vrp, instance=None, device=CPU)
+    with pytest.raises(NotImplementedError, match='tnco.py'):
+        r.make_simulator('tnco', bonds_log2=None, device=CPU)
 
 
 def test_generic_drivers_reject_minimizing_sims():
