@@ -202,6 +202,19 @@ PyTorch version:
     800-node instances, the attention-model TSP (20 cities) and the
     GraphTRS pretrain with its L2A transfer, every x recomputed in float64
     on the host and each beating random search;
+15g. ``vrp_tnco_phases`` (``rlsolver_vrp_tnco``): ``vrptw_solve`` on the
+    bundled ``rand24_vrptw.txt`` and a 100-customer Solomon-sized instance,
+    each best tour checked on the host and its distance recomputed in
+    float64; the TNCO greedy and annealing on an 8 x 8 grid and a 64-node
+    random network, each cost recomputed by a host evaluator; the matrix
+    chain at its DP optimum; ``examples_torch/tutorial_rlsolver.py``.  Then
+    ``driver_phases`` (``drivers``): every training driver of
+    ``helloworld_torch/`` and ``examples_torch/`` that needs no gymnasium,
+    as a user calls it, its ``Config`` cut to two rounds and one
+    evaluation, each asserting the set of kernels it launches, the
+    paper-trading loop served by ``PolicyServer``; beside it,
+    ``helloworld_learns``: the four single files in child processes, each
+    to its own learning assert (a miss is reported, a crash fails);
 16. the kernels line (the sharded wrappers' numbers ride with the entry of
     the kernel they launch, ``sharded``) and the device line.
 
@@ -233,6 +246,7 @@ Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -257,8 +271,12 @@ H100_TF32_TFLOPS = CHIP_PEAKS['H100 SXM']['tf32_tflops']
 H100_BF16_TFLOPS = CHIP_PEAKS['H100 SXM']['bf16_tflops']
 
 
+T_START = time.time()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({**kw, 't': round(time.time() - T_START, 1)}), flush=True)
 
 
 def scalars(metrics):
@@ -3576,11 +3594,26 @@ def probe_phases(torch, dev, bound):
     (exact in any summation order); then the probes' entry point
     (``scripts/torch_probe_ops.py``) with the launch counts reset just
     before it.  Returns their entries of the kernels line."""
-    import importlib.util
-    from pathlib import Path
     from elegantrl_tpu_torch.ops import probes
     T, R, L = probes.T_DEFAULT, probes.R_DEFAULT, probes.LANES
     results = {}
+
+    def rows_sum(tab, idx):
+        return torch.sum(torch.index_select(tab, 0, idx.reshape(-1)[:1])).expand(8, L)
+
+    # one PyTorch expression a probe computing the same function (at most two
+    # launches: the row or column read, then the sum or the broadcast copy)
+    library = {
+        'sublane_dynslice_value': rows_sum, 'sublane_dynslice_ref': rows_sum,
+        'scalar_from_vmem': rows_sum,
+        'transpose_1xN': lambda x: x.t().expand(x.shape[1], L).contiguous(),
+        'dynslice_then_transpose': lambda tab, day: torch.index_select(
+            tab, 0, day.reshape(-1)[:1]).t().expand(tab.shape[1], L).contiguous(),
+        'lane_dynslice_ref': lambda tab, day: torch.index_select(
+            tab, 1, day.reshape(-1)[:1]).expand(tab.shape[0], L).contiguous(),
+        'fori_scalar_carry': lambda tab: torch.sum(tab[:probes.STEPS], 0)[:, None].expand(
+            tab.shape[1], L).contiguous(),
+    }
     for name, (fn, ref) in probes.WRAPPERS.items():
         inputs = probes.probe_inputs(name, dev)
         got, want = fn(*inputs), ref(*inputs)
@@ -3601,22 +3634,24 @@ def probe_phases(torch, dev, bound):
                 random_cases.append((T_, R_))
         ms = cuda_ms(torch, lambda: fn(*inputs), reps=50, warmup=3)
         plain = cuda_ms(torch, lambda: ref(*inputs), reps=20, warmup=2)
+        lib = library[name]
+        lib_err = float((lib(*inputs) - got).abs().max())
+        assert lib_err <= 1e-4 * float(got.abs().max()), (name, lib_err)
+        lib_ms = cuda_ms(torch, lambda: lib(*inputs), reps=50, warmup=3)
         # bytes the function needs: the row(s) it reads, the index, the output
         read = {'transpose_1xN': R, 'fori_scalar_carry': probes.STEPS * R}.get(name, R + 1)
         b_ms, b_by = bound(0, 4 * (read + got.numel()))
         results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, first=got.flatten()[:4].tolist(),
-                             random_cases=len(random_cases))
+                             random_cases=len(random_cases), library_ms=lib_ms,
+                             library_max_abs_diff=lib_err)
         emit(phase='probes_vs_plain', probe=name, out=tuple(got.shape),
              first_values=results[name]['first'], expected_at_script_inputs=True,
              random_inputs=sorted(set(random_cases)), bitwise_equal=True,
-             **{k: v for k, v in results[name].items() if k != 'first'}, library_ms=None,
+             **{k: v for k, v in results[name].items() if k != 'first'},
              tolerance='exact (integer-valued f32)')
     # the probes' entry point, as a user runs it
-    path = Path(__file__).resolve().parent / 'scripts' / 'torch_probe_ops.py'
-    spec = importlib.util.spec_from_file_location('torch_probe_ops', path)
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
+    script = load_script('scripts', 'torch_probe_ops')
     for fn, _ in probes.WRAPPERS.values():
         fn.launches = 0
     script.main()
@@ -3628,7 +3663,8 @@ def probe_phases(torch, dev, bound):
              'replaces': f'scripts/probe_mosaic_ops.py:{probes.PROBES[name][2]}',
              'launches': launches[name], 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
              'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
-             'library_ms': None, 'main_path': 'scripts/torch_probe_ops.py (no training path)'}
+             'library_ms': r['library_ms'],
+             'main_path': 'scripts/torch_probe_ops.py (no training path)'}
             for name, r in results.items()]
 
 
@@ -4919,6 +4955,477 @@ def rlsolver_more_phases(torch, dev, name, smi):
     return table
 
 
+# ------------------------------------------------- rlsolver/vrp.py and tnco.py
+
+def vrptw_host_check(inst, tour):
+    """An independent host checker of one VRPTW tour (``tests/test_vrp.py``'s
+    ``_validate``): every customer once, capacity, time windows; returns the
+    tour's distance, the first leg out of the depot included, in float64."""
+    xy = np.asarray(inst['xy'], np.float64)
+    dist = lambda a, b: float(np.hypot(*(xy[a] - xy[b])))   # noqa: E731
+    seen, pos, clock, cap, total = set(), 0, 0.0, inst['capacity'], 0.0
+    for node in np.asarray(tour).tolist():
+        total += dist(pos, node)
+        if node == 0:
+            pos, clock, cap = 0, 0.0, inst['capacity']
+            continue
+        assert node not in seen, f'customer {node} visited twice'
+        seen.add(node)
+        start = max(clock + dist(pos, node), inst['ready'][node])
+        assert start <= inst['due'][node] + 1e-4, f'window violated at {node}'
+        cap -= inst['demand'][node]
+        assert cap >= -1e-6, f'capacity violated at {node}'
+        clock = start + inst['service'][node]
+        pos = node
+    assert seen == set(range(1, len(xy))), 'not all customers served'
+    return total
+
+
+def host_contract_log2(bonds, open_, order_pairs):
+    """log2 of the multiply count of contracting node pairs in order, by an
+    independent evaluator (``tests/test_tnco.py``'s ``host_contract_cost``):
+    explicit clusters, float64 dims."""
+    n = len(bonds)
+    clusters, owner, total = {i: {i} for i in range(n)}, list(range(n)), 0.0
+
+    def ext(cl):
+        d = 0.0
+        for i in cl:
+            d += open_[i] + sum(bonds[i][j] for j in range(n) if j not in cl)
+        return d
+
+    for u, v in order_pairs:
+        a, b = owner[u], owner[v]
+        if a == b:
+            continue
+        shared = sum(bonds[i][j] for i in clusters[a] for j in clusters[b])
+        total += 2.0 ** (ext(clusters[a]) + ext(clusters[b]) - shared)
+        clusters[a] |= clusters.pop(b)
+        for i in clusters[a]:
+            owner[i] = a
+    return math.log2(total)
+
+
+def vrp_tnco_phases(torch, dev, name, smi):
+    """``rlsolver_vrp_tnco``: ``vrptw_solve`` with 512 sims on the committed
+    ``rand24_vrptw.txt`` and on ``random_vrptw(100, seed=0, num_vehicles=25,
+    capacity=200)`` (Solomon's size and C1 capacity), each best tour checked
+    by the host checker and its distance recomputed in float64; the TNCO
+    greedy (256 sims) and annealing (512 x 256) on ``grid_tn(8, 8,
+    bond_log2=2)`` and ``random_tn(64, degree=3, seed=0)``, each result
+    recomputed by the host evaluator (the greedy's merges, the annealing's
+    priority order); the annealing on a matrix chain against its DP optimum;
+    and ``examples_torch/tutorial_rlsolver.py``'s ``main`` on the card."""
+    from elegantrl_tpu_torch import rlsolver as rs
+    from elegantrl_tpu_torch.rlsolver.graphs import data_path, read_solomon
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    for label, inst in (('rand24_vrptw.txt', read_solomon(data_path('rand24_vrptw.txt'))),
+                        ('random_vrptw(100, seed=0, num_vehicles=25, capacity=200)',
+                         rs.random_vrptw(100, seed=0, num_vehicles=25, capacity=200.0))):
+        rs.vrptw_solve(inst, 1, num_sims=64, device=dev)                       # warm-up
+        (d, tour, veh), secs = timed(lambda: rs.vrptw_solve(inst, 0, num_sims=512, device=dev))
+        host_d = vrptw_host_check(inst, tour)
+        assert math.isfinite(d) and veh <= inst['num_vehicles'], (label, d, veh)
+        assert abs(host_d - d) <= 1e-4 * host_d, (label, d, host_d)
+        emit(phase='rlsolver_vrp_tnco', solver='vrptw_solve', instance=label,
+             customers=len(inst['xy']) - 1, num_sims=512, tour_len=len(tour), distance=d,
+             distance_float64=host_d, vehicles=veh, vehicle_budget=inst['num_vehicles'],
+             seconds=round(secs, 4), device=name, nvidia_smi=smi)
+
+    nets = (('grid_tn(8, 8, bond_log2=2.0)', rs.grid_tn(8, 8, bond_log2=2.0, device=dev)),
+            ('random_tn(64, degree=3, seed=0)', rs.random_tn(64, degree=3, seed=0, device=dev)))
+    for label, sim in nets:
+        bonds = sim.bonds.cpu().double().numpy()
+        open_ = sim.open.cpu().double().numpy()
+        edges = list(zip(sim.edges_u.tolist(), sim.edges_v.tolist()))
+        rand_c = sim.contraction_cost(sim.rand_xs(7, 512))
+        (g_c, merges), g_s = timed(lambda: rs.tnco_greedy(sim, 0, num_sims=256))
+        (a_c, a_x), a_s = timed(lambda: rs.tnco_anneal(sim, 0, num_sims=512, num_steps=256))
+        g_host = host_contract_log2(bonds, open_, merges.tolist())
+        order = np.argsort(a_x.cpu().numpy(), kind='stable')
+        a_host = host_contract_log2(bonds, open_, [edges[i] for i in order])
+        assert abs(g_host - float(g_c)) < 1e-3 and abs(a_host - float(a_c)) < 1e-3, (
+            label, float(g_c), g_host, float(a_c), a_host)
+        assert float(a_c) <= float(rand_c.min()) + 1e-4, (label, float(a_c), float(rand_c.min()))
+        emit(phase='rlsolver_vrp_tnco', solver='tnco', instance=label, nodes=sim.num_nodes,
+             edges=sim.num_edges, greedy=dict(num_sims=256, log2_cost=float(g_c),
+                                              log2_cost_float64=g_host, seconds=round(g_s, 4)),
+             anneal=dict(num_sims=512, num_steps=256, log2_cost=float(a_c),
+                         log2_cost_float64=a_host, seconds=round(a_s, 4)),
+             random_best_of_512=float(rand_c.min()), random_median=float(rand_c.median()),
+             device=name, nvidia_smi=smi)
+
+    dims = [32, 2, 64, 4, 128, 2]
+    chain = rs.matrix_chain(dims, device=dev)
+    (c_c, _), c_s = timed(lambda: rs.tnco_anneal(chain, 0, num_sims=256, num_steps=128))
+    opt = rs.matrix_chain_dp(dims)
+    assert abs(2.0 ** float(c_c) - opt) <= 1e-4 * opt, (2.0 ** float(c_c), opt)
+    emit(phase='rlsolver_vrp_tnco', solver='tnco_anneal', instance=f'matrix_chain({dims})',
+         multiplies=2.0 ** float(c_c), dp_optimum=opt, seconds=round(c_s, 4), device=name)
+
+    tutorial = load_script('examples_torch', 'tutorial_rlsolver')
+    out, t_s = timed(lambda: tutorial.main(device=dev))
+    assert np.isclose(2.0 ** out['tnco'][0], out['tnco'][1], rtol=1e-4), out['tnco']
+    assert math.isfinite(out['vrptw'][0]) and out['maxcut'][3] >= out['maxcut'][0], out
+    emit(phase='rlsolver_vrp_tnco', solver='examples_torch/tutorial_rlsolver.py', results=out,
+         seconds=round(t_s, 3), device=name)
+
+
+# ------------------------------------------- helloworld_torch/, examples_torch/
+
+def load_script(tree, name):
+    """``tree/name.py`` of this checkout as a module (a driver that imports a
+    sibling by name finds it in its own tree)."""
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(root, tree)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    sys.path.insert(0, folder)
+    try:
+        spec = importlib.util.spec_from_file_location(f'{tree}.{name}',
+                                                      os.path.join(folder, name + '.py'))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(folder)
+    return mod
+
+
+# Each training driver that needs no gymnasium, as its __main__ calls it by
+# default (plan_DDPG_H with its 'quick' arguments: its full variant's ring,
+# 2e6 rows x 1024 envs of HopperSlip transitions, is 90 GB), and the set of
+# kernels each must launch on the card: (tree, file, function, arguments,
+# kernels).  The helloworld tutorial's three calls are the erl tutorials'.
+_ON = {'fused_rollout', 'ppo_update', 'gae_vtrace', 'fused_mlp3'}       # K1/K3, K2/K5, K10, K11b
+_A2C = {'fused_rollout', 'gae_vtrace', 'fused_mlp3'}                    # no update kernel
+_GEN = {'ppo_update', 'gae_vtrace', 'fused_mlp3'}                       # the generic rollout
+_STOCK = {'fused_rollout', 'critic_values', 'ppo_update', 'gae_vtrace', 'fused_mlp3'}   # K4
+_OFF = {'offpolicy_rollout', 'buffer_gather'}                          # K6/K6', K11a
+_DDPG = _OFF | {'ddpg_update', 'fused_mlp3'}                            # K7, K11b
+_SAC = _OFF | {'sac_update'}                                           # K8
+_DQN = _OFF | {'dqn_update'}                                           # K9
+_E, _H = 'examples_torch', 'helloworld_torch'
+DRIVER_RUNS = [
+    (_E, 'tutorial_helloworld_DQN_DDPG_PPO', 'tutorial_dqn', (), _OFF | {'fused_mlp3'}),
+    (_E, 'tutorial_helloworld_DQN_DDPG_PPO', 'tutorial_ddpg', (), _DDPG),
+    (_E, 'tutorial_helloworld_DQN_DDPG_PPO', 'tutorial_ppo', (), _ON),
+    (_H, 'erl_tutorial_DDPG_TD3_SAC', 'train_for_pendulum', ('AgentTD3',), _DDPG),
+    (_H, 'erl_tutorial_DDPG_TD3_SAC', 'train_for_pendulum', ('AgentSAC',), _SAC),
+    (_H, 'erl_tutorial_DDPG_TD3_SAC', 'train_for_pendulum', ('AgentModSAC',), _SAC),
+    (_E, 'demo_A2C_PPO', 'train_ppo_a2c_for_pendulum', ('AgentPPO',), _ON),
+    (_E, 'demo_A2C_PPO', 'train_ppo_a2c_for_pendulum', ('AgentA2C',), _A2C),
+    (_E, 'demo_A2C_PPO', 'train_ppo_for_pendulum_many_envs', (), _A2C),   # batch 4096: autograd
+    (_E, 'demo_A2C_PPO', 'train_ppo_for_point_chasing', (), _ON),
+    (_E, 'demo_A2C_PPO_discrete', 'train_discrete_ppo_for_cartpole', ('AgentDiscretePPO',), _ON),
+    (_E, 'demo_A2C_PPO_discrete', 'train_discrete_ppo_for_cartpole', ('AgentDiscreteA2C',), _A2C),
+    (_E, 'demo_A2C_PPO_discrete', 'train_discrete_ppo_for_lunar_lander', ('AgentDiscretePPO',),
+     _GEN),
+] + [(_E, 'demo_DDPG_TD3_SAC', 'train_for_pendulum', (a,), k)
+     for a, k in (('AgentDDPG', _DDPG), ('AgentTD3', _DDPG), ('AgentSAC', _SAC),
+                  ('AgentModSAC', _SAC))] + [
+    (_E, 'demo_DDPG_TD3_SAC_with_PER', 'train_with_per', (a,), k)    # SAC under PER: autograd
+    for a, k in (('AgentDDPG', _DDPG), ('AgentTD3', _DDPG), ('AgentSAC', _OFF),
+                 ('AgentModSAC', _OFF))] + [
+    (_E, 'demo_DQN_variants', 'train_dqn_for_cartpole', (a,), k)
+    for a, k in (('AgentDQN', _DQN | {'fused_mlp3'}), ('AgentDoubleDQN', _DQN),
+                 ('AgentDuelingDQN', _DQN), ('AgentD3QN', _DQN),
+                 ('AgentEmbedDQN', {'buffer_gather'}), ('AgentEnsembleDQN', {'buffer_gather'}))
+] + [
+    (_E, 'demo_DQN_variants', 'train_dqn_for_point_chasing', (), _DQN),
+    (_E, 'demo_FinRL_stock_trading', 'train_ppo_for_stock_trading', (), _STOCK),
+] + [(_E, 'plan_DDPG_H', 'demo_offpolicy_h_term', (a, 16, int(1e5)), k)
+     for a, k in (('AgentDDPG', _DDPG), ('AgentDDPGHterm', _OFF | {'fused_mlp3'}),
+                  ('AgentTD3Hterm', _OFF | {'fused_mlp3'}), ('AgentSACHterm', _OFF),
+                  ('AgentModSACHterm', _OFF))] + [
+    (_E, 'plan_PPO_H', 'demo_ppo_h_term', ('AgentPPO',), _ON),
+    (_E, 'plan_PPO_H', 'demo_ppo_h_term', ('AgentPPOHterm',), {'gae_vtrace', 'fused_mlp3'}),
+    (_E, 'plan_Isaac_Gym', 'plan_isaac', ('mock',), _GEN),
+    (_E, 'plan_PaperTradingEnv_PPO', 'train', (False,), _STOCK),
+    (_E, 'tutorial_Creating_VecEnv', 'main', (), _GEN),
+    (_E, 'tutorial_Hopper_v3', 'train_native_hopper', (), _ON),
+    (_E, 'tutorial_LunarLanderContinuous_v2', 'train_native', (), _GEN),
+    (_E, 'tutorial_Pendulum_v1', 'main', (), _ON),
+]
+DRIVER_ROUNDS = 2   # each driver's Config cut to 2 rounds and one evaluation
+# the count each wrapper keeps by instantiation (body, head, variant, design)
+DRIVER_SPLITS = {'fused_rollout': 'launches_by_body', 'critic_values': 'launches_by_kind',
+                 'offpolicy_rollout': 'launches_by_kernel', 'ppo_update': 'launches_by_head',
+                 'dqn_update': 'launches_by_variant', 'ddpg_update': 'launches_by_variant',
+                 'sac_update': 'launches_by_variant'}
+_OFF_HEADS = ('ddpg', 'sac', 'modsac', 'dqn', 'dqn_enc', 'dqn_duel')
+
+
+def driver_key(row_name):
+    """The (wrapper, instantiation) of ``driver_phases``' counts that a
+    kernels-line row measures, from the row's name; None for a kernel no
+    driver reaches (the probes)."""
+    family, _, inside = row_name.partition('[')
+    parts = [p.strip() for p in inside.rstrip(']').split(',')] if inside else []
+    bf = family.endswith('_bf16')
+    family = family.removesuffix('_bf16')
+    design = ''.join(f',{p}' for p in parts if p.startswith('streamed'))
+    if family == 'fused_rollout' and len(parts) > 1 and parts[1] in _OFF_HEADS:
+        family = 'offpolicy_rollout'
+    if family == 'fused_rollout':
+        return family, (parts[0] if parts else 'Pendulum-v1') + ',bf16' * bf + design
+    if family == 'offpolicy_rollout':
+        return family, f'{parts[0]},{parts[1]}' + ',bf16' * bf + design
+    if family == 'critic_values':
+        return family, ('bf16' if bf else 'float32') + design
+    if family == 'ppo_update':
+        return family, 'discrete' if parts == ['discrete'] else 'continuous'
+    if family in ('dqn_update', 'ddpg_update', 'sac_update'):
+        return family, parts[0]
+    if family in ('gae_vtrace', 'fused_mlp3', 'buffer_gather_fields'):
+        return {'buffer_gather_fields': 'buffer_gather'}.get(family, family), ''
+    return None
+
+
+def drivers_on_rows(kernels, driver_launches, smi):
+    """Writes each instantiation's launches in ``drivers`` on the first
+    kernels-line row that measures it (``drivers_launches``; 0 on the rows
+    after it that measure the same instantiation at other sizes, and on the
+    rows of instantiations no driver launched), names the instantiation
+    (``drivers_kernel``), and prints the instantiations no row measures."""
+    seen = set()
+    for k in kernels:
+        key = driver_key(k['name'])
+        first = key is not None and key not in seen
+        seen.add(key)
+        k['drivers_kernel'] = None if key is None else f'{key[0]}[{key[1]}]'
+        k['drivers_launches'] = driver_launches.get(key[0], {}).get(key[1], 0) if first else 0
+    unmatched = {f'{f}[{i}]': n for f, split in driver_launches.items()
+                 for i, n in split.items() if (f, i) not in seen}
+    on_rows = sum(k['drivers_launches'] for k in kernels)
+    emit(phase='drivers_rows', on_rows=on_rows, unmatched=unmatched,
+         total=sum(n for split in driver_launches.values() for n in split.values()),
+         nvidia_smi=smi)
+
+
+def driver_phases(torch, dev, name, smi):
+    """``drivers``: each entry of ``DRIVER_RUNS`` as a user calls it, its
+    ``train_agent`` replaced in the module's namespace by one that takes the
+    ``Config`` the driver built, cuts it to ``DRIVER_ROUNDS`` rounds and one
+    evaluation (``eval_per_step`` = the rounds' env steps, ``break_step`` =
+    0) and trains it; the launch counts reset just before the driver and
+    read just after, and the set of kernels launched must be the entry's.
+    ``plan_PaperTradingEnv_PPO`` then paper-trades its trained policy
+    through its ``PolicyServer`` on localhost.  Returns the launches summed
+    over every driver, by kernel instantiation: ``{family: {key: n}}``, the
+    key being the wrapper's own split (``DRIVER_SPLITS``; ``''`` for a
+    wrapper with one instantiation)."""
+    import importlib
+    from elegantrl_tpu_torch import agents
+    from elegantrl_tpu_torch.ops import fused_offpolicy_update as fo
+    from elegantrl_tpu_torch.ops import fused_rollout as fr
+    from elegantrl_tpu_torch.ops import kernels as kn
+    from elegantrl_tpu_torch.ops.fused_update import ppo_update
+    from elegantrl_tpu_torch.train import runner
+
+    # every kernel wrapper a driver can reach, by the kernels line's family
+    counters = {'fused_rollout': fr.rollout, 'critic_values': fr.critic_values,
+                'offpolicy_rollout': fr.offpolicy_rollout, 'ppo_update': ppo_update,
+                'dqn_update': fo.dqn_chunk, 'ddpg_update': fo.ddpg_chunk,
+                'sac_update': fo.sac_chunk, 'gae_vtrace': kn.gae_vtrace_kernel,
+                'buffer_gather': kn.buffer_gather_fields, 'buffer_gather_one': kn.buffer_gather,
+                'fused_mlp3': kn.fused_mlp3}
+    splits = {k: getattr(c, DRIVER_SPLITS[k]) for k, c in counters.items()
+              if k in DRIVER_SPLITS}
+
+    def by_instantiation():
+        out = {}
+        for k, c in counters.items():
+            if not c.launches:
+                continue
+            out[k] = {i: n for i, n in splits[k].items() if n} if k in splits else {'': c.launches}
+            assert sum(out[k].values()) == c.launches, (k, c.launches, out[k])
+        return out
+
+    total = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_drivers_')
+    here = os.getcwd()
+    os.chdir(tmp)                          # the drivers write ./<env>_<agent>_<seed>/
+    try:
+        for tree, file, fn, fn_args, want in DRIVER_RUNS:
+            mod = load_script(tree, file)
+            taken = []
+
+            def cut(args, *a, **k):
+                steps = args.num_envs * args.horizon_len * DRIVER_ROUNDS
+                taken.append(dict(break_step=args.break_step, eval_per_step=args.eval_per_step))
+                args.eval_per_step, args.break_step = steps, 0
+                args.device = str(dev)
+                return runner.train_agent(args, *a, **k)
+
+            patched = [m for m in (mod, sys.modules.get('demo_DDPG_TD3_SAC'))
+                       if m is not None and hasattr(m, 'train_agent')]
+            if file == 'tutorial_helloworld_DQN_DDPG_PPO':
+                patched += [importlib.import_module(f'helloworld_torch.{e}') for e in (
+                    'erl_tutorial_DQN', 'erl_tutorial_PPO', 'erl_tutorial_DDPG_TD3_SAC')]
+            for m in patched:
+                m.train_agent = cut
+            resolved = [getattr(agents, a) if isinstance(a, str) and a.startswith('Agent')
+                        else a for a in fn_args]
+            for c in counters.values():
+                c.launches = 0
+            for split in splits.values():
+                split.update(dict.fromkeys(split, 0))
+            t0 = time.time()
+            out = getattr(mod, fn)(*resolved)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = by_instantiation()
+            for m in patched:
+                m.train_agent = runner.train_agent
+            result = out[1] if isinstance(out, tuple) else out
+            assert len(taken) == 1, (file, fn, taken)
+            assert set(launches) == want, (file, fn, fn_args, sorted(launches), sorted(want))
+            for k, split in launches.items():
+                for i, n in split.items():
+                    total.setdefault(k, {})[i] = total.get(k, {}).get(i, 0) + n
+            extra = {}
+            if file == 'plan_PaperTradingEnv_PPO':
+                t1 = time.time()
+                extra['paper_trading'] = dict(
+                    cumulative_returns=mod.paper_trade(out), seconds=round(time.time() - t1, 3),
+                    days='834-1113', served_by='PolicyServer on 127.0.0.1')
+                assert math.isfinite(extra['paper_trading']['cumulative_returns'])
+            elif isinstance(result, dict):
+                assert math.isfinite(result['max_r']), (file, fn, result['max_r'])
+                extra['max_r'] = float(result['max_r'])
+                extra['total_step'] = int(result['total_step'])
+            emit(phase='drivers', driver=f'{tree}/{file}.py:{fn}',
+                 args=list(fn_args),
+                 cut=dict(rounds=DRIVER_ROUNDS, evaluations=1, **taken[0]),
+                 launches=launches, seconds=round(secs, 3), **extra, device=name)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase='drivers_total', drivers=len(DRIVER_RUNS), launches=total, nvidia_smi=smi)
+    return total
+
+
+SAC_GRAPH_UPDATES = 8             # WARMUP eager, then the capture's replay and 4 more
+SAC_GRAPH_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def sac_graph_phase(torch, dev, name, smi):
+    """``helloworld_sac_graph``: the SAC single file's ``Updater`` (eager
+    warm-up updates on a side stream, then one captured CUDA graph replayed
+    from static ids, noise and row count) against its eager ``update``, two
+    agents from the same seed given the same minibatches: the three losses
+    after every update, then every parameter and Adam moment, within
+    ``SAC_GRAPH_TOL``.  The row count changes every update, so a row count
+    fixed at capture would show."""
+    sac = load_script('helloworld_torch', 'helloworld_SAC_single_file')
+    eager = sac.agent_init(torch.Generator().manual_seed(0), dev)
+    graphed = sac.agent_init(torch.Generator().manual_seed(0), dev)
+    ring, n, batch, h = sac.Ring(dev), sac.HP['num_envs'], sac.HP['batch'], 100
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ring.add(torch.randn((h, n, 3), generator=gen, device=dev),
+             torch.rand((h, n, 1), generator=gen, device=dev) * 2 - 1,
+             torch.randn((h, n), generator=gen, device=dev),
+             (torch.rand((h, n), generator=gen, device=dev) > 0.05).float())
+    updater = sac.Updater(graphed, ring)
+
+    def worst(a, b):
+        err = (a - b).detach().abs()
+        return float(err.max()), bool((err <= SAC_GRAPH_TOL['atol']
+                                       + SAC_GRAPH_TOL['rtol'] * b.abs()).all())
+
+    loss_err, ok = 0.0, True
+    for k in range(SAC_GRAPH_UPDATES):
+        rows = h - 1 - 7 * k
+        ids = torch.randint(0, rows * n, (batch,), generator=gen, device=dev)
+        noise = torch.randn((2, batch, 1), generator=gen, device=dev)
+        want = torch.stack(sac.update(eager, *ring.gather(ids, rows), noise[0], noise[1]))
+        updater(ids, rows, noise)
+        e, o = worst(torch.stack(updater.losses), want)
+        loss_err, ok = max(loss_err, e), ok and o
+    torch.cuda.synchronize()
+    param_err = 0.0
+    for ma, mb in ((eager.actor, graphed.actor), (eager.critic, graphed.critic),
+                   (eager.critic_tgt, graphed.critic_tgt)):
+        for pg, pe in zip(mb.parameters(), ma.parameters()):
+            e, o = worst(pg, pe)
+            param_err, ok = max(param_err, e), ok and o
+    e, o = worst(graphed.alpha_log, eager.alpha_log)
+    param_err, ok = max(param_err, e), ok and o
+    moment_err = 0.0
+    for og, oe in ((graphed.a_opt, eager.a_opt), (graphed.c_opt, eager.c_opt),
+                   (graphed.al_opt, eager.al_opt)):
+        for pg, pe in zip(og.param_groups[0]['params'], oe.param_groups[0]['params']):
+            for f in ('exp_avg', 'exp_avg_sq'):
+                e, o = worst(og.state[pg][f], oe.state[pe][f])
+                moment_err, ok = max(moment_err, e), ok and o
+    emit(phase='helloworld_sac_graph', updates=SAC_GRAPH_UPDATES,
+         replays=SAC_GRAPH_UPDATES - sac.Updater.WARMUP, captured=updater.graph is not None,
+         loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+         adam_moment_max_abs_err=moment_err, tol=SAC_GRAPH_TOL, device=name, nvidia_smi=smi)
+    assert updater.graph is not None and ok, (loss_err, param_err, moment_err)
+
+
+def start_single_files():
+    """``helloworld_learns``: the four single files as child processes on the
+    card (each its own CUDA context), each timed from its start to its exit
+    by a waiting thread."""
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for algo in ('DQN', 'PPO', 'REINFORCE', 'SAC'):
+        out = tempfile.TemporaryFile(mode='w+')
+        path = os.path.join(root, 'helloworld_torch', f'helloworld_{algo}_single_file.py')
+        proc = subprocess.Popen([sys.executable, path], stdout=out, stderr=subprocess.STDOUT,
+                                cwd=root)
+        run = dict(proc=proc, out=out, t0=time.time(), t1=None)
+        threading.Thread(target=lambda r=run: (r['proc'].wait(), r.__setitem__('t1', time.time())),
+                         daemon=True).start()
+        runs[algo] = run
+    return runs
+
+
+def finish_single_files(runs, name, smi, timeout_s):
+    """Waits for the four single files (killing any left at ``timeout_s``
+    from its start).  Each must end in its own learning assert: passed (exit
+    0, its last line the file's summary) or missed (its ``failed to learn``
+    assertion, reported as a miss, as a learning row's miss is); a crash or
+    a kill fails the phase."""
+    try:
+        for algo, r in runs.items():
+            try:
+                r['proc'].wait(timeout=max(1.0, r['t0'] + timeout_s - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for r in runs.values():
+            if r['proc'].poll() is None:
+                r['proc'].kill()
+                r['proc'].wait()
+    failed = []
+    for algo, r in runs.items():
+        r['out'].seek(0)
+        lines = r['out'].read().splitlines()
+        avg = [float(ln.split('avgR')[1].split()[0]) for ln in lines if 'avgR' in ln]
+        rc = r['proc'].returncode
+        last = lines[-1] if lines else ''
+        learned = rc == 0 and last.startswith('helloworld')
+        missed = rc == 1 and last.startswith('AssertionError') and 'failed to learn' in last
+        emit(phase='helloworld_learns', file=f'helloworld_torch/helloworld_{algo}_single_file.py',
+             rc=rc, learned=learned, seconds=round((r['t1'] or time.time()) - r['t0'], 2),
+             avgR=avg, last_line=last, device=name, nvidia_smi=smi)
+        if not (learned or missed):
+            failed.append((algo, rc, lines[-6:]))
+    assert not failed, failed
+
+
 def main():
     import torch
     from elegantrl_tpu_torch import Config, build_training, train_agent
@@ -5854,6 +6361,17 @@ def main():
     # ---- 15f. rlsolver/'s other problems and its learned solvers
     rlsolver_more_phases(torch, dev, name, smi)
 
+    # ---- 15g. rlsolver/vrp.py and tnco.py; then the drivers of helloworld_torch/
+    # and examples_torch/, the four single files learning beside them in child
+    # processes of their own (SAC's, the longest, sets the phase's time)
+    vrp_tnco_phases(torch, dev, name, smi)
+    sac_graph_phase(torch, dev, name, smi)
+    single_files = start_single_files()
+    try:
+        driver_launches = driver_phases(torch, dev, name, smi)
+    finally:
+        finish_single_files(single_files, name, smi, timeout_s=420)
+
     # ---- 16. kernels line and device line
     k1_err = max(max(k1[m]['max_abs_diff'].values()) for m in k1)
     rollout_src = 'elegantrl_tpu_torch/ops/csrc/fused_rollout.cu'
@@ -5944,6 +6462,8 @@ def main():
                                                      'max_abs_err', 'lanes_parted')}
     kernels += (offpolicy_kernels + stock_kernels + bf16_host_pixel_kernels + lunar_kernels
                 + probe_kernels + rlsolver_kernels + serve_kernels)
+    # each instantiation's launches in the drivers phase, on its row
+    drivers_on_rows(kernels, driver_launches, smi)
     # the sharded wrappers' per-shard launches ride with the kernel they launch
     for k in kernels:
         if k['name'] in sharded:

@@ -203,7 +203,7 @@ def make_stock_trading(initial_amount: float = 1e6, max_stock: float = 1e2,
 
     def obs(s: StockState) -> torch.Tensor:
         close, tech = tables.on(s.amount.device)
-        day = s.day.long()
+        day = torch.clamp(s.day.long(), max=max_step)    # as JAX's gather clamps
         return torch.cat([torch.tanh(s.amount * 2 ** -18)[:, None],
                           torch.tanh(s.shares * 2 ** -10),
                           close[day] * 2 ** -7,
@@ -212,7 +212,9 @@ def make_stock_trading(initial_amount: float = 1e6, max_stock: float = 1e2,
     def step(s: StockState, action: torch.Tensor, gen=None):
         close, _ = tables.on(s.amount.device)
         day = s.day + 1
-        prices = close[day.long()].T                     # (S, N)
+        # past the last day (a frozen episode of an evaluation longer than the
+        # table) the prices stay the last day's, as JAX's gather clamps
+        prices = close[torch.clamp(day.long(), max=max_step)].T     # (S, N)
         amount, shares = trade(s.amount, s.shares.T, action_lots(action, max_stock).T,
                                prices, cost_pct)
         total = total_asset(prices, shares, amount)

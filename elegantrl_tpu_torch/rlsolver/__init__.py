@@ -7,9 +7,9 @@ ECO-DQN, RUN-CSP, L2A with the GraphTRS pretrain, the attention-model TSP
 constructor, PI-GNN) and the optional exact wrappers.  Each simulator and
 solver runs on ``device`` (None: the card; a learned solver's inference on
 its parameters' device) and draws from a ``torch.Generator`` (the JAX
-package's ``key``), or replays given draws (``draws=``).
-
-Still to come (ROADMAP.md): ``vrp`` and ``tnco``.
+package's ``key``), or replays given draws (``draws=``).  The VRPTW
+constructor and the tensor-network contraction ordering (TNCO) solvers
+complete the JAX package's set.
 """
 from .graphs import (  # noqa: F401
     generate_graph, read_graph_txt, write_graph_txt, edges_to_adjacency,
@@ -33,6 +33,9 @@ from .attention_tsp import make_attention_tsp, train_attention_tsp  # noqa: F401
 from .l2a import make_l2a, l2a_solve  # noqa: F401
 from .graph_trs import make_graph_trs, pretrain_graph_trs  # noqa: F401
 from .ga import genetic_algorithm  # noqa: F401
+from .vrp import VRPTWSimulator, vrptw_solve, random_vrptw  # noqa: F401
+from .tnco import (TNCOSimulator, tnco_greedy, tnco_anneal,  # noqa: F401
+                   matrix_chain, matrix_chain_dp, random_tn, grid_tn)
 from .coloring import (  # noqa: F401
     GraphColoringSimulator, color_graph, chromatic_upper_bound,
 )

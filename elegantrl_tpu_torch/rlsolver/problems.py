@@ -1,9 +1,7 @@
 """Problem registry: the reference's ``Problem`` enum mapped to simulators
 (counterpart of ``elegantrl_tpu/rlsolver/problems.py``).
 
-Every problem of the enum is one the JAX package simulates; the port builds
-the simulators of its modules so far, and raises ``NotImplementedError``,
-naming the module, for a problem whose simulator is still to come.
+Every problem of the enum has a batched simulator in both packages.
 ``minimum_vertex_cover`` is solved through the complement of the MIS
 simulator (a set is a cover iff its complement is independent).
 """
@@ -41,14 +39,9 @@ class Problem(Enum):
     tsp = "tsp"
 
 
-# the JAX package's modules of the problems whose simulators the port has
-# not yet (ROADMAP.md)
-_TO_COME = {Problem.vrp: 'vrp.py', Problem.tnco: 'tnco.py'}
-
-
 def supported_problems() -> set:
-    """The problems with a batched simulator in the port."""
-    return set(Problem) - set(_TO_COME)
+    """The problems with a batched simulator in the port: all of them."""
+    return set(Problem)
 
 
 _REQUIRED_KWARGS = {
@@ -79,10 +72,6 @@ def make_simulator(problem: Problem, device=None, **kwargs):
         raise TypeError(
             f"make_simulator({problem}) missing required kwargs {missing}; "
             f"expects {_REQUIRED_KWARGS[problem]}")
-    if problem in _TO_COME:
-        raise NotImplementedError(
-            f"{problem}: the port has no simulator yet; it comes with "
-            f"elegantrl_tpu_torch/rlsolver/{_TO_COME[problem]} (elegantrl_tpu.rlsolver has it)")
     if problem == Problem.maxcut:
         from .maxcut import MaxCutSimulator
         return MaxCutSimulator(kwargs['edges'], kwargs['num_nodes'], device=device)
@@ -118,6 +107,13 @@ def make_simulator(problem: Problem, device=None, **kwargs):
         from .bilp import BILPSimulator
         return BILPSimulator(kwargs['c'], kwargs['a'], kwargs['b'],
                              penalty=kwargs.get('penalty'), device=device)
+    if problem == Problem.vrp:
+        from .vrp import VRPTWSimulator
+        return VRPTWSimulator(kwargs['instance'], device=device)
+    if problem == Problem.tnco:
+        from .tnco import TNCOSimulator
+        return TNCOSimulator(kwargs['bonds_log2'], open_log2=kwargs.get('open_log2'),
+                             device=device)
     if problem == Problem.portfolio_allocation:
         from .portfolio import PortfolioSimulator
         return PortfolioSimulator(kwargs['mu'], kwargs['sigma'], kwargs['k'],

@@ -33,6 +33,17 @@ On-policy:
   ``scripts/verify_learning.py:155-160``): the rollout kernel's bf16
   variant with the autograd update in bf16 (the JAX package runs its scan
   under bf16);
+- ``ppo_pendulum_4k``: AgentPPO on Pendulum-v1, 4096 envs, net (128, 64),
+  gamma 0.97, horizon 128, repeat 512, lr 1e-3, batch 4096, 3e7 steps, eval
+  every 2e6; target -120; ``ppo_pendulum_16k``: the same at 16,384 envs,
+  repeat 1024, batch 8192, 6e7 steps, eval every 8e6; target -120;
+  ``ppo_pendulum_tts``: ``ppo_pendulum_4k`` evaluated every 5e5 steps and
+  stopped at -150, its target, the line's ``tts`` the seconds to it
+  (``scripts/verify_learning.py:148-152, 326-338``; K1 with the autograd
+  update: the JAX package runs its scan at these batches);
+- ``discretea2c_cartpole``: AgentDiscreteA2C on CartPole-v1, 16 envs, net
+  (64, 64), horizon 128, repeat 8, lr 3e-4, batch 256, 2e5 steps; target
+  150 (``:203-208``);
 - ``a2c_pendulum``: AgentA2C on Pendulum-v1, 16 envs, net (64, 64), gamma
   0.9, horizon 8, one pass, lr 7e-4, batch 8, lambda_gae_adv 1, no entropy
   term, 5e5 steps; target -250.  The JAX recipe pins seed 2 because
@@ -76,7 +87,8 @@ Off-policy (``scripts/verify_learning.py:97-103,125-136,199-200,234-287``):
   ``per_alpha`` 0.6, ``per_beta`` 0.4 (the PER variant of the DDPG/TD3
   chunk); ``embeddqn_cartpole`` (300): AgentEmbedDQN on the DQN recipe at lr
   5e-4 and 5e5 steps (PyTorch rollout and update, as the JAX package runs
-  it on XLA ops); ``ddpgh_hopper`` and ``sach_hopper`` (1000): the Hopper
+  it on XLA ops); ``ensembledqn_cartpole`` (400): AgentEnsembleDQN on the
+  DQN recipe (PyTorch rollout and update; ``:199-200``); ``ddpgh_hopper`` and ``sach_hopper`` (1000): the Hopper
   recipe with AgentDDPGHterm and AgentSACHterm (the rollout kernel, a
   PyTorch update); ``ppohterm_hopper`` (2000): the ``ppo_hopper`` recipe
   with AgentPPOHterm, ``h_term_k_step`` 16 (PyTorch rollout and update)
@@ -217,12 +229,19 @@ def host_row(name):
     return (getattr(agents, agent), Lazy(make), {'num_envs': num_envs}, target, hypers)
 
 
+# the Pendulum scale recipe (scripts/verify_learning.py:148-152, 326-338):
+# 4096 envs, the update count scaled with the env count
+PEND_SCALE = dict(net_dims=(128, 64), gamma=0.97, horizon_len=128, repeat_times=512,
+                  learning_rate=1e-3, batch_size=4096, eval_per_step=int(2e6),
+                  break_step=int(3e7))
+
+
 def recipes():
     from elegantrl_tpu_torch.agents import (AgentA2C, AgentD3QN, AgentDDPG, AgentDDPGHterm,
-                                            AgentDiscretePPO, AgentDoubleDQN, AgentDQN,
-                                            AgentDuelingDQN, AgentEmbedDQN, AgentModSAC,
-                                            AgentPPO, AgentPPOHterm, AgentSAC, AgentSACHterm,
-                                            AgentTD3)
+                                            AgentDiscreteA2C, AgentDiscretePPO, AgentDoubleDQN,
+                                            AgentDQN, AgentDuelingDQN, AgentEmbedDQN,
+                                            AgentEnsembleDQN, AgentModSAC, AgentPPO,
+                                            AgentPPOHterm, AgentSAC, AgentSACHterm, AgentTD3)
     from elegantrl_tpu_torch.agents import AgentPixelPPO
     from elegantrl_tpu_torch.envs import (CartPoleEnv, HopperEnv, LunarLanderContinuousEnv,
                                           LunarLanderEnv, PendulumEnv, PixelChasingEnv,
@@ -311,6 +330,18 @@ def recipes():
             dict(net_dims=(128, 64), gamma=0.97, horizon_len=128, repeat_times=512,
                  learning_rate=1e-3, batch_size=4096, eval_per_step=int(2e6),
                  break_step=int(3e7), compute_dtype='bfloat16')),
+        'ensembledqn_cartpole': (AgentEnsembleDQN, CartPoleEnv, CARTPOLE, 400.0, DQN_CART),
+        'discretea2c_cartpole': (
+            AgentDiscreteA2C, CartPoleEnv, CARTPOLE, 150.0,
+            dict(net_dims=(64, 64), horizon_len=128, repeat_times=8, learning_rate=3e-4,
+                 batch_size=256, eval_per_step=int(2e4), break_step=int(2e5))),
+        'ppo_pendulum_4k': (AgentPPO, PendulumEnv, dict(PENDULUM, num_envs=4096), -120.0,
+                            dict(PEND_SCALE)),
+        'ppo_pendulum_16k': (AgentPPO, PendulumEnv, dict(PENDULUM, num_envs=16384), -120.0,
+                             dict(PEND_SCALE, repeat_times=1024, batch_size=8192,
+                                  eval_per_step=int(8e6), break_step=int(6e7))),
+        'ppo_pendulum_tts': (AgentPPO, PendulumEnv, dict(PENDULUM, num_envs=4096), -150.0,
+                             dict(PEND_SCALE, eval_per_step=int(5e5), break_score=-150.0)),
         'a2c_pendulum': (
             AgentA2C, PendulumEnv,
             {'env_name': 'Pendulum-v1', 'num_envs': 16, 'max_step': 200, 'state_dim': 3,
@@ -505,10 +536,15 @@ def main():
             extra = {}
             if env_args['env_name'] == 'StockTradingEnv-v2':
                 extra['market'] = market_check(args, res['agent_state'], len(res['recorder']))
+            # time to score: wall seconds to the first evaluation at or above
+            # the target (the JAX script's ``tts``)
+            tts = next((round(float(t), 1) for r, t in zip(res['recorder'],
+                                                           res['recorder_times'])
+                        if r[1] >= target), None)
             print(json.dumps({
                 'config': name, 'agent': agent_class.__name__, 'env': env_args['env_name'],
                 'device': device, 'seed': seed, 'max_r': float(res['max_r']),
-                'target': target, 'pass': bool(res['max_r'] >= target),
+                'target': target, 'pass': bool(res['max_r'] >= target), 'tts': tts,
                 'curve': [[int(r[0]), round(float(r[1]), 1)] for r in res['recorder']],
                 'steps': int(res['total_step']), 'seconds': round(seconds, 1),
                 'kernel_launches': {k: fn.launches - before[k] for k, fn in counted.items()

@@ -144,3 +144,30 @@ def sdp_draws(key, n, k, roundings):
     k_init, k_round = split(key)
     return {'v0': [_np(jax.random.normal(k_init, (n, k)))],
             'round': [_np(jax.random.normal(k_round, (k, roundings)))]}
+
+
+# vrp.py and tnco.py
+
+def normal_each(keys, shape):
+    return _np(jax.vmap(lambda k: jax.random.normal(k, shape))(keys))
+
+
+def vrptw_draws(key, S, n):
+    """``VRPTWSimulator.construct``: one ``(S, n)`` uniform a step of
+    ``split(key, 2 n)``."""
+    return {'jitter': uniform_each(split(key, 2 * n), (S, n))}
+
+
+def tnco_greedy_draws(key, S, n):
+    """``tnco_greedy``: replica ``s`` splits ``split(key, S)[s]`` into its
+    ``n - 1`` step keys; the port takes one ``(S, n, n)`` Gumbel a step."""
+    steps = jax.vmap(lambda k: split(k, n - 1))(split(key, S))
+    g = jax.vmap(jax.vmap(lambda k: jax.random.gumbel(k, (n, n))))(steps)   # (S, n - 1, n, n)
+    return {'gumbel': np.swapaxes(_np(g), 0, 1)}
+
+
+def tnco_anneal_draws(key, S, E, steps):
+    k0, k1 = split(key)
+    k_a, k_b = pairs(split(k1, steps))
+    return {'rand_xs': [_np(jax.random.normal(k0, (S, E)))],
+            'prop': normal_each(k_a, (S, E)), 'accept': uniform_each(k_b, (S,))}

@@ -396,3 +396,38 @@ def test_host_env_trains_under_a_mesh_of_two_processes(tmp_path):
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and 'WORKER-OK' in out, f'rank {r}:\n{out[-3000:]}'
     assert (tmp_path / 'run' / 'agent.npz').is_file()
+
+
+def test_stock_env_steps_past_its_last_day_as_jax():
+    """Fault 19: the stock env's ``step`` indexed its price table with the
+    next day unclamped, so stepping an episode already at its last day (a
+    frozen episode of an evaluation longer than the table: the FinRL demo
+    evaluates its 279-day tail for the training env's 833 steps) raised,
+    where the JAX env's gather clamps and reads the last day again.  Now the
+    day index is clamped as JAX's is; the step and the evaluation match."""
+    import jax
+    import jax.numpy as jnp
+    from elegantrl_tpu.envs.stock_trading import make_stock_trading as j_make
+    from elegantrl_tpu_torch.envs.stock_trading import make_stock_trading
+    from elegantrl_tpu_torch.train.evaluator import make_eval_fn
+    je = j_make(beg_idx=834, end_idx=1113, if_random_reset=False)
+    te = make_stock_trading(beg_idx=834, end_idx=1113, if_random_reset=False)
+    assert te.spec.max_step == je.spec.max_step == 278
+    js = je.init(jax.random.key(0))
+    ts = te.init(torch.Generator().manual_seed(0), 1, torch.device('cpu'))
+    action = np.linspace(-1, 1, 15).astype(np.float32)
+    for day in (277, 278):
+        js2, jr, jt, _ = je.step(js._replace(day=jnp.asarray(day, js.day.dtype)),
+                                 jnp.asarray(action), jax.random.key(1))
+        ts2, tr, tt, _ = te.step(ts._replace(day=torch.full((1,), day, dtype=ts.day.dtype)),
+                                 torch.as_tensor(action)[None], None)
+        assert int(ts2.day[0]) == int(js2.day) == day + 1 and bool(tt[0]) == bool(jt)
+        np.testing.assert_allclose(float(tr[0]), float(jr), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(ts2.total_asset[0].item(), float(js2.total_asset), rtol=1e-6)
+        np.testing.assert_allclose(te.obs(ts2)[0].numpy(), np.asarray(je.obs(js2)),
+                                   rtol=1e-5, atol=1e-6)
+    # an evaluation 833 steps long on the 279-day tail: done at day 278
+    eval_fn = make_eval_fn(te, lambda st, o: torch.zeros((o.shape[0], 15)), 2, 833,
+                           torch.device('cpu'))
+    returns, steps = eval_fn(None, torch.Generator().manual_seed(0))
+    assert np.all(steps == 278) and np.all(np.isfinite(returns))

@@ -386,15 +386,10 @@ def test_number_partition_as_jax_and_perfect_split():
 # ---------------------------------------------------------------- registry
 
 def test_problem_registry():
-    """The same enums; every problem the port simulates builds; the others
-    raise naming the module still to come."""
+    """The same enums; every problem of the enum builds its simulator."""
     assert [p.value for p in r.Problem] == [p.value for p in jr.Problem]
     assert [g.value for g in r.GraphType] == [g.value for g in jr.GraphType]
-    assert r.supported_problems() == {
-        r.Problem.maxcut, r.Problem.maximum_independent_set, r.Problem.minimum_vertex_cover,
-        r.Problem.graph_coloring, r.Problem.knapsack, r.Problem.number_partitioning,
-        r.Problem.tsp, r.Problem.graph_partitioning, r.Problem.set_cover, r.Problem.bilp,
-        r.Problem.portfolio_allocation}
+    assert r.supported_problems() == set(r.Problem)
     sim = r.make_simulator('maxcut', edges=K4, num_nodes=4, device=CPU)
     assert float(sim.obj(torch.tensor([[0., 0., 1., 1.]]))[0]) == 4.0
     assert isinstance(r.make_simulator(r.Problem.graph_coloring, edges=K4, num_nodes=4,
@@ -403,10 +398,10 @@ def test_problem_registry():
                       r.TSPSimulator)
     with pytest.raises(TypeError, match='instance'):
         r.make_simulator(r.Problem.vrp)
-    with pytest.raises(NotImplementedError, match='vrp.py'):
-        r.make_simulator(r.Problem.vrp, instance=None, device=CPU)
-    with pytest.raises(NotImplementedError, match='tnco.py'):
-        r.make_simulator('tnco', bonds_log2=None, device=CPU)
+    assert isinstance(r.make_simulator(r.Problem.vrp, instance=r.random_vrptw(4), device=CPU),
+                      r.VRPTWSimulator)
+    assert r.make_simulator('tnco', bonds_log2=np.ones((2, 2)) - np.eye(2),
+                            device=CPU).num_edges == 1
 
 
 def test_generic_drivers_reject_minimizing_sims():

@@ -4,8 +4,8 @@ on the CPU: ``obj`` and the flip gains on the same ``x`` (rtol 1e-6, atol
 1e-5: float32 products summed in another order; counts exactly), the
 searches on the JAX draws (``tests/rlsolver_jax_draws.py``), the JAX
 package's quality checks (``tests/test_rlsolver_problems2.py``) with the
-port's own draws, the registry (``vrp`` and ``tnco`` still raise, naming
-their module) and the exact wrappers raising ``SolverUnavailable``."""
+port's own draws, the registry (``vrp`` and ``tnco`` build their module's
+simulators) and the exact wrappers raising ``SolverUnavailable``."""
 import jax
 import numpy as np
 import pytest
@@ -200,7 +200,7 @@ def test_partition_penalty_scales_with_edge_weights():
 # ---- the registry and the exact wrappers
 
 def test_registry_builds_the_four_and_still_names_the_rest():
-    assert r.supported_problems() == set(r.Problem) - {r.Problem.vrp, r.Problem.tnco}
+    assert r.supported_problems() == set(r.Problem)
     c, a, b = _bilp()
     mu, sigma, k = _portfolio()
     built = {
@@ -217,10 +217,11 @@ def test_registry_builds_the_four_and_still_names_the_rest():
         assert sim.num_nodes == jsim.num_nodes and sim.penalty == jsim.penalty
     assert r.make_simulator('portfolio_allocation', device=CPU, mu=mu, sigma=sigma,
                             k=k, risk_lambda=0.5).lam == 0.5
-    for problem, kw, module in (('vrp', {'instance': None}, 'vrp.py'),
-                                ('tnco', {'bonds_log2': None}, 'tnco.py')):
-        with pytest.raises(NotImplementedError, match=module):
-            r.make_simulator(problem, device=CPU, **kw)
+    for problem, kw, cls in (('vrp', {'instance': r.random_vrptw(5, seed=3)}, r.VRPTWSimulator),
+                             ('tnco', {'bonds_log2': np.eye(3, k=1) + np.eye(3, k=-1)},
+                              r.TNCOSimulator)):
+        sim = r.make_simulator(problem, device=CPU, **kw)
+        assert isinstance(sim, cls) and sim.device.type == 'cpu'
     with pytest.raises(TypeError, match='membership'):
         r.make_simulator('set_cover', device=CPU)
 
